@@ -1,0 +1,553 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+card.  Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result):
+
+1. card   — the device, and ``nvidia-smi``'s name and power limit;
+2. build  — compile the CUDA kernels of ``src/repro_torch/kernels/csrc``;
+3. kernels — every kernel of the served path against its plain PyTorch
+   version on the card at the frontend's shapes (f32 with stated
+   tolerances, int8 bit-exact), the fused kernel bitwise against its
+   three-launch chain, and results independent of the tiling hints;
+4. serve  — ``AdaptiveServer(device="cuda")`` with the default CNN
+   frontend answers 8 seeded 224x224x3 requests through the fused plan
+   (launch counters reset just before and read just after), a
+   ``fuse=False`` server answers the same trace through the standalone
+   kernels bitwise equal, and a ``device="cpu"`` server (plain versions)
+   agrees within tolerance;
+5. times  — per kernel: the median device time of 20 launches (CUDA
+   events, launches queued ahead of the device), its plain version's
+   and the PyTorch library call's time, and the least time the card
+   could take (bytes over peak bandwidth or flops over peak FP32 rate);
+   then the served requests per second over 3 steady windows (rounds of
+   the 8-request trace, >= 512 requests and about 1 s each), and one
+   more such window under ``torch.profiler``: device time by kernel and
+   the device's busy share.
+
+Output: the ``{"kernels": [...]}`` JSON line, the card's
+``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
+``{"ok": true, "device": {...}}``.  Float32 convolutions in the library
+yardstick run with ``torch.backends.cudnn.allow_tf32 = False`` and
+matmuls with ``torch.backends.cuda.matmul.allow_tf32 = False`` (full
+IEEE float32, as the port computes).
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+CSRC = "src/repro_torch/kernels/csrc/cnn_kernels.cu"
+SEED = 0
+N_REQUESTS = 8
+MAX_BATCH = 4
+IMAGE = (224, 224, 3)
+REPS = 20
+# The served rate's window: rounds of the N_REQUESTS trace, at least this
+# many requests and about this many seconds; timed RATE_WINDOWS times.
+RATE_MIN_REQUESTS = 512
+RATE_WINDOW_S = 1.0
+RATE_WINDOWS = 3
+
+# Peak rates of the card, by the NVIDIA H100 data sheet (dense, without
+# sparsity): device-memory bandwidth in bytes/s and FP32 CUDA-core
+# FLOP/s.  The rates assume the card's full power limit.
+PEAKS = {
+    "H100 SXM": {"bytes_per_s": 3.35e12, "fp32_flops": 67e12},
+    "H100 PCIe": {"bytes_per_s": 2.0e12, "fp32_flops": 51e12},
+}
+
+# file:line of the TPU kernel each CUDA kernel replaces (the function
+# that reaches pl.pallas_call).
+REPLACES = {
+    "fused_cnn_vpu": "src/repro/kernels/fused/cnn_block.py:86",
+    "fused_cnn_mxu": "src/repro/kernels/fused/cnn_block.py:86",
+    "conv2d_ip1": "src/repro/kernels/conv2d/ip1_vpu.py:35",
+    "conv2d_ip2": "src/repro/kernels/conv2d/ip2_mxu.py:30",
+    "pool2d_window": "src/repro/kernels/pool2d/vpu_window.py:62",
+    "activation_exact": "src/repro/kernels/activation/vpu_exact.py:35",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def peaks_for(name: str) -> dict:
+    key = "H100 PCIe" if "PCIe" in name else "H100 SXM"
+    check("H100" in name, f"no peak table for card {name!r}")
+    return PEAKS[key]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def compare(name, got, want, rtol, atol, errs, exact=False):
+    import torch
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)}/{got.dtype} vs "
+          f"{tuple(want.shape)}/{want.dtype}")
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if exact:
+        check(torch.equal(got, want), f"{name}: not bit-exact "
+                                      f"(max abs err {err})")
+    else:
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name}: {m}")
+    errs[name] = max(errs.get(name, 0.0), err)
+    log(f"{name}: ok (max abs err {err:.3e}"
+        f"{', bit-exact' if exact else ''})")
+
+
+def kernel_checks(shapes, gen):
+    import torch
+    from repro_torch.kernels.activation.ref import KINDS
+    from repro_torch.kernels.activation.vpu_exact import (
+        activation_exact, activation_exact_plain)
+    from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1, conv2d_ip1_plain
+    from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2, conv2d_ip2_plain
+    from repro_torch.kernels.fused.cnn_block import (fused_cnn_mxu,
+                                                     fused_cnn_plain,
+                                                     fused_cnn_vpu)
+    from repro_torch.kernels.pool2d.vpu_window import (pool2d_window,
+                                                       pool2d_window_plain)
+
+    dev = torch.device("cuda")
+    errs = {}
+    conv = {"vpu": (conv2d_ip1, conv2d_ip1_plain, "conv2d_ip1"),
+            "mxu": (conv2d_ip2, conv2d_ip2_plain, "conv2d_ip2")}
+    fused = {"vpu": (fused_cnn_vpu, "fused_cnn_vpu"),
+             "mxu": (fused_cnn_mxu, "fused_cnn_mxu")}
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    for block, (xs, ws) in shapes.items():
+        x, w = randn(xs), randn(ws) * (ws[0] * ws[1] * ws[2]) ** -0.5
+        xi, wi = randint(-128, 127, xs), randint(-128, 127, ws)
+        for style, (kern, plain, name) in conv.items():
+            compare(name, kern(x, w), plain(x, w), 1e-4, 1e-5, errs)
+            compare(name, kern(xi, wi), plain(xi, wi), 0, 0, errs,
+                    exact=True)
+            # tiling hints shape the grid, never the result
+            check(torch.equal(kern(x, w, block_cout=5), kern(x, w)),
+                  f"{name}: result depends on block_cout")
+        y = conv2d_ip1(x, w)
+        yi = conv2d_ip1(xi, wi)
+        for mode in ("max", "avg"):
+            compare("pool2d_window", pool2d_window(y, mode=mode),
+                    pool2d_window_plain(y, mode=mode), 1e-6, 1e-6, errs)
+            for t in (xi, yi):          # int8 and int32 (negative sums)
+                compare("pool2d_window", pool2d_window(t, mode=mode),
+                        pool2d_window_plain(t, mode=mode), 0, 0, errs,
+                        exact=True)
+        check(torch.equal(pool2d_window(y, block_c=3), pool2d_window(y)),
+              "pool2d_window: result depends on block_c")
+        pooled = pool2d_window(y)
+        for kind in KINDS:
+            compare("activation_exact", activation_exact(pooled, kind=kind),
+                    activation_exact_plain(pooled, kind=kind), 1e-6, 1e-6,
+                    errs)
+        compare("activation_exact", activation_exact(yi, kind="relu"),
+                activation_exact_plain(yi, kind="relu"), 0, 0, errs,
+                exact=True)
+        check(torch.equal(activation_exact(pooled, block_rows=7),
+                          activation_exact(pooled)),
+              "activation_exact: result depends on block_rows")
+        # NaN propagates through max-pool and relu, as in the reference
+        ynan = y.clone()
+        ynan[0, 0, 0, 0] = float("nan")
+        check(bool(torch.isnan(activation_exact(
+            pool2d_window(ynan))[0, 0, 0, 0])), "NaN dropped by max/relu")
+
+        scale = torch.rand(ws[-1], generator=gen).to(dev) * 1e-3
+        for style, (kern, name) in fused.items():
+            ckern = conv[style][0]
+            for mode, kind in (("max", "relu"), ("avg", "tanh"),
+                               ("max", "gelu")):
+                got = kern(x, w, pool_mode=mode, act_kind=kind)
+                compare(name, got, fused_cnn_plain(
+                    style, x, w, pool_mode=mode, act_kind=kind), 1e-4, 1e-5,
+                    errs)
+                chain = activation_exact(pool2d_window(ckern(x, w),
+                                                       mode=mode), kind=kind)
+                check(torch.equal(got, chain),
+                      f"{name} ({mode}, {kind}): not bitwise equal to its "
+                      f"three-launch chain")
+            for mode in ("max", "avg"):
+                compare(name, kern(xi, wi, pool_mode=mode),
+                        fused_cnn_plain(style, xi, wi, pool_mode=mode),
+                        0, 0, errs, exact=True)
+                compare(name, kern(xi, wi, scale, pool_mode=mode),
+                        fused_cnn_plain(style, xi, wi, scale,
+                                        pool_mode=mode), 0, 0, errs,
+                        exact=True)
+            check(torch.equal(kern(x, w, block_cout=3), kern(x, w)),
+                  f"{name}: result depends on block_cout")
+        log(f"{block}: fused == chain bitwise for both styles")
+    torch.cuda.synchronize()
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serving
+# ---------------------------------------------------------------------------
+def serve(device, fuse, requests, seed=SEED):
+    import torch
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime.server import AdaptiveServer
+    from repro_torch.core.plan import clear_plan_cache
+    clear_plan_cache()
+    srv = AdaptiveServer(device=device, fuse=fuse, max_batch=MAX_BATCH)
+    params = init_cnn_frontend(seed, device=device)
+    srv.register("cnn", params, IMAGE)
+    for x in requests:
+        srv.submit("cnn", x)
+    done = srv.drain()
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    return srv, sorted(done, key=lambda c: c.rid)
+
+
+def serve_checks():
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import replan
+    from repro_torch.kernels import cuda
+
+    rng = np.random.default_rng(SEED)
+    requests = [rng.normal(size=IMAGE).astype(np.float32)
+                for _ in range(N_REQUESTS)]
+    launches = {}
+
+    cuda.reset_launches()
+    srv, fused_done = serve(None, True, requests)   # device=None: cuda
+    launches.update(cuda.launch_counts())
+    check(srv.device.type == "cuda", "server did not default to cuda")
+    check(len(fused_done) == N_REQUESTS, f"{len(fused_done)} completions")
+    for c in fused_done:
+        check(tuple(c.result.shape) == (2916, 64),
+              f"rid {c.rid}: result {tuple(c.result.shape)}")
+        check(c.result.is_cuda and bool(torch.isfinite(c.result).all()),
+              f"rid {c.rid}: non-finite or off-card result")
+    tenant = srv.tenants["cnn"]
+    for specs in srv._specs_cache.values():      # one per batch shape
+        members = [s.ip.name for s in replan(
+            specs, srv.budget.scaled(tenant.granted)).sites]
+        check(members == ["cnn_fused.fused_vpu", "cnn_fused.fused_mxu"],
+              f"served plan {members}")
+    check(set(launches) == {"fused_cnn_vpu", "fused_cnn_mxu"},
+          f"fused plan launched {launches}")
+    log(f"fuse=True: {len(fused_done)} requests through {members}; "
+        f"launches {launches}")
+
+    cuda.reset_launches()
+    _, chain_done = serve("cuda", False, requests)
+    chain = cuda.launch_counts()
+    check(set(chain) == {"conv2d_ip1", "conv2d_ip2", "pool2d_window",
+                         "activation_exact"},
+          f"fuse=False plan launched {chain}")
+    launches.update(chain)
+    for a, b in zip(fused_done, chain_done):
+        check(torch.equal(a.result, b.result),
+              f"rid {a.rid}: fused and unfused serving differ")
+    log(f"fuse=False: bitwise equal to fuse=True; launches {chain}")
+
+    _, cpu_done = serve("cpu", True, requests)
+    for a, b in zip(fused_done, cpu_done):
+        torch.testing.assert_close(a.result.cpu(), b.result, rtol=1e-4,
+                                   atol=1e-5)
+        check((a.rid, a.batch_size, a.finished) ==
+              (b.rid, b.batch_size, b.finished),
+              f"rid {a.rid}: est-cycle accounting differs from the CPU "
+              f"server")
+    log("device='cpu' server (plain versions) agrees within "
+        "rtol=1e-4, atol=1e-5; est-cycle latencies equal")
+    return launches, requests
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: times
+# ---------------------------------------------------------------------------
+def time_ms(fn, reps=REPS, warmup=3):
+    """Median device time (ms) of one call of ``fn`` over ``reps`` calls.
+
+    The calls are queued behind a sleep kernel, each between two CUDA
+    events, so the host's time to issue them (the Python wrapper, its
+    checks, the ctypes call) falls outside the timed intervals: an idle
+    device would otherwise wait for the host inside the interval.  The
+    sleep is doubled until it outlasts the host's enqueueing."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(8):
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(reps + 2)]
+        events[0].record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        for i in range(1, reps + 1):
+            events[i].record()
+            fn()
+        events[reps + 1].record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if events[0].elapsed_time(events[1]) > enqueue_ms:
+            return statistics.median(events[i].elapsed_time(events[i + 1])
+                                     for i in range(1, reps + 1))
+        cycles *= 2
+    raise SmokeFailure("the host could not queue the timed calls ahead "
+                       "of the device")
+
+
+def timings(shapes, gen, peaks):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.activation.vpu_exact import (
+        activation_exact, activation_exact_plain)
+    from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1, conv2d_ip1_plain
+    from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2, conv2d_ip2_plain
+    from repro_torch.kernels.fused.cnn_block import (fused_cnn_mxu,
+                                                     fused_cnn_plain,
+                                                     fused_cnn_vpu)
+    from repro_torch.kernels.pool2d.vpu_window import (pool2d_window,
+                                                       pool2d_window_plain)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
+        t_ops = flops / peaks["fp32_flops"] * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    rows = {}
+    (x0s, w0s), (x1s, w1s) = shapes["block0"], shapes["block1"]
+    x0, w0 = torch.randn(x0s, generator=gen).to(dev), \
+        torch.randn(w0s, generator=gen).to(dev)
+    x1, w1 = torch.randn(x1s, generator=gen).to(dev), \
+        torch.randn(w1s, generator=gen).to(dev)
+
+    def conv_lib(x, w):
+        return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
+
+    for name, kern, plain, x, w in (
+            ("conv2d_ip1", conv2d_ip1, conv2d_ip1_plain, x0, w0),
+            ("conv2d_ip2", conv2d_ip2, conv2d_ip2_plain, x1, w1)):
+        y = kern(x, w)
+        k = w.shape[0] * w.shape[1] * w.shape[2]
+        b_ms, by = bound(nbytes(x, w, y), 2 * k * y.numel())
+        rows[name] = dict(ms=time_ms(lambda: kern(x, w)),
+                          plain_ms=time_ms(lambda: plain(x, w)),
+                          library_ms=time_ms(lambda: conv_lib(x, w)),
+                          bound_ms=b_ms, bound_by=by,
+                          shape=f"x{tuple(x.shape)} w{tuple(w.shape)}")
+
+    y0 = conv2d_ip1(x0, w0)
+    p0 = pool2d_window(y0)
+    b_ms, by = bound(nbytes(y0, p0), 4 * p0.numel())
+    rows["pool2d_window"] = dict(
+        ms=time_ms(lambda: pool2d_window(y0)),
+        plain_ms=time_ms(lambda: pool2d_window_plain(y0)),
+        library_ms=time_ms(lambda: F.max_pool2d(y0.permute(0, 3, 1, 2), 2)),
+        bound_ms=b_ms, bound_by=by, shape=f"x{tuple(y0.shape)} max 2x2")
+    a0 = activation_exact(p0)
+    b_ms, by = bound(nbytes(p0, a0), p0.numel())
+    rows["activation_exact"] = dict(
+        ms=time_ms(lambda: activation_exact(p0)),
+        plain_ms=time_ms(lambda: activation_exact_plain(p0)),
+        library_ms=time_ms(lambda: torch.relu(p0)),
+        bound_ms=b_ms, bound_by=by, shape=f"x{tuple(p0.shape)} relu")
+
+    for name, style, kern, x, w in (("fused_cnn_vpu", "vpu", fused_cnn_vpu,
+                                     x0, w0),
+                                    ("fused_cnn_mxu", "mxu", fused_cnn_mxu,
+                                     x1, w1)):
+        y = kern(x, w)
+        k = w.shape[0] * w.shape[1] * w.shape[2]
+        # the conv values the pooled outputs need: 4 per output (2x2)
+        flops = 4 * y.numel() * (2 * k + 1) + y.numel()
+        b_ms, by = bound(nbytes(x, w, y), flops)
+        rows[name] = dict(
+            ms=time_ms(lambda: kern(x, w)),
+            plain_ms=time_ms(lambda: fused_cnn_plain(style, x, w)),
+            library_ms=None, bound_ms=b_ms, bound_by=by,
+            shape=f"x{tuple(x.shape)} w{tuple(w.shape)} max 2x2 relu")
+    return rows
+
+
+def serve_window(srv, requests, rounds):
+    """Wall seconds (host clock, synchronized at both ends) of ``rounds``
+    rounds of the trace: submit every request, then ``drain()``."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for x in requests:
+            srv.submit("cnn", x)
+        srv.drain()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def served_rate(requests):
+    """The fused server's steady-state rate.  After a warm-up round, a
+    window is sized to at least RATE_MIN_REQUESTS requests and about
+    RATE_WINDOW_S seconds, and RATE_WINDOWS such windows are timed.
+    Returns the server, the rounds per window and the windows' walls."""
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime.server import AdaptiveServer
+    srv = AdaptiveServer(max_batch=MAX_BATCH)
+    srv.register("cnn", init_cnn_frontend(SEED), IMAGE)
+    serve_window(srv, requests, 1)                  # warms plans
+    rounds = -(-RATE_MIN_REQUESTS // len(requests))
+    wall = serve_window(srv, requests, rounds)
+    rounds = max(rounds, math.ceil(rounds * 1.25 * RATE_WINDOW_S / wall))
+    walls = [serve_window(srv, requests, rounds)
+             for _ in range(RATE_WINDOWS)]
+    return srv, rounds, walls
+
+
+def profile_serving(srv, requests, rounds, wall_s):
+    """One more window of ``rounds`` rounds under ``torch.profiler``:
+    device time by kernel, and the device's busy share of ``wall_s``, the
+    median un-profiled wall of a window of the same requests."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = serve_window(srv, requests, rounds)
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        # aten:: rows repeat their kernels' device time; the activity
+        # buffer row is the profiler's own
+        if dev > 0 and not ev.key.startswith(("aten::", "Activity")):
+            rows.append((dev, ev.key, ev.count))
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "the profiler saw no device time")
+    n = rounds * len(requests)
+    for dev, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"profile: {dev:10.1f} us device x{count:<5d} "
+            f"({dev / n:.2f} us per request) {key[:60]}")
+    wall_us = wall_s * 1e6
+    log(f"profile: {n} requests, device busy {busy:.1f} us; busy share "
+        f"{busy / wall_us:.4f} of the un-profiled window ({wall_us:.1f} "
+        f"us), {busy / (prof_wall * 1e6):.4f} of the profiled one "
+        f"({prof_wall * 1e6:.1f} us)")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import cuda
+
+    # 1. card
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    peaks = peaks_for(card)
+    log(f"device {kind}; nvidia-smi: {card}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = cuda.build(verbose=True)
+    cuda.lib()
+    log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+
+    # 3. kernels
+    shapes = {"block0": ((4, 224, 224, 3), (3, 3, 3, 16)),
+              "block1": ((4, 111, 111, 16), (3, 3, 16, 32))}
+    gen = torch.Generator().manual_seed(SEED)
+    errs = kernel_checks(shapes, gen)
+
+    # 4. serve
+    launches, requests = serve_checks()
+
+    # 5. times
+    rows = timings(shapes, gen, peaks)
+    srv, rounds, walls = served_rate(requests)
+    n = rounds * len(requests)
+    rates = sorted(n / w for w in walls)
+    for name, r in rows.items():
+        lib_t = ("-" if r["library_ms"] is None
+                 else f"{r['library_ms'] * 1e3:.1f} us")
+        log(f"{name} [{r['shape']}]: {r['ms'] * 1e3:.1f} us, plain "
+            f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}, bound "
+            f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) on {card}")
+    log(f"served {statistics.median(rates):.1f} requests/s, median of "
+        f"{len(walls)} windows of {n} requests (range {rates[0]:.1f}-"
+        f"{rates[-1]:.1f} requests/s, walls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s; 224x224x3, max_batch "
+        f"{MAX_BATCH}, fuse=True) on {card}")
+
+    kernels = [{"name": name, "route": "cuda", "source": CSRC,
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": rows[name]["ms"],
+                "plain_ms": rows[name]["plain_ms"],
+                "bound_ms": rows[name]["bound_ms"],
+                "bound_by": rows[name]["bound_by"],
+                "library_ms": rows[name]["library_ms"]}
+               for name in REPLACES]
+    profile_serving(srv, requests, rounds, statistics.median(walls))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""Act1 — exact elementwise activation (full-precision IP).
+
+Replaces ``repro/kernels/activation/vpu_exact.py::activation_exact``.
+The kernel (``activation_kernel`` in ``csrc/cnn_kernels.cu``) runs one
+thread per element over a flat grid and evaluates the shared
+``__device__`` ``activate`` in f32 (``expf``/``tanhf``, no fast-math
+intrinsics) — the same function the fused members apply.  The
+``block_rows`` hint is validated as in the reference and priced by the
+footprint; it does not shape the grid.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.resources import Footprint, cost_cycles, vpu_op_cycles
+from repro_torch.kernels import cuda
+from repro_torch.kernels.activation.ref import (_FNS, KINDS,
+                                                activation_out_dtype)
+from repro_torch.kernels.conv2d.inner import check_block
+
+# Approximate scalar-op cost per element (mul/add/cmp units).
+OP_COST = {"relu": 1, "relu6": 2, "sigmoid": 10, "tanh": 12, "gelu": 15}
+
+
+def activation_exact_plain(x: torch.Tensor, *,
+                           kind: str = "relu") -> torch.Tensor:
+    """The kernel's function in plain PyTorch."""
+    y = _FNS[kind](x.to(torch.float32))
+    return y.to(activation_out_dtype(x.dtype))
+
+
+def activation_exact(x: torch.Tensor, *, kind: str = "relu",
+                     block_rows: int = 256) -> torch.Tensor:
+    """relu/relu6/sigmoid/tanh/gelu in f32; float input keeps its dtype,
+    integer input gives f32.  CUDA tensors (f32, int8, int32) launch the
+    kernel; CPU tensors run the plain version."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown activation {kind!r}; have {KINDS}")
+    check_block("block_rows", block_rows)
+    if not x.is_cuda:
+        return activation_exact_plain(x, kind=kind)
+    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32))
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    cuda.launch("activation_exact", "cnn_activation", x.device,
+                cuda.DTYPE_CODE[x.dtype], KINDS.index(kind), x.data_ptr(),
+                y.data_ptr(), x.numel())
+    return y
+
+
+def footprint(n_elems, *, itemsize=4, kind="relu",
+              block_rows: int = 256, lanes: int = 128) -> Footprint:
+    block = min(block_rows * lanes, n_elems)
+    vmem = block * itemsize + block * 4            # in tile + f32 out tile
+    hbm = n_elems * (itemsize + itemsize)          # stream in + out
+    vpu = n_elems * OP_COST.get(kind, 8)
+    return Footprint(vmem_bytes=vmem, hbm_bytes=hbm, mxu_passes=0,
+                     vpu_ops=vpu,
+                     est_cycles=cost_cycles(vpu_op_cycles(vpu), hbm),
+                     outputs_per_pass=1, max_operand_bits=32)

@@ -1,0 +1,85 @@
+"""Shared conv bodies — the single source of the per-tile convolution
+math, in the two orders of the reference (``repro.kernels.conv2d.inner``).
+
+On the card these are the ``__device__`` functions ``conv_point_vpu`` /
+``conv_point_mxu`` of ``csrc/cnn_device.cuh``, which the standalone
+members (``ip1_vpu``, ``ip2_mxu``) and the fused members
+(``kernels/fused/cnn_block.py``) all call; ``launch_conv`` is the
+standalone members' shared launch.  The functions below are their plain
+PyTorch versions in the same order, which the CPU path runs and the
+on-card checks compare against:
+
+* vpu: for each tap (i, j), multiply the shifted window by the tap and
+  sum over Cin, then add the partial into the accumulator;
+* mxu: im2col to (.., KH*KW*Cin) and one dot over that K.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda
+
+STYLE_CODE = {"vpu": 0, "mxu": 1}
+
+
+def accumulate_vpu(x, w, *, ho: int, wo: int, acc_dtype):
+    """Conv1-style: ``x`` (N, H, W, Cin) already in ``acc_dtype``,
+    ``w`` (kh, kw, Cin, Cout).  Returns (N, Ho, Wo, Cout)."""
+    kh, kw = w.shape[0], w.shape[1]
+    acc = torch.zeros((x.shape[0], ho, wo, w.shape[-1]), dtype=acc_dtype,
+                      device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            window = x[:, i:i + ho, j:j + wo, :]          # (N, Ho, Wo, Cin)
+            tap = w[i, j].to(acc_dtype)                   # (Cin, Cout)
+            prod = window[..., :, None] * tap
+            acc = acc + prod.sum(dim=3, dtype=acc_dtype)
+    return acc
+
+
+def accumulate_mxu(x, w, *, ho: int, wo: int, acc_dtype):
+    """Conv2-style: ``x`` (N, H, W, Cin) in the operand dtype, ``w``
+    (kh, kw, Cin, Cout).  Returns (N, Ho, Wo, Cout)."""
+    kh, kw, cin, cout = w.shape
+    cols = [x[:, i:i + ho, j:j + wo, :] for i in range(kh)
+            for j in range(kw)]
+    patches = torch.cat(cols, dim=-1).to(acc_dtype)       # (N, Ho, Wo, K)
+    wmat = w.reshape(kh * kw * cin, cout).to(acc_dtype)   # (K, Cout)
+    return (patches[..., :, None] * wmat).sum(dim=-2, dtype=acc_dtype)
+
+
+def check_conv_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"conv2d takes NHWC x and HWIO w, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.shape[-1] != w.shape[2]:
+        raise ValueError(f"input channels {x.shape[-1]} != weight "
+                         f"channels {w.shape[2]}")
+    if w.shape[0] > x.shape[1] or w.shape[1] > x.shape[2]:
+        raise ValueError(f"kernel {tuple(w.shape[:2])} exceeds the input "
+                         f"plane {tuple(x.shape[1:3])}")
+
+
+def check_block(name: str, value: int) -> None:
+    if int(value) < 1:
+        raise ValueError(f"{name} must be >= 1, got {value}")
+
+
+def launch_conv(counter: str, style: str, x: torch.Tensor, w: torch.Tensor,
+                block_cout: int) -> torch.Tensor:
+    """Launch ``conv2d_kernel`` (``csrc/cnn_kernels.cu``) for a CUDA
+    ``x``: f32 operands give f32, int8 operands give int32."""
+    cuda.require(x, "x", (torch.float32, torch.int8))
+    cuda.require(w, "w", (x.dtype,))
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = h - kh + 1, w_ - kw + 1
+    out_dtype = torch.int32 if x.dtype == torch.int8 else torch.float32
+    y = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    cuda.launch(counter, "cnn_conv2d", x.device, STYLE_CODE[style],
+                cuda.DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
+                y.data_ptr(), n, h, w_, cin, kh, kw, cout,
+                min(int(block_cout), cout))
+    return y

@@ -1,0 +1,157 @@
+// Shared __device__ bodies of the CNN kernels (cnn_kernels.cu).
+//
+// Replaces the shared Pallas bodies of the reference:
+//   src/repro/kernels/conv2d/inner.py::accumulate_vpu   -> conv_point_vpu
+//   src/repro/kernels/conv2d/inner.py::accumulate_mxu   -> conv_point_mxu
+//   src/repro/kernels/pool2d/vpu_window.py::window_reduce -> window_reduce
+//   src/repro/kernels/activation/ref.py::_FNS            -> activate
+//
+// The standalone kernels (conv2d_ip1, conv2d_ip2, pool2d_window,
+// activation_exact) and the fused conv->pool->act kernel all run these
+// functions, in the same order, so a float32 fused block is bitwise
+// equal to its three-launch chain.  Two things keep that true:
+//   * every float add and multiply-add is an explicit round-to-nearest
+//     intrinsic (__fadd_rn, __fmaf_rn, __fmul_rn, __fdiv_rn), and the
+//     library is compiled with -fmad=false, so the compiler cannot
+//     contract differently in the two call contexts;
+//   * the loop orders below are the reference's orders:
+//       vpu: for each tap (i, j): partial = sum over cin; acc += partial
+//       mxu: one dot over K flattened as (i, j, cin)
+//       pool: start from the window's first element, then i-major;
+//             avg divides by kh*kw (integer avg floors, as jnp // does).
+//
+// The "mxu" order runs on CUDA cores in this version (FP32 FMA, int32
+// multiply-add for int8): Hopper has no IEEE-f32 tensor-core MMA, and
+// TF32 misses the reference tolerance.  The tensor-core redesign is a
+// later change (ROADMAP queue 2).
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+namespace cnn {
+
+enum Mode { kMax = 0, kAvg = 1 };
+// Same order as src/repro_torch/kernels/activation/ref.py::KINDS.
+enum Kind { kRelu = 0, kRelu6 = 1, kSigmoid = 2, kTanh = 3, kGelu = 4 };
+
+// Accumulator type: f32 operands accumulate in f32, int8 in int32.
+template <typename T> struct AccOf { using type = float; };
+template <> struct AccOf<int8_t> { using type = int32_t; };
+
+struct ConvShape {
+  int H, W, Cin, KH, KW, Cout;
+};
+
+__device__ __forceinline__ float mac(float acc, float x, float w) {
+  return __fmaf_rn(x, w, acc);
+}
+__device__ __forceinline__ int32_t mac(int32_t acc, int32_t x, int32_t w) {
+  return acc + x * w;
+}
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ int32_t add(int32_t a, int32_t b) { return a + b; }
+
+// jnp.maximum / jnp.minimum semantics: a NaN operand gives NaN
+// (fmaxf/fminf would drop it).
+__device__ __forceinline__ float vmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float vmin(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ int32_t vmax(int32_t a, int32_t b) {
+  return a > b ? a : b;
+}
+
+// Average: float divides by the count; integers floor (jnp //), where C
+// division would truncate toward zero on negative sums.
+__device__ __forceinline__ float avg_div(float sum, int count) {
+  return __fdiv_rn(sum, float(count));
+}
+__device__ __forceinline__ int32_t avg_div(int32_t sum, int count) {
+  int32_t q = sum / count;
+  if ((sum % count != 0) && (sum < 0)) --q;
+  return q;
+}
+
+// Conv1 order (inner.py::accumulate_vpu): one conv output (n, oh, ow, co).
+template <typename T>
+__device__ __forceinline__ typename AccOf<T>::type conv_point_vpu(
+    const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
+    int n, int oh, int ow, int co) {
+  using A = typename AccOf<T>::type;
+  A acc = A(0);
+  for (int i = 0; i < s.KH; ++i) {
+    for (int j = 0; j < s.KW; ++j) {
+      const T* xp = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
+      const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
+      A part = A(0);
+      for (int c = 0; c < s.Cin; ++c) {
+        part = mac(part, A(xp[c]), A(wp[size_t(c) * s.Cout]));
+      }
+      acc = add(acc, part);
+    }
+  }
+  return acc;
+}
+
+// Conv2 order (inner.py::accumulate_mxu): one dot over K = (i, j, cin).
+template <typename T>
+__device__ __forceinline__ typename AccOf<T>::type conv_point_mxu(
+    const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
+    int n, int oh, int ow, int co) {
+  using A = typename AccOf<T>::type;
+  A acc = A(0);
+  for (int i = 0; i < s.KH; ++i) {
+    for (int j = 0; j < s.KW; ++j) {
+      const T* xp = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
+      const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
+      for (int c = 0; c < s.Cin; ++c) {
+        acc = mac(acc, A(xp[c]), A(wp[size_t(c) * s.Cout]));
+      }
+    }
+  }
+  return acc;
+}
+
+// vpu_window.py::window_reduce for one output: load(i, j) yields the
+// window element at tap (i, j).
+template <typename V, typename Load>
+__device__ __forceinline__ V window_reduce(Load load, int kh, int kw,
+                                           int mode) {
+  V acc = load(0, 0);
+  for (int i = 0; i < kh; ++i) {
+    for (int j = 0; j < kw; ++j) {
+      if (i == 0 && j == 0) continue;
+      V v = load(i, j);
+      acc = (mode == kMax) ? vmax(acc, v) : add(acc, v);
+    }
+  }
+  if (mode == kAvg) acc = avg_div(acc, kh * kw);
+  return acc;
+}
+
+// activation/ref.py::_FNS in f32.  gelu is jax.nn.gelu's default, the
+// tanh approximation.  expf/tanhf, not the __expf intrinsics.
+__device__ __forceinline__ float activate(float x, int kind) {
+  switch (kind) {
+    case kRelu:
+      return vmax(x, 0.0f);
+    case kRelu6:
+      return vmin(vmax(x, 0.0f), 6.0f);
+    case kSigmoid:
+      return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+    case kTanh:
+      return tanhf(x);
+    default: {  // kGelu
+      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+      float cube = __fmul_rn(__fmul_rn(x, x), x);
+      float inner = __fmul_rn(k, __fadd_rn(x, __fmul_rn(0.044715f, cube)));
+      float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner)));
+      return __fmul_rn(x, cdf);
+    }
+  }
+}
+
+}  // namespace cnn

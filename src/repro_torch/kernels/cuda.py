@@ -1,0 +1,155 @@
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+
+The kernels are compiled at first use with ``nvcc`` into a shared
+library with a plain C interface and loaded with ``ctypes``, so no
+source includes PyTorch's headers and the build takes seconds.  The
+library lands in ``build/torch_ext/`` at the repository
+root, named by a hash of the sources and flags, so an edited source
+never loads a stale build.  Nothing here runs at import time: the CPU
+tests import every module of the package without a compiler.
+
+Every op wrapper of the package calls ``launch(...)`` only for CUDA
+tensors; ``launch`` raises on a non-zero ``cudaError_t`` (a refused
+launch never runs, and a later ``synchronize`` would not report it) and
+counts the launch in ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+SOURCES = ("cnn_kernels.cu",)
+HEADERS = ("cnn_device.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# dtype codes of cnn_kernels.cu (enum DType)
+DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "cnn_conv2d": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cnn_activation": (_I, _I, _P, _P, ctypes.c_longlong, _P),
+    "cnn_fused": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _I, _I, _I, _I, _P),
+}
+
+# Launches per kernel since the last reset_launches(): each wrapper adds
+# one where it launches its kernel, and nowhere else.
+LAUNCHES: Dict[str, int] = {}
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built at "
+                           "first use and need the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libcnn_kernels_{_digest()}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    library path.  Writes to a temporary name and renames, so concurrent
+    processes never load a half-written file."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC / s) for s in SOURCES)]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    if verbose and proc.stderr:
+        print(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            handle.cnn_error_string.argtypes = (ctypes.c_int,)
+            handle.cnn_error_string.restype = ctypes.c_char_p
+            _LIB = handle
+    return _LIB
+
+
+def require(t: torch.Tensor, what: str, dtypes=None, ndim=None) -> None:
+    """The checks a kernel wrapper makes before handing pointers over."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise TypeError(f"{what} dtype {t.dtype} is not supported by the "
+                        f"CUDA kernel (have {list(dtypes)})")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{what} must have {ndim} dims, got "
+                         f"{tuple(t.shape)}")
+
+
+def launch(counter: str, fn_name: str, device: torch.device, *args) -> None:
+    """Launch ``fn_name`` on ``device``'s current stream, raise on a
+    launch error, and count the launch under ``counter``."""
+    handle = lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(handle, fn_name)(*args, stream)
+    if err != 0:
+        msg = handle.cnn_error_string(err).decode()
+        raise RuntimeError(f"{counter}: CUDA launch failed ({err}): {msg}")
+    LAUNCHES[counter] = LAUNCHES.get(counter, 0) + 1

@@ -1,0 +1,101 @@
+"""Pool1 — windowed-reduce pooling (Conv1-style logic-only IP).
+
+Replaces ``repro/kernels/pool2d/vpu_window.py::pool2d_window``.  The
+kernel (``pool2d_kernel`` in ``csrc/cnn_kernels.cu``) maps one thread to
+one output and reduces its KHxKW window with the shared ``__device__``
+``window_reduce`` that the fused members call too: start from the
+window's first element, then i-major; max propagates NaN, float avg
+divides by the count, integer avg floors.  No tensor-core instruction.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.resources import Footprint, cost_cycles, vpu_op_cycles
+from repro_torch.kernels import cuda
+from repro_torch.kernels.conv2d.inner import check_block
+from repro_torch.kernels.pool2d.ref import (MODES, check_pool_geometry,
+                                            pool2d_out_shape, pool_dtypes)
+
+MODE_CODE = {"max": 0, "avg": 1}
+
+
+def window_reduce(x, *, ho, wo, kh, kw, sh, sw, mode, acc_dtype):
+    """The family's windowed reduce on (N, H, W, C), returning
+    (N, Ho, Wo, C) — the plain version of the ``__device__``
+    ``window_reduce`` the standalone and fused kernels share."""
+    if mode == "avg":
+        x = x.to(acc_dtype)
+    acc = None
+    for i in range(kh):
+        for j in range(kw):
+            win = x[:, i:i + (ho - 1) * sh + 1:sh,
+                    j:j + (wo - 1) * sw + 1:sw, :]        # (N, Ho, Wo, C)
+            if acc is None:
+                acc = win
+            elif mode == "max":
+                acc = torch.maximum(acc, win)
+            else:
+                acc = acc + win
+    if mode == "avg":
+        count = kh * kw
+        if acc_dtype.is_floating_point:
+            acc = acc / count
+        else:
+            acc = torch.div(acc, count, rounding_mode="floor")
+    return acc.contiguous()
+
+
+def pool2d_window_plain(x, *, window=(2, 2), stride=None,
+                        mode: str = "max") -> torch.Tensor:
+    """The kernel's function in plain PyTorch, in the kernel's order."""
+    (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
+    _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))
+    acc, _ = pool_dtypes(x.dtype, mode)
+    return window_reduce(x, ho=ho, wo=wo, kh=kh, kw=kw, sh=sh, sw=sw,
+                         mode=mode, acc_dtype=acc)
+
+
+def pool2d_window(x: torch.Tensor, *, window=(2, 2), stride=None,
+                  mode: str = "max", block_c: int = 128) -> torch.Tensor:
+    """Max/avg pooling, output dtype per ``pool_dtypes``.  CUDA tensors
+    (f32, int8, int32) launch the kernel; CPU tensors run the plain
+    version."""
+    if mode not in MODES:
+        raise ValueError(f"unknown pool mode {mode!r}; have {MODES}")
+    check_block("block_c", block_c)
+    if not x.is_cuda:
+        return pool2d_window_plain(x, window=window, stride=stride,
+                                   mode=mode)
+    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32), ndim=4)
+    (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
+    n, h, w, c = x.shape
+    _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))
+    _, out_dtype = pool_dtypes(x.dtype, mode)
+    y = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    cuda.launch("pool2d_window", "cnn_pool2d", x.device,
+                cuda.DTYPE_CODE[x.dtype], MODE_CODE[mode], x.data_ptr(),
+                y.data_ptr(), n, h, w, c, kh, kw, sh, sw,
+                min(int(block_c), c))
+    return y
+
+
+def footprint(n, h, w, c, kh, kw, sh, sw, *, itemsize=1, mode="max",
+              block_c: int = 128) -> Footprint:
+    ho, wo = (h - kh) // sh + 1, (w - kw) // sw + 1
+    bc = min(block_c, c)
+    out_item = itemsize if mode == "max" else 4
+    # avg casts the plane to the 4-byte accumulator dtype on chip.
+    cast_plane = 0 if mode == "max" else h * w * bc * 4
+    vmem = (h * w * bc * itemsize                 # input plane
+            + cast_plane
+            + ho * wo * bc * out_item)            # output plane
+    hbm = n * h * w * c * itemsize + n * ho * wo * c * out_item
+    # One compare/add per tap, plus the strided gather for each window.
+    vpu = 2 * n * ho * wo * c * kh * kw
+    return Footprint(vmem_bytes=vmem, hbm_bytes=hbm, mxu_passes=0,
+                     vpu_ops=vpu,
+                     est_cycles=cost_cycles(vpu_op_cycles(vpu), hbm),
+                     outputs_per_pass=1, max_operand_bits=32)

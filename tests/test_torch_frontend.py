@@ -1,0 +1,130 @@
+"""The port's CNN frontend and block (``repro_torch.models``) against
+the reference's, with the reference's weights carried across by
+``params_from_numpy``.  Full widths: channels (3, 16, 32), d_model 64.
+Tolerance ``rtol=1e-4, atol=1e-5`` (float32 convs summed in another
+order than XLA)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.plan import clear_plan_cache as j_clear
+from repro.models.blocks import apply_cnn_block as j_block
+from repro.models.blocks import cnn_block_site_specs as j_block_specs
+from repro.models.frontends import apply_cnn_frontend as j_apply
+from repro.models.frontends import init_cnn_frontend as j_init
+from repro_torch.core.plan import clear_plan_cache as t_clear
+from repro_torch.core.resources import ResourceBudget
+from repro_torch.models.blocks import apply_cnn_block as t_block
+from repro_torch.models.blocks import cnn_block_site_specs as t_block_specs
+from repro_torch.models.frontends import apply_cnn_frontend as t_apply
+from repro_torch.models.frontends import (CudaUnavailableError,
+                                          init_cnn_frontend,
+                                          params_from_numpy)
+
+F32 = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def params():
+    p = j_init(jax.random.PRNGKey(3))
+    return p, params_from_numpy(jax.tree_util.tree_map(np.asarray, p),
+                                "cpu")
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_frontend_matches_reference(rng, params, fuse):
+    jp, tp = params
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    j_clear()
+    t_clear()
+    want = np.asarray(j_apply(jp, jnp.asarray(x), fuse=fuse))
+    got = t_apply(tp, torch.from_numpy(x), fuse=fuse)
+    assert tuple(got.shape) == want.shape == (2, 36, 64)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+def test_frontend_fused_bitwise_equals_unfused(rng, params):
+    _, tp = params
+    x = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(np.float32))
+    logic_only = ResourceBudget(mxu_available=False)
+    for budget in (None, logic_only):
+        assert torch.equal(t_apply(tp, x, budget=budget, fuse=True),
+                           t_apply(tp, x, budget=budget, fuse=False))
+
+
+@pytest.mark.parametrize("mode,kind", [("max", "relu"), ("avg", "tanh"),
+                                       ("max", "gelu")])
+def test_block_matches_reference(rng, mode, kind):
+    w = (rng.normal(size=(3, 3, 4, 8)) / 6).astype(np.float32)
+    x = rng.normal(size=(2, 12, 12, 4)).astype(np.float32)
+    plan_j, plan_t = {}, {}
+    for fuse in (True, False):
+        want = np.asarray(j_block({"w": jnp.asarray(w)}, jnp.asarray(x),
+                                  pool_mode=mode, activation=kind,
+                                  fuse=fuse, plan=plan_j))
+        got = t_block({"w": torch.from_numpy(w)}, torch.from_numpy(x),
+                      pool_mode=mode, activation=kind, fuse=fuse,
+                      plan=plan_t)
+        np.testing.assert_allclose(got.numpy(), want, **F32)
+    assert sorted(plan_t) == sorted(plan_j)
+    assert {k: v[0].name for k, v in plan_t.items()} == \
+        {k: v[0].name for k, v in plan_j.items()}
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [("float32", "float32"),
+                                             ("int8", "int8"),
+                                             ("int8", "float32")])
+@pytest.mark.parametrize("mode", ["max", "avg"])
+def test_block_site_specs_match_eval_shape(x_dtype, w_dtype, mode):
+    """Shape arithmetic gives the specs ``jax.eval_shape`` gives."""
+    kw = dict(x_dtype=x_dtype, w_dtype=w_dtype, pool_mode=mode,
+              pool_stride=(1, 2), activation="tanh", site="b")
+    j_specs, j_out = j_block_specs((2, 13, 12, 4), (3, 3, 4, 8), **kw)
+    t_specs, t_out = t_block_specs((2, 13, 12, 4), (3, 3, 4, 8), **kw)
+    assert [s.to_dict() for s in t_specs] == [s.to_dict() for s in j_specs]
+    assert t_out == (tuple(j_out.shape), j_out.dtype.name)
+
+
+def test_block_plan_mismatch_is_a_named_error(rng, params):
+    _, tp = params
+    from repro_torch.core.plan import plan_network
+    specs, _ = t_block_specs((2, 16, 16, 3), (3, 3, 3, 16),
+                             x_dtype="float32")
+    network = plan_network(specs, fuse=True)
+    x = torch.from_numpy(rng.normal(size=(2, 16, 16, 3)).astype(np.float32))
+    with pytest.raises(ValueError, match="plan/site mismatch"):
+        t_block(tp["blocks"][0], x, network=network, pool_window=(3, 3))
+
+
+def test_lowered_plans_and_quant_report_raise(rng, params):
+    _, tp = params
+    x = torch.from_numpy(rng.normal(size=(1, 16, 16, 3)).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        t_apply(tp, x, quant_report={})
+    tight = ResourceBudget(vmem_bytes=40 * 1024)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        t_apply(tp, x, budget=tight, ladder=(16, 8))
+
+
+def test_init_is_seeded_and_shaped():
+    a = init_cnn_frontend(7, device="cpu")
+    b = init_cnn_frontend(torch.Generator().manual_seed(7), device="cpu")
+    assert [blk["w"].shape for blk in a["blocks"]] == [(3, 3, 3, 16),
+                                                       (3, 3, 16, 32)]
+    assert a["proj"].shape == (32, 64)
+    assert all(torch.equal(x["w"], y["w"])
+               for x, y in zip(a["blocks"], b["blocks"]))
+    assert torch.equal(a["proj"], b["proj"])
+    assert not torch.equal(a["proj"],
+                           init_cnn_frontend(8, device="cpu")["proj"])
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(CudaUnavailableError, match='device="cpu"'):
+        init_cnn_frontend(0)
+    with pytest.raises(CudaUnavailableError):
+        params_from_numpy({"blocks": [], "proj": np.zeros((2, 2))})

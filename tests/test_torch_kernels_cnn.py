@@ -1,0 +1,355 @@
+"""The port's CNN kernel modules (``repro_torch.kernels``) against the
+reference's Pallas kernels (``repro.kernels``, interpret mode on CPU).
+
+On a CPU tensor each port wrapper runs its plain PyTorch version, so
+these tests hold the plain versions — the functions the CUDA kernels are
+checked against on the card by ``chip_smoke.py`` — to the reference.
+Inputs are made with numpy from a seed and fed to both packages.
+
+Tolerances: float32 conv and fused blocks (and the f32 rescale of the
+int8 fused rung) ``rtol=1e-4, atol=1e-5`` (the port sums in another
+order than XLA); pool and activation ``1e-6``; int8 conv/pool, the int32
+floor average and the native-int8 fused block bit-exact.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.activation import lut_poly as j_lut
+from repro.kernels.activation import vpu_exact as j_act
+from repro.kernels.conv2d import ip1_vpu as j_ip1
+from repro.kernels.conv2d import ip2_mxu as j_ip2
+from repro.kernels.conv2d import ip3_packed as j_ip3
+from repro.kernels.conv2d import ip4_dual as j_ip4
+from repro.kernels.fused import cnn_block as j_fused
+from repro.kernels.pool2d import mxu_im2col as j_im2col
+from repro.kernels.pool2d import vpu_window as j_pool
+from repro_torch.kernels.activation import lut_poly as t_lut
+from repro_torch.kernels.activation import vpu_exact as t_act
+from repro_torch.kernels.activation.ops import activation as t_activation
+from repro_torch.kernels.conv2d import ip1_vpu as t_ip1
+from repro_torch.kernels.conv2d import ip2_mxu as t_ip2
+from repro_torch.kernels.conv2d import ip3_packed as t_ip3
+from repro_torch.kernels.conv2d import ip4_dual as t_ip4
+from repro_torch.kernels.conv2d.ops import conv2d as t_conv2d
+from repro_torch.kernels.conv2d.ops import conv2d_dual as t_conv2d_dual
+from repro_torch.kernels.fused import cnn_block as t_fused
+from repro_torch.kernels.fused.ops import fused_cnn_block as t_fused_block
+from repro_torch.kernels.pool2d import mxu_im2col as t_im2col
+from repro_torch.kernels.pool2d import vpu_window as t_pool
+from repro_torch.kernels.pool2d.ops import pool2d as t_pool2d
+
+F32 = dict(rtol=1e-4, atol=1e-5)
+TIGHT = dict(rtol=1e-6, atol=1e-6)
+
+CONV_SHAPES = [((2, 12, 12, 4), (3, 3, 4, 8)),
+               ((1, 9, 11, 3), (3, 3, 3, 5)),
+               ((2, 8, 8, 2), (2, 2, 2, 3))]
+CONV_IDS = ["2x12x12x4-k3-8", "1x9x11x3-k3-5", "2x8x8x2-k2-3"]
+
+
+def _both(a):
+    """One numpy array as (jax array, torch CPU tensor)."""
+    return jnp.asarray(a), torch.from_numpy(np.array(a, copy=True))
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _randn(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _randint8(rng, shape, lo=-128, hi=127):
+    return rng.integers(lo, hi, shape).astype(np.int8)
+
+
+# --------------------------------------------------------------------------
+# conv2d: ip1_vpu / ip2_mxu
+# --------------------------------------------------------------------------
+CONV_MEMBERS = [(j_ip1.conv2d_ip1, t_ip1.conv2d_ip1),
+                (j_ip2.conv2d_ip2, t_ip2.conv2d_ip2)]
+
+
+@pytest.mark.parametrize("member", [0, 1], ids=["ip1_vpu", "ip2_mxu"])
+@pytest.mark.parametrize("xs,ws", CONV_SHAPES, ids=CONV_IDS)
+def test_conv_f32_matches_reference(rng, member, xs, ws):
+    jfn, tfn = CONV_MEMBERS[member]
+    (jx, tx), (jw, tw) = _both(_randn(rng, xs)), _both(_randn(rng, ws))
+    want, got = _np(jfn(jx, jw)), _np(tfn(tx, tw))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, **F32)
+
+
+@pytest.mark.parametrize("member", [0, 1], ids=["ip1_vpu", "ip2_mxu"])
+@pytest.mark.parametrize("xs,ws", CONV_SHAPES, ids=CONV_IDS)
+def test_conv_int8_bit_exact(rng, member, xs, ws):
+    jfn, tfn = CONV_MEMBERS[member]
+    (jx, tx), (jw, tw) = _both(_randint8(rng, xs)), _both(_randint8(rng, ws))
+    want, got = _np(jfn(jx, jw)), _np(tfn(tx, tw))
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_conv_tile_hint_does_not_change_result(rng):
+    x, w = torch.from_numpy(_randn(rng, (1, 8, 8, 3))), \
+        torch.from_numpy(_randn(rng, (3, 3, 3, 7)))
+    for fn in (t_ip1.conv2d_ip1, t_ip2.conv2d_ip2):
+        assert torch.equal(fn(x, w, block_cout=3), fn(x, w))
+
+
+# --------------------------------------------------------------------------
+# pool2d: pool_vpu (the kernel) and pool_im2col (plain on the CPU)
+# --------------------------------------------------------------------------
+POOL_GEOMS = [((2, 2), None), ((3, 3), (2, 2)), ((2, 3), (1, 2))]
+POOL_IDS = ["2x2", "3x3s2", "2x3s1x2"]
+
+
+@pytest.mark.parametrize("window,stride", POOL_GEOMS, ids=POOL_IDS)
+@pytest.mark.parametrize("mode", ["max", "avg"])
+def test_pool_f32_matches_reference(rng, window, stride, mode):
+    jx, tx = _both(_randn(rng, (2, 10, 11, 5)))
+    want = _np(j_pool.pool2d_window(jx, window=window, stride=stride,
+                                    mode=mode))
+    got = _np(t_pool.pool2d_window(tx, window=window, stride=stride,
+                                   mode=mode))
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, **TIGHT)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int32"])
+@pytest.mark.parametrize("mode", ["max", "avg"])
+def test_pool_int_bit_exact_with_floor_average(rng, dtype, mode):
+    """int avg floors (jnp //) — the negative sums here make C's
+    truncating division disagree, so this pins the floor."""
+    x = rng.integers(-120, 120, (2, 9, 9, 4)).astype(dtype)
+    jx, tx = _both(x)
+    want = _np(j_pool.pool2d_window(jx, window=(3, 3), stride=(2, 2),
+                                    mode=mode))
+    got = _np(t_pool.pool2d_window(tx, window=(3, 3), stride=(2, 2),
+                                   mode=mode))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if mode == "avg":
+        assert (want < 0).any()
+
+
+def test_pool_max_propagates_nan():
+    x = torch.zeros((1, 4, 4, 1))
+    x[0, 1, 1, 0] = float("nan")
+    y = t_pool.pool2d_window(x)
+    assert torch.isnan(y[0, 0, 0, 0]) and not torch.isnan(y[0, 1, 1, 0])
+
+
+@pytest.mark.parametrize("mode", ["max", "avg"])
+def test_pool_im2col_plain_matches_reference(rng, mode):
+    x = _randn(rng, (2, 8, 8, 3))
+    jx, tx = _both(x)
+    np.testing.assert_allclose(
+        _np(t_im2col.pool2d_im2col(tx, mode=mode)),
+        _np(j_im2col.pool2d_im2col(jx, mode=mode)), **TIGHT)
+    xi = rng.integers(-50, 50, (2, 8, 8, 3)).astype(np.int8)
+    jx, tx = _both(xi)
+    np.testing.assert_array_equal(
+        _np(t_im2col.pool2d_im2col(tx, mode=mode)),
+        _np(j_im2col.pool2d_im2col(jx, mode=mode)))
+
+
+# --------------------------------------------------------------------------
+# activation: act_vpu (the kernel) and act_lut (plain on the CPU)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["relu", "relu6", "sigmoid", "tanh", "gelu"])
+def test_activation_f32_matches_reference(rng, kind):
+    jx, tx = _both(_randn(rng, (3, 7, 6)) * 4)
+    want = _np(j_act.activation_exact(jx, kind=kind))
+    got = _np(t_act.activation_exact(tx, kind=kind))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TIGHT)
+
+
+@pytest.mark.parametrize("kind", ["relu", "tanh"])
+def test_activation_int_input_gives_f32(rng, kind):
+    jx, tx = _both(rng.integers(-5, 5, (4, 9)).astype(np.int32))
+    want = _np(j_act.activation_exact(jx, kind=kind))
+    got = _np(t_act.activation_exact(tx, kind=kind))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TIGHT)
+
+
+def test_activation_relu_propagates_nan():
+    x = torch.tensor([float("nan"), -1.0, 2.0])
+    for kind in ("relu", "relu6"):
+        y = t_act.activation_exact(x, kind=kind)
+        assert torch.isnan(y[0]) and y[1] == 0.0 and y[2] == 2.0
+
+
+@pytest.mark.parametrize("kind", ["relu6", "sigmoid", "tanh"])
+def test_activation_lut_plain_matches_reference(rng, kind):
+    jx, tx = _both(_randn(rng, (4, 33)) * 5)
+    np.testing.assert_allclose(_np(t_lut.activation_lut(tx, kind=kind)),
+                               _np(j_lut.activation_lut(jx, kind=kind)),
+                               **TIGHT)
+
+
+# --------------------------------------------------------------------------
+# fused conv -> pool -> act
+# --------------------------------------------------------------------------
+FUSED = {"vpu": (j_fused.fused_cnn_vpu, t_fused.fused_cnn_vpu,
+                 t_ip1.conv2d_ip1),
+         "mxu": (j_fused.fused_cnn_mxu, t_fused.fused_cnn_mxu,
+                 t_ip2.conv2d_ip2)}
+FUSED_CASES = [("max", "relu", None), ("avg", "tanh", None),
+               ("max", "gelu", (1, 1)), ("avg", "sigmoid", (1, 2))]
+
+
+@pytest.mark.parametrize("style", ["vpu", "mxu"])
+@pytest.mark.parametrize("mode,kind,stride", FUSED_CASES,
+                         ids=["max-relu", "avg-tanh", "max-gelu-s1",
+                              "avg-sigmoid-s12"])
+def test_fused_f32_matches_reference(rng, style, mode, kind, stride):
+    jfn, tfn, _ = FUSED[style]
+    (jx, tx), (jw, tw) = _both(_randn(rng, (2, 12, 11, 4))), \
+        _both(_randn(rng, (3, 3, 4, 6)))
+    kw = dict(pool_window=(2, 2), pool_stride=stride, pool_mode=mode,
+              act_kind=kind)
+    want, got = _np(jfn(jx, jw, **kw)), _np(tfn(tx, tw, **kw))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, **F32)
+
+
+@pytest.mark.parametrize("style", ["vpu", "mxu"])
+@pytest.mark.parametrize("mode", ["max", "avg"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["int32-pool",
+                                                       "int8-rung"])
+def test_fused_int8_matches_reference(rng, style, mode, scaled):
+    """Native int8 (int32 pool, floor avg) is bit-exact.  The int8 rung
+    (per-channel f32 rescale of the int32 accumulator before pooling)
+    has an exact integer conv; its f32 rescale-and-average may contract
+    into FMAs under XLA, so it is held at the float32 tolerance."""
+    jfn, tfn, _ = FUSED[style]
+    (jx, tx), (jw, tw) = _both(_randint8(rng, (2, 10, 10, 3))), \
+        _both(_randint8(rng, (3, 3, 3, 5)))
+    scale = (rng.random(5).astype(np.float32) * 1e-3) if scaled else None
+    jscale = None if scale is None else jnp.asarray(scale)
+    tscale = None if scale is None else torch.from_numpy(scale)
+    want = _np(jfn(jx, jw, jscale, pool_mode=mode, act_kind="relu"))
+    got = _np(tfn(tx, tw, tscale, pool_mode=mode, act_kind="relu"))
+    if scaled:
+        np.testing.assert_allclose(got, want, **F32)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("style", ["vpu", "mxu"])
+@pytest.mark.parametrize("mode,kind", [("max", "relu"), ("avg", "tanh"),
+                                       ("max", "gelu")])
+def test_fused_plain_bitwise_equals_plain_chain(rng, style, mode, kind):
+    """The port's fusion invariant on the CPU path: one fused call is
+    bitwise the conv -> pool -> act chain of the standalone members."""
+    _, tfn, conv = FUSED[style]
+    x = torch.from_numpy(_randn(rng, (2, 12, 12, 4)))
+    w = torch.from_numpy(_randn(rng, (3, 3, 4, 8)))
+    chain = t_act.activation_exact(
+        t_pool.pool2d_window(conv(x, w), mode=mode), kind=kind)
+    assert torch.equal(tfn(x, w, pool_mode=mode, act_kind=kind), chain)
+
+
+# --------------------------------------------------------------------------
+# Footprints: every ported footprint function returns the reference's
+# --------------------------------------------------------------------------
+CONV_FP_ARGS = [(1, 224, 224, 3, 3, 3, 16), (4, 111, 111, 16, 3, 3, 32),
+                (2, 12, 12, 6, 3, 3, 12), (2, 9, 11, 2, 2, 2, 300)]
+POOL_FP_ARGS = [(4, 222, 222, 16, 2, 2, 2, 2), (2, 10, 11, 5, 3, 3, 2, 2),
+                (1, 7, 7, 200, 2, 3, 1, 2)]
+FUSED_FP_ARGS = [(4, 224, 224, 3, 3, 3, 16, 2, 2, 2, 2),
+                 (4, 111, 111, 16, 3, 3, 32, 2, 2, 2, 2),
+                 (2, 12, 12, 4, 3, 3, 200, 3, 3, 1, 1)]
+
+
+def _fp_cases():
+    for jm, tm in ((j_ip1, t_ip1), (j_ip2, t_ip2), (j_ip3, t_ip3),
+                   (j_ip4, t_ip4)):
+        for args in CONV_FP_ARGS:
+            for kw in ({"itemsize": 4}, {"itemsize": 1},
+                       {"itemsize": 2, "block_cout": 64}):
+                yield jm.footprint, tm.footprint, args, kw
+    for jm, tm in ((j_pool, t_pool), (j_im2col, t_im2col)):
+        for args in POOL_FP_ARGS:
+            for kw in ({"itemsize": 4, "mode": "max"},
+                       {"itemsize": 1, "mode": "avg"},
+                       {"itemsize": 4, "mode": "avg", "block_c": 8}):
+                yield jm.footprint, tm.footprint, args, kw
+    for jm, tm in ((j_act, t_act), (j_lut, t_lut)):
+        for n in (1, 1000, 4 * 111 * 111 * 16):
+            for kw in ({"itemsize": 4, "kind": "relu"},
+                       {"itemsize": 2, "kind": "tanh"},
+                       {"itemsize": 1, "kind": "gelu", "block_rows": 8}):
+                yield jm.footprint, tm.footprint, (n,), kw
+    for jf, tf in ((j_fused.footprint_vpu, t_fused.footprint_vpu),
+                   (j_fused.footprint_mxu, t_fused.footprint_mxu)):
+        for args in FUSED_FP_ARGS:
+            for kw in ({"itemsize": 4, "mode": "max", "kind": "relu"},
+                       {"itemsize": 1, "mode": "avg", "kind": "tanh"},
+                       {"itemsize": 4, "kind": "gelu", "block_cout": 16}):
+                yield jf, tf, args, kw
+
+
+def test_footprints_equal_reference():
+    n = 0
+    for jf, tf, args, kw in _fp_cases():
+        assert dataclasses.asdict(tf(*args, **kw)) == \
+            dataclasses.asdict(jf(*args, **kw)), (tf.__module__, args, kw)
+        n += 1
+    assert n == 4 * 4 * 3 + 2 * 3 * 3 + 2 * 3 * 3 + 2 * 3 * 3
+
+
+# --------------------------------------------------------------------------
+# Named errors at the package boundary
+# --------------------------------------------------------------------------
+def test_named_errors():
+    x = torch.zeros((1, 6, 6, 2))
+    w = torch.zeros((3, 3, 2, 4))
+    with pytest.raises(ValueError, match="unknown pool mode"):
+        t_pool2d(x, mode="median")
+    with pytest.raises(ValueError, match="exceeds the input plane"):
+        t_pool2d(x, window=(7, 7))
+    with pytest.raises(KeyError, match="not a single-stream conv IP"):
+        t_conv2d(x, w, ip="ip9_magic")
+    with pytest.raises(KeyError, match="not a pool2d IP"):
+        t_pool2d(x, ip="pool_magic")
+    with pytest.raises(KeyError, match="not an activation IP"):
+        t_activation(x, ip="act_magic")
+    with pytest.raises(ValueError, match="unknown activation"):
+        t_activation(x, kind="swish", ip="act_vpu")
+    with pytest.raises(KeyError, match="not a fused CNN-block IP"):
+        t_fused_block(x, w, ip="fused_magic")
+    with pytest.raises(ValueError, match="unknown activation"):
+        t_fused_block(x, w, activation="swish", ip="fused_vpu")
+    with pytest.raises(ValueError, match="exceeds the input plane"):
+        t_fused_block(x, w, pool_window=(5, 5), ip="fused_vpu")
+    with pytest.raises(ValueError, match="block_cout"):
+        t_conv2d(x, w, ip="ip1_vpu", block_cout=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        t_conv2d_dual(x, x, w)
+
+
+def test_budget_path_selects_and_runs(rng):
+    """``budget=`` goes through plan_single; the result equals the
+    explicitly named member's."""
+    from repro_torch.core.resources import ResourceBudget
+    x = torch.from_numpy(_randn(rng, (1, 10, 10, 3)))
+    w = torch.from_numpy(_randn(rng, (3, 3, 3, 4)))
+    logic_only = ResourceBudget(mxu_available=False)
+    assert torch.equal(t_conv2d(x, w, budget=logic_only),
+                       t_conv2d(x, w, ip="ip1_vpu"))
+    assert torch.equal(t_fused_block(x, w, budget=logic_only),
+                       t_fused_block(x, w, ip="fused_vpu"))
+    y = t_conv2d(x, w)
+    assert torch.equal(t_pool2d(y), t_pool2d(y, ip="pool_vpu"))
+    assert torch.equal(t_activation(y, kind="tanh"),
+                       t_activation(y, kind="tanh", ip="act_vpu"))
