@@ -19,6 +19,18 @@ and prints no result):
    ``fuse=False`` server answers the same trace through the standalone
    kernels bitwise equal, and a ``device="cpu"`` server (plain versions)
    agrees within tolerance;
+   Then the two precision-ladder deployments (``LADDER``): the LUT
+   activation and the im2col pool against their plain versions
+   bit-exact (NaN, +-inf and exact half-step ties included); each
+   deployment serves two tenants at 224x224x3 — a relu tenant in f32
+   and a tanh tenant with ``ladder=(16, 8)`` and ``measure_quant`` that
+   the arbiter squeezes onto lowered rungs — for 3 waves of 8 + 2
+   requests, on the card (counters reset just before each and read just
+   after) and on the CPU: the light tenant's plans are the expected
+   ones, ``fused_cnn_mxu`` / ``activation_lut`` launched, the
+   accounting equals the CPU server's and the results follow the
+   code-flip rule (``code_flip``); and ``pool2d(budget=)`` picks and
+   launches the im2col pool;
 5. times  — per kernel: the median device time of 20 launches (CUDA
    events, launches queued ahead of the device), its plain version's
    and the PyTorch library call's time, and the least time the card
@@ -26,7 +38,8 @@ and prints no result):
    then the served requests per second over 3 steady windows (rounds of
    the 8-request trace, >= 512 requests and about 1 s each), and one
    more such window under ``torch.profiler``: device time by kernel and
-   the device's busy share.
+   the device's busy share; then each ladder deployment's served rate
+   over 3 windows of rounds of its trace (>= 1 s each).
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -70,6 +83,8 @@ PEAKS = {
 # file:line of the TPU kernel each CUDA kernel replaces (the function
 # that reaches pl.pallas_call).
 REPLACES = {
+    "activation_lut": "src/repro/kernels/activation/lut_poly.py:56",
+    "pool2d_im2col": "src/repro/kernels/pool2d/mxu_im2col.py:53",
     "fused_cnn_vpu": "src/repro/kernels/fused/cnn_block.py:86",
     "fused_cnn_mxu": "src/repro/kernels/fused/cnn_block.py:86",
     "conv2d_ip1": "src/repro/kernels/conv2d/ip1_vpu.py:35",
@@ -77,6 +92,36 @@ REPLACES = {
     "pool2d_window": "src/repro/kernels/pool2d/vpu_window.py:62",
     "activation_exact": "src/repro/kernels/activation/vpu_exact.py:35",
 }
+
+
+# The two-tenant precision-ladder deployments (the reference's serving
+# scenario at the default frontend's full widths): device budget, fuse,
+# the light tenant's plan at batch 2, and the kernel its lowered plan
+# must launch.
+LADDER = {
+    "ladder_fused": (dict(vmem_bytes=32 * 2**20,
+                          vpu_ops_budget=1_000_000_000), True,
+                     ["cnn_fused.fused_vpu@32", "cnn_fused.fused_mxu@8"],
+                     "fused_cnn_mxu"),
+    "ladder_chain": (dict(vmem_bytes=24 * 2**20,
+                          vpu_ops_budget=2_000_000_000), False,
+                     ["conv2d.ip1_vpu@16", "pool2d.pool_vpu@8",
+                      "activation.act_vpu@16", "conv2d.ip1_vpu@32",
+                      "pool2d.pool_vpu@8", "activation.act_lut@8"],
+                     "activation_lut"),
+}
+LADDER_WAVES = 3
+LADDER_MIX = {"heavy": 8, "light": 2}       # requests per wave
+LADDER_OUT = (2916, 64)
+MAX_QUANT_ERR = 5e-2
+# Code-flip rule: at most this share of a result's elements may lie out
+# of rtol=1e-4, atol=1e-5, each by at most one step of its grids.  A
+# flipped int8 input code of the last block reaches up to 4 pooled
+# pixels x 64 outputs, 256 of a completion's 186624 elements (0.14%),
+# and the card's and the CPU's f32 sums flip about one such code per
+# light completion, so the share allows a few such codes: 0.5% of the
+# elements (one flipped code alone would exceed 0.1%).
+FLIP_SHARE = 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -222,6 +267,71 @@ def kernel_checks(shapes, gen):
     return errs
 
 
+def ladder_kernel_checks(gen, errs):
+    """The precision ladder's two kernels against their plain versions:
+    the LUT activation bit-exact (f32 with NaN, +-inf and exact
+    half-step ties; int8; int32) at the served shapes, and the im2col
+    pool at the ``pool2d(budget=)`` shape (f32 within 1e-6, integers
+    bit-exact with negative sums for the floor average)."""
+    import torch
+    from repro_torch.kernels.activation.lut_poly import (
+        RANGES, activation_lut, activation_lut_plain, lut_scale)
+    from repro_torch.kernels.pool2d.mxu_im2col import (pool2d_im2col,
+                                                       pool2d_im2col_plain)
+    dev = torch.device("cuda")
+    for shape in ((4, 54, 54, 32), (4, 111, 111, 16)):
+        x = torch.randn(shape, generator=gen) * 5
+        flat = x.view(-1)
+        flat[:3] = torch.tensor([float("nan"), float("inf"),
+                                 -float("inf")])
+        for kind in sorted(RANGES):
+            r, s = RANGES[kind], lut_scale(kind)
+            k = torch.arange(0, 255, dtype=torch.float32)
+            ties = (k + 0.5) / s - r              # (x + r) * s == k + 0.5
+            ties = ties[(ties + r) * s == k + 0.5]
+            check(ties.numel() > 100, f"{kind}: too few exact ties")
+            xt = x.clone()
+            xt.view(-1)[3:3 + ties.numel()] = ties
+            xt = xt.to(dev)
+            compare("activation_lut", activation_lut(xt, kind=kind),
+                    activation_lut_plain(xt, kind=kind), 0, 0, errs,
+                    exact=True)
+            for dtype, lo, hi in ((torch.int8, -128, 127),
+                                  (torch.int32, -50, 50)):
+                xi = torch.randint(lo, hi, shape, generator=gen,
+                                   dtype=dtype).to(dev)
+                compare("activation_lut", activation_lut(xi, kind=kind),
+                        activation_lut_plain(xi, kind=kind), 0, 0, errs,
+                        exact=True)
+        check(torch.equal(activation_lut(xt, block_rows=7),
+                          activation_lut(xt)),
+              "activation_lut: result depends on block_rows")
+    shape = (4, 222, 222, 16)
+    xf = torch.randn(shape, generator=gen).to(dev)
+    xi8 = torch.randint(-128, 127, shape, generator=gen,
+                        dtype=torch.int8).to(dev)
+    xi32 = torch.randint(-1000, 1000, shape, generator=gen,
+                         dtype=torch.int32).to(dev)
+    for mode in ("max", "avg"):
+        compare("pool2d_im2col", pool2d_im2col(xf, mode=mode),
+                pool2d_im2col_plain(xf, mode=mode), 1e-6, 1e-6, errs)
+        for t in (xi8, xi32):
+            got = pool2d_im2col(t, mode=mode)
+            compare("pool2d_im2col", got,
+                    pool2d_im2col_plain(t, mode=mode), 0, 0, errs,
+                    exact=True)
+            if mode == "avg":
+                check(bool((got < 0).any()), "no negative average")
+        check(torch.equal(pool2d_im2col(xf, mode=mode, block_c=3),
+                          pool2d_im2col(xf, mode=mode)),
+              "pool2d_im2col: result depends on block_c")
+    xn = xf.clone()
+    xn[0, 0, 0, 0] = float("nan")
+    check(bool(torch.isnan(pool2d_im2col(xn)[0, 0, 0, 0])),
+          "pool2d_im2col: max dropped a NaN")
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: serving
 # ---------------------------------------------------------------------------
@@ -297,6 +407,187 @@ def serve_checks():
     log("device='cpu' server (plain versions) agrees within "
         "rtol=1e-4, atol=1e-5; est-cycle latencies equal")
     return launches, requests
+
+
+def ladder_trace(seed=SEED):
+    """LADDER_WAVES waves of LADDER_MIX requests, seeded."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[(name, rng.normal(size=IMAGE).astype(np.float32))
+             for name, n in LADDER_MIX.items() for _ in range(n)]
+            for _ in range(LADDER_WAVES)]
+
+
+def ladder_server(name, device):
+    """A deployment of LADDER: the default frontend as the f32 relu
+    "heavy" tenant and, from the next seed, the tanh "light" tenant with
+    the (16, 8) ladder and measured quantization error."""
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime.server import AdaptiveServer
+    budget, fuse, _, _ = LADDER[name]
+    clear_plan_cache()
+    srv = AdaptiveServer(ResourceBudget(**budget), policy="demand",
+                         max_batch=MAX_BATCH, fuse=fuse, device=device)
+    srv.register("heavy", init_cnn_frontend(SEED, device=device), IMAGE)
+    srv.register("light", init_cnn_frontend(SEED + 1, device=device), IMAGE,
+                 activation="tanh", ladder=(16, 8), measure_quant=True)
+    return srv
+
+
+def run_trace(srv, trace):
+    """Submit each wave, then ``step()``.  Returns the completions by rid
+    and each step's grants."""
+    import torch
+    done, grants = [], []
+    for wave in trace:
+        for tenant, x in wave:
+            srv.submit(tenant, x)
+        done += srv.step()
+        grants.append({k: v.fraction for k, v in srv.shares().items()})
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    return sorted(done, key=lambda c: c.rid), grants
+
+
+def light_plans(srv, grants):
+    """The light tenant's plan at batch 2 under each step's grant."""
+    from repro_torch.core.plan import replan
+    t = srv.tenants["light"]
+    specs = srv._specs(t.params, (LADDER_MIX["light"],) + IMAGE, "float32",
+                       t.pool_window, t.activation, t.ladder)
+    return [[f"{s.ip.name}@{s.precision_bits}"
+             for s in replan(specs, srv.budget.scaled(g["light"]),
+                             fuse=srv.fuse).sites] for g in grants]
+
+
+def code_flip_step(params, images):
+    """One step of the coarsest grid feeding an output of the light
+    tenant: a flipped int8 code of the last block's input (times its
+    largest weight and taps), of its conv output or of its pooled value
+    (tanh is 1-Lipschitz), plus one table step of the LUT — times the
+    largest column sum of the projection (each output sums one feature
+    per channel).  The last block's input comes from the f32 frontend on
+    the card."""
+    import torch
+    from repro_torch.kernels.activation.lut_poly import RANGES, TABLE_SIZE
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+    from repro_torch.kernels.pool2d.ref import pool2d_ref
+    from repro_torch.models.blocks import apply_cnn_block
+    x = images
+    for bp in params["blocks"][:-1]:
+        x = apply_cnn_block(bp, x, activation="tanh")
+    w = params["blocks"][-1]["w"]
+    conv = conv2d_ref(x, w)
+    pool = pool2d_ref(conv)
+    step = (float(x.abs().max() * w.abs().max()) * w.shape[0] * w.shape[1]
+            + float(conv.abs().max()) + float(pool.abs().max())) / 127
+    step += 2 * RANGES["tanh"] / (TABLE_SIZE - 1)
+    return step * float(params["proj"].abs().sum(dim=0).max())
+
+
+def code_flip(name, got, want, step):
+    """At most FLIP_SHARE of the elements out of rtol=1e-4, atol=1e-5,
+    each by at most ``step``.  Returns the count out of tolerance."""
+    import torch
+    diff = (got.double() - want.double()).abs()
+    bad = diff > 1e-5 + 1e-4 * want.double().abs()
+    n_bad = int(bad.sum())
+    check(n_bad <= FLIP_SHARE * bad.numel(),
+          f"{name}: {n_bad} of {bad.numel()} elements out of tolerance")
+    check(n_bad == 0 or float(diff[bad].max()) <= step + 1e-5,
+          f"{name}: an element moved {float(diff.max())} > one grid step "
+          f"{step}")
+    return n_bad
+
+
+def ladder_serve_checks(trace):
+    """Serve each LADDER deployment on the card (counters reset just
+    before, read just after) and on the CPU; returns the launches of
+    each deployment's run and its light tenant's measured error."""
+    import torch
+    from repro_torch.kernels import cuda
+    out = {}
+    for name, (_, _, plan, kernel) in LADDER.items():
+        srv = ladder_server(name, None)                # device=None: cuda
+        cuda.reset_launches()
+        done, grants = run_trace(srv, trace)
+        launches = cuda.launch_counts()
+        check(srv.device.type == "cuda", "server did not default to cuda")
+        check(kernel in launches, f"{name}: {kernel} never launched "
+                                  f"({launches})")
+        plans = light_plans(srv, grants)
+        check(all(p == plan for p in plans),
+              f"{name}: light tenant planned {plans}, expected {plan}")
+        n = LADDER_WAVES * sum(LADDER_MIX.values())
+        check(len(done) == n, f"{name}: {len(done)} completions of {n}")
+        for c in done:
+            check(tuple(c.result.shape) == LADDER_OUT and c.result.is_cuda
+                  and bool(torch.isfinite(c.result).all()),
+                  f"{name} rid {c.rid}: {tuple(c.result.shape)} "
+                  f"{c.result.device}, or non-finite")
+        tel = srv.telemetry()
+        err = tel["light"]["max_quant_rel_err"]
+        check(0.0 < err <= MAX_QUANT_ERR,
+              f"{name}: light max_quant_rel_err {err}")
+        log(f"{name}: {n} requests; light plan {plan}; grants "
+            f"{grants[-1]}; launches {launches}; light max_quant_rel_err "
+            f"{err:.4e}; precision_mix {tel['light']['precision_mix']}")
+
+        cpu = ladder_server(name, "cpu")
+        cpu_done, cpu_grants = run_trace(cpu, trace)
+        check([(c.rid, c.tenant, c.batch_size, c.finished) for c in done]
+              == [(c.rid, c.tenant, c.batch_size, c.finished)
+                  for c in cpu_done],
+              f"{name}: rids, batch sizes or est-cycle finish times differ "
+              f"from the CPU server")
+        check(grants == cpu_grants, f"{name}: grants {grants} vs CPU "
+                                    f"{cpu_grants}")
+        cpu_tel = cpu.telemetry()
+        for t in ("heavy", "light"):
+            check(tel[t]["precision_mix"] == cpu_tel[t]["precision_mix"],
+                  f"{name} {t}: precision_mix differs from the CPU server")
+        light = torch.stack([torch.as_tensor(x) for wave in trace
+                             for t, x in wave if t == "light"]).cuda()
+        steps = {"heavy": 0.0,
+                 "light": code_flip_step(srv.tenants["light"].params,
+                                         light)}
+        flips = [code_flip(f"{name} rid {a.rid}", a.result.cpu(),
+                           b.result, steps[a.tenant])
+                 for a, b in zip(done, cpu_done)]
+        size = done[0].result.numel()
+        log(f"{name}: CPU server accounting equal; results within the "
+            f"code-flip rule ({sum(flips)} elements out of rtol=1e-4, "
+            f"atol=1e-5 over {len(done)} completions, at most "
+            f"{max(flips)} of {size} in one, "
+            f"{max(flips) / size:.4%}; light grid step "
+            f"{steps['light']:.4e})")
+        out[name] = (launches, err)
+    return out
+
+
+def budget_pool_check(gen, errs):
+    """``pool2d(mode="avg", budget=)`` under a VPU limit picks the im2col
+    pool and launches it once."""
+    import torch
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.pool2d.mxu_im2col import pool2d_im2col_plain
+    from repro_torch.kernels.pool2d.ops import pool2d
+    x = torch.randn((4, 222, 222, 16), generator=gen).cuda()
+    budget = ResourceBudget(vpu_ops_budget=5_000_000)
+    cuda.reset_launches()
+    y = pool2d(x, mode="avg", budget=budget)
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts()
+    check(launches == {"pool2d_im2col": 1},
+          f"pool2d(budget=) launched {launches}")
+    compare("pool2d_im2col", y, pool2d_im2col_plain(x, mode="avg"), 1e-6,
+            1e-6, errs)
+    log(f"pool2d(mode='avg', budget=vpu 5e6) at {tuple(x.shape)}: "
+        f"launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +704,62 @@ def timings(shapes, gen, peaks):
             plain_ms=time_ms(lambda: fused_cnn_plain(style, x, w)),
             library_ms=None, bound_ms=b_ms, bound_by=by,
             shape=f"x{tuple(x.shape)} w{tuple(w.shape)} max 2x2 relu")
+    # the precision ladder's kernels: Act2 at its served shape, Pool2 at
+    # the pool2d(budget=) shape
+    from repro_torch.kernels.activation.lut_poly import (
+        activation_lut, activation_lut_plain)
+    from repro_torch.kernels.pool2d.mxu_im2col import (pool2d_im2col,
+                                                       pool2d_im2col_plain)
+    xa = torch.randn((4, 54, 54, 32), generator=gen).to(dev) * 2
+    ya = activation_lut(xa, kind="tanh")
+    b_ms, by = bound(nbytes(xa, ya) + 256 * 4, 4 * xa.numel())
+    rows["activation_lut"] = dict(
+        ms=time_ms(lambda: activation_lut(xa, kind="tanh")),
+        plain_ms=time_ms(lambda: activation_lut_plain(xa, kind="tanh")),
+        library_ms=None, bound_ms=b_ms, bound_by=by,
+        shape=f"x{tuple(xa.shape)} tanh",
+        yardstick=("torch.tanh (the exact function)",
+                   time_ms(lambda: torch.tanh(xa))))
+    xp = torch.randn((4, 222, 222, 16), generator=gen).to(dev)
+    yp = pool2d_im2col(xp, mode="avg")
+    b_ms, by = bound(nbytes(xp, yp), 4 * yp.numel())
+    rows["pool2d_im2col"] = dict(
+        ms=time_ms(lambda: pool2d_im2col(xp, mode="avg")),
+        plain_ms=time_ms(lambda: pool2d_im2col_plain(xp, mode="avg")),
+        library_ms=time_ms(lambda: F.avg_pool2d(xp.permute(0, 3, 1, 2), 2)),
+        bound_ms=b_ms, bound_by=by, shape=f"x{tuple(xp.shape)} avg 2x2")
     return rows
+
+
+def ladder_window(srv, trace, rounds):
+    """Wall seconds (host clock, synchronized at both ends) of ``rounds``
+    rounds of a ladder trace: each wave submitted, then ``step()``."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for wave in trace:
+            for tenant, x in wave:
+                srv.submit(tenant, x)
+            srv.step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def ladder_rate(name, trace):
+    """A LADDER deployment's served rate: after a warm-up round, windows
+    of rounds of its trace sized to about 1.25 * RATE_WINDOW_S, timed
+    RATE_WINDOWS times.  Returns (requests per window, walls)."""
+    srv = ladder_server(name, "cuda")
+    ladder_window(srv, trace, 1)
+    wall = ladder_window(srv, trace, 1)
+    rounds = max(1, math.ceil(1.25 * RATE_WINDOW_S / wall))
+    while True:
+        walls = [ladder_window(srv, trace, rounds)
+                 for _ in range(RATE_WINDOWS)]
+        if min(walls) >= RATE_WINDOW_S:
+            return rounds * sum(len(w) for w in trace), walls
+        rounds *= 2
 
 
 def serve_window(srv, requests, rounds):
@@ -512,8 +858,15 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     errs = kernel_checks(shapes, gen)
 
+    ladder_kernel_checks(gen, errs)
+
     # 4. serve
     launches, requests = serve_checks()
+    trace = ladder_trace()
+    ladder = ladder_serve_checks(trace)
+    launches["activation_lut"] = \
+        ladder["ladder_chain"][0]["activation_lut"]
+    launches.update(budget_pool_check(gen, errs))
 
     # 5. times
     rows = timings(shapes, gen, peaks)
@@ -523,14 +876,27 @@ def main() -> int:
     for name, r in rows.items():
         lib_t = ("-" if r["library_ms"] is None
                  else f"{r['library_ms'] * 1e3:.1f} us")
+        extra = ""
+        if "yardstick" in r:
+            extra = (f", yardstick {r['yardstick'][0]} "
+                     f"{r['yardstick'][1] * 1e3:.1f} us")
         log(f"{name} [{r['shape']}]: {r['ms'] * 1e3:.1f} us, plain "
-            f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}, bound "
+            f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}{extra}, bound "
             f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) on {card}")
     log(f"served {statistics.median(rates):.1f} requests/s, median of "
         f"{len(walls)} windows of {n} requests (range {rates[0]:.1f}-"
         f"{rates[-1]:.1f} requests/s, walls "
         f"{', '.join(f'{w:.3f}' for w in walls)} s; 224x224x3, max_batch "
         f"{MAX_BATCH}, fuse=True) on {card}")
+
+    for name in LADDER:
+        per_window, lwalls = ladder_rate(name, trace)
+        lrates = sorted(per_window / w for w in lwalls)
+        log(f"{name}: served {statistics.median(lrates):.1f} requests/s, "
+            f"median of {len(lwalls)} windows of {per_window} requests "
+            f"(range {lrates[0]:.1f}-{lrates[-1]:.1f} requests/s, walls "
+            f"{', '.join(f'{w:.3f}' for w in lwalls)} s; 224x224x3, "
+            f"waves of {LADDER_MIX}, max_batch {MAX_BATCH}) on {card}")
 
     kernels = [{"name": name, "route": "cuda", "source": CSRC,
                 "replaces": REPLACES[name], "launches": launches[name],

@@ -2,7 +2,7 @@
 NVIDIA H100.
 
 The layout mirrors ``repro`` module for module (``core/``, ``obs/``,
-``kernels/<family>/``, ``models/``, ``runtime/``).  Public functions
+``kernels/<family>/``, ``quant/``, ``models/``, ``runtime/``).  Public functions
 keep ``repro``'s tensor layout — NHWC activations, HWIO weights — and
 run on the tensor's device: a CUDA tensor launches the hand-written
 kernel of ``kernels/csrc/``, a CPU tensor runs the plain PyTorch

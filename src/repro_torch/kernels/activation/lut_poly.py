@@ -1,21 +1,30 @@
 """Act2 — low-precision LUT activation (the paper's fixed-point IP).
 
-The input is rounded onto a 256-level grid over the activation's
-saturation range and the nonlinearity becomes one table lookup; only
-saturating kinds are supported.  The planner prices this member on every
-activation site of a saturating kind, so its footprint is ported now; at
-the default budget (16-bit precision floor) it never wins.  Its kernel
-(``repro/kernels/activation/lut_poly.py::activation_lut``) is ROADMAP
-queue 2, item 8: on a CUDA tensor ``activation_lut`` raises
-``NotImplementedError``, on the CPU it runs the plain version.
+Replaces ``repro/kernels/activation/lut_poly.py::activation_lut``.  The
+input is rounded onto a 256-level grid over the activation's saturation
+range ``[-r, r]`` and the nonlinearity becomes one table lookup; only
+saturating kinds are supported.  The kernel
+(``activation_lut_kernel`` in ``csrc/cnn_kernels.cu``) stages the table
+in shared memory and runs one thread per element; it computes the index
+with the same f32 operations as the plain version, ``(x + r) * s``
+rounded half to even, so the two agree bitwise on the card.
+
+NaN lands on entry 0 and +-inf on the end entries, as in the reference:
+the index is clamped below at 0 before the NaN check can see it.  The
+table is built once per (kind, device) on the CPU from the ``ref.py``
+oracle and copied to the device, so every device reads the same table.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.core.resources import Footprint, cost_cycles, vpu_op_cycles
+from repro_torch.kernels import cuda
 from repro_torch.kernels.activation.ref import (activation_out_dtype,
                                                 activation_ref)
+from repro_torch.kernels.conv2d.inner import check_block
 
 TABLE_SIZE = 256
 
@@ -24,35 +33,66 @@ TABLE_SIZE = 256
 RANGES = {"relu6": 8.0, "sigmoid": 8.0, "tanh": 4.0}
 SUPPORTED_KINDS = tuple(sorted(RANGES))
 
+_TABLES: Dict[Tuple[str, str], torch.Tensor] = {}
 
-def build_table(kind: str, device=None) -> torch.Tensor:
-    """256-entry float32 table sampled from the ``ref.py`` oracle."""
+
+def build_table(kind: str) -> torch.Tensor:
+    """256-entry float32 table sampled from the ``ref.py`` oracle, on the
+    CPU.  ``torch.linspace`` differs from ``jnp.linspace`` by up to an
+    ulp at some grid points, so the table matches the reference's within
+    1e-6, not bitwise."""
     r = RANGES[kind]
-    xs = torch.linspace(-r, r, TABLE_SIZE, dtype=torch.float32,
-                        device=device)
+    xs = torch.linspace(-r, r, TABLE_SIZE, dtype=torch.float32)
     return activation_ref(xs, kind=kind)
 
 
-def activation_lut_plain(x: torch.Tensor, *, kind: str = "tanh"):
-    r = RANGES[kind]
-    scale = (TABLE_SIZE - 1) / (2.0 * r)
-    q = torch.clamp(torch.round((x.to(torch.float32) + r) * scale), 0,
-                    TABLE_SIZE - 1)            # round half to even
-    table = build_table(kind, device=x.device)
+def table_for(kind: str, device) -> torch.Tensor:
+    """The cached table of ``kind`` on ``device``."""
+    key = (kind, str(torch.device(device)))
+    table = _TABLES.get(key)
+    if table is None:
+        table = build_table(kind).to(device)
+        _TABLES[key] = table
+    return table
+
+
+def lut_scale(kind: str) -> float:
+    """Grid steps per unit input, ``255 / (2 r)`` (exact in f32 for every
+    supported range)."""
+    return (TABLE_SIZE - 1) / (2.0 * RANGES[kind])
+
+
+def activation_lut_plain(x: torch.Tensor, *,
+                         kind: str = "tanh") -> torch.Tensor:
+    """The kernel's function in plain PyTorch."""
+    q = torch.round((x.to(torch.float32) + RANGES[kind]) * lut_scale(kind))
+    q = torch.nan_to_num(torch.clamp(q, 0, TABLE_SIZE - 1), nan=0.0)
+    table = table_for(kind, x.device)
     return table[q.to(torch.int64)].to(activation_out_dtype(x.dtype))
 
 
 def activation_lut(x: torch.Tensor, *, kind: str = "tanh",
                    block_rows: int = 256) -> torch.Tensor:
+    """Table activation; float input keeps its dtype, integer input gives
+    f32.  CUDA tensors (f32, int8, int32) launch the kernel; CPU tensors
+    run the plain version.  ``block_rows`` is validated and priced by
+    the footprint; it does not shape the grid."""
     if kind not in RANGES:
         raise ValueError(
             f"LUT activation supports saturating kinds {SUPPORTED_KINDS}; "
             f"{kind!r} is unbounded — use the exact IP")
-    if x.is_cuda:
-        raise NotImplementedError(
-            "activation.act_lut has no CUDA kernel yet (ROADMAP queue 2, "
-            "item 8)")
-    return activation_lut_plain(x, kind=kind)
+    check_block("block_rows", block_rows)
+    if not x.is_cuda:
+        return activation_lut_plain(x, kind=kind)
+    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32))
+    table = table_for(kind, x.device)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    cuda.launch("activation_lut", "cnn_activation_lut", x.device,
+                cuda.DTYPE_CODE[x.dtype], x.data_ptr(), table.data_ptr(),
+                y.data_ptr(), x.numel(), RANGES[kind], lut_scale(kind))
+    return y
 
 
 def footprint(n_elems, *, itemsize=4, kind="tanh",

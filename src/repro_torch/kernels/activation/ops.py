@@ -1,6 +1,8 @@
 """Public wrapper for the activation IP family: an explicit ``ip=``
 name or a ``budget=`` through the resource-driven selector, mirroring
-``kernels/conv2d/ops.py``."""
+``kernels/conv2d/ops.py``.  ``ladder=`` lets the planner lower the call's
+operand width; a lowered plan evaluates the nonlinearity on the
+intN-quantized input grid (``repro_torch.quant.ops.quantized_activation``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,7 +12,6 @@ import torch
 from repro_torch.core.resources import ResourceBudget
 from repro_torch.kernels.activation.lut_poly import activation_lut
 from repro_torch.kernels.activation.vpu_exact import activation_exact
-from repro_torch.kernels.conv2d.ops import lowered_not_ported
 
 _MEMBERS = {"act_vpu": activation_exact, "act_lut": activation_lut}
 
@@ -28,7 +29,10 @@ def activation(x: torch.Tensor, *, kind: str = "relu",
                              x.dtype, ladder=ladder, kind=kind)
         planned = plan_single(spec, budget)
         if planned.lowered:
-            raise lowered_not_ported("activation", planned.precision_bits)
+            from repro_torch.quant.ops import quantized_activation
+            return quantized_activation(x, kind=kind,
+                                        bits=planned.precision_bits,
+                                        ip=planned.ip.name)
         ip = planned.ip.name
     ip = ip.split(".")[-1]
     if ip not in _MEMBERS:

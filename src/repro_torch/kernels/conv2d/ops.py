@@ -2,10 +2,13 @@
 
 ``conv2d`` takes an explicit ``ip=`` name or a ``budget=``
 (ResourceBudget) and defers to the resource-driven selector — the
-paper's "automatic adaptation to the available resources".  A plan the
-precision ladder lowered, ``reduce_axis=`` (mesh execution) and the
-dual-stream ``conv2d_dual`` are later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+paper's "automatic adaptation to the available resources".
+``ladder=`` (e.g. ``(16, 8)``) lets the planner lower the call's operand
+width; a lowered plan executes through
+``repro_torch.quant.ops.quantized_conv2d`` and still returns float.
+``reduce_axis=`` (mesh execution) and the dual-stream ``conv2d_dual``
+are later slices and raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -18,12 +21,6 @@ from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1
 from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2
 
 _SINGLE = {"ip1_vpu": conv2d_ip1, "ip2_mxu": conv2d_ip2}
-
-
-def lowered_not_ported(family: str, bits: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"the planner lowered this {family} site to {bits} bits; quantized "
-        f"execution is not ported yet (ROADMAP queue 1, item 4)")
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, ip: Optional[str] = None,
@@ -45,7 +42,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, ip: Optional[str] = None,
                              x.dtype, ladder=ladder, dual=False)
         planned = plan_single(spec, budget)
         if planned.lowered:
-            raise lowered_not_ported("conv2d", planned.precision_bits)
+            from repro_torch.quant.ops import quantized_conv2d
+            return quantized_conv2d(x, w, bits=planned.precision_bits,
+                                    ip=planned.ip.name)
         ip = planned.ip.name
     ip = ip.split(".")[-1]
     if ip not in _SINGLE:

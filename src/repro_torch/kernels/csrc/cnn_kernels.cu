@@ -1,4 +1,4 @@
-// The CNN kernels of the port: five __global__ kernels and their plain C
+// The CNN kernels of the port: seven __global__ kernels and their plain C
 // launchers, loaded with ctypes by src/repro_torch/kernels/cuda.py.
 //
 // Built with: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -8,7 +8,7 @@
 // tensors contiguous.  Every kernel maps one thread to one output element;
 // the channel tiling hints (block_cout / block_c) shape the grid and the
 // kernel masks the ragged edge, so results never depend on them.  The
-// activation's block_rows hint is validated and does not shape its grid.
+// activations' block_rows hints are validated and do not shape a grid.
 //
 // Kernel notes (what each replaces, what bounds it on the H100, and what
 // this design does about it):
@@ -35,6 +35,26 @@
 //   memory.  One thread per element, neighbouring threads on neighbouring
 //   addresses, so loads and stores coalesce.
 //
+// activation_lut_kernel   replaces src/repro/kernels/activation/lut_poly.py::activation_lut
+//   One f32 index computation and one table read per 4-byte element:
+//   bound by device memory (the 1 KB table stays on chip).  Each block
+//   first copies the 256-entry table into shared memory, so the gather
+//   never leaves the SM; then one thread per element, neighbouring
+//   threads on neighbouring addresses.  The index is
+//   rintf(__fmul_rn(__fadd_rn(x, r), s)) (rint: half to even, as
+//   jnp.round), clamped fmaxf(.., 0) first so NaN lands on entry 0.
+//
+// pool2d_im2col_kernel    replaces src/repro/kernels/pool2d/mxu_im2col.py::pool2d_im2col
+//   kh*kw loads and adds (or compares) per output: bound by device
+//   memory.  The TPU kernel stacks the taps into a VMEM patch tensor so
+//   that avg becomes one MXU pass, ones(1, kh*kw) @ patches.  On Hopper
+//   a one-row product would waste the tensor cores and TF32 would miss
+//   f32 exactness, so the "patch" is each thread's tap loop in
+//   registers and the ones-product is kh*kw adds on CUDA cores, taken in
+//   the stacked (i-major) order; integer avg floors.  One thread per
+//   output, neighbouring threads on neighbouring channels, so loads and
+//   stores coalesce along C.
+//
 // fused_cnn_kernel<T, S>  replaces src/repro/kernels/fused/cnn_block.py::_fused_call
 //   (members fused_cnn_vpu / fused_cnn_mxu).  One thread per pooled output
 //   (n, po, qo, co) computes the ph*pw conv values its window needs with
@@ -53,6 +73,7 @@
 namespace cnn {
 
 constexpr int kThreads = 256;
+constexpr int kTableSize = 256;
 enum Style { kVpu = 0, kMxu = 1 };
 enum DType { kF32 = 0, kI8 = 1, kI32 = 2 };
 
@@ -123,6 +144,48 @@ __global__ void activation_kernel(const T* __restrict__ x,
                                   int kind) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < numel) y[i] = activate(float(x[i]), kind);
+}
+
+// One thread per element; the block stages the table in shared memory.
+template <typename T>
+__global__ void activation_lut_kernel(const T* __restrict__ x,
+                                      const float* __restrict__ table,
+                                      float* __restrict__ y,
+                                      long long numel, float r, float s) {
+  __shared__ float lut[kTableSize];
+  for (int k = threadIdx.x; k < kTableSize; k += blockDim.x) {
+    lut[k] = table[k];
+  }
+  __syncthreads();
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= numel) return;
+  float q = rintf(__fmul_rn(__fadd_rn(float(x[i]), r), s));
+  q = fminf(fmaxf(q, 0.0f), float(kTableSize - 1));   // NaN -> 0
+  y[i] = lut[int(q)];
+}
+
+// The taps in stacked order (i-major): max over them, or their sum and
+// the count's division (integer: floor).
+template <typename T, typename V, typename O>
+__global__ void pool2d_im2col_kernel(const T* __restrict__ x,
+                                     O* __restrict__ y, int N, int H, int W,
+                                     int C, int KH, int KW, int SH, int SW,
+                                     int Ho, int Wo, int mode, int bc) {
+  Slot t = slot((long long)N * Ho * Wo, C, bc);
+  if (!t.live) return;
+  int ow = int(t.p % Wo);
+  long long r = t.p / Wo;
+  int oh = int(r % Ho);
+  int n = int(r / Ho);
+  const T* base = x + ((size_t(n) * H + size_t(oh) * SH) * W +
+                       size_t(ow) * SW) * C + t.co;
+  V acc = V(base[0]);
+  for (int tap = 1; tap < KH * KW; ++tap) {
+    V v = V(base[(size_t(tap / KW) * W + tap % KW) * C]);
+    acc = (mode == kMax) ? vmax(acc, v) : add(acc, v);
+  }
+  if (mode == kAvg) acc = avg_div(acc, KH * KW);
+  y[t.p * C + t.co] = O(acc);
 }
 
 template <typename T, int STYLE>
@@ -237,6 +300,51 @@ int cnn_activation(int dtype, int kind, const void* x, float* y,
   } else {
     return int(cudaErrorInvalidValue);
   }
+  return int(cudaGetLastError());
+}
+
+int cnn_activation_lut(int dtype, const void* x, const float* table,
+                       float* y, long long numel, float r, float s,
+                       void* stream) {
+  unsigned grid = blocks_for(numel);
+  cudaStream_t st = cudaStream_t(stream);
+#define CNN_LUT(T)                                                          \
+  activation_lut_kernel<T><<<grid, kThreads, 0, st>>>((const T*)x, table,   \
+                                                      y, numel, r, s)
+  if (dtype == kF32) {
+    CNN_LUT(float);
+  } else if (dtype == kI8) {
+    CNN_LUT(int8_t);
+  } else if (dtype == kI32) {
+    CNN_LUT(int32_t);
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+#undef CNN_LUT
+  return int(cudaGetLastError());
+}
+
+int cnn_pool2d_im2col(int dtype, int mode, const void* x, void* y, int N,
+                      int H, int W, int C, int KH, int KW, int SH, int SW,
+                      int bc, void* stream) {
+  int Ho = (H - KH) / SH + 1, Wo = (W - KW) / SW + 1;
+  dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (C + bc - 1) / bc);
+  cudaStream_t st = cudaStream_t(stream);
+#define CNN_IM2COL(T, V, O)                                                 \
+  pool2d_im2col_kernel<T, V, O><<<grid, kThreads, 0, st>>>(                 \
+      (const T*)x, (O*)y, N, H, W, C, KH, KW, SH, SW, Ho, Wo, mode, bc)
+  if (dtype == kF32) {
+    CNN_IM2COL(float, float, float);
+  } else if (dtype == kI8 && mode == kMax) {
+    CNN_IM2COL(int8_t, int32_t, int8_t);
+  } else if (dtype == kI8 && mode == kAvg) {
+    CNN_IM2COL(int8_t, int32_t, int32_t);
+  } else if (dtype == kI32) {
+    CNN_IM2COL(int32_t, int32_t, int32_t);
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+#undef CNN_IM2COL
   return int(cudaGetLastError());
 }
 

@@ -39,12 +39,16 @@ DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "cnn_conv2d": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cnn_activation": (_I, _I, _P, _P, ctypes.c_longlong, _P),
     "cnn_fused": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _I, _I, _P),
+    "cnn_activation_lut": (_I, _P, _P, _P, ctypes.c_longlong, _F, _F, _P),
+    "cnn_pool2d_im2col": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P),
 }
 
 # Launches per kernel since the last reset_launches(): each wrapper adds

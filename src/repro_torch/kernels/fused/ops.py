@@ -1,6 +1,9 @@
 """Public wrapper for the fused CNN-block IP family: an explicit ``ip=``
 name or a ``budget=`` through the resource-driven selector, mirroring
-``kernels/conv2d/ops.py``."""
+``kernels/conv2d/ops.py``.  ``ladder=`` lets the planner lower the whole
+block's operand width; a lowered plan executes through
+``repro_torch.quant.ops.quantized_fused_cnn_block`` (int8: the integer
+kernel with the in-register rescale) and returns float."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +11,6 @@ from typing import Optional
 import torch
 
 from repro_torch.core.resources import ResourceBudget
-from repro_torch.kernels.conv2d.ops import lowered_not_ported
 from repro_torch.kernels.fused.cnn_block import fused_cnn_mxu, fused_cnn_vpu
 
 _MEMBERS = {"fused_vpu": fused_cnn_vpu, "fused_mxu": fused_cnn_mxu}
@@ -41,7 +43,11 @@ def fused_cnn_block(x: torch.Tensor, w: torch.Tensor, *,
                              kind=activation)
         planned = plan_single(spec, budget)
         if planned.lowered:
-            raise lowered_not_ported("cnn_fused", planned.precision_bits)
+            from repro_torch.quant.ops import quantized_fused_cnn_block
+            return quantized_fused_cnn_block(
+                x, w, pool_window=pool_window, pool_stride=pool_stride,
+                pool_mode=pool_mode, activation=activation,
+                bits=planned.precision_bits, ip=planned.ip.name)
         ip = planned.ip.name
     return resolve_member(ip)(x, w, pool_window=tuple(pool_window),
                               pool_stride=pool_stride, pool_mode=pool_mode,

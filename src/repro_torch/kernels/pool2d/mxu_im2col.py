@@ -1,10 +1,15 @@
 """Pool2 — im2col pooling (Conv2-style IP: stacked patch tensor).
 
-The planner prices this member on every pool site, so its footprint is
-ported now; at the default budget it never wins.  Its kernel
-(``repro/kernels/pool2d/mxu_im2col.py::pool2d_im2col``) is ROADMAP
-queue 2, item 7: on a CUDA tensor ``pool2d_im2col`` raises
-``NotImplementedError``, on the CPU it runs the plain version.
+Replaces ``repro/kernels/pool2d/mxu_im2col.py::pool2d_im2col``.  The
+reference stacks the KH*KW strided taps into a patch tensor in VMEM and
+reduces over the tap axis: max with one vectorized max, avg with one MXU
+pass ``ones(1, KH*KW) @ patches`` and the count's division (integers
+floor).  The kernel (``pool2d_im2col_kernel`` in
+``csrc/cnn_kernels.cu``) maps one thread to one output and reduces its
+taps in the stacked (i-major) order on CUDA cores; the plain version
+below reduces the stacked taps in the same order, so the two agree
+bitwise.  Max propagates NaN; ``block_c`` shapes the grid, never the
+result.
 """
 from __future__ import annotations
 
@@ -12,23 +17,31 @@ import torch
 
 from repro_torch.core.resources import (Footprint, cost_cycles,
                                         mxu_pass_cycles, vpu_op_cycles)
+from repro_torch.kernels import cuda
+from repro_torch.kernels.conv2d.inner import check_block
 from repro_torch.kernels.pool2d.ref import (MODES, check_pool_geometry,
                                             pool2d_out_shape, pool_dtypes)
+from repro_torch.kernels.pool2d.vpu_window import MODE_CODE
 
 
 def pool2d_im2col_plain(x, *, window=(2, 2), stride=None,
                         mode: str = "max") -> torch.Tensor:
-    """Stack the KH*KW strided taps; max reduces over the tap axis, avg
-    sums the taps (the reference's ones @ patches) then divides."""
+    """Stack the KH*KW strided taps, then reduce over the tap axis in
+    stacked order: max, or the sum divided by the count (integers
+    floor)."""
     (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
     _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))
     acc_dtype, _ = pool_dtypes(x.dtype, mode)
     patches = torch.stack([x[:, i:i + (ho - 1) * sh + 1:sh,
                              j:j + (wo - 1) * sw + 1:sw, :]
                            for i in range(kh) for j in range(kw)])
+    if mode == "avg":
+        patches = patches.to(acc_dtype)
+    acc = patches[0]
+    for tap in patches[1:]:
+        acc = torch.maximum(acc, tap) if mode == "max" else acc + tap
     if mode == "max":
-        return patches.amax(dim=0)
-    acc = patches.to(acc_dtype).sum(dim=0, dtype=acc_dtype)
+        return acc.contiguous()
     if acc_dtype.is_floating_point:
         return acc / (kh * kw)
     return torch.div(acc, kh * kw, rounding_mode="floor")
@@ -36,13 +49,28 @@ def pool2d_im2col_plain(x, *, window=(2, 2), stride=None,
 
 def pool2d_im2col(x: torch.Tensor, *, window=(2, 2), stride=None,
                   mode: str = "max", block_c: int = 128) -> torch.Tensor:
+    """Max/avg pooling, output dtype per ``pool_dtypes``.  CUDA tensors
+    (f32, int8, int32) launch the kernel; CPU tensors run the plain
+    version."""
     if mode not in MODES:
         raise ValueError(f"unknown pool mode {mode!r}; have {MODES}")
-    if x.is_cuda:
-        raise NotImplementedError(
-            "pool2d.pool_im2col has no CUDA kernel yet (ROADMAP queue 2, "
-            "item 7)")
-    return pool2d_im2col_plain(x, window=window, stride=stride, mode=mode)
+    check_block("block_c", block_c)
+    if not x.is_cuda:
+        return pool2d_im2col_plain(x, window=window, stride=stride,
+                                   mode=mode)
+    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32), ndim=4)
+    (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
+    n, h, w, c = x.shape
+    _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))
+    _, out_dtype = pool_dtypes(x.dtype, mode)
+    y = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    cuda.launch("pool2d_im2col", "cnn_pool2d_im2col", x.device,
+                cuda.DTYPE_CODE[x.dtype], MODE_CODE[mode], x.data_ptr(),
+                y.data_ptr(), n, h, w, c, kh, kw, sh, sw,
+                min(int(block_c), c))
+    return y
 
 
 def footprint(n, h, w, c, kh, kw, sh, sw, *, itemsize=1, mode="max",

@@ -1,6 +1,8 @@
 """Public wrapper for the pool2d IP family: an explicit ``ip=`` name or
 a ``budget=`` through the resource-driven selector, mirroring
-``kernels/conv2d/ops.py``."""
+``kernels/conv2d/ops.py``.  ``ladder=`` lets the planner lower the call's
+operand width; a lowered plan executes through
+``repro_torch.quant.ops.quantized_pool2d`` and returns float."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +10,6 @@ from typing import Optional
 import torch
 
 from repro_torch.core.resources import ResourceBudget
-from repro_torch.kernels.conv2d.ops import lowered_not_ported
 from repro_torch.kernels.pool2d.mxu_im2col import pool2d_im2col
 from repro_torch.kernels.pool2d.ref import MODES, check_pool_geometry
 from repro_torch.kernels.pool2d.vpu_window import pool2d_window
@@ -33,7 +34,10 @@ def pool2d(x: torch.Tensor, *, window=(2, 2), stride=None, mode: str = "max",
                              mode=mode)
         planned = plan_single(spec, budget)
         if planned.lowered:
-            raise lowered_not_ported("pool2d", planned.precision_bits)
+            from repro_torch.quant.ops import quantized_pool2d
+            return quantized_pool2d(x, window=window, stride=stride,
+                                    mode=mode, bits=planned.precision_bits,
+                                    ip=planned.ip.name)
         ip = planned.ip.name
     ip = ip.split(".")[-1]
     if ip not in _MEMBERS:

@@ -14,10 +14,6 @@ from repro_torch.core.ip import SiteSpec, dtype_name, is_integer_dtype
 from repro_torch.kernels.pool2d.ref import (check_pool_geometry,
                                             pool2d_out_shape)
 
-QUANT_NOT_PORTED = ("quantized execution (precision ladder, quant_report) "
-                    "is not ported yet (ROADMAP queue 1, item 4)")
-
-
 def _generator(seed_or_generator) -> torch.Generator:
     if isinstance(seed_or_generator, torch.Generator):
         return seed_or_generator
@@ -77,19 +73,37 @@ def cnn_block_site_specs(x_shape, w_shape, *, x_dtype, w_dtype=None,
 
 
 def _apply_fused_site(fused_s, p, x, *, pool_window, pool_stride, pool_mode,
-                      activation, plan, tile_overrides):
+                      activation, plan, quant_report, tile_overrides):
     """Execute one planned fused site: the whole conv -> pool -> act
-    chain in a single launch."""
-    if fused_s.lowered:
-        raise NotImplementedError(QUANT_NOT_PORTED)
+    chain in a single launch.  The lowered rungs run the quantized fused
+    block (int8: in-register rescale of the int32 accumulator);
+    ``quant_report`` measures the one fused output against the composite
+    family oracle."""
     if plan is not None:
         plan[fused_s.spec.name] = (fused_s.ip, fused_s.footprint)
-    from repro_torch.kernels.fused.ops import fused_cnn_block
-    tile_kwargs = dict((tile_overrides or {}).get(fused_s.spec.name, {}))
-    return fused_cnn_block(x, p["w"], pool_window=pool_window,
-                           pool_stride=pool_stride, pool_mode=pool_mode,
-                           activation=activation, ip=fused_s.ip.name,
-                           **tile_kwargs)
+    if fused_s.lowered:
+        from repro_torch.quant.ops import quantized_fused_cnn_block
+        y = quantized_fused_cnn_block(
+            x, p["w"], pool_window=pool_window, pool_stride=pool_stride,
+            pool_mode=pool_mode, activation=activation,
+            bits=fused_s.precision_bits, ip=fused_s.ip.name)
+    else:
+        from repro_torch.kernels.fused.ops import fused_cnn_block
+        tile_kwargs = dict((tile_overrides or {}).get(fused_s.spec.name, {}))
+        y = fused_cnn_block(x, p["w"], pool_window=pool_window,
+                            pool_stride=pool_stride, pool_mode=pool_mode,
+                            activation=activation, ip=fused_s.ip.name,
+                            **tile_kwargs)
+    if quant_report is not None:
+        from repro_torch.core.library import get_family
+        from repro_torch.quant.report import record
+        ref = get_family("cnn_fused").reference(
+            x.to(torch.float32), p["w"].to(torch.float32),
+            window=pool_window, stride=pool_stride, mode=pool_mode,
+            kind=activation)
+        record(quant_report, fused_s.spec.name, fused_s.precision_bits,
+               y, ref)
+    return y
 
 
 def apply_cnn_block(p, x, *, budget=None, pool_window=(2, 2),
@@ -112,18 +126,24 @@ def apply_cnn_block(p, x, *, budget=None, pool_window=(2, 2),
     chain runs as ONE launch; a supplied ``network`` containing
     ``<site>.fused`` runs fused regardless of ``fuse``.
 
+    **Mixed precision.** With a ``ladder`` the planner may lower any
+    site's operand width; execution inserts quantize/dequantize
+    boundaries only where adjacent sites disagree: an int8 conv feeds
+    its requantized codes straight into an int8 pool, and an int8 relu
+    runs on the codes (relu commutes with the positive scale), so a
+    fully lowered block dequantizes once, at its egress.
+    ``quant_report`` (a dict) receives a ``SiteQuantReport`` per site:
+    the relative error against the family oracles in float32.  The
+    oracles measure; they never supply a served output.
+
     ``tile_overrides`` maps site name -> tiling kwargs for that site's
-    kernel call.  A plan the precision ladder lowered, and
-    ``quant_report``, raise ``NotImplementedError`` (ROADMAP queue 1,
-    item 4).
+    kernel call; only full-precision sites honor them.
     """
     from repro_torch.core.plan import plan_network
     from repro_torch.kernels.activation.ops import activation as activation_op
     from repro_torch.kernels.conv2d.ops import conv2d
     from repro_torch.kernels.pool2d.ops import pool2d
 
-    if quant_report is not None:
-        raise NotImplementedError(QUANT_NOT_PORTED)
     specs, _ = cnn_block_site_specs(
         x.shape, p["w"].shape, x_dtype=x.dtype, w_dtype=p["w"].dtype,
         pool_window=pool_window, pool_stride=pool_stride,
@@ -155,23 +175,92 @@ def apply_cnn_block(p, x, *, budget=None, pool_window=(2, 2),
         return _apply_fused_site(
             network.site(f"{site}.fused"), p, x, pool_window=pool_window,
             pool_stride=pool_stride, pool_mode=pool_mode,
-            activation=activation, plan=plan,
+            activation=activation, plan=plan, quant_report=quant_report,
             tile_overrides=tile_overrides)
 
-    sites = [network.site(f"{site}.{part}") for part in ("conv", "pool",
-                                                          "act")]
-    if any(s.lowered for s in sites):
-        raise NotImplementedError(QUANT_NOT_PORTED)
-    conv_s, pool_s, act_s = sites
+    conv_s, pool_s, act_s = (network.site(f"{site}.{part}")
+                             for part in ("conv", "pool", "act"))
     if plan is not None:
-        for s in sites:
+        for s in (conv_s, pool_s, act_s):
             plan[s.spec.name] = (s.ip, s.footprint)
 
     def tiles(s):
         return dict((tile_overrides or {}).get(s.spec.name, {}))
 
-    y = conv2d(x, p["w"], ip=conv_s.ip.name, **tiles(conv_s))
-    y = pool2d(y, window=pool_window, stride=pool_stride, mode=pool_mode,
-               ip=pool_s.ip.name, **tiles(pool_s))
-    return activation_op(y, kind=activation, ip=act_s.ip.name,
-                         **tiles(act_s))
+    if quant_report is not None:
+        from repro_torch.kernels.activation.ref import activation_ref
+        from repro_torch.kernels.conv2d.ref import conv2d_ref
+        from repro_torch.kernels.pool2d.ref import pool2d_ref
+        from repro_torch.quant.report import record
+        ref = conv2d_ref(x.to(torch.float32), p["w"].to(torch.float32))
+
+    # qscale is not None  <=>  y holds fixed-point codes (or an integer
+    # accumulator) whose real value is y * qscale.
+    qscale = None
+
+    # -- conv ---------------------------------------------------------------
+    if conv_s.lowered:
+        from repro_torch.quant.ops import quantized_conv2d
+        # int8 returns the raw accumulator + scale (the dequantize fuses
+        # into the next stage); 16-bit fake-quant returns (float, None).
+        y, qscale = quantized_conv2d(x, p["w"], bits=conv_s.precision_bits,
+                                     ip=conv_s.ip.name, return_scale=True)
+    else:
+        y = conv2d(x, p["w"], ip=conv_s.ip.name, **tiles(conv_s))
+    if quant_report is not None:
+        got = y if qscale is None else y.to(torch.float32) * qscale
+        record(quant_report, conv_s.spec.name, conv_s.precision_bits,
+               got, ref)
+
+    # -- pool ---------------------------------------------------------------
+    if qscale is not None and pool_s.precision_bits == 8 and pool_s.lowered:
+        # Adjacent int8 sites: requantize the int32 accumulator to int8
+        # codes (the fixed-point interlayer step) and pool the codes.
+        from repro_torch.quant.quantize import quantize_acts
+        yq = quantize_acts(y.to(torch.float32) * qscale, bits=8)
+        y = pool2d(yq.q, window=pool_window, stride=pool_stride,
+                   mode=pool_mode, ip=pool_s.ip.name)
+        qscale = yq.scale
+    else:
+        if qscale is not None:      # widths disagree: dequantize boundary
+            y = y.to(torch.float32) * qscale
+            qscale = None
+        if pool_s.lowered:
+            from repro_torch.quant.ops import quantized_pool2d
+            y = quantized_pool2d(y, window=pool_window, stride=pool_stride,
+                                 mode=pool_mode,
+                                 bits=pool_s.precision_bits,
+                                 ip=pool_s.ip.name)
+        else:
+            y = pool2d(y, window=pool_window, stride=pool_stride,
+                       mode=pool_mode, ip=pool_s.ip.name, **tiles(pool_s))
+    if quant_report is not None:
+        ref = pool2d_ref(ref, window=pool_window, stride=pool_stride,
+                         mode=pool_mode)
+        got = y if qscale is None else y.to(torch.float32) * qscale
+        record(quant_report, pool_s.spec.name, pool_s.precision_bits,
+               got, ref)
+
+    # -- activation ---------------------------------------------------------
+    if (qscale is not None and act_s.lowered and activation == "relu"
+            and act_s.precision_bits == pool_s.precision_bits):
+        # relu(q * s) == relu(q) * s for s > 0: the activation runs on
+        # the codes and the whole lowered chain dequantizes once, here.
+        y = activation_op(y, kind="relu", ip=act_s.ip.name) * qscale
+        qscale = None
+    else:
+        if qscale is not None:
+            y = y.to(torch.float32) * qscale
+            qscale = None
+        if act_s.lowered:
+            from repro_torch.quant.ops import quantized_activation
+            y = quantized_activation(y, kind=activation,
+                                     bits=act_s.precision_bits,
+                                     ip=act_s.ip.name)
+        else:
+            y = activation_op(y, kind=activation, ip=act_s.ip.name,
+                              **tiles(act_s))
+    if quant_report is not None:
+        record(quant_report, act_s.spec.name, act_s.precision_bits, y,
+               activation_ref(ref, kind=activation))
+    return y

@@ -37,6 +37,7 @@ from repro_torch.models.frontends import (apply_cnn_frontend,
                                           cnn_frontend_site_specs,
                                           resolve_device)
 from repro_torch.obs.trace import NOOP_SPAN, TRACER
+from repro_torch.quant.report import max_rel_error
 from repro_torch.runtime.arbiter import BudgetArbiter, TenantShare
 from repro_torch.runtime.batching import Request, ShapeBucketQueue
 from repro_torch.runtime.telemetry import TenantTelemetry
@@ -54,6 +55,7 @@ class Tenant:
     pool_window: Tuple[int, int]
     activation: str
     ladder: Tuple[int, ...]
+    measure_quant: bool
     floor: float                        # min feasible device fraction
     unit_cost: float                    # est-cycles of one request, ample
     granted: float = 0.0                # current device fraction
@@ -119,9 +121,14 @@ class AdaptiveServer:
     # -- admission ----------------------------------------------------------
     def register(self, name: str, params, input_shape, *,
                  pool_window=(2, 2), activation: str = "relu",
-                 ladder: Tuple[int, ...] = ()) -> Tenant:
+                 ladder: Tuple[int, ...] = (),
+                 measure_quant: bool = False) -> Tenant:
         """Register a CNN frontend as a tenant (its params move to the
-        server's device).
+        server's device).  ``measure_quant=True`` (with a ``ladder``)
+        measures every batch's per-site quantization error against the
+        family oracles and records the worst in the telemetry's
+        ``max_quant_rel_err``; it costs the oracles' compute and one
+        host sync per site.
 
         Prices the tenant up front: its *floor* (minimal feasible device
         fraction at max batch, ladder included) and its *unit cost*
@@ -147,7 +154,8 @@ class AdaptiveServer:
             self.budget, fuse=self.fuse).calibrated_cycles(None)
         tenant = Tenant(name=name, params=params, input_shape=input_shape,
                         pool_window=tuple(pool_window), activation=activation,
-                        ladder=tuple(ladder), floor=floor, unit_cost=unit,
+                        ladder=tuple(ladder), measure_quant=measure_quant,
+                        floor=floor, unit_cost=unit,
                         telemetry=TenantTelemetry(name=name,
                                                   max_batch=self.max_batch))
         self.arbiter.register(name, floor)
@@ -226,7 +234,8 @@ class AdaptiveServer:
 
     def _attempt(self, tenant: Tenant, xb):
         """(Re)plan under the tenant's *current* slice and run the
-        frontend.  Returns ``(y, plan)``."""
+        frontend.  Returns ``(y, plan, quant_err)``: the worst lowered
+        site's relative error when the tenant measures it, else 0."""
         slice_budget = self.budget.scaled(tenant.granted)
         skey = (tenant.name, tuple(xb.shape), str(xb.dtype), tenant.ladder)
         specs = self._specs_cache.get(skey)
@@ -238,6 +247,8 @@ class AdaptiveServer:
                 self._specs_cache.pop(next(iter(self._specs_cache)))
             self._specs_cache[skey] = specs
         plan = replan(specs, slice_budget, fuse=self.fuse)
+        quant_report = ({} if (tenant.ladder and tenant.measure_quant)
+                        else None)
         with (TRACER.span("kernel", "kernel",
                           {"tenant": tenant.name,
                            "launches": plan.total_launches})
@@ -245,14 +256,17 @@ class AdaptiveServer:
             y = apply_cnn_frontend(tenant.params, xb, network=plan,
                                    pool_window=tenant.pool_window,
                                    activation=tenant.activation,
-                                   ladder=tenant.ladder, fuse=self.fuse)
-        return y, plan
+                                   ladder=tenant.ladder,
+                                   quant_report=quant_report,
+                                   fuse=self.fuse)
+        quant_err = max_rel_error(quant_report) if quant_report else 0.0
+        return y, plan, quant_err
 
     def _execute_batch(self, batch: List[Request]) -> List[Completion]:
         tenant = self.tenants[batch[0].tenant]
         xb = torch.stack([r.x for r in batch])
         hits0, misses0 = STATS.plan_hits, STATS.plan_misses
-        y, plan = self._attempt(tenant, xb)
+        y, plan, quant_err = self._attempt(tenant, xb)
         start = max(tenant.lane_free, max(r.arrival for r in batch))
         if TRACER.enabled:
             TRACER.instant(
@@ -266,7 +280,8 @@ class AdaptiveServer:
         tenant.telemetry.record_batch(
             len(batch), latencies, plan,
             cache_hits=STATS.plan_hits - hits0,
-            cache_misses=STATS.plan_misses - misses0)
+            cache_misses=STATS.plan_misses - misses0,
+            quant_err=quant_err)
         return [Completion(rid=r.rid, tenant=r.tenant, result=y[i],
                            arrival=r.arrival, finished=finish,
                            batch_size=len(batch))

@@ -100,13 +100,28 @@ def test_block_plan_mismatch_is_a_named_error(rng, params):
 
 
 def test_lowered_plans_and_quant_report_raise(rng, params):
+    """Lowered plans and ``quant_report`` execute now (queue 1, item 4);
+    what still raises on this path is the int8 matmul kernel and the
+    quantized matmul (queue 1, item 11)."""
+    from repro_torch.quant.ops import quantized_matmul
+    from repro_torch.quant.quantize import int8_matmul, quantize_weights
     _, tp = params
     x = torch.from_numpy(rng.normal(size=(1, 16, 16, 3)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        t_apply(tp, x, quant_report={})
+    report = {}
+    y = t_apply(tp, x, quant_report=report)
+    assert tuple(y.shape) == (1, 4, 64)
+    assert report and not any(r.lowered for r in report.values())
     tight = ResourceBudget(vmem_bytes=40 * 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        t_apply(tp, x, budget=tight, ladder=(16, 8))
+    report = {}
+    y_low = t_apply(tp, x, budget=tight, ladder=(16, 8), quant_report=report)
+    assert any(r.lowered for r in report.values())
+    assert tuple(y_low.shape) == (1, 4, 64)
+    assert bool(torch.isfinite(y_low).all())
+    w = torch.ones((4, 2))
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        int8_matmul(torch.ones((3, 4)), quantize_weights(w), use_kernel=True)
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        quantized_matmul(torch.ones((3, 4)), w)
 
 
 def test_init_is_seeded_and_shaped():
