@@ -31,10 +31,25 @@ and prints no result):
    accounting equals the CPU server's and the results follow the
    code-flip rule (``code_flip``); and ``pool2d(budget=)`` picks and
    launches the im2col pool;
+   Then "dual and matmul": ``conv2d_dual(budget=)`` on two seeded
+   batches of 4 at both frontend block shapes under the four budgets of
+   ``DUAL_PLANS`` (Conv3 and Conv4 on int8, f32 and int16, integers over
+   their full range), and ``matmul`` / ``int8_matmul(use_kernel=True)``
+   at Llama-3.2-1B's FFN up-projection (``FFN``) under the budgets of
+   ``MATMUL_PLANS`` (``mm_mxu``, ``mm_vpu`` and the lowered rungs through
+   ``quantized_matmul``): each call plans onto the listed member and
+   launches its kernel exactly once (counters reset just before, read
+   just after); integers bit-exact against the plain versions (int8
+   Conv3/Conv4 also against two ``conv2d_ip1`` launches), f32 Conv4
+   bitwise equal to two ``conv2d_ip2`` launches, f32 matmuls within
+   ``rtol=2e-4, atol=1e-3``, results independent of the tiling hints;
+   and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
+   kernels (``LOGIC_ONLY``);
 5. times  — per kernel: the median device time of 20 launches (CUDA
    events, launches queued ahead of the device), its plain version's
    and the PyTorch library call's time, and the least time the card
-   could take (bytes over peak bandwidth or flops over peak FP32 rate);
+   could take (bytes over peak bandwidth, or operations over the peak
+   rate of their type: FP32, int8 tensor-core, or INT32 lanes);
    then the served requests per second over 3 steady windows (rounds of
    the 8-request trace, >= 512 requests and about 1 s each), and one
    more such window under ``torch.profiler``: device time by kernel and
@@ -61,6 +76,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CSRC = "src/repro_torch/kernels/csrc/cnn_kernels.cu"
+CSRC_MM = "src/repro_torch/kernels/csrc/mm_kernels.cu"
 SEED = 0
 N_REQUESTS = 8
 MAX_BATCH = 4
@@ -73,11 +89,19 @@ RATE_WINDOW_S = 1.0
 RATE_WINDOWS = 3
 
 # Peak rates of the card, by the NVIDIA H100 data sheet (dense, without
-# sparsity): device-memory bandwidth in bytes/s and FP32 CUDA-core
-# FLOP/s.  The rates assume the card's full power limit.
+# sparsity): device-memory bandwidth in bytes/s, FP32 CUDA-core FLOP/s
+# and int8 tensor-core OP/s.  The INT32 CUDA-core rate is not on the
+# data sheet: Hopper has 64 INT32 lanes per SM (the H100 architecture
+# white paper), at the clock the data sheet's FP32 rate implies
+# (67e12 / (132 SMs x 128 FP32 lanes x 2) = 1.98 GHz on the SXM part,
+# 51e12 / (114 x 128 x 2) = 1.75 GHz on the PCIe part), counting a
+# multiply-add as 2 operations as the FP32 rate does: 132 x 64 x 2 x
+# 1.98e9 = 33.5e12.  The rates assume the card's full power limit.
 PEAKS = {
-    "H100 SXM": {"bytes_per_s": 3.35e12, "fp32_flops": 67e12},
-    "H100 PCIe": {"bytes_per_s": 2.0e12, "fp32_flops": 51e12},
+    "H100 SXM": {"bytes_per_s": 3.35e12, "fp32_flops": 67e12,
+                 "int8_tensor_ops": 1979e12, "int32_ops": 33.5e12},
+    "H100 PCIe": {"bytes_per_s": 2.0e12, "fp32_flops": 51e12,
+                  "int8_tensor_ops": 1513e12, "int32_ops": 25.5e12},
 }
 
 # file:line of the TPU kernel each CUDA kernel replaces (the function
@@ -91,7 +115,46 @@ REPLACES = {
     "conv2d_ip2": "src/repro/kernels/conv2d/ip2_mxu.py:30",
     "pool2d_window": "src/repro/kernels/pool2d/vpu_window.py:62",
     "activation_exact": "src/repro/kernels/activation/vpu_exact.py:35",
+    "conv2d_ip3": "src/repro/kernels/conv2d/ip3_packed.py:62",
+    "conv2d_ip4": "src/repro/kernels/conv2d/ip4_dual.py:48",
+    "mm_mxu": "src/repro/kernels/matmul/mxu.py:52",
+    "mm_vpu": "src/repro/kernels/matmul/mxu.py:89",
 }
+SOURCE = {name: CSRC_MM if name.startswith("mm_") else CSRC
+          for name in REPLACES}
+# Kernels of logic-only members (mxu_available=False): no MMA in SASS.
+LOGIC_ONLY = ("conv2d_ip3_kernel", "mm_vpu_kernel")
+MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
+
+# The dual-stream conv calls at each frontend block shape: operand dtype,
+# budget, and the member the planner gives (the reference's planner
+# gives the same).
+DUAL_PLANS = (
+    ("int8", dict(precision_bits=8, mxu_passes_budget=1),
+     "conv2d.ip3_packed"),
+    ("int8", {}, "conv2d.ip4_dual"),
+    ("float32", {}, "conv2d.ip4_dual"),
+    ("int16", dict(precision_bits=16), "conv2d.ip4_dual"),
+)
+# Llama-3.2-1B's FFN up-projection (src/repro/configs/llama3_2_1b.py:
+# d_model 2048, d_ff 8192) over 512 tokens: (M, K, N).
+FFN = (512, 2048, 8192)
+# matmul(a, b, ladder=, budget=) at FFN: operand dtype, ladder, budget,
+# the planned member@bits (the reference's planner gives the same), and
+# the kernel it launches.
+MATMUL_PLANS = (
+    ("float32", (), {}, "matmul.mm_mxu@32", "mm_mxu"),
+    ("int8", (), {}, "matmul.mm_mxu@8", "mm_mxu"),
+    ("float32", (), dict(mxu_available=False), "matmul.mm_vpu@32",
+     "mm_vpu"),
+    ("float32", (8,), dict(vmem_bytes=1 << 20), "matmul.mm_mxu@8",
+     "mm_mxu"),
+    ("float32", (16, 8), dict(vmem_bytes=900 * 1024), "matmul.mm_vpu@16",
+     "mm_vpu"),
+)
+# f32 matmul tolerance at K=2048 with unit-normal operands: the kernels
+# sum each output in one sequential FMA chain, cuBLAS in another order.
+MM_TOL = dict(rtol=2e-4, atol=1e-3)
 
 
 # The two-tenant precision-ladder deployments (the reference's serving
@@ -591,6 +654,203 @@ def budget_pool_check(gen, errs):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4, dual and matmul: the paper's dual-stream convs and the matmul
+# family's single-stream members through their entry points
+# ---------------------------------------------------------------------------
+def operand(gen, shape, dtype, scale=1.0):
+    """A seeded operand on the card: integers over their dtype's full
+    range, floats standard normal times ``scale``."""
+    import torch
+    if dtype.is_floating_point:
+        t = torch.randn(shape, generator=gen) * scale
+    else:
+        info = torch.iinfo(dtype)
+        t = torch.randint(info.min, info.max + 1, shape, generator=gen,
+                          dtype=dtype)
+    return t.to(dtype).cuda()
+
+
+def launched_once(fn, kernel, what):
+    """Run ``fn`` with the counters reset just before and read just
+    after; it must launch ``kernel`` exactly once and nothing else."""
+    import torch
+    from repro_torch.kernels import cuda
+    cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = cuda.launch_counts()
+    check(got == {kernel: 1}, f"{what}: launched {got}, expected "
+                              f"{{{kernel!r}: 1}}")
+    return out
+
+
+def dual_conv_checks(shapes, gen, errs):
+    """``conv2d_dual(budget=)`` at both block shapes under DUAL_PLANS;
+    returns the launches of those calls."""
+    import torch
+    from repro_torch.core.ip import SiteSpec
+    from repro_torch.core.plan import plan_single
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1
+    from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2
+    from repro_torch.kernels.conv2d.ip3_packed import (conv2d_ip3,
+                                                       conv2d_ip3_plain)
+    from repro_torch.kernels.conv2d.ip4_dual import (conv2d_ip4,
+                                                     conv2d_ip4_plain)
+    from repro_torch.kernels.conv2d.ops import conv2d_dual
+    members = {"conv2d.ip3_packed": (conv2d_ip3, conv2d_ip3_plain,
+                                     "conv2d_ip3"),
+               "conv2d.ip4_dual": (conv2d_ip4, conv2d_ip4_plain,
+                                   "conv2d_ip4")}
+    launches = {}
+    for block, (xs, ws) in shapes.items():
+        for dname, budget_kw, member in DUAL_PLANS:
+            dtype = getattr(torch, dname)
+            kern, plain, name = members[member]
+            scale = (ws[0] * ws[1] * ws[2]) ** -0.5
+            xa, xb = operand(gen, xs, dtype), operand(gen, xs, dtype)
+            w = operand(gen, ws, dtype, scale)
+            budget = ResourceBudget(**budget_kw)
+            planned = plan_single(SiteSpec.make(
+                "conv2d", "conv2d", (xs, ws), dtype, dual=True),
+                budget).ip.name
+            what = f"{block} {dname} conv2d_dual(budget={budget_kw})"
+            check(planned == member, f"{what}: planned {planned}, "
+                                     f"expected {member}")
+            ya, yb = launched_once(
+                lambda: conv2d_dual(xa, xb, w, budget=budget), name, what)
+            launches[name] = launches.get(name, 0) + 1
+            pa, pb = plain(xa, xb, w)
+            exact = not dtype.is_floating_point
+            for got, want in ((ya, pa), (yb, pb)):
+                compare(name, got, want, 1e-4, 1e-5, errs, exact=exact)
+            single = {torch.float32: conv2d_ip2,
+                      torch.int8: conv2d_ip1}.get(dtype)
+            if single is not None:
+                check(torch.equal(ya, single(xa, w))
+                      and torch.equal(yb, single(xb, w)),
+                      f"{what}: not bitwise equal to two "
+                      f"{single.__name__} launches")
+            check(all(torch.equal(u, v) for u, v in
+                      zip(kern(xa, xb, w, block_cout=5), (ya, yb))),
+                  f"{name}: result depends on block_cout")
+            log(f"{what} -> {member}: one {name} launch; "
+                f"{'bit-exact' if exact else 'within 1e-4'} against the "
+                f"plain version"
+                + (f", bitwise equal to two {single.__name__} launches"
+                   if single is not None else ""))
+        # bfloat16, Conv4's fourth operand type (widened exactly to f32)
+        xa, xb = (operand(gen, xs, torch.bfloat16) for _ in range(2))
+        w = operand(gen, ws, torch.bfloat16, (ws[0] * ws[1] * ws[2]) ** -0.5)
+        for got, want in zip(conv2d_ip4(xa, xb, w),
+                             conv2d_ip4_plain(xa, xb, w)):
+            compare("conv2d_ip4", got, want, 1e-4, 1e-5, errs)
+    torch.cuda.synchronize()
+    return launches
+
+
+def matmul_checks(gen, errs):
+    """``matmul(budget=, ladder=)`` under MATMUL_PLANS and
+    ``int8_matmul(use_kernel=True)`` at FFN; returns their launches."""
+    import torch
+    from repro_torch.core.ip import SiteSpec
+    from repro_torch.core.plan import plan_single
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.kernels.matmul.mxu import (mm_mxu, mm_mxu_plain,
+                                                mm_vpu, mm_vpu_plain)
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.quant.quantize import (fake_quant, int8_matmul,
+                                            quantize_acts, quantize_weights)
+    m, k, n = FFN
+    ops = {"float32": (operand(gen, (m, k), torch.float32),
+                       operand(gen, (k, n), torch.float32)),
+           "int8": (operand(gen, (m, k), torch.int8),
+                    operand(gen, (k, n), torch.int8))}
+    launches = {}
+    for dname, ladder, budget_kw, want, kernel in MATMUL_PLANS:
+        a, b = ops[dname]
+        budget = ResourceBudget(**budget_kw)
+        p = plan_single(SiteSpec.make("matmul", "matmul", (a.shape, b.shape),
+                                      a.dtype, ladder=ladder, dual=False),
+                        budget)
+        what = (f"{dname} matmul(ladder={ladder}, budget={budget_kw}) at "
+                f"{FFN}")
+        got_plan = f"{p.ip.name}@{p.precision_bits}"
+        check(got_plan == want, f"{what}: planned {got_plan}, expected "
+                                f"{want}")
+        y = launched_once(lambda: matmul(a, b, budget=budget, ladder=ladder),
+                          kernel, what)
+        launches[kernel] = launches.get(kernel, 0) + 1
+        if p.precision_bits == 8 and dname == "float32":
+            # quantized_matmul's own steps around the int32 accumulator
+            aq, bq = quantize_acts(a, bits=8), quantize_weights(b, bits=8)
+            ref = (mm_mxu_plain(aq.q, bq.q).to(torch.float32)
+                   * (aq.scale * bq.scale.reshape(1, -1)))
+            compare(kernel, y, ref, 0, 0, errs, exact=True)
+        elif p.precision_bits == 16:
+            ref = mm_vpu_plain(fake_quant(a, bits=16),
+                               fake_quant(b, bits=16, axis=-1))
+            compare(kernel, y, ref, MM_TOL["rtol"], MM_TOL["atol"], errs)
+        else:
+            compare(kernel, y, mm_mxu_plain(a, b), MM_TOL["rtol"],
+                    MM_TOL["atol"], errs, exact=dname == "int8")
+        log(f"{what} -> {want}: one {kernel} launch")
+    x, w = ops["float32"]
+    wq = quantize_weights(w)
+    y = launched_once(lambda: int8_matmul(x, wq, use_kernel=True), "mm_mxu",
+                      "int8_matmul(use_kernel=True)")
+    launches["mm_mxu"] += 1
+    check(torch.equal(y, int8_matmul(x, wq)),
+          "int8_matmul: the kernel path differs from use_kernel=False")
+    log(f"int8_matmul(use_kernel=True) at {FFN}: one mm_mxu launch, "
+        f"bitwise equal to use_kernel=False")
+    for dname, (a, b) in ops.items():
+        base = mm_mxu(a, b)
+        for tiles in (dict(bm=64, bn=32, bk=16), dict(bm=128, bn=512,
+                                                      bk=1024)):
+            check(torch.equal(mm_mxu(a, b, **tiles), base),
+                  f"mm_mxu {dname}: result depends on {tiles}")
+        check(torch.equal(mm_vpu(a, b, bm=8, bn=16), base),
+              f"{dname}: mm_vpu and mm_mxu differ")
+    a, b = (t.to(torch.bfloat16) for t in ops["float32"])
+    compare("mm_mxu", mm_mxu(a, b), mm_mxu_plain(a, b), MM_TOL["rtol"],
+            MM_TOL["atol"], errs)
+    compare("mm_vpu", mm_vpu(a, b), mm_vpu_plain(a, b), MM_TOL["rtol"],
+            MM_TOL["atol"], errs)
+    log("mm_mxu bitwise independent of bm/bn/bk; mm_vpu == mm_mxu bitwise "
+        "(f32 and int8); bf16 within tolerance")
+    torch.cuda.synchronize()
+    return launches
+
+
+def sass_check(lib_path):
+    """``cuobjdump -sass`` of the built library: the LOGIC_ONLY kernels
+    contain no MMA instruction.  Returns the MMA count of every kernel."""
+    import re
+    from repro_torch.kernels import cuda
+    tool = Path(cuda._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    parts = re.split(r"Function : (\S+)", sass)
+    bodies = dict(zip(parts[1::2], parts[2::2]))
+    mma = re.compile(r"\b(" + "|".join(MMA_SASS) + r")\b")
+    counts = {name: len(mma.findall(body)) for name, body in bodies.items()}
+    for kernel in LOGIC_ONLY:
+        mine = [name for name in bodies if kernel in name]
+        check(bool(mine), f"no SASS for {kernel} in {lib_path.name}")
+        for name in mine:
+            check(re.search(r"\b(IMAD|FFMA)", bodies[name]) is not None,
+                  f"{name}: no multiply-add in its SASS")
+            check(counts[name] == 0, f"{name}: {counts[name]} MMA "
+                                     f"instructions in a logic-only kernel")
+    log(f"SASS: {len(bodies)} kernels; no {'|'.join(MMA_SASS)} in "
+        f"{', '.join(LOGIC_ONLY)}; MMA in any kernel: "
+        f"{sum(counts.values())}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: times
 # ---------------------------------------------------------------------------
 def time_ms(fn, reps=REPS, warmup=3):
@@ -643,9 +903,9 @@ def timings(shapes, gen, peaks):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
-    def bound(nbytes, flops):
+    def bound(nbytes, flops, rate="fp32_flops"):
         t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
-        t_ops = flops / peaks["fp32_flops"] * 1e3
+        t_ops = flops / peaks[rate] * 1e3
         return (max(t_bytes, t_ops),
                 "bytes" if t_bytes >= t_ops else "operations")
 
@@ -728,6 +988,70 @@ def timings(shapes, gen, peaks):
         plain_ms=time_ms(lambda: pool2d_im2col_plain(xp, mode="avg")),
         library_ms=time_ms(lambda: F.avg_pool2d(xp.permute(0, 3, 1, 2), 2)),
         bound_ms=b_ms, bound_by=by, shape=f"x{tuple(xp.shape)} avg 2x2")
+
+    # the dual-stream convs at block 1: Conv3 on full-range int8 (INT32
+    # lanes), Conv4 on f32; two multiply-adds per tap per stream
+    from repro_torch.kernels.conv2d.ip3_packed import (conv2d_ip3,
+                                                       conv2d_ip3_plain)
+    from repro_torch.kernels.conv2d.ip4_dual import (conv2d_ip4,
+                                                     conv2d_ip4_plain)
+    k1 = w1s[0] * w1s[1] * w1s[2]
+    ia, ib, iw = (operand(gen, s_, torch.int8) for s_ in (x1s, x1s, w1s))
+    ya, yb = conv2d_ip3(ia, ib, iw)
+    b_ms, by = bound(nbytes(ia, ib, iw, ya, yb), 2 * 2 * k1 * ya.numel(),
+                     "int32_ops")
+    rows["conv2d_ip3"] = dict(
+        ms=time_ms(lambda: conv2d_ip3(ia, ib, iw)),
+        plain_ms=time_ms(lambda: conv2d_ip3_plain(ia, ib, iw)),
+        library_ms=None, bound_ms=b_ms, bound_by=by,
+        shape=f"2 x{tuple(ia.shape)} int8 w{tuple(iw.shape)}",
+        yardstick=("two conv2d_ip1 launches (no PyTorch int8 conv on CUDA)",
+                   time_ms(lambda: (conv2d_ip1(ia, iw), conv2d_ip1(ib, iw)))))
+    fa, fb = operand(gen, x1s, torch.float32), operand(gen, x1s,
+                                                       torch.float32)
+    fw = operand(gen, w1s, torch.float32, k1 ** -0.5)
+    ya, yb = conv2d_ip4(fa, fb, fw)
+    b_ms, by = bound(nbytes(fa, fb, fw, ya, yb), 2 * 2 * k1 * ya.numel())
+    rows["conv2d_ip4"] = dict(
+        ms=time_ms(lambda: conv2d_ip4(fa, fb, fw)),
+        plain_ms=time_ms(lambda: conv2d_ip4_plain(fa, fb, fw)),
+        library_ms=time_ms(lambda: (conv_lib(fa, fw), conv_lib(fb, fw))),
+        bound_ms=b_ms, bound_by=by,
+        shape=f"2 x{tuple(fa.shape)} f32 w{tuple(fw.shape)}",
+        yardstick=("two conv2d_ip2 launches",
+                   time_ms(lambda: (conv2d_ip2(fa, fw), conv2d_ip2(fb, fw)))))
+
+    # the matmuls at FFN: f32 (FP32 rate), int8 (int8 tensor-core peak)
+    from repro_torch.kernels.matmul.mxu import (mm_mxu, mm_mxu_plain,
+                                                mm_vpu, mm_vpu_plain)
+    m, k, n = FFN
+    a, b = operand(gen, (m, k), torch.float32), operand(gen, (k, n),
+                                                        torch.float32)
+    a8, b8 = operand(gen, (m, k), torch.int8), operand(gen, (k, n),
+                                                       torch.int8)
+
+    try:
+        torch._int_mm(a8, b8)
+        b8_lib, layout = b8, "row-major"
+    except RuntimeError:             # cuBLASLt may want b column-major
+        b8_lib, layout = b8.t().contiguous().t(), "column-major"
+
+    for name, kern, plain, x, y, rate, lib_fn in (
+            ("mm_mxu", mm_mxu, mm_mxu_plain, a, b, "fp32_flops",
+             lambda: torch.matmul(a, b)),
+            ("mm_mxu (int8)", mm_mxu, mm_mxu_plain, a8, b8,
+             "int8_tensor_ops", lambda: torch._int_mm(a8, b8_lib)),
+            ("mm_vpu", mm_vpu, mm_vpu_plain, a, b, "fp32_flops",
+             lambda: torch.matmul(a, b))):
+        out = kern(x, y)
+        b_ms, by = bound(nbytes(x, y, out), 2 * m * k * n, rate)
+        rows[name] = dict(
+            ms=time_ms(lambda: kern(x, y)),
+            plain_ms=time_ms(lambda: plain(x, y)),
+            library_ms=time_ms(lib_fn), bound_ms=b_ms, bound_by=by,
+            shape=f"({m}, {k}) x ({k}, {n}) {x.dtype}"
+            + (f"; torch._int_mm on {layout} b" if name.endswith("(int8)")
+               else ""))
     return rows
 
 
@@ -838,6 +1162,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import cuda
+    # full IEEE f32 in the plain versions' and the yardsticks' cuBLAS and
+    # cuDNN calls, as the port computes
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # 1. card
     kind = torch.cuda.get_device_name(0)
@@ -867,6 +1195,9 @@ def main() -> int:
     launches["activation_lut"] = \
         ladder["ladder_chain"][0]["activation_lut"]
     launches.update(budget_pool_check(gen, errs))
+    launches.update(dual_conv_checks(shapes, gen, errs))
+    launches.update(matmul_checks(gen, errs))
+    sass_check(lib)
 
     # 5. times
     rows = timings(shapes, gen, peaks)
@@ -898,7 +1229,7 @@ def main() -> int:
             f"{', '.join(f'{w:.3f}' for w in lwalls)} s; 224x224x3, "
             f"waves of {LADDER_MIX}, max_batch {MAX_BATCH}) on {card}")
 
-    kernels = [{"name": name, "route": "cuda", "source": CSRC,
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], "ms": rows[name]["ms"],
                 "plain_ms": rows[name]["plain_ms"],

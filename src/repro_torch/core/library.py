@@ -1,12 +1,13 @@
 """The adaptive IP library — paper Table I, machine-readable.
 
-This slice registers the CNN families: conv2d (the paper's literal
-object, all four members; the dual-stream Conv3/Conv4 carry their
-footprints, their kernels are ROADMAP queue 2, items 9-10), pool2d and
-activation (the paper's stated future work) and cnn_fused (conv -> pool
--> activation as one launch).  matmul, attention and ssm_scan wait for
-ROADMAP queue 1, item 11.  Every member carries the Table I capability
-bits and a footprint function pricing it against the resource vector.
+Registered: the CNN families — conv2d (the paper's literal object, all
+four members), pool2d and activation (the paper's stated future work)
+and cnn_fused (conv -> pool -> activation as one launch) — and matmul,
+their generalization to the LM hot path (the dual-stream members carry
+their footprints; their kernel is ROADMAP queue 2, item 13).  attention
+and ssm_scan wait for ROADMAP queue 1, item 11.  Every member carries
+the Table I capability bits and a footprint function pricing it against
+the resource vector.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ from repro_torch.kernels.activation.ref import activation_ref
 from repro_torch.kernels.conv2d import ip1_vpu, ip2_mxu, ip3_packed, ip4_dual
 from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.kernels.fused import cnn_block as fused_mod
+from repro_torch.kernels.matmul import dual as mm_dual
+from repro_torch.kernels.matmul import mxu as mm_mxu_mod
+from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.pool2d import mxu_im2col as pool_im2col_mod
 from repro_torch.kernels.pool2d import vpu_window as pool_vpu_mod
 from repro_torch.kernels.pool2d.ref import (check_pool_geometry,
@@ -118,7 +122,34 @@ CNN_FUSED.register(KernelIP(
     description="Whole CNN block in one launch: im2col + one MXU pass, "
                 "pool + activation in register; single HBM write."))
 
-FAMILIES = {f.name: f for f in (CONV2D, POOL2D, ACTIVATION, CNN_FUSED)}
+# --------------------------------------------------------------------------
+# matmul family — the LM-hot-path generalization.
+# --------------------------------------------------------------------------
+MATMUL = IPFamily("matmul", reference=matmul_ref)
+MATMUL.register(KernelIP(
+    name="matmul.mm_vpu", family="matmul", impl=mm_mxu_mod.mm_vpu,
+    footprint_fn=mm_mxu_mod.footprint_vpu, uses_mxu=False,
+    tags=("analogue:Conv1",),
+    description="Dot-free broadcast-multiply matmul; VPU only."))
+MATMUL.register(KernelIP(
+    name="matmul.mm_mxu", family="matmul", impl=mm_mxu_mod.mm_mxu,
+    footprint_fn=mm_mxu_mod.footprint_mxu, uses_mxu=True,
+    tags=("analogue:Conv2",),
+    description="Tiled MXU matmul, f32/int32 VMEM accumulator."))
+MATMUL.register(KernelIP(
+    name="matmul.mm_dual_shared", family="matmul", impl=mm_dual.mm_dual_shared,
+    footprint_fn=mm_dual.footprint_shared,
+    uses_mxu=True, max_operand_bits=8, outputs_per_pass=2,
+    supports_dtypes=("int8",), tags=("analogue:Conv3", "dual-stream"),
+    description="Two int8 streams, one weight fetch, 2x int8 MXU rate."))
+MATMUL.register(KernelIP(
+    name="matmul.mm_dual_full", family="matmul", impl=mm_dual.mm_dual_full,
+    footprint_fn=mm_dual.footprint_full,
+    uses_mxu=True, outputs_per_pass=2, tags=("analogue:Conv4", "dual-stream"),
+    description="Two full-precision streams sharing one weight fetch."))
+
+FAMILIES = {f.name: f for f in (CONV2D, POOL2D, ACTIVATION, CNN_FUSED,
+                                MATMUL)}
 
 
 # --------------------------------------------------------------------------
@@ -175,6 +206,20 @@ def _activation_adapter(spec: SiteSpec) -> SiteRequest:
         op_bits=0)
 
 
+def _matmul_adapter(spec: SiteSpec) -> SiteRequest:
+    a_shape, b_shape = spec.shapes
+    m, k = a_shape[-2], a_shape[-1]
+    n = b_shape[-1]
+    want = (("matmul.mm_dual_shared", "matmul.mm_dual_full")
+            if spec.knob("dual", False)
+            else ("matmul.mm_vpu", "matmul.mm_mxu"))
+    return SiteRequest(
+        candidates=tuple(MATMUL[name] for name in want),
+        fp_args=(m, k, n),
+        fp_kwargs=(("itemsize", dtype_itemsize(spec.dtype)),),
+        op_bits=_bits(spec.dtype))
+
+
 def _cnn_fused_adapter(spec: SiteSpec) -> SiteRequest:
     x_shape, w_shape = spec.shapes
     n, h, w_, cin = x_shape
@@ -227,13 +272,14 @@ POOL2D.site_adapter = _pool2d_adapter
 ACTIVATION.site_adapter = _activation_adapter
 CNN_FUSED.site_adapter = _cnn_fused_adapter
 CNN_FUSED.fuse_sites = _cnn_fuse_sites
+MATMUL.site_adapter = _matmul_adapter
 
 
 def get_family(name: str) -> IPFamily:
     if name not in FAMILIES:
         raise NotImplementedError(
             f"family {name!r} is not ported yet (have {sorted(FAMILIES)}; "
-            f"matmul/attention/ssm_scan are ROADMAP queue 1, item 11)")
+            f"attention/ssm_scan are ROADMAP queue 1, item 11)")
     return FAMILIES[name]
 
 

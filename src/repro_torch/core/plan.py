@@ -918,3 +918,38 @@ def _plan_effective(specs: Tuple[SiteSpec, ...], budget: ResourceBudget,
     _SHARE_CACHE[(specs, calkey)] = shares
     return _assign_with_repair(specs, budget, shares, calibration,
                                events=events)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-IP baselines (the reference's benchmarks/table3): price a fixed
+# family->member assignment over the same sites the planner maps.
+# ---------------------------------------------------------------------------
+def fixed_network_cost(specs: Iterable[SiteSpec],
+                       members: Dict[str, str],
+                       budget: Optional[ResourceBudget] = None,
+                       calibration=None) -> Optional[float]:
+    """Total est-cycles of a fixed assignment, or None if any site is
+    infeasible.  Each site is generously priced against the FULL budget
+    (no partitioning) — the planner has to win despite that handicap.
+
+    ``members`` maps family name -> member name (short or qualified).
+    A ``calibration`` table raises ``NotImplementedError`` (ROADMAP
+    queue 1, item 7), as in ``plan_network``.
+    """
+    calibration_key(calibration)
+    budget = budget or ResourceBudget()
+    total = 0.0
+    for spec in specs:
+        fam = _get_family(spec.family)
+        req = fam.plan_site(spec)
+        want = members[spec.family]
+        cands = {c.name: c for c in req.candidates}
+        qual = want if "." in want else f"{spec.family}.{want}"
+        ip = cands.get(qual)
+        if ip is None:      # member not even a candidate for this site
+            return None
+        fp = ip.footprint(*req.fp_args, **dict(req.fp_kwargs))
+        if req.op_bits > fp.max_operand_bits or not fp.fits(budget):
+            return None
+        total += _site_cost(ip, fp, spec.native_bits, spec, calibration)
+    return total

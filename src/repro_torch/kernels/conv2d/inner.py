@@ -12,6 +12,9 @@ on-card checks compare against:
 * vpu: for each tap (i, j), multiply the shifted window by the tap and
   sum over Cin, then add the partial into the accumulator;
 * mxu: im2col to (.., KH*KW*Cin) and one dot over that K.
+
+The dual-stream members (``ip3_packed``, ``ip4_dual``) share
+``launch_conv_dual``, one launch that writes both streams' outputs.
 """
 from __future__ import annotations
 
@@ -37,13 +40,17 @@ def accumulate_vpu(x, w, *, ho: int, wo: int, acc_dtype):
     return acc
 
 
+def im2col(x, kh: int, kw: int, *, ho: int, wo: int):
+    """(N, H, W, Cin) -> (N, Ho, Wo, KH*KW*Cin) patches, K = (i, j, cin)."""
+    return torch.cat([x[:, i:i + ho, j:j + wo, :] for i in range(kh)
+                      for j in range(kw)], dim=-1)
+
+
 def accumulate_mxu(x, w, *, ho: int, wo: int, acc_dtype):
     """Conv2-style: ``x`` (N, H, W, Cin) in the operand dtype, ``w``
     (kh, kw, Cin, Cout).  Returns (N, Ho, Wo, Cout)."""
     kh, kw, cin, cout = w.shape
-    cols = [x[:, i:i + ho, j:j + wo, :] for i in range(kh)
-            for j in range(kw)]
-    patches = torch.cat(cols, dim=-1).to(acc_dtype)       # (N, Ho, Wo, K)
+    patches = im2col(x, kh, kw, ho=ho, wo=wo).to(acc_dtype)  # (N,Ho,Wo,K)
     wmat = w.reshape(kh * kw * cin, cout).to(acc_dtype)   # (K, Cout)
     return (patches[..., :, None] * wmat).sum(dim=-2, dtype=acc_dtype)
 
@@ -58,6 +65,14 @@ def check_conv_operands(x: torch.Tensor, w: torch.Tensor) -> None:
     if w.shape[0] > x.shape[1] or w.shape[1] > x.shape[2]:
         raise ValueError(f"kernel {tuple(w.shape[:2])} exceeds the input "
                          f"plane {tuple(x.shape[1:3])}")
+
+
+def check_dual_operands(xa: torch.Tensor, xb: torch.Tensor,
+                        w: torch.Tensor) -> None:
+    check_conv_operands(xa, w)
+    if xa.shape != xb.shape or xa.dtype != xb.dtype:
+        raise ValueError(f"the two streams must match: {tuple(xa.shape)} "
+                         f"{xa.dtype} vs {tuple(xb.shape)} {xb.dtype}")
 
 
 def check_block(name: str, value: int) -> None:
@@ -83,3 +98,31 @@ def launch_conv(counter: str, style: str, x: torch.Tensor, w: torch.Tensor,
                 y.data_ptr(), n, h, w_, cin, kh, kw, cout,
                 min(int(block_cout), cout))
     return y
+
+
+def launch_conv_dual(counter: str, ip: int, xa: torch.Tensor,
+                     xb: torch.Tensor, w: torch.Tensor, block_cout: int,
+                     dtypes) -> tuple:
+    """Launch ``conv2d_ip3_kernel`` (``ip=3``) or ``conv2d_ip4_kernel``
+    (``ip=4``) of ``csrc/cnn_kernels.cu`` once for CUDA operands of one
+    dtype among ``dtypes``: integers give int32, floats f32."""
+    for t, what in ((xa, "xa"), (xb, "xb"), (w, "w")):
+        cuda.require(t, what, dtypes)
+    if xb.device != xa.device or w.device != xa.device or \
+            w.dtype != xa.dtype:
+        raise ValueError(f"xa, xb and w must share one device and dtype, "
+                         f"got {xa.device}/{xa.dtype}, {xb.device}, "
+                         f"{w.device}/{w.dtype}")
+    n, h, w_, cin = xa.shape
+    kh, kw, _, cout = w.shape
+    out_dtype = torch.float32 if xa.is_floating_point() else torch.int32
+    ya, yb = (torch.empty((n, h - kh + 1, w_ - kw + 1, cout),
+                          dtype=out_dtype, device=xa.device)
+              for _ in range(2))
+    if ya.numel() == 0:
+        return ya, yb
+    cuda.launch(counter, "cnn_conv2d_dual", xa.device, ip,
+                cuda.DTYPE_CODE[xa.dtype], xa.data_ptr(), xb.data_ptr(),
+                w.data_ptr(), ya.data_ptr(), yb.data_ptr(), n, h, w_, cin,
+                kh, kw, cout, min(int(block_cout), cout))
+    return ya, yb

@@ -1,20 +1,51 @@
 """Conv4 — dual parallel convolution (paper: 2 DSPs, two convs per pass,
-full precision).  Footprint only in this slice.
+full precision).
 
-The planner prices this member on every dual-stream conv site; the CNN
-frontend builds no dual sites, so it is never chosen on the served path.
-Its kernel (``repro/kernels/conv2d/ip4_dual.py::conv2d_ip4``) is ROADMAP
-queue 2, item 10.
+Replaces ``repro/kernels/conv2d/ip4_dual.py::conv2d_ip4``.  The
+reference stacks the two streams' im2col and takes one batched dot
+against one weight tile, fetched once for both.  The kernel
+(``conv2d_ip4_kernel<T>`` in ``csrc/cnn_kernels.cu``) computes both
+streams of one output pixel and channel in one thread through the shared
+Conv2 body (``conv_points_mxu``): each weight tap is loaded once and
+feeds both accumulators, in Conv2's (i, j, cin) order, so each stream
+equals a ``conv2d_ip2`` launch bitwise.  Full operand width: int8/int16
+accumulate in int32 (wrapping, as the reference's accumulator does),
+bfloat16/float32 in f32 (bf16 widened exactly on load).  CUDA cores,
+as Conv2 (ROADMAP, "f32 on tensor cores").
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.resources import Footprint, cost_cycles, mxu_pass_cycles
+from repro_torch.kernels.conv2d.inner import (accumulate_mxu, check_block,
+                                              check_dual_operands,
+                                              launch_conv_dual)
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
 
 
-def conv2d_ip4(xa, xb, w, *, block_cout: int = 128):
-    raise NotImplementedError(
-        "conv2d.ip4_dual has no kernel in the port yet "
-        "(ROADMAP queue 2, item 10)")
+def conv2d_ip4_plain(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor):
+    """The kernel's function in plain PyTorch: each stream through the
+    Conv2 order (``inner.accumulate_mxu``)."""
+    acc = torch.float32 if xa.is_floating_point() else torch.int32
+    ho, wo = xa.shape[1] - w.shape[0] + 1, xa.shape[2] - w.shape[1] + 1
+    return tuple(accumulate_mxu(x, w, ho=ho, wo=wo, acc_dtype=acc)
+                 for x in (xa, xb))
+
+
+def conv2d_ip4(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor, *,
+               block_cout: int = 128):
+    """Two valid stride-1 convs sharing ``w`` -> two (N, Ho, Wo, Cout)
+    tensors, int32 for integer operands and f32 for float ones.  CUDA
+    tensors launch the kernel once; CPU tensors run
+    ``conv2d_ip4_plain``."""
+    check_dual_operands(xa, xb, w)
+    check_block("block_cout", block_cout)
+    if not xa.is_cuda:
+        return conv2d_ip4_plain(xa, xb, w)
+    return launch_conv_dual("conv2d_ip4", 4, xa, xb, w, block_cout,
+                            KERNEL_DTYPES)
 
 
 def footprint(n, h, w, cin, kh, kw, cout, *, itemsize=1,

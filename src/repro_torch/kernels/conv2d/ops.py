@@ -1,14 +1,13 @@
 """Public wrappers for the conv2d IP family.
 
-``conv2d`` takes an explicit ``ip=`` name or a ``budget=``
-(ResourceBudget) and defers to the resource-driven selector — the
-paper's "automatic adaptation to the available resources".
+``conv2d`` / ``conv2d_dual`` take an explicit ``ip=`` name or a
+``budget=`` (ResourceBudget) and defer to the resource-driven selector —
+the paper's "automatic adaptation to the available resources".
 ``ladder=`` (e.g. ``(16, 8)``) lets the planner lower the call's operand
 width; a lowered plan executes through
 ``repro_torch.quant.ops.quantized_conv2d`` and still returns float.
-``reduce_axis=`` (mesh execution) and the dual-stream ``conv2d_dual``
-are later slices and raise ``NotImplementedError`` naming their ROADMAP
-item.
+``reduce_axis=`` (mesh execution) is a later slice and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,8 +18,11 @@ import torch
 from repro_torch.core.resources import ResourceBudget
 from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1
 from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2
+from repro_torch.kernels.conv2d.ip3_packed import conv2d_ip3
+from repro_torch.kernels.conv2d.ip4_dual import conv2d_ip4
 
 _SINGLE = {"ip1_vpu": conv2d_ip1, "ip2_mxu": conv2d_ip2}
+_DUAL = {"ip3_packed": conv2d_ip3, "ip4_dual": conv2d_ip4}
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, ip: Optional[str] = None,
@@ -53,9 +55,23 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, ip: Optional[str] = None,
     return _SINGLE[ip](x, w, **tile_kwargs)
 
 
-def conv2d_dual(xa, xb, w, *, ip: Optional[str] = None,
+def conv2d_dual(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor, *,
+                ip: Optional[str] = None,
                 budget: Optional[ResourceBudget] = None):
-    """Two parallel convolutions (Conv3/Conv4): not ported yet."""
-    raise NotImplementedError(
-        "dual-stream convolution (conv2d.ip3_packed / conv2d.ip4_dual) is "
-        "not ported yet (ROADMAP queue 2, items 9-10)")
+    """Two parallel convolutions through a selected IP (Conv3/Conv4);
+    returns the two streams' outputs.
+
+    No ``ladder=``: dual-stream callers already commit to a concrete
+    operand dtype per stream (Conv3 demands int8 inputs outright).
+    """
+    if ip is None:
+        from repro_torch.core.ip import SiteSpec
+        from repro_torch.core.plan import plan_single
+        spec = SiteSpec.make("conv2d", "conv2d", (xa.shape, w.shape),
+                             xa.dtype, dual=True)
+        ip = plan_single(spec, budget).ip.name
+    ip = ip.split(".")[-1]
+    if ip not in _DUAL:
+        raise KeyError(f"{ip!r} is not a dual-stream conv IP "
+                       f"(have {sorted(_DUAL)})")
+    return _DUAL[ip](xa, xb, w)

@@ -34,3 +34,8 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _, ho, wo, _ = conv_out_shape(x.shape, w.shape)
     return accumulate_vpu(x.to(acc), w, ho=ho, wo=wo, acc_dtype=acc)
 
+
+def conv2d_dual_ref(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor):
+    """Two parallel convolutions sharing one kernel (Conv3/Conv4
+    contract)."""
+    return conv2d_ref(xa, w), conv2d_ref(xb, w)

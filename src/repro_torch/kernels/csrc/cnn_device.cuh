@@ -24,7 +24,13 @@
 // multiply-add for int8): Hopper has no IEEE-f32 tensor-core MMA, and
 // TF32 misses the reference tolerance.  The tensor-core redesign is a
 // later change (ROADMAP queue 2).
+//
+// Integer accumulators wrap modulo 2^32, as the reference's int32
+// accumulators do (full-range int16 taps overflow them); the sums are
+// taken in uint32_t because signed overflow is undefined in C++.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -35,9 +41,20 @@ enum Mode { kMax = 0, kAvg = 1 };
 // Same order as src/repro_torch/kernels/activation/ref.py::KINDS.
 enum Kind { kRelu = 0, kRelu6 = 1, kSigmoid = 2, kTanh = 3, kGelu = 4 };
 
-// Accumulator type: f32 operands accumulate in f32, int8 in int32.
+// Accumulator type: float operands (f32, bf16) accumulate in f32,
+// integers (int8, int16) in int32.
 template <typename T> struct AccOf { using type = float; };
 template <> struct AccOf<int8_t> { using type = int32_t; };
+template <> struct AccOf<int16_t> { using type = int32_t; };
+
+// An operand widened to its accumulator type (exact: bf16 -> f32 keeps
+// every value).
+template <typename A, typename T>
+__device__ __forceinline__ A widen(T v) { return A(v); }
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 struct ConvShape {
   int H, W, Cin, KH, KW, Cout;
@@ -47,10 +64,12 @@ __device__ __forceinline__ float mac(float acc, float x, float w) {
   return __fmaf_rn(x, w, acc);
 }
 __device__ __forceinline__ int32_t mac(int32_t acc, int32_t x, int32_t w) {
-  return acc + x * w;
+  return int32_t(uint32_t(acc) + uint32_t(x) * uint32_t(w));
 }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ int32_t add(int32_t a, int32_t b) { return a + b; }
+__device__ __forceinline__ int32_t add(int32_t a, int32_t b) {
+  return int32_t(uint32_t(a) + uint32_t(b));
+}
 
 // jnp.maximum / jnp.minimum semantics: a NaN operand gives NaN
 // (fmaxf/fminf would drop it).
@@ -96,23 +115,42 @@ __device__ __forceinline__ typename AccOf<T>::type conv_point_vpu(
   return acc;
 }
 
-// Conv2 order (inner.py::accumulate_mxu): one dot over K = (i, j, cin).
+// Conv2 order (inner.py::accumulate_mxu): one dot over K = (i, j, cin)
+// per output (n, oh, ow, co), for NS input streams that share each
+// weight tap: the tap is loaded once and feeds every stream's
+// accumulator.  Conv2 runs one stream, Conv4 two; each stream's sum is
+// the same chain of operations in both, so a Conv4 output is bitwise
+// equal to the Conv2 output of its stream.
+template <typename T, int NS>
+__device__ __forceinline__ void conv_points_mxu(
+    const T* const (&x)[NS], const T* __restrict__ w, const ConvShape& s,
+    int n, int oh, int ow, int co, typename AccOf<T>::type (&acc)[NS]) {
+  using A = typename AccOf<T>::type;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) acc[k] = A(0);
+  for (int i = 0; i < s.KH; ++i) {
+    for (int j = 0; j < s.KW; ++j) {
+      size_t xo = ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
+      const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
+      for (int c = 0; c < s.Cin; ++c) {
+        A wv = widen<A>(wp[size_t(c) * s.Cout]);
+#pragma unroll
+        for (int k = 0; k < NS; ++k) {
+          acc[k] = mac(acc[k], widen<A>(x[k][xo + c]), wv);
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ typename AccOf<T>::type conv_point_mxu(
     const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
     int n, int oh, int ow, int co) {
-  using A = typename AccOf<T>::type;
-  A acc = A(0);
-  for (int i = 0; i < s.KH; ++i) {
-    for (int j = 0; j < s.KW; ++j) {
-      const T* xp = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
-      const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
-      for (int c = 0; c < s.Cin; ++c) {
-        acc = mac(acc, A(xp[c]), A(wp[size_t(c) * s.Cout]));
-      }
-    }
-  }
-  return acc;
+  const T* const xs[1] = {x};
+  typename AccOf<T>::type acc[1];
+  conv_points_mxu<T, 1>(xs, w, s, n, oh, ow, co, acc);
+  return acc[0];
 }
 
 // vpu_window.py::window_reduce for one output: load(i, j) yields the

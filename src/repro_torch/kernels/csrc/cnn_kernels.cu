@@ -1,8 +1,9 @@
-// The CNN kernels of the port: seven __global__ kernels and their plain C
+// The CNN kernels of the port: nine __global__ kernels and their plain C
 // launchers, loaded with ctypes by src/repro_torch/kernels/cuda.py.
 //
 // Built with: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -fmad=false -shared -Xcompiler -fPIC
+//             -fmad=false -Xcompiler -fPIC -c, then linked with
+//             mm_kernels.cu's object by nvcc -shared
 //
 // Layouts are the reference's: NHWC activations, HWIO weights, all
 // tensors contiguous.  Every kernel maps one thread to one output element;
@@ -64,6 +65,25 @@
 //   buys.  With the conv output's bytes gone, both served blocks are
 //   bound by the FP32 rate of their conv flops; the bodies are the
 //   standalone conv's, so the same later tiling work applies.
+//
+// conv2d_ip3_kernel       replaces src/repro/kernels/conv2d/ip3_packed.py::conv2d_ip3
+//   Conv3: two int8 convs sharing one weight tensor, ONE int32 multiply
+//   per tap pair.  Per tap the two int8 operands are packed as
+//   p = a * 65536 + b (a multiplication, not a << 16: shifting a
+//   negative int is undefined in C++17), m = p * w (|m| < 2^31 for int8),
+//   b*w is the signed low 16 bits of m and a*w = (m - low) / 65536, an
+//   exact division.  Logic-only: IMAD and ALU ops, no MMA instruction.
+//   The work is two convs' taps on the INT32 lanes (64 per SM, half the
+//   FP32 lanes), so the lane rate bounds it at block 1; one thread per
+//   output pixel and channel writes both streams, as conv2d_kernel.
+//
+// conv2d_ip4_kernel<T>    replaces src/repro/kernels/conv2d/ip4_dual.py::conv2d_ip4
+//   Conv4: two full-precision convs (int8/int16 -> int32, bf16/f32 ->
+//   f32) sharing each weight tap.  One thread per output pixel and
+//   channel runs conv_points_mxu with two streams: each tap is loaded
+//   once and feeds both accumulators, in Conv2's order, so each stream
+//   is bitwise equal to a conv2d_ip2 launch.  2*K flops per output of
+//   each stream: the FP32 rate bounds it at block 1, as for Conv2.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -75,7 +95,7 @@ namespace cnn {
 constexpr int kThreads = 256;
 constexpr int kTableSize = 256;
 enum Style { kVpu = 0, kMxu = 1 };
-enum DType { kF32 = 0, kI8 = 1, kI32 = 2 };
+enum DType { kF32 = 0, kI8 = 1, kI32 = 2, kI16 = 3, kBF16 = 4 };
 
 template <typename T, int STYLE>
 __device__ __forceinline__ typename AccOf<T>::type conv_point(
@@ -219,6 +239,61 @@ __global__ void fused_cnn_kernel(const T* __restrict__ x,
     pooled = float(window_reduce<A>(conv_at, PH, PW, mode));
   }
   y[t.p * s.Cout + co] = activate(pooled, kind);
+}
+
+// Conv3: both int8 streams through one multiply per tap pair; the two
+// products are recovered exactly from the packed product and summed into
+// two wrapping int32 accumulators.
+__global__ void conv2d_ip3_kernel(const int8_t* __restrict__ xa,
+                                  const int8_t* __restrict__ xb,
+                                  const int8_t* __restrict__ w,
+                                  int32_t* __restrict__ ya,
+                                  int32_t* __restrict__ yb, int N,
+                                  ConvShape s, int Ho, int Wo, int bc) {
+  Slot t = slot((long long)N * Ho * Wo, s.Cout, bc);
+  if (!t.live) return;
+  int ow = int(t.p % Wo);
+  long long r = t.p / Wo;
+  int oh = int(r % Ho);
+  int n = int(r / Ho);
+  uint32_t acc_a = 0, acc_b = 0;
+  for (int i = 0; i < s.KH; ++i) {
+    for (int j = 0; j < s.KW; ++j) {
+      size_t xo = ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
+      const int8_t* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + t.co;
+      for (int c = 0; c < s.Cin; ++c) {
+        int32_t p = int32_t(xa[xo + c]) * 65536 + int32_t(xb[xo + c]);
+        int32_t m = p * int32_t(wp[size_t(c) * s.Cout]);
+        int32_t low = int32_t((uint32_t(m) + 32768u) & 0xFFFFu) - 32768;
+        int32_t high = (m - low) / 65536;
+        acc_a += uint32_t(high);
+        acc_b += uint32_t(low);
+      }
+    }
+  }
+  ya[t.p * s.Cout + t.co] = int32_t(acc_a);
+  yb[t.p * s.Cout + t.co] = int32_t(acc_b);
+}
+
+// Conv4: two streams through the shared Conv2 body, each tap loaded once.
+template <typename T>
+__global__ void conv2d_ip4_kernel(const T* __restrict__ xa,
+                                  const T* __restrict__ xb,
+                                  const T* __restrict__ w,
+                                  typename AccOf<T>::type* __restrict__ ya,
+                                  typename AccOf<T>::type* __restrict__ yb,
+                                  int N, ConvShape s, int Ho, int Wo, int bc) {
+  Slot t = slot((long long)N * Ho * Wo, s.Cout, bc);
+  if (!t.live) return;
+  int ow = int(t.p % Wo);
+  long long r = t.p / Wo;
+  int oh = int(r % Ho);
+  int n = int(r / Ho);
+  const T* const xs[2] = {xa, xb};
+  typename AccOf<T>::type acc[2];
+  conv_points_mxu<T, 2>(xs, w, s, n, oh, ow, t.co, acc);
+  ya[t.p * s.Cout + t.co] = acc[0];
+  yb[t.p * s.Cout + t.co] = acc[1];
 }
 
 inline unsigned blocks_for(long long items) {
@@ -372,6 +447,38 @@ int cnn_fused(int style, int dtype, const void* x, const void* w,
     return int(cudaErrorInvalidValue);
   }
 #undef CNN_FUSED
+  return int(cudaGetLastError());
+}
+
+// ip: 3 (Conv3, int8 only) or 4 (Conv4).
+int cnn_conv2d_dual(int ip, int dtype, const void* xa, const void* xb,
+                    const void* w, void* ya, void* yb, int N, int H, int W,
+                    int Cin, int KH, int KW, int Cout, int bc,
+                    void* stream) {
+  ConvShape s{H, W, Cin, KH, KW, Cout};
+  int Ho = H - KH + 1, Wo = W - KW + 1;
+  dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (Cout + bc - 1) / bc);
+  cudaStream_t st = cudaStream_t(stream);
+#define CNN_IP4(T)                                                          \
+  conv2d_ip4_kernel<T><<<grid, kThreads, 0, st>>>(                          \
+      (const T*)xa, (const T*)xb, (const T*)w,                              \
+      (AccOf<T>::type*)ya, (AccOf<T>::type*)yb, N, s, Ho, Wo, bc)
+  if (ip == 3 && dtype == kI8) {
+    conv2d_ip3_kernel<<<grid, kThreads, 0, st>>>(
+        (const int8_t*)xa, (const int8_t*)xb, (const int8_t*)w,
+        (int32_t*)ya, (int32_t*)yb, N, s, Ho, Wo, bc);
+  } else if (ip == 4 && dtype == kF32) {
+    CNN_IP4(float);
+  } else if (ip == 4 && dtype == kBF16) {
+    CNN_IP4(__nv_bfloat16);
+  } else if (ip == 4 && dtype == kI8) {
+    CNN_IP4(int8_t);
+  } else if (ip == 4 && dtype == kI16) {
+    CNN_IP4(int16_t);
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+#undef CNN_IP4
   return int(cudaGetLastError());
 }
 

@@ -2,7 +2,8 @@
 
 The kernels are compiled at first use with ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes``, so no
-source includes PyTorch's headers and the build takes seconds.  The
+source includes PyTorch's headers and the build takes seconds: one
+``nvcc -c`` per source, all started together, then one link.  The
 library lands in ``build/torch_ext/`` at the repository
 root, named by a hash of the sources and flags, so an edited source
 never loads a stale build.  Nothing here runs at import time: the CPU
@@ -28,14 +29,16 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("cnn_kernels.cu",)
+SOURCES = ("cnn_kernels.cu", "mm_kernels.cu")
 HEADERS = ("cnn_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
-# dtype codes of cnn_kernels.cu (enum DType)
-DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
+# dtype codes of the kernels (enum DType of cnn_kernels.cu; mm_kernels.cu
+# uses the same codes)
+DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2,
+              torch.int16: 3, torch.bfloat16: 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +52,9 @@ _SIGNATURES = {
     "cnn_activation_lut": (_I, _P, _P, _P, ctypes.c_longlong, _F, _F, _P),
     "cnn_pool2d_im2col": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P),
+    "cnn_conv2d_dual": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+    "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _P),
 }
 
 # Launches per kernel since the last reset_launches(): each wrapper adds
@@ -91,28 +97,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcnn_kernels_{_digest()}.so"
 
 
+def _run(cmds) -> str:
+    """Run the commands together and wait for all of them; raise if any
+    failed, else return their standard error (ptxas's report)."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    results = [(cmd, proc.communicate()[1], proc.returncode)
+               for cmd, proc in procs]
+    failed = [f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}"
+              for cmd, err, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(err for _, err, _ in results)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless this exact build exists; returns the
-    library path.  Writes to a temporary name and renames, so concurrent
-    processes never load a half-written file."""
+    library path.  Each source compiles in its own ``nvcc``, all at
+    once, and one more links them; the library is written to a
+    temporary name and renamed, so concurrent processes never load a
+    half-written file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr)
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        flags = ("-Xptxas=-v",) + NVCC_FLAGS if verbose else NVCC_FLAGS
+        objs = [work / f"{Path(s).stem}.o" for s in SOURCES]
+        log = _run([[nvcc, *flags, "-c", "-o", str(o), str(CSRC / s)]
+                    for s, o in zip(SOURCES, objs)])
+        tmp = work / "lib.so"
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        if verbose and log:
+            print(log)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

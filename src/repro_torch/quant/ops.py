@@ -1,5 +1,6 @@
 """Per-family quantized execution paths (``repro/quant/ops.py``): conv2d,
-pool2d, activation and the fused CNN block at a planned operand width.
+pool2d, activation, the fused CNN block and matmul at a planned operand
+width.
 
 Each function takes float operands, quantizes them to ``bits``, runs the
 family's selected member, and returns a float result:
@@ -12,8 +13,7 @@ family's selected member, and returns a float result:
 
 ``models/blocks.py`` composes these into mixed-precision networks, and
 the ``kernels/<family>/ops.py`` wrappers call them when the planner
-lowers a ``budget=`` call.  ``quantized_matmul`` waits for the matmul
-family (ROADMAP queue 1, item 11).
+lowers a ``budget=`` call.
 """
 from __future__ import annotations
 
@@ -115,10 +115,21 @@ def quantized_fused_cnn_block(x: torch.Tensor, w: torch.Tensor, *,
                            ip=ip)
 
 
-def quantized_matmul(a, b, *, bits: int = 8, ip: Optional[str] = None,
-                     act_scale=None, **tile_kwargs):
-    """a @ b at a lowered width: needs the matmul family, not ported yet
-    (ROADMAP queue 1, item 11)."""
-    raise NotImplementedError(
-        "quantized_matmul needs the matmul family, not ported yet "
-        "(ROADMAP queue 1, item 11)")
+def quantized_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
+                     ip: Optional[str] = None, act_scale=None,
+                     **tile_kwargs) -> torch.Tensor:
+    """a @ b with operands quantized to ``bits``; f32 result.
+
+    ``b`` (the weight side) is quantized per output column; int8 runs the
+    integer kernel (int32 accumulate), wider lowered widths fake-quant.
+    """
+    _check_bits(bits)
+    from repro_torch.kernels.matmul.ops import matmul
+    if bits == 8:
+        aq = quantize_acts(a, bits=8, scale=act_scale)
+        bq = quantize_weights(b, axis=-1, bits=8)
+        acc = matmul(aq.q, bq.q, ip=ip, **tile_kwargs)
+        scale = aq.scale * bq.scale.reshape(1, -1)
+        return acc.to(torch.float32) * scale
+    return matmul(fake_quant(a, bits=bits), fake_quant(b, bits=bits, axis=-1),
+                  ip=ip, **tile_kwargs)

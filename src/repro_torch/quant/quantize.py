@@ -97,18 +97,20 @@ def fake_quant(x: torch.Tensor, *, bits: int = 8,
 def int8_matmul(x: torch.Tensor, wq: QuantizedTensor, *,
                 use_kernel: bool = False) -> torch.Tensor:
     """y = x @ dequant(wq): int8 x int8 products accumulated exactly,
-    f32 rescale.  The contraction runs in float64, which holds every
-    int8 dot product of depth below 2^38 exactly, on any device.
+    f32 rescale.
 
-    ``use_kernel=True`` is the ``mm_mxu`` int8 kernel of the reference,
-    not ported yet (ROADMAP queue 1, item 11)."""
-    if use_kernel:
-        raise NotImplementedError(
-            "int8_matmul(use_kernel=True) needs the mm_mxu kernel, not "
-            "ported yet (ROADMAP queue 1, item 11)")
+    ``use_kernel=True`` routes the contraction through ``mm_mxu``'s
+    int8 kernel (on a CPU tensor its plain version); otherwise it runs
+    in float64, which holds every int8 dot product of depth below 2^38
+    exactly, on any device.  Both give the same int32 accumulator."""
     xq = quantize_acts(x)
-    acc = torch.matmul(xq.q.to(torch.float64),
-                       wq.q.to(torch.float64)).to(torch.int32)
+    if use_kernel:
+        from repro_torch.kernels.matmul.mxu import mm_mxu
+        acc = mm_mxu(xq.q.reshape(-1, xq.q.shape[-1]), wq.q)
+        acc = acc.reshape(x.shape[:-1] + (wq.q.shape[-1],))
+    else:
+        acc = torch.matmul(xq.q.to(torch.float64),
+                           wq.q.to(torch.float64)).to(torch.int32)
     out_scale = xq.scale * wq.scale.reshape((1,) * (acc.dim() - 1) + (-1,))
     return acc.to(torch.float32) * out_scale
 

@@ -100,9 +100,8 @@ def test_block_plan_mismatch_is_a_named_error(rng, params):
 
 
 def test_lowered_plans_and_quant_report_raise(rng, params):
-    """Lowered plans and ``quant_report`` execute now (queue 1, item 4);
-    what still raises on this path is the int8 matmul kernel and the
-    quantized matmul (queue 1, item 11)."""
+    """Lowered plans and ``quant_report`` execute now (queue 1, item 4),
+    and so do the int8 matmul kernel path and the quantized matmul."""
     from repro_torch.quant.ops import quantized_matmul
     from repro_torch.quant.quantize import int8_matmul, quantize_weights
     _, tp = params
@@ -117,11 +116,13 @@ def test_lowered_plans_and_quant_report_raise(rng, params):
     assert any(r.lowered for r in report.values())
     assert tuple(y_low.shape) == (1, 4, 64)
     assert bool(torch.isfinite(y_low).all())
+    # the int8 matmul kernel and the quantized matmul run since the
+    # matmul family landed: ones quantize exactly
     w = torch.ones((4, 2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        int8_matmul(torch.ones((3, 4)), quantize_weights(w), use_kernel=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        quantized_matmul(torch.ones((3, 4)), w)
+    assert torch.equal(int8_matmul(torch.ones((3, 4)), quantize_weights(w),
+                                   use_kernel=True), torch.full((3, 2), 4.0))
+    assert torch.equal(quantized_matmul(torch.ones((3, 4)), w),
+                       torch.full((3, 2), 4.0))
 
 
 def test_init_is_seeded_and_shaped():

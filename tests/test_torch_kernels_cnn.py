@@ -334,8 +334,8 @@ def test_named_errors():
         t_fused_block(x, w, pool_window=(5, 5), ip="fused_vpu")
     with pytest.raises(ValueError, match="block_cout"):
         t_conv2d(x, w, ip="ip1_vpu", block_cout=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        t_conv2d_dual(x, x, w)
+    with pytest.raises(KeyError, match="not a dual-stream conv IP"):
+        t_conv2d_dual(x, x, w, ip="ip1_vpu")
 
 
 def test_budget_path_selects_and_runs(rng):

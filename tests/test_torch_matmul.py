@@ -1,0 +1,341 @@
+"""The port's matmul family (``repro_torch.kernels.matmul``, its library
+registration, ``quantized_matmul`` and ``int8_matmul(use_kernel=True)``)
+against the reference (``repro``; Pallas in interpret mode on CPU).
+
+On a CPU tensor each port wrapper runs its plain PyTorch version (the
+family oracle), the function the CUDA kernels are checked against on the
+card by ``chip_smoke.py``.  Inputs are made with numpy from a seed.
+
+Tolerances: int8 products bit-exact (int32 sums); float32 and bfloat16
+within ``rtol=2e-4, atol=1e-5`` at K <= 130 (the reference's own
+``test_mm_mxu_float`` tolerance; the two packages sum in other orders);
+the 8-bit quantized path bit-exact (the same codes, an exact int32
+accumulator and the same f32 rescale); plan JSON byte-equal.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan as j_plan
+from repro.core.ip import SiteSpec as JSpec
+from repro.core.resources import ResourceBudget as JBudget
+from repro.kernels.matmul import mxu as j_mxu
+from repro.kernels.matmul.ops import matmul as j_matmul
+from repro.kernels.matmul.ops import matmul_dual as j_matmul_dual
+from repro.kernels.matmul.ref import matmul_ref as j_ref
+from repro.quant import ops as j_qops
+from repro.quant import quantize as j_q
+from repro_torch.core import library as t_library
+from repro_torch.core import plan as t_plan
+from repro_torch.core.ip import SiteSpec as TSpec
+from repro_torch.core.resources import ResourceBudget as TBudget
+from repro_torch.kernels.matmul import mxu as t_mxu
+from repro_torch.kernels.matmul.ops import matmul as t_matmul
+from repro_torch.kernels.matmul.ops import matmul_dual as t_matmul_dual
+from repro_torch.kernels.matmul.ref import matmul_dual_ref as t_dual_ref
+from repro_torch.kernels.matmul.ref import matmul_ref as t_ref
+from repro_torch.quant import ops as t_qops
+from repro_torch.quant import quantize as t_q
+
+FLOAT = dict(rtol=2e-4, atol=1e-5)
+
+# the reference's tests/test_kernels_matmul.py::{SHAPES, TILES}: (M, K, N)
+SHAPES = [(8, 8, 8), (64, 96, 48), (100, 130, 70), (33, 17, 5),
+          (256, 512, 128)]
+SHAPE_IDS = ["8x8x8", "64x96x48", "100x130x70", "33x17x5", "256x512x128"]
+TILES = [dict(bm=32, bn=32, bk=32), dict(bm=128, bn=128, bk=128)]
+TILE_IDS = ["t32", "t128"]
+
+
+def _both(a):
+    return jnp.asarray(a), torch.from_numpy(np.array(a, copy=True))
+
+
+def _int8(rng, shape):
+    return _both(rng.integers(-128, 128, shape, dtype=np.int8))
+
+
+def _normal(rng, shape):
+    return _both(rng.normal(size=shape).astype(np.float32))
+
+
+def _exact(got, want):
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# --------------------------------------------------------------------------
+# mm_mxu / mm_vpu against the reference's kernels
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("tiles", TILES, ids=TILE_IDS)
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_mm_mxu_int8_bit_exact(rng, shape, tiles):
+    m, k, n = shape
+    (ja, ta), (jb, tb) = _int8(rng, (m, k)), _int8(rng, (k, n))
+    _exact(t_matmul(ta, tb, ip="mm_mxu", **tiles),
+           j_matmul(ja, jb, ip="mm_mxu", **tiles))
+
+
+@pytest.mark.parametrize("tiles", TILES, ids=TILE_IDS)
+@pytest.mark.parametrize("shape", SHAPES[:3], ids=SHAPE_IDS[:3])
+def test_mm_vpu_int8_bit_exact(rng, shape, tiles):
+    m, k, n = shape
+    (ja, ta), (jb, tb) = _int8(rng, (m, k)), _int8(rng, (k, n))
+    tv = dict(bm=tiles["bm"], bn=tiles["bn"])
+    _exact(t_matmul(ta, tb, ip="mm_vpu", **tv),
+           j_matmul(ja, jb, ip="mm_vpu", **tv))
+
+
+@pytest.mark.parametrize("ip", ["mm_mxu", "mm_vpu"])
+@pytest.mark.parametrize("shape", SHAPES[:4], ids=SHAPE_IDS[:4])
+def test_float32_matches(rng, shape, ip):
+    m, k, n = shape
+    (ja, ta), (jb, tb) = _normal(rng, (m, k)), _normal(rng, (k, n))
+    tiles = dict(bm=32, bn=32, bk=32) if ip == "mm_mxu" else dict(bm=32,
+                                                                  bn=32)
+    got = t_matmul(ta, tb, ip=ip, **tiles)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(j_matmul(ja, jb, ip=ip, **tiles)),
+                               **FLOAT)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3], ids=SHAPE_IDS[:3])
+def test_mm_mxu_bfloat16_matches(rng, shape):
+    """bf16 operands, f32 accumulator: the products are exact in f32."""
+    m, k, n = shape
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = rng.normal(size=(k, n)).astype(np.float32)
+    got = t_mxu.mm_mxu(torch.from_numpy(a).bfloat16(),
+                       torch.from_numpy(b).bfloat16(), bm=32, bn=32, bk=32)
+    want = j_mxu.mm_mxu(jnp.asarray(a).astype(jnp.bfloat16),
+                        jnp.asarray(b).astype(jnp.bfloat16), bm=32, bn=32,
+                        bk=32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLOAT)
+
+
+def test_mm_mxu_out_dtype_and_refs(rng):
+    (ja, ta), (jb, tb) = _int8(rng, (33, 17)), _int8(rng, (17, 5))
+    got = t_mxu.mm_mxu(ta, tb, out_dtype=torch.float32)
+    want = j_mxu.mm_mxu(ja, jb, out_dtype=jnp.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _exact(t_ref(ta, tb), j_ref(ja, jb))
+    for g in t_dual_ref(ta, ta, tb):
+        _exact(g, j_ref(ja, jb))
+
+
+def test_results_do_not_depend_on_tile_hints(rng):
+    (_, ta), (_, tb) = _normal(rng, (40, 70)), _normal(rng, (70, 30))
+    base = t_mxu.mm_mxu(ta, tb)
+    for tiles in TILES + [dict(bm=1, bn=7, bk=3)]:
+        assert torch.equal(t_mxu.mm_mxu(ta, tb, **tiles), base)
+    assert torch.equal(t_mxu.mm_vpu(ta, tb, bm=3, bn=5), base)
+
+
+def test_matmul_named_errors(rng):
+    (_, ta), (_, tb) = _normal(rng, (4, 6)), _normal(rng, (6, 3))
+    with pytest.raises(KeyError, match="not a single-stream matmul IP"):
+        t_matmul(ta, tb, ip="mm_magic")
+    with pytest.raises(ValueError, match=r"\(M, K\) x \(K, N\)"):
+        t_matmul(ta, ta, ip="mm_mxu")
+    with pytest.raises(ValueError, match="bk must be >= 1"):
+        t_mxu.mm_mxu(ta, tb, bk=0)
+    with pytest.raises(ValueError, match="bm must be >= 1"):
+        t_mxu.mm_vpu(ta, tb, bm=0)
+
+
+# --------------------------------------------------------------------------
+# the dual-stream members: planned, footprints equal, kernels still raise
+# --------------------------------------------------------------------------
+def test_mm_dual_members_raise_named_errors(rng):
+    (ja, ta), (jb, tb) = _normal(rng, (8, 8)), _normal(rng, (8, 8))
+    with pytest.raises(TypeError, match="8-bit"):
+        t_matmul_dual(ta, ta, tb, ip="mm_dual_shared")
+    with pytest.raises(TypeError, match="8-bit"):
+        j_matmul_dual(ja, ja, jb, ip="mm_dual_shared")
+    (_, ia), (_, ib) = _int8(rng, (8, 8)), _int8(rng, (8, 8))
+    with pytest.raises(NotImplementedError, match="queue 2, item 13"):
+        t_matmul_dual(ia, ia, ib, ip="mm_dual_shared")
+    with pytest.raises(NotImplementedError, match="queue 2, item 13"):
+        t_matmul_dual(ta, ta, tb, ip="mm_dual_full")
+    with pytest.raises(NotImplementedError, match="queue 2, item 13"):
+        t_matmul_dual(ia, ia, ib)                   # planned, then raises
+    with pytest.raises(KeyError, match="not a dual-stream matmul IP"):
+        t_matmul_dual(ta, ta, tb, ip="mm_mxu")
+
+
+@pytest.mark.parametrize("shape", [(512, 2048, 8192), (64, 96, 48), (1, 1, 1),
+                                   (300, 700, 900)],
+                         ids=["ffn", "64x96x48", "1x1x1", "300x700x900"])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_footprints_match_reference(shape, itemsize):
+    from repro.core import library as j_library
+    for name in ("mm_vpu", "mm_mxu", "mm_dual_shared", "mm_dual_full"):
+        got = t_library.MATMUL[name].footprint(*shape, itemsize=itemsize)
+        want = j_library.MATMUL[name].footprint(*shape, itemsize=itemsize)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+    full = t_library.MATMUL["mm_dual_full"].footprint(*shape)
+    assert dataclasses.asdict(full) == dataclasses.asdict(
+        j_library.MATMUL["mm_dual_full"].footprint(*shape))
+
+
+def test_library_registers_matmul_as_the_reference_does():
+    from repro.core import library as j_library
+    assert list(t_library.FAMILIES)[:5] == list(j_library.FAMILIES)[:5]
+    for name in j_library.MATMUL.names():
+        t_ip, j_ip = t_library.MATMUL[name], j_library.MATMUL[name]
+        for field in ("name", "family", "uses_mxu", "max_operand_bits",
+                      "outputs_per_pass", "supports_dtypes", "tags",
+                      "description"):
+            assert getattr(t_ip, field) == getattr(j_ip, field), field
+    assert t_library.get_ip("matmul.mm_mxu").impl is t_mxu.mm_mxu
+    for family in ("attention", "ssm_scan"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            t_library.get_family(family)
+
+
+# --------------------------------------------------------------------------
+# planning: byte-equal plan JSON, and the chip run's matmul table
+# --------------------------------------------------------------------------
+FFN = ((512, 2048), (2048, 8192))
+BUDGETS = {"default": {}, "logic_only": dict(mxu_available=False),
+           "vmem_1MiB": dict(vmem_bytes=1 << 20),
+           "vmem_900KiB": dict(vmem_bytes=900 * 1024),
+           "int8_floor": dict(precision_bits=8),
+           "passes_4": dict(mxu_passes_budget=4)}
+
+
+def _net(make, dtype, ladder):
+    return [make("up", "matmul", FFN, dtype, ladder=ladder, dual=False),
+            make("small", "matmul", ((64, 96), (96, 48)), dtype,
+                 ladder=ladder, dual=False),
+            make("dual", "matmul", ((64, 96), (96, 48)), dtype, dual=True),
+            make("dual_ragged", "matmul", ((33, 17), (17, 5)), dtype,
+                 dual=True)]
+
+
+@pytest.mark.parametrize("ladder", [(), (16, 8)], ids=["native", "ladder"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("budget", list(BUDGETS))
+def test_matmul_plan_json_byte_equal(budget, dtype, ladder):
+    j_plan.clear_plan_cache()
+    t_plan.clear_plan_cache()
+    try:
+        want = j_plan.plan_network(_net(JSpec.make, dtype, ladder),
+                                   JBudget(**BUDGETS[budget]))
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            t_plan.plan_network(_net(TSpec.make, dtype, ladder),
+                                TBudget(**BUDGETS[budget]))
+        assert str(got.value) == str(e)
+        return
+    got = t_plan.plan_network(_net(TSpec.make, dtype, ladder),
+                              TBudget(**BUDGETS[budget]))
+    assert got.to_json() == want.to_json()
+    assert got.describe() == want.describe()
+    assert got.explain() == want.explain()
+
+
+def test_dual_sites_plan_onto_the_dual_footprints():
+    """At least the default budget plans the dual sites (not every case
+    above raises)."""
+    t_plan.clear_plan_cache()
+    plan = t_plan.plan_network(_net(TSpec.make, "int8", ()), TBudget())
+    members = {s.spec.name: s.ip.name for s in plan.sites}
+    assert members["dual"] in ("matmul.mm_dual_shared", "matmul.mm_dual_full")
+    assert members["up"] == "matmul.mm_mxu"
+
+
+# the chip run's calls at Llama-3.2-1B's FFN up-projection
+# (chip_smoke.py::MATMUL_PLANS): dtype, ladder, budget, member@bits
+MATMUL_PLANS = [("float32", (), {}, "matmul.mm_mxu@32"),
+                ("int8", (), {}, "matmul.mm_mxu@8"),
+                ("float32", (), dict(mxu_available=False), "matmul.mm_vpu@32"),
+                ("float32", (8,), dict(vmem_bytes=1 << 20), "matmul.mm_mxu@8"),
+                ("float32", (16, 8), dict(vmem_bytes=900 * 1024),
+                 "matmul.mm_vpu@16")]
+
+
+@pytest.mark.parametrize("dtype,ladder,budget,want", MATMUL_PLANS,
+                         ids=["f32", "int8", "f32-logic", "f32-l8",
+                              "f32-l16"])
+def test_ffn_calls_plan_the_listed_member(dtype, ladder, budget, want):
+    """Planning only, at the full FFN width."""
+    j_plan.clear_plan_cache()
+    t_plan.clear_plan_cache()
+    got = t_plan.plan_single(TSpec.make("mm", "matmul", FFN, dtype,
+                                        ladder=ladder, dual=False),
+                             TBudget(**budget))
+    ref = j_plan.plan_single(JSpec.make("mm", "matmul", FFN, dtype,
+                                        ladder=ladder, dual=False),
+                             JBudget(**budget))
+    assert f"{got.ip.name}@{got.precision_bits}" == \
+        f"{ref.ip.name}@{ref.precision_bits}" == want
+
+
+# a small site the ladder lowers: (shapes, budget, ladder, member@bits)
+LOWERED = [(((64, 96), (96, 48)), dict(vmem_bytes=36 * 1024), (8,),
+            "matmul.mm_mxu@8"),
+           (((64, 96), (96, 48)), dict(vmem_bytes=34 * 1024), (16, 8),
+            "matmul.mm_vpu@16")]
+
+
+@pytest.mark.parametrize("shapes,budget,ladder,want", LOWERED,
+                         ids=["int8", "16bit"])
+def test_matmul_executes_lowered_plans(rng, shapes, budget, ladder, want):
+    """``matmul(budget=, ladder=)`` lowers in both packages to the same
+    member and width and returns the reference's float result."""
+    (m, k), (_, n) = shapes
+    (ja, ta), (jb, tb) = _normal(rng, (m, k)), _normal(rng, (k, n))
+    planned = t_plan.plan_single(TSpec.make("mm", "matmul", shapes,
+                                            "float32", ladder=ladder,
+                                            dual=False), TBudget(**budget))
+    assert f"{planned.ip.name}@{planned.precision_bits}" == want
+    got = t_matmul(ta, tb, budget=TBudget(**budget), ladder=ladder)
+    ref = j_matmul(ja, jb, budget=JBudget(**budget), ladder=ladder)
+    if planned.precision_bits == 8:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FLOAT)
+
+
+# --------------------------------------------------------------------------
+# quantized_matmul and int8_matmul(use_kernel=True)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("ip", ["mm_mxu", "mm_vpu"])
+@pytest.mark.parametrize("shape", SHAPES[:4], ids=SHAPE_IDS[:4])
+def test_quantized_matmul_8bit_bit_exact(rng, shape, ip):
+    m, k, n = shape
+    (ja, ta), (jb, tb) = _normal(rng, (m, k)), _normal(rng, (k, n))
+    got = t_qops.quantized_matmul(ta, tb, bits=8, ip=ip)
+    want = j_qops.quantized_matmul(ja, jb, bits=8, ip=ip)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("ip", ["mm_mxu", "mm_vpu"])
+@pytest.mark.parametrize("shape", SHAPES[:4], ids=SHAPE_IDS[:4])
+def test_quantized_matmul_16bit_matches(rng, shape, ip):
+    m, k, n = shape
+    (ja, ta), (jb, tb) = _normal(rng, (m, k)), _normal(rng, (k, n))
+    np.testing.assert_allclose(
+        t_qops.quantized_matmul(ta, tb, bits=16, ip=ip).numpy(),
+        np.asarray(j_qops.quantized_matmul(ja, jb, bits=16, ip=ip)),
+        **FLOAT)
+
+
+@pytest.mark.parametrize("xshape", [(5, 12), (2, 3, 12), (64, 96)],
+                         ids=["2d", "3d", "64x96"])
+def test_int8_matmul_kernel_path_bit_exact(rng, xshape):
+    jx, tx = _normal(rng, xshape)
+    jw, tw = _both(rng.normal(size=(xshape[-1], 6)).astype(np.float32) * 0.3)
+    twq, jwq = t_q.quantize_weights(tw), j_q.quantize_weights(jw)
+    got = t_q.int8_matmul(tx, twq, use_kernel=True)
+    want = j_q.int8_matmul(jx, jwq, use_kernel=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, t_q.int8_matmul(tx, twq))

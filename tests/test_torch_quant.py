@@ -161,10 +161,10 @@ def test_int8_matmul_bit_exact_and_kernel_seam(rng):
     want = j_q.int8_matmul(jx, j_q.quantize_weights(jw))
     got = t_q.int8_matmul(tx, t_q.quantize_weights(tw))
     _exact(got, want)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        t_q.int8_matmul(tx, t_q.quantize_weights(tw), use_kernel=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        t_ops.quantized_matmul(tx, tw)
+    # the kernel seam (mm_mxu's int8 path; its plain version on the CPU)
+    _exact(t_q.int8_matmul(tx, t_q.quantize_weights(tw), use_kernel=True),
+           j_q.int8_matmul(jx, j_q.quantize_weights(jw), use_kernel=True))
+    _exact(t_ops.quantized_matmul(tx, tw), j_ops.quantized_matmul(jx, jw))
 
 
 def test_core_quantize_reexports_the_subsystem():
