@@ -43,13 +43,32 @@ and prints no result):
    Conv3/Conv4 also against two ``conv2d_ip1`` launches), f32 Conv4
    bitwise equal to two ``conv2d_ip2`` launches, f32 matmuls within
    ``rtol=2e-4, atol=1e-3``, results independent of the tiling hints;
+   Then "lm sites": the budget sweep's four LM sites
+   (``lm_network_specs``, the port's copy of
+   ``examples/budget_sweep.py``'s at Llama-3.2-1B's widths) planned
+   under its six budgets must give the reference's table (``LM_TABLE``);
+   each of its distinct (site, member, bits) runs once on numpy-seeded
+   operands through its op wrapper (``conv2d``, ``conv2d_dual``,
+   ``matmul``, ``matmul_dual``, ``quantized_matmul``, ``attention``)
+   and launches its member's kernel exactly once; integers bit-exact,
+   bf16 matmuls within ``MM_TOL``, bf16 attention within
+   ``ATTN_BF16_TOL`` against the plain versions run a slice at a time;
+   ``attention(budget=ResourceBudget(mxu_available=False))`` raises "no
+   feasible IP"; f32 attention and decode within ``ATTN_F32_TOL``
+   (``ATTN_F32_CASES``, ``DECODE_F32_CASES`` and the two sites' full
+   shapes; rows that see no key are 0; a GQA group too large for
+   shared memory raises); ``matmul_dual`` on bf16 plans and launches
+   ``mm_dual_full``, which equals two ``mm_mxu`` launches bitwise (bf16,
+   f32);
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
    kernels (``LOGIC_ONLY``);
 5. times  — per kernel: the median device time of 20 launches (CUDA
    events, launches queued ahead of the device), its plain version's
    and the PyTorch library call's time, and the least time the card
    could take (bytes over peak bandwidth, or operations over the peak
-   rate of their type: FP32, int8 tensor-core, or INT32 lanes);
+   rate of their type: FP32, bf16 or int8 tensor-core, or INT32 lanes;
+   the new kernels of "lm sites" at the sites' shapes, their chunked
+   plain versions timed call by call, ``time_sync_ms``);
    then the served requests per second over 3 steady windows (rounds of
    the 8-request trace, >= 512 requests and about 1 s each), and one
    more such window under ``torch.profiler``: device time by kernel and
@@ -77,6 +96,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CSRC = "src/repro_torch/kernels/csrc/cnn_kernels.cu"
 CSRC_MM = "src/repro_torch/kernels/csrc/mm_kernels.cu"
+CSRC_ATTN = "src/repro_torch/kernels/csrc/attn_kernels.cu"
 SEED = 0
 N_REQUESTS = 8
 MAX_BATCH = 4
@@ -97,10 +117,15 @@ RATE_WINDOWS = 3
 # 51e12 / (114 x 128 x 2) = 1.75 GHz on the PCIe part), counting a
 # multiply-add as 2 operations as the FP32 rate does: 132 x 64 x 2 x
 # 1.98e9 = 33.5e12.  The rates assume the card's full power limit.
+# bf16 dense tensor-core FLOP/s are the data sheet's too (989.4e12 SXM,
+# 756e12 PCIe): the bound of bf16 attention and bf16 matmuls, whatever
+# units the kernels run on.
 PEAKS = {
     "H100 SXM": {"bytes_per_s": 3.35e12, "fp32_flops": 67e12,
+                 "bf16_tensor_flops": 989.4e12,
                  "int8_tensor_ops": 1979e12, "int32_ops": 33.5e12},
     "H100 PCIe": {"bytes_per_s": 2.0e12, "fp32_flops": 51e12,
+                  "bf16_tensor_flops": 756e12,
                   "int8_tensor_ops": 1513e12, "int32_ops": 25.5e12},
 }
 
@@ -119,8 +144,13 @@ REPLACES = {
     "conv2d_ip4": "src/repro/kernels/conv2d/ip4_dual.py:48",
     "mm_mxu": "src/repro/kernels/matmul/mxu.py:52",
     "mm_vpu": "src/repro/kernels/matmul/mxu.py:89",
+    "mm_dual_shared": "src/repro/kernels/matmul/dual.py:44",
+    "mm_dual_full": "src/repro/kernels/matmul/dual.py:44",
+    "flash_attention": "src/repro/kernels/attention/flash.py:77",
+    "flash_decode": "src/repro/kernels/attention/decode.py:58",
 }
-SOURCE = {name: CSRC_MM if name.startswith("mm_") else CSRC
+SOURCE = {name: (CSRC_MM if name.startswith("mm_") else
+                 CSRC_ATTN if name.startswith("flash_") else CSRC)
           for name in REPLACES}
 # Kernels of logic-only members (mxu_available=False): no MMA in SASS.
 LOGIC_ONLY = ("conv2d_ip3_kernel", "mm_vpu_kernel")
@@ -155,6 +185,64 @@ MATMUL_PLANS = (
 # f32 matmul tolerance at K=2048 with unit-normal operands: the kernels
 # sum each output in one sequential FMA chain, cuBLAS in another order.
 MM_TOL = dict(rtol=2e-4, atol=1e-3)
+
+# The budget sweep's LM sites (examples/budget_sweep.py:38-54) at
+# Llama-3.2-1B's widths (src/repro/configs/llama3_2_1b.py:10-11: d_model
+# 2048, 32 heads, 8 kv heads, head_dim 64, d_ff 8192), under the sweep's
+# six budgets (examples/budget_sweep.py:27-35).
+LLAMA = dict(d_model=2048, d_ff=8192, n_heads=32, n_kv_heads=8,
+             head_dim=64)
+LM_BUDGETS = {
+    "ample": {},
+    "no_mxu": dict(mxu_available=False),
+    "vmem_16MiB": dict(vmem_bytes=16 * 2**20),
+    "vmem_6MiB": dict(vmem_bytes=6 * 2**20),
+    "int8_parallel": dict(precision_bits=8, prefer_parallel_streams=True),
+    "int8_serial": dict(precision_bits=8),
+}
+# The reference's plan of those sites (examples/budget_sweep.py prints
+# it): member@bits, '*' where the precision ladder lowered the site, '!'
+# where no joint plan exists and the site fell back to select_ip.
+LM_TABLE = {
+    "ample": ("ip1_vpu@8b", "mm_mxu@16b", "attn_flash@16b",
+              "attn_decode@16b"),
+    "no_mxu": ("ip1_vpu!", "mm_vpu!", "infeasible", "infeasible"),
+    "vmem_16MiB": ("ip1_vpu@8b", "mm_mxu@16b", "attn_flash@16b",
+                   "attn_decode@16b"),
+    "vmem_6MiB": ("ip1_vpu@8b", "mm_vpu@8b*", "attn_flash@16b",
+                  "attn_decode@16b"),
+    "int8_parallel": ("ip3_packed@8b", "mm_dual_shared@8b",
+                      "attn_flash@16b", "attn_decode@16b"),
+    "int8_serial": ("ip1_vpu@8b", "mm_mxu@8b", "attn_flash@16b",
+                    "attn_decode@16b"),
+}
+# the kernel each planned member launches
+MEMBER_KERNEL = {"ip1_vpu": "conv2d_ip1", "ip3_packed": "conv2d_ip3",
+                 "mm_mxu": "mm_mxu", "mm_vpu": "mm_vpu",
+                 "mm_dual_shared": "mm_dual_shared",
+                 "attn_flash": "flash_attention",
+                 "attn_decode": "flash_decode"}
+# Attention tolerances against the plain versions.  bf16: kernel and
+# plain version both compute in f32 from the same bf16 operands and
+# round once to bf16, so they differ by about one bf16 ulp (at most
+# 2^-7 of the value, inside rtol); atol lies far below the outputs'
+# scale (about 9e-3 at attn_decode32k, 3e-2 at attn_train4k), so a zero,
+# mis-scaled or partly summed output fails.  It is inside the reference
+# test's bf16 bound, rtol=atol=5e-2 (tests/test_kernels_attention.py:
+# 53-55).  f32: the reference test's f32 bound (:27-28).
+ATTN_BF16_TOL = dict(rtol=1e-2, atol=1e-4)
+ATTN_F32_TOL = dict(rtol=2e-4, atol=2e-5)
+# f32 attention checks at Llama's head layout (group 4, head_dim 64):
+# (B, Hq, Hkv, Sq, Skv, D); a length that is no multiple of a block, a
+# cached prefill (Skv > Sq), and rows that see no key (Sq > Skv); then
+# the reference test's CASES (other head dims).
+ATTN_F32_CASES = ((2, 8, 2, 1000, 1000, 64), (2, 8, 2, 256, 1280, 64),
+                  (1, 8, 2, 300, 100, 64), (1, 4, 4, 32, 32, 16),
+                  (2, 8, 2, 64, 64, 32), (1, 8, 1, 60, 60, 16),
+                  (2, 4, 4, 48, 96, 32), (1, 8, 2, 200, 200, 128))
+# f32 decode checks: (B, Hq, Hkv, Skv, D)
+DECODE_F32_CASES = ((4, 32, 8, 4097, 64), (2, 8, 2, 257, 32),
+                    (2, 2, 2, 17, 16), (2, 16, 2, 300, 128))
 
 
 # The two-tenant precision-ladder deployments (the reference's serving
@@ -823,6 +911,452 @@ def matmul_checks(gen, errs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4, lm sites: the budget sweep's LM sites, planned and executed
+# ---------------------------------------------------------------------------
+def lm_network_specs(budget):
+    """The port's copy of ``examples/budget_sweep.py::lm_network_specs``
+    at LLAMA's widths."""
+    import torch
+    from repro_torch.core.ip import SiteSpec
+    d, f = LLAMA["d_model"], LLAMA["d_ff"]
+    hq, hkv, hd = LLAMA["n_heads"], LLAMA["n_kv_heads"], LLAMA["head_dim"]
+    dual = budget.prefer_parallel_streams
+    mm_dtype = torch.int8 if budget.precision_bits <= 8 else torch.bfloat16
+    return [
+        SiteSpec.make("conv3x3", "conv2d", ((8, 64, 64, 16), (3, 3, 16, 32)),
+                      torch.int8, dual=dual),
+        SiteSpec.make("ffn", "matmul", ((4096, d), (d, f)), mm_dtype,
+                      ladder=(8,), dual=dual),
+        SiteSpec.make("attn_train4k", "attention",
+                      ((8, hq, 4096, hd), (8, hkv, 4096, hd)),
+                      torch.bfloat16),
+        SiteSpec.make("attn_decode32k", "attention",
+                      ((128, hq, 1, hd), (128, hkv, 32768, hd)),
+                      torch.bfloat16),
+    ]
+
+
+def plan_lm_sweep():
+    """Plan the LM sites under each of LM_BUDGETS as the sweep does: one
+    joint ``plan_network``, else ``select_ip`` per site (at the site's
+    native width).  Returns each budget's row of cells, as the sweep
+    prints them, and its sites as (spec, member, bits, lowered), None
+    where the site is infeasible."""
+    from repro_torch.core.plan import plan_network, select_ip
+    from repro_torch.core.resources import ResourceBudget
+    table, sites_of = {}, {}
+    for name, kw in LM_BUDGETS.items():
+        budget = ResourceBudget(**kw)
+        specs = lm_network_specs(budget)
+        try:
+            plan = plan_network(specs, budget)
+            sites = [(s, plan.site(s.name).ip.name.split(".")[-1],
+                      plan.site(s.name).precision_bits,
+                      plan.site(s.name).lowered) for s in specs]
+            cells = [f"{m}@{bits}b" + ("*" if lowered else "")
+                     for _, m, bits, lowered in sites]
+        except ValueError:
+            sites, cells = [], []
+            for s in specs:
+                try:
+                    m = select_ip(s.family, s, budget=budget).name
+                except ValueError:
+                    sites.append(None)
+                    cells.append("infeasible")
+                    continue
+                m = m.split(".")[-1]
+                sites.append((s, m, s.native_bits, False))
+                cells.append(m + "!")
+        table[name], sites_of[name] = tuple(cells), sites
+    return table, sites_of
+
+
+def lm_site_runs(sites_of):
+    """The distinct (site, member, bits, lowered) of the planned sites,
+    in table order."""
+    runs = []
+    for sites in sites_of.values():
+        for site in sites:
+            if site is None:
+                continue
+            spec, member, bits, lowered = site
+            run = (spec.name, member, bits, lowered)
+            if run not in runs:
+                runs.append(run)
+    return runs
+
+
+def np_operand(rng, shape, dtype, scale=1.0):
+    """A numpy-seeded operand on the card: integers over their dtype's
+    full range, floats standard normal times ``scale`` (made in f32 and
+    cast on the card)."""
+    import numpy as np
+    import torch
+    if dtype.is_floating_point:
+        t = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        if scale != 1.0:
+            t.mul_(scale)
+        return t.cuda().to(dtype)
+    info = torch.iinfo(dtype)
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    return torch.from_numpy(rng.integers(info.min, info.max + 1, shape,
+                                         dtype=np_dtype)).cuda()
+
+
+def attention_chunks(q, k, v, per_head):
+    """(q, k, v) slices of one batch row (and one kv head with its GQA
+    group of q heads): the plain versions materialize f32 scores of a
+    whole slice, so the full-size ones run a slice at a time."""
+    group = q.shape[1] // k.shape[1]
+    for b in range(q.shape[0]):
+        heads = range(k.shape[1]) if per_head else (None,)
+        for h in heads:
+            if h is None:
+                yield (b, slice(None)), q[b:b + 1], k[b:b + 1], v[b:b + 1]
+            else:
+                qs = slice(h * group, (h + 1) * group)
+                yield ((b, qs), q[b:b + 1, qs], k[b:b + 1, h:h + 1],
+                       v[b:b + 1, h:h + 1])
+
+
+def compare_attention(name, got, plain, q, k, v, per_head, tol, errs,
+                      **kw):
+    """``got`` against ``plain`` over the slices of ``attention_chunks``
+    within ``tol``; records and logs the max abs error."""
+    import torch
+    err = 0.0
+    for (b, qs), qc, kc, vc in attention_chunks(q, k, v, per_head):
+        want = plain(qc, kc, vc, **kw)
+        g = got[b:b + 1, qs]
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+        torch.testing.assert_close(g, want, **tol,
+                                   msg=lambda m: f"{name}: {m}")
+        err = max(err, float((g.double() - want.double()).abs().max()))
+    errs[name] = max(errs.get(name, 0.0), err)
+    log(f"{name} at q{tuple(q.shape)} kv{tuple(k.shape)} {q.dtype}: ok "
+        f"against the plain version slice by slice (max abs err {err:.3e}"
+        f", rtol={tol['rtol']}, atol={tol['atol']})")
+
+
+def lm_site_checks(sites_of, rng, errs):
+    """Run each distinct planned site of the table once on the card
+    through its op wrapper: it must launch its member's kernel exactly
+    once; results against the plain versions.  Returns the launches and
+    the operands (for the times)."""
+    import torch
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.kernels.attention.decode import flash_decode_plain
+    from repro_torch.kernels.attention.flash import flash_attention_plain
+    from repro_torch.kernels.attention.ops import attention
+    from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1_plain
+    from repro_torch.kernels.conv2d.ip3_packed import conv2d_ip3_plain
+    from repro_torch.kernels.conv2d.ops import conv2d, conv2d_dual
+    from repro_torch.kernels.matmul.dual import mm_dual_shared_plain
+    from repro_torch.kernels.matmul.mxu import mm_mxu_plain, mm_vpu_plain
+    from repro_torch.kernels.matmul.ops import matmul, matmul_dual
+    from repro_torch.quant.ops import quantized_matmul
+    from repro_torch.quant.quantize import quantize_acts, quantize_weights
+    specs = {site[0].name: site[0] for site in sites_of["ample"]}
+    (xs, ws), (as_, bs_) = specs["conv3x3"].shapes, specs["ffn"].shapes
+    (qs, kvs), (dqs, dkvs) = (specs["attn_train4k"].shapes,
+                              specs["attn_decode32k"].shapes)
+    i8, bf16 = torch.int8, torch.bfloat16
+    ops = {"conv": [np_operand(rng, s, i8) for s in (xs, xs, ws)],
+           "ffn_i8": [np_operand(rng, s, i8) for s in (as_, as_, bs_)],
+           "ffn_bf16": [np_operand(rng, s, bf16) for s in (as_, as_, bs_)],
+           "train": [np_operand(rng, s, bf16) for s in (qs, kvs, kvs)],
+           "decode": [np_operand(rng, s, bf16) for s in (dqs, dkvs, dkvs)]}
+    launches = {}
+    for site, member, bits, lowered in lm_site_runs(sites_of):
+        kernel = MEMBER_KERNEL[member]
+        what = f"{site} {member}@{bits}b{'*' if lowered else ''}"
+        if site == "conv3x3":
+            xa, xb, w = ops["conv"]
+            if member == "ip3_packed":
+                ys = launched_once(lambda: conv2d_dual(xa, xb, w, ip=member),
+                                   kernel, what)
+                for got, want in zip(ys, conv2d_ip3_plain(xa, xb, w)):
+                    compare(kernel, got, want, 0, 0, errs, exact=True)
+            else:
+                y = launched_once(lambda: conv2d(xa, w, ip=member), kernel,
+                                  what)
+                compare(kernel, y, conv2d_ip1_plain(xa, w), 0, 0, errs,
+                        exact=True)
+        elif site == "ffn" and lowered:
+            a, _, b = ops["ffn_bf16"]
+            y = launched_once(lambda: quantized_matmul(a, b, bits=bits,
+                                                       ip=member),
+                              kernel, what)
+            aq, bq = quantize_acts(a, bits=8), quantize_weights(b, bits=8)
+            want = (mm_vpu_plain(aq.q, bq.q).to(torch.float32)
+                    * (aq.scale * bq.scale.reshape(1, -1)))
+            compare(kernel, y, want, 0, 0, errs, exact=True)
+        elif site == "ffn":
+            a1, a2, b = ops["ffn_i8" if bits == 8 else "ffn_bf16"]
+            if member == "mm_dual_shared":
+                ys = launched_once(lambda: matmul_dual(a1, a2, b, ip=member),
+                                   kernel, what)
+                for got, want in zip(ys, mm_dual_shared_plain(a1, a2, b)):
+                    compare(kernel, got, want, 0, 0, errs, exact=True)
+            else:
+                y = launched_once(lambda: matmul(a1, b, ip=member), kernel,
+                                  what)
+                want = (mm_mxu_plain if member == "mm_mxu"
+                        else mm_vpu_plain)(a1, b)
+                compare(kernel, y, want, MM_TOL["rtol"], MM_TOL["atol"],
+                        errs, exact=bits == 8)
+        elif site == "attn_train4k":
+            q, k, v = ops["train"]
+            y = launched_once(lambda: attention(q, k, v, ip=member), kernel,
+                              what)
+            compare_attention(kernel, y, flash_attention_plain, q, k, v,
+                              True, ATTN_BF16_TOL, errs, causal=True)
+        else:
+            q, k, v = ops["decode"]
+            y = launched_once(lambda: attention(q, k, v, ip=member), kernel,
+                              what)
+            compare_attention(kernel, y, flash_decode_plain, q, k, v, False,
+                              ATTN_BF16_TOL, errs)
+        launches[kernel] = launches.get(kernel, 0) + 1
+        log(f"{what}: one {kernel} launch")
+    for name in ("train", "decode"):
+        q, k, v = ops[name]
+        try:
+            attention(q, k, v, budget=ResourceBudget(mxu_available=False))
+        except ValueError as e:
+            check("no feasible IP" in str(e), f"attention {name}: {e}")
+        else:
+            raise SmokeFailure(f"attention {name} planned with no MXU")
+    log("attention(budget=ResourceBudget(mxu_available=False)) raises "
+        "'no feasible IP' at both attention sites")
+    torch.cuda.synchronize()
+    return launches, ops
+
+
+def lm_kernel_checks(ops, rng, errs):
+    """The three new kernels beyond the planned sites: f32 attention and
+    decode at ATTN_F32_CASES / DECODE_F32_CASES and at the planned
+    sites' full shapes, rows that see no key written as 0, a GQA group
+    too large for shared memory refused with no launch counted;
+    ``matmul_dual(budget=ResourceBudget())`` on bf16 plans
+    ``mm_dual_full`` (one launch), and f32/bf16 ``mm_dual_full`` equal
+    two ``mm_mxu`` launches bitwise; int8 ``mm_dual_full`` bit-exact.
+    Returns the launches of the planned ``matmul_dual`` call."""
+    import torch
+    from repro_torch.core.ip import SiteSpec
+    from repro_torch.core.plan import plan_single
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.attention.decode import (flash_decode,
+                                                      flash_decode_plain)
+    from repro_torch.kernels.attention.flash import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.matmul.dual import (mm_dual_full,
+                                                 mm_dual_full_plain,
+                                                 mm_dual_shared)
+    from repro_torch.kernels.matmul.mxu import mm_mxu
+    from repro_torch.kernels.matmul.ops import matmul_dual
+    f32 = torch.float32
+    for b, hq, hkv, sq, skv, d in ATTN_F32_CASES:
+        q = np_operand(rng, (b, hq, sq, d), f32)
+        k, v = (np_operand(rng, (b, hkv, skv, d), f32) for _ in range(2))
+        for causal in (True, False):
+            y = flash_attention(q, k, v, causal=causal)
+            compare("flash_attention", y,
+                    flash_attention_plain(q, k, v, causal=causal),
+                    ATTN_F32_TOL["rtol"], ATTN_F32_TOL["atol"], errs)
+            if causal and sq > skv:
+                check(bool((y[:, :, :sq - skv] == 0).all()),
+                      "flash_attention: a row that sees no key is not 0")
+    for b, hq, hkv, skv, d in DECODE_F32_CASES:
+        q = np_operand(rng, (b, hq, 1, d), f32)
+        k, v = (np_operand(rng, (b, hkv, skv, d), f32) for _ in range(2))
+        compare("flash_decode", flash_decode(q, k, v),
+                flash_decode_plain(q, k, v), ATTN_F32_TOL["rtol"],
+                ATTN_F32_TOL["atol"], errs)
+    log(f"f32 flash_attention ({len(ATTN_F32_CASES)} cases, causal and "
+        f"not) and flash_decode ({len(DECODE_F32_CASES)} cases) within "
+        f"rtol={ATTN_F32_TOL['rtol']}, atol={ATTN_F32_TOL['atol']}; rows "
+        f"that see no key are 0")
+    # the planned sites' full shapes in f32: their bf16 operands widened
+    for name, per_head, kernel, plain, kw in (
+            ("train", True, flash_attention, flash_attention_plain,
+             dict(causal=True)),
+            ("decode", False, flash_decode, flash_decode_plain, {})):
+        q, k, v = (t.to(f32) for t in ops[name])
+        compare_attention(kernel.__name__, kernel(q, k, v, **kw), plain, q,
+                          k, v, per_head, ATTN_F32_TOL, errs, **kw)
+        del q, k, v
+    # a GQA group whose q tile and scores exceed the card's shared memory
+    q = np_operand(rng, (1, 256, 1, 128), f32)
+    k, v = (np_operand(rng, (1, 1, 17, 128), f32) for _ in range(2))
+    cuda.reset_launches()
+    try:
+        flash_decode(q, k, v)
+    except RuntimeError as e:
+        check(cuda.launch_counts() == {}, "flash_decode counted a launch "
+                                          "that failed")
+        log(f"flash_decode with a group of 256 x 128 raises: {e}")
+    else:
+        raise SmokeFailure("flash_decode launched a group of 256 x 128")
+    q = q[:, :4].contiguous()
+    compare("flash_decode", flash_decode(q, k, v),
+            flash_decode_plain(q, k, v), ATTN_F32_TOL["rtol"],
+            ATTN_F32_TOL["atol"], errs)
+
+    a1, a2, b = ops["ffn_bf16"]
+    spec = SiteSpec.make("matmul", "matmul", (a1.shape, b.shape), a1.dtype,
+                         dual=True)
+    planned = plan_single(spec, ResourceBudget()).ip.name
+    check(planned == "matmul.mm_dual_full",
+          f"bf16 matmul_dual planned {planned}")
+    what = f"bf16 matmul_dual(budget=ResourceBudget()) at {tuple(a1.shape)}"
+    ys = launched_once(lambda: matmul_dual(a1, a2, b,
+                                           budget=ResourceBudget()),
+                       "mm_dual_full", what)
+    launches = {"mm_dual_full": 1}
+    for dtype, (x1, x2, w) in ((torch.bfloat16, (a1, a2, b)),
+                               (f32, [t.to(f32) for t in (a1, a2, b)])):
+        if dtype == f32:
+            ys = mm_dual_full(x1, x2, w)
+        check(all(torch.equal(y, mm_mxu(x, w)) for y, x in zip(ys, (x1, x2))),
+              f"{dtype} mm_dual_full: not bitwise equal to two mm_mxu "
+              f"launches")
+        for got, want in zip(ys, mm_dual_full_plain(x1, x2, w)):
+            compare("mm_dual_full", got, want, MM_TOL["rtol"],
+                    MM_TOL["atol"], errs)
+    i1, i2, ib = ops["ffn_i8"]
+    for got, want in zip(mm_dual_full(i1, i2, ib),
+                         mm_dual_full_plain(i1, i2, ib)):
+        compare("mm_dual_full", got, want, 0, 0, errs, exact=True)
+    cuda.reset_launches()
+    try:
+        mm_dual_shared(a1, a2, b)
+    except TypeError:
+        check(cuda.launch_counts() == {}, "mm_dual_shared launched on bf16")
+    else:
+        raise SmokeFailure("mm_dual_shared took bf16 operands")
+    log(f"{what} -> mm_dual_full: one launch; bf16 and f32 bitwise equal "
+        f"to two mm_mxu launches; int8 bit-exact; mm_dual_shared refuses "
+        f"bf16 before any launch")
+    torch.cuda.synchronize()
+    return launches
+
+
+def time_sync_ms(fn, reps=3):
+    """Median device time (ms) of one call of ``fn`` over ``reps`` calls,
+    each between two CUDA events and synchronized after: for the chunked
+    plain versions, whose hundreds of launches a call would fill the
+    launch queue behind ``time_ms``'s sleep kernel.  The host's issue time
+    between a call's launches counts."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def visible_pairs(sq, skv, causal):
+    """(query, key) pairs a head's attention computes: all of them, or
+    under the bottom-right causal mask those with j <= i + skv - sq."""
+    if not causal:
+        return sq * skv
+    offs = skv - sq
+    return sum(min(skv, max(0, i + offs + 1)) for i in range(sq))
+
+
+def lm_timings(ops, peaks):
+    """Rows for the three new kernels at the planned sites' shapes:
+    ``mm_dual_shared`` (int8) and ``mm_dual_full`` (bf16) at the sweep's
+    FFN, ``flash_attention`` at attn_train4k, ``flash_decode`` at
+    attn_decode32k.  Bound by bytes or by the tensor-core peak of the
+    operand type; the FP32 figure beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention.decode import (flash_decode,
+                                                      flash_decode_plain)
+    from repro_torch.kernels.attention.flash import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.matmul.dual import (mm_dual_full,
+                                                 mm_dual_full_plain,
+                                                 mm_dual_shared,
+                                                 mm_dual_shared_plain)
+    from repro_torch.kernels.matmul.mxu import mm_mxu
+    rows = {}
+
+    def row(kern, plain_ms, library_ms, n_bytes, n_ops, rate, shape,
+            library):
+        b_ms, by = bound_ms(peaks, n_bytes, n_ops, rate)
+        return dict(ms=time_ms(kern), plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=b_ms, bound_by=by,
+                    fp32_bound_ms=bound_ms(peaks, n_bytes, n_ops)[0],
+                    shape=shape, library=library)
+
+    a1, a2, b = ops["ffn_i8"]
+    m, k = a1.shape
+    n = b.shape[1]
+    y1, y2 = mm_dual_shared(a1, a2, b)
+    two_mxu = ("two mm_mxu launches",
+               time_ms(lambda: (mm_mxu(a1, b), mm_mxu(a2, b))))
+    rows["mm_dual_shared"] = row(
+        lambda: mm_dual_shared(a1, a2, b),
+        time_ms(lambda: mm_dual_shared_plain(a1, a2, b)),
+        time_ms(lambda: (torch._int_mm(a1, b), torch._int_mm(a2, b))),
+        nbytes(a1, a2, b, y1, y2), 4 * m * k * n, "int8_tensor_ops",
+        f"2 x ({m}, {k}) x ({k}, {n}) int8", "two torch._int_mm")
+    rows["mm_dual_shared"]["yardstick"] = two_mxu
+    a1, a2, b = ops["ffn_bf16"]
+    y1, y2 = mm_dual_full(a1, a2, b)
+    two_mxu = ("two mm_mxu launches",
+               time_ms(lambda: (mm_mxu(a1, b), mm_mxu(a2, b))))
+    rows["mm_dual_full"] = row(
+        lambda: mm_dual_full(a1, a2, b),
+        time_ms(lambda: mm_dual_full_plain(a1, a2, b)),
+        time_ms(lambda: (torch.matmul(a1, b), torch.matmul(a2, b))),
+        nbytes(a1, a2, b, y1, y2), 4 * m * k * n, "bf16_tensor_flops",
+        f"2 x ({m}, {k}) x ({k}, {n}) bf16", "two bf16 torch.matmul")
+    rows["mm_dual_full"]["yardstick"] = two_mxu
+
+    def plain_chunks(plain, q, k, v, per_head, **kw):
+        for _, qc, kc, vc in attention_chunks(q, k, v, per_head):
+            plain(qc, kc, vc, **kw)
+
+    def sdpa(q, k, v, causal):
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+
+    for name, kern, plain, key, causal in (
+            ("flash_attention", flash_attention, flash_attention_plain,
+             "train", True),
+            ("flash_decode", flash_decode, flash_decode_plain, "decode",
+             False)):
+        q, k, v = ops[key]
+        y = kern(q, k, v)
+        bsz, hq, sq, d = q.shape
+        skv = k.shape[2]
+        kw = dict(causal=True) if name == "flash_attention" else {}
+        per_head = name == "flash_attention"
+        n_ops = 4 * d * bsz * hq * visible_pairs(sq, skv, causal)
+        rows[name] = row(
+            lambda: kern(q, k, v),
+            time_sync_ms(lambda: plain_chunks(plain, q, k, v, per_head,
+                                              **kw)),
+            time_ms(sdpa(q, k, v, causal and sq == skv)),
+            nbytes(q, k, v, y), n_ops, "bf16_tensor_flops",
+            f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16"
+            + (" causal" if causal else ""),
+            "F.scaled_dot_product_attention(enable_gqa=True)")
+    return rows
+
+
 def sass_check(lib_path):
     """``cuobjdump -sass`` of the built library: the LOGIC_ONLY kernels
     contain no MMA instruction.  Returns the MMA count of every kernel."""
@@ -853,6 +1387,20 @@ def sass_check(lib_path):
 # ---------------------------------------------------------------------------
 # Phase 5: times
 # ---------------------------------------------------------------------------
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound_ms(peaks, n_bytes, ops, rate="fp32_flops"):
+    """The least time (ms) the card could take: the larger of ``n_bytes``
+    over the memory rate and ``ops`` over the peak ``rate``; and which of
+    the two it is."""
+    t_bytes = n_bytes / peaks["bytes_per_s"] * 1e3
+    t_ops = ops / peaks[rate] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_ms(fn, reps=REPS, warmup=3):
     """Median device time (ms) of one call of ``fn`` over ``reps`` calls.
 
@@ -903,14 +1451,8 @@ def timings(shapes, gen, peaks):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
-    def bound(nbytes, flops, rate="fp32_flops"):
-        t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
-        t_ops = flops / peaks[rate] * 1e3
-        return (max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
-
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
+    def bound(n_bytes, flops, rate="fp32_flops"):
+        return bound_ms(peaks, n_bytes, flops, rate)
 
     rows = {}
     (x0s, w0s), (x1s, w1s) = shapes["block0"], shapes["block1"]
@@ -1161,6 +1703,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import numpy as np
     from repro_torch.kernels import cuda
     # full IEEE f32 in the plain versions' and the yardsticks' cuBLAS and
     # cuDNN calls, as the port computes
@@ -1197,20 +1740,38 @@ def main() -> int:
     launches.update(budget_pool_check(gen, errs))
     launches.update(dual_conv_checks(shapes, gen, errs))
     launches.update(matmul_checks(gen, errs))
+    lm_table, lm_sites = plan_lm_sweep()
+    for name, cells in lm_table.items():
+        log(f"lm sites plan {name:<14s} {'  '.join(cells)}")
+    check(lm_table == LM_TABLE, f"lm sites plan {lm_table} differs from "
+                                f"the reference's {LM_TABLE}")
+    log("lm sites: the plan equals the reference's table")
+    lm_rng = np.random.default_rng(SEED)
+    lm_launches, lm_ops = lm_site_checks(lm_sites, lm_rng, errs)
+    lm_launches.update(lm_kernel_checks(lm_ops, lm_rng, errs))
+    for name in ("mm_dual_shared", "mm_dual_full", "flash_attention",
+                 "flash_decode"):
+        launches[name] = lm_launches[name]
     sass_check(lib)
 
     # 5. times
     rows = timings(shapes, gen, peaks)
+    rows.update(lm_timings(lm_ops, peaks))
+    del lm_ops
     srv, rounds, walls = served_rate(requests)
     n = rounds * len(requests)
     rates = sorted(n / w for w in walls)
     for name, r in rows.items():
         lib_t = ("-" if r["library_ms"] is None
                  else f"{r['library_ms'] * 1e3:.1f} us")
+        if "library" in r:
+            lib_t += f" ({r['library']})"
         extra = ""
         if "yardstick" in r:
             extra = (f", yardstick {r['yardstick'][0]} "
                      f"{r['yardstick'][1] * 1e3:.1f} us")
+        if "fp32_bound_ms" in r:
+            extra += f", FP32-rate bound {r['fp32_bound_ms'] * 1e3:.1f} us"
         log(f"{name} [{r['shape']}]: {r['ms'] * 1e3:.1f} us, plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}{extra}, bound "
             f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) on {card}")

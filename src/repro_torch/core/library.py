@@ -2,12 +2,11 @@
 
 Registered: the CNN families — conv2d (the paper's literal object, all
 four members), pool2d and activation (the paper's stated future work)
-and cnn_fused (conv -> pool -> activation as one launch) — and matmul,
-their generalization to the LM hot path (the dual-stream members carry
-their footprints; their kernel is ROADMAP queue 2, item 13).  attention
-and ssm_scan wait for ROADMAP queue 1, item 11.  Every member carries
-the Table I capability bits and a footprint function pricing it against
-the resource vector.
+and cnn_fused (conv -> pool -> activation as one launch) — and their
+generalizations to the LM hot path, matmul (single- and dual-stream)
+and attention.  ssm_scan waits for ROADMAP queue 1, item 11.  Every
+member carries the Table I capability bits and a footprint function
+pricing it against the resource vector.
 """
 from __future__ import annotations
 
@@ -18,6 +17,9 @@ from repro_torch.core.ip import (IPFamily, KernelIP, SiteRequest, SiteSpec,
 from repro_torch.kernels.activation import lut_poly as act_lut_mod
 from repro_torch.kernels.activation import vpu_exact as act_exact_mod
 from repro_torch.kernels.activation.ref import activation_ref
+from repro_torch.kernels.attention import decode as attn_decode_mod
+from repro_torch.kernels.attention import flash as attn_flash_mod
+from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.conv2d import ip1_vpu, ip2_mxu, ip3_packed, ip4_dual
 from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.kernels.fused import cnn_block as fused_mod
@@ -148,8 +150,33 @@ MATMUL.register(KernelIP(
     uses_mxu=True, outputs_per_pass=2, tags=("analogue:Conv4", "dual-stream"),
     description="Two full-precision streams sharing one weight fetch."))
 
+# --------------------------------------------------------------------------
+# attention family.
+# --------------------------------------------------------------------------
+# No integer kernels exist for attention — the precision ladder must
+# never lower its sites (quantizable=False; see IPFamily docstring).
+ATTENTION = IPFamily("attention", reference=attention_ref, quantizable=False)
+ATTENTION.register(KernelIP(
+    name="attention.attn_naive", family="attention", impl=attention_ref,
+    footprint_fn=lambda b, hq, hkv, sq, skv, d, **kw: attn_flash_mod.footprint(
+        b, hq, hkv, sq, skv, d, bq=sq, bk=skv, **kw),
+    uses_mxu=True, tags=("reference",),
+    description="Materialized-scores attention; VMEM O(S^2) — small S only."))
+ATTENTION.register(KernelIP(
+    name="attention.attn_flash", family="attention",
+    impl=attn_flash_mod.flash_attention,
+    footprint_fn=attn_flash_mod.footprint, uses_mxu=True,
+    tags=("train", "prefill"),
+    description="Tiled online-softmax; VMEM O(block), HBM O(S*D)."))
+ATTENTION.register(KernelIP(
+    name="attention.attn_decode", family="attention",
+    impl=attn_decode_mod.flash_decode,
+    footprint_fn=attn_decode_mod.footprint, uses_mxu=True,
+    tags=("decode",),
+    description="Single-token flash-decode over KV blocks; HBM-bound."))
+
 FAMILIES = {f.name: f for f in (CONV2D, POOL2D, ACTIVATION, CNN_FUSED,
-                                MATMUL)}
+                                MATMUL, ATTENTION)}
 
 
 # --------------------------------------------------------------------------
@@ -220,6 +247,23 @@ def _matmul_adapter(spec: SiteSpec) -> SiteRequest:
         op_bits=_bits(spec.dtype))
 
 
+def _attention_adapter(spec: SiteSpec) -> SiteRequest:
+    q_shape, kv_shape = spec.shapes
+    b, hq, sq, d = q_shape
+    _, hkv, skv, _ = kv_shape
+    if sq == 1:
+        cands = (ATTENTION["attention.attn_decode"],)
+        args = (b, hq, hkv, skv, d)
+    else:
+        cands = (ATTENTION["attention.attn_naive"],
+                 ATTENTION["attention.attn_flash"])
+        args = (b, hq, hkv, sq, skv, d)
+    return SiteRequest(
+        candidates=cands, fp_args=args,
+        fp_kwargs=(("itemsize", dtype_itemsize(spec.dtype)),),
+        op_bits=_bits(spec.dtype))
+
+
 def _cnn_fused_adapter(spec: SiteSpec) -> SiteRequest:
     x_shape, w_shape = spec.shapes
     n, h, w_, cin = x_shape
@@ -273,13 +317,14 @@ ACTIVATION.site_adapter = _activation_adapter
 CNN_FUSED.site_adapter = _cnn_fused_adapter
 CNN_FUSED.fuse_sites = _cnn_fuse_sites
 MATMUL.site_adapter = _matmul_adapter
+ATTENTION.site_adapter = _attention_adapter
 
 
 def get_family(name: str) -> IPFamily:
     if name not in FAMILIES:
         raise NotImplementedError(
             f"family {name!r} is not ported yet (have {sorted(FAMILIES)}; "
-            f"attention/ssm_scan are ROADMAP queue 1, item 11)")
+            f"ssm_scan is ROADMAP queue 1, item 11)")
     return FAMILIES[name]
 
 

@@ -7,9 +7,6 @@ per-family site adapters of ``core/library.py``.  The five per-family
 entry points below build a ``SiteSpec`` and defer; anything mapping
 more than one op should build a ``NetworkPlan``
 (``core/plan.py::plan_network``) so the ops share a partitioned budget.
-``select_attention_ip`` raises the attention family's
-``NotImplementedError`` until that family is ported (ROADMAP queue 1,
-item 11).
 """
 from __future__ import annotations
 

@@ -1,0 +1,126 @@
+"""Flash attention (tiled online softmax) — the attention IP's member for
+training and prefill.
+
+Replaces ``repro/kernels/attention/flash.py::flash_attention``.  The
+reference walks a grid (B*Hq, Sq/bq, Skv/bk) with kv innermost, keeps
+the running max ``m``, normalizer ``l`` and f32 accumulator in VMEM
+scratch, maps q head h to kv head h // group, masks padded keys and
+(bottom-right aligned) causal positions with -1e30, skips kv blocks
+above the diagonal and clamps ``l`` at 1e-30.
+
+The kernel (``flash_attention_kernel<T, D>`` in
+``csrc/attn_kernels.cu``) computes the same function: one CTA per
+(b*Hq + h, block of 64 query rows), K/V tiles of 32 keys staged in
+shared memory as f32, each query row's q, m, l and D accumulators in
+registers (split over D/32 threads for D >= 64), FP32 FMA on CUDA cores,
+``expf``, bounds checks instead of padding.  ``bq``/``bk`` are the
+reference's VMEM block hints: validated, they do not shape the launch.
+
+Rows that see no key (causal with Sq > Skv) are 0 in the kernel and in
+``flash_attention_plain``; the reference's oracle gives NaN there and
+its Pallas kernel a value that depends on ``bq``/``bk`` (ROADMAP
+queue 3).  Every other row is independent of the blocking.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.resources import Footprint, cost_cycles
+from repro_torch.kernels import cuda
+from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.conv2d.inner import check_block
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The attention contract's shapes: q (B, Hq, Sq, D), k and v
+    (B, Hkv, Skv, D) with Hq a multiple of Hkv."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"attention takes q (B, Hq, Sq, D) and k, v "
+                         f"(B, Hkv, Skv, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch or head dim")
+    if k.shape[1] == 0 or q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"Hq % Hkv != 0: {q.shape[1]} query heads cannot "
+                         f"share {k.shape[1]} kv heads (GQA)")
+
+
+def require_kernel_operands(q, k, v, item: int) -> None:
+    """Dtype, head-dim, device and alignment checks before a launch;
+    ``item`` is the kernel's ROADMAP queue 2 item."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in KERNEL_DTYPES or t.dtype != q.dtype:
+            raise TypeError(
+                f"{name} dtype {t.dtype} has no CUDA attention kernel (q "
+                f"is {q.dtype}; have {list(KERNEL_DTYPES)}, one dtype for "
+                f"q, k and v; ROADMAP queue 2, item {item})")
+        cuda.require(t, name)
+        if t.device != q.device:
+            raise ValueError(f"q and {name} lie on {q.device} and "
+                             f"{t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} has no CUDA attention "
+                         f"kernel (have {HEAD_DIMS}; ROADMAP queue 2, item "
+                         f"{item})")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the family oracle, with
+    the rows that see no key set to 0 as the kernel sets them."""
+    check_qkv(q, k, v)
+    out = attention_ref(q, k, v, causal=causal)
+    dead = q.shape[2] - k.shape[2]
+    if causal and dead > 0:
+        out[:, :, :dead] = 0
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 512,
+                    bk: int = 512) -> torch.Tensor:
+    """Softmax(q k^T * D^-0.5, masked) v -> (B, Hq, Sq, D) in q's dtype.
+    CUDA tensors launch the kernel once; CPU tensors run
+    ``flash_attention_plain``."""
+    check_qkv(q, k, v)
+    check_block("bq", bq)
+    check_block("bk", bk)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal)
+    require_kernel_operands(q, k, v, 14)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    cuda.launch("flash_attention", "attn_flash", q.device,
+                cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
+                int(causal), d ** -0.5)
+    return out
+
+
+def footprint(b, hq, hkv, sq, skv, d, *, itemsize=2, bq=512, bk=512,
+              causal=True) -> Footprint:
+    bq_, bk_ = min(bq, sq), min(bk, skv)
+    vmem = (bq_ * d + 2 * bk_ * d) * itemsize + (bq_ * d + 2 * bq_) * 4
+    hbm = (b * hq * sq * d * 2 + 2 * b * hkv * skv * d) * itemsize
+    frac = 0.5 if causal and sq == skv else 1.0
+    flops = 4.0 * b * hq * sq * skv * d * frac
+    cyc = flops / 2 / (128 * 128)  # MXU MACs/cycle
+    passes = int(b * hq * _cdiv(sq, bq_) * _cdiv(skv, bk_) * frac) + 1
+    return Footprint(vmem_bytes=int(vmem), hbm_bytes=int(hbm),
+                     mxu_passes=passes,
+                     vpu_ops=int(b * hq * sq * skv * frac * 4),
+                     est_cycles=cost_cycles(cyc, hbm),
+                     outputs_per_pass=1, max_operand_bits=32)

@@ -1,5 +1,5 @@
-// The matmul kernels of the port: two __global__ kernels and their plain C
-// launcher, loaded with ctypes by src/repro_torch/kernels/cuda.py.
+// The matmul kernels of the port: three __global__ kernels and their plain
+// C launchers, loaded with ctypes by src/repro_torch/kernels/cuda.py.
 //
 // Built with the flags of cnn_kernels.cu (-fmad=false), which shares its
 // arithmetic helpers (cnn_device.cuh: widen, mac).  a (M, K) and b (K, N)
@@ -28,6 +28,18 @@
 //   reads 32 neighbouring columns of b (coalesced) and the 8 warps of a
 //   block share them through L1.  Bound as mm_mxu by the FP32 rate; it
 //   re-reads a and b from cache once per output.
+//
+// mm_dual_kernel<T>  replaces src/repro/kernels/matmul/dual.py::_mm_dual
+//   (mm_dual_shared on int8, mm_dual_full on int8/bf16/f32).  Two a
+//   streams against one b: 4*M*N*K operations on 2*M*K + K*N inputs and
+//   two (M, N) outputs; at the LM sweep's FFN (4096 x 2048 x 8192, int8)
+//   the int8 tensor-core peak bounds it.  mm_mxu's tile body with two a
+//   tiles and ONE b tile staged per k-step, both streams reading it: the
+//   weights cross device memory once for two outputs, as in the
+//   reference.  Two 8x8 register tiles would be 128 accumulators a
+//   thread, so each stream keeps 8x4 (a 128 x 64 CTA tile); each output
+//   is still mm_mxu's chain, so each stream equals an mm_mxu launch
+//   bitwise.  CUDA cores, as mm_mxu.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -50,28 +62,44 @@ constexpr int kReg = kTile / kSide;   // 8x8 outputs per thread
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<int8_t> { using type = int32_t; };
 
-template <typename T>
-__global__ void __launch_bounds__(kSide * kSide)
-mm_mxu_kernel(const T* __restrict__ a, const T* __restrict__ b,
-              typename Acc<T>::type* __restrict__ c, int M, int N, int K) {
+// The tile body of mm_mxu_kernel and mm_dual_kernel: NS streams a[s]
+// (M, K) against one b (K, N) into c[s].  The CTA owns kTile rows and
+// kSide * QN columns; per k-step it stages each stream's a tile
+// (transposed, widened) and ONE b tile in shared memory, and every
+// stream reads that b tile.  Thread (ty, tx) keeps a kReg x QN register
+// tile per stream: rows ty + 16r, columns tx + 16q.  Each output is one
+// multiply-add chain over k = 0 .. K-1 whatever NS and QN are.
+template <typename T, int NS, int QN>
+__device__ __forceinline__ void mm_tiles(
+    const T* const (&a)[NS], const T* __restrict__ b,
+    typename Acc<T>::type* const (&c)[NS], int M, int N, int K) {
   using A = typename Acc<T>::type;
-  __shared__ A as[kDepth][kTile + 1];   // as[k][m]: a tile, transposed
-  __shared__ A bs[kDepth][kTile];
+  constexpr int kCols = kSide * QN;
+  __shared__ A as[NS][kDepth][kTile + 1];   // as[s][k][m]: a tiles
+  __shared__ A bs[kDepth][kCols];
   const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  A acc[kReg][kReg];
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kCols;
+  A acc[NS][kReg][QN];
 #pragma unroll
-  for (int r = 0; r < kReg; ++r) {
+  for (int s = 0; s < NS; ++s) {
 #pragma unroll
-    for (int q = 0; q < kReg; ++q) acc[r][q] = A(0);
+    for (int r = 0; r < kReg; ++r) {
+#pragma unroll
+      for (int q = 0; q < QN; ++q) acc[s][r][q] = A(0);
+    }
   }
   for (int k0 = 0; k0 < K; k0 += kDepth) {
     for (int e = threadIdx.x; e < kTile * kDepth; e += kSide * kSide) {
       int mm = e / kDepth, kk = e % kDepth;        // a: along k first
       int gm = m0 + mm, gk = k0 + kk;
-      as[kk][mm] = (gm < M && gk < K) ? widen<A>(a[size_t(gm) * K + gk])
-                                      : A(0);
-      int kb = e / kTile, nn = e % kTile;          // b: along n first
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        as[s][kk][mm] = (gm < M && gk < K)
+                            ? widen<A>(a[s][size_t(gm) * K + gk]) : A(0);
+      }
+    }
+    for (int e = threadIdx.x; e < kCols * kDepth; e += kSide * kSide) {
+      int kb = e / kCols, nn = e % kCols;          // b: along n first
       int gkb = k0 + kb, gn = n0 + nn;
       bs[kb][nn] = (gkb < K && gn < N) ? widen<A>(b[size_t(gkb) * N + gn])
                                        : A(0);
@@ -81,29 +109,61 @@ mm_mxu_kernel(const T* __restrict__ a, const T* __restrict__ b,
     // zero sum, and results must not depend on the tiling
     const int depth = min(kDepth, K - k0);
     for (int kk = 0; kk < depth; ++kk) {
-      A av[kReg], bv[kReg];
+      A bv[QN];
 #pragma unroll
-      for (int r = 0; r < kReg; ++r) av[r] = as[kk][ty + kSide * r];
+      for (int q = 0; q < QN; ++q) bv[q] = bs[kk][tx + kSide * q];
 #pragma unroll
-      for (int q = 0; q < kReg; ++q) bv[q] = bs[kk][tx + kSide * q];
+      for (int s = 0; s < NS; ++s) {
+        A av[kReg];
 #pragma unroll
-      for (int r = 0; r < kReg; ++r) {
+        for (int r = 0; r < kReg; ++r) av[r] = as[s][kk][ty + kSide * r];
 #pragma unroll
-        for (int q = 0; q < kReg; ++q) acc[r][q] = mac(acc[r][q], av[r], bv[q]);
+        for (int r = 0; r < kReg; ++r) {
+#pragma unroll
+          for (int q = 0; q < QN; ++q) {
+            acc[s][r][q] = mac(acc[s][r][q], av[r], bv[q]);
+          }
+        }
       }
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int r = 0; r < kReg; ++r) {
-    int gm = m0 + ty + kSide * r;
-    if (gm >= M) continue;
+  for (int s = 0; s < NS; ++s) {
 #pragma unroll
-    for (int q = 0; q < kReg; ++q) {
-      int gn = n0 + tx + kSide * q;
-      if (gn < N) c[size_t(gm) * N + gn] = acc[r][q];
+    for (int r = 0; r < kReg; ++r) {
+      int gm = m0 + ty + kSide * r;
+      if (gm >= M) continue;
+#pragma unroll
+      for (int q = 0; q < QN; ++q) {
+        int gn = n0 + tx + kSide * q;
+        if (gn < N) c[s][size_t(gm) * N + gn] = acc[s][r][q];
+      }
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSide * kSide)
+mm_mxu_kernel(const T* __restrict__ a, const T* __restrict__ b,
+              typename Acc<T>::type* __restrict__ c, int M, int N, int K) {
+  const T* const src[1] = {a};
+  typename Acc<T>::type* const dst[1] = {c};
+  mm_tiles<T, 1, kReg>(src, b, dst, M, N, K);
+}
+
+// Two streams of kReg x kDualCols outputs each per thread (64
+// accumulators, as mm_mxu's one 8x8 tile): a 128 x 64 CTA tile.
+constexpr int kDualCols = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kSide * kSide)
+mm_dual_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
+               const T* __restrict__ b, typename Acc<T>::type* __restrict__ c1,
+               typename Acc<T>::type* __restrict__ c2, int M, int N, int K) {
+  const T* const src[2] = {a1, a2};
+  typename Acc<T>::type* const dst[2] = {c1, c2};
+  mm_tiles<T, 2, kDualCols>(src, b, dst, M, N, K);
 }
 
 constexpr int kVpuCols = 32;     // mm_vpu block: 8 rows x 32 columns
@@ -144,6 +204,17 @@ int launch(int style, const void* a, const void* b, void* c, int M, int N,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+int launch_dual(const void* a1, const void* a2, const void* b, void* c1,
+                void* c2, int M, int N, int K, cudaStream_t st) {
+  using A = typename Acc<T>::type;
+  dim3 grid((N + kSide * kDualCols - 1) / (kSide * kDualCols),
+            (M + kTile - 1) / kTile);
+  mm_dual_kernel<T><<<grid, kSide * kSide, 0, st>>>(
+      (const T*)a1, (const T*)a2, (const T*)b, (A*)c1, (A*)c2, M, N, K);
+  return int(cudaGetLastError());
+}
+
 }  // namespace mm
 
 extern "C" {
@@ -156,6 +227,21 @@ int cnn_matmul(int style, int dtype, const void* a, const void* b, void* c,
     return mm::launch<__nv_bfloat16>(style, a, b, c, M, N, K, st);
   }
   if (dtype == mm::kI8) return mm::launch<int8_t>(style, a, b, c, M, N, K, st);
+  return int(cudaErrorInvalidValue);
+}
+
+int cnn_matmul_dual(int dtype, const void* a1, const void* a2, const void* b,
+                    void* c1, void* c2, int M, int N, int K, void* stream) {
+  cudaStream_t st = cudaStream_t(stream);
+  if (dtype == mm::kF32) {
+    return mm::launch_dual<float>(a1, a2, b, c1, c2, M, N, K, st);
+  }
+  if (dtype == mm::kBF16) {
+    return mm::launch_dual<__nv_bfloat16>(a1, a2, b, c1, c2, M, N, K, st);
+  }
+  if (dtype == mm::kI8) {
+    return mm::launch_dual<int8_t>(a1, a2, b, c1, c2, M, N, K, st);
+  }
   return int(cudaErrorInvalidValue);
 }
 

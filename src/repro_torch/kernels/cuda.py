@@ -29,14 +29,14 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("cnn_kernels.cu", "mm_kernels.cu")
+SOURCES = ("cnn_kernels.cu", "mm_kernels.cu", "attn_kernels.cu")
 HEADERS = ("cnn_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
 # dtype codes of the kernels (enum DType of cnn_kernels.cu; mm_kernels.cu
-# uses the same codes)
+# and attn_kernels.cu use the same codes)
 DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2,
               torch.int16: 3, torch.bfloat16: 4}
 
@@ -55,10 +55,17 @@ _SIGNATURES = {
     "cnn_conv2d_dual": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
     "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _P),
+    "cnn_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "attn_flash": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "attn_decode": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 
 # Launches per kernel since the last reset_launches(): each wrapper adds
-# one where it launches its kernel, and nowhere else.
+# one where it launches its kernel, and nowhere else.  Counter names are
+# the wrappers' names: fused_cnn_vpu, fused_cnn_mxu, conv2d_ip1..4,
+# pool2d_window, pool2d_im2col, activation_exact, activation_lut,
+# mm_mxu, mm_vpu, mm_dual_shared, mm_dual_full, flash_attention and
+# flash_decode.
 LAUNCHES: Dict[str, int] = {}
 
 _LIB = None

@@ -49,9 +49,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, ip: Optional[str] = None,
 def matmul_dual(a1: torch.Tensor, a2: torch.Tensor, b: torch.Tensor, *,
                 ip: Optional[str] = None,
                 budget: Optional[ResourceBudget] = None, **tile_kwargs):
-    """Two streams sharing ``b`` (``mm_dual_shared`` / ``mm_dual_full``):
-    planned as the reference plans them; both members raise until their
-    kernel is ported (ROADMAP queue 2, item 13)."""
+    """(a1 @ b, a2 @ b) through a selected dual-stream IP
+    (``mm_dual_shared``: int8 only; ``mm_dual_full``): both streams in
+    one launch sharing each weight tile.  Outputs keep the accumulator
+    dtype (int32 for int8 operands, f32 otherwise)."""
     if ip is None:
         from repro_torch.core.ip import SiteSpec
         from repro_torch.core.plan import plan_single

@@ -49,8 +49,12 @@ class QuantizedTensor(NamedTuple):
 
 
 def _codes(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """round(x / scale) in f32, as the reference's promotion computes it:
+    a 0-dim f32 scale would leave a bf16 ``x`` in bf16 under PyTorch's
+    promotion and round the quotient there."""
     m = qmax(bits)
-    return torch.clamp(torch.round(x / scale), -m, m).to(code_dtype(bits))
+    q = torch.round(x.to(torch.float32) / scale)
+    return torch.clamp(q, -m, m).to(code_dtype(bits))
 
 
 def quantize_weights(w: torch.Tensor, *, axis: int = -1,

@@ -371,5 +371,18 @@ def test_describe_plan_matches_reference():
 
 
 def test_select_attention_ip_raises_the_family_error():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_sel.select_attention_ip((1, 4, 8, 16), (1, 4, 8, 16))
+    """The attention family is ported: its shim selects as the
+    reference's does, and raises the family's own "no feasible IP" error
+    where the reference does."""
+    shapes = ((1, 4, 8, 16), (1, 4, 8, 16))
+    want, want_fp = j_sel.select_attention_ip(*shapes, with_footprint=True)
+    got, got_fp = t_sel.select_attention_ip(*shapes, with_footprint=True)
+    assert got.name == want.name
+    assert dataclasses.asdict(got_fp) == dataclasses.asdict(want_fp)
+    with pytest.raises(ValueError, match="no feasible IP") as e:
+        t_sel.select_attention_ip(*shapes,
+                                  budget=TBudget(mxu_available=False))
+    with pytest.raises(ValueError) as j_e:
+        j_sel.select_attention_ip(*shapes,
+                                  budget=JBudget(mxu_available=False))
+    assert str(e.value) == str(j_e.value)

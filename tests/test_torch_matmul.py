@@ -22,6 +22,7 @@ import torch
 from repro.core import plan as j_plan
 from repro.core.ip import SiteSpec as JSpec
 from repro.core.resources import ResourceBudget as JBudget
+from repro.kernels.matmul import dual as j_dual
 from repro.kernels.matmul import mxu as j_mxu
 from repro.kernels.matmul.ops import matmul as j_matmul
 from repro.kernels.matmul.ops import matmul_dual as j_matmul_dual
@@ -32,6 +33,7 @@ from repro_torch.core import library as t_library
 from repro_torch.core import plan as t_plan
 from repro_torch.core.ip import SiteSpec as TSpec
 from repro_torch.core.resources import ResourceBudget as TBudget
+from repro_torch.kernels.matmul import dual as t_dual
 from repro_torch.kernels.matmul import mxu as t_mxu
 from repro_torch.kernels.matmul.ops import matmul as t_matmul
 from repro_torch.kernels.matmul.ops import matmul_dual as t_matmul_dual
@@ -150,23 +152,78 @@ def test_matmul_named_errors(rng):
 
 
 # --------------------------------------------------------------------------
-# the dual-stream members: planned, footprints equal, kernels still raise
+# the dual-stream members against the reference's kernel (interpret mode)
 # --------------------------------------------------------------------------
 def test_mm_dual_members_raise_named_errors(rng):
+    """The int8-only contract of ``mm_dual_shared`` (a ``TypeError`` before
+    any launch, in both packages), a wrong member name, mismatched
+    streams; both members run."""
     (ja, ta), (jb, tb) = _normal(rng, (8, 8)), _normal(rng, (8, 8))
     with pytest.raises(TypeError, match="8-bit"):
         t_matmul_dual(ta, ta, tb, ip="mm_dual_shared")
     with pytest.raises(TypeError, match="8-bit"):
         j_matmul_dual(ja, ja, jb, ip="mm_dual_shared")
-    (_, ia), (_, ib) = _int8(rng, (8, 8)), _int8(rng, (8, 8))
-    with pytest.raises(NotImplementedError, match="queue 2, item 13"):
-        t_matmul_dual(ia, ia, ib, ip="mm_dual_shared")
-    with pytest.raises(NotImplementedError, match="queue 2, item 13"):
-        t_matmul_dual(ta, ta, tb, ip="mm_dual_full")
-    with pytest.raises(NotImplementedError, match="queue 2, item 13"):
-        t_matmul_dual(ia, ia, ib)                   # planned, then raises
+    (ji, ia), (jw, ib) = _int8(rng, (8, 8)), _int8(rng, (8, 8))
+    for bad in ((ia, ia, tb), (ia, ta, ib), (ta, ia, ib)):
+        with pytest.raises(TypeError, match="8-bit"):
+            t_dual.mm_dual_shared(*bad)
+        with pytest.raises(TypeError, match="8-bit"):
+            t_dual.mm_dual_shared_plain(*bad)
+    with pytest.raises(ValueError, match="differ in shape"):
+        t_dual.mm_dual_full(ta, ta[:4], tb)
+    with pytest.raises(ValueError, match="bk must be >= 1"):
+        t_dual.mm_dual_shared(ia, ia, ib, bk=0)
+    for ip in ("mm_dual_shared", "mm_dual_full"):
+        for got, want in zip(t_matmul_dual(ia, ia, ib, ip=ip),
+                             j_matmul_dual(ji, ji, jw, ip=ip)):
+            _exact(got, want)
+    y1, y2 = t_matmul_dual(ia, ia, ib)              # planned, then run
+    _exact(y1, j_ref(ji, jw))
     with pytest.raises(KeyError, match="not a dual-stream matmul IP"):
         t_matmul_dual(ta, ta, tb, ip="mm_mxu")
+
+
+@pytest.mark.parametrize("tiles", TILES, ids=TILE_IDS)
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_mm_dual_shared_int8_bit_exact(rng, shape, tiles):
+    m, k, n = shape
+    (ja1, ta1), (ja2, ta2) = _int8(rng, (m, k)), _int8(rng, (m, k))
+    (jb, tb) = _int8(rng, (k, n))
+    want = j_dual.mm_dual_shared(ja1, ja2, jb, **tiles)
+    got = t_dual.mm_dual_shared(ta1, ta2, tb, **tiles)
+    for g, w in zip(got, want):
+        _exact(g, w)
+    for g, w in zip(t_dual.mm_dual_shared_plain(ta1, ta2, tb), want):
+        _exact(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", SHAPES[:4], ids=SHAPE_IDS[:4])
+def test_mm_dual_full_matches(rng, shape, dtype):
+    """Accumulator dtype out (int32 / f32, never cast back to bf16), the
+    reference's values: int8 bit-exact, floats within FLOAT."""
+    m, k, n = shape
+    if dtype == "int8":
+        (ja1, ta1), (ja2, ta2) = _int8(rng, (m, k)), _int8(rng, (m, k))
+        (jb, tb) = _int8(rng, (k, n))
+    else:
+        arrs = [rng.normal(size=s).astype(np.float32)
+                for s in ((m, k), (m, k), (k, n))]
+        (ja1, ja2, jb) = (jnp.asarray(x).astype(dtype) for x in arrs)
+        (ta1, ta2, tb) = (torch.from_numpy(x).to(getattr(torch, dtype))
+                          for x in arrs)
+    want = j_dual.mm_dual_full(ja1, ja2, jb, bm=32, bn=32, bk=32)
+    got = t_dual.mm_dual_full(ta1, ta2, tb, bm=32, bn=32, bk=32)
+    for g, w in zip(got, want):
+        if dtype == "int8":
+            _exact(g, w)
+        else:
+            assert g.dtype == torch.float32 and str(w.dtype) == "float32"
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **FLOAT)
+    for g, w in zip(got, t_dual.mm_dual_full_plain(ta1, ta2, tb)):
+        assert torch.equal(g, w)
+    for g, x in zip(got, (ta1, ta2)):          # each stream is mm_mxu's
+        assert torch.equal(g, t_mxu.mm_mxu(x, tb))
 
 
 @pytest.mark.parametrize("shape", [(512, 2048, 8192), (64, 96, 48), (1, 1, 1),
@@ -194,9 +251,13 @@ def test_library_registers_matmul_as_the_reference_does():
                       "description"):
             assert getattr(t_ip, field) == getattr(j_ip, field), field
     assert t_library.get_ip("matmul.mm_mxu").impl is t_mxu.mm_mxu
-    for family in ("attention", "ssm_scan"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            t_library.get_family(family)
+    assert t_library.get_ip("matmul.mm_dual_shared").impl is \
+        t_dual.mm_dual_shared
+    assert t_library.get_ip("matmul.mm_dual_full").impl is \
+        t_dual.mm_dual_full
+    assert t_library.get_family("attention").name == "attention"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        t_library.get_family("ssm_scan")
 
 
 # --------------------------------------------------------------------------

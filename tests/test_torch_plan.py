@@ -223,9 +223,9 @@ def test_unported_planner_paths_raise_named_errors(frontends):
         t_plan.plan_network(specs, mesh=MeshSpec(devices=2))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
         t_plan.plan_network(specs, calibration=object())
-    attn = TSiteSpec.make("a", "attention", ((1, 4, 8, 16), (1, 4, 8, 16)))
+    ssm = TSiteSpec.make("s", "ssm_scan", ((1, 8, 16), (1, 8, 4)))
     with pytest.raises(NotImplementedError, match="item 11"):
-        t_plan.plan_network([attn])
+        t_plan.plan_network([ssm])
     with pytest.raises(ValueError, match="duplicate site names"):
         t_plan.plan_network([specs[0], specs[0]])
     with pytest.raises(ValueError, match="no feasible IP"):

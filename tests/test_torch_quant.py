@@ -91,6 +91,28 @@ def test_quantize_acts_batch_scale_bit_exact(rng, bits):
     _exact(t_q.dequantize(got), j_q.dequantize(want))
 
 
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("axis", [None, -1])
+def test_bf16_operands_quantize_bit_exact(rng, bits, axis):
+    """bf16 operands (the budget sweep's lowered FFN site quantizes bf16
+    activations): codes divide in f32 as the reference's promotion does.
+    Under PyTorch's promotion a 0-dim f32 scale left the quotient in bf16
+    and moved about 7% of the per-tensor codes."""
+    x = _randn(rng, (64, 32), 2.0)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    if axis is None:
+        want, got = j_q.quantize_acts(jx, bits=bits), \
+            t_q.quantize_acts(tx, bits=bits)
+    else:
+        want, got = j_q.quantize_weights(jx, axis=axis, bits=bits), \
+            t_q.quantize_weights(tx, axis=axis, bits=bits)
+    _exact(got.q, want.q)
+    _exact(got.scale, want.scale)
+    _exact(t_q.fake_quant(tx, bits=bits, axis=axis),
+           j_q.fake_quant(jx, bits=bits, axis=axis))
+
+
 @pytest.mark.parametrize("scale", [0.01, 0.0173])
 def test_quantize_acts_calibrated_scale_saturates(rng, scale):
     """A calibrated scale narrower than the batch saturates at +-qmax."""
