@@ -73,7 +73,25 @@ and prints no result):
    the 8-request trace, >= 512 requests and about 1 s each), and one
    more such window under ``torch.profiler``: device time by kernel and
    the device's busy share; then each ladder deployment's served rate
-   over 3 windows of rounds of its trace (>= 1 s each).
+   over 3 windows of rounds of its trace (>= 1 s each);
+6. lm serve — ``jamba_period`` (Jamba-1.5-Large at full width, one
+   period of its stack: 8 layers, MoE off; bf16) serves ``LM_TRACE``
+   through ``repro_torch.launch.serve.serve_requests``: every request
+   completes with its tokens, the trace launches ``selective_scan``
+   exactly 7 times a prefill and nothing else (counters reset just
+   before, read just after), a second serve gives the same tokens;
+   ``selective_scan`` against its plain version on the first Mamba
+   layer's own operands (atol 1e-4 of each output's RMS), on the
+   reference test's data at full width and at small cases
+   (``SCAN_TOL``), independent of ``block_di``, refusing a d_state it
+   has no kernel for before any launch, and once through the library
+   entry; a full-width f32 Mamba layer's prefill against 64 decode
+   steps (``SEQ_TOL``); the f32 one-period model's first decode step
+   against a prefill over prompt + token (``HANDOFF_REL_L2``, same
+   argmax); the scan's time, plain time and bound (bytes, FP32
+   operations and exponentials at the MUFU rate), tokens/s over the
+   trace, prefill and decode-tick times, and a ``torch.profiler`` pass
+   over one prefill and one decode tick.
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -97,6 +115,7 @@ SRC = ROOT / "src"
 CSRC = "src/repro_torch/kernels/csrc/cnn_kernels.cu"
 CSRC_MM = "src/repro_torch/kernels/csrc/mm_kernels.cu"
 CSRC_ATTN = "src/repro_torch/kernels/csrc/attn_kernels.cu"
+CSRC_SCAN = "src/repro_torch/kernels/csrc/scan_kernels.cu"
 SEED = 0
 N_REQUESTS = 8
 MAX_BATCH = 4
@@ -119,14 +138,20 @@ RATE_WINDOWS = 3
 # 1.98e9 = 33.5e12.  The rates assume the card's full power limit.
 # bf16 dense tensor-core FLOP/s are the data sheet's too (989.4e12 SXM,
 # 756e12 PCIe): the bound of bf16 attention and bf16 matmuls, whatever
-# units the kernels run on.
+# units the kernels run on.  The exponential rate is the multi-function
+# units': 16 results per clock per SM for compute capability 9.0 (the
+# CUDA C++ Programming Guide's arithmetic-instruction throughput table),
+# at the same clocks: 16 x 132 x 1.98e9 = 4.18e12/s (SXM), 16 x 114 x
+# 1.75e9 = 3.19e12/s (PCIe).
 PEAKS = {
     "H100 SXM": {"bytes_per_s": 3.35e12, "fp32_flops": 67e12,
                  "bf16_tensor_flops": 989.4e12,
-                 "int8_tensor_ops": 1979e12, "int32_ops": 33.5e12},
+                 "int8_tensor_ops": 1979e12, "int32_ops": 33.5e12,
+                 "mufu_per_s": 16 * 132 * 1.98e9},
     "H100 PCIe": {"bytes_per_s": 2.0e12, "fp32_flops": 51e12,
                   "bf16_tensor_flops": 756e12,
-                  "int8_tensor_ops": 1513e12, "int32_ops": 25.5e12},
+                  "int8_tensor_ops": 1513e12, "int32_ops": 25.5e12,
+                  "mufu_per_s": 16 * 114 * 1.75e9},
 }
 
 # file:line of the TPU kernel each CUDA kernel replaces (the function
@@ -148,12 +173,16 @@ REPLACES = {
     "mm_dual_full": "src/repro/kernels/matmul/dual.py:44",
     "flash_attention": "src/repro/kernels/attention/flash.py:77",
     "flash_decode": "src/repro/kernels/attention/decode.py:58",
+    "selective_scan": "src/repro/kernels/mamba_scan/scan.py:54",
 }
 SOURCE = {name: (CSRC_MM if name.startswith("mm_") else
-                 CSRC_ATTN if name.startswith("flash_") else CSRC)
+                 CSRC_ATTN if name.startswith("flash_") else
+                 CSRC_SCAN if name == "selective_scan" else CSRC)
           for name in REPLACES}
-# Kernels of logic-only members (mxu_available=False): no MMA in SASS.
-LOGIC_ONLY = ("conv2d_ip3_kernel", "mm_vpu_kernel")
+# Kernels of logic-only members (mxu_available=False, or uses_mxu=False
+# as ssm_scan.selective_vmem): no MMA in SASS.
+LOGIC_ONLY = ("conv2d_ip3_kernel", "mm_vpu_kernel",
+              "selective_scan_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 
 # The dual-stream conv calls at each frontend block shape: operand dtype,
@@ -273,6 +302,35 @@ MAX_QUANT_ERR = 5e-2
 # light completion, so the share allows a few such codes: 0.5% of the
 # elements (one flipped code alone would exceed 0.1%).
 FLIP_SHARE = 5e-3
+
+# "lm serve": Jamba-1.5-Large (src/repro/configs/jamba_1_5_large_398b.py,
+# the repo's only architecture with Mamba layers) at full width, cut to
+# one period of its stack (jamba_period) and served through
+# repro_torch.launch.serve's loop: slots, requests, prompt length, tokens
+# per request and cache length of the trace.
+JAMBA = "jamba-1.5-large-398b"
+LM_TRACE = dict(slots=4, requests=8, prompt_len=2048, max_new=16,
+                max_len=2112)
+# the selective scan at the served site: (B, T, Di, Ds), one prefill's
+# Mamba layer
+SCAN_SITE = (1, 2048, 16384, 16)
+# kernel against plain version on the reference test's data
+# (tests/test_kernels_mamba_scan.py:16-34): its bound; at the model's
+# own operands atol is 1e-4 of each output's RMS (compare_scan)
+SCAN_TOL = dict(rtol=1e-5, atol=1e-6)
+SCAN_FULL_CASES = ((1, 2048, 16384, 16), (4, 512, 16384, 16))
+# (B, T, Di, Ds): the reference test's CASES; a T that is no multiple
+# of the kernel's chunk of 32 steps and a Di that is no multiple of its
+# channels per CTA (256 / Ds), at each Ds the kernel takes
+SCAN_SMALL_CASES = ((1, 8, 16, 4), (2, 16, 32, 8), (2, 12, 24, 4),
+                    (2, 45, 100, 16), (1, 70, 72, 4), (3, 33, 40, 8))
+# check 3: one full-width Mamba layer in f32, prefill against decode
+# steps, within the reference invariant's bound
+# (tests/test_model_components.py:110-126), atol at most 1e-4 of RMS
+SEQ_STEPS = 64
+SEQ_TOL = dict(rtol=1e-4, atol=1e-5)
+# check 4: first decode step against a prefill over prompt + token, f32
+HANDOFF_REL_L2 = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1689,6 +1747,395 @@ def profile_serving(srv, requests, rounds, wall_s):
         f"({prof_wall * 1e6:.1f} us)")
 
 
+# ---------------------------------------------------------------------------
+# "lm serve": the hybrid LM served through the selective-scan kernel
+# ---------------------------------------------------------------------------
+def jamba_period(**dtypes):
+    """``JAMBA`` at full width with depth and MoE cut: one period of the
+    stack (1 attention + 7 Mamba layers), dense FFNs; ``dtypes`` replace
+    the config's own (bf16 params and compute, bf16 logits)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(JAMBA), n_layers=8, moe=None,
+                               **dtypes)
+
+
+def lm_trace(cfg):
+    import numpy as np
+    from repro_torch.launch.serve import make_requests
+    return make_requests(cfg, LM_TRACE["requests"], LM_TRACE["prompt_len"],
+                         LM_TRACE["max_new"], np.random.default_rng(SEED))
+
+
+def serve_lm_trace(cfg, params):
+    """Serve the LM trace once with the counters reset just before and
+    read just after: (token lists by request id, counts, stats)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import serve_requests
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    done, stats = serve_requests(cfg, params, lm_trace(cfg),
+                                 slots=LM_TRACE["slots"],
+                                 max_len=LM_TRACE["max_len"], device="cuda")
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    return {r.rid: r.generated for r in done}, counts, stats
+
+
+def first_mamba_operands(cfg, params, prompt):
+    """The scan operands of the stack's first Mamba layer (sub1 of group
+    0) on ``prompt``: the attention layer sub0 runs first, then sub1's
+    norm, as the prefill runs them."""
+    import torch
+    from repro_torch.models import mamba, transformer
+    from repro_torch.models.blocks import apply_norm
+    batch = {"tokens": torch.as_tensor(prompt[None, :], device="cuda")}
+    x, positions = transformer._embed_inputs(cfg, params, batch)
+    gp = transformer._group(params["blocks"], 0)
+    check(transformer.period_pattern(cfg)[:2] == [("attn", False),
+                                                  ("mamba", False)],
+          "the period does not start with attention, then Mamba")
+    x, _, _ = transformer._apply_sub(cfg, gp["sub0"], x, positions, "attn",
+                                     False, False)
+    h = apply_norm(cfg, gp["sub1"]["ln1"], x)
+    return mamba.scan_operands(cfg, gp["sub1"]["mamba"], h)
+
+
+def scan_data(rng, b, t, di, ds):
+    """The reference test's distribution (``_data`` of
+    tests/test_kernels_mamba_scan.py), numpy-seeded, on the card."""
+    import numpy as np
+    import torch
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    return (f(rng.normal(size=(b, t, di))),
+            f(0.1 * np.abs(rng.normal(size=(b, t, di)))),
+            f(rng.normal(size=(b, t, ds))), f(rng.normal(size=(b, t, ds))),
+            f(-np.abs(rng.normal(size=(di, ds)))))
+
+
+def compare_scan(what, ops, tol, errs):
+    """``selective_scan`` (one launch) against its plain version, y and
+    the final h, within ``tol`` (``atol=None``: 1e-4 of each output's
+    RMS); results must not depend on ``block_di``."""
+    import torch
+    from repro_torch.kernels.mamba_scan.scan import (selective_scan,
+                                                     selective_scan_plain)
+    got = launched_once(lambda: selective_scan(*ops), "selective_scan",
+                        what)
+    want = selective_scan_plain(*ops)
+    di = ops[0].shape[2]
+    for bdi in (64, di):
+        alt = selective_scan(*ops, block_di=bdi)
+        check(all(torch.equal(a, g) for a, g in zip(alt, got)),
+              f"selective_scan {what}: block_di={bdi} changes the result")
+    notes = []
+    for name, g, w in zip(("y", "h"), got, want):
+        rms = float(w.double().pow(2).mean().sqrt())
+        atol = tol["atol"] if tol["atol"] is not None else 1e-4 * rms
+        compare("selective_scan", g, w, tol["rtol"], atol, errs)
+        err = float((g.double() - w.double()).abs().max())
+        notes.append(f"{name}: RMS {rms:.4e}, atol {atol:.3e}, max abs err "
+                     f"{err:.3e}")
+    log(f"selective_scan {what}: one launch, equal to the plain version "
+        f"within rtol={tol['rtol']} ({'; '.join(notes)}); block_di 64, 256 "
+        f"and {di} bitwise equal")
+    return got
+
+
+def scan_checks(ops, rng, errs):
+    """Check 2 (kernel against plain version) and check 5 (the library
+    entry): the model's own operands, the reference test's distribution
+    at full width, small cases, and a d_state with no kernel."""
+    import torch
+    from repro_torch.core.library import get_family
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.mamba_scan.scan import selective_scan
+    compare_scan(f"at the first Mamba layer's operands {SCAN_SITE}", ops,
+                 dict(rtol=1e-5, atol=None), errs)
+    for case in SCAN_FULL_CASES + SCAN_SMALL_CASES:
+        compare_scan(f"on the reference test's data {case}",
+                     scan_data(rng, *case), SCAN_TOL, errs)
+    cuda.reset_launches()
+    try:
+        selective_scan(*scan_data(rng, 1, 8, 16, 32))
+    except ValueError as e:
+        check(cuda.launch_counts() == {}, "selective_scan counted a launch "
+                                          "it refused")
+        log(f"selective_scan with d_state 32 raises before any launch: {e}")
+    else:
+        raise SmokeFailure("selective_scan launched with d_state 32")
+    member = get_family("ssm_scan")["ssm_scan.selective_vmem"]
+    small = scan_data(rng, 2, 16, 32, 8)
+    launched_once(lambda: member(*small), "selective_scan",
+                  "get_family('ssm_scan')['ssm_scan.selective_vmem']")
+    cuda.reset_launches()
+    member(*(t.cpu() for t in small))
+    check(cuda.launch_counts() == {}, "the library entry launched on CPU "
+                                      "tensors")
+    log("library entry ssm_scan.selective_vmem: one launch on CUDA "
+        "tensors, none on CPU tensors")
+    torch.cuda.synchronize()
+
+
+def seq_vs_step_check(gen):
+    """Check 3: one full-width Mamba layer in f32, the prefill (the
+    kernel) against 64 decode steps."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import mamba
+    cfg = jamba_period(param_dtype="float32", compute_dtype="float32")
+    p = mamba.init_mamba(cfg, gen, device="cuda")
+    x = torch.randn((1, SEQ_STEPS, cfg.d_model), generator=gen,
+                    device="cuda")
+    cuda.reset_launches()
+    y_seq, c_seq = mamba.mamba_forward_with_cache(cfg, p, x)
+    torch.cuda.synchronize()
+    check(cuda.launch_counts() == {"selective_scan": 1},
+          f"the f32 Mamba prefill launched {cuda.launch_counts()}")
+    cache = mamba.init_mamba_cache(cfg, 1, dtype=torch.float32,
+                                   device="cuda")
+    ys = []
+    for t in range(SEQ_STEPS):
+        y_t, cache = mamba.mamba_step(cfg, p, x[:, t:t + 1], cache)
+        ys.append(y_t)
+    y_step = torch.cat(ys, dim=1)
+    notes = []
+    for name, got, want in (("out", y_seq, y_step),
+                            ("ssm", c_seq["ssm"], cache["ssm"]),
+                            ("conv", c_seq["conv"], cache["conv"])):
+        rms = float(want.double().pow(2).mean().sqrt())
+        atol = min(SEQ_TOL["atol"], 1e-4 * rms)
+        torch.testing.assert_close(got, want, rtol=SEQ_TOL["rtol"],
+                                   atol=atol,
+                                   msg=lambda m: f"seq vs step {name}: {m}")
+        err = float((got.double() - want.double()).abs().max())
+        notes.append(f"{name} RMS {rms:.4e}, atol {atol:.3e}, max abs err "
+                     f"{err:.3e}")
+    log(f"f32 Mamba layer at full width: prefill over {SEQ_STEPS} tokens "
+        f"(one selective_scan launch) equals {SEQ_STEPS} decode steps within "
+        f"rtol={SEQ_TOL['rtol']} ({'; '.join(notes)})")
+
+
+def handoff_errors(cfg, params, requests):
+    """Check 4's reading: for each request, the first decode step's
+    logits after prefilling its prompt against the last-position logits
+    of a prefill over the prompt plus that token.  Returns (relative L2
+    errors, argmax agreements)."""
+    import torch
+    from repro_torch.models import api
+    errs, same = [], []
+    for req in requests:
+        tokens = torch.as_tensor(req.prompt[None, :], device="cuda")
+        s = tokens.shape[1]
+        logits, caches, _ = api.prefill_step(cfg, params,
+                                             {"tokens": tokens},
+                                             pad_to=s + 1)
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+        dec, _ = api.decode_step(cfg, params, caches, tok, s)
+        full, _, _ = api.prefill_step(
+            cfg, params, {"tokens": torch.cat([tokens, tok], dim=1)})
+        d, f = dec.double(), full.double()
+        errs.append(float((d - f).norm() / f.norm()))
+        same.append(bool(torch.equal(dec.argmax(-1), full.argmax(-1))))
+        del caches
+    return errs, same
+
+
+def profile_lm(cfg, params, prompt, caches, tick_tokens, tick_pos):
+    """One prefill and one decode tick under ``torch.profiler``: device
+    time by kernel (top rows) and the selective scan's share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    batch = {"tokens": torch.as_tensor(prompt[None, :], device="cuda")}
+    out = {}
+    for name, fn in (
+            ("prefill", lambda: api.prefill_step(
+                cfg, params, batch, pad_to=LM_TRACE["max_len"])),
+            ("decode tick", lambda: api.decode_step(
+                cfg, params, caches, tick_tokens, tick_pos))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            dev = getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+            if dev > 0 and not ev.key.startswith(("aten::", "Activity")):
+                rows.append((dev, ev.key, ev.count))
+        busy = sum(r[0] for r in rows)
+        check(busy > 0, f"the profiler saw no device time in the {name}")
+        scan = sum(r[0] for r in rows if "selective_scan_kernel" in r[1])
+        for dev, key, count in sorted(rows, reverse=True)[:8]:
+            log(f"lm profile {name}: {dev:10.1f} us device x{count:<4d} "
+                f"({dev / busy:.4f}) {key[:70]}")
+        log(f"lm profile {name}: device busy {busy:.1f} us, "
+            f"selective_scan_kernel {scan:.1f} us ({scan / busy:.4f})")
+        out[name] = (busy, scan)
+    return out
+
+
+def lm_serve_phase(peaks, card, errs):
+    """The fifth slice's path: ``jamba_period`` in bf16 serves the LM
+    trace through ``launch/serve.py``'s loop (checks 1-5, times,
+    profile), then the f32 cache hand-off (check 4).  Returns the
+    selective scan's launches on the served run and its row."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.mamba_scan.scan import (selective_scan,
+                                                     selective_scan_plain)
+    from repro_torch.models import api
+    torch.cuda.empty_cache()
+    cfg = jamba_period()
+    check(cfg.dtype("param") == cfg.dtype("compute") == torch.bfloat16,
+          "jamba_period is not bf16")
+    n_mamba = sum(kind == "mamba" for kind in cfg.attn_layout)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"lm serve: {cfg.name} cut to one period ({cfg.n_layers} layers: "
+        f"{cfg.n_layers - n_mamba} attention, {n_mamba} Mamba; MoE off), "
+        f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, d_state "
+        f"{cfg.mamba.d_state}: {n_params} bf16 params drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # check 1: the served trace, twice
+    tokens, counts, stats = serve_lm_trace(cfg, params)
+    n_req, max_new = LM_TRACE["requests"], LM_TRACE["max_new"]
+    check(sorted(tokens) == list(range(n_req)) and all(
+        len(t) == max_new for t in tokens.values()),
+        f"lm serve: completions {[(k, len(v)) for k, v in tokens.items()]}")
+    check(counts == {"selective_scan": n_mamba * n_req},
+          f"lm serve: launched {counts}, expected "
+          f"{{'selective_scan': {n_mamba * n_req}}} ({n_mamba} per prefill)")
+    launches = counts["selective_scan"]
+    tokens2, _, stats2 = serve_lm_trace(cfg, params)
+    check(tokens2 == tokens, "lm serve: a second serve of the trace gave "
+                             "other tokens")
+    trace = lm_trace(cfg)
+    ops = first_mamba_operands(cfg, params, trace[0].prompt)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    logits, caches, plen = api.prefill_step(
+        cfg, params, {"tokens": torch.as_tensor(trace[0].prompt[None, :],
+                                                device="cuda")},
+        pad_to=LM_TRACE["max_len"])
+    torch.cuda.synchronize()
+    check(cuda.launch_counts() == {"selective_scan": n_mamba},
+          f"one prefill launched {cuda.launch_counts()}")
+    check(int(torch.argmax(logits[0])) == tokens[0][0],
+          "a lone prefill's first token differs from the served one")
+    log(f"lm serve: {n_req} requests x {max_new} tokens through "
+        f"{LM_TRACE['slots']} slots (prompt {LM_TRACE['prompt_len']}, "
+        f"max_len {LM_TRACE['max_len']}), {stats['decode_ticks']} decode "
+        f"ticks; selective_scan launched {launches} times ({n_mamba} per "
+        f"prefill, nothing else launched); a second serve gives the same "
+        f"tokens; request 0: {tokens[0]}")
+
+    # check 2 and 5
+    rng = np.random.default_rng(SEED)
+    scan_checks(ops, rng, errs)
+
+    # check 4's bf16 reading (logged, not held)
+    bf16_err, bf16_same = handoff_errors(cfg, params, trace[:2])
+    log(f"cache hand-off, bf16 served model: relative L2 error "
+        f"{', '.join(f'{e:.4e}' for e in bf16_err)}, same argmax "
+        f"{bf16_same} (logged; bf16 rounds every layer)")
+
+    # times
+    check(tuple(ops[0].shape) + (ops[4].shape[1],) == SCAN_SITE,
+          f"the served site's scan is not {SCAN_SITE}")
+    y, h = selective_scan(*ops)
+    b, t, di = ops[0].shape
+    ds = ops[4].shape[1]
+    states = b * t * di * ds
+    t_bytes = bound_ms(peaks, nbytes(*ops, y, h), 0)[0]
+    t_fp32 = bound_ms(peaks, 0, 6 * states)[0]
+    t_exp = bound_ms(peaks, 0, states, "mufu_per_s")[0]
+    b_ms = max(t_bytes, t_fp32, t_exp)
+    row = dict(ms=time_ms(lambda: selective_scan(*ops)),
+               plain_ms=time_sync_ms(lambda: selective_scan_plain(*ops)),
+               library_ms=None, bound_ms=b_ms,
+               bound_by="bytes" if t_bytes >= max(t_fp32, t_exp)
+               else "operations",
+               shape=f"(B, T, Di, Ds) = {(b, t, di, ds)} f32",
+               library="none (no single PyTorch call computes a selective "
+                       "scan)")
+    log(f"selective_scan [{row['shape']}]: {row['ms'] * 1e3:.1f} us, plain "
+        f"{row['plain_ms'] * 1e3:.1f} us (call by call), library "
+        f"{row['library']}, bound {b_ms * 1e3:.1f} us ({row['bound_by']}; "
+        f"bytes {t_bytes * 1e3:.1f} us, FP32 operations "
+        f"{t_fp32 * 1e3:.1f} us, exponentials {t_exp * 1e3:.1f} us at the "
+        f"MUFU rate) on {card}")
+    del y, h
+
+    def timed(fn, reps):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(walls)
+
+    batch = {"tokens": torch.as_tensor(trace[0].prompt[None, :],
+                                       device="cuda")}
+    prefill_ms = timed(lambda: api.prefill_step(
+        cfg, params, batch, pad_to=LM_TRACE["max_len"]), 3)
+    slots = LM_TRACE["slots"]
+    tick_caches = api.init_decode_caches(cfg, slots, LM_TRACE["max_len"],
+                                         device="cuda")
+    tick_tokens = torch.ones((slots, 1), dtype=torch.long, device="cuda")
+    decode_ms = timed(lambda: api.decode_step(cfg, params, tick_caches,
+                                              tick_tokens, plen), 5)
+    rate = stats2["tokens"] / stats2["wall_s"]
+    log(f"lm serve times: {rate:.1f} tokens/s over the trace ({stats2['tokens']}"
+        f" tokens in {stats2['wall_s']:.3f} s, second serve; first "
+        f"{stats['tokens'] / stats['wall_s']:.1f}), prefill "
+        f"{prefill_ms:.1f} ms a request, decode {decode_ms:.1f} ms a tick "
+        f"of {slots} slots (host clock, synchronized; medians of 3 and 5) "
+        f"on {card}")
+    profile_lm(cfg, params, trace[0].prompt, tick_caches, tick_tokens, plen)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    del params, caches, tick_caches, ops, logits
+    torch.cuda.empty_cache()
+
+    # check 3
+    seq_vs_step_check(gen)
+    torch.cuda.empty_cache()
+
+    # check 4, in f32
+    cfg32 = jamba_period(param_dtype="float32", compute_dtype="float32",
+                         logit_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params32 = api.init_params(cfg32, SEED, device="cuda")
+    f32_err, f32_same = handoff_errors(cfg32, params32, trace[:2])
+    check(all(e <= HANDOFF_REL_L2 for e in f32_err) and all(f32_same),
+          f"cache hand-off in f32: relative L2 errors {f32_err}, same "
+          f"argmax {f32_same} (limit {HANDOFF_REL_L2})")
+    log(f"cache hand-off, f32 one-period model (params, compute and "
+        f"logits f32; {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"peak): relative L2 error {', '.join(f'{e:.4e}' for e in f32_err)}"
+        f" <= {HANDOFF_REL_L2}, same argmax {f32_same}")
+    del params32
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     try:
         import torch
@@ -1789,6 +2236,9 @@ def main() -> int:
             f"(range {lrates[0]:.1f}-{lrates[-1]:.1f} requests/s, walls "
             f"{', '.join(f'{w:.3f}' for w in lwalls)} s; 224x224x3, "
             f"waves of {LADDER_MIX}, max_batch {MAX_BATCH}) on {card}")
+
+    launches["selective_scan"], rows["selective_scan"] = lm_serve_phase(
+        peaks, card, errs)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],

@@ -209,7 +209,7 @@ class IPFamily:
         if self.site_adapter is None:
             raise NotImplementedError(
                 f"family {self.name!r} has no site adapter registered; "
-                "it cannot be planned")
+                "it cannot be planned (see docs/adaptive_ips.md)")
         return self.site_adapter(spec)
 
     def register(self, ip: KernelIP) -> KernelIP:

@@ -3,10 +3,12 @@
 Registered: the CNN families — conv2d (the paper's literal object, all
 four members), pool2d and activation (the paper's stated future work)
 and cnn_fused (conv -> pool -> activation as one launch) — and their
-generalizations to the LM hot path, matmul (single- and dual-stream)
-and attention.  ssm_scan waits for ROADMAP queue 1, item 11.  Every
-member carries the Table I capability bits and a footprint function
-pricing it against the resource vector.
+generalizations to the LM hot path, matmul (single- and dual-stream),
+attention and ssm_scan (the selective scan of a Mamba block), in the
+reference's order.  Every member carries the Table I capability bits
+and a footprint function pricing it against the resource vector.
+ssm_scan has no site adapter, as in the reference: planning an
+ssm_scan site raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.conv2d import ip1_vpu, ip2_mxu, ip3_packed, ip4_dual
 from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.kernels.fused import cnn_block as fused_mod
+from repro_torch.kernels.mamba_scan import scan as mamba_scan_mod
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.matmul import dual as mm_dual
 from repro_torch.kernels.matmul import mxu as mm_mxu_mod
 from repro_torch.kernels.matmul.ref import matmul_ref
@@ -175,8 +179,22 @@ ATTENTION.register(KernelIP(
     tags=("decode",),
     description="Single-token flash-decode over KV blocks; HBM-bound."))
 
+# --------------------------------------------------------------------------
+# ssm_scan family — the attention-free recurrence (jamba/rwkv end of the
+# spectrum; Conv1-style logic-only contract: zero MXU passes).
+# --------------------------------------------------------------------------
+SSM_SCAN = IPFamily("ssm_scan", reference=selective_scan_ref,
+                    quantizable=False)
+SSM_SCAN.register(KernelIP(
+    name="ssm_scan.selective_vmem", family="ssm_scan",
+    impl=mamba_scan_mod.selective_scan,
+    footprint_fn=mamba_scan_mod.footprint, uses_mxu=False,
+    tags=("analogue:Conv1", "ssm"),
+    description="Selective scan with VMEM-resident state: HBM traffic "
+                "O(T·(Di+Ds)) vs the scan twin's O(T·Di·Ds)."))
+
 FAMILIES = {f.name: f for f in (CONV2D, POOL2D, ACTIVATION, CNN_FUSED,
-                                MATMUL, ATTENTION)}
+                                MATMUL, ATTENTION, SSM_SCAN)}
 
 
 # --------------------------------------------------------------------------
@@ -321,13 +339,9 @@ ATTENTION.site_adapter = _attention_adapter
 
 
 def get_family(name: str) -> IPFamily:
-    if name not in FAMILIES:
-        raise NotImplementedError(
-            f"family {name!r} is not ported yet (have {sorted(FAMILIES)}; "
-            f"ssm_scan is ROADMAP queue 1, item 11)")
     return FAMILIES[name]
 
 
 def get_ip(qualified: str) -> KernelIP:
     family, _, short = qualified.partition(".")
-    return get_family(family)[short or qualified]
+    return FAMILIES[family][short or qualified]

@@ -29,14 +29,15 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("cnn_kernels.cu", "mm_kernels.cu", "attn_kernels.cu")
+SOURCES = ("cnn_kernels.cu", "mm_kernels.cu", "attn_kernels.cu",
+           "scan_kernels.cu")
 HEADERS = ("cnn_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
 # dtype codes of the kernels (enum DType of cnn_kernels.cu; mm_kernels.cu
-# and attn_kernels.cu use the same codes)
+# and attn_kernels.cu use the same codes; scan_kernels.cu takes f32 only)
 DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2,
               torch.int16: 3, torch.bfloat16: 4}
 
@@ -58,14 +59,15 @@ _SIGNATURES = {
     "cnn_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "attn_flash": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "attn_decode": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 # Launches per kernel since the last reset_launches(): each wrapper adds
 # one where it launches its kernel, and nowhere else.  Counter names are
 # the wrappers' names: fused_cnn_vpu, fused_cnn_mxu, conv2d_ip1..4,
 # pool2d_window, pool2d_im2col, activation_exact, activation_lut,
-# mm_mxu, mm_vpu, mm_dual_shared, mm_dual_full, flash_attention and
-# flash_decode.
+# mm_mxu, mm_vpu, mm_dual_shared, mm_dual_full, flash_attention,
+# flash_decode and selective_scan.
 LAUNCHES: Dict[str, int] = {}
 
 _LIB = None

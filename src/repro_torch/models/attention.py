@@ -1,0 +1,216 @@
+"""GQA attention of the LM stack (``repro/models/attention.py``) + KV cache.
+
+Plain PyTorch, as the reference computes it in plain jnp outside any
+Pallas kernel (the attention IP family's kernels serve the budget
+sweep's sites, not this model).  Two full-sequence forms under the
+reference's dispatch rule, and the cached decode step:
+
+  * ``naive``   — materialized scores; only for smoke-scale S.
+  * ``chunked`` — online softmax over kv chunks, a q chunk at a time:
+                  peak memory O(bq*bk) per head.
+  * decode      — single-token attention over the whole cache with
+                  position masking, in max/sum-mergeable softmax form.
+
+``attn_score_dtype`` is the dtype score chunks are materialized in
+(softmax statistics stay f32) and ``causal_skip`` skips kv chunks wholly
+above the causal diagonal, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import apply_rope, normal, rope_freqs
+
+NEG_INF = -1e30
+
+
+def init_attn(cfg: ModelConfig, gen: torch.Generator, shape_prefix=(),
+              device="cpu"):
+    pd = cfg.dtype("param")
+    D, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pre = tuple(shape_prefix)
+    s = D ** -0.5
+    return {
+        "wq": normal(gen, pre + (D, Hq * Dh), s, pd, device),
+        "wk": normal(gen, pre + (D, Hkv * Dh), s, pd, device),
+        "wv": normal(gen, pre + (D, Hkv * Dh), s, pd, device),
+        "wo": normal(gen, pre + (Hq * Dh, D), (Hq * Dh) ** -0.5, pd, device),
+    }
+
+
+def _qkv(cfg: ModelConfig, p, x, positions):
+    cd = cfg.dtype("compute")
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = x.to(cd)
+    q = torch.einsum("bsd,dh->bsh", x, p["wq"].to(cd)).reshape(B, S, Hq, Dh)
+    k = torch.einsum("bsd,dh->bsh", x, p["wk"].to(cd)).reshape(B, S, Hkv, Dh)
+    v = torch.einsum("bsd,dh->bsh", x, p["wv"].to(cd)).reshape(B, S, Hkv, Dh)
+    if cfg.rope_style != "none":
+        cos, sin = rope_freqs(cfg, positions)
+        q = apply_rope(cfg, q, cos, sin)
+        k = apply_rope(cfg, k, cos, sin)
+    return q, k, v
+
+
+def _merge_heads(cfg: ModelConfig, p, o):
+    B, S = o.shape[:2]
+    cd = cfg.dtype("compute")
+    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return torch.einsum("bsh,hd->bsd", o.to(cd), p["wo"].to(cd))
+
+
+def _scalar(value: float, dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``dtype``: the reference's ``jnp.asarray(v, sd)``,
+    rounded to ``dtype`` before it multiplies."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def _dot_f32(eq: str, a, b):
+    """``einsum(..., preferred_element_type=f32)``: products of bf16 or
+    f32 operands are exact in f32, so widening first gives the same
+    sums."""
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (train / prefill)
+# ---------------------------------------------------------------------------
+def _naive_attn(cfg, q, k, v, causal: bool):
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    sd = cfg.dtype("attn_score")
+    qf = (q.to(sd).reshape(B, Sq, Hkv, g, Dh)
+          * _scalar(Dh ** -0.5, sd, q.device))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(sd))
+    if causal:
+        Skv = k.shape[1]
+        dev = q.device
+        mask = (torch.arange(Skv, device=dev)[None, :]
+                <= torch.arange(Sq, device=dev)[:, None] + (Skv - Sq))
+        s = torch.where(mask[None, None, None], s, _scalar(NEG_INF, sd, dev))
+    w = torch.softmax(s.to(torch.float32), dim=-1).to(sd)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.to(sd))
+    return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def _chunked_attn(cfg, q, k, v, causal: bool, bq: int, bk: int):
+    """Online-softmax flash form, a q chunk at a time over kv chunks.
+
+    All (bq, bk)-sized tensors live in ``attn_score_dtype``; only the
+    O(bq)-sized statistics are f32.  ``causal_skip`` passes chunks wholly
+    above the diagonal through unchanged (exact)."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    offs = Skv - Sq
+    nq, nk = Sq // bq, Skv // bk
+    assert Sq % bq == 0 and Skv % bk == 0, (Sq, bq, Skv, bk)
+    sd = cfg.dtype("attn_score")
+    f32 = torch.float32
+    dev = q.device
+    scale = _scalar(Dh ** -0.5, sd, dev)
+    neg = _scalar(NEG_INF, sd, dev)
+    skip = causal and cfg.causal_skip
+    outs = []
+    for i in range(nq):
+        qi0 = i * bq
+        qf = q[:, qi0:qi0 + bq].to(sd).reshape(B, bq, Hkv, g, Dh) * scale
+        m = torch.full((B, Hkv, g, bq), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((B, Hkv, g, bq), dtype=f32, device=dev)
+        acc = torch.zeros((B, Hkv, g, bq, Dh), dtype=f32, device=dev)
+        for j in range(nk):
+            kj0 = j * bk
+            if skip and kj0 > qi0 + bq - 1 + offs:
+                continue
+            kc = k[:, kj0:kj0 + bk]
+            vc = v[:, kj0:kj0 + bk]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.to(sd))
+            if causal:
+                qpos = qi0 + torch.arange(bq, device=dev)[:, None]
+                kpos = kj0 + torch.arange(bk, device=dev)[None, :]
+                s = torch.where((kpos <= qpos + offs)[None, None, None], s,
+                                neg)
+            m_new = torch.maximum(m, s.amax(dim=-1).to(f32))
+            alpha = torch.exp(m - m_new)
+            pexp = torch.exp(s - m_new[..., None].to(sd))
+            l = l * alpha + pexp.sum(dim=-1, dtype=f32)
+            acc = acc * alpha[..., None] + _dot_f32(
+                "bhgqk,bkhd->bhgqd", pexp, vc.to(sd))
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, bq, Hq, Dh)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def full_attention(cfg: ModelConfig, q, k, v, *, causal: bool = True,
+                   bq: int = 512, bk: int = 1024):
+    """Dispatch naive vs chunked on working-set size (the selector rule)."""
+    Sq = q.shape[1]
+    Skv = k.shape[1]
+    if Sq * Skv <= 4096 * 4096 // 8 or Sq % min(bq, Sq) or Skv % min(bk, Skv):
+        return _naive_attn(cfg, q, k, v, causal)
+    if not cfg.scan_layers:
+        # the reference's unrolled graphs take fewer, larger chunks; the
+        # result is chunking-invariant up to f32 rounding
+        bq = min(Sq, max(512, Sq // 8))
+        bk = min(Skv, max(1024, Skv // 4))
+    return _chunked_attn(cfg, q, k, v, causal, min(bq, Sq), min(bk, Skv))
+
+
+# ---------------------------------------------------------------------------
+# Cached attention (decode)
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  dtype=None, device="cpu"):
+    dt = dtype or cfg.dtype("compute")
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def positions_b1(pos, B: int, device="cpu"):
+    """Normalize a scalar or (B,) position arg to (B, 1) int64."""
+    p = torch.as_tensor(pos, device=device).to(torch.int64)
+    if p.dim() == 0:
+        return p.expand(B, 1).clone()
+    return p.reshape(B, 1)
+
+
+def decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
+    """One-token step. x: (B, 1, D); cache: (B, S, Hkv, Dh);
+    pos: scalar or (B,) per-slot positions (continuous batching).
+    Returns (out, new cache_k, new cache_v); the caches passed in are
+    not written."""
+    B = x.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = Hq // Hkv
+    dev = x.device
+    pos_b1 = positions_b1(pos, B, dev)
+    q, k_new, v_new = _qkv(cfg, p, x, positions=pos_b1)
+    rows = torch.arange(B, device=dev)
+    ck = cache_k.index_put((rows, pos_b1[:, 0]),
+                           k_new[:, 0].to(cache_k.dtype))
+    cv = cache_v.index_put((rows, pos_b1[:, 0]),
+                           v_new[:, 0].to(cache_v.dtype))
+    S = ck.shape[1]
+    sd = cfg.dtype("attn_score")
+    qf = q.to(sd).reshape(B, Hkv, g, Dh) * _scalar(Dh ** -0.5, sd, dev)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, ck.to(sd))
+    valid = (torch.arange(S, device=dev)[None, None, None, :]
+             <= pos_b1[:, 0][:, None, None, None])
+    s = torch.where(valid, s, _scalar(NEG_INF, sd, dev))
+    w = torch.softmax(s.to(torch.float32), dim=-1).to(sd)
+    o = _dot_f32("bhgk,bkhd->bhgd", w, cv.to(sd))
+    o = o.reshape(B, 1, Hq, Dh).to(x.dtype)
+    return _merge_heads(cfg, p, o), ck, cv
+
+
+def attn_block(cfg: ModelConfig, p, x, positions, *, causal=True):
+    """Full attention sub-block for train/prefill: returns (out, (k, v))."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    o = full_attention(cfg, q, k, v, causal=causal)
+    return _merge_heads(cfg, p, o), (k, v)

@@ -1,23 +1,169 @@
-"""CNN block — conv -> pool -> activation, planned as one NetworkPlan: the
+"""Shared model blocks (``repro/models/blocks.py``): the LM blocks —
+norms, MLPs, embeddings, RoPE — and the CNN block.
+
+LM blocks are plain functions over params dicts laid out as the
+reference's trees: ``init_*`` draws from a ``torch.Generator`` (N(0, 1)
+times the reference's scale, in f32, then cast to the param dtype) and
+``apply`` functions are pure.  Layer-stacked params carry a leading
+group axis (see transformer.py).  The training loss is ROADMAP queue 1,
+item 12.
+
+CNN block — conv -> pool -> activation, planned as one NetworkPlan: the
 three sites share ONE ResourceBudget partitioned across them (the paper's
 full-layer scenario: a CNN layer whose implementation adapts to the
 available resources while its math stays fixed).
-
-The LM-side blocks of ``repro.models.blocks`` (norms, FFN, embeddings,
-RoPE, loss) are ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ip import SiteSpec, dtype_name, is_integer_dtype
 from repro_torch.kernels.pool2d.ref import (check_pool_geometry,
                                             pool2d_out_shape)
+
 
 def _generator(seed_or_generator) -> torch.Generator:
     if isinstance(seed_or_generator, torch.Generator):
         return seed_or_generator
     return torch.Generator().manual_seed(int(seed_or_generator))
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype,
+           device) -> torch.Tensor:
+    """N(0, 1) * ``scale`` drawn in f32 on ``gen``'s device, cast to
+    ``dtype`` on ``device`` (the reference's ``normal(k, shape) * scale``
+    then ``astype``)."""
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device) * scale
+    return w.to(dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_norm(cfg: ModelConfig, shape_prefix=(), device="cpu"):
+    pd = cfg.dtype("param")
+    if cfg.norm == "layernorm_nonparam":
+        return {}  # OLMo: no learnable scale/bias
+    shape = tuple(shape_prefix) + (cfg.d_model,)
+    p = {"scale": torch.ones(shape, dtype=pd, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=pd, device=device)
+    return p
+
+
+def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+        return (y * p["scale"].to(torch.float32)).to(x.dtype)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if cfg.norm == "layernorm":
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
+def init_ffn(cfg: ModelConfig, gen: torch.Generator, shape_prefix=(),
+             d_in=None, d_ff=None, device="cpu"):
+    pd = cfg.dtype("param")
+    d = d_in or cfg.d_model
+    f = d_ff or cfg.d_ff
+    pre = tuple(shape_prefix)
+    scale = d ** -0.5
+    if cfg.activation in ("swiglu", "geglu"):
+        return {
+            "w_gate": normal(gen, pre + (d, f), scale, pd, device),
+            "w_up": normal(gen, pre + (d, f), scale, pd, device),
+            "w_down": normal(gen, pre + (f, d), f ** -0.5, pd, device),
+        }
+    return {
+        "w_in": normal(gen, pre + (d, f), scale, pd, device),
+        "w_down": normal(gen, pre + (f, d), f ** -0.5, pd, device),
+    }
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_ffn(cfg: ModelConfig, p, x):
+    cd = cfg.dtype("compute")
+    x = x.to(cd)
+    if cfg.activation in ("swiglu", "geglu"):
+        g = torch.einsum("...d,df->...f", x, p["w_gate"].to(cd))
+        u = torch.einsum("...d,df->...f", x, p["w_up"].to(cd))
+        act = F.silu if cfg.activation == "swiglu" else gelu
+        h = act(g) * u
+    else:
+        h = torch.einsum("...d,df->...f", x, p["w_in"].to(cd))
+        h = gelu(h) if cfg.activation == "gelu" else torch.square(F.relu(h))
+    return torch.einsum("...f,fd->...d", h, p["w_down"].to(cd))
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / head
+# ---------------------------------------------------------------------------
+def init_embed(cfg: ModelConfig, gen: torch.Generator, device="cpu"):
+    pd = cfg.dtype("param")
+    s = cfg.d_model ** -0.5
+    p = {"embed": normal(gen, (cfg.vocab_size, cfg.d_model), s, pd, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size), s, pd,
+                              device)
+    return p
+
+
+def embed_tokens(cfg: ModelConfig, p, tokens):
+    return p["embed"][tokens.long()].to(cfg.dtype("compute"))
+
+
+def lm_logits(cfg: ModelConfig, p, x):
+    cd = cfg.dtype("compute")
+    w = (p["embed"].T if cfg.tie_embeddings else p["lm_head"]).to(cd)
+    return torch.einsum("...d,dv->...v", x.to(cd), w).to(cfg.dtype("logit"))
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(cfg: ModelConfig, positions):
+    """positions: (...,) integer -> cos/sin (..., rot_dim/2)."""
+    rot = cfg.head_dim if cfg.rope_style == "full" else cfg.head_dim // 2
+    inv = 1.0 / (cfg.rope_theta ** (torch.arange(
+        0, rot, 2, dtype=torch.float32, device=positions.device) / rot))
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(cfg: ModelConfig, x, cos, sin):
+    """x: (B, S, H, Dh); cos/sin: (B, S, rot/2) or (S, rot/2)."""
+    if cfg.rope_style == "none":
+        return x
+    rot = cfg.head_dim if cfg.rope_style == "full" else cfg.head_dim // 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1 = xr[..., 0::2]
+    x2 = xr[..., 1::2]
+    while cos.dim() < x1.dim():  # broadcast over head axis
+        cos = cos[..., None, :]
+        sin = sin[..., None, :]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(
+        xr.shape[:-1] + (rot,))
+    return torch.cat([out, xp.to(out.dtype)], dim=-1) \
+        if rot < cfg.head_dim else out
+
+
+# ---------------------------------------------------------------------------
+# CNN block
+# ---------------------------------------------------------------------------
 
 
 def init_cnn_block(generator, cin: int, cout: int, k: int = 3,

@@ -1,0 +1,302 @@
+"""Decoder-only stack (``repro/models/transformer.py``): dense and hybrid
+(jamba's attention + mamba) serving.
+
+Layers are grouped into a repeating *period* P (1 for homogeneous
+stacks; 8 for jamba's 1-attn:7-mamba; lcm with moe_every for MoE
+alternation) and params carry a leading group axis of n_layers/P, as
+the reference's trees do.  The groups run in a Python loop: the
+reference's ``lax.scan`` and remat change no served result.
+
+Serving steps:
+  forward       — hidden states (+ per-layer caches)
+  prefill       — forward returning per-layer caches + last-pos logits
+  decode_step   — one token through cached layers
+
+Not ported (ROADMAP queue 1, item 12): the rwkv sub-block, MoE FFNs,
+precomputed-embedding inputs (``embed_inputs``), the encoder-decoder
+family and the training loss; they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
+                                       init_embed, init_ffn, init_norm,
+                                       lm_logits)
+from repro_torch.models.frontends import resolve_device
+
+UNPORTED = "is not ported yet (ROADMAP queue 1, item 12)"
+
+
+# ---------------------------------------------------------------------------
+# Layer layout
+# ---------------------------------------------------------------------------
+def block_period(cfg: ModelConfig) -> int:
+    p = cfg.attn_every if cfg.attn_every > 1 else 1
+    if cfg.moe:
+        p = math.lcm(p, cfg.moe.moe_every)
+    return p
+
+
+def period_pattern(cfg: ModelConfig):
+    """[(kind, use_moe)] for one period of the stack."""
+    p = block_period(cfg)
+    kinds = cfg.attn_layout[:p]
+    out = []
+    for i, kind in enumerate(kinds):
+        use_moe = (bool(cfg.moe) and (i % cfg.moe.moe_every == 0)
+                   and kind != "rwkv")
+        out.append((kind, use_moe))
+    return out
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not serve."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"the encoder-decoder family {UNPORTED}")
+    if cfg.embed_inputs:
+        raise NotImplementedError(f"embed_inputs=True (precomputed "
+                                  f"embeddings) {UNPORTED}")
+    for kind, use_moe in period_pattern(cfg):
+        if kind == "rwkv":
+            raise NotImplementedError(f"the rwkv sub-block {UNPORTED}")
+        if use_moe:
+            raise NotImplementedError(f"MoE FFNs {UNPORTED}")
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    period = len(period_pattern(cfg))
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is no "
+                         f"multiple of the block period {period}")
+    return cfg.n_layers // period
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stack(trees):
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _init_sub(cfg: ModelConfig, gen, kind: str, prefix, device):
+    p: Dict[str, Any] = {"ln1": init_norm(cfg, prefix, device)}
+    if kind == "attn":
+        p["attn"] = attn_mod.init_attn(cfg, gen, prefix, device)
+    else:
+        p["mamba"] = mamba_mod.init_mamba(cfg, gen, prefix, device)
+    p["ln2"] = init_norm(cfg, prefix, device)
+    p["ffn"] = init_ffn(cfg, gen, prefix, device=device)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator=0, *, device=None) -> Dict[str, Any]:
+    """Random params in the reference's tree, drawn tensor by tensor from
+    ``generator`` (a ``torch.Generator`` or a seed for one on ``device``;
+    ``None`` = ``cuda``).  The numbers differ from the reference's
+    ``jax.random``: carry a reference tree across with
+    ``params_from_numpy``."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    gen = (generator if isinstance(generator, torch.Generator)
+           else torch.Generator(device=dev).manual_seed(int(generator)))
+    n_groups = _n_groups(cfg)
+    params = init_embed(cfg, gen, dev)
+    params["blocks"] = {
+        f"sub{i}": _init_sub(cfg, gen, kind, (n_groups,), dev)
+        for i, (kind, _) in enumerate(period_pattern(cfg))}
+    params["final_norm"] = init_norm(cfg, (), dev)
+    return params
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device)
+
+
+def params_from_numpy(tree, device=None):
+    """The reference's params tree (nested dicts with numpy or
+    array-like leaves, e.g. ``repro``'s ``init_params``) as this
+    package's, key for key, on ``device`` (``None`` = ``cuda``)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+def _sinusoidal(cfg: ModelConfig, positions):
+    D = cfg.d_model
+    inv = 1.0 / (10_000 ** (torch.arange(
+        0, D, 2, dtype=torch.float32, device=positions.device) / D))
+    ang = positions.to(torch.float32)[..., None] * inv
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return pe.to(cfg.dtype("compute"))
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(cfg, positions)
+    return x, positions
+
+
+def _apply_sub(cfg: ModelConfig, p, x, positions, kind: str, use_moe: bool,
+               collect_cache: bool, causal: bool = True):
+    """One sub-block of a config ``check_ported`` accepts (kind "attn"
+    or "mamba", dense FFN). Returns (x, aux, cache)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = apply_norm(cfg, p["ln1"], x)
+    cache = {}
+    if kind == "attn":
+        out, (k, v) = attn_mod.attn_block(cfg, p["attn"], h, positions,
+                                          causal=causal)
+        if collect_cache:
+            cache = {"k": k.to(cfg.dtype("compute")),
+                     "v": v.to(cfg.dtype("compute"))}
+    elif collect_cache:
+        out, cache = mamba_mod.mamba_forward_with_cache(cfg, p["mamba"], h)
+    else:
+        out = mamba_mod.mamba_forward(cfg, p["mamba"], h)
+    x = x + out.to(x.dtype)
+    h2 = apply_norm(cfg, p["ln2"], x)
+    x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    return x, aux, cache
+
+
+def _group(tree, g: int):
+    return tree_map(lambda t: t[g], tree)
+
+
+def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
+            causal: bool = True):
+    """Returns (hidden (B,S,D), aux_loss, caches | None)."""
+    check_ported(cfg)
+    period = period_pattern(cfg)
+    x, positions = _embed_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache_list = []
+    for g in range(_n_groups(cfg)):
+        gp = _group(params["blocks"], g)
+        caches = {}
+        for i, (kind, use_moe) in enumerate(period):
+            x, a, cache = _apply_sub(cfg, gp[f"sub{i}"], x, positions, kind,
+                                     use_moe, collect_cache, causal)
+            aux = aux + a
+            caches[f"sub{i}"] = cache
+        cache_list.append(caches)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return x, aux, (_stack(cache_list) if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None):
+    """Run the prompt; return (last_logits, caches, next_pos).
+
+    ``pad_to``: allocate attention KV caches at this length (>= S) so
+    decode can append in place.
+    """
+    x, _, caches = forward(cfg, params, batch, collect_cache=True)
+    logits = lm_logits(cfg, params, x[:, -1:, :])[:, 0]
+    S = batch["tokens"].shape[1]
+    if pad_to and pad_to > S:
+        pad = pad_to - S
+
+        def pad_kv(c):
+            out = dict(c)
+            for key in ("k", "v"):
+                if key in c:   # (G, B, S, Hkv, Dh)
+                    out[key] = torch.nn.functional.pad(
+                        c[key], (0, 0, 0, 0, 0, pad))
+            return out
+
+        caches = {name: pad_kv(c) for name, c in caches.items()}
+    return logits, caches, S
+
+
+def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
+    """One token step. tokens: (B, 1); pos: scalar or (B,) positions.
+
+    caches: leading group axis (as produced by prefill or
+    ``init_decode_caches``).  Returns (logits (B, V), new_caches); the
+    caches passed in are not written."""
+    check_ported(cfg)
+    period = period_pattern(cfg)
+    B = tokens.shape[0]
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(cfg, attn_mod.positions_b1(pos, B, x.device))
+    outs = []
+    for g in range(_n_groups(cfg)):
+        gp = _group(params["blocks"], g)
+        gc = _group(caches, g)
+        new_cache = {}
+        for i, (kind, _) in enumerate(period):
+            p = gp[f"sub{i}"]
+            c = gc[f"sub{i}"]
+            h = apply_norm(cfg, p["ln1"], x)
+            if kind == "attn":
+                out, ck, cv = attn_mod.decode_attn(cfg, p["attn"], h,
+                                                   c["k"], c["v"], pos)
+                nc = {"k": ck, "v": cv}
+            else:
+                out, nc = mamba_mod.mamba_step(cfg, p["mamba"], h, c)
+            x = x + out.to(x.dtype)
+            h2 = apply_norm(cfg, p["ln2"], x)
+            x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+            new_cache[f"sub{i}"] = nc
+        outs.append(new_cache)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = lm_logits(cfg, params, x)[:, 0]
+    return logits, _stack(outs)
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                       device=None):
+    """Zero caches with leading group axis on ``device`` (``None`` =
+    ``cuda``)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    n_groups = _n_groups(cfg)
+    cd = cfg.dtype("compute")
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+
+    def one(kind):
+        if kind == "attn":
+            shape = (n_groups, batch, max_len, Hkv, Dh)
+            return {"k": torch.zeros(shape, dtype=cd, device=dev),
+                    "v": torch.zeros(shape, dtype=cd, device=dev)}
+        mc = cfg.mamba
+        return {"conv": torch.zeros((n_groups, batch, mc.d_conv - 1,
+                                     cfg.d_inner), dtype=cd, device=dev),
+                "ssm": torch.zeros((n_groups, batch, cfg.d_inner,
+                                    mc.d_state), dtype=torch.float32,
+                                   device=dev)}
+
+    return {f"sub{i}": one(kind)
+            for i, (kind, _) in enumerate(period_pattern(cfg))}

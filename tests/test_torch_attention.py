@@ -262,7 +262,7 @@ def test_attention_budget_plans_as_reference(shape, budget):
 # registration and selection
 # --------------------------------------------------------------------------
 def test_library_registers_attention_as_the_reference_does():
-    assert list(t_library.FAMILIES) == list(j_library.FAMILIES)[:6]
+    assert list(t_library.FAMILIES) == list(j_library.FAMILIES)
     assert t_library.get_family("attention") is t_library.ATTENTION
     assert t_library.ATTENTION.quantizable is False
     assert j_library.ATTENTION.names() == t_library.ATTENTION.names()
@@ -275,8 +275,9 @@ def test_library_registers_attention_as_the_reference_does():
     assert t_library.get_ip("attention.attn_naive").impl is attention_ref
     assert t_library.get_ip("attention.attn_flash").impl is flash_attention
     assert t_library.get_ip("attention.attn_decode").impl is flash_decode
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        t_library.get_family("ssm_scan")
+    assert t_library.get_family("ssm_scan") is t_library.SSM_SCAN
+    with pytest.raises(KeyError):
+        t_library.get_family("rwkv_scan")
 
 
 @pytest.mark.parametrize("args", [(8, 32, 8, 4096, 4096, 64),

@@ -256,8 +256,9 @@ def test_library_registers_matmul_as_the_reference_does():
     assert t_library.get_ip("matmul.mm_dual_full").impl is \
         t_dual.mm_dual_full
     assert t_library.get_family("attention").name == "attention"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_library.get_family("ssm_scan")
+    assert t_library.get_family("ssm_scan").name == "ssm_scan"
+    with pytest.raises(KeyError):
+        t_library.get_ip("rwkv_scan.wkv")
 
 
 # --------------------------------------------------------------------------

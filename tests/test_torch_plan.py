@@ -224,7 +224,8 @@ def test_unported_planner_paths_raise_named_errors(frontends):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
         t_plan.plan_network(specs, calibration=object())
     ssm = TSiteSpec.make("s", "ssm_scan", ((1, 8, 16), (1, 8, 4)))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="'ssm_scan' has no site adapter registered"):
         t_plan.plan_network([ssm])
     with pytest.raises(ValueError, match="duplicate site names"):
         t_plan.plan_network([specs[0], specs[0]])

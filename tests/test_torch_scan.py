@@ -1,0 +1,190 @@
+"""The port's ssm_scan family (``repro_torch.kernels.mamba_scan`` and its
+library registration) against the reference (``repro``).
+
+On a CPU tensor the port's ``selective_scan`` runs its plain PyTorch
+version, the function the CUDA kernel is checked against on the card by
+``chip_smoke.py``.  The reference's Pallas kernel does not run on the
+installed JAX (``pl.load`` is gone: ROADMAP queue 3), so the port is
+held against its oracle, ``selective_scan_ref``, as queue 2 item 16
+says.  Inputs are made with numpy from a seed, as the reference test's
+``_data`` draws them; the bound is the reference test's own
+(``rtol=1e-5, atol=1e-6``): both sides run the same f32 recurrence, the
+y sum over Ds in another order.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import library as j_library
+from repro.core import plan as j_plan
+from repro.core.ip import SiteSpec as JSpec
+from repro.kernels.mamba_scan import scan as j_scan
+from repro.kernels.mamba_scan.ref import selective_scan_ref as j_ref
+from repro_torch.core import library as t_library
+from repro_torch.core import plan as t_plan
+from repro_torch.core.ip import SiteSpec as TSpec
+from repro_torch.kernels import cuda
+from repro_torch.kernels.mamba_scan import scan as t_scan
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+from repro_torch.kernels.mamba_scan.scan import (selective_scan,
+                                                 selective_scan_plain)
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+# the reference's tests/test_kernels_mamba_scan.py::CASES (B, T, Di, Ds,
+# block_di), and a case at d_state 16 with Di no multiple of the block
+CASES = [(1, 8, 16, 4, 16), (2, 16, 32, 8, 16), (2, 12, 24, 4, 8),
+         (2, 64, 48, 16, 32)]
+FOOTPRINT_GRID = [(1, 2048, 16384, 16), (8, 4096, 4096, 16),
+                  (4, 512, 16384, 16), (2, 12, 24, 4), (1, 64, 100, 8)]
+
+
+def _data(rng, b, t, di, ds):
+    """The reference test's distribution (``_data``), as numpy."""
+    return (rng.normal(size=(b, t, di)).astype(np.float32),
+            (0.1 * np.abs(rng.normal(size=(b, t, di)))).astype(np.float32),
+            rng.normal(size=(b, t, ds)).astype(np.float32),
+            rng.normal(size=(b, t, ds)).astype(np.float32),
+            (-np.abs(rng.normal(size=(di, ds)))).astype(np.float32))
+
+
+def _reference(ops):
+    y, h = j_ref(*(jnp.asarray(a) for a in ops))
+    return np.asarray(y), np.asarray(h)
+
+
+@pytest.mark.parametrize("fn", ["plain", "wrapper"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_selective_scan_matches_reference(case, fn):
+    b, t, di, ds, bdi = case
+    ops = _data(np.random.default_rng(0), b, t, di, ds)
+    want_y, want_h = _reference(ops)
+    tops = [torch.from_numpy(a) for a in ops]
+    if fn == "plain":
+        y, h = selective_scan_plain(*tops)
+    else:
+        y, h = selective_scan(*tops, block_di=bdi)
+    assert y.dtype == h.dtype == torch.float32
+    assert tuple(y.shape) == (b, t, di) and tuple(h.shape) == (b, di, ds)
+    np.testing.assert_allclose(y.numpy(), want_y, **TOL)
+    np.testing.assert_allclose(h.numpy(), want_h, **TOL)
+
+
+def test_block_hint_does_not_change_results():
+    ops = [torch.from_numpy(a)
+           for a in _data(np.random.default_rng(1), 2, 40, 48, 8)]
+    y0, h0 = selective_scan(*ops)
+    for bdi in (1, 8, 48, 1024):
+        y, h = selective_scan(*ops, block_di=bdi)
+        assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+def test_bf16_inputs_give_the_reference_f32_outputs():
+    ops = _data(np.random.default_rng(2), 2, 16, 32, 8)
+    j_ops = [jnp.asarray(a, jnp.bfloat16) for a in ops]
+    want_y, want_h = (np.asarray(v) for v in j_ref(*j_ops))
+    t_ops = [torch.from_numpy(a).to(torch.bfloat16) for a in ops]
+    # both sides see the same bf16 values
+    for j, t in zip(j_ops, t_ops):
+        np.testing.assert_array_equal(np.asarray(j, np.float32),
+                                      t.to(torch.float32).numpy())
+    y, h = selective_scan(*t_ops)
+    assert y.dtype == h.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), want_y, **TOL)
+    np.testing.assert_allclose(h.numpy(), want_h, **TOL)
+
+
+def test_empty_sequence_returns_zero_state():
+    ops = [torch.from_numpy(a)
+           for a in _data(np.random.default_rng(3), 2, 0, 8, 4)]
+    y, h = selective_scan(*ops)
+    assert tuple(y.shape) == (2, 0, 8)
+    assert torch.equal(h, torch.zeros(2, 8, 4))
+
+
+def test_bad_operands_raise_named_errors():
+    x, dt, bp, cp, a = (torch.from_numpy(v) for v in
+                        _data(np.random.default_rng(4), 1, 4, 8, 4))
+    with pytest.raises(ValueError, match=r"x and dt \(B, T, Di\)"):
+        selective_scan(x, dt[:, :3], bp, cp, a)
+    with pytest.raises(ValueError, match=r"A must be \(Di, Ds\)"):
+        selective_scan(x, dt, bp, cp, a[:4])
+    with pytest.raises(ValueError, match=r"Cp must be \(B, T, Ds\)"):
+        selective_scan(x, dt, bp, cp[..., :2], a)
+    with pytest.raises(ValueError, match="block_di must be >= 1"):
+        selective_scan(x, dt, bp, cp, a, block_di=0)
+
+
+def test_cpu_calls_count_no_launch():
+    ops = [torch.from_numpy(a)
+           for a in _data(np.random.default_rng(5), 1, 8, 16, 4)]
+    cuda.reset_launches()
+    selective_scan(*ops)
+    t_library.get_family("ssm_scan")["ssm_scan.selective_vmem"](*ops)
+    assert cuda.launch_counts() == {}
+    # d_state 5 has no kernel, but the CPU runs the plain version
+    ops5 = [torch.from_numpy(a)
+            for a in _data(np.random.default_rng(5), 1, 8, 16, 5)]
+    selective_scan(*ops5)
+    assert cuda.launch_counts() == {}
+
+
+@pytest.mark.parametrize("shape", FOOTPRINT_GRID,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_footprint_equals_reference(shape):
+    for kw in ({}, dict(block_di=64), dict(block_di=100000)):
+        assert dataclasses.asdict(t_scan.footprint(*shape, **kw)) == \
+            dataclasses.asdict(j_scan.footprint(*shape, **kw))
+
+
+def test_footprint_hbm_advantage():
+    """The reference test's assertions on the port's footprint."""
+    b, t, di, ds = 8, 4096, 4096, 16
+    fp = t_scan.footprint(b, t, di, ds)
+    scan_twin_state_traffic = 2 * b * t * di * ds * 4
+    assert fp.hbm_bytes * 4 < scan_twin_state_traffic
+    assert fp.mxu_passes == 0
+
+
+def test_library_registers_ssm_scan_as_the_reference_does():
+    assert list(t_library.FAMILIES) == list(j_library.FAMILIES)
+    t_fam, j_fam = t_library.SSM_SCAN, j_library.SSM_SCAN
+    assert t_library.get_family("ssm_scan") is t_fam
+    assert t_fam.quantizable is j_fam.quantizable is False
+    assert t_fam.reference is selective_scan_ref
+    assert t_fam.site_adapter is None and j_fam.site_adapter is None
+    assert t_fam.names() == j_fam.names() == ["ssm_scan.selective_vmem"]
+    t_ip, j_ip = t_fam["selective_vmem"], j_fam["selective_vmem"]
+    for field in ("name", "family", "uses_mxu", "max_operand_bits",
+                  "outputs_per_pass", "supports_dtypes", "tags",
+                  "description"):
+        assert getattr(t_ip, field) == getattr(j_ip, field), field
+    assert t_library.get_ip("ssm_scan.selective_vmem").impl is selective_scan
+    assert dataclasses.asdict(t_ip.footprint(1, 2048, 16384, 16)) == \
+        dataclasses.asdict(j_ip.footprint(1, 2048, 16384, 16))
+
+
+@pytest.mark.parametrize("name", ["rwkv_scan", "ssm_scan.nope", "conv3d.x"])
+def test_unknown_names_raise_key_error_as_the_reference(name):
+    for lib in (t_library, j_library):
+        with pytest.raises(KeyError):
+            lib.get_ip(name)
+        with pytest.raises(KeyError):
+            lib.get_family(name.partition(".")[0] + "_family")
+
+
+def test_planning_an_ssm_site_raises_the_reference_message():
+    shapes = ((1, 8, 16), (1, 8, 4))
+    with pytest.raises(NotImplementedError) as want:
+        j_plan.plan_network([JSpec.make("s", "ssm_scan", shapes)])
+    with pytest.raises(NotImplementedError) as got:
+        t_plan.plan_network([TSpec.make("s", "ssm_scan", shapes)])
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError) as want:
+        j_plan.select_ip("ssm_scan", JSpec.make("s", "ssm_scan", shapes))
+    with pytest.raises(NotImplementedError) as got:
+        t_plan.select_ip("ssm_scan", TSpec.make("s", "ssm_scan", shapes))
+    assert str(got.value) == str(want.value)
+    assert "has no site adapter registered" in str(got.value)
