@@ -59,10 +59,16 @@ and prints no result):
    shapes; rows that see no key are 0; a GQA group too large for
    shared memory raises); ``matmul_dual`` on bf16 plans and launches
    ``mm_dual_full``, which equals two ``mm_mxu`` launches bitwise (bf16,
-   f32);
+   f32); the tensor-core route (int8 and bf16 ``mm_mxu`` / ``_mm_dual``,
+   ``csrc/mm_tc_kernels.cu``) at the ragged shapes of ``TC_RAGGED``
+   against the plain versions (int8 bit-exact, bf16 within ``MM_TOL``),
+   each dual stream bitwise equal to an ``mm_mxu`` launch;
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
-   kernels (``LOGIC_ONLY``);
-5. times  — per kernel: the median device time of 20 launches (CUDA
+   kernels (``LOGIC_ONLY``), IGMMA in the int8 and HGMMA in the bf16
+   tensor-core kernels (``TC_SASS``);
+5. times  — per kernel (``mm_mxu`` per operand dtype: f32 on CUDA
+   cores, int8 and bf16 on the tensor cores): the median device time of
+   20 launches (CUDA
    events, launches queued ahead of the device), its plain version's
    and the PyTorch library call's time, and the least time the card
    could take (bytes over peak bandwidth, or operations over the peak
@@ -114,6 +120,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CSRC = "src/repro_torch/kernels/csrc/cnn_kernels.cu"
 CSRC_MM = "src/repro_torch/kernels/csrc/mm_kernels.cu"
+CSRC_MM_TC = "src/repro_torch/kernels/csrc/mm_tc_kernels.cu"
 CSRC_ATTN = "src/repro_torch/kernels/csrc/attn_kernels.cu"
 CSRC_SCAN = "src/repro_torch/kernels/csrc/scan_kernels.cu"
 SEED = 0
@@ -168,6 +175,8 @@ REPLACES = {
     "conv2d_ip3": "src/repro/kernels/conv2d/ip3_packed.py:62",
     "conv2d_ip4": "src/repro/kernels/conv2d/ip4_dual.py:48",
     "mm_mxu": "src/repro/kernels/matmul/mxu.py:52",
+    "mm_mxu (int8)": "src/repro/kernels/matmul/mxu.py:52",
+    "mm_mxu (bf16)": "src/repro/kernels/matmul/mxu.py:52",
     "mm_vpu": "src/repro/kernels/matmul/mxu.py:89",
     "mm_dual_shared": "src/repro/kernels/matmul/dual.py:44",
     "mm_dual_full": "src/repro/kernels/matmul/dual.py:44",
@@ -175,7 +184,12 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/attention/decode.py:58",
     "selective_scan": "src/repro/kernels/mamba_scan/scan.py:54",
 }
-SOURCE = {name: (CSRC_MM if name.startswith("mm_") else
+# The rows of the kernels line that run on the tensor cores: mm_mxu on
+# int8 and bf16 operands ("mm_mxu (int8)", "mm_mxu (bf16)"; its f32 row
+# "mm_mxu" stays on CUDA cores) and the dual rows, timed on int8 and bf16.
+TC_ROWS = ("mm_mxu (int8)", "mm_mxu (bf16)", "mm_dual_shared", "mm_dual_full")
+SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
+                 CSRC_MM if name.startswith("mm_") else
                  CSRC_ATTN if name.startswith("flash_") else
                  CSRC_SCAN if name == "selective_scan" else CSRC)
           for name in REPLACES}
@@ -184,6 +198,11 @@ SOURCE = {name: (CSRC_MM if name.startswith("mm_") else
 LOGIC_ONLY = ("conv2d_ip3_kernel", "mm_vpu_kernel",
               "selective_scan_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
+# The tensor-core kernels of the MXU matmul members and the wgmma
+# instruction each must contain (and no other MMA kind).
+TC_SASS = {"mm_tc_mxu_i8_kernel": "IGMMA", "mm_tc_dual_i8_kernel": "IGMMA",
+           "mm_tc_mxu_bf16_kernel": "HGMMA",
+           "mm_tc_dual_bf16_kernel": "HGMMA"}
 
 # The dual-stream conv calls at each frontend block shape: operand dtype,
 # budget, and the member the planner gives (the reference's planner
@@ -214,6 +233,21 @@ MATMUL_PLANS = (
 # f32 matmul tolerance at K=2048 with unit-normal operands: the kernels
 # sum each output in one sequential FMA chain, cuBLAS in another order.
 MM_TOL = dict(rtol=2e-4, atol=1e-3)
+# (M, K, N) of the tensor-core route's ragged cases: M, N no multiple of
+# the 128 x 256 CTA tile, int8 K and N no multiple of 16 bytes (the
+# wrapper pads them), bf16 K and N padded too in the second case
+TC_RAGGED = ((300, 1000, 520), (1, 17, 3), (130, 72, 1000))
+
+
+def mm_row(kernel, dtype):
+    """The row of the kernels line that a launch of ``kernel`` on
+    ``dtype`` operands counts under: ``mm_mxu`` on int8 or bf16 runs the
+    tensor-core kernels, on f32 the CUDA-core one."""
+    import torch
+    if kernel == "mm_mxu" and dtype in (torch.int8, torch.bfloat16):
+        return f"mm_mxu ({'int8' if dtype == torch.int8 else 'bf16'})"
+    return kernel
+
 
 # The budget sweep's LM sites (examples/budget_sweep.py:38-54) at
 # Llama-3.2-1B's widths (src/repro/configs/llama3_2_1b.py:10-11: d_model
@@ -926,26 +960,28 @@ def matmul_checks(gen, errs):
                                 f"{want}")
         y = launched_once(lambda: matmul(a, b, budget=budget, ladder=ladder),
                           kernel, what)
-        launches[kernel] = launches.get(kernel, 0) + 1
+        row = mm_row(kernel, torch.int8 if p.precision_bits == 8
+                     else a.dtype)
+        launches[row] = launches.get(row, 0) + 1
         if p.precision_bits == 8 and dname == "float32":
             # quantized_matmul's own steps around the int32 accumulator
             aq, bq = quantize_acts(a, bits=8), quantize_weights(b, bits=8)
             ref = (mm_mxu_plain(aq.q, bq.q).to(torch.float32)
                    * (aq.scale * bq.scale.reshape(1, -1)))
-            compare(kernel, y, ref, 0, 0, errs, exact=True)
+            compare(row, y, ref, 0, 0, errs, exact=True)
         elif p.precision_bits == 16:
             ref = mm_vpu_plain(fake_quant(a, bits=16),
                                fake_quant(b, bits=16, axis=-1))
-            compare(kernel, y, ref, MM_TOL["rtol"], MM_TOL["atol"], errs)
+            compare(row, y, ref, MM_TOL["rtol"], MM_TOL["atol"], errs)
         else:
-            compare(kernel, y, mm_mxu_plain(a, b), MM_TOL["rtol"],
+            compare(row, y, mm_mxu_plain(a, b), MM_TOL["rtol"],
                     MM_TOL["atol"], errs, exact=dname == "int8")
         log(f"{what} -> {want}: one {kernel} launch")
     x, w = ops["float32"]
     wq = quantize_weights(w)
     y = launched_once(lambda: int8_matmul(x, wq, use_kernel=True), "mm_mxu",
                       "int8_matmul(use_kernel=True)")
-    launches["mm_mxu"] += 1
+    launches["mm_mxu (int8)"] += 1
     check(torch.equal(y, int8_matmul(x, wq)),
           "int8_matmul: the kernel path differs from use_kernel=False")
     log(f"int8_matmul(use_kernel=True) at {FFN}: one mm_mxu launch, "
@@ -959,14 +995,45 @@ def matmul_checks(gen, errs):
         check(torch.equal(mm_vpu(a, b, bm=8, bn=16), base),
               f"{dname}: mm_vpu and mm_mxu differ")
     a, b = (t.to(torch.bfloat16) for t in ops["float32"])
-    compare("mm_mxu", mm_mxu(a, b), mm_mxu_plain(a, b), MM_TOL["rtol"],
-            MM_TOL["atol"], errs)
+    compare("mm_mxu (bf16)", mm_mxu(a, b), mm_mxu_plain(a, b),
+            MM_TOL["rtol"], MM_TOL["atol"], errs)
     compare("mm_vpu", mm_vpu(a, b), mm_vpu_plain(a, b), MM_TOL["rtol"],
             MM_TOL["atol"], errs)
     log("mm_mxu bitwise independent of bm/bn/bk; mm_vpu == mm_mxu bitwise "
         "(f32 and int8); bf16 within tolerance")
+    tc_ragged_checks(gen, errs)
     torch.cuda.synchronize()
     return launches
+
+
+def tc_ragged_checks(gen, errs):
+    """The tensor-core route at TC_RAGGED on int8 and bf16: ``mm_mxu``
+    against its plain version (int8 bit-exact, bf16 within MM_TOL), and
+    ``mm_dual_full`` (on int8 ``mm_dual_shared`` too) bitwise equal to
+    two ``mm_mxu`` launches."""
+    import torch
+    from repro_torch.kernels.matmul.dual import mm_dual_full, mm_dual_shared
+    from repro_torch.kernels.matmul.mxu import mm_mxu, mm_mxu_plain
+    for dtype in (torch.int8, torch.bfloat16):
+        exact = dtype == torch.int8
+        row = mm_row("mm_mxu", dtype)
+        duals = (("mm_dual_full", mm_dual_full),) + (
+            (("mm_dual_shared", mm_dual_shared),) if exact else ())
+        for m, k, n in TC_RAGGED:
+            a1, a2 = (operand(gen, (m, k), dtype) for _ in range(2))
+            b = operand(gen, (k, n), dtype)
+            ys = mm_mxu(a1, b), mm_mxu(a2, b)
+            for y, a in zip(ys, (a1, a2)):
+                compare(row, y, mm_mxu_plain(a, b), MM_TOL["rtol"],
+                        MM_TOL["atol"], errs, exact=exact)
+            for name, dual in duals:
+                check(all(torch.equal(u, v)
+                          for u, v in zip(dual(a1, a2, b), ys)),
+                      f"{name} {dtype} at {(m, k, n)}: not bitwise equal "
+                      f"to two mm_mxu launches")
+    log(f"tensor-core route at ragged (M, K, N) {TC_RAGGED}: mm_mxu int8 "
+        f"bit-exact and bf16 within MM_TOL; mm_dual_full (and int8 "
+        f"mm_dual_shared) bitwise equal to two mm_mxu launches")
 
 
 # ---------------------------------------------------------------------------
@@ -1127,7 +1194,7 @@ def lm_site_checks(sites_of, rng, errs):
            "decode": [np_operand(rng, s, bf16) for s in (dqs, dkvs, dkvs)]}
     launches = {}
     for site, member, bits, lowered in lm_site_runs(sites_of):
-        kernel = MEMBER_KERNEL[member]
+        kernel = row = MEMBER_KERNEL[member]
         what = f"{site} {member}@{bits}b{'*' if lowered else ''}"
         if site == "conv3x3":
             xa, xb, w = ops["conv"]
@@ -1162,7 +1229,8 @@ def lm_site_checks(sites_of, rng, errs):
                                   what)
                 want = (mm_mxu_plain if member == "mm_mxu"
                         else mm_vpu_plain)(a1, b)
-                compare(kernel, y, want, MM_TOL["rtol"], MM_TOL["atol"],
+                row = mm_row(kernel, a1.dtype)
+                compare(row, y, want, MM_TOL["rtol"], MM_TOL["atol"],
                         errs, exact=bits == 8)
         elif site == "attn_train4k":
             q, k, v = ops["train"]
@@ -1176,7 +1244,7 @@ def lm_site_checks(sites_of, rng, errs):
                               what)
             compare_attention(kernel, y, flash_decode_plain, q, k, v, False,
                               ATTN_BF16_TOL, errs)
-        launches[kernel] = launches.get(kernel, 0) + 1
+        launches[row] = launches.get(row, 0) + 1
         log(f"{what}: one {kernel} launch")
     for name in ("train", "decode"):
         q, k, v = ops[name]
@@ -1436,9 +1504,18 @@ def sass_check(lib_path):
                   f"{name}: no multiply-add in its SASS")
             check(counts[name] == 0, f"{name}: {counts[name]} MMA "
                                      f"instructions in a logic-only kernel")
+    for kernel, want in TC_SASS.items():
+        mine = [name for name in bodies if kernel in name]
+        check(bool(mine), f"no SASS for {kernel} in {lib_path.name}")
+        for name in mine:
+            kinds = {k: len(re.findall(rf"\b{k}\b", bodies[name]))
+                     for k in MMA_SASS}
+            check(kinds[want] > 0 and counts[name] == kinds[want],
+                  f"{name}: MMA instructions {kinds}, expected {want} only")
     log(f"SASS: {len(bodies)} kernels; no {'|'.join(MMA_SASS)} in "
-        f"{', '.join(LOGIC_ONLY)}; MMA in any kernel: "
-        f"{sum(counts.values())}")
+        f"{', '.join(LOGIC_ONLY)}; "
+        + ", ".join(f"{k}: {v}" for k, v in TC_SASS.items())
+        + f"; MMA in any kernel: {sum(counts.values())}")
     return counts
 
 
@@ -1621,7 +1698,8 @@ def timings(shapes, gen, peaks):
         yardstick=("two conv2d_ip2 launches",
                    time_ms(lambda: (conv2d_ip2(fa, fw), conv2d_ip2(fb, fw)))))
 
-    # the matmuls at FFN: f32 (FP32 rate), int8 (int8 tensor-core peak)
+    # the matmuls at FFN: f32 (FP32 rate), int8 and bf16 (their
+    # tensor-core peaks)
     from repro_torch.kernels.matmul.mxu import (mm_mxu, mm_mxu_plain,
                                                 mm_vpu, mm_vpu_plain)
     m, k, n = FFN
@@ -1636,11 +1714,14 @@ def timings(shapes, gen, peaks):
     except RuntimeError:             # cuBLASLt may want b column-major
         b8_lib, layout = b8.t().contiguous().t(), "column-major"
 
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
     for name, kern, plain, x, y, rate, lib_fn in (
             ("mm_mxu", mm_mxu, mm_mxu_plain, a, b, "fp32_flops",
              lambda: torch.matmul(a, b)),
             ("mm_mxu (int8)", mm_mxu, mm_mxu_plain, a8, b8,
              "int8_tensor_ops", lambda: torch._int_mm(a8, b8_lib)),
+            ("mm_mxu (bf16)", mm_mxu, mm_mxu_plain, a16, b16,
+             "bf16_tensor_flops", lambda: torch.matmul(a16, b16)),
             ("mm_vpu", mm_vpu, mm_vpu_plain, a, b, "fp32_flops",
              lambda: torch.matmul(a, b))):
         out = kern(x, y)
@@ -2196,8 +2277,8 @@ def main() -> int:
     lm_rng = np.random.default_rng(SEED)
     lm_launches, lm_ops = lm_site_checks(lm_sites, lm_rng, errs)
     lm_launches.update(lm_kernel_checks(lm_ops, lm_rng, errs))
-    for name in ("mm_dual_shared", "mm_dual_full", "flash_attention",
-                 "flash_decode"):
+    for name in ("mm_mxu (bf16)", "mm_dual_shared", "mm_dual_full",
+                 "flash_attention", "flash_decode"):
         launches[name] = lm_launches[name]
     sass_check(lib)
 

@@ -20,8 +20,8 @@ the single selection engine behind every family:
   infeasibility, re-running selection at the lowered width so packed
   int8 members (conv2d.ip3_packed, int8 matmul) and shrunken footprints
   enter the race.  The chosen width lands in
-  ``PlannedSite.precision_bits``; executing a lowered site is the
-  quantization slice (ROADMAP queue 1, item 4) and raises until then.
+  ``PlannedSite.precision_bits``, and the op wrappers execute a lowered
+  site through ``quant/`` (fake-quant at 16 bits, the int8 kernels at 8).
 * Plans are memoized on ``(graph-key, budget)`` — repeated trace-time
   calls (e.g. re-tracing ``apply_cnn_block``) are O(1) dict hits with
   zero new footprint evaluations — and serialize to/from JSON for

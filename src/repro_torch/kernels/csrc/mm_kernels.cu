@@ -1,5 +1,8 @@
-// The matmul kernels of the port: three __global__ kernels and their plain
-// C launchers, loaded with ctypes by src/repro_torch/kernels/cuda.py.
+// The CUDA-core matmul kernels of the port: three __global__ kernels and
+// their plain C launchers, loaded with ctypes by
+// src/repro_torch/kernels/cuda.py.  The MXU members on int8 and bf16
+// operands run on the tensor cores instead (mm_tc_kernels.cu); here run
+// mm_vpu on every dtype and mm_mxu / _mm_dual on f32.
 //
 // Built with the flags of cnn_kernels.cu (-fmad=false), which shares its
 // arithmetic helpers (cnn_device.cuh: widen, mac).  a (M, K) and b (K, N)
@@ -7,20 +10,17 @@
 // accumulator, bf16 widened exactly on load) or int8 (int32 accumulator,
 // wrapping).  Every output is ONE sequential multiply-add chain over
 // k = 0 .. K-1 (explicit __fmaf_rn for floats), so results never depend
-// on the tiling, and mm_mxu and mm_vpu agree bitwise.  The reference's
-// block hints (bm, bn, bk) are TPU VMEM tiling: the wrappers validate
-// them and they do not shape these launches.
+// on the tiling, and f32 mm_mxu and mm_vpu agree bitwise.  The
+// reference's block hints (bm, bn, bk) are TPU VMEM tiling: the wrappers
+// validate them and they do not shape these launches.
 //
-// mm_mxu_kernel<T>  replaces src/repro/kernels/matmul/mxu.py::mm_mxu
-//   2*M*N*K operations on M*K + K*N inputs: at the FFN shapes of the
-//   chip run (512 x 2048 x 8192) the FP32 rate bounds f32, and device
-//   memory bounds int8 against the int8 tensor-core peak.  This version
-//   runs on CUDA cores: a 128x128 CTA tile, K staged 8 deep in shared
-//   memory (widened to the accumulator type), 256 threads each holding
+// mm_mxu_kernel<float>  replaces src/repro/kernels/matmul/mxu.py::mm_mxu
+//   on f32.  2*M*N*K operations on M*K + K*N inputs: at the FFN shapes of
+//   the chip run (512 x 2048 x 8192) the FP32 rate bounds it.  A 128x128
+//   CTA tile, K staged 8 deep in shared memory, 256 threads each holding
 //   an 8x8 register tile, rows ty + 16r and columns tx + 16q so shared
-//   loads and global stores are conflict-free and coalesced.  FP32 FMA
-//   for floats (TF32 misses the reference tolerance), IMAD for int8;
-//   wgmma/IMMA with TMA loads are later work (ROADMAP queue 2).
+//   loads and global stores are conflict-free and coalesced.  FP32 FMA:
+//   Hopper has no IEEE-f32 MMA, and TF32 misses the reference tolerance.
 //
 // mm_vpu_kernel<T>  replaces src/repro/kernels/matmul/mxu.py::mm_vpu
 //   The logic-only member: no shared-memory tile, no MMA instruction.
@@ -29,17 +29,15 @@
 //   block share them through L1.  Bound as mm_mxu by the FP32 rate; it
 //   re-reads a and b from cache once per output.
 //
-// mm_dual_kernel<T>  replaces src/repro/kernels/matmul/dual.py::_mm_dual
-//   (mm_dual_shared on int8, mm_dual_full on int8/bf16/f32).  Two a
-//   streams against one b: 4*M*N*K operations on 2*M*K + K*N inputs and
-//   two (M, N) outputs; at the LM sweep's FFN (4096 x 2048 x 8192, int8)
-//   the int8 tensor-core peak bounds it.  mm_mxu's tile body with two a
-//   tiles and ONE b tile staged per k-step, both streams reading it: the
-//   weights cross device memory once for two outputs, as in the
-//   reference.  Two 8x8 register tiles would be 128 accumulators a
-//   thread, so each stream keeps 8x4 (a 128 x 64 CTA tile); each output
-//   is still mm_mxu's chain, so each stream equals an mm_mxu launch
-//   bitwise.  CUDA cores, as mm_mxu.
+// mm_dual_kernel<float>  replaces src/repro/kernels/matmul/dual.py::
+//   _mm_dual (mm_dual_full) on f32.  Two a streams against one b: 4*M*N*K
+//   operations on 2*M*K + K*N inputs and two (M, N) outputs, bound by
+//   the FP32 rate.  mm_mxu's tile body with two a tiles and ONE b tile
+//   staged per k-step, both streams reading it: the weights cross device
+//   memory once for two outputs, as in the reference.  Two 8x8 register
+//   tiles would be 128 accumulators a thread, so each stream keeps 8x4 (a
+//   128 x 64 CTA tile); each output is still mm_mxu's chain, so each
+//   stream equals an mm_mxu launch bitwise.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -186,32 +184,31 @@ __global__ void mm_vpu_kernel(const T* __restrict__ a,
   c[size_t(m) * N + n] = acc;
 }
 
-template <typename T>
-int launch(int style, const void* a, const void* b, void* c, int M, int N,
-           int K, cudaStream_t st) {
-  using A = typename Acc<T>::type;
-  if (style == kMxu) {
-    dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    mm_mxu_kernel<T><<<grid, kSide * kSide, 0, st>>>(
-        (const T*)a, (const T*)b, (A*)c, M, N, K);
-  } else if (style == kVpu) {
-    dim3 grid((N + kVpuCols - 1) / kVpuCols, (M + kVpuRows - 1) / kVpuRows);
-    mm_vpu_kernel<T><<<grid, dim3(kVpuCols, kVpuRows), 0, st>>>(
-        (const T*)a, (const T*)b, (A*)c, M, N, K);
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
+int launch_mxu(const void* a, const void* b, void* c, int M, int N, int K,
+               cudaStream_t st) {
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  mm_mxu_kernel<float><<<grid, kSide * kSide, 0, st>>>(
+      (const float*)a, (const float*)b, (float*)c, M, N, K);
   return int(cudaGetLastError());
 }
 
 template <typename T>
+int launch_vpu(const void* a, const void* b, void* c, int M, int N, int K,
+               cudaStream_t st) {
+  using A = typename Acc<T>::type;
+  dim3 grid((N + kVpuCols - 1) / kVpuCols, (M + kVpuRows - 1) / kVpuRows);
+  mm_vpu_kernel<T><<<grid, dim3(kVpuCols, kVpuRows), 0, st>>>(
+      (const T*)a, (const T*)b, (A*)c, M, N, K);
+  return int(cudaGetLastError());
+}
+
 int launch_dual(const void* a1, const void* a2, const void* b, void* c1,
                 void* c2, int M, int N, int K, cudaStream_t st) {
-  using A = typename Acc<T>::type;
   dim3 grid((N + kSide * kDualCols - 1) / (kSide * kDualCols),
             (M + kTile - 1) / kTile);
-  mm_dual_kernel<T><<<grid, kSide * kSide, 0, st>>>(
-      (const T*)a1, (const T*)a2, (const T*)b, (A*)c1, (A*)c2, M, N, K);
+  mm_dual_kernel<float><<<grid, kSide * kSide, 0, st>>>(
+      (const float*)a1, (const float*)a2, (const float*)b, (float*)c1,
+      (float*)c2, M, N, K);
   return int(cudaGetLastError());
 }
 
@@ -219,30 +216,29 @@ int launch_dual(const void* a1, const void* a2, const void* b, void* c1,
 
 extern "C" {
 
+// mm_vpu on f32, bf16 or int8; mm_mxu on f32 (int8 and bf16 run on
+// mm_tc_kernels.cu's tensor-core kernels)
 int cnn_matmul(int style, int dtype, const void* a, const void* b, void* c,
                int M, int N, int K, void* stream) {
   cudaStream_t st = cudaStream_t(stream);
-  if (dtype == mm::kF32) return mm::launch<float>(style, a, b, c, M, N, K, st);
-  if (dtype == mm::kBF16) {
-    return mm::launch<__nv_bfloat16>(style, a, b, c, M, N, K, st);
+  if (style == mm::kMxu) {
+    return dtype == mm::kF32 ? mm::launch_mxu(a, b, c, M, N, K, st)
+                             : int(cudaErrorInvalidValue);
   }
-  if (dtype == mm::kI8) return mm::launch<int8_t>(style, a, b, c, M, N, K, st);
+  if (style != mm::kVpu) return int(cudaErrorInvalidValue);
+  if (dtype == mm::kF32) return mm::launch_vpu<float>(a, b, c, M, N, K, st);
+  if (dtype == mm::kBF16) {
+    return mm::launch_vpu<__nv_bfloat16>(a, b, c, M, N, K, st);
+  }
+  if (dtype == mm::kI8) return mm::launch_vpu<int8_t>(a, b, c, M, N, K, st);
   return int(cudaErrorInvalidValue);
 }
 
+// _mm_dual on f32 (int8 and bf16 run on mm_tc_kernels.cu)
 int cnn_matmul_dual(int dtype, const void* a1, const void* a2, const void* b,
                     void* c1, void* c2, int M, int N, int K, void* stream) {
-  cudaStream_t st = cudaStream_t(stream);
-  if (dtype == mm::kF32) {
-    return mm::launch_dual<float>(a1, a2, b, c1, c2, M, N, K, st);
-  }
-  if (dtype == mm::kBF16) {
-    return mm::launch_dual<__nv_bfloat16>(a1, a2, b, c1, c2, M, N, K, st);
-  }
-  if (dtype == mm::kI8) {
-    return mm::launch_dual<int8_t>(a1, a2, b, c1, c2, M, N, K, st);
-  }
-  return int(cudaErrorInvalidValue);
+  if (dtype != mm::kF32) return int(cudaErrorInvalidValue);
+  return mm::launch_dual(a1, a2, b, c1, c2, M, N, K, cudaStream_t(stream));
 }
 
 }  // extern "C"

@@ -29,15 +29,16 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("cnn_kernels.cu", "mm_kernels.cu", "attn_kernels.cu",
-           "scan_kernels.cu")
+SOURCES = ("cnn_kernels.cu", "mm_kernels.cu", "mm_tc_kernels.cu",
+           "attn_kernels.cu", "scan_kernels.cu")
 HEADERS = ("cnn_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
-# dtype codes of the kernels (enum DType of cnn_kernels.cu; mm_kernels.cu
-# and attn_kernels.cu use the same codes; scan_kernels.cu takes f32 only)
+# dtype codes of the kernels (enum DType of cnn_kernels.cu; mm_kernels.cu,
+# mm_tc_kernels.cu and attn_kernels.cu use the same codes; scan_kernels.cu
+# takes f32 only)
 DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2,
               torch.int16: 3, torch.bfloat16: 4}
 
@@ -57,6 +58,8 @@ _SIGNATURES = {
                         _I, _I, _P),
     "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _P),
     "cnn_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "mm_tc_matmul": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mm_tc_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "attn_flash": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "attn_decode": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -164,15 +167,20 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
+def require_dtype(what: str, dtype: torch.dtype, dtypes) -> None:
+    if dtype not in dtypes:
+        raise TypeError(f"{what} dtype {dtype} is not supported by the "
+                        f"CUDA kernel (have {list(dtypes)})")
+
+
 def require(t: torch.Tensor, what: str, dtypes=None, ndim=None) -> None:
     """The checks a kernel wrapper makes before handing pointers over."""
     if not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
-    if dtypes is not None and t.dtype not in dtypes:
-        raise TypeError(f"{what} dtype {t.dtype} is not supported by the "
-                        f"CUDA kernel (have {list(dtypes)})")
+    if dtypes is not None:
+        require_dtype(what, t.dtype, dtypes)
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{what} must have {ndim} dims, got "
                          f"{tuple(t.shape)}")

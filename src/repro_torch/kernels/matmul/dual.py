@@ -13,12 +13,22 @@ analogue): the same structure at any kernel dtype.  Outputs keep the
 accumulator dtype, as the reference's do: int32 for integer operands,
 f32 otherwise.
 
-The kernel (``mm_dual_kernel<T>`` in ``csrc/mm_kernels.cu``) runs
-``mm_mxu_kernel``'s staging with two A tiles against one shared B tile
-per k-step, each output one sequential multiply-add chain over K in
-``mm_mxu``'s order, so each stream equals an ``mm_mxu`` launch bitwise.
-``bm/bn/bk`` are validated hints that do not shape the launch.  The
-plain versions are the family oracle (``ref.matmul_dual_ref``).
+On int8 and bf16 operands both members run on the tensor cores
+(``mm_tc_dual_*_kernel`` in ``csrc/mm_tc_kernels.cu``), ``mm_mxu``'s tile
+body with NS=2: per k-step the producer warpgroup stages 64 rows of each
+stream and ONE b tile, and each consumer warpgroup issues ``wgmma`` for
+one stream against that b tile.  At the LM sweep's FFN, 2 x (4096, 2048)
+x (2048, 8192), the tensor-core peak of the operand type bounds them.
+A b tile feeds 64 rows of each stream where ``mm_mxu``'s feeds 128 rows
+of one (the accumulator registers cap the rows a tile can feed), so the
+kernel moves the bytes of two ``mm_mxu`` launches in one launch.  Each
+output sees ``mm_mxu``'s instruction, k-chunk
+order and accumulator, so each stream equals an ``mm_mxu`` launch
+bitwise.  On f32 they run ``mm_dual_kernel<float>`` (``csrc/
+mm_kernels.cu``, CUDA cores: ``mm_mxu``'s f32 tile body with two a
+tiles against one shared b tile), again equal to two ``mm_mxu`` launches
+bitwise.  ``bm/bn/bk`` are validated hints that do not shape the launch.
+The plain versions are the family oracle (``ref.matmul_dual_ref``).
 """
 from __future__ import annotations
 
@@ -26,7 +36,9 @@ import torch
 
 from repro_torch.core.resources import Footprint, cost_cycles, mxu_pass_cycles
 from repro_torch.kernels import cuda
-from repro_torch.kernels.matmul.mxu import KERNEL_DTYPES, _acc_dtype, _cdiv
+from repro_torch.kernels.matmul.mxu import (KERNEL_DTYPES, TC_DTYPES,
+                                            _acc_dtype, _cdiv,
+                                            pad_tc_operands)
 from repro_torch.kernels.matmul.mxu import _check as _check_single
 from repro_torch.kernels.matmul.ref import matmul_dual_ref
 
@@ -45,14 +57,27 @@ def _require_int8(a1, a2, b) -> None:
                             f"(paper Conv3 contract); got {t.dtype}")
 
 
-def _launch(counter: str, a1, a2, b):
-    """Launch ``cnn_matmul_dual`` once for CUDA operands of one dtype."""
-    for name, t in (("a1", a1), ("a2", a2), ("b", b)):
-        if t.dtype not in KERNEL_DTYPES or t.dtype != a1.dtype:
+def entry_point(a1_dtype: torch.dtype, a2_dtype: torch.dtype,
+                b_dtype: torch.dtype) -> str:
+    """The C entry point a CUDA launch takes for these operand dtypes:
+    int8/bf16 -> ``mm_tc_matmul_dual`` (tensor cores), f32 ->
+    ``cnn_matmul_dual`` (CUDA cores).  Raises ``TypeError`` for a dtype
+    without a kernel or operands of more than one dtype."""
+    for name, dtype in (("a1", a1_dtype), ("a2", a2_dtype), ("b", b_dtype)):
+        if dtype not in KERNEL_DTYPES or dtype != a1_dtype:
             raise TypeError(
-                f"{name} dtype {t.dtype} has no CUDA dual matmul kernel (a1 "
-                f"is {a1.dtype}; have {list(KERNEL_DTYPES)}, one dtype for "
+                f"{name} dtype {dtype} has no CUDA dual matmul kernel (a1 "
+                f"is {a1_dtype}; have {list(KERNEL_DTYPES)}, one dtype for "
                 f"all three; ROADMAP queue 2, item 13)")
+    return ("mm_tc_matmul_dual" if a1_dtype in TC_DTYPES
+            else "cnn_matmul_dual")
+
+
+def _launch(counter: str, a1, a2, b):
+    """Launch ``entry_point``'s kernel once for CUDA operands of one
+    dtype."""
+    entry = entry_point(a1.dtype, a2.dtype, b.dtype)
+    for name, t in (("a1", a1), ("a2", a2), ("b", b)):
         cuda.require(t, name)
         if t.device != a1.device:
             raise ValueError(f"a1 and {name} lie on {a1.device} and "
@@ -64,9 +89,13 @@ def _launch(counter: str, a1, a2, b):
     y2 = torch.empty((m, n), dtype=acc, device=a1.device)
     if y1.numel() == 0:
         return y1, y2
-    cuda.launch(counter, "cnn_matmul_dual", a1.device,
-                cuda.DTYPE_CODE[a1.dtype], a1.data_ptr(), a2.data_ptr(),
-                b.data_ptr(), y1.data_ptr(), y2.data_ptr(), m, n, k)
+    dims = [k]
+    if entry == "mm_tc_matmul_dual":          # padded K and b's row stride
+        (a1, a2), b = pad_tc_operands((a1, a2), b)
+        dims = [a1.shape[1], b.shape[1]]
+    cuda.launch(counter, entry, a1.device, cuda.DTYPE_CODE[a1.dtype],
+                a1.data_ptr(), a2.data_ptr(), b.data_ptr(), y1.data_ptr(),
+                y2.data_ptr(), m, n, *dims)
     return y1, y2
 
 

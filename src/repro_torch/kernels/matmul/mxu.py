@@ -4,21 +4,34 @@ Replaces ``repro/kernels/matmul/mxu.py::{mm_mxu, mm_vpu}``.
 
 ``mm_mxu`` is the Conv2 analogue for the LM hot path: the reference
 takes one MXU pass per (bm, bn, bk) tile into an f32/int32 VMEM
-accumulator, K innermost.  The kernel (``mm_mxu_kernel`` in
-``csrc/mm_kernels.cu``) stages 128x128 tiles of a and b in shared memory
-and keeps an 8x8 register tile of accumulators per thread: FP32 FMA for
-f32/bf16 (f32 accumulator), int32 multiply-add for int8 (int32
-accumulator).
+accumulator, K innermost.  On int8 and bf16 operands it runs on Hopper's
+tensor cores (``mm_tc_mxu_*_kernel`` in ``csrc/mm_tc_kernels.cu``):
+``wgmma`` into an int32 (exact, wrapping) or f32 accumulator, fed by a
+ring of shared-memory stages that a producer warpgroup fills while two
+consumer warpgroups compute.  At the FFN, (512, 2048) x (2048, 8192),
+device memory bounds int8 (b and the int32 output) and the bf16
+tensor-core peak bounds bf16; a CTA owns 128 x 256 outputs, so the FFN
+is 128 CTAs on 132 SMs and reads b from device memory about once.  The
+8-bit ``wgmma`` takes b only K-major, so the producer stages int8 b's
+tiles in shared memory as they lie and transposes them there into the
+layout ``wgmma`` reads; bf16 b goes in as it lies and ``wgmma``
+transposes it.  On f32 operands it
+stays on CUDA cores (``mm_mxu_kernel`` in ``csrc/mm_kernels.cu``, FP32
+FMA into an 8x8 register tile a thread): Hopper has no IEEE-f32 MMA, and
+TF32 misses the reference tolerance.
 
 ``mm_vpu`` is the Conv1 analogue: no dot, no tile — one thread per
 output multiplies and sums along K on CUDA cores and issues no MMA
 instruction (the logic-only contract of ``mxu_available=False``).
 
 Where the reference pads its operands to block multiples and crops, the
-kernels check bounds; each output is one sequential multiply-add chain
-over K in both, so results never depend on ``bm/bn/bk`` (validated, not
-shaping the launch) and the two members agree bitwise.  The plain
-versions are the family oracle (``ref.matmul_ref``).
+CUDA-core kernels check bounds, and the tensor-core route zero-pads K
+and b's row stride to 16 bytes (``pad_tc_operands``, a layout step:
+zeros add exact +0 terms) and masks the ragged edge.  Results never
+depend on ``bm/bn/bk`` (validated, not shaping the launch); int8 results
+are exact, so ``mm_mxu`` and ``mm_vpu`` agree bitwise on int8, and on f32
+(one sequential multiply-add chain over K in both).  The plain versions
+are the family oracle (``ref.matmul_ref``).
 """
 from __future__ import annotations
 
@@ -31,6 +44,10 @@ from repro_torch.kernels.conv2d.inner import check_block
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+# operand dtypes of the tensor-core route (csrc/mm_tc_kernels.cu): 16 bytes
+# of K per wgmma k-chunk pair, so K and b's row stride pad to 16 bytes
+TC_DTYPES = (torch.bfloat16, torch.int8)
+TC_ALIGN_BYTES = 16
 STYLE_CODE = {"vpu": 0, "mxu": 1}
 
 
@@ -52,12 +69,48 @@ def _check(a: torch.Tensor, b: torch.Tensor, **blocks) -> None:
         check_block(name, value)
 
 
+def entry_point(style: str, a_dtype: torch.dtype,
+                b_dtype: torch.dtype) -> str:
+    """The C entry point a CUDA launch of ``style`` takes for these
+    operand dtypes: ``mm_mxu`` on int8/bf16 -> ``mm_tc_matmul`` (tensor
+    cores), every other case -> ``cnn_matmul`` (CUDA cores).  Raises
+    ``TypeError`` for a dtype without a kernel or two operand dtypes."""
+    cuda.require_dtype("a", a_dtype, KERNEL_DTYPES)
+    cuda.require_dtype("b", b_dtype, (a_dtype,))
+    if style == "mxu" and a_dtype in TC_DTYPES:
+        return "mm_tc_matmul"
+    return "cnn_matmul"
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    if tuple(t.shape) == (rows, cols) and t.data_ptr() % TC_ALIGN_BYTES == 0:
+        return t
+    out = t.new_zeros((rows, cols))
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def pad_tc_operands(streams, b: torch.Tensor):
+    """The operands as the tensor-core kernels take them: K (the streams'
+    columns, b's rows) and b's columns rounded up to 16 bytes, each base
+    16-byte aligned; zero-padded copies where needed, the operands
+    themselves where not.  The zeros add exact +0 terms, and the kernel
+    writes only the true (M, N): a plain product of the padded operands
+    cropped to (M, N) equals the unpadded one.  Returns (streams, b)."""
+    align = TC_ALIGN_BYTES // b.element_size()
+    k, n = b.shape
+    kp, np_ = _cdiv(k, align) * align, _cdiv(n, align) * align
+    return (tuple(_pad_to(a, a.shape[0], kp) for a in streams),
+            _pad_to(b, kp, np_))
+
+
 def _launch(counter: str, style: str, a: torch.Tensor,
             b: torch.Tensor) -> torch.Tensor:
-    """Launch ``cnn_matmul`` (``csrc/mm_kernels.cu``) once for CUDA
-    operands of one dtype: int8 gives int32, f32/bf16 give f32."""
-    cuda.require(a, "a", KERNEL_DTYPES)
-    cuda.require(b, "b", (a.dtype,))
+    """Launch ``entry_point``'s kernel once for CUDA operands of one
+    dtype: int8 gives int32, f32/bf16 give f32."""
+    entry = entry_point(style, a.dtype, b.dtype)
+    cuda.require(a, "a")
+    cuda.require(b, "b")
     if b.device != a.device:
         raise ValueError(f"a and b lie on {a.device} and {b.device}")
     m, k = a.shape
@@ -65,9 +118,15 @@ def _launch(counter: str, style: str, a: torch.Tensor,
     out = torch.empty((m, n), dtype=_acc_dtype(a, b), device=a.device)
     if out.numel() == 0:
         return out
-    cuda.launch(counter, "cnn_matmul", a.device, STYLE_CODE[style],
-                cuda.DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, n, k)
+    code = cuda.DTYPE_CODE[a.dtype]
+    if entry == "cnn_matmul":
+        cuda.launch(counter, entry, a.device, STYLE_CODE[style], code,
+                    a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k)
+    else:
+        (a,), b = pad_tc_operands((a,), b)
+        cuda.launch(counter, entry, a.device, code, a.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), m, n, a.shape[1],
+                    b.shape[1])
     return out
 
 

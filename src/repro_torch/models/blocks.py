@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ip import SiteSpec, dtype_name, is_integer_dtype
-from repro_torch.kernels.pool2d.ref import (check_pool_geometry,
+from repro_torch.kernels.activation.ref import KINDS
+from repro_torch.kernels.pool2d.ref import (MODES, check_pool_geometry,
                                             pool2d_out_shape)
 
 
@@ -201,6 +202,11 @@ def cnn_block_site_specs(x_shape, w_shape, *, x_dtype, w_dtype=None,
     conv_dtype = _conv_dtype(x_dtype, w_dtype or x_dtype)
     window, stride = check_pool_geometry(conv_shape, pool_window,
                                          pool_stride)
+    # the reference's oracles refuse these at spec time, in this order
+    if pool_mode not in MODES:
+        raise ValueError(f"unknown pool mode {pool_mode!r}")
+    if activation not in KINDS:
+        raise ValueError(f"unknown activation {activation!r}; have {KINDS}")
     pool_shape = pool2d_out_shape(conv_shape, window, stride)
     pool_dtype = (conv_dtype if pool_mode == "max"
                   else ("int32" if is_integer_dtype(conv_dtype)

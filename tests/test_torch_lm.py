@@ -45,9 +45,19 @@ BF16_LOGITS = dict(rtol=8e-3, atol=1e-5)
 DTYPES = ("param", "compute", "moment", "logit", "attn_score")
 UNPORTED = "ROADMAP queue 1, item 12"
 # the served smoke configs: jamba without MoE (the port's hybrid path)
-# and a dense one
+# and the dense ones: llama, chatglm3 (half RoPE), olmo (non-parametric
+# LayerNorm, tied embeddings), starcoder2 (LayerNorm and GELU)
 SERVED = {"jamba": ("jamba-1.5-large-398b", dict(moe=None)),
-          "llama": ("llama3.2-1b", {})}
+          "llama": ("llama3.2-1b", {}),
+          "chatglm": ("chatglm3-6b", {}),
+          "olmo": ("olmo-1b", {}),
+          "starcoder2": ("starcoder2-15b", {})}
+# bf16 compute: each side's relative L2 logit error against the
+# reference's f32 model.  The two round in bf16 at different places, so
+# their errors differ; at these inputs the port's is 0.95-1.33x the
+# reference's (jamba the highest), and a bound of 1.5x still catches a
+# port that rounds twice as often as the reference.
+BF16_ERR_FACTOR = 1.5
 
 
 def _np(tree):
@@ -400,6 +410,30 @@ def test_bf16_logits_match_reference(served):
     got, _, _ = t_api.prefill_step(tc, tp, {"tokens": _t(tokens)})
     assert got.dtype == torch.bfloat16
     _close(got, np.asarray(want, np.float32), **BF16_LOGITS)
+
+
+@pytest.mark.parametrize("served", list(SERVED))
+def test_bf16_compute_error_is_the_references(served):
+    """At ``compute_dtype="bfloat16"`` the port's prefill logits lie
+    within ``BF16_ERR_FACTOR`` times the reference's own bf16 error of the
+    reference's f32 logits (relative L2; logits kept in f32 so only the
+    compute dtype differs)."""
+    jc, tc, jp, tp = _served(served, compute_dtype="bfloat16",
+                             logit_dtype="float32")
+    jc32 = dataclasses.replace(jc, compute_dtype="float32")
+    tokens = np.random.default_rng(13).integers(1, jc.vocab_size, (2, 12))
+    batch = {"tokens": jnp.asarray(tokens, jnp.int32)}
+    f32 = np.asarray(j_api.prefill_step(jc32, jp, batch)[0], np.float32)
+    ref = np.asarray(j_api.prefill_step(jc, jp, batch)[0], np.float32)
+    got = t_api.prefill_step(tc, tp, {"tokens": _t(tokens)})[0]
+    assert got.dtype == torch.float32
+
+    def rel(x):
+        return float(np.linalg.norm(x - f32) / np.linalg.norm(f32))
+
+    e_ref, e_port = rel(ref), rel(got.numpy())
+    assert 0 < e_ref < 0.05
+    assert e_port <= BF16_ERR_FACTOR * e_ref, (e_port, e_ref)
 
 
 @pytest.mark.parametrize("served", list(SERVED))

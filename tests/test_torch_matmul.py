@@ -152,6 +152,117 @@ def test_matmul_named_errors(rng):
 
 
 # --------------------------------------------------------------------------
+# the tensor-core route (int8/bf16 MXU members): its layout step and the
+# entry point chosen per dtype; the kernels themselves run in chip_smoke.py
+# --------------------------------------------------------------------------
+PAD_SHAPES = [(300, 1000, 520), (1, 17, 3), (0, 16, 8), (64, 96, 48),
+              (5, 0, 7)]
+PAD_IDS = ["300x1000x520", "1x17x3", "0x16x8", "64x96x48", "5x0x7"]
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("shape", PAD_SHAPES, ids=PAD_IDS)
+def test_pad_tc_operands_then_crop_equals_unpadded(rng, shape, dtype):
+    """K and b's row stride padded to 16 bytes with zeros; a plain
+    product of the padded operands cropped to (M, N) equals the unpadded
+    one: exactly for int8, and for bf16 (f32 products) within
+    ``rtol=1e-5, atol=1e-6``, since the CPU BLAS may block the padded
+    shape differently."""
+    m, k, n = shape
+    if dtype == "int8":
+        a1, a2, b = (_int8(rng, s)[1] for s in ((m, k), (m, k), (k, n)))
+    else:
+        a1, a2, b = (_normal(rng, s)[1].to(torch.bfloat16)
+                     for s in ((m, k), (m, k), (k, n)))
+    align = 16 // b.element_size()
+    kp, np_ = -(-k // align) * align, -(-n // align) * align
+    (p1, p2), pb = t_mxu.pad_tc_operands((a1, a2), b)
+    assert p1.shape == p2.shape == (m, kp) and pb.shape == (kp, np_)
+    assert all(t.dtype == b.dtype and t.is_contiguous()
+               and t.data_ptr() % 16 == 0 for t in (p1, p2, pb))
+    assert torch.equal(pb[:k, :n], b) and not pb[k:].any() \
+        and not pb[:, n:].any()
+    for a, p in ((a1, p1), (a2, p2)):
+        assert torch.equal(p[:, :k], a) and not p[:, k:].any()
+        got, want = t_ref(p, pb)[:, :n], t_ref(a, b)
+        assert got.shape == want.shape == (m, n)
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # aligned operands pass through as they are: no copy
+    (q1,), qb = t_mxu.pad_tc_operands((p1,), pb)
+    assert q1 is p1 and qb is pb
+
+
+@pytest.mark.parametrize("dtype,mxu,dual", [
+    (torch.int8, "mm_tc_matmul", "mm_tc_matmul_dual"),
+    (torch.bfloat16, "mm_tc_matmul", "mm_tc_matmul_dual"),
+    (torch.float32, "cnn_matmul", "cnn_matmul_dual")])
+def test_entry_point_per_dtype(dtype, mxu, dual):
+    """int8/bf16 MXU members take the tensor-core entry points, f32 the
+    CUDA-core ones; ``mm_vpu`` takes ``cnn_matmul`` on every dtype (no
+    MMA); one name per dtype, whatever the call."""
+    assert t_mxu.entry_point("mxu", dtype, dtype) == mxu
+    assert t_mxu.entry_point("vpu", dtype, dtype) == "cnn_matmul"
+    assert t_dual.entry_point(dtype, dtype, dtype) == dual
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.int8, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32, torch.int8),
+    (torch.float64, torch.float64, torch.float64)],
+    ids=["i8-bf16", "bf16-f32", "f32-i8", "f64"])
+def test_entry_point_refuses_mixed_dtypes(dtypes):
+    """Mixed or unsupported operand dtypes raise the wrappers' existing
+    ``TypeError`` messages before any launch."""
+    a, _, b = dtypes
+    with pytest.raises(TypeError) as e:
+        t_mxu.entry_point("mxu", a, b)
+    if a in t_mxu.KERNEL_DTYPES:
+        assert str(e.value) == (f"b dtype {b} is not supported by the CUDA "
+                                f"kernel (have [{a}])")
+    else:
+        assert str(e.value) == (f"a dtype {a} is not supported by the CUDA "
+                                f"kernel (have {list(t_mxu.KERNEL_DTYPES)})")
+    bad = next(name for name, d in zip(("a1", "a2", "b"), dtypes)
+               if d not in t_mxu.KERNEL_DTYPES or d != dtypes[0])
+    with pytest.raises(TypeError, match=f"^{bad} dtype .* has no CUDA dual "
+                                        f"matmul kernel .* ROADMAP queue 2, "
+                                        f"item 13"):
+        t_dual.entry_point(*dtypes)
+
+
+def test_chip_smoke_holds_the_tensor_core_kernels():
+    """``chip_smoke.py`` names the kernels of the route it checks: every
+    kernel of its SASS table is defined in ``mm_tc_kernels.cu``, every
+    tensor-core row points at that source and at ``mm_mxu``'s or
+    ``_mm_dual``'s TPU kernel, and the f32 row stays on ``mm_kernels.cu``."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = (root / smoke.CSRC_MM_TC).read_text()
+    for kernel, mnemonic in smoke.TC_SASS.items():
+        assert f"MM_TC_KERNEL({kernel}," in src
+        assert mnemonic == ("IGMMA" if "_i8_" in kernel else "HGMMA")
+    for row in smoke.TC_ROWS:
+        assert smoke.SOURCE[row] == smoke.CSRC_MM_TC
+        assert smoke.REPLACES[row].split(":")[0] in (
+            "src/repro/kernels/matmul/mxu.py",
+            "src/repro/kernels/matmul/dual.py")
+    assert smoke.SOURCE["mm_mxu"] == smoke.SOURCE["mm_vpu"] == smoke.CSRC_MM
+    assert smoke.mm_row("mm_mxu", torch.int8) == "mm_mxu (int8)"
+    assert smoke.mm_row("mm_mxu", torch.bfloat16) == "mm_mxu (bf16)"
+    assert smoke.mm_row("mm_mxu", torch.float32) == "mm_mxu"
+    assert smoke.mm_row("mm_vpu", torch.int8) == "mm_vpu"
+
+
+# --------------------------------------------------------------------------
 # the dual-stream members against the reference's kernel (interpret mode)
 # --------------------------------------------------------------------------
 def test_mm_dual_members_raise_named_errors(rng):

@@ -120,6 +120,43 @@ def test_server_named_errors(params):
         TArbiter(mesh=MeshSpec(devices=2))
 
 
+def test_unknown_activation_and_pool_mode_refused_at_spec_time(params):
+    """Both servers refuse ``activation="swish"`` at ``register`` with
+    the reference's ``ValueError`` and admit nothing; ``register`` takes
+    no pool mode, so ``pool_mode="median"`` is held where the server's
+    specs come from (``cnn_block_site_specs``) and at ``apply_cnn_block``
+    in both packages, with one message."""
+    from repro.models import blocks as j_blocks
+    from repro_torch.models import blocks as t_blocks
+    jp, tp = params
+    errors = []
+    for srv, p in ((JServer(max_batch=4), jp["small"]),
+                   (TServer(max_batch=4, device="cpu"), tp["small"])):
+        with pytest.raises(ValueError) as e:
+            srv.register("t", p, (12, 12, 3), activation="swish")
+        errors.append(str(e.value))
+        assert srv.tenants == {} and srv.pending() == 0
+    assert errors == ["unknown activation 'swish'; have ('relu', 'relu6', "
+                      "'sigmoid', 'tanh', 'gelu')"] * 2
+    xs, ws = (2, 12, 12, 3), (3, 3, 3, 8)
+    for bad in (dict(pool_mode="median"), dict(activation="swish"),
+                dict(pool_mode="median", activation="swish")):
+        errors = []
+        for blocks in (j_blocks, t_blocks):
+            with pytest.raises(ValueError) as e:
+                blocks.cnn_block_site_specs(xs, ws, x_dtype="float32", **bad)
+            errors.append(str(e.value))
+        assert errors[0] == errors[1], bad
+    x = np.zeros(xs, np.float32)
+    w = np.zeros(ws, np.float32)
+    errors = []
+    for blocks, arr in ((j_blocks, np.asarray), (t_blocks, torch.from_numpy)):
+        with pytest.raises(ValueError) as e:
+            blocks.apply_cnn_block({"w": arr(w)}, arr(x), pool_mode="median")
+        errors.append(str(e.value))
+    assert errors == ["unknown pool mode 'median'"] * 2
+
+
 # --------------------------------------------------------------------------
 # Arbiter and batching: same decisions as the reference's
 # --------------------------------------------------------------------------
