@@ -57,7 +57,10 @@ and prints no result):
    feasible IP"; f32 attention and decode within ``ATTN_F32_TOL``
    (``ATTN_F32_CASES``, ``DECODE_F32_CASES`` and the two sites' full
    shapes; rows that see no key are 0; a GQA group too large for
-   shared memory raises); ``matmul_dual`` on bf16 plans and launches
+   shared memory raises); bf16 flash attention (the tensor-core kernel,
+   ``csrc/attn_tc_kernels.cu``) within ``ATTN_BF16_TOL`` at
+   ``ATTN_BF16_CASES``, rows that see no key 0; ``matmul_dual`` on bf16
+   plans and launches
    ``mm_dual_full``, which equals two ``mm_mxu`` launches bitwise (bf16,
    f32); the tensor-core route (int8 and bf16 ``mm_mxu`` / ``_mm_dual``,
    ``csrc/mm_tc_kernels.cu``) at the ragged shapes of ``TC_RAGGED``
@@ -65,14 +68,16 @@ and prints no result):
    each dual stream bitwise equal to an ``mm_mxu`` launch;
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
    kernels (``LOGIC_ONLY``), IGMMA in the int8 and HGMMA in the bf16
-   tensor-core kernels (``TC_SASS``);
+   tensor-core kernels, bf16 flash attention's included (``TC_SASS``);
 5. times  — per kernel (``mm_mxu`` per operand dtype: f32 on CUDA
-   cores, int8 and bf16 on the tensor cores): the median device time of
+   cores, int8 and bf16 on the tensor cores; ``mm_vpu`` per operand
+   dtype, all on CUDA cores): the median device time of
    20 launches (CUDA
    events, launches queued ahead of the device), its plain version's
    and the PyTorch library call's time, and the least time the card
    could take (bytes over peak bandwidth, or operations over the peak
-   rate of their type: FP32, bf16 or int8 tensor-core, or INT32 lanes;
+   rate of their type: FP32, bf16 or int8 tensor-core, or INT32 lanes,
+   and for flash attention the exponentials at the MUFU rate too;
    the new kernels of "lm sites" at the sites' shapes, their chunked
    plain versions timed call by call, ``time_sync_ms``);
    then the served requests per second over 3 steady windows (rounds of
@@ -122,6 +127,7 @@ CSRC = "src/repro_torch/kernels/csrc/cnn_kernels.cu"
 CSRC_MM = "src/repro_torch/kernels/csrc/mm_kernels.cu"
 CSRC_MM_TC = "src/repro_torch/kernels/csrc/mm_tc_kernels.cu"
 CSRC_ATTN = "src/repro_torch/kernels/csrc/attn_kernels.cu"
+CSRC_ATTN_TC = "src/repro_torch/kernels/csrc/attn_tc_kernels.cu"
 CSRC_SCAN = "src/repro_torch/kernels/csrc/scan_kernels.cu"
 SEED = 0
 N_REQUESTS = 8
@@ -178,6 +184,8 @@ REPLACES = {
     "mm_mxu (int8)": "src/repro/kernels/matmul/mxu.py:52",
     "mm_mxu (bf16)": "src/repro/kernels/matmul/mxu.py:52",
     "mm_vpu": "src/repro/kernels/matmul/mxu.py:89",
+    "mm_vpu (int8)": "src/repro/kernels/matmul/mxu.py:89",
+    "mm_vpu (bf16)": "src/repro/kernels/matmul/mxu.py:89",
     "mm_dual_shared": "src/repro/kernels/matmul/dual.py:44",
     "mm_dual_full": "src/repro/kernels/matmul/dual.py:44",
     "flash_attention": "src/repro/kernels/attention/flash.py:77",
@@ -186,10 +194,13 @@ REPLACES = {
 }
 # The rows of the kernels line that run on the tensor cores: mm_mxu on
 # int8 and bf16 operands ("mm_mxu (int8)", "mm_mxu (bf16)"; its f32 row
-# "mm_mxu" stays on CUDA cores) and the dual rows, timed on int8 and bf16.
+# "mm_mxu" stays on CUDA cores) and the dual rows, timed on int8 and bf16;
+# flash_attention, timed on bf16 (attn_tc_kernels.cu; f32 stays on
+# attn_kernels.cu's CUDA-core kernel).
 TC_ROWS = ("mm_mxu (int8)", "mm_mxu (bf16)", "mm_dual_shared", "mm_dual_full")
 SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
                  CSRC_MM if name.startswith("mm_") else
+                 CSRC_ATTN_TC if name == "flash_attention" else
                  CSRC_ATTN if name.startswith("flash_") else
                  CSRC_SCAN if name == "selective_scan" else CSRC)
           for name in REPLACES}
@@ -198,11 +209,14 @@ SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
 LOGIC_ONLY = ("conv2d_ip3_kernel", "mm_vpu_kernel",
               "selective_scan_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
-# The tensor-core kernels of the MXU matmul members and the wgmma
-# instruction each must contain (and no other MMA kind).
-TC_SASS = {"mm_tc_mxu_i8_kernel": "IGMMA", "mm_tc_dual_i8_kernel": "IGMMA",
-           "mm_tc_mxu_bf16_kernel": "HGMMA",
-           "mm_tc_dual_bf16_kernel": "HGMMA"}
+# The tensor-core kernels by source, and the wgmma instruction each must
+# contain (and no other MMA kind): the MXU matmul members and bf16 flash
+# attention.
+TC_SASS = {CSRC_MM_TC: {"mm_tc_mxu_i8_kernel": "IGMMA",
+                        "mm_tc_dual_i8_kernel": "IGMMA",
+                        "mm_tc_mxu_bf16_kernel": "HGMMA",
+                        "mm_tc_dual_bf16_kernel": "HGMMA"},
+           CSRC_ATTN_TC: {"attn_tc_flash_kernel": "HGMMA"}}
 
 # The dual-stream conv calls at each frontend block shape: operand dtype,
 # budget, and the member the planner gives (the reference's planner
@@ -242,10 +256,12 @@ TC_RAGGED = ((300, 1000, 520), (1, 17, 3), (130, 72, 1000))
 def mm_row(kernel, dtype):
     """The row of the kernels line that a launch of ``kernel`` on
     ``dtype`` operands counts under: ``mm_mxu`` on int8 or bf16 runs the
-    tensor-core kernels, on f32 the CUDA-core one."""
+    tensor-core kernels, on f32 the CUDA-core one; ``mm_vpu`` has a row
+    per operand dtype."""
     import torch
-    if kernel == "mm_mxu" and dtype in (torch.int8, torch.bfloat16):
-        return f"mm_mxu ({'int8' if dtype == torch.int8 else 'bf16'})"
+    if (kernel in ("mm_mxu", "mm_vpu")
+            and dtype in (torch.int8, torch.bfloat16)):
+        return f"{kernel} ({'int8' if dtype == torch.int8 else 'bf16'})"
     return kernel
 
 
@@ -285,10 +301,16 @@ MEMBER_KERNEL = {"ip1_vpu": "conv2d_ip1", "ip3_packed": "conv2d_ip3",
                  "mm_dual_shared": "mm_dual_shared",
                  "attn_flash": "flash_attention",
                  "attn_decode": "flash_decode"}
-# Attention tolerances against the plain versions.  bf16: kernel and
-# plain version both compute in f32 from the same bf16 operands and
-# round once to bf16, so they differ by about one bf16 ulp (at most
-# 2^-7 of the value, inside rtol); atol lies far below the outputs'
+# Attention tolerances against the plain versions.  bf16: the plain
+# version computes in f32 from the bf16 operands and rounds once to bf16.
+# Decode does the same; flash runs Q.K^T on the tensor cores into f32 and
+# P.V with P split in two bf16 terms (P_hi = bf16(P), P_lo = bf16(P -
+# P_hi), P kept to about 2^-17 of its value), so the two differ by about
+# one bf16 ulp of the output (at most 2^-7 of the value, inside rtol).
+# P rounded once to bf16 would miss this bound; the split, emulated on
+# the CPU (tests/test_torch_attention.py::
+# test_flash_split_p_emulation_holds_the_bound), and measured on the card
+# at attn_train4k, stays inside it.  atol lies far below the outputs'
 # scale (about 9e-3 at attn_decode32k, 3e-2 at attn_train4k), so a zero,
 # mis-scaled or partly summed output fails.  It is inside the reference
 # test's bf16 bound, rtol=atol=5e-2 (tests/test_kernels_attention.py:
@@ -303,6 +325,9 @@ ATTN_F32_CASES = ((2, 8, 2, 1000, 1000, 64), (2, 8, 2, 256, 1280, 64),
                   (1, 8, 2, 300, 100, 64), (1, 4, 4, 32, 32, 16),
                   (2, 8, 2, 64, 64, 32), (1, 8, 1, 60, 60, 16),
                   (2, 4, 4, 48, 96, 32), (1, 8, 2, 200, 200, 128))
+# bf16 flash checks (the tensor-core kernel): the f32 cases' shapes,
+# causal and full, rows that see no key 0
+ATTN_BF16_CASES = ATTN_F32_CASES
 # f32 decode checks: (B, Hq, Hkv, Skv, D)
 DECODE_F32_CASES = ((4, 32, 8, 4097, 64), (2, 8, 2, 257, 32),
                     (2, 2, 2, 17, 16), (2, 16, 2, 300, 128))
@@ -997,8 +1022,8 @@ def matmul_checks(gen, errs):
     a, b = (t.to(torch.bfloat16) for t in ops["float32"])
     compare("mm_mxu (bf16)", mm_mxu(a, b), mm_mxu_plain(a, b),
             MM_TOL["rtol"], MM_TOL["atol"], errs)
-    compare("mm_vpu", mm_vpu(a, b), mm_vpu_plain(a, b), MM_TOL["rtol"],
-            MM_TOL["atol"], errs)
+    compare(mm_row("mm_vpu", a.dtype), mm_vpu(a, b), mm_vpu_plain(a, b),
+            MM_TOL["rtol"], MM_TOL["atol"], errs)
     log("mm_mxu bitwise independent of bm/bn/bk; mm_vpu == mm_mxu bitwise "
         "(f32 and int8); bf16 within tolerance")
     tc_ragged_checks(gen, errs)
@@ -1216,7 +1241,8 @@ def lm_site_checks(sites_of, rng, errs):
             aq, bq = quantize_acts(a, bits=8), quantize_weights(b, bits=8)
             want = (mm_vpu_plain(aq.q, bq.q).to(torch.float32)
                     * (aq.scale * bq.scale.reshape(1, -1)))
-            compare(kernel, y, want, 0, 0, errs, exact=True)
+            row = mm_row(kernel, aq.q.dtype)
+            compare(row, y, want, 0, 0, errs, exact=True)
         elif site == "ffn":
             a1, a2, b = ops["ffn_i8" if bits == 8 else "ffn_bf16"]
             if member == "mm_dual_shared":
@@ -1264,7 +1290,8 @@ def lm_kernel_checks(ops, rng, errs):
     """The three new kernels beyond the planned sites: f32 attention and
     decode at ATTN_F32_CASES / DECODE_F32_CASES and at the planned
     sites' full shapes, rows that see no key written as 0, a GQA group
-    too large for shared memory refused with no launch counted;
+    too large for shared memory refused with no launch counted; bf16
+    attention (the tensor-core kernel) at ATTN_BF16_CASES;
     ``matmul_dual(budget=ResourceBudget())`` on bf16 plans
     ``mm_dual_full`` (one launch), and f32/bf16 ``mm_dual_full`` equal
     two ``mm_mxu`` launches bitwise; int8 ``mm_dual_full`` bit-exact.
@@ -1330,6 +1357,24 @@ def lm_kernel_checks(ops, rng, errs):
     compare("flash_decode", flash_decode(q, k, v),
             flash_decode_plain(q, k, v), ATTN_F32_TOL["rtol"],
             ATTN_F32_TOL["atol"], errs)
+    # bf16 flash (the tensor-core kernel) at the f32 cases' shapes
+    bf16 = torch.bfloat16
+    for b, hq, hkv, sq, skv, d in ATTN_BF16_CASES:
+        q = np_operand(rng, (b, hq, sq, d), bf16)
+        k, v = (np_operand(rng, (b, hkv, skv, d), bf16) for _ in range(2))
+        for causal in (True, False):
+            y = flash_attention(q, k, v, causal=causal)
+            compare("flash_attention", y,
+                    flash_attention_plain(q, k, v, causal=causal),
+                    ATTN_BF16_TOL["rtol"], ATTN_BF16_TOL["atol"], errs)
+            if causal and sq > skv:
+                check(bool((y[:, :, :sq - skv] == 0).all()),
+                      "bf16 flash_attention: a row that sees no key is not "
+                      "0")
+    log(f"bf16 flash_attention (attn_tc_flash_kernel, wgmma) at "
+        f"{len(ATTN_BF16_CASES)} shapes, causal and not, within "
+        f"rtol={ATTN_BF16_TOL['rtol']}, atol={ATTN_BF16_TOL['atol']}; rows "
+        f"that see no key are 0")
 
     a1, a2, b = ops["ffn_bf16"]
     spec = SiteSpec.make("matmul", "matmul", (a1.shape, b.shape), a1.dtype,
@@ -1480,6 +1525,15 @@ def lm_timings(ops, peaks):
             f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16"
             + (" causal" if causal else ""),
             "F.scaled_dot_product_attention(enable_gqa=True)")
+        if name == "flash_attention":
+            # the operations term: the larger of the tensor operations and
+            # the exponentials (one a visible pair) at the MUFU rate
+            r = rows[name]
+            r["exp_bound_ms"] = bound_ms(
+                peaks, 0, bsz * hq * visible_pairs(sq, skv, causal),
+                "mufu_per_s")[0]
+            if r["exp_bound_ms"] > r["bound_ms"]:
+                r["bound_ms"], r["bound_by"] = r["exp_bound_ms"], "operations"
     return rows
 
 
@@ -1504,7 +1558,8 @@ def sass_check(lib_path):
                   f"{name}: no multiply-add in its SASS")
             check(counts[name] == 0, f"{name}: {counts[name]} MMA "
                                      f"instructions in a logic-only kernel")
-    for kernel, want in TC_SASS.items():
+    tc_sass = {k: v for kernels in TC_SASS.values() for k, v in kernels.items()}
+    for kernel, want in tc_sass.items():
         mine = [name for name in bodies if kernel in name]
         check(bool(mine), f"no SASS for {kernel} in {lib_path.name}")
         for name in mine:
@@ -1514,7 +1569,9 @@ def sass_check(lib_path):
                   f"{name}: MMA instructions {kinds}, expected {want} only")
     log(f"SASS: {len(bodies)} kernels; no {'|'.join(MMA_SASS)} in "
         f"{', '.join(LOGIC_ONLY)}; "
-        + ", ".join(f"{k}: {v}" for k, v in TC_SASS.items())
+        + ", ".join(f"{k}: {v} x"
+                    f"{sum(n for name, n in counts.items() if k in name)}"
+                    for k, v in tc_sass.items())
         + f"; MMA in any kernel: {sum(counts.values())}")
     return counts
 
@@ -1723,7 +1780,13 @@ def timings(shapes, gen, peaks):
             ("mm_mxu (bf16)", mm_mxu, mm_mxu_plain, a16, b16,
              "bf16_tensor_flops", lambda: torch.matmul(a16, b16)),
             ("mm_vpu", mm_vpu, mm_vpu_plain, a, b, "fp32_flops",
-             lambda: torch.matmul(a, b))):
+             lambda: torch.matmul(a, b)),
+            # logic-only: the library calls below use the tensor cores,
+            # which mm_vpu's contract bars
+            ("mm_vpu (int8)", mm_vpu, mm_vpu_plain, a8, b8, "int32_ops",
+             lambda: torch._int_mm(a8, b8_lib)),
+            ("mm_vpu (bf16)", mm_vpu, mm_vpu_plain, a16, b16, "fp32_flops",
+             lambda: torch.matmul(a16, b16))):
         out = kern(x, y)
         b_ms, by = bound(nbytes(x, y, out), 2 * m * k * n, rate)
         rows[name] = dict(
@@ -2277,8 +2340,9 @@ def main() -> int:
     lm_rng = np.random.default_rng(SEED)
     lm_launches, lm_ops = lm_site_checks(lm_sites, lm_rng, errs)
     lm_launches.update(lm_kernel_checks(lm_ops, lm_rng, errs))
-    for name in ("mm_mxu (bf16)", "mm_dual_shared", "mm_dual_full",
-                 "flash_attention", "flash_decode"):
+    for name in ("mm_mxu (bf16)", "mm_vpu (int8)", "mm_vpu (bf16)",
+                 "mm_dual_shared", "mm_dual_full", "flash_attention",
+                 "flash_decode"):
         launches[name] = lm_launches[name]
     sass_check(lib)
 
@@ -2300,6 +2364,9 @@ def main() -> int:
                      f"{r['yardstick'][1] * 1e3:.1f} us")
         if "fp32_bound_ms" in r:
             extra += f", FP32-rate bound {r['fp32_bound_ms'] * 1e3:.1f} us"
+        if "exp_bound_ms" in r:
+            extra += (f", exponentials {r['exp_bound_ms'] * 1e3:.1f} us at "
+                      f"the MUFU rate")
         log(f"{name} [{r['shape']}]: {r['ms'] * 1e3:.1f} us, plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}{extra}, bound "
             f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) on {card}")

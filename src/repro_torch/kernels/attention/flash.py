@@ -8,12 +8,24 @@ scratch, maps q head h to kv head h // group, masks padded keys and
 (bottom-right aligned) causal positions with -1e30, skips kv blocks
 above the diagonal and clamps ``l`` at 1e-30.
 
-The kernel (``flash_attention_kernel<T, D>`` in
-``csrc/attn_kernels.cu``) computes the same function: one CTA per
-(b*Hq + h, block of 64 query rows), K/V tiles of 32 keys staged in
-shared memory as f32, each query row's q, m, l and D accumulators in
-registers (split over D/32 threads for D >= 64), FP32 FMA on CUDA cores,
-``expf``, bounds checks instead of padding.  ``bq``/``bk`` are the
+Two kernels compute the same function, one per dtype, both launched
+through ``attn_flash``:
+
+* bf16: ``attn_tc_flash_kernel<DP>`` in ``csrc/attn_tc_kernels.cu``, on
+  the tensor cores.  One CTA per (b*Hq + h, block of 128 query rows): a
+  producer warpgroup stages K/V tiles in shared memory with cp.async,
+  two consumer warpgroups (64 rows each) take turns on ``wgmma`` for
+  S = Q.K^T (f32) and O += P.V, and run the online softmax in registers
+  between turns.  P goes into P.V split in two bf16 terms, bf16(P) and
+  bf16(P - bf16(P)), so P keeps about 2^-17 of its value: P rounded once
+  to bf16 misses ``chip_smoke.ATTN_BF16_TOL`` at attn_train4k.
+* f32: ``flash_attention_kernel<float, D>`` in ``csrc/attn_kernels.cu``
+  on CUDA cores (Hopper has no IEEE-f32 MMA, and TF32 misses the f32
+  tolerance): one CTA per (b*Hq + h, block of 64 query rows), K/V tiles
+  of 32 keys in shared memory, each row's q, m, l and accumulators in
+  registers, FP32 FMA, ``expf``.
+
+Both check bounds instead of padding.  ``bq``/``bk`` are the
 reference's VMEM block hints: validated, they do not shape the launch.
 
 Rows that see no key (causal with Sq > Skv) are 0 in the kernel and in

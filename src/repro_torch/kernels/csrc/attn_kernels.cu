@@ -1,20 +1,22 @@
-// The attention kernels of the port: two __global__ kernels and their plain
-// C launchers, loaded with ctypes by src/repro_torch/kernels/cuda.py.
+// The CUDA-core attention kernels of the port: two __global__ kernels and
+// their plain C launchers, loaded with ctypes by
+// src/repro_torch/kernels/cuda.py.  bf16 flash attention runs on the
+// tensor cores instead (attn_tc_kernels.cu; attn_flash hands it over).
 //
 // Built with the flags of cnn_kernels.cu (-fmad=false; widen and vmax
 // from cnn_device.cuh).  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) are
-// contiguous, of one dtype: f32, or bf16 widened exactly to f32 on load;
-// the output has q's dtype (bf16 by __float2bfloat16_rn).  q head h
-// reads kv head h / (Hq / Hkv) (GQA).  Scores, softmax state and
+// contiguous, of one dtype: f32, or (decode) bf16 widened exactly to f32
+// on load; the output has q's dtype (bf16 by __float2bfloat16_rn).  q
+// head h reads kv head h / (Hq / Hkv) (GQA).  Scores, softmax state and
 // accumulators are f32, as in the reference: q is scaled by D^-0.5 (the
 // f32 of the wrapper's Python float) before the dot, masked scores are
 // -1e30, the normalizer is clamped at 1e-30.  Both kernels merge key
 // blocks through one online-softmax step (online_softmax_step).  Dots
 // and sums are explicit __fmaf_rn / __fadd_rn chains on CUDA cores and
-// exponentials are expf; tensor cores are later work (ROADMAP queue 2).
+// exponentials are expf.
 //
-// flash_attention_kernel<T, D>
-//   replaces src/repro/kernels/attention/flash.py::flash_attention
+// flash_attention_kernel<float, D>
+//   replaces src/repro/kernels/attention/flash.py::flash_attention on f32
 //   4*B*Hq*D operations per visible (query, key) pair on
 //   (2*B*Hq*Sq + 2*B*Hkv*Skv)*D elements moved: compute-bound at
 //   training shapes (the bf16 tensor-core peak is the card's bound).
@@ -367,6 +369,11 @@ int decode_by_dim(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
+// bf16 flash attention on the tensor cores (attn_tc_kernels.cu)
+int attn_tc_flash(const void* q, const void* k, const void* v, void* o,
+                  int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
+                  float scale, cudaStream_t st);
+
 int attn_flash(int dtype, const void* q, const void* k, const void* v,
                void* o, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                int causal, float scale, void* stream) {
@@ -376,8 +383,8 @@ int attn_flash(int dtype, const void* q, const void* k, const void* v,
                                      causal, scale, st);
   }
   if (dtype == attn::kBF16) {
-    return attn::flash_by_dim<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                             D, causal, scale, st);
+    return attn_tc_flash(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale,
+                         st);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -23,11 +23,19 @@
 //   Hopper has no IEEE-f32 MMA, and TF32 misses the reference tolerance.
 //
 // mm_vpu_kernel<T>  replaces src/repro/kernels/matmul/mxu.py::mm_vpu
-//   The logic-only member: no shared-memory tile, no MMA instruction.
-//   One thread per output; a block of 8 rows x 32 columns, so a warp
-//   reads 32 neighbouring columns of b (coalesced) and the 8 warps of a
-//   block share them through L1.  Bound as mm_mxu by the FP32 rate; it
-//   re-reads a and b from cache once per output.
+//   The logic-only member: no MMA instruction, FFMA (f32, bf16 widened
+//   on use) or IMAD (int8 into int32, wrapping) only.  Bound as mm_mxu by
+//   the FP32 rate (int8: the INT32 lanes').  The reference holds (bm, K)
+//   and (K, bn) blocks in VMEM; here a 128 x 128 CTA tile stages 64
+//   bytes of K a k-step of a (as it lies, k-contiguous rows) and of b
+//   (as it lies) through a 4-stage cp.async ring.  Each of the 256
+//   threads keeps an 8 x 8 register tile (rows ty + 16 r, columns
+//   4 tx + 64 h + 0..3): per 16 bytes of K it reads its 8 a rows as one
+//   16-byte load each and, per k, b's two 4-column runs as vector loads
+//   (a quarter-warp reads one a address, or 128 contiguous bytes of b:
+//   no bank conflict), and stores 4 columns at a time.  Each output
+//   is still ONE chain over k = 0 .. K-1 (no split-K), so it equals
+//   mm_mxu on f32 bitwise.
 //
 // mm_dual_kernel<float>  replaces src/repro/kernels/matmul/dual.py::
 //   _mm_dual (mm_dual_full) on f32.  Two a streams against one b: 4*M*N*K
@@ -43,11 +51,16 @@
 #include <cstdint>
 
 #include "cnn_device.cuh"
+#include "tc_device.cuh"
 
 namespace mm {
 
 using cnn::mac;
 using cnn::widen;
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::smem_u32;
 
 enum Style { kVpu = 0, kMxu = 1 };
 enum DType { kF32 = 0, kI8 = 1, kBF16 = 4 };   // codes of cnn_kernels.cu
@@ -164,24 +177,177 @@ mm_dual_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
   mm_tiles<T, 2, kDualCols>(src, b, dst, M, N, K);
 }
 
-constexpr int kVpuCols = 32;     // mm_vpu block: 8 rows x 32 columns
-constexpr int kVpuRows = 8;
+// mm_vpu's tile: 128 x 128 outputs a CTA of 256 threads, each thread
+// 8 rows (ty + 16 r) x 8 columns (4 tx + 64 h + e, h < 2, e < 4).  Per
+// k-step the CTA stages 64 bytes of K: a (128 rows of 64 bytes, as it
+// lies) and b (64 / sizeof(T) rows of 128 columns, as it lies), 16 KB,
+// in a ring of kVpuStages stages filled by cp.async.
+constexpr int kVpuTile = 128;
+constexpr int kVpuThreads = 256;
+constexpr int kVpuRowBytes = 64;                       // K bytes a k-step
+constexpr int kVpuStages = 4;
+constexpr int kVpuABytes = kVpuTile * kVpuRowBytes;    // 8 KB
+constexpr int kVpuStageBytes = 2 * kVpuABytes;         // a + b
+constexpr int kVpuSmem = kVpuStages * kVpuStageBytes;  // 64 KB
 
-template <typename T>
-__global__ void mm_vpu_kernel(const T* __restrict__ a,
-                              const T* __restrict__ b,
-                              typename Acc<T>::type* __restrict__ c, int M,
-                              int N, int K) {
-  using A = typename Acc<T>::type;
-  int n = blockIdx.x * kVpuCols + threadIdx.x;
-  int m = blockIdx.y * kVpuRows + threadIdx.y;
-  if (m >= M || n >= N) return;
-  const T* ar = a + size_t(m) * K;
-  A acc = A(0);
-  for (int k = 0; k < K; ++k) {
-    acc = mac(acc, widen<A>(ar[k]), widen<A>(b[size_t(k) * N + n]));
+// Value kk of a 16-byte chunk of K, widened exactly to the accumulator
+// type: f32 as it is, bf16 by a shift, int8 sign-extended.
+template <typename T> struct Lane;
+template <> struct Lane<float> {
+  __device__ static float at(const uint4& w, int kk) {
+    return __uint_as_float((&w.x)[kk]);
   }
-  c[size_t(m) * N + n] = acc;
+};
+template <> struct Lane<__nv_bfloat16> {
+  __device__ static float at(const uint4& w, int kk) {
+    const uint32_t x = (&w.x)[kk / 2];
+    return __uint_as_float(kk % 2 ? x & 0xffff0000u : x << 16);
+  }
+};
+template <> struct Lane<int8_t> {
+  __device__ static int32_t at(const uint4& w, int kk) {
+    return int32_t((&w.x)[kk / 4] << (24 - 8 * (kk % 4))) >> 24;
+  }
+};
+
+// b's 4 neighbouring columns of one k row from shared memory, widened
+__device__ __forceinline__ void b_quad(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void b_quad(const __nv_bfloat16* p,
+                                       float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(x.x << 16);
+  v[1] = __uint_as_float(x.x & 0xffff0000u);
+  v[2] = __uint_as_float(x.y << 16);
+  v[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+__device__ __forceinline__ void b_quad(const int8_t* p, int32_t (&v)[4]) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = int32_t(x << (24 - 8 * e)) >> 24;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(int32_t* p, const int32_t (&v)[4]) {
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+// a (M, K) with rows lda apart and b (K, N) with rows ldb apart; lda and
+// ldb are multiples of 16 bytes and both bases 16-byte aligned (the
+// wrapper pads where they are not).  Only the live depth K is summed.
+template <typename T>
+__global__ void __launch_bounds__(kVpuThreads, 2)
+mm_vpu_kernel(const T* __restrict__ a, const T* __restrict__ b,
+              typename Acc<T>::type* __restrict__ c, int M, int N, int K,
+              int lda, int ldb) {
+  using A = typename Acc<T>::type;
+  constexpr int kV = 16 / int(sizeof(T));            // K values a chunk
+  constexpr int kStepK = kVpuRowBytes / int(sizeof(T));   // K a k-step
+  constexpr int kBRowBytes = kVpuTile * int(sizeof(T));
+  constexpr int kBChunks = kBRowBytes / 16;          // chunks a b row
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int m0 = blockIdx.y * kVpuTile, n0 = blockIdx.x * kVpuTile;
+  const int steps = (K + kStepK - 1) / kStepK;
+  const uint32_t base = smem_u32(smem);
+
+  auto load = [&](int stage, int step) {
+    const uint32_t sa = base + stage * kVpuStageBytes, sb = sa + kVpuABytes;
+    const int k0 = step * kStepK;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {            // a: 128 rows x 4 chunks
+      const int e = t + kVpuThreads * j, r = e / 4, ch = e % 4;
+      const int gm = m0 + r, gk = k0 + ch * kV;
+      const bool ok = gm < M && gk < K;
+      cp_async16(sa + r * kVpuRowBytes + ch * 16,
+                 ok ? a + size_t(gm) * lda + gk : a, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {            // b: kStepK rows, 128 columns
+      const int e = t + kVpuThreads * j, r = e / kBChunks, ch = e % kBChunks;
+      const int gk = k0 + r, gn = n0 + ch * kV;
+      const bool ok = gk < K && gn < ldb;
+      cp_async16(sb + r * kBRowBytes + ch * 16,
+                 ok ? b + size_t(gk) * ldb + gn : b, ok);
+    }
+  };
+
+  A acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[r][q] = A(0);
+  }
+#pragma unroll
+  for (int s = 0; s < kVpuStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kVpuStages - 2>();
+    __syncthreads();                         // the stage landed for all;
+    const int pre = step + kVpuStages - 1;   // the one read last is free
+    if (pre < steps) load(pre % kVpuStages, pre);
+    cp_async_commit();
+    const uint8_t* sa = smem + (step % kVpuStages) * kVpuStageBytes;
+    const T* sb = reinterpret_cast<const T*>(sa + kVpuABytes) + 4 * tx;
+    // only the live depth: a padded zero term could flip the sign of a
+    // zero sum, and results must not depend on the tiling
+    const int depth = min(kStepK, K - step * kStepK);
+#pragma unroll
+    for (int ch = 0; ch < kVpuRowBytes / 16; ++ch) {
+      if (ch * kV >= depth) break;
+      uint4 af[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        af[r] = *reinterpret_cast<const uint4*>(
+            sa + (ty + 16 * r) * kVpuRowBytes + ch * 16);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kV; ++kk) {
+        const int k = ch * kV + kk;
+        if (k >= depth) break;
+        A bv[2][4];
+        b_quad(sb + k * kVpuTile, bv[0]);
+        b_quad(sb + k * kVpuTile + 64, bv[1]);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const A av = Lane<T>::at(af[r], kk);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            acc[r][q] = mac(acc[r][q], av, bv[q / 4][q % 4]);
+          }
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+
+  const bool quads = N % 4 == 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int gm = m0 + ty + 16 * r;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + 4 * tx + 64 * h;
+      A* p = c + size_t(gm) * N + gn;
+      const A v[4] = {acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                      acc[r][4 * h + 3]};
+      if (quads && gn < N) {
+        store4(p, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (gn + e < N) p[e] = v[e];
+        }
+      }
+    }
+  }
 }
 
 int launch_mxu(const void* a, const void* b, void* c, int M, int N, int K,
@@ -194,11 +360,18 @@ int launch_mxu(const void* a, const void* b, void* c, int M, int N, int K,
 
 template <typename T>
 int launch_vpu(const void* a, const void* b, void* c, int M, int N, int K,
-               cudaStream_t st) {
+               int lda, int ldb, cudaStream_t st) {
   using A = typename Acc<T>::type;
-  dim3 grid((N + kVpuCols - 1) / kVpuCols, (M + kVpuRows - 1) / kVpuRows);
-  mm_vpu_kernel<T><<<grid, dim3(kVpuCols, kVpuRows), 0, st>>>(
-      (const T*)a, (const T*)b, (A*)c, M, N, K);
+  cudaError_t err = cudaFuncSetAttribute(
+      mm_vpu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kVpuSmem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();              // clear it: no later launch reads it
+    return int(err);
+  }
+  dim3 grid((N + kVpuTile - 1) / kVpuTile, (M + kVpuTile - 1) / kVpuTile);
+  mm_vpu_kernel<T><<<grid, kVpuThreads, kVpuSmem, st>>>(
+      (const T*)a, (const T*)b, (A*)c, M, N, K, lda, ldb);
   return int(cudaGetLastError());
 }
 
@@ -217,20 +390,27 @@ int launch_dual(const void* a1, const void* a2, const void* b, void* c1,
 extern "C" {
 
 // mm_vpu on f32, bf16 or int8; mm_mxu on f32 (int8 and bf16 run on
-// mm_tc_kernels.cu's tensor-core kernels)
+// mm_tc_kernels.cu's tensor-core kernels).  a's rows lie lda apart and
+// b's ldb apart (mm_mxu: lda == K, ldb == N); mm_vpu takes lda and ldb
+// in multiples of 16 bytes and 16-byte aligned bases.
 int cnn_matmul(int style, int dtype, const void* a, const void* b, void* c,
-               int M, int N, int K, void* stream) {
+               int M, int N, int K, int lda, int ldb, void* stream) {
   cudaStream_t st = cudaStream_t(stream);
   if (style == mm::kMxu) {
-    return dtype == mm::kF32 ? mm::launch_mxu(a, b, c, M, N, K, st)
-                             : int(cudaErrorInvalidValue);
+    return dtype == mm::kF32 && lda == K && ldb == N
+               ? mm::launch_mxu(a, b, c, M, N, K, st)
+               : int(cudaErrorInvalidValue);
   }
   if (style != mm::kVpu) return int(cudaErrorInvalidValue);
-  if (dtype == mm::kF32) return mm::launch_vpu<float>(a, b, c, M, N, K, st);
-  if (dtype == mm::kBF16) {
-    return mm::launch_vpu<__nv_bfloat16>(a, b, c, M, N, K, st);
+  if (dtype == mm::kF32) {
+    return mm::launch_vpu<float>(a, b, c, M, N, K, lda, ldb, st);
   }
-  if (dtype == mm::kI8) return mm::launch_vpu<int8_t>(a, b, c, M, N, K, st);
+  if (dtype == mm::kBF16) {
+    return mm::launch_vpu<__nv_bfloat16>(a, b, c, M, N, K, lda, ldb, st);
+  }
+  if (dtype == mm::kI8) {
+    return mm::launch_vpu<int8_t>(a, b, c, M, N, K, lda, ldb, st);
+  }
   return int(cudaErrorInvalidValue);
 }
 

@@ -30,15 +30,15 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("cnn_kernels.cu", "mm_kernels.cu", "mm_tc_kernels.cu",
-           "attn_kernels.cu", "scan_kernels.cu")
-HEADERS = ("cnn_device.cuh",)
+           "attn_kernels.cu", "attn_tc_kernels.cu", "scan_kernels.cu")
+HEADERS = ("cnn_device.cuh", "tc_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
 # dtype codes of the kernels (enum DType of cnn_kernels.cu; mm_kernels.cu,
-# mm_tc_kernels.cu and attn_kernels.cu use the same codes; scan_kernels.cu
-# takes f32 only)
+# mm_tc_kernels.cu and attn_kernels.cu use the same codes; attn_kernels.cu
+# hands bf16 flash to attn_tc_kernels.cu; scan_kernels.cu takes f32 only)
 DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.int32: 2,
               torch.int16: 3, torch.bfloat16: 4}
 
@@ -56,7 +56,7 @@ _SIGNATURES = {
                           _I, _P),
     "cnn_conv2d_dual": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
-    "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _P),
+    "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cnn_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mm_tc_matmul": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     "mm_tc_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -20,14 +20,19 @@ stays on CUDA cores (``mm_mxu_kernel`` in ``csrc/mm_kernels.cu``, FP32
 FMA into an 8x8 register tile a thread): Hopper has no IEEE-f32 MMA, and
 TF32 misses the reference tolerance.
 
-``mm_vpu`` is the Conv1 analogue: no dot, no tile — one thread per
-output multiplies and sums along K on CUDA cores and issues no MMA
-instruction (the logic-only contract of ``mxu_available=False``).
+``mm_vpu`` is the Conv1 analogue: no dot — it multiplies and sums
+along K on CUDA cores and issues no MMA instruction (the logic-only
+contract of ``mxu_available=False``).  Its kernel (``mm_vpu_kernel`` in
+``csrc/mm_kernels.cu``) stages (128, 64 bytes of K) and (64 bytes of K,
+128) tiles of a and b through a cp.async ring in shared memory, as the
+reference holds its blocks in VMEM, and keeps an 8x8 register tile a
+thread.
 
 Where the reference pads its operands to block multiples and crops, the
-CUDA-core kernels check bounds, and the tensor-core route zero-pads K
-and b's row stride to 16 bytes (``pad_tc_operands``, a layout step:
-zeros add exact +0 terms) and masks the ragged edge.  Results never
+CUDA-core kernels check bounds, and the tensor-core route and ``mm_vpu``
+zero-pad K and b's row stride to 16 bytes (``pad_tc_operands``, a
+layout step; the tensor-core zeros add exact +0 terms, and ``mm_vpu``
+sums only the live depth) and mask the ragged edge.  Results never
 depend on ``bm/bn/bk`` (validated, not shaping the launch); int8 results
 are exact, so ``mm_mxu`` and ``mm_vpu`` agree bitwise on int8, and on f32
 (one sequential multiply-add chain over K in both).  The plain versions
@@ -91,10 +96,10 @@ def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def pad_tc_operands(streams, b: torch.Tensor):
-    """The operands as the tensor-core kernels take them: K (the streams'
-    columns, b's rows) and b's columns rounded up to 16 bytes, each base
-    16-byte aligned; zero-padded copies where needed, the operands
-    themselves where not.  The zeros add exact +0 terms, and the kernel
+    """The operands as the tensor-core kernels and ``mm_vpu``'s take
+    them: K (the streams' columns, b's rows) and b's columns rounded up
+    to 16 bytes, each base 16-byte aligned; zero-padded copies where
+    needed, the operands themselves where not.  The zeros add exact +0 terms, and the kernel
     writes only the true (M, N): a plain product of the padded operands
     cropped to (M, N) equals the unpadded one.  Returns (streams, b)."""
     align = TC_ALIGN_BYTES // b.element_size()
@@ -120,8 +125,11 @@ def _launch(counter: str, style: str, a: torch.Tensor,
         return out
     code = cuda.DTYPE_CODE[a.dtype]
     if entry == "cnn_matmul":
+        if style == "vpu":           # cp.async stages: 16-byte rows
+            (a,), b = pad_tc_operands((a,), b)
         cuda.launch(counter, entry, a.device, STYLE_CODE[style], code,
-                    a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k)
+                    a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                    a.shape[1], b.shape[1])
     else:
         (a,), b = pad_tc_operands((a,), b)
         cuda.launch(counter, entry, a.device, code, a.data_ptr(),

@@ -112,6 +112,81 @@ def test_flash_bf16_matches_reference_kernel(rng, case):
     np.testing.assert_allclose(_np(got), _np(want), **BF16)
 
 
+def _split_p_flash(q, k, v, causal):
+    """The arithmetic of the bf16 tensor-core kernel
+    (``csrc/attn_tc_kernels.cu``), emulated on the CPU: 128-row query
+    blocks against key tiles of 128 (D <= 64) or 64 (D = 128) keys, an
+    online softmax tile by tile, S = Q.K^T of the bf16 values into f32
+    (masked at -1e30), p = exp2(S c - m c) with c = D^-0.5 log2(e), O +=
+    P_hi.V + P_lo.V with P_hi = bf16(P) and P_lo = bf16(P - P_hi) into
+    f32, l summed from P in f32 and clamped at 1e-30, the output rounded
+    to bf16, rows that see no key 0."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group, offs = hq // hkv, skv - sq
+    bk = 128 if d <= 64 else 64
+    c = (torch.tensor(d ** -0.5, dtype=torch.float32)
+         * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros((b, hq, sq, d))
+    for bi in range(b):
+        for h in range(hq):
+            for q0 in range(0, sq, 128):
+                qb = qf[bi, h, q0:q0 + 128]
+                rows = torch.arange(q0, q0 + qb.shape[0])[:, None]
+                m = torch.full((qb.shape[0],), -1e30)
+                l = torch.zeros(qb.shape[0])
+                acc = torch.zeros(qb.shape[0], d)
+                end = min(skv, q0 + qb.shape[0] + offs) if causal else skv
+                for k0 in range(0, max(end, 0), bk):
+                    kt = kf[bi, h // group, k0:k0 + bk]
+                    vt = vf[bi, h // group, k0:k0 + bk]
+                    s = qb @ kt.T
+                    cols = torch.arange(k0, k0 + kt.shape[0])[None, :]
+                    if causal:
+                        s = s.masked_fill(cols > rows + offs, -1e30)
+                    mx = torch.maximum(m, s.amax(dim=1))
+                    alpha = torch.exp2((m - mx) * c)
+                    m = mx
+                    p = torch.exp2(s * c - (m * c)[:, None])
+                    l = l * alpha + p.sum(dim=1)
+                    hi = p.to(torch.bfloat16).float()
+                    lo = (p - hi).to(torch.bfloat16).float()
+                    acc = acc * alpha[:, None] + hi @ vt + lo @ vt
+                o = acc / l.clamp(min=1e-30)[:, None]
+                if causal:
+                    o[(rows[:, 0] + offs) < 0] = 0
+                out[bi, h, q0:q0 + 128] = o
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", [(1, 4, 2, 512, 512, 64),
+                                  (1, 4, 2, 300, 200, 64),
+                                  (1, 2, 1, 130, 400, 16),
+                                  (1, 2, 2, 200, 333, 128)],
+                         ids=["gqa512", "dead_rows", "cached16", "d128"])
+def test_flash_split_p_emulation_holds_the_bound(rng, case, causal):
+    """The precision scheme that the card's check depends on: the bf16
+    kernel's arithmetic (``_split_p_flash``) stays within
+    ``chip_smoke.ATTN_BF16_TOL`` of ``flash_attention_plain`` and within
+    this file's bf16 bound of the reference's Pallas kernel (interpret
+    mode; rows that see no key excepted, where the reference's value
+    depends on its blocking)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, *case, dtype="bfloat16")
+    got = _split_p_flash(tq, tk, tv, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    torch.testing.assert_close(got, flash_attention_plain(tq, tk, tv,
+                                                          causal=causal),
+                               **chip_smoke.ATTN_BF16_TOL)
+    live = max(0, case[3] - case[4]) if causal else 0
+    want = j_flash(jq, jk, jv, causal=causal, bq=128, bk=128)
+    np.testing.assert_allclose(_np(got)[:, :, live:],
+                               _np(want)[:, :, live:], **BF16)
+    if live:
+        assert (got[:, :, :live] == 0).all()
+
+
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("skv", [17, 64, 100, 257])
 def test_decode_plain_matches_reference_kernel(rng, skv, group):

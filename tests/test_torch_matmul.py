@@ -13,6 +13,7 @@ the 8-bit quantized path bit-exact (the same codes, an exact int32
 accumulator and the same f32 rescale); plan JSON byte-equal.
 """
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -236,9 +237,12 @@ def test_entry_point_refuses_mixed_dtypes(dtypes):
 
 def test_chip_smoke_holds_the_tensor_core_kernels():
     """``chip_smoke.py`` names the kernels of the route it checks: every
-    kernel of its SASS table is defined in ``mm_tc_kernels.cu``, every
-    tensor-core row points at that source and at ``mm_mxu``'s or
-    ``_mm_dual``'s TPU kernel, and the f32 row stays on ``mm_kernels.cu``."""
+    kernel of its SASS table is defined in the source it is listed under
+    (the matmul ones in ``mm_tc_kernels.cu``, bf16 flash attention in
+    ``attn_tc_kernels.cu``), every tensor-core matmul row points at
+    ``mm_tc_kernels.cu`` and at ``mm_mxu``'s or ``_mm_dual``'s TPU kernel,
+    the flash row at ``attn_tc_kernels.cu``, and the f32 and ``mm_vpu``
+    rows stay on ``mm_kernels.cu``."""
     import importlib.util
     import pathlib
     root = pathlib.Path(__file__).resolve().parents[1]
@@ -246,20 +250,37 @@ def test_chip_smoke_holds_the_tensor_core_kernels():
                                                   root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    assert set(smoke.TC_SASS) == {smoke.CSRC_MM_TC, smoke.CSRC_ATTN_TC}
     src = (root / smoke.CSRC_MM_TC).read_text()
-    for kernel, mnemonic in smoke.TC_SASS.items():
+    for kernel, mnemonic in smoke.TC_SASS[smoke.CSRC_MM_TC].items():
         assert f"MM_TC_KERNEL({kernel}," in src
         assert mnemonic == ("IGMMA" if "_i8_" in kernel else "HGMMA")
+    src = (root / smoke.CSRC_ATTN_TC).read_text()
+    assert smoke.TC_SASS[smoke.CSRC_ATTN_TC] == {
+        "attn_tc_flash_kernel": "HGMMA"}
+    assert "attn_tc_flash_kernel(" in src
+    # the SASS check matches kernels by substring: no other name holds it
+    csrc = (root / smoke.CSRC_MM).parent
+    names = set(re.findall(r"\b(\w+_kernel)\b", "".join(
+        path.read_text() for path in csrc.glob("*.cu"))))
+    for kernel in list(smoke.TC_SASS[smoke.CSRC_ATTN_TC]) + list(
+            smoke.LOGIC_ONLY):
+        assert [n for n in names if kernel in n] == [kernel]
+    assert smoke.SOURCE["flash_attention"] == smoke.CSRC_ATTN_TC
+    assert smoke.SOURCE["flash_decode"] == smoke.CSRC_ATTN
     for row in smoke.TC_ROWS:
         assert smoke.SOURCE[row] == smoke.CSRC_MM_TC
         assert smoke.REPLACES[row].split(":")[0] in (
             "src/repro/kernels/matmul/mxu.py",
             "src/repro/kernels/matmul/dual.py")
-    assert smoke.SOURCE["mm_mxu"] == smoke.SOURCE["mm_vpu"] == smoke.CSRC_MM
+    for row in ("mm_mxu", "mm_vpu", "mm_vpu (int8)", "mm_vpu (bf16)"):
+        assert smoke.SOURCE[row] == smoke.CSRC_MM
     assert smoke.mm_row("mm_mxu", torch.int8) == "mm_mxu (int8)"
     assert smoke.mm_row("mm_mxu", torch.bfloat16) == "mm_mxu (bf16)"
     assert smoke.mm_row("mm_mxu", torch.float32) == "mm_mxu"
-    assert smoke.mm_row("mm_vpu", torch.int8) == "mm_vpu"
+    assert smoke.mm_row("mm_vpu", torch.int8) == "mm_vpu (int8)"
+    assert smoke.mm_row("mm_vpu", torch.bfloat16) == "mm_vpu (bf16)"
+    assert smoke.mm_row("mm_vpu", torch.float32) == "mm_vpu"
 
 
 # --------------------------------------------------------------------------
