@@ -13,6 +13,8 @@ and prints no result):
    version on the card at the frontend's shapes (f32 with stated
    tolerances, int8 bit-exact), the fused kernel bitwise against its
    three-launch chain, and results independent of the tiling hints;
+   the tiled ``conv2d_ip1`` also at the ragged shapes of
+   ``CONV_RAGGED`` (f32 and int8, any ``block_cout``, fused == chain);
 4. serve  — ``AdaptiveServer(device="cuda")`` with the default CNN
    frontend answers 8 seeded 224x224x3 requests through the fused plan
    (launch counters reset just before and read just after), a
@@ -56,8 +58,10 @@ and prints no result):
    ``attention(budget=ResourceBudget(mxu_available=False))`` raises "no
    feasible IP"; f32 attention and decode within ``ATTN_F32_TOL``
    (``ATTN_F32_CASES``, ``DECODE_F32_CASES`` and the two sites' full
-   shapes; rows that see no key are 0; a GQA group too large for
-   shared memory raises); bf16 flash attention (the tensor-core kernel,
+   shapes; rows that see no key are 0); split-KV decode at
+   ``DECODE_SPLIT_CASES`` in bf16 and f32 (one launch a call; the splits
+   and resident CTAs the launcher chose at attn_decode32k logged); bf16
+   flash attention (the tensor-core kernel,
    ``csrc/attn_tc_kernels.cu``) within ``ATTN_BF16_TOL`` at
    ``ATTN_BF16_CASES``, rows that see no key 0; ``matmul_dual`` on bf16
    plans and launches
@@ -69,10 +73,11 @@ and prints no result):
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
    kernels (``LOGIC_ONLY``), IGMMA in the int8 and HGMMA in the bf16
    tensor-core kernels, bf16 flash attention's included (``TC_SASS``);
-5. times  — per kernel (``mm_mxu`` per operand dtype: f32 on CUDA
-   cores, int8 and bf16 on the tensor cores; ``mm_vpu`` per operand
-   dtype, all on CUDA cores): the median device time of
-   20 launches (CUDA
+5. times  — per kernel (``conv2d_ip1`` also at block 1 and on int8 at
+   block 0, ``flash_decode`` also on f32; ``mm_mxu`` per operand dtype:
+   f32 on CUDA cores, int8 and bf16 on the tensor cores; ``mm_vpu`` per
+   operand dtype, all on CUDA cores): the median device time of 20
+   launches (CUDA
    events, launches queued ahead of the device), its plain version's
    and the PyTorch library call's time, and the least time the card
    could take (bytes over peak bandwidth, or operations over the peak
@@ -206,8 +211,8 @@ SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
           for name in REPLACES}
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
 # as ssm_scan.selective_vmem): no MMA in SASS.
-LOGIC_ONLY = ("conv2d_ip3_kernel", "mm_vpu_kernel",
-              "selective_scan_kernel")
+LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_kernel",
+              "mm_vpu_kernel", "selective_scan_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 # The tensor-core kernels by source, and the wgmma instruction each must
 # contain (and no other MMA kind): the MXU matmul members and bf16 flash
@@ -331,6 +336,25 @@ ATTN_BF16_CASES = ATTN_F32_CASES
 # f32 decode checks: (B, Hq, Hkv, Skv, D)
 DECODE_F32_CASES = ((4, 32, 8, 4097, 64), (2, 8, 2, 257, 32),
                     (2, 2, 2, 17, 16), (2, 16, 2, 300, 128))
+# split-KV decode checks, bf16 and f32: (B, Hq, Hkv, Skv, D).  A single
+# key, lengths no multiple of a stage, long caches at a batch small
+# enough that the launcher splits them into many chunks (the last one
+# short), GQA groups 1, 4 and 8, a group of 12 (two row blocks, the
+# second half full) and one of 256 (32 row blocks)
+DECODE_SPLIT_CASES = ((1, 2, 2, 1, 64), (1, 8, 2, 17, 64),
+                      (1, 16, 2, 257, 64), (1, 8, 2, 4097, 64),
+                      (2, 2, 2, 4097, 128), (1, 16, 2, 4097, 32),
+                      (1, 24, 2, 300, 128), (1, 256, 1, 17, 128))
+# conv2d_ip1's ragged checks (x, w): rows and columns no multiple of the
+# tile, Cout 7 (no 16-byte stores) and 40 (two channel blocks, the second
+# ragged), Cin 1, 3 on rows no multiple of 16 bytes (element copies), 5
+# and 600 (staged in chunks), 1x1, 3x3 and 5x5 taps
+CONV_RAGGED = (((2, 13, 37, 1), (3, 3, 1, 7)),
+               ((1, 11, 19, 5), (5, 5, 5, 7)),
+               ((2, 9, 10, 5), (1, 1, 5, 7)),
+               ((2, 17, 23, 3), (3, 3, 3, 16)),
+               ((3, 30, 70, 16), (3, 3, 16, 40)),
+               ((1, 12, 20, 600), (3, 3, 600, 7)))
 
 
 # The two-tenant precision-ladder deployments (the reference's serving
@@ -533,6 +557,52 @@ def kernel_checks(shapes, gen):
         log(f"{block}: fused == chain bitwise for both styles")
     torch.cuda.synchronize()
     return errs
+
+
+def conv_ragged_checks(gen, errs):
+    """conv2d_ip1 (the tiled kernel) at CONV_RAGGED against its plain
+    version: f32 within tolerance, int8 bit-exact, both independent of
+    block_cout; f32 fused_cnn_vpu bitwise equal to its three-launch chain
+    (conv2d_ip1, pool2d_window, activation_exact) at the same shapes."""
+    import torch
+    from repro_torch.kernels.activation.vpu_exact import activation_exact
+    from repro_torch.kernels.conv2d.ip1_vpu import (conv2d_ip1,
+                                                    conv2d_ip1_plain,
+                                                    tile_plan)
+    from repro_torch.kernels.fused.cnn_block import fused_cnn_vpu
+    from repro_torch.kernels.pool2d.vpu_window import pool2d_window
+    dev = torch.device("cuda")
+    plans = []
+    for xs, ws in CONV_RAGGED:
+        x = torch.randn(xs, generator=gen).to(dev)
+        w = (torch.randn(ws, generator=gen)
+             * (ws[0] * ws[1] * ws[2]) ** -0.5).to(dev)
+        xi = torch.randint(-128, 127, xs, generator=gen,
+                           dtype=torch.int8).to(dev)
+        wi = torch.randint(-128, 127, ws, generator=gen,
+                           dtype=torch.int8).to(dev)
+        y = conv2d_ip1(x, w)
+        compare("conv2d_ip1", y, conv2d_ip1_plain(x, w), 1e-4, 1e-5, errs)
+        compare("conv2d_ip1", conv2d_ip1(xi, wi), conv2d_ip1_plain(xi, wi),
+                0, 0, errs, exact=True)
+        for bc in (1, 5, 16):
+            check(torch.equal(conv2d_ip1(x, w, block_cout=bc), y)
+                  and torch.equal(conv2d_ip1(xi, wi, block_cout=bc),
+                                  conv2d_ip1(xi, wi)),
+                  f"conv2d_ip1 at {xs} x {ws}: result depends on "
+                  f"block_cout")
+        check(torch.equal(fused_cnn_vpu(x, w), activation_exact(
+            pool2d_window(y))), f"fused_cnn_vpu at {xs} x {ws}: not "
+                                f"bitwise equal to its three-launch chain")
+        n, h, w_, cin = xs
+        plans.append(tuple(
+            tile_plan(h, w_, cin, *ws[:2], ws[3], itemsize=size)
+            for size in (4, 1)))
+    log(f"conv2d_ip1 at {len(CONV_RAGGED)} ragged shapes: f32 within "
+        f"rtol=1e-4, atol=1e-5, int8 bit-exact, independent of "
+        f"block_cout; f32 fused_cnn_vpu == chain bitwise; tile plans "
+        f"(f32, int8) {plans}")
+    torch.cuda.synchronize()
 
 
 def ladder_kernel_checks(gen, errs):
@@ -1289,9 +1359,10 @@ def lm_site_checks(sites_of, rng, errs):
 def lm_kernel_checks(ops, rng, errs):
     """The three new kernels beyond the planned sites: f32 attention and
     decode at ATTN_F32_CASES / DECODE_F32_CASES and at the planned
-    sites' full shapes, rows that see no key written as 0, a GQA group
-    too large for shared memory refused with no launch counted; bf16
-    attention (the tensor-core kernel) at ATTN_BF16_CASES;
+    sites' full shapes, rows that see no key written as 0; split-KV
+    decode at DECODE_SPLIT_CASES in bf16 and f32, one launch a call, and
+    the splits the launcher chose at attn_decode32k; bf16 attention (the
+    tensor-core kernel) at ATTN_BF16_CASES;
     ``matmul_dual(budget=ResourceBudget())`` on bf16 plans
     ``mm_dual_full`` (one launch), and f32/bf16 ``mm_dual_full`` equal
     two ``mm_mxu`` launches bitwise; int8 ``mm_dual_full`` bit-exact.
@@ -1301,7 +1372,8 @@ def lm_kernel_checks(ops, rng, errs):
     from repro_torch.core.plan import plan_single
     from repro_torch.core.resources import ResourceBudget
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.attention.decode import (flash_decode,
+    from repro_torch.kernels.attention.decode import (decode_plan,
+                                                      flash_decode,
                                                       flash_decode_plain)
     from repro_torch.kernels.attention.flash import (flash_attention,
                                                      flash_attention_plain)
@@ -1341,22 +1413,30 @@ def lm_kernel_checks(ops, rng, errs):
         compare_attention(kernel.__name__, kernel(q, k, v, **kw), plain, q,
                           k, v, per_head, ATTN_F32_TOL, errs, **kw)
         del q, k, v
-    # a GQA group whose q tile and scores exceed the card's shared memory
-    q = np_operand(rng, (1, 256, 1, 128), f32)
-    k, v = (np_operand(rng, (1, 1, 17, 128), f32) for _ in range(2))
-    cuda.reset_launches()
-    try:
-        flash_decode(q, k, v)
-    except RuntimeError as e:
-        check(cuda.launch_counts() == {}, "flash_decode counted a launch "
-                                          "that failed")
-        log(f"flash_decode with a group of 256 x 128 raises: {e}")
-    else:
-        raise SmokeFailure("flash_decode launched a group of 256 x 128")
-    q = q[:, :4].contiguous()
-    compare("flash_decode", flash_decode(q, k, v),
-            flash_decode_plain(q, k, v), ATTN_F32_TOL["rtol"],
-            ATTN_F32_TOL["atol"], errs)
+    # split-KV edge cases (many splits with a short last one, row blocks
+    # of a large group; a group of 256 x 128 runs since row blocks lifted
+    # the group limit), one launch a call
+    chosen = []
+    for b, hq, hkv, skv, d in DECODE_SPLIT_CASES:
+        for dtype, tol in ((torch.bfloat16, ATTN_BF16_TOL),
+                           (f32, ATTN_F32_TOL)):
+            q = np_operand(rng, (b, hq, 1, d), dtype)
+            k, v = (np_operand(rng, (b, hkv, skv, d), dtype)
+                    for _ in range(2))
+            chosen.append(decode_plan(q, k)[0])
+            cuda.reset_launches()
+            y = flash_decode(q, k, v)
+            check(cuda.launch_counts() == {"flash_decode": 1},
+                  f"flash_decode at {(b, hq, hkv, skv, d)}: launches "
+                  f"{cuda.launch_counts()}")
+            compare("flash_decode", y, flash_decode_plain(q, k, v),
+                    tol["rtol"], tol["atol"], errs)
+    log(f"flash_decode (split-KV) at {len(DECODE_SPLIT_CASES)} edge cases, "
+        f"bf16 and f32, one launch a call, within ATTN_BF16_TOL / "
+        f"ATTN_F32_TOL; splits chosen {chosen}")
+    splits, resident, ws_floats = decode_plan(*ops["decode"][:2])
+    log(f"flash_decode at attn_decode32k: {splits} splits, {resident} "
+        f"resident CTAs an SM, workspace {ws_floats * 4} bytes")
     # bf16 flash (the tensor-core kernel) at the f32 cases' shapes
     bf16 = torch.bfloat16
     for b, hq, hkv, sq, skv, d in ATTN_BF16_CASES:
@@ -1448,8 +1528,9 @@ def lm_timings(ops, peaks):
     """Rows for the three new kernels at the planned sites' shapes:
     ``mm_dual_shared`` (int8) and ``mm_dual_full`` (bf16) at the sweep's
     FFN, ``flash_attention`` at attn_train4k, ``flash_decode`` at
-    attn_decode32k.  Bound by bytes or by the tensor-core peak of the
-    operand type; the FP32 figure beside it."""
+    attn_decode32k (bf16, and f32 on the cache widened).  Bound by bytes
+    or by the tensor-core peak of the operand type; the FP32 figure
+    beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention.decode import (flash_decode,
@@ -1534,6 +1615,19 @@ def lm_timings(ops, peaks):
                 "mufu_per_s")[0]
             if r["exp_bound_ms"] > r["bound_ms"]:
                 r["bound_ms"], r["bound_by"] = r["exp_bound_ms"], "operations"
+    # the decode kernel's f32 instance at attn_decode32k (the bf16 cache
+    # widened: twice the bytes); no library time: SDPA's f32 GQA path
+    # would expand the 17 GB cache to every query head
+    q, k, v = (t.float() for t in ops["decode"])
+    y = flash_decode(q, k, v)
+    rows["flash_decode (f32)"] = row(
+        lambda: flash_decode(q, k, v),
+        time_sync_ms(lambda: plain_chunks(flash_decode_plain, q, k, v,
+                                          False)),
+        None, nbytes(q, k, v, y),
+        4 * q.shape[-1] * q.shape[0] * q.shape[1] * k.shape[2], "fp32_flops",
+        f"q{tuple(q.shape)} kv{tuple(k.shape)} f32", "none")
+    del q, k, v, y
     return rows
 
 
@@ -1667,6 +1761,22 @@ def timings(shapes, gen, peaks):
                           library_ms=time_ms(lambda: conv_lib(x, w)),
                           bound_ms=b_ms, bound_by=by,
                           shape=f"x{tuple(x.shape)} w{tuple(w.shape)}")
+    # the tiled Conv1 at block 1 (f32) and on int8 at block 0 (int32
+    # multiply-adds on the INT32 lanes; no PyTorch int8 conv on CUDA)
+    xi0, wi0 = operand(gen, x0s, torch.int8), operand(gen, w0s, torch.int8)
+    for name, x, w, rate, lib_fn in (
+            ("conv2d_ip1 (f32, block 1)", x1, w1, "fp32_flops",
+             lambda: conv_lib(x1, w1)),
+            ("conv2d_ip1 (int8, block 0)", xi0, wi0, "int32_ops", None)):
+        y = conv2d_ip1(x, w)
+        k = w.shape[0] * w.shape[1] * w.shape[2]
+        b_ms, by = bound(nbytes(x, w, y), 2 * k * y.numel(), rate)
+        rows[name] = dict(
+            ms=time_ms(lambda: conv2d_ip1(x, w)),
+            plain_ms=time_sync_ms(lambda: conv2d_ip1_plain(x, w)),
+            library_ms=None if lib_fn is None else time_ms(lib_fn),
+            bound_ms=b_ms, bound_by=by,
+            shape=f"x{tuple(x.shape)} w{tuple(w.shape)} {x.dtype}")
 
     y0 = conv2d_ip1(x0, w0)
     p0 = pool2d_window(y0)
@@ -2319,6 +2429,7 @@ def main() -> int:
               "block1": ((4, 111, 111, 16), (3, 3, 16, 32))}
     gen = torch.Generator().manual_seed(SEED)
     errs = kernel_checks(shapes, gen)
+    conv_ragged_checks(gen, errs)
 
     ladder_kernel_checks(gen, errs)
 

@@ -6,16 +6,25 @@ reference takes the whole GQA group of a kv head as its q tile
 (group x d) and merges the online max/sum across kv blocks of ``bk``
 keys in VMEM scratch, masking the padded tail with -1e30.
 
-The kernel (``flash_decode_kernel<T, D>`` in ``csrc/attn_kernels.cu``)
-runs one CTA per (b, kv head) with the group's q tile, accumulators and
-softmax state in shared memory, and streams the cache in blocks of 64
-keys (16-byte loads, widened to f32 in shared memory), merging online
-through the same ``__device__`` step as ``flash_attention_kernel``.  It
-reads every cache byte once: device memory bounds it.  ``bk`` is the
-reference's VMEM block hint: validated, it does not shape the launch.
-Split-KV across CTAs is later work (ROADMAP queue 2).
+The kernel is split-KV (``flash_decode_split_kernel<T, D, GP>`` and
+``decode_combine_kernel<T>`` in ``csrc/attn_kernels.cu``, one launch of
+``attn_decode``): the grid is (b * Hkv x row blocks of up to 8 rows of
+the group, splits), each CTA streams one chunk of the keys through a
+cp.async ring in the cache's own dtype, its 8 warps each keep
+an online softmax over their share of every stage's keys, and the warps
+merge once per chunk into the split's partial (m, l, acc) in a
+workspace; a combine merges the splits in ascending order,
+o = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30), e_s = exp(m_s - max m)
+— the partial-softmax merge of the reference's docstring.  The number
+of splits comes from the launcher (``decode_plan``): enough that the
+grid's last wave is nearly full, never an empty chunk.  It reads every
+cache byte once: device memory bounds it.  ``bk`` is the reference's
+VMEM block hint: validated, it does not shape the launch.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Tuple
 
 import torch
 
@@ -25,6 +34,22 @@ from repro_torch.kernels.attention.flash import (_cdiv, check_qkv,
                                                  require_kernel_operands)
 from repro_torch.kernels.attention.ref import decode_attention_ref
 from repro_torch.kernels.conv2d.inner import check_block
+
+WARPS = 8            # a CTA's warps, each with its own online softmax
+
+
+def keys_per_warp(d: int, itemsize: int) -> int:
+    """Keys a warp takes of each stage (``DecodeTile::kKeysPerWarp``)."""
+    row = d * itemsize
+    return 16 if row <= 128 else 8 if row <= 256 else 4
+
+
+def split_chunk(skv: int, splits: int, tile: int) -> Tuple[int, int]:
+    """(keys a split, splits) for ``splits`` asked: a whole number of
+    ``tile``-key stages a split and no empty split (``decode_chunk`` /
+    ``decode_splits`` of ``csrc/attn_kernels.cu``)."""
+    chunk = _cdiv(_cdiv(skv, splits), tile) * tile
+    return chunk, _cdiv(skv, chunk)
 
 
 def _check_single(q: torch.Tensor) -> None:
@@ -52,16 +77,32 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_decode_plain(q, k, v)
     require_kernel_operands(q, k, v, 15)
-    b, hq, _, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    splits, _, ws_floats = decode_plan(q, k)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
+    b, hq, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     cuda.launch("flash_decode", "attn_decode", q.device,
                 cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, hq, hkv, skv, d,
-                d ** -0.5)
+                v.data_ptr(), out.data_ptr(), ws.data_ptr(), b, hq, hkv, skv,
+                d, splits, d ** -0.5)
     return out
+
+
+def decode_plan(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int, int]:
+    """The launcher's choice for CUDA operands q and k: (splits, resident
+    CTAs an SM, workspace floats).  Launches nothing."""
+    b, hq, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    splits, resident = ctypes.c_int(), ctypes.c_int()
+    ws_floats = ctypes.c_longlong()
+    cuda.call("flash_decode", "attn_decode_plan", q.device,
+              cuda.DTYPE_CODE[q.dtype], b, hq, hkv, skv, d,
+              ctypes.byref(splits), ctypes.byref(resident),
+              ctypes.byref(ws_floats))
+    return splits.value, resident.value, ws_floats.value
 
 
 def footprint(b, hq, hkv, skv, d, *, itemsize=2, bk=1024) -> Footprint:

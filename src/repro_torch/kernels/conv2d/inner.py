@@ -1,16 +1,17 @@
 """Shared conv bodies — the single source of the per-tile convolution
 math, in the two orders of the reference (``repro.kernels.conv2d.inner``).
 
-On the card these are the ``__device__`` functions ``conv_point_vpu`` /
-``conv_point_mxu`` of ``csrc/cnn_device.cuh``, which the standalone
-members (``ip1_vpu``, ``ip2_mxu``) and the fused members
-(``kernels/fused/cnn_block.py``) all call; ``launch_conv`` is the
-standalone members' shared launch.  The functions below are their plain
+On the card these are the ``__device__`` functions of
+``csrc/cnn_device.cuh`` (``conv_taps_vpu`` / ``conv_part_vpu`` and
+``conv_point_mxu``), which the standalone members (``ip1_vpu``,
+``ip2_mxu``) and the fused members (``kernels/fused/cnn_block.py``) all
+call; ``conv_output`` allocates the standalone members' output.  The functions below are their plain
 PyTorch versions in the same order, which the CPU path runs and the
 on-card checks compare against:
 
-* vpu: for each tap (i, j), multiply the shifted window by the tap and
-  sum over Cin, then add the partial into the accumulator;
+* vpu: for each tap (i, j), a partial that starts at 0 takes the shifted
+  window's products with the tap over Cin in ascending order, then adds
+  into the accumulator (the kernels' chain, with FMA there);
 * mxu: im2col to (.., KH*KW*Cin) and one dot over that K.
 
 The dual-stream members (``ip3_packed``, ``ip4_dual``) share
@@ -27,16 +28,23 @@ STYLE_CODE = {"vpu": 0, "mxu": 1}
 
 def accumulate_vpu(x, w, *, ho: int, wo: int, acc_dtype):
     """Conv1-style: ``x`` (N, H, W, Cin) already in ``acc_dtype``,
-    ``w`` (kh, kw, Cin, Cout).  Returns (N, Ho, Wo, Cout)."""
-    kh, kw = w.shape[0], w.shape[1]
-    acc = torch.zeros((x.shape[0], ho, wo, w.shape[-1]), dtype=acc_dtype,
-                      device=x.device)
+    ``w`` (kh, kw, Cin, Cout).  Returns (N, Ho, Wo, Cout).  Every tap's
+    partial takes the channels in ascending order from 0, then the taps'
+    partials add into the accumulator in (i, j) order: the kernels'
+    chain, all taps at once over a strided view of the windows."""
+    kh, kw, cin, cout = w.shape
+    n = x.shape[0]
+    sn, sh, sw, sc = x.stride()
+    windows = x.as_strided((n, ho, wo, kh, kw, cin), (sn, sh, sw, sh, sw, sc))
+    taps = w.to(acc_dtype)
+    part = torch.zeros((n, ho, wo, kh, kw, cout), dtype=acc_dtype,
+                       device=x.device)
+    for c in range(cin):
+        part = part + windows[..., c, None] * taps[:, :, c]
+    acc = torch.zeros((n, ho, wo, cout), dtype=acc_dtype, device=x.device)
     for i in range(kh):
         for j in range(kw):
-            window = x[:, i:i + ho, j:j + wo, :]          # (N, Ho, Wo, Cin)
-            tap = w[i, j].to(acc_dtype)                   # (Cin, Cout)
-            prod = window[..., :, None] * tap
-            acc = acc + prod.sum(dim=3, dtype=acc_dtype)
+            acc = acc + part[:, :, :, i, j]
     return acc
 
 
@@ -80,24 +88,16 @@ def check_block(name: str, value: int) -> None:
         raise ValueError(f"{name} must be >= 1, got {value}")
 
 
-def launch_conv(counter: str, style: str, x: torch.Tensor, w: torch.Tensor,
-                block_cout: int) -> torch.Tensor:
-    """Launch ``conv2d_kernel`` (``csrc/cnn_kernels.cu``) for a CUDA
-    ``x``: f32 operands give f32, int8 operands give int32."""
+def conv_output(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Check a standalone member's CUDA operands and allocate its output:
+    f32 operands give f32, int8 operands give int32."""
     cuda.require(x, "x", (torch.float32, torch.int8))
     cuda.require(w, "w", (x.dtype,))
-    n, h, w_, cin = x.shape
+    n, h, w_, _ = x.shape
     kh, kw, _, cout = w.shape
-    ho, wo = h - kh + 1, w_ - kw + 1
     out_dtype = torch.int32 if x.dtype == torch.int8 else torch.float32
-    y = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    cuda.launch(counter, "cnn_conv2d", x.device, STYLE_CODE[style],
-                cuda.DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-                y.data_ptr(), n, h, w_, cin, kh, kw, cout,
-                min(int(block_cout), cout))
-    return y
+    return torch.empty((n, h - kh + 1, w_ - kw + 1, cout), dtype=out_dtype,
+                       device=x.device)
 
 
 def launch_conv_dual(counter: str, ip: int, xa: torch.Tensor,

@@ -2,7 +2,7 @@
 
 Replaces ``repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2``.  The reference
 builds the im2col tile and takes ONE dot over K = KH*KW*Cin; the kernel
-(``conv2d_kernel<T, kMxu>`` in ``csrc/cnn_kernels.cu``) keeps that order
+(``conv2d_kernel<T>`` in ``csrc/cnn_kernels.cu``) keeps that order
 (``inner.accumulate_mxu``), one thread per output.  It runs on CUDA
 cores (FP32 FMA / int32 multiply-add): Hopper's tensor cores have no
 IEEE-f32 mode and TF32 misses the reference tolerance; the tensor-core
@@ -13,9 +13,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.resources import Footprint, cost_cycles, mxu_pass_cycles
+from repro_torch.kernels import cuda
 from repro_torch.kernels.conv2d.inner import (accumulate_mxu, check_block,
                                               check_conv_operands,
-                                              launch_conv)
+                                              conv_output)
 
 
 def conv2d_ip2_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -32,7 +33,16 @@ def conv2d_ip2(x: torch.Tensor, w: torch.Tensor, *,
     check_block("block_cout", block_cout)
     if not x.is_cuda:
         return conv2d_ip2_plain(x, w)
-    return launch_conv("conv2d_ip2", "mxu", x, w, block_cout)
+    y = conv_output(x, w)
+    if y.numel() == 0:
+        return y
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    cuda.launch("conv2d_ip2", "cnn_conv2d", x.device,
+                cuda.DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
+                y.data_ptr(), n, h, w_, cin, kh, kw, cout,
+                min(int(block_cout), cout))
+    return y
 
 
 def footprint(n, h, w, cin, kh, kw, cout, *, itemsize=1,

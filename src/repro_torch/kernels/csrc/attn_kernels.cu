@@ -1,19 +1,20 @@
-// The CUDA-core attention kernels of the port: two __global__ kernels and
-// their plain C launchers, loaded with ctypes by
+// The CUDA-core attention kernels of the port: three __global__ kernels
+// and their plain C launchers, loaded with ctypes by
 // src/repro_torch/kernels/cuda.py.  bf16 flash attention runs on the
 // tensor cores instead (attn_tc_kernels.cu; attn_flash hands it over).
 //
 // Built with the flags of cnn_kernels.cu (-fmad=false; widen and vmax
-// from cnn_device.cuh).  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) are
-// contiguous, of one dtype: f32, or (decode) bf16 widened exactly to f32
-// on load; the output has q's dtype (bf16 by __float2bfloat16_rn).  q
-// head h reads kv head h / (Hq / Hkv) (GQA).  Scores, softmax state and
-// accumulators are f32, as in the reference: q is scaled by D^-0.5 (the
-// f32 of the wrapper's Python float) before the dot, masked scores are
-// -1e30, the normalizer is clamped at 1e-30.  Both kernels merge key
-// blocks through one online-softmax step (online_softmax_step).  Dots
-// and sums are explicit __fmaf_rn / __fadd_rn chains on CUDA cores and
-// exponentials are expf.
+// from cnn_device.cuh, cp.async from tc_device.cuh).  q (B, Hq, Sq, D),
+// k and v (B, Hkv, Skv, D) are contiguous, of one dtype: f32, or
+// (decode) bf16 widened exactly to f32 on use; the output has q's dtype
+// (bf16 by __float2bfloat16_rn).  q head h reads kv head h / (Hq / Hkv)
+// (GQA).  Scores, softmax state and accumulators are f32, as in the
+// reference: q is scaled by D^-0.5 (the f32 of the wrapper's Python
+// float) before the dot, masked scores are -1e30, the normalizer is
+// clamped at 1e-30.  Both kernels merge key blocks through one
+// online-softmax step (online_softmax_step).  Dots and sums are
+// explicit __fmaf_rn / __fadd_rn chains on CUDA cores and exponentials
+// are expf.
 //
 // flash_attention_kernel<float, D>
 //   replaces src/repro/kernels/attention/flash.py::flash_attention on f32
@@ -31,22 +32,33 @@
 //   the block sees (the reference skips the same blocks).  A row that
 //   sees no key (causal with Sq > Skv) is written as 0.
 //
-// flash_decode_kernel<T, D>
-//   replaces src/repro/kernels/attention/decode.py::flash_decode
+// flash_decode_split_kernel<T, D, GP> + decode_combine_kernel<T>
+//   replace src/repro/kernels/attention/decode.py::flash_decode
 //   One query token per head against the whole cache: device memory
-//   bounds it (2*B*Hkv*Skv*D elements read once).  One CTA of 256
-//   threads per (b, kv head); its GQA group's q rows are the q tile.
-//   The cache streams in blocks of kDecBk = 64 keys (16-byte loads into
-//   shared memory, rows padded to D + 1 words so threads reading
-//   different keys hit different banks); scores one (row, key) per
-//   thread, the online step one warp per row, the accumulator update
-//   one (row, dim) per thread.  The accumulators live in shared memory,
-//   so any group size fits that the card's shared memory holds.
+//   bounds it (2*B*Hkv*Skv*D elements read once; about 4*group
+//   operations a cache element, a fifth of the FP32 rate at group 4).
+//   Split-KV: the grid is (B*Hkv x row blocks, splits); a CTA of 8 warps
+//   takes up to GP = 8 rows of a kv head's GQA group (a larger group
+//   takes several row blocks) against one chunk of the keys, a whole
+//   number of stages long, and attn_decode_plan picks the splits from
+//   Skv, the SM count and the resident CTAs an SM so that the grid's
+//   last wave is at least 90% full where it can be.  The chunk streams
+//   through a ring of 16-byte cp.async copies that keep K and V in their
+//   own dtype (bf16 widened at use): at up to 4 rows a CTA two stages
+//   (one in flight while the other is consumed) and three CTAs an SM,
+//   at 8 rows three stages and two CTAs (DecodeDepth).  Every warp works
+//   in every phase: each owns a slice of a stage's keys (kLanesPerKey
+//   lanes a key for the scores, then the key's lanes' sums), keeps its
+//   own online softmax (m, l) and its acc[GP][D] spread over its lanes
+//   by dim, and the 8 warps' states merge once at the end of the chunk.  Each split
+//   writes its partial (m, l, acc) to a workspace the wrapper allocates;
+//   decode_combine_kernel merges the splits in ascending order.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "cnn_device.cuh"
+#include "tc_device.cuh"
 
 namespace attn {
 
@@ -59,8 +71,9 @@ constexpr float kMasked = -1e30f;     // the reference's _NEG_INF
 constexpr float kMinNorm = 1e-30f;    // l clamp before the division
 constexpr int kBq = 64;               // flash: query rows per CTA
 constexpr int kBk = 32;               // flash: keys per shared tile
-constexpr int kDecBk = 64;            // decode: keys per shared tile
-constexpr int kDecThreads = 256;
+constexpr int kDecWarps = 8;          // decode: warps a CTA
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecRows = 8;           // decode: GQA rows a CTA at most
 
 template <typename T> __device__ __forceinline__ T narrow(float x);
 template <> __device__ __forceinline__ float narrow<float>(float x) {
@@ -214,93 +227,316 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kDecThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int group,
-                    int Skv, float scale) {
-  constexpr int KS = D + 1;                   // padded shared row
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                           // [kDecBk][KS]
-  float* vs = ks + kDecBk * KS;               // [kDecBk][KS]
-  float* qs = vs + kDecBk * KS;               // [group][D], scaled
-  float* acc = qs + group * D;                // [group][D]
-  float* ss = acc + group * D;                // [group][kDecBk]
-  float* ms = ss + group * kDecBk;            // [group] running max
-  float* ls = ms + group;                     // [group] normalizer
-  float* alphas = ls + group;                 // [group] this block's alpha
-  const int hk = blockIdx.x;                  // b * Hkv + kv head
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  constexpr int kWarps = kDecThreads / 32;
-  const int rows = group * D;
-  // q heads hk * group .. hk * group + group - 1 are this kv head's group
-  const T* qh = q + size_t(hk) * rows;
-  for (int e = tid; e < rows; e += kDecThreads) {
-    qs[e] = __fmul_rn(widen<float>(qh[e]), scale);
-    acc[e] = 0.f;
+// The cp.async ring's depth and the CTAs an SM that the register cap
+// allows: at up to 4 GQA rows a CTA, two stages and three CTAs an SM; at
+// 8 rows (twice the registers) three stages and two CTAs.
+template <int GP> struct DecodeDepth {
+  static constexpr int kStages = GP <= 4 ? 2 : 3;
+  static constexpr int kCtasPerSm = GP <= 4 ? 3 : 2;
+};
+
+// The split-KV decode tile of a head dim and dtype: a warp takes
+// kKeysPerWarp keys of each stage, kLanesPerKey lanes a key, each lane
+// 16-byte chunks kLanesPerKey apart of the key's row; in P.V a lane owns
+// kDims neighbouring dims of every row.  Rows of 128 bytes or more are
+// XOR-swizzled by 16-byte chunk, so the lanes of a quarter-warp reading
+// K for their keys, or V for one key, touch every bank once.
+template <typename T, int D> struct DecodeTile {
+  static constexpr int kRowBytes = D * int(sizeof(T));
+  static constexpr int kChunks = kRowBytes / 16;
+  static constexpr int kVals = 16 / int(sizeof(T));       // a chunk's values
+  static constexpr int kKeysPerWarp =
+      kRowBytes <= 128 ? 16 : kRowBytes <= 256 ? 8 : 4;
+  static constexpr int kLanesPerKey = 32 / kKeysPerWarp;
+  static constexpr int kTile = kDecWarps * kKeysPerWarp;   // keys a stage
+  static constexpr int kStageBytes = 2 * kTile * kRowBytes;  // K and V
+  static constexpr int kDims = D >= 32 ? D / 32 : 1;
+  __device__ static int swizzle(int row) {
+    return kChunks >= 8 ? (row % (8 / kLanesPerKey)) * kLanesPerKey : 0;
   }
-  for (int g = tid; g < group; g += kDecThreads) {
-    ms[g] = kMasked;
-    ls[g] = 0.f;
+};
+
+template <typename T, int D, int GP>
+constexpr size_t decode_smem() {
+  using Tile = DecodeTile<T, D>;
+  // the warps' states are merged in the ring once it is drained
+  constexpr int stages = DecodeDepth<GP>::kStages;
+  static_assert(sizeof(float) * kDecWarps * GP * (D + 2) <=
+                    size_t(stages) * Tile::kStageBytes,
+                "decode merge scratch exceeds the ring");
+  return size_t(stages) * Tile::kStageBytes +
+         sizeof(float) * (GP * D + kDecWarps * Tile::kKeysPerWarp * GP);
+}
+
+// A 16-byte chunk's values, widened exactly to f32.
+__device__ __forceinline__ void widen_chunk(const uint4& c, float (&v)[4]) {
+  v[0] = __uint_as_float(c.x); v[1] = __uint_as_float(c.y);
+  v[2] = __uint_as_float(c.z); v[3] = __uint_as_float(c.w);
+}
+__device__ __forceinline__ void widen_chunk(const uint4& c, float (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t x = (&c.x)[i];
+    v[2 * i] = __uint_as_float(x << 16);
+    v[2 * i + 1] = __uint_as_float(x & 0xffff0000u);
+  }
+}
+
+// N neighbouring values of T at p (N * sizeof(T) bytes, aligned), in f32.
+template <typename T, int N>
+__device__ __forceinline__ void load_widened(const uint8_t* p, float (&v)[N]) {
+  if constexpr (sizeof(T) == 4 && N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else if constexpr (sizeof(T) == 4 && N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else if constexpr (sizeof(T) == 4) {
+    v[0] = *reinterpret_cast<const float*>(p);
+  } else if constexpr (N == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(x.x << 16); v[1] = __uint_as_float(x.x & 0xffff0000u);
+    v[2] = __uint_as_float(x.y << 16); v[3] = __uint_as_float(x.y & 0xffff0000u);
+  } else if constexpr (N == 2) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+    v[0] = __uint_as_float(x << 16); v[1] = __uint_as_float(x & 0xffff0000u);
+  } else {
+    v[0] = __uint_as_float(uint32_t(*reinterpret_cast<const uint16_t*>(p)) << 16);
+  }
+}
+
+// A key's GP probabilities from shared memory (16-byte aligned for
+// GP >= 4), in vector loads.
+template <int GP>
+__device__ __forceinline__ void load_probs(const float* p, float (&v)[GP]) {
+  if constexpr (GP % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < GP / 4; ++i) {
+      const float4 x = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
+    }
+  } else if constexpr (GP == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// One (b * Hkv + kv head, block of GP rows of its GQA group) against keys
+// [split * chunk, min(split * chunk + chunk, Skv)).  The CTA streams the
+// keys through a ring of cp.async stages (DecodeDepth); each warp keeps its
+// own online softmax (m, l, acc) over its keys of every stage, and the
+// warps' states are merged once at the end into the split's partial
+// (m, l, acc[GP][D]) in the workspace.
+template <typename T, int D, int GP>
+__global__ void __launch_bounds__(kDecThreads, DecodeDepth<GP>::kCtasPerSm)
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, float* __restrict__ ws,
+                          int group, int rowblocks, int Skv, int chunk,
+                          float scale) {
+  using Tile = DecodeTile<T, D>;
+  constexpr int KPW = Tile::kKeysPerWarp, LPK = Tile::kLanesPerKey;
+  constexpr int NC = Tile::kChunks, NV = Tile::kVals, ND = Tile::kDims;
+  constexpr int kStages = DecodeDepth<GP>::kStages;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem + kStages * Tile::kStageBytes);
+  float* pbuf = qs + GP * D;                   // [warp][key][GP]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int hk = blockIdx.x / rowblocks, row0 = (blockIdx.x % rowblocks) * GP;
+  const int rows = min(GP, group - row0);
+  const int k0 = blockIdx.y * chunk, k1 = min(k0 + chunk, Skv);
+  const T* qh = q + (size_t(hk) * group + row0) * D;
+  for (int e = tid; e < GP * D; e += kDecThreads) {
+    qs[e] = e < rows * D ? __fmul_rn(widen<float>(qh[e]), scale) : 0.f;
   }
   const T* kh = k + size_t(hk) * Skv * D;
   const T* vh = v + size_t(hk) * Skv * D;
-  for (int k0 = 0; k0 < Skv; k0 += kDecBk) {
-    __syncthreads();                          // the last block is consumed
-    stage_rows<T, D, kDecBk>(kh, ks, KS, k0, Skv);
-    stage_rows<T, D, kDecBk>(vh, vs, KS, k0, Skv);
-    __syncthreads();
-    for (int e = tid; e < group * kDecBk; e += kDecThreads) {
-      const int g = e / kDecBk, j = e % kDecBk;
-      const float* qr = qs + g * D;
-      const float* kr = ks + j * KS;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot = __fmaf_rn(qr[d], kr[d], dot);
-      ss[e] = k0 + j < Skv ? dot : kMasked;
+  const int ntiles = (k1 - k0 + Tile::kTile - 1) / Tile::kTile;
+  const uint32_t ring = tc::smem_u32(smem);
+
+  auto load = [&](int stage, int t) {
+    const int base = k0 + t * Tile::kTile;
+    const uint32_t dst = ring + stage * Tile::kStageBytes;
+    for (int e = tid; e < 2 * Tile::kTile * NC; e += kDecThreads) {
+      const int which = e / (Tile::kTile * NC), rem = e % (Tile::kTile * NC);
+      const int row = rem / NC, c = rem % NC, key = base + row;
+      const bool ok = key < k1;
+      const T* src = (which ? vh : kh) + (ok ? size_t(key) * D + c * NV : 0);
+      tc::cp_async16(dst + (which * Tile::kTile + row) * Tile::kRowBytes +
+                         ((c ^ Tile::swizzle(row)) << 4),
+                     src, ok);
     }
-    __syncthreads();
-    for (int g = warp; g < group; g += kWarps) {
-      float* sr = ss + g * kDecBk;
-      float tile_max = kMasked;
-      for (int j = lane; j < kDecBk; j += 32) tile_max = vmax(tile_max, sr[j]);
+  };
+
+  float m[GP], l[GP], acc[GP][ND];
 #pragma unroll
-      for (int x = 16; x > 0; x >>= 1) {
+  for (int g = 0; g < GP; ++g) {
+    m[g] = kMasked;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < ND; ++e) acc[g][e] = 0.f;
+  }
+  const int key_l = lane / LPK, part = lane % LPK;
+  const int row = warp * KPW + key_l;          // this lane's key in a stage
+  float* pw = pbuf + warp * KPW * GP;
+  const int d0 = lane * ND;                    // this lane's P.V dims
+  const int vchunk = (d0 * int(sizeof(T))) >> 4;
+  const int vbyte = (d0 * int(sizeof(T))) & 15;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load(s, s);
+    tc::cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();                           // the stage landed for all;
+    const int pre = t + kStages - 1;        // the one read last is free
+    if (pre < ntiles) load(pre % kStages, pre);
+    tc::cp_async_commit();
+    const uint8_t* ks = smem + (t % kStages) * Tile::kStageBytes;
+    const uint8_t* vs = ks + Tile::kTile * Tile::kRowBytes;
+    // scores of this lane's key: its chunks, then the key's lanes summed
+    float sc[GP];
+#pragma unroll
+    for (int g = 0; g < GP; ++g) sc[g] = 0.f;
+    const uint8_t* kr = ks + row * Tile::kRowBytes;
+#pragma unroll
+    for (int st = 0; st < NC / LPK; ++st) {
+      const int c = st * LPK + part;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          kr + ((c ^ Tile::swizzle(row)) << 4));
+      float kv[NV];
+      widen_chunk(raw, kv);
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float* qr = qs + g * D + c * NV;
+#pragma unroll
+        for (int e = 0; e < NV; e += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(qr + e);
+          sc[g] = __fmaf_rn(qq.x, kv[e], sc[g]);
+          sc[g] = __fmaf_rn(qq.y, kv[e + 1], sc[g]);
+          sc[g] = __fmaf_rn(qq.z, kv[e + 2], sc[g]);
+          sc[g] = __fmaf_rn(qq.w, kv[e + 3], sc[g]);
+        }
+      }
+    }
+    const bool valid = k0 + t * Tile::kTile + row < k1;
+    float alpha[GP];
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+#pragma unroll
+      for (int x = 1; x < LPK; x <<= 1) {
+        sc[g] = __fadd_rn(sc[g], __shfl_xor_sync(0xffffffffu, sc[g], x));
+      }
+      float tile_max = valid ? sc[g] : kMasked;
+#pragma unroll
+      for (int x = LPK; x < 32; x <<= 1) {
         tile_max = vmax(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, x));
       }
-      float m = ms[g], l = ls[g];
-      const float alpha = online_softmax_step(m, l, tile_max);
-      float psum = 0.f;
-      for (int j = lane; j < kDecBk; j += 32) {
-        const float p = expf(__fsub_rn(sr[j], m));
-        sr[j] = p;
-        psum = __fadd_rn(psum, p);
-      }
+      alpha[g] = online_softmax_step(m[g], l[g], tile_max);
+      const float p = valid ? expf(__fsub_rn(sc[g], m[g])) : 0.f;
+      float psum = p;
 #pragma unroll
-      for (int x = 16; x > 0; x >>= 1) {
+      for (int x = LPK; x < 32; x <<= 1) {
         psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, x));
       }
-      if (lane == 0) {
-        ms[g] = m;
-        ls[g] = __fadd_rn(l, psum);
-        alphas[g] = alpha;
+      l[g] = __fadd_rn(l[g], psum);
+      if (part == 0) pw[key_l * GP + g] = p;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+#pragma unroll
+      for (int e = 0; e < ND; ++e) acc[g][e] = __fmul_rn(acc[g][e], alpha[g]);
+    }
+    if (d0 < D) {
+#pragma unroll 4
+      for (int kk = 0; kk < KPW; ++kk) {
+        const int vrow = warp * KPW + kk;
+        float vv[ND];
+        load_widened<T, ND>(vs + vrow * Tile::kRowBytes +
+                                ((vchunk ^ Tile::swizzle(vrow)) << 4) + vbyte,
+                            vv);
+        float pk[GP];
+        load_probs(pw + kk * GP, pk);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+#pragma unroll
+          for (int e = 0; e < ND; ++e) acc[g][e] = __fmaf_rn(pk[g], vv[e], acc[g][e]);
+        }
       }
     }
-    __syncthreads();
-    for (int e = tid; e < rows; e += kDecThreads) {
-      const int g = e / D, d = e % D;
-      const float* pr = ss + g * kDecBk;
-      float a = __fmul_rn(acc[e], alphas[g]);
-#pragma unroll 16
-      for (int j = 0; j < kDecBk; ++j) a = __fmaf_rn(pr[j], vs[j * KS + d], a);
-      acc[e] = a;
+    __syncwarp();                              // pw is rewritten next stage
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  // merge the warps' states in ascending warp order (the ring is free)
+  float* mw = reinterpret_cast<float*>(smem);  // [warp][GP]
+  float* lw = mw + kDecWarps * GP;
+  float* aw = lw + kDecWarps * GP;             // [warp][GP][D]
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      mw[warp * GP + g] = m[g];
+      lw[warp * GP + g] = l[g];
+    }
+  }
+  if (d0 < D) {
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+#pragma unroll
+      for (int e = 0; e < ND; ++e) aw[(warp * GP + g) * D + d0 + e] = acc[g][e];
     }
   }
   __syncthreads();
-  T* oh = o + size_t(hk) * rows;
-  for (int e = tid; e < rows; e += kDecThreads) {
-    oh[e] = narrow<T>(__fdiv_rn(acc[e], fmaxf(ls[e / D], kMinNorm)));
+  float* out = ws + (size_t(blockIdx.x) * gridDim.y + blockIdx.y) * GP * (D + 2);
+  for (int e = tid; e < GP * D; e += kDecThreads) {
+    const int g = e / D, d = e % D;
+    float mx = kMasked;
+    for (int w = 0; w < kDecWarps; ++w) mx = vmax(mx, mw[w * GP + g]);
+    float a = 0.f, ls = 0.f;
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float f = expf(__fsub_rn(mw[w * GP + g], mx));
+      a = __fmaf_rn(f, aw[(w * GP + g) * D + d], a);
+      ls = __fmaf_rn(f, lw[w * GP + g], ls);
+    }
+    out[2 * GP + e] = a;
+    if (d == 0) {
+      out[g] = mx;
+      out[GP + g] = ls;
+    }
   }
+}
+
+// The splits' partials of one output element merged in ascending split
+// order, o = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30) with
+// e_s = exp(m_s - max_s m_s), narrowed to T.
+template <typename T>
+__global__ void decode_combine_kernel(const float* __restrict__ ws,
+                                      T* __restrict__ o, int D, int GP,
+                                      int group, int rowblocks, int splits,
+                                      long long total) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int d = int(idx % D);
+  const long long hr = idx / D;                // hk * group + r
+  const int r = int(hr % group);
+  const long long hk = hr / group;
+  const size_t stride = size_t(GP) * (D + 2);
+  const float* base =
+      ws + (size_t(hk) * rowblocks + r / GP) * splits * stride;
+  const int g = r % GP;
+  float mx = kMasked;
+  for (int s = 0; s < splits; ++s) mx = vmax(mx, base[s * stride + g]);
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float* part = base + s * stride;
+    const float f = expf(__fsub_rn(part[g], mx));
+    num = __fmaf_rn(f, part[2 * GP + g * D + d], num);
+    den = __fmaf_rn(f, part[GP + g], den);
+  }
+  o[idx] = narrow<T>(__fdiv_rn(num, fmaxf(den, kMinNorm)));
 }
 
 template <typename T, int D>
@@ -314,24 +550,116 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
   return int(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_decode(const void* q, const void* k, const void* v, void* o, int B,
-                  int Hq, int Hkv, int Skv, float scale, cudaStream_t st) {
-  const int group = Hq / Hkv;
-  const size_t bytes = sizeof(float) * (2 * kDecBk * (D + 1) + 2 * group * D +
-                                        group * kDecBk + 3 * group);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(bytes));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // a group too large for shared memory: clear it
-      return int(err);
-    }
+constexpr int kDecMaxSplits = 64;
+
+// Keys a split, a whole number of stages, for `splits` asked; and the
+// splits that chunk gives (no empty one).  kernels/attention/decode.py::
+// split_chunk mirrors these for its emulation.
+inline int decode_chunk(int Skv, int splits, int tile) {
+  const int per = (Skv + splits - 1) / splits;
+  return (per + tile - 1) / tile * tile;
+}
+inline int decode_splits(int Skv, int splits, int tile) {
+  const int chunk = decode_chunk(Skv, splits, tile);
+  return (Skv + chunk - 1) / chunk;
+}
+
+// One decode call: GP rows of a GQA group a CTA (the group rounded up to
+// a power of two, at most kDecRows), rowblocks CTAs a kv head.
+struct DecodePlan {
+  int B, Hq, Hkv, Skv, D, group, gp, rowblocks, splits;
+};
+
+inline DecodePlan decode_plan(int B, int Hq, int Hkv, int Skv, int D,
+                              int splits) {
+  DecodePlan p{B, Hq, Hkv, Skv, D, Hkv > 0 ? Hq / Hkv : 0, 1, 1, splits};
+  while (p.gp < p.group && p.gp < kDecRows) p.gp *= 2;
+  p.rowblocks = (p.group + p.gp - 1) / p.gp;
+  return p;
+}
+
+// The decode launch of one (T, D, GP) instance: its shared memory
+// allowed, then (plan) the splits and resident CTAs an SM, or (run) the
+// split kernel and the combine.
+template <typename T, int D, int GP>
+int decode_instance(const DecodePlan& p, const void* q, const void* k,
+                    const void* v, void* o, float* ws, float scale,
+                    cudaStream_t st, int* splits, int* resident) {
+  using Tile = DecodeTile<T, D>;
+  auto kernel = flash_decode_split_kernel<T, D, GP>;
+  const size_t bytes = decode_smem<T, D, GP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return int(err);
   }
-  flash_decode_kernel<T, D><<<B * Hkv, kDecThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, group, Skv, scale);
+  const int ctas = p.B * p.Hkv * p.rowblocks;
+  if (splits != nullptr) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kDecThreads, bytes);
+    }
+    if (err != cudaSuccess) return int(err);
+    if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
+    // the fewest splits that fill a wave and leave the last wave at least
+    // 90% full, else the fullest last wave; no chunk shorter than a stage
+    const long long slots = (long long)sms * per_sm;
+    const int most = min(kDecMaxSplits, (p.Skv + Tile::kTile - 1) / Tile::kTile);
+    int best = 1;
+    double best_fill = 0.0;
+    for (int s = 1; s <= most; ++s) {
+      const long long n = (long long)ctas * s;
+      const double fill = double(n) / double((n + slots - 1) / slots * slots);
+      if (fill > best_fill) {
+        best = s;
+        best_fill = fill;
+      }
+      if (n >= slots && fill >= 0.9) {
+        best = s;
+        break;
+      }
+    }
+    *splits = decode_splits(p.Skv, best, Tile::kTile);
+    *resident = per_sm;
+    return 0;
+  }
+  if (p.splits < 1 || p.splits > kDecMaxSplits ||
+      decode_splits(p.Skv, p.splits, Tile::kTile) != p.splits) {
+    return int(cudaErrorInvalidValue);
+  }
+  const int chunk = decode_chunk(p.Skv, p.splits, Tile::kTile);
+  kernel<<<dim3(ctas, p.splits), kDecThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, ws, p.group, p.rowblocks, p.Skv,
+      chunk, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const long long total = (long long)p.B * p.Hq * D;
+  decode_combine_kernel<T><<<unsigned((total + 255) / 256), 256, 0, st>>>(
+      ws, (T*)o, D, GP, p.group, p.rowblocks, p.splits, total);
   return int(cudaGetLastError());
+}
+
+template <typename T, int D>
+int decode_rows(const DecodePlan& p, const void* q, const void* k,
+                const void* v, void* o, float* ws, float scale,
+                cudaStream_t st, int* splits, int* resident) {
+  switch (p.gp) {
+    case 1: return decode_instance<T, D, 1>(p, q, k, v, o, ws, scale, st,
+                                            splits, resident);
+    case 2: return decode_instance<T, D, 2>(p, q, k, v, o, ws, scale, st,
+                                            splits, resident);
+    case 4: return decode_instance<T, D, 4>(p, q, k, v, o, ws, scale, st,
+                                            splits, resident);
+    case 8: return decode_instance<T, D, 8>(p, q, k, v, o, ws, scale, st,
+                                            splits, resident);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -352,15 +680,37 @@ int flash_by_dim(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 template <typename T>
-int decode_by_dim(const void* q, const void* k, const void* v, void* o, int B,
-                  int Hq, int Hkv, int Skv, int D, float scale,
-                  cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_decode<T, 16>(q, k, v, o, B, Hq, Hkv, Skv, scale, st);
-    case 32: return launch_decode<T, 32>(q, k, v, o, B, Hq, Hkv, Skv, scale, st);
-    case 64: return launch_decode<T, 64>(q, k, v, o, B, Hq, Hkv, Skv, scale, st);
-    case 128:
-      return launch_decode<T, 128>(q, k, v, o, B, Hq, Hkv, Skv, scale, st);
+int decode_by_dim(const DecodePlan& p, const void* q, const void* k,
+                  const void* v, void* o, float* ws, float scale,
+                  cudaStream_t st, int* splits, int* resident) {
+  switch (p.D) {
+    case 16: return decode_rows<T, 16>(p, q, k, v, o, ws, scale, st, splits,
+                                       resident);
+    case 32: return decode_rows<T, 32>(p, q, k, v, o, ws, scale, st, splits,
+                                       resident);
+    case 64: return decode_rows<T, 64>(p, q, k, v, o, ws, scale, st, splits,
+                                       resident);
+    case 128: return decode_rows<T, 128>(p, q, k, v, o, ws, scale, st,
+                                         splits, resident);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+int decode_dispatch(int dtype, const DecodePlan& p, const void* q,
+                    const void* k, const void* v, void* o, float* ws,
+                    float scale, cudaStream_t st, int* splits,
+                    int* resident) {
+  if (p.B < 1 || p.Hkv < 1 || p.Skv < 1 || p.group < 1 ||
+      p.Hq % p.Hkv != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (dtype == kF32) {
+    return decode_by_dim<float>(p, q, k, v, o, ws, scale, st, splits,
+                                resident);
+  }
+  if (dtype == kBF16) {
+    return decode_by_dim<__nv_bfloat16>(p, q, k, v, o, ws, scale, st, splits,
+                                        resident);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -389,19 +739,27 @@ int attn_flash(int dtype, const void* q, const void* k, const void* v,
   return int(cudaErrorInvalidValue);
 }
 
+// The split count and resident CTAs an SM that attn_decode will use for
+// these shapes, and the workspace (floats) it needs.
+int attn_decode_plan(int dtype, int B, int Hq, int Hkv, int Skv, int D,
+                     int* splits, int* resident, long long* ws_floats) {
+  const attn::DecodePlan p = attn::decode_plan(B, Hq, Hkv, Skv, D, 1);
+  int err = attn::decode_dispatch(dtype, p, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, 0.f, nullptr, splits,
+                                  resident);
+  if (err == 0) *ws_floats = (long long)B * Hkv * p.rowblocks * *splits *
+                             p.gp * (D + 2);
+  return err;
+}
+
+// Split-KV decode: the split kernel writes each split's partial to ws
+// (attn_decode_plan's size), the combine merges them into o.
 int attn_decode(int dtype, const void* q, const void* k, const void* v,
-                void* o, int B, int Hq, int Hkv, int Skv, int D, float scale,
-                void* stream) {
-  cudaStream_t st = cudaStream_t(stream);
-  if (dtype == attn::kF32) {
-    return attn::decode_by_dim<float>(q, k, v, o, B, Hq, Hkv, Skv, D, scale,
-                                      st);
-  }
-  if (dtype == attn::kBF16) {
-    return attn::decode_by_dim<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Skv, D,
-                                              scale, st);
-  }
-  return int(cudaErrorInvalidValue);
+                void* o, float* ws, int B, int Hq, int Hkv, int Skv, int D,
+                int splits, float scale, void* stream) {
+  const attn::DecodePlan p = attn::decode_plan(B, Hq, Hkv, Skv, D, splits);
+  return attn::decode_dispatch(dtype, p, q, k, v, o, ws, scale,
+                               cudaStream_t(stream), nullptr, nullptr);
 }
 
 }  // extern "C"

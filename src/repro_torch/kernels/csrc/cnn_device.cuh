@@ -1,15 +1,19 @@
 // Shared __device__ bodies of the CNN kernels (cnn_kernels.cu).
 //
 // Replaces the shared Pallas bodies of the reference:
-//   src/repro/kernels/conv2d/inner.py::accumulate_vpu   -> conv_point_vpu
+//   src/repro/kernels/conv2d/inner.py::accumulate_vpu   -> conv_taps_vpu,
+//       conv_part_vpu (a register tile of outputs) and conv_point_vpu
+//       (one output read from device memory)
 //   src/repro/kernels/conv2d/inner.py::accumulate_mxu   -> conv_point_mxu
 //   src/repro/kernels/pool2d/vpu_window.py::window_reduce -> window_reduce
 //   src/repro/kernels/activation/ref.py::_FNS            -> activate
 //
-// The standalone kernels (conv2d_ip1, conv2d_ip2, pool2d_window,
-// activation_exact) and the fused conv->pool->act kernel all run these
-// functions, in the same order, so a float32 fused block is bitwise
-// equal to its three-launch chain.  Two things keep that true:
+// The standalone kernels (conv2d_ip1's tiled kernel, conv2d_ip2,
+// pool2d_window, activation_exact) and the fused conv->pool->act kernel
+// all run these functions, in the same order, so a float32 fused block
+// is bitwise equal to its three-launch chain: conv2d_ip1 feeds the
+// Conv1 body from shared memory, the fused kernel from device memory.
+// Two things keep that true:
 //   * every float add and multiply-add is an explicit round-to-nearest
 //     intrinsic (__fadd_rn, __fmaf_rn, __fmul_rn, __fdiv_rn), and the
 //     library is compiled with -fmad=false, so the compiler cannot
@@ -94,25 +98,83 @@ __device__ __forceinline__ int32_t avg_div(int32_t sum, int count) {
   return q;
 }
 
-// Conv1 order (inner.py::accumulate_vpu): one conv output (n, oh, ow, co).
+// The Conv1 order (inner.py::accumulate_vpu), for a register tile of NP
+// output points x NC output channels: for each tap (i, j), a partial
+// that starts at 0 takes the tap's products over the input channels in
+// ascending order, then adds into the accumulator.  conv_taps_vpu runs
+// the taps; tap(i, j, part) feeds tap (i, j)'s channels into part
+// through conv_part_vpu, in one call or in several consecutive ranges
+// of channels (the partial carries across them).  KS > 0 fixes the taps
+// at KS x KS at compile time, so the tap loops unroll.  Every output is
+// the same chain of operations whatever NP, NC, KS and the loaders are.
+template <typename A, int NP, int NC, int KS, typename Tap>
+__device__ __forceinline__ void conv_taps_vpu(int KH, int KW, Tap tap,
+                                              A (&acc)[NP][NC]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int q = 0; q < NC; ++q) acc[p][q] = A(0);
+  }
+  auto one_tap = [&](int i, int j) {
+    A part[NP][NC];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int q = 0; q < NC; ++q) part[p][q] = A(0);
+    }
+    tap(i, j, part);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int q = 0; q < NC; ++q) acc[p][q] = add(acc[p][q], part[p][q]);
+    }
+  };
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+#pragma unroll
+      for (int j = 0; j < KS; ++j) one_tap(i, j);
+    }
+  } else {
+    for (int i = 0; i < KH; ++i) {
+      for (int j = 0; j < KW; ++j) one_tap(i, j);
+    }
+  }
+}
+
+// n channels of one tap into part, in ascending order: load(c, xv, wv)
+// yields the NP points' inputs and the NC channels' weights of channel c.
+template <typename A, int NP, int NC, typename Load>
+__device__ __forceinline__ void conv_part_vpu(int n, Load load,
+                                              A (&part)[NP][NC]) {
+  for (int c = 0; c < n; ++c) {
+    A xv[NP], wv[NC];
+    load(c, xv, wv);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int q = 0; q < NC; ++q) part[p][q] = mac(part[p][q], xv[p], wv[q]);
+    }
+  }
+}
+
+// One conv output (n, oh, ow, co) in the Conv1 order, from device
+// memory (the fused kernel's conv values).
 template <typename T>
 __device__ __forceinline__ typename AccOf<T>::type conv_point_vpu(
     const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
     int n, int oh, int ow, int co) {
   using A = typename AccOf<T>::type;
-  A acc = A(0);
-  for (int i = 0; i < s.KH; ++i) {
-    for (int j = 0; j < s.KW; ++j) {
-      const T* xp = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
-      const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
-      A part = A(0);
-      for (int c = 0; c < s.Cin; ++c) {
-        part = mac(part, A(xp[c]), A(wp[size_t(c) * s.Cout]));
-      }
-      acc = add(acc, part);
-    }
-  }
-  return acc;
+  A acc[1][1];
+  conv_taps_vpu<A, 1, 1, 0>(s.KH, s.KW, [&](int i, int j, A (&part)[1][1]) {
+    const T* xp = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
+    const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
+    conv_part_vpu<A, 1, 1>(s.Cin, [&](int c, A (&xv)[1], A (&wv)[1]) {
+      xv[0] = A(xp[c]);
+      wv[0] = A(wp[size_t(c) * s.Cout]);
+    }, part);
+  }, acc);
+  return acc[0][0];
 }
 
 // Conv2 order (inner.py::accumulate_mxu): one dot over K = (i, j, cin)

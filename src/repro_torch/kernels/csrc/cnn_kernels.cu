@@ -6,25 +6,43 @@
 //             mm_kernels.cu's object by nvcc -shared
 //
 // Layouts are the reference's: NHWC activations, HWIO weights, all
-// tensors contiguous.  Every kernel maps one thread to one output element;
-// the channel tiling hints (block_cout / block_c) shape the grid and the
-// kernel masks the ragged edge, so results never depend on them.  The
-// activations' block_rows hints are validated and do not shape a grid.
+// tensors contiguous.  Every kernel but Conv1's maps one thread to one
+// output element; Conv1's tiles outputs and stages its inputs in shared
+// memory.  The channel tiling hints (block_cout / block_c) shape the
+// grid and the kernels mask the ragged edge, so results never depend on
+// them.  The activations' block_rows hints are validated and do not
+// shape a grid.
 //
 // Kernel notes (what each replaces, what bounds it on the H100, and what
 // this design does about it):
 //
-// conv2d_kernel<T, kVpu>  replaces src/repro/kernels/conv2d/ip1_vpu.py::conv2d_ip1
-// conv2d_kernel<T, kMxu>  replaces src/repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2
-//   2*K flops per 4-byte output, K = KH*KW*Cin.  The FP32 ridge point of
-//   the H100 SXM is 67 TFLOP/s / 3.35 TB/s = 20 flops per byte, so at
-//   block 0 (K = 27) device memory bounds the ideal kernel and at block 1
-//   (K = 144) the FP32 CUDA-core rate does.  This version runs on CUDA
-//   cores (FMA / int32 multiply-add), one thread per output, re-reading
-//   each input window through L1/L2 once per output channel; threads of a
-//   block cover neighbouring output channels of the same pixels, so the
-//   re-reads hit cache.  Shared-memory tiling and tensor cores are later
-//   work (ROADMAP queue 2).
+// conv2d_vpu_tiled_kernel<T, KS, WHOLE>  replaces src/repro/kernels/conv2d/ip1_vpu.py::conv2d_ip1
+//   2*K operations per 4-byte output, K = KH*KW*Cin.  The FP32 ridge
+//   point of the H100 SXM is 67 TFLOP/s / 3.35 TB/s = 20 per byte, so at
+//   block 0 (K = 27) device memory bounds it, mostly the output's
+//   writes, and at block 1 (K = 144) the FP32 rate does.  A CTA of 256
+//   threads owns th x tw output pixels of one image and 4 << glog output
+//   channels (the tile plan of kernels/conv2d/ip1_vpu.py::tile_plan).
+//   It stages the input halo, (th + KH - 1) x (tw + KW - 1) x Cin, and
+//   every tap's weights in shared memory once, the halo's rows with
+//   16-byte cp.async where they are aligned; where that does not fit
+//   (large Cin), it stages each (tap, chunk of Cin) in turn instead.
+//   Each thread keeps 8 pixels x 4 channels in registers, so every
+//   input it loads feeds 4 channels and every weight (one 16-byte load
+//   for 4 channels) 8 pixels; stores are 16 bytes along Cout where Cout
+//   allows.  Index math is 32-bit, the (n, tile) split once per CTA.
+//   Each output is the Conv1 chain of cnn_device.cuh (conv_taps_vpu),
+//   as the fused kernel computes it; KS = 3 unrolls the 3 x 3 taps.
+//   Logic-only: FFMA / IMAD, no MMA instruction.
+//
+// conv2d_kernel<T>        replaces src/repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2
+//   2*K operations per output as above; at block 1 the FP32 rate bounds
+//   it.  This version runs on CUDA cores (FMA / int32 multiply-add), one
+//   thread per output, re-reading each input window through L1/L2 once
+//   per output channel; threads of a block cover neighbouring output
+//   channels of the same pixels, so the re-reads hit cache.
+//   Shared-memory tiling and tensor cores are later work (ROADMAP
+//   queue 2).
 //
 // pool2d_kernel           replaces src/repro/kernels/pool2d/vpu_window.py::pool2d_window
 //   kh*kw compares or adds per output: bound by device memory.  One thread
@@ -63,8 +81,10 @@
 //   applies the activation and writes once: the conv and pool
 //   intermediates never reach device memory, which is what the fusion
 //   buys.  With the conv output's bytes gone, both served blocks are
-//   bound by the FP32 rate of their conv flops; the bodies are the
-//   standalone conv's, so the same later tiling work applies.
+//   bound by the FP32 rate of their conv flops; the conv bodies are the
+//   standalone convs' (read from device memory here), so Conv1's shared-
+//   memory tiling is still to come for this kernel (ROADMAP queue 2,
+//   item 17).
 //
 // conv2d_ip3_kernel       replaces src/repro/kernels/conv2d/ip3_packed.py::conv2d_ip3
 //   Conv3: two int8 convs sharing one weight tensor, ONE int32 multiply
@@ -75,7 +95,7 @@
 //   exact division.  Logic-only: IMAD and ALU ops, no MMA instruction.
 //   The work is two convs' taps on the INT32 lanes (64 per SM, half the
 //   FP32 lanes), so the lane rate bounds it at block 1; one thread per
-//   output pixel and channel writes both streams, as conv2d_kernel.
+//   output pixel and channel writes both streams.
 //
 // conv2d_ip4_kernel<T>    replaces src/repro/kernels/conv2d/ip4_dual.py::conv2d_ip4
 //   Conv4: two full-precision convs (int8/int16 -> int32, bf16/f32 ->
@@ -89,6 +109,7 @@
 #include <cstdint>
 
 #include "cnn_device.cuh"
+#include "tc_device.cuh"
 
 namespace cnn {
 
@@ -124,7 +145,7 @@ __device__ __forceinline__ Slot slot(long long pixels, int channels, int bc) {
   return s;
 }
 
-template <typename T, int STYLE>
+template <typename T>
 __global__ void conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
                               typename AccOf<T>::type* __restrict__ y, int N,
                               ConvShape s, int Ho, int Wo, int bc) {
@@ -134,7 +155,230 @@ __global__ void conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
   long long r = t.p / Wo;
   int oh = int(r % Ho);
   int n = int(r / Ho);
-  y[t.p * s.Cout + t.co] = conv_point<T, STYLE>(x, w, s, n, oh, ow, t.co);
+  y[t.p * s.Cout + t.co] = conv_point_mxu<T>(x, w, s, n, oh, ow, t.co);
+}
+
+// conv2d_vpu_tiled_kernel: each thread keeps kConvPix output pixels x
+// kConvCh output channels in registers.
+constexpr int kConvPix = 8;
+constexpr int kConvCh = 4;
+
+// The tile plan of conv2d_vpu_tiled_kernel, made by the wrapper
+// (kernels/conv2d/ip1_vpu.py::tile_plan): a CTA covers 4 << glog output
+// channels (2^glog channel quads) and a tile of th x 2^twlog output
+// pixels of one image ((256 >> glog) pixel lanes x kConvPix pixels);
+// input channels are staged cc at a time.  tiles_w, tiles_h and cblocks
+// count the tiles across a row, down an image and along Cout.
+struct Conv1Plan {
+  int glog, twlog, th, cc, tiles_w, tiles_h, cblocks;
+};
+
+__host__ __device__ __forceinline__ int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Four neighbouring channels' weights from shared memory, widened.
+__device__ __forceinline__ void load_quad(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_quad(const int8_t* p, int32_t (&v)[4]) {
+  const uint32_t q = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = int32_t(q << (24 - 8 * e)) >> 24;
+}
+__device__ __forceinline__ void store_quad(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_quad(int32_t* p, const int32_t (&v)[4]) {
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+// Copy `runs` runs of len elements into shared memory, run k from src(k)
+// to dst(k) (16-byte aligned): a 16-byte cp.async where a chunk is whole
+// and its source aligned, element by element elsewhere.  The caller
+// waits for the copies and syncs.
+template <typename T, typename Dst, typename Src>
+__device__ __forceinline__ void stage_runs(int runs, int len, Dst dst,
+                                           Src src) {
+  constexpr int V = 16 / int(sizeof(T));
+  const int chunks = (len + V - 1) / V;
+  for (int e = threadIdx.x; e < runs * chunks; e += blockDim.x) {
+    const int k = e / chunks, q = e - k * chunks;
+    const T* from = src(k) + q * V;
+    T* to = dst(k) + q * V;
+    const int n = min(V, len - q * V);
+    if (n == V && (reinterpret_cast<uintptr_t>(from) & 15) == 0) {
+      tc::cp_async16(tc::smem_u32(to), from, true);
+    } else {
+      for (int i = 0; i < n; ++i) to[i] = from[i];
+    }
+  }
+}
+
+// rows x (1 << bclog) weights into shared memory: row r's output
+// channels co0 .. from src(r) (the row's channel 0); channels past Cout
+// are zero.
+template <typename T, typename Src>
+__device__ __forceinline__ void stage_weights(T* ws, int rows, int bclog,
+                                              int co0, int cout, Src src) {
+  const int mask = (1 << bclog) - 1;
+  for (int e = threadIdx.x; e < (rows << bclog); e += blockDim.x) {
+    const int co = co0 + (e & mask);
+    ws[e] = co < cout ? src(e >> bclog)[co] : T(0);
+  }
+}
+
+// The tile of a conv2d_vpu_tiled_kernel CTA: image n, output rows
+// h0 .., columns w0 .., channels co0 .. (the channel block fastest in
+// the grid, so neighbouring CTAs share their halo in L2).
+struct Conv1Tile {
+  int n, h0, w0, co0;
+};
+
+__device__ __forceinline__ Conv1Tile conv1_tile(int tile, const Conv1Plan& pl) {
+  const int cb = tile % pl.cblocks;
+  tile /= pl.cblocks;
+  const int tx = tile % pl.tiles_w;
+  tile /= pl.tiles_w;
+  return {tile / pl.tiles_h, (tile % pl.tiles_h) * pl.th, tx << pl.twlog,
+          cb << (pl.glog + 2)};
+}
+
+// The shared-memory bytes of a tile: WHOLE, the halo then the weights;
+// else one chunk's shifted tile then its weights.
+__host__ __forceinline__ size_t conv1_smem_bytes(const ConvShape& s,
+                                                 const Conv1Plan& pl, int sz,
+                                                 bool whole) {
+  const int V = 16 / sz, TW = 1 << pl.twlog, bc = 4 << pl.glog;
+  if (whole) {
+    const int rp = round_up((TW + s.KW - 1) * s.Cin, V);
+    return size_t(round_up((pl.th + s.KH - 1) * rp * sz, 16)) +
+           size_t(s.KH) * s.KW * s.Cin * bc * sz;
+  }
+  return (size_t(pl.th) * TW * round_up(pl.cc, V) + size_t(pl.cc) * bc) * sz;
+}
+
+// Conv1 on shared-memory tiles, one tile a CTA.  WHOLE: the tile's input
+// halo over all Cin and every tap's weights are staged in one go, then
+// the taps run from shared memory.  Otherwise each (tap, chunk of cc
+// input channels) is staged in turn (the tap's shifted tile and its
+// weights), and the tap's partial carries across the chunks.  KS = 3
+// unrolls the 3 x 3 taps.
+template <typename T, int KS, bool WHOLE>
+__global__ void __launch_bounds__(kThreads)
+conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        typename AccOf<T>::type* __restrict__ y, ConvShape s,
+                        int Ho, int Wo, Conv1Plan pl) {
+  using A = typename AccOf<T>::type;
+  using Part = A(&)[kConvPix][kConvCh];
+  using Vals = A(&)[kConvPix];
+  using Quad = A(&)[kConvCh];
+  constexpr int V = 16 / int(sizeof(T));
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int TW = 1 << pl.twlog, P = kThreads >> pl.glog;
+  const int bclog = pl.glog + 2;
+  const Conv1Tile t = conv1_tile(blockIdx.x, pl);
+  const int cg = threadIdx.x & ((1 << pl.glog) - 1);
+  const int lane = threadIdx.x >> pl.glog;
+  int pr[kConvPix], pc[kConvPix];              // pixel k: tile row, column
+#pragma unroll
+  for (int k = 0; k < kConvPix; ++k) {
+    const int lin = lane + k * P;
+    pr[k] = lin >> pl.twlog;
+    pc[k] = lin & (TW - 1);
+  }
+  const T* xn = x + size_t(t.n) * s.H * s.W * s.Cin;
+  A acc[kConvPix][kConvCh];
+  if constexpr (WHOLE) {
+    const int rp = round_up((TW + s.KW - 1) * s.Cin, V);   // row pitch
+    T* xs = reinterpret_cast<T*>(smem);
+    T* ws = reinterpret_cast<T*>(
+        smem + round_up((pl.th + s.KH - 1) * rp * int(sizeof(T)), 16));
+    stage_runs<T>(min(pl.th + s.KH - 1, s.H - t.h0),
+                  min(TW + s.KW - 1, s.W - t.w0) * s.Cin,
+                  [&](int k) { return xs + k * rp; },
+                  [&](int k) {
+                    return xn + (size_t(t.h0 + k) * s.W + t.w0) * s.Cin;
+                  });
+    stage_weights(ws, s.KH * s.KW * s.Cin, bclog, t.co0, s.Cout,
+                  [&](int r) { return w + size_t(r) * s.Cout; });
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    int xo[kConvPix];
+#pragma unroll
+    for (int k = 0; k < kConvPix; ++k) xo[k] = pr[k] * rp + pc[k] * s.Cin;
+    conv_taps_vpu<A, kConvPix, kConvCh, KS>(s.KH, s.KW, [&](int i, int j,
+                                                           Part part) {
+      const T* xt = xs + i * rp + j * s.Cin;
+      const T* wt = ws + (((i * s.KW + j) * s.Cin) << bclog) + cg * kConvCh;
+      conv_part_vpu<A, kConvPix, kConvCh>(s.Cin, [&](int c, Vals xv,
+                                                      Quad wv) {
+#pragma unroll
+        for (int k = 0; k < kConvPix; ++k) xv[k] = A(xt[xo[k] + c]);
+        load_quad(wt + (c << bclog), wv);
+      }, part);
+    }, acc);
+  } else {
+    const int cs = round_up(pl.cc, V);         // a pixel's staged channels
+    T* xs = reinterpret_cast<T*>(smem);
+    T* ws = xs + (pl.th << pl.twlog) * cs;
+    int xo[kConvPix];
+#pragma unroll
+    for (int k = 0; k < kConvPix; ++k) {
+      xo[k] = ((pr[k] << pl.twlog) + pc[k]) * cs;
+    }
+    const int rows = min(pl.th, Ho - t.h0), cols = min(TW, Wo - t.w0);
+    conv_taps_vpu<A, kConvPix, kConvCh, KS>(s.KH, s.KW, [&](int i, int j,
+                                                           Part part) {
+      for (int c0 = 0; c0 < s.Cin; c0 += pl.cc) {
+        const int len = min(pl.cc, s.Cin - c0);
+        __syncthreads();                     // the last chunk is consumed
+        stage_runs<T>(rows * cols, len,
+                      [&](int k) {
+                        const int r = k / cols;
+                        return xs + ((r << pl.twlog) + k - r * cols) * cs;
+                      },
+                      [&](int k) {
+                        const int r = k / cols;
+                        return xn + (size_t(t.h0 + i + r) * s.W + t.w0 +
+                                     j + k - r * cols) * s.Cin + c0;
+                      });
+        stage_weights(ws, len, bclog, t.co0, s.Cout, [&](int r) {
+          return w + (size_t(i * s.KW + j) * s.Cin + c0 + r) * s.Cout;
+        });
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        const T* wt = ws + cg * kConvCh;
+        conv_part_vpu<A, kConvPix, kConvCh>(len, [&](int c, Vals xv,
+                                                      Quad wv) {
+#pragma unroll
+          for (int k = 0; k < kConvPix; ++k) xv[k] = A(xs[xo[k] + c]);
+          load_quad(wt + (c << bclog), wv);
+        }, part);
+      }
+    }, acc);
+  }
+  const int co = t.co0 + cg * kConvCh;
+  if (co >= s.Cout) return;
+  A* yn = y + size_t(t.n) * Ho * Wo * s.Cout + co;
+  const bool quads = s.Cout % kConvCh == 0;    // then co + 3 < Cout
+#pragma unroll
+  for (int k = 0; k < kConvPix; ++k) {
+    const int oh = t.h0 + pr[k], ow = t.w0 + pc[k];
+    if (oh >= Ho || ow >= Wo) continue;
+    A* yp = yn + (size_t(oh) * Wo + ow) * s.Cout;
+    if (quads) {
+      store_quad(yp, acc[k]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kConvCh; ++q) {
+        if (co + q < s.Cout) yp[q] = acc[k][q];
+      }
+    }
+  }
 }
 
 // V: the reduce type (f32 or int32); O: the stored type.
@@ -310,29 +554,71 @@ const char* cnn_error_string(int err) {
   return cudaGetErrorString(cudaError_t(err));
 }
 
-int cnn_conv2d(int style, int dtype, const void* x, const void* w, void* y,
-               int N, int H, int W, int Cin, int KH, int KW, int Cout, int bc,
+// Conv2 (conv2d_ip2): one thread per output.
+int cnn_conv2d(int dtype, const void* x, const void* w, void* y, int N, int H,
+               int W, int Cin, int KH, int KW, int Cout, int bc,
                void* stream) {
   ConvShape s{H, W, Cin, KH, KW, Cout};
   int Ho = H - KH + 1, Wo = W - KW + 1;
   dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (Cout + bc - 1) / bc);
   cudaStream_t st = cudaStream_t(stream);
-  if (dtype == kF32 && style == kVpu) {
-    conv2d_kernel<float, kVpu><<<grid, kThreads, 0, st>>>(
+  if (dtype == kF32) {
+    conv2d_kernel<float><<<grid, kThreads, 0, st>>>(
         (const float*)x, (const float*)w, (float*)y, N, s, Ho, Wo, bc);
-  } else if (dtype == kF32 && style == kMxu) {
-    conv2d_kernel<float, kMxu><<<grid, kThreads, 0, st>>>(
-        (const float*)x, (const float*)w, (float*)y, N, s, Ho, Wo, bc);
-  } else if (dtype == kI8 && style == kVpu) {
-    conv2d_kernel<int8_t, kVpu><<<grid, kThreads, 0, st>>>(
-        (const int8_t*)x, (const int8_t*)w, (int32_t*)y, N, s, Ho, Wo, bc);
-  } else if (dtype == kI8 && style == kMxu) {
-    conv2d_kernel<int8_t, kMxu><<<grid, kThreads, 0, st>>>(
+  } else if (dtype == kI8) {
+    conv2d_kernel<int8_t><<<grid, kThreads, 0, st>>>(
         (const int8_t*)x, (const int8_t*)w, (int32_t*)y, N, s, Ho, Wo, bc);
   } else {
     return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
+}
+
+// Conv1 (conv2d_ip1) on the tile plan (glog, twlog, th, cc, whole) of
+// kernels/conv2d/ip1_vpu.py::tile_plan.
+int cnn_conv1(int dtype, const void* x, const void* w, void* y, int N, int H,
+              int W, int Cin, int KH, int KW, int Cout, int glog, int twlog,
+              int th, int cc, int whole, void* stream) {
+  if (glog < 0 || glog > 3 || twlog < 0 || twlog > 5 || th < 1 ||
+      (th << twlog) != (kThreads >> glog) * kConvPix || cc < 1 || cc > Cin ||
+      (whole && cc != Cin) || (dtype != kF32 && dtype != kI8)) {
+    return int(cudaErrorInvalidValue);
+  }
+  ConvShape s{H, W, Cin, KH, KW, Cout};
+  const int Ho = H - KH + 1, Wo = W - KW + 1, TW = 1 << twlog;
+  const int bc = 4 << glog;
+  Conv1Plan pl{glog, twlog, th, cc, (Wo + TW - 1) / TW, (Ho + th - 1) / th,
+               (Cout + bc - 1) / bc};
+  const long long ctas = (long long)N * pl.tiles_h * pl.tiles_w * pl.cblocks;
+  if (ctas > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  const size_t bytes = conv1_smem_bytes(s, pl, dtype == kF32 ? 4 : 1, whole);
+  cudaStream_t st = cudaStream_t(stream);
+  auto run = [&](auto kernel, auto xp, auto yp) {
+    if (bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+      if (err != cudaSuccess) {
+        cudaGetLastError();
+        return int(err);
+      }
+    }
+    kernel<<<unsigned(ctas), kThreads, bytes, st>>>(
+        xp, decltype(xp)(w), yp, s, Ho, Wo, pl);
+    return int(cudaGetLastError());
+  };
+  const bool k3 = KH == 3 && KW == 3;
+#define CNN_CONV1(T)                                                        \
+  {                                                                         \
+    using A = AccOf<T>::type;                                               \
+    const T* xp = (const T*)x;                                              \
+    A* yp = (A*)y;                                                          \
+    if (!whole) return run(conv2d_vpu_tiled_kernel<T, 0, false>, xp, yp);   \
+    if (k3) return run(conv2d_vpu_tiled_kernel<T, 3, true>, xp, yp);        \
+    return run(conv2d_vpu_tiled_kernel<T, 0, true>, xp, yp);                \
+  }
+  if (dtype == kF32) CNN_CONV1(float)
+  CNN_CONV1(int8_t)
+#undef CNN_CONV1
 }
 
 int cnn_pool2d(int dtype, int mode, const void* x, void* y, int N, int H,

@@ -46,7 +46,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cnn_conv2d": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cnn_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cnn_conv1": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _P),
     "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cnn_activation": (_I, _I, _P, _P, ctypes.c_longlong, _P),
     "cnn_fused": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -61,7 +63,11 @@ _SIGNATURES = {
     "mm_tc_matmul": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     "mm_tc_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "attn_flash": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    "attn_decode": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "attn_decode": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                    _P),
+    "attn_decode_plan": (_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                         ctypes.POINTER(_I),
+                         ctypes.POINTER(ctypes.c_longlong)),
     "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
@@ -186,14 +192,20 @@ def require(t: torch.Tensor, what: str, dtypes=None, ndim=None) -> None:
                          f"{tuple(t.shape)}")
 
 
+def call(what: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call ``fn_name`` with ``device`` current and raise on a non-zero
+    ``cudaError_t``; counts nothing (a launcher's plan query)."""
+    handle = lib()
+    with torch.cuda.device(device):
+        err = getattr(handle, fn_name)(*args)
+    if err != 0:
+        msg = handle.cnn_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({err}): {msg}")
+
+
 def launch(counter: str, fn_name: str, device: torch.device, *args) -> None:
     """Launch ``fn_name`` on ``device``'s current stream, raise on a
     launch error, and count the launch under ``counter``."""
-    handle = lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(handle, fn_name)(*args, stream)
-    if err != 0:
-        msg = handle.cnn_error_string(err).decode()
-        raise RuntimeError(f"{counter}: CUDA launch failed ({err}): {msg}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    call(counter, fn_name, device, *args, stream)
     LAUNCHES[counter] = LAUNCHES.get(counter, 0) + 1

@@ -36,6 +36,7 @@ from repro_torch.core import selector as t_sel
 from repro_torch.core.ip import SiteSpec as TSpec
 from repro_torch.core.resources import ResourceBudget as TBudget
 from repro_torch.kernels.attention import flash as t_flash_mod
+from repro_torch.kernels.attention import decode as t_decode_mod
 from repro_torch.kernels.attention.decode import (flash_decode,
                                                   flash_decode_plain)
 from repro_torch.kernels.attention.flash import (flash_attention,
@@ -198,6 +199,92 @@ def test_decode_plain_matches_reference_kernel(rng, skv, group):
     np.testing.assert_allclose(_np(got), _np(want), **F32)
     np.testing.assert_allclose(_np(flash_decode_plain(tq, tk, tv)),
                                _np(want), **F32)
+
+
+def _split_kv_decode(q, k, v, splits_asked):
+    """The split-KV decode kernel's arithmetic (``csrc/attn_kernels.cu``),
+    emulated on the CPU: per (b, kv head) the keys cut into splits of
+    whole stages (``split_chunk``); in each split every warp folds its
+    share of each stage's keys (``keys_per_warp``) into its own online
+    softmax (m, l, acc) of the group's rows, masked keys left out; the
+    warps merge in ascending order into the split's partial, and the
+    splits merge in ascending order, o = sum e_s acc_s / max(sum e_s l_s,
+    1e-30), e_s = exp(m_s - max m), rounded once to q's dtype."""
+    b, hq, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kpw = t_decode_mod.keys_per_warp(d, q.element_size())
+    tile = t_decode_mod.WARPS * kpw
+    chunk, splits = t_decode_mod.split_chunk(skv, splits_asked, tile)
+    assert (splits - 1) * chunk < skv <= splits * chunk   # none is empty
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    qf = q.float().reshape(b, hkv, group, d) * scale
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, hkv, group, d))
+
+    def merge(states):
+        mx = torch.stack([m for m, _, _ in states]).amax(dim=0)
+        f = [torch.exp(m - mx) for m, _, _ in states]
+        acc = sum(fi[:, None] * a for fi, (_, _, a) in zip(f, states))
+        return mx, sum(fi * l for fi, (_, l, _) in zip(f, states)), acc
+
+    for bi in range(b):
+        for h in range(hkv):
+            parts = []
+            for s in range(splits):
+                k0, k1 = s * chunk, min(s * chunk + chunk, skv)
+                warps = []
+                for w in range(t_decode_mod.WARPS):
+                    m = torch.full((group,), -1e30)
+                    l, acc = torch.zeros(group), torch.zeros(group, d)
+                    for t0 in range(k0, k1, tile):
+                        lo = t0 + w * kpw
+                        hi = min(lo + kpw, k1)
+                        sc = qf[bi, h] @ kf[bi, h, lo:hi].T   # (group, n)
+                        tmax = (sc.amax(dim=1) if hi > lo
+                                else torch.full((group,), -1e30))
+                        m_new = torch.maximum(m, tmax)
+                        alpha = torch.exp(m - m_new)
+                        m = m_new
+                        p = torch.exp(sc - m[:, None])
+                        l = l * alpha + p.sum(dim=1)
+                        acc = acc * alpha[:, None] + p @ vf[bi, h, lo:hi]
+                    warps.append((m, l, acc))
+                parts.append(merge(warps))
+            _, l, acc = merge(parts)
+            out[bi, h] = acc / l.clamp(min=1e-30)[:, None]
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+# (Skv, GQA group, head dim): a single key, lengths no multiple of a
+# stage, a long cache; groups 1, 4 and 8; the three stage widths
+DECODE_SPLIT_CASES = [(1, 1, 32), (17, 4, 32), (17, 8, 64), (257, 8, 32),
+                      (257, 4, 128), (4097, 4, 64), (4097, 1, 128),
+                      (4097, 8, 32)]
+
+
+@pytest.mark.parametrize("skv,group,d", DECODE_SPLIT_CASES,
+                         ids=[f"skv{c[0]}-g{c[1]}-d{c[2]}"
+                              for c in DECODE_SPLIT_CASES])
+def test_decode_split_kv_emulation_holds_the_bound(rng, skv, group, d):
+    """The split-KV decomposition of the decode kernel
+    (``_split_kv_decode``), at one split, a few (a short last chunk),
+    and more splits asked than there are keys, stays within
+    ``chip_smoke``'s tolerances of ``flash_decode_plain`` and within this
+    file's bounds of the reference's Pallas kernel (interpret mode)."""
+    hkv = 2
+    for dtype, tol, ref_tol in (("float32", chip_smoke.ATTN_F32_TOL, F32),
+                                ("bfloat16", chip_smoke.ATTN_BF16_TOL,
+                                 BF16)):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, hkv * group, hkv, 1,
+                                            skv, d, dtype=dtype)
+        plain = flash_decode_plain(tq, tk, tv)
+        want = _np(j_decode(jq, jk, jv, bk=min(1024, skv)))
+        for splits in (1, 2, 3, 7, skv + 5):
+            got = _split_kv_decode(tq, tk, tv, splits)
+            assert got.dtype == tq.dtype and got.shape == tq.shape
+            torch.testing.assert_close(got, plain, **tol)
+            np.testing.assert_allclose(_np(got), want, **ref_tol)
 
 
 def test_decode_bf16_matches_reference_kernel(rng):

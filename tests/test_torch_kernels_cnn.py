@@ -103,6 +103,98 @@ def test_conv_tile_hint_does_not_change_result(rng):
         assert torch.equal(fn(x, w, block_cout=3), fn(x, w))
 
 
+def _conv1_tiles(x, w, plan):
+    """``conv2d_vpu_tiled_kernel``'s decomposition on the CPU: each tile
+    of ``plan`` computed only from what the kernel stages for it (the
+    input halo, or per (tap, chunk) the shifted tile's chunk of
+    channels), in the Conv1 order: per tap, a partial that starts at 0
+    takes the staged channels' products in ascending order, across the
+    chunks, then adds into the accumulator.  Returns the output and the
+    number of tiles that wrote each output."""
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = h - kh + 1, w_ - kw + 1
+    acc_dtype = torch.float32 if x.is_floating_point() else torch.int32
+    xa, wa = x.to(acc_dtype), w.to(acc_dtype)
+    y = torch.zeros((n, ho, wo, cout), dtype=acc_dtype)
+    hits = torch.zeros((n, ho, wo, cout), dtype=torch.int32)
+    chunks = [(c, min(c + plan.cc, cin)) for c in range(0, cin, plan.cc)]
+    assert plan.whole == (chunks == [(0, cin)] and plan.cc == cin)
+    # the kernel's CTAs: one a (row, column, channel) tile of each image
+    tiles = [(h0, w0, c0) for h0 in range(0, ho, plan.th)
+             for w0 in range(0, wo, plan.tw)
+             for c0 in range(0, cout, plan.bc)]
+    for b in range(n):
+        for h0, w0, c0 in tiles:
+            r, c, q = (min(plan.th, ho - h0), min(plan.tw, wo - w0),
+                       min(plan.bc, cout - c0))
+            halo = xa[b, h0:h0 + plan.th + kh - 1, w0:w0 + plan.tw + kw - 1]
+            acc = torch.zeros((r, c, q), dtype=acc_dtype)
+            for i in range(kh):
+                for j in range(kw):
+                    part = torch.zeros((r, c, q), dtype=acc_dtype)
+                    for ca, cb in chunks:
+                        if plan.whole:
+                            box = halo[i:i + r, j:j + c, ca:cb]
+                        else:
+                            box = xa[b, h0 + i:h0 + i + r, w0 + j:w0 + j + c,
+                                     ca:cb]
+                        # the staged box holds every input the windows read
+                        assert box.shape == (r, c, cb - ca)
+                        for k in range(cb - ca):
+                            part = part + (box[..., k, None]
+                                           * wa[i, j, ca + k, c0:c0 + q])
+                    acc = acc + part
+            y[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] = acc
+            hits[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] += 1
+    return y, hits
+
+
+# (x, w, block_cout, shared memory the plan may use): rows and columns no
+# multiple of the tile, Cout 7, Cin 1 and 5, 1x1 and 5x5 taps, and a Cin
+# that a small budget cuts into chunks (f32: 4 channels, int8: 16)
+CONV1_PLANS = [((2, 13, 37, 1), (3, 3, 1, 7), 128, None),
+               ((1, 11, 19, 5), (5, 5, 5, 7), 128, None),
+               ((2, 9, 10, 5), (1, 1, 5, 7), 4, None),
+               ((1, 10, 40, 20), (3, 3, 20, 7), 128, 2048),
+               ((1, 7, 45, 20), (2, 3, 20, 9), 8, 2048)]
+CONV1_IDS = ["cin1-k3", "cin5-k5", "cin5-k1-bc4", "chunked", "chunked-bc8"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("xs,ws,block_cout,smem", CONV1_PLANS,
+                         ids=CONV1_IDS)
+def test_conv1_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
+    """The tiled Conv1 kernel's plan covers every output exactly once,
+    each tile's staged inputs cover its windows, and the tile-by-tile
+    computation in the Conv1 order is bitwise equal to
+    ``conv2d_ip1_plain`` and matches the reference's kernel."""
+    if dtype == "float32":
+        x, w = _randn(rng, xs), _randn(rng, ws)
+    else:
+        x, w = _randint8(rng, xs), _randint8(rng, ws)
+    (jx, tx), (jw, tw) = _both(x), _both(w)
+    n, h, w_, cin = xs
+    kh, kw, _, cout = ws
+    kwargs = {} if smem is None else dict(smem_bytes=smem)
+    plan = t_ip1.tile_plan(h, w_, cin, kh, kw, cout,
+                           itemsize=tx.element_size(),
+                           block_cout=block_cout, **kwargs)
+    assert plan.th * plan.tw == (t_ip1.THREADS >> plan.glog) * t_ip1.PIXELS
+    assert plan.bc <= t_ip1.QUAD * t_ip1.MAX_QUADS
+    assert plan.whole == (smem is None)
+    if not plan.whole:
+        assert plan.cc < cin and plan.cc % (16 // tx.element_size()) == 0
+    got, hits = _conv1_tiles(tx, tw, plan)
+    assert (hits == 1).all()
+    assert torch.equal(got, t_ip1.conv2d_ip1_plain(tx, tw))
+    want = _np(j_ip1.conv2d_ip1(jx, jw))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, **F32)
+    else:
+        np.testing.assert_array_equal(_np(got), want)
+
+
 # --------------------------------------------------------------------------
 # pool2d: pool_vpu (the kernel) and pool_im2col (plain on the CPU)
 # --------------------------------------------------------------------------
