@@ -13,8 +13,9 @@ and prints no result):
    version on the card at the frontend's shapes (f32 with stated
    tolerances, int8 bit-exact), the fused kernel bitwise against its
    three-launch chain, and results independent of the tiling hints;
-   the tiled ``conv2d_ip1`` also at the ragged shapes of
-   ``CONV_RAGGED`` (f32 and int8, any ``block_cout``, fused == chain);
+   the tiled ``conv2d_ip1`` and ``conv2d_ip2`` also at the ragged shapes
+   of ``CONV_RAGGED`` (f32 and int8, any ``block_cout``, fused == chain
+   for both styles);
 4. serve  — ``AdaptiveServer(device="cuda")`` with the default CNN
    frontend answers 8 seeded 224x224x3 requests through the fused plan
    (launch counters reset just before and read just after), a
@@ -69,12 +70,16 @@ and prints no result):
    f32); the tensor-core route (int8 and bf16 ``mm_mxu`` / ``_mm_dual``,
    ``csrc/mm_tc_kernels.cu``) at the ragged shapes of ``TC_RAGGED``
    against the plain versions (int8 bit-exact, bf16 within ``MM_TOL``),
-   each dual stream bitwise equal to an ``mm_mxu`` launch;
+   each dual stream bitwise equal to an ``mm_mxu`` launch; f32 ``mm_mxu``
+   (``mm_mxu_f32_kernel``) at ``TC_RAGGED`` within ``MM_TOL`` and
+   bitwise equal to ``mm_vpu``;
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
    kernels (``LOGIC_ONLY``), IGMMA in the int8 and HGMMA in the bf16
-   tensor-core kernels, bf16 flash attention's included (``TC_SASS``);
+   tensor-core kernels, bf16 flash attention's included (``TC_SASS``),
+   and every kernel of the ``kernels`` line (``KERNEL``) in the library;
 5. times  — per kernel (``conv2d_ip1`` also at block 1 and on int8 at
-   block 0, ``flash_decode`` also on f32; ``mm_mxu`` per operand dtype:
+   block 0, ``conv2d_ip2`` also on int8 at block 1, ``flash_decode``
+   and ``mm_dual_full`` also on f32; ``mm_mxu`` per operand dtype:
    f32 on CUDA cores, int8 and bf16 on the tensor cores; ``mm_vpu`` per
    operand dtype, all on CUDA cores): the median device time of 20
    launches (CUDA
@@ -209,6 +214,33 @@ SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
                  CSRC_ATTN if name.startswith("flash_") else
                  CSRC_SCAN if name == "selective_scan" else CSRC)
           for name in REPLACES}
+# The CUDA kernel (__global__ function) behind each row of the kernels
+# line, as the row is timed: mm_mxu on f32 runs the CUDA-core kernel,
+# the dual rows their int8 / bf16 tensor-core kernels; flash_decode is
+# one launch of two kernels.
+KERNEL = {
+    "activation_lut": "activation_lut_kernel",
+    "pool2d_im2col": "pool2d_im2col_kernel",
+    "fused_cnn_vpu": "fused_cnn_kernel",
+    "fused_cnn_mxu": "fused_cnn_kernel",
+    "conv2d_ip1": "conv2d_vpu_tiled_kernel",
+    "conv2d_ip2": "conv2d_mxu_tiled_kernel",
+    "pool2d_window": "pool2d_kernel",
+    "activation_exact": "activation_kernel",
+    "conv2d_ip3": "conv2d_ip3_kernel",
+    "conv2d_ip4": "conv2d_ip4_kernel",
+    "mm_mxu": "mm_mxu_f32_kernel",
+    "mm_mxu (int8)": "mm_tc_mxu_i8_kernel",
+    "mm_mxu (bf16)": "mm_tc_mxu_bf16_kernel",
+    "mm_vpu": "mm_vpu_kernel",
+    "mm_vpu (int8)": "mm_vpu_kernel",
+    "mm_vpu (bf16)": "mm_vpu_kernel",
+    "mm_dual_shared": "mm_tc_dual_i8_kernel",
+    "mm_dual_full": "mm_tc_dual_bf16_kernel",
+    "flash_attention": "attn_tc_flash_kernel",
+    "flash_decode": "flash_decode_split_kernel, decode_combine_kernel",
+    "selective_scan": "selective_scan_kernel",
+}
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
 # as ssm_scan.selective_vmem): no MMA in SASS.
 LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_kernel",
@@ -560,19 +592,23 @@ def kernel_checks(shapes, gen):
 
 
 def conv_ragged_checks(gen, errs):
-    """conv2d_ip1 (the tiled kernel) at CONV_RAGGED against its plain
-    version: f32 within tolerance, int8 bit-exact, both independent of
-    block_cout; f32 fused_cnn_vpu bitwise equal to its three-launch chain
-    (conv2d_ip1, pool2d_window, activation_exact) at the same shapes."""
+    """conv2d_ip1 and conv2d_ip2 (the tiled kernels) at CONV_RAGGED
+    against their plain versions: f32 within tolerance, int8 bit-exact,
+    both independent of block_cout; f32 fused_cnn_vpu / fused_cnn_mxu
+    bitwise equal to their three-launch chains (conv2d_ip1 / conv2d_ip2,
+    pool2d_window, activation_exact) at the same shapes."""
     import torch
+    from repro_torch.kernels import cuda
     from repro_torch.kernels.activation.vpu_exact import activation_exact
     from repro_torch.kernels.conv2d.ip1_vpu import (conv2d_ip1,
                                                     conv2d_ip1_plain,
                                                     tile_plan)
-    from repro_torch.kernels.fused.cnn_block import fused_cnn_vpu
+    from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2, conv2d_ip2_plain
+    from repro_torch.kernels.fused.cnn_block import (fused_cnn_mxu,
+                                                     fused_cnn_vpu)
     from repro_torch.kernels.pool2d.vpu_window import pool2d_window
     dev = torch.device("cuda")
-    plans = []
+    plans, plans2 = [], []
     for xs, ws in CONV_RAGGED:
         x = torch.randn(xs, generator=gen).to(dev)
         w = (torch.randn(ws, generator=gen)
@@ -598,10 +634,34 @@ def conv_ragged_checks(gen, errs):
         plans.append(tuple(
             tile_plan(h, w_, cin, *ws[:2], ws[3], itemsize=size)
             for size in (4, 1)))
+        cuda.reset_launches()
+        y2 = conv2d_ip2(x, w)
+        yi2 = conv2d_ip2(xi, wi)
+        check(cuda.launch_counts() == {"conv2d_ip2": 2},
+              f"conv2d_ip2 at {xs} x {ws}: launches "
+              f"{cuda.launch_counts()}, expected 2")
+        compare("conv2d_ip2", y2, conv2d_ip2_plain(x, w), 1e-4, 1e-5, errs)
+        compare("conv2d_ip2", yi2, conv2d_ip2_plain(xi, wi), 0, 0, errs,
+                exact=True)
+        for bc in (1, 5, 16):
+            check(torch.equal(conv2d_ip2(x, w, block_cout=bc), y2)
+                  and torch.equal(conv2d_ip2(xi, wi, block_cout=bc), yi2),
+                  f"conv2d_ip2 at {xs} x {ws}: result depends on "
+                  f"block_cout")
+        check(torch.equal(fused_cnn_mxu(x, w), activation_exact(
+            pool2d_window(y2))), f"fused_cnn_mxu at {xs} x {ws}: not "
+                                 f"bitwise equal to its three-launch chain")
+        plans2.append(tuple(
+            tile_plan(h, w_, cin, *ws[:2], ws[3], itemsize=size,
+                      style="mxu") for size in (4, 1)))
     log(f"conv2d_ip1 at {len(CONV_RAGGED)} ragged shapes: f32 within "
         f"rtol=1e-4, atol=1e-5, int8 bit-exact, independent of "
         f"block_cout; f32 fused_cnn_vpu == chain bitwise; tile plans "
         f"(f32, int8) {plans}")
+    log(f"conv2d_ip2 ({KERNEL['conv2d_ip2']}, one launch a call) at "
+        f"{len(CONV_RAGGED)} ragged shapes: f32 within rtol=1e-4, "
+        f"atol=1e-5, int8 bit-exact, independent of block_cout; f32 "
+        f"fused_cnn_mxu == chain bitwise; tile plans (f32, int8) {plans2}")
     torch.cuda.synchronize()
 
 
@@ -1097,8 +1157,31 @@ def matmul_checks(gen, errs):
     log("mm_mxu bitwise independent of bm/bn/bk; mm_vpu == mm_mxu bitwise "
         "(f32 and int8); bf16 within tolerance")
     tc_ragged_checks(gen, errs)
+    f32_ragged_checks(gen, errs)
     torch.cuda.synchronize()
     return launches
+
+
+def f32_ragged_checks(gen, errs):
+    """f32 ``mm_mxu`` (the CUDA-core kernel, ``mm_mxu_f32_kernel``) at
+    TC_RAGGED against its plain version within MM_TOL, one launch a
+    call, and bitwise equal to ``mm_vpu`` (one FMA chain over k)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.matmul.mxu import mm_mxu, mm_mxu_plain, mm_vpu
+    for m, k, n in TC_RAGGED:
+        a = operand(gen, (m, k), torch.float32)
+        b = operand(gen, (k, n), torch.float32)
+        cuda.reset_launches()
+        y = mm_mxu(a, b)
+        check(cuda.launch_counts() == {"mm_mxu": 1},
+              f"f32 mm_mxu at {(m, k, n)}: launches {cuda.launch_counts()}")
+        compare("mm_mxu", y, mm_mxu_plain(a, b), MM_TOL["rtol"],
+                MM_TOL["atol"], errs)
+        check(torch.equal(mm_vpu(a, b), y),
+              f"f32 at {(m, k, n)}: mm_vpu and mm_mxu differ")
+    log(f"f32 mm_mxu ({KERNEL['mm_mxu']}) at ragged (M, K, N) {TC_RAGGED}: "
+        f"one launch a call, within MM_TOL, bitwise equal to mm_vpu")
 
 
 def tc_ragged_checks(gen, errs):
@@ -1526,8 +1609,8 @@ def visible_pairs(sq, skv, causal):
 
 def lm_timings(ops, peaks):
     """Rows for the three new kernels at the planned sites' shapes:
-    ``mm_dual_shared`` (int8) and ``mm_dual_full`` (bf16) at the sweep's
-    FFN, ``flash_attention`` at attn_train4k, ``flash_decode`` at
+    ``mm_dual_shared`` (int8) and ``mm_dual_full`` (bf16, and f32 on the
+    operands widened) at the sweep's FFN, ``flash_attention`` at attn_train4k, ``flash_decode`` at
     attn_decode32k (bf16, and f32 on the cache widened).  Bound by bytes
     or by the tensor-core peak of the operand type; the FP32 figure
     beside it."""
@@ -1576,6 +1659,18 @@ def lm_timings(ops, peaks):
         nbytes(a1, a2, b, y1, y2), 4 * m * k * n, "bf16_tensor_flops",
         f"2 x ({m}, {k}) x ({k}, {n}) bf16", "two bf16 torch.matmul")
     rows["mm_dual_full"]["yardstick"] = two_mxu
+    # f32 mm_dual_full (mm_dual_kernel on CUDA cores) at the same shape
+    f1, f2, fb = (t.to(torch.float32) for t in (a1, a2, b))
+    y1, y2 = mm_dual_full(f1, f2, fb)
+    rows["mm_dual_full (f32)"] = row(
+        lambda: mm_dual_full(f1, f2, fb),
+        time_ms(lambda: mm_dual_full_plain(f1, f2, fb)),
+        time_ms(lambda: (torch.matmul(f1, fb), torch.matmul(f2, fb))),
+        nbytes(f1, f2, fb, y1, y2), 4 * m * k * n, "fp32_flops",
+        f"2 x ({m}, {k}) x ({k}, {n}) f32", "two torch.matmul")
+    rows["mm_dual_full (f32)"]["yardstick"] = (
+        "two mm_mxu launches",
+        time_ms(lambda: (mm_mxu(f1, fb), mm_mxu(f2, fb))))
 
     def plain_chunks(plain, q, k, v, per_head, **kw):
         for _, qc, kc, vc in attention_chunks(q, k, v, per_head):
@@ -1661,6 +1756,10 @@ def sass_check(lib_path):
                      for k in MMA_SASS}
             check(kinds[want] > 0 and counts[name] == kinds[want],
                   f"{name}: MMA instructions {kinds}, expected {want} only")
+    for row, names in KERNEL.items():
+        for kernel in names.split(", "):
+            check(any(kernel in name for name in bodies),
+                  f"{row}: no SASS for {kernel} in {lib_path.name}")
     log(f"SASS: {len(bodies)} kernels; no {'|'.join(MMA_SASS)} in "
         f"{', '.join(LOGIC_ONLY)}; "
         + ", ".join(f"{k}: {v} x"
@@ -1750,30 +1849,38 @@ def timings(shapes, gen, peaks):
     def conv_lib(x, w):
         return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
 
-    for name, kern, plain, x, w in (
-            ("conv2d_ip1", conv2d_ip1, conv2d_ip1_plain, x0, w0),
-            ("conv2d_ip2", conv2d_ip2, conv2d_ip2_plain, x1, w1)):
+    # plain versions that launch a step a channel of K (the Conv2 chain)
+    # are timed call by call: the host cannot queue 20 of them ahead
+    for name, kern, plain, x, w, plain_time in (
+            ("conv2d_ip1", conv2d_ip1, conv2d_ip1_plain, x0, w0, time_ms),
+            ("conv2d_ip2", conv2d_ip2, conv2d_ip2_plain, x1, w1,
+             time_sync_ms)):
         y = kern(x, w)
         k = w.shape[0] * w.shape[1] * w.shape[2]
         b_ms, by = bound(nbytes(x, w, y), 2 * k * y.numel())
         rows[name] = dict(ms=time_ms(lambda: kern(x, w)),
-                          plain_ms=time_ms(lambda: plain(x, w)),
+                          plain_ms=plain_time(lambda: plain(x, w)),
                           library_ms=time_ms(lambda: conv_lib(x, w)),
                           bound_ms=b_ms, bound_by=by,
                           shape=f"x{tuple(x.shape)} w{tuple(w.shape)}")
-    # the tiled Conv1 at block 1 (f32) and on int8 at block 0 (int32
-    # multiply-adds on the INT32 lanes; no PyTorch int8 conv on CUDA)
+    # the tiled Conv1 at block 1 (f32) and on int8 at block 0, the tiled
+    # Conv2 on int8 at block 1 (int32 multiply-adds on the INT32 lanes;
+    # no PyTorch int8 conv on CUDA)
     xi0, wi0 = operand(gen, x0s, torch.int8), operand(gen, w0s, torch.int8)
-    for name, x, w, rate, lib_fn in (
-            ("conv2d_ip1 (f32, block 1)", x1, w1, "fp32_flops",
-             lambda: conv_lib(x1, w1)),
-            ("conv2d_ip1 (int8, block 0)", xi0, wi0, "int32_ops", None)):
-        y = conv2d_ip1(x, w)
+    xi1, wi1 = operand(gen, x1s, torch.int8), operand(gen, w1s, torch.int8)
+    for name, kern, plain, x, w, rate, lib_fn in (
+            ("conv2d_ip1 (f32, block 1)", conv2d_ip1, conv2d_ip1_plain, x1,
+             w1, "fp32_flops", lambda: conv_lib(x1, w1)),
+            ("conv2d_ip1 (int8, block 0)", conv2d_ip1, conv2d_ip1_plain,
+             xi0, wi0, "int32_ops", None),
+            ("conv2d_ip2 (int8, block 1)", conv2d_ip2, conv2d_ip2_plain,
+             xi1, wi1, "int32_ops", None)):
+        y = kern(x, w)
         k = w.shape[0] * w.shape[1] * w.shape[2]
         b_ms, by = bound(nbytes(x, w, y), 2 * k * y.numel(), rate)
         rows[name] = dict(
-            ms=time_ms(lambda: conv2d_ip1(x, w)),
-            plain_ms=time_sync_ms(lambda: conv2d_ip1_plain(x, w)),
+            ms=time_ms(lambda: kern(x, w)),
+            plain_ms=time_sync_ms(lambda: plain(x, w)),
             library_ms=None if lib_fn is None else time_ms(lib_fn),
             bound_ms=b_ms, bound_by=by,
             shape=f"x{tuple(x.shape)} w{tuple(w.shape)} {x.dtype}")
@@ -1805,7 +1912,8 @@ def timings(shapes, gen, peaks):
         b_ms, by = bound(nbytes(x, w, y), flops)
         rows[name] = dict(
             ms=time_ms(lambda: kern(x, w)),
-            plain_ms=time_ms(lambda: fused_cnn_plain(style, x, w)),
+            plain_ms=(time_ms if style == "vpu" else time_sync_ms)(
+                lambda: fused_cnn_plain(style, x, w)),
             library_ms=None, bound_ms=b_ms, bound_by=by,
             shape=f"x{tuple(x.shape)} w{tuple(w.shape)} max 2x2 relu")
     # the precision ladder's kernels: Act2 at its served shape, Pool2 at
@@ -1858,7 +1966,7 @@ def timings(shapes, gen, peaks):
     b_ms, by = bound(nbytes(fa, fb, fw, ya, yb), 2 * 2 * k1 * ya.numel())
     rows["conv2d_ip4"] = dict(
         ms=time_ms(lambda: conv2d_ip4(fa, fb, fw)),
-        plain_ms=time_ms(lambda: conv2d_ip4_plain(fa, fb, fw)),
+        plain_ms=time_sync_ms(lambda: conv2d_ip4_plain(fa, fb, fw)),
         library_ms=time_ms(lambda: (conv_lib(fa, fw), conv_lib(fb, fw))),
         bound_ms=b_ms, bound_by=by,
         shape=f"2 x{tuple(fa.shape)} f32 w{tuple(fw.shape)}",
@@ -2478,7 +2586,8 @@ def main() -> int:
         if "exp_bound_ms" in r:
             extra += (f", exponentials {r['exp_bound_ms'] * 1e3:.1f} us at "
                       f"the MUFU rate")
-        log(f"{name} [{r['shape']}]: {r['ms'] * 1e3:.1f} us, plain "
+        kern = f" ({KERNEL[name]})" if name in KERNEL else ""
+        log(f"{name}{kern} [{r['shape']}]: {r['ms'] * 1e3:.1f} us, plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}{extra}, bound "
             f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) on {card}")
     log(f"served {statistics.median(rates):.1f} requests/s, median of "
@@ -2500,6 +2609,7 @@ def main() -> int:
         peaks, card, errs)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
+                "kernel": KERNEL[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], "ms": rows[name]["ms"],
                 "plain_ms": rows[name]["plain_ms"],

@@ -3,27 +3,126 @@ math, in the two orders of the reference (``repro.kernels.conv2d.inner``).
 
 On the card these are the ``__device__`` functions of
 ``csrc/cnn_device.cuh`` (``conv_taps_vpu`` / ``conv_part_vpu`` and
-``conv_point_mxu``), which the standalone members (``ip1_vpu``,
-``ip2_mxu``) and the fused members (``kernels/fused/cnn_block.py``) all
-call; ``conv_output`` allocates the standalone members' output.  The functions below are their plain
-PyTorch versions in the same order, which the CPU path runs and the
+``conv_taps_mxu`` / ``conv_run``), which the standalone members
+(``ip1_vpu``, ``ip2_mxu``), Conv4 (``ip4_dual``) and the fused members
+(``kernels/fused/cnn_block.py``) all call.  The functions below are their
+plain PyTorch versions in the same order, which the CPU path runs and the
 on-card checks compare against:
 
 * vpu: for each tap (i, j), a partial that starts at 0 takes the shifted
   window's products with the tap over Cin in ascending order, then adds
   into the accumulator (the kernels' chain, with FMA there);
-* mxu: im2col to (.., KH*KW*Cin) and one dot over that K.
+* mxu: one chain per output over K = (i, j, cin) in ascending order,
+  starting from 0 (the im2col dot of the reference, taken in order);
+  the plain versions run it in float64 for float operands (``conv_mxu``).
+
+The two standalone members run the tiled kernels of ``csrc/cnn_kernels.cu``
+(``conv2d_vpu_tiled_kernel`` / ``conv2d_mxu_tiled_kernel``) on the plan of
+``tile_plan``; ``launch_conv_tiled`` checks their operands, allocates the
+output and launches one of them.
 
 The dual-stream members (``ip3_packed``, ``ip4_dual``) share
 ``launch_conv_dual``, one launch that writes both streams' outputs.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import cuda
 
 STYLE_CODE = {"vpu": 0, "mxu": 1}
+THREADS = 256        # a CTA of the tiled kernels
+PIXELS = 8           # output pixels a thread
+QUAD = 4             # output channels a thread
+MAX_QUADS = 8        # channel quads a CTA (32 channels)
+MAX_TILE_W = 32      # output columns a tile
+SMEM_BYTES = 96 * 1024   # shared memory a CTA may stage (two fit an SM)
+
+
+class TilePlan(NamedTuple):
+    """How a tiled conv kernel cuts one conv: CTAs of ``bc`` output
+    channels and ``th`` x ``tw`` output pixels of one image; ``whole``:
+    a tile's input halo, (th + KH - 1) x (tw + KW - 1) x Cin, and every
+    tap's weights are staged in one go; else each (tap, chunk of ``cc``
+    input channels) is staged in turn, the taps outermost, so each
+    output's order carries across the chunks."""
+    glog: int        # bc = QUAD << glog
+    twlog: int       # tw = 1 << twlog
+    th: int
+    cc: int
+    whole: bool
+
+    @property
+    def bc(self) -> int:
+        return QUAD << self.glog
+
+    @property
+    def tw(self) -> int:
+        return 1 << self.twlog
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pixel_pitch(n: int, vec: int) -> int:
+    """Conv2's staged elements a pixel for ``n`` channels: whole 16-byte
+    chunks of ``vec`` elements, an odd number of them, so neighbouring
+    pixels lie in different shared-memory banks."""
+    p = _round_up(n, vec)
+    return p if (p // vec) % 2 else p + vec
+
+
+def tile_smem_bytes(plan: TilePlan, kh: int, kw: int, cin: int, *,
+                    itemsize: int, style: str = "vpu") -> int:
+    """The shared memory a CTA of ``plan`` stages, as the kernels'
+    launcher (``tile_smem_bytes`` of ``csrc/cnn_kernels.cu``) computes it:
+    ``whole``, the input halo then every tap's weights; else one chunk's
+    shifted tile then its weights.  Conv1 (``vpu``) stages the halo's
+    rows as they lie, Conv2 (``mxu``) each pixel at ``pixel_pitch``."""
+    vec, tw = 16 // itemsize, plan.tw
+    weights = (kh * kw * cin if plan.whole else plan.cc) * plan.bc * itemsize
+    if style == "mxu":
+        pixels = ((plan.th + kh - 1) * (tw + kw - 1) if plan.whole
+                  else plan.th * tw)
+        return (pixels * pixel_pitch(cin if plan.whole else plan.cc, vec)
+                * itemsize + weights)
+    if plan.whole:
+        rp = _round_up((tw + kw - 1) * cin, vec)
+        return _round_up((plan.th + kh - 1) * rp * itemsize, 16) + weights
+    return plan.th * tw * _round_up(plan.cc, vec) * itemsize + weights
+
+
+def tile_plan(h: int, w: int, cin: int, kh: int, kw: int, cout: int, *,
+              itemsize: int, block_cout: int = 128,
+              smem_bytes: int = SMEM_BYTES, style: str = "vpu") -> TilePlan:
+    """The tile plan of the ``style`` kernel (``vpu``: Conv1's, ``mxu``:
+    Conv2's) for an (h, w, cin) input and (kh, kw, cin, cout) weights of
+    ``itemsize``-byte elements.  ``block_cout`` caps the channels a CTA
+    covers (rounded up to a power-of-two number of quads); the result
+    never depends on it.  The two kernels share the cut; the halo is
+    staged whole where ``tile_smem_bytes`` fits ``smem_bytes``, else in
+    chunks of input channels sized to fit.  The kernels' launcher checks
+    the plan and computes the same shared-memory size."""
+    if style not in STYLE_CODE:
+        raise ValueError(f"unknown style {style!r}; have {tuple(STYLE_CODE)}")
+    ho, wo = h - kh + 1, w - kw + 1
+    quads = -(-min(block_cout, cout) // QUAD)
+    glog = min((quads - 1).bit_length(), MAX_QUADS.bit_length() - 1)
+    twlog = min((wo - 1).bit_length(), MAX_TILE_W.bit_length() - 1)
+    th = (THREADS >> glog) * PIXELS >> twlog
+    plan = TilePlan(glog, twlog, th, cin, True)
+    if tile_smem_bytes(plan, kh, kw, cin, itemsize=itemsize,
+                       style=style) <= smem_bytes:
+        return plan
+    vec, pixels = 16 // itemsize, th << twlog
+    # Conv2's pixel pitch may add a chunk a pixel
+    spare = smem_bytes - (pixels * vec * itemsize if style == "mxu" else 0)
+    per_channel = (pixels + plan.bc) * itemsize
+    cc = max(vec, spare // per_channel // vec * vec)
+    return plan._replace(cc=min(cc, cin), whole=False)
 
 
 def accumulate_vpu(x, w, *, ho: int, wo: int, acc_dtype):
@@ -55,12 +154,39 @@ def im2col(x, kh: int, kw: int, *, ho: int, wo: int):
 
 
 def accumulate_mxu(x, w, *, ho: int, wo: int, acc_dtype):
-    """Conv2-style: ``x`` (N, H, W, Cin) in the operand dtype, ``w``
-    (kh, kw, Cin, Cout).  Returns (N, Ho, Wo, Cout)."""
+    """Conv2-style: ``x`` (N, H, W, Cin), ``w`` (kh, kw, Cin, Cout).
+    Returns (N, Ho, Wo, Cout) in ``acc_dtype``.  One chain per output over
+    K = (i, j, cin) in ascending order, starting from 0: the kernels'
+    chain (with FMA there), every output at once over a strided view of
+    the windows."""
     kh, kw, cin, cout = w.shape
-    patches = im2col(x, kh, kw, ho=ho, wo=wo).to(acc_dtype)  # (N,Ho,Wo,K)
-    wmat = w.reshape(kh * kw * cin, cout).to(acc_dtype)   # (K, Cout)
-    return (patches[..., :, None] * wmat).sum(dim=-2, dtype=acc_dtype)
+    xa = x.to(acc_dtype)
+    n = xa.shape[0]
+    sn, sh, sw, sc = xa.stride()
+    windows = xa.as_strided((n, ho, wo, kh, kw, cin), (sn, sh, sw, sh, sw, sc))
+    taps = w.to(acc_dtype)
+    acc = torch.zeros((n, ho, wo, cout), dtype=acc_dtype, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            for c in range(cin):
+                acc = acc + windows[:, :, :, i, j, c, None] * taps[i, j, c]
+    return acc
+
+
+def conv_mxu(x, w):
+    """The Conv2 function as the plain versions compute it (Conv2, Conv4,
+    ``fused_mxu``): ``accumulate_mxu``'s chain over the whole valid plane,
+    in int32 (wrapping, so exact in any order) for integer operands, and
+    for float operands in float64, rounded once to f32.  The kernels take
+    the chain in f32; an f32 chain as long as K moves more requantized
+    codes of the lowered plans away from the reference's than the
+    code-flip rule of ``tests/test_torch_ladder.py`` allows, the f64
+    chain does not."""
+    ho, wo = x.shape[1] - w.shape[0] + 1, x.shape[2] - w.shape[1] + 1
+    if x.is_floating_point():
+        return accumulate_mxu(x, w, ho=ho, wo=wo,
+                              acc_dtype=torch.float64).to(torch.float32)
+    return accumulate_mxu(x, w, ho=ho, wo=wo, acc_dtype=torch.int32)
 
 
 def check_conv_operands(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -98,6 +224,24 @@ def conv_output(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out_dtype = torch.int32 if x.dtype == torch.int8 else torch.float32
     return torch.empty((n, h - kh + 1, w_ - kw + 1, cout), dtype=out_dtype,
                        device=x.device)
+
+
+def launch_conv_tiled(counter: str, entry: str, style: str, x: torch.Tensor,
+                      w: torch.Tensor, block_cout: int) -> torch.Tensor:
+    """Launch the tiled kernel of ``style`` (C entry point ``entry``)
+    once for CUDA operands, on the plan of ``tile_plan``."""
+    y = conv_output(x, w)
+    if y.numel() == 0:
+        return y
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    plan = tile_plan(h, w_, cin, kh, kw, cout, itemsize=x.element_size(),
+                     block_cout=int(block_cout), style=style)
+    cuda.launch(counter, entry, x.device, cuda.DTYPE_CODE[x.dtype],
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, w_, cin, kh,
+                kw, cout, plan.glog, plan.twlog, plan.th, plan.cc,
+                int(plan.whole))
+    return y
 
 
 def launch_conv_dual(counter: str, ip: int, xa: torch.Tensor,

@@ -2,28 +2,31 @@
 
 Replaces ``repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2``.  The reference
 builds the im2col tile and takes ONE dot over K = KH*KW*Cin; the kernel
-(``conv2d_kernel<T>`` in ``csrc/cnn_kernels.cu``) keeps that order
-(``inner.accumulate_mxu``), one thread per output.  It runs on CUDA
+(``conv2d_mxu_tiled_kernel`` in ``csrc/cnn_kernels.cu``) keeps that order
+(``inner.accumulate_mxu``: one chain per output over (i, j, cin) from
+0).  It shares Conv1's tiling (``inner.tile_plan(style="mxu")``): a CTA
+of 256 threads owns a tile of output pixels of one image and a block of
+output channels, stages the tile's input halo and the weights in shared
+memory, and each thread keeps 8 pixels x 4 channels in registers, reading
+a pixel's next 4 input channels as one 16-byte load.  It runs on CUDA
 cores (FP32 FMA / int32 multiply-add): Hopper's tensor cores have no
-IEEE-f32 mode and TF32 misses the reference tolerance; the tensor-core
-version is later work (ROADMAP queue 2).
+IEEE-f32 mode and TF32 misses the reference tolerance; a 3xTF32 route
+would move Conv2, Conv4 and ``fused_cnn_mxu`` together (ROADMAP queue 2).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.resources import Footprint, cost_cycles, mxu_pass_cycles
-from repro_torch.kernels import cuda
-from repro_torch.kernels.conv2d.inner import (accumulate_mxu, check_block,
-                                              check_conv_operands,
-                                              conv_output)
+from repro_torch.kernels.conv2d.inner import (check_block,
+                                              check_conv_operands, conv_mxu,
+                                              launch_conv_tiled)
 
 
 def conv2d_ip2_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, in the kernel's order."""
-    acc = torch.float32 if x.is_floating_point() else torch.int32
-    return accumulate_mxu(x, w, ho=x.shape[1] - w.shape[0] + 1,
-                          wo=x.shape[2] - w.shape[1] + 1, acc_dtype=acc)
+    """The kernel's function in plain PyTorch, in the kernel's order
+    (``inner.conv_mxu``)."""
+    return conv_mxu(x, w)
 
 
 def conv2d_ip2(x: torch.Tensor, w: torch.Tensor, *,
@@ -33,16 +36,8 @@ def conv2d_ip2(x: torch.Tensor, w: torch.Tensor, *,
     check_block("block_cout", block_cout)
     if not x.is_cuda:
         return conv2d_ip2_plain(x, w)
-    y = conv_output(x, w)
-    if y.numel() == 0:
-        return y
-    n, h, w_, cin = x.shape
-    kh, kw, _, cout = w.shape
-    cuda.launch("conv2d_ip2", "cnn_conv2d", x.device,
-                cuda.DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-                y.data_ptr(), n, h, w_, cin, kh, kw, cout,
-                min(int(block_cout), cout))
-    return y
+    return launch_conv_tiled("conv2d_ip2", "cnn_conv2d", "mxu", x, w,
+                             block_cout)
 
 
 def footprint(n, h, w, cin, kh, kw, cout, *, itemsize=1,

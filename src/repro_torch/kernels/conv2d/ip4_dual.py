@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.resources import Footprint, cost_cycles, mxu_pass_cycles
-from repro_torch.kernels.conv2d.inner import (accumulate_mxu, check_block,
-                                              check_dual_operands,
+from repro_torch.kernels.conv2d.inner import (check_block,
+                                              check_dual_operands, conv_mxu,
                                               launch_conv_dual)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
@@ -27,11 +27,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
 
 def conv2d_ip4_plain(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor):
     """The kernel's function in plain PyTorch: each stream through the
-    Conv2 order (``inner.accumulate_mxu``)."""
-    acc = torch.float32 if xa.is_floating_point() else torch.int32
-    ho, wo = xa.shape[1] - w.shape[0] + 1, xa.shape[2] - w.shape[1] + 1
-    return tuple(accumulate_mxu(x, w, ho=ho, wo=wo, acc_dtype=acc)
-                 for x in (xa, xb))
+    Conv2 order (``inner.conv_mxu``)."""
+    return tuple(conv_mxu(x, w) for x in (xa, xb))
 
 
 def conv2d_ip4(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor, *,

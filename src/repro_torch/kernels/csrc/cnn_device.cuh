@@ -4,15 +4,18 @@
 //   src/repro/kernels/conv2d/inner.py::accumulate_vpu   -> conv_taps_vpu,
 //       conv_part_vpu (a register tile of outputs) and conv_point_vpu
 //       (one output read from device memory)
-//   src/repro/kernels/conv2d/inner.py::accumulate_mxu   -> conv_point_mxu
+//   src/repro/kernels/conv2d/inner.py::accumulate_mxu   -> conv_taps_mxu,
+//       conv_run (a register tile of outputs) and conv_points_mxu
+//       (one output of one or two streams read from device memory)
 //   src/repro/kernels/pool2d/vpu_window.py::window_reduce -> window_reduce
 //   src/repro/kernels/activation/ref.py::_FNS            -> activate
 //
-// The standalone kernels (conv2d_ip1's tiled kernel, conv2d_ip2,
-// pool2d_window, activation_exact) and the fused conv->pool->act kernel
-// all run these functions, in the same order, so a float32 fused block
-// is bitwise equal to its three-launch chain: conv2d_ip1 feeds the
-// Conv1 body from shared memory, the fused kernel from device memory.
+// The standalone kernels (the tiled kernels of conv2d_ip1 and
+// conv2d_ip2, pool2d_window, activation_exact), Conv4 and the fused
+// conv->pool->act kernel all run these functions, in the same order, so
+// a float32 fused block is bitwise equal to its three-launch chain: the
+// tiled kernels feed the conv bodies from shared memory, the fused
+// kernel and Conv4 from device memory.
 // Two things keep that true:
 //   * every float add and multiply-add is an explicit round-to-nearest
 //     intrinsic (__fadd_rn, __fmaf_rn, __fmul_rn, __fdiv_rn), and the
@@ -24,10 +27,10 @@
 //       pool: start from the window's first element, then i-major;
 //             avg divides by kh*kw (integer avg floors, as jnp // does).
 //
-// The "mxu" order runs on CUDA cores in this version (FP32 FMA, int32
-// multiply-add for int8): Hopper has no IEEE-f32 tensor-core MMA, and
-// TF32 misses the reference tolerance.  The tensor-core redesign is a
-// later change (ROADMAP queue 2).
+// The "mxu" order runs on CUDA cores (FP32 FMA, int32 multiply-add for
+// int8): Hopper has no IEEE-f32 tensor-core MMA, and TF32 misses the
+// reference tolerance.  A 3xTF32 route would change the results of
+// conv2d_ip2, conv2d_ip4 and fused_cnn_mxu together (ROADMAP queue 2).
 //
 // Integer accumulators wrap modulo 2^32, as the reference's int32
 // accumulators do (full-range int16 taps overflow them); the sums are
@@ -177,32 +180,87 @@ __device__ __forceinline__ typename AccOf<T>::type conv_point_vpu(
   return acc[0][0];
 }
 
-// Conv2 order (inner.py::accumulate_mxu): one dot over K = (i, j, cin)
-// per output (n, oh, ow, co), for NS input streams that share each
-// weight tap: the tap is loaded once and feeds every stream's
-// accumulator.  Conv2 runs one stream, Conv4 two; each stream's sum is
-// the same chain of operations in both, so a Conv4 output is bitwise
-// equal to the Conv2 output of its stream.
+// Conv2 order (inner.py::accumulate_mxu), for a register tile of NP
+// output points x NC output channels: ONE chain per output over K =
+// (i, j, cin), starting from 0.  conv_taps_mxu runs the taps in (i, j)
+// order; tap(i, j, acc) feeds tap (i, j)'s channels into acc through
+// conv_run, in one call or in several consecutive ranges of channels.
+// KS > 0 fixes the taps at KS x KS at compile time, so the tap loops
+// unroll.  Every output is the same chain of operations whatever NP,
+// NC, KS, U and the loaders are.
+template <typename A, int NP, int NC, int KS, typename Tap>
+__device__ __forceinline__ void conv_taps_mxu(int KH, int KW, Tap tap,
+                                              A (&acc)[NP][NC]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int q = 0; q < NC; ++q) acc[p][q] = A(0);
+  }
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+#pragma unroll
+      for (int j = 0; j < KS; ++j) tap(i, j, acc);
+    }
+  } else {
+    for (int i = 0; i < KH; ++i) {
+      for (int j = 0; j < KW; ++j) tap(i, j, acc);
+    }
+  }
+}
+
+// n channels (a multiple of U) into acc, in ascending order, U at a
+// time: load(c, xv, wv) yields channels c .. c + U - 1 of the NP points'
+// inputs, xv[p][u], and of the NC channels' weights, wv[u][q].  It is
+// called once for each c in turn, so a loader may walk pointers.
+template <typename A, int NP, int NC, int U, typename Load>
+__device__ __forceinline__ void conv_run(int n, Load load,
+                                         A (&acc)[NP][NC]) {
+  for (int c = 0; c < n; c += U) {
+    A xv[NP][U], wv[U][NC];
+    load(c, xv, wv);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) {
+          acc[p][q] = mac(acc[p][q], xv[p][u], wv[u][q]);
+        }
+      }
+    }
+  }
+}
+
+// The Conv2 chain from device memory for NS input streams that share
+// each weight tap (one output channel co of pixel (n, oh, ow)): the tap
+// is loaded once and feeds every stream's accumulator.  The fused
+// kernel runs one stream, Conv4 two; each stream's sum is the chain of
+// conv2d_ip2's tiled kernel, so a Conv4 output and a fused conv value
+// are bitwise equal to the Conv2 output of their stream.
 template <typename T, int NS>
 __device__ __forceinline__ void conv_points_mxu(
     const T* const (&x)[NS], const T* __restrict__ w, const ConvShape& s,
     int n, int oh, int ow, int co, typename AccOf<T>::type (&acc)[NS]) {
   using A = typename AccOf<T>::type;
+  A tile[NS][1];
+  conv_taps_mxu<A, NS, 1, 0>(s.KH, s.KW, [&](int i, int j, A (&a)[NS][1]) {
+    // the loader walks the tap's channels in order: one pointer a
+    // stream and one for the weights, advanced a channel a call
+    const size_t xo = ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
+    const T* wq = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
+    const T* xq[NS];
 #pragma unroll
-  for (int k = 0; k < NS; ++k) acc[k] = A(0);
-  for (int i = 0; i < s.KH; ++i) {
-    for (int j = 0; j < s.KW; ++j) {
-      size_t xo = ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
-      const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
-      for (int c = 0; c < s.Cin; ++c) {
-        A wv = widen<A>(wp[size_t(c) * s.Cout]);
+    for (int k = 0; k < NS; ++k) xq[k] = x[k] + xo;
+    conv_run<A, NS, 1, 1>(s.Cin, [&](int, A (&xv)[NS][1], A (&wv)[1][1]) {
+      wv[0][0] = widen<A>(*wq);
+      wq += s.Cout;
 #pragma unroll
-        for (int k = 0; k < NS; ++k) {
-          acc[k] = mac(acc[k], widen<A>(x[k][xo + c]), wv);
-        }
-      }
-    }
-  }
+      for (int k = 0; k < NS; ++k) xv[k][0] = widen<A>(*xq[k]++);
+    }, a);
+  }, tile);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) acc[k] = tile[k][0];
 }
 
 template <typename T>

@@ -6,11 +6,11 @@
 //             mm_kernels.cu's object by nvcc -shared
 //
 // Layouts are the reference's: NHWC activations, HWIO weights, all
-// tensors contiguous.  Every kernel but Conv1's maps one thread to one
-// output element; Conv1's tiles outputs and stages its inputs in shared
-// memory.  The channel tiling hints (block_cout / block_c) shape the
-// grid and the kernels mask the ragged edge, so results never depend on
-// them.  The activations' block_rows hints are validated and do not
+// tensors contiguous.  Every kernel but Conv1's and Conv2's maps one
+// thread to one output element; those two tile outputs and stage their
+// inputs in shared memory.  The channel tiling hints (block_cout /
+// block_c) shape the grid and the kernels mask the ragged edge, so
+// results never depend on them.  The activations' block_rows hints are validated and do not
 // shape a grid.
 //
 // Kernel notes (what each replaces, what bounds it on the H100, and what
@@ -22,7 +22,7 @@
 //   block 0 (K = 27) device memory bounds it, mostly the output's
 //   writes, and at block 1 (K = 144) the FP32 rate does.  A CTA of 256
 //   threads owns th x tw output pixels of one image and 4 << glog output
-//   channels (the tile plan of kernels/conv2d/ip1_vpu.py::tile_plan).
+//   channels (the tile plan of kernels/conv2d/inner.py::tile_plan).
 //   It stages the input halo, (th + KH - 1) x (tw + KW - 1) x Cin, and
 //   every tap's weights in shared memory once, the halo's rows with
 //   16-byte cp.async where they are aligned; where that does not fit
@@ -35,14 +35,22 @@
 //   as the fused kernel computes it; KS = 3 unrolls the 3 x 3 taps.
 //   Logic-only: FFMA / IMAD, no MMA instruction.
 //
-// conv2d_kernel<T>        replaces src/repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2
+// conv2d_mxu_tiled_kernel<T, KS, WHOLE>  replaces src/repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2
 //   2*K operations per output as above; at block 1 the FP32 rate bounds
-//   it.  This version runs on CUDA cores (FMA / int32 multiply-add), one
-//   thread per output, re-reading each input window through L1/L2 once
-//   per output channel; threads of a block cover neighbouring output
-//   channels of the same pixels, so the re-reads hit cache.
-//   Shared-memory tiling and tensor cores are later work (ROADMAP
-//   queue 2).
+//   it (int8: the INT32 lanes').  Conv1's tile plan, staging and thread
+//   mapping (8 pixels x 4 channels a thread), in the Conv2 order: each
+//   output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu, as
+//   the fused kernel and Conv4 compute it).  Each thread reads a
+//   pixel's 4 next channels as one 16-byte shared load (4 bytes on int8)
+//   and the quad's weights of those 4 channels as four, so per 4
+//   channels 12 loads feed 128 multiply-adds.  The halo
+//   is staged a pixel at a time at an odd number of 16-byte chunks
+//   (pixel_pitch), so the neighbouring pixels a warp reads at once fall
+//   in different banks; the weights by 16-byte cp.async where aligned.
+//   Where the halo does not fit, each (tap, chunk of Cin) is staged in
+//   turn, taps outermost, so the chain keeps its order.  FFMA / IMAD, no
+//   MMA instruction: Hopper has no IEEE-f32 MMA and TF32 misses the
+//   reference tolerance.
 //
 // pool2d_kernel           replaces src/repro/kernels/pool2d/vpu_window.py::pool2d_window
 //   kh*kw compares or adds per output: bound by device memory.  One thread
@@ -82,9 +90,9 @@
 //   intermediates never reach device memory, which is what the fusion
 //   buys.  With the conv output's bytes gone, both served blocks are
 //   bound by the FP32 rate of their conv flops; the conv bodies are the
-//   standalone convs' (read from device memory here), so Conv1's shared-
-//   memory tiling is still to come for this kernel (ROADMAP queue 2,
-//   item 17).
+//   standalone convs' (read from device memory here), so the shared-
+//   memory tiling of Conv1 and Conv2 is still to come for this kernel
+//   (ROADMAP queue 2, item 17).
 //
 // conv2d_ip3_kernel       replaces src/repro/kernels/conv2d/ip3_packed.py::conv2d_ip3
 //   Conv3: two int8 convs sharing one weight tensor, ONE int32 multiply
@@ -145,31 +153,18 @@ __device__ __forceinline__ Slot slot(long long pixels, int channels, int bc) {
   return s;
 }
 
-template <typename T>
-__global__ void conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                              typename AccOf<T>::type* __restrict__ y, int N,
-                              ConvShape s, int Ho, int Wo, int bc) {
-  Slot t = slot((long long)N * Ho * Wo, s.Cout, bc);
-  if (!t.live) return;
-  int ow = int(t.p % Wo);
-  long long r = t.p / Wo;
-  int oh = int(r % Ho);
-  int n = int(r / Ho);
-  y[t.p * s.Cout + t.co] = conv_point_mxu<T>(x, w, s, n, oh, ow, t.co);
-}
-
 // conv2d_vpu_tiled_kernel: each thread keeps kConvPix output pixels x
 // kConvCh output channels in registers.
 constexpr int kConvPix = 8;
 constexpr int kConvCh = 4;
 
-// The tile plan of conv2d_vpu_tiled_kernel, made by the wrapper
-// (kernels/conv2d/ip1_vpu.py::tile_plan): a CTA covers 4 << glog output
+// The tile plan of the tiled conv kernels, made by the wrapper
+// (kernels/conv2d/inner.py::tile_plan): a CTA covers 4 << glog output
 // channels (2^glog channel quads) and a tile of th x 2^twlog output
 // pixels of one image ((256 >> glog) pixel lanes x kConvPix pixels);
 // input channels are staged cc at a time.  tiles_w, tiles_h and cblocks
 // count the tiles across a row, down an image and along Cout.
-struct Conv1Plan {
+struct TilePlan {
   int glog, twlog, th, cc, tiles_w, tiles_h, cblocks;
 };
 
@@ -229,14 +224,14 @@ __device__ __forceinline__ void stage_weights(T* ws, int rows, int bclog,
   }
 }
 
-// The tile of a conv2d_vpu_tiled_kernel CTA: image n, output rows
+// The tile of a tiled conv CTA: image n, output rows
 // h0 .., columns w0 .., channels co0 .. (the channel block fastest in
 // the grid, so neighbouring CTAs share their halo in L2).
-struct Conv1Tile {
+struct ConvTile {
   int n, h0, w0, co0;
 };
 
-__device__ __forceinline__ Conv1Tile conv1_tile(int tile, const Conv1Plan& pl) {
+__device__ __forceinline__ ConvTile conv_tile(int tile, const TilePlan& pl) {
   const int cb = tile % pl.cblocks;
   tile /= pl.cblocks;
   const int tx = tile % pl.tiles_w;
@@ -245,18 +240,76 @@ __device__ __forceinline__ Conv1Tile conv1_tile(int tile, const Conv1Plan& pl) {
           cb << (pl.glog + 2)};
 }
 
+// The tile pixels of pixel lane `lane` (of 256 >> glog): pixel k lies
+// at tile row pr[k], column pc[k], the lanes of a warp on neighbouring
+// columns.
+__device__ __forceinline__ void tile_pixels(const TilePlan& pl, int lane,
+                                            int (&pr)[kConvPix],
+                                            int (&pc)[kConvPix]) {
+#pragma unroll
+  for (int k = 0; k < kConvPix; ++k) {
+    const int lin = lane + k * (kThreads >> pl.glog);
+    pr[k] = lin >> pl.twlog;
+    pc[k] = lin & ((1 << pl.twlog) - 1);
+  }
+}
+
+// A thread's kConvPix pixels x kConvCh channels (channel quad cg) of the
+// tile into y, 16 bytes along Cout where Cout allows; outputs past the
+// image or past Cout are dropped.
+template <typename A>
+__device__ __forceinline__ void store_tile(A* __restrict__ y,
+                                           const ConvShape& s, int Ho,
+                                           int Wo, const ConvTile& t, int cg,
+                                           const int (&pr)[kConvPix],
+                                           const int (&pc)[kConvPix],
+                                           const A (&acc)[kConvPix][kConvCh]) {
+  const int co = t.co0 + cg * kConvCh;
+  if (co >= s.Cout) return;
+  A* yn = y + size_t(t.n) * Ho * Wo * s.Cout + co;
+  const bool quads = s.Cout % kConvCh == 0;    // then co + 3 < Cout
+#pragma unroll
+  for (int k = 0; k < kConvPix; ++k) {
+    const int oh = t.h0 + pr[k], ow = t.w0 + pc[k];
+    if (oh >= Ho || ow >= Wo) continue;
+    A* yp = yn + (size_t(oh) * Wo + ow) * s.Cout;
+    if (quads) {
+      store_quad(yp, acc[k]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kConvCh; ++q) {
+        if (co + q < s.Cout) yp[q] = acc[k][q];
+      }
+    }
+  }
+}
+
+// conv2d_mxu_tiled_kernel's pixel pitch in shared memory for n channels:
+// whole 16-byte chunks, an odd number of them, so the neighbouring
+// pixels whose 16 bytes a warp reads at once lie in different banks.
+__host__ __device__ __forceinline__ int pixel_pitch(int n, int V) {
+  const int p = round_up(n, V);
+  return (p / V) % 2 ? p : p + V;
+}
+
 // The shared-memory bytes of a tile: WHOLE, the halo then the weights;
-// else one chunk's shifted tile then its weights.
-__host__ __forceinline__ size_t conv1_smem_bytes(const ConvShape& s,
-                                                 const Conv1Plan& pl, int sz,
-                                                 bool whole) {
+// else one chunk's shifted tile then its weights.  Conv1 (kVpu) stages
+// the halo's rows as they lie, Conv2 (kMxu) each pixel at pixel_pitch.
+__host__ __forceinline__ size_t tile_smem_bytes(int style, const ConvShape& s,
+                                                const TilePlan& pl, int sz,
+                                                bool whole) {
   const int V = 16 / sz, TW = 1 << pl.twlog, bc = 4 << pl.glog;
+  const size_t wbytes = size_t(whole ? s.KH * s.KW * s.Cin : pl.cc) * bc * sz;
+  if (style == kMxu) {
+    const size_t pixels =
+        whole ? size_t(pl.th + s.KH - 1) * (TW + s.KW - 1) : size_t(pl.th) * TW;
+    return pixels * pixel_pitch(whole ? s.Cin : pl.cc, V) * sz + wbytes;
+  }
   if (whole) {
     const int rp = round_up((TW + s.KW - 1) * s.Cin, V);
-    return size_t(round_up((pl.th + s.KH - 1) * rp * sz, 16)) +
-           size_t(s.KH) * s.KW * s.Cin * bc * sz;
+    return size_t(round_up((pl.th + s.KH - 1) * rp * sz, 16)) + wbytes;
   }
-  return (size_t(pl.th) * TW * round_up(pl.cc, V) + size_t(pl.cc) * bc) * sz;
+  return size_t(pl.th) * TW * round_up(pl.cc, V) * sz + wbytes;
 }
 
 // Conv1 on shared-memory tiles, one tile a CTA.  WHOLE: the tile's input
@@ -269,25 +322,19 @@ template <typename T, int KS, bool WHOLE>
 __global__ void __launch_bounds__(kThreads)
 conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         typename AccOf<T>::type* __restrict__ y, ConvShape s,
-                        int Ho, int Wo, Conv1Plan pl) {
+                        int Ho, int Wo, TilePlan pl) {
   using A = typename AccOf<T>::type;
   using Part = A(&)[kConvPix][kConvCh];
   using Vals = A(&)[kConvPix];
   using Quad = A(&)[kConvCh];
   constexpr int V = 16 / int(sizeof(T));
   extern __shared__ __align__(16) uint8_t smem[];
-  const int TW = 1 << pl.twlog, P = kThreads >> pl.glog;
-  const int bclog = pl.glog + 2;
-  const Conv1Tile t = conv1_tile(blockIdx.x, pl);
+  const int TW = 1 << pl.twlog, bclog = pl.glog + 2;
+  const ConvTile t = conv_tile(blockIdx.x, pl);
   const int cg = threadIdx.x & ((1 << pl.glog) - 1);
   const int lane = threadIdx.x >> pl.glog;
   int pr[kConvPix], pc[kConvPix];              // pixel k: tile row, column
-#pragma unroll
-  for (int k = 0; k < kConvPix; ++k) {
-    const int lin = lane + k * P;
-    pr[k] = lin >> pl.twlog;
-    pc[k] = lin & (TW - 1);
-  }
+  tile_pixels(pl, lane, pr, pc);
   const T* xn = x + size_t(t.n) * s.H * s.W * s.Cin;
   A acc[kConvPix][kConvCh];
   if constexpr (WHOLE) {
@@ -361,24 +408,123 @@ conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
     }, acc);
   }
-  const int co = t.co0 + cg * kConvCh;
-  if (co >= s.Cout) return;
-  A* yn = y + size_t(t.n) * Ho * Wo * s.Cout + co;
-  const bool quads = s.Cout % kConvCh == 0;    // then co + 3 < Cout
+  store_tile(y, s, Ho, Wo, t, cg, pr, pc, acc);
+}
+
+// Conv2 on shared-memory tiles, one tile a CTA: the tile plan, staging
+// and thread mapping of conv2d_vpu_tiled_kernel, in the Conv2 order:
+// each output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu).
+// WHOLE: the tile's input halo over all Cin, each pixel at pixel_pitch,
+// and every tap's weights are staged in one go.  Otherwise each (tap,
+// chunk of cc input channels) is staged in turn, the taps outermost and
+// the chunks ascending, so the chain keeps its order across chunks.
+// Channels run 4 at a time where a whole quad remains (one 16-byte
+// load of a pixel's inputs, four of the quad's weights), then one at a
+// time; the order is the same.  Weight channels past Cout are not
+// staged: they feed only accumulators that are never stored.  KS = 3
+// unrolls the 3 x 3 taps.
+template <typename T, int KS, bool WHOLE>
+__global__ void __launch_bounds__(kThreads)
+conv2d_mxu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        typename AccOf<T>::type* __restrict__ y, ConvShape s,
+                        int Ho, int Wo, TilePlan pl) {
+  using A = typename AccOf<T>::type;
+  using Acc = A(&)[kConvPix][kConvCh];
+  constexpr int V = 16 / int(sizeof(T));
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int TW = 1 << pl.twlog, bclog = pl.glog + 2;
+  const ConvTile t = conv_tile(blockIdx.x, pl);
+  const int cg = threadIdx.x & ((1 << pl.glog) - 1);
+  int pr[kConvPix], pc[kConvPix];              // pixel k: tile row, column
+  tile_pixels(pl, threadIdx.x >> pl.glog, pr, pc);
+  const T* xn = x + size_t(t.n) * s.H * s.W * s.Cin;
+  const int wlen = min(4 << pl.glog, s.Cout - t.co0);   // staged channels
+  T* xs = reinterpret_cast<T*>(smem);
+  // n channels of one tap into a: the thread's pixels at xo[k] in xt,
+  // its weight quad in wt (rows 1 << bclog apart)
+  auto run = [&](int n, const T* xt, const int (&xo)[kConvPix],
+                 const T* wt, Acc a) {
+    const int n4 = n & ~3;
+    conv_run<A, kConvPix, kConvCh, 4>(n4, [&](int c, A (&xv)[kConvPix][4],
+                                              A (&wv)[4][kConvCh]) {
 #pragma unroll
-  for (int k = 0; k < kConvPix; ++k) {
-    const int oh = t.h0 + pr[k], ow = t.w0 + pc[k];
-    if (oh >= Ho || ow >= Wo) continue;
-    A* yp = yn + (size_t(oh) * Wo + ow) * s.Cout;
-    if (quads) {
-      store_quad(yp, acc[k]);
-    } else {
+      for (int k = 0; k < kConvPix; ++k) load_quad(xt + xo[k] + c, xv[k]);
 #pragma unroll
-      for (int q = 0; q < kConvCh; ++q) {
-        if (co + q < s.Cout) yp[q] = acc[k][q];
-      }
+      for (int u = 0; u < 4; ++u) load_quad(wt + ((c + u) << bclog), wv[u]);
+    }, a);
+    conv_run<A, kConvPix, kConvCh, 1>(n - n4, [&](int c, A (&xv)[kConvPix][1],
+                                                  A (&wv)[1][kConvCh]) {
+#pragma unroll
+      for (int k = 0; k < kConvPix; ++k) xv[k][0] = A(xt[xo[k] + n4 + c]);
+      load_quad(wt + ((n4 + c) << bclog), wv[0]);
+    }, a);
+  };
+  A acc[kConvPix][kConvCh];
+  if constexpr (WHOLE) {
+    const int HW = TW + s.KW - 1, pp = pixel_pitch(s.Cin, V);
+    T* ws = xs + (pl.th + s.KH - 1) * HW * pp;
+    const int cols = min(HW, s.W - t.w0);
+    stage_runs<T>(min(pl.th + s.KH - 1, s.H - t.h0) * cols, s.Cin,
+                  [&](int k) {
+                    const int r = k / cols;
+                    return xs + (r * HW + k - r * cols) * pp;
+                  },
+                  [&](int k) {
+                    const int r = k / cols;
+                    return xn + (size_t(t.h0 + r) * s.W + t.w0 + k - r * cols) *
+                                    s.Cin;
+                  });
+    stage_runs<T>(s.KH * s.KW * s.Cin, wlen,
+                  [&](int r) { return ws + (r << bclog); },
+                  [&](int r) { return w + size_t(r) * s.Cout + t.co0; });
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    int xo[kConvPix];
+#pragma unroll
+    for (int k = 0; k < kConvPix; ++k) xo[k] = (pr[k] * HW + pc[k]) * pp;
+    conv_taps_mxu<A, kConvPix, kConvCh, KS>(s.KH, s.KW, [&](int i, int j,
+                                                           Acc a) {
+      run(s.Cin, xs + (i * HW + j) * pp, xo,
+          ws + (((i * s.KW + j) * s.Cin) << bclog) + cg * kConvCh, a);
+    }, acc);
+  } else {
+    const int cs = pixel_pitch(pl.cc, V);      // a pixel's staged channels
+    T* ws = xs + (pl.th << pl.twlog) * cs;
+    int xo[kConvPix];
+#pragma unroll
+    for (int k = 0; k < kConvPix; ++k) {
+      xo[k] = ((pr[k] << pl.twlog) + pc[k]) * cs;
     }
+    const int rows = min(pl.th, Ho - t.h0), cols = min(TW, Wo - t.w0);
+    conv_taps_mxu<A, kConvPix, kConvCh, KS>(s.KH, s.KW, [&](int i, int j,
+                                                           Acc a) {
+      for (int c0 = 0; c0 < s.Cin; c0 += pl.cc) {
+        const int len = min(pl.cc, s.Cin - c0);
+        __syncthreads();                     // the last chunk is consumed
+        stage_runs<T>(rows * cols, len,
+                      [&](int k) {
+                        const int r = k / cols;
+                        return xs + ((r << pl.twlog) + k - r * cols) * cs;
+                      },
+                      [&](int k) {
+                        const int r = k / cols;
+                        return xn + (size_t(t.h0 + i + r) * s.W + t.w0 +
+                                     j + k - r * cols) * s.Cin + c0;
+                      });
+        stage_runs<T>(len, wlen, [&](int r) { return ws + (r << bclog); },
+                      [&](int r) {
+                        return w + (size_t(i * s.KW + j) * s.Cin + c0 + r) *
+                                       s.Cout + t.co0;
+                      });
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        run(len, xs, xo, ws + cg * kConvCh, a);
+      }
+    }, acc);
   }
+  store_tile(y, s, Ho, Wo, t, cg, pr, pc, acc);
 }
 
 // V: the reduce type (f32 or int32); O: the stored type.
@@ -544,54 +690,26 @@ inline unsigned blocks_for(long long items) {
   return unsigned((items + kThreads - 1) / kThreads);
 }
 
-}  // namespace cnn
-
-using namespace cnn;
-
-extern "C" {
-
-const char* cnn_error_string(int err) {
-  return cudaGetErrorString(cudaError_t(err));
-}
-
-// Conv2 (conv2d_ip2): one thread per output.
-int cnn_conv2d(int dtype, const void* x, const void* w, void* y, int N, int H,
-               int W, int Cin, int KH, int KW, int Cout, int bc,
-               void* stream) {
-  ConvShape s{H, W, Cin, KH, KW, Cout};
-  int Ho = H - KH + 1, Wo = W - KW + 1;
-  dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (Cout + bc - 1) / bc);
-  cudaStream_t st = cudaStream_t(stream);
-  if (dtype == kF32) {
-    conv2d_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)x, (const float*)w, (float*)y, N, s, Ho, Wo, bc);
-  } else if (dtype == kI8) {
-    conv2d_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-        (const int8_t*)x, (const int8_t*)w, (int32_t*)y, N, s, Ho, Wo, bc);
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
-}
-
-// Conv1 (conv2d_ip1) on the tile plan (glog, twlog, th, cc, whole) of
-// kernels/conv2d/ip1_vpu.py::tile_plan.
-int cnn_conv1(int dtype, const void* x, const void* w, void* y, int N, int H,
-              int W, int Cin, int KH, int KW, int Cout, int glog, int twlog,
-              int th, int cc, int whole, void* stream) {
+// Conv1 (style kVpu) or Conv2 (kMxu) on the tile plan (glog, twlog, th,
+// cc, whole) of kernels/conv2d/inner.py::tile_plan.
+int conv_tiled(int style, int dtype, const void* x, const void* w, void* y,
+               int N, int H, int W, int Cin, int KH, int KW, int Cout,
+               int glog, int twlog, int th, int cc, int whole, void* stream) {
   if (glog < 0 || glog > 3 || twlog < 0 || twlog > 5 || th < 1 ||
       (th << twlog) != (kThreads >> glog) * kConvPix || cc < 1 || cc > Cin ||
-      (whole && cc != Cin) || (dtype != kF32 && dtype != kI8)) {
+      (whole && cc != Cin) || (dtype != kF32 && dtype != kI8) ||
+      (style != kVpu && style != kMxu)) {
     return int(cudaErrorInvalidValue);
   }
   ConvShape s{H, W, Cin, KH, KW, Cout};
   const int Ho = H - KH + 1, Wo = W - KW + 1, TW = 1 << twlog;
   const int bc = 4 << glog;
-  Conv1Plan pl{glog, twlog, th, cc, (Wo + TW - 1) / TW, (Ho + th - 1) / th,
+  TilePlan pl{glog, twlog, th, cc, (Wo + TW - 1) / TW, (Ho + th - 1) / th,
                (Cout + bc - 1) / bc};
   const long long ctas = (long long)N * pl.tiles_h * pl.tiles_w * pl.cblocks;
   if (ctas > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  const size_t bytes = conv1_smem_bytes(s, pl, dtype == kF32 ? 4 : 1, whole);
+  const size_t bytes =
+      tile_smem_bytes(style, s, pl, dtype == kF32 ? 4 : 1, whole);
   cudaStream_t st = cudaStream_t(stream);
   auto run = [&](auto kernel, auto xp, auto yp) {
     if (bytes > 48 * 1024) {
@@ -607,18 +725,48 @@ int cnn_conv1(int dtype, const void* x, const void* w, void* y, int N, int H,
     return int(cudaGetLastError());
   };
   const bool k3 = KH == 3 && KW == 3;
-#define CNN_CONV1(T)                                                        \
+#define CNN_TILED(T, K)                                                     \
   {                                                                         \
     using A = AccOf<T>::type;                                               \
     const T* xp = (const T*)x;                                              \
     A* yp = (A*)y;                                                          \
-    if (!whole) return run(conv2d_vpu_tiled_kernel<T, 0, false>, xp, yp);   \
-    if (k3) return run(conv2d_vpu_tiled_kernel<T, 3, true>, xp, yp);        \
-    return run(conv2d_vpu_tiled_kernel<T, 0, true>, xp, yp);                \
+    if (!whole) return run(K<T, 0, false>, xp, yp);                         \
+    if (k3) return run(K<T, 3, true>, xp, yp);                              \
+    return run(K<T, 0, true>, xp, yp);                                      \
   }
-  if (dtype == kF32) CNN_CONV1(float)
-  CNN_CONV1(int8_t)
-#undef CNN_CONV1
+  if (style == kVpu) {
+    if (dtype == kF32) CNN_TILED(float, conv2d_vpu_tiled_kernel)
+    CNN_TILED(int8_t, conv2d_vpu_tiled_kernel)
+  }
+  if (dtype == kF32) CNN_TILED(float, conv2d_mxu_tiled_kernel)
+  CNN_TILED(int8_t, conv2d_mxu_tiled_kernel)
+#undef CNN_TILED
+}
+
+}  // namespace cnn
+
+using namespace cnn;
+
+extern "C" {
+
+const char* cnn_error_string(int err) {
+  return cudaGetErrorString(cudaError_t(err));
+}
+
+// Conv2 (conv2d_ip2) on the tile plan of tile_plan(style="mxu").
+int cnn_conv2d(int dtype, const void* x, const void* w, void* y, int N, int H,
+               int W, int Cin, int KH, int KW, int Cout, int glog, int twlog,
+               int th, int cc, int whole, void* stream) {
+  return conv_tiled(kMxu, dtype, x, w, y, N, H, W, Cin, KH, KW, Cout, glog,
+                    twlog, th, cc, whole, stream);
+}
+
+// Conv1 (conv2d_ip1) on the tile plan of tile_plan(style="vpu").
+int cnn_conv1(int dtype, const void* x, const void* w, void* y, int N, int H,
+              int W, int Cin, int KH, int KW, int Cout, int glog, int twlog,
+              int th, int cc, int whole, void* stream) {
+  return conv_tiled(kVpu, dtype, x, w, y, N, H, W, Cin, KH, KW, Cout, glog,
+                    twlog, th, cc, whole, stream);
 }
 
 int cnn_pool2d(int dtype, int mode, const void* x, void* y, int N, int H,

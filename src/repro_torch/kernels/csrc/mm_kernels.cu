@@ -6,21 +6,28 @@
 //
 // Built with the flags of cnn_kernels.cu (-fmad=false), which shares its
 // arithmetic helpers (cnn_device.cuh: widen, mac).  a (M, K) and b (K, N)
-// are row-major and contiguous, of one dtype: f32 or bf16 (f32
-// accumulator, bf16 widened exactly on load) or int8 (int32 accumulator,
-// wrapping).  Every output is ONE sequential multiply-add chain over
+// are row-major, of one dtype: f32 or bf16 (f32 accumulator, bf16
+// widened exactly on load) or int8 (int32 accumulator, wrapping).  Every output is ONE sequential multiply-add chain over
 // k = 0 .. K-1 (explicit __fmaf_rn for floats), so results never depend
 // on the tiling, and f32 mm_mxu and mm_vpu agree bitwise.  The
 // reference's block hints (bm, bn, bk) are TPU VMEM tiling: the wrappers
 // validate them and they do not shape these launches.
 //
-// mm_mxu_kernel<float>  replaces src/repro/kernels/matmul/mxu.py::mm_mxu
+// mm_mxu_f32_kernel  replaces src/repro/kernels/matmul/mxu.py::mm_mxu
 //   on f32.  2*M*N*K operations on M*K + K*N inputs: at the FFN shapes of
-//   the chip run (512 x 2048 x 8192) the FP32 rate bounds it.  A 128x128
-//   CTA tile, K staged 8 deep in shared memory, 256 threads each holding
-//   an 8x8 register tile, rows ty + 16r and columns tx + 16q so shared
-//   loads and global stores are conflict-free and coalesced.  FP32 FMA:
-//   Hopper has no IEEE-f32 MMA, and TF32 misses the reference tolerance.
+//   the chip run (512 x 2048 x 8192) the FP32 rate bounds it.  A 128 x 256
+//   CTA tile (the FFN is 128 CTAs, one wave on 132 SMs, one CTA an SM)
+//   stages 32 k a step of a (k-contiguous rows, as it lies) and of b (as
+//   it lies) through a 3-stage cp.async ring, so the loads of later
+//   steps overlap this step's multiply-adds.  Each of the 256 threads
+//   keeps an 8 x 16 register tile (rows ty + 16 r, columns 4 tx + 64 h
+//   + 0..3): per 4 k it reads its 8 a rows as one 16-byte load each and
+//   per k its 16 b columns as four 16-byte loads (a quarter-warp reads
+//   one a address or 128 contiguous bytes of b: no bank conflict),
+//   b's next k while this k's 128 FMAs issue: 24 shared loads per 512
+//   FMAs.  FP32 FMA: Hopper has no IEEE-f32 MMA, and TF32 misses the
+//   reference tolerance; a 3xTF32 route would move mm_mxu and _mm_dual
+//   together.
 //
 // mm_vpu_kernel<T>  replaces src/repro/kernels/matmul/mxu.py::mm_vpu
 //   The logic-only member: no MMA instruction, FFMA (f32, bf16 widened
@@ -40,15 +47,17 @@
 // mm_dual_kernel<float>  replaces src/repro/kernels/matmul/dual.py::
 //   _mm_dual (mm_dual_full) on f32.  Two a streams against one b: 4*M*N*K
 //   operations on 2*M*K + K*N inputs and two (M, N) outputs, bound by
-//   the FP32 rate.  mm_mxu's tile body with two a tiles and ONE b tile
-//   staged per k-step, both streams reading it: the weights cross device
-//   memory once for two outputs, as in the reference.  Two 8x8 register
-//   tiles would be 128 accumulators a thread, so each stream keeps 8x4 (a
-//   128 x 64 CTA tile); each output is still mm_mxu's chain, so each
-//   stream equals an mm_mxu launch bitwise.
+//   the FP32 rate.  K staged 8 deep in shared memory, two a tiles
+//   (transposed) and ONE b tile per k-step, both streams reading it: the
+//   weights cross device memory once for two outputs, as in the
+//   reference.  Two 8x8 register tiles would be 128 accumulators a
+//   thread, so each stream keeps 8x4 (a 128 x 64 CTA tile); each output
+//   is still mm_mxu's chain, so each stream equals an mm_mxu launch
+//   bitwise.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "cnn_device.cuh"
 #include "tc_device.cuh"
@@ -73,7 +82,7 @@ constexpr int kReg = kTile / kSide;   // 8x8 outputs per thread
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<int8_t> { using type = int32_t; };
 
-// The tile body of mm_mxu_kernel and mm_dual_kernel: NS streams a[s]
+// The tile body of mm_dual_kernel: NS streams a[s]
 // (M, K) against one b (K, N) into c[s].  The CTA owns kTile rows and
 // kSide * QN columns; per k-step it stages each stream's a tile
 // (transposed, widened) and ONE b tile in shared memory, and every
@@ -152,15 +161,6 @@ __device__ __forceinline__ void mm_tiles(
       }
     }
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kSide * kSide)
-mm_mxu_kernel(const T* __restrict__ a, const T* __restrict__ b,
-              typename Acc<T>::type* __restrict__ c, int M, int N, int K) {
-  const T* const src[1] = {a};
-  typename Acc<T>::type* const dst[1] = {c};
-  mm_tiles<T, 1, kReg>(src, b, dst, M, N, K);
 }
 
 // Two streams of kReg x kDualCols outputs each per thread (64
@@ -350,11 +350,179 @@ mm_vpu_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-int launch_mxu(const void* a, const void* b, void* c, int M, int N, int K,
-               cudaStream_t st) {
-  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  mm_mxu_kernel<float><<<grid, kSide * kSide, 0, st>>>(
-      (const float*)a, (const float*)b, (float*)c, M, N, K);
+// mm_mxu_f32_kernel's tile: 128 x 256 outputs a CTA of 256 threads, each
+// thread 8 rows (ty + 16 r) x 16 columns (4 tx + 64 h + e, h < 4, e < 4).
+// Per k-step the CTA stages 32 k: a (128 rows of 128 bytes, as it lies)
+// and b (32 rows of 256 columns, as it lies), 48 KB, in a ring of
+// kMxuStages stages filled by cp.async.
+constexpr int kMxuRows = 128;
+constexpr int kMxuCols = 256;
+constexpr int kMxuThreads = 256;
+constexpr int kMxuStepK = 32;                          // K a k-step
+constexpr int kMxuStages = 3;
+constexpr int kMxuAChunks = kMxuStepK / 4;             // 16 bytes a row
+constexpr int kMxuBChunks = kMxuCols / 4;
+constexpr int kMxuABytes = kMxuRows * kMxuStepK * 4;   // 16 KB
+constexpr int kMxuBBytes = kMxuStepK * kMxuCols * 4;   // 32 KB
+constexpr int kMxuStageBytes = kMxuABytes + kMxuBBytes;
+constexpr int kMxuSmem = kMxuStages * kMxuStageBytes;  // 144 KB
+
+// f32 a (M, K) with rows lda apart and b (K, N) with rows ldb apart; lda
+// and ldb are multiples of 4 elements and both bases 16-byte aligned
+// (the wrapper pads where they are not).  Only the live depth K is
+// summed, k = 0 .. K-1 in order from +0 for every output.
+__global__ void __launch_bounds__(kMxuThreads, 1)
+mm_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ c, int M, int N, int K, int lda,
+                  int ldb) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int m0 = blockIdx.y * kMxuRows, n0 = blockIdx.x * kMxuCols;
+  const int steps = (K + kMxuStepK - 1) / kMxuStepK;
+  const uint32_t base = smem_u32(smem);
+
+  auto load = [&](int stage, int step) {
+    const uint32_t sa = base + stage * kMxuStageBytes, sb = sa + kMxuABytes;
+    const int k0 = step * kMxuStepK;
+#pragma unroll
+    for (int j = 0; j < kMxuRows * kMxuAChunks / kMxuThreads; ++j) {   // a
+      const int e = t + kMxuThreads * j, r = e / kMxuAChunks;
+      const int ch = e % kMxuAChunks;
+      const int gm = m0 + r, gk = k0 + ch * 4;
+      const bool ok = gm < M && gk < K;
+      cp_async16(sa + r * (kMxuStepK * 4) + ch * 16,
+                 ok ? a + size_t(gm) * lda + gk : a, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < kMxuStepK * kMxuBChunks / kMxuThreads; ++j) {  // b
+      const int e = t + kMxuThreads * j, r = e / kMxuBChunks;
+      const int ch = e % kMxuBChunks;
+      const int gk = k0 + r, gn = n0 + ch * 4;
+      const bool ok = gk < K && gn < ldb;
+      cp_async16(sb + r * (kMxuCols * 4) + ch * 16,
+                 ok ? b + size_t(gk) * ldb + gn : b, ok);
+    }
+  };
+
+  float acc[8][16];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) acc[r][q] = 0.0f;
+  }
+  // depth k of the staged step: 32 FULL, else the live remainder (a
+  // padded zero term could flip the sign of a zero sum, and results must
+  // not depend on the tiling).  Per 4 k each thread reads its 8 a rows
+  // as one 16-byte load each and, per k, its 16 b columns as four; b's
+  // next k is read while this k's 128 multiply-adds issue.
+  auto step_body = [&](const uint8_t* st, int depth, auto full) {
+    constexpr bool kFull = decltype(full)::value;
+    const float* sa = reinterpret_cast<const float*>(st);
+    const float* sb =
+        reinterpret_cast<const float*>(st + kMxuABytes) + 4 * tx;
+    float bv[2][16];
+    auto load_b = [&](int k, float (&v)[16]) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(sb + k * kMxuCols + 64 * h);
+        v[4 * h] = x.x; v[4 * h + 1] = x.y; v[4 * h + 2] = x.z;
+        v[4 * h + 3] = x.w;
+      }
+    };
+    auto load_a = [&](int ch, float4 (&af)[8]) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        af[r] = *reinterpret_cast<const float4*>(
+            sa + (ty + 16 * r) * kMxuStepK + ch * 4);
+      }
+    };
+    float4 af[8];
+    load_b(0, bv[0]);
+    load_a(0, af);
+    // 4 k of a's 16-byte runs: kk indexes bv, as ch * 4 is even
+    auto one_ch = [&](int ch) {
+      if (ch > 0) load_a(ch, af);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = ch * 4 + kk;
+        if (!kFull && k >= depth) break;
+        if (k + 1 < kMxuStepK && (kFull || k + 1 < depth)) {
+          load_b(k + 1, bv[(kk + 1) % 2]);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float av = (&af[r].x)[kk];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            acc[r][q] = __fmaf_rn(av, bv[kk % 2][q], acc[r][q]);
+          }
+        }
+      }
+    };
+#pragma unroll
+    for (int ch = 0; ch < kMxuStepK / 4; ++ch) {
+      if (!kFull && ch * 4 >= depth) break;
+      one_ch(ch);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kMxuStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kMxuStages - 2>();
+    __syncthreads();                         // the stage landed for all;
+    const int pre = step + kMxuStages - 1;   // the one read last is free
+    if (pre < steps) load(pre % kMxuStages, pre);
+    cp_async_commit();
+    const uint8_t* st = smem + (step % kMxuStages) * kMxuStageBytes;
+    const int depth = min(kMxuStepK, K - step * kMxuStepK);
+    if (depth == kMxuStepK) {
+      step_body(st, depth, std::true_type{});
+    } else {
+      step_body(st, depth, std::false_type{});
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+
+  const bool quads = N % 4 == 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int gm = m0 + ty + 16 * r;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int gn = n0 + 4 * tx + 64 * h;
+      float* p = c + size_t(gm) * N + gn;
+      const float v[4] = {acc[r][4 * h], acc[r][4 * h + 1],
+                          acc[r][4 * h + 2], acc[r][4 * h + 3]};
+      if (quads && gn < N) {
+        store4(p, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (gn + e < N) p[e] = v[e];
+        }
+      }
+    }
+  }
+}
+
+int launch_mxu_f32(const void* a, const void* b, void* c, int M, int N, int K,
+                   int lda, int ldb, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mm_mxu_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMxuSmem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();              // clear it: no later launch reads it
+    return int(err);
+  }
+  dim3 grid((N + kMxuCols - 1) / kMxuCols, (M + kMxuRows - 1) / kMxuRows);
+  mm_mxu_f32_kernel<<<grid, kMxuThreads, kMxuSmem, st>>>(
+      (const float*)a, (const float*)b, (float*)c, M, N, K, lda, ldb);
   return int(cudaGetLastError());
 }
 
@@ -391,14 +559,14 @@ extern "C" {
 
 // mm_vpu on f32, bf16 or int8; mm_mxu on f32 (int8 and bf16 run on
 // mm_tc_kernels.cu's tensor-core kernels).  a's rows lie lda apart and
-// b's ldb apart (mm_mxu: lda == K, ldb == N); mm_vpu takes lda and ldb
-// in multiples of 16 bytes and 16-byte aligned bases.
+// b's ldb apart, in multiples of 16 bytes, and both bases are 16-byte
+// aligned.
 int cnn_matmul(int style, int dtype, const void* a, const void* b, void* c,
                int M, int N, int K, int lda, int ldb, void* stream) {
   cudaStream_t st = cudaStream_t(stream);
   if (style == mm::kMxu) {
-    return dtype == mm::kF32 && lda == K && ldb == N
-               ? mm::launch_mxu(a, b, c, M, N, K, st)
+    return dtype == mm::kF32
+               ? mm::launch_mxu_f32(a, b, c, M, N, K, lda, ldb, st)
                : int(cudaErrorInvalidValue);
   }
   if (style != mm::kVpu) return int(cudaErrorInvalidValue);

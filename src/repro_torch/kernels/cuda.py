@@ -46,7 +46,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cnn_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cnn_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P),
     "cnn_conv1": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _P),
     "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -27,9 +27,9 @@ from repro_torch.core.resources import (Footprint, cost_cycles,
 from repro_torch.kernels import cuda
 from repro_torch.kernels.activation.ref import _FNS, KINDS
 from repro_torch.kernels.activation.vpu_exact import OP_COST
-from repro_torch.kernels.conv2d.inner import (STYLE_CODE, accumulate_mxu,
-                                              accumulate_vpu, check_block,
-                                              check_conv_operands)
+from repro_torch.kernels.conv2d.inner import (STYLE_CODE, accumulate_vpu,
+                                              check_block,
+                                              check_conv_operands, conv_mxu)
 from repro_torch.kernels.pool2d.ref import MODES, check_pool_geometry
 from repro_torch.kernels.pool2d.vpu_window import MODE_CODE, window_reduce
 
@@ -58,7 +58,7 @@ def fused_cnn_plain(style, x, w, scale=None, *, pool_window=(2, 2),
         acc = accumulate_vpu(x.to(acc_dtype), w, ho=co_h, wo=co_w,
                              acc_dtype=acc_dtype)
     else:
-        acc = accumulate_mxu(x, w, ho=co_h, wo=co_w, acc_dtype=acc_dtype)
+        acc = conv_mxu(x, w)
     if scale is not None:
         acc = acc.to(torch.float32) * _scale_vector(scale, cout, acc.device)
     pool_acc = torch.float32 if acc.is_floating_point() else torch.int32

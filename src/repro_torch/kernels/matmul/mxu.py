@@ -16,9 +16,11 @@ is 128 CTAs on 132 SMs and reads b from device memory about once.  The
 tiles in shared memory as they lie and transposes them there into the
 layout ``wgmma`` reads; bf16 b goes in as it lies and ``wgmma``
 transposes it.  On f32 operands it
-stays on CUDA cores (``mm_mxu_kernel`` in ``csrc/mm_kernels.cu``, FP32
-FMA into an 8x8 register tile a thread): Hopper has no IEEE-f32 MMA, and
-TF32 misses the reference tolerance.
+stays on CUDA cores (``mm_mxu_f32_kernel`` in ``csrc/mm_kernels.cu``):
+a 128 x 256 CTA tile fed by a 4-stage cp.async ring of (128, 16) a and
+(16, 256) b tiles, and an 8 x 16 register tile a thread read with
+16-byte shared loads, so FP32 FMAs take most issue slots.  Hopper has no
+IEEE-f32 MMA, and TF32 misses the reference tolerance.
 
 ``mm_vpu`` is the Conv1 analogue: no dot — it multiplies and sums
 along K on CUDA cores and issues no MMA instruction (the logic-only
@@ -29,10 +31,9 @@ reference holds its blocks in VMEM, and keeps an 8x8 register tile a
 thread.
 
 Where the reference pads its operands to block multiples and crops, the
-CUDA-core kernels check bounds, and the tensor-core route and ``mm_vpu``
-zero-pad K and b's row stride to 16 bytes (``pad_tc_operands``, a
-layout step; the tensor-core zeros add exact +0 terms, and ``mm_vpu``
-sums only the live depth) and mask the ragged edge.  Results never
+kernels zero-pad K and b's row stride to 16 bytes (``pad_tc_operands``,
+a layout step; the tensor-core zeros add exact +0 terms, and the
+CUDA-core kernels sum only the live depth) and mask the ragged edge.  Results never
 depend on ``bm/bn/bk`` (validated, not shaping the launch); int8 results
 are exact, so ``mm_mxu`` and ``mm_vpu`` agree bitwise on int8, and on f32
 (one sequential multiply-add chain over K in both).  The plain versions
@@ -96,8 +97,8 @@ def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def pad_tc_operands(streams, b: torch.Tensor):
-    """The operands as the tensor-core kernels and ``mm_vpu``'s take
-    them: K (the streams' columns, b's rows) and b's columns rounded up
+    """The operands as the tensor-core kernels and the cp.async-staged
+    CUDA-core ones (``mm_mxu`` f32, ``mm_vpu``) take them: K (the streams' columns, b's rows) and b's columns rounded up
     to 16 bytes, each base 16-byte aligned; zero-padded copies where
     needed, the operands themselves where not.  The zeros add exact +0 terms, and the kernel
     writes only the true (M, N): a plain product of the padded operands
@@ -124,14 +125,12 @@ def _launch(counter: str, style: str, a: torch.Tensor,
     if out.numel() == 0:
         return out
     code = cuda.DTYPE_CODE[a.dtype]
+    (a,), b = pad_tc_operands((a,), b)   # every route stages 16-byte rows
     if entry == "cnn_matmul":
-        if style == "vpu":           # cp.async stages: 16-byte rows
-            (a,), b = pad_tc_operands((a,), b)
         cuda.launch(counter, entry, a.device, STYLE_CODE[style], code,
                     a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
                     a.shape[1], b.shape[1])
     else:
-        (a,), b = pad_tc_operands((a,), b)
         cuda.launch(counter, entry, a.device, code, a.data_ptr(),
                     b.data_ptr(), out.data_ptr(), m, n, a.shape[1],
                     b.shape[1])

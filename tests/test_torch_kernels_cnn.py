@@ -30,6 +30,7 @@ from repro.kernels.pool2d import vpu_window as j_pool
 from repro_torch.kernels.activation import lut_poly as t_lut
 from repro_torch.kernels.activation import vpu_exact as t_act
 from repro_torch.kernels.activation.ops import activation as t_activation
+from repro_torch.kernels.conv2d import inner as t_inner
 from repro_torch.kernels.conv2d import ip1_vpu as t_ip1
 from repro_torch.kernels.conv2d import ip2_mxu as t_ip2
 from repro_torch.kernels.conv2d import ip3_packed as t_ip3
@@ -193,6 +194,132 @@ def test_conv1_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
         np.testing.assert_allclose(_np(got), want, **F32)
     else:
         np.testing.assert_array_equal(_np(got), want)
+
+
+def _conv2_tiles(x, w, plan, acc_dtype):
+    """``conv2d_mxu_tiled_kernel``'s decomposition on the CPU: each tile
+    of ``plan`` computed only from what the kernel stages for it (the
+    input halo, each pixel at ``inner.pixel_pitch``, or per (tap, chunk)
+    the shifted tile's chunk of channels), in the Conv2 order: ONE chain
+    per output over (i, j, cin) from 0 in ``acc_dtype``, the taps
+    outermost and the chunks ascending, 4 channels a load where a whole
+    quad remains, then one at a time.  Returns the output and the number
+    of tiles that wrote each output."""
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = h - kh + 1, w_ - kw + 1
+    vec = 16 // x.element_size()
+    xa, wa = x.to(acc_dtype), w.to(acc_dtype)
+    y = torch.zeros((n, ho, wo, cout), dtype=acc_dtype)
+    hits = torch.zeros((n, ho, wo, cout), dtype=torch.int32)
+    chunks = [(c, min(c + plan.cc, cin)) for c in range(0, cin, plan.cc)]
+    assert plan.whole == (chunks == [(0, cin)] and plan.cc == cin)
+    # a staged pixel: whole 16-byte chunks, an odd number of them, and
+    # every 4-channel load lies on a 16-byte (f32) or 4-byte (int8) step
+    pitch = t_inner.pixel_pitch(plan.cc, vec)
+    assert pitch >= plan.cc and pitch % vec == 0 and (pitch // vec) % 2
+    assert all(ca % 4 == 0 for ca, _ in chunks)
+    tiles = [(h0, w0, c0) for h0 in range(0, ho, plan.th)
+             for w0 in range(0, wo, plan.tw)
+             for c0 in range(0, cout, plan.bc)]
+    for b in range(n):
+        for h0, w0, c0 in tiles:
+            r, c, q = (min(plan.th, ho - h0), min(plan.tw, wo - w0),
+                       min(plan.bc, cout - c0))
+            halo = xa[b, h0:h0 + plan.th + kh - 1, w0:w0 + plan.tw + kw - 1]
+            acc = torch.zeros((r, c, q), dtype=acc_dtype)
+            for i in range(kh):
+                for j in range(kw):
+                    for ca, cb in chunks:
+                        if plan.whole:
+                            box = halo[i:i + r, j:j + c, ca:cb]
+                        else:
+                            box = xa[b, h0 + i:h0 + i + r, w0 + j:w0 + j + c,
+                                     ca:cb]
+                        # the staged box holds every input the windows read
+                        assert box.shape == (r, c, cb - ca)
+                        n4 = (cb - ca) // 4 * 4
+                        runs = [range(k0, k0 + 4) for k0 in range(0, n4, 4)]
+                        runs += [range(k, k + 1) for k in range(n4, cb - ca)]
+                        for run in runs:
+                            for k in run:
+                                acc = acc + (box[..., k, None]
+                                             * wa[i, j, ca + k, c0:c0 + q])
+            y[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] = acc
+            hits[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] += 1
+    return y, hits
+
+
+# CONV1_PLANS' cases, a whole halo read 4 channels a load (Cin 16, Cout
+# 32) and chunks whose last one ends in a partial quad (Cin 22)
+CONV2_PLANS = CONV1_PLANS + [((2, 9, 12, 16), (3, 3, 16, 32), 128, None),
+                             ((1, 7, 9, 22), (3, 3, 22, 5), 128, 2048)]
+CONV2_IDS = CONV1_IDS + ["cin16-quads", "chunked-tail"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("xs,ws,block_cout,smem", CONV2_PLANS,
+                         ids=CONV2_IDS)
+def test_conv2_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
+    """The tiled Conv2 kernel's plan covers every output exactly once,
+    each tile's staged inputs cover its windows, and the tile-by-tile
+    chain over (i, j, cin) is bitwise equal to the plain chain: in f32
+    (the kernels' accumulator) to ``inner.accumulate_mxu``'s, and to
+    ``conv2d_ip2_plain`` (f64 for floats, int32 for int8), which matches
+    the reference's kernel."""
+    if dtype == "float32":
+        x, w = _randn(rng, xs), _randn(rng, ws)
+    else:
+        x, w = _randint8(rng, xs), _randint8(rng, ws)
+    (jx, tx), (jw, tw) = _both(x), _both(w)
+    n, h, w_, cin = xs
+    kh, kw, _, cout = ws
+    kwargs = {} if smem is None else dict(smem_bytes=smem)
+    size = tx.element_size()
+    plan = t_inner.tile_plan(h, w_, cin, kh, kw, cout, itemsize=size,
+                             block_cout=block_cout, style="mxu", **kwargs)
+    assert plan.th * plan.tw == (t_inner.THREADS >> plan.glog) * t_inner.PIXELS
+    assert plan.bc <= t_inner.QUAD * t_inner.MAX_QUADS
+    # a small budget cuts Cin into chunks (the default may too: Conv2's
+    # padded pixels make the 128-row tile of cin5-k1-bc4 exceed it)
+    assert not plan.whole if smem is not None else True
+    staged = t_inner.tile_smem_bytes(plan, kh, kw, cin, itemsize=size,
+                                     style="mxu")
+    budget = t_inner.SMEM_BYTES if smem is None else smem
+    if not plan.whole:
+        assert plan.cc < cin and plan.cc % (16 // size) == 0
+    assert staged <= budget or plan.cc == 16 // size
+    if dtype == "float32":
+        f32, hits = _conv2_tiles(tx, tw, plan, torch.float32)
+        assert (hits == 1).all()
+        assert torch.equal(f32, t_inner.accumulate_mxu(
+            tx, tw, ho=h - kh + 1, wo=w_ - kw + 1, acc_dtype=torch.float32))
+        got = _conv2_tiles(tx, tw, plan, torch.float64)[0].float()
+    else:
+        got, hits = _conv2_tiles(tx, tw, plan, torch.int32)
+        assert (hits == 1).all()
+    assert torch.equal(got, t_ip2.conv2d_ip2_plain(tx, tw))
+    want = _np(j_ip2.conv2d_ip2(jx, jw))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, **F32)
+    else:
+        np.testing.assert_array_equal(_np(got), want)
+
+
+def test_tile_plan_styles_share_the_cut():
+    """Conv1 and Conv2 cut a conv into the same CTAs; only the shared
+    memory a tile stages differs, and ``ip1_vpu.tile_plan`` is the shared
+    plan under its old name."""
+    assert t_ip1.tile_plan is t_inner.tile_plan
+    for h, w, cin, k, cout, size in ((224, 224, 3, 3, 16, 4),
+                                     (111, 111, 16, 3, 32, 4),
+                                     (111, 111, 16, 3, 32, 1),
+                                     (12, 20, 600, 3, 7, 4)):
+        vpu, mxu = (t_inner.tile_plan(h, w, cin, k, k, cout, itemsize=size,
+                                      style=style) for style in ("vpu", "mxu"))
+        assert (vpu.glog, vpu.twlog, vpu.th) == (mxu.glog, mxu.twlog, mxu.th)
+    with pytest.raises(ValueError, match="unknown style"):
+        t_inner.tile_plan(8, 8, 3, 3, 3, 4, itemsize=4, style="dual")
 
 
 # --------------------------------------------------------------------------

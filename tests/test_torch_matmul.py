@@ -161,19 +161,21 @@ PAD_SHAPES = [(300, 1000, 520), (1, 17, 3), (0, 16, 8), (64, 96, 48),
 PAD_IDS = ["300x1000x520", "1x17x3", "0x16x8", "64x96x48", "5x0x7"]
 
 
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
 @pytest.mark.parametrize("shape", PAD_SHAPES, ids=PAD_IDS)
 def test_pad_tc_operands_then_crop_equals_unpadded(rng, shape, dtype):
-    """K and b's row stride padded to 16 bytes with zeros; a plain
-    product of the padded operands cropped to (M, N) equals the unpadded
-    one: exactly for int8, and for bf16 (f32 products) within
-    ``rtol=1e-5, atol=1e-6``, since the CPU BLAS may block the padded
-    shape differently."""
+    """K and b's row stride padded to 16 bytes with zeros (the layout
+    step of the tensor-core route and of the cp.async-staged CUDA-core
+    kernels, f32 ``mm_mxu`` and ``mm_vpu``); a plain product of the
+    padded operands cropped to (M, N) equals the unpadded one: exactly
+    for int8, and for bf16 and f32 (f32 products) within ``rtol=1e-5,
+    atol=1e-6``, since the CPU BLAS may block the padded shape
+    differently."""
     m, k, n = shape
     if dtype == "int8":
         a1, a2, b = (_int8(rng, s)[1] for s in ((m, k), (m, k), (k, n)))
     else:
-        a1, a2, b = (_normal(rng, s)[1].to(torch.bfloat16)
+        a1, a2, b = (_normal(rng, s)[1].to(getattr(torch, dtype))
                      for s in ((m, k), (m, k), (k, n)))
     align = 16 // b.element_size()
     kp, np_ = -(-k // align) * align, -(-n // align) * align
@@ -281,6 +283,29 @@ def test_chip_smoke_holds_the_tensor_core_kernels():
     assert smoke.mm_row("mm_vpu", torch.int8) == "mm_vpu (int8)"
     assert smoke.mm_row("mm_vpu", torch.bfloat16) == "mm_vpu (bf16)"
     assert smoke.mm_row("mm_vpu", torch.float32) == "mm_vpu"
+
+
+def test_chip_smoke_names_every_kernel():
+    """Every row of ``chip_smoke.py``'s kernels line names the CUDA
+    kernels it times (``KERNEL``), each defined in the row's source:
+    f32 ``mm_mxu`` on ``mm_mxu_f32_kernel`` and ``conv2d_ip2`` on
+    ``conv2d_mxu_tiled_kernel``, both in the CUDA-core sources."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(smoke.KERNEL) == set(smoke.REPLACES)
+    for row, names in smoke.KERNEL.items():
+        src = (root / smoke.SOURCE[row]).read_text()
+        for kernel in names.split(", "):
+            assert re.search(rf"(\b{kernel}\(|MM_TC_KERNEL\({kernel},)",
+                             src), (row, kernel)
+    assert smoke.KERNEL["mm_mxu"] == "mm_mxu_f32_kernel"
+    assert smoke.KERNEL["conv2d_ip2"] == "conv2d_mxu_tiled_kernel"
+    assert smoke.SOURCE["conv2d_ip2"] == smoke.CSRC
 
 
 # --------------------------------------------------------------------------
