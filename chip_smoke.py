@@ -15,7 +15,11 @@ and prints no result):
    three-launch chain, and results independent of the tiling hints;
    the tiled ``conv2d_ip1`` and ``conv2d_ip2`` also at the ragged shapes
    of ``CONV_RAGGED`` (f32 and int8, any ``block_cout``, fused == chain
-   for both styles);
+   for both styles); ``conv2d_ip4`` (``conv2d_ip2``'s tiled kernel with two
+   streams) at ``CONV_RAGGED`` and both block shapes on f32, int8, int16
+   and bf16, ``block_cout`` 1/5/16/128, one launch a call, integers exact
+   and floats within ``rtol=1e-4, atol=1e-5`` of the plain version, f32
+   and int8 streams bitwise equal to ``conv2d_ip2`` launches;
 4. serve  — ``AdaptiveServer(device="cuda")`` with the default CNN
    frontend answers 8 seeded 224x224x3 requests through the fused plan
    (launch counters reset just before and read just after), a
@@ -72,14 +76,18 @@ and prints no result):
    against the plain versions (int8 bit-exact, bf16 within ``MM_TOL``),
    each dual stream bitwise equal to an ``mm_mxu`` launch; f32 ``mm_mxu``
    (``mm_mxu_f32_kernel``) at ``TC_RAGGED`` within ``MM_TOL`` and
-   bitwise equal to ``mm_vpu``;
+   bitwise equal to ``mm_vpu``; f32 ``mm_dual_full``
+   (``mm_dual_f32_kernel``, ``mm_mxu``'s body with two streams) at
+   ``TC_RAGGED`` and, planned by ``matmul_dual(budget=)``, at the sweep's
+   FFN: one launch, each stream bitwise equal to ``mm_mxu``;
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
    kernels (``LOGIC_ONLY``), IGMMA in the int8 and HGMMA in the bf16
    tensor-core kernels, bf16 flash attention's included (``TC_SASS``),
    and every kernel of the ``kernels`` line (``KERNEL``) in the library;
 5. times  — per kernel (``conv2d_ip1`` also at block 1 and on int8 at
-   block 0, ``conv2d_ip2`` also on int8 at block 1, ``flash_decode``
-   and ``mm_dual_full`` also on f32; ``mm_mxu`` per operand dtype:
+   block 0, ``conv2d_ip2`` also on int8 at block 1, ``flash_attention``,
+   ``flash_decode`` and ``mm_dual_full`` also on f32; ``mm_mxu`` per
+   operand dtype:
    f32 on CUDA cores, int8 and bf16 on the tensor cores; ``mm_vpu`` per
    operand dtype, all on CUDA cores): the median device time of 20
    launches (CUDA
@@ -198,13 +206,15 @@ REPLACES = {
     "mm_vpu (bf16)": "src/repro/kernels/matmul/mxu.py:89",
     "mm_dual_shared": "src/repro/kernels/matmul/dual.py:44",
     "mm_dual_full": "src/repro/kernels/matmul/dual.py:44",
+    "mm_dual_full (f32)": "src/repro/kernels/matmul/dual.py:44",
     "flash_attention": "src/repro/kernels/attention/flash.py:77",
     "flash_decode": "src/repro/kernels/attention/decode.py:58",
     "selective_scan": "src/repro/kernels/mamba_scan/scan.py:54",
 }
 # The rows of the kernels line that run on the tensor cores: mm_mxu on
 # int8 and bf16 operands ("mm_mxu (int8)", "mm_mxu (bf16)"; its f32 row
-# "mm_mxu" stays on CUDA cores) and the dual rows, timed on int8 and bf16;
+# "mm_mxu" stays on CUDA cores) and the dual rows, timed on int8 and bf16
+# (the f32 dual row, "mm_dual_full (f32)", stays on CUDA cores);
 # flash_attention, timed on bf16 (attn_tc_kernels.cu; f32 stays on
 # attn_kernels.cu's CUDA-core kernel).
 TC_ROWS = ("mm_mxu (int8)", "mm_mxu (bf16)", "mm_dual_shared", "mm_dual_full")
@@ -216,8 +226,10 @@ SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
           for name in REPLACES}
 # The CUDA kernel (__global__ function) behind each row of the kernels
 # line, as the row is timed: mm_mxu on f32 runs the CUDA-core kernel,
-# the dual rows their int8 / bf16 tensor-core kernels; flash_decode is
-# one launch of two kernels.
+# the dual rows their int8 / bf16 tensor-core kernels and f32
+# mm_dual_full mm_mxu's CUDA-core body with two streams; conv2d_ip4 runs
+# conv2d_ip2's tiled kernel with two streams; flash_decode is one launch
+# of two kernels.
 KERNEL = {
     "activation_lut": "activation_lut_kernel",
     "pool2d_im2col": "pool2d_im2col_kernel",
@@ -228,7 +240,7 @@ KERNEL = {
     "pool2d_window": "pool2d_kernel",
     "activation_exact": "activation_kernel",
     "conv2d_ip3": "conv2d_ip3_kernel",
-    "conv2d_ip4": "conv2d_ip4_kernel",
+    "conv2d_ip4": "conv2d_mxu_tiled_kernel",
     "mm_mxu": "mm_mxu_f32_kernel",
     "mm_mxu (int8)": "mm_tc_mxu_i8_kernel",
     "mm_mxu (bf16)": "mm_tc_mxu_bf16_kernel",
@@ -237,6 +249,7 @@ KERNEL = {
     "mm_vpu (bf16)": "mm_vpu_kernel",
     "mm_dual_shared": "mm_tc_dual_i8_kernel",
     "mm_dual_full": "mm_tc_dual_bf16_kernel",
+    "mm_dual_full (f32)": "mm_dual_f32_kernel",
     "flash_attention": "attn_tc_flash_kernel",
     "flash_decode": "flash_decode_split_kernel, decode_combine_kernel",
     "selective_scan": "selective_scan_kernel",
@@ -662,6 +675,59 @@ def conv_ragged_checks(gen, errs):
         f"{len(CONV_RAGGED)} ragged shapes: f32 within rtol=1e-4, "
         f"atol=1e-5, int8 bit-exact, independent of block_cout; f32 "
         f"fused_cnn_mxu == chain bitwise; tile plans (f32, int8) {plans2}")
+    torch.cuda.synchronize()
+
+
+def conv4_ragged_checks(shapes, gen, errs):
+    """conv2d_ip4 (conv2d_ip2's tiled kernel with two streams) at
+    CONV_RAGGED and both block shapes, on f32, int8, int16 and bf16
+    (integers over their full range), at block_cout 1, 5, 16 and 128:
+    one launch a call, results independent of block_cout; each f32 and
+    int8 stream bitwise equal to a conv2d_ip2 launch on it; integers
+    exact and floats within rtol=1e-4, atol=1e-5 of the plain version."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.conv2d.inner import tile_plan
+    from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2
+    from repro_torch.kernels.conv2d.ip4_dual import (conv2d_ip4,
+                                                     conv2d_ip4_plain)
+    plans = []
+    for xs, ws in CONV_RAGGED + tuple(shapes.values()):
+        scale = (ws[0] * ws[1] * ws[2]) ** -0.5
+        for dtype in (torch.float32, torch.int8, torch.int16,
+                      torch.bfloat16):
+            xa, xb = operand(gen, xs, dtype), operand(gen, xs, dtype)
+            w = operand(gen, ws, dtype, scale)
+            what = f"conv2d_ip4 {dtype} at {xs} x {ws}"
+            ys = None
+            for bc in (128, 16, 5, 1):
+                cuda.reset_launches()
+                got = conv2d_ip4(xa, xb, w, block_cout=bc)
+                check(cuda.launch_counts() == {"conv2d_ip4": 1},
+                      f"{what}, block_cout {bc}: launches "
+                      f"{cuda.launch_counts()}, expected 1")
+                if ys is None:
+                    ys = got
+                check(all(torch.equal(u, v) for u, v in zip(got, ys)),
+                      f"{what}: result depends on block_cout ({bc})")
+            exact = not dtype.is_floating_point
+            for got, want in zip(ys, conv2d_ip4_plain(xa, xb, w)):
+                compare("conv2d_ip4", got, want, 1e-4, 1e-5, errs,
+                        exact=exact)
+            if dtype in (torch.float32, torch.int8):
+                check(torch.equal(ys[0], conv2d_ip2(xa, w))
+                      and torch.equal(ys[1], conv2d_ip2(xb, w)),
+                      f"{what}: not bitwise equal to two conv2d_ip2 "
+                      f"launches")
+            n, h, w_, cin = xs
+            plans.append(tile_plan(h, w_, cin, *ws[:2], ws[3],
+                                   itemsize=xa.element_size(), style="mxu",
+                                   streams=2))
+    log(f"conv2d_ip4 ({KERNEL['conv2d_ip4']}, two streams, one launch a "
+        f"call) at {len(CONV_RAGGED)} ragged shapes and both blocks, f32, "
+        f"int8, int16, bf16, block_cout 1/5/16/128: integers exact, floats "
+        f"within rtol=1e-4, atol=1e-5, f32 and int8 streams == conv2d_ip2 "
+        f"bitwise; tile plans {plans}")
     torch.cuda.synchronize()
 
 
@@ -1165,9 +1231,12 @@ def matmul_checks(gen, errs):
 def f32_ragged_checks(gen, errs):
     """f32 ``mm_mxu`` (the CUDA-core kernel, ``mm_mxu_f32_kernel``) at
     TC_RAGGED against its plain version within MM_TOL, one launch a
-    call, and bitwise equal to ``mm_vpu`` (one FMA chain over k)."""
+    call, and bitwise equal to ``mm_vpu`` (one FMA chain over k); f32
+    ``mm_dual_full`` (``mm_dual_f32_kernel``) at TC_RAGGED, one launch a
+    call, each stream bitwise equal to ``mm_mxu``."""
     import torch
     from repro_torch.kernels import cuda
+    from repro_torch.kernels.matmul.dual import mm_dual_full
     from repro_torch.kernels.matmul.mxu import mm_mxu, mm_mxu_plain, mm_vpu
     for m, k, n in TC_RAGGED:
         a = operand(gen, (m, k), torch.float32)
@@ -1182,6 +1251,20 @@ def f32_ragged_checks(gen, errs):
               f"f32 at {(m, k, n)}: mm_vpu and mm_mxu differ")
     log(f"f32 mm_mxu ({KERNEL['mm_mxu']}) at ragged (M, K, N) {TC_RAGGED}: "
         f"one launch a call, within MM_TOL, bitwise equal to mm_vpu")
+    for m, k, n in TC_RAGGED:
+        a1, a2 = (operand(gen, (m, k), torch.float32) for _ in range(2))
+        b = operand(gen, (k, n), torch.float32)
+        cuda.reset_launches()
+        ys = mm_dual_full(a1, a2, b)
+        check(cuda.launch_counts() == {"mm_dual_full": 1},
+              f"f32 mm_dual_full at {(m, k, n)}: launches "
+              f"{cuda.launch_counts()}")
+        check(all(torch.equal(y, mm_mxu(a, b)) for y, a in zip(ys, (a1, a2))),
+              f"f32 mm_dual_full at {(m, k, n)}: not bitwise equal to two "
+              f"mm_mxu launches")
+    log(f"f32 mm_dual_full ({KERNEL['mm_dual_full (f32)']}) at ragged (M, K, "
+        f"N) {TC_RAGGED}: one launch a call, each stream bitwise equal to "
+        f"mm_mxu")
 
 
 def tc_ragged_checks(gen, errs):
@@ -1574,6 +1657,27 @@ def lm_kernel_checks(ops, rng, errs):
     log(f"{what} -> mm_dual_full: one launch; bf16 and f32 bitwise equal "
         f"to two mm_mxu launches; int8 bit-exact; mm_dual_shared refuses "
         f"bf16 before any launch")
+    # f32 matmul_dual through the planner: mm_dual_full on the CUDA-core
+    # kernel (mm_dual_f32_kernel), one launch, each stream mm_mxu's
+    f1, f2, fb = (t.to(f32) for t in (a1, a2, b))
+    spec = SiteSpec.make("matmul", "matmul", (f1.shape, fb.shape), f32,
+                         dual=True)
+    planned = plan_single(spec, ResourceBudget()).ip.name
+    check(planned == "matmul.mm_dual_full",
+          f"f32 matmul_dual planned {planned}")
+    what = f"f32 matmul_dual(budget=ResourceBudget()) at {tuple(f1.shape)}"
+    ys = launched_once(lambda: matmul_dual(f1, f2, fb,
+                                           budget=ResourceBudget()),
+                       "mm_dual_full", what)
+    launches["mm_dual_full (f32)"] = 1
+    check(all(torch.equal(y, mm_mxu(x, fb)) for y, x in zip(ys, (f1, f2))),
+          f"{what}: not bitwise equal to two mm_mxu launches")
+    for got, want in zip(ys, mm_dual_full_plain(f1, f2, fb)):
+        compare("mm_dual_full (f32)", got, want, MM_TOL["rtol"],
+                MM_TOL["atol"], errs)
+    log(f"{what} -> mm_dual_full ({KERNEL['mm_dual_full (f32)']}): one "
+        f"launch, each stream bitwise equal to mm_mxu, within MM_TOL")
+    del f1, f2, fb, ys
     torch.cuda.synchronize()
     return launches
 
@@ -1659,7 +1763,7 @@ def lm_timings(ops, peaks):
         nbytes(a1, a2, b, y1, y2), 4 * m * k * n, "bf16_tensor_flops",
         f"2 x ({m}, {k}) x ({k}, {n}) bf16", "two bf16 torch.matmul")
     rows["mm_dual_full"]["yardstick"] = two_mxu
-    # f32 mm_dual_full (mm_dual_kernel on CUDA cores) at the same shape
+    # f32 mm_dual_full (mm_dual_f32_kernel on CUDA cores) at the same shape
     f1, f2, fb = (t.to(torch.float32) for t in (a1, a2, b))
     y1, y2 = mm_dual_full(f1, f2, fb)
     rows["mm_dual_full (f32)"] = row(
@@ -1710,6 +1814,24 @@ def lm_timings(ops, peaks):
                 "mufu_per_s")[0]
             if r["exp_bound_ms"] > r["bound_ms"]:
                 r["bound_ms"], r["bound_by"] = r["exp_bound_ms"], "operations"
+    # the flash kernel's f32 instance at attn_train4k (the bf16 operands
+    # widened; CUDA cores): bound by the FP32 rate or the exponentials
+    q, k, v = (t.float() for t in ops["train"])
+    y = flash_attention(q, k, v, causal=True)
+    bsz, hq, sq, d = q.shape
+    pairs = bsz * hq * visible_pairs(sq, k.shape[2], True)
+    rows["flash_attention (f32)"] = row(
+        lambda: flash_attention(q, k, v, causal=True),
+        time_sync_ms(lambda: plain_chunks(flash_attention_plain, q, k, v,
+                                          True, causal=True)),
+        time_ms(sdpa(q, k, v, True)), nbytes(q, k, v, y), 4 * d * pairs,
+        "fp32_flops", f"q{tuple(q.shape)} kv{tuple(k.shape)} f32 causal",
+        "F.scaled_dot_product_attention(enable_gqa=True)")
+    r = rows["flash_attention (f32)"]
+    r["exp_bound_ms"] = bound_ms(peaks, 0, pairs, "mufu_per_s")[0]
+    if r["exp_bound_ms"] > r["bound_ms"]:
+        r["bound_ms"], r["bound_by"] = r["exp_bound_ms"], "operations"
+    del q, k, v, y
     # the decode kernel's f32 instance at attn_decode32k (the bf16 cache
     # widened: twice the bytes); no library time: SDPA's f32 GQA path
     # would expand the 17 GB cache to every query head
@@ -2538,6 +2660,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     errs = kernel_checks(shapes, gen)
     conv_ragged_checks(gen, errs)
+    conv4_ragged_checks(shapes, torch.Generator().manual_seed(SEED), errs)
 
     ladder_kernel_checks(gen, errs)
 
@@ -2560,8 +2683,8 @@ def main() -> int:
     lm_launches, lm_ops = lm_site_checks(lm_sites, lm_rng, errs)
     lm_launches.update(lm_kernel_checks(lm_ops, lm_rng, errs))
     for name in ("mm_mxu (bf16)", "mm_vpu (int8)", "mm_vpu (bf16)",
-                 "mm_dual_shared", "mm_dual_full", "flash_attention",
-                 "flash_decode"):
+                 "mm_dual_shared", "mm_dual_full", "mm_dual_full (f32)",
+                 "flash_attention", "flash_decode"):
         launches[name] = lm_launches[name]
     sass_check(lib)
 

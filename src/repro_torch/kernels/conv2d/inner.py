@@ -4,7 +4,7 @@ math, in the two orders of the reference (``repro.kernels.conv2d.inner``).
 On the card these are the ``__device__`` functions of
 ``csrc/cnn_device.cuh`` (``conv_taps_vpu`` / ``conv_part_vpu`` and
 ``conv_taps_mxu`` / ``conv_run``), which the standalone members
-(``ip1_vpu``, ``ip2_mxu``), Conv4 (``ip4_dual``) and the fused members
+(``ip1_vpu``, ``ip2_mxu`` and Conv4's ``ip4_dual``) and the fused members
 (``kernels/fused/cnn_block.py``) all call.  The functions below are their
 plain PyTorch versions in the same order, which the CPU path runs and the
 on-card checks compare against:
@@ -22,7 +22,9 @@ The two standalone members run the tiled kernels of ``csrc/cnn_kernels.cu``
 output and launches one of them.
 
 The dual-stream members (``ip3_packed``, ``ip4_dual``) share
-``launch_conv_dual``, one launch that writes both streams' outputs.
+``launch_conv_dual``, one launch that writes both streams' outputs; Conv4
+runs Conv2's tiled kernel with two streams on ``tile_plan(style="mxu",
+streams=2)``: both streams' halos and the weights, once, in one tile.
 """
 from __future__ import annotations
 
@@ -76,18 +78,22 @@ def pixel_pitch(n: int, vec: int) -> int:
 
 
 def tile_smem_bytes(plan: TilePlan, kh: int, kw: int, cin: int, *,
-                    itemsize: int, style: str = "vpu") -> int:
+                    itemsize: int, style: str = "vpu",
+                    streams: int = 1) -> int:
     """The shared memory a CTA of ``plan`` stages, as the kernels'
     launcher (``tile_smem_bytes`` of ``csrc/cnn_kernels.cu``) computes it:
     ``whole``, the input halo then every tap's weights; else one chunk's
     shifted tile then its weights.  Conv1 (``vpu``) stages the halo's
-    rows as they lie, Conv2 (``mxu``) each pixel at ``pixel_pitch``."""
+    rows as they lie, Conv2 (``mxu``) each pixel at ``pixel_pitch``, a
+    halo (or chunk) for each of its ``streams`` (Conv4: two) and the
+    weights once."""
     vec, tw = 16 // itemsize, plan.tw
     weights = (kh * kw * cin if plan.whole else plan.cc) * plan.bc * itemsize
     if style == "mxu":
         pixels = ((plan.th + kh - 1) * (tw + kw - 1) if plan.whole
                   else plan.th * tw)
-        return (pixels * pixel_pitch(cin if plan.whole else plan.cc, vec)
+        return (streams * pixels
+                * pixel_pitch(cin if plan.whole else plan.cc, vec)
                 * itemsize + weights)
     if plan.whole:
         rp = _round_up((tw + kw - 1) * cin, vec)
@@ -97,27 +103,31 @@ def tile_smem_bytes(plan: TilePlan, kh: int, kw: int, cin: int, *,
 
 def tile_plan(h: int, w: int, cin: int, kh: int, kw: int, cout: int, *,
               itemsize: int, block_cout: int = 128,
-              smem_bytes: int = SMEM_BYTES, style: str = "vpu") -> TilePlan:
+              smem_bytes: int = SMEM_BYTES, style: str = "vpu",
+              streams: int = 1) -> TilePlan:
     """The tile plan of the ``style`` kernel (``vpu``: Conv1's, ``mxu``:
-    Conv2's) for an (h, w, cin) input and (kh, kw, cin, cout) weights of
-    ``itemsize``-byte elements.  ``block_cout`` caps the channels a CTA
-    covers (rounded up to a power-of-two number of quads); the result
-    never depends on it.  The two kernels share the cut; the halo is
-    staged whole where ``tile_smem_bytes`` fits ``smem_bytes``, else in
-    chunks of input channels sized to fit.  The kernels' launcher checks
-    the plan and computes the same shared-memory size."""
+    Conv2's, and with ``streams=2`` Conv4's) for (h, w, cin) inputs and
+    (kh, kw, cin, cout) weights of ``itemsize``-byte elements.
+    ``block_cout`` caps the channels a CTA covers (rounded up to a
+    power-of-two number of quads); the result never depends on it.  The
+    kernels share the cut; the halos are staged whole where
+    ``tile_smem_bytes`` fits ``smem_bytes``, else in chunks of input
+    channels sized to fit.  The kernels' launcher checks the plan and
+    computes the same shared-memory size."""
     if style not in STYLE_CODE:
         raise ValueError(f"unknown style {style!r}; have {tuple(STYLE_CODE)}")
+    if streams not in ((1, 2) if style == "mxu" else (1,)):
+        raise ValueError(f"the {style} kernel takes no {streams} streams")
     ho, wo = h - kh + 1, w - kw + 1
     quads = -(-min(block_cout, cout) // QUAD)
     glog = min((quads - 1).bit_length(), MAX_QUADS.bit_length() - 1)
     twlog = min((wo - 1).bit_length(), MAX_TILE_W.bit_length() - 1)
     th = (THREADS >> glog) * PIXELS >> twlog
     plan = TilePlan(glog, twlog, th, cin, True)
-    if tile_smem_bytes(plan, kh, kw, cin, itemsize=itemsize,
-                       style=style) <= smem_bytes:
+    if tile_smem_bytes(plan, kh, kw, cin, itemsize=itemsize, style=style,
+                       streams=streams) <= smem_bytes:
         return plan
-    vec, pixels = 16 // itemsize, th << twlog
+    vec, pixels = 16 // itemsize, (th << twlog) * streams
     # Conv2's pixel pitch may add a chunk a pixel
     spare = smem_bytes - (pixels * vec * itemsize if style == "mxu" else 0)
     per_channel = (pixels + plan.bc) * itemsize
@@ -247,9 +257,11 @@ def launch_conv_tiled(counter: str, entry: str, style: str, x: torch.Tensor,
 def launch_conv_dual(counter: str, ip: int, xa: torch.Tensor,
                      xb: torch.Tensor, w: torch.Tensor, block_cout: int,
                      dtypes) -> tuple:
-    """Launch ``conv2d_ip3_kernel`` (``ip=3``) or ``conv2d_ip4_kernel``
-    (``ip=4``) of ``csrc/cnn_kernels.cu`` once for CUDA operands of one
-    dtype among ``dtypes``: integers give int32, floats f32."""
+    """Launch ``conv2d_ip3_kernel`` (``ip=3``, ``block_cout`` channels a
+    block) or Conv2's tiled kernel with two streams (``ip=4``, on
+    ``tile_plan(style="mxu", streams=2)``) of ``csrc/cnn_kernels.cu`` once
+    for CUDA operands of one dtype among ``dtypes``: integers give int32,
+    floats f32."""
     for t, what in ((xa, "xa"), (xb, "xb"), (w, "w")):
         cuda.require(t, what, dtypes)
     if xb.device != xa.device or w.device != xa.device or \
@@ -265,8 +277,11 @@ def launch_conv_dual(counter: str, ip: int, xa: torch.Tensor,
               for _ in range(2))
     if ya.numel() == 0:
         return ya, yb
+    plan = tile_plan(h, w_, cin, kh, kw, cout, itemsize=xa.element_size(),
+                     block_cout=int(block_cout), style="mxu", streams=2)
     cuda.launch(counter, "cnn_conv2d_dual", xa.device, ip,
                 cuda.DTYPE_CODE[xa.dtype], xa.data_ptr(), xb.data_ptr(),
                 w.data_ptr(), ya.data_ptr(), yb.data_ptr(), n, h, w_, cin,
-                kh, kw, cout, min(int(block_cout), cout))
+                kh, kw, cout, min(int(block_cout), cout), plan.glog,
+                plan.twlog, plan.th, plan.cc, int(plan.whole))
     return ya, yb

@@ -3,12 +3,14 @@ full precision).
 
 Replaces ``repro/kernels/conv2d/ip4_dual.py::conv2d_ip4``.  The
 reference stacks the two streams' im2col and takes one batched dot
-against one weight tile, fetched once for both.  The kernel
-(``conv2d_ip4_kernel<T>`` in ``csrc/cnn_kernels.cu``) computes both
-streams of one output pixel and channel in one thread through the shared
-Conv2 body (``conv_points_mxu``): each weight tap is loaded once and
-feeds both accumulators, in Conv2's (i, j, cin) order, so each stream
-equals a ``conv2d_ip2`` launch bitwise.  Full operand width: int8/int16
+against one weight tile, fetched once for both.  The kernel is Conv2's
+tiled kernel with two streams (``conv2d_mxu_tiled_kernel<T, 2, ...>`` in
+``csrc/cnn_kernels.cu``) on ``inner.tile_plan(style="mxu", streams=2)``:
+a CTA stages its pixel tile's input halo for both streams and the weight
+tile once in shared memory, and each thread keeps 8 pixels of each
+stream x 4 channels, so every weight quad it loads feeds both streams'
+accumulators, in Conv2's (i, j, cin) order: each stream equals a
+``conv2d_ip2`` launch bitwise.  Full operand width: int8/int16
 accumulate in int32 (wrapping, as the reference's accumulator does),
 bfloat16/float32 in f32 (bf16 widened exactly on load).  CUDA cores,
 as Conv2 (ROADMAP, "f32 on tensor cores").

@@ -5,17 +5,17 @@
 //       conv_part_vpu (a register tile of outputs) and conv_point_vpu
 //       (one output read from device memory)
 //   src/repro/kernels/conv2d/inner.py::accumulate_mxu   -> conv_taps_mxu,
-//       conv_run (a register tile of outputs) and conv_points_mxu
-//       (one output of one or two streams read from device memory)
+//       conv_run (a register tile of outputs, of one or two streams) and
+//       conv_point_mxu (one output read from device memory)
 //   src/repro/kernels/pool2d/vpu_window.py::window_reduce -> window_reduce
 //   src/repro/kernels/activation/ref.py::_FNS            -> activate
 //
-// The standalone kernels (the tiled kernels of conv2d_ip1 and
-// conv2d_ip2, pool2d_window, activation_exact), Conv4 and the fused
+// The standalone kernels (the tiled kernels of conv2d_ip1, conv2d_ip2
+// and Conv4, pool2d_window, activation_exact) and the fused
 // conv->pool->act kernel all run these functions, in the same order, so
-// a float32 fused block is bitwise equal to its three-launch chain: the
-// tiled kernels feed the conv bodies from shared memory, the fused
-// kernel and Conv4 from device memory.
+// a float32 fused block is bitwise equal to its three-launch chain and
+// each Conv4 stream to a conv2d_ip2 launch: the tiled kernels feed the
+// conv bodies from shared memory, the fused kernel from device memory.
 // Two things keep that true:
 //   * every float add and multiply-add is an explicit round-to-nearest
 //     intrinsic (__fadd_rn, __fmaf_rn, __fmul_rn, __fdiv_rn), and the
@@ -232,45 +232,27 @@ __device__ __forceinline__ void conv_run(int n, Load load,
   }
 }
 
-// The Conv2 chain from device memory for NS input streams that share
-// each weight tap (one output channel co of pixel (n, oh, ow)): the tap
-// is loaded once and feeds every stream's accumulator.  The fused
-// kernel runs one stream, Conv4 two; each stream's sum is the chain of
-// conv2d_ip2's tiled kernel, so a Conv4 output and a fused conv value
-// are bitwise equal to the Conv2 output of their stream.
-template <typename T, int NS>
-__device__ __forceinline__ void conv_points_mxu(
-    const T* const (&x)[NS], const T* __restrict__ w, const ConvShape& s,
-    int n, int oh, int ow, int co, typename AccOf<T>::type (&acc)[NS]) {
-  using A = typename AccOf<T>::type;
-  A tile[NS][1];
-  conv_taps_mxu<A, NS, 1, 0>(s.KH, s.KW, [&](int i, int j, A (&a)[NS][1]) {
-    // the loader walks the tap's channels in order: one pointer a
-    // stream and one for the weights, advanced a channel a call
-    const size_t xo = ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
-    const T* wq = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
-    const T* xq[NS];
-#pragma unroll
-    for (int k = 0; k < NS; ++k) xq[k] = x[k] + xo;
-    conv_run<A, NS, 1, 1>(s.Cin, [&](int, A (&xv)[NS][1], A (&wv)[1][1]) {
-      wv[0][0] = widen<A>(*wq);
-      wq += s.Cout;
-#pragma unroll
-      for (int k = 0; k < NS; ++k) xv[k][0] = widen<A>(*xq[k]++);
-    }, a);
-  }, tile);
-#pragma unroll
-  for (int k = 0; k < NS; ++k) acc[k] = tile[k][0];
-}
-
+// One Conv2 output (n, oh, ow, co) from device memory (the fused kernel's
+// conv values): the chain of conv2d_ip2's tiled kernel, so a fused conv
+// value is bitwise equal to the Conv2 output.
 template <typename T>
 __device__ __forceinline__ typename AccOf<T>::type conv_point_mxu(
     const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
     int n, int oh, int ow, int co) {
-  const T* const xs[1] = {x};
-  typename AccOf<T>::type acc[1];
-  conv_points_mxu<T, 1>(xs, w, s, n, oh, ow, co, acc);
-  return acc[0];
+  using A = typename AccOf<T>::type;
+  A acc[1][1];
+  conv_taps_mxu<A, 1, 1, 0>(s.KH, s.KW, [&](int i, int j, A (&a)[1][1]) {
+    // the loader walks the tap's channels in order: one pointer for the
+    // inputs and one for the weights, advanced a channel a call
+    const T* xq = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
+    const T* wq = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
+    conv_run<A, 1, 1, 1>(s.Cin, [&](int, A (&xv)[1][1], A (&wv)[1][1]) {
+      wv[0][0] = widen<A>(*wq);
+      wq += s.Cout;
+      xv[0][0] = widen<A>(*xq++);
+    }, a);
+  }, acc);
+  return acc[0][0];
 }
 
 // vpu_window.py::window_reduce for one output: load(i, j) yields the

@@ -1,4 +1,4 @@
-// The CNN kernels of the port: nine __global__ kernels and their plain C
+// The CNN kernels of the port: eight __global__ kernels and their plain C
 // launchers, loaded with ctypes by src/repro_torch/kernels/cuda.py.
 //
 // Built with: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -6,9 +6,10 @@
 //             mm_kernels.cu's object by nvcc -shared
 //
 // Layouts are the reference's: NHWC activations, HWIO weights, all
-// tensors contiguous.  Every kernel but Conv1's and Conv2's maps one
-// thread to one output element; those two tile outputs and stage their
-// inputs in shared memory.  The channel tiling hints (block_cout /
+// tensors contiguous.  Every kernel but the tiled convs (Conv1's, and
+// Conv2's, which Conv4 runs with two streams) maps one thread to one
+// output element; those two tile outputs and stage their inputs in
+// shared memory.  The channel tiling hints (block_cout /
 // block_c) shape the grid and the kernels mask the ragged edge, so
 // results never depend on them.  The activations' block_rows hints are validated and do not
 // shape a grid.
@@ -35,12 +36,13 @@
 //   as the fused kernel computes it; KS = 3 unrolls the 3 x 3 taps.
 //   Logic-only: FFMA / IMAD, no MMA instruction.
 //
-// conv2d_mxu_tiled_kernel<T, KS, WHOLE>  replaces src/repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2
+// conv2d_mxu_tiled_kernel<T, NS, KS, WHOLE>  replaces src/repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2
+//   (NS = 1) and src/repro/kernels/conv2d/ip4_dual.py::conv2d_ip4 (NS = 2)
 //   2*K operations per output as above; at block 1 the FP32 rate bounds
 //   it (int8: the INT32 lanes').  Conv1's tile plan, staging and thread
 //   mapping (8 pixels x 4 channels a thread), in the Conv2 order: each
 //   output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu, as
-//   the fused kernel and Conv4 compute it).  Each thread reads a
+//   the fused kernel computes it).  Each thread reads a
 //   pixel's 4 next channels as one 16-byte shared load (4 bytes on int8)
 //   and the quad's weights of those 4 channels as four, so per 4
 //   channels 12 loads feed 128 multiply-adds.  The halo
@@ -51,6 +53,15 @@
 //   turn, taps outermost, so the chain keeps its order.  FFMA / IMAD, no
 //   MMA instruction: Hopper has no IEEE-f32 MMA and TF32 misses the
 //   reference tolerance.
+//   Conv4 (NS = 2): two full-precision convs (f32, bf16 widened exactly,
+//   int8, int16 -> int32 wrapping) sharing the weights, as the reference
+//   stacks two streams' im2col against one weight block.  A CTA stages
+//   the halo of its pixel tile for both streams and the weights once
+//   (tile_plan(streams=2): the halo term doubles; at block 1 f32, 72.8 KB,
+//   still whole), and each thread keeps 8 pixels x 4 channels of each
+//   stream (64 accumulators): each weight quad it loads feeds 16 points.
+//   Each stream's chain is Conv2's, so each stream is bitwise equal to a
+//   conv2d_ip2 launch.
 //
 // pool2d_kernel           replaces src/repro/kernels/pool2d/vpu_window.py::pool2d_window
 //   kh*kw compares or adds per output: bound by device memory.  One thread
@@ -104,14 +115,6 @@
 //   The work is two convs' taps on the INT32 lanes (64 per SM, half the
 //   FP32 lanes), so the lane rate bounds it at block 1; one thread per
 //   output pixel and channel writes both streams.
-//
-// conv2d_ip4_kernel<T>    replaces src/repro/kernels/conv2d/ip4_dual.py::conv2d_ip4
-//   Conv4: two full-precision convs (int8/int16 -> int32, bf16/f32 ->
-//   f32) sharing each weight tap.  One thread per output pixel and
-//   channel runs conv_points_mxu with two streams: each tap is loaded
-//   once and feeds both accumulators, in Conv2's order, so each stream
-//   is bitwise equal to a conv2d_ip2 launch.  2*K flops per output of
-//   each stream: the FP32 rate bounds it at block 1, as for Conv2.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -181,6 +184,22 @@ __device__ __forceinline__ void load_quad(const int8_t* p, int32_t (&v)[4]) {
   const uint32_t q = *reinterpret_cast<const uint32_t*>(p);
 #pragma unroll
   for (int e = 0; e < 4; ++e) v[e] = int32_t(q << (24 - 8 * e)) >> 24;
+}
+// bf16 widened exactly by a shift; int16 sign-extended
+__device__ __forceinline__ void load_quad(const __nv_bfloat16* p,
+                                          float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load_quad(const int16_t* p, int32_t (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = int32_t(q.x << 16) >> 16;
+  v[1] = int32_t(q.x) >> 16;
+  v[2] = int32_t(q.y << 16) >> 16;
+  v[3] = int32_t(q.y) >> 16;
 }
 __device__ __forceinline__ void store_quad(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -255,15 +274,17 @@ __device__ __forceinline__ void tile_pixels(const TilePlan& pl, int lane,
 }
 
 // A thread's kConvPix pixels x kConvCh channels (channel quad cg) of the
-// tile into y, 16 bytes along Cout where Cout allows; outputs past the
-// image or past Cout are dropped.
-template <typename A>
+// tile, points p0 .. p0 + kConvPix - 1 of acc, into y, 16 bytes along
+// Cout where Cout allows; outputs past the image or past Cout are
+// dropped.
+template <typename A, int NP>
 __device__ __forceinline__ void store_tile(A* __restrict__ y,
                                            const ConvShape& s, int Ho,
                                            int Wo, const ConvTile& t, int cg,
                                            const int (&pr)[kConvPix],
                                            const int (&pc)[kConvPix],
-                                           const A (&acc)[kConvPix][kConvCh]) {
+                                           const A (&acc)[NP][kConvCh],
+                                           int p0 = 0) {
   const int co = t.co0 + cg * kConvCh;
   if (co >= s.Cout) return;
   A* yn = y + size_t(t.n) * Ho * Wo * s.Cout + co;
@@ -274,11 +295,11 @@ __device__ __forceinline__ void store_tile(A* __restrict__ y,
     if (oh >= Ho || ow >= Wo) continue;
     A* yp = yn + (size_t(oh) * Wo + ow) * s.Cout;
     if (quads) {
-      store_quad(yp, acc[k]);
+      store_quad(yp, acc[p0 + k]);
     } else {
 #pragma unroll
       for (int q = 0; q < kConvCh; ++q) {
-        if (co + q < s.Cout) yp[q] = acc[k][q];
+        if (co + q < s.Cout) yp[q] = acc[p0 + k][q];
       }
     }
   }
@@ -294,8 +315,10 @@ __host__ __device__ __forceinline__ int pixel_pitch(int n, int V) {
 
 // The shared-memory bytes of a tile: WHOLE, the halo then the weights;
 // else one chunk's shifted tile then its weights.  Conv1 (kVpu) stages
-// the halo's rows as they lie, Conv2 (kMxu) each pixel at pixel_pitch.
-__host__ __forceinline__ size_t tile_smem_bytes(int style, const ConvShape& s,
+// the halo's rows as they lie, Conv2 (kMxu) each pixel at pixel_pitch,
+// one halo (or chunk) for each of its ns streams and the weights once.
+__host__ __forceinline__ size_t tile_smem_bytes(int style, int ns,
+                                                const ConvShape& s,
                                                 const TilePlan& pl, int sz,
                                                 bool whole) {
   const int V = 16 / sz, TW = 1 << pl.twlog, bc = 4 << pl.glog;
@@ -303,7 +326,7 @@ __host__ __forceinline__ size_t tile_smem_bytes(int style, const ConvShape& s,
   if (style == kMxu) {
     const size_t pixels =
         whole ? size_t(pl.th + s.KH - 1) * (TW + s.KW - 1) : size_t(pl.th) * TW;
-    return pixels * pixel_pitch(whole ? s.Cin : pl.cc, V) * sz + wbytes;
+    return ns * pixels * pixel_pitch(whole ? s.Cin : pl.cc, V) * sz + wbytes;
   }
   if (whole) {
     const int rp = round_up((TW + s.KW - 1) * s.Cin, V);
@@ -411,25 +434,37 @@ conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
   store_tile(y, s, Ho, Wo, t, cg, pr, pc, acc);
 }
 
-// Conv2 on shared-memory tiles, one tile a CTA: the tile plan, staging
-// and thread mapping of conv2d_vpu_tiled_kernel, in the Conv2 order:
-// each output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu).
-// WHOLE: the tile's input halo over all Cin, each pixel at pixel_pitch,
-// and every tap's weights are staged in one go.  Otherwise each (tap,
-// chunk of cc input channels) is staged in turn, the taps outermost and
-// the chunks ascending, so the chain keeps its order across chunks.
-// Channels run 4 at a time where a whole quad remains (one 16-byte
-// load of a pixel's inputs, four of the quad's weights), then one at a
-// time; the order is the same.  Weight channels past Cout are not
-// staged: they feed only accumulators that are never stored.  KS = 3
-// unrolls the 3 x 3 taps.
-template <typename T, int KS, bool WHOLE>
+// The inputs and outputs of a tiled conv launch of NS streams.
+template <typename T, int NS>
+struct Streams {
+  const T* x[NS];
+  typename AccOf<T>::type* y[NS];
+};
+
+// Conv2 of NS streams sharing the weights (Conv2: NS = 1, Conv4: NS = 2)
+// on shared-memory tiles, one tile a CTA: the tile plan, staging and
+// thread mapping of conv2d_vpu_tiled_kernel, in the Conv2 order: each
+// output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu).
+// WHOLE: the tile's input halo of every stream over all Cin, each pixel
+// at pixel_pitch, and every tap's weights (once) are staged in one go.
+// Otherwise each (tap, chunk of cc input channels) is staged in turn,
+// every stream's shifted chunk and the chunk's weights together, the
+// taps outermost and the chunks ascending, so the chain keeps its order
+// across chunks.  A thread's register tile is kConvPix pixels of every
+// stream x kConvCh channels: point j * kConvPix + k is pixel k of stream
+// j, so each weight quad it loads feeds the pixels of every stream, and
+// each stream's chain is the one-stream chain.  Channels run 4 at a
+// time where a whole quad remains (one 8- or 16-byte load of a pixel's
+// inputs, four of the quad's weights), then one at a time; the order is
+// the same.  Weight channels past Cout are not staged: they feed only
+// accumulators that are never stored.  KS = 3 unrolls the 3 x 3 taps.
+template <typename T, int NS, int KS, bool WHOLE>
 __global__ void __launch_bounds__(kThreads)
-conv2d_mxu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        typename AccOf<T>::type* __restrict__ y, ConvShape s,
-                        int Ho, int Wo, TilePlan pl) {
+conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
+                        ConvShape s, int Ho, int Wo, TilePlan pl) {
   using A = typename AccOf<T>::type;
-  using Acc = A(&)[kConvPix][kConvCh];
+  constexpr int NP = NS * kConvPix;            // points a thread
+  using Acc = A(&)[NP][kConvCh];
   constexpr int V = 16 / int(sizeof(T));
   extern __shared__ __align__(16) uint8_t smem[];
   const int TW = 1 << pl.twlog, bclog = pl.glog + 2;
@@ -437,43 +472,58 @@ conv2d_mxu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int cg = threadIdx.x & ((1 << pl.glog) - 1);
   int pr[kConvPix], pc[kConvPix];              // pixel k: tile row, column
   tile_pixels(pl, threadIdx.x >> pl.glog, pr, pc);
-  const T* xn = x + size_t(t.n) * s.H * s.W * s.Cin;
+  const size_t xn = size_t(t.n) * s.H * s.W * s.Cin;   // the image's offset
   const int wlen = min(4 << pl.glog, s.Cout - t.co0);   // staged channels
   T* xs = reinterpret_cast<T*>(smem);
-  // n channels of one tap into a: the thread's pixels at xo[k] in xt,
-  // its weight quad in wt (rows 1 << bclog apart)
-  auto run = [&](int n, const T* xt, const int (&xo)[kConvPix],
+  // n channels of one tap into a: stream j's pixels at xt + j * sp + xo[k],
+  // the thread's weight quad at wt (rows 1 << bclog apart)
+  auto run = [&](int n, const T* xt, int sp, const int (&xo)[kConvPix],
                  const T* wt, Acc a) {
     const int n4 = n & ~3;
-    conv_run<A, kConvPix, kConvCh, 4>(n4, [&](int c, A (&xv)[kConvPix][4],
-                                              A (&wv)[4][kConvCh]) {
+    conv_run<A, NP, kConvCh, 4>(n4, [&](int c, A (&xv)[NP][4],
+                                        A (&wv)[4][kConvCh]) {
 #pragma unroll
-      for (int k = 0; k < kConvPix; ++k) load_quad(xt + xo[k] + c, xv[k]);
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int k = 0; k < kConvPix; ++k) {
+          load_quad(xt + j * sp + xo[k] + c, xv[j * kConvPix + k]);
+        }
+      }
 #pragma unroll
       for (int u = 0; u < 4; ++u) load_quad(wt + ((c + u) << bclog), wv[u]);
     }, a);
-    conv_run<A, kConvPix, kConvCh, 1>(n - n4, [&](int c, A (&xv)[kConvPix][1],
-                                                  A (&wv)[1][kConvCh]) {
+    conv_run<A, NP, kConvCh, 1>(n - n4, [&](int c, A (&xv)[NP][1],
+                                            A (&wv)[1][kConvCh]) {
 #pragma unroll
-      for (int k = 0; k < kConvPix; ++k) xv[k][0] = A(xt[xo[k] + n4 + c]);
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int k = 0; k < kConvPix; ++k) {
+          xv[j * kConvPix + k][0] = widen<A>(xt[j * sp + xo[k] + n4 + c]);
+        }
+      }
       load_quad(wt + ((n4 + c) << bclog), wv[0]);
     }, a);
   };
-  A acc[kConvPix][kConvCh];
+  A acc[NP][kConvCh];
   if constexpr (WHOLE) {
     const int HW = TW + s.KW - 1, pp = pixel_pitch(s.Cin, V);
-    T* ws = xs + (pl.th + s.KH - 1) * HW * pp;
+    const int sp = (pl.th + s.KH - 1) * HW * pp;        // a stream's halo
+    T* ws = xs + NS * sp;
     const int cols = min(HW, s.W - t.w0);
-    stage_runs<T>(min(pl.th + s.KH - 1, s.H - t.h0) * cols, s.Cin,
-                  [&](int k) {
-                    const int r = k / cols;
-                    return xs + (r * HW + k - r * cols) * pp;
-                  },
-                  [&](int k) {
-                    const int r = k / cols;
-                    return xn + (size_t(t.h0 + r) * s.W + t.w0 + k - r * cols) *
-                                    s.Cin;
-                  });
+    const int runs = min(pl.th + s.KH - 1, s.H - t.h0) * cols;
+    for (int j = 0; j < NS; ++j) {
+      stage_runs<T>(runs, s.Cin,
+                    [&](int k) {
+                      const int r = k / cols;
+                      return xs + j * sp + (r * HW + k - r * cols) * pp;
+                    },
+                    [&](int k) {
+                      const int r = k / cols;
+                      return io.x[j] + xn +
+                             (size_t(t.h0 + r) * s.W + t.w0 + k - r * cols) *
+                                 s.Cin;
+                    });
+    }
     stage_runs<T>(s.KH * s.KW * s.Cin, wlen,
                   [&](int r) { return ws + (r << bclog); },
                   [&](int r) { return w + size_t(r) * s.Cout + t.co0; });
@@ -483,35 +533,38 @@ conv2d_mxu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
     int xo[kConvPix];
 #pragma unroll
     for (int k = 0; k < kConvPix; ++k) xo[k] = (pr[k] * HW + pc[k]) * pp;
-    conv_taps_mxu<A, kConvPix, kConvCh, KS>(s.KH, s.KW, [&](int i, int j,
-                                                           Acc a) {
-      run(s.Cin, xs + (i * HW + j) * pp, xo,
+    conv_taps_mxu<A, NP, kConvCh, KS>(s.KH, s.KW, [&](int i, int j, Acc a) {
+      run(s.Cin, xs + (i * HW + j) * pp, sp, xo,
           ws + (((i * s.KW + j) * s.Cin) << bclog) + cg * kConvCh, a);
     }, acc);
   } else {
     const int cs = pixel_pitch(pl.cc, V);      // a pixel's staged channels
-    T* ws = xs + (pl.th << pl.twlog) * cs;
+    const int sp = (pl.th << pl.twlog) * cs;   // a stream's chunk
+    T* ws = xs + NS * sp;
     int xo[kConvPix];
 #pragma unroll
     for (int k = 0; k < kConvPix; ++k) {
       xo[k] = ((pr[k] << pl.twlog) + pc[k]) * cs;
     }
     const int rows = min(pl.th, Ho - t.h0), cols = min(TW, Wo - t.w0);
-    conv_taps_mxu<A, kConvPix, kConvCh, KS>(s.KH, s.KW, [&](int i, int j,
-                                                           Acc a) {
+    conv_taps_mxu<A, NP, kConvCh, KS>(s.KH, s.KW, [&](int i, int j, Acc a) {
       for (int c0 = 0; c0 < s.Cin; c0 += pl.cc) {
         const int len = min(pl.cc, s.Cin - c0);
         __syncthreads();                     // the last chunk is consumed
-        stage_runs<T>(rows * cols, len,
-                      [&](int k) {
-                        const int r = k / cols;
-                        return xs + ((r << pl.twlog) + k - r * cols) * cs;
-                      },
-                      [&](int k) {
-                        const int r = k / cols;
-                        return xn + (size_t(t.h0 + i + r) * s.W + t.w0 +
-                                     j + k - r * cols) * s.Cin + c0;
-                      });
+        for (int q = 0; q < NS; ++q) {
+          stage_runs<T>(rows * cols, len,
+                        [&](int k) {
+                          const int r = k / cols;
+                          return xs + q * sp +
+                                 ((r << pl.twlog) + k - r * cols) * cs;
+                        },
+                        [&](int k) {
+                          const int r = k / cols;
+                          return io.x[q] + xn +
+                                 (size_t(t.h0 + i + r) * s.W + t.w0 + j + k -
+                                  r * cols) * s.Cin + c0;
+                        });
+        }
         stage_runs<T>(len, wlen, [&](int r) { return ws + (r << bclog); },
                       [&](int r) {
                         return w + (size_t(i * s.KW + j) * s.Cin + c0 + r) *
@@ -520,11 +573,14 @@ conv2d_mxu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
         tc::cp_async_commit();
         tc::cp_async_wait<0>();
         __syncthreads();
-        run(len, xs, xo, ws + cg * kConvCh, a);
+        run(len, xs, sp, xo, ws + cg * kConvCh, a);
       }
     }, acc);
   }
-  store_tile(y, s, Ho, Wo, t, cg, pr, pc, acc);
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    store_tile(io.y[j], s, Ho, Wo, t, cg, pr, pc, acc, j * kConvPix);
+  }
 }
 
 // V: the reduce type (f32 or int32); O: the stored type.
@@ -665,40 +721,26 @@ __global__ void conv2d_ip3_kernel(const int8_t* __restrict__ xa,
   yb[t.p * s.Cout + t.co] = int32_t(acc_b);
 }
 
-// Conv4: two streams through the shared Conv2 body, each tap loaded once.
-template <typename T>
-__global__ void conv2d_ip4_kernel(const T* __restrict__ xa,
-                                  const T* __restrict__ xb,
-                                  const T* __restrict__ w,
-                                  typename AccOf<T>::type* __restrict__ ya,
-                                  typename AccOf<T>::type* __restrict__ yb,
-                                  int N, ConvShape s, int Ho, int Wo, int bc) {
-  Slot t = slot((long long)N * Ho * Wo, s.Cout, bc);
-  if (!t.live) return;
-  int ow = int(t.p % Wo);
-  long long r = t.p / Wo;
-  int oh = int(r % Ho);
-  int n = int(r / Ho);
-  const T* const xs[2] = {xa, xb};
-  typename AccOf<T>::type acc[2];
-  conv_points_mxu<T, 2>(xs, w, s, n, oh, ow, t.co, acc);
-  ya[t.p * s.Cout + t.co] = acc[0];
-  yb[t.p * s.Cout + t.co] = acc[1];
-}
-
 inline unsigned blocks_for(long long items) {
   return unsigned((items + kThreads - 1) / kThreads);
 }
 
-// Conv1 (style kVpu) or Conv2 (kMxu) on the tile plan (glog, twlog, th,
-// cc, whole) of kernels/conv2d/inner.py::tile_plan.
-int conv_tiled(int style, int dtype, const void* x, const void* w, void* y,
-               int N, int H, int W, int Cin, int KH, int KW, int Cout,
-               int glog, int twlog, int th, int cc, int whole, void* stream) {
+// Conv1 (style kVpu) or Conv2 (kMxu) of ns streams sharing the weights
+// (Conv4: Conv2 of two) on the tile plan (glog, twlog, th, cc, whole) of
+// kernels/conv2d/inner.py::tile_plan.  One stream: f32 or int8; two:
+// f32, bf16, int8 or int16.
+int conv_tiled(int style, int ns, int dtype, const void* const* x,
+               const void* w, void* const* y, int N, int H, int W, int Cin,
+               int KH, int KW, int Cout, int glog, int twlog, int th, int cc,
+               int whole, void* stream) {
+  const bool types =
+      ns == 1 ? (dtype == kF32 || dtype == kI8)
+              : (ns == 2 && style == kMxu &&
+                 (dtype == kF32 || dtype == kI8 || dtype == kI16 ||
+                  dtype == kBF16));
   if (glog < 0 || glog > 3 || twlog < 0 || twlog > 5 || th < 1 ||
       (th << twlog) != (kThreads >> glog) * kConvPix || cc < 1 || cc > Cin ||
-      (whole && cc != Cin) || (dtype != kF32 && dtype != kI8) ||
-      (style != kVpu && style != kMxu)) {
+      (whole && cc != Cin) || !types || (style != kVpu && style != kMxu)) {
     return int(cudaErrorInvalidValue);
   }
   ConvShape s{H, W, Cin, KH, KW, Cout};
@@ -708,10 +750,10 @@ int conv_tiled(int style, int dtype, const void* x, const void* w, void* y,
                (Cout + bc - 1) / bc};
   const long long ctas = (long long)N * pl.tiles_h * pl.tiles_w * pl.cblocks;
   if (ctas > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  const size_t bytes =
-      tile_smem_bytes(style, s, pl, dtype == kF32 ? 4 : 1, whole);
+  const int sz = dtype == kF32 ? 4 : dtype == kI8 ? 1 : 2;
+  const size_t bytes = tile_smem_bytes(style, ns, s, pl, sz, whole);
   cudaStream_t st = cudaStream_t(stream);
-  auto run = [&](auto kernel, auto xp, auto yp) {
+  auto run = [&](auto kernel, auto... args) {
     if (bytes > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -720,27 +762,45 @@ int conv_tiled(int style, int dtype, const void* x, const void* w, void* y,
         return int(err);
       }
     }
-    kernel<<<unsigned(ctas), kThreads, bytes, st>>>(
-        xp, decltype(xp)(w), yp, s, Ho, Wo, pl);
+    kernel<<<unsigned(ctas), kThreads, bytes, st>>>(args..., s, Ho, Wo, pl);
     return int(cudaGetLastError());
   };
   const bool k3 = KH == 3 && KW == 3;
-#define CNN_TILED(T, K)                                                     \
+#define CNN_VPU(T)                                                          \
   {                                                                         \
-    using A = AccOf<T>::type;                                               \
-    const T* xp = (const T*)x;                                              \
-    A* yp = (A*)y;                                                          \
-    if (!whole) return run(K<T, 0, false>, xp, yp);                         \
-    if (k3) return run(K<T, 3, true>, xp, yp);                              \
-    return run(K<T, 0, true>, xp, yp);                                      \
+    const T* xp = (const T*)x[0];                                           \
+    const T* wp = (const T*)w;                                              \
+    AccOf<T>::type* yp = (AccOf<T>::type*)y[0];                             \
+    if (!whole) return run(conv2d_vpu_tiled_kernel<T, 0, false>, xp, wp, yp); \
+    if (k3) return run(conv2d_vpu_tiled_kernel<T, 3, true>, xp, wp, yp);    \
+    return run(conv2d_vpu_tiled_kernel<T, 0, true>, xp, wp, yp);            \
+  }
+#define CNN_MXU(T, NS)                                                      \
+  {                                                                         \
+    Streams<T, NS> io;                                                      \
+    for (int j = 0; j < NS; ++j) {                                          \
+      io.x[j] = (const T*)x[j];                                             \
+      io.y[j] = (AccOf<T>::type*)y[j];                                      \
+    }                                                                       \
+    const T* wp = (const T*)w;                                              \
+    if (!whole) return run(conv2d_mxu_tiled_kernel<T, NS, 0, false>, io, wp); \
+    if (k3) return run(conv2d_mxu_tiled_kernel<T, NS, 3, true>, io, wp);    \
+    return run(conv2d_mxu_tiled_kernel<T, NS, 0, true>, io, wp);            \
   }
   if (style == kVpu) {
-    if (dtype == kF32) CNN_TILED(float, conv2d_vpu_tiled_kernel)
-    CNN_TILED(int8_t, conv2d_vpu_tiled_kernel)
+    if (dtype == kF32) CNN_VPU(float)
+    CNN_VPU(int8_t)
   }
-  if (dtype == kF32) CNN_TILED(float, conv2d_mxu_tiled_kernel)
-  CNN_TILED(int8_t, conv2d_mxu_tiled_kernel)
-#undef CNN_TILED
+  if (ns == 1) {
+    if (dtype == kF32) CNN_MXU(float, 1)
+    CNN_MXU(int8_t, 1)
+  }
+  if (dtype == kF32) CNN_MXU(float, 2)
+  if (dtype == kBF16) CNN_MXU(__nv_bfloat16, 2)
+  if (dtype == kI8) CNN_MXU(int8_t, 2)
+  CNN_MXU(int16_t, 2)
+#undef CNN_MXU
+#undef CNN_VPU
 }
 
 }  // namespace cnn
@@ -757,16 +817,16 @@ const char* cnn_error_string(int err) {
 int cnn_conv2d(int dtype, const void* x, const void* w, void* y, int N, int H,
                int W, int Cin, int KH, int KW, int Cout, int glog, int twlog,
                int th, int cc, int whole, void* stream) {
-  return conv_tiled(kMxu, dtype, x, w, y, N, H, W, Cin, KH, KW, Cout, glog,
-                    twlog, th, cc, whole, stream);
+  return conv_tiled(kMxu, 1, dtype, &x, w, &y, N, H, W, Cin, KH, KW, Cout,
+                    glog, twlog, th, cc, whole, stream);
 }
 
 // Conv1 (conv2d_ip1) on the tile plan of tile_plan(style="vpu").
 int cnn_conv1(int dtype, const void* x, const void* w, void* y, int N, int H,
               int W, int Cin, int KH, int KW, int Cout, int glog, int twlog,
               int th, int cc, int whole, void* stream) {
-  return conv_tiled(kVpu, dtype, x, w, y, N, H, W, Cin, KH, KW, Cout, glog,
-                    twlog, th, cc, whole, stream);
+  return conv_tiled(kVpu, 1, dtype, &x, w, &y, N, H, W, Cin, KH, KW, Cout,
+                    glog, twlog, th, cc, whole, stream);
 }
 
 int cnn_pool2d(int dtype, int mode, const void* x, void* y, int N, int H,
@@ -884,35 +944,26 @@ int cnn_fused(int style, int dtype, const void* x, const void* w,
   return int(cudaGetLastError());
 }
 
-// ip: 3 (Conv3, int8 only) or 4 (Conv4).
+// ip: 3 (Conv3, int8 only; bc output channels a block) or 4 (Conv4, on
+// the tile plan (glog, twlog, th, cc, whole) of tile_plan(style="mxu",
+// streams=2)).
 int cnn_conv2d_dual(int ip, int dtype, const void* xa, const void* xb,
                     const void* w, void* ya, void* yb, int N, int H, int W,
-                    int Cin, int KH, int KW, int Cout, int bc,
-                    void* stream) {
+                    int Cin, int KH, int KW, int Cout, int bc, int glog,
+                    int twlog, int th, int cc, int whole, void* stream) {
+  if (ip == 4) {
+    const void* const x[2] = {xa, xb};
+    void* const y[2] = {ya, yb};
+    return conv_tiled(kMxu, 2, dtype, x, w, y, N, H, W, Cin, KH, KW, Cout,
+                      glog, twlog, th, cc, whole, stream);
+  }
+  if (ip != 3 || dtype != kI8 || bc < 1) return int(cudaErrorInvalidValue);
   ConvShape s{H, W, Cin, KH, KW, Cout};
   int Ho = H - KH + 1, Wo = W - KW + 1;
   dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (Cout + bc - 1) / bc);
-  cudaStream_t st = cudaStream_t(stream);
-#define CNN_IP4(T)                                                          \
-  conv2d_ip4_kernel<T><<<grid, kThreads, 0, st>>>(                          \
-      (const T*)xa, (const T*)xb, (const T*)w,                              \
-      (AccOf<T>::type*)ya, (AccOf<T>::type*)yb, N, s, Ho, Wo, bc)
-  if (ip == 3 && dtype == kI8) {
-    conv2d_ip3_kernel<<<grid, kThreads, 0, st>>>(
-        (const int8_t*)xa, (const int8_t*)xb, (const int8_t*)w,
-        (int32_t*)ya, (int32_t*)yb, N, s, Ho, Wo, bc);
-  } else if (ip == 4 && dtype == kF32) {
-    CNN_IP4(float);
-  } else if (ip == 4 && dtype == kBF16) {
-    CNN_IP4(__nv_bfloat16);
-  } else if (ip == 4 && dtype == kI8) {
-    CNN_IP4(int8_t);
-  } else if (ip == 4 && dtype == kI16) {
-    CNN_IP4(int16_t);
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-#undef CNN_IP4
+  conv2d_ip3_kernel<<<grid, kThreads, 0, cudaStream_t(stream)>>>(
+      (const int8_t*)xa, (const int8_t*)xb, (const int8_t*)w, (int32_t*)ya,
+      (int32_t*)yb, N, s, Ho, Wo, bc);
   return int(cudaGetLastError());
 }
 

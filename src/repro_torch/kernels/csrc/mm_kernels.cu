@@ -5,13 +5,15 @@
 // mm_vpu on every dtype and mm_mxu / _mm_dual on f32.
 //
 // Built with the flags of cnn_kernels.cu (-fmad=false), which shares its
-// arithmetic helpers (cnn_device.cuh: widen, mac).  a (M, K) and b (K, N)
+// arithmetic helpers (cnn_device.cuh: mac).  a (M, K) and b (K, N)
 // are row-major, of one dtype: f32 or bf16 (f32 accumulator, bf16
-// widened exactly on load) or int8 (int32 accumulator, wrapping).  Every output is ONE sequential multiply-add chain over
-// k = 0 .. K-1 (explicit __fmaf_rn for floats), so results never depend
-// on the tiling, and f32 mm_mxu and mm_vpu agree bitwise.  The
-// reference's block hints (bm, bn, bk) are TPU VMEM tiling: the wrappers
-// validate them and they do not shape these launches.
+// widened exactly on load) or int8 (int32 accumulator, wrapping).  Every
+// output is ONE sequential multiply-add chain over k = 0 .. K-1
+// (explicit __fmaf_rn for floats), so results never depend on the
+// tiling: f32 mm_mxu and mm_vpu agree bitwise, and each stream of f32
+// _mm_dual equals an mm_mxu launch.  The reference's block hints (bm,
+// bn, bk) are TPU VMEM tiling: the wrappers validate them and they do
+// not shape these launches.
 //
 // mm_mxu_f32_kernel  replaces src/repro/kernels/matmul/mxu.py::mm_mxu
 //   on f32.  2*M*N*K operations on M*K + K*N inputs: at the FFN shapes of
@@ -29,6 +31,19 @@
 //   reference tolerance; a 3xTF32 route would move mm_mxu and _mm_dual
 //   together.
 //
+// mm_dual_f32_kernel  replaces src/repro/kernels/matmul/dual.py::_mm_dual
+//   (mm_dual_full) on f32.  Two a streams against one b: 4*M*N*K
+//   operations on 2*M*K + K*N inputs and two (M, N) outputs, bound by
+//   the FP32 rate.  mm_mxu_f32_kernel's body (mxu_f32_tiles) with two
+//   streams: per k-step a CTA stages both streams' a tiles and ONE b
+//   tile, and both streams read that b tile, as the reference's grid
+//   step loads one weight block for two accumulators.  Two 8 x 16
+//   register tiles would not fit, so each thread keeps 4 x 16 a stream
+//   (128 accumulators, as mm_mxu's; a CTA tile of 64 x 256 a stream,
+//   48 KB a stage, 24 shared loads per 512 FMAs).  The schedule and
+//   every output's chain are mm_mxu's, so each stream equals an mm_mxu
+//   launch bitwise.
+//
 // mm_vpu_kernel<T>  replaces src/repro/kernels/matmul/mxu.py::mm_vpu
 //   The logic-only member: no MMA instruction, FFMA (f32, bf16 widened
 //   on use) or IMAD (int8 into int32, wrapping) only.  Bound as mm_mxu by
@@ -43,17 +58,6 @@
 //   no bank conflict), and stores 4 columns at a time.  Each output
 //   is still ONE chain over k = 0 .. K-1 (no split-K), so it equals
 //   mm_mxu on f32 bitwise.
-//
-// mm_dual_kernel<float>  replaces src/repro/kernels/matmul/dual.py::
-//   _mm_dual (mm_dual_full) on f32.  Two a streams against one b: 4*M*N*K
-//   operations on 2*M*K + K*N inputs and two (M, N) outputs, bound by
-//   the FP32 rate.  K staged 8 deep in shared memory, two a tiles
-//   (transposed) and ONE b tile per k-step, both streams reading it: the
-//   weights cross device memory once for two outputs, as in the
-//   reference.  Two 8x8 register tiles would be 128 accumulators a
-//   thread, so each stream keeps 8x4 (a 128 x 64 CTA tile); each output
-//   is still mm_mxu's chain, so each stream equals an mm_mxu launch
-//   bitwise.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -65,7 +69,6 @@
 namespace mm {
 
 using cnn::mac;
-using cnn::widen;
 using tc::cp_async16;
 using tc::cp_async_commit;
 using tc::cp_async_wait;
@@ -74,108 +77,8 @@ using tc::smem_u32;
 enum Style { kVpu = 0, kMxu = 1 };
 enum DType { kF32 = 0, kI8 = 1, kBF16 = 4 };   // codes of cnn_kernels.cu
 
-constexpr int kTile = 128;       // CTA tile (rows and columns) of mm_mxu
-constexpr int kDepth = 8;        // K staged per shared-memory tile
-constexpr int kSide = 16;        // threads per side: 16 x 16 = 256
-constexpr int kReg = kTile / kSide;   // 8x8 outputs per thread
-
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<int8_t> { using type = int32_t; };
-
-// The tile body of mm_dual_kernel: NS streams a[s]
-// (M, K) against one b (K, N) into c[s].  The CTA owns kTile rows and
-// kSide * QN columns; per k-step it stages each stream's a tile
-// (transposed, widened) and ONE b tile in shared memory, and every
-// stream reads that b tile.  Thread (ty, tx) keeps a kReg x QN register
-// tile per stream: rows ty + 16r, columns tx + 16q.  Each output is one
-// multiply-add chain over k = 0 .. K-1 whatever NS and QN are.
-template <typename T, int NS, int QN>
-__device__ __forceinline__ void mm_tiles(
-    const T* const (&a)[NS], const T* __restrict__ b,
-    typename Acc<T>::type* const (&c)[NS], int M, int N, int K) {
-  using A = typename Acc<T>::type;
-  constexpr int kCols = kSide * QN;
-  __shared__ A as[NS][kDepth][kTile + 1];   // as[s][k][m]: a tiles
-  __shared__ A bs[kDepth][kCols];
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kCols;
-  A acc[NS][kReg][QN];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-#pragma unroll
-    for (int r = 0; r < kReg; ++r) {
-#pragma unroll
-      for (int q = 0; q < QN; ++q) acc[s][r][q] = A(0);
-    }
-  }
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kSide * kSide) {
-      int mm = e / kDepth, kk = e % kDepth;        // a: along k first
-      int gm = m0 + mm, gk = k0 + kk;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        as[s][kk][mm] = (gm < M && gk < K)
-                            ? widen<A>(a[s][size_t(gm) * K + gk]) : A(0);
-      }
-    }
-    for (int e = threadIdx.x; e < kCols * kDepth; e += kSide * kSide) {
-      int kb = e / kCols, nn = e % kCols;          // b: along n first
-      int gkb = k0 + kb, gn = n0 + nn;
-      bs[kb][nn] = (gkb < K && gn < N) ? widen<A>(b[size_t(gkb) * N + gn])
-                                       : A(0);
-    }
-    __syncthreads();
-    // only the live depth: a padded zero term could flip the sign of a
-    // zero sum, and results must not depend on the tiling
-    const int depth = min(kDepth, K - k0);
-    for (int kk = 0; kk < depth; ++kk) {
-      A bv[QN];
-#pragma unroll
-      for (int q = 0; q < QN; ++q) bv[q] = bs[kk][tx + kSide * q];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        A av[kReg];
-#pragma unroll
-        for (int r = 0; r < kReg; ++r) av[r] = as[s][kk][ty + kSide * r];
-#pragma unroll
-        for (int r = 0; r < kReg; ++r) {
-#pragma unroll
-          for (int q = 0; q < QN; ++q) {
-            acc[s][r][q] = mac(acc[s][r][q], av[r], bv[q]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-#pragma unroll
-    for (int r = 0; r < kReg; ++r) {
-      int gm = m0 + ty + kSide * r;
-      if (gm >= M) continue;
-#pragma unroll
-      for (int q = 0; q < QN; ++q) {
-        int gn = n0 + tx + kSide * q;
-        if (gn < N) c[s][size_t(gm) * N + gn] = acc[s][r][q];
-      }
-    }
-  }
-}
-
-// Two streams of kReg x kDualCols outputs each per thread (64
-// accumulators, as mm_mxu's one 8x8 tile): a 128 x 64 CTA tile.
-constexpr int kDualCols = 4;
-
-template <typename T>
-__global__ void __launch_bounds__(kSide * kSide)
-mm_dual_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
-               const T* __restrict__ b, typename Acc<T>::type* __restrict__ c1,
-               typename Acc<T>::type* __restrict__ c2, int M, int N, int K) {
-  const T* const src[2] = {a1, a2};
-  typename Acc<T>::type* const dst[2] = {c1, c2};
-  mm_tiles<T, 2, kDualCols>(src, b, dst, M, N, K);
-}
 
 // mm_vpu's tile: 128 x 128 outputs a CTA of 256 threads, each thread
 // 8 rows (ty + 16 r) x 8 columns (4 tx + 64 h + e, h < 2, e < 4).  Per
@@ -350,94 +253,122 @@ mm_vpu_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-// mm_mxu_f32_kernel's tile: 128 x 256 outputs a CTA of 256 threads, each
-// thread 8 rows (ty + 16 r) x 16 columns (4 tx + 64 h + e, h < 4, e < 4).
-// Per k-step the CTA stages 32 k: a (128 rows of 128 bytes, as it lies)
-// and b (32 rows of 256 columns, as it lies), 48 KB, in a ring of
-// kMxuStages stages filled by cp.async.
-constexpr int kMxuRows = 128;
-constexpr int kMxuCols = 256;
+// The f32 MXU tile of NS a streams against one b (mm_mxu_f32_kernel: one
+// stream, mm_dual_f32_kernel: two): a CTA of 256 threads, each thread R
+// rows of every stream (ty + 16 r) x 4 QH columns (4 tx + 64 h + e, h <
+// QH, e < 4), so a CTA owns 16 R rows of each stream x 64 QH columns.
+// Per k-step the CTA stages 32 k: each stream's a (16 R rows of 128
+// bytes, as it lies) and ONE b (32 rows of 64 QH columns, as it lies) in
+// a ring of kMxuStages stages filled by cp.async; every stream reads
+// that b tile.
 constexpr int kMxuThreads = 256;
 constexpr int kMxuStepK = 32;                          // K a k-step
 constexpr int kMxuStages = 3;
 constexpr int kMxuAChunks = kMxuStepK / 4;             // 16 bytes a row
-constexpr int kMxuBChunks = kMxuCols / 4;
-constexpr int kMxuABytes = kMxuRows * kMxuStepK * 4;   // 16 KB
-constexpr int kMxuBBytes = kMxuStepK * kMxuCols * 4;   // 32 KB
-constexpr int kMxuStageBytes = kMxuABytes + kMxuBBytes;
-constexpr int kMxuSmem = kMxuStages * kMxuStageBytes;  // 144 KB
 
-// f32 a (M, K) with rows lda apart and b (K, N) with rows ldb apart; lda
-// and ldb are multiples of 4 elements and both bases 16-byte aligned
-// (the wrapper pads where they are not).  Only the live depth K is
-// summed, k = 0 .. K-1 in order from +0 for every output.
-__global__ void __launch_bounds__(kMxuThreads, 1)
-mm_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ c, int M, int N, int K, int lda,
-                  int ldb) {
+template <int NS, int R, int QH>
+struct MxuTile {
+  static constexpr int kNS = NS, kR = R, kQH = QH;
+  static constexpr int kRows = 16 * R;                 // a rows a stream
+  static constexpr int kCols = 64 * QH;
+  static constexpr int kBChunks = kCols / 4;
+  static constexpr int kABytes = kRows * kMxuStepK * 4;    // one stream
+  static constexpr int kBBytes = kMxuStepK * kCols * 4;
+  static constexpr int kStageBytes = NS * kABytes + kBBytes;
+  static constexpr int kSmem = kMxuStages * kStageBytes;
+};
+// mm_mxu: 8 x 16 outputs a thread, a 128 x 256 CTA tile, 48 KB a stage.
+using MxuOne = MxuTile<1, 8, 4>;
+// mm_dual_full: 4 x 16 outputs a thread a stream (128 accumulators, as
+// mm_mxu's), a CTA tile of 64 x 256 a stream, 48 KB a stage.
+using MxuDual = MxuTile<2, 4, 4>;
+
+// f32 a[s] (M, K) with rows lda apart and b (K, N) with rows ldb apart
+// into c[s]; lda and ldb are multiples of 4 elements and every base
+// 16-byte aligned (the wrapper pads where they are not).  Only the live
+// depth K is summed, k = 0 .. K-1 in order from +0 for every output, so
+// each stream equals a one-stream launch bitwise whatever the tile.
+template <typename L>
+__device__ __forceinline__ void mxu_f32_tiles(
+    const float* const (&a)[L::kNS], const float* __restrict__ b,
+    float* const (&c)[L::kNS], int M, int N, int K, int lda, int ldb) {
+  constexpr int NS = L::kNS, R = L::kR, QH = L::kQH;
+  constexpr int kC = 4 * QH;                           // columns a thread
   extern __shared__ __align__(16) uint8_t smem[];
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.y * kMxuRows, n0 = blockIdx.x * kMxuCols;
+  const int m0 = blockIdx.y * L::kRows, n0 = blockIdx.x * L::kCols;
   const int steps = (K + kMxuStepK - 1) / kMxuStepK;
   const uint32_t base = smem_u32(smem);
 
   auto load = [&](int stage, int step) {
-    const uint32_t sa = base + stage * kMxuStageBytes, sb = sa + kMxuABytes;
+    const uint32_t st = base + stage * L::kStageBytes;
+    const uint32_t sb = st + NS * L::kABytes;
     const int k0 = step * kMxuStepK;
 #pragma unroll
-    for (int j = 0; j < kMxuRows * kMxuAChunks / kMxuThreads; ++j) {   // a
-      const int e = t + kMxuThreads * j, r = e / kMxuAChunks;
-      const int ch = e % kMxuAChunks;
-      const int gm = m0 + r, gk = k0 + ch * 4;
-      const bool ok = gm < M && gk < K;
-      cp_async16(sa + r * (kMxuStepK * 4) + ch * 16,
-                 ok ? a + size_t(gm) * lda + gk : a, ok);
+    for (int s = 0; s < NS; ++s) {                     // a
+      const uint32_t sa = st + s * L::kABytes;
+#pragma unroll
+      for (int j = 0; j < L::kRows * kMxuAChunks / kMxuThreads; ++j) {
+        const int e = t + kMxuThreads * j, r = e / kMxuAChunks;
+        const int ch = e % kMxuAChunks;
+        const int gm = m0 + r, gk = k0 + ch * 4;
+        const bool ok = gm < M && gk < K;
+        cp_async16(sa + r * (kMxuStepK * 4) + ch * 16,
+                   ok ? a[s] + size_t(gm) * lda + gk : a[s], ok);
+      }
     }
 #pragma unroll
-    for (int j = 0; j < kMxuStepK * kMxuBChunks / kMxuThreads; ++j) {  // b
-      const int e = t + kMxuThreads * j, r = e / kMxuBChunks;
-      const int ch = e % kMxuBChunks;
+    for (int j = 0; j < kMxuStepK * L::kBChunks / kMxuThreads; ++j) {   // b
+      const int e = t + kMxuThreads * j, r = e / L::kBChunks;
+      const int ch = e % L::kBChunks;
       const int gk = k0 + r, gn = n0 + ch * 4;
       const bool ok = gk < K && gn < ldb;
-      cp_async16(sb + r * (kMxuCols * 4) + ch * 16,
+      cp_async16(sb + r * (L::kCols * 4) + ch * 16,
                  ok ? b + size_t(gk) * ldb + gn : b, ok);
     }
   };
 
-  float acc[8][16];
+  float acc[NS][R][kC];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int s = 0; s < NS; ++s) {
 #pragma unroll
-    for (int q = 0; q < 16; ++q) acc[r][q] = 0.0f;
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int q = 0; q < kC; ++q) acc[s][r][q] = 0.0f;
+    }
   }
   // depth k of the staged step: 32 FULL, else the live remainder (a
   // padded zero term could flip the sign of a zero sum, and results must
-  // not depend on the tiling).  Per 4 k each thread reads its 8 a rows
-  // as one 16-byte load each and, per k, its 16 b columns as four; b's
-  // next k is read while this k's 128 multiply-adds issue.
+  // not depend on the tiling).  Per 4 k each thread reads its R a rows of
+  // every stream as one 16-byte load each and, per k, its 4 QH b columns
+  // as QH; b's next k is read while this k's multiply-adds issue.
   auto step_body = [&](const uint8_t* st, int depth, auto full) {
     constexpr bool kFull = decltype(full)::value;
-    const float* sa = reinterpret_cast<const float*>(st);
     const float* sb =
-        reinterpret_cast<const float*>(st + kMxuABytes) + 4 * tx;
-    float bv[2][16];
-    auto load_b = [&](int k, float (&v)[16]) {
+        reinterpret_cast<const float*>(st + NS * L::kABytes) + 4 * tx;
+    float bv[2][kC];
+    auto load_b = [&](int k, float (&v)[kC]) {
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {
+      for (int h = 0; h < QH; ++h) {
         const float4 x =
-            *reinterpret_cast<const float4*>(sb + k * kMxuCols + 64 * h);
+            *reinterpret_cast<const float4*>(sb + k * L::kCols + 64 * h);
         v[4 * h] = x.x; v[4 * h + 1] = x.y; v[4 * h + 2] = x.z;
         v[4 * h + 3] = x.w;
       }
     };
-    auto load_a = [&](int ch, float4 (&af)[8]) {
+    auto load_a = [&](int ch, float4 (&af)[NS][R]) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        af[r] = *reinterpret_cast<const float4*>(
-            sa + (ty + 16 * r) * kMxuStepK + ch * 4);
+      for (int s = 0; s < NS; ++s) {
+        const float* sa =
+            reinterpret_cast<const float*>(st + s * L::kABytes);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          af[s][r] = *reinterpret_cast<const float4*>(
+              sa + (ty + 16 * r) * kMxuStepK + ch * 4);
+        }
       }
     };
-    float4 af[8];
+    float4 af[NS][R];
     load_b(0, bv[0]);
     load_a(0, af);
     // 4 k of a's 16-byte runs: kk indexes bv, as ch * 4 is even
@@ -451,11 +382,14 @@ mm_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
           load_b(k + 1, bv[(kk + 1) % 2]);
         }
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float av = (&af[r].x)[kk];
+        for (int s = 0; s < NS; ++s) {
 #pragma unroll
-          for (int q = 0; q < 16; ++q) {
-            acc[r][q] = __fmaf_rn(av, bv[kk % 2][q], acc[r][q]);
+          for (int r = 0; r < R; ++r) {
+            const float av = (&af[s][r].x)[kk];
+#pragma unroll
+            for (int q = 0; q < kC; ++q) {
+              acc[s][r][q] = __fmaf_rn(av, bv[kk % 2][q], acc[s][r][q]);
+            }
           }
         }
       }
@@ -478,7 +412,7 @@ mm_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const int pre = step + kMxuStages - 1;   // the one read last is free
     if (pre < steps) load(pre % kMxuStages, pre);
     cp_async_commit();
-    const uint8_t* st = smem + (step % kMxuStages) * kMxuStageBytes;
+    const uint8_t* st = smem + (step % kMxuStages) * L::kStageBytes;
     const int depth = min(kMxuStepK, K - step * kMxuStepK);
     if (depth == kMxuStepK) {
       step_body(st, depth, std::true_type{});
@@ -490,39 +424,62 @@ mm_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
   const bool quads = N % 4 == 0;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int gm = m0 + ty + 16 * r;
-    if (gm >= M) continue;
+  for (int s = 0; s < NS; ++s) {
 #pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const int gn = n0 + 4 * tx + 64 * h;
-      float* p = c + size_t(gm) * N + gn;
-      const float v[4] = {acc[r][4 * h], acc[r][4 * h + 1],
-                          acc[r][4 * h + 2], acc[r][4 * h + 3]};
-      if (quads && gn < N) {
-        store4(p, v);
-      } else {
+    for (int r = 0; r < R; ++r) {
+      const int gm = m0 + ty + 16 * r;
+      if (gm >= M) continue;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (gn + e < N) p[e] = v[e];
+      for (int h = 0; h < QH; ++h) {
+        const int gn = n0 + 4 * tx + 64 * h;
+        float* p = c[s] + size_t(gm) * N + gn;
+        const float v[4] = {acc[s][r][4 * h], acc[s][r][4 * h + 1],
+                            acc[s][r][4 * h + 2], acc[s][r][4 * h + 3]};
+        if (quads && gn < N) {
+          store4(p, v);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (gn + e < N) p[e] = v[e];
+          }
         }
       }
     }
   }
 }
 
-int launch_mxu_f32(const void* a, const void* b, void* c, int M, int N, int K,
-                   int lda, int ldb, cudaStream_t st) {
+__global__ void __launch_bounds__(kMxuThreads, 1)
+mm_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ c, int M, int N, int K, int lda,
+                  int ldb) {
+  const float* const src[1] = {a};
+  float* const dst[1] = {c};
+  mxu_f32_tiles<MxuOne>(src, b, dst, M, N, K, lda, ldb);
+}
+
+__global__ void __launch_bounds__(kMxuThreads, 1)
+mm_dual_f32_kernel(const float* __restrict__ a1,
+                   const float* __restrict__ a2, const float* __restrict__ b,
+                   float* __restrict__ c1, float* __restrict__ c2, int M,
+                   int N, int K, int lda, int ldb) {
+  const float* const src[2] = {a1, a2};
+  float* const dst[2] = {c1, c2};
+  mxu_f32_tiles<MxuDual>(src, b, dst, M, N, K, lda, ldb);
+}
+
+// kernel on the tile L: ceil(N / columns) x ceil(M / rows) CTAs of
+// kMxuThreads with L's dynamic shared memory.
+template <typename L, typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, int M, int N, cudaStream_t st,
+                 Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      mm_mxu_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMxuSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) {
     cudaGetLastError();              // clear it: no later launch reads it
     return int(err);
   }
-  dim3 grid((N + kMxuCols - 1) / kMxuCols, (M + kMxuRows - 1) / kMxuRows);
-  mm_mxu_f32_kernel<<<grid, kMxuThreads, kMxuSmem, st>>>(
-      (const float*)a, (const float*)b, (float*)c, M, N, K, lda, ldb);
+  dim3 grid((N + L::kCols - 1) / L::kCols, (M + L::kRows - 1) / L::kRows);
+  kernel<<<grid, kMxuThreads, L::kSmem, st>>>(args...);
   return int(cudaGetLastError());
 }
 
@@ -543,16 +500,6 @@ int launch_vpu(const void* a, const void* b, void* c, int M, int N, int K,
   return int(cudaGetLastError());
 }
 
-int launch_dual(const void* a1, const void* a2, const void* b, void* c1,
-                void* c2, int M, int N, int K, cudaStream_t st) {
-  dim3 grid((N + kSide * kDualCols - 1) / (kSide * kDualCols),
-            (M + kTile - 1) / kTile);
-  mm_dual_kernel<float><<<grid, kSide * kSide, 0, st>>>(
-      (const float*)a1, (const float*)a2, (const float*)b, (float*)c1,
-      (float*)c2, M, N, K);
-  return int(cudaGetLastError());
-}
-
 }  // namespace mm
 
 extern "C" {
@@ -565,9 +512,10 @@ int cnn_matmul(int style, int dtype, const void* a, const void* b, void* c,
                int M, int N, int K, int lda, int ldb, void* stream) {
   cudaStream_t st = cudaStream_t(stream);
   if (style == mm::kMxu) {
-    return dtype == mm::kF32
-               ? mm::launch_mxu_f32(a, b, c, M, N, K, lda, ldb, st)
-               : int(cudaErrorInvalidValue);
+    if (dtype != mm::kF32) return int(cudaErrorInvalidValue);
+    return mm::launch_tiles<mm::MxuOne>(mm::mm_mxu_f32_kernel, M, N, st,
+                                        (const float*)a, (const float*)b,
+                                        (float*)c, M, N, K, lda, ldb);
   }
   if (style != mm::kVpu) return int(cudaErrorInvalidValue);
   if (dtype == mm::kF32) {
@@ -582,11 +530,16 @@ int cnn_matmul(int style, int dtype, const void* a, const void* b, void* c,
   return int(cudaErrorInvalidValue);
 }
 
-// _mm_dual on f32 (int8 and bf16 run on mm_tc_kernels.cu)
+// _mm_dual on f32 (int8 and bf16 run on mm_tc_kernels.cu); the layout of
+// cnn_matmul's operands.
 int cnn_matmul_dual(int dtype, const void* a1, const void* a2, const void* b,
-                    void* c1, void* c2, int M, int N, int K, void* stream) {
+                    void* c1, void* c2, int M, int N, int K, int lda, int ldb,
+                    void* stream) {
   if (dtype != mm::kF32) return int(cudaErrorInvalidValue);
-  return mm::launch_dual(a1, a2, b, c1, c2, M, N, K, cudaStream_t(stream));
+  return mm::launch_tiles<mm::MxuDual>(
+      mm::mm_dual_f32_kernel, M, N, cudaStream_t(stream), (const float*)a1,
+      (const float*)a2, (const float*)b, (float*)c1, (float*)c2, M, N, K, lda,
+      ldb);
 }
 
 }  // extern "C"

@@ -58,9 +58,9 @@ _SIGNATURES = {
     "cnn_pool2d_im2col": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P),
     "cnn_conv2d_dual": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _P),
     "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cnn_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "cnn_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mm_tc_matmul": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     "mm_tc_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "attn_flash": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),

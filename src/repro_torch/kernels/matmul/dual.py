@@ -24,10 +24,14 @@ of one (the accumulator registers cap the rows a tile can feed), so the
 kernel moves the bytes of two ``mm_mxu`` launches in one launch.  Each
 output sees ``mm_mxu``'s instruction, k-chunk
 order and accumulator, so each stream equals an ``mm_mxu`` launch
-bitwise.  On f32 they run ``mm_dual_kernel<float>`` (``csrc/
-mm_kernels.cu``, CUDA cores: ``mm_mxu``'s f32 tile body with two a
-tiles against one shared b tile), again equal to two ``mm_mxu`` launches
-bitwise.  ``bm/bn/bk`` are validated hints that do not shape the launch.
+bitwise.  On f32 they run ``mm_dual_f32_kernel`` (``csrc/mm_kernels.cu``,
+CUDA cores): ``mm_mxu``'s f32 body (``mxu_f32_tiles``) with two streams,
+its 3-stage cp.async ring of 32-k steps staging both streams' a tiles
+and ONE b tile, a 4 x 16 register tile a stream; each output is
+``mm_mxu``'s FMA chain, so each stream equals an ``mm_mxu`` launch
+bitwise.  Every route takes its operands as ``pad_tc_operands`` lays
+them out (``launch_operands``).  ``bm/bn/bk`` are validated hints that
+do not shape the launch.
 The plain versions are the family oracle (``ref.matmul_dual_ref``).
 """
 from __future__ import annotations
@@ -73,26 +77,38 @@ def entry_point(a1_dtype: torch.dtype, a2_dtype: torch.dtype,
             else "cnn_matmul_dual")
 
 
+def launch_operands(a1, a2, b):
+    """What one launch for operands of one dtype hands the kernel: the C
+    entry point (``entry_point``), the operands as ``pad_tc_operands``
+    lays them out (K and b's row stride padded to 16 bytes, aligned
+    bases), and the dims after (M, N): the padded K and b's row stride
+    on the tensor cores, the live K and both row strides on CUDA cores
+    (which sum only the live depth)."""
+    entry = entry_point(a1.dtype, a2.dtype, b.dtype)
+    k = a1.shape[1]
+    (a1, a2), b = pad_tc_operands((a1, a2), b)
+    dims = ((a1.shape[1], b.shape[1]) if entry == "mm_tc_matmul_dual"
+            else (k, a1.shape[1], b.shape[1]))
+    return entry, (a1, a2, b), dims
+
+
 def _launch(counter: str, a1, a2, b):
     """Launch ``entry_point``'s kernel once for CUDA operands of one
     dtype."""
-    entry = entry_point(a1.dtype, a2.dtype, b.dtype)
+    entry_point(a1.dtype, a2.dtype, b.dtype)
     for name, t in (("a1", a1), ("a2", a2), ("b", b)):
         cuda.require(t, name)
         if t.device != a1.device:
             raise ValueError(f"a1 and {name} lie on {a1.device} and "
                              f"{t.device}")
-    m, k = a1.shape
+    m = a1.shape[0]
     n = b.shape[1]
     acc = _acc_dtype(a1, b)
     y1 = torch.empty((m, n), dtype=acc, device=a1.device)
     y2 = torch.empty((m, n), dtype=acc, device=a1.device)
     if y1.numel() == 0:
         return y1, y2
-    dims = [k]
-    if entry == "mm_tc_matmul_dual":          # padded K and b's row stride
-        (a1, a2), b = pad_tc_operands((a1, a2), b)
-        dims = [a1.shape[1], b.shape[1]]
+    entry, (a1, a2, b), dims = launch_operands(a1, a2, b)
     cuda.launch(counter, entry, a1.device, cuda.DTYPE_CODE[a1.dtype],
                 a1.data_ptr(), a2.data_ptr(), b.data_ptr(), y1.data_ptr(),
                 y2.data_ptr(), m, n, *dims)

@@ -17,9 +17,10 @@ tiles in shared memory as they lie and transposes them there into the
 layout ``wgmma`` reads; bf16 b goes in as it lies and ``wgmma``
 transposes it.  On f32 operands it
 stays on CUDA cores (``mm_mxu_f32_kernel`` in ``csrc/mm_kernels.cu``):
-a 128 x 256 CTA tile fed by a 4-stage cp.async ring of (128, 16) a and
-(16, 256) b tiles, and an 8 x 16 register tile a thread read with
-16-byte shared loads, so FP32 FMAs take most issue slots.  Hopper has no
+a 128 x 256 CTA tile fed by a 3-stage cp.async ring of (128, 32) a and
+(32, 256) b tiles, and an 8 x 16 register tile a thread read with
+16-byte shared loads, so FP32 FMAs take most issue slots; f32
+``mm_dual_full`` runs the same body with two a streams.  Hopper has no
 IEEE-f32 MMA, and TF32 misses the reference tolerance.
 
 ``mm_vpu`` is the Conv1 analogue: no dot — it multiplies and sums

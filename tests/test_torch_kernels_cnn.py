@@ -196,22 +196,25 @@ def test_conv1_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
         np.testing.assert_array_equal(_np(got), want)
 
 
-def _conv2_tiles(x, w, plan, acc_dtype):
-    """``conv2d_mxu_tiled_kernel``'s decomposition on the CPU: each tile
-    of ``plan`` computed only from what the kernel stages for it (the
-    input halo, each pixel at ``inner.pixel_pitch``, or per (tap, chunk)
-    the shifted tile's chunk of channels), in the Conv2 order: ONE chain
-    per output over (i, j, cin) from 0 in ``acc_dtype``, the taps
-    outermost and the chunks ascending, 4 channels a load where a whole
-    quad remains, then one at a time.  Returns the output and the number
-    of tiles that wrote each output."""
-    n, h, w_, cin = x.shape
+def _conv2_tiles(xs, w, plan, acc_dtype):
+    """``conv2d_mxu_tiled_kernel``'s decomposition on the CPU for the
+    streams ``xs`` (one for Conv2, two for Conv4) sharing ``w``: each
+    tile of ``plan`` computed only from what the kernel stages for it
+    (each stream's input halo, each pixel at ``inner.pixel_pitch``, or
+    per (tap, chunk) each stream's shifted tile's chunk of channels, and
+    the weights once), in the Conv2 order: ONE chain per output over (i,
+    j, cin) from 0 in ``acc_dtype``, the taps outermost and the chunks
+    ascending, 4 channels a load where a whole quad remains, then one at
+    a time, each weight row feeding every stream.  Returns the outputs
+    and the number of tiles that wrote each output, stacked by stream."""
+    x = torch.stack(tuple(xs))
+    ns, n, h, w_, cin = x.shape
     kh, kw, _, cout = w.shape
     ho, wo = h - kh + 1, w_ - kw + 1
     vec = 16 // x.element_size()
     xa, wa = x.to(acc_dtype), w.to(acc_dtype)
-    y = torch.zeros((n, ho, wo, cout), dtype=acc_dtype)
-    hits = torch.zeros((n, ho, wo, cout), dtype=torch.int32)
+    y = torch.zeros((ns, n, ho, wo, cout), dtype=acc_dtype)
+    hits = torch.zeros((ns, n, ho, wo, cout), dtype=torch.int32)
     chunks = [(c, min(c + plan.cc, cin)) for c in range(0, cin, plan.cc)]
     assert plan.whole == (chunks == [(0, cin)] and plan.cc == cin)
     # a staged pixel: whole 16-byte chunks, an odd number of them, and
@@ -226,18 +229,19 @@ def _conv2_tiles(x, w, plan, acc_dtype):
         for h0, w0, c0 in tiles:
             r, c, q = (min(plan.th, ho - h0), min(plan.tw, wo - w0),
                        min(plan.bc, cout - c0))
-            halo = xa[b, h0:h0 + plan.th + kh - 1, w0:w0 + plan.tw + kw - 1]
-            acc = torch.zeros((r, c, q), dtype=acc_dtype)
+            halo = xa[:, b, h0:h0 + plan.th + kh - 1,
+                      w0:w0 + plan.tw + kw - 1]
+            acc = torch.zeros((ns, r, c, q), dtype=acc_dtype)
             for i in range(kh):
                 for j in range(kw):
                     for ca, cb in chunks:
                         if plan.whole:
-                            box = halo[i:i + r, j:j + c, ca:cb]
+                            box = halo[:, i:i + r, j:j + c, ca:cb]
                         else:
-                            box = xa[b, h0 + i:h0 + i + r, w0 + j:w0 + j + c,
-                                     ca:cb]
-                        # the staged box holds every input the windows read
-                        assert box.shape == (r, c, cb - ca)
+                            box = xa[:, b, h0 + i:h0 + i + r,
+                                     w0 + j:w0 + j + c, ca:cb]
+                        # the staged boxes hold every input the windows read
+                        assert box.shape == (ns, r, c, cb - ca)
                         n4 = (cb - ca) // 4 * 4
                         runs = [range(k0, k0 + 4) for k0 in range(0, n4, 4)]
                         runs += [range(k, k + 1) for k in range(n4, cb - ca)]
@@ -245,8 +249,8 @@ def _conv2_tiles(x, w, plan, acc_dtype):
                             for k in run:
                                 acc = acc + (box[..., k, None]
                                              * wa[i, j, ca + k, c0:c0 + q])
-            y[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] = acc
-            hits[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] += 1
+            y[:, b, h0:h0 + r, w0:w0 + c, c0:c0 + q] = acc
+            hits[:, b, h0:h0 + r, w0:w0 + c, c0:c0 + q] += 1
     return y, hits
 
 
@@ -290,20 +294,93 @@ def test_conv2_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
         assert plan.cc < cin and plan.cc % (16 // size) == 0
     assert staged <= budget or plan.cc == 16 // size
     if dtype == "float32":
-        f32, hits = _conv2_tiles(tx, tw, plan, torch.float32)
+        f32, hits = _conv2_tiles((tx,), tw, plan, torch.float32)
         assert (hits == 1).all()
-        assert torch.equal(f32, t_inner.accumulate_mxu(
+        assert torch.equal(f32[0], t_inner.accumulate_mxu(
             tx, tw, ho=h - kh + 1, wo=w_ - kw + 1, acc_dtype=torch.float32))
-        got = _conv2_tiles(tx, tw, plan, torch.float64)[0].float()
+        got = _conv2_tiles((tx,), tw, plan, torch.float64)[0][0].float()
     else:
-        got, hits = _conv2_tiles(tx, tw, plan, torch.int32)
+        got, hits = _conv2_tiles((tx,), tw, plan, torch.int32)
         assert (hits == 1).all()
+        got = got[0]
     assert torch.equal(got, t_ip2.conv2d_ip2_plain(tx, tw))
     want = _np(j_ip2.conv2d_ip2(jx, jw))
     if dtype == "float32":
         np.testing.assert_allclose(_np(got), want, **F32)
     else:
         np.testing.assert_array_equal(_np(got), want)
+
+
+def _conv4_operands(rng, dtype, xs, ws):
+    """Two streams and weights as (jax, torch) pairs: floats standard
+    normal (bf16 rounded from f32 in both packages), integers over their
+    full range."""
+    if dtype in ("int8", "int16"):
+        info = np.iinfo(dtype)
+        arrs = [rng.integers(info.min, info.max, s, endpoint=True).astype(
+            dtype) for s in (xs, xs, ws)]
+        return [_both(a) for a in arrs]
+    arrs = [_randn(rng, s) for s in (xs, xs, ws)]
+    if dtype == "float32":
+        return [_both(a) for a in arrs]
+    return [(jnp.asarray(a).astype(jnp.bfloat16),
+             torch.from_numpy(a).to(torch.bfloat16)) for a in arrs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int16", "bfloat16"])
+@pytest.mark.parametrize("xs,ws,block_cout,smem", CONV2_PLANS,
+                         ids=CONV2_IDS)
+def test_conv4_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
+    """Conv4 runs Conv2's tiled kernel with two streams: the plan with
+    ``streams=2`` cuts the CTAs as Conv2's does and covers every output
+    of both streams once, the staged bytes (both halos or chunks, the
+    weights once) fit the budget or Cin is chunked, and each stream's
+    tile-by-tile chain is bitwise equal to the one-stream chain: in f32
+    to ``inner.accumulate_mxu``'s, and (f64 for floats, int32 wrapping
+    for integers) to ``conv2d_ip4_plain``, which matches the reference's
+    kernel, exactly for integers."""
+    (jxa, txa), (jxb, txb), (jw, tw) = _conv4_operands(rng, dtype, xs, ws)
+    n, h, w_, cin = xs
+    kh, kw, _, cout = ws
+    kwargs = {} if smem is None else dict(smem_bytes=smem)
+    size = txa.element_size()
+    plan = t_inner.tile_plan(h, w_, cin, kh, kw, cout, itemsize=size,
+                             block_cout=block_cout, style="mxu", streams=2,
+                             **kwargs)
+    one = t_inner.tile_plan(h, w_, cin, kh, kw, cout, itemsize=size,
+                            block_cout=block_cout, style="mxu")
+    assert (plan.glog, plan.twlog, plan.th) == (one.glog, one.twlog, one.th)
+    assert plan.cc <= one.cc
+    staged = t_inner.tile_smem_bytes(plan, kh, kw, cin, itemsize=size,
+                                     style="mxu", streams=2)
+    assert staged == 2 * t_inner.tile_smem_bytes(
+        plan, kh, kw, cin, itemsize=size, style="mxu") - (
+        (kh * kw * cin if plan.whole else plan.cc) * plan.bc * size)
+    budget = t_inner.SMEM_BYTES if smem is None else smem
+    if smem is not None:
+        assert not plan.whole
+    if not plan.whole:
+        assert plan.cc < cin and plan.cc % (16 // size) == 0
+    assert staged <= budget or plan.cc == 16 // size
+    ho, wo = h - kh + 1, w_ - kw + 1
+    if txa.is_floating_point():
+        f32, hits = _conv2_tiles((txa, txb), tw, plan, torch.float32)
+        assert (hits == 1).all()
+        for got, x in zip(f32, (txa, txb)):
+            assert torch.equal(got, t_inner.accumulate_mxu(
+                x, tw, ho=ho, wo=wo, acc_dtype=torch.float32))
+        ys = _conv2_tiles((txa, txb), tw, plan, torch.float64)[0].float()
+    else:
+        ys, hits = _conv2_tiles((txa, txb), tw, plan, torch.int32)
+        assert (hits == 1).all()
+    plain = t_ip4.conv2d_ip4_plain(txa, txb, tw)
+    want = j_ip4.conv2d_ip4(jxa, jxb, jw, block_cout=block_cout)
+    for got, p, j in zip(ys, plain, want):
+        assert torch.equal(got, p)
+        if txa.is_floating_point():
+            np.testing.assert_allclose(_np(got), _np(j), **F32)
+        else:
+            np.testing.assert_array_equal(_np(got), _np(j))
 
 
 def test_tile_plan_styles_share_the_cut():
@@ -320,6 +397,9 @@ def test_tile_plan_styles_share_the_cut():
         assert (vpu.glog, vpu.twlog, vpu.th) == (mxu.glog, mxu.twlog, mxu.th)
     with pytest.raises(ValueError, match="unknown style"):
         t_inner.tile_plan(8, 8, 3, 3, 3, 4, itemsize=4, style="dual")
+    with pytest.raises(ValueError, match="takes no 2 streams"):
+        t_inner.tile_plan(8, 8, 3, 3, 3, 4, itemsize=4, style="vpu",
+                          streams=2)
 
 
 # --------------------------------------------------------------------------

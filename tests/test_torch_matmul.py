@@ -198,6 +198,44 @@ def test_pad_tc_operands_then_crop_equals_unpadded(rng, shape, dtype):
     assert q1 is p1 and qb is pb
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", [(300, 1000, 520), (1, 17, 3),
+                                   (130, 72, 1000)],
+                         ids=["300x1000x520", "1x17x3", "130x72x1000"])
+def test_dual_launch_operands_pad_both_streams(rng, shape, dtype):
+    """What a ``mm_dual_*`` launch hands its kernel at ragged K and N:
+    both streams and b with 16-byte rows and 16-byte aligned bases (f32
+    too, whose CUDA-core kernel stages them with cp.async as ``mm_mxu``'s
+    does), the live K and both row strides on CUDA cores (f32), the
+    padded K and b's row stride on the tensor cores; the padded product
+    cropped to (M, N) equals the unpadded one (exactly for int8, within
+    ``rtol=1e-5, atol=1e-6`` for floats, as the CPU BLAS blocks the
+    shapes differently)."""
+    m, k, n = shape
+    if dtype == "int8":
+        a1, a2, b = (_int8(rng, s)[1] for s in ((m, k), (m, k), (k, n)))
+    else:
+        a1, a2, b = (_normal(rng, s)[1].to(getattr(torch, dtype))
+                     for s in ((m, k), (m, k), (k, n)))
+    entry, (p1, p2, pb), dims = t_dual.launch_operands(a1, a2, b)
+    align = 16 // b.element_size()
+    kp, np_ = -(-k // align) * align, -(-n // align) * align
+    assert p1.shape == p2.shape == (m, kp) and pb.shape == (kp, np_)
+    for t in (p1, p2, pb):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        assert t.shape[1] * t.element_size() % 16 == 0
+    if dtype == "float32":
+        assert entry == "cnn_matmul_dual" and dims == (k, kp, np_)
+    else:
+        assert entry == "mm_tc_matmul_dual" and dims == (kp, np_)
+    for a, p in ((a1, p1), (a2, p2)):
+        got, want = t_ref(p, pb)[:, :n], t_ref(a, b)
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype,mxu,dual", [
     (torch.int8, "mm_tc_matmul", "mm_tc_matmul_dual"),
     (torch.bfloat16, "mm_tc_matmul", "mm_tc_matmul_dual"),
@@ -289,7 +327,9 @@ def test_chip_smoke_names_every_kernel():
     """Every row of ``chip_smoke.py``'s kernels line names the CUDA
     kernels it times (``KERNEL``), each defined in the row's source:
     f32 ``mm_mxu`` on ``mm_mxu_f32_kernel`` and ``conv2d_ip2`` on
-    ``conv2d_mxu_tiled_kernel``, both in the CUDA-core sources."""
+    ``conv2d_mxu_tiled_kernel``, both in the CUDA-core sources, and
+    their dual-stream siblings (f32 ``mm_dual_full``, ``conv2d_ip4``) on
+    the same bodies."""
     import importlib.util
     import pathlib
     root = pathlib.Path(__file__).resolve().parents[1]
@@ -306,6 +346,11 @@ def test_chip_smoke_names_every_kernel():
     assert smoke.KERNEL["mm_mxu"] == "mm_mxu_f32_kernel"
     assert smoke.KERNEL["conv2d_ip2"] == "conv2d_mxu_tiled_kernel"
     assert smoke.SOURCE["conv2d_ip2"] == smoke.CSRC
+    # the dual-stream members on f32 run their single-stream sibling's body
+    assert smoke.KERNEL["conv2d_ip4"] == "conv2d_mxu_tiled_kernel"
+    assert smoke.SOURCE["conv2d_ip4"] == smoke.CSRC
+    assert smoke.KERNEL["mm_dual_full (f32)"] == "mm_dual_f32_kernel"
+    assert smoke.SOURCE["mm_dual_full (f32)"] == smoke.CSRC_MM
 
 
 # --------------------------------------------------------------------------
