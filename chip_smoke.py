@@ -20,12 +20,26 @@ and prints no result):
    and bf16, ``block_cout`` 1/5/16/128, one launch a call, integers exact
    and floats within ``rtol=1e-4, atol=1e-5`` of the plain version, f32
    and int8 streams bitwise equal to ``conv2d_ip2`` launches;
+   ``conv2d_ip1`` and ``conv2d_ip2`` at ``CONV_RAGGED`` on bf16 and int16
+   (``conv_dtype_checks``: one launch a call, int16 exact, bf16 within
+   ``rtol=1e-4, atol=1e-5``, ``block_cout`` 1/5/16/128 bitwise, fused ==
+   chain for both styles); ``activation_exact`` (the vector kernel) on
+   every dtype it takes at ``ACT_SHAPES``, its input at ``ACT_OFFSETS``
+   bytes past a 16-byte boundary, every kind, one launch a call: equal
+   to the plain version (relu/relu6 bitwise, bf16 within one bf16
+   rounding) and, on f32, bitwise equal to the fused kernels'
+   activation; the pools, the LUT and the activation on bf16
+   (``bf16_elementwise_checks``: max pools and the LUT bitwise in bf16);
 4. serve  — ``AdaptiveServer(device="cuda")`` with the default CNN
    frontend answers 8 seeded 224x224x3 requests through the fused plan
    (launch counters reset just before and read just after), a
    ``fuse=False`` server answers the same trace through the standalone
    kernels bitwise equal, and a ``device="cpu"`` server (plain versions)
-   agrees within tolerance;
+   agrees within tolerance; the same for a bf16 and an int16 frontend
+   (``FRONTEND_DTYPES``, ``serve_dtype_checks``): fused and unfused on the
+   card, bitwise equal, within ``rtol=1e-4, atol=1e-5`` of the CPU
+   server with equal accounting, int16's block 0 bitwise equal to the
+   CPU's;
    Then the two precision-ladder deployments (``LADDER``): the LUT
    activation and the im2col pool against their plain versions
    bit-exact (NaN, +-inf and exact half-step ties included); each
@@ -81,11 +95,14 @@ and prints no result):
    ``TC_RAGGED`` and, planned by ``matmul_dual(budget=)``, at the sweep's
    FFN: one launch, each stream bitwise equal to ``mm_mxu``;
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
-   kernels (``LOGIC_ONLY``), IGMMA in the int8 and HGMMA in the bf16
+   kernels (``LOGIC_ONLY``: the activations and ``pool2d_kernel`` too),
+   IGMMA in the int8 and HGMMA in the bf16
    tensor-core kernels, bf16 flash attention's included (``TC_SASS``),
    and every kernel of the ``kernels`` line (``KERNEL``) in the library;
 5. times  — per kernel (``conv2d_ip1`` also at block 1 and on int8 at
-   block 0, ``conv2d_ip2`` also on int8 at block 1, ``flash_attention``,
+   block 0, ``conv2d_ip2`` also on int8 and bf16 at block 1 (bf16
+   ``F.conv2d`` beside it), the fused blocks also on bf16,
+   ``flash_attention``,
    ``flash_decode`` and ``mm_dual_full`` also on f32; ``mm_mxu`` per
    operand dtype:
    f32 on CUDA cores, int8 and bf16 on the tensor cores; ``mm_vpu`` per
@@ -109,18 +126,22 @@ and prints no result):
    completes with its tokens, the trace launches ``selective_scan``
    exactly 7 times a prefill and nothing else (counters reset just
    before, read just after), a second serve gives the same tokens;
-   ``selective_scan`` against its plain version on the first Mamba
-   layer's own operands (atol 1e-4 of each output's RMS), on the
-   reference test's data at full width and at small cases
-   (``SCAN_TOL``), independent of ``block_di``, refusing a d_state it
-   has no kernel for before any launch, and once through the library
-   entry; a full-width f32 Mamba layer's prefill against 64 decode
-   steps (``SEQ_TOL``); the f32 one-period model's first decode step
-   against a prefill over prompt + token (``HANDOFF_REL_L2``, same
-   argmax); the scan's time, plain time and bound (bytes, FP32
-   operations and exponentials at the MUFU rate), tokens/s over the
-   trace, prefill and decode-tick times, and a ``torch.profiler`` pass
-   over one prefill and one decode tick.
+   ``selective_scan`` bitwise equal to its plain version (the kernel's
+   y-sum order) and within tolerance of the family oracle
+   ``selective_scan_ref`` (torch's own sum over the states) on the
+   first Mamba layer's own operands (atol 1e-4 of each output's RMS),
+   on the reference test's data at full width and at small cases
+   (``SCAN_TOL``), at the d_states of ``SCAN_DS_CASES`` (1, 5, 32, 300;
+   32 also at full width), one launch a call, independent of
+   ``block_di``; at full width the kernel's and the oracle's y are
+   also measured against the recurrence in f64 (``scan_f64``); once
+   through the library entry; a full-width f32 Mamba layer's prefill
+   against 64 decode steps (``SEQ_TOL``); the f32 one-period model's
+   first decode step against a prefill over prompt + token
+   (``HANDOFF_REL_L2``, same argmax); the scan's time, plain time and
+   bound (bytes, FP32 operations and exponentials at the MUFU rate),
+   tokens/s over the trace, prefill and decode-tick times, and a
+   ``torch.profiler`` pass over one prefill and one decode tick.
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -257,7 +278,8 @@ KERNEL = {
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
 # as ssm_scan.selective_vmem): no MMA in SASS.
 LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_kernel",
-              "mm_vpu_kernel", "selective_scan_kernel")
+              "mm_vpu_kernel", "selective_scan_kernel", "activation_kernel",
+              "activation_lut_kernel", "pool2d_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 # The tensor-core kernels by source, and the wgmma instruction each must
 # contain (and no other MMA kind): the MXU matmul members and bf16 flash
@@ -452,6 +474,11 @@ SCAN_FULL_CASES = ((1, 2048, 16384, 16), (4, 512, 16384, 16))
 # channels per CTA (256 / Ds), at each Ds the kernel takes
 SCAN_SMALL_CASES = ((1, 8, 16, 4), (2, 16, 32, 8), (2, 12, 24, 4),
                     (2, 45, 100, 16), (1, 70, 72, 4), (3, 33, 40, 8))
+# (B, T, Di, Ds): the kernel takes any d_state (PR 21): 1, 5 (zero-padded
+# to 8), 32 (8 lanes a channel) at small sizes, 32 at full width, 300
+# (padded to 512: four passes of 128 states)
+SCAN_DS_CASES = ((1, 8, 16, 1), (2, 40, 33, 5), (1, 30, 70, 32),
+                 (1, 512, 16384, 32), (1, 9, 40, 300))
 # check 3: one full-width Mamba layer in f32, prefill against decode
 # steps, within the reference invariant's bound
 # (tests/test_model_components.py:110-126), atol at most 1e-4 of RMS
@@ -480,6 +507,16 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def clock_line() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now,
+    as nvidia-smi reads them (a time taken under a lower clock reads
+    slower)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def peaks_for(name: str) -> dict:
@@ -678,6 +715,152 @@ def conv_ragged_checks(gen, errs):
     torch.cuda.synchronize()
 
 
+def conv_dtype_checks(gen, errs):
+    """The tiled conv2d_ip1 and conv2d_ip2 at CONV_RAGGED on bf16 and
+    int16 (integers over their full range, wrapping in int32): one launch
+    a call, block_cout 1, 5, 16 and 128 giving the same bits, int16 exact
+    and bf16 within rtol=1e-4, atol=1e-5 of the plain versions; the fused
+    blocks of both styles bitwise equal to their three-launch chains on
+    both dtypes."""
+    import torch
+    from repro_torch.kernels.activation.vpu_exact import activation_exact
+    from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1, conv2d_ip1_plain
+    from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2, conv2d_ip2_plain
+    from repro_torch.kernels.fused.cnn_block import (fused_cnn_mxu,
+                                                     fused_cnn_vpu)
+    from repro_torch.kernels.pool2d.vpu_window import pool2d_window
+    members = (("conv2d_ip1", conv2d_ip1, conv2d_ip1_plain, fused_cnn_vpu),
+               ("conv2d_ip2", conv2d_ip2, conv2d_ip2_plain, fused_cnn_mxu))
+    for xs, ws in CONV_RAGGED:
+        scale = (ws[0] * ws[1] * ws[2]) ** -0.5
+        for dtype in (torch.bfloat16, torch.int16):
+            x, w = operand(gen, xs, dtype), operand(gen, ws, dtype, scale)
+            exact = not dtype.is_floating_point
+            for name, kern, plain, fused in members:
+                what = f"{name} {dtype} at {xs} x {ws}"
+                y = launched_once(lambda: kern(x, w), name, what)
+                compare(name, y, plain(x, w), 1e-4, 1e-5, errs, exact=exact)
+                for bc in (1, 5, 16):
+                    check(torch.equal(kern(x, w, block_cout=bc), y),
+                          f"{what}: result depends on block_cout ({bc})")
+                for mode, kind in (("max", "relu"), ("avg", "tanh")):
+                    check(torch.equal(
+                        fused(x, w, pool_mode=mode, act_kind=kind),
+                        activation_exact(pool2d_window(y, mode=mode),
+                                         kind=kind)),
+                          f"{what}: fused ({mode}, {kind}) not bitwise "
+                          f"equal to its three-launch chain")
+    log(f"conv2d_ip1 / conv2d_ip2 at {len(CONV_RAGGED)} ragged shapes on "
+        f"bf16 and int16: one launch a call, int16 exact, bf16 within "
+        f"rtol=1e-4, atol=1e-5, block_cout 1/5/16/128 bitwise; "
+        f"fused_cnn_vpu / fused_cnn_mxu == chain bitwise (max relu, avg "
+        f"tanh)")
+    torch.cuda.synchronize()
+
+
+# activation_exact's checks: numels (a lone element, a ragged short
+# tensor, one past a vector multiple, the frontend's pooled block 1) and
+# the storage offsets of the input in bytes (16-byte aligned, 4 bytes
+# past a boundary)
+ACT_SHAPES = ((1,), (7,), (4097,), (4, 111, 111, 16))
+ACT_OFFSETS = (0, 4)
+
+
+def activation_checks(gen, errs):
+    """activation_exact (the vector kernel) on every dtype it takes at
+    ACT_SHAPES, with the input's storage at ACT_OFFSETS bytes past a
+    16-byte boundary: one launch a call, every kind; relu and relu6
+    bitwise, integer inputs bitwise for those and within 1e-6 for the
+    rest, f32 within 1e-6 and bf16 within one bf16 rounding (rtol
+    2^-8, atol 1e-6) of the plain version; and f32 bitwise equal to the
+    fused kernels' activation (fused_cnn_vpu / fused_cnn_mxu with an
+    identity 1x1 conv and a 1x1 pool feed activate the input itself)."""
+    import torch
+    from repro_torch.kernels.activation.ref import KINDS
+    from repro_torch.kernels.activation.vpu_exact import (
+        CUDA_DTYPES, activation_exact, activation_exact_plain)
+    from repro_torch.kernels.fused.cnn_block import (fused_cnn_mxu,
+                                                     fused_cnn_vpu)
+    dev = torch.device("cuda")
+    for dtype in CUDA_DTYPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        for shape in ACT_SHAPES:
+            n = math.prod(shape)
+            base = torch.randn(n + 16, generator=gen) * 3
+            if not dtype.is_floating_point:
+                base = (base * 20).round().clamp(-128, 127)
+            base = base.to(dtype).to(dev)
+            for off in ACT_OFFSETS:
+                x = base[off // size:off // size + n].view(shape)
+                check(x.data_ptr() % 16 == off, "activation input offset")
+                for kind in KINDS:
+                    got = launched_once(
+                        lambda: activation_exact(x, kind=kind),
+                        "activation_exact",
+                        f"activation_exact {dtype} {shape} +{off} B {kind}")
+                    exact = kind in ("relu", "relu6")
+                    tol = ((2 ** -8, 1e-6) if dtype == torch.bfloat16
+                           else (1e-6, 1e-6))
+                    compare("activation_exact", got,
+                            activation_exact_plain(x, kind=kind), *tol,
+                            errs, exact=exact)
+                    if dtype == torch.float32 and len(shape) == 4:
+                        c = shape[-1]
+                        eye = torch.eye(c, device=dev).view(1, 1, c, c)
+                        for fused in (fused_cnn_vpu, fused_cnn_mxu):
+                            check(torch.equal(fused(
+                                x, eye, pool_window=(1, 1), act_kind=kind),
+                                got), f"activation_exact {kind} at +{off} "
+                                      f"B: not bitwise equal to the fused "
+                                      f"kernels' activation")
+    log(f"activation_exact (activation_kernel, 16-byte vectors, one launch "
+        f"a call) on {[str(d) for d in CUDA_DTYPES]} at {ACT_SHAPES}, input "
+        f"at {ACT_OFFSETS} bytes past a 16-byte boundary, every kind: equal "
+        f"to the plain version (relu/relu6 bitwise), f32 bitwise equal to "
+        f"the fused kernels' activation")
+    torch.cuda.synchronize()
+
+
+def bf16_elementwise_checks(gen, errs):
+    """The pool, LUT and activation kernels on bf16 at the served pooled
+    shapes: max pools bitwise (bf16 out), avg pools within 1e-6 (f32
+    out), the LUT bitwise (bf16 out: the f32 entry rounded once),
+    activation_exact within one bf16 rounding (relu bitwise)."""
+    import torch
+    from repro_torch.kernels.activation.lut_poly import (
+        RANGES, activation_lut, activation_lut_plain)
+    from repro_torch.kernels.activation.vpu_exact import (
+        activation_exact, activation_exact_plain)
+    from repro_torch.kernels.pool2d.mxu_im2col import (pool2d_im2col,
+                                                       pool2d_im2col_plain)
+    from repro_torch.kernels.pool2d.vpu_window import (pool2d_window,
+                                                       pool2d_window_plain)
+    dev = torch.device("cuda")
+    for shape in ((4, 222, 222, 16), (4, 54, 54, 32)):
+        x = (torch.randn(shape, generator=gen) * 3).to(torch.bfloat16).to(dev)
+        for name, kern, plain in (
+                ("pool2d_window", pool2d_window, pool2d_window_plain),
+                ("pool2d_im2col", pool2d_im2col, pool2d_im2col_plain)):
+            for mode in ("max", "avg"):
+                got = launched_once(lambda: kern(x, mode=mode), name,
+                                    f"{name} bf16 {mode} {shape}")
+                compare(name, got, plain(x, mode=mode), 1e-6, 1e-6, errs,
+                        exact=mode == "max")
+        for kind in sorted(RANGES):
+            compare("activation_lut", launched_once(
+                lambda: activation_lut(x, kind=kind), "activation_lut",
+                f"activation_lut bf16 {kind}"),
+                activation_lut_plain(x, kind=kind), 0, 0, errs, exact=True)
+        compare("activation_exact", activation_exact(x),
+                activation_exact_plain(x), 0, 0, errs, exact=True)
+        compare("activation_exact", activation_exact(x, kind="tanh"),
+                activation_exact_plain(x, kind="tanh"), 2 ** -8, 1e-6, errs)
+    log("bf16: pool2d_window and pool2d_im2col (max bitwise in bf16, avg "
+        "within 1e-6 in f32), activation_lut bitwise in bf16, "
+        "activation_exact relu bitwise and tanh within one bf16 rounding")
+    torch.cuda.synchronize()
+
+
 def conv4_ragged_checks(shapes, gen, errs):
     """conv2d_ip4 (conv2d_ip2's tiled kernel with two streams) at
     CONV_RAGGED and both block shapes, on f32, int8, int16 and bf16
@@ -799,14 +982,13 @@ def ladder_kernel_checks(gen, errs):
 # ---------------------------------------------------------------------------
 # Phase 4: serving
 # ---------------------------------------------------------------------------
-def serve(device, fuse, requests, seed=SEED):
+def serve(device, fuse, requests, seed=SEED, dtype="float32"):
     import torch
-    from repro_torch.models.frontends import init_cnn_frontend
     from repro_torch.runtime.server import AdaptiveServer
     from repro_torch.core.plan import clear_plan_cache
     clear_plan_cache()
     srv = AdaptiveServer(device=device, fuse=fuse, max_batch=MAX_BATCH)
-    params = init_cnn_frontend(seed, device=device)
+    params = frontend_params(dtype, srv.device, seed)
     srv.register("cnn", params, IMAGE)
     for x in requests:
         srv.submit("cnn", x)
@@ -814,6 +996,102 @@ def serve(device, fuse, requests, seed=SEED):
     if srv.device.type == "cuda":
         torch.cuda.synchronize()
     return srv, sorted(done, key=lambda c: c.rid)
+
+
+# The frontend's other tenants (PR 21): bf16 images and weights
+# (init_cnn_frontend(dtype=torch.bfloat16)), and int16 images in
+# [-100, 100] with weights in [-8, 8] and projection in [-4, 4] (an int16
+# init would round N(0, 1/27) draws to zero): block 0 sums exactly in
+# int32, block 1 takes its f32 input against the int16 weights.
+FRONTEND_DTYPES = ("bfloat16", "int16")
+
+
+def frontend_params(dtype, device, seed=SEED):
+    """The default frontend's params in ``dtype``, seeded."""
+    import numpy as np
+    import torch
+    from repro_torch.models.frontends import (init_cnn_frontend,
+                                              params_from_numpy)
+    if dtype != "int16":
+        return init_cnn_frontend(seed, dtype=getattr(torch, dtype),
+                                 device=device)
+    rng = np.random.default_rng(seed)
+    return params_from_numpy(
+        {"blocks": [{"w": rng.integers(-8, 9, s).astype(np.int16)}
+                    for s in ((3, 3, 3, 16), (3, 3, 16, 32))],
+         "proj": rng.integers(-4, 5, (32, 64)).astype(np.int16)}, device)
+
+
+def frontend_requests(dtype):
+    """N_REQUESTS seeded 224x224x3 samples in ``dtype``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 1)
+    if dtype == "int16":
+        return [rng.integers(-100, 101, IMAGE).astype(np.int16)
+                for _ in range(N_REQUESTS)]
+    return [torch.from_numpy(rng.normal(size=IMAGE).astype(np.float32))
+            .to(getattr(torch, dtype)) for _ in range(N_REQUESTS)]
+
+
+def serve_dtype_checks():
+    """Each of FRONTEND_DTYPES served through AdaptiveServer(device=
+    "cuda"), fused and unfused (counters reset just before, read just
+    after each), against a device="cpu" server: f32 results within
+    rtol=1e-4, atol=1e-5, fused == unfused bitwise, equal accounting;
+    int16's integer intermediates exact (block 0's output, through both
+    plans, bitwise equal to the CPU's)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.models.blocks import apply_cnn_block
+    fused_set = {"fused_cnn_vpu", "fused_cnn_mxu"}
+    chain_set = {"conv2d_ip1", "conv2d_ip2", "pool2d_window",
+                 "pool2d_im2col", "activation_exact", "activation_lut"}
+    for dtype in FRONTEND_DTYPES:
+        requests = frontend_requests(dtype)
+        runs = {}
+        for fuse in (True, False):
+            cuda.reset_launches()
+            _, done = serve("cuda", fuse, requests, dtype=dtype)
+            counts = cuda.launch_counts()
+            check(bool(counts) and set(counts) <= (fused_set if fuse
+                                                   else chain_set),
+                  f"{dtype} fuse={fuse}: launched {counts}")
+            check(len(done) == N_REQUESTS and all(
+                tuple(c.result.shape) == LADDER_OUT and c.result.is_cuda
+                and c.result.dtype == torch.float32
+                and bool(torch.isfinite(c.result).all()) for c in done),
+                  f"{dtype} fuse={fuse}: bad completions")
+            runs[fuse] = (done, counts)
+        for a, b in zip(runs[True][0], runs[False][0]):
+            check(torch.equal(a.result, b.result),
+                  f"{dtype} rid {a.rid}: fused and unfused serving differ")
+        _, cpu_done = serve("cpu", True, requests, dtype=dtype)
+        for a, b in zip(runs[True][0], cpu_done):
+            torch.testing.assert_close(a.result.cpu(), b.result, rtol=1e-4,
+                                       atol=1e-5)
+            check((a.rid, a.batch_size, a.finished) ==
+                  (b.rid, b.batch_size, b.finished),
+                  f"{dtype} rid {a.rid}: accounting differs from the CPU "
+                  f"server")
+        if dtype == "int16":
+            params = frontend_params(dtype, "cuda")
+            x = torch.stack([torch.from_numpy(r) for r in
+                             requests[:MAX_BATCH]])
+            want = apply_cnn_block(frontend_params(dtype, "cpu")["blocks"][0],
+                                   x, site="frontend.block0")
+            for fuse in (True, False):
+                got = apply_cnn_block(params["blocks"][0], x.cuda(),
+                                      site="frontend.block0", fuse=fuse)
+                check(torch.equal(got.cpu(), want),
+                      f"int16 block 0 (fuse={fuse}): not bitwise equal to "
+                      f"the CPU's")
+        log(f"{dtype} frontend: {N_REQUESTS} requests served on the card "
+            f"fused (launches {runs[True][1]}) and unfused (launches "
+            f"{runs[False][1]}), bitwise equal; the device='cpu' server "
+            f"agrees within rtol=1e-4, atol=1e-5, accounting equal"
+            + ("; block 0's integer path bitwise equal to the CPU's"
+               if dtype == "int16" else ""))
 
 
 def serve_checks():
@@ -2038,6 +2316,38 @@ def timings(shapes, gen, peaks):
                 lambda: fused_cnn_plain(style, x, w)),
             library_ms=None, bound_ms=b_ms, bound_by=by,
             shape=f"x{tuple(x.shape)} w{tuple(w.shape)} max 2x2 relu")
+    # the bf16 tenant's kernels (PR 21): both fused blocks and Conv2 at
+    # block 1, beside bf16 F.conv2d (cuDNN, on the tensor cores)
+    bf = torch.bfloat16
+    for name, style, kern, x, w in (
+            ("fused_cnn_vpu (bf16, block 0)", "vpu", fused_cnn_vpu, x0, w0),
+            ("fused_cnn_mxu (bf16, block 1)", "mxu", fused_cnn_mxu, x1, w1)):
+        xb, wb = x.to(bf), w.to(bf)
+        y = kern(xb, wb)
+        k = w.shape[0] * w.shape[1] * w.shape[2]
+        # the MXU style at the card's bf16 tensor-core rate (as bf16
+        # mm_mxu), the logic-only style at its FP32 rate
+        b_ms, by = bound(nbytes(xb, wb, y), 4 * y.numel() * (2 * k + 1)
+                         + y.numel(),
+                         "fp32_flops" if style == "vpu" else
+                         "bf16_tensor_flops")
+        rows[name] = dict(
+            ms=time_ms(lambda: kern(xb, wb)),
+            plain_ms=(time_ms if style == "vpu" else time_sync_ms)(
+                lambda: fused_cnn_plain(style, xb, wb)),
+            library_ms=None, bound_ms=b_ms, bound_by=by,
+            shape=f"x{tuple(x.shape)} w{tuple(w.shape)} bf16 max 2x2 relu")
+    xb1, wb1 = x1.to(bf), w1.to(bf)
+    y = conv2d_ip2(xb1, wb1)
+    k = w1.shape[0] * w1.shape[1] * w1.shape[2]
+    b_ms, by = bound(nbytes(xb1, wb1, y), 2 * k * y.numel(),
+                     "bf16_tensor_flops")
+    rows["conv2d_ip2 (bf16, block 1)"] = dict(
+        ms=time_ms(lambda: conv2d_ip2(xb1, wb1)),
+        plain_ms=time_sync_ms(lambda: conv2d_ip2_plain(xb1, wb1)),
+        library_ms=time_ms(lambda: conv_lib(xb1, wb1)), bound_ms=b_ms,
+        bound_by=by, shape=f"x{tuple(x1.shape)} w{tuple(w1.shape)} bf16",
+        library="bf16 F.conv2d, tensor cores, bf16 out")
     # the precision ladder's kernels: Act2 at its served shape, Pool2 at
     # the pool2d(budget=) shape
     from repro_torch.kernels.activation.lut_poly import (
@@ -2298,57 +2608,92 @@ def scan_data(rng, b, t, di, ds):
             f(-np.abs(rng.normal(size=(di, ds)))))
 
 
-def compare_scan(what, ops, tol, errs):
-    """``selective_scan`` (one launch) against its plain version, y and
-    the final h, within ``tol`` (``atol=None``: 1e-4 of each output's
-    RMS); results must not depend on ``block_di``."""
+def scan_f64(x, dt, bp, cp, a):
+    """The scan's recurrence in f64 (the oracle's steps on f64 operands):
+    the witness the kernel's and the oracle's f32 y are measured
+    against."""
     import torch
+    x, dt, bp, cp, a = (v.double() for v in (x, dt, bp, cp, a))
+    h = torch.zeros((x.shape[0], x.shape[2], a.shape[1]),
+                    dtype=torch.float64, device=x.device)
+    ys = []
+    for i in range(x.shape[1]):
+        d = dt[:, i]
+        h = (torch.exp(d[..., None] * a[None]) * h
+             + (d * x[:, i])[..., None] * bp[:, i, None, :])
+        ys.append((h * cp[:, i, None, :]).sum(-1))
+    return torch.stack(ys, 1)
+
+
+def compare_scan(what, ops, tol, errs, witness=False):
+    """``selective_scan`` (one launch) bitwise equal to its plain version
+    (the kernel's y-sum order), and y and the final h within ``tol`` of
+    the family oracle ``selective_scan_ref`` (torch's own sum over the
+    states; ``atol=None``: 1e-4 of each output's RMS); results must not
+    depend on ``block_di``.  With ``witness``, the kernel's and the
+    oracle's y are also measured against the recurrence in f64
+    (``scan_f64``) and both max abs errors logged."""
+    import torch
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
     from repro_torch.kernels.mamba_scan.scan import (selective_scan,
                                                      selective_scan_plain)
     got = launched_once(lambda: selective_scan(*ops), "selective_scan",
                         what)
-    want = selective_scan_plain(*ops)
     di = ops[0].shape[2]
     for bdi in (64, di):
         alt = selective_scan(*ops, block_di=bdi)
         check(all(torch.equal(a, g) for a, g in zip(alt, got)),
               f"selective_scan {what}: block_di={bdi} changes the result")
+    for g, w in zip(got, selective_scan_plain(*ops)):
+        compare("selective_scan", g, w, 0, 0, errs, exact=True)
     notes = []
-    for name, g, w in zip(("y", "h"), got, want):
+    oracle = selective_scan_ref(*ops)
+    for name, g, w in zip(("y", "h"), got, oracle):
         rms = float(w.double().pow(2).mean().sqrt())
         atol = tol["atol"] if tol["atol"] is not None else 1e-4 * rms
-        compare("selective_scan", g, w, tol["rtol"], atol, errs)
+        check(bool(torch.isfinite(g).all()),
+              f"selective_scan {what}: non-finite {name}")
+        torch.testing.assert_close(
+            g, w, rtol=tol["rtol"], atol=atol,
+            msg=lambda m: f"selective_scan {what}, {name} against the "
+                          f"oracle: {m}")
         err = float((g.double() - w.double()).abs().max())
         notes.append(f"{name}: RMS {rms:.4e}, atol {atol:.3e}, max abs err "
-                     f"{err:.3e}")
-    log(f"selective_scan {what}: one launch, equal to the plain version "
-        f"within rtol={tol['rtol']} ({'; '.join(notes)}); block_di 64, 256 "
-        f"and {di} bitwise equal")
+                     f"{err:.3e}, "
+                     f"{'bitwise' if torch.equal(g, w) else 'not bitwise'}")
+    if witness:
+        y64 = scan_f64(*ops)
+        e64 = [float((v.double() - y64).abs().max())
+               for v in (got[0], oracle[0])]
+        notes.append(f"y's max abs err against the f64 recurrence: kernel "
+                     f"{e64[0]:.4e}, oracle {e64[1]:.4e}")
+    log(f"selective_scan {what}: one launch, bitwise equal to the plain "
+        f"version, within rtol={tol['rtol']} of the oracle "
+        f"selective_scan_ref ({'; '.join(notes)}); block_di 64, 256 and "
+        f"{di} bitwise equal")
     return got
 
 
 def scan_checks(ops, rng, errs):
     """Check 2 (kernel against plain version) and check 5 (the library
     entry): the model's own operands, the reference test's distribution
-    at full width, small cases, and a d_state with no kernel."""
+    at full width, small cases, and the d_states of SCAN_DS_CASES."""
     import torch
     from repro_torch.core.library import get_family
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.mamba_scan.scan import selective_scan
+    from repro_torch.kernels.mamba_scan.scan import lane_plan
     compare_scan(f"at the first Mamba layer's operands {SCAN_SITE}", ops,
-                 dict(rtol=1e-5, atol=None), errs)
+                 dict(rtol=1e-5, atol=None), errs, witness=True)
     for case in SCAN_FULL_CASES + SCAN_SMALL_CASES:
         compare_scan(f"on the reference test's data {case}",
-                     scan_data(rng, *case), SCAN_TOL, errs)
-    cuda.reset_launches()
-    try:
-        selective_scan(*scan_data(rng, 1, 8, 16, 32))
-    except ValueError as e:
-        check(cuda.launch_counts() == {}, "selective_scan counted a launch "
-                                          "it refused")
-        log(f"selective_scan with d_state 32 raises before any launch: {e}")
-    else:
-        raise SmokeFailure("selective_scan launched with d_state 32")
+                     scan_data(rng, *case), SCAN_TOL, errs,
+                     witness=case in SCAN_FULL_CASES)
+    sms = cuda.sm_count(torch.device("cuda"))
+    for case in SCAN_DS_CASES:
+        compare_scan(f"at d_state {case[3]} {case} (plan "
+                     f"{tuple(lane_plan(case[0], case[2], case[3], sms))})",
+                     scan_data(rng, *case), SCAN_TOL, errs,
+                     witness=case[2] >= 16384)
     member = get_family("ssm_scan")["ssm_scan.selective_vmem"]
     small = scan_data(rng, 2, 16, 32, 8)
     launched_once(lambda: member(*small), "selective_scan",
@@ -2542,6 +2887,7 @@ def lm_serve_phase(peaks, card, errs):
     t_fp32 = bound_ms(peaks, 0, 6 * states)[0]
     t_exp = bound_ms(peaks, 0, states, "mufu_per_s")[0]
     b_ms = max(t_bytes, t_fp32, t_exp)
+    clocks = clock_line()
     row = dict(ms=time_ms(lambda: selective_scan(*ops)),
                plain_ms=time_sync_ms(lambda: selective_scan_plain(*ops)),
                library_ms=None, bound_ms=b_ms,
@@ -2555,7 +2901,8 @@ def lm_serve_phase(peaks, card, errs):
         f"{row['library']}, bound {b_ms * 1e3:.1f} us ({row['bound_by']}; "
         f"bytes {t_bytes * 1e3:.1f} us, FP32 operations "
         f"{t_fp32 * 1e3:.1f} us, exponentials {t_exp * 1e3:.1f} us at the "
-        f"MUFU rate) on {card}")
+        f"MUFU rate) on {card}; SM clock, max, power, temperature before "
+        f"the timing: {clocks}, after: {clock_line()}")
     del y, h
 
     def timed(fn, reps):
@@ -2660,12 +3007,16 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     errs = kernel_checks(shapes, gen)
     conv_ragged_checks(gen, errs)
+    conv_dtype_checks(gen, errs)
+    activation_checks(gen, errs)
+    bf16_elementwise_checks(gen, errs)
     conv4_ragged_checks(shapes, torch.Generator().manual_seed(SEED), errs)
 
     ladder_kernel_checks(gen, errs)
 
     # 4. serve
     launches, requests = serve_checks()
+    serve_dtype_checks()
     trace = ladder_trace()
     ladder = ladder_serve_checks(trace)
     launches["activation_lut"] = \

@@ -32,6 +32,8 @@ TABLE_SIZE = 256
 # (numerically) constant, so index clipping is exact there.
 RANGES = {"relu6": 8.0, "sigmoid": 8.0, "tanh": 4.0}
 SUPPORTED_KINDS = tuple(sorted(RANGES))
+# input dtypes the CUDA kernel takes
+CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32)
 
 _TABLES: Dict[Tuple[str, str], torch.Tensor] = {}
 
@@ -74,9 +76,10 @@ def activation_lut_plain(x: torch.Tensor, *,
 def activation_lut(x: torch.Tensor, *, kind: str = "tanh",
                    block_rows: int = 256) -> torch.Tensor:
     """Table activation; float input keeps its dtype, integer input gives
-    f32.  CUDA tensors (f32, int8, int32) launch the kernel; CPU tensors
-    run the plain version.  ``block_rows`` is validated and priced by
-    the footprint; it does not shape the grid."""
+    f32.  CUDA tensors (``CUDA_DTYPES``; a bf16 entry is the f32 table's
+    rounded to nearest even) launch the kernel; CPU tensors run the
+    plain version.  ``block_rows`` is validated and priced by the
+    footprint; it does not shape the grid."""
     if kind not in RANGES:
         raise ValueError(
             f"LUT activation supports saturating kinds {SUPPORTED_KINDS}; "
@@ -84,9 +87,10 @@ def activation_lut(x: torch.Tensor, *, kind: str = "tanh",
     check_block("block_rows", block_rows)
     if not x.is_cuda:
         return activation_lut_plain(x, kind=kind)
-    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32))
+    cuda.require(x, "x", CUDA_DTYPES)
     table = table_for(kind, x.device)
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    y = torch.empty(x.shape, dtype=activation_out_dtype(x.dtype),
+                    device=x.device)
     if y.numel() == 0:
         return y
     cuda.launch("activation_lut", "cnn_activation_lut", x.device,

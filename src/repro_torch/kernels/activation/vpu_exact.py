@@ -1,12 +1,18 @@
 """Act1 — exact elementwise activation (full-precision IP).
 
 Replaces ``repro/kernels/activation/vpu_exact.py::activation_exact``.
-The kernel (``activation_kernel`` in ``csrc/cnn_kernels.cu``) runs one
-thread per element over a flat grid and evaluates the shared
-``__device__`` ``activate`` in f32 (``expf``/``tanhf``, no fast-math
-intrinsics) — the same function the fused members apply.  The
-``block_rows`` hint is validated as in the reference and priced by the
-footprint; it does not shape the grid.
+The kernel (``activation_kernel`` in ``csrc/cnn_kernels.cu``) reads
+16-byte vectors, several in flight a thread, over a grid of whole
+waves of the card's SMs that walks the tensor, and stores them as
+16-byte vectors where the output meets a 16-byte boundary at the same
+element as the input (always, for an aligned input); the elements
+before the input's first 16-byte boundary and after its last whole
+vector run one a thread in the same launch.  Each
+element goes through the shared ``__device__`` ``activate`` in f32
+(``expf``/``tanhf``, no fast-math intrinsics) — the same function the
+fused members apply — and a bf16 result is rounded once, to nearest
+even.  The ``block_rows`` hint is validated as in the reference and
+priced by the footprint; it does not shape the grid.
 """
 from __future__ import annotations
 
@@ -21,6 +27,9 @@ from repro_torch.kernels.conv2d.inner import check_block
 # Approximate scalar-op cost per element (mul/add/cmp units).
 OP_COST = {"relu": 1, "relu6": 2, "sigmoid": 10, "tanh": 12, "gelu": 15}
 
+# input dtypes the CUDA kernel takes
+CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32)
+
 
 def activation_exact_plain(x: torch.Tensor, *,
                            kind: str = "relu") -> torch.Tensor:
@@ -32,20 +41,21 @@ def activation_exact_plain(x: torch.Tensor, *,
 def activation_exact(x: torch.Tensor, *, kind: str = "relu",
                      block_rows: int = 256) -> torch.Tensor:
     """relu/relu6/sigmoid/tanh/gelu in f32; float input keeps its dtype,
-    integer input gives f32.  CUDA tensors (f32, int8, int32) launch the
-    kernel; CPU tensors run the plain version."""
+    integer input gives f32.  CUDA tensors (``CUDA_DTYPES``) launch the
+    kernel once; CPU tensors run the plain version."""
     if kind not in KINDS:
         raise ValueError(f"unknown activation {kind!r}; have {KINDS}")
     check_block("block_rows", block_rows)
     if not x.is_cuda:
         return activation_exact_plain(x, kind=kind)
-    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32))
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    cuda.require(x, "x", CUDA_DTYPES)
+    y = torch.empty(x.shape, dtype=activation_out_dtype(x.dtype),
+                    device=x.device)
     if y.numel() == 0:
         return y
     cuda.launch("activation_exact", "cnn_activation", x.device,
                 cuda.DTYPE_CODE[x.dtype], KINDS.index(kind), x.data_ptr(),
-                y.data_ptr(), x.numel())
+                y.data_ptr(), x.numel(), cuda.sm_count(x.device))
     return y
 
 

@@ -41,6 +41,9 @@ QUAD = 4             # output channels a thread
 MAX_QUADS = 8        # channel quads a CTA (32 channels)
 MAX_TILE_W = 32      # output columns a tile
 SMEM_BYTES = 96 * 1024   # shared memory a CTA may stage (two fit an SM)
+# operand dtypes the tiled kernels take: floats accumulate in f32 (bf16
+# widened exactly), integers in int32
+CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
 
 
 class TilePlan(NamedTuple):
@@ -224,14 +227,30 @@ def check_block(name: str, value: int) -> None:
         raise ValueError(f"{name} must be >= 1, got {value}")
 
 
+def kernel_operands(x: torch.Tensor, w: torch.Tensor):
+    """``x`` and ``w`` in one dtype of ``CUDA_DTYPES``, for a kernel that
+    takes one operand type.  Float activations under weights of another
+    dtype (a CNN block after the first of a bf16 or int16 frontend: f32
+    activations, bf16 or int16 weights) run both in f32, which holds
+    every value of every ``CUDA_DTYPES`` member: the plain versions cast
+    both to their f32 accumulator, so the result is the same.  Integer
+    activations under weights of another dtype raise ``TypeError``."""
+    cuda.require(x, "x", CUDA_DTYPES)
+    cuda.require(w, "w", CUDA_DTYPES)
+    if w.dtype == x.dtype:
+        return x, w
+    if x.is_floating_point():
+        return x.float(), w.float()
+    raise TypeError(f"integer x {x.dtype} takes weights of its own dtype "
+                    f"on the card, got {w.dtype}")
+
+
 def conv_output(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Check a standalone member's CUDA operands and allocate its output:
-    f32 operands give f32, int8 operands give int32."""
-    cuda.require(x, "x", (torch.float32, torch.int8))
-    cuda.require(w, "w", (x.dtype,))
+    """Allocate a standalone member's output for CUDA operands of one
+    dtype: float operands give f32, integer operands int32."""
     n, h, w_, _ = x.shape
     kh, kw, _, cout = w.shape
-    out_dtype = torch.int32 if x.dtype == torch.int8 else torch.float32
+    out_dtype = torch.float32 if x.is_floating_point() else torch.int32
     return torch.empty((n, h - kh + 1, w_ - kw + 1, cout), dtype=out_dtype,
                        device=x.device)
 
@@ -239,7 +258,9 @@ def conv_output(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def launch_conv_tiled(counter: str, entry: str, style: str, x: torch.Tensor,
                       w: torch.Tensor, block_cout: int) -> torch.Tensor:
     """Launch the tiled kernel of ``style`` (C entry point ``entry``)
-    once for CUDA operands, on the plan of ``tile_plan``."""
+    once for CUDA operands (``kernel_operands``), on the plan of
+    ``tile_plan``."""
+    x, w = kernel_operands(x, w)
     y = conv_output(x, w)
     if y.numel() == 0:
         return y

@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/conv2d/ip1_vpu.py::conv2d_ip1``.  On the card
 the kernel (``conv2d_vpu_tiled_kernel`` in ``csrc/cnn_kernels.cu``)
 issues no tensor-core instruction: every multiply-accumulate is a
-CUDA-core FMA (f32) or int32 multiply-add (int8), in the Conv1 order of
+CUDA-core FMA (f32, bf16 widened exactly) or int32 multiply-add (int8,
+int16), in the Conv1 order of
 ``inner.accumulate_vpu`` (per tap, a partial over Cin in ascending
 order, then added into the accumulator).  A CTA of 256 threads owns a
 tile of output pixels of one image and a block of output channels,
@@ -18,9 +19,9 @@ import torch
 
 from repro_torch.core.resources import Footprint, cost_cycles, vpu_op_cycles
 from repro_torch.kernels.conv2d.inner import (  # noqa: F401 (re-exported)
-    MAX_QUADS, MAX_TILE_W, PIXELS, QUAD, SMEM_BYTES, THREADS, TilePlan,
-    accumulate_vpu, check_block, check_conv_operands, launch_conv_tiled,
-    tile_plan)
+    CUDA_DTYPES, MAX_QUADS, MAX_TILE_W, PIXELS, QUAD, SMEM_BYTES, THREADS,
+    TilePlan, accumulate_vpu, check_block, check_conv_operands,
+    launch_conv_tiled, tile_plan)
 
 
 def conv2d_ip1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -33,8 +34,9 @@ def conv2d_ip1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv2d_ip1(x: torch.Tensor, w: torch.Tensor, *,
                block_cout: int = 128) -> torch.Tensor:
     """Valid stride-1 conv, NHWC x HWIO -> (N, Ho, Wo, Cout) in f32 (float
-    operands) or int32 (int8 operands).  CUDA tensors launch the kernel
-    once; CPU tensors run ``conv2d_ip1_plain``."""
+    operands) or int32 (integer operands).  CUDA tensors
+    (``CUDA_DTYPES``) launch the kernel once; CPU tensors run
+    ``conv2d_ip1_plain``."""
     check_conv_operands(x, w)
     check_block("block_cout", block_cout)
     if not x.is_cuda:

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.resources import Footprint, cost_cycles, mxu_pass_cycles
-from repro_torch.kernels.conv2d.inner import (check_block,
+from repro_torch.kernels.conv2d.inner import (  # noqa: F401 (re-exported)
+                                              CUDA_DTYPES, check_block,
                                               check_conv_operands, conv_mxu,
                                               launch_conv_tiled)
 

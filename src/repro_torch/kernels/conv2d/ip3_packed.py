@@ -34,6 +34,10 @@ def _unpack(m: torch.Tensor):
     return high, low
 
 
+# operand dtypes the CUDA kernel takes
+CUDA_DTYPES = (torch.int8,)
+
+
 def _check_int8(xa, xb, w) -> None:
     if xa.dtype != torch.int8 or xb.dtype != torch.int8 or \
             w.dtype != torch.int8:
@@ -66,7 +70,7 @@ def conv2d_ip3(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor, *,
     if not xa.is_cuda:
         return conv2d_ip3_plain(xa, xb, w)
     return launch_conv_dual("conv2d_ip3", 3, xa, xb, w, block_cout,
-                            (torch.int8,))
+                            CUDA_DTYPES)
 
 
 def footprint(n, h, w, cin, kh, kw, cout, *, itemsize=1,

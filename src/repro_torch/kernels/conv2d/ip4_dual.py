@@ -24,7 +24,8 @@ from repro_torch.kernels.conv2d.inner import (check_block,
                                               check_dual_operands, conv_mxu,
                                               launch_conv_dual)
 
-KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
+# operand dtypes the CUDA kernel takes
+CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
 
 
 def conv2d_ip4_plain(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor):
@@ -44,7 +45,7 @@ def conv2d_ip4(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor, *,
     if not xa.is_cuda:
         return conv2d_ip4_plain(xa, xb, w)
     return launch_conv_dual("conv2d_ip4", 4, xa, xb, w, block_cout,
-                            KERNEL_DTYPES)
+                            CUDA_DTYPES)
 
 
 def footprint(n, h, w, cin, kh, kw, cout, *, itemsize=1,

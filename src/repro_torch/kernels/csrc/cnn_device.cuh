@@ -55,12 +55,31 @@ template <> struct AccOf<int8_t> { using type = int32_t; };
 template <> struct AccOf<int16_t> { using type = int32_t; };
 
 // An operand widened to its accumulator type (exact: bf16 -> f32 keeps
-// every value).
+// every value, by a 16-bit shift).
 template <typename A, typename T>
 __device__ __forceinline__ A widen(T v) { return A(v); }
 template <>
 __device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// A reduce or activation result stored as O: bf16 rounds once to
+// nearest even (as torch's .to(torch.bfloat16)), every other type
+// converts as C++ does.
+template <typename O, typename V>
+__device__ __forceinline__ O narrow(V v) { return O(v); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// A zero of T (bf16's constructors from integers are not always
+// declared).
+template <typename T>
+__device__ __forceinline__ T zero() { return T(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
 }
 
 struct ConvShape {
@@ -173,8 +192,8 @@ __device__ __forceinline__ typename AccOf<T>::type conv_point_vpu(
     const T* xp = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
     const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
     conv_part_vpu<A, 1, 1>(s.Cin, [&](int c, A (&xv)[1], A (&wv)[1]) {
-      xv[0] = A(xp[c]);
-      wv[0] = A(wp[size_t(c) * s.Cout]);
+      xv[0] = widen<A>(xp[c]);
+      wv[0] = widen<A>(wp[size_t(c) * s.Cout]);
     }, part);
   }, acc);
   return acc[0][0];

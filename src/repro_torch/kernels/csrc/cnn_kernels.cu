@@ -6,9 +6,12 @@
 //             mm_kernels.cu's object by nvcc -shared
 //
 // Layouts are the reference's: NHWC activations, HWIO weights, all
-// tensors contiguous.  Every kernel but the tiled convs (Conv1's, and
-// Conv2's, which Conv4 runs with two streams) maps one thread to one
-// output element; those two tile outputs and stage their inputs in
+// tensors contiguous.  Operand dtypes: the convs and the fused block take
+// f32, bf16 (widened exactly into f32 accumulators), int8 and int16
+// (int32 accumulators); the pools and activations f32, bf16, int8 and
+// int32.  Every kernel but the tiled convs (Conv1's, and Conv2's, which
+// Conv4 runs with two streams) and activation_kernel maps one thread to
+// one output element; those two tile outputs and stage their inputs in
 // shared memory.  The channel tiling hints (block_cout /
 // block_c) shape the grid and the kernels mask the ragged edge, so
 // results never depend on them.  The activations' block_rows hints are validated and do not
@@ -63,18 +66,30 @@
 //   Each stream's chain is Conv2's, so each stream is bitwise equal to a
 //   conv2d_ip2 launch.
 //
-// pool2d_kernel           replaces src/repro/kernels/pool2d/vpu_window.py::pool2d_window
-//   kh*kw compares or adds per output: bound by device memory.  One thread
+// pool2d_kernel<T, V, O>  replaces src/repro/kernels/pool2d/vpu_window.py::pool2d_window
+//   kh*kw compares or adds per output (reduced in V: f32 for f32 and bf16,
+//   int32 for integers; bf16 max stored as bf16, exactly): bound by device
+//   memory.  One thread
 //   per output, neighbouring threads on neighbouring channels, so loads
 //   and stores coalesce along C.
 //
-// activation_kernel       replaces src/repro/kernels/activation/vpu_exact.py::activation_exact
-//   A few flops per 4-byte element (tanh/gelu a few tens): bound by device
-//   memory.  One thread per element, neighbouring threads on neighbouring
-//   addresses, so loads and stores coalesce.
+// activation_kernel<T, KIND>  replaces src/repro/kernels/activation/vpu_exact.py::activation_exact
+//   A few flops per element (tanh/gelu a few tens): bound by device
+//   memory, and at the served (4,111,111,16) by the launch and one
+//   memory round trip.  16-byte vector loads and stores (4 f32 or int32,
+//   8 bf16, 16 int8 a load), kActVecs of them a thread loaded before any
+//   is converted, in tiles that the CTAs walk a grid apart; the elements
+//   before the input's first 16-byte boundary and after its last whole
+//   vector one a thread in the same launch; a vector's results are
+//   stored as 16-byte vectors where the output meets a boundary at the
+//   same element as the input (always, for an aligned input), else
+//   element by element.  Each
+//   element through the shared activate, KIND fixed at compile time;
+//   bf16 out rounded once to nearest even.
 //
-// activation_lut_kernel   replaces src/repro/kernels/activation/lut_poly.py::activation_lut
-//   One f32 index computation and one table read per 4-byte element:
+// activation_lut_kernel<T>  replaces src/repro/kernels/activation/lut_poly.py::activation_lut
+//   One f32 index computation and one table read per element (bf16 in,
+//   the f32 entry rounded to bf16 out; other inputs give f32):
 //   bound by device memory (the 1 KB table stays on chip).  Each block
 //   first copies the 256-entry table into shared memory, so the gather
 //   never leaves the SM; then one thread per element, neighbouring
@@ -117,6 +132,7 @@
 //   output pixel and channel writes both streams.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "cnn_device.cuh"
@@ -239,7 +255,7 @@ __device__ __forceinline__ void stage_weights(T* ws, int rows, int bclog,
   const int mask = (1 << bclog) - 1;
   for (int e = threadIdx.x; e < (rows << bclog); e += blockDim.x) {
     const int co = co0 + (e & mask);
-    ws[e] = co < cout ? src(e >> bclog)[co] : T(0);
+    ws[e] = co < cout ? src(e >> bclog)[co] : zero<T>();
   }
 }
 
@@ -386,7 +402,7 @@ conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
       conv_part_vpu<A, kConvPix, kConvCh>(s.Cin, [&](int c, Vals xv,
                                                       Quad wv) {
 #pragma unroll
-        for (int k = 0; k < kConvPix; ++k) xv[k] = A(xt[xo[k] + c]);
+        for (int k = 0; k < kConvPix; ++k) xv[k] = widen<A>(xt[xo[k] + c]);
         load_quad(wt + (c << bclog), wv);
       }, part);
     }, acc);
@@ -425,7 +441,7 @@ conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
         conv_part_vpu<A, kConvPix, kConvCh>(len, [&](int c, Vals xv,
                                                       Quad wv) {
 #pragma unroll
-          for (int k = 0; k < kConvPix; ++k) xv[k] = A(xs[xo[k] + c]);
+          for (int k = 0; k < kConvPix; ++k) xv[k] = widen<A>(xs[xo[k] + c]);
           load_quad(wt + (c << bclog), wv);
         }, part);
       }
@@ -598,25 +614,90 @@ __global__ void pool2d_kernel(const T* __restrict__ x, O* __restrict__ y,
   const T* base = x + ((size_t(n) * H + size_t(oh) * SH) * W +
                        size_t(ow) * SW) * C + t.co;
   auto load = [&](int i, int j) -> V {
-    return V(base[(size_t(i) * W + j) * C]);
+    return widen<V>(base[(size_t(i) * W + j) * C]);
   };
-  y[t.p * C + t.co] = O(window_reduce<V>(load, KH, KW, mode));
+  y[t.p * C + t.co] = narrow<O>(window_reduce<V>(load, KH, KW, mode));
 }
 
-// One thread per element over a flat 1-D grid.
-template <typename T>
-__global__ void activation_kernel(const T* __restrict__ x,
-                                  float* __restrict__ y, long long numel,
-                                  int kind) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < numel) y[i] = activate(float(x[i]), kind);
+// An activation's output type: bf16 stays bf16, every other input
+// gives f32 (activation/ref.py::activation_out_dtype).
+template <typename T> struct ActOut { using type = float; };
+template <> struct ActOut<__nv_bfloat16> { using type = __nv_bfloat16; };
+
+// activation_kernel: 16-byte vectors a thread keeps in flight (32 KB an
+// SM at 8 CTAs, several times what the memory latency needs), and the
+// CTAs an SM the grid holds at most (two rounds of 8 resident ones).
+constexpr int kActVecs = 2;
+constexpr int kActCtasPerSm = 16;
+
+// One element through the shared activate, stored as O.
+template <typename T, int KIND>
+__device__ __forceinline__ typename ActOut<T>::type act_one(T v) {
+  return narrow<typename ActOut<T>::type>(activate(widen<float>(v), KIND));
+}
+
+// Elements [head, head + nvec * VE) as 16-byte vectors (VE = 16 /
+// sizeof(T) elements; x + head is 16-byte aligned, as cnn_activation
+// works out head), in tiles of kThreads * kActVecs vectors: a CTA's
+// threads load a tile's kActVecs vectors each (kThreads apart, so every
+// load instruction is coalesced) before any is converted, and the CTAs
+// walk the tiles a grid apart.  A vector's results are stored as OW
+// 16-byte vectors where y + head is 16-byte aligned too (vstore), else
+// element by element.  The head (before x's first 16-byte boundary) and
+// the tail (after the last whole vector) go element by element, in the
+// same launch.
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads)
+activation_kernel(const T* __restrict__ x,
+                  typename ActOut<T>::type* __restrict__ y, long long numel,
+                  int head, bool vstore) {
+  using O = typename ActOut<T>::type;
+  constexpr int VE = 16 / int(sizeof(T));
+  constexpr int OW = VE * int(sizeof(O)) / 16;    // 16-byte stores a vector
+  constexpr int kTile = kThreads * kActVecs;
+  const long long nvec = (numel - head) / VE;
+  const long long tail0 = head + nvec * VE;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g < head) y[g] = act_one<T, KIND>(x[g]);
+  if (g < numel - tail0) y[tail0 + g] = act_one<T, KIND>(x[tail0 + g]);
+  const long long tiles = (nvec + kTile - 1) / kTile;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const uint4* xt = reinterpret_cast<const uint4*>(x + head) + tile * kTile;
+    O* ye = y + head + tile * kTile * VE;
+    const int n = int(min((long long)kTile, nvec - tile * kTile));
+    uint4 in[kActVecs];
+#pragma unroll
+    for (int u = 0; u < kActVecs; ++u) {
+      const int v = threadIdx.x + u * kThreads;
+      if (v < n) in[u] = xt[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kActVecs; ++u) {
+      const int v = threadIdx.x + u * kThreads;
+      if (v < n) {
+        union { uint4 q; T e[VE]; } a;
+        union { uint4 q[OW]; O e[VE]; } b;
+        a.q = in[u];
+#pragma unroll
+        for (int k = 0; k < VE; ++k) b.e[k] = act_one<T, KIND>(a.e[k]);
+        if (vstore) {
+          uint4* yt = reinterpret_cast<uint4*>(ye) + v * OW;
+#pragma unroll
+          for (int w = 0; w < OW; ++w) yt[w] = b.q[w];
+        } else {
+#pragma unroll
+          for (int k = 0; k < VE; ++k) ye[v * VE + k] = b.e[k];
+        }
+      }
+    }
+  }
 }
 
 // One thread per element; the block stages the table in shared memory.
 template <typename T>
 __global__ void activation_lut_kernel(const T* __restrict__ x,
                                       const float* __restrict__ table,
-                                      float* __restrict__ y,
+                                      typename ActOut<T>::type* __restrict__ y,
                                       long long numel, float r, float s) {
   __shared__ float lut[kTableSize];
   for (int k = threadIdx.x; k < kTableSize; k += blockDim.x) {
@@ -625,9 +706,9 @@ __global__ void activation_lut_kernel(const T* __restrict__ x,
   __syncthreads();
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= numel) return;
-  float q = rintf(__fmul_rn(__fadd_rn(float(x[i]), r), s));
+  float q = rintf(__fmul_rn(__fadd_rn(widen<float>(x[i]), r), s));
   q = fminf(fmaxf(q, 0.0f), float(kTableSize - 1));   // NaN -> 0
-  y[i] = lut[int(q)];
+  y[i] = narrow<typename ActOut<T>::type>(lut[int(q)]);
 }
 
 // The taps in stacked order (i-major): max over them, or their sum and
@@ -645,13 +726,13 @@ __global__ void pool2d_im2col_kernel(const T* __restrict__ x,
   int n = int(r / Ho);
   const T* base = x + ((size_t(n) * H + size_t(oh) * SH) * W +
                        size_t(ow) * SW) * C + t.co;
-  V acc = V(base[0]);
+  V acc = widen<V>(base[0]);
   for (int tap = 1; tap < KH * KW; ++tap) {
-    V v = V(base[(size_t(tap / KW) * W + tap % KW) * C]);
+    V v = widen<V>(base[(size_t(tap / KW) * W + tap % KW) * C]);
     acc = (mode == kMax) ? vmax(acc, v) : add(acc, v);
   }
   if (mode == kAvg) acc = avg_div(acc, KH * KW);
-  y[t.p * C + t.co] = O(acc);
+  y[t.p * C + t.co] = narrow<O>(acc);
 }
 
 template <typename T, int STYLE>
@@ -727,17 +808,14 @@ inline unsigned blocks_for(long long items) {
 
 // Conv1 (style kVpu) or Conv2 (kMxu) of ns streams sharing the weights
 // (Conv4: Conv2 of two) on the tile plan (glog, twlog, th, cc, whole) of
-// kernels/conv2d/inner.py::tile_plan.  One stream: f32 or int8; two:
-// f32, bf16, int8 or int16.
+// kernels/conv2d/inner.py::tile_plan, on f32, bf16, int8 or int16.
 int conv_tiled(int style, int ns, int dtype, const void* const* x,
                const void* w, void* const* y, int N, int H, int W, int Cin,
                int KH, int KW, int Cout, int glog, int twlog, int th, int cc,
                int whole, void* stream) {
-  const bool types =
-      ns == 1 ? (dtype == kF32 || dtype == kI8)
-              : (ns == 2 && style == kMxu &&
-                 (dtype == kF32 || dtype == kI8 || dtype == kI16 ||
-                  dtype == kBF16));
+  const bool types = (ns == 1 || (ns == 2 && style == kMxu)) &&
+                     (dtype == kF32 || dtype == kI8 || dtype == kI16 ||
+                      dtype == kBF16);
   if (glog < 0 || glog > 3 || twlog < 0 || twlog > 5 || th < 1 ||
       (th << twlog) != (kThreads >> glog) * kConvPix || cc < 1 || cc > Cin ||
       (whole && cc != Cin) || !types || (style != kVpu && style != kMxu)) {
@@ -789,11 +867,15 @@ int conv_tiled(int style, int ns, int dtype, const void* const* x,
   }
   if (style == kVpu) {
     if (dtype == kF32) CNN_VPU(float)
-    CNN_VPU(int8_t)
+    if (dtype == kBF16) CNN_VPU(__nv_bfloat16)
+    if (dtype == kI8) CNN_VPU(int8_t)
+    CNN_VPU(int16_t)
   }
   if (ns == 1) {
     if (dtype == kF32) CNN_MXU(float, 1)
-    CNN_MXU(int8_t, 1)
+    if (dtype == kBF16) CNN_MXU(__nv_bfloat16, 1)
+    if (dtype == kI8) CNN_MXU(int8_t, 1)
+    CNN_MXU(int16_t, 1)
   }
   if (dtype == kF32) CNN_MXU(float, 2)
   if (dtype == kBF16) CNN_MXU(__nv_bfloat16, 2)
@@ -840,6 +922,10 @@ int cnn_pool2d(int dtype, int mode, const void* x, void* y, int N, int H,
       (const T*)x, (O*)y, N, H, W, C, KH, KW, SH, SW, Ho, Wo, mode, bc)
   if (dtype == kF32) {
     CNN_POOL(float, float, float);
+  } else if (dtype == kBF16 && mode == kMax) {
+    CNN_POOL(__nv_bfloat16, float, __nv_bfloat16);
+  } else if (dtype == kBF16 && mode == kAvg) {
+    CNN_POOL(__nv_bfloat16, float, float);
   } else if (dtype == kI8 && mode == kMax) {
     CNN_POOL(int8_t, int32_t, int8_t);
   } else if (dtype == kI8 && mode == kAvg) {
@@ -853,35 +939,66 @@ int cnn_pool2d(int dtype, int mode, const void* x, void* y, int N, int H,
   return int(cudaGetLastError());
 }
 
-int cnn_activation(int dtype, int kind, const void* x, float* y,
-                   long long numel, void* stream) {
-  unsigned grid = blocks_for(numel);
-  cudaStream_t st = cudaStream_t(stream);
-  if (dtype == kF32) {
-    activation_kernel<float><<<grid, kThreads, 0, st>>>((const float*)x, y,
-                                                        numel, kind);
-  } else if (dtype == kI8) {
-    activation_kernel<int8_t><<<grid, kThreads, 0, st>>>((const int8_t*)x, y,
-                                                         numel, kind);
-  } else if (dtype == kI32) {
-    activation_kernel<int32_t><<<grid, kThreads, 0, st>>>((const int32_t*)x,
-                                                          y, numel, kind);
-  } else {
+// activation_exact: head, the elements before x's first 16-byte
+// boundary, is worked out here from x's address; y + head takes 16-byte
+// stores where it is 16-byte aligned too.  The grid is kActCtasPerSm
+// whole waves of the card's `sms` SMs, or one CTA a tile where the
+// tensor has fewer tiles.
+int cnn_activation(int dtype, int kind, const void* x, void* y,
+                   long long numel, int sms, void* stream) {
+  const int size = dtype == kF32 || dtype == kI32 ? 4 : dtype == kBF16 ? 2
+                   : dtype == kI8 ? 1 : 0;
+  const int osize = dtype == kBF16 ? 2 : 4;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  if (size == 0 || kind < kRelu || kind > kGelu || numel < 0 || sms < 1 ||
+      xa % size != 0 || reinterpret_cast<uintptr_t>(y) % osize != 0) {
     return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
+  const long long head = std::min(numel, (long long)((16 - xa % 16) % 16) /
+                                             size);
+  const bool vstore =
+      (reinterpret_cast<uintptr_t>(y) + head * osize) % 16 == 0;
+  const long long per_tile = (long long)kThreads * kActVecs * (16 / size);
+  const long long tiles = (numel - head + per_tile - 1) / per_tile;
+  const long long grid =
+      std::max(1LL, std::min(tiles, (long long)sms * kActCtasPerSm));
+  cudaStream_t st = cudaStream_t(stream);
+  auto run = [&](auto kernel, auto xp, auto yp) {
+    kernel<<<unsigned(grid), kThreads, 0, st>>>(xp, yp, numel, int(head),
+                                                vstore);
+    return int(cudaGetLastError());
+  };
+#define CNN_ACT(T)                                                          \
+  {                                                                         \
+    const T* xp = (const T*)x;                                              \
+    ActOut<T>::type* yp = (ActOut<T>::type*)y;                              \
+    switch (kind) {                                                         \
+      case kRelu: return run(activation_kernel<T, kRelu>, xp, yp);          \
+      case kRelu6: return run(activation_kernel<T, kRelu6>, xp, yp);        \
+      case kSigmoid: return run(activation_kernel<T, kSigmoid>, xp, yp);    \
+      case kTanh: return run(activation_kernel<T, kTanh>, xp, yp);          \
+      default: return run(activation_kernel<T, kGelu>, xp, yp);             \
+    }                                                                       \
+  }
+  if (dtype == kF32) CNN_ACT(float)
+  if (dtype == kBF16) CNN_ACT(__nv_bfloat16)
+  if (dtype == kI8) CNN_ACT(int8_t)
+  CNN_ACT(int32_t)
+#undef CNN_ACT
 }
 
 int cnn_activation_lut(int dtype, const void* x, const float* table,
-                       float* y, long long numel, float r, float s,
+                       void* y, long long numel, float r, float s,
                        void* stream) {
   unsigned grid = blocks_for(numel);
   cudaStream_t st = cudaStream_t(stream);
 #define CNN_LUT(T)                                                          \
-  activation_lut_kernel<T><<<grid, kThreads, 0, st>>>((const T*)x, table,   \
-                                                      y, numel, r, s)
+  activation_lut_kernel<T><<<grid, kThreads, 0, st>>>(                      \
+      (const T*)x, table, (ActOut<T>::type*)y, numel, r, s)
   if (dtype == kF32) {
     CNN_LUT(float);
+  } else if (dtype == kBF16) {
+    CNN_LUT(__nv_bfloat16);
   } else if (dtype == kI8) {
     CNN_LUT(int8_t);
   } else if (dtype == kI32) {
@@ -904,6 +1021,10 @@ int cnn_pool2d_im2col(int dtype, int mode, const void* x, void* y, int N,
       (const T*)x, (O*)y, N, H, W, C, KH, KW, SH, SW, Ho, Wo, mode, bc)
   if (dtype == kF32) {
     CNN_IM2COL(float, float, float);
+  } else if (dtype == kBF16 && mode == kMax) {
+    CNN_IM2COL(__nv_bfloat16, float, __nv_bfloat16);
+  } else if (dtype == kBF16 && mode == kAvg) {
+    CNN_IM2COL(__nv_bfloat16, float, float);
   } else if (dtype == kI8 && mode == kMax) {
     CNN_IM2COL(int8_t, int32_t, int8_t);
   } else if (dtype == kI8 && mode == kAvg) {
@@ -929,17 +1050,25 @@ int cnn_fused(int style, int dtype, const void* x, const void* w,
   fused_cnn_kernel<T, S><<<grid, kThreads, 0, st>>>(                        \
       (const T*)x, (const T*)w, scale, y, N, s, PH, PW, SH, SW, Po, Qo,     \
       mode, kind, bc)
-  if (dtype == kF32 && style == kVpu) {
-    CNN_FUSED(float, kVpu);
-  } else if (dtype == kF32 && style == kMxu) {
-    CNN_FUSED(float, kMxu);
-  } else if (dtype == kI8 && style == kVpu) {
-    CNN_FUSED(int8_t, kVpu);
-  } else if (dtype == kI8 && style == kMxu) {
-    CNN_FUSED(int8_t, kMxu);
+#define CNN_FUSED_STYLES(T)                                                 \
+  if (style == kVpu) {                                                      \
+    CNN_FUSED(T, kVpu);                                                     \
+  } else {                                                                  \
+    CNN_FUSED(T, kMxu);                                                     \
+  }
+  if (style != kVpu && style != kMxu) return int(cudaErrorInvalidValue);
+  if (dtype == kF32) {
+    CNN_FUSED_STYLES(float)
+  } else if (dtype == kBF16) {
+    CNN_FUSED_STYLES(__nv_bfloat16)
+  } else if (dtype == kI8) {
+    CNN_FUSED_STYLES(int8_t)
+  } else if (dtype == kI16) {
+    CNN_FUSED_STYLES(int16_t)
   } else {
     return int(cudaErrorInvalidValue);
   }
+#undef CNN_FUSED_STYLES
 #undef CNN_FUSED
   return int(cudaGetLastError());
 }

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "cnn_conv1": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _P),
     "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "cnn_activation": (_I, _I, _P, _P, ctypes.c_longlong, _P),
+    "cnn_activation": (_I, _I, _P, _P, ctypes.c_longlong, _I, _P),
     "cnn_fused": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _I, _I, _P),
     "cnn_activation_lut": (_I, _P, _P, _P, ctypes.c_longlong, _F, _F, _P),
@@ -69,7 +69,8 @@ _SIGNATURES = {
     "attn_decode_plan": (_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I),
                          ctypes.POINTER(ctypes.c_longlong)),
-    "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P),
 }
 
 # Launches per kernel since the last reset_launches(): each wrapper adds
@@ -172,6 +173,13 @@ def lib() -> ctypes.CDLL:
             handle.cnn_error_string.restype = ctypes.c_char_p
             _LIB = handle
     return _LIB
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device``: the one source of the launch
+    plans that size a grid to the card (the scan's ``lane_plan``,
+    ``activation_exact``'s waves)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_dtype(what: str, dtype: torch.dtype, dtypes) -> None:

@@ -16,7 +16,9 @@ fused block is bitwise equal to its three-launch chain.
 **int8 rung**: ``scale=`` (f32, one per output channel) rescales the
 int32 accumulator to f32 in register before pooling, as the reference
 does (cnn_block.py:71-75).  Integer operands without a scale pool in
-int32 (floor average) and activate in f32.
+int32 (floor average) and activate in f32.  On the card the kernel takes
+the conv members' dtypes (``CUDA_DTYPES``: f32, bf16, int8, int16) and
+gives f32.
 """
 from __future__ import annotations
 
@@ -27,9 +29,11 @@ from repro_torch.core.resources import (Footprint, cost_cycles,
 from repro_torch.kernels import cuda
 from repro_torch.kernels.activation.ref import _FNS, KINDS
 from repro_torch.kernels.activation.vpu_exact import OP_COST
-from repro_torch.kernels.conv2d.inner import (STYLE_CODE, accumulate_vpu,
+from repro_torch.kernels.conv2d.inner import (CUDA_DTYPES,  # noqa: F401
+                                              STYLE_CODE, accumulate_vpu,
                                               check_block,
-                                              check_conv_operands, conv_mxu)
+                                              check_conv_operands, conv_mxu,
+                                              kernel_operands)
 from repro_torch.kernels.pool2d.ref import MODES, check_pool_geometry
 from repro_torch.kernels.pool2d.vpu_window import MODE_CODE, window_reduce
 
@@ -88,8 +92,7 @@ def _fused_call(style, x, w, scale, pool_window, pool_stride, pool_mode,
         return fused_cnn_plain(style, x, w, scale, pool_window=(ph, pw),
                                pool_stride=(sh, sw), pool_mode=pool_mode,
                                act_kind=act_kind)
-    cuda.require(x, "x", (torch.float32, torch.int8))
-    cuda.require(w, "w", (x.dtype,))
+    x, w = kernel_operands(x, w)
     _, _, po, qo = _geometry(h, w_, kh, kw, ph, pw, sh, sw)
     sc = None if scale is None else _scale_vector(scale, cout, x.device)
     y = torch.empty((n, po, qo, cout), dtype=torch.float32, device=x.device)

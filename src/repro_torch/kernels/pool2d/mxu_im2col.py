@@ -21,7 +21,7 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.conv2d.inner import check_block
 from repro_torch.kernels.pool2d.ref import (MODES, check_pool_geometry,
                                             pool2d_out_shape, pool_dtypes)
-from repro_torch.kernels.pool2d.vpu_window import MODE_CODE
+from repro_torch.kernels.pool2d.vpu_window import CUDA_DTYPES, MODE_CODE
 
 
 def pool2d_im2col_plain(x, *, window=(2, 2), stride=None,
@@ -50,7 +50,7 @@ def pool2d_im2col_plain(x, *, window=(2, 2), stride=None,
 def pool2d_im2col(x: torch.Tensor, *, window=(2, 2), stride=None,
                   mode: str = "max", block_c: int = 128) -> torch.Tensor:
     """Max/avg pooling, output dtype per ``pool_dtypes``.  CUDA tensors
-    (f32, int8, int32) launch the kernel; CPU tensors run the plain
+    (``CUDA_DTYPES``) launch the kernel; CPU tensors run the plain
     version."""
     if mode not in MODES:
         raise ValueError(f"unknown pool mode {mode!r}; have {MODES}")
@@ -58,7 +58,7 @@ def pool2d_im2col(x: torch.Tensor, *, window=(2, 2), stride=None,
     if not x.is_cuda:
         return pool2d_im2col_plain(x, window=window, stride=stride,
                                    mode=mode)
-    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32), ndim=4)
+    cuda.require(x, "x", CUDA_DTYPES, ndim=4)
     (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
     n, h, w, c = x.shape
     _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))

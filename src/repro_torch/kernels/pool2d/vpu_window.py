@@ -18,6 +18,9 @@ from repro_torch.kernels.pool2d.ref import (MODES, check_pool_geometry,
                                             pool2d_out_shape, pool_dtypes)
 
 MODE_CODE = {"max": 0, "avg": 1}
+# input dtypes the CUDA kernel takes (bf16 reduces in f32: max is exact
+# and stays bf16, avg gives f32 as pool_dtypes says)
+CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32)
 
 
 def window_reduce(x, *, ho, wo, kh, kw, sh, sw, mode, acc_dtype):
@@ -59,7 +62,7 @@ def pool2d_window_plain(x, *, window=(2, 2), stride=None,
 def pool2d_window(x: torch.Tensor, *, window=(2, 2), stride=None,
                   mode: str = "max", block_c: int = 128) -> torch.Tensor:
     """Max/avg pooling, output dtype per ``pool_dtypes``.  CUDA tensors
-    (f32, int8, int32) launch the kernel; CPU tensors run the plain
+    (``CUDA_DTYPES``) launch the kernel; CPU tensors run the plain
     version."""
     if mode not in MODES:
         raise ValueError(f"unknown pool mode {mode!r}; have {MODES}")
@@ -67,7 +70,7 @@ def pool2d_window(x: torch.Tensor, *, window=(2, 2), stride=None,
     if not x.is_cuda:
         return pool2d_window_plain(x, window=window, stride=stride,
                                    mode=mode)
-    cuda.require(x, "x", (torch.float32, torch.int8, torch.int32), ndim=4)
+    cuda.require(x, "x", CUDA_DTYPES, ndim=4)
     (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
     n, h, w, c = x.shape
     _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))

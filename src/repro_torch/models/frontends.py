@@ -52,7 +52,11 @@ def params_from_numpy(tree, device=None):
     dev = resolve_device(device)
 
     def leaf(a):
-        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+        a = np.array(a, copy=True)
+        if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: exact via f32
+            return torch.from_numpy(a.astype(np.float32)).to(
+                dtype=torch.bfloat16, device=dev)
+        return torch.from_numpy(a).to(dev)
 
     return {"blocks": [{"w": leaf(b["w"])} for b in tree["blocks"]],
             "proj": leaf(tree["proj"])}

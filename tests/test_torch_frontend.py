@@ -1,8 +1,8 @@
 """The port's CNN frontend and block (``repro_torch.models``) against
 the reference's, with the reference's weights carried across by
-``params_from_numpy``.  Full widths: channels (3, 16, 32), d_model 64.
-Tolerance ``rtol=1e-4, atol=1e-5`` (float32 convs summed in another
-order than XLA)."""
+``params_from_numpy``.  Full widths: channels (3, 16, 32), d_model 64;
+f32, bf16 and int16 images and weights.  Tolerance ``rtol=1e-4,
+atol=1e-5`` (float32 convs summed in another order than XLA)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,22 +33,50 @@ def params():
                                 "cpu")
 
 
-@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
-def test_frontend_matches_reference(rng, params, fuse):
-    jp, tp = params
+def _int16_params(rng):
+    """An int16 frontend (the reference's widths) with small integer
+    weights: ``init_cnn_frontend(dtype=int16)`` would round N(0, 1/27)
+    draws to zero.  Block 0 then sums exactly in int32; block 1 takes
+    its f32 input against the int16 weights, widened exactly."""
+    tree = {"blocks": [{"w": rng.integers(-8, 9, s).astype(np.int16)}
+                       for s in ((3, 3, 3, 16), (3, 3, 16, 32))],
+            "proj": rng.integers(-4, 5, (32, 64)).astype(np.int16)}
+    return tree, params_from_numpy(tree, "cpu")
+
+
+def _frontend_case(rng, params, dtype):
+    """(reference params, port params, reference images, port images) of
+    the f32 frontend, its bf16 twin (the reference's init in bf16, the
+    images rounded to bf16 in both packages) or the int16 one."""
+    if dtype == "int16":
+        jp, tp = _int16_params(rng)
+        x = rng.integers(-100, 101, (2, 32, 32, 3)).astype(np.int16)
+        return jp, tp, jnp.asarray(x), torch.from_numpy(x)
     x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    if dtype == "float32":
+        return (*params, jnp.asarray(x), torch.from_numpy(x))
+    jp = j_init(jax.random.PRNGKey(3), dtype=jnp.bfloat16)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return (jp, tp, jnp.asarray(x).astype(jnp.bfloat16),
+            torch.from_numpy(x).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int16"])
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_frontend_matches_reference(rng, params, fuse, dtype):
+    jp, tp, jx, tx = _frontend_case(rng, params, dtype)
     j_clear()
     t_clear()
-    want = np.asarray(j_apply(jp, jnp.asarray(x), fuse=fuse))
-    got = t_apply(tp, torch.from_numpy(x), fuse=fuse)
+    want = np.asarray(j_apply(jp, jx, fuse=fuse))
+    got = t_apply(tp, tx, fuse=fuse)
     assert tuple(got.shape) == want.shape == (2, 36, 64)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
-def test_frontend_fused_bitwise_equals_unfused(rng, params):
-    _, tp = params
-    x = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(np.float32))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int16"])
+def test_frontend_fused_bitwise_equals_unfused(rng, params, dtype):
+    _, tp, _, x = _frontend_case(rng, params, dtype)
     logic_only = ResourceBudget(mxu_available=False)
     for budget in (None, logic_only):
         assert torch.equal(t_apply(tp, x, budget=budget, fuse=True),

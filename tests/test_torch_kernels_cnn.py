@@ -8,8 +8,10 @@ Inputs are made with numpy from a seed and fed to both packages.
 
 Tolerances: float32 conv and fused blocks (and the f32 rescale of the
 int8 fused rung) ``rtol=1e-4, atol=1e-5`` (the port sums in another
-order than XLA); pool and activation ``1e-6``; int8 conv/pool, the int32
-floor average and the native-int8 fused block bit-exact.
+order than XLA), bf16 convs the same (widened exactly, summed in f32);
+pool and activation ``1e-6``, bf16 results one bf16 rounding of it
+(``BF16``); int8/int16 conv/pool, the int32 floor average and the
+native-int8 fused block bit-exact.
 """
 import dataclasses
 
@@ -45,6 +47,9 @@ from repro_torch.kernels.pool2d.ops import pool2d as t_pool2d
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 TIGHT = dict(rtol=1e-6, atol=1e-6)
+# a bf16 result: the f32 values within TIGHT, each rounded once to bf16,
+# may round apart by one bf16 step (2^-8 of the value)
+BF16 = dict(rtol=2 ** -8, atol=1e-6)
 
 CONV_SHAPES = [((2, 12, 12, 4), (3, 3, 4, 8)),
                ((1, 9, 11, 3), (3, 3, 3, 5)),
@@ -162,19 +167,27 @@ CONV1_PLANS = [((2, 13, 37, 1), (3, 3, 1, 7), 128, None),
 CONV1_IDS = ["cin1-k3", "cin5-k5", "cin5-k1-bc4", "chunked", "chunked-bc8"]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def _conv_operands(rng, dtype, xs, ws):
+    """x and w as (jax, torch) pairs: f32 standard normal, int8 in
+    [-128, 127); int16 over its full range and bf16 rounded from f32 in
+    both packages (``_conv4_operands``)."""
+    if dtype == "float32":
+        return _both(_randn(rng, xs)), _both(_randn(rng, ws))
+    if dtype == "int8":
+        return _both(_randint8(rng, xs)), _both(_randint8(rng, ws))
+    return _conv4_operands(rng, dtype, xs, ws)[1:]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int16", "bfloat16"])
 @pytest.mark.parametrize("xs,ws,block_cout,smem", CONV1_PLANS,
                          ids=CONV1_IDS)
 def test_conv1_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
     """The tiled Conv1 kernel's plan covers every output exactly once,
     each tile's staged inputs cover its windows, and the tile-by-tile
     computation in the Conv1 order is bitwise equal to
-    ``conv2d_ip1_plain`` and matches the reference's kernel."""
-    if dtype == "float32":
-        x, w = _randn(rng, xs), _randn(rng, ws)
-    else:
-        x, w = _randint8(rng, xs), _randint8(rng, ws)
-    (jx, tx), (jw, tw) = _both(x), _both(w)
+    ``conv2d_ip1_plain`` and matches the reference's kernel (integers
+    exactly, int16 products wrapping in the int32 accumulator)."""
+    (jx, tx), (jw, tw) = _conv_operands(rng, dtype, xs, ws)
     n, h, w_, cin = xs
     kh, kw, _, cout = ws
     kwargs = {} if smem is None else dict(smem_bytes=smem)
@@ -190,7 +203,7 @@ def test_conv1_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
     assert (hits == 1).all()
     assert torch.equal(got, t_ip1.conv2d_ip1_plain(tx, tw))
     want = _np(j_ip1.conv2d_ip1(jx, jw))
-    if dtype == "float32":
+    if tx.is_floating_point():
         np.testing.assert_allclose(_np(got), want, **F32)
     else:
         np.testing.assert_array_equal(_np(got), want)
@@ -261,7 +274,7 @@ CONV2_PLANS = CONV1_PLANS + [((2, 9, 12, 16), (3, 3, 16, 32), 128, None),
 CONV2_IDS = CONV1_IDS + ["cin16-quads", "chunked-tail"]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int16", "bfloat16"])
 @pytest.mark.parametrize("xs,ws,block_cout,smem", CONV2_PLANS,
                          ids=CONV2_IDS)
 def test_conv2_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
@@ -269,13 +282,9 @@ def test_conv2_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
     each tile's staged inputs cover its windows, and the tile-by-tile
     chain over (i, j, cin) is bitwise equal to the plain chain: in f32
     (the kernels' accumulator) to ``inner.accumulate_mxu``'s, and to
-    ``conv2d_ip2_plain`` (f64 for floats, int32 for int8), which matches
-    the reference's kernel."""
-    if dtype == "float32":
-        x, w = _randn(rng, xs), _randn(rng, ws)
-    else:
-        x, w = _randint8(rng, xs), _randint8(rng, ws)
-    (jx, tx), (jw, tw) = _both(x), _both(w)
+    ``conv2d_ip2_plain`` (f64 for floats, int32 wrapping for integers),
+    which matches the reference's kernel."""
+    (jx, tx), (jw, tw) = _conv_operands(rng, dtype, xs, ws)
     n, h, w_, cin = xs
     kh, kw, _, cout = ws
     kwargs = {} if smem is None else dict(smem_bytes=smem)
@@ -293,7 +302,7 @@ def test_conv2_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
     if not plan.whole:
         assert plan.cc < cin and plan.cc % (16 // size) == 0
     assert staged <= budget or plan.cc == 16 // size
-    if dtype == "float32":
+    if tx.is_floating_point():
         f32, hits = _conv2_tiles((tx,), tw, plan, torch.float32)
         assert (hits == 1).all()
         assert torch.equal(f32[0], t_inner.accumulate_mxu(
@@ -305,7 +314,7 @@ def test_conv2_tile_plan_emulation(rng, dtype, xs, ws, block_cout, smem):
         got = got[0]
     assert torch.equal(got, t_ip2.conv2d_ip2_plain(tx, tw))
     want = _np(j_ip2.conv2d_ip2(jx, jw))
-    if dtype == "float32":
+    if tx.is_floating_point():
         np.testing.assert_allclose(_np(got), want, **F32)
     else:
         np.testing.assert_array_equal(_np(got), want)
@@ -438,6 +447,29 @@ def test_pool_int_bit_exact_with_floor_average(rng, dtype, mode):
         assert (want < 0).any()
 
 
+@pytest.mark.parametrize("member", ["window", "im2col"])
+@pytest.mark.parametrize("mode", ["max", "avg"])
+def test_pool_bf16_plain_matches_reference(rng, member, mode):
+    """bf16 pooling (the CUDA kernels reduce in f32): max keeps bf16 and
+    picks an input exactly, avg gives f32, as the reference's kernels in
+    interpret mode give them."""
+    jfn, tfn = {"window": (j_pool.pool2d_window, t_pool.pool2d_window),
+                "im2col": (j_im2col.pool2d_im2col,
+                           t_im2col.pool2d_im2col)}[member]
+    x = _randn(rng, (2, 10, 11, 5))
+    jx, tx = jnp.asarray(x).astype(jnp.bfloat16), \
+        torch.from_numpy(x).to(torch.bfloat16)
+    want = jfn(jx, window=(3, 3), stride=(2, 2), mode=mode)
+    got = tfn(tx, window=(3, 3), stride=(2, 2), mode=mode)
+    out = torch.bfloat16 if mode == "max" else torch.float32
+    assert got.dtype == out and str(want.dtype) == str(out).split(".")[1]
+    want = np.asarray(want.astype(jnp.float32))
+    if mode == "max":
+        np.testing.assert_array_equal(_np(got.float()), want)
+    else:
+        np.testing.assert_allclose(_np(got), want, **TIGHT)
+
+
 def test_pool_max_propagates_nan():
     x = torch.zeros((1, 4, 4, 1))
     x[0, 1, 1, 0] = float("nan")
@@ -478,6 +510,53 @@ def test_activation_int_input_gives_f32(rng, kind):
     got = _np(t_act.activation_exact(tx, kind=kind))
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_allclose(got, want, **TIGHT)
+
+
+@pytest.mark.parametrize("kind", ["relu", "relu6", "sigmoid", "tanh", "gelu"])
+def test_activation_bf16_plain_matches_reference(rng, kind):
+    """bf16 in, bf16 out: the f32 function rounded once to bf16 (the
+    CUDA kernel's ``__float2bfloat16_rn``), as the reference's kernel in
+    interpret mode gives it, within one bf16 rounding of ``TIGHT``."""
+    x = _randn(rng, (3, 7, 6)) * 4
+    jx, tx = jnp.asarray(x).astype(jnp.bfloat16), \
+        torch.from_numpy(x).to(torch.bfloat16)
+    want = j_act.activation_exact(jx, kind=kind)
+    got = t_act.activation_exact(tx, kind=kind)
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    np.testing.assert_allclose(_np(got.float()),
+                               np.asarray(want.astype(jnp.float32)), **BF16)
+    if kind in ("relu", "relu6"):      # exact functions: the same bits
+        np.testing.assert_array_equal(_np(got.float()),
+                                      np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("kind", ["relu6", "sigmoid", "tanh"])
+def test_activation_lut_bf16_plain_matches_reference(rng, kind):
+    """bf16 in, bf16 out: the f32 table entry rounded once to bf16."""
+    x = _randn(rng, (4, 33)) * 5
+    jx, tx = jnp.asarray(x).astype(jnp.bfloat16), \
+        torch.from_numpy(x).to(torch.bfloat16)
+    want = j_lut.activation_lut(jx, kind=kind)
+    got = t_lut.activation_lut(tx, kind=kind)
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    np.testing.assert_allclose(_np(got.float()),
+                               np.asarray(want.astype(jnp.float32)), **BF16)
+
+
+def test_cuda_dtypes_cover_the_members():
+    """Each CNN member's CUDA kernel takes every dtype its library entry
+    declares (``supports_dtypes``), and the conv and fused kernels int16
+    too, so a tenant the planner admits is never refused on the card."""
+    import sys
+    from repro_torch.core.library import FAMILIES
+    for family in ("conv2d", "pool2d", "activation", "cnn_fused"):
+        for ip in FAMILIES[family].members.values():
+            have = sys.modules[ip.impl.__module__].CUDA_DTYPES
+            want = {getattr(torch, d) for d in ip.supports_dtypes}
+            if family in ("conv2d", "cnn_fused") and \
+                    ip.name != "conv2d.ip3_packed":
+                want.add(torch.int16)
+            assert want <= set(have), (ip.name, want - set(have))
 
 
 def test_activation_relu_propagates_nan():

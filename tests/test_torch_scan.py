@@ -34,9 +34,10 @@ from repro_torch.kernels.mamba_scan.scan import (selective_scan,
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 # the reference's tests/test_kernels_mamba_scan.py::CASES (B, T, Di, Ds,
-# block_di), and a case at d_state 16 with Di no multiple of the block
+# block_di), a case at d_state 16 with Di no multiple of the block, and
+# d_state 1 and 32 (the kernel takes any d_state)
 CASES = [(1, 8, 16, 4, 16), (2, 16, 32, 8, 16), (2, 12, 24, 4, 8),
-         (2, 64, 48, 16, 32)]
+         (2, 64, 48, 16, 32), (1, 8, 16, 1, 16), (2, 16, 24, 32, 8)]
 FOOTPRINT_GRID = [(1, 2048, 16384, 16), (8, 4096, 4096, 16),
                   (4, 512, 16384, 16), (2, 12, 24, 4), (1, 64, 100, 8)]
 
@@ -124,11 +125,84 @@ def test_cpu_calls_count_no_launch():
     selective_scan(*ops)
     t_library.get_family("ssm_scan")["ssm_scan.selective_vmem"](*ops)
     assert cuda.launch_counts() == {}
-    # d_state 5 has no kernel, but the CPU runs the plain version
+    # a d_state that is no power of two runs the plain version too
     ops5 = [torch.from_numpy(a)
             for a in _data(np.random.default_rng(5), 1, 8, 16, 5)]
     selective_scan(*ops5)
     assert cuda.launch_counts() == {}
+
+
+# (B, Di, Ds): the served site, four batch rows, d_state 32 at full
+# width, every small d_state of SCAN_SMALL_CASES and chip_smoke's
+# d_state 1, 5, 17 and 300 (two passes past 128 states), a lone channel
+PLAN_CASES = [(1, 16384, 16), (4, 16384, 16), (1, 16384, 32), (1, 16, 4),
+              (2, 32, 8), (1, 72, 4), (1, 16, 1), (2, 33, 5), (1, 50, 17),
+              (1, 40, 300), (1, 1, 16), (8, 4096, 128)]
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+@pytest.mark.parametrize("b,di,ds", PLAN_CASES,
+                         ids=lambda c: str(c))
+def test_lane_plan(b, di, ds, sms):
+    """The kernel's launch plan on a card of ``sms`` SMs (an H100 SXM's
+    or PCIe's count): a thread's states, the lanes and the passes cover
+    Ds padded to a power of two (``tree_shape``), a CTA fits 256 threads
+    and the shared memory, the CTAs cover every channel, and the lanes
+    split a channel until the card holds its target of threads an SM or
+    a thread keeps 4 states; then the kernel's tree over the plan's
+    (state, lane, pass) cut is bitwise ``scan_tree_sum``."""
+    plan = t_scan.lane_plan(b, di, ds, sms)
+    p2, passes = t_scan.tree_shape(ds)
+    assert p2 >= ds > p2 // 2 and passes == max(1, p2 // 128)
+    assert plan.states in (1, 2, 4, 8, 16) and plan.lanes <= 8
+    assert plan.states * plan.lanes * plan.passes == p2
+    assert plan.passes == passes
+    assert plan.ch % 32 == 0 and plan.ch * plan.lanes <= t_scan.MAX_THREADS
+    assert plan.ch < di + 32
+    assert 1 <= plan.tc <= t_scan.MAX_CHUNK
+    assert plan.smem_bytes() <= t_scan.SMEM_BYTES
+    threads = b * di * plan.lanes
+    if plan.states > 4 and plan.lanes < 8:
+        assert threads >= sms * t_scan.TARGET_THREADS_PER_SM
+    if (b, di, ds) == (1, 16384, 16):
+        assert tuple(plan) == (4, 4, 1, 64, 21)
+    # the kernel's order on the plan: lane l's register k holds product
+    # (k * lanes + l) * passes + q; a halving tree over the registers,
+    # then over the lanes, then the passes in order
+    prods = torch.from_numpy(np.random.default_rng(ds).normal(
+        size=(3, p2)).astype(np.float32))
+    s, lanes = plan.states, plan.lanes
+    y = None
+    for q in range(plan.passes):
+        lane_sums = []
+        for lane in range(lanes):
+            v = [prods[:, (k * lanes + lane) * plan.passes + q]
+                 for k in range(s)]
+            while len(v) > 1:
+                v = [a + b for a, b in zip(v[:len(v) // 2],
+                                           v[len(v) // 2:])]
+            lane_sums.append(v[0])
+        while len(lane_sums) > 1:
+            half = len(lane_sums) // 2
+            lane_sums = [a + b for a, b in zip(lane_sums[:half],
+                                               lane_sums[half:])]
+        y = lane_sums[0] if y is None else y + lane_sums[0]
+    assert torch.equal(y, t_scan.scan_tree_sum(prods, plan.passes))
+    np.testing.assert_allclose(y.numpy(), prods.sum(-1).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_plain_version_pads_and_keeps_the_oracles_recurrence():
+    """The plain version (the kernel's order) is the oracle's recurrence
+    with the y sum re-ordered: h bitwise, y within the reference bound;
+    zero-padded states change neither."""
+    for ds in (5, 16, 32):
+        ops = [torch.from_numpy(a) for a in
+               _data(np.random.default_rng(ds), 2, 24, 40, ds)]
+        y, h = selective_scan_plain(*ops)
+        want_y, want_h = selective_scan_ref(*ops)
+        assert torch.equal(h, want_h)
+        np.testing.assert_allclose(y.numpy(), want_y.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("shape", FOOTPRINT_GRID,
