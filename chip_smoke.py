@@ -23,7 +23,20 @@ and prints no result):
    ``conv2d_ip1`` and ``conv2d_ip2`` at ``CONV_RAGGED`` on bf16 and int16
    (``conv_dtype_checks``: one launch a call, int16 exact, bf16 within
    ``rtol=1e-4, atol=1e-5``, ``block_cout`` 1/5/16/128 bitwise, fused ==
-   chain for both styles); ``activation_exact`` (the vector kernel) on
+   chain for both styles); the fused kernel (``fused_cnn_tiled_kernel``,
+   both styles) at every ``CONV_RAGGED`` shape under the pool geometries
+   of ``FUSED_GEOMS`` and the windows larger than a tile of
+   ``FUSED_BIG``, max and avg, on f32, bf16, int16, native int8 and the
+   int8 rung (``fused_geometry_checks``: one launch a call, == its
+   three-launch chain bitwise but on the rung, integers and the rung
+   bit-exact under relu (tanh within 1e-6) and floats within
+   ``rtol=1e-4, atol=1e-5`` of the plain version, ``block_cout``
+   1/5/16/128 bitwise); ``conv2d_ip3``
+   (``conv2d_ip3_tiled_kernel``) at ``CONV_RAGGED`` and ``CONV3_TAIL``
+   on full-range int8 (``conv3_checks``: one launch a call, bit-exact
+   against the plain version and two ``conv2d_ip1`` launches,
+   ``block_cout`` 1/5/16/128 bitwise); ``activation_exact`` (the vector
+   kernel) on
    every dtype it takes at ``ACT_SHAPES``, its input at ``ACT_OFFSETS``
    bytes past a 16-byte boundary, every kind, one launch a call: equal
    to the plain version (relu/relu6 bitwise, bf16 within one bf16
@@ -101,9 +114,13 @@ and prints no result):
    and every kernel of the ``kernels`` line (``KERNEL``) in the library;
 5. times  — per kernel (``conv2d_ip1`` also at block 1 and on int8 at
    block 0, ``conv2d_ip2`` also on int8 and bf16 at block 1 (bf16
-   ``F.conv2d`` beside it), the fused blocks also on bf16,
+   ``F.conv2d`` beside it), the fused blocks also on bf16 (each fused
+   row with its three-launch chain timed beside it, and its grid: CTAs,
+   registers, CTAs an SM and waves; Conv3's row with two ``conv2d_ip1``
+   launches and its grid),
    ``flash_attention``,
-   ``flash_decode`` and ``mm_dual_full`` also on f32; ``mm_mxu`` per
+   ``flash_decode`` (with f32 SDPA beside it, or the error it raises)
+   and ``mm_dual_full`` also on f32; ``mm_mxu`` per
    operand dtype:
    f32 on CUDA cores, int8 and bf16 on the tensor cores; ``mm_vpu`` per
    operand dtype, all on CUDA cores): the median device time of 20
@@ -254,13 +271,13 @@ SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
 KERNEL = {
     "activation_lut": "activation_lut_kernel",
     "pool2d_im2col": "pool2d_im2col_kernel",
-    "fused_cnn_vpu": "fused_cnn_kernel",
-    "fused_cnn_mxu": "fused_cnn_kernel",
+    "fused_cnn_vpu": "fused_cnn_tiled_kernel",
+    "fused_cnn_mxu": "fused_cnn_tiled_kernel",
     "conv2d_ip1": "conv2d_vpu_tiled_kernel",
     "conv2d_ip2": "conv2d_mxu_tiled_kernel",
     "pool2d_window": "pool2d_kernel",
     "activation_exact": "activation_kernel",
-    "conv2d_ip3": "conv2d_ip3_kernel",
+    "conv2d_ip3": "conv2d_ip3_tiled_kernel",
     "conv2d_ip4": "conv2d_mxu_tiled_kernel",
     "mm_mxu": "mm_mxu_f32_kernel",
     "mm_mxu (int8)": "mm_tc_mxu_i8_kernel",
@@ -277,8 +294,9 @@ KERNEL = {
 }
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
 # as ssm_scan.selective_vmem): no MMA in SASS.
-LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_kernel",
-              "mm_vpu_kernel", "selective_scan_kernel", "activation_kernel",
+LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_tiled_kernel",
+              "fused_cnn_tiled_kernel", "mm_vpu_kernel",
+              "selective_scan_kernel", "activation_kernel",
               "activation_lut_kernel", "pool2d_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 # The tensor-core kernels by source, and the wgmma instruction each must
@@ -422,6 +440,22 @@ CONV_RAGGED = (((2, 13, 37, 1), (3, 3, 1, 7)),
                ((2, 17, 23, 3), (3, 3, 3, 16)),
                ((3, 30, 70, 16), (3, 3, 16, 40)),
                ((1, 12, 20, 600), (3, 3, 600, 7)))
+# the fused kernel's pool geometries (window, stride) at every
+# CONV_RAGGED shape: non-overlapping, overlapping, stride 1, mixed, and
+# a stride past the window
+FUSED_GEOMS = (((2, 2), (2, 2)), ((3, 3), (2, 2)), ((2, 2), (1, 1)),
+               ((2, 3), (1, 2)), ((2, 2), (3, 3)))
+# windows larger than a tile ((x, w), window, stride): taller than the
+# conv tile's 8 rows (two row bands), wider than 32 columns (a tile of
+# 64), and wider than the widest band of 2048 columns (one-row bands in
+# two column segments)
+FUSED_BIG = ((((3, 30, 70, 16), (3, 3, 16, 40)), (12, 5), (3, 2)),
+             (((3, 30, 70, 16), (3, 3, 16, 40)), (2, 40), (2, 3)),
+             (((1, 3, 2100, 2), (1, 1, 2, 4)), (3, 2090), (1, 3)))
+# Conv3 with the halo staged whole at K = 270, Cin 30 a tap: seven
+# channel quads (two-pair blocks) and two channels past them (one-pair
+# blocks) a tap; CONV_RAGGED's Cin 600 takes the chunked path
+CONV3_TAIL = (((2, 10, 20, 30), (3, 3, 30, 32)),)
 
 
 # The two-tenant precision-ladder deployments (the reference's serving
@@ -755,6 +789,120 @@ def conv_dtype_checks(gen, errs):
         f"rtol=1e-4, atol=1e-5, block_cout 1/5/16/128 bitwise; "
         f"fused_cnn_vpu / fused_cnn_mxu == chain bitwise (max relu, avg "
         f"tanh)")
+    torch.cuda.synchronize()
+
+
+def fused_geometry_checks(gen, errs):
+    """fused_cnn_vpu / fused_cnn_mxu (fused_cnn_tiled_kernel) at every
+    CONV_RAGGED shape under FUSED_GEOMS and at FUSED_BIG, max (relu) and
+    avg (tanh), on f32, bf16, int16, native int8 and the int8 rung
+    (scale=), integers over their full range: one launch a call; but on
+    the rung (no standalone chain rescales), bitwise equal to the
+    three-launch chain (conv2d_ip1 / conv2d_ip2, pool2d_window,
+    activation_exact); against fused_cnn_plain, integers and the rung
+    bit-exact under relu and within 1e-6 under tanh (CUDA's tanhf
+    against torch's), f32 and bf16 within rtol=1e-4, atol=1e-5;
+    block_cout 1, 5, 16 and 128 bitwise.  FUSED_BIG's plans must walk
+    two row bands, a 64-column tile and two column segments."""
+    import torch
+    from repro_torch.kernels.activation.vpu_exact import activation_exact
+    from repro_torch.kernels.conv2d.inner import fused_plan
+    from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1
+    from repro_torch.kernels.conv2d.ip2_mxu import conv2d_ip2
+    from repro_torch.kernels.fused.cnn_block import (fused_cnn_mxu,
+                                                     fused_cnn_plain,
+                                                     fused_cnn_vpu)
+    from repro_torch.kernels.pool2d.vpu_window import pool2d_window
+    styles = {"vpu": (fused_cnn_vpu, conv2d_ip1, "fused_cnn_vpu"),
+              "mxu": (fused_cnn_mxu, conv2d_ip2, "fused_cnn_mxu")}
+    cases = [(xs, ws, win, st) for xs, ws in CONV_RAGGED
+             for win, st in FUSED_GEOMS]
+    cases += [(xs, ws, win, st) for (xs, ws), win, st in FUSED_BIG]
+    big = []
+    for xs, ws, win, st in cases:
+        plan = fused_plan(*xs[1:], *ws[:2], ws[3], *win, *st, itemsize=4)
+        if ((xs, ws), win, st) in FUSED_BIG:
+            big.append(plan)
+        for dname in ("float32", "bfloat16", "int16", "int8", "int8 rung"):
+            dtype = getattr(torch, dname.split()[0])
+            x = operand(gen, xs, dtype)
+            w = operand(gen, ws, dtype, (ws[0] * ws[1] * ws[2]) ** -0.5)
+            sc = None
+            if dname == "int8 rung":
+                sc = (torch.rand(ws[-1], generator=gen) * 1e-3).cuda()
+            # integer convs and the rung's rescale are exact; so is
+            # relu, while tanh is CUDA's tanhf against torch's own
+            ints = sc is not None or not dtype.is_floating_point
+            tol = (1e-6, 1e-6) if ints else (1e-4, 1e-5)
+            for style, (kern, conv, name) in styles.items():
+                for mode, kind in (("max", "relu"), ("avg", "tanh")):
+                    kw = dict(pool_window=win, pool_stride=st,
+                              pool_mode=mode, act_kind=kind)
+                    what = f"{name} {dname} at {xs} x {ws}, {win}/{st} {mode}"
+                    got = launched_once(lambda: kern(x, w, sc, **kw), name,
+                                        what)
+                    compare(name, got, fused_cnn_plain(style, x, w, sc, **kw),
+                            *tol, errs, exact=ints and kind == "relu")
+                    if sc is None:
+                        chain = activation_exact(pool2d_window(
+                            conv(x, w), window=win, stride=st, mode=mode),
+                            kind=kind)
+                        check(torch.equal(got, chain), f"{what}: not bitwise "
+                              f"equal to its three-launch chain")
+                    for bc in (1, 5, 16):
+                        check(torch.equal(kern(x, w, sc, block_cout=bc, **kw),
+                                          got),
+                              f"{what}: result depends on block_cout ({bc})")
+    check(big[0].row_bands > 1 and big[1].tile.tw > 32
+          and big[2].col_segs > 1, f"FUSED_BIG plans {big}")
+    log(f"fused_cnn_vpu / fused_cnn_mxu ({KERNEL['fused_cnn_vpu']}, one "
+        f"launch a call) at {len(CONV_RAGGED)} ragged shapes x "
+        f"{FUSED_GEOMS} and FUSED_BIG, max relu and avg tanh, f32, bf16, "
+        f"int16, int8 and the int8 rung: == chain bitwise (not the rung), "
+        f"integers and the rung bit-exact (relu; tanh within 1e-6), floats "
+        f"within rtol=1e-4, atol=1e-5 of the plain version, block_cout "
+        f"1/5/16/128 bitwise; "
+        f"FUSED_BIG plans (f32) {big}")
+    torch.cuda.synchronize()
+
+
+def conv3_checks(gen, errs):
+    """conv2d_ip3 (conv2d_ip3_tiled_kernel) at CONV_RAGGED and
+    CONV3_TAIL on full-range int8 (-128 in every operand), block_cout
+    1, 5, 16 and 128: one launch a call, results independent of
+    block_cout, both streams bit-exact against conv2d_ip3_plain and
+    against two conv2d_ip1 launches."""
+    import torch
+    from repro_torch.kernels.conv2d.inner import tile_plan
+    from repro_torch.kernels.conv2d.ip1_vpu import conv2d_ip1
+    from repro_torch.kernels.conv2d.ip3_packed import (conv2d_ip3,
+                                                       conv2d_ip3_plain)
+    plans = []
+    for xs, ws in CONV_RAGGED + CONV3_TAIL:
+        xa, xb, w = (operand(gen, s_, torch.int8) for s_ in (xs, xs, ws))
+        for t in (xa, xb, w):
+            t.view(-1)[0] = -128
+        what = f"conv2d_ip3 at {xs} x {ws}"
+        ys = None
+        for bc in (128, 16, 5, 1):
+            got = launched_once(lambda: conv2d_ip3(xa, xb, w, block_cout=bc),
+                                "conv2d_ip3", f"{what}, block_cout {bc}")
+            if ys is None:
+                ys = got
+            check(all(torch.equal(u, v) for u, v in zip(got, ys)),
+                  f"{what}: result depends on block_cout ({bc})")
+        for got, want in zip(ys, conv2d_ip3_plain(xa, xb, w)):
+            compare("conv2d_ip3", got, want, 0, 0, errs, exact=True)
+        check(torch.equal(ys[0], conv2d_ip1(xa, w))
+              and torch.equal(ys[1], conv2d_ip1(xb, w)),
+              f"{what}: not bitwise equal to two conv2d_ip1 launches")
+        plans.append((tile_plan(*xs[1:], *ws[:2], ws[3], itemsize=1,
+                                style="packed"),
+                      ws[0] * ws[1] * ws[2]))
+    log(f"conv2d_ip3 ({KERNEL['conv2d_ip3']}, one launch a call) at "
+        f"{len(CONV_RAGGED)} ragged shapes and CONV3_TAIL, full-range int8, "
+        f"block_cout 1/5/16/128: bit-exact against the plain version and "
+        f"two conv2d_ip1 launches; (tile plan, K) {plans}")
     torch.cuda.synchronize()
 
 
@@ -2111,17 +2259,29 @@ def lm_timings(ops, peaks):
         r["bound_ms"], r["bound_by"] = r["exp_bound_ms"], "operations"
     del q, k, v, y
     # the decode kernel's f32 instance at attn_decode32k (the bf16 cache
-    # widened: twice the bytes); no library time: SDPA's f32 GQA path
-    # would expand the 17 GB cache to every query head
+    # widened: twice the bytes), beside f32 SDPA with enable_gqa (TF32
+    # off); where SDPA's f32 path cannot run (its GQA expansion of the
+    # 17 GB cache to every query head), the error it raises stands in the
+    # row instead of a time
     q, k, v = (t.float() for t in ops["decode"])
     y = flash_decode(q, k, v)
+    try:
+        lib_ms, lib_note = (time_ms(sdpa(q, k, v, False)),
+                            "f32 F.scaled_dot_product_attention(enable_gqa="
+                            "True)")
+    except RuntimeError as e:
+        lib_ms = None
+        lib_note = (f"f32 F.scaled_dot_product_attention(enable_gqa=True) "
+                    f"raised {type(e).__name__}: "
+                    f"{str(e).splitlines()[0][:240]}")
+    torch.cuda.empty_cache()
     rows["flash_decode (f32)"] = row(
         lambda: flash_decode(q, k, v),
         time_sync_ms(lambda: plain_chunks(flash_decode_plain, q, k, v,
                                           False)),
-        None, nbytes(q, k, v, y),
+        lib_ms, nbytes(q, k, v, y),
         4 * q.shape[-1] * q.shape[0] * q.shape[1] * k.shape[2], "fp32_flops",
-        f"q{tuple(q.shape)} kv{tuple(k.shape)} f32", "none")
+        f"q{tuple(q.shape)} kv{tuple(k.shape)} f32", lib_note)
     del q, k, v, y
     return rows
 
@@ -2219,7 +2379,78 @@ def time_ms(fn, reps=REPS, warmup=3):
                        "of the device")
 
 
-def timings(shapes, gen, peaks):
+def res_usage(lib_path):
+    """``cuobjdump -res-usage`` of the built library: registers a thread
+    by (mangled) kernel name."""
+    import re
+    from repro_torch.kernels import cuda
+    tool = Path(cuda._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-res-usage", str(lib_path)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"Function (\S+):\s*REG:(\d+)", out)}
+
+
+def grid_note(lib_path, mangled, ctas, smem):
+    """The grid of a tiled launch of 256-thread CTAs: the CTAs, the
+    kernel's registers (``res_usage``, the instantiation whose mangled
+    name starts with ``mangled``), the CTAs an SM that registers, shared
+    memory (``smem`` bytes dynamic, 1 KB reserved a CTA, 228 KB an SM)
+    and threads allow, and the waves on the card's SMs."""
+    import torch
+    regs = [r for name, r in res_usage(lib_path).items()
+            if name.startswith(mangled)]
+    check(len(regs) == 1, f"no single kernel {mangled} in the library")
+    per_sm = min(65536 // (-(-regs[0] // 8) * 8 * 256),
+                 (228 * 1024) // (smem + 1024), 2048 // 256)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"grid {ctas} CTAs, {regs[0]} registers, {smem} B shared, "
+            f"{per_sm} CTAs an SM, {ctas / (per_sm * sms):.2f} waves on "
+            f"{sms} SMs")
+
+
+# template arguments of the CNN kernels in their mangled names
+MANGLED_T = {"torch.float32": "f", "torch.bfloat16": "13__nv_bfloat16",
+             "torch.int8": "a", "torch.int16": "s"}
+
+
+def fused_grid(lib_path, style, x, w):
+    """grid_note of a fused_cnn_vpu / fused_cnn_mxu call at its default
+    2x2 pool."""
+    from repro_torch.kernels.conv2d.inner import (STYLE_CODE,
+                                                  fused_plan,
+                                                  fused_smem_bytes)
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    plan = fused_plan(h, w_, cin, kh, kw, cout, 2, 2, 2, 2,
+                      itemsize=x.element_size(), style=style)
+    po, qo = (h - kh + 1 - 2) // 2 + 1, (w_ - kw + 1 - 2) // 2 + 1
+    ctas = (n * -(-po // plan.tp) * -(-qo // plan.tq)
+            * -(-cout // plan.tile.bc))
+    ks = 3 if (kh, kw) == (3, 3) and plan.tile.whole else 0
+    mangled = (f"_ZN3cnn22fused_cnn_tiled_kernelI{MANGLED_T[str(x.dtype)]}"
+               f"Li{STYLE_CODE[style]}ELi{ks}ELb{int(plan.tile.whole)}E")
+    return grid_note(lib_path, mangled, ctas, fused_smem_bytes(
+        plan, kh, kw, cin, itemsize=x.element_size(), style=style))
+
+
+def conv3_grid(lib_path, x, w):
+    """grid_note of a conv2d_ip3 call."""
+    from repro_torch.kernels.conv2d.inner import tile_plan, tile_smem_bytes
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    plan = tile_plan(h, w_, cin, kh, kw, cout, itemsize=1, style="packed")
+    ho, wo = h - kh + 1, w_ - kw + 1
+    ctas = n * -(-ho // plan.th) * -(-wo // plan.tw) * -(-cout // plan.bc)
+    ks = 3 if (kh, kw) == (3, 3) and plan.whole else 0
+    mangled = (f"_ZN3cnn23conv2d_ip3_tiled_kernelILi{ks}ELb{int(plan.whole)}"
+               f"EE")
+    return grid_note(lib_path, mangled, ctas, tile_smem_bytes(
+        plan, kh, kw, cin, itemsize=1, style="packed"))
+
+
+def timings(shapes, gen, peaks, lib):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.activation.vpu_exact import (
@@ -2301,6 +2532,14 @@ def timings(shapes, gen, peaks):
         library_ms=time_ms(lambda: torch.relu(p0)),
         bound_ms=b_ms, bound_by=by, shape=f"x{tuple(p0.shape)} relu")
 
+    conv_of = {"vpu": conv2d_ip1, "mxu": conv2d_ip2}
+
+    def chain_yardstick(style, x, w):
+        conv = conv_of[style]
+        return (f"the three-launch chain ({conv.__name__}, pool2d_window, "
+                f"activation_exact)", time_ms(
+                    lambda: activation_exact(pool2d_window(conv(x, w)))))
+
     for name, style, kern, x, w in (("fused_cnn_vpu", "vpu", fused_cnn_vpu,
                                      x0, w0),
                                     ("fused_cnn_mxu", "mxu", fused_cnn_mxu,
@@ -2315,7 +2554,9 @@ def timings(shapes, gen, peaks):
             plain_ms=(time_ms if style == "vpu" else time_sync_ms)(
                 lambda: fused_cnn_plain(style, x, w)),
             library_ms=None, bound_ms=b_ms, bound_by=by,
-            shape=f"x{tuple(x.shape)} w{tuple(w.shape)} max 2x2 relu")
+            shape=f"x{tuple(x.shape)} w{tuple(w.shape)} max 2x2 relu",
+            yardstick=chain_yardstick(style, x, w),
+            grid=fused_grid(lib, style, x, w))
     # the bf16 tenant's kernels (PR 21): both fused blocks and Conv2 at
     # block 1, beside bf16 F.conv2d (cuDNN, on the tensor cores)
     bf = torch.bfloat16
@@ -2336,7 +2577,9 @@ def timings(shapes, gen, peaks):
             plain_ms=(time_ms if style == "vpu" else time_sync_ms)(
                 lambda: fused_cnn_plain(style, xb, wb)),
             library_ms=None, bound_ms=b_ms, bound_by=by,
-            shape=f"x{tuple(x.shape)} w{tuple(w.shape)} bf16 max 2x2 relu")
+            shape=f"x{tuple(x.shape)} w{tuple(w.shape)} bf16 max 2x2 relu",
+            yardstick=chain_yardstick(style, xb, wb),
+            grid=fused_grid(lib, style, xb, wb))
     xb1, wb1 = x1.to(bf), w1.to(bf)
     y = conv2d_ip2(xb1, wb1)
     k = w1.shape[0] * w1.shape[1] * w1.shape[2]
@@ -2390,7 +2633,10 @@ def timings(shapes, gen, peaks):
         library_ms=None, bound_ms=b_ms, bound_by=by,
         shape=f"2 x{tuple(ia.shape)} int8 w{tuple(iw.shape)}",
         yardstick=("two conv2d_ip1 launches (no PyTorch int8 conv on CUDA)",
-                   time_ms(lambda: (conv2d_ip1(ia, iw), conv2d_ip1(ib, iw)))))
+                   time_ms(lambda: (conv2d_ip1(ia, iw), conv2d_ip1(ib, iw)))),
+        yardstick2=("two int8 conv2d_ip2 launches",
+                    time_ms(lambda: (conv2d_ip2(ia, iw), conv2d_ip2(ib, iw)))),
+        grid=conv3_grid(lib, ia, iw))
     fa, fb = operand(gen, x1s, torch.float32), operand(gen, x1s,
                                                        torch.float32)
     fw = operand(gen, w1s, torch.float32, k1 ** -0.5)
@@ -3008,6 +3254,8 @@ def main() -> int:
     errs = kernel_checks(shapes, gen)
     conv_ragged_checks(gen, errs)
     conv_dtype_checks(gen, errs)
+    fused_geometry_checks(torch.Generator().manual_seed(SEED), errs)
+    conv3_checks(torch.Generator().manual_seed(SEED), errs)
     activation_checks(gen, errs)
     bf16_elementwise_checks(gen, errs)
     conv4_ragged_checks(shapes, torch.Generator().manual_seed(SEED), errs)
@@ -3040,7 +3288,7 @@ def main() -> int:
     sass_check(lib)
 
     # 5. times
-    rows = timings(shapes, gen, peaks)
+    rows = timings(shapes, gen, peaks, lib)
     rows.update(lm_timings(lm_ops, peaks))
     del lm_ops
     srv, rounds, walls = served_rate(requests)
@@ -3057,6 +3305,11 @@ def main() -> int:
                      f"{r['yardstick'][1] * 1e3:.1f} us")
         if "fp32_bound_ms" in r:
             extra += f", FP32-rate bound {r['fp32_bound_ms'] * 1e3:.1f} us"
+        if "yardstick2" in r:
+            extra += (f", {r['yardstick2'][0]} "
+                      f"{r['yardstick2'][1] * 1e3:.1f} us")
+        if "grid" in r:
+            extra += f", {r['grid']}"
         if "exp_bound_ms" in r:
             extra += (f", exponentials {r['exp_bound_ms'] * 1e3:.1f} us at "
                       f"the MUFU rate")

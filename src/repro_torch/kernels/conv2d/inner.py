@@ -24,7 +24,14 @@ output and launches one of them.
 The dual-stream members (``ip3_packed``, ``ip4_dual``) share
 ``launch_conv_dual``, one launch that writes both streams' outputs; Conv4
 runs Conv2's tiled kernel with two streams on ``tile_plan(style="mxu",
-streams=2)``: both streams' halos and the weights, once, in one tile.
+streams=2)``: both streams' halos and the weights, once, in one tile;
+Conv3 runs ``conv2d_ip3_tiled_kernel`` on ``tile_plan(style="packed")``:
+the same cut, both streams' halos staged once as packed int32 pairs in
+Conv2's layout, the weights widened to int32.
+
+The fused members (``kernels/fused/cnn_block.py``) run
+``fused_cnn_tiled_kernel`` on ``fused_plan``: the conv tile plan of their
+style, cut in pooled space (``FusedPlan``).
 """
 from __future__ import annotations
 
@@ -35,12 +42,21 @@ import torch
 from repro_torch.kernels import cuda
 
 STYLE_CODE = {"vpu": 0, "mxu": 1}
+# tile_plan's styles: the two conv orders' staging, and Conv3's packed
+# pairs (Conv2's layout, 4 bytes a pair and a weight)
+PLAN_STYLES = ("vpu", "mxu", "packed")
 THREADS = 256        # a CTA of the tiled kernels
 PIXELS = 8           # output pixels a thread
 QUAD = 4             # output channels a thread
 MAX_QUADS = 8        # channel quads a CTA (32 channels)
 MAX_TILE_W = 32      # output columns a tile
 SMEM_BYTES = 96 * 1024   # shared memory a CTA may stage (two fit an SM)
+# the fused kernel's band of conv values in shared memory: a tile's
+# THREADS * PIXELS pixel-points x QUAD channels of 4 bytes, whatever the
+# plan (32 KB), over the staged inputs' space
+BAND_BYTES = THREADS * PIXELS * QUAD * 4
+# the fused kernel's widest band: 2^MAX_BAND_LOG pixels in one row (glog 0)
+MAX_BAND_LOG = (THREADS * PIXELS).bit_length() - 1
 # operand dtypes the tiled kernels take: floats accumulate in f32 (bf16
 # widened exactly), integers in int32
 CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16)
@@ -89,7 +105,10 @@ def tile_smem_bytes(plan: TilePlan, kh: int, kw: int, cin: int, *,
     shifted tile then its weights.  Conv1 (``vpu``) stages the halo's
     rows as they lie, Conv2 (``mxu``) each pixel at ``pixel_pitch``, a
     halo (or chunk) for each of its ``streams`` (Conv4: two) and the
-    weights once."""
+    weights once; Conv3 (``packed``) Conv2's layout of 4-byte packed
+    pairs, the weights widened to 4 bytes."""
+    if style == "packed":
+        style, itemsize = "mxu", 4
     vec, tw = 16 // itemsize, plan.tw
     weights = (kh * kw * cin if plan.whole else plan.cc) * plan.bc * itemsize
     if style == "mxu":
@@ -104,27 +123,19 @@ def tile_smem_bytes(plan: TilePlan, kh: int, kw: int, cin: int, *,
     return plan.th * tw * _round_up(plan.cc, vec) * itemsize + weights
 
 
-def tile_plan(h: int, w: int, cin: int, kh: int, kw: int, cout: int, *,
-              itemsize: int, block_cout: int = 128,
-              smem_bytes: int = SMEM_BYTES, style: str = "vpu",
-              streams: int = 1) -> TilePlan:
-    """The tile plan of the ``style`` kernel (``vpu``: Conv1's, ``mxu``:
-    Conv2's, and with ``streams=2`` Conv4's) for (h, w, cin) inputs and
-    (kh, kw, cin, cout) weights of ``itemsize``-byte elements.
-    ``block_cout`` caps the channels a CTA covers (rounded up to a
-    power-of-two number of quads); the result never depends on it.  The
-    kernels share the cut; the halos are staged whole where
-    ``tile_smem_bytes`` fits ``smem_bytes``, else in chunks of input
-    channels sized to fit.  The kernels' launcher checks the plan and
-    computes the same shared-memory size."""
-    if style not in STYLE_CODE:
-        raise ValueError(f"unknown style {style!r}; have {tuple(STYLE_CODE)}")
-    if streams not in ((1, 2) if style == "mxu" else (1,)):
-        raise ValueError(f"the {style} kernel takes no {streams} streams")
-    ho, wo = h - kh + 1, w - kw + 1
+def _channel_log(cout: int, block_cout: int) -> int:
+    """glog: a CTA's channel quads, 2^glog, cover min(block_cout, cout)
+    rounded up to a power of two, at most MAX_QUADS."""
     quads = -(-min(block_cout, cout) // QUAD)
-    glog = min((quads - 1).bit_length(), MAX_QUADS.bit_length() - 1)
-    twlog = min((wo - 1).bit_length(), MAX_TILE_W.bit_length() - 1)
+    return min((quads - 1).bit_length(), MAX_QUADS.bit_length() - 1)
+
+
+def _staged(glog: int, twlog: int, kh: int, kw: int, cin: int, *,
+            itemsize: int, smem_bytes: int, style: str,
+            streams: int) -> TilePlan:
+    """The tile plan of the cut (glog, twlog): the halos staged whole
+    where ``tile_smem_bytes`` fits ``smem_bytes``, else in chunks of
+    input channels sized to fit."""
     th = (THREADS >> glog) * PIXELS >> twlog
     plan = TilePlan(glog, twlog, th, cin, True)
     if tile_smem_bytes(plan, kh, kw, cin, itemsize=itemsize, style=style,
@@ -136,6 +147,87 @@ def tile_plan(h: int, w: int, cin: int, kh: int, kw: int, cout: int, *,
     per_channel = (pixels + plan.bc) * itemsize
     cc = max(vec, spare // per_channel // vec * vec)
     return plan._replace(cc=min(cc, cin), whole=False)
+
+
+def tile_plan(h: int, w: int, cin: int, kh: int, kw: int, cout: int, *,
+              itemsize: int, block_cout: int = 128,
+              smem_bytes: int = SMEM_BYTES, style: str = "vpu",
+              streams: int = 1) -> TilePlan:
+    """The tile plan of the ``style`` kernel (``vpu``: Conv1's, ``mxu``:
+    Conv2's, and with ``streams=2`` Conv4's; ``packed``: Conv3's) for
+    (h, w, cin) inputs and (kh, kw, cin, cout) weights of
+    ``itemsize``-byte elements.  ``block_cout`` caps the channels a CTA
+    covers (rounded up to a power-of-two number of quads); the result
+    never depends on it.  The kernels share the cut; the halos are
+    staged whole where ``tile_smem_bytes`` fits ``smem_bytes``, else in
+    chunks of input channels sized to fit.  The kernels' launcher checks
+    the plan and computes the same shared-memory size."""
+    if style not in PLAN_STYLES:
+        raise ValueError(f"unknown style {style!r}; have {PLAN_STYLES}")
+    if streams not in ((1, 2) if style == "mxu" else (1,)):
+        raise ValueError(f"the {style} kernel takes no {streams} streams")
+    if style == "packed":          # Conv2's staging of 4-byte pairs
+        style, itemsize = "mxu", 4
+    wo = w - kw + 1
+    twlog = min((wo - 1).bit_length(), MAX_TILE_W.bit_length() - 1)
+    return _staged(_channel_log(cout, block_cout), twlog, kh, kw, cin,
+                   itemsize=itemsize, smem_bytes=smem_bytes, style=style,
+                   streams=streams)
+
+
+class FusedPlan(NamedTuple):
+    """How the fused kernel cuts a conv -> pool -> act block: CTAs of
+    ``tp`` x ``tq`` pooled outputs of one image and the conv tile's
+    ``bc`` channels.  The conv rows and columns their windows read,
+    (tp - 1) * SH + PH by (tq - 1) * SW + PW, are computed a conv tile
+    (``tile``: th x tw pixels, staged as the style's conv stages them) at
+    a time, in ``row_bands`` bands top to bottom of ``col_segs`` segments
+    left to right (more than one only where th == 1), so each window
+    takes its taps in i-major order across the bands.  The bands' conv
+    values pass through shared memory (``BAND_BYTES``, over the staged
+    inputs' space)."""
+    tile: TilePlan
+    tp: int
+    tq: int
+    row_bands: int
+    col_segs: int
+
+
+def fused_smem_bytes(plan: FusedPlan, kh: int, kw: int, cin: int, *,
+                     itemsize: int, style: str) -> int:
+    """The shared memory of a fused CTA, as ``cnn_fused`` computes it:
+    the style's staged tile or the band of conv values, the larger."""
+    return max(tile_smem_bytes(plan.tile, kh, kw, cin, itemsize=itemsize,
+                               style=style), BAND_BYTES)
+
+
+def fused_plan(h: int, w: int, cin: int, kh: int, kw: int, cout: int,
+               ph: int, pw: int, sh: int, sw: int, *, itemsize: int,
+               block_cout: int = 128, smem_bytes: int = SMEM_BYTES,
+               style: str = "vpu") -> FusedPlan:
+    """The fused kernel's plan for (h, w, cin) inputs, (kh, kw, cin,
+    cout) weights and a (ph, pw) / (sh, sw) pool: the conv tile plan of
+    ``style`` (``tile_plan``'s cut, its columns widened to hold a whole
+    window row, at most 2^MAX_BAND_LOG), and as many pooled rows and
+    columns a CTA as one tile's conv rows and columns hold, else one
+    (the window is then walked in bands).  The result never depends on
+    ``block_cout``; ``cnn_fused`` checks the plan."""
+    if style not in STYLE_CODE:
+        raise ValueError(f"unknown style {style!r}; have {tuple(STYLE_CODE)}")
+    ho, wo = h - kh + 1, w - kw + 1
+    po, qo = (ho - ph) // sh + 1, (wo - pw) // sw + 1
+    glog = _channel_log(cout, block_cout)
+    twlog = min((wo - 1).bit_length(), MAX_TILE_W.bit_length() - 1)
+    need = (pw - 1).bit_length()           # 2^need >= pw
+    if need > twlog:
+        glog = min(glog, max(0, MAX_BAND_LOG - need))
+        twlog = min(need, MAX_BAND_LOG - glog)
+    tile = _staged(glog, twlog, kh, kw, cin, itemsize=itemsize,
+                   smem_bytes=smem_bytes, style=style, streams=1)
+    tp = min((tile.th - ph) // sh + 1, po) if ph <= tile.th else 1
+    tq = min((tile.tw - pw) // sw + 1, qo) if pw <= tile.tw else 1
+    rows, cols = (tp - 1) * sh + ph, (tq - 1) * sw + pw
+    return FusedPlan(tile, tp, tq, -(-rows // tile.th), -(-cols // tile.tw))
 
 
 def accumulate_vpu(x, w, *, ho: int, wo: int, acc_dtype):
@@ -278,11 +370,11 @@ def launch_conv_tiled(counter: str, entry: str, style: str, x: torch.Tensor,
 def launch_conv_dual(counter: str, ip: int, xa: torch.Tensor,
                      xb: torch.Tensor, w: torch.Tensor, block_cout: int,
                      dtypes) -> tuple:
-    """Launch ``conv2d_ip3_kernel`` (``ip=3``, ``block_cout`` channels a
-    block) or Conv2's tiled kernel with two streams (``ip=4``, on
-    ``tile_plan(style="mxu", streams=2)``) of ``csrc/cnn_kernels.cu`` once
-    for CUDA operands of one dtype among ``dtypes``: integers give int32,
-    floats f32."""
+    """Launch ``conv2d_ip3_tiled_kernel`` (``ip=3``, on
+    ``tile_plan(style="packed")``) or Conv2's tiled kernel with two
+    streams (``ip=4``, on ``tile_plan(style="mxu", streams=2)``) of
+    ``csrc/cnn_kernels.cu`` once for CUDA operands of one dtype among
+    ``dtypes``: integers give int32, floats f32."""
     for t, what in ((xa, "xa"), (xb, "xb"), (w, "w")):
         cuda.require(t, what, dtypes)
     if xb.device != xa.device or w.device != xa.device or \
@@ -298,11 +390,12 @@ def launch_conv_dual(counter: str, ip: int, xa: torch.Tensor,
               for _ in range(2))
     if ya.numel() == 0:
         return ya, yb
+    style = dict(style="packed") if ip == 3 else dict(style="mxu", streams=2)
     plan = tile_plan(h, w_, cin, kh, kw, cout, itemsize=xa.element_size(),
-                     block_cout=int(block_cout), style="mxu", streams=2)
+                     block_cout=int(block_cout), **style)
     cuda.launch(counter, "cnn_conv2d_dual", xa.device, ip,
                 cuda.DTYPE_CODE[xa.dtype], xa.data_ptr(), xb.data_ptr(),
                 w.data_ptr(), ya.data_ptr(), yb.data_ptr(), n, h, w_, cin,
-                kh, kw, cout, min(int(block_cout), cout), plan.glog,
-                plan.twlog, plan.th, plan.cc, int(plan.whole))
+                kh, kw, cout, plan.glog, plan.twlog, plan.th, plan.cc,
+                int(plan.whole))
     return ya, yb

@@ -2,18 +2,29 @@
 pass, operands limited to 8 bits).
 
 Replaces ``repro/kernels/conv2d/ip3_packed.py::conv2d_ip3``.  The
-paper's trick: two 8-bit products share one wide multiplier.  Per tap
+paper's trick: two 8-bit products share one wide multiplier.  The
+reference packs per tap
 
     p   = a * 2^16 + b           # a, b int8-valued, p int32
     m   = p * w                  # ONE multiply, |m| < 2^31
     bw  = ((m + 2^15) mod 2^16) - 2^15    # signed low half == b*w
     aw  = (m - bw) / 2^16                 # exact: the borrow-corrected high
 
-and the two products accumulate into two int32 sums.  The kernel
-(``conv2d_ip3_kernel`` in ``csrc/cnn_kernels.cu``) runs this per output
-pixel and channel on CUDA-core integer lanes and issues no MMA
-instruction: this is a logic-only member (``mxu_available=False``).
-``conv2d_ip3_plain`` runs the same packed arithmetic in PyTorch.
+and sums the two products in two int32 lanes, because int32 lanes
+cannot accumulate packed.  The kernel (``conv2d_ip3_tiled_kernel`` in
+``csrc/cnn_kernels.cu``, on ``inner.tile_plan(style="packed")``: the
+tiled convs' cut, both streams' halos staged once as packed int32 pairs
+in Conv2's layout, the weights widened to int32) keeps the packing and
+the one multiply per tap pair, and sums two products packed before it
+splits them: over two pairs each stream's sum lies in [-32512, 32768],
+so with a bias of 32512 both halves fit 16 bits and the split is exact,
+at half the unpack operations per pair.  Measured beside it on the
+H100, a per-pair unpack and a 64-bit packed accumulation
+(``a * 2^23 + b``, one ``mad.wide.s32`` a pair) were slower.  Integer
+sums wrap modulo 2^32 whatever their order, so both streams are the
+reference's bit for bit.  It issues no MMA instruction: this is a
+logic-only member (``mxu_available=False``).  ``conv2d_ip3_plain``
+runs the reference's per-pair arithmetic in PyTorch.
 
 Operand ceiling: 8 bits, as in the paper (``|b*w|`` must fit 15 bits).
 """

@@ -2,20 +2,22 @@
 //
 // Replaces the shared Pallas bodies of the reference:
 //   src/repro/kernels/conv2d/inner.py::accumulate_vpu   -> conv_taps_vpu,
-//       conv_part_vpu (a register tile of outputs) and conv_point_vpu
-//       (one output read from device memory)
+//       conv_part_vpu (a register tile of outputs)
 //   src/repro/kernels/conv2d/inner.py::accumulate_mxu   -> conv_taps_mxu,
-//       conv_run (a register tile of outputs, of one or two streams) and
-//       conv_point_mxu (one output read from device memory)
+//       conv_run (a register tile of outputs, of one or two streams)
 //   src/repro/kernels/pool2d/vpu_window.py::window_reduce -> window_reduce
+//       (window_step, window_end)
 //   src/repro/kernels/activation/ref.py::_FNS            -> activate
 //
 // The standalone kernels (the tiled kernels of conv2d_ip1, conv2d_ip2
 // and Conv4, pool2d_window, activation_exact) and the fused
 // conv->pool->act kernel all run these functions, in the same order, so
 // a float32 fused block is bitwise equal to its three-launch chain and
-// each Conv4 stream to a conv2d_ip2 launch: the tiled kernels feed the
-// conv bodies from shared memory, the fused kernel from device memory.
+// each Conv4 stream to a conv2d_ip2 launch: the tiled convs and the
+// fused kernel fill their register tiles through the same staging and
+// conv bodies (conv1_tile / conv2_tile of cnn_kernels.cu), and the fused
+// kernel pools them from shared memory with window_step in
+// window_reduce's order.
 // Two things keep that true:
 //   * every float add and multiply-add is an explicit round-to-nearest
 //     intrinsic (__fadd_rn, __fmaf_rn, __fmul_rn, __fdiv_rn), and the
@@ -180,25 +182,6 @@ __device__ __forceinline__ void conv_part_vpu(int n, Load load,
   }
 }
 
-// One conv output (n, oh, ow, co) in the Conv1 order, from device
-// memory (the fused kernel's conv values).
-template <typename T>
-__device__ __forceinline__ typename AccOf<T>::type conv_point_vpu(
-    const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
-    int n, int oh, int ow, int co) {
-  using A = typename AccOf<T>::type;
-  A acc[1][1];
-  conv_taps_vpu<A, 1, 1, 0>(s.KH, s.KW, [&](int i, int j, A (&part)[1][1]) {
-    const T* xp = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
-    const T* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
-    conv_part_vpu<A, 1, 1>(s.Cin, [&](int c, A (&xv)[1], A (&wv)[1]) {
-      xv[0] = widen<A>(xp[c]);
-      wv[0] = widen<A>(wp[size_t(c) * s.Cout]);
-    }, part);
-  }, acc);
-  return acc[0][0];
-}
-
 // Conv2 order (inner.py::accumulate_mxu), for a register tile of NP
 // output points x NC output channels: ONE chain per output over K =
 // (i, j, cin), starting from 0.  conv_taps_mxu runs the taps in (i, j)
@@ -251,27 +234,19 @@ __device__ __forceinline__ void conv_run(int n, Load load,
   }
 }
 
-// One Conv2 output (n, oh, ow, co) from device memory (the fused kernel's
-// conv values): the chain of conv2d_ip2's tiled kernel, so a fused conv
-// value is bitwise equal to the Conv2 output.
-template <typename T>
-__device__ __forceinline__ typename AccOf<T>::type conv_point_mxu(
-    const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
-    int n, int oh, int ow, int co) {
-  using A = typename AccOf<T>::type;
-  A acc[1][1];
-  conv_taps_mxu<A, 1, 1, 0>(s.KH, s.KW, [&](int i, int j, A (&a)[1][1]) {
-    // the loader walks the tap's channels in order: one pointer for the
-    // inputs and one for the weights, advanced a channel a call
-    const T* xq = x + ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
-    const T* wq = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + co;
-    conv_run<A, 1, 1, 1>(s.Cin, [&](int, A (&xv)[1][1], A (&wv)[1][1]) {
-      wv[0][0] = widen<A>(*wq);
-      wq += s.Cout;
-      xv[0][0] = widen<A>(*xq++);
-    }, a);
-  }, acc);
-  return acc[0][0];
+// vpu_window.py::window_reduce, a step at a time: window_step takes the
+// value v of tap (i, j) into acc (tap (0, 0) starts it), window_end
+// divides an average.  Taps fed in i-major order from (0, 0) are
+// window_reduce's chain, however a caller splits them.
+template <typename V>
+__device__ __forceinline__ V window_step(V acc, V v, int i, int j,
+                                         int mode) {
+  if (i == 0 && j == 0) return v;
+  return (mode == kMax) ? vmax(acc, v) : add(acc, v);
+}
+template <typename V>
+__device__ __forceinline__ V window_end(V acc, int kh, int kw, int mode) {
+  return (mode == kAvg) ? avg_div(acc, kh * kw) : acc;
 }
 
 // vpu_window.py::window_reduce for one output: load(i, j) yields the
@@ -283,12 +258,10 @@ __device__ __forceinline__ V window_reduce(Load load, int kh, int kw,
   for (int i = 0; i < kh; ++i) {
     for (int j = 0; j < kw; ++j) {
       if (i == 0 && j == 0) continue;
-      V v = load(i, j);
-      acc = (mode == kMax) ? vmax(acc, v) : add(acc, v);
+      acc = window_step(acc, V(load(i, j)), i, j, mode);
     }
   }
-  if (mode == kAvg) acc = avg_div(acc, kh * kw);
-  return acc;
+  return window_end(acc, kh, kw, mode);
 }
 
 // activation/ref.py::_FNS in f32.  gelu is jax.nn.gelu's default, the

@@ -9,13 +9,14 @@
 // tensors contiguous.  Operand dtypes: the convs and the fused block take
 // f32, bf16 (widened exactly into f32 accumulators), int8 and int16
 // (int32 accumulators); the pools and activations f32, bf16, int8 and
-// int32.  Every kernel but the tiled convs (Conv1's, and Conv2's, which
-// Conv4 runs with two streams) and activation_kernel maps one thread to
-// one output element; those two tile outputs and stage their inputs in
-// shared memory.  The channel tiling hints (block_cout /
-// block_c) shape the grid and the kernels mask the ragged edge, so
-// results never depend on them.  The activations' block_rows hints are validated and do not
-// shape a grid.
+// int32.  The tiled kernels (Conv1's, Conv2's, which Conv4 runs with two
+// streams, Conv3's and the fused block, which runs Conv1's or Conv2's
+// staging and chain) tile outputs and stage their inputs in shared
+// memory; activation_kernel walks 16-byte vectors; every other kernel
+// maps one thread to one output element.  The channel tiling hints
+// (block_cout / block_c) shape the grid and the kernels mask the ragged
+// edge, so results never depend on them.  The activations' block_rows
+// hints are validated and do not shape a grid.
 //
 // Kernel notes (what each replaces, what bounds it on the H100, and what
 // this design does about it):
@@ -36,7 +37,8 @@
 //   for 4 channels) 8 pixels; stores are 16 bytes along Cout where Cout
 //   allows.  Index math is 32-bit, the (n, tile) split once per CTA.
 //   Each output is the Conv1 chain of cnn_device.cuh (conv_taps_vpu),
-//   as the fused kernel computes it; KS = 3 unrolls the 3 x 3 taps.
+//   staged and computed by conv1_tile, which the fused kernel runs too;
+//   KS = 3 unrolls the 3 x 3 taps.
 //   Logic-only: FFMA / IMAD, no MMA instruction.
 //
 // conv2d_mxu_tiled_kernel<T, NS, KS, WHOLE>  replaces src/repro/kernels/conv2d/ip2_mxu.py::conv2d_ip2
@@ -44,8 +46,8 @@
 //   2*K operations per output as above; at block 1 the FP32 rate bounds
 //   it (int8: the INT32 lanes').  Conv1's tile plan, staging and thread
 //   mapping (8 pixels x 4 channels a thread), in the Conv2 order: each
-//   output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu, as
-//   the fused kernel computes it).  Each thread reads a
+//   output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu, in
+//   conv2_tile, which the fused kernel runs too).  Each thread reads a
 //   pixel's 4 next channels as one 16-byte shared load (4 bytes on int8)
 //   and the quad's weights of those 4 channels as four, so per 4
 //   channels 12 loads feed 128 multiply-adds.  The halo
@@ -108,32 +110,51 @@
 //   output, neighbouring threads on neighbouring channels, so loads and
 //   stores coalesce along C.
 //
-// fused_cnn_kernel<T, S>  replaces src/repro/kernels/fused/cnn_block.py::_fused_call
-//   (members fused_cnn_vpu / fused_cnn_mxu).  One thread per pooled output
-//   (n, po, qo, co) computes the ph*pw conv values its window needs with
-//   the shared conv body, rescales them (int8 rung), reduces the window,
-//   applies the activation and writes once: the conv and pool
+// fused_cnn_tiled_kernel<T, S, KS, WHOLE>  replaces src/repro/kernels/fused/cnn_block.py::_fused_call
+//   (members fused_cnn_vpu / fused_cnn_mxu).  The conv and pool
 //   intermediates never reach device memory, which is what the fusion
-//   buys.  With the conv output's bytes gone, both served blocks are
-//   bound by the FP32 rate of their conv flops; the conv bodies are the
-//   standalone convs' (read from device memory here), so the shared-
-//   memory tiling of Conv1 and Conv2 is still to come for this kernel
-//   (ROADMAP queue 2, item 17).
+//   buys: the input, the weights and the pooled output are the only
+//   bytes, so both served blocks are bound by the FP32 rate of their
+//   conv flops.  The kernel runs the tiled convs' bodies: a CTA owns a
+//   tile of pooled outputs (PoolPlan, made by inner.py::fused_plan next
+//   to the conv tile plan) and the conv tile's channel block, fills the
+//   conv values its windows read with conv1_tile (S = kVpu) or
+//   conv2_tile (S = kMxu), the standalone convs' own staging and chains
+//   (8 pixels x 4 channels a thread), a conv tile (band) at a time,
+//   rescales them on the int8 rung, writes the register tile to shared
+//   memory over the staged inputs' space, and each thread reduces its
+//   pooled outputs from there with window_step in i-major order,
+//   activates and stores them 16 bytes along Cout.  A window taller or
+//   wider than one tile is walked in bands, its running reduce parked
+//   in its output between them.  Same bodies, same order: f32 fused ==
+//   conv -> pool -> activation chain bitwise, whatever block_cout.
+//   Logic-only: FFMA / IMAD, no MMA instruction.
 //
-// conv2d_ip3_kernel       replaces src/repro/kernels/conv2d/ip3_packed.py::conv2d_ip3
-//   Conv3: two int8 convs sharing one weight tensor, ONE int32 multiply
-//   per tap pair.  Per tap the two int8 operands are packed as
-//   p = a * 65536 + b (a multiplication, not a << 16: shifting a
-//   negative int is undefined in C++17), m = p * w (|m| < 2^31 for int8),
-//   b*w is the signed low 16 bits of m and a*w = (m - low) / 65536, an
-//   exact division.  Logic-only: IMAD and ALU ops, no MMA instruction.
-//   The work is two convs' taps on the INT32 lanes (64 per SM, half the
-//   FP32 lanes), so the lane rate bounds it at block 1; one thread per
-//   output pixel and channel writes both streams.
+// conv2d_ip3_tiled_kernel<KS, WHOLE>  replaces src/repro/kernels/conv2d/ip3_packed.py::conv2d_ip3
+//   Conv3: two int8 convs sharing one weight tensor, ONE multiply per
+//   tap pair on the packed operand p = a * 2^16 + b.  The work is two
+//   convs' taps on the INT32 lanes, so their rate bounds it at block 1.
+//   The tiled convs' cut and thread mapping: both streams' halos staged
+//   once, already packed (a pair packed once per input element, not per
+//   output channel), each pixel at Conv2's pixel_pitch, the weights
+//   widened to int32, so per 4 channels one 16-byte shared load of a
+//   pixel's pairs and four of the weights feed 128 tap pairs.  The
+//   reference unpacks every product (int32 lanes cannot accumulate
+//   packed); here two products are summed packed with a bias that keeps
+//   both streams' block sums within 16 unsigned bits, so a block's high
+//   half is one shift and its low halves are recovered once, from the
+//   plain sum of the blocks, at the end (take_block): per tap pair one
+//   multiply-add and one more integer operation.  Measured
+//   beside it on the H100: a per-pair unpack and a 64-bit packed
+//   accumulation (a * 2^23 + b, one IMAD.WIDE a pair, split every 252
+//   pairs) were slower.  Integer sums wrap modulo 2^32 whatever their
+//   order: both streams are the reference's bit for bit.  Logic-only:
+//   IMAD and integer ALU operations, no MMA instruction.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "cnn_device.cuh"
 #include "tc_device.cuh"
@@ -142,19 +163,9 @@ namespace cnn {
 
 constexpr int kThreads = 256;
 constexpr int kTableSize = 256;
-enum Style { kVpu = 0, kMxu = 1 };
+// Conv1 (kVpu), Conv2 (kMxu) and Conv3 (kPacked) staging
+enum Style { kVpu = 0, kMxu = 1, kPacked = 2 };
 enum DType { kF32 = 0, kI8 = 1, kI32 = 2, kI16 = 3, kBF16 = 4 };
-
-template <typename T, int STYLE>
-__device__ __forceinline__ typename AccOf<T>::type conv_point(
-    const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
-    int n, int oh, int ow, int co) {
-  if constexpr (STYLE == kVpu) {
-    return conv_point_vpu<T>(x, w, s, n, oh, ow, co);
-  } else {
-    return conv_point_mxu<T>(x, w, s, n, oh, ow, co);
-  }
-}
 
 // Thread -> (pixel p, channel co) over a (pixels, channel tiles of bc) grid.
 struct Slot {
@@ -216,6 +227,10 @@ __device__ __forceinline__ void load_quad(const int16_t* p, int32_t (&v)[4]) {
   v[1] = int32_t(q.x) >> 16;
   v[2] = int32_t(q.y << 16) >> 16;
   v[3] = int32_t(q.y) >> 16;
+}
+__device__ __forceinline__ void load_quad(const int32_t* p, int32_t (&v)[4]) {
+  const int4 q = *reinterpret_cast<const int4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 __device__ __forceinline__ void store_quad(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -332,11 +347,17 @@ __host__ __device__ __forceinline__ int pixel_pitch(int n, int V) {
 // The shared-memory bytes of a tile: WHOLE, the halo then the weights;
 // else one chunk's shifted tile then its weights.  Conv1 (kVpu) stages
 // the halo's rows as they lie, Conv2 (kMxu) each pixel at pixel_pitch,
-// one halo (or chunk) for each of its ns streams and the weights once.
+// one halo (or chunk) for each of its ns streams and the weights once;
+// Conv3 (kPacked) Conv2's layout of packed int32 pairs, the weights
+// widened to int32.
 __host__ __forceinline__ size_t tile_smem_bytes(int style, int ns,
                                                 const ConvShape& s,
                                                 const TilePlan& pl, int sz,
                                                 bool whole) {
+  if (style == kPacked) {      // Conv2's layout of 4-byte pairs and weights
+    style = kMxu;
+    sz = 4;
+  }
   const int V = 16 / sz, TW = 1 << pl.twlog, bc = 4 << pl.glog;
   const size_t wbytes = size_t(whole ? s.KH * s.KW * s.Cin : pl.cc) * bc * sz;
   if (style == kMxu) {
@@ -351,31 +372,28 @@ __host__ __forceinline__ size_t tile_smem_bytes(int style, int ns,
   return size_t(pl.th) * TW * round_up(pl.cc, V) * sz + wbytes;
 }
 
-// Conv1 on shared-memory tiles, one tile a CTA.  WHOLE: the tile's input
-// halo over all Cin and every tap's weights are staged in one go, then
-// the taps run from shared memory.  Otherwise each (tap, chunk of cc
-// input channels) is staged in turn (the tap's shifted tile and its
-// weights), and the tap's partial carries across the chunks.  KS = 3
-// unrolls the 3 x 3 taps.
+// Conv1's staging and compute for the tile t into the register tile acc
+// (a thread's kConvPix pixels pr/pc x kConvCh channels of quad cg).
+// WHOLE: the tile's input halo over all Cin and every tap's weights are
+// staged in one go, then the taps run from shared memory.  Otherwise
+// each (tap, chunk of cc input channels) is staged in turn (the tap's
+// shifted tile and its weights), and the tap's partial carries across
+// the chunks.  KS = 3 unrolls the 3 x 3 taps.  The standalone Conv1 and
+// the fused block (style kVpu) both fill their tiles here.  A caller
+// that stages the shared memory again syncs first.
 template <typename T, int KS, bool WHOLE>
-__global__ void __launch_bounds__(kThreads)
-conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        typename AccOf<T>::type* __restrict__ y, ConvShape s,
-                        int Ho, int Wo, TilePlan pl) {
+__device__ __forceinline__ void conv1_tile(
+    const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
+    int Ho, int Wo, const TilePlan& pl, const ConvTile& t, int cg,
+    const int (&pr)[kConvPix], const int (&pc)[kConvPix], uint8_t* smem,
+    typename AccOf<T>::type (&acc)[kConvPix][kConvCh]) {
   using A = typename AccOf<T>::type;
   using Part = A(&)[kConvPix][kConvCh];
   using Vals = A(&)[kConvPix];
   using Quad = A(&)[kConvCh];
   constexpr int V = 16 / int(sizeof(T));
-  extern __shared__ __align__(16) uint8_t smem[];
   const int TW = 1 << pl.twlog, bclog = pl.glog + 2;
-  const ConvTile t = conv_tile(blockIdx.x, pl);
-  const int cg = threadIdx.x & ((1 << pl.glog) - 1);
-  const int lane = threadIdx.x >> pl.glog;
-  int pr[kConvPix], pc[kConvPix];              // pixel k: tile row, column
-  tile_pixels(pl, lane, pr, pc);
   const T* xn = x + size_t(t.n) * s.H * s.W * s.Cin;
-  A acc[kConvPix][kConvCh];
   if constexpr (WHOLE) {
     const int rp = round_up((TW + s.KW - 1) * s.Cin, V);   // row pitch
     T* xs = reinterpret_cast<T*>(smem);
@@ -447,7 +465,36 @@ conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
     }, acc);
   }
-  store_tile(y, s, Ho, Wo, t, cg, pr, pc, acc);
+}
+
+// A thread's place in a tiled CTA: channel quad cg, and its kConvPix
+// tile pixels pr/pc.
+struct TileThread {
+  int cg, lane;
+  int pr[kConvPix], pc[kConvPix];
+};
+
+__device__ __forceinline__ TileThread tile_thread(const TilePlan& pl) {
+  TileThread tt;
+  tt.cg = threadIdx.x & ((1 << pl.glog) - 1);
+  tt.lane = threadIdx.x >> pl.glog;
+  tile_pixels(pl, tt.lane, tt.pr, tt.pc);
+  return tt;
+}
+
+// Conv1 on shared-memory tiles, one tile a CTA (conv1_tile), stored.
+template <typename T, int KS, bool WHOLE>
+__global__ void __launch_bounds__(kThreads)
+conv2d_vpu_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        typename AccOf<T>::type* __restrict__ y, ConvShape s,
+                        int Ho, int Wo, TilePlan pl) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ConvTile t = conv_tile(blockIdx.x, pl);
+  const TileThread tt = tile_thread(pl);
+  typename AccOf<T>::type acc[kConvPix][kConvCh];
+  conv1_tile<T, KS, WHOLE>(x, w, s, Ho, Wo, pl, t, tt.cg, tt.pr, tt.pc, smem,
+                           acc);
+  store_tile(y, s, Ho, Wo, t, tt.cg, tt.pr, tt.pc, acc);
 }
 
 // The inputs and outputs of a tiled conv launch of NS streams.
@@ -457,37 +504,36 @@ struct Streams {
   typename AccOf<T>::type* y[NS];
 };
 
-// Conv2 of NS streams sharing the weights (Conv2: NS = 1, Conv4: NS = 2)
-// on shared-memory tiles, one tile a CTA: the tile plan, staging and
-// thread mapping of conv2d_vpu_tiled_kernel, in the Conv2 order: each
-// output is ONE chain over K = (i, j, cin) from 0 (conv_taps_mxu).
-// WHOLE: the tile's input halo of every stream over all Cin, each pixel
-// at pixel_pitch, and every tap's weights (once) are staged in one go.
-// Otherwise each (tap, chunk of cc input channels) is staged in turn,
-// every stream's shifted chunk and the chunk's weights together, the
-// taps outermost and the chunks ascending, so the chain keeps its order
-// across chunks.  A thread's register tile is kConvPix pixels of every
-// stream x kConvCh channels: point j * kConvPix + k is pixel k of stream
-// j, so each weight quad it loads feeds the pixels of every stream, and
-// each stream's chain is the one-stream chain.  Channels run 4 at a
-// time where a whole quad remains (one 8- or 16-byte load of a pixel's
-// inputs, four of the quad's weights), then one at a time; the order is
-// the same.  Weight channels past Cout are not staged: they feed only
-// accumulators that are never stored.  KS = 3 unrolls the 3 x 3 taps.
+// Conv2 of NS streams x sharing the weights (Conv2: NS = 1, Conv4: NS =
+// 2), its staging and compute for the tile t into the register tile
+// acc: the tile plan, staging and thread mapping of conv1_tile, in the
+// Conv2 order: each output is ONE chain over K = (i, j, cin) from 0
+// (conv_taps_mxu).  WHOLE: the tile's input halo of every stream over
+// all Cin, each pixel at pixel_pitch, and every tap's weights (once) are
+// staged in one go.  Otherwise each (tap, chunk of cc input channels)
+// is staged in turn, every stream's shifted chunk and the chunk's
+// weights together, the taps outermost and the chunks ascending, so the
+// chain keeps its order across chunks.  A thread's register tile is
+// kConvPix pixels of every stream x kConvCh channels: point j * kConvPix
+// + k is pixel k of stream j, so each weight quad it loads feeds the
+// pixels of every stream, and each stream's chain is the one-stream
+// chain.  Channels run 4 at a time where a whole quad remains (one 8-
+// or 16-byte load of a pixel's inputs, four of the quad's weights), then
+// one at a time; the order is the same.  Weight channels past Cout are
+// not staged: they feed only accumulators that are never stored.  KS = 3
+// unrolls the 3 x 3 taps.  The standalone Conv2 and Conv4 and the fused
+// block (style kMxu, NS = 1) fill their tiles here.
 template <typename T, int NS, int KS, bool WHOLE>
-__global__ void __launch_bounds__(kThreads)
-conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
-                        ConvShape s, int Ho, int Wo, TilePlan pl) {
+__device__ __forceinline__ void conv2_tile(
+    const T* const (&x)[NS], const T* __restrict__ w, const ConvShape& s,
+    int Ho, int Wo, const TilePlan& pl, const ConvTile& t, int cg,
+    const int (&pr)[kConvPix], const int (&pc)[kConvPix], uint8_t* smem,
+    typename AccOf<T>::type (&acc)[NS * kConvPix][kConvCh]) {
   using A = typename AccOf<T>::type;
   constexpr int NP = NS * kConvPix;            // points a thread
   using Acc = A(&)[NP][kConvCh];
   constexpr int V = 16 / int(sizeof(T));
-  extern __shared__ __align__(16) uint8_t smem[];
   const int TW = 1 << pl.twlog, bclog = pl.glog + 2;
-  const ConvTile t = conv_tile(blockIdx.x, pl);
-  const int cg = threadIdx.x & ((1 << pl.glog) - 1);
-  int pr[kConvPix], pc[kConvPix];              // pixel k: tile row, column
-  tile_pixels(pl, threadIdx.x >> pl.glog, pr, pc);
   const size_t xn = size_t(t.n) * s.H * s.W * s.Cin;   // the image's offset
   const int wlen = min(4 << pl.glog, s.Cout - t.co0);   // staged channels
   T* xs = reinterpret_cast<T*>(smem);
@@ -520,7 +566,6 @@ conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
       load_quad(wt + ((n4 + c) << bclog), wv[0]);
     }, a);
   };
-  A acc[NP][kConvCh];
   if constexpr (WHOLE) {
     const int HW = TW + s.KW - 1, pp = pixel_pitch(s.Cin, V);
     const int sp = (pl.th + s.KH - 1) * HW * pp;        // a stream's halo
@@ -535,7 +580,7 @@ conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
                     },
                     [&](int k) {
                       const int r = k / cols;
-                      return io.x[j] + xn +
+                      return x[j] + xn +
                              (size_t(t.h0 + r) * s.W + t.w0 + k - r * cols) *
                                  s.Cin;
                     });
@@ -576,7 +621,7 @@ conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
                         },
                         [&](int k) {
                           const int r = k / cols;
-                          return io.x[q] + xn +
+                          return x[q] + xn +
                                  (size_t(t.h0 + i + r) * s.W + t.w0 + j + k -
                                   r * cols) * s.Cin + c0;
                         });
@@ -593,9 +638,23 @@ conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
       }
     }, acc);
   }
+}
+
+// Conv2 of NS streams on shared-memory tiles, one tile a CTA
+// (conv2_tile), each stream's outputs stored.
+template <typename T, int NS, int KS, bool WHOLE>
+__global__ void __launch_bounds__(kThreads)
+conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
+                        ConvShape s, int Ho, int Wo, TilePlan pl) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ConvTile t = conv_tile(blockIdx.x, pl);
+  const TileThread tt = tile_thread(pl);
+  typename AccOf<T>::type acc[NS * kConvPix][kConvCh];
+  conv2_tile<T, NS, KS, WHOLE>(io.x, w, s, Ho, Wo, pl, t, tt.cg, tt.pr,
+                               tt.pc, smem, acc);
 #pragma unroll
   for (int j = 0; j < NS; ++j) {
-    store_tile(io.y[j], s, Ho, Wo, t, cg, pr, pc, acc, j * kConvPix);
+    store_tile(io.y[j], s, Ho, Wo, t, tt.cg, tt.pr, tt.pc, acc, j * kConvPix);
   }
 }
 
@@ -735,75 +794,435 @@ __global__ void pool2d_im2col_kernel(const T* __restrict__ x,
   y[t.p * C + t.co] = narrow<O>(acc);
 }
 
-template <typename T, int STYLE>
-__global__ void fused_cnn_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ w,
-                                 const float* __restrict__ scale,
-                                 float* __restrict__ y, int N, ConvShape s,
-                                 int PH, int PW, int SH, int SW, int Po,
-                                 int Qo, int mode, int kind, int bc) {
-  using A = typename AccOf<T>::type;
-  Slot t = slot((long long)N * Po * Qo, s.Cout, bc);
-  if (!t.live) return;
-  int qo = int(t.p % Qo);
-  long long r = t.p / Qo;
-  int po = int(r % Po);
-  int n = int(r / Po);
-  int co = t.co;
-  auto conv_at = [&](int i, int j) -> A {
-    return conv_point<T, STYLE>(x, w, s, n, po * SH + i, qo * SW + j, co);
-  };
-  float pooled;
-  if (scale != nullptr) {
-    // int8 rung: the int32 accumulator is rescaled in register, then
-    // pooled in f32 (cnn_block.py:71-75).
-    float sc = scale[co];
-    auto load = [&](int i, int j) -> float {
-      return __fmul_rn(float(conv_at(i, j)), sc);
-    };
-    pooled = window_reduce<float>(load, PH, PW, mode);
+// The pooled-space cut of the fused kernel, made by the wrapper
+// (kernels/conv2d/inner.py::fused_plan, next to tile_plan): a CTA owns
+// tp x tq pooled outputs of one image (tiles_p x tiles_q tiles an
+// image) and the conv tile plan's channel block.  The conv rows and
+// columns its windows read, (tp - 1) * SH + PH x (tq - 1) * SW + PW from
+// (p0 * SH, q0 * SW), are computed a conv tile (th x TW) at a time:
+// row_bands bands top to bottom, each in col_segs segments left to
+// right (more than one only where th == 1), so every window takes its
+// taps in i-major order across the bands.
+struct PoolPlan {
+  int PH, PW, SH, SW, Po, Qo, tp, tq, tiles_p, tiles_q, row_bands, col_segs;
+};
+
+// A band of conv values in shared memory: th x TW pixels x 4 << glog
+// channels, 8192 values of 4 bytes whatever the plan.
+constexpr int kBandValues = kThreads * kConvPix * kConvCh;
+
+// The register tile of the fused kernel's conv values, in its style's
+// order: the standalone Conv1's or Conv2's body.
+template <typename T, int STYLE, int KS, bool WHOLE>
+__device__ __forceinline__ void conv_tile_body(
+    const T* __restrict__ x, const T* __restrict__ w, const ConvShape& s,
+    int Ho, int Wo, const TilePlan& pl, const ConvTile& t,
+    const TileThread& tt, uint8_t* smem,
+    typename AccOf<T>::type (&acc)[kConvPix][kConvCh]) {
+  if constexpr (STYLE == kVpu) {
+    conv1_tile<T, KS, WHOLE>(x, w, s, Ho, Wo, pl, t, tt.cg, tt.pr, tt.pc,
+                             smem, acc);
   } else {
-    pooled = float(window_reduce<A>(conv_at, PH, PW, mode));
+    const T* const xs[1] = {x};
+    conv2_tile<T, 1, KS, WHOLE>(xs, w, s, Ho, Wo, pl, t, tt.cg, tt.pr, tt.pc,
+                                smem, acc);
   }
-  y[t.p * s.Cout + co] = activate(pooled, kind);
 }
 
-// Conv3: both int8 streams through one multiply per tap pair; the two
-// products are recovered exactly from the packed product and summed into
-// two wrapping int32 accumulators.
-__global__ void conv2d_ip3_kernel(const int8_t* __restrict__ xa,
-                                  const int8_t* __restrict__ xb,
-                                  const int8_t* __restrict__ w,
-                                  int32_t* __restrict__ ya,
-                                  int32_t* __restrict__ yb, int N,
-                                  ConvShape s, int Ho, int Wo, int bc) {
-  Slot t = slot((long long)N * Ho * Wo, s.Cout, bc);
-  if (!t.live) return;
-  int ow = int(t.p % Wo);
-  long long r = t.p / Wo;
-  int oh = int(r % Ho);
-  int n = int(r / Ho);
-  uint32_t acc_a = 0, acc_b = 0;
-  for (int i = 0; i < s.KH; ++i) {
-    for (int j = 0; j < s.KW; ++j) {
-      size_t xo = ((size_t(n) * s.H + oh + i) * s.W + ow + j) * s.Cin;
-      const int8_t* wp = w + (size_t(i) * s.KW + j) * s.Cin * s.Cout + t.co;
-      for (int c = 0; c < s.Cin; ++c) {
-        int32_t p = int32_t(xa[xo + c]) * 65536 + int32_t(xb[xo + c]);
-        int32_t m = p * int32_t(wp[size_t(c) * s.Cout]);
-        int32_t low = int32_t((uint32_t(m) + 32768u) & 0xFFFFu) - 32768;
-        int32_t high = (m - low) / 65536;
-        acc_a += uint32_t(high);
-        acc_b += uint32_t(low);
+// A running reduce parked in its f32 output between bands: the raw 32
+// bits of V.
+__device__ __forceinline__ float park(float v) { return v; }
+__device__ __forceinline__ float park(int32_t v) { return __int_as_float(v); }
+__device__ __forceinline__ void unpark(float p, float& v) { v = p; }
+__device__ __forceinline__ void unpark(float p, int32_t& v) {
+  v = __float_as_int(p);
+}
+
+// One band of the fused kernel, after its conv: the register tile (V =
+// float: the conv values, rescaled by sc where scaled; V = int32: the
+// integer conv values) into shared memory, then each of the thread's
+// pooled outputs (tp x tq of the CTA, lane-major as the conv pixels)
+// takes the band's taps of its window with window_step in i-major
+// order.  A window that ends in this band is finished (window_end,
+// activate) and stored, 16 bytes along Cout where Cout allows; one that
+// goes on is parked in its output and picked up by the next band that
+// holds its taps.  br, bcol: the band's origin in the CTA's conv rows
+// and columns.
+template <typename V, typename A>
+__device__ __forceinline__ void fused_band(
+    const A (&acc)[kConvPix][kConvCh], bool scaled, const float (&sc)[kConvCh],
+    float* __restrict__ y, const ConvShape& s, const TilePlan& pl,
+    const PoolPlan& pp, const TileThread& tt, int n, int p0, int q0, int co,
+    int br, int bcol, uint8_t* smem, int mode, int kind) {
+  V* band = reinterpret_cast<V*>(smem);
+  const int bclog = pl.glog + 2, TW = 1 << pl.twlog;
+#pragma unroll
+  for (int k = 0; k < kConvPix; ++k) {
+    V v[kConvCh];
+#pragma unroll
+    for (int q = 0; q < kConvCh; ++q) {
+      if constexpr (std::is_same_v<V, float>) {
+        // int8 rung: the accumulator rescaled in register (cnn_block.py:71-75)
+        v[q] = scaled ? __fmul_rn(float(acc[k][q]), sc[q]) : float(acc[k][q]);
+      } else {
+        v[q] = acc[k][q];
+      }
+    }
+    store_quad(band + ((((tt.pr[k] << pl.twlog) + tt.pc[k]) << bclog) +
+                       tt.cg * kConvCh), v);
+  }
+  __syncthreads();
+  if (co >= s.Cout) return;
+  const int lanes = kThreads >> pl.glog, npool = pp.tp * pp.tq;
+  const bool quads = s.Cout % kConvCh == 0;    // then co + 3 < Cout
+#pragma unroll 1
+  for (int k = 0; k < kConvPix; ++k) {
+    const int pidx = tt.lane + k * lanes;
+    if (pidx >= npool) break;
+    const int pi = pidx / pp.tq, qi = pidx - pi * pp.tq;
+    const int po = p0 + pi, qo = q0 + qi;
+    if (po >= pp.Po || qo >= pp.Qo) continue;
+    // the window's origin in the band, and its taps the band holds
+    const int wr = pi * pp.SH - br, wc = qi * pp.SW - bcol;
+    const int i0 = max(0, -wr), i1 = min(pp.PH, pl.th - wr);
+    const int j0 = max(0, -wc), j1 = min(pp.PW, TW - wc);
+    if (i0 >= i1 || j0 >= j1) continue;
+    float* yp = y + ((size_t(n) * pp.Po + po) * pp.Qo + qo) * s.Cout + co;
+    V red[kConvCh];
+#pragma unroll
+    for (int q = 0; q < kConvCh; ++q) {
+      red[q] = V(0);
+      // a window whose first tap lies in an earlier band goes on
+      if ((i0 > 0 || j0 > 0) && co + q < s.Cout) unpark(yp[q], red[q]);
+    }
+    for (int i = i0; i < i1; ++i) {
+      const V* row = band + ((((wr + i) << pl.twlog) + wc) << bclog) +
+                     tt.cg * kConvCh;
+      for (int j = j0; j < j1; ++j) {
+        V v[kConvCh];
+        load_quad(row + (j << bclog), v);
+#pragma unroll
+        for (int q = 0; q < kConvCh; ++q) {
+          red[q] = window_step(red[q], v[q], i, j, mode);
+        }
+      }
+    }
+    if (i1 == pp.PH && j1 == pp.PW) {
+      float out[kConvCh];
+#pragma unroll
+      for (int q = 0; q < kConvCh; ++q) {
+        out[q] = activate(float(window_end(red[q], pp.PH, pp.PW, mode)),
+                          kind);
+      }
+      if (quads) {
+        store_quad(yp, out);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kConvCh; ++q) {
+          if (co + q < s.Cout) yp[q] = out[q];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kConvCh; ++q) {
+        if (co + q < s.Cout) yp[q] = park(red[q]);
       }
     }
   }
-  ya[t.p * s.Cout + t.co] = int32_t(acc_a);
-  yb[t.p * s.Cout + t.co] = int32_t(acc_b);
+}
+
+// The fused conv -> pool -> activation block on the tiled convs' bodies:
+// one CTA a pooled tile (PoolPlan), each band of its conv values filled
+// by the standalone conv's staging and compute (conv_tile_body), then
+// pooled and activated from shared memory (fused_band), the band's
+// space reusing the staged inputs'.  Integers without a scale pool in
+// int32 (floor average) and activate in f32; with one (the int8 rung)
+// and on floats the pool runs in f32.
+template <typename T, int STYLE, int KS, bool WHOLE>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_cnn_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const float* __restrict__ scale,
+                       float* __restrict__ y, ConvShape s, int Ho, int Wo,
+                       TilePlan pl, PoolPlan pp, int mode, int kind) {
+  using A = typename AccOf<T>::type;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int tile = blockIdx.x;                       // the channel block fastest
+  const int co0 = (tile % pl.cblocks) << (pl.glog + 2);
+  tile /= pl.cblocks;
+  const int q0 = (tile % pp.tiles_q) * pp.tq;
+  tile /= pp.tiles_q;
+  const int p0 = (tile % pp.tiles_p) * pp.tp, n = tile / pp.tiles_p;
+  const TileThread tt = tile_thread(pl);
+  const int co = co0 + tt.cg * kConvCh;
+  float sc[kConvCh];
+#pragma unroll
+  for (int q = 0; q < kConvCh; ++q) {
+    sc[q] = (scale != nullptr && co + q < s.Cout) ? scale[co + q] : 0.0f;
+  }
+  for (int rb = 0; rb < pp.row_bands; ++rb) {
+    for (int cs = 0; cs < pp.col_segs; ++cs) {
+      const int br = rb * pl.th, bcol = cs << pl.twlog;
+      const ConvTile t{n, p0 * pp.SH + br, q0 * pp.SW + bcol, co0};
+      if (t.h0 >= Ho || t.w0 >= Wo) continue;  // past the plane: no window
+      if (rb + cs > 0) __syncthreads();        // the last band is pooled
+      A acc[kConvPix][kConvCh];
+      conv_tile_body<T, STYLE, KS, WHOLE>(x, w, s, Ho, Wo, pl, t, tt, smem,
+                                          acc);
+      __syncthreads();                         // the staged inputs are read
+      if constexpr (std::is_same_v<A, float>) {
+        fused_band<float>(acc, scale != nullptr, sc, y, s, pl, pp, tt, n, p0,
+                          q0, co, br, bcol, smem, mode, kind);
+      } else if (scale != nullptr) {
+        fused_band<float>(acc, true, sc, y, s, pl, pp, tt, n, p0, q0, co, br,
+                          bcol, smem, mode, kind);
+      } else {
+        fused_band<int32_t>(acc, false, sc, y, s, pl, pp, tt, n, p0, q0, co,
+                            br, bcol, smem, mode, kind);
+      }
+    }
+  }
+}
+
+// Conv3's packed operand of one input pair, p = a * 2^16 + b (the
+// reference's packing; a multiplication: shifting a negative int is
+// undefined in C++17).  A block of one or two tap pairs, its products
+// summed packed with kBlockBias, gives m = (A + kPairBias) * 2^16 + (B +
+// kPairBias) mod 2^32, A and B the two streams' sums over the block,
+// each in [-32512, 32768] (a*w in [-16256, 16384] for int8): biased,
+// both lie in [0, 65280], so m holds them exactly, with no carry
+// between its halves.  m >> 16 is A + kPairBias; the B halves are
+// recovered from the plain sum of the m at the end (take_block).
+constexpr uint32_t kPairBias = 32512;
+constexpr uint32_t kBlockBias = kPairBias * 65537u;   // both halves
+
+__device__ __forceinline__ int32_t pack_pair(int32_t a, int32_t b) {
+  return a * 65536 + b;
+}
+
+// A block's biased m into the running sums: sum_m of the m, sum_a of
+// their high halves (A + kPairBias).  The b stream's sum of the B +
+// kPairBias is then sum_m - sum_a * 2^16, modulo 2^32.
+__device__ __forceinline__ void take_block(uint32_t m, uint32_t& sum_m,
+                                           uint32_t& sum_a) {
+  sum_m += m;
+  sum_a += m >> 16;
+}
+
+// runs runs of len packed input pairs into shared memory: run k's pairs
+// from xa + src(k) and xb + src(k) to dst(k) (int32, 16-byte aligned),
+// 16 pairs from two 16-byte loads where both sources are aligned, one
+// at a time elsewhere.  The caller syncs.
+template <typename Dst, typename Src>
+__device__ __forceinline__ void stage_packed(const int8_t* __restrict__ xa,
+                                             const int8_t* __restrict__ xb,
+                                             int runs, int len, Dst dst,
+                                             Src src) {
+  const int chunks = (len + 15) / 16;
+  for (int e = threadIdx.x; e < runs * chunks; e += blockDim.x) {
+    const int k = e / chunks, q = e - k * chunks;
+    const size_t off = src(k) + size_t(q) * 16;
+    int32_t* to = dst(k) + q * 16;
+    const int n = min(16, len - q * 16);
+    if (n == 16 && ((reinterpret_cast<uintptr_t>(xa + off) |
+                     reinterpret_cast<uintptr_t>(xb + off)) & 15) == 0) {
+      const uint4 a = *reinterpret_cast<const uint4*>(xa + off);
+      const uint4 b = *reinterpret_cast<const uint4*>(xb + off);
+      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        int32_t p[4];
+#pragma unroll
+        for (int e8 = 0; e8 < 4; ++e8) {
+          p[e8] = pack_pair(int32_t(aw[v] << (24 - 8 * e8)) >> 24,
+                            int32_t(bw[v] << (24 - 8 * e8)) >> 24);
+        }
+        reinterpret_cast<int4*>(to)[v] = make_int4(p[0], p[1], p[2], p[3]);
+      }
+    } else {
+      for (int i = 0; i < n; ++i) to[i] = pack_pair(xa[off + i], xb[off + i]);
+    }
+  }
+}
+
+// Conv3 on the tiled convs' cut (tile_plan(style="packed")): both
+// streams' halos staged once, packed (stage_packed), each pixel at
+// pixel_pitch as Conv2 stages it, and the weights widened to int32.
+// Each thread keeps 8 pixels x 4 channels of the blocks' biased sums
+// (sum_m, sum_a); per 4 channels, one 16-byte shared load of a pixel's
+// 4 packed pairs and four of the quad's weights feed 128 tap pairs, ONE
+// multiply-add each, summed two at a time (channels 0-1 and 2-3 of the
+// quad, the channels past the last whole quad one at a time) and taken
+// with take_block: a shift and two adds a block.  At the end the b
+// stream's sums come out of sum_m and both shed the bias of their
+// blocks.
+// Integer sums wrap modulo 2^32 whatever their order, so both streams
+// are the reference's bit for bit.  WHOLE: the packed halo over all Cin
+// and every tap's weights in one go; otherwise each (tap, chunk of cc
+// input channels) in turn.
+template <int KS, bool WHOLE>
+__global__ void __launch_bounds__(kThreads, 2)
+conv2d_ip3_tiled_kernel(const int8_t* __restrict__ xa,
+                        const int8_t* __restrict__ xb,
+                        const int8_t* __restrict__ w,
+                        int32_t* __restrict__ ya, int32_t* __restrict__ yb,
+                        ConvShape s, int Ho, int Wo, TilePlan pl) {
+  using Sums = uint32_t (&)[kConvPix][kConvCh];
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ConvTile t = conv_tile(blockIdx.x, pl);
+  const TileThread tt = tile_thread(pl);
+  const int TW = 1 << pl.twlog, bclog = pl.glog + 2;
+  const size_t xn = size_t(t.n) * s.H * s.W * s.Cin;
+  int32_t* xs = reinterpret_cast<int32_t*>(smem);
+  uint32_t sum_m[kConvPix][kConvCh];           // zeroed by conv_taps_mxu
+  uint32_t sum_a[kConvPix][kConvCh];
+#pragma unroll
+  for (int k = 0; k < kConvPix; ++k) {
+#pragma unroll
+    for (int q = 0; q < kConvCh; ++q) sum_a[k][q] = 0;
+  }
+  int blocks = 0;                              // blocks an output took
+  // n channels of one tap: pixel k's packed pairs at xt + xo[k], the
+  // thread's weight quad at wt (rows 1 << bclog apart); both 16-byte
+  // aligned at every fourth channel
+  auto run = [&](int n, const int32_t* xt, const int (&xo)[kConvPix],
+                 const int32_t* wt) {
+    const int n4 = n & ~3;
+    for (int c = 0; c < n4; c += 4) {
+      int32_t wv[4][kConvCh];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) load_quad(wt + ((c + u) << bclog), wv[u]);
+#pragma unroll
+      for (int k = 0; k < kConvPix; ++k) {
+        int32_t xv[4];
+        load_quad(xt + xo[k] + c, xv);
+#pragma unroll
+        for (int q = 0; q < kConvCh; ++q) {
+#pragma unroll
+          for (int u = 0; u < 4; u += 2) {
+            take_block(uint32_t(xv[u]) * uint32_t(wv[u][q]) +
+                           (uint32_t(xv[u + 1]) * uint32_t(wv[u + 1][q]) +
+                            kBlockBias),
+                       sum_m[k][q], sum_a[k][q]);
+          }
+        }
+      }
+    }
+    for (int c = n4; c < n; ++c) {
+      int32_t wv[kConvCh];
+      load_quad(wt + (c << bclog), wv);
+#pragma unroll
+      for (int k = 0; k < kConvPix; ++k) {
+#pragma unroll
+        for (int q = 0; q < kConvCh; ++q) {
+          take_block(uint32_t(xt[xo[k] + c]) * uint32_t(wv[q]) + kBlockBias,
+                     sum_m[k][q], sum_a[k][q]);
+        }
+      }
+    }
+    blocks += n4 / 2 + n - n4;
+  };
+  int xo[kConvPix];
+  if constexpr (WHOLE) {
+    const int HW = TW + s.KW - 1, pp = pixel_pitch(s.Cin, 4);
+    int32_t* ws = xs + (pl.th + s.KH - 1) * HW * pp;
+    const int cols = min(HW, s.W - t.w0);
+    stage_packed(xa, xb, min(pl.th + s.KH - 1, s.H - t.h0) * cols, s.Cin,
+                 [&](int k) {
+                   const int r = k / cols;
+                   return xs + (r * HW + k - r * cols) * pp;
+                 },
+                 [&](int k) {
+                   const int r = k / cols;
+                   return xn + (size_t(t.h0 + r) * s.W + t.w0 + k - r * cols) *
+                                   s.Cin;
+                 });
+    stage_weights(ws, s.KH * s.KW * s.Cin, bclog, t.co0, s.Cout,
+                  [&](int r) { return w + size_t(r) * s.Cout; });
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kConvPix; ++k) {
+      xo[k] = (tt.pr[k] * HW + tt.pc[k]) * pp;
+    }
+    conv_taps_mxu<uint32_t, kConvPix, kConvCh, KS>(
+        s.KH, s.KW, [&](int i, int j, Sums) {
+          run(s.Cin, xs + (i * HW + j) * pp, xo,
+              ws + (((i * s.KW + j) * s.Cin) << bclog) + tt.cg * kConvCh);
+        }, sum_m);
+  } else {
+    const int cs = pixel_pitch(pl.cc, 4);      // a pixel's staged pairs
+    int32_t* ws = xs + (pl.th << pl.twlog) * cs;
+#pragma unroll
+    for (int k = 0; k < kConvPix; ++k) {
+      xo[k] = ((tt.pr[k] << pl.twlog) + tt.pc[k]) * cs;
+    }
+    const int rows = min(pl.th, Ho - t.h0), cols = min(TW, Wo - t.w0);
+    conv_taps_mxu<uint32_t, kConvPix, kConvCh, KS>(
+        s.KH, s.KW, [&](int i, int j, Sums) {
+          for (int c0 = 0; c0 < s.Cin; c0 += pl.cc) {
+            const int len = min(pl.cc, s.Cin - c0);
+            __syncthreads();                   // the last chunk is consumed
+            stage_packed(xa, xb, rows * cols, len,
+                         [&](int k) {
+                           const int r = k / cols;
+                           return xs + ((r << pl.twlog) + k - r * cols) * cs;
+                         },
+                         [&](int k) {
+                           const int r = k / cols;
+                           return xn + (size_t(t.h0 + i + r) * s.W + t.w0 +
+                                        j + k - r * cols) * s.Cin + c0;
+                         });
+            stage_weights(ws, len, bclog, t.co0, s.Cout, [&](int r) {
+              return w + (size_t(i * s.KW + j) * s.Cin + c0 + r) * s.Cout;
+            });
+            __syncthreads();
+            run(len, xs, xo, ws + tt.cg * kConvCh);
+          }
+        }, sum_m);
+  }
+  const uint32_t bias = uint32_t(blocks) * kPairBias;
+  int32_t ra[kConvPix][kConvCh], rb[kConvPix][kConvCh];
+#pragma unroll
+  for (int k = 0; k < kConvPix; ++k) {
+#pragma unroll
+    for (int q = 0; q < kConvCh; ++q) {
+      ra[k][q] = int32_t(sum_a[k][q] - bias);
+      rb[k][q] = int32_t(sum_m[k][q] - (sum_a[k][q] << 16) - bias);
+    }
+  }
+  store_tile(ya, s, Ho, Wo, t, tt.cg, tt.pr, tt.pc, ra);
+  store_tile(yb, s, Ho, Wo, t, tt.cg, tt.pr, tt.pc, rb);
 }
 
 inline unsigned blocks_for(long long items) {
   return unsigned((items + kThreads - 1) / kThreads);
+}
+
+// A tile plan fits the conv and the CTA: 4 << glog channels, th x
+// 2^twlog pixels (twlog <= max_twlog), kConvPix a lane, chunks of Cin.
+inline bool plan_ok(int glog, int twlog, int max_twlog, int th, int cc,
+                    int Cin, int whole) {
+  return glog >= 0 && glog <= 3 && twlog >= 0 && twlog <= max_twlog &&
+         th >= 1 && (th << twlog) == (kThreads >> glog) * kConvPix &&
+         cc >= 1 && cc <= Cin && (!whole || cc == Cin);
+}
+
+// Launch a tiled kernel over ctas CTAs with bytes of dynamic shared
+// memory (raising the kernel's limit where above 48 KB).
+template <typename Kernel, typename... Args>
+int launch_tiled(Kernel kernel, long long ctas, size_t bytes,
+                 cudaStream_t st, Args... args) {
+  if (ctas > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return int(err);
+    }
+  }
+  kernel<<<unsigned(ctas), kThreads, bytes, st>>>(args...);
+  return int(cudaGetLastError());
 }
 
 // Conv1 (style kVpu) or Conv2 (kMxu) of ns streams sharing the weights
@@ -816,9 +1235,8 @@ int conv_tiled(int style, int ns, int dtype, const void* const* x,
   const bool types = (ns == 1 || (ns == 2 && style == kMxu)) &&
                      (dtype == kF32 || dtype == kI8 || dtype == kI16 ||
                       dtype == kBF16);
-  if (glog < 0 || glog > 3 || twlog < 0 || twlog > 5 || th < 1 ||
-      (th << twlog) != (kThreads >> glog) * kConvPix || cc < 1 || cc > Cin ||
-      (whole && cc != Cin) || !types || (style != kVpu && style != kMxu)) {
+  if (!plan_ok(glog, twlog, 5, th, cc, Cin, whole) || !types ||
+      (style != kVpu && style != kMxu)) {
     return int(cudaErrorInvalidValue);
   }
   ConvShape s{H, W, Cin, KH, KW, Cout};
@@ -827,21 +1245,11 @@ int conv_tiled(int style, int ns, int dtype, const void* const* x,
   TilePlan pl{glog, twlog, th, cc, (Wo + TW - 1) / TW, (Ho + th - 1) / th,
                (Cout + bc - 1) / bc};
   const long long ctas = (long long)N * pl.tiles_h * pl.tiles_w * pl.cblocks;
-  if (ctas > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   const int sz = dtype == kF32 ? 4 : dtype == kI8 ? 1 : 2;
   const size_t bytes = tile_smem_bytes(style, ns, s, pl, sz, whole);
   cudaStream_t st = cudaStream_t(stream);
   auto run = [&](auto kernel, auto... args) {
-    if (bytes > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-      if (err != cudaSuccess) {
-        cudaGetLastError();
-        return int(err);
-      }
-    }
-    kernel<<<unsigned(ctas), kThreads, bytes, st>>>(args..., s, Ho, Wo, pl);
-    return int(cudaGetLastError());
+    return launch_tiled(kernel, ctas, bytes, st, args..., s, Ho, Wo, pl);
   };
   const bool k3 = KH == 3 && KW == 3;
 #define CNN_VPU(T)                                                          \
@@ -1038,62 +1446,99 @@ int cnn_pool2d_im2col(int dtype, int mode, const void* x, void* y, int N,
   return int(cudaGetLastError());
 }
 
+// The fused block on the tile plan (glog, twlog, th, cc, whole) and the
+// pooled tile (tp, tq) of kernels/conv2d/inner.py::fused_plan: conv of
+// style kVpu (Conv1's body) or kMxu (Conv2's), on f32, bf16, int8 or
+// int16; f32 out.  scale (one f32 a channel) or null.
 int cnn_fused(int style, int dtype, const void* x, const void* w,
               const float* scale, float* y, int N, int H, int W, int Cin,
               int KH, int KW, int Cout, int PH, int PW, int SH, int SW,
-              int mode, int kind, int bc, void* stream) {
-  ConvShape s{H, W, Cin, KH, KW, Cout};
-  int Po = (H - KH + 1 - PH) / SH + 1, Qo = (W - KW + 1 - PW) / SW + 1;
-  dim3 grid(blocks_for((long long)N * Po * Qo * bc), (Cout + bc - 1) / bc);
-  cudaStream_t st = cudaStream_t(stream);
-#define CNN_FUSED(T, S)                                                     \
-  fused_cnn_kernel<T, S><<<grid, kThreads, 0, st>>>(                        \
-      (const T*)x, (const T*)w, scale, y, N, s, PH, PW, SH, SW, Po, Qo,     \
-      mode, kind, bc)
-#define CNN_FUSED_STYLES(T)                                                 \
-  if (style == kVpu) {                                                      \
-    CNN_FUSED(T, kVpu);                                                     \
-  } else {                                                                  \
-    CNN_FUSED(T, kMxu);                                                     \
-  }
-  if (style != kVpu && style != kMxu) return int(cudaErrorInvalidValue);
-  if (dtype == kF32) {
-    CNN_FUSED_STYLES(float)
-  } else if (dtype == kBF16) {
-    CNN_FUSED_STYLES(__nv_bfloat16)
-  } else if (dtype == kI8) {
-    CNN_FUSED_STYLES(int8_t)
-  } else if (dtype == kI16) {
-    CNN_FUSED_STYLES(int16_t)
-  } else {
+              int mode, int kind, int glog, int twlog, int th, int cc,
+              int whole, int tp, int tq, void* stream) {
+  const int Ho = H - KH + 1, Wo = W - KW + 1, TW = 1 << twlog;
+  const int bc = 4 << glog;
+  if ((style != kVpu && style != kMxu) || mode < kMax || mode > kAvg ||
+      kind < kRelu || kind > kGelu || PH < 1 || PW < 1 || SH < 1 ||
+      SW < 1 || PH > Ho || PW > Wo ||
+      !plan_ok(glog, twlog, 11, th, cc, Cin, whole) || tp < 1 || tq < 1 ||
+      tp * tq > (kThreads >> glog) * kConvPix) {
     return int(cudaErrorInvalidValue);
   }
+  ConvShape s{H, W, Cin, KH, KW, Cout};
+  const int Po = (Ho - PH) / SH + 1, Qo = (Wo - PW) / SW + 1;
+  const int rows = (tp - 1) * SH + PH, cols = (tq - 1) * SW + PW;
+  PoolPlan pp{PH, PW, SH, SW, Po, Qo, tp, tq, (Po + tp - 1) / tp,
+              (Qo + tq - 1) / tq, (rows + th - 1) / th, (cols + TW - 1) / TW};
+  // column segments keep each window's taps i-major only one row a band
+  if (pp.col_segs > 1 && th != 1) return int(cudaErrorInvalidValue);
+  TilePlan pl{glog, twlog, th, cc, pp.tiles_q, pp.tiles_p,
+              (Cout + bc - 1) / bc};
+  const long long ctas =
+      (long long)N * pp.tiles_p * pp.tiles_q * pl.cblocks;
+  const int sz = dtype == kF32 ? 4 : dtype == kI8 ? 1 : 2;
+  // the band of conv values reuses the staged inputs' space
+  const size_t bytes = std::max(tile_smem_bytes(style, 1, s, pl, sz, whole),
+                                size_t(kBandValues) * 4);
+  cudaStream_t st = cudaStream_t(stream);
+  auto run = [&](auto kernel, auto xp, auto wp) {
+    return launch_tiled(kernel, ctas, bytes, st, xp, wp, scale, y, s, Ho, Wo,
+                        pl, pp, mode, kind);
+  };
+  const bool k3 = KH == 3 && KW == 3;
+#define CNN_FUSED(T, S)                                                     \
+  {                                                                         \
+    const T* xp = (const T*)x;                                              \
+    const T* wp = (const T*)w;                                              \
+    if (!whole) return run(fused_cnn_tiled_kernel<T, S, 0, false>, xp, wp); \
+    if (k3) return run(fused_cnn_tiled_kernel<T, S, 3, true>, xp, wp);      \
+    return run(fused_cnn_tiled_kernel<T, S, 0, true>, xp, wp);              \
+  }
+#define CNN_FUSED_STYLES(T)                                                 \
+  {                                                                         \
+    if (style == kVpu) CNN_FUSED(T, kVpu)                                   \
+    CNN_FUSED(T, kMxu)                                                      \
+  }
+  if (dtype == kF32) CNN_FUSED_STYLES(float)
+  if (dtype == kBF16) CNN_FUSED_STYLES(__nv_bfloat16)
+  if (dtype == kI8) CNN_FUSED_STYLES(int8_t)
+  if (dtype == kI16) CNN_FUSED_STYLES(int16_t)
 #undef CNN_FUSED_STYLES
 #undef CNN_FUSED
-  return int(cudaGetLastError());
+  return int(cudaErrorInvalidValue);
 }
 
-// ip: 3 (Conv3, int8 only; bc output channels a block) or 4 (Conv4, on
-// the tile plan (glog, twlog, th, cc, whole) of tile_plan(style="mxu",
-// streams=2)).
+// ip: 3 (Conv3, int8, on the tile plan of tile_plan(style="packed")) or
+// 4 (Conv4, on that of tile_plan(style="mxu", streams=2)); the plan is
+// (glog, twlog, th, cc, whole).
 int cnn_conv2d_dual(int ip, int dtype, const void* xa, const void* xb,
                     const void* w, void* ya, void* yb, int N, int H, int W,
-                    int Cin, int KH, int KW, int Cout, int bc, int glog,
-                    int twlog, int th, int cc, int whole, void* stream) {
+                    int Cin, int KH, int KW, int Cout, int glog, int twlog,
+                    int th, int cc, int whole, void* stream) {
   if (ip == 4) {
     const void* const x[2] = {xa, xb};
     void* const y[2] = {ya, yb};
     return conv_tiled(kMxu, 2, dtype, x, w, y, N, H, W, Cin, KH, KW, Cout,
                       glog, twlog, th, cc, whole, stream);
   }
-  if (ip != 3 || dtype != kI8 || bc < 1) return int(cudaErrorInvalidValue);
+  if (ip != 3 || dtype != kI8 || !plan_ok(glog, twlog, 5, th, cc, Cin, whole)) {
+    return int(cudaErrorInvalidValue);
+  }
   ConvShape s{H, W, Cin, KH, KW, Cout};
-  int Ho = H - KH + 1, Wo = W - KW + 1;
-  dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (Cout + bc - 1) / bc);
-  conv2d_ip3_kernel<<<grid, kThreads, 0, cudaStream_t(stream)>>>(
-      (const int8_t*)xa, (const int8_t*)xb, (const int8_t*)w, (int32_t*)ya,
-      (int32_t*)yb, N, s, Ho, Wo, bc);
-  return int(cudaGetLastError());
+  const int Ho = H - KH + 1, Wo = W - KW + 1, TW = 1 << twlog;
+  const int bc = 4 << glog;
+  TilePlan pl{glog, twlog, th, cc, (Wo + TW - 1) / TW, (Ho + th - 1) / th,
+              (Cout + bc - 1) / bc};
+  const long long ctas = (long long)N * pl.tiles_h * pl.tiles_w * pl.cblocks;
+  const size_t bytes = tile_smem_bytes(kPacked, 1, s, pl, 1, whole);
+  cudaStream_t st = cudaStream_t(stream);
+  auto run = [&](auto kernel) {
+    return launch_tiled(kernel, ctas, bytes, st, (const int8_t*)xa,
+                        (const int8_t*)xb, (const int8_t*)w, (int32_t*)ya,
+                        (int32_t*)yb, s, Ho, Wo, pl);
+  };
+  if (!whole) return run(conv2d_ip3_tiled_kernel<0, false>);
+  if (KH == 3 && KW == 3) return run(conv2d_ip3_tiled_kernel<3, true>);
+  return run(conv2d_ip3_tiled_kernel<0, true>);
 }
 
 }  // extern "C"

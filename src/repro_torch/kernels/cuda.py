@@ -53,12 +53,12 @@ _SIGNATURES = {
     "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cnn_activation": (_I, _I, _P, _P, ctypes.c_longlong, _I, _P),
     "cnn_fused": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  _I, _I, _I, _I, _I, _I, _I, _P),
+                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cnn_activation_lut": (_I, _P, _P, _P, ctypes.c_longlong, _F, _F, _P),
     "cnn_pool2d_im2col": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P),
     "cnn_conv2d_dual": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _P),
+                        _I, _I, _I, _I, _I, _I, _P),
     "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cnn_matmul_dual": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mm_tc_matmul": (_I, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -6,12 +6,18 @@ Replaces ``repro/kernels/fused/cnn_block.py::_fused_call`` (members
 ``fused_cnn_vpu`` / ``fused_cnn_mxu``).  The unfused chain launches three
 kernels and round-trips the conv output (the block's largest tensor) and
 the pool output through device memory.  The fused kernel
-(``fused_cnn_kernel<T, style>`` in ``csrc/cnn_kernels.cu``) maps one
-thread to one pooled output: it computes the ph*pw conv values of its
-window with the same ``__device__`` conv body the standalone member
-runs, reduces them with the shared ``window_reduce``, applies the shared
-``activate`` and writes once.  Same functions, same order: a float32
-fused block is bitwise equal to its three-launch chain.
+(``fused_cnn_tiled_kernel<T, style, ...>`` in ``csrc/cnn_kernels.cu``)
+cuts the block in pooled space (``inner.fused_plan``): a CTA owns a tile
+of pooled outputs and a block of channels, fills the conv values their
+windows read with the standalone member's own staging and conv body
+(the tiled Conv1 or Conv2: halo and weights in shared memory, 8 pixels x
+4 channels a thread), a conv tile at a time, passes them through shared
+memory, reduces each window with the shared ``window_reduce`` steps in
+its i-major order, applies the shared ``activate`` and writes once.  A
+window taller or wider than a tile is walked in bands and its running
+reduce carried across them in the same order.  Same functions, same
+order: a float32 fused block is bitwise equal to its three-launch chain,
+whatever ``block_cout``.
 
 **int8 rung**: ``scale=`` (f32, one per output channel) rescales the
 int32 accumulator to f32 in register before pooling, as the reference
@@ -33,7 +39,7 @@ from repro_torch.kernels.conv2d.inner import (CUDA_DTYPES,  # noqa: F401
                                               STYLE_CODE, accumulate_vpu,
                                               check_block,
                                               check_conv_operands, conv_mxu,
-                                              kernel_operands)
+                                              fused_plan, kernel_operands)
 from repro_torch.kernels.pool2d.ref import MODES, check_pool_geometry
 from repro_torch.kernels.pool2d.vpu_window import MODE_CODE, window_reduce
 
@@ -98,12 +104,17 @@ def _fused_call(style, x, w, scale, pool_window, pool_stride, pool_mode,
     y = torch.empty((n, po, qo, cout), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
+    plan = fused_plan(h, w_, cin, kh, kw, cout, ph, pw, sh, sw,
+                      itemsize=x.element_size(), block_cout=int(block_cout),
+                      style=style)
+    tile = plan.tile
     cuda.launch(f"fused_cnn_{style}", "cnn_fused", x.device,
                 STYLE_CODE[style], cuda.DTYPE_CODE[x.dtype], x.data_ptr(),
                 w.data_ptr(), None if sc is None else sc.data_ptr(),
                 y.data_ptr(), n, h, w_, cin, kh, kw, cout, ph, pw, sh, sw,
-                MODE_CODE[pool_mode], KINDS.index(act_kind),
-                min(int(block_cout), cout))
+                MODE_CODE[pool_mode], KINDS.index(act_kind), tile.glog,
+                tile.twlog, tile.th, tile.cc, int(tile.whole), plan.tp,
+                plan.tq)
     return y
 
 

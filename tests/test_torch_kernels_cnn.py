@@ -638,6 +638,354 @@ def test_fused_plain_bitwise_equals_plain_chain(rng, style, mode, kind):
 
 
 # --------------------------------------------------------------------------
+# the tiled fused kernel's plan, and Conv3's packed recovery
+# --------------------------------------------------------------------------
+def _band_conv(xa, wa, b, h0, w0, c0, tile, style, acc_dtype):
+    """The conv values of one conv tile (a band of the fused kernel) at
+    (h0, w0), channels c0.., computed only from what the kernel stages
+    for it (the halo, or per (tap, chunk) the shifted tile's chunk of
+    channels), in the style's order: vpu, per tap a partial over the
+    staged channels, then into the accumulator; mxu, one chain over (i,
+    j, cin).  Clipped to the conv plane and Cout."""
+    kh, kw, cin, cout = wa.shape
+    ho, wo = xa.shape[1] - kh + 1, xa.shape[2] - kw + 1
+    r, c, q = (min(tile.th, ho - h0), min(tile.tw, wo - w0),
+               min(tile.bc, cout - c0))
+    chunks = [(ca, min(ca + tile.cc, cin)) for ca in range(0, cin, tile.cc)]
+    halo = xa[b, h0:h0 + tile.th + kh - 1, w0:w0 + tile.tw + kw - 1]
+    acc = torch.zeros((r, c, q), dtype=acc_dtype)
+    for i in range(kh):
+        for j in range(kw):
+            part = torch.zeros((r, c, q), dtype=acc_dtype)
+            for ca, cb in chunks:
+                box = (halo[i:i + r, j:j + c, ca:cb] if tile.whole else
+                       xa[b, h0 + i:h0 + i + r, w0 + j:w0 + j + c, ca:cb])
+                # the staged box holds every input the tile's windows read
+                assert box.shape == (r, c, cb - ca)
+                for k in range(cb - ca):
+                    prod = box[..., k, None] * wa[i, j, ca + k, c0:c0 + q]
+                    if style == "vpu":
+                        part = part + prod
+                    else:
+                        acc = acc + prod
+            if style == "vpu":
+                acc = acc + part
+    return acc
+
+
+def _fused_tiles(x, w, scale, plan, style, window, stride, mode, kind):
+    """``fused_cnn_tiled_kernel``'s decomposition on the CPU: the CTAs of
+    ``plan`` (pooled tiles x channel blocks), each band of conv values
+    (``_band_conv``: f32 for vpu floats, f64 for mxu floats as the plain
+    Conv2 chain, int32 for integers; rescaled on the int8 rung) and each
+    window's taps taken from the bands in band order, i-major within a
+    band, carried across bands.  Asserts that a band holds every tap it
+    is asked for and that each window gets all its taps once.  Returns
+    the output and the number of CTAs that wrote each output."""
+    from repro_torch.kernels.activation.ref import _FNS
+    (ph, pw), (sh, sw) = window, stride
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = h - kh + 1, w_ - kw + 1
+    po, qo = (ho - ph) // sh + 1, (wo - pw) // sw + 1
+    tile = plan.tile
+    if x.is_floating_point():
+        acc_dtype = torch.float32 if style == "vpu" else torch.float64
+    else:
+        acc_dtype = torch.int32
+    pool_dtype = (torch.float32 if x.is_floating_point() or scale is not None
+                  else torch.int32)
+    xa, wa = x.to(acc_dtype), w.to(acc_dtype)
+    assert plan.tp * plan.tq <= (t_inner.THREADS >> tile.glog) * t_inner.PIXELS
+    assert plan.col_segs == 1 or tile.th == 1
+    y = torch.zeros((n, po, qo, cout), dtype=pool_dtype)
+    hits = torch.zeros((n, po, qo, cout), dtype=torch.int32)
+    for b in range(n):
+        for p0 in range(0, po, plan.tp):
+            for q0 in range(0, qo, plan.tq):
+                for c0 in range(0, cout, tile.bc):
+                    q = min(tile.bc, cout - c0)
+                    outs = [(pi, qi) for pi in range(plan.tp)
+                            for qi in range(plan.tq)
+                            if p0 + pi < po and q0 + qi < qo]
+                    red, taps = {}, {o: 0 for o in outs}
+                    for rb in range(plan.row_bands):
+                        for cs in range(plan.col_segs):
+                            br, bcol = rb * tile.th, cs * tile.tw
+                            h0, w0 = p0 * sh + br, q0 * sw + bcol
+                            if h0 >= ho or w0 >= wo:
+                                continue
+                            band = _band_conv(xa, wa, b, h0, w0, c0, tile,
+                                              style, acc_dtype).to(pool_dtype)
+                            if scale is not None:
+                                band = band * scale[c0:c0 + q]
+                            for pi, qi in outs:
+                                wr, wc = pi * sh - br, qi * sw - bcol
+                                for i in range(max(0, -wr),
+                                               min(ph, tile.th - wr)):
+                                    for j in range(max(0, -wc),
+                                                   min(pw, tile.tw - wc)):
+                                        assert (wr + i < band.shape[0]
+                                                and wc + j < band.shape[1])
+                                        v = band[wr + i, wc + j]
+                                        o = (pi, qi)
+                                        if i == 0 and j == 0:
+                                            assert o not in red
+                                            red[o] = v
+                                        elif mode == "max":
+                                            red[o] = torch.maximum(red[o], v)
+                                        else:
+                                            red[o] = red[o] + v
+                                        taps[o] += 1
+                    for pi, qi in outs:
+                        assert taps[(pi, qi)] == ph * pw
+                        v = red[(pi, qi)]
+                        if mode == "avg":
+                            v = (v / (ph * pw) if v.is_floating_point() else
+                                 torch.div(v, ph * pw, rounding_mode="floor"))
+                        y[b, p0 + pi, q0 + qi, c0:c0 + q] = v
+                        hits[b, p0 + pi, q0 + qi, c0:c0 + q] += 1
+    return _FNS[kind](y.to(torch.float32)), hits
+
+
+# (x, w, window, stride, mode, kind, shared memory the plan may use):
+# the five pool geometries of the card's checks, a window taller than
+# the conv tile's 8 rows (two row bands), one wider than 32 columns (a
+# tile of 64), one wider than the widest band of 2048 columns (one-row
+# bands in two column segments), and a Cin that a small budget chunks
+FUSED_PLANS = [
+    ((2, 12, 11, 3), (3, 3, 3, 6), (2, 2), (2, 2), "max", "relu", None),
+    ((2, 12, 11, 3), (3, 3, 3, 6), (3, 3), (2, 2), "avg", "tanh", None),
+    ((1, 9, 10, 3), (3, 3, 3, 5), (2, 2), (1, 1), "max", "gelu", None),
+    ((1, 9, 12, 3), (3, 3, 3, 5), (2, 3), (1, 2), "avg", "sigmoid", None),
+    ((2, 13, 12, 2), (3, 3, 2, 6), (2, 2), (3, 3), "max", "relu6", None),
+    ((1, 14, 20, 3), (3, 3, 3, 20), (10, 3), (2, 2), "avg", "relu", None),
+    ((1, 5, 40, 2), (3, 3, 2, 4), (2, 36), (1, 1), "max", "tanh", None),
+    ((1, 2, 2100, 1), (1, 1, 1, 4), (2, 2049), (1, 17), "max", "relu",
+     None),
+    ((1, 7, 9, 20), (3, 3, 20, 5), (2, 2), (2, 2), "avg", "relu", 2048)]
+FUSED_PLAN_IDS = ["2x2s2", "3x3s2", "2x2s1", "2x3s1x2", "2x2s3", "tall",
+                  "wide", "col-segs", "chunked"]
+
+
+def _fused_operands(rng, dtype, xs, ws):
+    """(jax, torch) operands and scale of a fused block: the conv
+    operands of ``_conv_operands`` (int16 full range, int8 in [-128,
+    127)), and on the int8 rung a per-channel f32 scale."""
+    if dtype == "int8-rung":
+        (jx, tx), (jw, tw) = _conv_operands(rng, "int8", xs, ws)
+        s = rng.random(ws[-1]).astype(np.float32) * 1e-3
+        return (jx, tx), (jw, tw), (jnp.asarray(s), torch.from_numpy(s))
+    return (*_conv_operands(rng, dtype, xs, ws), (None, None))
+
+
+def _fused_reference(style, jx, jw, js, window, stride, mode, kind):
+    """The reference's fused kernel in interpret mode; for a window of
+    thousands of taps, whose interpret-mode trace takes about a minute,
+    the reference's family oracles chained (conv, the int8 rung's
+    rescale, pool, activation)."""
+    from repro.kernels.activation.ref import activation_ref
+    from repro.kernels.conv2d.ref import conv2d_ref
+    from repro.kernels.pool2d.ref import pool2d_ref
+    if window[0] * window[1] <= 64:
+        jfn = j_fused.fused_cnn_vpu if style == "vpu" else j_fused.fused_cnn_mxu
+        return jfn(jx, jw, js, pool_window=window, pool_stride=stride,
+                   pool_mode=mode, act_kind=kind)
+    y = conv2d_ref(jx, jw)
+    if js is not None:
+        y = y.astype(jnp.float32) * js
+    return activation_ref(pool2d_ref(y, window=window, stride=stride,
+                                     mode=mode).astype(jnp.float32),
+                          kind=kind)
+
+
+@pytest.mark.parametrize("style", ["vpu", "mxu"])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int8-rung", "int16",
+                                   "bfloat16"])
+@pytest.mark.parametrize("xs,ws,window,stride,mode,kind,smem", FUSED_PLANS,
+                         ids=FUSED_PLAN_IDS)
+def test_fused_tile_plan_emulation(rng, style, dtype, xs, ws, window,
+                                   stride, mode, kind, smem):
+    """The fused kernel's cut in pooled space (``inner.fused_plan``)
+    writes every pooled output once, each CTA's bands hold every tap of
+    its windows, and the band-by-band computation from only what a CTA
+    stages is bitwise equal to ``fused_cnn_plain`` and matches the
+    reference (integers exactly; floats and the int8 rung's f32 rescale
+    at the float32 tolerance)."""
+    (jx, tx), (jw, tw), (js, ts) = _fused_operands(rng, dtype, xs, ws)
+    n, h, w_, cin = xs
+    kh, kw, _, cout = ws
+    kwargs = {} if smem is None else dict(smem_bytes=smem)
+    plan = t_inner.fused_plan(h, w_, cin, kh, kw, cout, *window, *stride,
+                              itemsize=tx.element_size(), style=style,
+                              **kwargs)
+    tile = plan.tile
+    assert tile.th * tile.tw == (t_inner.THREADS >> tile.glog) * t_inner.PIXELS
+    assert tile.tw >= window[1] or tile.th == 1
+    assert t_inner.fused_smem_bytes(plan, kh, kw, cin,
+                                    itemsize=tx.element_size(),
+                                    style=style) <= t_inner.SMEM_BYTES
+    assert tile.whole == (smem is None)
+    got, hits = _fused_tiles(tx, tw, ts, plan, style, window, stride, mode,
+                             kind)
+    assert (hits == 1).all()
+    kw_ = dict(pool_window=window, pool_stride=stride, pool_mode=mode,
+               act_kind=kind)
+    assert torch.equal(got, t_fused.fused_cnn_plain(style, tx, tw, ts, **kw_))
+    want = _np(_fused_reference(style, jx, jw, js, window, stride, mode,
+                                kind))
+    if tx.is_floating_point() or ts is not None:
+        np.testing.assert_allclose(_np(got), want, **F32)
+    else:
+        np.testing.assert_array_equal(_np(got), want)
+
+
+def test_fused_plan_cuts():
+    """The served blocks' fused plans are the tiled convs' cuts (one band
+    a CTA), a window past the tile's rows walks row bands, one past 32
+    columns widens the tile, one past the widest band walks one-row
+    bands in column segments; ``style`` is checked."""
+    for args, size, style in (((224, 224, 3, 3, 3, 16, 2, 2, 2, 2), 4, "vpu"),
+                              ((111, 111, 16, 3, 3, 32, 2, 2, 2, 2), 4,
+                               "mxu")):
+        plan = t_inner.fused_plan(*args, itemsize=size, style=style)
+        conv = t_inner.tile_plan(*args[:6], itemsize=size, style=style)
+        assert plan.tile == conv
+        assert (plan.row_bands, plan.col_segs) == (1, 1)
+        assert (plan.tp, plan.tq) == (conv.th // 2, conv.tw // 2)
+    tall = t_inner.fused_plan(30, 70, 16, 3, 3, 40, 12, 5, 3, 2, itemsize=4)
+    assert (tall.tp, tall.row_bands, tall.col_segs) == (1, 2, 1)
+    wide = t_inner.fused_plan(30, 70, 16, 3, 3, 40, 2, 40, 2, 3, itemsize=4)
+    assert wide.tile.tw == 64 and wide.col_segs == 1
+    segs = t_inner.fused_plan(3, 2100, 2, 1, 1, 4, 3, 2090, 1, 3, itemsize=4)
+    assert (segs.tile.th, segs.tile.tw, segs.tq) == (1, 2048, 1)
+    assert (segs.row_bands, segs.col_segs) == (3, 2)
+    with pytest.raises(ValueError, match="unknown style"):
+        t_inner.fused_plan(8, 8, 3, 3, 3, 4, 2, 2, 2, 2, itemsize=4,
+                           style="packed")
+
+
+def _conv3_tiles(xa, xb, w, plan):
+    """``conv2d_ip3_tiled_kernel``'s arithmetic and cut on the CPU: each
+    tile of ``plan`` from its staged packed pairs p = a * 2^16 + b (the
+    halo, or per (tap, chunk) the shifted tile's chunk), the products
+    p * w taken a block at a time (channels 0-1 and 2-3 of each whole
+    quad, the channels past the last quad one at a time): m = the
+    block's sum plus 32512 * (2^16 + 1), mod 2^32, into sum_m, and m's
+    high half into sum_a; at the end the b stream's biased sum is sum_m
+    - sum_a * 2^16 and both shed the bias of their blocks.  Asserts that
+    m holds both streams' biased block sums exactly.  Returns both
+    streams (int32, wrapping) and the tiles that wrote each output."""
+    n, h, w_, cin = xa.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = h - kh + 1, w_ - kw + 1
+    bias, mod = 32512, 2 ** 32
+    packed = xa.to(torch.int64) * 2 ** 16 + xb.to(torch.int64)
+    a64, b64, wl = xa.to(torch.int64), xb.to(torch.int64), w.to(torch.int64)
+    ya = torch.zeros((n, ho, wo, cout), dtype=torch.int32)
+    yb = torch.zeros_like(ya)
+    hits = torch.zeros_like(ya)
+    chunks = [(c, min(c + plan.cc, cin)) for c in range(0, cin, plan.cc)]
+    for b in range(n):
+        for h0 in range(0, ho, plan.th):
+            for w0 in range(0, wo, plan.tw):
+                for c0 in range(0, cout, plan.bc):
+                    r, c, q = (min(plan.th, ho - h0), min(plan.tw, wo - w0),
+                               min(plan.bc, cout - c0))
+                    halo = packed[b, h0:h0 + plan.th + kh - 1,
+                                  w0:w0 + plan.tw + kw - 1]
+                    sum_m = torch.zeros((r, c, q), dtype=torch.int64)
+                    sum_a = torch.zeros_like(sum_m)
+                    blocks = 0
+                    for i in range(kh):
+                        for j in range(kw):
+                            for ca, cb in chunks:
+                                rows = slice(h0 + i, h0 + i + r)
+                                cols = slice(w0 + j, w0 + j + c)
+                                box = (halo[i:i + r, j:j + c, ca:cb]
+                                       if plan.whole else
+                                       packed[b, rows, cols, ca:cb])
+                                assert box.shape == (r, c, cb - ca)
+                                n4 = (cb - ca) // 4 * 4
+                                runs = [range(k, k + 2)
+                                        for k in range(0, n4, 2)]
+                                runs += [range(k, k + 1)
+                                         for k in range(n4, cb - ca)]
+                                for run in runs:
+                                    taps = [(ca + k, k) for k in run]
+                                    wq = [wl[i, j, cc, c0:c0 + q]
+                                          for cc, _ in taps]
+                                    m = (sum(box[..., k, None] * wk for
+                                             (_, k), wk in zip(taps, wq))
+                                         + bias * (2 ** 16 + 1)) % mod
+                                    # m holds both streams' biased block
+                                    # sums, no carry between its halves
+                                    ab, bb = (sum(s_[b, rows, cols, cc, None]
+                                                  * wk for (cc, _), wk in
+                                                  zip(taps, wq)) + bias
+                                              for s_ in (a64, b64))
+                                    assert ((ab >= 0) & (ab < 2 ** 16)
+                                            & (bb >= 0) & (bb < 2 ** 16)).all()
+                                    assert torch.equal(m, ab * 2 ** 16 + bb)
+                                    sum_m = sum_m + m
+                                    sum_a = sum_a + m // 2 ** 16
+                                    blocks += 1
+                    ya[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] = _wrap32(
+                        sum_a - blocks * bias)
+                    yb[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] = _wrap32(
+                        sum_m - sum_a * 2 ** 16 - blocks * bias)
+                    hits[b, h0:h0 + r, w0:w0 + c, c0:c0 + q] += 1
+    return ya, yb, hits
+
+
+# (x, w, shared memory the plan may use): the halo whole with Cin 30 (a
+# tap's seven quads of two-pair blocks and two one-pair blocks), and a
+# small budget that chunks Cin 42 (its last chunk ends past a quad)
+CONV3_PLANS = [((1, 10, 20, 30), (3, 3, 30, 32), None),
+               ((1, 5, 7, 42), (3, 3, 42, 5), 4096)]
+
+
+def _wrap32(v):
+    """int64 -> the int32 that a wrapping 32-bit sum holds."""
+    return ((v + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+@pytest.mark.parametrize("fill", ["extreme", "random"])
+@pytest.mark.parametrize("xs,ws,smem", CONV3_PLANS, ids=["whole", "chunked"])
+def test_conv3_packed_recovery_emulation(rng, fill, xs, ws, smem):
+    """Conv3's two-pair blocks split exactly: on operands all -128 (every
+    block's stream sums at 32768, the top of the biased 16 bits) and on
+    full-range int8, the tile-by-tile recovery is bitwise
+    ``conv2d_ip3_plain``, the reference's ``conv2d_ip3`` and two
+    ``conv2d_ip1`` convs."""
+    if fill == "extreme":
+        arrs = [np.full(s, -128, np.int8) for s in (xs, xs, ws)]
+    else:
+        arrs = [rng.integers(-128, 127, s, endpoint=True).astype(np.int8)
+                for s in (xs, xs, ws)]
+    (jxa, txa), (jxb, txb), (jw, tw) = (_both(a) for a in arrs)
+    n, h, w_, cin = xs
+    kh, kw, _, cout = ws
+    kwargs = {} if smem is None else dict(smem_bytes=smem)
+    plan = t_inner.tile_plan(h, w_, cin, kh, kw, cout, itemsize=1,
+                             style="packed", **kwargs)
+    assert plan.whole == (smem is None)
+    if not plan.whole:
+        assert cin % plan.cc % 4 != 0
+    assert t_inner.tile_smem_bytes(plan, kh, kw, cin, itemsize=1,
+                                   style="packed") <= t_inner.SMEM_BYTES
+    ya, yb, hits = _conv3_tiles(txa, txb, tw, plan)
+    assert (hits == 1).all()
+    pa, pb = t_ip3.conv2d_ip3_plain(txa, txb, tw)
+    assert torch.equal(ya, pa) and torch.equal(yb, pb)
+    assert torch.equal(ya, t_ip1.conv2d_ip1_plain(txa, tw))
+    assert torch.equal(yb, t_ip1.conv2d_ip1_plain(txb, tw))
+    ja, jb = j_ip3.conv2d_ip3(jxa, jxb, jw)
+    np.testing.assert_array_equal(_np(ya), _np(ja))
+    np.testing.assert_array_equal(_np(yb), _np(jb))
+
+
+# --------------------------------------------------------------------------
 # Footprints: every ported footprint function returns the reference's
 # --------------------------------------------------------------------------
 CONV_FP_ARGS = [(1, 224, 224, 3, 3, 3, 16), (4, 111, 111, 16, 3, 3, 32),
