@@ -43,6 +43,18 @@ and prints no result):
    rounding) and, on f32, bitwise equal to the fused kernels'
    activation; the pools, the LUT and the activation on bf16
    (``bf16_elementwise_checks``: max pools and the LUT bitwise in bf16);
+   ``pool2d_window`` (``pool2d_kernel`` on ``pool_plan``'s cut) at the
+   geometries of ``POOL_CHECKS`` on f32, bf16, int8 and int32, max and
+   avg (``pool_geometry_checks``: one launch a call, max and integers
+   bitwise, float avg within 1e-6, 16-byte vectors exactly where C *
+   itemsize is a multiple of 16 and the input aligned, a misaligned int8
+   input included, NaN through max on the vector and the scalar path);
+   ``activation_lut``
+   on ``act_walk`` (``lut_walk_checks``: the launcher's split, queried
+   by ``cnn_activation_plan``, equal to ``vpu_exact.walk_plan`` at byte
+   offsets 0-15; bitwise equal to the plain version on every dtype at
+   every aligned offset and numels 0, 1, 15, a tile +-1 and 40 tiles,
+   one launch a call, NaN and +-inf on the end entries);
 4. serve  — ``AdaptiveServer(device="cuda")`` with the default CNN
    frontend answers 8 seeded 224x224x3 requests through the fused plan
    (launch counters reset just before and read just after), a
@@ -112,7 +124,11 @@ and prints no result):
    IGMMA in the int8 and HGMMA in the bf16
    tensor-core kernels, bf16 flash attention's included (``TC_SASS``),
    and every kernel of the ``kernels`` line (``KERNEL``) in the library;
-5. times  — per kernel (``conv2d_ip1`` also at block 1 and on int8 at
+5. times  — the floor of ``time_ms`` (``zero_()`` on a 1-element
+   tensor), and per kernel (``pool2d_window`` also at a batch-64 block 0
+   and at 3x3 windows of stride 1 and 2, ``activation_lut`` also on 256
+   images, ``conv2d_ip1`` also
+   at block 1 and on int8 at
    block 0, ``conv2d_ip2`` also on int8 and bf16 at block 1 (bf16
    ``F.conv2d`` beside it), the fused blocks also on bf16 (each fused
    row with its three-launch chain timed beside it, and its grid: CTAs,
@@ -1006,6 +1022,169 @@ def bf16_elementwise_checks(gen, errs):
     log("bf16: pool2d_window and pool2d_im2col (max bitwise in bf16, avg "
         "within 1e-6 in f32), activation_lut bitwise in bf16, "
         "activation_exact relu bitwise and tanh within one bf16 rounding")
+    torch.cuda.synchronize()
+
+
+# pool2d_window's checks (the geometries of tests/test_torch_kernels_cnn.py
+# ::POOL_PLANS, and larger ones): x shape, window, stride, storage offset
+# of x in elements.  C of 16, 32, 48 and 64 take 16-byte vectors in every
+# dtype, 3, 7, 17 and 33 the scalar path; 2x2 / 2, 3x3 / 1 and 2, 1x3 /
+# (1, 2), 3x3 / (1, 2), a window as large as the input, a 56x56 window
+# (784 chunks of taps), N > 1; an offset of one element (an int8 input
+# one byte past a 16-byte boundary) or three takes the scalar path too.
+POOL_CHECKS = (((2, 9, 10, 16), (2, 2), None, 0),
+               ((1, 9, 11, 3), (3, 3), (1, 1), 0),
+               ((2, 11, 9, 7), (3, 3), (2, 2), 0),
+               ((1, 8, 13, 17), (1, 3), (1, 2), 0),
+               ((2, 7, 9, 33), (2, 2), None, 0),
+               ((1, 6, 7, 16), (6, 7), None, 0),
+               ((2, 10, 10, 32), (3, 3), (1, 1), 0),
+               ((2, 9, 10, 16), (2, 2), None, 1),
+               ((2, 13, 21, 48), (3, 3), (1, 2), 1),
+               ((3, 57, 91, 48), (3, 3), (2, 2), 0),
+               ((2, 64, 64, 64), (2, 2), None, 3),
+               ((1, 60, 61, 4), (56, 56), (1, 1), 0))
+
+
+def pool_geometry_checks(gen, errs):
+    """pool2d_window (pool2d_kernel on pool_plan's cut) at POOL_CHECKS
+    in every dtype it takes, max and avg, one launch a call: max and
+    integers bitwise equal to the plain version, float avg within 1e-6;
+    the plan takes 16-byte vectors exactly where C * itemsize is a
+    multiple of 16 and the input is aligned; a NaN propagates through
+    max on both paths, with and without overlapping windows."""
+    import torch
+    from repro_torch.kernels.pool2d.ref import norm_window_stride
+    from repro_torch.kernels.pool2d.vpu_window import (
+        CUDA_DTYPES, pool2d_window, pool2d_window_plain, pool_plan)
+    dev = torch.device("cuda")
+    paths = set()
+    for dtype in CUDA_DTYPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        for xs, window, stride, off in POOL_CHECKS:
+            numel = math.prod(xs)
+            base = torch.randn(numel + off, generator=gen) * 3
+            if not dtype.is_floating_point:
+                base = (base * 40).round().clamp(-128, 127)
+            base = base.to(dtype).to(dev)
+            x = base[off:].view(xs)
+            (kh, kw), (sh, sw) = norm_window_stride(window, stride)
+            n, h, w, c = xs
+            plan = pool_plan(n, h, w, c, kh, kw, sh, sw, itemsize=size,
+                             x_addr=x.data_ptr())
+            vec = (c * size) % 16 == 0 and x.data_ptr() % 16 == 0
+            check(plan.ve == (16 // size if vec else 1),
+                  f"pool_plan {dtype} {xs} {window} +{off}: {plan}")
+            paths.add((str(dtype).split(".")[1], c, off, plan.ve))
+            for mode in ("max", "avg"):
+                got = launched_once(
+                    lambda: pool2d_window(x, window=window, stride=stride,
+                                          mode=mode),
+                    "pool2d_window",
+                    f"pool2d_window {dtype} {xs} {window} {stride} +{off} "
+                    f"{mode}")
+                compare("pool2d_window", got, pool2d_window_plain(
+                    x, window=window, stride=stride, mode=mode), 1e-6, 1e-6,
+                    errs, exact=mode == "max" or not dtype.is_floating_point)
+    for c in (16, 17):                  # the vector and the scalar path
+        x = torch.randn((1, 6, 6, c), generator=gen).to(dev)
+        x[0, 2, 3, 5] = float("nan")
+        got = pool2d_window(x)
+        check(bool(torch.isnan(got[0, 1, 1, 5]))
+              and int(torch.isnan(got).sum()) == 1,
+              f"pool2d_window C={c}: max did not propagate one NaN")
+        got = pool2d_window(x, window=(2, 2), stride=(1, 1))
+        check(bool(torch.isnan(got[0, 1:3, 2:4, 5]).all())
+              and int(torch.isnan(got).sum()) == 4,
+              f"pool2d_window C={c} 2x2 / 1: max did not propagate a NaN")
+    log(f"pool2d_window (pool2d_kernel) at {len(POOL_CHECKS)} geometries x "
+        f"{[str(d) for d in CUDA_DTYPES]} x max/avg, one launch a call: max "
+        f"and integers bitwise, float avg within 1e-6; paths (dtype, C, "
+        f"offset, ve): {sorted(paths)}")
+    torch.cuda.synchronize()
+
+
+def lut_walk_checks(gen, errs):
+    """activation_lut on act_walk: the launcher's split (the query
+    cnn_activation_plan) equal to vpu_exact.walk_plan at byte offsets
+    0-15 (misaligned ones refused by both), numels 0, 1, 15, a tile +-1
+    and more tiles than the grid; then activation_lut bitwise equal to
+    its plain version on every dtype at those offsets and numels, every
+    kind, one launch a call (numel 0: none), NaN on entry 0 and +-inf
+    on the end entries."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.activation.lut_poly import (
+        CUDA_DTYPES, RANGES, activation_lut, activation_lut_plain,
+        table_for)
+    from repro_torch.kernels.activation.ref import activation_out_dtype
+    from repro_torch.kernels.activation.vpu_exact import (THREADS, VECS,
+                                                          walk_plan)
+    dev = torch.device("cuda")
+    sms = cuda.sm_count(dev)
+    out = (ctypes.c_longlong * 4)()
+    queries = 0
+    for dtype in CUDA_DTYPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        osize = activation_out_dtype(dtype).itemsize
+        tile = THREADS * VECS * (16 // size)
+        numels = (0, 1, 15, tile - 1, tile, tile + 1, 40 * tile + 5,
+                  sms * 16 * tile + 7)
+        for off in range(16):
+            for numel in numels:
+                for yoff, cards in ((0, sms), (osize, 1)):
+                    kw = dict(itemsize=size, out_itemsize=osize,
+                              x_addr=4096 + off, y_addr=8192 + yoff,
+                              sms=cards)
+                    try:
+                        want = walk_plan(numel, **kw)
+                    except ValueError:
+                        want = None
+                    err = cuda.lib().cnn_activation_plan(
+                        cuda.DTYPE_CODE[dtype], 4096 + off, 8192 + yoff,
+                        numel, cards, out)
+                    got = None if err else (out[0], bool(out[1]), out[2],
+                                            out[3])
+                    check(got == (None if want is None else tuple(want)),
+                          f"activation walk {dtype} +{off} B numel {numel} "
+                          f"sms {cards}: C {got}, walk_plan {want}")
+                    queries += 1
+        base = torch.randn(numels[-2] + 16, generator=gen) * 5
+        base[:3] = torch.tensor([float("nan"), float("inf"),
+                                 -float("inf")])
+        if not dtype.is_floating_point:
+            base = (base.nan_to_num(0.0, 0.0, 0.0) * 20).round().clamp(
+                -128, 127)
+        base = base.to(dtype).to(dev)
+        for off in range(0, 16, size):
+            for numel in numels[:-1]:
+                x = base[off // size:off // size + numel]
+                check(numel == 0 or x.data_ptr() % 16 == off,
+                      "LUT input offset")
+                for kind in sorted(RANGES):
+                    what = f"activation_lut {dtype} +{off} B {numel} {kind}"
+                    if numel == 0:
+                        cuda.reset_launches()
+                        check(activation_lut(x, kind=kind).numel() == 0
+                              and cuda.launch_counts() == {}, what)
+                        continue
+                    got = launched_once(lambda: activation_lut(x, kind=kind),
+                                        "activation_lut", what)
+                    compare("activation_lut", got,
+                            activation_lut_plain(x, kind=kind), 0, 0, errs,
+                            exact=True)
+                    if dtype.is_floating_point and off == 0 and numel > 2:
+                        ends = table_for(kind, dev)[[0, 255, 0]].to(
+                            got.dtype)
+                        check(torch.equal(got[:3], ends),
+                              f"{what}: NaN / +inf / -inf not on entries "
+                              f"0 / 255 / 0")
+    log(f"activation_lut (activation_lut_kernel on act_walk): the C split "
+        f"equals walk_plan in {queries} queries; bitwise equal to the plain "
+        f"version on {[str(d) for d in CUDA_DTYPES]} at every aligned "
+        f"byte offset 0-15, numels 0, 1, 15, a tile +-1 and 40 tiles, "
+        f"every kind, NaN / +-inf on the end entries")
     torch.cuda.synchronize()
 
 
@@ -2524,6 +2703,28 @@ def timings(shapes, gen, peaks, lib):
         plain_ms=time_ms(lambda: pool2d_window_plain(y0)),
         library_ms=time_ms(lambda: F.max_pool2d(y0.permute(0, 3, 1, 2), 2)),
         bound_ms=b_ms, bound_by=by, shape=f"x{tuple(y0.shape)} max 2x2")
+    # beside the served row: a batch-64 block 0, beyond the 50 MB L2, and
+    # the overlapping 3x3 / 1 and 3x3 / 2 windows at the served shape
+    # (their overlap served by L1 and L2; bound: each input read once)
+    big = torch.Generator().manual_seed(SEED)
+    xl = torch.randn((64, 222, 222, 16), generator=big).to(dev)
+    for name, x, window, stride in (
+            ("pool2d_window (large)", xl, (2, 2), (2, 2)),
+            ("pool2d_window (3x3 s1)", y0, (3, 3), (1, 1)),
+            ("pool2d_window (3x3 s2)", y0, (3, 3), (2, 2))):
+        y = pool2d_window(x, window=window, stride=stride)
+        b_ms, by = bound(nbytes(x, y), window[0] * window[1] * y.numel())
+        rows[name] = dict(
+            ms=time_ms(lambda: pool2d_window(x, window=window,
+                                             stride=stride)),
+            plain_ms=time_ms(lambda: pool2d_window_plain(
+                x, window=window, stride=stride)),
+            library_ms=time_ms(lambda: F.max_pool2d(
+                x.permute(0, 3, 1, 2), window, stride)),
+            bound_ms=b_ms, bound_by=by,
+            shape=f"x{tuple(x.shape)} max {window[0]}x{window[1]} stride "
+                  f"{stride}")
+    del xl, y
     a0 = activation_exact(p0)
     b_ms, by = bound(nbytes(p0, a0), p0.numel())
     rows["activation_exact"] = dict(
@@ -2607,6 +2808,21 @@ def timings(shapes, gen, peaks, lib):
         shape=f"x{tuple(xa.shape)} tanh",
         yardstick=("torch.tanh (the exact function)",
                    time_ms(lambda: torch.tanh(xa))))
+    # beside the served row: 256 images of the served block (95.6 MB in,
+    # as much out)
+    xal = torch.randn((256, 54, 54, 32), generator=big).to(dev) * 2
+    yal = activation_lut(xal, kind="tanh")
+    check(torch.equal(yal, activation_lut_plain(xal, kind="tanh")),
+          "activation_lut (large): not bitwise equal to the plain version")
+    b_ms, by = bound(nbytes(xal, yal) + 256 * 4, 4 * xal.numel())
+    rows["activation_lut (large)"] = dict(
+        ms=time_ms(lambda: activation_lut(xal, kind="tanh")),
+        plain_ms=time_ms(lambda: activation_lut_plain(xal, kind="tanh")),
+        library_ms=None, bound_ms=b_ms, bound_by=by,
+        shape=f"x{tuple(xal.shape)} tanh",
+        yardstick=("torch.tanh (the exact function)",
+                   time_ms(lambda: torch.tanh(xal))))
+    del xal, yal
     xp = torch.randn((4, 222, 222, 16), generator=gen).to(dev)
     yp = pool2d_im2col(xp, mode="avg")
     b_ms, by = bound(nbytes(xp, yp), 4 * yp.numel())
@@ -3259,6 +3475,8 @@ def main() -> int:
     activation_checks(gen, errs)
     bf16_elementwise_checks(gen, errs)
     conv4_ragged_checks(shapes, torch.Generator().manual_seed(SEED), errs)
+    pool_geometry_checks(torch.Generator().manual_seed(SEED), errs)
+    lut_walk_checks(torch.Generator().manual_seed(SEED), errs)
 
     ladder_kernel_checks(gen, errs)
 
@@ -3289,6 +3507,9 @@ def main() -> int:
 
     # 5. times
     rows = timings(shapes, gen, peaks, lib)
+    one = torch.zeros(1, device="cuda")
+    log(f"time_ms floor: zero_() on a 1-element CUDA tensor "
+        f"{time_ms(lambda: one.zero_()) * 1e3:.3f} us on {card}")
     rows.update(lm_timings(lm_ops, peaks))
     del lm_ops
     srv, rounds, walls = served_rate(requests)
@@ -3296,13 +3517,13 @@ def main() -> int:
     rates = sorted(n / w for w in walls)
     for name, r in rows.items():
         lib_t = ("-" if r["library_ms"] is None
-                 else f"{r['library_ms'] * 1e3:.1f} us")
+                 else f"{r['library_ms'] * 1e3:.3f} us")
         if "library" in r:
             lib_t += f" ({r['library']})"
         extra = ""
         if "yardstick" in r:
             extra = (f", yardstick {r['yardstick'][0]} "
-                     f"{r['yardstick'][1] * 1e3:.1f} us")
+                     f"{r['yardstick'][1] * 1e3:.3f} us")
         if "fp32_bound_ms" in r:
             extra += f", FP32-rate bound {r['fp32_bound_ms'] * 1e3:.1f} us"
         if "yardstick2" in r:
@@ -3314,7 +3535,7 @@ def main() -> int:
             extra += (f", exponentials {r['exp_bound_ms'] * 1e3:.1f} us at "
                       f"the MUFU rate")
         kern = f" ({KERNEL[name]})" if name in KERNEL else ""
-        log(f"{name}{kern} [{r['shape']}]: {r['ms'] * 1e3:.1f} us, plain "
+        log(f"{name}{kern} [{r['shape']}]: {r['ms'] * 1e3:.3f} us, plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}{extra}, bound "
             f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) on {card}")
     log(f"served {statistics.median(rates):.1f} requests/s, median of "

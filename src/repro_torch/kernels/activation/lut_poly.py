@@ -4,10 +4,15 @@ Replaces ``repro/kernels/activation/lut_poly.py::activation_lut``.  The
 input is rounded onto a 256-level grid over the activation's saturation
 range ``[-r, r]`` and the nonlinearity becomes one table lookup; only
 saturating kinds are supported.  The kernel
-(``activation_lut_kernel`` in ``csrc/cnn_kernels.cu``) stages the table
-in shared memory and runs one thread per element; it computes the index
-with the same f32 operations as the plain version, ``(x + r) * s``
-rounded half to even, so the two agree bitwise on the card.
+(``activation_lut_kernel`` in ``csrc/cnn_kernels.cu``) is bound by
+device memory: it runs ``activation_exact``'s walk (``act_walk``,
+split as ``vpu_exact.walk_plan`` mirrors: 16-byte vectors, a grid of
+whole waves of the card's SMs, head and tail in the same launch), and
+each CTA copies the 1 KB table into shared memory once, while its first
+tile's loads are in flight, then gathers every element's entry there.
+It computes the index with the same f32 operations as the plain
+version, ``(x + r) * s`` rounded half to even, so the two agree bitwise
+on the card.
 
 NaN lands on entry 0 and +-inf on the end entries, as in the reference:
 the index is clamped below at 0 before the NaN check can see it.  The
@@ -95,7 +100,8 @@ def activation_lut(x: torch.Tensor, *, kind: str = "tanh",
         return y
     cuda.launch("activation_lut", "cnn_activation_lut", x.device,
                 cuda.DTYPE_CODE[x.dtype], x.data_ptr(), table.data_ptr(),
-                y.data_ptr(), x.numel(), RANGES[kind], lut_scale(kind))
+                y.data_ptr(), x.numel(), RANGES[kind], lut_scale(kind),
+                cuda.sm_count(x.device))
     return y
 
 

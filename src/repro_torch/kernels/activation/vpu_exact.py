@@ -1,20 +1,23 @@
 """Act1 — exact elementwise activation (full-precision IP).
 
 Replaces ``repro/kernels/activation/vpu_exact.py::activation_exact``.
-The kernel (``activation_kernel`` in ``csrc/cnn_kernels.cu``) reads
-16-byte vectors, several in flight a thread, over a grid of whole
-waves of the card's SMs that walks the tensor, and stores them as
-16-byte vectors where the output meets a 16-byte boundary at the same
-element as the input (always, for an aligned input); the elements
-before the input's first 16-byte boundary and after its last whole
-vector run one a thread in the same launch.  Each
-element goes through the shared ``__device__`` ``activate`` in f32
+The kernel (``activation_kernel`` in ``csrc/cnn_kernels.cu``) runs the
+walk it shares with the LUT activation (``act_walk``): 16-byte vectors,
+several in flight a thread, over a grid of whole waves of the card's
+SMs that walks the tensor, stored as 16-byte vectors where the output
+meets a 16-byte boundary at the same element as the input (always, for
+an aligned input); the elements before the input's first 16-byte
+boundary and after its last whole vector run one a thread in the same
+launch.  ``walk_plan`` mirrors the launcher's split (``act_split``).
+Each element goes through the shared ``__device__`` ``activate`` in f32
 (``expf``/``tanhf``, no fast-math intrinsics) — the same function the
 fused members apply — and a bf16 result is rounded once, to nearest
 even.  The ``block_rows`` hint is validated as in the reference and
 priced by the footprint; it does not shape the grid.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +32,38 @@ OP_COST = {"relu": 1, "relu6": 2, "sigmoid": 10, "tanh": 12, "gelu": 15}
 
 # input dtypes the CUDA kernel takes
 CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32)
+# act_walk's CTA (kThreads), the vectors a thread loads at once
+# (kActVecs) and the CTAs an SM the grid holds at most (kActCtasPerSm)
+THREADS = 256
+VECS = 2
+CTAS_PER_SM = 16
+
+
+class WalkPlan(NamedTuple):
+    """``act_split``'s split of an activation launch: ``head`` elements
+    one a thread before the input's first 16-byte boundary, then the
+    whole 16-byte vectors in ``tiles`` tiles of ``THREADS * VECS``,
+    walked by ``grid`` CTAs a grid apart (stored as vectors where
+    ``vstore``), then the tail one a thread."""
+    head: int
+    vstore: bool
+    tiles: int
+    grid: int
+
+
+def walk_plan(numel: int, *, itemsize: int, out_itemsize: int,
+              x_addr: int, y_addr: int, sms: int) -> WalkPlan:
+    """The split ``cnn_activation`` and ``cnn_activation_lut`` launch for
+    ``numel`` elements of ``itemsize`` bytes at ``x_addr`` into
+    ``out_itemsize``-byte outputs at ``y_addr`` on a card of ``sms``
+    SMs (the query ``cnn_activation_plan`` returns the C rule's)."""
+    if x_addr % itemsize or y_addr % out_itemsize:
+        raise ValueError("the activations take inputs and outputs aligned "
+                         "to their element")
+    head = min(numel, (16 - x_addr % 16) % 16 // itemsize)
+    tiles = -(-((numel - head) // (16 // itemsize)) // (THREADS * VECS))
+    return WalkPlan(head, (y_addr + head * out_itemsize) % 16 == 0, tiles,
+                    max(1, min(tiles, sms * CTAS_PER_SM)))
 
 
 def activation_exact_plain(x: torch.Tensor, *,

@@ -12,11 +12,12 @@
 // int32.  The tiled kernels (Conv1's, Conv2's, which Conv4 runs with two
 // streams, Conv3's and the fused block, which runs Conv1's or Conv2's
 // staging and chain) tile outputs and stage their inputs in shared
-// memory; activation_kernel walks 16-byte vectors; every other kernel
-// maps one thread to one output element.  The channel tiling hints
-// (block_cout / block_c) shape the grid and the kernels mask the ragged
-// edge, so results never depend on them.  The activations' block_rows
-// hints are validated and do not shape a grid.
+// memory; pool2d_kernel and the two activation kernels walk 16-byte
+// vectors; pool2d_im2col_kernel maps one thread to one output element.
+// The channel tiling hints (block_cout, and block_c of the im2col pool)
+// shape the grid and the kernels mask the ragged edge, so results never
+// depend on them.  pool2d_kernel's block_c and the activations'
+// block_rows hints are validated and do not shape a grid.
 //
 // Kernel notes (what each replaces, what bounds it on the H100, and what
 // this design does about it):
@@ -68,17 +69,30 @@
 //   Each stream's chain is Conv2's, so each stream is bitwise equal to a
 //   conv2d_ip2 launch.
 //
-// pool2d_kernel<T, V, O>  replaces src/repro/kernels/pool2d/vpu_window.py::pool2d_window
+// pool2d_kernel<T, V, O, MODE, VE>  replaces src/repro/kernels/pool2d/vpu_window.py::pool2d_window
 //   kh*kw compares or adds per output (reduced in V: f32 for f32 and bf16,
 //   int32 for integers; bf16 max stored as bf16, exactly): bound by device
-//   memory.  One thread
-//   per output, neighbouring threads on neighbouring channels, so loads
-//   and stores coalesce along C.
+//   memory, each input read once and each output written once.  A thread
+//   owns VE channels, one 16-byte vector of input (4 f32 or int32, 8
+//   bf16, 16 int8), of kPoolOuts outputs of one output row, lanes apart,
+//   so a warp's loads and stores are 16-byte vectors on neighbouring
+//   addresses; it issues the loads of kPoolTaps taps (a whole 2x2
+//   window) for both outputs before it reduces any, and its (image, row,
+//   lane, channel vector) split is three 32-bit divisions once a thread
+//   (pool_plan's cut, WindowPlan).  Stores are 16-byte vectors of O (bf16
+//   avg: two, int8 avg: four a vector).  Where C * sizeof(T) is no
+//   multiple of 16 or x or y is not 16-byte aligned, VE is 1 (the scalar
+//   path, the same code).  Each element takes its taps i-major from
+//   (0, 0) through window_step, window_reduce's order, as the fused
+//   kernel pools.  Overlapping windows (a stride below the window) read
+//   an input up to kh*kw times, through L1 and L2; a probe of a
+//   shared-memory band staged once a CTA was no faster on the H100.
 //
 // activation_kernel<T, KIND>  replaces src/repro/kernels/activation/vpu_exact.py::activation_exact
 //   A few flops per element (tanh/gelu a few tens): bound by device
 //   memory, and at the served (4,111,111,16) by the launch and one
-//   memory round trip.  16-byte vector loads and stores (4 f32 or int32,
+//   memory round trip.  The walk it shares with the LUT (act_walk):
+//   16-byte vector loads and stores (4 f32 or int32,
 //   8 bf16, 16 int8 a load), kActVecs of them a thread loaded before any
 //   is converted, in tiles that the CTAs walk a grid apart; the elements
 //   before the input's first 16-byte boundary and after its last whole
@@ -91,11 +105,14 @@
 //
 // activation_lut_kernel<T>  replaces src/repro/kernels/activation/lut_poly.py::activation_lut
 //   One f32 index computation and one table read per element (bf16 in,
-//   the f32 entry rounded to bf16 out; other inputs give f32):
-//   bound by device memory (the 1 KB table stays on chip).  Each block
-//   first copies the 256-entry table into shared memory, so the gather
-//   never leaves the SM; then one thread per element, neighbouring
-//   threads on neighbouring addresses.  The index is
+//   the f32 entry rounded to bf16 out; other inputs give f32): bound by
+//   device memory (the 1 KB table stays on chip).  activation_kernel's
+//   walk (act_walk: 16-byte vectors, kActVecs a thread in flight, a grid
+//   of whole waves, head and tail in the same launch); each CTA issues
+//   its first tile's loads, then copies the 256-entry table into shared
+//   memory and meets the barrier while they are in flight, and gathers
+//   every element's entry there (an __ldg gather from L1, probed
+//   instead, measured no faster).  The index is
 //   rintf(__fmul_rn(__fadd_rn(x, r), s)) (rint: half to even, as
 //   jnp.round), clamped fmaxf(.., 0) first so NaN lands on entry 0.
 //
@@ -658,24 +675,169 @@ conv2d_mxu_tiled_kernel(Streams<T, NS> io, const T* __restrict__ w,
   }
 }
 
-// V: the reduce type (f32 or int32); O: the stored type.
-template <typename T, typename V, typename O>
-__global__ void pool2d_kernel(const T* __restrict__ x, O* __restrict__ y,
-                              int N, int H, int W, int C, int KH, int KW,
-                              int SH, int SW, int Ho, int Wo, int mode,
-                              int bc) {
-  Slot t = slot((long long)N * Ho * Wo, C, bc);
-  if (!t.live) return;
-  int ow = int(t.p % Wo);
-  long long r = t.p / Wo;
-  int oh = int(r % Ho);
-  int n = int(r / Ho);
-  const T* base = x + ((size_t(n) * H + size_t(oh) * SH) * W +
-                       size_t(ow) * SW) * C + t.co;
-  auto load = [&](int i, int j) -> V {
-    return widen<V>(base[(size_t(i) * W + j) * C]);
-  };
-  y[t.p * C + t.co] = narrow<O>(window_reduce<V>(load, KH, KW, mode));
+// VE elements of T as one load: a 16-byte vector where VE * sizeof(T)
+// is 16, T itself where VE is 1 (the pools' scalar path).
+template <typename T, int VE>
+struct RawOf {
+  using type = uint4;
+};
+template <typename T>
+struct RawOf<T, 1> {
+  using type = T;
+};
+
+template <typename T, int VE>
+__device__ __forceinline__ typename RawOf<T, VE>::type load_raw(const T* p) {
+  if constexpr (VE == 1) {
+    return *p;
+  } else {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+}
+
+// The VE elements of a load, widened to V (bf16 to f32 by its 16-bit
+// shift, as widen does, on the load's 32-bit words).
+template <typename V, typename T, int VE>
+__device__ __forceinline__ void unpack(typename RawOf<T, VE>::type r,
+                                       V (&v)[VE]) {
+  if constexpr (VE == 1) {
+    v[0] = widen<V>(r);
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  } else {
+    union { uint4 q; T e[VE]; } a;
+    a.q = r;
+#pragma unroll
+    for (int k = 0; k < VE; ++k) v[k] = widen<V>(a.e[k]);
+  }
+}
+
+// VE reduced elements stored as O: 16-byte vectors where they fill
+// whole 16-byte words (the pools' vector path), else one by one.
+template <typename O, typename V, int VE>
+__device__ __forceinline__ void store_out(O* p, const V (&v)[VE], int kh,
+                                          int kw, int mode) {
+  constexpr int kBytes = VE * int(sizeof(O));
+  if constexpr (VE > 1 && kBytes % 16 == 0) {
+    union { uint4 q[kBytes / 16]; O e[VE]; } b;
+#pragma unroll
+    for (int k = 0; k < VE; ++k) {
+      b.e[k] = narrow<O>(window_end(v[k], kh, kw, mode));
+    }
+#pragma unroll
+    for (int w = 0; w < kBytes / 16; ++w) {
+      reinterpret_cast<uint4*>(p)[w] = b.q[w];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VE; ++k) {
+      p[k] = narrow<O>(window_end(v[k], kh, kw, mode));
+    }
+  }
+}
+
+// pool2d_kernel: outputs a thread covers along a row (at most), and the
+// window taps whose loads it issues before it reduces them.
+constexpr int kPoolOuts = 2;
+constexpr int kPoolTaps = 4;
+
+// The cut of pool2d_kernel, made by the wrapper
+// (kernels/pool2d/vpu_window.py::pool_plan) and checked by cnn_pool2d: a
+// thread owns ve channels (16 bytes of input, or 1 on the scalar path)
+// of outs outputs of one output row, ow = q, q + lanes, ..; cv = C / ve
+// threads cover a pixel's channels, lanes * cv an output row, and the
+// CTAs of kThreads threads the N * Ho rows in order.
+struct WindowPlan {
+  int ve, outs, lanes, cv;
+};
+
+// V: the reduce type (f32 or int32); O: the stored type; VE: the
+// elements a thread owns (16 / sizeof(T), or 1 on the scalar path).
+// Thread g of the grid takes row g / (lanes * cv), then its lane and
+// channel vector: three 32-bit divisions a thread, none an output.  The
+// taps are loaded kPoolTaps at a time (all taps of a 2x2 window at
+// once) for each of the thread's outputs, then taken in i-major order
+// from (0, 0) through window_step, each element on its own: the
+// reduction order of window_reduce.
+template <typename T, typename V, typename O, int MODE, int VE>
+__global__ void __launch_bounds__(kThreads)
+pool2d_kernel(const T* __restrict__ x, O* __restrict__ y, int N, int H,
+              int W, int C, int KH, int KW, int SH, int SW, int Ho, int Wo,
+              WindowPlan wp) {
+  using Raw = typename RawOf<T, VE>::type;
+  const unsigned g = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned per_row = unsigned(wp.lanes) * unsigned(wp.cv);
+  const unsigned row = g / per_row;
+  if (row >= unsigned(N) * unsigned(Ho)) return;
+  const unsigned rem = g - row * per_row;
+  const int q = int(rem / unsigned(wp.cv));
+  const int c0 = (int(rem) - q * wp.cv) * VE;
+  const int n = int(row / unsigned(Ho)), oh = int(row) - n * Ho;
+  const T* xr = x + (size_t(n) * H + size_t(oh) * SH) * W * C + c0;
+  const int pitch = W * C, step = SW * C, taps = KH * KW;
+  int ox[kPoolOuts];
+  bool live[kPoolOuts];
+#pragma unroll
+  for (int k = 0; k < kPoolOuts; ++k) {
+    const int ow = q + k * wp.lanes;
+    live[k] = k < wp.outs && ow < Wo;
+    ox[k] = ow * step;
+  }
+  V acc[kPoolOuts][VE];
+#pragma unroll
+  for (int k = 0; k < kPoolOuts; ++k) {
+#pragma unroll
+    for (int e = 0; e < VE; ++e) acc[k][e] = V(0);
+  }
+  int i = 0, j = 0;        // the next tap to reduce
+  for (int t0 = 0; t0 < taps; t0 += kPoolTaps) {
+    Raw in[kPoolTaps][kPoolOuts];
+    int li = i, lj = j;    // the next tap to load
+#pragma unroll
+    for (int u = 0; u < kPoolTaps; ++u) {
+      const int off = li * pitch + lj * C;
+#pragma unroll
+      for (int k = 0; k < kPoolOuts; ++k) {
+        if (live[k] && t0 + u < taps) {
+          in[u][k] = load_raw<T, VE>(xr + ox[k] + off);
+        }
+      }
+      if (++lj == KW) {
+        lj = 0;
+        ++li;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPoolTaps; ++u) {
+#pragma unroll
+      for (int k = 0; k < kPoolOuts; ++k) {
+        if (live[k] && t0 + u < taps) {
+          V v[VE];
+          unpack<V, T, VE>(in[u][k], v);
+#pragma unroll
+          for (int e = 0; e < VE; ++e) {
+            acc[k][e] = window_step(acc[k][e], v[e], i, j, MODE);
+          }
+        }
+      }
+      if (++j == KW) {
+        j = 0;
+        ++i;
+      }
+    }
+  }
+  O* yr = y + (size_t(row) * Wo + q) * C + c0;
+#pragma unroll
+  for (int k = 0; k < kPoolOuts; ++k) {
+    if (live[k]) {
+      store_out<O>(yr + size_t(k) * wp.lanes * C, acc[k], KH, KW, MODE);
+    }
+  }
 }
 
 // An activation's output type: bf16 stays bf16, every other input
@@ -695,41 +857,49 @@ __device__ __forceinline__ typename ActOut<T>::type act_one(T v) {
   return narrow<typename ActOut<T>::type>(activate(widen<float>(v), KIND));
 }
 
-// Elements [head, head + nvec * VE) as 16-byte vectors (VE = 16 /
-// sizeof(T) elements; x + head is 16-byte aligned, as cnn_activation
+// The walk of both activation kernels: y[k] = one(x[k]) for every k <
+// numel.  Elements [head, head + nvec * VE) go as 16-byte vectors (VE =
+// 16 / sizeof(T) elements; x + head is 16-byte aligned, as act_split
 // works out head), in tiles of kThreads * kActVecs vectors: a CTA's
 // threads load a tile's kActVecs vectors each (kThreads apart, so every
 // load instruction is coalesced) before any is converted, and the CTAs
-// walk the tiles a grid apart.  A vector's results are stored as OW
-// 16-byte vectors where y + head is 16-byte aligned too (vstore), else
-// element by element.  The head (before x's first 16-byte boundary) and
-// the tail (after the last whole vector) go element by element, in the
-// same launch.
-template <typename T, int KIND>
-__global__ void __launch_bounds__(kThreads)
-activation_kernel(const T* __restrict__ x,
-                  typename ActOut<T>::type* __restrict__ y, long long numel,
-                  int head, bool vstore) {
-  using O = typename ActOut<T>::type;
+// walk the tiles a grid apart, each loading its next tile once the
+// current one is stored.  A vector's results are stored as OW 16-byte
+// vectors where y + head is 16-byte aligned too (vstore), else element
+// by element.  ready() runs in every thread once the CTA's first tile
+// is in flight (the LUT stages its table there); then the head (before
+// x's first 16-byte boundary) and the tail (after the last whole
+// vector) go element by element, in the same launch.
+template <typename T, typename O, typename Ready, typename One>
+__device__ __forceinline__ void act_walk(const T* __restrict__ x,
+                                         O* __restrict__ y, long long numel,
+                                         int head, bool vstore, Ready ready,
+                                         One one) {
   constexpr int VE = 16 / int(sizeof(T));
   constexpr int OW = VE * int(sizeof(O)) / 16;    // 16-byte stores a vector
   constexpr int kTile = kThreads * kActVecs;
   const long long nvec = (numel - head) / VE;
   const long long tail0 = head + nvec * VE;
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g < head) y[g] = act_one<T, KIND>(x[g]);
-  if (g < numel - tail0) y[tail0 + g] = act_one<T, KIND>(x[tail0 + g]);
   const long long tiles = (nvec + kTile - 1) / kTile;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const uint4* xt = reinterpret_cast<const uint4*>(x + head) + tile * kTile;
-    O* ye = y + head + tile * kTile * VE;
-    const int n = int(min((long long)kTile, nvec - tile * kTile));
-    uint4 in[kActVecs];
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  uint4 in[kActVecs];
+  auto load = [&](long long tile) {
+    const long long n = nvec - tile * kTile;
 #pragma unroll
     for (int u = 0; u < kActVecs; ++u) {
       const int v = threadIdx.x + u * kThreads;
-      if (v < n) in[u] = xt[v];
+      if (v < n) in[u] = xv[tile * kTile + v];
     }
+  };
+  long long tile = blockIdx.x;
+  if (tile < tiles) load(tile);
+  ready();
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g < head) y[g] = one(x[g]);
+  if (g < numel - tail0) y[tail0 + g] = one(x[tail0 + g]);
+  for (; tile < tiles; tile += gridDim.x) {
+    O* ye = y + head + tile * kTile * VE;
+    const int n = int(min((long long)kTile, nvec - tile * kTile));
 #pragma unroll
     for (int u = 0; u < kActVecs; ++u) {
       const int v = threadIdx.x + u * kThreads;
@@ -738,7 +908,7 @@ activation_kernel(const T* __restrict__ x,
         union { uint4 q[OW]; O e[VE]; } b;
         a.q = in[u];
 #pragma unroll
-        for (int k = 0; k < VE; ++k) b.e[k] = act_one<T, KIND>(a.e[k]);
+        for (int k = 0; k < VE; ++k) b.e[k] = one(a.e[k]);
         if (vstore) {
           uint4* yt = reinterpret_cast<uint4*>(ye) + v * OW;
 #pragma unroll
@@ -749,25 +919,45 @@ activation_kernel(const T* __restrict__ x,
         }
       }
     }
+    if (tile + gridDim.x < tiles) load(tile + gridDim.x);
   }
 }
 
-// One thread per element; the block stages the table in shared memory.
+// activate() of KIND on every element (act_walk).
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads)
+activation_kernel(const T* __restrict__ x,
+                  typename ActOut<T>::type* __restrict__ y, long long numel,
+                  int head, bool vstore) {
+  act_walk(x, y, numel, head, vstore, [] {},
+           [](T v) { return act_one<T, KIND>(v); });
+}
+
+// The table entry of every element (act_walk): index rintf((x + r) * s)
+// clamped to [0, 255], fmaxf first so NaN lands on entry 0.  The CTA
+// stages the table in shared memory once its first tile is in flight
+// and gathers from there.
 template <typename T>
-__global__ void activation_lut_kernel(const T* __restrict__ x,
-                                      const float* __restrict__ table,
-                                      typename ActOut<T>::type* __restrict__ y,
-                                      long long numel, float r, float s) {
+__global__ void __launch_bounds__(kThreads)
+activation_lut_kernel(const T* __restrict__ x,
+                      const float* __restrict__ table,
+                      typename ActOut<T>::type* __restrict__ y,
+                      long long numel, int head, bool vstore, float r,
+                      float s) {
+  using O = typename ActOut<T>::type;
   __shared__ float lut[kTableSize];
-  for (int k = threadIdx.x; k < kTableSize; k += blockDim.x) {
-    lut[k] = table[k];
-  }
-  __syncthreads();
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= numel) return;
-  float q = rintf(__fmul_rn(__fadd_rn(widen<float>(x[i]), r), s));
-  q = fminf(fmaxf(q, 0.0f), float(kTableSize - 1));   // NaN -> 0
-  y[i] = narrow<typename ActOut<T>::type>(lut[int(q)]);
+  auto stage = [&] {
+    for (int k = threadIdx.x; k < kTableSize; k += kThreads) {
+      lut[k] = __ldg(table + k);
+    }
+    __syncthreads();
+  };
+  auto one = [&](T v) -> O {
+    float q = rintf(__fmul_rn(__fadd_rn(widen<float>(v), r), s));
+    const int k = int(fminf(fmaxf(q, 0.0f), float(kTableSize - 1)));
+    return narrow<O>(lut[k]);
+  };
+  act_walk(x, y, numel, head, vstore, stage, one);
 }
 
 // The taps in stacked order (i-major): max over them, or their sum and
@@ -1293,6 +1483,37 @@ int conv_tiled(int style, int ns, int dtype, const void* const* x,
 #undef CNN_VPU
 }
 
+// act_walk's split of a launch over numel elements of dtype: head, the
+// elements before x's first 16-byte boundary, from x's address; vstore,
+// whether y + head is 16-byte aligned too; the tiles of kThreads *
+// kActVecs whole vectors; and the grid: kActCtasPerSm whole waves of the
+// card's `sms` SMs, or one CTA a tile where the tensor has fewer tiles
+// (at least one).  Refuses a dtype the activations do not take and an
+// input or output not aligned to its element.
+struct ActSplit {
+  long long head, tiles, grid;
+  bool vstore;
+};
+
+inline int act_split(int dtype, const void* x, const void* y,
+                     long long numel, int sms, ActSplit& sp) {
+  const int size = dtype == kF32 || dtype == kI32 ? 4 : dtype == kBF16 ? 2
+                   : dtype == kI8 ? 1 : 0;
+  const int osize = dtype == kBF16 ? 2 : 4;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t ya = reinterpret_cast<uintptr_t>(y);
+  if (size == 0 || numel < 0 || sms < 1 || xa % size != 0 ||
+      ya % osize != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  sp.head = std::min(numel, (long long)((16 - xa % 16) % 16) / size);
+  sp.vstore = (ya + sp.head * osize) % 16 == 0;
+  const long long nvec = (numel - sp.head) / (16 / size);
+  sp.tiles = (nvec + kThreads * kActVecs - 1) / (kThreads * kActVecs);
+  sp.grid = std::max(1LL, std::min(sp.tiles, (long long)sms * kActCtasPerSm));
+  return 0;
+}
+
 }  // namespace cnn
 
 using namespace cnn;
@@ -1319,61 +1540,90 @@ int cnn_conv1(int dtype, const void* x, const void* w, void* y, int N, int H,
                     glog, twlog, th, cc, whole, stream);
 }
 
+// pool_vpu (pool2d_window) on the cut of vpu_window.py::pool_plan: ve
+// elements a thread (16 / sizeof(T) where C * sizeof(T) is a multiple of
+// 16 and x and y are 16-byte aligned, else 1), outs outputs a thread
+// lanes apart along a row, ctas CTAs.  Refuses a plan that does not
+// cover the output exactly or a geometry past 32-bit index math.
 int cnn_pool2d(int dtype, int mode, const void* x, void* y, int N, int H,
-               int W, int C, int KH, int KW, int SH, int SW, int bc,
-               void* stream) {
-  int Ho = (H - KH) / SH + 1, Wo = (W - KW) / SW + 1;
-  dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (C + bc - 1) / bc);
-  cudaStream_t st = cudaStream_t(stream);
-#define CNN_POOL(T, V, O)                                                  \
-  pool2d_kernel<T, V, O><<<grid, kThreads, 0, st>>>(                       \
-      (const T*)x, (O*)y, N, H, W, C, KH, KW, SH, SW, Ho, Wo, mode, bc)
-  if (dtype == kF32) {
-    CNN_POOL(float, float, float);
-  } else if (dtype == kBF16 && mode == kMax) {
-    CNN_POOL(__nv_bfloat16, float, __nv_bfloat16);
-  } else if (dtype == kBF16 && mode == kAvg) {
-    CNN_POOL(__nv_bfloat16, float, float);
-  } else if (dtype == kI8 && mode == kMax) {
-    CNN_POOL(int8_t, int32_t, int8_t);
-  } else if (dtype == kI8 && mode == kAvg) {
-    CNN_POOL(int8_t, int32_t, int32_t);
-  } else if (dtype == kI32) {
-    CNN_POOL(int32_t, int32_t, int32_t);
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-#undef CNN_POOL
-  return int(cudaGetLastError());
-}
-
-// activation_exact: head, the elements before x's first 16-byte
-// boundary, is worked out here from x's address; y + head takes 16-byte
-// stores where it is 16-byte aligned too.  The grid is kActCtasPerSm
-// whole waves of the card's `sms` SMs, or one CTA a tile where the
-// tensor has fewer tiles.
-int cnn_activation(int dtype, int kind, const void* x, void* y,
-                   long long numel, int sms, void* stream) {
+               int W, int C, int KH, int KW, int SH, int SW, int ve,
+               int outs, int lanes, long long ctas, void* stream) {
   const int size = dtype == kF32 || dtype == kI32 ? 4 : dtype == kBF16 ? 2
                    : dtype == kI8 ? 1 : 0;
-  const int osize = dtype == kBF16 ? 2 : 4;
-  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  if (size == 0 || kind < kRelu || kind > kGelu || numel < 0 || sms < 1 ||
-      xa % size != 0 || reinterpret_cast<uintptr_t>(y) % osize != 0) {
+  if (size == 0 || (mode != kMax && mode != kAvg) || N < 1 || C < 1 ||
+      KH < 1 || KW < 1 || SH < 1 || SW < 1 || KH > H || KW > W ||
+      (long long)H * W * C > 0x7fffffffLL) {
     return int(cudaErrorInvalidValue);
   }
-  const long long head = std::min(numel, (long long)((16 - xa % 16) % 16) /
-                                             size);
-  const bool vstore =
-      (reinterpret_cast<uintptr_t>(y) + head * osize) % 16 == 0;
-  const long long per_tile = (long long)kThreads * kActVecs * (16 / size);
-  const long long tiles = (numel - head + per_tile - 1) / per_tile;
-  const long long grid =
-      std::max(1LL, std::min(tiles, (long long)sms * kActCtasPerSm));
+  const int Ho = (H - KH) / SH + 1, Wo = (W - KW) / SW + 1;
+  const bool vec = ve == 16 / size;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  if (!(ve == 1 || (vec && C % ve == 0 && aligned)) || outs < 1 ||
+      outs > kPoolOuts || lanes < 1 || (long long)lanes * outs < Wo ||
+      (long long)(lanes - 1) * outs >= Wo) {
+    return int(cudaErrorInvalidValue);
+  }
+  const WindowPlan wp{ve, outs, lanes, C / ve};
+  const long long threads = (long long)N * Ho * lanes * wp.cv;
+  if (threads > 0x7fffffffLL - kThreads ||
+      ctas != (threads + kThreads - 1) / kThreads) {
+    return int(cudaErrorInvalidValue);
+  }
   cudaStream_t st = cudaStream_t(stream);
   auto run = [&](auto kernel, auto xp, auto yp) {
-    kernel<<<unsigned(grid), kThreads, 0, st>>>(xp, yp, numel, int(head),
-                                                vstore);
+    kernel<<<unsigned(ctas), kThreads, 0, st>>>(xp, yp, N, H, W, C, KH, KW,
+                                                SH, SW, Ho, Wo, wp);
+    return int(cudaGetLastError());
+  };
+  // T, V, O: input, reduce and stored types; each mode on both paths
+#define CNN_POOL(T, V, O, M)                                                \
+  return vec ? run(pool2d_kernel<T, V, O, M, 16 / int(sizeof(T))>,          \
+                   (const T*)x, (O*)y)                                      \
+             : run(pool2d_kernel<T, V, O, M, 1>, (const T*)x, (O*)y)
+  if (dtype == kF32) {
+    if (mode == kMax) CNN_POOL(float, float, float, kMax);
+    CNN_POOL(float, float, float, kAvg);
+  }
+  if (dtype == kBF16) {
+    if (mode == kMax) CNN_POOL(__nv_bfloat16, float, __nv_bfloat16, kMax);
+    CNN_POOL(__nv_bfloat16, float, float, kAvg);
+  }
+  if (dtype == kI8) {
+    if (mode == kMax) CNN_POOL(int8_t, int32_t, int8_t, kMax);
+    CNN_POOL(int8_t, int32_t, int32_t, kAvg);
+  }
+  if (mode == kMax) CNN_POOL(int32_t, int32_t, int32_t, kMax);
+  CNN_POOL(int32_t, int32_t, int32_t, kAvg);
+#undef CNN_POOL
+}
+
+// act_split as a query (no launch): out = head, vstore, tiles, grid.
+int cnn_activation_plan(int dtype, const void* x, const void* y,
+                        long long numel, int sms, long long* out) {
+  ActSplit sp;
+  const int err = act_split(dtype, x, y, numel, sms, sp);
+  if (err == 0) {
+    out[0] = sp.head;
+    out[1] = sp.vstore;
+    out[2] = sp.tiles;
+    out[3] = sp.grid;
+  }
+  return err;
+}
+
+// activation_exact on act_split's split.
+int cnn_activation(int dtype, int kind, const void* x, void* y,
+                   long long numel, int sms, void* stream) {
+  ActSplit sp;
+  if (kind < kRelu || kind > kGelu || act_split(dtype, x, y, numel, sms,
+                                                sp) != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = cudaStream_t(stream);
+  auto run = [&](auto kernel, auto xp, auto yp) {
+    kernel<<<unsigned(sp.grid), kThreads, 0, st>>>(xp, yp, numel,
+                                                   int(sp.head), sp.vstore);
     return int(cudaGetLastError());
   };
 #define CNN_ACT(T)                                                          \
@@ -1395,27 +1645,27 @@ int cnn_activation(int dtype, int kind, const void* x, void* y,
 #undef CNN_ACT
 }
 
+// activation_lut on act_split's split.
 int cnn_activation_lut(int dtype, const void* x, const float* table,
-                       void* y, long long numel, float r, float s,
+                       void* y, long long numel, float r, float s, int sms,
                        void* stream) {
-  unsigned grid = blocks_for(numel);
-  cudaStream_t st = cudaStream_t(stream);
-#define CNN_LUT(T)                                                          \
-  activation_lut_kernel<T><<<grid, kThreads, 0, st>>>(                      \
-      (const T*)x, table, (ActOut<T>::type*)y, numel, r, s)
-  if (dtype == kF32) {
-    CNN_LUT(float);
-  } else if (dtype == kBF16) {
-    CNN_LUT(__nv_bfloat16);
-  } else if (dtype == kI8) {
-    CNN_LUT(int8_t);
-  } else if (dtype == kI32) {
-    CNN_LUT(int32_t);
-  } else {
+  ActSplit sp;
+  if (act_split(dtype, x, y, numel, sms, sp) != 0) {
     return int(cudaErrorInvalidValue);
   }
+  cudaStream_t st = cudaStream_t(stream);
+  auto run = [&](auto kernel, auto xp, auto yp) {
+    kernel<<<unsigned(sp.grid), kThreads, 0, st>>>(
+        xp, table, yp, numel, int(sp.head), sp.vstore, r, s);
+    return int(cudaGetLastError());
+  };
+#define CNN_LUT(T)                                                          \
+  return run(activation_lut_kernel<T>, (const T*)x, (ActOut<T>::type*)y)
+  if (dtype == kF32) CNN_LUT(float);
+  if (dtype == kBF16) CNN_LUT(__nv_bfloat16);
+  if (dtype == kI8) CNN_LUT(int8_t);
+  CNN_LUT(int32_t);
 #undef CNN_LUT
-  return int(cudaGetLastError());
 }
 
 int cnn_pool2d_im2col(int dtype, int mode, const void* x, void* y, int N,

@@ -50,11 +50,15 @@ _SIGNATURES = {
                    _I, _I, _P),
     "cnn_conv1": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _P),
-    "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cnn_pool2d": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, ctypes.c_longlong, _P),
     "cnn_activation": (_I, _I, _P, _P, ctypes.c_longlong, _I, _P),
     "cnn_fused": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "cnn_activation_lut": (_I, _P, _P, _P, ctypes.c_longlong, _F, _F, _P),
+    "cnn_activation_lut": (_I, _P, _P, _P, ctypes.c_longlong, _F, _F, _I,
+                           _P),
+    "cnn_activation_plan": (_I, _P, _P, ctypes.c_longlong, _I,
+                            ctypes.POINTER(ctypes.c_longlong)),
     "cnn_pool2d_im2col": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P),
     "cnn_conv2d_dual": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -177,8 +181,8 @@ def lib() -> ctypes.CDLL:
 
 def sm_count(device: torch.device) -> int:
     """The number of SMs of ``device``: the one source of the launch
-    plans that size a grid to the card (the scan's ``lane_plan``,
-    ``activation_exact``'s waves)."""
+    plans that size a grid to the card (the scan's ``lane_plan``, the
+    activations' waves)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

@@ -1,15 +1,31 @@
 """Pool1 — windowed-reduce pooling (Conv1-style logic-only IP).
 
 Replaces ``repro/kernels/pool2d/vpu_window.py::pool2d_window``.  The
-kernel (``pool2d_kernel`` in ``csrc/cnn_kernels.cu``) maps one thread to
-one output and reduces its KHxKW window with the shared ``__device__``
-``window_reduce`` that the fused members call too: start from the
-window's first element, then i-major; max propagates NaN, float avg
+kernel (``pool2d_kernel`` in ``csrc/cnn_kernels.cu``) is bound by device
+memory: each input is read once (L1 and L2 serve the overlap of windows
+with a stride below the window) and each output written once.  It runs
+on the cut of ``pool_plan``: a thread owns ``ve`` channels, one 16-byte
+vector of input (4 f32 or int32, 8 bf16, 16 int8), of up to two
+outputs of one output row, ``lanes`` apart, and issues the 16-byte loads
+of a chunk of taps (a whole 2x2 window) for both before it reduces any;
+its (image, row, lane, channel) split is three 32-bit divisions once a
+thread.  Stores are 16-byte vectors of the output type (bf16 max stays
+bf16; bf16 avg gives f32 and int8 avg int32, two and four stores a
+vector).  Where C * itemsize is no multiple of 16 or the input or output
+is not 16-byte aligned (a tensor at a storage offset), the same kernel
+runs with ``ve = 1``, an element a thread lane.  Each element takes its
+taps through the shared ``__device__`` ``window_step`` in
+``window_reduce``'s order, the one the fused members pool in: start from
+the window's first element, then i-major; max propagates NaN, float avg
 divides by the count, integer avg floors.  No tensor-core instruction.
+The ``block_c`` hint is validated as in the reference and priced by the
+footprint; it does not shape the grid.
 """
 from __future__ import annotations
 
 import torch
+
+from typing import NamedTuple
 
 from repro_torch.core.resources import Footprint, cost_cycles, vpu_op_cycles
 from repro_torch.kernels import cuda
@@ -21,6 +37,45 @@ MODE_CODE = {"max": 0, "avg": 1}
 # input dtypes the CUDA kernel takes (bf16 reduces in f32: max is exact
 # and stays bf16, avg gives f32 as pool_dtypes says)
 CUDA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32)
+# pool2d_kernel's CTA (kThreads), the outputs a thread covers at most
+# (kPoolOuts) and the taps whose loads it issues before reducing them
+# (kPoolTaps)
+THREADS = 256
+MAX_OUTS = 2
+TAPS = 4
+
+
+class WindowPlan(NamedTuple):
+    """The cut of ``pool2d_kernel``: each thread owns ``ve`` channels
+    (``16 // itemsize`` on the vector path, 1 on the scalar one) of
+    ``outs`` outputs of one output row, ``lanes`` apart (ow = q, q +
+    lanes); ``cv = C // ve`` threads cover a pixel's channels, ``lanes *
+    cv`` an output row, and ``ctas`` CTAs of ``THREADS`` the N * Ho rows
+    in order."""
+    ve: int
+    outs: int
+    lanes: int
+    cv: int
+    ctas: int
+
+
+def pool_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, sh: int,
+              sw: int, *, itemsize: int, x_addr: int = 0,
+              y_addr: int = 0) -> WindowPlan:
+    """The plan ``cnn_pool2d`` launches (and checks) for an (n, h, w, c)
+    input of ``itemsize``-byte elements at address ``x_addr`` pooled into
+    an output at ``y_addr``: 16-byte vectors along C where ``c *
+    itemsize`` is a multiple of 16 and both addresses are 16-byte
+    aligned, else one element a thread; two outputs a thread wherever
+    the row has two."""
+    ho, wo = (h - kh) // sh + 1, (w - kw) // sw + 1
+    vec = (c * itemsize) % 16 == 0 and (x_addr | y_addr) % 16 == 0
+    ve = 16 // itemsize if vec else 1
+    outs = min(MAX_OUTS, wo)
+    lanes = -(-wo // outs)
+    cv = c // ve
+    return WindowPlan(ve, outs, lanes, cv,
+                      -(-(n * ho * lanes * cv) // THREADS))
 
 
 def window_reduce(x, *, ho, wo, kh, kw, sh, sw, mode, acc_dtype):
@@ -62,8 +117,8 @@ def pool2d_window_plain(x, *, window=(2, 2), stride=None,
 def pool2d_window(x: torch.Tensor, *, window=(2, 2), stride=None,
                   mode: str = "max", block_c: int = 128) -> torch.Tensor:
     """Max/avg pooling, output dtype per ``pool_dtypes``.  CUDA tensors
-    (``CUDA_DTYPES``) launch the kernel; CPU tensors run the plain
-    version."""
+    (``CUDA_DTYPES``) launch the kernel once, on ``pool_plan``'s cut;
+    CPU tensors run the plain version."""
     if mode not in MODES:
         raise ValueError(f"unknown pool mode {mode!r}; have {MODES}")
     check_block("block_c", block_c)
@@ -78,10 +133,12 @@ def pool2d_window(x: torch.Tensor, *, window=(2, 2), stride=None,
     y = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
+    plan = pool_plan(n, h, w, c, kh, kw, sh, sw, itemsize=x.element_size(),
+                     x_addr=x.data_ptr(), y_addr=y.data_ptr())
     cuda.launch("pool2d_window", "cnn_pool2d", x.device,
                 cuda.DTYPE_CODE[x.dtype], MODE_CODE[mode], x.data_ptr(),
-                y.data_ptr(), n, h, w, c, kh, kw, sh, sw,
-                min(int(block_c), c))
+                y.data_ptr(), n, h, w, c, kh, kw, sh, sw, plan.ve,
+                plan.outs, plan.lanes, plan.ctas)
     return y
 
 

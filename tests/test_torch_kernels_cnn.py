@@ -44,6 +44,7 @@ from repro_torch.kernels.fused.ops import fused_cnn_block as t_fused_block
 from repro_torch.kernels.pool2d import mxu_im2col as t_im2col
 from repro_torch.kernels.pool2d import vpu_window as t_pool
 from repro_torch.kernels.pool2d.ops import pool2d as t_pool2d
+from repro_torch.kernels.pool2d.ref import norm_window_stride
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 TIGHT = dict(rtol=1e-6, atol=1e-6)
@@ -477,6 +478,144 @@ def test_pool_max_propagates_nan():
     assert torch.isnan(y[0, 0, 0, 0]) and not torch.isnan(y[0, 1, 1, 0])
 
 
+def test_ctypes_signatures_match_the_launchers():
+    """Each C entry ``kernels/cuda.py`` binds takes as many arguments as
+    its ``_SIGNATURES`` entry passes (ctypes would refuse the call only
+    on the card, and a missing argument shifts every later one)."""
+    import re
+    from repro_torch.kernels import cuda
+    found = {}
+    for name in cuda.SOURCES:
+        src = (cuda.CSRC / name).read_text()
+        for m in re.finditer(r"^int (\w+)\(([^)]*)\)\s*\{",
+                             src[src.index('extern "C" {'):], re.M):
+            found[m.group(1)] = len([a for a in m.group(2).split(",")
+                                     if a.strip()])
+    for fn, args in cuda._SIGNATURES.items():
+        assert found.get(fn) == len(args), (fn, found.get(fn), len(args))
+
+
+def _window_chain(taps, get, kh, kw, mode):
+    """Each element's taps in i-major order from (0, 0) (``window_step``),
+    ``get(i, j)`` yielding tap (i, j) of every element, loaded ``TAPS``
+    at a time as ``pool2d_kernel`` loads them; then ``window_end``."""
+    acc = None
+    for t0 in range(0, len(taps), t_pool.TAPS):
+        chunk = taps[t0:t0 + t_pool.TAPS]
+        for (i, j), v in zip(chunk, [get(i, j) for i, j in chunk]):
+            if (i, j) == (0, 0):
+                acc = v
+            elif mode == "max":
+                acc = torch.maximum(acc, v)
+            else:
+                acc = acc + v
+    if mode == "avg":
+        acc = (acc / (kh * kw) if acc.is_floating_point()
+               else torch.div(acc, kh * kw, rounding_mode="floor"))
+    return acc
+
+
+def _pool_walk(x, plan, kh, kw, sh, sw, mode):
+    """``pool2d_kernel``'s cut on the CPU, in kernel order: every thread
+    of ``plan``'s grid takes its (row, lane, channel vector) from its
+    index and owns the outputs q, q + lanes, .. of that row; each element
+    takes its taps through ``_window_chain``.  Returns the output and the
+    number of times each output element was written."""
+    n, h, w, c = x.shape
+    ho, wo = (h - kh) // sh + 1, (w - kw) // sw + 1
+    out_dtype = t_pool.pool_dtypes(x.dtype, mode)[1]
+    xv = x.to(torch.float32 if x.is_floating_point() else torch.int32)
+    xv = xv.reshape(-1)
+    y = torch.zeros(n * ho * wo * c, dtype=out_dtype)
+    hits = torch.zeros(y.numel(), dtype=torch.int32)
+    taps = [(i, j) for i in range(kh) for j in range(kw)]
+    g = torch.arange(plan.ctas * t_pool.THREADS)
+    per_row = plan.lanes * plan.cv
+    row = g // per_row
+    g, row = g[row < n * ho], row[row < n * ho]
+    q = (g - row * per_row) // plan.cv
+    c0 = (g - row * per_row - q * plan.cv) * plan.ve
+    b, oh = row // ho, row % ho
+    for k in range(t_pool.MAX_OUTS):
+        ow = q + k * plan.lanes
+        live = (ow < wo) & (k < plan.outs)
+        ch = c0[live, None] + torch.arange(plan.ve)         # (threads, ve)
+        base = ((b[live, None] * h + oh[live, None] * sh) * w
+                + ow[live, None] * sw) * c + ch
+        acc = _window_chain(taps, lambda i, j: xv[base + (i * w + j) * c],
+                            kh, kw, mode)
+        idx = (((b[live, None] * ho + oh[live, None]) * wo + ow[live, None])
+               * c + ch).reshape(-1)
+        y[idx] = acc.reshape(-1).to(out_dtype)
+        hits.index_add_(0, idx, torch.ones(idx.numel(), dtype=torch.int32))
+    return y.view(n, ho, wo, c), hits
+
+
+# (x shape, window, stride, storage offset of x in elements): C of 16
+# (16-byte vectors in every dtype), 3, 7, 17, 33, 32 and 48; 2x2 with
+# stride 2, 3x3 with strides 1 and 2, 1x3 with stride (1, 2), 3x3 with
+# stride (1, 2); a window as large as the input; N > 1; inputs one
+# element past a 16-byte boundary
+POOL_PLANS = [((2, 9, 10, 16), (2, 2), None, 0),
+              ((1, 9, 11, 3), (3, 3), (1, 1), 0),
+              ((2, 11, 9, 7), (3, 3), (2, 2), 0),
+              ((1, 8, 13, 17), (1, 3), (1, 2), 0),
+              ((2, 7, 9, 33), (2, 2), None, 0),
+              ((1, 6, 7, 16), (6, 7), None, 0),
+              ((2, 10, 10, 32), (3, 3), (1, 1), 0),
+              ((2, 9, 10, 16), (2, 2), None, 1),
+              ((2, 13, 21, 48), (3, 3), (1, 2), 1)]
+POOL_PLAN_IDS = ["c16-2x2", "c3-3x3s1", "c7-3x3s2", "c17-1x3s12", "c33-2x2",
+                 "c16-whole", "c32-3x3s1", "c16-offset1", "c48-3x3s12-offset1"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int32"])
+@pytest.mark.parametrize("mode", ["max", "avg"])
+@pytest.mark.parametrize("xs,window,stride,off", POOL_PLANS,
+                         ids=POOL_PLAN_IDS)
+def test_pool_plan_emulation(rng, dtype, mode, xs, window, stride, off):
+    """``pool_plan``'s cut walked thread by thread covers every output
+    exactly once, takes 16-byte vectors exactly where C * itemsize is a
+    multiple of 16 and the input is aligned, and its reduction is
+    bitwise ``pool2d_window_plain``; the result matches the reference's
+    kernel in interpret mode (integers and max exactly, float avg within
+    ``TIGHT``)."""
+    numel = int(np.prod(xs))
+    if dtype in ("int8", "int32"):
+        vals = torch.from_numpy(rng.integers(-128, 128, numel + off))
+    else:
+        vals = torch.from_numpy(_randn(rng, (numel + off,)) * 3)
+    base = torch.empty(numel + off, dtype=getattr(torch, dtype))
+    base.copy_(vals)
+    assert base.data_ptr() % 16 == 0
+    x = base[off:].view(xs)
+    (kh, kw), (sh, sw) = norm_window_stride(window, stride)
+    n, h, w, c = xs
+    size = x.element_size()
+    plan = t_pool.pool_plan(n, h, w, c, kh, kw, sh, sw, itemsize=size,
+                            x_addr=x.data_ptr(), y_addr=0)
+    vec = (c * size) % 16 == 0 and off == 0
+    assert plan.ve == (16 // size if vec else 1)
+    assert plan.cv * plan.ve == c and plan.outs <= t_pool.MAX_OUTS
+    got, hits = _pool_walk(x, plan, kh, kw, sh, sw, mode)
+    assert (hits == 1).all()
+    assert got.dtype == t_pool.pool_dtypes(x.dtype, mode)[1]
+    assert torch.equal(got, t_pool.pool2d_window_plain(
+        x, window=window, stride=stride, mode=mode))
+    jx = jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if dtype == "bfloat16" else dtype)
+    want = j_pool.pool2d_window(jx, window=window, stride=stride, mode=mode,
+                                interpret=True)
+    assert str(want.dtype) == str(got.dtype).split(".")[1]
+    want = np.asarray(want.astype(jnp.float32)) if dtype == "bfloat16" \
+        else np.asarray(want)
+    if mode == "max" or not x.is_floating_point():
+        np.testing.assert_array_equal(_np(got.float()) if dtype == "bfloat16"
+                                      else _np(got), want)
+    else:
+        np.testing.assert_allclose(_np(got), want, **TIGHT)
+
+
 @pytest.mark.parametrize("mode", ["max", "avg"])
 def test_pool_im2col_plain_matches_reference(rng, mode):
     x = _randn(rng, (2, 8, 8, 3))
@@ -564,6 +703,85 @@ def test_activation_relu_propagates_nan():
     for kind in ("relu", "relu6"):
         y = t_act.activation_exact(x, kind=kind)
         assert torch.isnan(y[0]) and y[1] == 0.0 and y[2] == 2.0
+
+
+def _walk_pieces(numel, plan, ve):
+    """The element ranges ``act_walk`` gives each piece of work on the
+    CPU, in kernel order: the head (one a thread), every CTA's tiles a
+    grid apart (a vector a thread), the tail (one a thread)."""
+    tile = t_act.THREADS * t_act.VECS
+    nvec = (numel - plan.head) // ve
+    tail0 = plan.head + nvec * ve
+    assert plan.tiles == -(-nvec // tile)
+    assert 1 <= plan.grid and (plan.grid <= plan.tiles or plan.grid == 1)
+    threads = np.arange(plan.grid * t_act.THREADS)
+    pieces = [threads[threads < plan.head]]
+    for cta in range(plan.grid):
+        for t in range(cta, plan.tiles, plan.grid):
+            v = np.arange(t * tile, min((t + 1) * tile, nvec))
+            pieces.append((plan.head + v[:, None] * ve
+                           + np.arange(ve)).reshape(-1))
+    pieces.append(tail0 + threads[threads < numel - tail0])
+    return pieces
+
+
+LUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8, "int32": torch.int32}
+
+
+@pytest.mark.parametrize("dtype", list(LUT_DTYPES))
+def test_activation_lut_walk_emulation(dtype):
+    """``walk_plan`` (the mirror of the launchers' ``act_split``, which
+    ``chip_smoke.py`` holds against the C query) covers each element
+    exactly once at input offsets of 0-15 bytes (those not aligned to
+    the element are refused), numels 0, 1, 15 and a tile of ``THREADS *
+    VECS * VE`` plus and minus 1, and a grid smaller than the tiles;
+    the output assembled piece by piece is bitwise
+    ``activation_lut_plain``, which matches the reference's kernel in
+    interpret mode within 1e-6 (its table from ``jnp.linspace``; bf16
+    one bf16 rounding of that)."""
+    tdt = LUT_DTYPES[dtype]
+    size = torch.empty((), dtype=tdt).element_size()
+    osize = t_lut.activation_out_dtype(tdt).itemsize
+    ve = 16 // size
+    tile = t_act.THREADS * t_act.VECS * ve
+    xs = torch.linspace(-6, 6, 40 * tile + 5)
+    if not tdt.is_floating_point:
+        xs = (xs * 20).round()
+    xs = xs.to(tdt)
+    xs[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")]
+                          ).to(tdt) if tdt.is_floating_point else xs[:3]
+    cases = [(n, 132) for n in (0, 1, 15, tile - 1, tile, tile + 1)]
+    cases.append((40 * tile + 5, 1))    # a grid of 16 CTAs, 41 tiles
+    for off in range(16):
+        for numel, sms in cases:
+            for yoff in (0, osize):
+                kw = dict(itemsize=size, out_itemsize=osize, x_addr=off,
+                          y_addr=yoff, sms=sms)
+                if off % size:
+                    with pytest.raises(ValueError, match="aligned"):
+                        t_act.walk_plan(numel, **kw)
+                    continue
+                plan = t_act.walk_plan(numel, **kw)
+                assert plan.head == min(numel, (16 - off) % 16 // size)
+                assert plan.vstore == ((yoff + plan.head * osize) % 16 == 0)
+                hits = np.zeros(numel, dtype=np.int64)
+                x = xs[:numel]
+                y = torch.zeros(numel, dtype=t_lut.activation_out_dtype(tdt))
+                for idx in _walk_pieces(numel, plan, ve):
+                    np.add.at(hits, idx, 1)
+                    part = torch.from_numpy(idx)
+                    y[part] = t_lut.activation_lut_plain(x[part])
+                assert (hits == 1).all(), (off, numel, sms)
+                assert torch.equal(y, t_lut.activation_lut_plain(x))
+    x = xs[3:tile + 1]
+    want = j_lut.activation_lut(
+        jnp.asarray(x.float().numpy()).astype(
+            jnp.bfloat16 if dtype == "bfloat16" else dtype), interpret=True)
+    got = t_lut.activation_lut_plain(x)
+    np.testing.assert_allclose(_np(got.float()),
+                               np.asarray(want.astype(jnp.float32)),
+                               **(BF16 if dtype == "bfloat16" else TIGHT))
 
 
 @pytest.mark.parametrize("kind", ["relu6", "sigmoid", "tanh"])
