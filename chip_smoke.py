@@ -43,12 +43,18 @@ and prints no result):
    rounding) and, on f32, bitwise equal to the fused kernels'
    activation; the pools, the LUT and the activation on bf16
    (``bf16_elementwise_checks``: max pools and the LUT bitwise in bf16);
-   ``pool2d_window`` (``pool2d_kernel`` on ``pool_plan``'s cut) at the
-   geometries of ``POOL_CHECKS`` on f32, bf16, int8 and int32, max and
-   avg (``pool_geometry_checks``: one launch a call, max and integers
-   bitwise, float avg within 1e-6, 16-byte vectors exactly where C *
+   both pools on ``pool_plan``'s cut (``pool2d_window``:
+   ``pool2d_kernel``, ``pool2d_im2col``: ``pool2d_im2col_kernel``, one
+   body) at the geometries of ``POOL_CHECKS`` on f32, bf16, int8 and
+   int32, max and avg (``pool_geometry_checks``: one launch a call, max
+   and integers bitwise, float avg within 1e-6 of the plain version on
+   the card and bitwise equal to it on the CPU, ``pool2d_im2col``
+   bitwise equal to ``pool2d_window``, 16-byte vectors exactly where C *
    itemsize is a multiple of 16 and the input aligned, a misaligned int8
-   input included, NaN through max on the vector and the scalar path);
+   input included, NaN through max on the vector and the scalar path;
+   both C entries refuse a bad dtype or mode, an oversized window, plans
+   that do not cover the output and H * W * C past 32-bit index math,
+   ``pool_refusal_checks``);
    ``activation_lut``
    on ``act_walk`` (``lut_walk_checks``: the launcher's split, queried
    by ``cnn_activation_plan``, equal to ``vpu_exact.walk_plan`` at byte
@@ -67,7 +73,8 @@ and prints no result):
    CPU's;
    Then the two precision-ladder deployments (``LADDER``): the LUT
    activation and the im2col pool against their plain versions
-   bit-exact (NaN, +-inf and exact half-step ties included); each
+   bit-exact (NaN, +-inf and exact half-step ties included; the pool
+   also bitwise equal to ``pool2d_window``); each
    deployment serves two tenants at 224x224x3 — a relu tenant in f32
    and a tanh tenant with ``ladder=(16, 8)`` and ``measure_quant`` that
    the arbiter squeezes onto lowered rungs — for 3 waves of 8 + 2
@@ -120,13 +127,16 @@ and prints no result):
    ``TC_RAGGED`` and, planned by ``matmul_dual(budget=)``, at the sweep's
    FFN: one launch, each stream bitwise equal to ``mm_mxu``;
    and ``cuobjdump -sass`` shows no MMA instruction in the logic-only
-   kernels (``LOGIC_ONLY``: the activations and ``pool2d_kernel`` too),
+   kernels (``LOGIC_ONLY``: the activations and ``pool2d_kernel`` too)
+   and in the MXU members' CUDA-core kernels (``CUDA_CORE``:
+   ``pool2d_im2col_kernel``, f32 ``flash_attention_kernel``),
    IGMMA in the int8 and HGMMA in the bf16
    tensor-core kernels, bf16 flash attention's included (``TC_SASS``),
    and every kernel of the ``kernels`` line (``KERNEL``) in the library;
 5. times  — the floor of ``time_ms`` (``zero_()`` on a 1-element
    tensor), and per kernel (``pool2d_window`` also at a batch-64 block 0
-   and at 3x3 windows of stride 1 and 2, ``activation_lut`` also on 256
+   and at 3x3 windows of stride 1 and 2, ``pool2d_im2col`` also at the
+   batch-64 block 0, ``activation_lut`` also on 256
    images, ``conv2d_ip1`` also
    at block 1 and on int8 at
    block 0, ``conv2d_ip2`` also on int8 and bf16 at block 1 (bf16
@@ -134,7 +144,8 @@ and prints no result):
    row with its three-launch chain timed beside it, and its grid: CTAs,
    registers, CTAs an SM and waves; Conv3's row with two ``conv2d_ip1``
    launches and its grid),
-   ``flash_attention``,
+   ``flash_attention`` (its f32 output at attn_train4k also held to
+   ``ATTN_F32_TOL`` head chunk by head chunk),
    ``flash_decode`` (with f32 SDPA beside it, or the error it raises)
    and ``mm_dual_full`` also on f32; ``mm_mxu`` per
    operand dtype:
@@ -314,6 +325,10 @@ LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_tiled_kernel",
               "fused_cnn_tiled_kernel", "mm_vpu_kernel",
               "selective_scan_kernel", "activation_kernel",
               "activation_lut_kernel", "pool2d_kernel")
+# Kernels of MXU members that run on CUDA cores on this card: the im2col
+# pool (the window pool's body) and f32 flash attention (no IEEE-f32
+# MMA; TF32 would miss ATTN_F32_TOL).  No MMA in SASS either.
+CUDA_CORE = ("pool2d_im2col_kernel", "flash_attention_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 # The tensor-core kernels by source, and the wgmma instruction each must
 # contain (and no other MMA kind): the MXU matmul members and bf16 flash
@@ -1047,16 +1062,25 @@ POOL_CHECKS = (((2, 9, 10, 16), (2, 2), None, 0),
 
 
 def pool_geometry_checks(gen, errs):
-    """pool2d_window (pool2d_kernel on pool_plan's cut) at POOL_CHECKS
-    in every dtype it takes, max and avg, one launch a call: max and
-    integers bitwise equal to the plain version, float avg within 1e-6;
-    the plan takes 16-byte vectors exactly where C * itemsize is a
-    multiple of 16 and the input is aligned; a NaN propagates through
-    max on both paths, with and without overlapping windows."""
+    """Both pool members on pool_plan's cut (pool2d_window runs
+    pool2d_kernel, pool2d_im2col pool2d_im2col_kernel: one body,
+    pool_window) at POOL_CHECKS in every dtype they take, max and avg,
+    one launch a call: max and integers bitwise equal to the plain
+    version, float avg within 1e-6 of it on the card (whose scalar
+    division may differ by an ulp) and bitwise equal to it on the CPU;
+    pool2d_im2col bitwise equal to pool2d_window; the plan takes 16-byte
+    vectors exactly where C * itemsize is a multiple of 16 and the input
+    is aligned; a NaN propagates through max on both paths, with and
+    without overlapping windows; the C entries refuse what they cannot
+    run (pool_refusal_checks)."""
     import torch
+    from repro_torch.kernels.pool2d.mxu_im2col import (pool2d_im2col,
+                                                       pool2d_im2col_plain)
     from repro_torch.kernels.pool2d.ref import norm_window_stride
     from repro_torch.kernels.pool2d.vpu_window import (
         CUDA_DTYPES, pool2d_window, pool2d_window_plain, pool_plan)
+    members = (("pool2d_window", pool2d_window, pool2d_window_plain),
+               ("pool2d_im2col", pool2d_im2col, pool2d_im2col_plain))
     dev = torch.device("cuda")
     paths = set()
     for dtype in CUDA_DTYPES:
@@ -1077,31 +1101,90 @@ def pool_geometry_checks(gen, errs):
                   f"pool_plan {dtype} {xs} {window} +{off}: {plan}")
             paths.add((str(dtype).split(".")[1], c, off, plan.ve))
             for mode in ("max", "avg"):
-                got = launched_once(
-                    lambda: pool2d_window(x, window=window, stride=stride,
-                                          mode=mode),
-                    "pool2d_window",
-                    f"pool2d_window {dtype} {xs} {window} {stride} +{off} "
-                    f"{mode}")
-                compare("pool2d_window", got, pool2d_window_plain(
-                    x, window=window, stride=stride, mode=mode), 1e-6, 1e-6,
-                    errs, exact=mode == "max" or not dtype.is_floating_point)
-    for c in (16, 17):                  # the vector and the scalar path
-        x = torch.randn((1, 6, 6, c), generator=gen).to(dev)
-        x[0, 2, 3, 5] = float("nan")
-        got = pool2d_window(x)
-        check(bool(torch.isnan(got[0, 1, 1, 5]))
-              and int(torch.isnan(got).sum()) == 1,
-              f"pool2d_window C={c}: max did not propagate one NaN")
-        got = pool2d_window(x, window=(2, 2), stride=(1, 1))
-        check(bool(torch.isnan(got[0, 1:3, 2:4, 5]).all())
-              and int(torch.isnan(got).sum()) == 4,
-              f"pool2d_window C={c} 2x2 / 1: max did not propagate a NaN")
-    log(f"pool2d_window (pool2d_kernel) at {len(POOL_CHECKS)} geometries x "
+                kw_ = dict(window=window, stride=stride, mode=mode)
+                exact = mode == "max" or not dtype.is_floating_point
+                got = {}
+                for name, kern, plain in members:
+                    what = f"{name} {dtype} {xs} {window} {stride} +{off} {mode}"
+                    got[name] = launched_once(lambda: kern(x, **kw_), name,
+                                              what)
+                    compare(name, got[name], plain(x, **kw_), 1e-6, 1e-6,
+                            errs, exact=exact)
+                    if not exact:
+                        check(torch.equal(got[name].cpu(),
+                                          plain(x.cpu(), **kw_)),
+                              f"{what}: not bitwise the plain version on "
+                              f"the CPU")
+                check(torch.equal(got["pool2d_im2col"], got["pool2d_window"]),
+                      f"pool2d_im2col {dtype} {xs} {window} {stride} +{off} "
+                      f"{mode}: not bitwise pool2d_window")
+    for name, kern, _ in members:
+        for c in (16, 17):                  # the vector and the scalar path
+            x = torch.randn((1, 6, 6, c), generator=gen).to(dev)
+            x[0, 2, 3, 5] = float("nan")
+            got = kern(x)
+            check(bool(torch.isnan(got[0, 1, 1, 5]))
+                  and int(torch.isnan(got).sum()) == 1,
+                  f"{name} C={c}: max did not propagate one NaN")
+            got = kern(x, window=(2, 2), stride=(1, 1))
+            check(bool(torch.isnan(got[0, 1:3, 2:4, 5]).all())
+                  and int(torch.isnan(got).sum()) == 4,
+                  f"{name} C={c} 2x2 / 1: max did not propagate a NaN")
+    log(f"pool2d_window (pool2d_kernel) and pool2d_im2col "
+        f"(pool2d_im2col_kernel) at {len(POOL_CHECKS)} geometries x "
         f"{[str(d) for d in CUDA_DTYPES]} x max/avg, one launch a call: max "
-        f"and integers bitwise, float avg within 1e-6; paths (dtype, C, "
+        f"and integers bitwise, float avg within 1e-6 on the card and "
+        f"bitwise on the CPU; im2col == window bitwise; paths (dtype, C, "
         f"offset, ve): {sorted(paths)}")
+    pool_refusal_checks()
     torch.cuda.synchronize()
+
+
+def pool_refusal_checks():
+    """Both pool C entries (cnn_pool2d, cnn_pool2d_im2col) refuse, with
+    cudaErrorInvalidValue and before any launch, an unknown dtype, an
+    unknown mode, a window larger than the input, plans that do not cover
+    the output exactly (one lane short, one CTA short or over, a vector
+    width on an unaligned input) and a geometry past 32-bit index math
+    (H * W * C = 2^32); the same arguments with the plan of pool_plan
+    are taken."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.pool2d.vpu_window import pool_plan
+    lib = cuda.lib()
+    invalid = 1                                  # cudaErrorInvalidValue
+    x = torch.zeros(1024, device="cuda")
+    y = torch.zeros(1024, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    f32, i16, avg = 0, 3, 1
+
+    def args(geom, plan, dtype=f32, mode=avg, xp=x.data_ptr()):
+        return (dtype, mode, xp, y.data_ptr(), *geom, plan.ve, plan.outs,
+                plan.lanes, plan.ctas, stream)
+
+    small = (1, 4, 9, 4, 2, 2, 1, 1)             # N, H, W, C, KH, KW, SH, SW
+    ok = pool_plan(*small, itemsize=4)
+    big = (1, 65536, 65536, 1, 2, 2, 2, 2)
+    cases = {
+        "int16 dtype": args(small, ok, dtype=i16),
+        "mode 2": args(small, ok, mode=2),
+        "window larger than the input": args((1, 4, 9, 4, 5, 2, 1, 1), ok),
+        "one lane short": args(small, ok._replace(lanes=ok.lanes - 1)),
+        "one CTA over": args(small, ok._replace(ctas=ok.ctas + 1)),
+        "one CTA short": args(small, ok._replace(ctas=ok.ctas - 1)),
+        "vectors on an unaligned input": args(small, ok,
+                                              xp=x.data_ptr() + 4),
+        "H * W * C = 2^32": args(big, pool_plan(*big, itemsize=4)),
+    }
+    for entry in ("cnn_pool2d", "cnn_pool2d_im2col"):
+        fn = getattr(lib, entry)
+        for what, a in cases.items():
+            err = fn(*a)
+            check(err == invalid, f"{entry} took {what} (returned {err})")
+        err = fn(*args(small, ok))
+        check(err == 0, f"{entry} refused pool_plan's plan (returned {err})")
+    torch.cuda.synchronize()
+    log(f"cnn_pool2d and cnn_pool2d_im2col refuse: {', '.join(cases)}")
 
 
 def lut_walk_checks(gen, errs):
@@ -1252,6 +1335,7 @@ def ladder_kernel_checks(gen, errs):
         RANGES, activation_lut, activation_lut_plain, lut_scale)
     from repro_torch.kernels.pool2d.mxu_im2col import (pool2d_im2col,
                                                        pool2d_im2col_plain)
+    from repro_torch.kernels.pool2d.vpu_window import pool2d_window
     dev = torch.device("cuda")
     for shape in ((4, 54, 54, 32), (4, 111, 111, 16)):
         x = torch.randn(shape, generator=gen) * 5
@@ -1299,6 +1383,11 @@ def ladder_kernel_checks(gen, errs):
         check(torch.equal(pool2d_im2col(xf, mode=mode, block_c=3),
                           pool2d_im2col(xf, mode=mode)),
               "pool2d_im2col: result depends on block_c")
+        for t in (xf, xi8, xi32):
+            check(torch.equal(pool2d_im2col(t, mode=mode),
+                              pool2d_window(t, mode=mode)),
+                  f"pool2d_im2col {t.dtype} {mode}: not bitwise "
+                  f"pool2d_window")
     xn = xf.clone()
     xn[0, 0, 0, 0] = float("nan")
     check(bool(torch.isnan(pool2d_im2col(xn)[0, 0, 0, 0])),
@@ -2316,13 +2405,14 @@ def visible_pairs(sq, skv, causal):
     return sum(min(skv, max(0, i + offs + 1)) for i in range(sq))
 
 
-def lm_timings(ops, peaks):
+def lm_timings(ops, peaks, errs):
     """Rows for the three new kernels at the planned sites' shapes:
     ``mm_dual_shared`` (int8) and ``mm_dual_full`` (bf16, and f32 on the
     operands widened) at the sweep's FFN, ``flash_attention`` at attn_train4k, ``flash_decode`` at
     attn_decode32k (bf16, and f32 on the cache widened).  Bound by bytes
     or by the tensor-core peak of the operand type; the FP32 figure
-    beside it."""
+    beside it.  The f32 flash row's output is held to ATTN_F32_TOL
+    against the plain version head chunk by head chunk."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention.decode import (flash_decode,
@@ -2423,6 +2513,8 @@ def lm_timings(ops, peaks):
     # widened; CUDA cores): bound by the FP32 rate or the exponentials
     q, k, v = (t.float() for t in ops["train"])
     y = flash_attention(q, k, v, causal=True)
+    compare_attention("flash_attention (f32)", y, flash_attention_plain, q,
+                      k, v, True, ATTN_F32_TOL, errs, causal=True)
     bsz, hq, sq, d = q.shape
     pairs = bsz * hq * visible_pairs(sq, k.shape[2], True)
     rows["flash_attention (f32)"] = row(
@@ -2466,8 +2558,9 @@ def lm_timings(ops, peaks):
 
 
 def sass_check(lib_path):
-    """``cuobjdump -sass`` of the built library: the LOGIC_ONLY kernels
-    contain no MMA instruction.  Returns the MMA count of every kernel."""
+    """``cuobjdump -sass`` of the built library: the LOGIC_ONLY and
+    CUDA_CORE kernels contain no MMA instruction, the TC_SASS ones only
+    their wgmma kind.  Returns the MMA count of every kernel."""
     import re
     from repro_torch.kernels import cuda
     tool = Path(cuda._nvcc()).with_name("cuobjdump")
@@ -2478,14 +2571,14 @@ def sass_check(lib_path):
     bodies = dict(zip(parts[1::2], parts[2::2]))
     mma = re.compile(r"\b(" + "|".join(MMA_SASS) + r")\b")
     counts = {name: len(mma.findall(body)) for name, body in bodies.items()}
-    for kernel in LOGIC_ONLY:
+    for kernel in LOGIC_ONLY + CUDA_CORE:
         mine = [name for name in bodies if kernel in name]
         check(bool(mine), f"no SASS for {kernel} in {lib_path.name}")
         for name in mine:
             check(re.search(r"\b(IMAD|FFMA)", bodies[name]) is not None,
                   f"{name}: no multiply-add in its SASS")
             check(counts[name] == 0, f"{name}: {counts[name]} MMA "
-                                     f"instructions in a logic-only kernel")
+                                     f"instructions in a CUDA-core kernel")
     tc_sass = {k: v for kernels in TC_SASS.values() for k, v in kernels.items()}
     for kernel, want in tc_sass.items():
         mine = [name for name in bodies if kernel in name]
@@ -2500,7 +2593,7 @@ def sass_check(lib_path):
             check(any(kernel in name for name in bodies),
                   f"{row}: no SASS for {kernel} in {lib_path.name}")
     log(f"SASS: {len(bodies)} kernels; no {'|'.join(MMA_SASS)} in "
-        f"{', '.join(LOGIC_ONLY)}; "
+        f"{', '.join(LOGIC_ONLY + CUDA_CORE)}; "
         + ", ".join(f"{k}: {v} x"
                     f"{sum(n for name, n in counts.items() if k in name)}"
                     for k, v in tc_sass.items())
@@ -2724,7 +2817,7 @@ def timings(shapes, gen, peaks, lib):
             bound_ms=b_ms, bound_by=by,
             shape=f"x{tuple(x.shape)} max {window[0]}x{window[1]} stride "
                   f"{stride}")
-    del xl, y
+    del y
     a0 = activation_exact(p0)
     b_ms, by = bound(nbytes(p0, a0), p0.numel())
     rows["activation_exact"] = dict(
@@ -2823,14 +2916,21 @@ def timings(shapes, gen, peaks, lib):
         yardstick=("torch.tanh (the exact function)",
                    time_ms(lambda: torch.tanh(xal))))
     del xal, yal
+    # Pool2 at the pool2d(budget=) shape and, beside it, on pool2d_window's
+    # large input (64,222,222,16), beyond the 50 MB L2
     xp = torch.randn((4, 222, 222, 16), generator=gen).to(dev)
-    yp = pool2d_im2col(xp, mode="avg")
-    b_ms, by = bound(nbytes(xp, yp), 4 * yp.numel())
-    rows["pool2d_im2col"] = dict(
-        ms=time_ms(lambda: pool2d_im2col(xp, mode="avg")),
-        plain_ms=time_ms(lambda: pool2d_im2col_plain(xp, mode="avg")),
-        library_ms=time_ms(lambda: F.avg_pool2d(xp.permute(0, 3, 1, 2), 2)),
-        bound_ms=b_ms, bound_by=by, shape=f"x{tuple(xp.shape)} avg 2x2")
+    for name, x in (("pool2d_im2col", xp), ("pool2d_im2col (large)", xl)):
+        y = pool2d_im2col(x, mode="avg")
+        check(torch.equal(y, pool2d_window(x, mode="avg")),
+              f"{name}: not bitwise pool2d_window")
+        b_ms, by = bound(nbytes(x, y), 4 * y.numel())
+        rows[name] = dict(
+            ms=time_ms(lambda: pool2d_im2col(x, mode="avg")),
+            plain_ms=time_ms(lambda: pool2d_im2col_plain(x, mode="avg")),
+            library_ms=time_ms(lambda: F.avg_pool2d(x.permute(0, 3, 1, 2),
+                                                    2)),
+            bound_ms=b_ms, bound_by=by, shape=f"x{tuple(x.shape)} avg 2x2")
+    del xl, y
 
     # the dual-stream convs at block 1: Conv3 on full-range int8 (INT32
     # lanes), Conv4 on f32; two multiply-adds per tap per stream
@@ -3510,7 +3610,7 @@ def main() -> int:
     one = torch.zeros(1, device="cuda")
     log(f"time_ms floor: zero_() on a 1-element CUDA tensor "
         f"{time_ms(lambda: one.zero_()) * 1e3:.3f} us on {card}")
-    rows.update(lm_timings(lm_ops, peaks))
+    rows.update(lm_timings(lm_ops, peaks, errs))
     del lm_ops
     srv, rounds, walls = served_rate(requests)
     n = rounds * len(requests)

@@ -19,11 +19,17 @@ through ``attn_flash``:
   between turns.  P goes into P.V split in two bf16 terms, bf16(P) and
   bf16(P - bf16(P)), so P keeps about 2^-17 of its value: P rounded once
   to bf16 misses ``chip_smoke.ATTN_BF16_TOL`` at attn_train4k.
-* f32: ``flash_attention_kernel<float, D>`` in ``csrc/attn_kernels.cu``
-  on CUDA cores (Hopper has no IEEE-f32 MMA, and TF32 misses the f32
-  tolerance): one CTA per (b*Hq + h, block of 64 query rows), K/V tiles
-  of 32 keys in shared memory, each row's q, m, l and accumulators in
-  registers, FP32 FMA, ``expf``.
+* f32: ``flash_attention_kernel<D>`` in ``csrc/attn_kernels.cu`` on CUDA
+  cores (Hopper has no IEEE-f32 MMA, and TF32 misses the f32
+  tolerance), a FlashAttention-2 schedule on the FP32 FMA pipe: one CTA
+  of 128 threads per (b*Hq + h, block of ``F32_ROWS`` query rows), the
+  scaled Q block in shared memory, K/V tiles (``f32_tile(D)``) through a
+  two-stage cp.async ring, S = Q.K^T register-tiled (8 rows x 4 keys a
+  thread) and O += P.V too (8 rows x 8 dims a thread over one of the
+  tile's key splits, the splits' partial sums added at the end), one
+  online-softmax step a tile in base 2 (each exponential one
+  ``ex2.approx`` of s log2(e) - m log2(e)), masks only on tiles the
+  causal diagonal or the end of Skv crosses.
 
 Both check bounds instead of padding.  ``bq``/``bk`` are the
 reference's VMEM block hints: validated, they do not shape the launch.
@@ -44,6 +50,14 @@ from repro_torch.kernels.conv2d.inner import check_block
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
+# the f32 kernel's blocking (FlashTile in csrc/attn_kernels.cu): query
+# rows a CTA; by head dim, the keys of a K/V tile and the key splits of
+# its P.V (partial sums added at the end)
+F32_ROWS = 64
+
+
+def f32_tile(d: int) -> tuple:
+    return (64, 2) if d <= 64 else (32, 1)
 
 
 def _cdiv(a: int, b: int) -> int:

@@ -11,26 +11,47 @@
 // (GQA).  Scores, softmax state and accumulators are f32, as in the
 // reference: q is scaled by D^-0.5 (the f32 of the wrapper's Python
 // float) before the dot, masked scores are -1e30, the normalizer is
-// clamped at 1e-30.  Both kernels merge key blocks through one
-// online-softmax step (online_softmax_step).  Dots and sums are
-// explicit __fmaf_rn / __fadd_rn chains on CUDA cores and exponentials
-// are expf.
+// clamped at 1e-30.  Dots and sums are explicit __fmaf_rn / __fadd_rn
+// chains on CUDA cores.  Decode merges key blocks through
+// online_softmax_step (expf); the flash kernel takes the same step in
+// base 2 (ex2.approx of the argument times log2(e)), which holds
+// ATTN_F32_TOL.
 //
-// flash_attention_kernel<float, D>
+// flash_attention_kernel<D>
 //   replaces src/repro/kernels/attention/flash.py::flash_attention on f32
 //   4*B*Hq*D operations per visible (query, key) pair on
-//   (2*B*Hq*Sq + 2*B*Hkv*Skv)*D elements moved: compute-bound at
-//   training shapes (the bf16 tensor-core peak is the card's bound).
-//   One CTA per (b*Hq + h, block of kBq = 64 query rows); a query row
-//   belongs to TPR = max(1, D/32) neighbouring threads, each holding 32
-//   (or D) of its q values and accumulators in registers, interleaved
-//   by float4 so the threads of a row read neighbouring shared-memory
-//   words.  K and V tiles of kBk = 32 keys are staged in shared memory
-//   as f32 with 16-byte loads.  Keys past Skv are masked by bounds
-//   checks (no padding); with causal, key j is visible to row i when
-//   j <= i + Skv - Sq, and the key loop stops at the last key any row of
-//   the block sees (the reference skips the same blocks).  A row that
-//   sees no key (causal with Sq > Skv) is written as 0.
+//   (2*B*Hq*Sq + 2*B*Hkv*Skv)*D elements moved: bound by the FP32 rate
+//   at training shapes (one exponential a pair is a sixteenth of it at
+//   the MUFU rate).  A FlashAttention-2 schedule on the FP32 FMA pipe,
+//   which issues one instruction a clock: every instruction that is not
+//   an FMA costs an FMA's slot, so the design counts them.  One CTA of
+//   128 threads per (b*Hq + h, block of kRows = 64 query rows), the
+//   blocks with the most keys launched first, two CTAs an SM.  The
+//   scaled Q block stays in shared memory for the whole key loop; K and
+//   V tiles of kKeys keys (64, or 32 at D = 128) come through a
+//   two-stage cp.async ring, the next tile's copies in flight while this
+//   one's FMAs issue (one barrier a tile).  Both products are
+//   register-tiled as mm_mxu_f32_kernel is.  S: thread (rg, cg) keeps 8
+//   rows (rg + 8 i) x 4 keys (cg + 16 c), reading per 4 dims its rows' q
+//   and its keys' k as 16-byte loads in K's layout as it lies ([key][d],
+//   rows padded by 4 floats, so a quarter-warp's 8 keys fall in 8 bank
+//   groups): 12 loads per 128 FMAs.  O += P.V: the same thread keeps the
+//   same 8 rows x 8 dims over one half of the tile's keys (at D <= 64;
+//   the halves' partial sums are added once, at the end), reading per 4
+//   keys its rows' P and the keys' V rows as they lie: 16 loads per 256
+//   FMAs.  The online softmax runs once a tile, in base 2: a row's max
+//   is combined over its 16 threads by shuffles, each (row, key)
+//   exponential is one MUFU.EX2 of s log2(e) - m log2(e), each thread
+//   keeps its part of the row's normalizer l (summed over the 16 at the
+//   end).  A thread rescales only its own rows, and the rows of P it
+//   reads were written by its own warp (a __syncwarp, not a barrier).
+//   Only tiles that the causal diagonal or the end of Skv crosses are
+//   masked.  Keys past Skv are zero-filled by the copies and masked;
+//   with causal, key j is visible to row i when j <= i + Skv - Sq, and
+//   the key loop stops at the last tile any row of the block sees (the
+//   reference skips the same blocks).  A row that sees no key (causal
+//   with Sq > Skv) is written as 0.  No MMA instruction: Hopper has no
+//   IEEE-f32 MMA, and TF32 misses the f32 tolerance.
 //
 // flash_decode_split_kernel<T, D, GP> + decode_combine_kernel<T>
 //   replace src/repro/kernels/attention/decode.py::flash_decode
@@ -69,8 +90,6 @@ enum DType { kF32 = 0, kBF16 = 4 };   // codes of cnn_kernels.cu
 
 constexpr float kMasked = -1e30f;     // the reference's _NEG_INF
 constexpr float kMinNorm = 1e-30f;    // l clamp before the division
-constexpr int kBq = 64;               // flash: query rows per CTA
-constexpr int kBk = 32;               // flash: keys per shared tile
 constexpr int kDecWarps = 8;          // decode: warps a CTA
 constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecRows = 8;           // decode: GQA rows a CTA at most
@@ -99,130 +118,300 @@ __device__ __forceinline__ float online_softmax_step(float& m, float& l,
   return alpha;
 }
 
-// Stage rows [k0, k0 + kRows) of one head's (S, D) slice into shared
-// memory as f32, `stride` words apart; rows at or past S are zero.
-// 16-byte loads: D * sizeof(T) is a multiple of 16 for every D the
-// kernels take, and the wrapper checks that each tensor starts aligned.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           float* dst, int stride, int k0,
-                                           int S) {
-  constexpr int kVec = 16 / sizeof(T);
-  for (int e = threadIdx.x * kVec; e < kRows * D; e += blockDim.x * kVec) {
-    const int j = e / D, d = e % D;
-    float* out = dst + j * stride + d;
-    if (k0 + j < S) {
-      const uint4 raw =
-          __ldg(reinterpret_cast<const uint4*>(src + size_t(k0 + j) * D + d));
-      const T* vals = reinterpret_cast<const T*>(&raw);
+// The f32 flash kernel's tile for head dim D: a CTA of kRG row groups
+// x kCG column groups; thread (rg, cg) owns rows rg + kRG i (i < RT) of
+// the query block, of each K/V tile keys cg + kCG c (c < KT) for S, and
+// for O += P.V the keys of split ks = cg / DG (kKS splits of the tile)
+// and DT dims (dims_of, dim group dg = cg % DG): the kKS partial sums of
+// O are added once, at the end.  The threads of a row group are kCG
+// neighbouring lanes of one warp.  Shared memory: the scaled Q block and
+// P (rows padded to kQLD and kPLD floats; P's key splits 4 floats apart,
+// so the splits' reads fall in other banks), and kStages K/V tiles, K
+// padded and V as it lies.  At D = 64 a CTA takes 101 KB, so two fit
+// an SM.
+template <int D> struct FlashTile {
+  static constexpr int kCG = 16;                    // column groups
+  static constexpr int kRG = 8;                     // row groups
+  static constexpr int kKeys = D <= 64 ? 64 : 32;   // keys a K/V tile
+  static constexpr int kKS = D <= 64 ? 2 : 1;       // key splits of P.V
+  static constexpr int kCtasPerSm = 2;
+  static constexpr int kStages = 2;
+  static constexpr int RT = 8;                      // rows a thread
+  static constexpr int kRows = kRG * RT;            // query rows a CTA
+  static constexpr int kThreads = kRG * kCG;
+  static constexpr int KT = kKeys / kCG;            // keys a thread in S
+  static constexpr int DG = kCG / kKS;              // dim groups
+  static constexpr int DT = D / DG;                 // dims of O a thread
+  static constexpr int kSplit = kKeys / kKS;        // keys a split
+  static constexpr int kQLD = D + 4;                // Q and K row pitch
+  static constexpr int kPLD = kKeys + 4 * kKS;      // P row pitch
+  static constexpr int kQ = kRows * kQLD;           // floats
+  static constexpr int kP = kRows * kPLD;
+  static constexpr int kK = kKeys * kQLD;
+  static constexpr int kStage = kK + kKeys * D;     // K then V
+  static constexpr size_t kSmem =
+      size_t(kQ + kP + kStages * kStage) * sizeof(float);
+  static constexpr int kRowChunks = D / 4;          // 16-byte words a row
+  static constexpr int kCopyRows = kThreads / kRowChunks;   // rows a pass
+  static_assert(kThreads % kRowChunks == 0 && kKeys % kCopyRows == 0 &&
+                    kRows % kCopyRows == 0,
+                "whole 16-byte copies a thread");
+  static_assert(32 % kCG == 0 && DT >= 1, "a row group within one warp");
+};
+
+// P's column of key k of a tile: the key splits 4 floats apart
+template <int SPLIT>
+__device__ __forceinline__ int pcol(int k) {
+  return k + 4 * (k / SPLIT);
+}
+
+// Dim e of the DT dims of O that dim group dg of DG owns: 4-dim runs
+// 4 DG apart from 4 dg (a quarter-warp reads neighbouring 16-byte words
+// of a V row), or DT neighbouring dims where DT < 4.
+template <int DG, int DT>
+__device__ __forceinline__ int dims_of(int dg, int e) {
+  return DT >= 4 ? 4 * DG * (e / 4) + 4 * dg + e % 4 : dg * DT + e;
+}
+
+// The DT values of a D-wide row at the dims dim group dg owns.
+template <int DG, int DT>
+__device__ __forceinline__ void load_dims(const float* row, int dg,
+                                          float (&v)[DT]) {
+  if constexpr (DT >= 4) {
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) out[i] = widen<float>(vals[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) out[i] = 0.f;
+    for (int h = 0; h < DT / 4; ++h) {
+      const float4 f =
+          *reinterpret_cast<const float4*>(row + 4 * DG * h + 4 * dg);
+      v[4 * h] = f.x;
+      v[4 * h + 1] = f.y;
+      v[4 * h + 2] = f.z;
+      v[4 * h + 3] = f.w;
     }
+  } else if constexpr (DT == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(row + 2 * dg);
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+    v[0] = row[dg];
   }
 }
 
-template <int D> struct RowSplit {
-  static constexpr int kThreads = D >= 32 ? D / 32 : 1;   // per query row
-  static constexpr int kDims = D / kThreads;              // per thread
-};
+// 2^x by the multi-function unit (one MUFU.EX2; results below 2^-126
+// flush to 0): the flash kernel's exponentials, with log2(e) folded
+// into the argument
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kBq * RowSplit<D>::kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int Sq, int Skv, int causal, float scale) {
-  constexpr int TPR = RowSplit<D>::kThreads;
-  constexpr int DT = RowSplit<D>::kDims;
-  constexpr int NC = DT / 4;                  // float4 chunks per thread
-  __shared__ __align__(16) float ks[kBk * D];
-  __shared__ __align__(16) float vs[kBk * D];
-  const int bh = blockIdx.x;                  // b * Hq + h
+template <int D>
+__global__ void __launch_bounds__(FlashTile<D>::kThreads,
+                                  FlashTile<D>::kCtasPerSm)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int Hq, int Hkv, int Sq, int Skv, int causal,
+                       float scale) {
+  using Tile = FlashTile<D>;
+  constexpr int RT = Tile::RT, KT = Tile::KT, DT = Tile::DT;
+  constexpr int BK = Tile::kKeys, QLD = Tile::kQLD, PLD = Tile::kPLD;
+  constexpr int CG = Tile::kCG, RG = Tile::kRG, DG = Tile::DG;
+  constexpr int SPLIT = Tile::kSplit, CR = Tile::kCopyRows;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);   // [kRows][QLD], q * scale
+  float* ps = qs + Tile::kQ;               // [kRows][PLD], this tile's P
+  float* ring = ps + Tile::kP;             // kStages x (K [BK][QLD], V [BK][D])
+  const int t = threadIdx.x, rg = t / CG, cg = t % CG;
+  const int ks = cg / DG, dg = cg % DG;
+  const int bh = blockIdx.x;               // b * Hq + h
   const int group = Hq / Hkv;
   const int kvh = (bh / Hq) * Hkv + (bh % Hq) / group;
-  const int row = threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const int q0 = blockIdx.y * kBq, qi = q0 + row;
+  // the last query blocks see the most keys: launch them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Tile::kRows;
   const int offs = Skv - Sq;
-  const bool live = qi < Sq;
-  // chunk c of this thread covers dims 4 * (c * TPR + part) + 0..3
-  float qv[DT], acc[DT];
-  const T* qrow = q + (size_t(bh) * Sq + qi) * D;
+  // keys past q0 + kRows - 1 + offs are masked for every row of the block
+  const int kv_end = causal ? min(Skv, q0 + Tile::kRows + offs) : Skv;
+  const int tiles = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+  // this thread's 16-byte word of the rows it copies: row cr + CR u
+  const int cr = t / Tile::kRowChunks, cd = 4 * (t % Tile::kRowChunks);
+  const float* kt = k + (size_t(kvh) * Skv + cr) * D + cd;
+  const float* vt = v + (size_t(kvh) * Skv + cr) * D + cd;
+  const uint32_t ring_k = tc::smem_u32(ring + cr * QLD + cd);
+  const uint32_t ring_v = tc::smem_u32(ring + Tile::kK + cr * D + cd);
+
+  // K and V rows [k0, k0 + BK) of tile `tile` into its stage, 16 bytes a
+  // copy; rows at or past Skv zero-filled
+  auto stage = [&](int tile) {
+    const int k0 = tile * BK;
+    const uint32_t at = (tile % Tile::kStages) * Tile::kStage * 4;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
+    for (int u = 0; u < BK / CR; ++u) {
+      const bool ok = k0 + cr + CR * u < Skv;
+      const size_t off = size_t(k0 + CR * u) * D;
+      tc::cp_async16(ring_k + at + CR * u * QLD * 4, ok ? kt + off : k, ok);
+      tc::cp_async16(ring_v + at + CR * u * D * 4, ok ? vt + off : v, ok);
+    }
+  };
+  if (tiles > 0) stage(0);
+  tc::cp_async_commit();
+  const float* qt = q + (size_t(bh) * Sq + q0 + cr) * D + cd;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d = 4 * (c * TPR + part) + i;
-      qv[4 * c + i] = live ? __fmul_rn(widen<float>(qrow[d]), scale) : 0.f;
-      acc[4 * c + i] = 0.f;
+  for (int u = 0; u < Tile::kRows / CR; ++u) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + cr + CR * u < Sq) {
+      x = __ldg(reinterpret_cast<const float4*>(qt + size_t(CR * u) * D));
+      x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                      __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+    }
+    *reinterpret_cast<float4*>(qs + (cr + CR * u) * QLD + cd) = x;
+  }
+
+  float m[RT], l[RT], acc[RT][DT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DT; ++e) acc[i][e] = 0.f;
+  }
+  for (int tile = 0; tile < tiles; ++tile) {
+    tc::cp_async_wait<0>();
+    __syncthreads();        // the tile landed (and Q); the last P.V is done
+    if (tile + 1 < tiles) stage(tile + 1);
+    tc::cp_async_commit();
+    const float* ks_ = ring + (tile % Tile::kStages) * Tile::kStage;
+    const float* vs = ks_ + Tile::kK;
+    const int k0 = tile * BK;
+
+    // S = Q.K^T: each dot one FMA chain over d
+    float s[RT][KT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+#pragma unroll
+      for (int c = 0; c < KT; ++c) s[i][c] = 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[RT], kv[KT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(qs + (rg + RG * i) * QLD + d);
+      }
+#pragma unroll
+      for (int c = 0; c < KT; ++c) {
+        kv[c] = *reinterpret_cast<const float4*>(ks_ + (cg + CG * c) * QLD + d);
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          s[i][c] = __fmaf_rn(qv[i].x, kv[c].x, s[i][c]);
+          s[i][c] = __fmaf_rn(qv[i].y, kv[c].y, s[i][c]);
+          s[i][c] = __fmaf_rn(qv[i].z, kv[c].z, s[i][c]);
+          s[i][c] = __fmaf_rn(qv[i].w, kv[c].w, s[i][c]);
+        }
+      }
+    }
+    // the mask, only where the diagonal or the end of Skv crosses the tile
+    if (k0 + BK > Skv || (causal && k0 + BK - 1 > q0 + offs)) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int qi = q0 + rg + RG * i;
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          const int kp = k0 + cg + CG * c;
+          if (kp >= Skv || (causal && kp > qi + offs)) s[i][c] = kMasked;
+        }
+      }
+    }
+    // the online softmax step (flash.py:58-63) in base 2: the row's max
+    // over its CG threads; alpha = 2^((m - m') log2 e), P = 2^(s log2 e
+    // - m' log2 e); each thread sums its own keys' P into its part of l
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int c = 1; c < KT; ++c) mx = fmaxf(mx, s[i][c]);
+#pragma unroll
+      for (int x = 1; x < CG; x <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      }
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = ex2(__fmul_rn(__fsub_rn(m[i], m_new), kLog2e));
+      const float mc = __fmul_rn(m_new, kLog2e);
+      m[i] = m_new;
+      l[i] = __fmul_rn(l[i], alpha);
+#pragma unroll
+      for (int e = 0; e < DT; ++e) acc[i][e] = __fmul_rn(acc[i][e], alpha);
+      float* prow = ps + (rg + RG * i) * PLD;
+#pragma unroll
+      for (int c = 0; c < KT; ++c) {
+        const float p = ex2(__fmaf_rn(s[i][c], kLog2e, -mc));
+        l[i] = __fadd_rn(l[i], p);
+        prow[pcol<SPLIT>(cg + CG * c)] = p;
+      }
+    }
+    // P complete: a thread reads P only from its own rows, which the
+    // threads of its own row group, in its own warp, wrote
+    __syncwarp();
+    // O += P.V over this thread's key split: each partial one FMA chain
+    // over its keys in order
+    const float* pk = ps + pcol<SPLIT>(ks * SPLIT);
+    const float* vk = vs + ks * SPLIT * D;
+#pragma unroll
+    for (int j = 0; j < SPLIT; j += 4) {
+      float4 pv[RT];
+      float vv[4][DT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        pv[i] = *reinterpret_cast<const float4*>(pk + (rg + RG * i) * PLD + j);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) load_dims<DG, DT>(vk + (j + u) * D, dg, vv[u]);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int e = 0; e < DT; ++e) {
+          acc[i][e] = __fmaf_rn(pv[i].x, vv[0][e], acc[i][e]);
+          acc[i][e] = __fmaf_rn(pv[i].y, vv[1][e], acc[i][e]);
+          acc[i][e] = __fmaf_rn(pv[i].z, vv[2][e], acc[i][e]);
+          acc[i][e] = __fmaf_rn(pv[i].w, vv[3][e], acc[i][e]);
+        }
+      }
     }
   }
-  float m = kMasked, l = 0.f;
-  // keys past q0 + kBq - 1 + offs are masked for every row of the block
-  const int kv_end = causal ? min(Skv, q0 + kBq + offs) : Skv;
-  const T* kh = k + size_t(kvh) * Skv * D;
-  const T* vh = v + size_t(kvh) * Skv * D;
-  for (int k0 = 0; k0 < kv_end; k0 += kBk) {
-    __syncthreads();                          // the last tile is consumed
-    stage_rows<T, D, kBk>(kh, ks, D, k0, Skv);
-    stage_rows<T, D, kBk>(vh, vs, D, k0, Skv);
-    __syncthreads();
-    float s[kBk];
-    float tile_max = kMasked;
+  tc::cp_async_wait<0>();
+  // each row's normalizer (its CG threads' parts) and O (its kKS splits'
+  // partial sums)
 #pragma unroll
-    for (int j = 0; j < kBk; ++j) {
-      const float* kr = ks + j * D;
-      float dot = 0.f;
+  for (int i = 0; i < RT; ++i) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(kr + 4 * (c * TPR + part));
-        dot = __fmaf_rn(qv[4 * c], kk.x, dot);
-        dot = __fmaf_rn(qv[4 * c + 1], kk.y, dot);
-        dot = __fmaf_rn(qv[4 * c + 2], kk.z, dot);
-        dot = __fmaf_rn(qv[4 * c + 3], kk.w, dot);
-      }
-#pragma unroll
-      for (int x = 1; x < TPR; x <<= 1) {
-        dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, x));
-      }
-      const int kp = k0 + j;
-      const bool visible = kp < Skv && (!causal || kp <= qi + offs);
-      s[j] = visible ? dot : kMasked;
-      tile_max = vmax(tile_max, s[j]);
+    for (int x = 1; x < CG; x <<= 1) {
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], x));
     }
-    const float alpha = online_softmax_step(m, l, tile_max);
 #pragma unroll
-    for (int i = 0; i < DT; ++i) acc[i] = __fmul_rn(acc[i], alpha);
-    float psum = 0.f;
+    for (int x = DG; x < CG; x <<= 1) {
 #pragma unroll
-    for (int j = 0; j < kBk; ++j) {
-      const float p = expf(__fsub_rn(s[j], m));
-      psum = __fadd_rn(psum, p);
-      const float* vr = vs + j * D;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vr + 4 * (c * TPR + part));
-        acc[4 * c] = __fmaf_rn(p, vv.x, acc[4 * c]);
-        acc[4 * c + 1] = __fmaf_rn(p, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = __fmaf_rn(p, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = __fmaf_rn(p, vv.w, acc[4 * c + 3]);
+      for (int e = 0; e < DT; ++e) {
+        acc[i][e] = __fadd_rn(acc[i][e],
+                              __shfl_xor_sync(0xffffffffu, acc[i][e], x));
       }
     }
-    l = __fadd_rn(l, psum);
   }
-  if (!live) return;
-  const bool sees_a_key = !causal || qi + offs >= 0;
-  const float norm = fmaxf(l, kMinNorm);
-  T* orow = o + (size_t(bh) * Sq + qi) * D;
+  // split ks stores rows i = ks, ks + kKS, ..
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
+  for (int i = 0; i < RT; ++i) {
+    const int qi = q0 + rg + RG * i;
+    if (i % Tile::kKS != ks || qi >= Sq) continue;
+    const bool sees_a_key = !causal || qi + offs >= 0;
+    const float norm = fmaxf(l[i], kMinNorm);
+    float* orow = o + (size_t(bh) * Sq + qi) * D;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d = 4 * (c * TPR + part) + i;
-      orow[d] = narrow<T>(sees_a_key ? __fdiv_rn(acc[4 * c + i], norm) : 0.f);
+    for (int e = 0; e < DT; ++e) {
+      orow[dims_of<DG, DT>(dg, e)] =
+          sees_a_key ? __fdiv_rn(acc[i][e], norm) : 0.f;
     }
   }
 }
@@ -539,14 +728,22 @@ __global__ void decode_combine_kernel(const float* __restrict__ ws,
   o[idx] = narrow<T>(__fdiv_rn(num, fmaxf(den, kMinNorm)));
 }
 
-template <typename T, int D>
+template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                  cudaStream_t st) {
-  dim3 grid(B * Hq, (Sq + kBq - 1) / kBq);
-  flash_attention_kernel<T, D><<<grid, kBq * RowSplit<D>::kThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Sq, Skv, causal,
-      scale);
+  using Tile = FlashTile<D>;
+  auto kernel = flash_attention_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::kSmem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return int(err);
+  }
+  dim3 grid(B * Hq, (Sq + Tile::kRows - 1) / Tile::kRows);
+  kernel<<<grid, Tile::kThreads, Tile::kSmem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Hq, Hkv,
+      Sq, Skv, causal, scale);
   return int(cudaGetLastError());
 }
 
@@ -662,19 +859,18 @@ int decode_rows(const DecodePlan& p, const void* q, const void* k,
   return int(cudaErrorInvalidValue);
 }
 
-template <typename T>
 int flash_by_dim(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                  float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_flash<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                        causal, scale, st);
-    case 32: return launch_flash<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                        causal, scale, st);
-    case 64: return launch_flash<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                        causal, scale, st);
-    case 128: return launch_flash<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                          causal, scale, st);
+    case 16: return launch_flash<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+                                     scale, st);
+    case 32: return launch_flash<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+                                     scale, st);
+    case 64: return launch_flash<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+                                     scale, st);
+    case 128: return launch_flash<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                       causal, scale, st);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -729,8 +925,8 @@ int attn_flash(int dtype, const void* q, const void* k, const void* v,
                int causal, float scale, void* stream) {
   cudaStream_t st = cudaStream_t(stream);
   if (dtype == attn::kF32) {
-    return attn::flash_by_dim<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                     causal, scale, st);
+    return attn::flash_by_dim(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+                              scale, st);
   }
   if (dtype == attn::kBF16) {
     return attn_tc_flash(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale,

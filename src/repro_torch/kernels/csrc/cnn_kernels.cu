@@ -12,11 +12,10 @@
 // int32.  The tiled kernels (Conv1's, Conv2's, which Conv4 runs with two
 // streams, Conv3's and the fused block, which runs Conv1's or Conv2's
 // staging and chain) tile outputs and stage their inputs in shared
-// memory; pool2d_kernel and the two activation kernels walk 16-byte
-// vectors; pool2d_im2col_kernel maps one thread to one output element.
-// The channel tiling hints (block_cout, and block_c of the im2col pool)
-// shape the grid and the kernels mask the ragged edge, so results never
-// depend on them.  pool2d_kernel's block_c and the activations'
+// memory; the two pool kernels (one body, pool_window) and the two
+// activation kernels walk 16-byte vectors.  The channel tiling hint
+// block_cout shapes the grid and the kernels mask the ragged edge, so
+// results never depend on it.  The pools' block_c and the activations'
 // block_rows hints are validated and do not shape a grid.
 //
 // Kernel notes (what each replaces, what bounds it on the H100, and what
@@ -116,16 +115,18 @@
 //   rintf(__fmul_rn(__fadd_rn(x, r), s)) (rint: half to even, as
 //   jnp.round), clamped fmaxf(.., 0) first so NaN lands on entry 0.
 //
-// pool2d_im2col_kernel    replaces src/repro/kernels/pool2d/mxu_im2col.py::pool2d_im2col
+// pool2d_im2col_kernel<T, V, O, MODE, VE>  replaces src/repro/kernels/pool2d/mxu_im2col.py::pool2d_im2col
 //   kh*kw loads and adds (or compares) per output: bound by device
-//   memory.  The TPU kernel stacks the taps into a VMEM patch tensor so
-//   that avg becomes one MXU pass, ones(1, kh*kw) @ patches.  On Hopper
-//   a one-row product would waste the tensor cores and TF32 would miss
-//   f32 exactness, so the "patch" is each thread's tap loop in
-//   registers and the ones-product is kh*kw adds on CUDA cores, taken in
-//   the stacked (i-major) order; integer avg floors.  One thread per
-//   output, neighbouring threads on neighbouring channels, so loads and
-//   stores coalesce along C.
+//   memory, as pool2d_kernel.  The TPU kernel stacks the taps into a
+//   VMEM patch tensor so that avg becomes one MXU pass, ones(1, kh*kw) @
+//   patches.  On Hopper a one-row product would waste the tensor cores
+//   and TF32 would miss f32 exactness, so the "patch" is the taps a
+//   thread holds in registers and the ones-product is kh*kw adds on CUDA
+//   cores.  The stacked (i-major) order from tap (0, 0) is
+//   window_reduce's, so the member runs the window pool's body
+//   (pool_window, on pool_plan's cut: 16-byte vectors, two outputs a
+//   thread) under its own kernel name, and its results are
+//   pool2d_kernel's bit for bit; integer avg floors, max propagates NaN.
 //
 // fused_cnn_tiled_kernel<T, S, KS, WHOLE>  replaces src/repro/kernels/fused/cnn_block.py::_fused_call
 //   (members fused_cnn_vpu / fused_cnn_mxu).  The conv and pool
@@ -183,22 +184,6 @@ constexpr int kTableSize = 256;
 // Conv1 (kVpu), Conv2 (kMxu) and Conv3 (kPacked) staging
 enum Style { kVpu = 0, kMxu = 1, kPacked = 2 };
 enum DType { kF32 = 0, kI8 = 1, kI32 = 2, kI16 = 3, kBF16 = 4 };
-
-// Thread -> (pixel p, channel co) over a (pixels, channel tiles of bc) grid.
-struct Slot {
-  long long p;
-  int co;
-  bool live;
-};
-
-__device__ __forceinline__ Slot slot(long long pixels, int channels, int bc) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  Slot s;
-  s.p = idx / bc;
-  s.co = blockIdx.y * bc + int(idx % bc);
-  s.live = s.p < pixels && s.co < channels;
-  return s;
-}
 
 // conv2d_vpu_tiled_kernel: each thread keeps kConvPix output pixels x
 // kConvCh output channels in registers.
@@ -741,13 +726,13 @@ __device__ __forceinline__ void store_out(O* p, const V (&v)[VE], int kh,
   }
 }
 
-// pool2d_kernel: outputs a thread covers along a row (at most), and the
+// pool_window: outputs a thread covers along a row (at most), and the
 // window taps whose loads it issues before it reduces them.
 constexpr int kPoolOuts = 2;
 constexpr int kPoolTaps = 4;
 
-// The cut of pool2d_kernel, made by the wrapper
-// (kernels/pool2d/vpu_window.py::pool_plan) and checked by cnn_pool2d: a
+// The cut of both pool kernels, made by the wrappers
+// (kernels/pool2d/vpu_window.py::pool_plan) and checked by pool_launch: a
 // thread owns ve channels (16 bytes of input, or 1 on the scalar path)
 // of outs outputs of one output row, ow = q, q + lanes, ..; cv = C / ve
 // threads cover a pixel's channels, lanes * cv an output row, and the
@@ -763,12 +748,14 @@ struct WindowPlan {
 // taps are loaded kPoolTaps at a time (all taps of a 2x2 window at
 // once) for each of the thread's outputs, then taken in i-major order
 // from (0, 0) through window_step, each element on its own: the
-// reduction order of window_reduce.
+// reduction order of window_reduce, and of the im2col member's stacked
+// taps.  The body of pool2d_kernel and pool2d_im2col_kernel.
 template <typename T, typename V, typename O, int MODE, int VE>
-__global__ void __launch_bounds__(kThreads)
-pool2d_kernel(const T* __restrict__ x, O* __restrict__ y, int N, int H,
-              int W, int C, int KH, int KW, int SH, int SW, int Ho, int Wo,
-              WindowPlan wp) {
+__device__ __forceinline__ void pool_window(const T* __restrict__ x,
+                                            O* __restrict__ y, int N, int H,
+                                            int W, int C, int KH, int KW,
+                                            int SH, int SW, int Ho, int Wo,
+                                            WindowPlan wp) {
   using Raw = typename RawOf<T, VE>::type;
   const unsigned g = blockIdx.x * kThreads + threadIdx.x;
   const unsigned per_row = unsigned(wp.lanes) * unsigned(wp.cv);
@@ -838,6 +825,26 @@ pool2d_kernel(const T* __restrict__ x, O* __restrict__ y, int N, int H,
       store_out<O>(yr + size_t(k) * wp.lanes * C, acc[k], KH, KW, MODE);
     }
   }
+}
+
+// pool_vpu (pool2d_window) and pool_im2col (pool2d_im2col): one body,
+// two kernels, so that each member keeps its own name in SASS and in
+// the profiler.
+template <typename T, typename V, typename O, int MODE, int VE>
+__global__ void __launch_bounds__(kThreads)
+pool2d_kernel(const T* __restrict__ x, O* __restrict__ y, int N, int H,
+              int W, int C, int KH, int KW, int SH, int SW, int Ho, int Wo,
+              WindowPlan wp) {
+  pool_window<T, V, O, MODE, VE>(x, y, N, H, W, C, KH, KW, SH, SW, Ho, Wo,
+                                 wp);
+}
+template <typename T, typename V, typename O, int MODE, int VE>
+__global__ void __launch_bounds__(kThreads)
+pool2d_im2col_kernel(const T* __restrict__ x, O* __restrict__ y, int N,
+                     int H, int W, int C, int KH, int KW, int SH, int SW,
+                     int Ho, int Wo, WindowPlan wp) {
+  pool_window<T, V, O, MODE, VE>(x, y, N, H, W, C, KH, KW, SH, SW, Ho, Wo,
+                                 wp);
 }
 
 // An activation's output type: bf16 stays bf16, every other input
@@ -958,30 +965,6 @@ activation_lut_kernel(const T* __restrict__ x,
     return narrow<O>(lut[k]);
   };
   act_walk(x, y, numel, head, vstore, stage, one);
-}
-
-// The taps in stacked order (i-major): max over them, or their sum and
-// the count's division (integer: floor).
-template <typename T, typename V, typename O>
-__global__ void pool2d_im2col_kernel(const T* __restrict__ x,
-                                     O* __restrict__ y, int N, int H, int W,
-                                     int C, int KH, int KW, int SH, int SW,
-                                     int Ho, int Wo, int mode, int bc) {
-  Slot t = slot((long long)N * Ho * Wo, C, bc);
-  if (!t.live) return;
-  int ow = int(t.p % Wo);
-  long long r = t.p / Wo;
-  int oh = int(r % Ho);
-  int n = int(r / Ho);
-  const T* base = x + ((size_t(n) * H + size_t(oh) * SH) * W +
-                       size_t(ow) * SW) * C + t.co;
-  V acc = widen<V>(base[0]);
-  for (int tap = 1; tap < KH * KW; ++tap) {
-    V v = widen<V>(base[(size_t(tap / KW) * W + tap % KW) * C]);
-    acc = (mode == kMax) ? vmax(acc, v) : add(acc, v);
-  }
-  if (mode == kAvg) acc = avg_div(acc, KH * KW);
-  y[t.p * C + t.co] = narrow<O>(acc);
 }
 
 // The pooled-space cut of the fused kernel, made by the wrapper
@@ -1384,10 +1367,6 @@ conv2d_ip3_tiled_kernel(const int8_t* __restrict__ xa,
   store_tile(yb, s, Ho, Wo, t, tt.cg, tt.pr, tt.pc, rb);
 }
 
-inline unsigned blocks_for(long long items) {
-  return unsigned((items + kThreads - 1) / kThreads);
-}
-
 // A tile plan fits the conv and the CTA: 4 << glog channels, th x
 // 2^twlog pixels (twlog <= max_twlog), kConvPix a lane, chunks of Cin.
 inline bool plan_ok(int glog, int twlog, int max_twlog, int th, int cc,
@@ -1514,6 +1493,69 @@ inline int act_split(int dtype, const void* x, const void* y,
   return 0;
 }
 
+// Both pools on the cut of vpu_window.py::pool_plan: ve elements a
+// thread (16 / sizeof(T) where C * sizeof(T) is a multiple of 16 and x
+// and y are 16-byte aligned, else 1), outs outputs a thread lanes apart
+// along a row, ctas CTAs; pool2d_im2col_kernel where im2col, else
+// pool2d_kernel.  Refuses an unknown dtype or mode, a window larger
+// than the input, a plan that does not cover the output exactly or a
+// geometry past 32-bit index math.
+int pool_launch(bool im2col, int dtype, int mode, const void* x, void* y,
+                int N, int H, int W, int C, int KH, int KW, int SH, int SW,
+                int ve, int outs, int lanes, long long ctas, void* stream) {
+  const int size = dtype == kF32 || dtype == kI32 ? 4 : dtype == kBF16 ? 2
+                   : dtype == kI8 ? 1 : 0;
+  if (size == 0 || (mode != kMax && mode != kAvg) || N < 1 || C < 1 ||
+      KH < 1 || KW < 1 || SH < 1 || SW < 1 || KH > H || KW > W ||
+      (long long)H * W * C > 0x7fffffffLL) {
+    return int(cudaErrorInvalidValue);
+  }
+  const int Ho = (H - KH) / SH + 1, Wo = (W - KW) / SW + 1;
+  const bool vec = ve == 16 / size;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  if (!(ve == 1 || (vec && C % ve == 0 && aligned)) || outs < 1 ||
+      outs > kPoolOuts || lanes < 1 || (long long)lanes * outs < Wo ||
+      (long long)(lanes - 1) * outs >= Wo) {
+    return int(cudaErrorInvalidValue);
+  }
+  const WindowPlan wp{ve, outs, lanes, C / ve};
+  const long long threads = (long long)N * Ho * lanes * wp.cv;
+  if (threads > 0x7fffffffLL - kThreads ||
+      ctas != (threads + kThreads - 1) / kThreads) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = cudaStream_t(stream);
+  auto run = [&](auto window, auto stacked, auto xp, auto yp) {
+    (im2col ? stacked : window)<<<unsigned(ctas), kThreads, 0, st>>>(
+        xp, yp, N, H, W, C, KH, KW, SH, SW, Ho, Wo, wp);
+    return int(cudaGetLastError());
+  };
+  // T, V, O: input, reduce and stored types; each mode on both paths
+#define CNN_POOL_VE(T, V, O, M, VE)                                         \
+  run(pool2d_kernel<T, V, O, M, VE>, pool2d_im2col_kernel<T, V, O, M, VE>,  \
+      (const T*)x, (O*)y)
+#define CNN_POOL(T, V, O, M)                                                \
+  return vec ? CNN_POOL_VE(T, V, O, M, 16 / int(sizeof(T)))                 \
+             : CNN_POOL_VE(T, V, O, M, 1)
+  if (dtype == kF32) {
+    if (mode == kMax) CNN_POOL(float, float, float, kMax);
+    CNN_POOL(float, float, float, kAvg);
+  }
+  if (dtype == kBF16) {
+    if (mode == kMax) CNN_POOL(__nv_bfloat16, float, __nv_bfloat16, kMax);
+    CNN_POOL(__nv_bfloat16, float, float, kAvg);
+  }
+  if (dtype == kI8) {
+    if (mode == kMax) CNN_POOL(int8_t, int32_t, int8_t, kMax);
+    CNN_POOL(int8_t, int32_t, int32_t, kAvg);
+  }
+  if (mode == kMax) CNN_POOL(int32_t, int32_t, int32_t, kMax);
+  CNN_POOL(int32_t, int32_t, int32_t, kAvg);
+#undef CNN_POOL
+#undef CNN_POOL_VE
+}
+
 }  // namespace cnn
 
 using namespace cnn;
@@ -1540,62 +1582,12 @@ int cnn_conv1(int dtype, const void* x, const void* w, void* y, int N, int H,
                     glog, twlog, th, cc, whole, stream);
 }
 
-// pool_vpu (pool2d_window) on the cut of vpu_window.py::pool_plan: ve
-// elements a thread (16 / sizeof(T) where C * sizeof(T) is a multiple of
-// 16 and x and y are 16-byte aligned, else 1), outs outputs a thread
-// lanes apart along a row, ctas CTAs.  Refuses a plan that does not
-// cover the output exactly or a geometry past 32-bit index math.
+// pool_vpu (pool2d_window) on pool_launch's checks and cut.
 int cnn_pool2d(int dtype, int mode, const void* x, void* y, int N, int H,
                int W, int C, int KH, int KW, int SH, int SW, int ve,
                int outs, int lanes, long long ctas, void* stream) {
-  const int size = dtype == kF32 || dtype == kI32 ? 4 : dtype == kBF16 ? 2
-                   : dtype == kI8 ? 1 : 0;
-  if (size == 0 || (mode != kMax && mode != kAvg) || N < 1 || C < 1 ||
-      KH < 1 || KW < 1 || SH < 1 || SW < 1 || KH > H || KW > W ||
-      (long long)H * W * C > 0x7fffffffLL) {
-    return int(cudaErrorInvalidValue);
-  }
-  const int Ho = (H - KH) / SH + 1, Wo = (W - KW) / SW + 1;
-  const bool vec = ve == 16 / size;
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) |
-                        reinterpret_cast<uintptr_t>(y)) % 16 == 0;
-  if (!(ve == 1 || (vec && C % ve == 0 && aligned)) || outs < 1 ||
-      outs > kPoolOuts || lanes < 1 || (long long)lanes * outs < Wo ||
-      (long long)(lanes - 1) * outs >= Wo) {
-    return int(cudaErrorInvalidValue);
-  }
-  const WindowPlan wp{ve, outs, lanes, C / ve};
-  const long long threads = (long long)N * Ho * lanes * wp.cv;
-  if (threads > 0x7fffffffLL - kThreads ||
-      ctas != (threads + kThreads - 1) / kThreads) {
-    return int(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = cudaStream_t(stream);
-  auto run = [&](auto kernel, auto xp, auto yp) {
-    kernel<<<unsigned(ctas), kThreads, 0, st>>>(xp, yp, N, H, W, C, KH, KW,
-                                                SH, SW, Ho, Wo, wp);
-    return int(cudaGetLastError());
-  };
-  // T, V, O: input, reduce and stored types; each mode on both paths
-#define CNN_POOL(T, V, O, M)                                                \
-  return vec ? run(pool2d_kernel<T, V, O, M, 16 / int(sizeof(T))>,          \
-                   (const T*)x, (O*)y)                                      \
-             : run(pool2d_kernel<T, V, O, M, 1>, (const T*)x, (O*)y)
-  if (dtype == kF32) {
-    if (mode == kMax) CNN_POOL(float, float, float, kMax);
-    CNN_POOL(float, float, float, kAvg);
-  }
-  if (dtype == kBF16) {
-    if (mode == kMax) CNN_POOL(__nv_bfloat16, float, __nv_bfloat16, kMax);
-    CNN_POOL(__nv_bfloat16, float, float, kAvg);
-  }
-  if (dtype == kI8) {
-    if (mode == kMax) CNN_POOL(int8_t, int32_t, int8_t, kMax);
-    CNN_POOL(int8_t, int32_t, int32_t, kAvg);
-  }
-  if (mode == kMax) CNN_POOL(int32_t, int32_t, int32_t, kMax);
-  CNN_POOL(int32_t, int32_t, int32_t, kAvg);
-#undef CNN_POOL
+  return pool_launch(false, dtype, mode, x, y, N, H, W, C, KH, KW, SH, SW,
+                     ve, outs, lanes, ctas, stream);
 }
 
 // act_split as a query (no launch): out = head, vstore, tiles, grid.
@@ -1668,32 +1660,14 @@ int cnn_activation_lut(int dtype, const void* x, const float* table,
 #undef CNN_LUT
 }
 
+// pool_im2col (pool2d_im2col): the window pool's checks, cut and body
+// under pool2d_im2col_kernel.
 int cnn_pool2d_im2col(int dtype, int mode, const void* x, void* y, int N,
                       int H, int W, int C, int KH, int KW, int SH, int SW,
-                      int bc, void* stream) {
-  int Ho = (H - KH) / SH + 1, Wo = (W - KW) / SW + 1;
-  dim3 grid(blocks_for((long long)N * Ho * Wo * bc), (C + bc - 1) / bc);
-  cudaStream_t st = cudaStream_t(stream);
-#define CNN_IM2COL(T, V, O)                                                 \
-  pool2d_im2col_kernel<T, V, O><<<grid, kThreads, 0, st>>>(                 \
-      (const T*)x, (O*)y, N, H, W, C, KH, KW, SH, SW, Ho, Wo, mode, bc)
-  if (dtype == kF32) {
-    CNN_IM2COL(float, float, float);
-  } else if (dtype == kBF16 && mode == kMax) {
-    CNN_IM2COL(__nv_bfloat16, float, __nv_bfloat16);
-  } else if (dtype == kBF16 && mode == kAvg) {
-    CNN_IM2COL(__nv_bfloat16, float, float);
-  } else if (dtype == kI8 && mode == kMax) {
-    CNN_IM2COL(int8_t, int32_t, int8_t);
-  } else if (dtype == kI8 && mode == kAvg) {
-    CNN_IM2COL(int8_t, int32_t, int32_t);
-  } else if (dtype == kI32) {
-    CNN_IM2COL(int32_t, int32_t, int32_t);
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-#undef CNN_IM2COL
-  return int(cudaGetLastError());
+                      int ve, int outs, int lanes, long long ctas,
+                      void* stream) {
+  return pool_launch(true, dtype, mode, x, y, N, H, W, C, KH, KW, SH, SW,
+                     ve, outs, lanes, ctas, stream);
 }
 
 // The fused block on the tile plan (glog, twlog, th, cc, whole) and the

@@ -60,7 +60,7 @@ _SIGNATURES = {
     "cnn_activation_plan": (_I, _P, _P, ctypes.c_longlong, _I,
                             ctypes.POINTER(ctypes.c_longlong)),
     "cnn_pool2d_im2col": (_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P),
+                          _I, _I, _I, ctypes.c_longlong, _P),
     "cnn_conv2d_dual": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P),
     "cnn_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -4,12 +4,17 @@ Replaces ``repro/kernels/pool2d/mxu_im2col.py::pool2d_im2col``.  The
 reference stacks the KH*KW strided taps into a patch tensor in VMEM and
 reduces over the tap axis: max with one vectorized max, avg with one MXU
 pass ``ones(1, KH*KW) @ patches`` and the count's division (integers
-floor).  The kernel (``pool2d_im2col_kernel`` in
-``csrc/cnn_kernels.cu``) maps one thread to one output and reduces its
-taps in the stacked (i-major) order on CUDA cores; the plain version
-below reduces the stacked taps in the same order, so the two agree
-bitwise.  Max propagates NaN; ``block_c`` shapes the grid, never the
-result.
+floor).  On the card a one-row product would waste the tensor cores and
+TF32 would change f32 bits, so the member runs the window pool's body:
+``pool2d_im2col_kernel`` in ``csrc/cnn_kernels.cu`` is ``pool2d_kernel``
+under its own name, on ``vpu_window.pool_plan``'s cut (16-byte vectors
+where C * itemsize is a multiple of 16 and both addresses are aligned,
+else one element a thread; two outputs a thread; three 32-bit divisions
+a thread).  The stacked (i-major) order from tap (0, 0) is
+``window_reduce``'s, so the kernel, the plain version below and
+``pool2d_window`` agree bitwise.  Max propagates NaN.  The ``block_c``
+hint is validated as in the reference and priced by the footprint; it
+does not shape the grid.
 """
 from __future__ import annotations
 
@@ -17,11 +22,11 @@ import torch
 
 from repro_torch.core.resources import (Footprint, cost_cycles,
                                         mxu_pass_cycles, vpu_op_cycles)
-from repro_torch.kernels import cuda
 from repro_torch.kernels.conv2d.inner import check_block
 from repro_torch.kernels.pool2d.ref import (MODES, check_pool_geometry,
                                             pool2d_out_shape, pool_dtypes)
-from repro_torch.kernels.pool2d.vpu_window import CUDA_DTYPES, MODE_CODE
+# CUDA_DTYPES: the window pool's, as the kernel is its body
+from repro_torch.kernels.pool2d.vpu_window import CUDA_DTYPES, launch_pool
 
 
 def pool2d_im2col_plain(x, *, window=(2, 2), stride=None,
@@ -50,27 +55,16 @@ def pool2d_im2col_plain(x, *, window=(2, 2), stride=None,
 def pool2d_im2col(x: torch.Tensor, *, window=(2, 2), stride=None,
                   mode: str = "max", block_c: int = 128) -> torch.Tensor:
     """Max/avg pooling, output dtype per ``pool_dtypes``.  CUDA tensors
-    (``CUDA_DTYPES``) launch the kernel; CPU tensors run the plain
-    version."""
+    (``CUDA_DTYPES``) launch the kernel once, on ``pool_plan``'s cut;
+    CPU tensors run the plain version."""
     if mode not in MODES:
         raise ValueError(f"unknown pool mode {mode!r}; have {MODES}")
     check_block("block_c", block_c)
     if not x.is_cuda:
         return pool2d_im2col_plain(x, window=window, stride=stride,
                                    mode=mode)
-    cuda.require(x, "x", CUDA_DTYPES, ndim=4)
-    (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
-    n, h, w, c = x.shape
-    _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))
-    _, out_dtype = pool_dtypes(x.dtype, mode)
-    y = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    cuda.launch("pool2d_im2col", "cnn_pool2d_im2col", x.device,
-                cuda.DTYPE_CODE[x.dtype], MODE_CODE[mode], x.data_ptr(),
-                y.data_ptr(), n, h, w, c, kh, kw, sh, sw,
-                min(int(block_c), c))
-    return y
+    return launch_pool("pool2d_im2col", "cnn_pool2d_im2col", x,
+                       window=window, stride=stride, mode=mode)
 
 
 def footprint(n, h, w, c, kh, kw, sh, sw, *, itemsize=1, mode="max",

@@ -19,7 +19,8 @@ taps through the shared ``__device__`` ``window_step`` in
 the window's first element, then i-major; max propagates NaN, float avg
 divides by the count, integer avg floors.  No tensor-core instruction.
 The ``block_c`` hint is validated as in the reference and priced by the
-footprint; it does not shape the grid.
+footprint; it does not shape the grid.  ``mxu_im2col.pool2d_im2col``
+launches the same body under ``pool2d_im2col_kernel`` (``launch_pool``).
 """
 from __future__ import annotations
 
@@ -114,6 +115,27 @@ def pool2d_window_plain(x, *, window=(2, 2), stride=None,
                          mode=mode, acc_dtype=acc)
 
 
+def launch_pool(counter: str, entry: str, x: torch.Tensor, *, window,
+                stride, mode: str) -> torch.Tensor:
+    """One launch of C entry ``entry`` (``cnn_pool2d`` or
+    ``cnn_pool2d_im2col``: one body, two kernels) on ``pool_plan``'s cut
+    of the CUDA tensor ``x``, counted under ``counter``."""
+    cuda.require(x, "x", CUDA_DTYPES, ndim=4)
+    (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
+    n, h, w, c = x.shape
+    _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))
+    _, out_dtype = pool_dtypes(x.dtype, mode)
+    y = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    plan = pool_plan(n, h, w, c, kh, kw, sh, sw, itemsize=x.element_size(),
+                     x_addr=x.data_ptr(), y_addr=y.data_ptr())
+    cuda.launch(counter, entry, x.device, cuda.DTYPE_CODE[x.dtype],
+                MODE_CODE[mode], x.data_ptr(), y.data_ptr(), n, h, w, c, kh,
+                kw, sh, sw, plan.ve, plan.outs, plan.lanes, plan.ctas)
+    return y
+
+
 def pool2d_window(x: torch.Tensor, *, window=(2, 2), stride=None,
                   mode: str = "max", block_c: int = 128) -> torch.Tensor:
     """Max/avg pooling, output dtype per ``pool_dtypes``.  CUDA tensors
@@ -125,21 +147,8 @@ def pool2d_window(x: torch.Tensor, *, window=(2, 2), stride=None,
     if not x.is_cuda:
         return pool2d_window_plain(x, window=window, stride=stride,
                                    mode=mode)
-    cuda.require(x, "x", CUDA_DTYPES, ndim=4)
-    (kh, kw), (sh, sw) = check_pool_geometry(x.shape, window, stride)
-    n, h, w, c = x.shape
-    _, ho, wo, _ = pool2d_out_shape(x.shape, (kh, kw), (sh, sw))
-    _, out_dtype = pool_dtypes(x.dtype, mode)
-    y = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    plan = pool_plan(n, h, w, c, kh, kw, sh, sw, itemsize=x.element_size(),
-                     x_addr=x.data_ptr(), y_addr=y.data_ptr())
-    cuda.launch("pool2d_window", "cnn_pool2d", x.device,
-                cuda.DTYPE_CODE[x.dtype], MODE_CODE[mode], x.data_ptr(),
-                y.data_ptr(), n, h, w, c, kh, kw, sh, sw, plan.ve,
-                plan.outs, plan.lanes, plan.ctas)
-    return y
+    return launch_pool("pool2d_window", "cnn_pool2d", x, window=window,
+                       stride=stride, mode=mode)
 
 
 def footprint(n, h, w, c, kh, kw, sh, sw, *, itemsize=1, mode="max",

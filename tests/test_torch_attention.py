@@ -188,6 +188,90 @@ def test_flash_split_p_emulation_holds_the_bound(rng, case, causal):
         assert (got[:, :, :live] == 0).all()
 
 
+def _f32_tile_flash(q, k, v, causal):
+    """The arithmetic of the f32 CUDA-core kernel
+    (``csrc/attn_kernels.cu::flash_attention_kernel``), emulated in f32
+    on the CPU: blocks of ``F32_ROWS`` query rows against key tiles of
+    ``f32_tile(D)`` keys, the loop ending at the last tile any row of the
+    block sees; S = (q * D^-0.5) K^T, masked at -1e30 only in tiles that
+    the causal diagonal or the end of Skv crosses (keys past Skv are left
+    out: the kernel's zero-filled, masked keys add nothing to a row that
+    sees a key); one online-softmax step a tile in base 2, m' = max(m,
+    row max), alpha = 2^((m - m') log2 e), P = 2^(s log2 e - m' log2 e),
+    l = l alpha + sum P; O += P.V in the tile's key splits, each split's
+    partial sum rescaled by alpha and the partials added at the end;
+    o = O / max(l, 1e-30); rows that see no key 0."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group, offs = hq // hkv, skv - sq
+    bq = t_flash_mod.F32_ROWS
+    bk, splits = t_flash_mod.f32_tile(d)
+    c = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qf = q.float() * torch.tensor(d ** -0.5, dtype=torch.float32)
+    kf, vf = k.float(), v.float()
+    out = torch.zeros((b, hq, sq, d))
+    for bi in range(b):
+        for h in range(hq):
+            for q0 in range(0, sq, bq):
+                qb = qf[bi, h, q0:q0 + bq]
+                rows = torch.arange(q0, q0 + qb.shape[0])[:, None]
+                m = torch.full((qb.shape[0],), -1e30)
+                l = torch.zeros(qb.shape[0])
+                acc = torch.zeros(splits, qb.shape[0], d)
+                end = min(skv, q0 + bq + offs) if causal else skv
+                for k0 in range(0, max(end, 0), bk):
+                    kt = kf[bi, h // group, k0:k0 + bk]
+                    vt = vf[bi, h // group, k0:k0 + bk]
+                    s = qb @ kt.T
+                    if causal and k0 + bk - 1 > q0 + offs:
+                        cols = torch.arange(k0, k0 + kt.shape[0])[None, :]
+                        s = s.masked_fill(cols > rows + offs, -1e30)
+                    mx = torch.maximum(m, s.amax(dim=1))
+                    alpha = torch.exp2((m - mx) * c)
+                    m = mx
+                    p = torch.exp2(s * c - (m * c)[:, None])
+                    l = l * alpha + p.sum(dim=1)
+                    acc = acc * alpha[:, None]
+                    half = bk // splits
+                    for sp in range(splits):
+                        acc[sp] += (p[:, sp * half:(sp + 1) * half]
+                                    @ vt[sp * half:(sp + 1) * half])
+                o = acc.sum(dim=0) / l.clamp(min=1e-30)[:, None]
+                if causal:
+                    o[(rows[:, 0] + offs) < 0] = 0
+                out[bi, h, q0:q0 + bq] = o
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", [(1, 4, 2, 512, 512, 64),
+                                  (1, 4, 2, 300, 200, 64),
+                                  (1, 2, 1, 130, 400, 16),
+                                  (1, 2, 2, 200, 333, 128),
+                                  (2, 4, 4, 97, 97, 16),
+                                  (1, 4, 1, 150, 70, 128)],
+                         ids=["gqa512", "dead_rows", "cached16", "d128",
+                              "mha16", "mqa_dead128"])
+def test_flash_f32_tile_emulation_holds_the_bound(rng, case, causal):
+    """The f32 kernel's arithmetic (``_f32_tile_flash``) stays within
+    ``chip_smoke.ATTN_F32_TOL`` of ``flash_attention_plain`` and within
+    the reference test's f32 bound of its Pallas kernel (interpret mode;
+    rows that see no key excepted, where the reference's value depends
+    on its blocking; those rows are 0)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, *case)
+    got = _f32_tile_flash(tq, tk, tv, causal)
+    assert got.dtype == torch.float32 and got.shape == tq.shape
+    torch.testing.assert_close(got, flash_attention_plain(tq, tk, tv,
+                                                          causal=causal),
+                               **chip_smoke.ATTN_F32_TOL)
+    live = max(0, case[3] - case[4]) if causal else 0
+    want = j_flash(jq, jk, jv, causal=causal, bq=128, bk=128)
+    np.testing.assert_allclose(_np(got)[:, :, live:],
+                               _np(want)[:, :, live:], **F32)
+    if live:
+        assert (got[:, :, :live] == 0).all()
+
+
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("skv", [17, 64, 100, 257])
 def test_decode_plain_matches_reference_kernel(rng, skv, group):

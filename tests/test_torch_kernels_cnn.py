@@ -569,17 +569,30 @@ POOL_PLAN_IDS = ["c16-2x2", "c3-3x3s1", "c7-3x3s2", "c17-1x3s12", "c33-2x2",
                  "c16-whole", "c32-3x3s1", "c16-offset1", "c48-3x3s12-offset1"]
 
 
+# each member's reference kernel and plain version: pool2d_im2col's
+# kernel is pool2d_window's body (pool_window) under its own name, on the
+# same pool_plan cut
+POOL_MEMBERS = {"pool2d_window": (j_pool.pool2d_window,
+                                  t_pool.pool2d_window_plain),
+                "pool2d_im2col": (j_im2col.pool2d_im2col,
+                                  t_im2col.pool2d_im2col_plain)}
+
+
+@pytest.mark.parametrize("member", sorted(POOL_MEMBERS))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int32"])
 @pytest.mark.parametrize("mode", ["max", "avg"])
 @pytest.mark.parametrize("xs,window,stride,off", POOL_PLANS,
                          ids=POOL_PLAN_IDS)
-def test_pool_plan_emulation(rng, dtype, mode, xs, window, stride, off):
+def test_pool_plan_emulation(rng, dtype, mode, xs, window, stride, off,
+                             member):
     """``pool_plan``'s cut walked thread by thread covers every output
     exactly once, takes 16-byte vectors exactly where C * itemsize is a
     multiple of 16 and the input is aligned, and its reduction is
-    bitwise ``pool2d_window_plain``; the result matches the reference's
+    bitwise the member's plain version (and both plain versions equal
+    each other bitwise); the result matches the member's reference
     kernel in interpret mode (integers and max exactly, float avg within
     ``TIGHT``)."""
+    j_member, t_plain = POOL_MEMBERS[member]
     numel = int(np.prod(xs))
     if dtype in ("int8", "int32"):
         vals = torch.from_numpy(rng.integers(-128, 128, numel + off))
@@ -600,12 +613,13 @@ def test_pool_plan_emulation(rng, dtype, mode, xs, window, stride, off):
     got, hits = _pool_walk(x, plan, kh, kw, sh, sw, mode)
     assert (hits == 1).all()
     assert got.dtype == t_pool.pool_dtypes(x.dtype, mode)[1]
-    assert torch.equal(got, t_pool.pool2d_window_plain(
-        x, window=window, stride=stride, mode=mode))
+    kw_ = dict(window=window, stride=stride, mode=mode)
+    assert torch.equal(got, t_plain(x, **kw_))
+    assert torch.equal(t_im2col.pool2d_im2col_plain(x, **kw_),
+                       t_pool.pool2d_window_plain(x, **kw_))
     jx = jnp.asarray(x.float().numpy()).astype(
         jnp.bfloat16 if dtype == "bfloat16" else dtype)
-    want = j_pool.pool2d_window(jx, window=window, stride=stride, mode=mode,
-                                interpret=True)
+    want = j_member(jx, interpret=True, **kw_)
     assert str(want.dtype) == str(got.dtype).split(".")[1]
     want = np.asarray(want.astype(jnp.float32)) if dtype == "bfloat16" \
         else np.asarray(want)
