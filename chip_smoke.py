@@ -82,8 +82,33 @@ and prints no result):
    after) and on the CPU: the light tenant's plans are the expected
    ones, ``fused_cnn_mxu`` / ``activation_lut`` launched, the
    accounting equals the CPU server's and the results follow the
-   code-flip rule (``code_flip``); and ``pool2d(budget=)`` picks and
-   launches the im2col pool;
+   code-flip rule (``code_flip``);
+   Then "calibration" (``calibration_phase``, core/calibrate_cost.py on
+   the card): (a) both arms (fused, unfused) of ``CAL_NETWORKS`` x
+   ``CAL_BATCHES`` x ``CAL_BUDGETS`` planned analytically (an infeasible
+   arm printed ``x``), every distinct planned site (116) timed standalone
+   by ``collect_plan_samples(device="cuda")`` and fitted: the JSON round
+   trip bit-exact, a dedicated fit for every member key (12), every
+   coefficient >= 0, the fits printed; (b) the reference's premise
+   (``benchmarks/run.py::table_calibration``) at full width: each pair
+   of feasible arms at batch 4 (11) timed end to end through
+   ``apply_cnn_frontend(network=)`` in ``CAL_WINDOWS`` alternating
+   windows; on every pair the stopwatch decides (one arm's slowest
+   window beats the other's fastest; at least ``CAL_MIN_DECIDED``) the
+   calibrated preference equals the measured one, and where it prefers
+   unfused the calibrated plan has no fused site; (c) the sites whose
+   member or rung the table moves, logged; (d) ``ladder_fused`` served
+   by ``AdaptiveServer(calibration=table)`` on the card and the CPU:
+   every batch's plan equal as JSON, accounting and grants equal, f32
+   results within ``rtol=1e-4, atol=1e-5``, lowered ones under the
+   code-flip rule, telemetry keyed on ``table.key()``, the variants that
+   price by the global fit logged; (e) a ``DriftMonitor`` on the table
+   over fresh batch-4 site times (its mean relative error logged), and
+   on the table mis-scaled by ``CAL_MISSCALE``: one flag, and
+   ``recalibrate()`` moves the fingerprint and re-arms it; (f)
+   ``AdaptiveServer(autotune=True)`` bitwise equal to ``autotune=False``
+   on the 8 requests, the overridden sites logged;
+   and ``pool2d(budget=)`` picks and launches the im2col pool;
    Then "dual and matmul": ``conv2d_dual(budget=)`` on two seeded
    batches of 4 at both frontend block shapes under the four budgets of
    ``DUAL_PLANS`` (Conv3 and Conv4 on int8, f32 and int16, integers over
@@ -163,7 +188,8 @@ and prints no result):
    the 8-request trace, >= 512 requests and about 1 s each), and one
    more such window under ``torch.profiler``: device time by kernel and
    the device's busy share; then each ladder deployment's served rate
-   over 3 windows of rounds of its trace (>= 1 s each);
+   over 3 windows of rounds of its trace (>= 1 s each), and
+   ``ladder_fused``'s again with the calibration phase's table;
 6. lm serve — ``jamba_period`` (Jamba-1.5-Large at full width, one
    period of its stack: 8 layers, MoE off; bf16) serves ``LM_TRACE``
    through ``repro_torch.launch.serve.serve_requests``: every request
@@ -517,6 +543,31 @@ MAX_QUANT_ERR = 5e-2
 # light completion, so the share allows a few such codes: 0.5% of the
 # elements (one flipped code alone would exceed 0.1%).
 FLIP_SHARE = 5e-3
+
+# "calibration": the measurement-calibrated cost model at full width.
+# Networks: the default frontend in f32 relu, and from the next seed the
+# tanh frontend with the (16, 8) ladder (seed, activation, ladder), each
+# at the server's bucket shapes (batches 1 to MAX_BATCH) of IMAGE.
+CAL_NETWORKS = {"relu": (SEED, "relu", ()),
+                "tanh_ladder": (SEED + 1, "tanh", (16, 8))}
+CAL_BATCHES = tuple(range(1, MAX_BATCH + 1))
+# The reference's fusion-ladder budgets (benchmarks/run.py::
+# table_calibration) are sized for a (2, 32, 32, 8) input: at 224x224x3
+# only "ample" and "no_mxu" are feasible, and its four VMEM- and
+# VPU-starved budgets are infeasible for both arms.  This ladder keeps
+# their purpose at this width: ample, logic-only, VMEM from roomy to the
+# tightest both networks still plan under, and a VPU limit that moves
+# the convs onto the MXU members.
+CAL_BUDGETS = {"ample": {}, "no_mxu": dict(mxu_available=False),
+               "vmem_24MiB": dict(vmem_bytes=24 * 2**20),
+               "vmem_12MiB": dict(vmem_bytes=12 * 2**20),
+               "vmem_8MiB": dict(vmem_bytes=8 * 2**20),
+               "vpu_500M": dict(vpu_ops_budget=500_000_000)}
+CAL_REPEAT = 5          # timed calls a sample (after one warmup call)
+CAL_WINDOWS = 5         # alternating windows an arm of the premise
+CAL_WINDOW_CALLS = 20   # calls a window (timeit_us's median)
+CAL_MIN_DECIDED = 6     # pairs the stopwatch must decide, of 11
+CAL_MISSCALE = 4.0      # the lying table the drift monitor must flag
 
 # "lm serve": Jamba-1.5-Large (src/repro/configs/jamba_1_5_large_398b.py,
 # the repo's only architecture with Mamba layers) at full width, cut to
@@ -1398,12 +1449,14 @@ def ladder_kernel_checks(gen, errs):
 # ---------------------------------------------------------------------------
 # Phase 4: serving
 # ---------------------------------------------------------------------------
-def serve(device, fuse, requests, seed=SEED, dtype="float32"):
+def serve(device, fuse, requests, seed=SEED, dtype="float32",
+          autotune=False):
     import torch
     from repro_torch.runtime.server import AdaptiveServer
     from repro_torch.core.plan import clear_plan_cache
     clear_plan_cache()
-    srv = AdaptiveServer(device=device, fuse=fuse, max_batch=MAX_BATCH)
+    srv = AdaptiveServer(device=device, fuse=fuse, max_batch=MAX_BATCH,
+                         autotune=autotune)
     params = frontend_params(dtype, srv.device, seed)
     srv.register("cnn", params, IMAGE)
     for x in requests:
@@ -1576,10 +1629,11 @@ def ladder_trace(seed=SEED):
             for _ in range(LADDER_WAVES)]
 
 
-def ladder_server(name, device):
+def ladder_server(name, device, calibration=None):
     """A deployment of LADDER: the default frontend as the f32 relu
     "heavy" tenant and, from the next seed, the tanh "light" tenant with
-    the (16, 8) ladder and measured quantization error."""
+    the (16, 8) ladder and measured quantization error; planned and
+    priced by ``calibration`` when given."""
     from repro_torch.core.plan import clear_plan_cache
     from repro_torch.core.resources import ResourceBudget
     from repro_torch.models.frontends import init_cnn_frontend
@@ -1587,7 +1641,8 @@ def ladder_server(name, device):
     budget, fuse, _, _ = LADDER[name]
     clear_plan_cache()
     srv = AdaptiveServer(ResourceBudget(**budget), policy="demand",
-                         max_batch=MAX_BATCH, fuse=fuse, device=device)
+                         max_batch=MAX_BATCH, fuse=fuse, device=device,
+                         calibration=calibration)
     srv.register("heavy", init_cnn_frontend(SEED, device=device), IMAGE)
     srv.register("light", init_cnn_frontend(SEED + 1, device=device), IMAGE,
                  activation="tanh", ladder=(16, 8), measure_quant=True)
@@ -1723,6 +1778,337 @@ def ladder_serve_checks(trace):
             f"{steps['light']:.4e})")
         out[name] = (launches, err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# "calibration": the measurement loop (core/calibrate_cost.py) on the card
+# ---------------------------------------------------------------------------
+def plan_str(plan):
+    """A plan's sites as member@bits, or "x" for an infeasible arm."""
+    if plan is None:
+        return "x"
+    return " ".join(f"{s.ip.name.split('.')[-1]}@{s.precision_bits}"
+                    for s in plan.sites)
+
+
+def calibration_sampling(card):
+    """(a) Plan both arms of every CAL_NETWORKS x CAL_BATCHES x
+    CAL_BUDGETS cell with the analytical model, run every distinct
+    planned site standalone on the card and fit.  Returns the networks,
+    the arms by (network, batch, budget) and the fitted table."""
+    import torch
+    from repro_torch.core.calibrate_cost import (CalibrationTable,
+                                                 collect_plan_samples)
+    from repro_torch.core.plan import clear_plan_cache, plan_network
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.models.frontends import (cnn_frontend_site_specs,
+                                              init_cnn_frontend)
+    clear_plan_cache()
+    nets = {name: (init_cnn_frontend(seed, device="cuda"), act, ladder)
+            for name, (seed, act, ladder) in CAL_NETWORKS.items()}
+
+    def specs_of(net, batch):
+        p, act, ladder = nets[net]
+        return cnn_frontend_site_specs(p, (batch,) + IMAGE, torch.float32,
+                                       activation=act, ladder=ladder)
+
+    arms = {}
+    for net in nets:
+        for batch in CAL_BATCHES:
+            for bname, kw in CAL_BUDGETS.items():
+                pair = []
+                for fuse in (False, True):
+                    try:
+                        pair.append(plan_network(specs_of(net, batch),
+                                                 ResourceBudget(**kw),
+                                                 fuse=fuse))
+                    except ValueError:
+                        pair.append(None)
+                arms[(net, batch, bname)] = tuple(pair)
+                if batch == CAL_BATCHES[-1]:
+                    log(f"calibration plan {net} batch {batch} {bname}: "
+                        f"unfused {plan_str(pair[0])} | fused "
+                        f"{plan_str(pair[1])}")
+    t0 = time.perf_counter()
+    table = collect_plan_samples([p for pair in arms.values() for p in pair],
+                                 device="cuda", repeat=CAL_REPEAT).fit()
+    sample_s = time.perf_counter() - t0
+    text = table.to_json()
+    check(CalibrationTable.from_json(text).to_json() == text,
+          "calibration table JSON round trip is not bit-exact")
+    keys = sorted({s.member for s in table.samples})
+    for m in keys:
+        check(m in table.fits
+              and table.fits[m].n_samples >= table.min_samples,
+              f"calibration: member {m} has no dedicated fit "
+              f"({table.sample_count(m)} samples)")
+    for m, f in list(table.fits.items()) + [("global", table.global_fit)]:
+        check(min(f.us_per_compute_cycle, f.us_per_hbm_byte,
+                  f.us_per_comm_cycle, f.overhead_us) >= 0.0,
+              f"calibration: fit {m} has a negative coefficient {f}")
+    log(f"calibration (a): {table.sample_count()} samples of "
+        f"{len(keys)} member keys (timeit_us, 1 warmup + median of "
+        f"{CAL_REPEAT} blocking calls each) in {sample_s:.1f} s; "
+        f"{len(table.fits)} dedicated fits; fingerprint "
+        f"{table.fingerprint()}; JSON round trip bit-exact; every "
+        f"coefficient >= 0; on {card}")
+    for m, f in sorted(table.fits.items()) + [("(global)",
+                                                table.global_fit)]:
+        log(f"calibration fit {m}: us_per_compute_cycle "
+            f"{f.us_per_compute_cycle!r}, us_per_hbm_byte "
+            f"{f.us_per_hbm_byte!r}, overhead_us {f.overhead_us!r}, "
+            f"n_samples {f.n_samples} on {card}")
+    return nets, specs_of, arms, table
+
+
+def calibration_premise(card, nets, specs_of, arms, table):
+    """(b) The reference's premise (benchmarks/run.py::table_calibration)
+    at full width: both arms of every (network, budget) pair at the
+    largest batch timed end to end in CAL_WINDOWS alternating windows;
+    the calibrated model must prefer what the stopwatch prefers wherever
+    the stopwatch decides (one arm's slowest window beats the other's
+    fastest).  (c) logs the sites whose member or rung the table moved."""
+    import numpy as np
+    import torch
+    from repro_torch.core.calibrate_cost import timeit_us
+    from repro_torch.core.plan import plan_network
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.models.frontends import apply_cnn_frontend
+    batch = CAL_BATCHES[-1]
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(batch,) + IMAGE)
+                         .astype(np.float32)).cuda()
+    pairs = decided = 0
+    for net, (p, act, ladder) in nets.items():
+        for bname, kw in CAL_BUDGETS.items():
+            unf, fus = arms[(net, batch, bname)]
+            if unf is None or fus is None:
+                log(f"calibration (b) {net} {bname}: unfused "
+                    f"{'x' if unf is None else 'ok'}, fused "
+                    f"{'x' if fus is None else 'ok'}: not compared")
+                continue
+            pairs += 1
+            wins = {"unfused": [], "fused": []}
+            for _ in range(CAL_WINDOWS):
+                for arm, plan in (("unfused", unf), ("fused", fus)):
+                    wins[arm].append(timeit_us(
+                        lambda plan=plan: apply_cnn_frontend(
+                            p, x, network=plan, activation=act,
+                            ladder=ladder),
+                        repeat=CAL_WINDOW_CALLS))
+            cal_unf, cal_fus = (unf.calibrated_cycles(table),
+                                fus.calibrated_cycles(table))
+            cal_plan = plan_network(specs_of(net, batch),
+                                    ResourceBudget(**kw), fuse=True,
+                                    calibration=table)
+            fused_sites = sum(s.spec.family == "cnn_fused"
+                              for s in cal_plan.sites)
+            if max(wins["fused"]) < min(wins["unfused"]):
+                measured = True
+            elif max(wins["unfused"]) < min(wins["fused"]):
+                measured = False
+            else:
+                measured = None
+            calibrated = cal_fus < cal_unf
+            modeled = fus.total_cycles < unf.total_cycles
+            match = None if measured is None else calibrated == measured
+            if measured is not None:
+                decided += 1
+                check(match,
+                      f"calibration {net} {bname}: the calibrated model "
+                      f"prefers {'fused' if calibrated else 'unfused'}, "
+                      f"the stopwatch the other ({wins})")
+                check(measured or fused_sites == 0,
+                      f"calibration {net} {bname}: the stopwatch prefers "
+                      f"unfused but the calibrated plan keeps "
+                      f"{fused_sites} fused sites")
+            med = {a: statistics.median(w) for a, w in wins.items()}
+            pref = {None: "tie", True: "1", False: "0"}
+            log(f"calibration (b) {net} {bname} batch {batch}: us_unfused "
+                f"{med['unfused']:.1f} ({min(wins['unfused']):.1f}-"
+                f"{max(wins['unfused']):.1f}), us_fused "
+                f"{med['fused']:.1f} ({min(wins['fused']):.1f}-"
+                f"{max(wins['fused']):.1f}), cal_unfused {cal_unf:.4e}, "
+                f"cal_fused {cal_fus:.4e} cycles; modeled_prefers_fused "
+                f"{int(modeled)}, calibrated_prefers_fused "
+                f"{int(calibrated)}, measured_prefers_fused "
+                f"{pref[measured]}, plans_fused_sites {fused_sites}, "
+                f"match {pref[match]} on {card}")
+    check(decided >= CAL_MIN_DECIDED,
+          f"calibration: the stopwatch decided {decided} of {pairs} pairs, "
+          f"fewer than {CAL_MIN_DECIDED}")
+    log(f"calibration (b): {pairs} pairs, {decided} decided, the "
+        f"calibrated preference equal to the measured one on all of them")
+
+    for net in nets:
+        for bname, kw in CAL_BUDGETS.items():
+            for fuse, ana in zip((False, True), arms[(net, batch, bname)]):
+                try:
+                    cal = plan_network(specs_of(net, batch),
+                                       ResourceBudget(**kw), fuse=fuse,
+                                       calibration=table)
+                except ValueError:
+                    cal = None
+                check((cal is None) == (ana is None),
+                      f"calibration {net} {bname}: the table changed "
+                      f"feasibility")
+                if ana is None:
+                    continue
+                a = {s.spec.name: f"{s.ip.name}@{s.precision_bits}"
+                     for s in ana.sites}
+                c = {s.spec.name: f"{s.ip.name}@{s.precision_bits}"
+                     for s in cal.sites}
+                moved = [f"{n}: {a.get(n, '-')} -> {c.get(n, '-')}"
+                         for n in sorted(set(a) | set(c))
+                         if a.get(n) != c.get(n)]
+                log(f"calibration (c) {net} {bname} "
+                    f"{'fused' if fuse else 'unfused'}: "
+                    f"{'; '.join(moved) if moved else 'no choice moves'}")
+
+
+def calibrated_ladder_checks(table, trace):
+    """(d) The ladder_fused deployment served by
+    ``AdaptiveServer(calibration=table)`` on the card and on the CPU:
+    the plans of every batch equal as JSON, accounting and grants
+    equal, f32 results within rtol=1e-4, atol=1e-5, lowered ones under
+    the code-flip rule, telemetry keyed on the table."""
+    import torch
+    from repro_torch.core.calibrate_cost import member_key
+    runs = {}
+    for device in ("cuda", "cpu"):
+        srv = ladder_server("ladder_fused", device, table)
+        plans = []
+        attempt = srv._attempt
+
+        def recorded(tenant, xb, attempt=attempt, plans=plans):
+            y, plan, err = attempt(tenant, xb)
+            plans.append((tenant.name, tuple(xb.shape), plan))
+            return y, plan, err
+
+        srv._attempt = recorded
+        done, grants = run_trace(srv, trace)
+        runs[device] = (srv, done, grants, plans)
+    (srv, done, grants, plans), (cpu, cpu_done, cpu_grants, cpu_plans) = \
+        runs["cuda"], runs["cpu"]
+    check([(t, b, p.to_json()) for t, b, p in plans]
+          == [(t, b, p.to_json()) for t, b, p in cpu_plans],
+          "calibrated ladder_fused: the card's and the CPU's plans differ")
+    check([(c.rid, c.tenant, c.batch_size, c.finished) for c in done]
+          == [(c.rid, c.tenant, c.batch_size, c.finished)
+              for c in cpu_done] and grants == cpu_grants,
+          "calibrated ladder_fused: accounting or grants differ from the "
+          "CPU server")
+    for s in (srv, cpu):
+        for t, tel in s.telemetry().items():
+            check(tel["calibration_key"] == table.key(),
+                  f"calibrated ladder_fused {t}: telemetry key "
+                  f"{tel['calibration_key']} != {table.key()}")
+    light = torch.stack([torch.as_tensor(x) for wave in trace
+                         for t, x in wave if t == "light"]).cuda()
+    step = code_flip_step(srv.tenants["light"].params, light)
+    flips = 0
+    for a, b in zip(done, cpu_done):
+        check(tuple(a.result.shape) == LADDER_OUT
+              and bool(torch.isfinite(a.result).all()),
+              f"calibrated ladder_fused rid {a.rid}: bad result")
+        if a.tenant == "heavy":
+            torch.testing.assert_close(a.result.cpu(), b.result, rtol=1e-4,
+                                       atol=1e-5)
+        else:
+            flips += code_flip(f"calibrated ladder_fused rid {a.rid}",
+                               a.result.cpu(), b.result, step)
+    variants = sorted({member_key(s.ip.name, s.precision_bits,
+                                  s.spec.native_bits)
+                       for _, _, p in plans for s in p.sites})
+    by_global = [v for v in variants if v not in table.fits]
+    light_plans = sorted({(b[0], plan_str(p)) for t, b, p in plans
+                          if t == "light"})
+    log(f"calibration (d): ladder_fused with calibration=table served "
+        f"{len(done)} requests on the card and the CPU: {len(plans)} "
+        f"batch plans equal as JSON, accounting and grants {grants[-1]} "
+        f"equal, heavy within rtol=1e-4, atol=1e-5, light under the "
+        f"code-flip rule ({flips} elements out), calibration_key "
+        f"{table.key()}; light plans by batch {light_plans}; variants "
+        f"priced by the global fit: {by_global or 'none'}")
+
+
+def calibration_drift(card, arms, table):
+    """(e) A DriftMonitor on the table, fed fresh times of the sites of
+    the largest batch's plans: its mean relative error is logged; on a
+    table mis-scaled by CAL_MISSCALE it flags exactly once, and
+    ``recalibrate()`` moves the fingerprint and re-arms it."""
+    from repro_torch.core.calibrate_cost import (measure_planned_site,
+                                                 member_key)
+    from repro_torch.obs.drift import DriftMonitor, mis_scaled_table
+    seen, obs = set(), []
+    for (_, batch, _), pair in arms.items():
+        for plan in pair:
+            if batch != CAL_BATCHES[-1] or plan is None:
+                continue
+            for site in plan.sites:
+                key = (site.ip.name, site.precision_bits, site.spec)
+                if key in seen:
+                    continue
+                seen.add(key)
+                obs.append((member_key(site.ip.name, site.precision_bits,
+                                       site.spec.native_bits),
+                            site.footprint,
+                            measure_planned_site(site, device="cuda",
+                                                 repeat=CAL_REPEAT)))
+    honest = DriftMonitor(table)
+    for m, fp, us in obs:
+        honest.observe(m, fp, us)
+    errs = sorted(((abs(table.predict_us(m, fp.compute_cycles,
+                                         fp.hbm_bytes) - us) / us), m)
+                  for m, fp, us in obs)
+    log(f"calibration (e): drift monitor on the fitted table over "
+        f"{len(obs)} fresh site times: mean relative error "
+        f"{honest.mean_rel_error:.4f} (window {honest.snapshot()['window']}"
+        f", drifted {honest.drifted}); worst {errs[-1][1]} "
+        f"{errs[-1][0]:.4f}, median {errs[len(errs) // 2][0]:.4f} on {card}")
+    bad = mis_scaled_table(table, CAL_MISSCALE)
+    mon = DriftMonitor(bad)
+    flags = [r for r in (mon.observe(m, fp, us) for m, fp, us in obs) if r]
+    check(len(flags) == 1 and len(mon.reports) == 1 and mon.drifted,
+          f"calibration: the table mis-scaled by {CAL_MISSCALE} flagged "
+          f"{len(flags)} times")
+    before = bad.fingerprint()
+    after = mon.recalibrate()
+    check(after != before and not mon.drifted,
+          "calibration: recalibrate() did not move the fingerprint or "
+          "re-arm the monitor")
+    log(f"calibration (e): the table mis-scaled by {CAL_MISSCALE} flagged "
+        f"once (mean relative error {flags[0].mean_rel_error:.4f}, worst "
+        f"{flags[0].worst_member}); recalibrate() moved the fingerprint "
+        f"{before} -> {after} and re-armed the monitor")
+
+
+def calibration_autotune(requests):
+    """(f) ``AdaptiveServer(autotune=True)`` on serve_checks' requests:
+    bitwise the results of ``autotune=False``."""
+    import torch
+    srv, tuned = serve("cuda", True, requests, autotune=True)
+    _, plain = serve("cuda", True, requests)
+    for a, b in zip(tuned, plain):
+        check(a.rid == b.rid and torch.equal(a.result, b.result),
+              f"rid {a.rid}: autotune=True changed the result")
+    overrides = {k: v for tiles in srv._tile_cache.values()
+                 for k, v in tiles.items()}
+    log(f"calibration (f): autotune=True bitwise equal to autotune=False "
+        f"over {len(tuned)} requests; {len(overrides)} sites got overrides "
+        f"over {len(srv._tile_cache)} plans: {overrides}")
+
+
+def calibration_phase(card, trace, requests):
+    """The "calibration" phase: (a)-(f) above.  Returns the table."""
+    t0 = time.perf_counter()
+    nets, specs_of, arms, table = calibration_sampling(card)
+    calibration_premise(card, nets, specs_of, arms, table)
+    calibrated_ladder_checks(table, trace)
+    calibration_drift(card, arms, table)
+    calibration_autotune(requests)
+    log(f"calibration phase: {time.perf_counter() - t0:.1f} s")
+    return table
 
 
 def budget_pool_check(gen, errs):
@@ -3026,11 +3412,11 @@ def ladder_window(srv, trace, rounds):
     return time.perf_counter() - t0
 
 
-def ladder_rate(name, trace):
+def ladder_rate(name, trace, calibration=None):
     """A LADDER deployment's served rate: after a warm-up round, windows
     of rounds of its trace sized to about 1.25 * RATE_WINDOW_S, timed
     RATE_WINDOWS times.  Returns (requests per window, walls)."""
-    srv = ladder_server(name, "cuda")
+    srv = ladder_server(name, "cuda", calibration)
     ladder_window(srv, trace, 1)
     wall = ladder_window(srv, trace, 1)
     rounds = max(1, math.ceil(1.25 * RATE_WINDOW_S / wall))
@@ -3587,6 +3973,7 @@ def main() -> int:
     ladder = ladder_serve_checks(trace)
     launches["activation_lut"] = \
         ladder["ladder_chain"][0]["activation_lut"]
+    table = calibration_phase(card, trace, requests)
     launches.update(budget_pool_check(gen, errs))
     launches.update(dual_conv_checks(shapes, gen, errs))
     launches.update(matmul_checks(gen, errs))
@@ -3644,14 +4031,26 @@ def main() -> int:
         f"{', '.join(f'{w:.3f}' for w in walls)} s; 224x224x3, max_batch "
         f"{MAX_BATCH}, fuse=True) on {card}")
 
+    ladder_rates = {}
     for name in LADDER:
         per_window, lwalls = ladder_rate(name, trace)
         lrates = sorted(per_window / w for w in lwalls)
+        ladder_rates[name] = statistics.median(lrates)
         log(f"{name}: served {statistics.median(lrates):.1f} requests/s, "
             f"median of {len(lwalls)} windows of {per_window} requests "
             f"(range {lrates[0]:.1f}-{lrates[-1]:.1f} requests/s, walls "
             f"{', '.join(f'{w:.3f}' for w in lwalls)} s; 224x224x3, "
             f"waves of {LADDER_MIX}, max_batch {MAX_BATCH}) on {card}")
+
+    per_window, cwalls = ladder_rate("ladder_fused", trace, table)
+    crates = sorted(per_window / w for w in cwalls)
+    log(f"ladder_fused with calibration=table ({table.fingerprint()}): "
+        f"served {statistics.median(crates):.1f} requests/s, median of "
+        f"{len(cwalls)} windows of {per_window} requests (range "
+        f"{crates[0]:.1f}-{crates[-1]:.1f} requests/s, walls "
+        f"{', '.join(f'{w:.3f}' for w in cwalls)} s), beside the "
+        f"analytical ladder_fused's {ladder_rates['ladder_fused']:.1f} on "
+        f"{card}")
 
     launches["selective_scan"], rows["selective_scan"] = lm_serve_phase(
         peaks, card, errs)

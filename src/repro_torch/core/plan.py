@@ -46,10 +46,19 @@ the single selection engine behind every family:
 * ``network_min_fraction(specs, budget)`` — the smallest fraction of a
   budget under which the graph still plans (ladder rungs included);
   the arbiter floors each tenant's share here.
-* ``calibration=`` and ``mesh=`` keep their places in the signatures
-  and cache keys; a calibration table raises ``NotImplementedError``
-  (ROADMAP queue 1, item 7) and so does a mesh of more than one device
-  (ROADMAP queue 1, item 9).
+* **Calibrated cost** (``calibration=``): every decision point that
+  *ranks* — member selection, fusion-group substitution, the
+  partitioner's cost shares — accepts a measurement-derived
+  ``CalibrationTable`` (``core/calibrate_cost.py``) and prices
+  footprints by predicted wall-clock instead of analytical
+  ``est_cycles``.  Feasibility (fits, needs floors,
+  ``network_min_fraction``) is deliberately untouched: calibration
+  rescales cost, not resources.  Plans memoize on the table's
+  ``key()`` (schema version + fits fingerprint), so a refitted table
+  never serves stale cached plans.
+* ``mesh=`` keeps its place in the signatures and cache keys; a mesh of
+  more than one device raises ``NotImplementedError`` (ROADMAP queue 1,
+  item 9).
 
 Everything here is pure Python over shapes: no tensors.
 """
@@ -548,9 +557,16 @@ def plan_network(specs: Iterable[SiteSpec],
     a time (largest minimal need first) until the plan closes — the
     fused plan can only ever *gain* feasibility over the unfused one.
 
-    ``mesh=`` with more than one device (mesh-sharded planning) and
-    ``calibration=`` tables are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP queue 1, items 9 and 7).
+    ``calibration=`` re-ranks every cost comparison (member selection,
+    the fused-vs-unfused decision, the partition shares) by the table's
+    measured-model predictions; feasibility and floors are unchanged.
+    The plan cache keys on the table's identity
+    (``CalibrationTable.key()``), so plans under different — or
+    refitted — tables never collide.
+
+    ``mesh=`` with more than one device (mesh-sharded planning) is not
+    ported yet and raises ``NotImplementedError`` (ROADMAP queue 1,
+    item 9).
     """
     budget = budget or ResourceBudget()
     if mesh is not None and mesh.devices > 1:
@@ -600,6 +616,11 @@ def replan(specs: Iterable[SiteSpec],
     plan and silently replaced by it on divergence
     (``replan_strict_mismatch`` counts the catches) — tests and audits
     run strict; the serving loop accepts the heuristic.
+
+    With ``calibration=`` the fast path reuses only shares memoized
+    under the *same* table identity — a refreshed (refitted) table
+    finds no shares and falls cold, re-deriving the assignment from the
+    new predictions instead of serving a stale-calibration split.
 
     ``mesh=`` with more than one device goes to ``plan_network``,
     which raises (ROADMAP queue 1, item 9).
@@ -933,10 +954,9 @@ def fixed_network_cost(specs: Iterable[SiteSpec],
     (no partitioning) — the planner has to win despite that handicap.
 
     ``members`` maps family name -> member name (short or qualified).
-    A ``calibration`` table raises ``NotImplementedError`` (ROADMAP
-    queue 1, item 7), as in ``plan_network``.
+    ``calibration`` prices with measured scale factors when given, so the
+    baseline and the planner are compared under the same cost model.
     """
-    calibration_key(calibration)
     budget = budget or ResourceBudget()
     total = 0.0
     for spec in specs:

@@ -35,6 +35,8 @@ VPU_LANES = 8 * 128               # vector lanes
 VPU_OPS_PER_CYCLE = 4 * VPU_LANES # vector ops per cycle
 CLOCK_HZ = 940e6                  # the cycle unit of est_cycles
 MXU_DIM = 128                     # matrix-unit tile edge
+LANE = 128                        # last-dim tile (the autotuner's grid)
+SUBLANE = 8                       # second-to-last-dim tile
 # Collective pricing unit: bytes one link moves per cycle.
 ICI_BYTES_PER_CYCLE = ICI_BW_PER_LINK / CLOCK_HZ
 
@@ -119,9 +121,21 @@ class Footprint:
     comm_cycles: float = 0.0        # collective traffic of a sharded
                                     # site (0 on one device)
 
+    @property
+    def compute_cycles(self) -> float:
+        """The compute term of the additive ``cost_cycles`` split:
+        ``est_cycles`` minus the DMA cycles its ``hbm_bytes`` price in
+        and minus its collective ``comm_cycles`` (clamped at zero).
+        These are the analytical axes the measurement-calibrated cost
+        model (``core/calibrate_cost.py``) regresses over."""
+        return max(self.est_cycles - hbm_cycles(self.hbm_bytes)
+                   - self.comm_cycles, 0.0)
+
     def calibrated_cycles(self, calibration, member: str) -> float:
-        """This footprint's cost under a calibration table;
-        ``calibration=None`` is the analytical ``est_cycles``."""
+        """This footprint's cost under a measurement-derived
+        ``CalibrationTable`` (cycle units; ``member`` is the calibration
+        key, ``@int<bits>`` for a lowered rung); ``calibration=None`` is
+        the analytical ``est_cycles``."""
         if calibration is None:
             return self.est_cycles
         return calibration.calibrated_cycles(self, member)

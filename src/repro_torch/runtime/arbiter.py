@@ -51,7 +51,7 @@ class BudgetArbiter:
 
     def __init__(self, budget: Optional[ResourceBudget] = None, *,
                  policy: str = "demand", rebalance_threshold: float = 0.05,
-                 demand_alpha: float = 0.5,
+                 demand_alpha: float = 0.5, calibration=None,
                  mesh: Optional[MeshSpec] = None):
         if policy not in POLICIES:
             raise ValueError(f"unknown policy {policy!r}; have {POLICIES}")
@@ -64,6 +64,12 @@ class BudgetArbiter:
         self.budget = budget or ResourceBudget()
         self.policy = policy
         self.mesh = None
+        # The unit the demand EWMA is denominated in: with a fitted
+        # CalibrationTable the server prices each tenant's unit cost in
+        # *calibrated* cycles, so grants track measured work, not the
+        # analytical estimate.  Kept here so ``calibration_key`` in
+        # telemetry names the model the grants were computed under.
+        self.calibration = calibration
         self.rebalance_threshold = rebalance_threshold
         self.demand_alpha = demand_alpha
         self._floors: Dict[str, float] = {}

@@ -8,20 +8,27 @@ through ``core.plan.replan``.
 
 Time model: latency is accounted in **estimated cycles**, the same cost
 model the planner optimizes, so the port's latencies equal the
-reference's exactly.  Each tenant owns a serving lane: batches of a lane
-execute sequentially, a batch occupies the lane for its plan's
-``total_cycles``, and a request's latency is queue wait plus service.
-Numerics are real — every batch runs its planned kernels on the
-server's device (``cuda`` unless the caller passes ``device="cpu"``).
+reference's exactly.  With ``calibration=`` (a fitted
+``core.calibrate_cost.CalibrationTable``) both sides upgrade together:
+plans are ranked by measured scale factors and the lane clock advances
+by the same calibrated cycles, so grants, telemetry and the planner all
+optimize the objective that was actually measured.  Each tenant owns a
+serving lane: batches of a lane execute sequentially, a batch occupies
+the lane for its plan's cost, and a request's latency is queue wait plus
+service.  Numerics are real — every batch runs its planned kernels on
+the server's device (``cuda`` unless the caller passes
+``device="cpu"``).
 
 Requests are shape-bucketed (``batching.py``): same-shaped samples of a
 tenant stack into one planned execution, so repeat batch shapes hit the
-plan cache with zero selector work.
+plan cache with zero selector work.  With ``autotune=True`` the tunable
+sites of each executed plan run sweep-chosen tilings
+(``core.autotune.plan_tile_overrides``) instead of member defaults.
 
 Later slices of the port add what the reference server also has: fault
-seams and guards, mesh/sharded execution, device-loss degradation,
-spare-plan pre-warming, autotuned tilings, calibration and the metrics
-registry (ROADMAP queue 1, items 7-9).
+seams and guards, the SLO scheduler's inputs, mesh/sharded execution,
+device-loss degradation, spare-plan pre-warming and the metrics registry
+(ROADMAP queue 1, items 8-9).
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.autotune import plan_tile_overrides
+from repro_torch.core.calibrate_cost import calibration_key
 from repro_torch.core.plan import (STATS, network_min_fraction, plan_network,
                                    replan)
 from repro_torch.core.resources import ResourceBudget
@@ -42,7 +51,7 @@ from repro_torch.runtime.arbiter import BudgetArbiter, TenantShare
 from repro_torch.runtime.batching import Request, ShapeBucketQueue
 from repro_torch.runtime.telemetry import TenantTelemetry
 
-_SIDE_CACHE_MAX = 256   # bound for the specs-cache
+_SIDE_CACHE_MAX = 256   # bound for the tile- and specs-caches
 
 
 @dataclasses.dataclass
@@ -91,29 +100,40 @@ class AdaptiveServer:
     """Admit, batch, arbitrate, re-plan, execute.  See module docstring.
 
     ``policy="demand"`` arbitrates; ``policy="static"`` is the even-split
-    baseline.  ``device=None`` serves on ``cuda`` and raises
+    baseline.  ``autotune=True`` swaps member-default tilings for
+    sweep-chosen ones on the tunable sites of every executed plan.
+    ``device=None`` serves on ``cuda`` and raises
     ``CudaUnavailableError`` where there is none; ``device="cpu"`` runs
     the plain PyTorch versions.
     """
 
     def __init__(self, budget: Optional[ResourceBudget] = None, *,
                  policy: str = "demand", rebalance_threshold: float = 0.05,
-                 max_batch: int = 4, demand_alpha: float = 0.5,
-                 fuse: bool = True, device=None):
+                 max_batch: int = 4, autotune: bool = False,
+                 demand_alpha: float = 0.5, fuse: bool = True,
+                 calibration=None, device=None):
         self.device = resolve_device(device)
         self.budget = budget or ResourceBudget()
         # fuse (default True): every block the planner can fuse runs
         # conv->pool->act as ONE launch, falling back per block when the
         # fused footprint won't fit the tenant's slice.
         self.fuse = fuse
+        # calibration: a fitted CalibrationTable prices every planning
+        # decision, the demand weights, and the lane time model in
+        # measured scale factors instead of the raw analytical cycles
+        # (see core/calibrate_cost.py).  None keeps the analytical model.
+        self.calibration = calibration
         self.arbiter = BudgetArbiter(self.budget, policy=policy,
                                      rebalance_threshold=rebalance_threshold,
-                                     demand_alpha=demand_alpha)
+                                     demand_alpha=demand_alpha,
+                                     calibration=calibration)
         self.max_batch = max_batch
+        self.autotune = autotune
         self.clock = 0.0
         self.tenants: Dict[str, Tenant] = {}
         self._queue = ShapeBucketQueue()
         self._shares: Dict[str, TenantShare] = {}
+        self._tile_cache: Dict[tuple, dict] = {}
         # bucket key -> site specs: hot repeat buckets do not rebuild them
         self._specs_cache: Dict[tuple, tuple] = {}
         self._next_rid = 0
@@ -146,12 +166,14 @@ class AdaptiveServer:
         # the full device, and both plans warm the share cache for the
         # replan fast path.  The floor is priced on the unfused graph:
         # fusion-aware planning always falls back to the chain.
-        plan_network(canonical, self.budget, fuse=self.fuse)
+        plan_network(canonical, self.budget, fuse=self.fuse,
+                     calibration=self.calibration)
         floor = network_min_fraction(canonical, self.budget)
         unit = plan_network(
             self._specs(params, (1,) + input_shape, "float32",
                         pool_window, activation, ladder),
-            self.budget, fuse=self.fuse).calibrated_cycles(None)
+            self.budget, fuse=self.fuse,
+            calibration=self.calibration).calibrated_cycles(self.calibration)
         tenant = Tenant(name=name, params=params, input_shape=input_shape,
                         pool_window=tuple(pool_window), activation=activation,
                         ladder=tuple(ladder), measure_quant=measure_quant,
@@ -246,7 +268,17 @@ class AdaptiveServer:
             if len(self._specs_cache) >= _SIDE_CACHE_MAX:
                 self._specs_cache.pop(next(iter(self._specs_cache)))
             self._specs_cache[skey] = specs
-        plan = replan(specs, slice_budget, fuse=self.fuse)
+        plan = replan(specs, slice_budget, fuse=self.fuse,
+                      calibration=self.calibration)
+        tile_overrides = None
+        if self.autotune:
+            tkey = (specs, slice_budget)
+            tile_overrides = self._tile_cache.get(tkey)
+            if tile_overrides is None:
+                tile_overrides = plan_tile_overrides(plan)
+                if len(self._tile_cache) >= _SIDE_CACHE_MAX:
+                    self._tile_cache.pop(next(iter(self._tile_cache)))
+                self._tile_cache[tkey] = tile_overrides
         quant_report = ({} if (tenant.ladder and tenant.measure_quant)
                         else None)
         with (TRACER.span("kernel", "kernel",
@@ -258,6 +290,7 @@ class AdaptiveServer:
                                    activation=tenant.activation,
                                    ladder=tenant.ladder,
                                    quant_report=quant_report,
+                                   tile_overrides=tile_overrides,
                                    fuse=self.fuse)
         quant_err = max_rel_error(quant_report) if quant_report else 0.0
         return y, plan, quant_err
@@ -274,7 +307,7 @@ class AdaptiveServer:
                 {"tenant": tenant.name,
                  "max_wait_cycles":
                      start - min(r.arrival for r in batch)})
-        finish = start + plan.calibrated_cycles(None)
+        finish = start + plan.calibrated_cycles(self.calibration)
         tenant.lane_free = finish
         latencies = [finish - r.arrival for r in batch]
         tenant.telemetry.record_batch(
@@ -302,14 +335,16 @@ class AdaptiveServer:
     def telemetry(self) -> Dict[str, dict]:
         """Per-tenant snapshot: latency percentiles (est-cycles), batch
         occupancy, precision mix, re-plans, plan-cache hit rate and the
-        current grant/floor.  ``calibration_key`` is None: the port
-        plans on the analytical cost model."""
+        current grant/floor.  ``calibration_key`` identifies the cost
+        model the plans and the time accounting were priced under (None =
+        analytical)."""
+        calkey = calibration_key(self.calibration)
         out = {}
         for name, t in self.tenants.items():
             snap = t.telemetry.snapshot()
             snap["granted_fraction"] = t.granted
             snap["floor_fraction"] = t.floor
             snap["unit_cost_cycles"] = t.unit_cost
-            snap["calibration_key"] = None
+            snap["calibration_key"] = calkey
             out[name] = snap
         return out

@@ -21,7 +21,9 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from repro.core import calibrate_cost as j_cal
 from repro.core import plan as j_plan
+from repro.core import resources as j_res
 from repro.core import selector as j_sel
 from repro.core.ip import SiteSpec as JSpec
 from repro.core.resources import ResourceBudget as JBudget
@@ -29,7 +31,9 @@ from repro.kernels.conv2d import ip3_packed as j_ip3
 from repro.kernels.conv2d.ops import conv2d_dual as j_dual
 from repro.kernels.conv2d.ref import conv2d_dual_ref as j_dual_ref
 from repro.models.blocks import cnn_block_site_specs as j_block_specs
+from repro_torch.core import calibrate_cost as t_cal
 from repro_torch.core import plan as t_plan
+from repro_torch.core import resources as t_res
 from repro_torch.core import selector as t_sel
 from repro_torch.core.ip import SiteSpec as TSpec
 from repro_torch.core.resources import ResourceBudget as TBudget
@@ -351,9 +355,28 @@ def test_fixed_network_cost_edges():
     tspecs = _table3_specs(t_block_specs)
     members = dict(TABLE3_BASELINES["fixed_vpu"], conv2d="ip3_packed")
     assert t_plan.fixed_network_cost(tspecs, members) is None  # not a cand.
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        t_plan.fixed_network_cost(tspecs, TABLE3_BASELINES["fixed_vpu"],
-                                  calibration=object())
+    # calibration= prices (no longer refused): exactly the reference's
+    # cost under a table fitted on the same samples
+    jspecs = _table3_specs(j_block_specs)
+    tables = []
+    for cal, res in ((j_cal, j_res), (t_cal, t_res)):
+        table = cal.CalibrationTable()
+        for i, m in enumerate(("conv2d.ip1_vpu", "pool2d.pool_vpu",
+                               "activation.act_vpu", "conv2d.ip2_mxu")):
+            for comp, hbm in ((1e3, 1 << 12), (5e4, 1 << 16),
+                              (2e5, 1 << 20)):
+                fp = res.Footprint(vmem_bytes=1024, hbm_bytes=hbm,
+                                   mxu_passes=0, vpu_ops=100,
+                                   est_cycles=comp + res.hbm_cycles(hbm))
+                table.record(m, fp, 1e-4 * (i + 1) * comp + 1e-6 * hbm + 3.0)
+        tables.append(table.fit())
+    for name, members in TABLE3_BASELINES.items():
+        got = t_plan.fixed_network_cost(tspecs, members,
+                                        calibration=tables[1])
+        want = j_plan.fixed_network_cost(jspecs, members,
+                                         calibration=tables[0])
+        assert got == want, (name, got, want)
+        assert got != t_plan.fixed_network_cost(tspecs, members)
 
 
 def test_describe_plan_matches_reference():

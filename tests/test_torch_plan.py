@@ -10,14 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import calibrate_cost as j_calibrate_cost
 from repro.core import library as j_library
 from repro.core import plan as j_plan
+from repro.core import resources as j_resources
 from repro.core.ip import SiteSpec as JSiteSpec
 from repro.core.resources import ResourceBudget as JBudget
 from repro.models.frontends import cnn_frontend_site_specs as j_specs
 from repro.models.frontends import init_cnn_frontend as j_init
+from repro_torch.core import calibrate_cost as t_calibrate_cost
 from repro_torch.core import library as t_library
 from repro_torch.core import plan as t_plan
+from repro_torch.core import resources as t_resources
 from repro_torch.core.ip import SiteSpec as TSiteSpec
 from repro_torch.core.resources import MeshSpec
 from repro_torch.core.resources import ResourceBudget as TBudget
@@ -216,13 +220,40 @@ def test_dual_sites_plan_the_packed_members():
             j_plan.plan_network([js], JBudget(**kw)).to_json()
 
 
+def _cal_fp(cal, compute, hbm):
+    """A footprint of ``cal``'s package with analytical axes (compute,
+    hbm)."""
+    res = j_resources if cal is j_calibrate_cost else t_resources
+    return res.Footprint(vmem_bytes=1024, hbm_bytes=hbm, mxu_passes=0,
+                         vpu_ops=100,
+                         est_cycles=compute + res.hbm_cycles(hbm))
+
+
 def test_unported_planner_paths_raise_named_errors(frontends):
     _, tp = frontends
     specs = t_specs(tp, (1, 16, 16, 3), torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
         t_plan.plan_network(specs, mesh=MeshSpec(devices=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        t_plan.plan_network(specs, calibration=object())
+    # calibration= plans (no longer refused): byte-equal to the
+    # reference's plan under a table fitted on the same samples
+    tables = []
+    for cal in (j_calibrate_cost, t_calibrate_cost):
+        table = cal.CalibrationTable()
+        for i, m in enumerate(("conv2d.ip1_vpu", "cnn_fused.fused_vpu",
+                               "cnn_fused.fused_mxu")):
+            for comp, hbm in ((1e3, 1 << 12), (5e4, 1 << 16),
+                              (2e5, 1 << 20)):
+                table.record(m, _cal_fp(cal, comp, hbm),
+                             1e-4 * (i + 1) * comp + 1e-6 * hbm + 3.0)
+        tables.append(table.fit())
+    jp, _ = frontends
+    _clear()
+    want = j_plan.plan_network(j_specs(jp, (1, 16, 16, 3), "float32"),
+                               calibration=tables[0])
+    got = t_plan.plan_network(specs, calibration=tables[1])
+    assert got.to_json() == want.to_json()
+    assert got.calibrated_cycles(tables[1]) == \
+        want.calibrated_cycles(tables[0])
     ssm = TSiteSpec.make("s", "ssm_scan", ((1, 8, 16), (1, 8, 4)))
     with pytest.raises(NotImplementedError,
                        match="'ssm_scan' has no site adapter registered"):

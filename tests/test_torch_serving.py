@@ -209,3 +209,94 @@ def test_bucket_queue_is_fifo_per_shape():
     assert len(keys) == 3
     assert [r.rid for r in q.pop_batch(keys[0], max_batch=8)] == [0, 1]
     assert q.stats()["pops"] == 1 and q.pending("t1") == 1
+
+
+# --------------------------------------------------------------------------
+# calibration= and autotune=: the calibrated server matches the reference
+# --------------------------------------------------------------------------
+def _serving_table(cal, res):
+    """A table fitted on the same synthetic samples in either package:
+    dedicated fits for the members the two ladder tenants plan (fused
+    priced dear, so the calibrated plans differ from the analytical
+    ones), and the global fit for the rest."""
+    rng = np.random.default_rng(5)
+    table = cal.CalibrationTable()
+    members = {"conv2d.ip1_vpu": 2e-5, "conv2d.ip2_mxu": 4e-5,
+               "pool2d.pool_vpu": 1e-5, "activation.act_vpu": 1e-5,
+               "activation.act_lut@int8": 5e-6, "cnn_fused.fused_vpu": 4e-4,
+               "cnn_fused.fused_mxu": 3e-4, "pool2d.pool_vpu@int8": 1e-5}
+    for m, a in members.items():
+        for _ in range(4):
+            comp = float(rng.uniform(1e3, 1e6))
+            hbm = int(rng.integers(1 << 12, 1 << 22))
+            fp = res.Footprint(vmem_bytes=1024, hbm_bytes=hbm, mxu_passes=0,
+                               vpu_ops=100,
+                               est_cycles=comp + res.hbm_cycles(hbm))
+            table.record(m, fp, a * comp + 2e-6 * hbm + rng.uniform(5, 20))
+    return table.fit()
+
+
+def test_calibrated_server_matches_reference():
+    from repro.core import calibrate_cost as j_cal
+    from repro.core import resources as j_res
+    from repro_torch.core import calibrate_cost as t_cal
+    from repro_torch.core import resources as t_res
+    from repro_torch.core.plan import plan_network as t_plan_network
+    from test_torch_ladder import _replay, _scenario, assert_code_flip
+    from test_torch_ladder import frontend_step
+
+    budget, params, shapes, trace = _scenario("serving_test")
+    jt, tt = _serving_table(j_cal, j_res), _serving_table(t_cal, t_res)
+    assert tt.to_json() == jt.to_json() and tt.key() == jt.key()
+    jparams = (params[0][0], params[1][0], shapes)
+    tparams = (params[0][1], params[1][1], shapes)
+    for fuse in (True, False):
+        j_clear()
+        jsrv, want = _replay(lambda f: (JServer(
+            JBudget(**budget), policy="demand", max_batch=4, fuse=f,
+            calibration=jt), jparams), fuse, trace)
+        t_clear()
+        tsrv, got = _replay(lambda f: (TServer(
+            TBudget(**budget), policy="demand", max_batch=4, fuse=f,
+            calibration=tt, device="cpu"), tparams), fuse, trace)
+        assert [(c.rid, c.tenant, c.batch_size, c.arrival, c.finished)
+                for c in got] == \
+            [(c.rid, c.tenant, c.batch_size, c.arrival, c.finished)
+             for c in want]
+        assert [c.latency for c in got] == [c.latency for c in want]
+        tel_t, tel_j = tsrv.telemetry(), jsrv.telemetry()
+        err_t = {n: t.pop("max_quant_rel_err") for n, t in tel_t.items()}
+        err_j = {n: t.pop("max_quant_rel_err") for n, t in tel_j.items()}
+        assert tel_t == tel_j        # grants, unit costs, precision mix
+        assert {t["calibration_key"] for t in tel_t.values()} == {tt.key()}
+        assert {n: t.unit_cost for n, t in tsrv.tenants.items()} == \
+            {n: t.unit_cost for n, t in jsrv.tenants.items()}
+        assert {k: vars(v) for k, v in tsrv.shares().items()} == \
+            {k: vars(v) for k, v in jsrv.shares().items()}
+        assert tsrv.arbiter.calibration is tt
+        assert err_t["heavy"] == err_j["heavy"] == 0.0
+        light = np.stack([x for wave in trace for n, x, _ in wave
+                          if n == "light"])
+        steps = {"heavy": 0.0,
+                 "light": frontend_step(params[1][0], light, "tanh")}
+        for g, w in zip(got, want):
+            assert_code_flip(g.result.numpy(), np.asarray(w.result),
+                             steps[g.tenant])
+        # the analytical model prices the tenants otherwise
+        for name, t in tsrv.tenants.items():
+            one = tsrv._specs(t.params, (1,) + t.input_shape, "float32",
+                              t.pool_window, t.activation, t.ladder)
+            assert t.unit_cost != t_plan_network(
+                one, tsrv.budget, fuse=fuse).calibrated_cycles(None)
+        if not fuse:
+            continue
+        # autotune=True: the tuned tilings change no bit of any result
+        t_clear()
+        _, tuned = _replay(lambda f: (TServer(
+            TBudget(**budget), policy="demand", max_batch=4, fuse=f,
+            calibration=tt, autotune=True, device="cpu"), tparams), fuse,
+            trace)
+        assert [(c.rid, c.finished) for c in tuned] == \
+            [(c.rid, c.finished) for c in got]
+        assert all(torch.equal(a.result, b.result)
+                   for a, b in zip(tuned, got))
