@@ -83,6 +83,35 @@ and prints no result):
    ones, ``fused_cnn_mxu`` / ``activation_lut`` launched, the
    accounting equals the CPU server's and the results follow the
    code-flip rule (``code_flip``);
+   Then "slo" (``slo_phase``, runtime/scheduler.py on the card): (a) the
+   SLO deployment (``_slo_deployment`` at full width: ladder_fused's
+   budget, ``slo_pressure=2.0``, ``grant_quantum=1/16``, the f32 relu
+   "heavy" tenant at priority 0 and the tanh ``ladder=(16, 8)`` "light"
+   one at priority 1) under an ``SLOScheduler`` on a wall that moves only
+   when told, through a seeded trace of 16 heavy and 6 light requests
+   with ``at=`` arrivals, a shed case (the wall moved past a queued
+   bucket's deadline) and a rejection case (``max_queue_depth=2``
+   overflowed), one launch at a time on the card (counters reset just
+   before each and read just after: the kernels its plan names) and on
+   the CPU: outcomes, ``stats()``, completions, the grants after each
+   launch, miss rates and the ``tenant_``/``scheduler_`` lines of
+   ``metrics().render()`` equal, at least one preemption, shed and
+   rejection, heavy within ``rtol=1e-4, atol=1e-5`` and light under the
+   code-flip rule; (b) ``benchmarks/run.py::table_slo``'s premise at
+   full width: its 16x6 mix and constants in units of the card's warm
+   batch-4 round (synchronized inside the timed region), the round loop
+   (``AdaptiveServer.step``) against the scheduler (one launch a pump),
+   warmup replays then ``SLO_REPLAYS`` measured, each synchronized
+   before it stamps a completion: every request accounted for, the
+   median worst-tenant deadline-normalized p95 and miss rate of each
+   arm printed with sheds, preemptions and launches, and which arm wins
+   logged, not checked; (c) ``flash_attention`` and ``flash_decode`` at
+   head dims 8, 12 and 80 (zero-padded to the next kernel width) on f32
+   and bf16, causal and full, GQA 8/2: one launch a call, within
+   ``ATTN_F32_TOL`` / ``ATTN_BF16_TOL`` of the plain versions;
+   ``attention(budget=)`` plans (1,4,64,8) x (1,2,64,8) and its
+   one-token decode onto ``attn_flash`` / ``attn_decode`` and computes;
+   head dim 144 raises the named error, launching nothing;
    Then "calibration" (``calibration_phase``, core/calibrate_cost.py on
    the card): (a) both arms (fused, unfused) of ``CAL_NETWORKS`` x
    ``CAL_BATCHES`` x ``CAL_BUDGETS`` planned analytically (an infeasible
@@ -1778,6 +1807,475 @@ def ladder_serve_checks(trace):
             f"{steps['light']:.4e})")
         out[name] = (launches, err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# "slo": the SLO scheduler (runtime/scheduler.py) on the card
+# ---------------------------------------------------------------------------
+# The deployment of benchmarks/run.py::_slo_deployment at the default
+# frontend's full width: ladder_fused's budget, max_batch 4, grants on a
+# 1/16 grid; "heavy" the f32 relu frontend at priority 0, "light" the tanh
+# frontend with the (16, 8) ladder at priority 1.
+SLO_BUDGET = LADDER["ladder_fused"][0]
+SLO_QUANTUM = 1 / 16
+SLO_PRESSURE = 2.0
+SLO_PRIORITY = {"heavy": 0, "light": 1}
+SLO_TENANT_KW = {"heavy": {}, "light": dict(activation="tanh",
+                                            ladder=(16, 8))}
+# table_slo's first mix and constants (benchmarks/run.py:952-963):
+# deadlines and mean inter-arrivals in units.  In (b) the unit is the
+# card's warm batch-4 round wall time; in (a) deadlines are seconds of a
+# wall that moves only when told and arrivals are in units of heavy's
+# one-request est-cycles, and two edge cases follow the trace.
+SLO_MIX = {"heavy": 16, "light": 6}
+SLO_DEADLINE_UNITS = {"heavy": 30.0, "light": 2.0}
+SLO_IAT_UNITS = {"heavy": 1 / 4.5, "light": 1.0}
+SLO_SHED_BURST = 6         # light requests at once: 4 launch, 2 are shed
+SLO_REJECT_BURST = 5       # light requests against max_queue_depth 2
+SLO_WARMUPS = 6            # replays an arm at most, until one plans no miss
+SLO_REPLAYS = 5
+# (c) head dims the attention kernels are not built for, at (B, Hq, Hkv,
+# Sq, Skv), and the input ROADMAP queue 3 named: (1,4,64,8) x (1,2,64,8)
+HEAD_DIM_CHECKS = (8, 12, 80)
+HEAD_DIM_SHAPE = (2, 8, 2, 70, 100)
+HEAD_DIM_SITE = ((1, 4, 64, 8), (1, 2, 64, 8))
+# the kernel each planned CNN member launches
+CNN_MEMBER_KERNEL = {"cnn_fused.fused_vpu": "fused_cnn_vpu",
+                     "cnn_fused.fused_mxu": "fused_cnn_mxu",
+                     "conv2d.ip1_vpu": "conv2d_ip1",
+                     "conv2d.ip2_mxu": "conv2d_ip2",
+                     "pool2d.pool_vpu": "pool2d_window",
+                     "pool2d.pool_im2col": "pool2d_im2col",
+                     "activation.act_vpu": "activation_exact",
+                     "activation.act_lut": "activation_lut"}
+
+
+class ManualWall:
+    """A wall clock that moves only when told (seconds)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def slo_server(device, slo_pressure=SLO_PRESSURE):
+    """The SLO deployment's server (``_slo_deployment``) on ``device`` and
+    its two tenants' frontends."""
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime import AdaptiveServer
+    srv = AdaptiveServer(ResourceBudget(**SLO_BUDGET), policy="demand",
+                         max_batch=MAX_BATCH, slo_pressure=slo_pressure,
+                         grant_quantum=SLO_QUANTUM, device=device)
+    params = {"heavy": init_cnn_frontend(SEED, device=srv.device),
+              "light": init_cnn_frontend(SEED + 1, device=srv.device)}
+    return srv, params
+
+
+def slo_scheduler(device, wall, deadlines):
+    """The deployment under an ``SLOScheduler`` reading ``wall``."""
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.runtime import SLOScheduler, SLOSpec
+    clear_plan_cache()
+    srv, params = slo_server(device)
+    sched = SLOScheduler(srv, wall=wall)
+    for name in ("heavy", "light"):
+        sched.register(name, params[name], IMAGE, **SLO_TENANT_KW[name],
+                       slo=SLOSpec(deadline_s=deadlines[name],
+                                   priority=SLO_PRIORITY[name]))
+    return sched
+
+
+def launch_kernels(srv, tenant, batch):
+    """A batch's plan under the tenant's grant: its sites as member@bits
+    and the kernels they launch, counted."""
+    from repro_torch.core.plan import replan
+    t = srv.tenants[tenant]
+    specs = srv._specs(t.params, (batch,) + IMAGE, "float32", t.pool_window,
+                       t.activation, t.ladder)
+    plan = replan(specs, srv.budget.scaled(t.granted), fuse=srv.fuse)
+    want = {}
+    for s in plan.sites:
+        k = CNN_MEMBER_KERNEL[s.ip.name]
+        want[k] = want.get(k, 0) + 1
+    return plan_str(plan), want
+
+
+def slo_parity_run(device, trace):
+    """(a) Drive the deployment on ``device`` through the trace one
+    launch at a time (on the card, counters reset just before each launch
+    and read just after: it must run the kernels its plan names), then
+    the shed case (a light burst, one launch, the wall moved past the
+    rest's deadline) and the rejection case (``max_queue_depth=2`` set
+    through ``load_state``, a larger burst).  Returns the scheduler, its
+    completions, the grants after each launch, each launch's (tenant,
+    batch, counters) and every light sample."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    wall = ManualWall()
+    sched = slo_scheduler(device, wall, SLO_DEADLINE_UNITS)
+    srv = sched.server
+    unit = srv.tenants["heavy"].unit_cost
+    for at, name, x in trace:
+        sched.submit(name, x, at=at * unit)
+    done, grants, runs = [], [], []
+
+    def one_launch():
+        before = sched.launches
+        cuda.reset_launches()
+        got = sched.run(max_launches=sched.launches + 1)
+        counts = cuda.launch_counts()
+        if sched.launches == before:
+            check(not got, "slo: a run without a launch completed requests")
+            return
+        done.extend(got)
+        grants.append({k: v.fraction
+                       for k, v in srv.arbiter.shares().items()})
+        plan, want = launch_kernels(srv, got[0].tenant, len(got))
+        runs.append((got[0].tenant, len(got), plan, counts))
+        if srv.device.type == "cuda":
+            check(counts == want, f"slo launch {sched.launches}: launched "
+                                  f"{counts}, its plan {plan} names {want}")
+
+    def drain():
+        while sched.pending():
+            one_launch()
+
+    drain()
+    rng = np.random.default_rng(SEED + 3)
+    burst = [rng.normal(size=IMAGE).astype(np.float32)
+             for _ in range(SLO_SHED_BURST + SLO_REJECT_BURST)]
+    for x in burst[:SLO_SHED_BURST]:
+        sched.submit("light", x)
+    one_launch()
+    check(sched.pending() > 0, "slo shed case: nothing left queued")
+    wall.t += SLO_DEADLINE_UNITS["light"] + 1.0    # past the queued deadline
+    drain()
+    state = sched.state_dict()
+    state["slos"]["light"]["max_queue_depth"] = 2
+    sched.load_state(state)
+    for x in burst[SLO_SHED_BURST:]:
+        sched.submit("light", x)
+    drain()
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    light = [x for _, name, x in trace if name == "light"] + burst
+    return sched, done, grants, runs, light
+
+
+def slo_metric_lines(sched):
+    return [line for line in sched.metrics().render().splitlines()
+            if "repro_tenant_" in line or "repro_scheduler_" in line]
+
+
+def slo_parity_checks(card):
+    """(a): the card's scheduler against the device="cpu" scheduler's."""
+    import numpy as np
+    import torch
+    trace = slo_trace(np.random.default_rng(SEED + 2), 1.0, from_zero=True)
+    sched, done, grants, runs, light = slo_parity_run(None, trace)
+    srv = sched.server
+    check(srv.device.type == "cuda", "slo: the server did not default to "
+                                     "cuda")
+    cpu, cpu_done, cpu_grants, cpu_runs, _ = slo_parity_run("cpu", trace)
+    st = sched.stats()
+    check(st == cpu.stats(), f"slo: stats {st} vs CPU {cpu.stats()}")
+    check(sched.outcomes == cpu.outcomes, "slo: outcomes differ from the "
+                                          "CPU scheduler's")
+    check([(c.rid, c.tenant, c.finished, c.batch_size) for c in done]
+          == [(c.rid, c.tenant, c.finished, c.batch_size)
+              for c in cpu_done],
+          "slo: completions (rid, tenant, finished, batch) differ from the "
+          "CPU scheduler's")
+    check(grants == cpu_grants, f"slo: grants {grants} vs CPU {cpu_grants}")
+    check([r[:3] for r in runs] == [r[:3] for r in cpu_runs],
+          "slo: launch order or plans differ from the CPU scheduler's")
+    for name in ("heavy", "light"):
+        check(srv.arbiter.miss_rate(name)
+              == cpu.server.arbiter.miss_rate(name),
+              f"slo: {name}'s miss rate differs from the CPU scheduler's")
+    check(st["preemptions"] >= 1 and st["sheds"] >= 1
+          and st["rejections"] >= 1,
+          f"slo: the trace must preempt, shed and reject: {st}")
+    check(slo_metric_lines(sched) == slo_metric_lines(cpu),
+          "slo: tenant_/scheduler_ metrics lines differ from the CPU's")
+    step = code_flip_step(srv.tenants["light"].params,
+                          torch.stack([torch.as_tensor(x)
+                                       for x in light]).cuda())
+    flips = 0
+    for a, b in zip(done, cpu_done):
+        check(tuple(a.result.shape) == LADDER_OUT and a.result.is_cuda
+              and bool(torch.isfinite(a.result).all()),
+              f"slo rid {a.rid}: {tuple(a.result.shape)} {a.result.device}, "
+              f"or non-finite")
+        if a.tenant == "heavy":
+            torch.testing.assert_close(a.result.cpu(), b.result, rtol=1e-4,
+                                       atol=1e-5)
+        else:
+            flips += code_flip(f"slo rid {a.rid}", a.result.cpu(), b.result,
+                               step)
+    total = {}
+    for *_, counts in runs:
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    check({"fused_cnn_vpu", "fused_cnn_mxu"} <= set(total),
+          f"slo: the fused kernels never launched ({total})")
+    log(f"slo (a): {len(done)} completions in {st['launches']} launches on "
+        f"the card == the device='cpu' scheduler (outcomes, stats, "
+        f"completions, grants after each launch, miss rates, tenant_/"
+        f"scheduler_ metrics lines); stats {st}; heavy within rtol=1e-4, "
+        f"atol=1e-5, light under the code-flip rule ({flips} elements "
+        f"out); each launch ran its plan's kernels: {total}; launches "
+        f"(tenant, batch, plan) {[r[:3] for r in runs]}; grants after each "
+        f"launch {grants}; on {card}")
+
+
+def slo_trace(rng, unit, from_zero=False):
+    """table_slo's trace (``_slo_trace``): per tenant Poisson arrivals
+    at SLO_IAT_UNITS times ``unit``, both tenants at 224x224x3, as (at,
+    tenant, sample) in arrival order.  ``from_zero`` puts each tenant's
+    first arrival at 0: heavy's bucket opens first and the light one
+    preempts it."""
+    import numpy as np
+    arrivals = []
+    for name, n in SLO_MIX.items():
+        t = 0.0
+        for _ in range(n):
+            gap = float(rng.exponential(SLO_IAT_UNITS[name] * unit))
+            arrivals.append((t if from_zero else t + gap, name))
+            t += gap
+    arrivals.sort(key=lambda pair: pair[0])
+    return [(at, name, rng.normal(size=IMAGE).astype(np.float32))
+            for at, name in arrivals]
+
+
+def slo_unit_seconds():
+    """The card's warm batch-4 round (4 heavy + 2 light requests, one
+    ``step``, synchronized inside the timed region): the median of the
+    rounds after the first (``_slo_unit_seconds``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import clear_plan_cache
+    clear_plan_cache()
+    srv, params = slo_server("cuda", slo_pressure=0.0)
+    for name in ("heavy", "light"):
+        srv.register(name, params[name], IMAGE, **SLO_TENANT_KW[name])
+    rng = np.random.default_rng(7)
+    times = []
+    for _ in range(3):
+        for name, n in (("heavy", 4), ("light", 2)):
+            for _ in range(n):
+                srv.submit(name, rng.normal(size=IMAGE).astype(np.float32))
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times[1:])
+
+
+def slo_replay(samples, deadlines, submit, pump, pending, outcomes=None):
+    """``_slo_replay`` on the card: arrivals land on the real clock, each
+    request is judged from its scheduled arrival, and every pump is
+    synchronized before its completions are stamped.  Returns per-tenant
+    wall latencies, misses, served and dropped."""
+    import torch
+    lat = {name: [] for name in deadlines}
+    missed = {name: 0 for name in deadlines}
+    arrival_s, tenant_of = {}, {}
+    i = 0
+    t0 = time.monotonic()
+    while i < len(samples) or pending():
+        now = time.monotonic() - t0
+        while i < len(samples) and samples[i][0] <= now:
+            at_s, name, x = samples[i]
+            rid = submit(name, x)
+            arrival_s[rid] = at_s
+            tenant_of[rid] = name
+            i += 1
+        if pending():
+            comps = pump()
+            torch.cuda.synchronize()
+            done = time.monotonic() - t0
+            for c in comps:
+                wall = done - arrival_s[c.rid]
+                lat[c.tenant].append(wall)
+                if wall > deadlines[c.tenant]:
+                    missed[c.tenant] += 1
+        elif i < len(samples):
+            time.sleep(max(0.0, min(samples[i][0] - now, 0.01)))
+    if outcomes is not None:
+        for rid, verdict in outcomes().items():
+            if verdict in ("shed", "rejected"):
+                missed[tenant_of[rid]] += 1
+    served = sum(len(v) for v in lat.values())
+    return lat, missed, served, len(arrival_s) - served
+
+
+def slo_sync_arm(samples, deadlines):
+    """The round loop: each ``AdaptiveServer.step`` drains every bucket."""
+    srv, params = slo_server("cuda", slo_pressure=0.0)
+    for name in ("heavy", "light"):
+        srv.register(name, params[name], IMAGE, **SLO_TENANT_KW[name])
+    out = slo_replay(samples, deadlines, submit=srv.submit, pump=srv.step,
+                     pending=srv.pending)
+    launches = sum(t.telemetry.batches for t in srv.tenants.values())
+    return out + ({"launches": launches, "sheds": 0, "preemptions": 0},)
+
+
+def slo_async_arm(samples, deadlines):
+    """The SLO scheduler, one launch a pump, on the real wall clock."""
+    from repro_torch.runtime import SLOScheduler, SLOSpec
+    srv, params = slo_server("cuda")
+    sched = SLOScheduler(srv)
+    for name in ("heavy", "light"):
+        sched.register(name, params[name], IMAGE, **SLO_TENANT_KW[name],
+                       slo=SLOSpec(deadline_s=deadlines[name],
+                                   priority=SLO_PRIORITY[name]))
+    out = slo_replay(samples, deadlines, submit=sched.submit,
+                     pump=lambda: sched.run(max_launches=sched.launches + 1),
+                     pending=sched.pending, outcomes=lambda: sched.outcomes)
+    return out + (sched.stats(),)
+
+
+def slo_premise(card):
+    """(b) table_slo's premise at full width on the card: the sync arm
+    (the round loop) and the async arm (the scheduler) replay one Poisson
+    trace; per arm the median over SLO_REPLAYS replays of the worst
+    tenant's deadline-normalized p95 and of the miss rate, and the last
+    replay's sheds, preemptions and launches.  Every replay must account
+    for every request; which arm wins is logged, not checked."""
+    import numpy as np
+    from repro_torch.core.plan import STATS
+    unit_s = slo_unit_seconds()
+    deadlines = {name: SLO_DEADLINE_UNITS[name] * unit_s
+                 for name in SLO_MIX}
+    samples = slo_trace(np.random.default_rng(
+        1000 + SLO_MIX["heavy"] * 31 + SLO_MIX["light"]), unit_s)
+    n = len(samples)
+    arms = {"sync": slo_sync_arm, "async": slo_async_arm}
+    warm = {}
+    for name, arm in arms.items():
+        for i in range(SLO_WARMUPS):
+            before = STATS.plan_misses
+            arm(samples, deadlines)
+            if STATS.plan_misses == before:
+                break
+        warm[name] = i + 1
+
+    def worst_norm_p95(lat):
+        return max(float(np.percentile(v, 95)) / deadlines[t]
+                   for t, v in lat.items() if v)
+
+    result = {}
+    for name, arm in arms.items():
+        p95s, misses = [], []
+        for _ in range(SLO_REPLAYS):
+            lat, missed, served, dropped, stats = arm(samples, deadlines)
+            check(served + dropped == n,
+                  f"slo {name}: {served} served + {dropped} dropped of {n}")
+            p95s.append(worst_norm_p95(lat))
+            misses.append(sum(missed.values()) / n)
+        result[name] = (statistics.median(p95s), statistics.median(misses))
+        log(f"slo (b) {name} arm: {warm[name]} warmup replays, then "
+            f"{SLO_REPLAYS}: worst-tenant p95 / deadline per replay "
+            f"{p95s}, miss rate per replay {misses}; median p95_norm "
+            f"{result[name][0]!r}, median miss rate {result[name][1]!r}; "
+            f"last replay: sheds {stats['sheds']}, preemptions "
+            f"{stats['preemptions']}, launches {stats['launches']}; on "
+            f"{card}")
+    (p_sync, m_sync), (p_async, m_async) = result["sync"], result["async"]
+    log(f"slo (b): unit (warm batch-4 round) {unit_s * 1e6:.1f} us, "
+        f"deadlines heavy {deadlines['heavy'] * 1e3:.3f} ms, light "
+        f"{deadlines['light'] * 1e3:.3f} ms, mix {SLO_MIX}; p95_norm sync "
+        f"{p_sync!r} async {p_async!r}; miss rate sync {m_sync!r} async "
+        f"{m_async!r}; async beats sync on p95: {p_async < p_sync}, on "
+        f"misses: {m_async < m_sync} (logged, not checked); on {card}")
+
+
+def head_dim_checks(card):
+    """(c) The attention kernels at head dims they are not built for
+    (zero-padded to the next width by ``flash.pad_head_dim``): each call
+    launches once and matches its plain version; ``attention(budget=)``
+    plans ROADMAP queue 3's input onto ``attn_flash`` / ``attn_decode``
+    and computes; head dim 144 raises the named error and launches
+    nothing."""
+    import torch
+    from repro_torch.core.ip import SiteSpec
+    from repro_torch.core.plan import plan_single
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.attention.decode import (flash_decode,
+                                                      flash_decode_plain)
+    from repro_torch.kernels.attention.flash import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.attention.ops import attention
+    gen = torch.Generator().manual_seed(SEED)
+    errs = {}
+    b, hq, hkv, sq, skv = HEAD_DIM_SHAPE
+    for d in HEAD_DIM_CHECKS:
+        for dtype, tol in ((torch.float32, ATTN_F32_TOL),
+                           (torch.bfloat16, ATTN_BF16_TOL)):
+            q = operand(gen, (b, hq, sq, d), dtype)
+            k, v = (operand(gen, (b, hkv, skv, d), dtype) for _ in range(2))
+            for causal in (True, False):
+                got = launched_once(
+                    lambda: flash_attention(q, k, v, causal=causal),
+                    "flash_attention", f"flash_attention D={d} {dtype}")
+                compare(f"flash_attention D={d} {dtype} causal={causal}",
+                        got, flash_attention_plain(q, k, v, causal=causal),
+                        errs=errs, **tol)
+            q1 = q[:, :, :1].contiguous()
+            got = launched_once(lambda: flash_decode(q1, k, v),
+                                "flash_decode", f"flash_decode D={d} {dtype}")
+            compare(f"flash_decode D={d} {dtype}", got,
+                    flash_decode_plain(q1, k, v), errs=errs, **tol)
+    qs, ks = HEAD_DIM_SITE
+    q = operand(gen, qs, torch.float32)
+    k, v = (operand(gen, ks, torch.float32) for _ in range(2))
+    budget = ResourceBudget()
+    for qq, member, kernel in ((q, "attn_flash", "flash_attention"),
+                               (q[:, :, :1].contiguous(), "attn_decode",
+                                "flash_decode")):
+        spec = SiteSpec.make("attention", "attention", (qq.shape, k.shape),
+                             qq.dtype)
+        planned = plan_single(spec, budget).ip.name
+        check(planned.endswith(member), f"attention(budget=) at "
+                                        f"{tuple(qq.shape)}: planned "
+                                        f"{planned}, not {member}")
+        got = launched_once(lambda: attention(qq, k, v, budget=budget),
+                            kernel, f"attention(budget=) {member}")
+        plain = (flash_attention_plain(qq, k, v) if member == "attn_flash"
+                 else flash_decode_plain(qq, k, v))
+        compare(f"attention(budget=) {member} at {tuple(qq.shape)}", got,
+                plain, errs=errs, **ATTN_F32_TOL)
+    big = operand(gen, (1, 2, 4, 144), torch.float32)
+    for fn in (flash_attention, flash_decode):
+        cuda.reset_launches()
+        try:
+            fn(big[:, :, :1].contiguous(), big, big)
+        except ValueError as e:
+            check("head dim 144 has no CUDA attention kernel" in str(e),
+                  f"{fn.__name__} at D 144: {e}")
+        else:
+            check(False, f"{fn.__name__} at D 144 did not raise")
+        check(not cuda.launch_counts(), f"{fn.__name__} at D 144 launched")
+    log(f"slo (c): flash_attention and flash_decode at head dims "
+        f"{HEAD_DIM_CHECKS} (f32, bf16, causal and full, GQA {hq}/{hkv}) "
+        f"one launch a call, within ATTN_F32_TOL / ATTN_BF16_TOL (max abs "
+        f"err {max(errs.values()):.3e}); attention(budget=) at "
+        f"{HEAD_DIM_SITE} planned and computed; D 144 refused; on {card}")
+
+
+def slo_phase(card):
+    """The "slo" phase: (a)-(c) above."""
+    t0 = time.perf_counter()
+    slo_parity_checks(card)
+    slo_premise(card)
+    head_dim_checks(card)
+    log(f"slo phase: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3973,6 +4471,7 @@ def main() -> int:
     ladder = ladder_serve_checks(trace)
     launches["activation_lut"] = \
         ladder["ladder_chain"][0]["activation_lut"]
+    slo_phase(card)
     table = calibration_phase(card, trace, requests)
     launches.update(budget_pool_check(gen, errs))
     launches.update(dual_conv_checks(shapes, gen, errs))

@@ -31,6 +31,7 @@ import torch
 from repro_torch.core.resources import Footprint, hbm_cycles
 from repro_torch.kernels import cuda
 from repro_torch.kernels.attention.flash import (_cdiv, check_qkv,
+                                                 pad_head_dim,
                                                  require_kernel_operands)
 from repro_torch.kernels.attention.ref import decode_attention_ref
 from repro_torch.kernels.conv2d.inner import check_block
@@ -77,18 +78,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_decode_plain(q, k, v)
     require_kernel_operands(q, k, v, 15)
+    q, k, v, d = pad_head_dim(q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     splits, _, ws_floats = decode_plan(q, k)
     ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
-    b, hq, _, d = q.shape
+    b, hq, _, dp = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     cuda.launch("flash_decode", "attn_decode", q.device,
                 cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), ws.data_ptr(), b, hq, hkv, skv,
-                d, splits, d ** -0.5)
-    return out
+                dp, splits, d ** -0.5)
+    return out if dp == d else out[..., :d].contiguous()
 
 
 def decode_plan(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int, int]:

@@ -31,8 +31,13 @@ through ``attn_flash``:
   ``ex2.approx`` of s log2(e) - m log2(e)), masks only on tiles the
   causal diagonal or the end of Skv crosses.
 
-Both check bounds instead of padding.  ``bq``/``bk`` are the
-reference's VMEM block hints: validated, they do not shape the launch.
+Both check bounds instead of padding along the sequence.  They are
+built for the head dims of ``HEAD_DIMS``; any other head dim up to 128
+is zero-padded to the next one by ``pad_head_dim`` (padded columns add
+exact zeros to q.k^T, and their output columns are dropped) and scaled
+by the original ``D ** -0.5``.  Past 128 the wrappers raise.
+``bq``/``bk`` are the reference's VMEM block hints: validated, they do
+not shape the launch.
 
 Rows that see no key (causal with Sq > Skv) are 0 in the kernel and in
 ``flash_attention_plain``; the reference's oracle gives NaN there and
@@ -94,10 +99,30 @@ def require_kernel_operands(q, k, v, item: int) -> None:
                              f"{t.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} has no CUDA attention "
-                         f"kernel (have {HEAD_DIMS}; ROADMAP queue 2, item "
-                         f"{item})")
+    padded_head_dim(q.shape[3])
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run for a head dim ``d``: the smallest
+    of ``HEAD_DIMS`` at least ``d``."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"head dim {d} has no CUDA attention kernel (at most "
+                     f"{HEAD_DIMS[-1]}; ROADMAP queue 3)")
+
+
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``(q, k, v, d)``: the operands zero-padded along the head dim to
+    ``padded_head_dim(d)`` (unchanged when ``d`` is one of
+    ``HEAD_DIMS``), and ``d``, the original head dim, whose
+    ``d ** -0.5`` the launch scales by and to which the caller slices
+    the output back."""
+    d = q.shape[3]
+    pad = padded_head_dim(d) - d
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    return q, k, v, d
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,16 +149,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal)
     require_kernel_operands(q, k, v, 14)
-    b, hq, sq, d = q.shape
+    q, k, v, d = pad_head_dim(q, k, v)
+    b, hq, sq, dp = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     cuda.launch("flash_attention", "attn_flash", q.device,
                 cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
+                v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, dp,
                 int(causal), d ** -0.5)
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 def footprint(b, hq, hkv, sq, skv, d, *, itemsize=2, bq=512, bk=512,

@@ -13,15 +13,22 @@ Hysteresis: grants only move when some tenant's target drifts more than
 the server re-plan its tenants under the new slices
 (``core.plan.replan``).
 
+The SLO scheduler (``runtime/scheduler.py``) feeds it: ``record_outcome``
+folds deadline misses into a per-tenant EWMA that ``slo_pressure``
+multiplies into the demand weights, ``preempt`` moves a grant on the
+spot, and ``grant_quantum`` snaps grants to a grid so the plan cache
+sees few distinct budgets.
+
 Pure Python; deterministic given the observation sequence.  Mesh mode
-(whole-device grants, device loss) is ROADMAP queue 1, item 9: a
-``mesh=`` of more than one device raises ``NotImplementedError``.  The
-SLO scheduler's inputs (miss-rate pressure, preemption, grant
-quantization) come with the scheduler (ROADMAP queue 1, item 8).
+(whole-device grants, device loss, ``degraded_grants``) is ROADMAP
+queue 1, item 9: a ``mesh=`` of more than one device raises
+``NotImplementedError``.  ``state_dict`` / ``load_state`` come with
+recovery (item 8, part 2).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 from repro_torch.core.resources import MeshSpec, ResourceBudget
@@ -52,11 +59,19 @@ class BudgetArbiter:
     def __init__(self, budget: Optional[ResourceBudget] = None, *,
                  policy: str = "demand", rebalance_threshold: float = 0.05,
                  demand_alpha: float = 0.5, calibration=None,
-                 mesh: Optional[MeshSpec] = None):
+                 mesh: Optional[MeshSpec] = None,
+                 slo_pressure: float = 0.0, miss_alpha: float = 0.5,
+                 grant_quantum: float = 0.0):
         if policy not in POLICIES:
             raise ValueError(f"unknown policy {policy!r}; have {POLICIES}")
         if not 0.0 < demand_alpha <= 1.0:
             raise ValueError("demand_alpha must be in (0, 1]")
+        if slo_pressure < 0.0:
+            raise ValueError("slo_pressure must be >= 0")
+        if not 0.0 < miss_alpha <= 1.0:
+            raise ValueError("miss_alpha must be in (0, 1]")
+        if not 0.0 <= grant_quantum < 1.0:
+            raise ValueError("grant_quantum must be in [0, 1)")
         if mesh is not None and mesh.devices > 1:
             raise NotImplementedError(
                 "mesh-mode arbitration is not ported yet (ROADMAP queue 1, "
@@ -72,11 +87,23 @@ class BudgetArbiter:
         self.calibration = calibration
         self.rebalance_threshold = rebalance_threshold
         self.demand_alpha = demand_alpha
+        # SLO pressure: a tenant's demand weight is multiplied by
+        # (1 + slo_pressure * deadline-miss-rate EWMA), so grants chase
+        # deadlines missed, not just work submitted (0.0 = off).
+        self.slo_pressure = slo_pressure
+        self.miss_alpha = miss_alpha
+        # Grant quantization: targets snap DOWN to multiples of
+        # ``grant_quantum`` (never below a tenant's floor), so the budget
+        # slices the server plans under take at most 1/quantum values a
+        # tenant and steady traffic re-plans into cache hits (0.0 = off).
+        self.grant_quantum = grant_quantum
         self._floors: Dict[str, float] = {}
         self._demand: Dict[str, float] = {}
         self._pending: Dict[str, float] = {}
         self._granted: Dict[str, float] = {}
+        self._miss_rate: Dict[str, float] = {}
         self.rebalances = 0
+        self.preemptions = 0
 
     def register(self, name: str, floor: float = 0.0) -> None:
         """Admit one tenant.  Validates the whole tenant set *before*
@@ -105,11 +132,28 @@ class BudgetArbiter:
         self._floors[name] = floor
         self._demand[name] = 0.0
         self._pending[name] = 0.0
+        self._miss_rate[name] = 0.0
 
     def observe(self, name: str, cost: float) -> None:
         """Record submitted work (est-cycles) for one tenant; folded
         into the demand EWMA at the next ``split()``."""
         self._pending[name] += float(cost)
+
+    def record_outcome(self, name: str, *, served: int, missed: int) -> None:
+        """Fold one dispatch round's deadline outcomes into the
+        tenant's miss-rate EWMA (``missed`` counts late completions AND
+        shed requests; ``served`` counts everything that left the queue
+        this round).  With ``slo_pressure > 0`` the EWMA multiplies the
+        tenant's demand weight at the next ``split()``."""
+        if name not in self._floors:
+            raise KeyError(f"tenant {name!r} is not registered")
+        rate = min(max(float(missed) / max(served, 1), 0.0), 1.0)
+        a = self.miss_alpha
+        self._miss_rate[name] = (1 - a) * self._miss_rate[name] + a * rate
+
+    def miss_rate(self, name: str) -> float:
+        """The tenant's current deadline-miss-rate EWMA."""
+        return self._miss_rate.get(name, 0.0)
 
     def _targets(self) -> Dict[str, float]:
         names = list(self._floors)
@@ -117,13 +161,28 @@ class BudgetArbiter:
         if self.policy == "static":
             return {m: 1.0 / n for m in names}
         total_floor = sum(self._floors.values())
-        total_demand = sum(self._demand.values())
-        if total_demand <= 0.0:
+        weight = {m: self._demand[m]
+                  * (1.0 + self.slo_pressure * self._miss_rate[m])
+                  for m in names}
+        total_weight = sum(weight.values())
+        if total_weight <= 0.0:
             raw = {m: 1.0 / n for m in names}
         else:
-            raw = {m: self._demand[m] / total_demand for m in names}
+            raw = {m: weight[m] / total_weight for m in names}
         surplus = max(0.0, 1.0 - total_floor)
-        return {m: self._floors[m] + surplus * raw[m] for m in names}
+        targets = {m: self._floors[m] + surplus * raw[m] for m in names}
+        return self._quantize(targets)
+
+    def _quantize(self, targets: Dict[str, float]) -> Dict[str, float]:
+        """Snap each target down to the ``grant_quantum`` grid, floored
+        at the tenant's minimal feasible fraction.  Rounding down keeps
+        the sum feasible; a target that rounds below its floor lands ON
+        the floor."""
+        q = self.grant_quantum
+        if q <= 0.0:
+            return targets
+        return {m: max(self._floors[m], q * math.floor(t / q + 1e-9))
+                for m, t in targets.items()}
 
     def split(self) -> Dict[str, TenantShare]:
         """Fold pending observations into the EWMA and (re)grant.
@@ -163,9 +222,33 @@ class BudgetArbiter:
                       tenants=len(targets), total=self.rebalances)
         return self.shares()
 
+    def preempt(self, winner: str, victim: str) -> float:
+        """Immediate grant transfer: squeeze ``victim`` to its floor and
+        hand the freed fraction to ``winner`` — what a priority tenant
+        does to a queued lower-priority bucket instead of out-bidding it
+        through the demand EWMA.  Bypasses the rebalance threshold,
+        counts as a rebalance, and logs an ``arbiter.preempt`` event.
+        Returns the fraction that moved (0.0 when the victim already sat
+        at its floor)."""
+        for m in (winner, victim):
+            if m not in self._granted:
+                raise KeyError(f"tenant {m!r} has no grant yet "
+                               f"(call split() first)")
+        freed = max(0.0, self._granted[victim] - self._floors[victim])
+        if freed <= 0.0:
+            return 0.0
+        self._granted[victim] = self._floors[victim]
+        self._granted[winner] += freed
+        self.rebalances += 1
+        self.preemptions += 1
+        log_event("arbiter.preempt", winner=winner, victim=victim,
+                  moved=freed, total=self.preemptions)
+        return freed
+
     def shares(self) -> Dict[str, TenantShare]:
         """The current grants as ``TenantShare`` rows without folding
-        pending observations."""
+        pending observations (what ``split()`` decided, plus any
+        ``preempt()`` moves since)."""
         return {m: TenantShare(name=m, demand=self._demand[m],
                                floor=self._floors[m],
                                fraction=self._granted.get(m, 0.0))

@@ -25,10 +25,14 @@ plan cache with zero selector work.  With ``autotune=True`` the tunable
 sites of each executed plan run sweep-chosen tilings
 (``core.autotune.plan_tile_overrides``) instead of member defaults.
 
-Later slices of the port add what the reference server also has: fault
-seams and guards, the SLO scheduler's inputs, mesh/sharded execution,
-device-loss degradation, spare-plan pre-warming and the metrics registry
-(ROADMAP queue 1, items 8-9).
+The SLO scheduler (``runtime/scheduler.py``) drives the same server per
+launch: ``slo_pressure``, ``miss_alpha`` and ``grant_quantum`` pass to
+the arbiter, ``_execute(deadline_budget_s=)`` carries the batch's
+tightest remaining deadline, and ``metrics()`` folds the state into a
+``MetricsRegistry``.  What the reference server also has comes in later
+slices: fault seams, guards and recovery (ROADMAP queue 1, item 8,
+part 2), mesh/sharded execution, device-loss degradation and spare-plan
+pre-warming (item 9).
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ from repro_torch.core.resources import ResourceBudget
 from repro_torch.models.frontends import (apply_cnn_frontend,
                                           cnn_frontend_site_specs,
                                           resolve_device)
-from repro_torch.obs.trace import NOOP_SPAN, TRACER
+from repro_torch.obs.metrics import system_metrics
+from repro_torch.obs.trace import NOOP_SPAN, TRACER, log_event
 from repro_torch.quant.report import max_rel_error
 from repro_torch.runtime.arbiter import BudgetArbiter, TenantShare
 from repro_torch.runtime.batching import Request, ShapeBucketQueue
@@ -74,7 +79,9 @@ class Tenant:
 
 @dataclasses.dataclass(frozen=True)
 class Completion:
-    """One served request: result + accounting."""
+    """One served request: result + accounting.  ``ok=False`` means an
+    execution guard gave the batch up (guards: ROADMAP queue 1, item 8,
+    part 2); every completion of this slice is ``ok``."""
 
     rid: int
     tenant: str
@@ -82,6 +89,7 @@ class Completion:
     arrival: float
     finished: float
     batch_size: int
+    ok: bool = True
 
     @property
     def latency(self) -> float:
@@ -111,7 +119,9 @@ class AdaptiveServer:
                  policy: str = "demand", rebalance_threshold: float = 0.05,
                  max_batch: int = 4, autotune: bool = False,
                  demand_alpha: float = 0.5, fuse: bool = True,
-                 calibration=None, device=None):
+                 calibration=None, device=None,
+                 slo_pressure: float = 0.0, miss_alpha: float = 0.5,
+                 grant_quantum: float = 0.0):
         self.device = resolve_device(device)
         self.budget = budget or ResourceBudget()
         # fuse (default True): every block the planner can fuse runs
@@ -123,10 +133,17 @@ class AdaptiveServer:
         # measured scale factors instead of the raw analytical cycles
         # (see core/calibrate_cost.py).  None keeps the analytical model.
         self.calibration = calibration
+        # slo_pressure > 0 makes the arbiter chase deadline-miss EWMAs
+        # on top of demand — only meaningful under the SLO scheduler
+        # (``runtime/scheduler.py``), which feeds ``record_outcome``.
         self.arbiter = BudgetArbiter(self.budget, policy=policy,
                                      rebalance_threshold=rebalance_threshold,
                                      demand_alpha=demand_alpha,
-                                     calibration=calibration)
+                                     calibration=calibration,
+                                     slo_pressure=slo_pressure,
+                                     miss_alpha=miss_alpha,
+                                     grant_quantum=grant_quantum)
+        self.mesh = self.arbiter.mesh        # None: one device
         self.max_batch = max_batch
         self.autotune = autotune
         self.clock = 0.0
@@ -247,12 +264,19 @@ class AdaptiveServer:
             out.extend(self.step())
         return out
 
-    def _execute(self, batch: List[Request]) -> List[Completion]:
+    def _execute(self, batch: List[Request], *,
+                 deadline_budget_s: Optional[float] = None
+                 ) -> List[Completion]:
+        """Run one batch of one tenant.  ``deadline_budget_s`` is the
+        batch's tightest remaining wall budget (the SLO scheduler passes
+        it); the execution guards of ROADMAP queue 1, item 8, part 2
+        charge their retries against it, and nothing reads it yet."""
         with (TRACER.span("serve.execute", "serving",
                           {"tenant": batch[0].tenant,
                            "batch": len(batch)})
               if TRACER.enabled else NOOP_SPAN):
-            return self._execute_batch(batch)
+            return self._execute_batch(batch,
+                                       deadline_budget_s=deadline_budget_s)
 
     def _attempt(self, tenant: Tenant, xb):
         """(Re)plan under the tenant's *current* slice and run the
@@ -295,7 +319,9 @@ class AdaptiveServer:
         quant_err = max_rel_error(quant_report) if quant_report else 0.0
         return y, plan, quant_err
 
-    def _execute_batch(self, batch: List[Request]) -> List[Completion]:
+    def _execute_batch(self, batch: List[Request], *,
+                       deadline_budget_s: Optional[float] = None
+                       ) -> List[Completion]:
         tenant = self.tenants[batch[0].tenant]
         xb = torch.stack([r.x for r in batch])
         hits0, misses0 = STATS.plan_hits, STATS.plan_misses
@@ -320,6 +346,17 @@ class AdaptiveServer:
                            batch_size=len(batch))
                 for i, r in enumerate(batch)]
 
+    def on_budget_shrink(self, fraction: float) -> None:
+        """Mid-serving budget shock: the device budget scales to
+        ``fraction`` of itself (every tenant's slice shrinks with it at
+        its next batch — the precision ladder absorbs what the smaller
+        envelope cannot fit)."""
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError("fraction must be in (0, 1]")
+        self.budget = self.budget.scaled(fraction)
+        self.arbiter.budget = self.budget
+        log_event("budget.shrunk", fraction=fraction)
+
     # -- observability ------------------------------------------------------
     def shares(self) -> Dict[str, TenantShare]:
         """The latest arbitration round's grants (empty before a step)."""
@@ -331,6 +368,13 @@ class AdaptiveServer:
     def queue_stats(self) -> Dict[str, int]:
         """Lifetime counters of the shape-bucket queue."""
         return self._queue.stats()
+
+    def metrics(self, registry=None):
+        """This server's state folded into a ``MetricsRegistry``
+        (``repro_torch.obs.metrics``): planner/cache counters, event log,
+        tracer stats, arbiter rebalances, and per-tenant telemetry.
+        Render with ``.render()`` (Prometheus text) or ``.snapshot()``."""
+        return system_metrics(server=self, registry=registry)
 
     def telemetry(self) -> Dict[str, dict]:
         """Per-tenant snapshot: latency percentiles (est-cycles), batch

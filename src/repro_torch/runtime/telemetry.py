@@ -14,8 +14,8 @@ widest degree the tenant has served, and ``comm_cycles_share`` is the
 fraction of the tenant's total estimated cycles spent in collectives —
 how much of a mesh tenant's bill is traffic, not compute.
 
-SLO columns (populated by the SLO scheduler, a later slice of the port;
-zero under the plain synchronous server) keep the **dual-clock rule**: latency
+SLO columns (populated by ``runtime/scheduler.py``; zero under the
+plain synchronous server) keep the **dual-clock rule**: latency
 percentiles stay in modeled est-cycles (``p50_cycles``/``p95_cycles``)
 while deadline outcomes are judged on the monotonic wall clock — so the
 snapshot carries BOTH clocks: ``wall_p50_s``/``wall_p95_s`` are

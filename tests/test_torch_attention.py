@@ -448,6 +448,82 @@ def test_named_errors(rng):
 
 
 # --------------------------------------------------------------------------
+# head dims the kernels are not built for: zero-padded on the host
+# --------------------------------------------------------------------------
+def test_padded_head_dim_is_the_next_kernel_width():
+    for d in range(1, 129):
+        want = min(w for w in t_flash_mod.HEAD_DIMS if w >= d)
+        assert t_flash_mod.padded_head_dim(d) == want, d
+    for d in t_flash_mod.HEAD_DIMS:
+        q = torch.zeros(1, 2, 3, d)
+        assert all(a is b for a, b in zip(t_flash_mod.pad_head_dim(q, q, q),
+                                          (q, q, q, d)))
+
+
+@pytest.mark.parametrize("d", [8, 12, 80])
+def test_padded_operands_compute_the_same_function(rng, d):
+    """What the wrappers launch on the card, run through the plain
+    versions: operands zero-padded along D, scaled by the original
+    D^-0.5, the output sliced back to D."""
+    (_, tq), (_, tk), (_, tv) = _qkv(rng, 2, 8, 2, 40, 56, d)
+    qp, kp, vp, d0 = t_flash_mod.pad_head_dim(tq, tk, tv)
+    dp = t_flash_mod.padded_head_dim(d)
+    assert d0 == d and qp.shape[3] == kp.shape[3] == vp.shape[3] == dp
+    assert torch.equal(qp[..., :d], tq) and not qp[..., d:].any()
+    for causal in (True, False):
+        got = attention_ref(qp, kp, vp, causal=causal, scale=d ** -0.5)
+        assert not got[..., d:].any()
+        np.testing.assert_allclose(
+            _np(got[..., :d]), _np(flash_attention_plain(tq, tk, tv,
+                                                         causal=causal)),
+            rtol=0, atol=1e-6)
+    got = decode_attention_ref(qp[:, :, :1], kp, vp, scale=d ** -0.5)
+    np.testing.assert_allclose(_np(got[..., :d]),
+                               _np(flash_decode_plain(tq[:, :, :1], tk, tv)),
+                               rtol=0, atol=1e-6)
+
+
+def test_head_dim_past_the_kernels_is_refused():
+    q = torch.zeros(1, 2, 1, 144)
+    for fn in (lambda: t_flash_mod.padded_head_dim(129),
+               lambda: t_flash_mod.pad_head_dim(q, q, q)):
+        with pytest.raises(ValueError, match="has no CUDA attention kernel "
+                                             r"\(at most 128"):
+            fn()
+
+
+@pytest.mark.parametrize("d", [8, 80])
+def test_any_head_dim_matches_reference_kernels(rng, d):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 8, 2, 48, 64, d)
+    for causal in (True, False):
+        want = j_flash(jq, jk, jv, causal=causal, bq=16, bk=16)
+        got = flash_attention(tq, tk, tv, causal=causal, bq=16, bk=16)
+        assert got.shape == tq.shape
+        np.testing.assert_allclose(_np(got), _np(want), **F32)
+    want = j_decode(jq[:, :, :1], jk, jv, bk=16)
+    got = flash_decode(tq[:, :, :1], tk, tv, bk=16)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+def test_attention_budget_plans_small_head_dim(rng):
+    """The input the planners route to the flash and decode kernels at
+    head dim 8 (the smoke configs' ``head_dim``): planned onto
+    ``attn_flash`` / ``attn_decode`` by both packages, and computed."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 4, 2, 64, 64, 8)
+    for q, member in ((tq, "attn_flash"), (tq[:, :, :1], "attn_decode")):
+        spec = TSpec.make("attention", "attention", (q.shape, tk.shape),
+                          q.dtype)
+        jspec = JSpec.make("attention", "attention",
+                           (tuple(q.shape), tuple(tk.shape)), jnp.float32)
+        assert t_plan.plan_single(spec, TBudget()).ip.name.endswith(member)
+        assert j_plan.plan_single(jspec, JBudget()).ip.name.endswith(member)
+        got = attention(q, tk, tv, causal=True, budget=TBudget())
+        want = j_ref(jnp.asarray(q.numpy()), jk, jv,
+                     causal=member == "attn_flash")
+        np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+# --------------------------------------------------------------------------
 # the op wrapper: ip= and budget= routing
 # --------------------------------------------------------------------------
 def test_attention_routes_ip(rng):
