@@ -111,7 +111,39 @@ and prints no result):
    ``ATTN_F32_TOL`` / ``ATTN_BF16_TOL`` of the plain versions;
    ``attention(budget=)`` plans (1,4,64,8) x (1,2,64,8) and its
    one-token decode onto ``attn_flash`` / ``attn_decode`` and computes;
-   head dim 144 raises the named error, launching nothing;
+   Then "faults" (``faults_phase``: runtime/faults.py, guards.py,
+   recovery.py and checkpoint/store.py on the card): (a) ladder_fused's
+   deployment through the ladder trace disarmed, armed on a schedule
+   that never fires and disarmed again: results, completions, grants and
+   telemetry bitwise equal; (b) ``CHAOS_SCHEDULE`` (kernel exceptions,
+   NaN outputs, latency spikes, a budget shrink; seeded) on the guarded
+   deployment (``CHAOS_POLICIES``: heavy rejects a NaN, light retries it
+   with the ladder off) on the card and on the CPU: completions, ``ok``
+   flags, guard columns and ``fault.injected`` / ``retry.attempt`` /
+   ``guard.rejected`` events equal, f32 results within ``rtol=1e-4,
+   atol=1e-5`` and the light tenant under the code-flip rule; the
+   availability of the guarded and of the bare arm logged (the bare arm
+   serves fewer); a NaN on light under ``retry_f32`` launches exactly
+   the kernels of its lowered plan and of the f32 retry's; a scheduled
+   ``device_loss`` on one device serves (as the reference), a
+   ``DeviceLost`` raised into the guard is rejected; (c) a guarded
+   attempt that runs a wrapper on a misaligned CUDA view, or the C entry
+   with an unknown dtype code, re-raises its ``ValueError`` /
+   ``RuntimeError`` with no retry, event or launch; (d) a guarded
+   deployment under an ``SLOScheduler``: ``snapshot_server``, a wave
+   served, ``simulate_worker_death()``, ``recover_server(device=None)``:
+   params on the card, zero cold plans over the restore and the same
+   wave, which is bitwise the pre-crash server's; a bf16 tenant's params
+   and batch bitwise; snapshot and recovery wall times (median of
+   ``RECOVERY_REPS``), checkpoint bytes and plans imported logged; (e)
+   ``RecoveryManager(heartbeat_timeout_s=HEARTBEAT_S)`` over the card's
+   serving loop fires on silence, and again after ``recover()``; (f)
+   ``flash_attention`` and ``flash_decode`` at head dims
+   ``WIDE_HEAD_DIMS`` (144, 192, 256, 320: the 256- and 384-wide
+   instances; bf16 one 128-column block of O a CTA) on f32 and bf16, causal
+   and full, GQA 4:1, ragged, one launch a call, within
+   ``ATTN_F32_TOL`` / ``ATTN_BF16_TOL``; head dim ``WIDE_REFUSED``
+   refused with no launch;
    Then "calibration" (``calibration_phase``, core/calibrate_cost.py on
    the card): (a) both arms (fused, unfused) of ``CAL_NETWORKS`` x
    ``CAL_BATCHES`` x ``CAL_BUDGETS`` planned analytically (an infeasible
@@ -185,7 +217,9 @@ and prints no result):
    and in the MXU members' CUDA-core kernels (``CUDA_CORE``:
    ``pool2d_im2col_kernel``, f32 ``flash_attention_kernel``),
    IGMMA in the int8 and HGMMA in the bf16
-   tensor-core kernels, bf16 flash attention's included (``TC_SASS``),
+   tensor-core kernels, bf16 flash attention's included (``TC_SASS``;
+   its 256- and 384-wide instances, and the f32 kernel's, present:
+   ``WIDE_SASS``),
    and every kernel of the ``kernels`` line (``KERNEL``) in the library;
 5. times  — the floor of ``time_ms`` (``zero_()`` on a 1-element
    tensor), and per kernel (``pool2d_window`` also at a batch-64 block 0
@@ -199,7 +233,9 @@ and prints no result):
    registers, CTAs an SM and waves; Conv3's row with two ``conv2d_ip1``
    launches and its grid),
    ``flash_attention`` (its f32 output at attn_train4k also held to
-   ``ATTN_F32_TOL`` head chunk by head chunk),
+   ``ATTN_F32_TOL`` head chunk by head chunk; bf16 and f32 again at
+   head dim 256, ``WIDE_TRAIN``), ``flash_decode`` at head dim 256
+   (``WIDE_DECODE``; SDPA at the same D beside both),
    ``flash_decode`` (with f32 SDPA beside it, or the error it raises)
    and ``mm_dual_full`` also on f32; ``mm_mxu`` per
    operand dtype:
@@ -329,6 +365,8 @@ REPLACES = {
     "mm_dual_full (f32)": "src/repro/kernels/matmul/dual.py:44",
     "flash_attention": "src/repro/kernels/attention/flash.py:77",
     "flash_decode": "src/repro/kernels/attention/decode.py:58",
+    "flash_attention (D 256)": "src/repro/kernels/attention/flash.py:77",
+    "flash_decode (D 256)": "src/repro/kernels/attention/decode.py:58",
     "selective_scan": "src/repro/kernels/mamba_scan/scan.py:54",
 }
 # The rows of the kernels line that run on the tensor cores: mm_mxu on
@@ -336,11 +374,12 @@ REPLACES = {
 # "mm_mxu" stays on CUDA cores) and the dual rows, timed on int8 and bf16
 # (the f32 dual row, "mm_dual_full (f32)", stays on CUDA cores);
 # flash_attention, timed on bf16 (attn_tc_kernels.cu; f32 stays on
-# attn_kernels.cu's CUDA-core kernel).
+# attn_kernels.cu's CUDA-core kernel), at head dim 64 and, its 256-wide
+# instances ("faults" (f)), 256.
 TC_ROWS = ("mm_mxu (int8)", "mm_mxu (bf16)", "mm_dual_shared", "mm_dual_full")
 SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
                  CSRC_MM if name.startswith("mm_") else
-                 CSRC_ATTN_TC if name == "flash_attention" else
+                 CSRC_ATTN_TC if name.startswith("flash_attention") else
                  CSRC_ATTN if name.startswith("flash_") else
                  CSRC_SCAN if name == "selective_scan" else CSRC)
           for name in REPLACES}
@@ -372,6 +411,8 @@ KERNEL = {
     "mm_dual_full (f32)": "mm_dual_f32_kernel",
     "flash_attention": "attn_tc_flash_kernel",
     "flash_decode": "flash_decode_split_kernel, decode_combine_kernel",
+    "flash_attention (D 256)": "attn_tc_flash_kernel",
+    "flash_decode (D 256)": "flash_decode_split_kernel, decode_combine_kernel",
     "selective_scan": "selective_scan_kernel",
 }
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
@@ -385,6 +426,12 @@ LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_tiled_kernel",
 # MMA; TF32 would miss ATTN_F32_TOL).  No MMA in SASS either.
 CUDA_CORE = ("pool2d_im2col_kernel", "flash_attention_kernel")
 MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
+# The attention instances past head dim 128 (mangled names): each must
+# be in the library, under the checks of TC_SASS and CUDA_CORE.
+WIDE_SASS = ("attn_tc_flash_kernelILi256ELi128E",
+             "attn_tc_flash_kernelILi384ELi128E",
+             "flash_attention_kernelILi256E",
+             "flash_attention_kernelILi384E")
 # The tensor-core kernels by source, and the wgmma instruction each must
 # contain (and no other MMA kind): the MXU matmul members and bf16 flash
 # attention.
@@ -2200,13 +2247,11 @@ def head_dim_checks(card):
     (zero-padded to the next width by ``flash.pad_head_dim``): each call
     launches once and matches its plain version; ``attention(budget=)``
     plans ROADMAP queue 3's input onto ``attn_flash`` / ``attn_decode``
-    and computes; head dim 144 raises the named error and launches
-    nothing."""
+    and computes (head dims past 128: "faults" (f))."""
     import torch
     from repro_torch.core.ip import SiteSpec
     from repro_torch.core.plan import plan_single
     from repro_torch.core.resources import ResourceBudget
-    from repro_torch.kernels import cuda
     from repro_torch.kernels.attention.decode import (flash_decode,
                                                       flash_decode_plain)
     from repro_torch.kernels.attention.flash import (flash_attention,
@@ -2251,22 +2296,182 @@ def head_dim_checks(card):
                  else flash_decode_plain(qq, k, v))
         compare(f"attention(budget=) {member} at {tuple(qq.shape)}", got,
                 plain, errs=errs, **ATTN_F32_TOL)
-    big = operand(gen, (1, 2, 4, 144), torch.float32)
+    log(f"slo (c): flash_attention and flash_decode at head dims "
+        f"{HEAD_DIM_CHECKS} (f32, bf16, causal and full, GQA {hq}/{hkv}) "
+        f"one launch a call, within ATTN_F32_TOL / ATTN_BF16_TOL (max abs "
+        f"err {max(errs.values()):.3e}); attention(budget=) at "
+        f"{HEAD_DIM_SITE} planned and computed; on {card}")
+
+
+# Head dims past 128 ("faults" (f)): D 144 and 192 pad to the 256-wide
+# instances, 256 is one, 320 pads to 384; the bf16 kernel gives each CTA
+# one COL_BLOCK-wide column block of O, the f32 kernel all of it.  Shapes (B, Hq, Hkv, Sq, Skv): GQA
+# 4:1, Sq < Skv and Sq > Skv (rows that see no key under causal), neither
+# a multiple of a block.  Past the widest instance the named error.
+WIDE_HEAD_DIMS = (144, 192, 256, 320)
+WIDE_HEAD_SHAPES = ((2, 8, 2, 70, 100), (1, 8, 2, 200, 130))
+WIDE_REFUSED = 400
+# the time rows at head dim 256: attn_train4k's and attn_decode32k's
+# layouts (Llama-3.2-1B's heads) with D 256
+WIDE_TRAIN = ((8, 32, 4096, 256), (8, 8, 4096, 256))
+WIDE_DECODE = ((128, 32, 1, 256), (128, 8, 32768, 256))
+
+
+def wide_head_dim_checks(card, errs):
+    """(f) ``flash_attention`` and ``flash_decode`` at WIDE_HEAD_DIMS on
+    f32 and bf16, causal and full, at WIDE_HEAD_SHAPES: one launch a call,
+    within ATTN_F32_TOL / ATTN_BF16_TOL of the plain versions; head dim
+    WIDE_REFUSED raises the named error and launches nothing.  Returns
+    the launches by kernels-line row of the calls padded to 256 (the
+    timed instance)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.attention.decode import (flash_decode,
+                                                      flash_decode_plain)
+    from repro_torch.kernels.attention.flash import (flash_attention,
+                                                     flash_attention_plain,
+                                                     padded_head_dim)
+    gen = torch.Generator().manual_seed(SEED)
+    launches = {"flash_attention (D 256)": 0, "flash_decode (D 256)": 0}
+    mine = {}
+    for d in WIDE_HEAD_DIMS:
+        at256 = padded_head_dim(d) == 256
+        for dtype, tol in ((torch.float32, ATTN_F32_TOL),
+                           (torch.bfloat16, ATTN_BF16_TOL)):
+            for b, hq, hkv, sq, skv in WIDE_HEAD_SHAPES:
+                q = operand(gen, (b, hq, sq, d), dtype)
+                k, v = (operand(gen, (b, hkv, skv, d), dtype)
+                        for _ in range(2))
+                what = f"D={d} {dtype} q{tuple(q.shape)} kv{tuple(k.shape)}"
+                for causal in (True, False):
+                    got = launched_once(
+                        lambda: flash_attention(q, k, v, causal=causal),
+                        "flash_attention", f"flash_attention {what}")
+                    compare(f"flash_attention {what} causal={causal}", got,
+                            flash_attention_plain(q, k, v, causal=causal),
+                            errs=mine, **tol)
+                    if at256 and dtype == torch.bfloat16:
+                        launches["flash_attention (D 256)"] += 1
+                q1 = q[:, :, :1].contiguous()
+                got = launched_once(lambda: flash_decode(q1, k, v),
+                                    "flash_decode", f"flash_decode {what}")
+                compare(f"flash_decode {what}", got,
+                        flash_decode_plain(q1, k, v), errs=mine, **tol)
+                if at256 and dtype == torch.bfloat16:
+                    launches["flash_decode (D 256)"] += 1
+    for name, err in mine.items():
+        row = ("flash_attention (D 256)" if name.startswith("flash_attention")
+               else "flash_decode (D 256)")
+        if "D=192 " in name or "D=256 " in name:
+            errs[row] = max(errs.get(row, 0.0), err)
+    big = operand(gen, (1, 2, 4, WIDE_REFUSED), torch.float32)
     for fn in (flash_attention, flash_decode):
         cuda.reset_launches()
         try:
             fn(big[:, :, :1].contiguous(), big, big)
         except ValueError as e:
-            check("head dim 144 has no CUDA attention kernel" in str(e),
-                  f"{fn.__name__} at D 144: {e}")
+            check(f"head dim {WIDE_REFUSED} has no CUDA attention kernel"
+                  in str(e), f"{fn.__name__} at D {WIDE_REFUSED}: {e}")
         else:
-            check(False, f"{fn.__name__} at D 144 did not raise")
-        check(not cuda.launch_counts(), f"{fn.__name__} at D 144 launched")
-    log(f"slo (c): flash_attention and flash_decode at head dims "
-        f"{HEAD_DIM_CHECKS} (f32, bf16, causal and full, GQA {hq}/{hkv}) "
-        f"one launch a call, within ATTN_F32_TOL / ATTN_BF16_TOL (max abs "
-        f"err {max(errs.values()):.3e}); attention(budget=) at "
-        f"{HEAD_DIM_SITE} planned and computed; D 144 refused; on {card}")
+            check(False, f"{fn.__name__} at D {WIDE_REFUSED} did not raise")
+        check(not cuda.launch_counts(),
+              f"{fn.__name__} at D {WIDE_REFUSED} launched")
+    log(f"faults (f): flash_attention and flash_decode at head dims "
+        f"{WIDE_HEAD_DIMS} (f32 and bf16, causal and full, GQA 4:1, "
+        f"shapes {WIDE_HEAD_SHAPES}) one launch a call, within "
+        f"ATTN_F32_TOL / ATTN_BF16_TOL (max abs err "
+        f"{max(mine.values()):.3e}); D {WIDE_REFUSED} refused; on {card}")
+    return launches
+
+
+def wide_head_dim_times(peaks, errs):
+    """Time rows of the head-dim-256 instances: bf16 and f32 flash at
+    WIDE_TRAIN (causal), bf16 decode at WIDE_DECODE, each beside its
+    plain version run a slice at a time and SDPA (``enable_gqa``) at the
+    same D.  ``bound_ms`` counts the function's operations (4 D a visible
+    pair); ``work_bound_ms`` the bf16 kernel's own, with S computed once
+    a column block and P.V in two bf16 terms: (2 D + 4 COL_BLOCK) D /
+    COL_BLOCK a pair (the f32 kernel computes S once: its own work is
+    the function's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention.decode import (flash_decode,
+                                                      flash_decode_plain)
+    from repro_torch.kernels.attention.flash import (COL_BLOCK,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    # the operands are drawn on the card: the decode cache alone is 8.6e9
+    # values
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+
+    def draw(shape, dtype, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype) * scale
+
+    def sdpa_ms(q, k, v, causal):
+        try:
+            return time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)), None
+        except RuntimeError as e:
+            torch.cuda.empty_cache()
+            return None, (f"SDPA raised {type(e).__name__}: "
+                          f"{str(e).splitlines()[0][:200]}")
+
+    def plain_ms(plain, q, k, v, per_head, **kw):
+        def run():
+            for _, qc, kc, vc in attention_chunks(q, k, v, per_head):
+                plain(qc, kc, vc, **kw)
+        return time_sync_ms(run)
+
+    qs, ks = WIDE_TRAIN
+    for name, dtype, rate in (
+            ("flash_attention (D 256)", torch.bfloat16, "bf16_tensor_flops"),
+            ("flash_attention (f32, D 256)", torch.float32, "fp32_flops")):
+        q = draw(qs, dtype, 0.5)
+        k, v = (draw(ks, dtype, 0.5) for _ in range(2))
+        y = flash_attention(q, k, v, causal=True)
+        compare_attention(name, y, flash_attention_plain, q, k, v, True,
+                          ATTN_BF16_TOL if dtype == torch.bfloat16
+                          else ATTN_F32_TOL, errs, causal=True)
+        bsz, hq, sq, d = q.shape
+        pairs = bsz * hq * visible_pairs(sq, k.shape[2], True)
+        b_ms, by = bound_ms(peaks, nbytes(q, k, v, y), 4 * d * pairs, rate)
+        blocks = d // COL_BLOCK if dtype == torch.bfloat16 else 1
+        lib_ms, note = sdpa_ms(q, k, v, True)
+        rows[name] = dict(
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
+            plain_ms=plain_ms(flash_attention_plain, q, k, v, True,
+                              causal=True),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+            exp_bound_ms=bound_ms(peaks, 0, pairs * blocks,
+                                  "mufu_per_s")[0],
+            shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} {dtype} causal",
+            library=note or "F.scaled_dot_product_attention(enable_gqa="
+                            "True)")
+        if blocks > 1:
+            rows[name]["work_bound_ms"] = bound_ms(
+                peaks, 0, (2 * d + 4 * COL_BLOCK) * blocks * pairs, rate)[0]
+        del q, k, v, y
+        torch.cuda.empty_cache()
+    qs, ks = WIDE_DECODE
+    q = draw(qs, torch.bfloat16)
+    k, v = (draw(ks, torch.bfloat16) for _ in range(2))
+    y = flash_decode(q, k, v)
+    compare_attention("flash_decode (D 256)", y, flash_decode_plain, q, k,
+                      v, False, ATTN_BF16_TOL, errs)
+    b_ms, by = bound_ms(peaks, nbytes(q, k, v, y),
+                        4 * qs[3] * qs[0] * qs[1] * ks[2], "fp32_flops")
+    lib_ms, note = sdpa_ms(q, k, v, False)
+    rows["flash_decode (D 256)"] = dict(
+        ms=time_ms(lambda: flash_decode(q, k, v)),
+        plain_ms=plain_ms(flash_decode_plain, q, k, v, False),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+        shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16",
+        library=note or "F.scaled_dot_product_attention(enable_gqa=True)")
+    del q, k, v, y
+    torch.cuda.empty_cache()
+    return rows
 
 
 def slo_phase(card):
@@ -2276,6 +2481,472 @@ def slo_phase(card):
     slo_premise(card)
     head_dim_checks(card)
     log(f"slo phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# "faults": fault injection, guards, checkpoints and recovery on the card
+# ---------------------------------------------------------------------------
+# (b) the single-device chaos schedule on ladder_fused's deployment: the
+# four single-device kinds, step- and p-triggered, drawn from FAULT_SEED;
+# heavy rejects a non-finite batch, light re-plans it with the ladder
+# off.  Backoff delays are short: the round loop passes no deadline.
+FAULT_SEED = 11
+CHAOS_SCHEDULE = (("kernel_exception", dict(step=1)),
+                  ("nan_output", dict(step=2)),
+                  ("nan_output", dict(p=0.15, once=False, tenant="light")),
+                  ("kernel_exception", dict(p=0.1, once=False)),
+                  ("latency_spike", dict(p=0.25, once=False, param=3.0)),
+                  ("budget_shrink", dict(step=4, param=0.9)))
+CHAOS_POLICIES = {"heavy": dict(max_retries=2, backoff_base_s=1e-4),
+                  "light": dict(on_nonfinite="retry_f32", max_retries=2,
+                                backoff_base_s=1e-4)}
+GUARD_EVENTS = ("fault.injected", "retry.attempt", "guard.rejected")
+GUARD_COLUMNS = ("guard_retries", "guard_shed", "guard_rejected")
+RECOVERY_REPS = 5          # timed snapshots and recoveries, median
+HEARTBEAT_S = 1.0          # (e) the watchdog's timeout
+
+
+def chaos_run(device, trace, guarded):
+    """ladder_fused's deployment on ``device`` under CHAOS_SCHEDULE
+    (guards CHAOS_POLICIES, or none): each wave submitted, then stepped
+    until drained; a step that raises loses its batch.  Returns the
+    completions by rid, the batches lost, the server and the guard
+    events."""
+    import torch
+    from repro_torch.obs import EVENTS
+    from repro_torch.runtime.faults import INJECTOR, FaultSpec, InjectedFault
+    from repro_torch.runtime.guards import GuardPolicy
+    srv = ladder_server("ladder_fused", device)
+    if guarded:
+        for name, kw in CHAOS_POLICIES.items():
+            srv.set_guard(name, GuardPolicy(**kw))
+    EVENTS.clear()
+    done, lost = [], 0
+    with INJECTOR.armed([FaultSpec(k, **kw) for k, kw in CHAOS_SCHEDULE],
+                        seed=FAULT_SEED):
+        for wave in trace:
+            for tenant, x in wave:
+                srv.submit(tenant, x)
+            while srv.pending():
+                try:
+                    done += srv.step()
+                except InjectedFault:
+                    lost += 1
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    events = [(e["kind"], {k: v for k, v in e.items()
+                           if k not in ("kind", "t", "ts", "seq")})
+              for e in EVENTS.recent() if e["kind"] in GUARD_EVENTS]
+    return sorted(done, key=lambda c: c.rid), lost, srv, events
+
+
+def faults_transparency(card, trace):
+    """(a) ladder_fused's deployment on the card through the trace with
+    the injector disarmed, armed on a schedule that never fires, and
+    disarmed again: results, completions, grants and telemetry bitwise
+    equal."""
+    import torch
+    from repro_torch.runtime.faults import FAULT_KINDS, INJECTOR, FaultSpec
+    check(not INJECTOR.enabled, "the injector was left armed")
+    runs = []
+    for armed in (False, True, False):
+        srv = ladder_server("ladder_fused", None)
+        if armed:
+            with INJECTOR.armed([FaultSpec(k, step=10**9)
+                                 for k in FAULT_KINDS], seed=FAULT_SEED):
+                done, grants = run_trace(srv, trace)
+                polls = INJECTOR.counters()
+        else:
+            done, grants = run_trace(srv, trace)
+        runs.append((done, grants, srv.telemetry()))
+    check(polls.get("execute", 0) > 0 and polls.get("output", 0) > 0
+          and polls.get("lane", 0) > 0, f"seams not polled: {polls}")
+    base = runs[0]
+    for done, grants, tel in runs[1:]:
+        check([(c.rid, c.tenant, c.ok, c.finished, c.batch_size)
+               for c in done] == [(c.rid, c.tenant, c.ok, c.finished,
+                                   c.batch_size) for c in base[0]],
+              "faults (a): completions differ between the arms")
+        check(all(torch.equal(a.result, b.result)
+                  for a, b in zip(done, base[0])),
+              "faults (a): a result differs between the arms")
+        check(grants == base[1] and tel == base[2],
+              "faults (a): grants or telemetry differ between the arms")
+    log(f"faults (a): ladder_fused, {len(base[0])} requests disarmed, "
+        f"armed never firing (polls {polls}) and disarmed again: results, "
+        f"completions, grants and telemetry bitwise equal; on {card}")
+
+
+def faults_chaos(card, trace):
+    """(b) CHAOS_SCHEDULE guarded on the card == on the CPU (completions,
+    guard columns, events; f32 within rtol=1e-4, atol=1e-5, the light
+    tenant under the code-flip rule); availability of the guarded and
+    the bare arm; a NaN under retry_f32 re-plans with the ladder off and
+    launches the f32 plan's kernels; device loss on one device."""
+    import torch
+    from repro_torch.core.plan import replan
+    from repro_torch.kernels import cuda
+    from repro_torch.obs import EVENTS
+    from repro_torch.runtime.faults import INJECTOR, DeviceLost, FaultSpec
+    from repro_torch.runtime.guards import GuardPolicy, execute_guarded
+    n = sum(len(w) for w in trace)
+    done, lost, srv, events = chaos_run(None, trace, True)
+    check(srv.device.type == "cuda", "server did not default to cuda")
+    cpu_done, _, cpu, cpu_events = chaos_run("cpu", trace, True)
+    check(len(done) == n and lost == 0,
+          f"faults (b): guarded arm {len(done)} completions of {n}, "
+          f"{lost} batches lost")
+    check([(c.rid, c.tenant, c.ok) for c in done]
+          == [(c.rid, c.tenant, c.ok) for c in cpu_done],
+          "faults (b): completions differ from the CPU server")
+    check(events == cpu_events, "faults (b): guard events differ from the "
+                                "CPU server's")
+    kinds = {e["fault"] for k, e in events if k == "fault.injected"}
+    check(kinds == {"kernel_exception", "nan_output", "latency_spike",
+                    "budget_shrink"}, f"faults (b): kinds fired {kinds}")
+    tel, cpu_tel = srv.telemetry(), cpu.telemetry()
+    for t in ("heavy", "light"):
+        for col in GUARD_COLUMNS:
+            check(tel[t][col] == cpu_tel[t][col],
+                  f"faults (b): {t} {col} {tel[t][col]} vs CPU "
+                  f"{cpu_tel[t][col]}")
+    light = torch.stack([torch.as_tensor(x) for wave in trace
+                         for t, x in wave if t == "light"]).cuda()
+    steps = {"heavy": 0.0,
+             "light": code_flip_step(srv.tenants["light"].params, light)}
+    for a, b in zip(done, cpu_done):
+        if a.ok:
+            check(bool(torch.isfinite(a.result).all()),
+                  f"faults (b): rid {a.rid} served non-finite")
+            code_flip(f"faults (b) rid {a.rid}", a.result.cpu(), b.result,
+                      steps[a.tenant])
+    ok = sum(1 for c in done if c.ok and bool(torch.isfinite(c.result).all()))
+    bare, bare_lost, _, _ = chaos_run(None, trace, False)
+    bare_ok = sum(1 for c in bare if bool(torch.isfinite(c.result).all()))
+    check(bare_ok < ok, f"faults (b): the bare arm served {bare_ok} finite "
+                        f"results, the guarded {ok}")
+    cols = {t: {c: tel[t][c] for c in GUARD_COLUMNS} for t in tel}
+    log(f"faults (b): {len(events)} guard events, {sorted(kinds)} fired; "
+        f"card == CPU (completions, ok flags, {GUARD_COLUMNS}, events; "
+        f"f32 within rtol=1e-4, atol=1e-5, light under the code-flip rule); "
+        f"availability guarded {ok / n!r} ({ok}/{n}, {cols}), bare "
+        f"{bare_ok / n!r} ({bare_ok}/{n}, {bare_lost} batches lost, "
+        f"{len(bare) - bare_ok} served non-finite); on {card}")
+
+    # a NaN under retry_f32 where the f32 plan fits: the light tenant
+    # alone on ladder_fused's budget (granted the whole device).  The
+    # retry plans with the ladder off and launches that plan's kernels.
+    # (Squeezed beside heavy, as in the chaos run, the f32 plan does not
+    # fit light's slice: the retry raises PartitionError and the batch is
+    # rejected once the retries run out, as in the reference.)
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime import AdaptiveServer
+    budget, fuse, _, _ = LADDER["ladder_fused"]
+    srv = AdaptiveServer(ResourceBudget(**budget), max_batch=MAX_BATCH,
+                         fuse=fuse)
+    srv.register("light", init_cnn_frontend(SEED + 1, device=srv.device),
+                 IMAGE, activation="tanh", ladder=(16, 8))
+    srv.set_guard("light", GuardPolicy(**CHAOS_POLICIES["light"]))
+    xs = [x for wave in trace for t, x in wave if t == "light"][:2]
+    EVENTS.clear()
+    with INJECTOR.armed([FaultSpec("nan_output", p=1.0, tenant="light")],
+                        seed=FAULT_SEED):
+        for x in xs:
+            srv.submit("light", x)
+        cuda.reset_launches()
+        comps = srv.step()
+        torch.cuda.synchronize()
+        launches = cuda.launch_counts()
+    t = srv.tenants["light"]
+    want, plans = {}, {}
+    for lad in (t.ladder, ()):
+        specs = srv._specs(t.params, (len(xs),) + IMAGE, "float32",
+                           t.pool_window, t.activation, lad)
+        plan = replan(specs, srv.budget.scaled(t.granted), fuse=srv.fuse)
+        plans[lad] = plan_str(plan)
+        for site in plan.sites:
+            k = CNN_MEMBER_KERNEL[site.ip.name]
+            want[k] = want.get(k, 0) + 1
+    retries = EVENTS.recent(kind="retry.attempt")
+    check(len(comps) == len(xs) and all(c.ok for c in comps)
+          and all(bool(torch.isfinite(c.result).all()) for c in comps),
+          "faults (b): the retry_f32 batch was not served finite")
+    check([e["cause"] for e in retries] == ["nonfinite"],
+          f"faults (b): retries {retries}")
+    check(all(x.endswith("@32") for x in plans[()].split())
+          and any(k.startswith("fused_cnn") for k in launches),
+          f"faults (b): the retry planned {plans[()]}, launched {launches}")
+    check(launches == want, f"faults (b): retry_f32 launched {launches}, "
+                            f"the attempt's and the retry's plans name "
+                            f"{want}")
+    log(f"faults (b): NaN under retry_f32 (light alone, granted "
+        f"{t.granted!r}): attempt {plans[t.ladder]}, retry with the ladder "
+        f"off {plans[()]}; launches {launches} == both plans' kernels; "
+        f"beside heavy the f32 retry does not fit light's slice (light "
+        f"guard_rejected {tel['light']['guard_rejected']}); on {card}")
+
+    # device loss on one device: the schedule's marks the corpse and the
+    # batch serves (no mesh slice overlaps it, as in the reference); a
+    # DeviceLost reaching the guard is rejected, the degradation raising
+    # the arbiter's "mesh-mode only"
+    srv = ladder_server("ladder_fused", None)
+    srv.set_guard("heavy", GuardPolicy())
+    with INJECTOR.armed([FaultSpec("device_loss", step=0, param=0)]):
+        srv.submit("heavy", trace[0][0][1])
+        comps = srv.step()
+        corpse = set(INJECTOR.lost)
+    check(len(comps) == 1 and comps[0].ok and corpse == {0},
+          f"faults (b): scheduled device_loss: {comps}, lost {corpse}")
+
+    def attempt(retry_f32=False):
+        raise DeviceLost("device 0 lost", device=0)
+
+    y, report = execute_guarded(
+        attempt, srv.guard_for("heavy"), tenant="heavy",
+        on_device_loss=lambda e: srv.on_device_loss(e.device))
+    check(y is None and report.outcome == "rejected"
+          and "mesh-mode only" in report.reason,
+          f"faults (b): DeviceLost on one device gave {report}")
+    log(f"faults (b): device_loss on one device: scheduled, lost {corpse} "
+        f"and served; raised into the guard, {report.outcome} "
+        f"({report.reason}); on {card}")
+    return ok / n, bare_ok / n
+
+
+def faults_propagation(card):
+    """(c) A guarded attempt that launches a real wrapper on operands it
+    refuses (a CUDA view 4 bytes past a 16-byte boundary), or calls the
+    C entry with a dtype code it rejects (cudaErrorInvalidValue, raised
+    by kernels/cuda.py as a RuntimeError): execute_guarded re-raises the
+    original exception, with no retry, no event and no launch counted."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.attention.flash import flash_attention
+    from repro_torch.obs import EVENTS
+    from repro_torch.runtime.guards import GuardPolicy, execute_guarded
+    base = torch.zeros(2 * 4 * 64 + 1, device="cuda")
+    q = base[1:].view(1, 2, 4, 64)                 # 4 bytes past 16
+    k = torch.zeros(1, 2, 4, 64, device="cuda")
+    o = torch.empty_like(k)
+
+    def misaligned(retry_f32=False):
+        return flash_attention(q, k, k)
+
+    def bad_code(retry_f32=False):
+        cuda.launch("flash_attention", "attn_flash", k.device, 99,
+                    k.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(),
+                    1, 2, 2, 4, 4, 64, 1, 0.125)
+
+    seen = []
+    for fn, err in ((misaligned, ValueError), (bad_code, RuntimeError)):
+        EVENTS.clear()
+        cuda.reset_launches()
+        calls = []
+
+        def attempt(retry_f32=False):
+            calls.append(retry_f32)
+            return fn(retry_f32)
+
+        try:
+            execute_guarded(attempt, GuardPolicy(max_retries=3),
+                            tenant="heavy", on_device_loss=lambda e: None)
+        except err as e:
+            seen.append(f"{type(e).__name__}: {e}")
+        else:
+            check(False, f"faults (c): {fn.__name__} did not raise {err}")
+        torch.cuda.synchronize()
+        check(calls == [False] and not cuda.launch_counts()
+              and not EVENTS.recent(kind="retry.attempt")
+              and not EVENTS.recent(kind="guard.rejected"),
+              f"faults (c): {fn.__name__} retried, launched or was "
+              f"absorbed")
+    log(f"faults (c): a guarded attempt re-raised {seen[0]!r} and "
+        f"{seen[1]!r} with no retry, no event and no launch; on {card}")
+
+
+def ckpt_bytes(path):
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def faults_recovery(card, trace, ckpt_dir):
+    """(d) A served, guarded ladder_fused deployment under an
+    SLOScheduler: snapshot, the same wave served pre-crash, simulated
+    death, ``recover_server(device=None)``: zero cold plans over the
+    restore and the first wave, the wave bitwise equal, params on cuda;
+    a bf16 tenant's params and first batch bitwise.  Snapshot and
+    recovery wall times (median of RECOVERY_REPS), checkpoint bytes and
+    plans imported logged.  Returns the recovered scheduler's server
+    and the timings."""
+    import torch
+    from repro_torch.core.plan import (STATS, clear_plan_cache,
+                                       plan_cache_stats)
+    from repro_torch.core.resources import ResourceBudget
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime import (AdaptiveServer, GuardPolicy,
+                                     SLOScheduler, SLOSpec, recover_server,
+                                     simulate_worker_death, snapshot_server)
+    from repro_torch.runtime.recovery import cold_replans_since
+    budget, fuse, _, _ = LADDER["ladder_fused"]
+    clear_plan_cache()
+    srv = AdaptiveServer(ResourceBudget(**budget), policy="demand",
+                         max_batch=MAX_BATCH, fuse=fuse)
+    sched = SLOScheduler(srv)
+    sched.register("heavy", init_cnn_frontend(SEED, device=srv.device),
+                   IMAGE, slo=SLOSpec(deadline_s=60.0))
+    sched.register("light", init_cnn_frontend(SEED + 1, device=srv.device),
+                   IMAGE, activation="tanh", ladder=(16, 8),
+                   slo=SLOSpec(deadline_s=60.0))
+    for name, kw in CHAOS_POLICIES.items():
+        srv.set_guard(name, GuardPolicy(**kw))
+
+    def wave(s, w):
+        for tenant, x in w:
+            s.submit(tenant, x)
+        out = sorted(s.run(), key=lambda c: c.rid)
+        torch.cuda.synchronize()
+        return out
+
+    wave(sched, trace[0])
+    wave(sched, trace[0])           # the demand EWMA at the mix's fixed point
+    snap_ms = []
+    for rep in range(RECOVERY_REPS):
+        t0 = time.perf_counter()
+        path = snapshot_server(srv, ckpt_dir, 1 + rep, scheduler=sched)
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+    n_bytes = ckpt_bytes(path)
+    plans = len(json.loads((Path(path) / "manifest.json").read_text())
+                ["extra"]["plan_cache"]["plans"])
+    pre = wave(sched, trace[1])
+    rec_ms = []
+    for rep in range(RECOVERY_REPS):
+        simulate_worker_death()
+        check(plan_cache_stats()["size"] == 0, "faults (d): cache survived")
+        before = STATS.plan_misses
+        t0 = time.perf_counter()
+        srv2, sched2 = recover_server(ckpt_dir)
+        rec_ms.append((time.perf_counter() - t0) * 1e3)
+    check(srv2.device.type == "cuda" and sched2 is not None,
+          f"faults (d): recovered on {srv2.device}, scheduler {sched2}")
+    check(all(p.is_cuda for t in srv2.tenants.values()
+              for p in [t.params["proj"]] + [b["w"] for b in
+                                             t.params["blocks"]]),
+          "faults (d): recovered params not on cuda")
+    check(srv2.guard_for("light") == srv.guard_for("light"),
+          "faults (d): guard policies not restored")
+    post = wave(sched2, trace[1])
+    cold = cold_replans_since(before)
+    check(cold == 0, f"faults (d): {cold} cold plans after recovery")
+    check(len(post) == len(pre) and all(
+        a.ok and b.ok and a.tenant == b.tenant and torch.equal(a.result,
+                                                               b.result)
+        for a, b in zip(post, pre)),
+        "faults (d): the first post-recovery wave differs from the "
+        "pre-crash server's")
+    # a bf16 tenant: params and its first batch bitwise across the crash
+    clear_plan_cache()
+    bsrv = AdaptiveServer(max_batch=MAX_BATCH)
+    bsrv.register("bf16", frontend_params("bfloat16", bsrv.device), IMAGE)
+    xb = frontend_requests("bfloat16")[:MAX_BATCH]
+    bsrv.submit("bf16", torch.stack([torch.as_tensor(x) for x in xb]))
+    bsrv.step()
+    snapshot_server(bsrv, Path(ckpt_dir) / "bf16", 1)
+    bsrv.submit("bf16", torch.stack([torch.as_tensor(x) for x in xb]))
+    bpre = bsrv.step()
+    simulate_worker_death()
+    before = STATS.plan_misses
+    bsrv2, _ = recover_server(Path(ckpt_dir) / "bf16")
+    p, q = bsrv.tenants["bf16"].params, bsrv2.tenants["bf16"].params
+    for u, v in [(p["proj"], q["proj"])] + [
+            (a["w"], b["w"]) for a, b in zip(p["blocks"], q["blocks"])]:
+        check(u.dtype == v.dtype == torch.bfloat16 and v.is_cuda
+              and torch.equal(u.view(torch.int16), v.view(torch.int16)),
+              "faults (d): bf16 params did not round-trip bitwise")
+    bsrv2.submit("bf16", torch.stack([torch.as_tensor(x) for x in xb]))
+    bpost = bsrv2.step()
+    torch.cuda.synchronize()
+    check(cold_replans_since(before) == 0,
+          "faults (d): the bf16 tenant planned cold after recovery")
+    check(all(torch.equal(a.result, b.result) for a, b in zip(bpre, bpost)),
+          "faults (d): the bf16 tenant's first batch differs")
+    med_snap, med_rec = statistics.median(snap_ms), statistics.median(rec_ms)
+    log(f"faults (d): snapshot_server {med_snap!r} ms (median of "
+        f"{RECOVERY_REPS}: {', '.join(f'{t:.3f}' for t in snap_ms)}), "
+        f"recover_server {med_rec!r} ms ({', '.join(f'{t:.3f}' for t in rec_ms)}); "
+        f"checkpoint {n_bytes} bytes, {plans} plans imported; 0 cold plans "
+        f"over the restore and the first wave ({len(post)} requests, "
+        f"bitwise the pre-crash server's); bf16 tenant bitwise; on {card}")
+    return sched2, med_snap, med_rec, n_bytes, plans
+
+
+def faults_heartbeat(card, sched, trace, ckpt_dir):
+    """(e) A RecoveryManager with a HEARTBEAT_S watchdog over the
+    recovered scheduler on the card: serving beats it; silence fires it
+    (fire-once: the callback stops the watchdog); ``recover()`` re-arms
+    it, serving beats again, and a second silence fires again."""
+    import torch
+    from repro_torch.runtime import RecoveryManager
+    died = []
+    holder = {}
+
+    def on_death():
+        died.append(time.monotonic())
+        holder["mgr"].watchdog.stop()
+
+    mgr = RecoveryManager(sched.server, ckpt_dir, scheduler=sched,
+                          heartbeat_timeout_s=HEARTBEAT_S, on_death=on_death)
+    holder["mgr"] = mgr
+    sched.recovery = mgr
+
+    def serve_then_wait(s, deaths):
+        for tenant, x in trace[2]:
+            s.submit(tenant, x)
+        s.run()
+        torch.cuda.synchronize()
+        quiet = time.monotonic()
+        while len(died) < deaths and time.monotonic() < quiet + 10 * HEARTBEAT_S:
+            time.sleep(0.01)
+        return quiet
+
+    try:
+        mgr.snapshot()
+        quiet1 = serve_then_wait(sched, 1)
+        check(len(died) == 1, f"faults (e): first silence fired {len(died)}")
+        mgr.recover()
+        check(mgr.watchdog._thread.is_alive() and not mgr.watchdog.fired
+              and mgr.scheduler.recovery is mgr,
+              "faults (e): recover() did not re-arm the watchdog")
+        quiet2 = serve_then_wait(mgr.scheduler, 2)
+        check(len(died) == 2, f"faults (e): second silence fired "
+                              f"{len(died)} times in all")
+    finally:
+        mgr.stop()
+    log(f"faults (e): RecoveryManager(heartbeat_timeout_s={HEARTBEAT_S}) "
+        f"fired {died[0] - quiet1:.3f} s into the first silence and, after "
+        f"recover(), {died[1] - quiet2:.3f} s into the second; on {card}")
+
+
+def faults_phase(card, trace, errs):
+    """The "faults" phase: (a)-(f) above.  Returns the launches of the
+    head-dim-256 rows (f) and the phase's numbers."""
+    import tempfile
+    from repro_torch.runtime.faults import INJECTOR
+    t0 = time.perf_counter()
+    try:
+        faults_transparency(card, trace)
+        avail = faults_chaos(card, trace)
+        faults_propagation(card)
+        with tempfile.TemporaryDirectory(prefix="faults_ckpt") as ckpt:
+            sched, snap_ms, rec_ms, n_bytes, plans = faults_recovery(
+                card, trace, ckpt)
+            faults_heartbeat(card, sched, trace, Path(ckpt) / "heartbeat")
+        launches = wide_head_dim_checks(card, errs)
+    finally:
+        INJECTOR.disarm()
+    log(f"faults phase: {time.perf_counter() - t0:.1f} s")
+    return launches, dict(availability=avail, snapshot_ms=snap_ms,
+                          recover_ms=rec_ms, ckpt_bytes=n_bytes,
+                          plans_imported=plans)
 
 
 # ---------------------------------------------------------------------------
@@ -2478,8 +3149,8 @@ def calibrated_ladder_checks(table, trace):
         plans = []
         attempt = srv._attempt
 
-        def recorded(tenant, xb, attempt=attempt, plans=plans):
-            y, plan, err = attempt(tenant, xb)
+        def recorded(tenant, xb, attempt=attempt, plans=plans, **kw):
+            y, plan, err = attempt(tenant, xb, **kw)
             plans.append((tenant.name, tuple(xb.shape), plan))
             return y, plan, err
 
@@ -3476,6 +4147,9 @@ def sass_check(lib_path):
         for kernel in names.split(", "):
             check(any(kernel in name for name in bodies),
                   f"{row}: no SASS for {kernel} in {lib_path.name}")
+    for kernel in WIDE_SASS:
+        check(any(kernel in name for name in bodies),
+              f"no SASS for {kernel} in {lib_path.name}")
     log(f"SASS: {len(bodies)} kernels; no {'|'.join(MMA_SASS)} in "
         f"{', '.join(LOGIC_ONLY + CUDA_CORE)}; "
         + ", ".join(f"{k}: {v} x"
@@ -4472,6 +5146,8 @@ def main() -> int:
     launches["activation_lut"] = \
         ladder["ladder_chain"][0]["activation_lut"]
     slo_phase(card)
+    wide_launches, faults = faults_phase(card, trace, errs)
+    launches.update(wide_launches)
     table = calibration_phase(card, trace, requests)
     launches.update(budget_pool_check(gen, errs))
     launches.update(dual_conv_checks(shapes, gen, errs))
@@ -4498,6 +5174,7 @@ def main() -> int:
         f"{time_ms(lambda: one.zero_()) * 1e3:.3f} us on {card}")
     rows.update(lm_timings(lm_ops, peaks, errs))
     del lm_ops
+    rows.update(wide_head_dim_times(peaks, errs))
     srv, rounds, walls = served_rate(requests)
     n = rounds * len(requests)
     rates = sorted(n / w for w in walls)
@@ -4520,6 +5197,9 @@ def main() -> int:
         if "exp_bound_ms" in r:
             extra += (f", exponentials {r['exp_bound_ms'] * 1e3:.1f} us at "
                       f"the MUFU rate")
+        if "work_bound_ms" in r:
+            extra += (f", the kernel's own operations (S once a column "
+                      f"block) {r['work_bound_ms'] * 1e3:.1f} us")
         kern = f" ({KERNEL[name]})" if name in KERNEL else ""
         log(f"{name}{kern} [{r['shape']}]: {r['ms'] * 1e3:.3f} us, plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib_t}{extra}, bound "
@@ -4549,6 +5229,14 @@ def main() -> int:
         f"{crates[0]:.1f}-{crates[-1]:.1f} requests/s, walls "
         f"{', '.join(f'{w:.3f}' for w in cwalls)} s), beside the "
         f"analytical ladder_fused's {ladder_rates['ladder_fused']:.1f} on "
+        f"{card}")
+
+    log(f"faults: availability guarded {faults['availability'][0]!r}, "
+        f"bare {faults['availability'][1]!r}; snapshot_server "
+        f"{faults['snapshot_ms']!r} ms, recover_server "
+        f"{faults['recover_ms']!r} ms (medians of {RECOVERY_REPS}), "
+        f"checkpoint {faults['ckpt_bytes']} bytes, "
+        f"{faults['plans_imported']} plans imported, 0 cold plans; on "
         f"{card}")
 
     launches["selective_scan"], rows["selective_scan"] = lm_serve_phase(

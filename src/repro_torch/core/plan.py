@@ -127,6 +127,84 @@ def clear_plan_cache() -> None:
     _FUSE_CACHE.clear()
 
 
+def _calkey_to_json(calkey):
+    return list(calkey) if calkey is not None else None
+
+
+def _calkey_from_json(raw):
+    return tuple(raw) if raw is not None else None
+
+
+def export_plan_cache() -> dict:
+    """Serialize the planner's memo state — the plan-preserving-restart
+    primitive (``runtime/recovery.py``); its JSON is byte-equal to the
+    reference's for the same planning calls.
+
+    ``plans`` round-trips every plan-cache entry with its full key
+    exactly as ``plan_network`` builds it: the site specs
+    (``SiteSpec.to_dict``), the budget, the fuse flag, the mesh, and
+    the calibration-table identity — plus the plan itself
+    (``NetworkPlan.to_json``).  ``shares`` and ``fuses`` carry the
+    ``replan`` fast path's memoized cost shares and fused site lists,
+    so a restored process keeps the fast path too (a drifted grant
+    after restart re-assigns from shares instead of falling cold).  A
+    process that imports these entries serves its first request off the
+    cache instead of paying a cold re-plan storm.
+    """
+    plans = []
+    for (specs, budget, fuse, mesh, calkey), plan in _PLAN_CACHE.items():
+        plans.append({
+            "specs": [s.to_dict() for s in specs],
+            "budget": dataclasses.asdict(budget),
+            "fuse": bool(fuse),
+            "mesh": dataclasses.asdict(mesh) if mesh is not None else None,
+            "calibration_key": _calkey_to_json(calkey),
+            "plan": json.loads(plan.to_json()),
+        })
+    shares = [{
+        "specs": [s.to_dict() for s in specs],
+        "calibration_key": _calkey_to_json(calkey),
+        "shares": list(sh),
+    } for (specs, calkey), sh in _SHARE_CACHE.items()]
+    fuses = [{
+        "specs": [s.to_dict() for s in specs],
+        "calibration_key": _calkey_to_json(calkey),
+        "effective": [s.to_dict() for s in eff],
+    } for (specs, calkey), eff in _FUSE_CACHE.items()]
+    return {"plans": plans, "shares": shares, "fuses": fuses}
+
+
+def import_plan_cache(state: dict) -> int:
+    """Seed the planner memo state from ``export_plan_cache`` output
+    (the restore half of plan-preserving restart).  Counts neither hits
+    nor misses — importing is not planning.  Returns the number of
+    plan-cache entries inserted."""
+    def _specs(raw):
+        return tuple(SiteSpec.from_dict(s) for s in raw)
+
+    n = 0
+    for e in state.get("plans", ()):
+        budget = ResourceBudget(**e["budget"])
+        mesh = MeshSpec(**e["mesh"]) if e.get("mesh") else None
+        key = (_specs(e["specs"]), budget, bool(e["fuse"]), mesh,
+               _calkey_from_json(e.get("calibration_key")))
+        _cache_put(key, NetworkPlan.from_json(json.dumps(e["plan"])))
+        n += 1
+    for e in state.get("shares", ()):
+        key = (_specs(e["specs"]),
+               _calkey_from_json(e.get("calibration_key")))
+        if key not in _SHARE_CACHE and len(_SHARE_CACHE) >= _SHARE_CACHE_MAX:
+            _SHARE_CACHE.pop(next(iter(_SHARE_CACHE)))
+        _SHARE_CACHE[key] = tuple(float(x) for x in e["shares"])
+    for e in state.get("fuses", ()):
+        key = (_specs(e["specs"]),
+               _calkey_from_json(e.get("calibration_key")))
+        if key not in _FUSE_CACHE and len(_FUSE_CACHE) >= _SHARE_CACHE_MAX:
+            _FUSE_CACHE.pop(next(iter(_FUSE_CACHE)))
+        _FUSE_CACHE[key] = _specs(e["effective"])
+    return n
+
+
 def plan_cache_stats() -> dict:
     """Cache observability for serving telemetry: occupancy + counters.
 
@@ -143,6 +221,22 @@ def plan_cache_stats() -> dict:
         "replan_fast": STATS.replan_fast,
         "hit_rate": (STATS.plan_hits / lookups) if lookups else 0.0,
     }
+
+
+def plan_cache_contains(specs, budget: Optional[ResourceBudget] = None, *,
+                        fuse: bool = True, calibration=None,
+                        mesh: Optional[MeshSpec] = None) -> bool:
+    """True when the exact ``plan_network`` cache key is already warm.
+
+    A pure membership probe — neither a hit nor a miss is counted and
+    recency is untouched — so spare-plan pre-warming
+    (``AdaptiveServer.prewarm_spares``) and the chaos gate can assert
+    "this degraded-mesh key will serve hot" without perturbing the very
+    statistics the zero-cold-replan claim is judged on (pre-warming is
+    mesh work, ROADMAP queue 1, item 9)."""
+    budget = budget or ResourceBudget()
+    key = (tuple(specs), budget, fuse, mesh, calibration_key(calibration))
+    return key in _PLAN_CACHE
 
 
 def _cache_get(key) -> Optional["NetworkPlan"]:

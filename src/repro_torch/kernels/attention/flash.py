@@ -32,10 +32,16 @@ through ``attn_flash``:
   causal diagonal or the end of Skv crosses.
 
 Both check bounds instead of padding along the sequence.  They are
-built for the head dims of ``HEAD_DIMS``; any other head dim up to 128
+built for the head dims of ``HEAD_DIMS``; any other head dim up to 384
 is zero-padded to the next one by ``pad_head_dim`` (padded columns add
 exact zeros to q.k^T, and their output columns are dropped) and scaled
-by the original ``D ** -0.5``.  Past 128 the wrappers raise.
+by the original ``D ** -0.5``.  At 256 and 384 the bf16 kernel gives
+each CTA one ``COL_BLOCK``-wide column block of V and O (a grid axis): it
+computes the whole S over every column of D and accumulates its own 128
+columns, so O's registers and V's tile stay those of 128 and S is
+computed ``D / 128`` times; the f32 kernel keeps all of O in a CTA of
+256 threads (4 rows a thread), one CTA an SM.  Past 384 the wrappers
+raise.
 ``bq``/``bk`` are the reference's VMEM block hints: validated, they do
 not shape the launch.
 
@@ -54,7 +60,10 @@ from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.conv2d.inner import check_block
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256, 384)
+# the columns of O a bf16 CTA accumulates past head dim 128 (DV of
+# attn_tc_flash_kernel<DP, DV>)
+COL_BLOCK = 128
 # the f32 kernel's blocking (FlashTile in csrc/attn_kernels.cu): query
 # rows a CTA; by head dim, the keys of a K/V tile and the key splits of
 # its P.V (partial sums added at the end)
@@ -62,7 +71,7 @@ F32_ROWS = 64
 
 
 def f32_tile(d: int) -> tuple:
-    return (64, 2) if d <= 64 else (32, 1)
+    return (64, 2) if d <= 64 else (32, 1) if d <= 256 else (16, 1)
 
 
 def _cdiv(a: int, b: int) -> int:

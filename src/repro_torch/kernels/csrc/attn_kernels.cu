@@ -52,6 +52,11 @@
 //   reference skips the same blocks).  A row that sees no key (causal
 //   with Sq > Skv) is written as 0.  No MMA instruction: Hopper has no
 //   IEEE-f32 MMA, and TF32 misses the f32 tolerance.
+//   Head dims past 128 (D = 256, 384; the wrapper zero-pads to them):
+//   the same 64 query rows a CTA over 16 row groups of 4 rows (256
+//   threads), so a thread's O is 4 rows x D / 16 dims; K/V tiles of 32
+//   keys (16 at D = 384) keep Q, P and two stages within 208 KB, one
+//   CTA of 8 warps an SM.  Each CTA computes S once for all of O.
 //
 // flash_decode_split_kernel<T, D, GP> + decode_combine_kernel<T>
 //   replace src/repro/kernels/attention/decode.py::flash_decode
@@ -129,14 +134,16 @@ __device__ __forceinline__ float online_softmax_step(float& m, float& l,
 // so the splits' reads fall in other banks), and kStages K/V tiles, K
 // padded and V as it lies.  At D = 64 a CTA takes 101 KB, so two fit
 // an SM.
+// Past D = 128, 16 row groups of 4 rows and one CTA an SM.
 template <int D> struct FlashTile {
   static constexpr int kCG = 16;                    // column groups
-  static constexpr int kRG = 8;                     // row groups
-  static constexpr int kKeys = D <= 64 ? 64 : 32;   // keys a K/V tile
+  static constexpr int kRG = D <= 128 ? 8 : 16;     // row groups
+  static constexpr int kKeys =                      // keys a K/V tile
+      D <= 64 ? 64 : D <= 256 ? 32 : 16;
   static constexpr int kKS = D <= 64 ? 2 : 1;       // key splits of P.V
-  static constexpr int kCtasPerSm = 2;
+  static constexpr int kCtasPerSm = D <= 128 ? 2 : 1;
   static constexpr int kStages = 2;
-  static constexpr int RT = 8;                      // rows a thread
+  static constexpr int RT = D <= 128 ? 8 : 4;       // rows a thread
   static constexpr int kRows = kRG * RT;            // query rows a CTA
   static constexpr int kThreads = kRG * kCG;
   static constexpr int KT = kKeys / kCG;            // keys a thread in S
@@ -152,11 +159,17 @@ template <int D> struct FlashTile {
   static constexpr size_t kSmem =
       size_t(kQ + kP + kStages * kStage) * sizeof(float);
   static constexpr int kRowChunks = D / 4;          // 16-byte words a row
+  // a thread's copies: a fixed word of every kCopyRows-th row where the
+  // threads cover whole rows, else words kThreads apart (D = 384)
+  static constexpr bool kRowCopies = kThreads % kRowChunks == 0;
   static constexpr int kCopyRows = kThreads / kRowChunks;   // rows a pass
-  static_assert(kThreads % kRowChunks == 0 && kKeys % kCopyRows == 0 &&
-                    kRows % kCopyRows == 0,
+  static_assert(kRowCopies ? kKeys % kCopyRows == 0 &&
+                                 kRows % kCopyRows == 0
+                           : kKeys * kRowChunks % kThreads == 0 &&
+                                 kRows * kRowChunks % kThreads == 0,
                 "whole 16-byte copies a thread");
   static_assert(32 % kCG == 0 && DT >= 1, "a row group within one warp");
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
 };
 
 // P's column of key k of a tile: the key splits 4 floats apart
@@ -246,26 +259,58 @@ flash_attention_kernel(const float* __restrict__ q,
   auto stage = [&](int tile) {
     const int k0 = tile * BK;
     const uint32_t at = (tile % Tile::kStages) * Tile::kStage * 4;
+    if constexpr (Tile::kRowCopies) {
 #pragma unroll
-    for (int u = 0; u < BK / CR; ++u) {
-      const bool ok = k0 + cr + CR * u < Skv;
-      const size_t off = size_t(k0 + CR * u) * D;
-      tc::cp_async16(ring_k + at + CR * u * QLD * 4, ok ? kt + off : k, ok);
-      tc::cp_async16(ring_v + at + CR * u * D * 4, ok ? vt + off : v, ok);
+      for (int u = 0; u < BK / CR; ++u) {
+        const bool ok = k0 + cr + CR * u < Skv;
+        const size_t off = size_t(k0 + CR * u) * D;
+        tc::cp_async16(ring_k + at + CR * u * QLD * 4, ok ? kt + off : k, ok);
+        tc::cp_async16(ring_v + at + CR * u * D * 4, ok ? vt + off : v, ok);
+      }
+    } else {
+      const uint32_t base = tc::smem_u32(ring) + at;
+      const size_t head = size_t(kvh) * Skv * D;
+#pragma unroll
+      for (int u = 0; u < BK * Tile::kRowChunks / Tile::kThreads; ++u) {
+        const int e = t + Tile::kThreads * u;
+        const int r = e / Tile::kRowChunks, c = 4 * (e % Tile::kRowChunks);
+        const bool ok = k0 + r < Skv;
+        const size_t off = head + size_t(k0 + r) * D + c;
+        tc::cp_async16(base + (r * QLD + c) * 4, ok ? k + off : k, ok);
+        tc::cp_async16(base + (Tile::kK + r * D + c) * 4, ok ? v + off : v,
+                       ok);
+      }
     }
   };
   if (tiles > 0) stage(0);
   tc::cp_async_commit();
-  const float* qt = q + (size_t(bh) * Sq + q0 + cr) * D + cd;
+  if constexpr (Tile::kRowCopies) {
+    const float* qt = q + (size_t(bh) * Sq + q0 + cr) * D + cd;
 #pragma unroll
-  for (int u = 0; u < Tile::kRows / CR; ++u) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + cr + CR * u < Sq) {
-      x = __ldg(reinterpret_cast<const float4*>(qt + size_t(CR * u) * D));
-      x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
-                      __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+    for (int u = 0; u < Tile::kRows / CR; ++u) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + cr + CR * u < Sq) {
+        x = __ldg(reinterpret_cast<const float4*>(qt + size_t(CR * u) * D));
+        x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                        __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+      }
+      *reinterpret_cast<float4*>(qs + (cr + CR * u) * QLD + cd) = x;
     }
-    *reinterpret_cast<float4*>(qs + (cr + CR * u) * QLD + cd) = x;
+  } else {
+#pragma unroll
+    for (int u = 0; u < Tile::kRows * Tile::kRowChunks / Tile::kThreads;
+         ++u) {
+      const int e = t + Tile::kThreads * u;
+      const int r = e / Tile::kRowChunks, c = 4 * (e % Tile::kRowChunks);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < Sq) {
+        x = __ldg(reinterpret_cast<const float4*>(
+            q + (size_t(bh) * Sq + q0 + r) * D + c));
+        x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                        __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+      }
+      *reinterpret_cast<float4*>(qs + r * QLD + c) = x;
+    }
   }
 
   float m[RT], l[RT], acc[RT][DT];
@@ -418,10 +463,14 @@ flash_attention_kernel(const float* __restrict__ q,
 
 // The cp.async ring's depth and the CTAs an SM that the register cap
 // allows: at up to 4 GQA rows a CTA, two stages and three CTAs an SM; at
-// 8 rows (twice the registers) three stages and two CTAs.
-template <int GP> struct DecodeDepth {
-  static constexpr int kStages = GP <= 4 ? 2 : 3;
-  static constexpr int kCtasPerSm = GP <= 4 ? 3 : 2;
+// 8 rows (twice the registers) three stages and two CTAs.  Past head dim
+// 128 (rows of 512 bytes or more, 32-key stages of 32-96 KB) one CTA an
+// SM, and three stages where they take at most 160 KB, else two.
+template <typename T, int D, int GP> struct DecodeDepth {
+  static constexpr int kStageBytes = 64 * D * int(sizeof(T));
+  static constexpr int kStages =
+      D > 128 ? (3 * kStageBytes <= 160 * 1024 ? 3 : 2) : GP <= 4 ? 2 : 3;
+  static constexpr int kCtasPerSm = D > 128 ? 1 : GP <= 4 ? 3 : 2;
 };
 
 // The split-KV decode tile of a head dim and dtype: a warp takes
@@ -449,7 +498,7 @@ template <typename T, int D, int GP>
 constexpr size_t decode_smem() {
   using Tile = DecodeTile<T, D>;
   // the warps' states are merged in the ring once it is drained
-  constexpr int stages = DecodeDepth<GP>::kStages;
+  constexpr int stages = DecodeDepth<T, D, GP>::kStages;
   static_assert(sizeof(float) * kDecWarps * GP * (D + 2) <=
                     size_t(stages) * Tile::kStageBytes,
                 "decode merge scratch exceeds the ring");
@@ -471,10 +520,21 @@ __device__ __forceinline__ void widen_chunk(const uint4& c, float (&v)[8]) {
   }
 }
 
-// N neighbouring values of T at p (N * sizeof(T) bytes, aligned), in f32.
+// N neighbouring values of T at p (N * sizeof(T) bytes, aligned), in f32;
+// past 4, in runs of 4 (head dims past 128: their rows are not swizzled,
+// DecodeTile::swizzle, so a lane's dims lie side by side).
 template <typename T, int N>
 __device__ __forceinline__ void load_widened(const uint8_t* p, float (&v)[N]) {
-  if constexpr (sizeof(T) == 4 && N == 4) {
+  if constexpr (N > 4) {
+    static_assert(N % 4 == 0, "runs of 4");
+#pragma unroll
+    for (int h = 0; h < N / 4; ++h) {
+      float w[4];
+      load_widened<T, 4>(p + 4 * h * int(sizeof(T)), w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[4 * h + e] = w[e];
+    }
+  } else if constexpr (sizeof(T) == 4 && N == 4) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
   } else if constexpr (sizeof(T) == 4 && N == 2) {
@@ -519,7 +579,8 @@ __device__ __forceinline__ void load_probs(const float* p, float (&v)[GP]) {
 // warps' states are merged once at the end into the split's partial
 // (m, l, acc[GP][D]) in the workspace.
 template <typename T, int D, int GP>
-__global__ void __launch_bounds__(kDecThreads, DecodeDepth<GP>::kCtasPerSm)
+__global__ void __launch_bounds__(kDecThreads,
+                                  DecodeDepth<T, D, GP>::kCtasPerSm)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, float* __restrict__ ws,
                           int group, int rowblocks, int Skv, int chunk,
@@ -527,7 +588,9 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using Tile = DecodeTile<T, D>;
   constexpr int KPW = Tile::kKeysPerWarp, LPK = Tile::kLanesPerKey;
   constexpr int NC = Tile::kChunks, NV = Tile::kVals, ND = Tile::kDims;
-  constexpr int kStages = DecodeDepth<GP>::kStages;
+  constexpr int kStages = DecodeDepth<T, D, GP>::kStages;
+  static_assert(ND <= 4 || LPK == 8,    // 8 lanes a key: rows unswizzled
+                "a lane's dims side by side past 4");
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem + kStages * Tile::kStageBytes);
   float* pbuf = qs + GP * D;                   // [warp][key][GP]
@@ -871,6 +934,10 @@ int flash_by_dim(const void* q, const void* k, const void* v, void* o, int B,
                                      scale, st);
     case 128: return launch_flash<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
                                        causal, scale, st);
+    case 256: return launch_flash<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                       causal, scale, st);
+    case 384: return launch_flash<384>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                       causal, scale, st);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -887,6 +954,10 @@ int decode_by_dim(const DecodePlan& p, const void* q, const void* k,
     case 64: return decode_rows<T, 64>(p, q, k, v, o, ws, scale, st, splits,
                                        resident);
     case 128: return decode_rows<T, 128>(p, q, k, v, o, ws, scale, st,
+                                         splits, resident);
+    case 256: return decode_rows<T, 256>(p, q, k, v, o, ws, scale, st,
+                                         splits, resident);
+    case 384: return decode_rows<T, 384>(p, q, k, v, o, ws, scale, st,
                                          splits, resident);
   }
   return int(cudaErrorInvalidValue);

@@ -55,6 +55,17 @@
 //   KB, 128-key K/V tiles of 16 KB.  DP = 128: two column blocks, Q 32
 //   KB, 64-key tiles of 16 KB (128 keys would not fit S, P_hi, P_lo and
 //   O in a consumer's registers).
+// - Head dims past 128 (DP = 256, 384; the wrapper zero-pads D to one of
+//   them): a grid axis over 128-wide column blocks of V and O (DV = 128).
+//   Each CTA computes the whole S = Q.K^T over every column of D, runs
+//   the same online softmax, and accumulates only its 128 columns of O,
+//   so O's registers and V's tile are those of DP = 128 and only Q and K
+//   grow.  The column blocks of one (head, query block) launch next to
+//   each other and read the same Q and K from L2.  S is recomputed in
+//   each column block: the tensor work is (2 DP + 4 DV) x DP / DV
+//   operations a visible pair, against the function's 4 D.  DP = 256:
+//   Q 64 KB, 64-key K tiles of 32 KB and V halves of 16 KB, 3 stages,
+//   209 KB; DP = 384: Q 96 KB, K tiles of 48 KB, 2 stages, 225 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -72,15 +83,22 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRows = 128;            // query rows per CTA, 64 a consumer
 constexpr int kThreads = 384;         // 2 consumer + 1 producer warpgroup
 constexpr int kConsumerWarps = 8;
-constexpr int kStages = 3;            // K/V stages in the ring
 
-template <int DP> struct Cfg {
+// DP: the width of Q and K a CTA stages; DV: the columns of V and O it
+// owns (DP itself up to 128, else one of DP / DV column blocks).
+template <int DP, int DV> struct Cfg {
   static constexpr int kBk = DP == 64 ? 128 : 64;
+  static constexpr int kStages = DP > 256 ? 2 : 3;       // K/V ring depth
+  static constexpr int kColBlocks = DP / DV;
   static constexpr int kQBlock = kRows * kSwizzleRow;   // a 64-column block
   static constexpr int kKVBlock = kBk * kSwizzleRow;
   static constexpr int kQBytes = DP / 64 * kQBlock;
-  static constexpr int kTileBytes = DP / 64 * kKVBlock;  // one K or V tile
-  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;
+  static constexpr int kKBytes = DP / 64 * kKVBlock;     // one K tile
+  static constexpr int kVBytes = DV / 64 * kKVBlock;     // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kSmem = kQBytes + kStages * kStageBytes + 1024;
+  static_assert(DP % DV == 0 && DV <= 128, "whole column blocks");
+  static_assert(kSmem <= 227 * 1024 - 64, "a block's shared memory");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -161,46 +179,59 @@ __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
 }
 
-// Stage rows row0 .. row0 + ROWS - 1 of one head's (S, D) slice as
-// 64-column blocks of ROWS swizzled 128-byte rows; rows at or past S and
-// columns at or past D are zero-filled.  Thread t of the producer.
-template <int DP, int ROWS>
+// Stage rows row0 .. row0 + ROWS - 1 of COLS columns of one head's
+// (S, ld) slice as 64-column blocks of ROWS swizzled 128-byte rows; rows
+// at or past S and columns at or past D are zero-filled.  Thread t of
+// the producer.  Rows wider than 128 columns are copied in a rolled
+// loop: unrolled, their 16-48 copies' addresses outgrow the kernel's
+// 168 registers (ptxas spilled up to 1 KB).
+template <int COLS, int ROWS>
 __device__ __forceinline__ void stage_rows(uint32_t dst,
                                            const __nv_bfloat16* src, int row0,
-                                           int S, int D, int t) {
-  constexpr int kChunks = DP / 8;   // 16-byte chunks a row
-#pragma unroll
-  for (int j = 0; j < ROWS * kChunks / 128; ++j) {
+                                           int S, int D, int ld, int t) {
+  constexpr int kChunks = COLS / 8;   // 16-byte chunks a row
+  auto copy = [&](int j) {
     const int e = t + 128 * j, r = e / kChunks, c = e % kChunks;
     const int gr = row0 + r;
     const bool ok = gr < S && c * 8 < D;
     cp_async16(dst + (c >> 3) * (ROWS * kSwizzleRow) + swizzled(r, c & 7),
-               ok ? src + size_t(gr) * D + c * 8 : src, ok);
+               ok ? src + size_t(gr) * ld + c * 8 : src, ok);
+  };
+  if constexpr (COLS <= 128) {
+#pragma unroll
+    for (int j = 0; j < ROWS * kChunks / 128; ++j) copy(j);
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < ROWS * kChunks / 128; ++j) copy(j);
   }
 }
 
-template <int DP>
+template <int DP, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_tc_flash_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
                      int Skv, int D, int causal, float scale) {
-  using C = Cfg<DP>;
-  constexpr int kBk = C::kBk;
+  using C = Cfg<DP, DV>;
+  constexpr int kBk = C::kBk, kStages = C::kStages, NCB = C::kColBlocks;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t q_full, k_full[kStages], v_full[kStages],
       empty[kStages];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~uint32_t(1023);
   const uint32_t stages = sq + C::kQBytes;   // stage s: K, then V
   // blockIdx.y = b * Hkv + kv head; blockIdx.x runs over the query blocks
-  // (the last first under causal: they see the most keys) and, fastest,
-  // the group's q heads, so the CTAs in flight share their K/V in L2
+  // (the last first under causal: they see the most keys), then the
+  // group's q heads and, fastest, the column blocks of O, so the CTAs in
+  // flight share their Q and K/V in L2
   const int group = Hq / Hkv;
+  const int cb = NCB == 1 ? 0 : blockIdx.x % NCB;     // column block of O
+  const int xq = NCB == 1 ? blockIdx.x : blockIdx.x / NCB;
+  const int col0 = cb * DV;
   const int kvh = blockIdx.y;                          // b * Hkv + kv head
-  const int bh = kvh * group + blockIdx.x % group;     // b * Hq + q head
-  const int nqb = gridDim.x / group;
-  const int qb = causal ? nqb - 1 - blockIdx.x / group : blockIdx.x / group;
+  const int bh = kvh * group + xq % group;             // b * Hq + q head
+  const int nqb = gridDim.x / NCB / group;
+  const int qb = causal ? nqb - 1 - xq / group : xq / group;
   const int q0 = qb * kRows, offs = Skv - Sq;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   // key tiles that rows r0 .. r0 + 63 see (key j <= i + offs)
@@ -226,16 +257,18 @@ attn_tc_flash_kernel(const __nv_bfloat16* __restrict__ q,
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (n_cta > 0) {
-      stage_rows<DP, kRows>(sq, q + size_t(bh) * Sq * D, q0, Sq, D, t);
+      stage_rows<DP, kRows>(sq, q + size_t(bh) * Sq * D, q0, Sq, D, D, t);
       cp_async_arrive(&q_full);
     }
+    const int dv = min(DV, D - col0);        // V columns that exist
     for (int j = 0; j < n_cta; ++j) {
       const int s = j % kStages;
       mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-      const uint32_t sk = stages + s * 2 * C::kTileBytes;
-      stage_rows<DP, kBk>(sk, kh, j * kBk, Skv, D, t);
+      const uint32_t sk = stages + s * C::kStageBytes;
+      stage_rows<DP, kBk>(sk, kh, j * kBk, Skv, D, D, t);
       cp_async_arrive(&k_full[s]);
-      stage_rows<DP, kBk>(sk + C::kTileBytes, vh, j * kBk, Skv, D, t);
+      stage_rows<DV, kBk>(sk + C::kKBytes, vh + col0, j * kBk, Skv, dv, D,
+                          t);
       cp_async_arrive(&v_full[s]);
     }
     asm volatile("cp.async.wait_all;" ::: "memory");
@@ -252,7 +285,7 @@ attn_tc_flash_kernel(const __nv_bfloat16* __restrict__ q,
   const int row_a = r0 + 16 * (t >> 5) + (lane >> 2), row_b = row_a + 8;
   const float c = __fmul_rn(scale, kLog2e);
   const uint32_t sqa = sq + wg * 64 * kSwizzleRow;
-  float acc[DP / 2];
+  float acc[DV / 2];
   // P of 16-key chunk cc as A fragments: register r holds the pair
   // i = 8 cc + 2 r, 8 cc + 2 r + 1 of S (row b when r is odd)
   uint32_t p_hi[kBk / 16][4], p_lo[kBk / 16][4];
@@ -261,7 +294,7 @@ attn_tc_flash_kernel(const __nv_bfloat16* __restrict__ q,
 
   // S (sc) is a fresh array a tile, so it is not live across the loop
   auto issue_s = [&](float (&sc)[kBk / 2], int j) {   // S(j) = Q . K(j)^T
-    const uint32_t sk = stages + (j % kStages) * 2 * C::kTileBytes;
+    const uint32_t sk = stages + (j % kStages) * C::kStageBytes;
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {   // 16 of D a wgmma
       mma_qk(sc,
@@ -350,14 +383,14 @@ attn_tc_flash_kernel(const __nv_bfloat16* __restrict__ q,
     }
     if (j > 0) {
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) {
+      for (int i = 0; i < DV / 2; ++i) {
         acc[i] = __fmul_rn(acc[i], (i & 2) ? alpha_b : alpha_a);
       }
     }
     fence_acc(acc);
     turn_wait(wg);
     wgmma_fence();
-    const uint32_t sv = stages + s * 2 * C::kTileBytes + C::kTileBytes;
+    const uint32_t sv = stages + s * C::kStageBytes + C::kKBytes;
 #pragma unroll
     for (int cc = 0; cc < kBk / 16; ++cc) {  // 16 keys a wgmma pair
       const uint64_t dv = desc_sw128(sv + cc * 16 * kSwizzleRow,
@@ -405,8 +438,8 @@ attn_tc_flash_kernel(const __nv_bfloat16* __restrict__ q,
   const bool live_b = n_mine > 0 && (!causal || row_b + offs >= 0);
   __nv_bfloat16* oh = o + size_t(bh) * Sq * D;
 #pragma unroll
-  for (int i = 0; i < DP / 2; i += 2) {
-    const int col = 8 * (i / 4) + 2 * (lane & 3);
+  for (int i = 0; i < DV / 2; i += 2) {
+    const int col = col0 + 8 * (i / 4) + 2 * (lane & 3);
     const bool b = i & 2;
     const int row = b ? row_b : row_a;
     if (row >= Sq || col >= D) continue;
@@ -420,20 +453,21 @@ attn_tc_flash_kernel(const __nv_bfloat16* __restrict__ q,
   if (wg == 0) turn_wait(wg);                // warpgroup 1's last pass
 }
 
-template <int DP>
+template <int DP, int DV = DP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Skv, int D, int causal, float scale,
            cudaStream_t st) {
-  constexpr int kSmem = Cfg<DP>::kSmem;
+  constexpr int kSmem = Cfg<DP, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_tc_flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      attn_tc_flash_kernel<DP, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) {
     cudaGetLastError();              // clear it: no later launch reads it
     return int(err);
   }
-  dim3 grid((Sq + kRows - 1) / kRows * (Hq / Hkv), B * Hkv);
-  attn_tc_flash_kernel<DP><<<grid, kThreads, kSmem, st>>>(
+  dim3 grid((Sq + kRows - 1) / kRows * (Hq / Hkv) * Cfg<DP, DV>::kColBlocks,
+            B * Hkv);
+  attn_tc_flash_kernel<DP, DV><<<grid, kThreads, kSmem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Hq, Hkv, Sq, Skv, D, causal,
       scale);
@@ -445,7 +479,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // flash attention on bf16 q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
-// D in {16, 32, 64, 128}; o like q
+// D in {16, 32, 64, 128, 256, 384}; o like q
 int attn_tc_flash(const void* q, const void* k, const void* v, void* o,
                   int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                   float scale, cudaStream_t st) {
@@ -456,6 +490,14 @@ int attn_tc_flash(const void* q, const void* k, const void* v, void* o,
   if (D == 128) {
     return attntc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
                                scale, st);
+  }
+  if (D == 256) {
+    return attntc::launch<256, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                     causal, scale, st);
+  }
+  if (D == 384) {
+    return attntc::launch<384, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                     causal, scale, st);
   }
   return int(cudaErrorInvalidValue);
 }

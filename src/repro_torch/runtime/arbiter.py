@@ -19,11 +19,14 @@ multiplies into the demand weights, ``preempt`` moves a grant on the
 spot, and ``grant_quantum`` snaps grants to a grid so the plan cache
 sees few distinct budgets.
 
+``state_dict`` / ``load_state`` carry the arbitration state across a
+restart (``runtime/recovery.py``).
+
 Pure Python; deterministic given the observation sequence.  Mesh mode
 (whole-device grants, device loss, ``degraded_grants``) is ROADMAP
 queue 1, item 9: a ``mesh=`` of more than one device raises
-``NotImplementedError``.  ``state_dict`` / ``load_state`` come with
-recovery (item 8, part 2).
+``NotImplementedError``, and ``on_device_loss`` on one device raises
+the reference's ``ValueError`` (a guard turns it into a rejection).
 """
 from __future__ import annotations
 
@@ -245,6 +248,14 @@ class BudgetArbiter:
                   moved=freed, total=self.preemptions)
         return freed
 
+    def on_device_loss(self, device: Optional[int] = None) -> list:
+        """Shrink the mesh by one device and re-grant whole-device slices
+        on the survivors.  Mesh mode only (ROADMAP queue 1, item 9): on
+        one device there is nothing to shrink past, so it raises, as the
+        reference's does without a mesh (``self.mesh`` is always None:
+        the constructor refuses a mesh of more than one device)."""
+        raise ValueError("on_device_loss() is mesh-mode only")
+
     def shares(self) -> Dict[str, TenantShare]:
         """The current grants as ``TenantShare`` rows without folding
         pending observations (what ``split()`` decided, plus any
@@ -253,6 +264,45 @@ class BudgetArbiter:
                                floor=self._floors[m],
                                fraction=self._granted.get(m, 0.0))
                 for m in self._floors}
+
+    # -- persistence (plan-preserving restart) ------------------------------
+    def state_dict(self) -> dict:
+        """JSON-able snapshot of the arbitration state a restart must
+        preserve: floors, demand/miss EWMAs, un-folded observations,
+        and the current grants.  Restoring this (``load_state``) keeps
+        post-restart budget slices bit-identical to pre-crash, so every
+        tenant's first batch re-plans under the *same* slice and hits
+        the imported plan cache."""
+        return {
+            "floors": dict(self._floors),
+            "demand": dict(self._demand),
+            "pending": dict(self._pending),
+            "granted": dict(self._granted),
+            "miss_rate": dict(self._miss_rate),
+            "rebalances": self.rebalances,
+            "preemptions": self.preemptions,
+        }
+
+    def load_state(self, state: dict) -> None:
+        """Restore a ``state_dict`` snapshot.  Every snapshotted tenant
+        must already be registered (registration re-derives the floor
+        from the plan, which must match the snapshot — a drifted floor
+        means the checkpoint belongs to a different deployment)."""
+        missing = set(state["floors"]) - set(self._floors)
+        if missing:
+            raise ValueError(f"snapshot covers unregistered tenants: "
+                             f"{sorted(missing)}")
+        for name, floor in state["floors"].items():
+            if abs(self._floors[name] - floor) > 1e-9:
+                raise ValueError(
+                    f"tenant {name!r} floor drifted: snapshot "
+                    f"{floor:.6f} vs registered {self._floors[name]:.6f}")
+        self._demand.update(state["demand"])
+        self._pending.update(state["pending"])
+        self._granted.update(state["granted"])
+        self._miss_rate.update(state.get("miss_rate", {}))
+        self.rebalances = int(state.get("rebalances", self.rebalances))
+        self.preemptions = int(state.get("preemptions", self.preemptions))
 
     def budget_for(self, name: str) -> ResourceBudget:
         """The budget slice currently granted to ``name``."""

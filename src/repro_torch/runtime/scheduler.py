@@ -47,8 +47,8 @@ synchronizes the device before it reads the wall clock after a batch:
 a deadline is judged on finished work, not on enqueue time.  The wall
 clock is read exactly where the reference reads it, so a fake clock
 that advances per reading gives both packages the same verdicts.
-``recovery=`` is duck-typed: anything with a ``beat()``
-(``RecoveryManager`` itself comes with ROADMAP queue 1, item 8, part 2).
+``recovery=`` is duck-typed: anything with a ``beat()``, such as
+``runtime/recovery.py::RecoveryManager``.
 """
 from __future__ import annotations
 
@@ -306,9 +306,9 @@ class SLOScheduler:
         """Execute up to ``max_batch`` earliest-deadline requests of one
         bucket and judge them on the wall clock, after the device has
         finished them.  The batch's tightest remaining deadline budget
-        rides along for the execution guards (ROADMAP queue 1, item 8,
-        part 2); a guard-failed completion (``ok=False``) counts as a
-        miss for the arbiter's SLO pressure."""
+        rides along for the execution guards (``runtime/guards.py``); a
+        guard-failed completion (``ok=False``) counts as a miss for the
+        arbiter's SLO pressure."""
         bucket = self._buckets[key]
         bucket.items.sort(key=lambda a: (a.deadline_wall, a.req.rid))
         take = bucket.items[:self.server.max_batch]

@@ -29,10 +29,24 @@ The SLO scheduler (``runtime/scheduler.py``) drives the same server per
 launch: ``slo_pressure``, ``miss_alpha`` and ``grant_quantum`` pass to
 the arbiter, ``_execute(deadline_budget_s=)`` carries the batch's
 tightest remaining deadline, and ``metrics()`` folds the state into a
-``MetricsRegistry``.  What the reference server also has comes in later
-slices: fault seams, guards and recovery (ROADMAP queue 1, item 8,
-part 2), mesh/sharded execution, device-loss degradation and spare-plan
-pre-warming (item 9).
+``MetricsRegistry``.
+
+Fault survival (``runtime/faults.py``, ``runtime/guards.py``): the
+injector's seams sit where the reference's do — "execute" before a
+batch plans (kernel exception, budget shrink, device loss), "output"
+after the frontend (a NaN in a copy of the result), "lane" on the
+service cycles (latency spike) — each one ``INJECTOR.enabled`` read
+while disarmed.  A tenant with a ``GuardPolicy`` (``set_guard``) runs
+its batches through ``execute_guarded``: screened, retried within the
+batch's ``deadline_budget_s``, re-planned with the ladder off under
+``on_nonfinite="retry_f32"``; a batch the guard gives up returns
+``ok=False`` completions.  A CUDA launch failure or a kernel's refusal
+of its operands is no injected fault: it propagates.  Recovery
+(``runtime/recovery.py``) snapshots and rebuilds the server.  What the
+reference server also has comes with mesh sharding (ROADMAP queue 1,
+item 9): sharded execution, device-loss degradation (``on_device_loss``
+raises on one device, as the reference's does) and spare-plan
+pre-warming.
 """
 from __future__ import annotations
 
@@ -45,7 +59,7 @@ from repro_torch.core.autotune import plan_tile_overrides
 from repro_torch.core.calibrate_cost import calibration_key
 from repro_torch.core.plan import (STATS, network_min_fraction, plan_network,
                                    replan)
-from repro_torch.core.resources import ResourceBudget
+from repro_torch.core.resources import MeshSpec, ResourceBudget
 from repro_torch.models.frontends import (apply_cnn_frontend,
                                           cnn_frontend_site_specs,
                                           resolve_device)
@@ -54,6 +68,8 @@ from repro_torch.obs.trace import NOOP_SPAN, TRACER, log_event
 from repro_torch.quant.report import max_rel_error
 from repro_torch.runtime.arbiter import BudgetArbiter, TenantShare
 from repro_torch.runtime.batching import Request, ShapeBucketQueue
+from repro_torch.runtime.faults import INJECTOR, InjectedFault
+from repro_torch.runtime.guards import GuardPolicy, execute_guarded
 from repro_torch.runtime.telemetry import TenantTelemetry
 
 _SIDE_CACHE_MAX = 256   # bound for the tile- and specs-caches
@@ -80,8 +96,8 @@ class Tenant:
 @dataclasses.dataclass(frozen=True)
 class Completion:
     """One served request: result + accounting.  ``ok=False`` means an
-    execution guard gave the batch up (guards: ROADMAP queue 1, item 8,
-    part 2); every completion of this slice is ``ok``."""
+    execution guard gave the batch up (``result`` is None; see
+    ``runtime/guards.py``)."""
 
     rid: int
     tenant: str
@@ -120,6 +136,7 @@ class AdaptiveServer:
                  max_batch: int = 4, autotune: bool = False,
                  demand_alpha: float = 0.5, fuse: bool = True,
                  calibration=None, device=None,
+                 mesh: Optional[MeshSpec] = None,
                  slo_pressure: float = 0.0, miss_alpha: float = 0.5,
                  grant_quantum: float = 0.0):
         self.device = resolve_device(device)
@@ -139,10 +156,12 @@ class AdaptiveServer:
         self.arbiter = BudgetArbiter(self.budget, policy=policy,
                                      rebalance_threshold=rebalance_threshold,
                                      demand_alpha=demand_alpha,
-                                     calibration=calibration,
+                                     calibration=calibration, mesh=mesh,
                                      slo_pressure=slo_pressure,
                                      miss_alpha=miss_alpha,
                                      grant_quantum=grant_quantum)
+        # mesh: one device or None (more raise NotImplementedError in the
+        # arbiter: ROADMAP queue 1, item 9)
         self.mesh = self.arbiter.mesh        # None: one device
         self.max_batch = max_batch
         self.autotune = autotune
@@ -150,6 +169,9 @@ class AdaptiveServer:
         self.tenants: Dict[str, Tenant] = {}
         self._queue = ShapeBucketQueue()
         self._shares: Dict[str, TenantShare] = {}
+        # opt-in per-tenant survival policies (runtime/guards.py); a
+        # tenant without one executes bare — faults propagate
+        self._guards: Dict[str, GuardPolicy] = {}
         self._tile_cache: Dict[tuple, dict] = {}
         # bucket key -> site specs: hot repeat buckets do not rebuild them
         self._specs_cache: Dict[tuple, tuple] = {}
@@ -200,6 +222,22 @@ class AdaptiveServer:
         self.arbiter.register(name, floor)
         self.tenants[name] = tenant
         return tenant
+
+    def set_guard(self, name: str,
+                  policy: Optional[GuardPolicy]) -> None:
+        """Opt tenant ``name`` into guarded execution (output screening
+        + bounded deadline-aware retry; see ``runtime/guards.py``).
+        ``None`` clears the policy — the tenant executes bare again and
+        faults propagate to the caller."""
+        if name not in self.tenants:
+            raise KeyError(f"tenant {name!r} is not registered")
+        if policy is None:
+            self._guards.pop(name, None)
+        else:
+            self._guards[name] = policy
+
+    def guard_for(self, name: str) -> Optional[GuardPolicy]:
+        return self._guards.get(name)
 
     @staticmethod
     def _specs(params, batch_shape, dtype, pool_window, activation, ladder):
@@ -269,8 +307,7 @@ class AdaptiveServer:
                  ) -> List[Completion]:
         """Run one batch of one tenant.  ``deadline_budget_s`` is the
         batch's tightest remaining wall budget (the SLO scheduler passes
-        it); the execution guards of ROADMAP queue 1, item 8, part 2
-        charge their retries against it, and nothing reads it yet."""
+        it); a guarded tenant's retries are charged against it."""
         with (TRACER.span("serve.execute", "serving",
                           {"tenant": batch[0].tenant,
                            "batch": len(batch)})
@@ -278,17 +315,41 @@ class AdaptiveServer:
             return self._execute_batch(batch,
                                        deadline_budget_s=deadline_budget_s)
 
-    def _attempt(self, tenant: Tenant, xb):
-        """(Re)plan under the tenant's *current* slice and run the
-        frontend.  Returns ``(y, plan, quant_err)``: the worst lowered
-        site's relative error when the tenant measures it, else 0."""
+    def _route_execute_faults(self, tenant: Tenant) -> None:
+        """Injection seam "execute": apply the faults due at this batch
+        — device loss marks the corpse, budget shrink scales the device
+        budget, a kernel exception raises (last, so co-scheduled faults
+        still land)."""
+        boom = None
+        for f in INJECTOR.poll("execute", tenant.name):
+            if f.kind == "device_loss":
+                INJECTOR.lose(int(f.param))
+            elif f.kind == "budget_shrink":
+                self.on_budget_shrink(f.param if f.param > 0 else 0.5)
+            elif f.kind == "kernel_exception":
+                boom = InjectedFault(
+                    f"injected kernel-launch failure "
+                    f"(tenant {tenant.name!r})")
+        if boom is not None:
+            raise boom
+
+    def _attempt(self, tenant: Tenant, xb, *, retry_f32: bool = False):
+        """One execution attempt: route injected faults, (re)plan under
+        the tenant's *current* slice and run the frontend.  Returns
+        ``(y, plan, quant_err)``: the worst lowered site's relative error
+        when the tenant measures it, else 0.  ``retry_f32=True`` plans
+        with the precision ladder off (the guard's non-finite
+        fallback)."""
+        if INJECTOR.enabled:
+            self._route_execute_faults(tenant)
         slice_budget = self.budget.scaled(tenant.granted)
-        skey = (tenant.name, tuple(xb.shape), str(xb.dtype), tenant.ladder)
+        ladder = () if retry_f32 else tenant.ladder
+        skey = (tenant.name, tuple(xb.shape), str(xb.dtype), ladder)
         specs = self._specs_cache.get(skey)
         if specs is None:
             specs = self._specs(tenant.params, xb.shape, xb.dtype,
                                 tenant.pool_window, tenant.activation,
-                                tenant.ladder)
+                                ladder)
             if len(self._specs_cache) >= _SIDE_CACHE_MAX:
                 self._specs_cache.pop(next(iter(self._specs_cache)))
             self._specs_cache[skey] = specs
@@ -303,8 +364,7 @@ class AdaptiveServer:
                 if len(self._tile_cache) >= _SIDE_CACHE_MAX:
                     self._tile_cache.pop(next(iter(self._tile_cache)))
                 self._tile_cache[tkey] = tile_overrides
-        quant_report = ({} if (tenant.ladder and tenant.measure_quant)
-                        else None)
+        quant_report = {} if (ladder and tenant.measure_quant) else None
         with (TRACER.span("kernel", "kernel",
                           {"tenant": tenant.name,
                            "launches": plan.total_launches})
@@ -312,10 +372,12 @@ class AdaptiveServer:
             y = apply_cnn_frontend(tenant.params, xb, network=plan,
                                    pool_window=tenant.pool_window,
                                    activation=tenant.activation,
-                                   ladder=tenant.ladder,
+                                   ladder=ladder,
                                    quant_report=quant_report,
                                    tile_overrides=tile_overrides,
                                    fuse=self.fuse)
+        if INJECTOR.enabled:
+            y = INJECTOR.perturb_output("output", y, tenant.name)
         quant_err = max_rel_error(quant_report) if quant_report else 0.0
         return y, plan, quant_err
 
@@ -325,7 +387,36 @@ class AdaptiveServer:
         tenant = self.tenants[batch[0].tenant]
         xb = torch.stack([r.x for r in batch])
         hits0, misses0 = STATS.plan_hits, STATS.plan_misses
-        y, plan, quant_err = self._attempt(tenant, xb)
+        policy = self._guards.get(tenant.name)
+        out: Dict[str, Any] = {}
+
+        def attempt(retry_f32: bool = False):
+            y, plan, qerr = self._attempt(tenant, xb, retry_f32=retry_f32)
+            out["plan"], out["quant_err"] = plan, qerr
+            return y
+
+        if policy is None:
+            y = attempt()
+            report = None
+        else:
+            y, report = execute_guarded(
+                attempt, policy, tenant=tenant.name,
+                remaining_s=deadline_budget_s,
+                on_device_loss=lambda e: self.on_device_loss(e.device))
+            tenant.telemetry.guard_retries += report.retries
+        if y is None:
+            # the guard gave the batch up: failed completions, lane not
+            # advanced, no record_batch (there is no plan bill to pay)
+            if report.outcome == "shed":
+                tenant.telemetry.guard_shed += len(batch)
+            else:
+                tenant.telemetry.guard_rejected += len(batch)
+            start = max(tenant.lane_free, max(r.arrival for r in batch))
+            return [Completion(rid=r.rid, tenant=r.tenant, result=None,
+                               arrival=r.arrival, finished=start,
+                               batch_size=len(batch), ok=False)
+                    for r in batch]
+        plan, quant_err = out["plan"], out["quant_err"]
         start = max(tenant.lane_free, max(r.arrival for r in batch))
         if TRACER.enabled:
             TRACER.instant(
@@ -333,7 +424,10 @@ class AdaptiveServer:
                 {"tenant": tenant.name,
                  "max_wait_cycles":
                      start - min(r.arrival for r in batch)})
-        finish = start + plan.calibrated_cycles(self.calibration)
+        service = plan.calibrated_cycles(self.calibration)
+        if INJECTOR.enabled:
+            service = INJECTOR.scale_latency(service, tenant.name)
+        finish = start + service
         tenant.lane_free = finish
         latencies = [finish - r.arrival for r in batch]
         tenant.telemetry.record_batch(
@@ -345,6 +439,14 @@ class AdaptiveServer:
                            arrival=r.arrival, finished=finish,
                            batch_size=len(batch))
                 for i, r in enumerate(batch)]
+
+    # -- fault survival -------------------------------------------------------
+    def on_device_loss(self, device: Optional[int] = None) -> list:
+        """Degrade, don't die: the arbiter shrinks the mesh by one device
+        and the affected tenants re-plan.  Mesh mode only (ROADMAP queue
+        1, item 9): on one device the arbiter raises ``ValueError``, as
+        the reference's does, so a guard rejects the batch."""
+        return self.arbiter.on_device_loss(device)
 
     def on_budget_shrink(self, fraction: float) -> None:
         """Mid-serving budget shock: the device budget scales to

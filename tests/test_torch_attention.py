@@ -249,9 +249,11 @@ def _f32_tile_flash(q, k, v, causal):
                                   (1, 2, 1, 130, 400, 16),
                                   (1, 2, 2, 200, 333, 128),
                                   (2, 4, 4, 97, 97, 16),
-                                  (1, 4, 1, 150, 70, 128)],
+                                  (1, 4, 1, 150, 70, 128),
+                                  (1, 4, 1, 100, 90, 256),
+                                  (1, 2, 2, 70, 130, 320)],
                          ids=["gqa512", "dead_rows", "cached16", "d128",
-                              "mha16", "mqa_dead128"])
+                              "mha16", "mqa_dead128", "dead256", "d320"])
 def test_flash_f32_tile_emulation_holds_the_bound(rng, case, causal):
     """The f32 kernel's arithmetic (``_f32_tile_flash``) stays within
     ``chip_smoke.ATTN_F32_TOL`` of ``flash_attention_plain`` and within
@@ -451,16 +453,16 @@ def test_named_errors(rng):
 # head dims the kernels are not built for: zero-padded on the host
 # --------------------------------------------------------------------------
 def test_padded_head_dim_is_the_next_kernel_width():
-    for d in range(1, 129):
+    for d in range(1, t_flash_mod.HEAD_DIMS[-1] + 1):
         want = min(w for w in t_flash_mod.HEAD_DIMS if w >= d)
         assert t_flash_mod.padded_head_dim(d) == want, d
     for d in t_flash_mod.HEAD_DIMS:
         q = torch.zeros(1, 2, 3, d)
-        assert all(a is b for a, b in zip(t_flash_mod.pad_head_dim(q, q, q),
-                                          (q, q, q, d)))
+        got = t_flash_mod.pad_head_dim(q, q, q)
+        assert all(a is q for a in got[:3]) and got[3] == d
 
 
-@pytest.mark.parametrize("d", [8, 12, 80])
+@pytest.mark.parametrize("d", [8, 12, 80, 144, 192, 256, 320])
 def test_padded_operands_compute_the_same_function(rng, d):
     """What the wrappers launch on the card, run through the plain
     versions: operands zero-padded along D, scaled by the original
@@ -484,15 +486,32 @@ def test_padded_operands_compute_the_same_function(rng, d):
 
 
 def test_head_dim_past_the_kernels_is_refused():
-    q = torch.zeros(1, 2, 1, 144)
-    for fn in (lambda: t_flash_mod.padded_head_dim(129),
+    q = torch.zeros(1, 2, 1, 400)
+    for fn in (lambda: t_flash_mod.padded_head_dim(385),
                lambda: t_flash_mod.pad_head_dim(q, q, q)):
         with pytest.raises(ValueError, match="has no CUDA attention kernel "
-                                             r"\(at most 128"):
+                                             r"\(at most 384"):
             fn()
 
 
-@pytest.mark.parametrize("d", [8, 80])
+@pytest.mark.parametrize("d, width", [(129, 256), (144, 256), (192, 256),
+                                      (256, 256), (257, 384), (320, 384),
+                                      (384, 384)])
+def test_head_dims_past_128_pad_to_whole_column_blocks(d, width):
+    """Past 128 the kernels take whole 128-wide column blocks of O: the
+    padded width is the next multiple of ``COL_BLOCK`` among the kernel
+    widths, and ``f32_tile`` gives the f32 kernel's keys a tile."""
+    assert t_flash_mod.padded_head_dim(d) == width
+    assert width % t_flash_mod.COL_BLOCK == 0
+    q = torch.ones(1, 2, 3, d)
+    qp, kp, vp, d0 = t_flash_mod.pad_head_dim(q, q, q)
+    assert d0 == d and qp.shape[3] == width
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    assert t_flash_mod.f32_tile(width) == ((32, 1) if width == 256
+                                          else (16, 1))
+
+
+@pytest.mark.parametrize("d", [8, 80, 144, 192, 256, 320])
 def test_any_head_dim_matches_reference_kernels(rng, d):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 8, 2, 48, 64, d)
     for causal in (True, False):

@@ -1,0 +1,212 @@
+"""The port's watchdog and straggler monitor
+(``repro_torch.runtime.fault_tolerance``): the single-device cases of
+the reference's ``tests/test_fault_tolerance.py`` (watchdog firing,
+stopping, re-arming; straggler threshold/EWMA flagging, rearm gating,
+event emission), re-run against the port.  The elastic re-mesh cases
+(``choose_mesh_shape``, ``elastic_remesh``) come with mesh sharding
+(ROADMAP queue 1, item 9).  Then parity: one step-time trace flags the
+same steps, EWMAs and hook fires in both packages.
+"""
+import time
+
+import numpy as np
+import pytest
+
+from repro.runtime.fault_tolerance import StragglerMonitor as JMonitor
+from repro_torch.obs import EVENTS
+from repro_torch.runtime.fault_tolerance import StragglerMonitor, Watchdog
+
+
+def test_watchdog_fires_on_missed_beats():
+    fired = []
+    wd = Watchdog(timeout_s=0.05, on_timeout=lambda: fired.append(1)).start()
+    deadline = time.monotonic() + 2.0
+    while not fired and time.monotonic() < deadline:
+        time.sleep(0.01)
+    wd.stop()
+    assert fired
+    assert wd.fired
+
+
+def test_watchdog_beats_keep_it_quiet():
+    fired = []
+    wd = Watchdog(timeout_s=0.2, on_timeout=lambda: fired.append(1)).start()
+    for _ in range(6):
+        wd.beat()
+        time.sleep(0.03)
+    wd.stop()
+    assert not fired
+
+
+def test_stopped_watchdog_never_fires_afterwards():
+    """Regression: stop() must join the monitor thread, and a stopped
+    watchdog must not invoke on_timeout later even though its last beat
+    is long past the timeout."""
+    fired = []
+    wd = Watchdog(timeout_s=0.05, on_timeout=lambda: fired.append(1)).start()
+    wd.beat()
+    wd.stop()                      # before any timeout elapsed
+    assert not wd._thread.is_alive()   # stop() joined the monitor
+    time.sleep(0.2)                # well past timeout_s
+    assert not fired
+    assert not wd.fired
+
+
+def test_watchdog_stop_from_on_timeout_callback():
+    """Regression: the fire-once pattern — on_timeout calling stop() —
+    must not self-join the monitor thread."""
+    fired = []
+    holder = {}
+
+    def fire_once():
+        fired.append(1)
+        holder["wd"].stop()
+
+    holder["wd"] = Watchdog(timeout_s=0.05, on_timeout=fire_once).start()
+    deadline = time.monotonic() + 2.0
+    while not fired and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert fired == [1]
+    holder["wd"]._thread.join(timeout=1.0)     # loop exits cleanly
+    assert not holder["wd"]._thread.is_alive()
+    time.sleep(0.15)
+    assert fired == [1]                        # and never fires again
+
+
+def test_watchdog_stop_is_idempotent_and_safe_before_start():
+    wd = Watchdog(timeout_s=0.05, on_timeout=lambda: None)
+    wd.stop()                      # never started: no crash
+    wd2 = Watchdog(timeout_s=0.05, on_timeout=lambda: None).start()
+    wd2.stop()
+    wd2.stop()                     # double stop: no crash
+
+
+def test_straggler_monitor_flags_outliers():
+    events = []
+    mon = StragglerMonitor(threshold=2.0, warmup=2,
+                           on_straggler=events.append)
+    for step in range(5):
+        mon.record(step, 1.0)
+    ev = mon.record(5, 5.0)
+    assert ev is not None and ev.ratio > 2.0
+    assert events == [ev]
+    # the outlier must not poison the EWMA
+    assert mon.ewma < 1.5
+
+
+def test_straggler_quiet_during_warmup_and_below_threshold():
+    mon = StragglerMonitor(threshold=2.0, warmup=3)
+    assert mon.record(0, 10.0) is None       # first sample seeds the EWMA
+    assert mon.record(1, 19.0) is None       # warmup: never flagged
+    for step in range(2, 8):
+        assert mon.record(step, 1.9) is None  # 1.9x < threshold 2.0x
+    assert mon.events == []
+    assert mon.hook_fires == 0
+
+
+def test_straggler_ewma_tracks_drift_not_spikes():
+    """A slow *trend* raises the EWMA baseline so later equal steps stop
+    flagging; a one-off spike is flagged but excluded from the fold."""
+    mon = StragglerMonitor(threshold=2.0, alpha=0.5, warmup=2)
+    for step in range(4):
+        mon.record(step, 1.0)
+    spike = mon.record(4, 3.0)
+    assert spike is not None and spike.ratio == pytest.approx(3.0)
+    assert mon.ewma == pytest.approx(1.0)    # spike did not poison it
+    for step in range(5, 10):
+        mon.record(step, 1.8)                # sustained drift folds in
+    assert mon.ewma > 1.6
+    assert mon.record(10, 1.8) is None       # new normal, not a straggler
+
+
+def test_straggler_rearm_gates_hook_but_records_every_flag():
+    hook = []
+    mon = StragglerMonitor(threshold=2.0, warmup=2, rearm=2,
+                           on_straggler=hook.append)
+    for step in range(4):
+        mon.record(step, 1.0)
+    mon.record(4, 5.0)                       # fires + arms suppression
+    mon.record(5, 5.0)                       # flagged, hook suppressed
+    assert len(mon.events) == 2 and len(hook) == 1
+    assert mon.hook_fires == 1
+    mon.record(6, 1.0)                       # 2 normal steps re-arm...
+    mon.record(7, 1.0)
+    mon.record(8, 5.0)                       # ...so this fires again
+    assert len(hook) == 2 and mon.hook_fires == 2
+    assert len(mon.events) == 3              # every flag recorded
+
+
+def test_straggler_flags_are_logged_as_events():
+    EVENTS.clear()
+    mon = StragglerMonitor(threshold=2.0, warmup=2, rearm=1)
+    for step in range(4):
+        mon.record(step, 1.0)
+    mon.record(4, 5.0)
+    mon.record(5, 5.0)                       # suppressed flag still logs
+    evs = EVENTS.recent(kind="straggler.flagged")
+    assert len(evs) == 2
+    assert evs[0]["suppressed"] is False
+    assert evs[1]["suppressed"] is True
+    assert evs[0]["ratio"] == pytest.approx(5.0)
+
+
+def test_straggler_rearm_validation():
+    with pytest.raises(ValueError):
+        StragglerMonitor(rearm=-1)
+
+
+def test_watchdog_rearm_clears_the_latch_and_fires_again():
+    """Regression: ``fired`` latches after the first timeout, so without
+    ``rearm()`` a recovered deployment could never tell a SECOND hang
+    from the stale flag."""
+    fired = []
+    wd = Watchdog(timeout_s=0.05, on_timeout=lambda: fired.append(1)).start()
+    deadline = time.monotonic() + 2.0
+    while not fired and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert fired and wd.fired
+    wd.rearm()
+    assert not wd.fired                  # latch cleared...
+    assert wd._thread.is_alive()         # ...without touching the thread
+    n = len(fired)
+    deadline = time.monotonic() + 2.0
+    while len(fired) <= n and time.monotonic() < deadline:
+        time.sleep(0.01)
+    wd.stop()
+    assert len(fired) > n and wd.fired   # a second silence fires again
+
+
+def test_watchdog_rearm_restarts_the_beat_window():
+    """rearm() must also reset the beat clock: re-arming an idle
+    watchdog whose last beat is ancient must not fire instantly."""
+    fired = []
+    wd = Watchdog(timeout_s=0.2, on_timeout=lambda: fired.append(1))
+    wd._last_beat = time.monotonic() - 10.0   # stale beat from a past life
+    wd.rearm()
+    wd.start()
+    time.sleep(0.05)                     # well inside the fresh window
+    wd.stop()
+    assert not fired
+
+
+@pytest.mark.parametrize("rearm", [0, 2])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_straggler_monitor_equals_the_reference(seed, rearm):
+    rng = np.random.default_rng(seed)
+    times = rng.lognormal(mean=0.0, sigma=0.6, size=120).tolist()
+    fires = {"t": 0, "j": 0}
+    t = StragglerMonitor(threshold=1.8, alpha=0.2, warmup=4, rearm=rearm,
+                         on_straggler=lambda e: fires.__setitem__(
+                             "t", fires["t"] + 1))
+    j = JMonitor(threshold=1.8, alpha=0.2, warmup=4, rearm=rearm,
+                 on_straggler=lambda e: fires.__setitem__(
+                     "j", fires["j"] + 1))
+    for step, dt in enumerate(times):
+        a, b = t.record(step, dt), j.record(step, dt)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert (a.step, a.step_time, a.ewma, a.ratio) == \
+                (b.step, b.step_time, b.ewma, b.ratio)
+        assert t.ewma == j.ewma
+    assert t.events and len(t.events) == len(j.events)
+    assert t.hook_fires == j.hook_fires and fires["t"] == fires["j"]
