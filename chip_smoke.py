@@ -140,10 +140,10 @@ and prints no result):
    serving loop fires on silence, and again after ``recover()``; (f)
    ``flash_attention`` and ``flash_decode`` at head dims
    ``WIDE_HEAD_DIMS`` (144, 192, 256, 320: the 256- and 384-wide
-   instances; bf16 one 128-column block of O a CTA) on f32 and bf16, causal
-   and full, GQA 4:1, ragged, one launch a call, within
-   ``ATTN_F32_TOL`` / ``ATTN_BF16_TOL``; head dim ``WIDE_REFUSED``
-   refused with no launch;
+   instances; bf16 one 128-column block of O a CTA; 400, 512, 1024: the
+   chunked instances, D padded to a multiple of 128, S over D's chunks)
+   on f32 and bf16, causal and full, GQA 4:1, ragged, decode included,
+   one launch a call, within ``ATTN_F32_TOL`` / ``ATTN_BF16_TOL``;
    Then "calibration" (``calibration_phase``, core/calibrate_cost.py on
    the card): (a) both arms (fused, unfused) of ``CAL_NETWORKS`` x
    ``CAL_BATCHES`` x ``CAL_BUDGETS`` planned analytically (an infeasible
@@ -170,6 +170,27 @@ and prints no result):
    ``AdaptiveServer(autotune=True)`` bitwise equal to ``autotune=False``
    on the 8 requests, the overridden sites logged;
    and ``pool2d(budget=)`` picks and launches the im2col pool;
+   Then "mesh" (``mesh_phase``: core/shard.py, distributed/, the mesh
+   paths of the arbiter and the server, on ``MESH_DEVICES`` logical
+   devices that share the card, asked for by name): (a)
+   ``apply_plan_sharded`` at both full-width blocks, a batch split
+   (fused and unfused) bitwise equal to ``apply_plan_replicated`` with
+   each sharded site's kernel launched once a shard, block 1's conv
+   split by input channel (8 of 16 a device) on ``ip1_vpu`` and
+   ``ip2_mxu``, psum and ring, within ``MESH_TOL`` of the replicated walk
+   and ring within it of psum, a lowered plan refused with the
+   reference's message; (b) ``AdaptiveServer(mesh=MeshSpec(devices=2),
+   devices=(cuda:0,) * 2)`` serves the default frontend at full width
+   under ``MESH_BUDGET``: the plan's JSON hashes to ``MESH_PLAN_SHA``
+   (the reference's plan), each batch launches both fused kernels once
+   a shard, completions within ``rtol=1e-4, atol=1e-5`` of the CPU
+   port's mesh server with equal accounting; (c) the reference's
+   ``test_server_survives_device_loss_end_to_end`` at full width:
+   ``prewarm_spares(losses=1)`` then a ``device_loss`` fault mid-wave,
+   every completion ``ok``, the mesh shrunk to one device, 0 cold plans,
+   ``shard_degree_mix`` keys [1, 2], ``precision_mix`` {32}; (d) served
+   requests/s of the mesh tenant and of the same tenant unsharded in
+   alternating windows, logged;
    Then "dual and matmul": ``conv2d_dual(budget=)`` on two seeded
    batches of 4 at both frontend block shapes under the four budgets of
    ``DUAL_PLANS`` (Conv3 and Conv4 on int8, f32 and int16, integers over
@@ -367,6 +388,8 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/attention/decode.py:58",
     "flash_attention (D 256)": "src/repro/kernels/attention/flash.py:77",
     "flash_decode (D 256)": "src/repro/kernels/attention/decode.py:58",
+    "flash_attention (D 512)": "src/repro/kernels/attention/flash.py:77",
+    "flash_decode (D 512)": "src/repro/kernels/attention/decode.py:58",
     "selective_scan": "src/repro/kernels/mamba_scan/scan.py:54",
 }
 # The rows of the kernels line that run on the tensor cores: mm_mxu on
@@ -413,6 +436,8 @@ KERNEL = {
     "flash_decode": "flash_decode_split_kernel, decode_combine_kernel",
     "flash_attention (D 256)": "attn_tc_flash_kernel",
     "flash_decode (D 256)": "flash_decode_split_kernel, decode_combine_kernel",
+    "flash_attention (D 512)": "attn_tc_flash_kernel",
+    "flash_decode (D 512)": "flash_decode_split_kernel, decode_combine_kernel",
     "selective_scan": "selective_scan_kernel",
 }
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
@@ -430,8 +455,12 @@ MMA_SASS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 # be in the library, under the checks of TC_SASS and CUDA_CORE.
 WIDE_SASS = ("attn_tc_flash_kernelILi256ELi128E",
              "attn_tc_flash_kernelILi384ELi128E",
+             "attn_tc_flash_kernelILi0ELi128E",
              "flash_attention_kernelILi256E",
-             "flash_attention_kernelILi384E")
+             "flash_attention_kernelILi384E",
+             "flash_attention_kernelILi0E",
+             "flash_decode_split_kernelIfLi0E",
+             "flash_decode_split_kernelI13__nv_bfloat16Li0E")
 # The tensor-core kernels by source, and the wgmma instruction each must
 # contain (and no other MMA kind): the MXU matmul members and bf16 flash
 # attention.
@@ -566,13 +595,15 @@ DECODE_SPLIT_CASES = ((1, 2, 2, 1, 64), (1, 8, 2, 17, 64),
 # conv2d_ip1's ragged checks (x, w): rows and columns no multiple of the
 # tile, Cout 7 (no 16-byte stores) and 40 (two channel blocks, the second
 # ragged), Cin 1, 3 on rows no multiple of 16 bytes (element copies), 5
-# and 600 (staged in chunks), 1x1, 3x3 and 5x5 taps
+# and 600 (staged in chunks), 8 (block 1's input channels split over the
+# mesh's two devices, "mesh" (a)), 1x1, 3x3 and 5x5 taps
 CONV_RAGGED = (((2, 13, 37, 1), (3, 3, 1, 7)),
                ((1, 11, 19, 5), (5, 5, 5, 7)),
                ((2, 9, 10, 5), (1, 1, 5, 7)),
                ((2, 17, 23, 3), (3, 3, 3, 16)),
                ((3, 30, 70, 16), (3, 3, 16, 40)),
-               ((1, 12, 20, 600), (3, 3, 600, 7)))
+               ((1, 12, 20, 600), (3, 3, 600, 7)),
+               ((2, 15, 21, 8), (3, 3, 8, 32)))
 # the fused kernel's pool geometries (window, stride) at every
 # CONV_RAGGED shape: non-overlapping, overlapping, stride 1, mixed, and
 # a stride past the window
@@ -2305,37 +2336,49 @@ def head_dim_checks(card):
 
 # Head dims past 128 ("faults" (f)): D 144 and 192 pad to the 256-wide
 # instances, 256 is one, 320 pads to 384; the bf16 kernel gives each CTA
-# one COL_BLOCK-wide column block of O, the f32 kernel all of it.  Shapes (B, Hq, Hkv, Sq, Skv): GQA
-# 4:1, Sq < Skv and Sq > Skv (rows that see no key under causal), neither
-# a multiple of a block.  Past the widest instance the named error.
-WIDE_HEAD_DIMS = (144, 192, 256, 320)
+# one COL_BLOCK-wide column block of O, the f32 kernel all of it.  Past
+# 384 (400, 512, 1024) the chunked instances: D padded to a multiple of
+# 128, a CTA one column block of O, S over the chunks of D.  Shapes (B,
+# Hq, Hkv, Sq, Skv): GQA 4:1, Sq < Skv and Sq > Skv (rows that see no key
+# under causal), neither a multiple of a block.
+WIDE_HEAD_DIMS = (144, 192, 256, 320, 400, 512, 1024)
 WIDE_HEAD_SHAPES = ((2, 8, 2, 70, 100), (1, 8, 2, 200, 130))
-WIDE_REFUSED = 400
-# the time rows at head dim 256: attn_train4k's and attn_decode32k's
-# layouts (Llama-3.2-1B's heads) with D 256
-WIDE_TRAIN = ((8, 32, 4096, 256), (8, 8, 4096, 256))
-WIDE_DECODE = ((128, 32, 1, 256), (128, 8, 32768, 256))
+# the padded widths whose instances have rows in the kernels line
+WIDE_ROWS = (256, 512)
+# the time rows at head dims 256 and 512: attn_train4k's and
+# attn_decode32k's layouts (Llama-3.2-1B's heads) with that D; at 512 the
+# f32 flash row takes 2 of the 8 batch rows (one launch about 110 ms) and
+# the decode row 4 of the 128 (a 2.1 GB cache: SDPA at D 512 runs its
+# math path, whose expanded and widened copies of the cache ran out of
+# memory at 64, 32 and 16 rows)
+WIDE_TRAIN = {256: ((8, 32, 4096, 256), (8, 8, 4096, 256)),
+              512: ((8, 32, 4096, 512), (8, 8, 4096, 512))}
+WIDE_F32_BATCH = {256: 8, 512: 2}
+WIDE_DECODE = {256: ((128, 32, 1, 256), (128, 8, 32768, 256)),
+               512: ((4, 32, 1, 512), (4, 8, 32768, 512))}
 
 
 def wide_head_dim_checks(card, errs):
     """(f) ``flash_attention`` and ``flash_decode`` at WIDE_HEAD_DIMS on
     f32 and bf16, causal and full, at WIDE_HEAD_SHAPES: one launch a call,
-    within ATTN_F32_TOL / ATTN_BF16_TOL of the plain versions; head dim
-    WIDE_REFUSED raises the named error and launches nothing.  Returns
-    the launches by kernels-line row of the calls padded to 256 (the
-    timed instance)."""
+    within ATTN_F32_TOL / ATTN_BF16_TOL of the plain versions.  Returns
+    the launches by kernels-line row of the bf16 calls padded to a width
+    of WIDE_ROWS (the timed instances)."""
     import torch
-    from repro_torch.kernels import cuda
     from repro_torch.kernels.attention.decode import (flash_decode,
                                                       flash_decode_plain)
     from repro_torch.kernels.attention.flash import (flash_attention,
                                                      flash_attention_plain,
                                                      padded_head_dim)
     gen = torch.Generator().manual_seed(SEED)
-    launches = {"flash_attention (D 256)": 0, "flash_decode (D 256)": 0}
+    launches = {f"{fn} (D {w})": 0 for w in WIDE_ROWS
+                for fn in ("flash_attention", "flash_decode")}
+    check(padded_head_dim(400) == 512 and padded_head_dim(1024) == 1024,
+          f"padded_head_dim(400) {padded_head_dim(400)}, (1024) "
+          f"{padded_head_dim(1024)}")
     mine = {}
     for d in WIDE_HEAD_DIMS:
-        at256 = padded_head_dim(d) == 256
+        width = padded_head_dim(d)
         for dtype, tol in ((torch.float32, ATTN_F32_TOL),
                            (torch.bfloat16, ATTN_BF16_TOL)):
             for b, hq, hkv, sq, skv in WIDE_HEAD_SHAPES:
@@ -2350,57 +2393,50 @@ def wide_head_dim_checks(card, errs):
                     compare(f"flash_attention {what} causal={causal}", got,
                             flash_attention_plain(q, k, v, causal=causal),
                             errs=mine, **tol)
-                    if at256 and dtype == torch.bfloat16:
-                        launches["flash_attention (D 256)"] += 1
+                    if width in WIDE_ROWS and dtype == torch.bfloat16:
+                        launches[f"flash_attention (D {width})"] += 1
                 q1 = q[:, :, :1].contiguous()
                 got = launched_once(lambda: flash_decode(q1, k, v),
                                     "flash_decode", f"flash_decode {what}")
                 compare(f"flash_decode {what}", got,
                         flash_decode_plain(q1, k, v), errs=mine, **tol)
-                if at256 and dtype == torch.bfloat16:
-                    launches["flash_decode (D 256)"] += 1
+                if width in WIDE_ROWS and dtype == torch.bfloat16:
+                    launches[f"flash_decode (D {width})"] += 1
     for name, err in mine.items():
-        row = ("flash_attention (D 256)" if name.startswith("flash_attention")
-               else "flash_decode (D 256)")
-        if "D=192 " in name or "D=256 " in name:
-            errs[row] = max(errs.get(row, 0.0), err)
-    big = operand(gen, (1, 2, 4, WIDE_REFUSED), torch.float32)
-    for fn in (flash_attention, flash_decode):
-        cuda.reset_launches()
-        try:
-            fn(big[:, :, :1].contiguous(), big, big)
-        except ValueError as e:
-            check(f"head dim {WIDE_REFUSED} has no CUDA attention kernel"
-                  in str(e), f"{fn.__name__} at D {WIDE_REFUSED}: {e}")
-        else:
-            check(False, f"{fn.__name__} at D {WIDE_REFUSED} did not raise")
-        check(not cuda.launch_counts(),
-              f"{fn.__name__} at D {WIDE_REFUSED} launched")
+        d = int(name.split("D=")[1].split()[0])
+        if padded_head_dim(d) not in WIDE_ROWS:
+            continue
+        fn = name.split()[0]
+        row = f"{fn} (D {padded_head_dim(d)})"
+        errs[row] = max(errs.get(row, 0.0), err)
     log(f"faults (f): flash_attention and flash_decode at head dims "
         f"{WIDE_HEAD_DIMS} (f32 and bf16, causal and full, GQA 4:1, "
         f"shapes {WIDE_HEAD_SHAPES}) one launch a call, within "
         f"ATTN_F32_TOL / ATTN_BF16_TOL (max abs err "
-        f"{max(mine.values()):.3e}); D {WIDE_REFUSED} refused; on {card}")
+        f"{max(mine.values()):.3e}; past 384 the chunked instances, D "
+        f"padded to a multiple of 128); on {card}")
     return launches
 
 
 def wide_head_dim_times(peaks, errs):
-    """Time rows of the head-dim-256 instances: bf16 and f32 flash at
-    WIDE_TRAIN (causal), bf16 decode at WIDE_DECODE, each beside its
-    plain version run a slice at a time and SDPA (``enable_gqa``) at the
-    same D.  ``bound_ms`` counts the function's operations (4 D a visible
-    pair); ``work_bound_ms`` the bf16 kernel's own, with S computed once
-    a column block and P.V in two bf16 terms: (2 D + 4 COL_BLOCK) D /
-    COL_BLOCK a pair (the f32 kernel computes S once: its own work is
+    """Time rows of the instances at head dims 256 and 512 (chunked):
+    bf16 and f32 flash at WIDE_TRAIN (causal; f32 at WIDE_F32_BATCH rows),
+    bf16 decode at WIDE_DECODE, each beside its plain version run a slice
+    at a time and SDPA (``enable_gqa``) at the same D.  ``bound_ms``
+    counts the function's operations (4 D a visible pair);
+    ``work_bound_ms`` the kernel's own where it computes S once a column
+    block: bf16 with P.V in two bf16 terms, (2 D + 4 COL_BLOCK) D /
+    COL_BLOCK a pair; the chunked f32 instance (2 D + 2 COL_BLOCK) D /
+    COL_BLOCK (the 256-wide f32 kernel computes S once: its own work is
     the function's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention.decode import (flash_decode,
                                                       flash_decode_plain)
-    from repro_torch.kernels.attention.flash import (COL_BLOCK,
+    from repro_torch.kernels.attention.flash import (COL_BLOCK, HEAD_DIMS,
                                                      flash_attention,
                                                      flash_attention_plain)
-    # the operands are drawn on the card: the decode cache alone is 8.6e9
+    # the operands are drawn on the card: a decode cache alone is 8.6e9
     # values
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
@@ -2410,9 +2446,18 @@ def wide_head_dim_times(peaks, errs):
                            dtype=dtype) * scale
 
     def sdpa_ms(q, k, v, causal):
+        def call():
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                           enable_gqa=True)
         try:
-            return time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True)), None
+            return time_ms(call), None
+        except SmokeFailure:
+            # past head dim 256 SDPA has no fused backend, and its many
+            # launches a call outrun time_ms's queue: synchronized calls
+            return time_sync_ms(call), (
+                "F.scaled_dot_product_attention(enable_gqa=True), timed "
+                "call by call (time_sync_ms): its launches outran the "
+                "queue ahead of the sleep kernel")
         except RuntimeError as e:
             torch.cuda.empty_cache()
             return None, (f"SDPA raised {type(e).__name__}: "
@@ -2424,53 +2469,64 @@ def wide_head_dim_times(peaks, errs):
                 plain(qc, kc, vc, **kw)
         return time_sync_ms(run)
 
-    qs, ks = WIDE_TRAIN
-    for name, dtype, rate in (
-            ("flash_attention (D 256)", torch.bfloat16, "bf16_tensor_flops"),
-            ("flash_attention (f32, D 256)", torch.float32, "fp32_flops")):
-        q = draw(qs, dtype, 0.5)
-        k, v = (draw(ks, dtype, 0.5) for _ in range(2))
-        y = flash_attention(q, k, v, causal=True)
-        compare_attention(name, y, flash_attention_plain, q, k, v, True,
-                          ATTN_BF16_TOL if dtype == torch.bfloat16
-                          else ATTN_F32_TOL, errs, causal=True)
-        bsz, hq, sq, d = q.shape
-        pairs = bsz * hq * visible_pairs(sq, k.shape[2], True)
-        b_ms, by = bound_ms(peaks, nbytes(q, k, v, y), 4 * d * pairs, rate)
-        blocks = d // COL_BLOCK if dtype == torch.bfloat16 else 1
-        lib_ms, note = sdpa_ms(q, k, v, True)
+    for width in WIDE_ROWS:
+        qs, ks = WIDE_TRAIN[width]
+        fb = WIDE_F32_BATCH[width]
+        for name, dtype, rate, shapes in (
+                (f"flash_attention (D {width})", torch.bfloat16,
+                 "bf16_tensor_flops", (qs, ks)),
+                (f"flash_attention (f32, D {width})", torch.float32,
+                 "fp32_flops", ((fb,) + qs[1:], (fb,) + ks[1:]))):
+            q = draw(shapes[0], dtype, 0.5)
+            k, v = (draw(shapes[1], dtype, 0.5) for _ in range(2))
+            y = flash_attention(q, k, v, causal=True)
+            compare_attention(name, y, flash_attention_plain, q, k, v, True,
+                              ATTN_BF16_TOL if dtype == torch.bfloat16
+                              else ATTN_F32_TOL, errs, causal=True)
+            bsz, hq, sq, d = q.shape
+            pairs = bsz * hq * visible_pairs(sq, k.shape[2], True)
+            b_ms, by = bound_ms(peaks, nbytes(q, k, v, y), 4 * d * pairs,
+                                rate)
+            chunked = d > HEAD_DIMS[-1]
+            blocks = (d // COL_BLOCK if dtype == torch.bfloat16 or chunked
+                      else 1)
+            lib_ms, note = sdpa_ms(q, k, v, True)
+            rows[name] = dict(
+                ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
+                plain_ms=plain_ms(flash_attention_plain, q, k, v, True,
+                                  causal=True),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+                exp_bound_ms=bound_ms(peaks, 0, pairs * blocks,
+                                      "mufu_per_s")[0],
+                shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} {dtype} causal",
+                library=note or "F.scaled_dot_product_attention(enable_gqa="
+                                "True)")
+            if blocks > 1:
+                pv = 4 if dtype == torch.bfloat16 else 2
+                rows[name]["work_bound_ms"] = bound_ms(
+                    peaks, 0, (2 * d + pv * COL_BLOCK) * blocks * pairs,
+                    rate)[0]
+            del q, k, v, y
+            torch.cuda.empty_cache()
+        qs, ks = WIDE_DECODE[width]
+        name = f"flash_decode (D {width})"
+        q = draw(qs, torch.bfloat16)
+        k, v = (draw(ks, torch.bfloat16) for _ in range(2))
+        y = flash_decode(q, k, v)
+        compare_attention(name, y, flash_decode_plain, q, k, v, False,
+                          ATTN_BF16_TOL, errs)
+        b_ms, by = bound_ms(peaks, nbytes(q, k, v, y),
+                            4 * qs[3] * qs[0] * qs[1] * ks[2], "fp32_flops")
+        lib_ms, note = sdpa_ms(q, k, v, False)
         rows[name] = dict(
-            ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
-            plain_ms=plain_ms(flash_attention_plain, q, k, v, True,
-                              causal=True),
+            ms=time_ms(lambda: flash_decode(q, k, v)),
+            plain_ms=plain_ms(flash_decode_plain, q, k, v, False),
             library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
-            exp_bound_ms=bound_ms(peaks, 0, pairs * blocks,
-                                  "mufu_per_s")[0],
-            shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} {dtype} causal",
+            shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16",
             library=note or "F.scaled_dot_product_attention(enable_gqa="
                             "True)")
-        if blocks > 1:
-            rows[name]["work_bound_ms"] = bound_ms(
-                peaks, 0, (2 * d + 4 * COL_BLOCK) * blocks * pairs, rate)[0]
         del q, k, v, y
         torch.cuda.empty_cache()
-    qs, ks = WIDE_DECODE
-    q = draw(qs, torch.bfloat16)
-    k, v = (draw(ks, torch.bfloat16) for _ in range(2))
-    y = flash_decode(q, k, v)
-    compare_attention("flash_decode (D 256)", y, flash_decode_plain, q, k,
-                      v, False, ATTN_BF16_TOL, errs)
-    b_ms, by = bound_ms(peaks, nbytes(q, k, v, y),
-                        4 * qs[3] * qs[0] * qs[1] * ks[2], "fp32_flops")
-    lib_ms, note = sdpa_ms(q, k, v, False)
-    rows["flash_decode (D 256)"] = dict(
-        ms=time_ms(lambda: flash_decode(q, k, v)),
-        plain_ms=plain_ms(flash_decode_plain, q, k, v, False),
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
-        shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16",
-        library=note or "F.scaled_dot_product_attention(enable_gqa=True)")
-    del q, k, v, y
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -3278,6 +3334,327 @@ def calibration_phase(card, trace, requests):
     calibration_autotune(requests)
     log(f"calibration phase: {time.perf_counter() - t0:.1f} s")
     return table
+
+
+# ---------------------------------------------------------------------------
+# "mesh": mesh sharding (core/shard.py, distributed/, the arbiter's and the
+# server's mesh paths) on MESH_DEVICES logical devices of one card
+# ---------------------------------------------------------------------------
+# The mesh is a tuple of torch.devices, one a rank; on one card the ranks
+# are logical devices that share it, asked for by name (never a silent
+# stand-in for a missing card).
+MESH_DEVICES = 2
+# The mesh tenant's per-device budget: the default ResourceBudget, under
+# which the planner batch-splits both fused blocks of the default frontend
+# at batch 4 over 2 devices (the plan JSON's sha256, MESH_PLAN_SHA, is the
+# reference's plan's: tests/test_torch_shard.py holds the two equal).
+MESH_BUDGET = {}
+MESH_PLAN_SHA = ("a6dbc2c92ed9ce8a44bf31e76fb34d3b"
+                 "fa661e8ad0b04a736f56c17b591bf9ad")
+MESH_WAVE = 8             # requests a wave: two batches of MAX_BATCH
+MESH_WAVES = 2
+MESH_TOL = dict(rtol=1e-5, atol=1e-5)
+MESH_RATE_WINDOWS = 4     # alternating windows: plain, mesh, mesh, plain
+
+
+def mesh_devices_by_name():
+    import torch
+    return (torch.device("cuda", 0),) * MESH_DEVICES
+
+
+def mesh_execution_checks(card, shapes, errs):
+    """(a) ``apply_plan_sharded`` at the full-width blocks on the logical
+    devices: a batch split (fused and unfused) bitwise equal to
+    ``apply_plan_replicated`` on the card with each sharded site's kernel
+    launched once a shard; block 1's conv split by input channel (Cin 16
+    -> 8 a device) on both conv members, psum and ring, within MESH_TOL of
+    the replicated walk and ring within MESH_TOL of psum; a lowered plan
+    refused with the reference's message."""
+    import dataclasses
+    import torch
+    from repro_torch.core.ip import SiteSpec
+    from repro_torch.core.library import get_ip
+    from repro_torch.core.plan import clear_plan_cache, plan_network
+    from repro_torch.core.resources import MeshSpec, ResourceBudget
+    from repro_torch.core.shard import force_shard_decisions
+    from repro_torch.distributed import (apply_plan_replicated,
+                                         apply_plan_sharded)
+    from repro_torch.kernels import cuda
+    from repro_torch.models.blocks import cnn_block_site_specs
+    devices = mesh_devices_by_name()
+    d = MESH_DEVICES
+    mesh = MeshSpec(devices=d)
+    gen = torch.Generator().manual_seed(SEED)
+    clear_plan_cache()
+    runs = []
+    for name, (xs, ws) in shapes.items():
+        x = operand(gen, xs, torch.float32)
+        w = operand(gen, ws, torch.float32, (ws[0] * ws[1] * ws[2]) ** -0.5)
+        specs, _ = cnn_block_site_specs(xs, ws, x_dtype="float32", site=name)
+        weights = {f"{name}.conv": w, f"{name}.fused": w}
+        for fuse in (True, False):
+            plan = plan_network(tuple(specs), ResourceBudget(), fuse=fuse)
+            force_shard_decisions(tuple(s.spec for s in plan.sites), mesh,
+                                  axis="batch")
+            split = dataclasses.replace(plan, mesh=mesh, sites=tuple(
+                dataclasses.replace(s, shard_axis="batch", shard_degree=d)
+                for s in plan.sites))
+            want = apply_plan_replicated(plan, x, weights)
+            cuda.reset_launches()
+            got = apply_plan_sharded(split, x, weights, devices=devices)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+            expect = {}
+            for s in plan.sites:
+                k = CNN_MEMBER_KERNEL[s.ip.name]
+                expect[k] = expect.get(k, 0) + d
+            check(counts == expect, f"mesh (a) {name} fuse={fuse}: launched "
+                                    f"{counts}, expected {expect}")
+            check(got.is_cuda and torch.equal(got, want),
+                  f"mesh (a) {name} fuse={fuse}: batch split differs from "
+                  f"the replicated walk")
+            runs.append(f"{name} {'fused' if fuse else 'unfused'} "
+                        f"{dict(sorted(counts.items()))}")
+    xs, ws = shapes["block1"]
+    x = operand(gen, xs, torch.float32)
+    w = operand(gen, ws, torch.float32, (ws[0] * ws[1] * ws[2]) ** -0.5)
+    spec = SiteSpec.make("b1conv", "conv2d", (xs, ws), "float32",
+                         dual=False)
+    base = plan_network((spec,), ResourceBudget())
+    chan_err = 0.0
+    for ip in ("conv2d.ip1_vpu", "conv2d.ip2_mxu"):
+        site = dataclasses.replace(base.sites[0], ip=get_ip(ip))
+        rep = dataclasses.replace(base, sites=(site,))
+        chan = dataclasses.replace(base, mesh=mesh, sites=(
+            dataclasses.replace(site, shard_axis="chan", shard_degree=d),))
+        want = apply_plan_replicated(rep, x, {"b1conv": w})
+        outs = {}
+        for ring in (False, True):
+            cuda.reset_launches()
+            outs[ring] = apply_plan_sharded(chan, x, {"b1conv": w},
+                                            use_ring=ring, devices=devices)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+            check(counts == {CNN_MEMBER_KERNEL[ip]: d},
+                  f"mesh (a) chan {ip} ring={ring}: launched {counts}")
+            torch.testing.assert_close(outs[ring], want, **MESH_TOL,
+                                       msg=lambda m: f"mesh (a) chan {ip}: "
+                                                     f"{m}")
+            chan_err = max(chan_err, float((outs[ring] - want).abs().max()))
+        torch.testing.assert_close(outs[True], outs[False], **MESH_TOL,
+                                   msg=lambda m: f"mesh (a) ring vs psum: "
+                                                 f"{m}")
+    errs["mesh channel split"] = chan_err
+    lo = SiteSpec.make("lo", "conv2d", ((2, 8, 8, 4), (3, 3, 4, 8)),
+                       "float32", ladder=(16, 8), dual=False)
+    lowered = plan_network((lo,), ResourceBudget(vmem_bytes=3 * 1024))
+    bits = lowered.sites[0].precision_bits
+    try:
+        apply_plan_sharded(lowered, x, devices=devices)
+    except ValueError as e:
+        check(str(e) == f"site 'lo' was lowered to int{bits}; sharded "
+                        f"execution is float-only — plan without a ladder "
+                        f"or without a mesh", f"mesh (a) refusal: {e}")
+    else:
+        check(False, "mesh (a): a lowered plan was not refused")
+    log(f"mesh (a): {d} logical devices on one card; batch splits bitwise "
+        f"the replicated walk, one launch a shard ({'; '.join(runs)}); "
+        f"block 1's conv split by input channel ({ws[2]} -> "
+        f"{ws[2] // d} a device) on ip1_vpu and ip2_mxu, psum and ring, "
+        f"within rtol=1e-5, atol=1e-5 (max abs err {chan_err:.3e}); the "
+        f"lowered plan refused; on {card}")
+
+
+def mesh_server(device, devices, guarded=False):
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.core.resources import MeshSpec, ResourceBudget
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime import GuardPolicy
+    from repro_torch.runtime.server import AdaptiveServer
+    clear_plan_cache()
+    srv = AdaptiveServer(ResourceBudget(**MESH_BUDGET),
+                         mesh=MeshSpec(devices=MESH_DEVICES),
+                         max_batch=MAX_BATCH, device=device, devices=devices)
+    srv.register("cnn", init_cnn_frontend(SEED, device=srv.device), IMAGE)
+    if guarded:
+        srv.set_guard("cnn", GuardPolicy(max_retries=2,
+                                         backoff_base_s=0.001))
+    return srv
+
+
+def mesh_trace(seed=SEED):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=IMAGE).astype(np.float32)
+            for _ in range(MESH_WAVE * MESH_WAVES)]
+
+
+def mesh_wave(srv, requests):
+    for x in requests:
+        srv.submit("cnn", x)
+    return sorted(srv.drain(), key=lambda c: c.rid)
+
+
+def mesh_serving_checks(card):
+    """(b) A mesh-mode AdaptiveServer (MeshSpec(devices=2) on two logical
+    devices of the card, by name) serves the default frontend at full
+    width through sharded plans: the plan's JSON is the reference's
+    (MESH_PLAN_SHA), every batch runs both fused kernels once a shard,
+    and the completions equal the CPU port's mesh server's within
+    rtol=1e-4, atol=1e-5 with the same accounting."""
+    import hashlib
+    import torch
+    from repro_torch.core.plan import plan_network
+    from repro_torch.core.resources import MeshSpec, ResourceBudget
+    from repro_torch.kernels import cuda
+    from repro_torch.models.frontends import cnn_frontend_site_specs
+    trace = mesh_trace()
+    srv = mesh_server(None, mesh_devices_by_name())
+    check(srv.device.type == "cuda" and srv.devices ==
+          mesh_devices_by_name(), f"mesh server on {srv.device}, "
+                                  f"devices {srv.devices}")
+    specs = tuple(cnn_frontend_site_specs(
+        srv.tenants["cnn"].params, (MAX_BATCH,) + IMAGE, torch.float32))
+    plan = plan_network(specs, ResourceBudget(**MESH_BUDGET),
+                        mesh=MeshSpec(devices=MESH_DEVICES))
+    sha = hashlib.sha256(plan.to_json().encode()).hexdigest()
+    check(sha == MESH_PLAN_SHA, f"mesh plan JSON sha256 {sha}, the "
+                                f"reference's is {MESH_PLAN_SHA}")
+    check(all(s.shard_axis == "batch" and s.shard_degree == MESH_DEVICES
+              for s in plan.sites), f"mesh plan {plan.describe()}")
+    cuda.reset_launches()
+    done = []
+    for i in range(MESH_WAVES):
+        done += mesh_wave(srv, trace[i * MESH_WAVE:(i + 1) * MESH_WAVE])
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    batches = len(trace) // MAX_BATCH
+    want = {"fused_cnn_vpu": batches * MESH_DEVICES,
+            "fused_cnn_mxu": batches * MESH_DEVICES}
+    check(counts == want, f"mesh (b): launched {counts}, expected {want}")
+    tel = srv.telemetry()["cnn"]
+    check(tel["shard_degree_mix"] == {MESH_DEVICES: 2 * batches},
+          f"mesh (b): shard_degree_mix {tel['shard_degree_mix']}")
+    cpu = mesh_server("cpu", None)
+    cpu_done = []
+    for i in range(MESH_WAVES):
+        cpu_done += mesh_wave(cpu, trace[i * MESH_WAVE:(i + 1) * MESH_WAVE])
+    check(len(done) == len(cpu_done) == len(trace),
+          f"mesh (b): {len(done)} / {len(cpu_done)} completions")
+    err = 0.0
+    for a, b in zip(done, cpu_done):
+        check(a.ok and a.result.is_cuda
+              and bool(torch.isfinite(a.result).all()),
+              f"mesh (b) rid {a.rid}: not ok or off-card")
+        torch.testing.assert_close(a.result.cpu(), b.result, rtol=1e-4,
+                                   atol=1e-5)
+        err = max(err, float((a.result.cpu() - b.result).abs().max()))
+        check((a.rid, a.batch_size, a.finished) ==
+              (b.rid, b.batch_size, b.finished),
+              f"mesh (b) rid {a.rid}: accounting differs from the CPU's")
+    check(cpu.telemetry()["cnn"]["shard_degree_mix"] ==
+          tel["shard_degree_mix"], "mesh (b): CPU shard mix differs")
+    log(f"mesh (b): {MESH_DEVICES} logical devices on one card serve "
+        f"{len(trace)} requests at {IMAGE} through the sharded plan "
+        f"(sha256 {sha[:16]}.. = the reference's; "
+        f"{' + '.join(s.ip.name.split('.')[-1] for s in plan.sites)} "
+        f"batch x{MESH_DEVICES}); launches {counts}; within rtol=1e-4, "
+        f"atol=1e-5 of the CPU mesh server (max abs err {err:.3e}), "
+        f"accounting equal; on {card}")
+    return srv, trace
+
+
+def mesh_device_loss_checks(card):
+    """(c) The reference's test_server_survives_device_loss_end_to_end at
+    full width: prewarm_spares(losses=1), then a device_loss fault
+    mid-wave under a guard: every completion ok, the mesh shrunk to one
+    device, 0 cold plans, shard_degree_mix keys [1, 2], precision
+    {32}."""
+    import torch
+    from repro_torch.core.plan import STATS
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime import INJECTOR, FaultSpec
+    trace = mesh_trace(SEED + 1)
+    srv = mesh_server(None, mesh_devices_by_name(), guarded=True)
+    healthy = mesh_wave(srv, trace[:MESH_WAVE])
+    check(all(c.ok for c in healthy), "mesh (c): healthy wave not ok")
+    warmed = srv.prewarm_spares(losses=1)
+    before = STATS.plan_misses
+    cuda.reset_launches()
+    with INJECTOR.armed([FaultSpec("device_loss", step=0, param=1)]):
+        degraded = mesh_wave(srv, trace[MESH_WAVE:])
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    cold = STATS.plan_misses - before
+    tel = srv.telemetry()["cnn"]
+    check(len(degraded) == MESH_WAVE and all(c.ok for c in degraded),
+          f"mesh (c): {[c.ok for c in degraded]}")
+    for c in degraded:
+        check(c.result.is_cuda and bool(torch.isfinite(c.result).all()),
+              f"mesh (c) rid {c.rid}: non-finite or off-card")
+    check(srv.mesh.devices == 1, f"mesh (c): mesh {srv.mesh}")
+    check(cold == 0, f"mesh (c): {cold} cold plans after the loss")
+    check(tel["degradations"] == 1, f"mesh (c): {tel['degradations']}")
+    check(sorted(tel["shard_degree_mix"]) == [1, 2],
+          f"mesh (c): shard_degree_mix {tel['shard_degree_mix']}")
+    check(set(tel["precision_mix"]) == {32},
+          f"mesh (c): precision_mix {tel['precision_mix']}")
+    log(f"mesh (c): a device_loss fault mid-wave: {len(degraded)} of "
+        f"{MESH_WAVE} completions ok, mesh shrunk to {srv.mesh.devices} "
+        f"device, {warmed} spare plans warmed, {cold} cold plans, "
+        f"shard_degree_mix {tel['shard_degree_mix']}, precision_mix "
+        f"{tel['precision_mix']}, the degraded wave's launches {counts}; "
+        f"on {card}")
+
+
+def mesh_rates(card):
+    """(d) Served requests/s of the mesh tenant (2 logical devices) and of
+    the same tenant on a single-device server, in alternating windows of
+    whole rounds of the (b) trace (host clock, synchronized at both ends);
+    logged, not checked."""
+    import statistics
+    import torch
+    from repro_torch.models.frontends import init_cnn_frontend
+    from repro_torch.runtime.server import AdaptiveServer
+    trace = mesh_trace()
+    plain = AdaptiveServer(max_batch=MAX_BATCH)
+    plain.register("cnn", init_cnn_frontend(SEED), IMAGE)
+    meshed = mesh_server(None, mesh_devices_by_name())
+    arms = {"plain": plain, "mesh": meshed}
+    for srv in arms.values():
+        serve_window(srv, trace, 1)                 # warms plans
+    rounds = -(-RATE_MIN_REQUESTS // len(trace))
+    wall = serve_window(meshed, trace, rounds)
+    rounds = max(rounds, math.ceil(rounds * 0.6 / wall))
+    rates = {"plain": [], "mesh": []}
+    for arm in ("plain", "mesh", "mesh", "plain") * (MESH_RATE_WINDOWS // 4):
+        w = serve_window(arms[arm], trace, rounds)
+        rates[arm].append(rounds * len(trace) / w)
+    torch.cuda.synchronize()
+    med = {arm: statistics.median(r) for arm, r in rates.items()}
+    log(f"mesh (d): served {med['mesh']:.1f} requests/s on {MESH_DEVICES} "
+        f"logical devices against {med['plain']:.1f} unsharded (ratio "
+        f"{med['mesh'] / med['plain']:.3f}; windows of {rounds} rounds of "
+        f"{len(trace)} requests, plain "
+        f"{', '.join(f'{r:.1f}' for r in rates['plain'])}, mesh "
+        f"{', '.join(f'{r:.1f}' for r in rates['mesh'])}; logged, not "
+        f"checked) on {card}")
+    return med
+
+
+def mesh_phase(card, shapes, errs):
+    """The "mesh" phase: (a)-(d) above.  Returns (d)'s rates."""
+    from repro_torch.runtime.faults import INJECTOR
+    t0 = time.perf_counter()
+    try:
+        mesh_execution_checks(card, shapes, errs)
+        mesh_serving_checks(card)
+        mesh_device_loss_checks(card)
+        rates = mesh_rates(card)
+    finally:
+        INJECTOR.disarm()
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return rates
 
 
 def budget_pool_check(gen, errs):
@@ -5149,6 +5526,7 @@ def main() -> int:
     wide_launches, faults = faults_phase(card, trace, errs)
     launches.update(wide_launches)
     table = calibration_phase(card, trace, requests)
+    mesh_phase(card, shapes, errs)
     launches.update(budget_pool_check(gen, errs))
     launches.update(dual_conv_checks(shapes, gen, errs))
     launches.update(matmul_checks(gen, errs))

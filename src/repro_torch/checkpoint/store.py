@@ -17,8 +17,9 @@ leaf is saved from ``t.detach().cpu()``.  bfloat16 has no numpy dtype
 here, so a bf16 leaf is saved as its ``uint16`` bits with ``"dtype":
 "bfloat16"`` in the manifest (the string the reference writes for one)
 and restored bit for bit.  ``restore`` puts each leaf on its target
-tensor's device and dtype; a sharded restore onto another mesh is
-ROADMAP queue 1, item 9.
+tensor's device and dtype; the reference's sharded restore
+(``shardings=``, training state) comes with training (ROADMAP queue 1,
+item 12).
 """
 from __future__ import annotations
 

@@ -56,9 +56,10 @@ the single selection engine behind every family:
   rescales cost, not resources.  Plans memoize on the table's
   ``key()`` (schema version + fits fingerprint), so a refitted table
   never serves stale cached plans.
-* ``mesh=`` keeps its place in the signatures and cache keys; a mesh of
-  more than one device raises ``NotImplementedError`` (ROADMAP queue 1,
-  item 9).
+* ``mesh=`` (a ``MeshSpec`` of more than one device): mesh-sharded
+  planning (``core/shard.py``), each device priced against the full
+  per-device budget, each split's collectives in cycles at the mesh's
+  link rate; ``distributed/shard_exec.py`` runs the plans.
 
 Everything here is pure Python over shapes: no tensors.
 """
@@ -232,8 +233,7 @@ def plan_cache_contains(specs, budget: Optional[ResourceBudget] = None, *,
     recency is untouched — so spare-plan pre-warming
     (``AdaptiveServer.prewarm_spares``) and the chaos gate can assert
     "this degraded-mesh key will serve hot" without perturbing the very
-    statistics the zero-cold-replan claim is judged on (pre-warming is
-    mesh work, ROADMAP queue 1, item 9)."""
+    statistics the zero-cold-replan claim is judged on."""
     budget = budget or ResourceBudget()
     key = (tuple(specs), budget, fuse, mesh, calibration_key(calibration))
     return key in _PLAN_CACHE
@@ -413,10 +413,15 @@ class PlannedSite:
     """One site's resolved decision: the member, its price, the fraction
     of the network budget the partitioner granted it, the operand
     width the precision ladder settled on (== the spec's native width
-    when no lowering was needed), and its sharding
-    (``shard_axis``/``shard_degree``): replicated (degree 1) until mesh
-    planning is ported (ROADMAP queue 1, item 9); the fields keep the
-    plan JSON equal to the reference's."""
+    when no lowering was needed), and the sharding the mesh pass chose
+    (``shard_axis``/``shard_degree``; degree 1 means replicated).
+
+    ``spec`` stays the GLOBAL site — what the caller's shapes validate
+    against; the per-device shard is recoverable via
+    ``NetworkPlan.device_plan()``.  A sharded site's ``footprint`` is
+    its per-device footprint with the collective traffic folded in:
+    ``comm_cycles`` carries the collective term and ``est_cycles``
+    already includes it."""
 
     spec: SiteSpec
     ip: KernelIP
@@ -446,9 +451,9 @@ class NetworkPlan:
 
     budget: ResourceBudget
     sites: Tuple[PlannedSite, ...]
-    # The mesh this plan was priced against (None = single device).  Only
-    # single-device meshes plan in this port so far (ROADMAP queue 1,
-    # item 9), so no site is sharded.
+    # The mesh this plan was priced against (None = single device).  A
+    # plan with mesh devices > 1 may carry sharded sites; execution runs
+    # them device by device (distributed/shard_exec.py).
     mesh: Optional[MeshSpec] = None
     # The decision audit the planner recorded while building this plan:
     # per-site candidate sets with rejection reasons, ladder-descent
@@ -510,6 +515,26 @@ class NetworkPlan:
     def lowered_sites(self) -> Tuple[PlannedSite, ...]:
         """Sites the precision ladder actually lowered below native."""
         return tuple(s for s in self.sites if s.lowered)
+
+    def sharded_sites(self) -> Tuple[PlannedSite, ...]:
+        """Sites the mesh pass actually split past one device."""
+        return tuple(s for s in self.sites if s.sharded)
+
+    def device_plan(self) -> "NetworkPlan":
+        """The per-device view of a sharded plan: each sharded site's
+        GLOBAL spec replaced by its per-device shard — the shapes each
+        device's execution sees, and what the apply-path plan/site
+        validation must match against.  A plan with no sharded sites
+        returns itself."""
+        if not any(s.sharded for s in self.sites):
+            return self
+        from repro_torch.core.shard import shard_site_spec
+        sites = tuple(
+            dataclasses.replace(s, spec=shard_site_spec(
+                s.spec, s.shard_axis, s.shard_degree))
+            if s.sharded else s
+            for s in self.sites)
+        return dataclasses.replace(self, sites=sites)
 
     def describe(self) -> str:
         lines = []
@@ -658,15 +683,19 @@ def plan_network(specs: Iterable[SiteSpec],
     (``CalibrationTable.key()``), so plans under different — or
     refitted — tables never collide.
 
-    ``mesh=`` with more than one device (mesh-sharded planning) is not
-    ported yet and raises ``NotImplementedError`` (ROADMAP queue 1,
-    item 9).
+    ``mesh=`` (a ``MeshSpec`` with devices > 1) turns on **mesh-sharded
+    planning**: per site the planner chooses between replicating on one
+    device and splitting across all of them (batch- or channel-
+    parallel, ``core/shard.py``), pricing each split's collective
+    traffic — psum for channel-split convs, boundary/egress all-gathers
+    — in cycles at the mesh's link bandwidth via
+    ``Footprint.comm_cycles``.  Each device sees the FULL ``budget``
+    (that is what an N-device grant means); a site infeasible on one
+    device but feasible split is rescued by the shard.  Sharded sites
+    keep their GLOBAL spec (``NetworkPlan.device_plan()`` recovers the
+    per-device view); ``distributed/shard_exec.py`` runs them.
     """
     budget = budget or ResourceBudget()
-    if mesh is not None and mesh.devices > 1:
-        raise NotImplementedError(
-            "mesh-sharded planning is not ported yet (ROADMAP queue 1, "
-            "item 9)")
     key = (tuple(specs), budget, fuse, mesh, calibration_key(calibration))
     cached = _cache_get(key)
     if cached is not None:
@@ -716,8 +745,10 @@ def replan(specs: Iterable[SiteSpec],
     finds no shares and falls cold, re-deriving the assignment from the
     new predictions instead of serving a stale-calibration split.
 
-    ``mesh=`` with more than one device goes to ``plan_network``,
-    which raises (ROADMAP queue 1, item 9).
+    With ``mesh=`` (devices > 1) the share heuristic does not apply —
+    the sharding decisions depend on mesh geometry, not just the moved
+    envelope — so the call goes through the full (memoized)
+    ``plan_network`` path; exact repeats are still O(1) cache hits.
     """
     budget = budget or ResourceBudget()
     if mesh is not None and mesh.devices > 1:
@@ -974,11 +1005,27 @@ def _plan_uncached(specs: Tuple[SiteSpec, ...], budget: ResourceBudget,
                    else (specs, []))
     while True:
         try:
-            plan = _plan_effective(eff, budget, select_full,
-                                   calibration=calibration,
-                                   calkey=calkey, events=events)
-            if mesh is not None:
-                plan = dataclasses.replace(plan, mesh=mesh)
+            if mesh is not None and mesh.devices > 1:
+                # The sharding pass runs INSIDE the fallback loop: when
+                # a fused group later unfuses, the new chain re-decides
+                # its splits (the fused site's batch-only rule no
+                # longer binds).
+                from repro_torch.core.shard import plan_shard_decisions
+                shardings = plan_shard_decisions(
+                    eff, budget, mesh, select_full, calibration,
+                    events=events)
+                plan = _plan_effective(
+                    tuple(sh.spec for sh in shardings), budget,
+                    select_full, calibration=calibration, calkey=calkey,
+                    events=events)
+                plan = _apply_shardings(plan, eff, shardings, budget,
+                                        mesh)
+            else:
+                plan = _plan_effective(eff, budget, select_full,
+                                       calibration=calibration,
+                                       calkey=calkey, events=events)
+                if mesh is not None:
+                    plan = dataclasses.replace(plan, mesh=mesh)
             break
         except ValueError as e:
             # Only a broken partition is fusion's fault (every chosen
@@ -1033,6 +1080,30 @@ def _plan_effective(specs: Tuple[SiteSpec, ...], budget: ResourceBudget,
     _SHARE_CACHE[(specs, calkey)] = shares
     return _assign_with_repair(specs, budget, shares, calibration,
                                events=events)
+
+
+def _apply_shardings(plan: NetworkPlan, eff: Tuple[SiteSpec, ...],
+                     shardings, budget: ResourceBudget,
+                     mesh: MeshSpec) -> NetworkPlan:
+    """Map a plan built on per-device shard specs back to the GLOBAL
+    specs, folding each site's collective cycles into its footprint:
+    ``comm_cycles`` carries the collective term and ``est_cycles``
+    grows by it, so ``total_cycles``/``calibrated_cycles`` price the
+    traffic and the calibration layer can regress on the comm axis."""
+    sites = []
+    for ps, sh, gspec in zip(plan.sites, shardings, eff):
+        if sh.degree > 1 or sh.comm_cycles:
+            fp = dataclasses.replace(
+                ps.footprint,
+                est_cycles=ps.footprint.est_cycles + sh.comm_cycles,
+                comm_cycles=sh.comm_cycles)
+            sites.append(dataclasses.replace(
+                ps, spec=gspec, footprint=fp, shard_axis=sh.axis,
+                shard_degree=sh.degree))
+        else:
+            sites.append(ps)
+    # dataclasses.replace keeps the audit the assignment pass recorded.
+    return dataclasses.replace(plan, sites=tuple(sites), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -45,9 +45,13 @@ ICI_BYTES_PER_CYCLE = ICI_BW_PER_LINK / CLOCK_HZ
 class MeshSpec:
     """A device mesh the planner may spread one plan across.
 
-    Hashable — it participates in plan cache keys.  This slice plans
-    single-device only: ``plan_network(mesh=...)`` with more than one
-    device raises ``NotImplementedError`` (ROADMAP queue 1, item 9).
+    ``devices`` identical devices joined by links of finite bandwidth:
+    how many, the mesh-axis name execution shards over, and the link
+    rate collective traffic is priced at (``ici_bytes_per_cycle``, the
+    reference's cost unit; on the card the links are NVLink, or, for
+    logical devices sharing one card, its own memory).  Hashable — it
+    participates in plan cache keys, so its fields stay the
+    reference's.
     """
 
     devices: int = 1
@@ -59,6 +63,36 @@ class MeshSpec:
             raise ValueError(f"mesh needs >= 1 device, got {self.devices}")
         if self.ici_bytes_per_cycle <= 0.0:
             raise ValueError("ici_bytes_per_cycle must be positive")
+
+    def ici_cycles(self, n_bytes: float) -> float:
+        """Cycles to move ``n_bytes`` across one link."""
+        return n_bytes / self.ici_bytes_per_cycle
+
+    def all_gather_cycles(self, n_bytes: float) -> float:
+        """Ring all-gather of a tensor of GLOBAL size ``n_bytes``: each
+        device receives the (devices-1)/devices of it that it does not
+        already hold."""
+        d = self.devices
+        if d <= 1:
+            return 0.0
+        return self.ici_cycles(n_bytes * (d - 1) / d)
+
+    def all_reduce_cycles(self, n_bytes: float) -> float:
+        """Ring all-reduce (reduce-scatter + all-gather) of a tensor of
+        size ``n_bytes``: 2 * (d-1)/d of it crosses each link — the cost
+        a channel-split conv pays to sum its partial outputs."""
+        d = self.devices
+        if d <= 1:
+            return 0.0
+        return self.ici_cycles(2.0 * n_bytes * (d - 1) / d)
+
+    def halo_cycles(self, n_bytes: float) -> float:
+        """Neighbor exchange of ``n_bytes`` of boundary rows — what a
+        spatial conv split pays per step (both edges move in parallel
+        over distinct links, so one halo's bytes price the exchange)."""
+        if self.devices <= 1:
+            return 0.0
+        return self.ici_cycles(n_bytes)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,152 @@
+"""Collectives of the single controller: one Python process owns every
+device of a mesh, as the reference's ``shard_map`` does.
+
+Replaces ``repro/distributed/collectives.py`` and the ``lax`` collectives
+its sharded executor calls inside ``shard_map``.  Under the single
+controller a sharded value is a list of per-device tensors, one per rank
+in mesh order, each on its rank's device; every collective here takes
+such a list and returns one tensor per rank on that rank's device.  The
+copies between ranks are ``Tensor.to(device)``: peer copies between
+cards, and no copy at all where two logical devices share one card.  No
+collective moves a CUDA tensor to the CPU to compute.
+
+* ``all_gather(blocks, dim)`` — the tiled all-gather: every rank gets
+  the blocks concatenated along ``dim`` in rank order.
+* ``psum(parts)`` — the all-reduce, summed in rank order
+  ((p0 + p1) + p2 ...) once and copied to every rank, so every rank
+  holds bitwise the same sum.
+* ``ring_all_reduce(parts)`` — the reference's ring schedule, hop for
+  hop: the flat tensor padded to ``n`` chunks, ``n - 1`` reduce-scatter
+  hops in which rank ``j`` sends chunk ``(j - i) % n`` to rank
+  ``j + 1``, which adds it into its own copy, then ``n - 1`` all-gather
+  hops that circulate the reduced chunks.  Each chunk's f32 additions
+  come in the reference's order.
+* ``bucketed_psum(trees, n_buckets=4)`` — a pytree (dicts, lists,
+  tuples of tensors) all-reduced leaf by leaf in buckets of the
+  reference's greedy balance (largest leaves first, each into the
+  lightest bucket).
+"""
+from __future__ import annotations
+
+from typing import Any, List, Sequence
+
+import torch
+
+
+def _check(parts: Sequence[torch.Tensor], what: str) -> None:
+    if not parts:
+        raise ValueError(f"{what} needs one tensor per rank, got none")
+    shape = parts[0].shape
+    for r, p in enumerate(parts):
+        if p.shape != shape or p.dtype != parts[0].dtype:
+            raise ValueError(
+                f"{what}: rank {r} holds {tuple(p.shape)} {p.dtype}, rank 0 "
+                f"{tuple(shape)} {parts[0].dtype}")
+
+
+def all_gather(blocks: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
+    """The blocks concatenated along ``dim`` in rank order, on every
+    rank's device (``lax.all_gather(..., tiled=True)``)."""
+    if not blocks:
+        raise ValueError("all_gather needs one block per rank, got none")
+    return [torch.cat([b.to(mine.device) for b in blocks], dim=dim)
+            for mine in blocks]
+
+
+def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum of the ranks' tensors in rank order, bitwise the same on
+    every rank's device."""
+    _check(parts, "psum")
+    dev = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    if len(parts) == 1:
+        total = total.clone()
+    return [total if r == 0 else total.to(p.device, copy=True)
+            for r, p in enumerate(parts)]
+
+
+def ring_all_reduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The all-reduce as the reference's ring schedules it (reduce-scatter
+    then all-gather, one chunk a hop to the next rank): equal to
+    ``psum`` up to the order of each chunk's additions, which is the
+    reference's."""
+    _check(parts, "ring_all_reduce")
+    n = len(parts)
+    if n == 1:
+        return [parts[0].clone()]
+    shape = parts[0].shape
+    size = parts[0].numel()
+    pad = (-size) % n
+    flat = [torch.nn.functional.pad(p.reshape(-1), (0, pad)).reshape(n, -1)
+            for p in parts]
+    # reduce-scatter: after n - 1 hops rank j holds chunk (j + 1) % n summed
+    for i in range(n - 1):
+        sent = [flat[j][(j - i) % n].clone() for j in range(n)]
+        for r in range(n):
+            tgt = (r - i - 1) % n
+            flat[r][tgt] = flat[r][tgt] + sent[(r - 1) % n].to(
+                flat[r].device)
+    # all-gather: each rank's reduced chunk circulates n - 1 times
+    for i in range(n - 1):
+        sent = [flat[j][(j + 1 - i) % n].clone() for j in range(n)]
+        for r in range(n):
+            flat[r][(r - i) % n] = sent[(r - 1) % n].to(flat[r].device)
+    out = []
+    for f in flat:
+        f = f.reshape(-1)
+        if pad:
+            f = f[:size]
+        out.append(f.reshape(shape))
+    return out
+
+
+def _flatten(tree: Any, leaves: list):
+    """The tree's structure with its tensors replaced by their index in
+    ``leaves`` (appended in order)."""
+    if isinstance(tree, dict):
+        return {k: _flatten(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_flatten(v, leaves) for v in tree)
+    leaves.append(tree)
+    return len(leaves) - 1
+
+
+def _unflatten(struct: Any, leaves: list):
+    if isinstance(struct, dict):
+        return {k: _unflatten(v, leaves) for k, v in struct.items()}
+    if isinstance(struct, (list, tuple)):
+        return type(struct)(_unflatten(v, leaves) for v in struct)
+    return leaves[struct]
+
+
+def bucketed_psum(trees: Sequence[Any], *, n_buckets: int = 4) -> List[Any]:
+    """All-reduce one pytree per rank in ``n_buckets`` groups of leaves,
+    the groups balanced greedily by size (the reference's order); every
+    leaf is ``psum``'s sum in rank order."""
+    if not trees:
+        raise ValueError("bucketed_psum needs one tree per rank, got none")
+    flat = []
+    structs = []
+    for tree in trees:
+        leaves: list = []
+        structs.append(_flatten(tree, leaves))
+        flat.append(leaves)
+    if any(s != structs[0] for s in structs):
+        raise ValueError("bucketed_psum: the ranks' trees differ in "
+                         "structure")
+    leaves0 = flat[0]
+    order = sorted(range(len(leaves0)), key=lambda i: -leaves0[i].numel())
+    buckets = [[] for _ in range(n_buckets)]
+    sizes = [0] * n_buckets
+    for i in order:  # greedy balance
+        b = sizes.index(min(sizes))
+        buckets[b].append(i)
+        sizes[b] += leaves0[i].numel()
+    out = [[None] * len(leaves0) for _ in trees]
+    for idxs in buckets:
+        for i in idxs:
+            for r, reduced in enumerate(psum([f[i] for f in flat])):
+                out[r][i] = reduced
+    return [_unflatten(s, leaves) for s, leaves in zip(structs, out)]

@@ -13,8 +13,13 @@ the group, splits), each CTA streams one chunk of the keys through a
 cp.async ring in the cache's own dtype, its 8 warps each keep
 an online softmax over their share of every stage's keys, and the warps
 merge once per chunk into the split's partial (m, l, acc) in a
-workspace; a combine merges the splits in ascending order,
-o = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30), e_s = exp(m_s - max m)
+workspace (past head dim 384, padded to a multiple of 128, the chunked
+instance: a grid axis over 128-column blocks of O, each stage's K
+streamed in 128-column chunks and then its block of V, the query rows
+whole in shared memory, at most 96 KB of them: ``decode_plan`` takes
+fewer GQA rows a CTA at such head dims); a combine merges the splits in
+ascending order, o = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30),
+e_s = exp(m_s - max m)
 — the partial-softmax merge of the reference's docstring.  The number
 of splits comes from the launcher (``decode_plan``): enough that the
 grid's last wave is nearly full, never an empty chunk.  It reads every
@@ -30,7 +35,8 @@ import torch
 
 from repro_torch.core.resources import Footprint, hbm_cycles
 from repro_torch.kernels import cuda
-from repro_torch.kernels.attention.flash import (_cdiv, check_qkv,
+from repro_torch.kernels.attention.flash import (COL_BLOCK, HEAD_DIMS,
+                                                 _cdiv, check_qkv,
                                                  pad_head_dim,
                                                  require_kernel_operands)
 from repro_torch.kernels.attention.ref import decode_attention_ref
@@ -40,8 +46,10 @@ WARPS = 8            # a CTA's warps, each with its own online softmax
 
 
 def keys_per_warp(d: int, itemsize: int) -> int:
-    """Keys a warp takes of each stage (``DecodeTile::kKeysPerWarp``)."""
-    row = d * itemsize
+    """Keys a warp takes of each stage (``DecodeTile::kKeysPerWarp``;
+    past head dim 384 the chunked instance's, whose units are rows of
+    ``COL_BLOCK`` columns)."""
+    row = (COL_BLOCK if d > HEAD_DIMS[-1] else d) * itemsize
     return 16 if row <= 128 else 8 if row <= 256 else 4
 
 

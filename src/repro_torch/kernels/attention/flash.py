@@ -40,8 +40,12 @@ each CTA one ``COL_BLOCK``-wide column block of V and O (a grid axis): it
 computes the whole S over every column of D and accumulates its own 128
 columns, so O's registers and V's tile stay those of 128 and S is
 computed ``D / 128`` times; the f32 kernel keeps all of O in a CTA of
-256 threads (4 rows a thread), one CTA an SM.  Past 384 the wrappers
-raise.
+256 threads (4 rows a thread), one CTA an SM.  Past 384 any head dim is
+padded to the next multiple of ``COL_BLOCK`` and runs the chunked
+instances (``<0, 128>`` and ``<0>``): D is a runtime count of 128-column
+chunks, each CTA owns one column block of O, and S accumulates over the
+chunks of Q and K as they come through the shared-memory ring (Q is not
+held whole).  No head dim is refused.
 ``bq``/``bk`` are the reference's VMEM block hints: validated, they do
 not shape the launch.
 
@@ -71,6 +75,10 @@ F32_ROWS = 64
 
 
 def f32_tile(d: int) -> tuple:
+    """(keys a K/V tile, key splits of P.V) of the f32 kernel at padded
+    head dim ``d`` (past 384 the chunked instance's)."""
+    if d > HEAD_DIMS[-1]:
+        return (32, 1)
     return (64, 2) if d <= 64 else (32, 1) if d <= 256 else (16, 1)
 
 
@@ -94,8 +102,8 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def require_kernel_operands(q, k, v, item: int) -> None:
-    """Dtype, head-dim, device and alignment checks before a launch;
-    ``item`` is the kernel's ROADMAP queue 2 item."""
+    """Dtype, device and alignment checks before a launch (any head dim
+    runs); ``item`` is the kernel's ROADMAP queue 2 item."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in KERNEL_DTYPES or t.dtype != q.dtype:
             raise TypeError(
@@ -108,17 +116,16 @@ def require_kernel_operands(q, k, v, item: int) -> None:
                              f"{t.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    padded_head_dim(q.shape[3])
 
 
 def padded_head_dim(d: int) -> int:
     """The head dim the kernels run for a head dim ``d``: the smallest
-    of ``HEAD_DIMS`` at least ``d``."""
+    of ``HEAD_DIMS`` at least ``d``, past the last the next multiple of
+    ``COL_BLOCK`` (the chunked instances)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"head dim {d} has no CUDA attention kernel (at most "
-                     f"{HEAD_DIMS[-1]}; ROADMAP queue 3)")
+    return _cdiv(d, COL_BLOCK) * COL_BLOCK
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

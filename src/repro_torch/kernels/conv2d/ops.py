@@ -6,12 +6,15 @@ the paper's "automatic adaptation to the available resources".
 ``ladder=`` (e.g. ``(16, 8)``) lets the planner lower the call's operand
 width; a lowered plan executes through
 ``repro_torch.quant.ops.quantized_conv2d`` and still returns float.
-``reduce_axis=`` (mesh execution) is a later slice and raises
-``NotImplementedError`` naming its ROADMAP item.
+``reduce_axis=`` / ``reduce=`` are the channel-split hook of mesh
+execution (``distributed/shard_exec.py``): under the single controller
+each call sees one device's block of input channels and returns its
+partial sum, and the executor reduces the devices' partials with
+``reduce_partials``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -23,20 +26,41 @@ from repro_torch.kernels.conv2d.ip4_dual import conv2d_ip4
 
 _SINGLE = {"ip1_vpu": conv2d_ip1, "ip2_mxu": conv2d_ip2}
 _DUAL = {"ip3_packed": conv2d_ip3, "ip4_dual": conv2d_ip4}
+REDUCES = ("psum", "ring")
+
+
+def _check_reduce(reduce: str) -> None:
+    if reduce not in REDUCES:
+        raise ValueError(f"unknown reduce {reduce!r}; have ('psum', 'ring')")
+
+
+def reduce_partials(parts: Sequence[torch.Tensor],
+                    reduce: str = "psum") -> List[torch.Tensor]:
+    """The channel split's all-reduce: the devices' partial outputs (one
+    per rank, on its device) summed into the full output on every rank.
+    ``reduce="psum"`` sums in rank order; ``"ring"`` follows the
+    reference's ring schedule (``distributed/collectives.py``)."""
+    _check_reduce(reduce)
+    from repro_torch.distributed.collectives import psum, ring_all_reduce
+    return (ring_all_reduce if reduce == "ring" else psum)(parts)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, ip: Optional[str] = None,
            budget: Optional[ResourceBudget] = None, ladder=(),
-           reduce_axis: Optional[str] = None,
+           reduce_axis: Optional[str] = None, reduce: str = "psum",
            **tile_kwargs) -> torch.Tensor:
     """Single-stream convolution through a selected IP (Conv1/Conv2).
 
     ``tile_kwargs`` (``block_cout=``) forward to the member's kernel.
+
+    ``reduce_axis=`` names the mesh axis this call's input channels are
+    split across: the result is then this device's partial sum, which
+    the caller reduces across the devices with ``reduce_partials(parts,
+    reduce)`` (``reduce=`` is ``"psum"`` or ``"ring"``, checked here as
+    the reference checks it).
     """
     if reduce_axis is not None:
-        raise NotImplementedError(
-            "channel-split reduction is mesh execution (ROADMAP queue 1, "
-            "item 9)")
+        _check_reduce(reduce)
     if ip is None:
         from repro_torch.core.ip import SiteSpec
         from repro_torch.core.plan import plan_single

@@ -57,6 +57,13 @@
 //   threads), so a thread's O is 4 rows x D / 16 dims; K/V tiles of 32
 //   keys (16 at D = 384) keep Q, P and two stages within 208 KB, one
 //   CTA of 8 warps an SM.  Each CTA computes S once for all of O.
+//   Past 384 (flash_attention_kernel<0>, D a runtime multiple of 128):
+//   neither Q nor all of O fits, so each CTA of 256 threads owns 64
+//   query rows and one 128-column block of O (a grid axis), and Q and K
+//   come through a two-stage ring a 128-column chunk at a time (Q's
+//   chunk re-read from L2 once a key tile, scaled in shared memory by
+//   the thread that copied it); each score is still one FMA chain over
+//   d = 0 .. D - 1, so S is computed once a column block.
 //
 // flash_decode_split_kernel<T, D, GP> + decode_combine_kernel<T>
 //   replace src/repro/kernels/attention/decode.py::flash_decode
@@ -76,12 +83,18 @@
 //   in every phase: each owns a slice of a stage's keys (kLanesPerKey
 //   lanes a key for the scores, then the key's lanes' sums), keeps its
 //   own online softmax (m, l) and its acc[GP][D] spread over its lanes
-//   by dim, and the 8 warps' states merge once at the end of the chunk.  Each split
+//   by dim, and the 8 warps' states merge once at the end of the chunk.
+//   Past head dim 384 (<T, 0, GP>) a CTA owns one 128-column block of O
+//   (a grid axis) and each stage of keys streams as 128-column units of
+//   K, then its block of V (DecodeChunked); the query rows stay whole in
+//   shared memory (decode_plan takes fewer GQA rows a CTA where they
+//   would pass 96 KB).  Each split
 //   writes its partial (m, l, acc) to a workspace the wrapper allocates;
 //   decode_combine_kernel merges the splits in ascending order.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "cnn_device.cuh"
 #include "tc_device.cuh"
@@ -226,7 +239,7 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int Hq, int Hkv, int Sq, int Skv, int causal,
-                       float scale) {
+                       float scale, int /*width: D*/) {
   using Tile = FlashTile<D>;
   constexpr int RT = Tile::RT, KT = Tile::KT, DT = Tile::DT;
   constexpr int BK = Tile::kKeys, QLD = Tile::kQLD, PLD = Tile::kPLD;
@@ -461,6 +474,241 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
+// The chunked instance (D = 0: head dims past 384, a multiple of 128 at
+// run time): a CTA of 16 row groups x 16 column groups owns 64 query rows
+// and one 128-column block of O.  S needs every column of D, so Q and K
+// come through the ring a 128-column chunk at a time (Q's chunk re-read
+// from L2 once a key tile); V's 128 columns of the tile come with the
+// tile's last chunk.  Two stages of (Q chunk, K chunk) and one V tile:
+// 141 KB, one CTA of 8 warps an SM.
+template <> struct FlashTile<0> {
+  static constexpr int kW = 128;                    // chunk, column block
+  static constexpr int kCG = 16, kRG = 16, RT = 4, kKeys = 32, kKS = 1;
+  static constexpr int kCtasPerSm = 1, kStages = 2;
+  static constexpr int kRows = kRG * RT, kThreads = kRG * kCG;
+  static constexpr int KT = kKeys / kCG, DG = kCG, DT = kW / DG;
+  static constexpr int kSplit = kKeys, kQLD = kW + 4, kPLD = kKeys + 4;
+  static constexpr int kQ = kRows * kQLD, kK = kKeys * kQLD;
+  static constexpr int kV = kKeys * kW, kP = kRows * kPLD;
+  static constexpr int kStage = kQ + kK;            // a chunk of Q, of K
+  static constexpr size_t kSmem =
+      size_t(kStages * kStage + kV + kP) * sizeof(float);
+  static constexpr int kRowChunks = kW / 4;
+  static constexpr int kCopyRows = kThreads / kRowChunks;
+  static_assert(kRows % kCopyRows == 0 && kKeys % kCopyRows == 0,
+                "whole 16-byte copies a thread");
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+};
+
+// flash_attention_kernel<0>: D (a multiple of 128, at least 256) is
+// `width`.  The same arithmetic as the other instances, in the same order:
+// each score is one FMA chain over d = 0 .. D - 1 (the chunks in order),
+// then the base-2 online softmax step and O += P.V over the tile's keys.
+// Unit u = tile * nc + chunk; its copies are in flight while unit u - 1
+// computes, one barrier a unit.  Needs nc >= 2: V of tile t lands with
+// unit (t, nc - 1), whose copies start after the barrier of unit (t, nc
+// - 2), when every thread has done tile t - 1's P.V.
+template <>
+__global__ void __launch_bounds__(FlashTile<0>::kThreads,
+                                  FlashTile<0>::kCtasPerSm)
+flash_attention_kernel<0>(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          int Hq, int Hkv, int Sq, int Skv, int causal,
+                          float scale, int width) {
+  using Tile = FlashTile<0>;
+  constexpr int RT = Tile::RT, KT = Tile::KT, DT = Tile::DT, W = Tile::kW;
+  constexpr int BK = Tile::kKeys, QLD = Tile::kQLD, PLD = Tile::kPLD;
+  constexpr int CG = Tile::kCG, RG = Tile::kRG, DG = Tile::DG;
+  constexpr int CR = Tile::kCopyRows;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // 2 x (Q, K chunks)
+  float* vs = ring + Tile::kStages * Tile::kStage;   // [BK][W]
+  float* ps = vs + Tile::kV;                     // [kRows][PLD]
+  const int D = width, nc = D / W;
+  const int t = threadIdx.x, rg = t / CG, cg = t % CG, dg = cg;
+  const int cb = blockIdx.x % nc;                // column block of O
+  const int bh = blockIdx.x / nc;                // b * Hq + h
+  const int col0 = cb * W;
+  const int group = Hq / Hkv;
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Tile::kRows;
+  const int offs = Skv - Sq;
+  const int kv_end = causal ? min(Skv, q0 + Tile::kRows + offs) : Skv;
+  const int tiles = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+  const int units = tiles * nc;
+  const int cr = t / Tile::kRowChunks, cd = 4 * (t % Tile::kRowChunks);
+  const float* qt = q + (size_t(bh) * Sq + q0 + cr) * D + cd;
+  const float* kt = k + (size_t(kvh) * Skv + cr) * D + cd;
+  const float* vt = v + (size_t(kvh) * Skv + cr) * D + col0 + cd;
+
+  // unit u: columns [W c, W c + W) of the Q block and of K tile `tile`
+  // into stage u % 2, and with the tile's last chunk its V columns; rows
+  // at or past Sq / Skv zero-filled
+  auto stage = [&](int u) {
+    const int tile = u / nc, c = u % nc, k0 = tile * BK;
+    float* st = ring + (u % Tile::kStages) * Tile::kStage;
+    const uint32_t sq_ = tc::smem_u32(st + cr * QLD + cd);
+    const uint32_t sk_ = tc::smem_u32(st + Tile::kQ + cr * QLD + cd);
+#pragma unroll
+    for (int r = 0; r < Tile::kRows / CR; ++r) {
+      const bool ok = q0 + cr + CR * r < Sq;
+      tc::cp_async16(sq_ + CR * r * QLD * 4,
+                     ok ? qt + size_t(CR * r) * D + c * W : q, ok);
+    }
+#pragma unroll
+    for (int r = 0; r < BK / CR; ++r) {
+      const bool ok = k0 + cr + CR * r < Skv;
+      tc::cp_async16(sk_ + CR * r * QLD * 4,
+                     ok ? kt + size_t(k0 + CR * r) * D + c * W : k, ok);
+    }
+    if (c == nc - 1) {
+      const uint32_t sv_ = tc::smem_u32(vs + cr * W + cd);
+#pragma unroll
+      for (int r = 0; r < BK / CR; ++r) {
+        const bool ok = k0 + cr + CR * r < Skv;
+        tc::cp_async16(sv_ + CR * r * W * 4,
+                       ok ? vt + size_t(k0 + CR * r) * D : v, ok);
+      }
+    }
+  };
+  if (units > 0) stage(0);
+  tc::cp_async_commit();
+
+  float m[RT], l[RT], acc[RT][DT], s[RT][KT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DT; ++e) acc[i][e] = 0.f;
+  }
+  for (int u = 0; u < units; ++u) {
+    const int tile = u / nc, c = u % nc, k0 = tile * BK;
+    float* qs = ring + (u % Tile::kStages) * Tile::kStage;
+    const float* ks_ = qs + Tile::kQ;
+    tc::cp_async_wait<0>();
+    // this thread's own copies of the Q chunk landed: scale them
+#pragma unroll
+    for (int r = 0; r < Tile::kRows / CR; ++r) {
+      float4* p = reinterpret_cast<float4*>(qs + (cr + CR * r) * QLD + cd);
+      const float4 x = *p;
+      *p = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                       __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+    }
+    __syncthreads();        // the unit landed and is scaled; unit u - 1 done
+    if (u + 1 < units) stage(u + 1);
+    tc::cp_async_commit();
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int j = 0; j < KT; ++j) s[i][j] = 0.f;
+      }
+    }
+    // S += Q_c . K_c^T: each score's FMA chain goes on over this chunk
+#pragma unroll 8
+    for (int d = 0; d < W; d += 4) {
+      float4 qv[RT], kv[KT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(qs + (rg + RG * i) * QLD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        kv[j] = *reinterpret_cast<const float4*>(ks_ + (cg + CG * j) * QLD + d);
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          s[i][j] = __fmaf_rn(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = __fmaf_rn(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = __fmaf_rn(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = __fmaf_rn(qv[i].w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+    if (c != nc - 1) continue;
+    // the tile's scores are whole: mask, softmax step, O += P.V
+    if (k0 + BK > Skv || (causal && k0 + BK - 1 > q0 + offs)) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int qi = q0 + rg + RG * i;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          const int kp = k0 + cg + CG * j;
+          if (kp >= Skv || (causal && kp > qi + offs)) s[i][j] = kMasked;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < KT; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int x = 1; x < CG; x <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      }
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = ex2(__fmul_rn(__fsub_rn(m[i], m_new), kLog2e));
+      const float mc = __fmul_rn(m_new, kLog2e);
+      m[i] = m_new;
+      l[i] = __fmul_rn(l[i], alpha);
+#pragma unroll
+      for (int e = 0; e < DT; ++e) acc[i][e] = __fmul_rn(acc[i][e], alpha);
+      float* prow = ps + (rg + RG * i) * PLD;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float p = ex2(__fmaf_rn(s[i][j], kLog2e, -mc));
+        l[i] = __fadd_rn(l[i], p);
+        prow[cg + CG * j] = p;
+      }
+    }
+    __syncwarp();           // P of a row group is its own warp's
+#pragma unroll 2
+    for (int j = 0; j < BK; j += 4) {
+      float4 pv[RT];
+      float vv[4][DT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        pv[i] = *reinterpret_cast<const float4*>(ps + (rg + RG * i) * PLD + j);
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x) load_dims<DG, DT>(vs + (j + x) * W, dg, vv[x]);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int e = 0; e < DT; ++e) {
+          acc[i][e] = __fmaf_rn(pv[i].x, vv[0][e], acc[i][e]);
+          acc[i][e] = __fmaf_rn(pv[i].y, vv[1][e], acc[i][e]);
+          acc[i][e] = __fmaf_rn(pv[i].z, vv[2][e], acc[i][e]);
+          acc[i][e] = __fmaf_rn(pv[i].w, vv[3][e], acc[i][e]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+#pragma unroll
+    for (int x = 1; x < CG; x <<= 1) {
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], x));
+    }
+    const int qi = q0 + rg + RG * i;
+    if (qi >= Sq) continue;
+    const bool sees_a_key = !causal || qi + offs >= 0;
+    const float norm = fmaxf(l[i], kMinNorm);
+    float* orow = o + (size_t(bh) * Sq + qi) * D + col0;
+#pragma unroll
+    for (int e = 0; e < DT; ++e) {
+      orow[dims_of<DG, DT>(dg, e)] =
+          sees_a_key ? __fdiv_rn(acc[i][e], norm) : 0.f;
+    }
+  }
+}
+
 // The cp.async ring's depth and the CTAs an SM that the register cap
 // allows: at up to 4 GQA rows a CTA, two stages and three CTAs an SM; at
 // 8 rows (twice the registers) three stages and two CTAs.  Past head dim
@@ -470,7 +718,8 @@ template <typename T, int D, int GP> struct DecodeDepth {
   static constexpr int kStageBytes = 64 * D * int(sizeof(T));
   static constexpr int kStages =
       D > 128 ? (3 * kStageBytes <= 160 * 1024 ? 3 : 2) : GP <= 4 ? 2 : 3;
-  static constexpr int kCtasPerSm = D > 128 ? 1 : GP <= 4 ? 3 : 2;
+  static constexpr int kCtasPerSm =                 // D = 0: chunked
+      D == 0 ? (GP <= 4 ? 2 : 1) : D > 128 ? 1 : GP <= 4 ? 3 : 2;
 };
 
 // The split-KV decode tile of a head dim and dtype: a warp takes
@@ -579,12 +828,10 @@ __device__ __forceinline__ void load_probs(const float* p, float (&v)[GP]) {
 // warps' states are merged once at the end into the split's partial
 // (m, l, acc[GP][D]) in the workspace.
 template <typename T, int D, int GP>
-__global__ void __launch_bounds__(kDecThreads,
-                                  DecodeDepth<T, D, GP>::kCtasPerSm)
-flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, float* __restrict__ ws,
-                          int group, int rowblocks, int Skv, int chunk,
-                          float scale) {
+__device__ __forceinline__ void decode_split(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    float* __restrict__ ws, int group, int rowblocks, int Skv, int chunk,
+    float scale) {
   using Tile = DecodeTile<T, D>;
   constexpr int KPW = Tile::kKeysPerWarp, LPK = Tile::kLanesPerKey;
   constexpr int NC = Tile::kChunks, NV = Tile::kVals, ND = Tile::kDims;
@@ -761,6 +1008,231 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The chunked decode (D = 0: head dims past 384, a multiple of 128 at run
+// time, `width`): a CTA owns one 128-column block of O (a grid axis: the
+// blocks of one row block and split launch side by side) of GP rows of a
+// kv head's GQA group against one chunk of the keys.  A stage's scores
+// need every column of D: its keys stream through the ring as nc
+// 128-column units of K, then one unit of V's 128 columns, each unit
+// kTile rows of DecodeTile<T, 128> (16 KB); the scaled query rows (GP x D
+// floats) stay in shared memory.  Each lane's partial score goes on over
+// the chunks in order, so it is the same FMA chain over its 16-byte
+// chunks of the row as the other instances'; the softmax step runs once
+// a stage is scored, P.V once its V unit lands.  Every column block
+// computes the same m and l; block 0 writes them to the workspace.
+template <typename T> struct DecodeChunked {
+  using Tile = DecodeTile<T, 128>;
+  static constexpr int kW = 128;
+  static constexpr int kUnitBytes = Tile::kTile * Tile::kRowBytes;
+  static constexpr int kUnits = 4;                 // ring depth
+  static constexpr int kRing = kUnits * kUnitBytes;
+  template <int GP> static size_t smem(int d) {
+    return size_t(kRing) +
+           sizeof(float) * (size_t(GP) * d + kDecWarps * Tile::kKeysPerWarp * GP);
+  }
+};
+
+template <typename T, int GP>
+__device__ __forceinline__ void decode_chunked(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    float* __restrict__ ws, int group, int rowblocks, int Skv, int chunk,
+    float scale, int D) {
+  using DC = DecodeChunked<T>;
+  using Tile = typename DC::Tile;
+  constexpr int KPW = Tile::kKeysPerWarp, LPK = Tile::kLanesPerKey;
+  constexpr int NC = Tile::kChunks, NV = Tile::kVals, ND = Tile::kDims;
+  constexpr int W = DC::kW, kUnits = DC::kUnits;
+  static_assert(ND == 4 && W / 32 == ND, "a lane's 4 dims of the block");
+  static_assert(sizeof(float) * kDecWarps * GP * (W + 2) <= DC::kRing,
+                "decode merge scratch exceeds the ring");
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem + DC::kRing);   // [GP][D]
+  float* pbuf = qs + GP * D;                   // [warp][key][GP]
+  const int nc = D / W;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int cb = blockIdx.x % nc, rbx = blockIdx.x / nc;
+  const int col0 = cb * W;
+  const int hk = rbx / rowblocks, row0 = (rbx % rowblocks) * GP;
+  const int rows = min(GP, group - row0);
+  const int k0 = blockIdx.y * chunk, k1 = min(k0 + chunk, Skv);
+  const T* qh = q + (size_t(hk) * group + row0) * D;
+  for (int e = tid; e < GP * D; e += kDecThreads) {
+    qs[e] = e < rows * D ? __fmul_rn(widen<float>(qh[e]), scale) : 0.f;
+  }
+  const T* kh = k + size_t(hk) * Skv * D;
+  const T* vh = v + size_t(hk) * Skv * D + col0;
+  const int ntiles = (k1 - k0 + Tile::kTile - 1) / Tile::kTile;
+  const int units = ntiles * (nc + 1);         // nc K units, then V
+  const uint32_t ring = tc::smem_u32(smem);
+
+  auto load = [&](int slot, int u) {
+    const int tile = u / (nc + 1), c = u % (nc + 1);
+    const int base = k0 + tile * Tile::kTile;
+    const T* src0 = c < nc ? kh + c * W : vh;
+    const uint32_t dst = ring + slot * DC::kUnitBytes;
+    for (int e = tid; e < Tile::kTile * NC; e += kDecThreads) {
+      const int row = e / NC, ch = e % NC, key = base + row;
+      const bool ok = key < k1;
+      tc::cp_async16(dst + row * Tile::kRowBytes +
+                         ((ch ^ Tile::swizzle(row)) << 4),
+                     src0 + (ok ? size_t(key) * D + ch * NV : 0), ok);
+    }
+  };
+
+  float m[GP], l[GP], acc[GP][ND], sc[GP];
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    m[g] = kMasked;
+    l[g] = 0.f;
+    sc[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < ND; ++e) acc[g][e] = 0.f;
+  }
+  const int key_l = lane / LPK, part = lane % LPK;
+  const int row = warp * KPW + key_l;          // this lane's key in a unit
+  float* pw = pbuf + warp * KPW * GP;
+  const int d0 = lane * ND;                    // this lane's P.V dims
+  const int vchunk = (d0 * int(sizeof(T))) >> 4;
+  const int vbyte = (d0 * int(sizeof(T))) & 15;
+#pragma unroll
+  for (int s = 0; s < kUnits - 1; ++s) {
+    if (s < units) load(s, s);
+    tc::cp_async_commit();
+  }
+  for (int u = 0; u < units; ++u) {
+    tc::cp_async_wait<kUnits - 2>();
+    __syncthreads();                           // the unit landed for all;
+    const int pre = u + kUnits - 1;            // the one read last is free
+    if (pre < units) load(pre % kUnits, pre);
+    tc::cp_async_commit();
+    const int tile = u / (nc + 1), c = u % (nc + 1);
+    const uint8_t* us = smem + (u % kUnits) * DC::kUnitBytes;
+    if (c < nc) {
+      // this lane's partial scores over chunk c of its key's row
+      const uint8_t* kr = us + row * Tile::kRowBytes;
+#pragma unroll
+      for (int st = 0; st < NC / LPK; ++st) {
+        const int ch = st * LPK + part;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            kr + ((ch ^ Tile::swizzle(row)) << 4));
+        float kv[NV];
+        widen_chunk(raw, kv);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          const float* qr = qs + g * D + c * W + ch * NV;
+#pragma unroll
+          for (int e = 0; e < NV; e += 4) {
+            const float4 qq = *reinterpret_cast<const float4*>(qr + e);
+            sc[g] = __fmaf_rn(qq.x, kv[e], sc[g]);
+            sc[g] = __fmaf_rn(qq.y, kv[e + 1], sc[g]);
+            sc[g] = __fmaf_rn(qq.z, kv[e + 2], sc[g]);
+            sc[g] = __fmaf_rn(qq.w, kv[e + 3], sc[g]);
+          }
+        }
+      }
+      if (c < nc - 1) continue;
+      // the stage is scored: the key's lanes summed, the softmax step
+      const bool valid = k0 + tile * Tile::kTile + row < k1;
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+#pragma unroll
+        for (int x = 1; x < LPK; x <<= 1) {
+          sc[g] = __fadd_rn(sc[g], __shfl_xor_sync(0xffffffffu, sc[g], x));
+        }
+        float tile_max = valid ? sc[g] : kMasked;
+#pragma unroll
+        for (int x = LPK; x < 32; x <<= 1) {
+          tile_max = vmax(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, x));
+        }
+        const float alpha = online_softmax_step(m[g], l[g], tile_max);
+        const float p = valid ? expf(__fsub_rn(sc[g], m[g])) : 0.f;
+        float psum = p;
+#pragma unroll
+        for (int x = LPK; x < 32; x <<= 1) {
+          psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, x));
+        }
+        l[g] = __fadd_rn(l[g], psum);
+        if (part == 0) pw[key_l * GP + g] = p;
+#pragma unroll
+        for (int e = 0; e < ND; ++e) acc[g][e] = __fmul_rn(acc[g][e], alpha);
+        sc[g] = 0.f;
+      }
+      __syncwarp();
+      continue;
+    }
+    // the V unit: O += P.V over this warp's keys, 4 dims a lane
+#pragma unroll 4
+    for (int kk = 0; kk < KPW; ++kk) {
+      const int vrow = warp * KPW + kk;
+      float vv[ND];
+      load_widened<T, ND>(us + vrow * Tile::kRowBytes +
+                              ((vchunk ^ Tile::swizzle(vrow)) << 4) + vbyte,
+                          vv);
+      float pk[GP];
+      load_probs(pw + kk * GP, pk);
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+#pragma unroll
+        for (int e = 0; e < ND; ++e) acc[g][e] = __fmaf_rn(pk[g], vv[e], acc[g][e]);
+      }
+    }
+    __syncwarp();                              // pw is rewritten next stage
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  // merge the warps' states in ascending warp order (the ring is free)
+  float* mw = reinterpret_cast<float*>(smem);  // [warp][GP]
+  float* lw = mw + kDecWarps * GP;
+  float* aw = lw + kDecWarps * GP;             // [warp][GP][W]
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      mw[warp * GP + g] = m[g];
+      lw[warp * GP + g] = l[g];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+#pragma unroll
+    for (int e = 0; e < ND; ++e) aw[(warp * GP + g) * W + d0 + e] = acc[g][e];
+  }
+  __syncthreads();
+  float* out = ws + (size_t(rbx) * gridDim.y + blockIdx.y) * GP * (D + 2);
+  for (int e = tid; e < GP * W; e += kDecThreads) {
+    const int g = e / W, d = e % W;
+    float mx = kMasked;
+    for (int w = 0; w < kDecWarps; ++w) mx = vmax(mx, mw[w * GP + g]);
+    float a = 0.f, ls = 0.f;
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float f = expf(__fsub_rn(mw[w * GP + g], mx));
+      a = __fmaf_rn(f, aw[(w * GP + g) * W + d], a);
+      ls = __fmaf_rn(f, lw[w * GP + g], ls);
+    }
+    out[2 * GP + g * D + col0 + d] = a;
+    if (d == 0 && cb == 0) {
+      out[g] = mx;
+      out[GP + g] = ls;
+    }
+  }
+}
+
+// The split kernel: head dims up to 384 on their instance (decode_split),
+// past 384 on the chunked one (D = 0, width the padded head dim).
+template <typename T, int D, int GP>
+__global__ void __launch_bounds__(kDecThreads,
+                                  DecodeDepth<T, D, GP>::kCtasPerSm)
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, float* __restrict__ ws,
+                          int group, int rowblocks, int Skv, int chunk,
+                          float scale, int width) {
+  if constexpr (D == 0) {
+    decode_chunked<T, GP>(q, k, v, ws, group, rowblocks, Skv, chunk, scale,
+                          width);
+  } else {
+    decode_split<T, D, GP>(q, k, v, ws, group, rowblocks, Skv, chunk, scale);
+  }
+}
+
 // The splits' partials of one output element merged in ascending split
 // order, o = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30) with
 // e_s = exp(m_s - max_s m_s), narrowed to T.
@@ -794,7 +1266,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ ws,
 template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
-                 cudaStream_t st) {
+                 cudaStream_t st, int width = D) {
   using Tile = FlashTile<D>;
   auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -803,10 +1275,16 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
     cudaGetLastError();
     return int(err);
   }
-  dim3 grid(B * Hq, (Sq + Tile::kRows - 1) / Tile::kRows);
+  // chunked (D = 0): a CTA a 128-column block of O, the blocks of one
+  // (head, query block) side by side
+  if (D == 0 && (width % 128 != 0 || width < 256)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const int ncb = D == 0 ? width / 128 : 1;
+  dim3 grid(B * Hq * ncb, (Sq + Tile::kRows - 1) / Tile::kRows);
   kernel<<<grid, Tile::kThreads, Tile::kSmem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Hq, Hkv,
-      Sq, Skv, causal, scale);
+      Sq, Skv, causal, scale, width);
   return int(cudaGetLastError());
 }
 
@@ -834,6 +1312,10 @@ inline DecodePlan decode_plan(int B, int Hq, int Hkv, int Skv, int D,
                               int splits) {
   DecodePlan p{B, Hq, Hkv, Skv, D, Hkv > 0 ? Hq / Hkv : 0, 1, 1, splits};
   while (p.gp < p.group && p.gp < kDecRows) p.gp *= 2;
+  // past 384 the query rows stay whole in shared memory: at most 96 KB
+  while (D > 384 && p.gp > 1 && size_t(p.gp) * D * sizeof(float) > 96 * 1024) {
+    p.gp /= 2;
+  }
   p.rowblocks = (p.group + p.gp - 1) / p.gp;
   return p;
 }
@@ -845,9 +1327,16 @@ template <typename T, int D, int GP>
 int decode_instance(const DecodePlan& p, const void* q, const void* k,
                     const void* v, void* o, float* ws, float scale,
                     cudaStream_t st, int* splits, int* resident) {
-  using Tile = DecodeTile<T, D>;
+  using Tile = std::conditional_t<D == 0, DecodeTile<T, 128>,
+                                  DecodeTile<T, D>>;
   auto kernel = flash_decode_split_kernel<T, D, GP>;
-  const size_t bytes = decode_smem<T, D, GP>();
+  size_t bytes;
+  if constexpr (D == 0) {
+    bytes = DecodeChunked<T>::template smem<GP>(p.D);
+  } else {
+    bytes = decode_smem<T, D, GP>();
+  }
+  const int ncb = D == 0 ? p.D / 128 : 1;      // column blocks of O
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) {
@@ -874,7 +1363,7 @@ int decode_instance(const DecodePlan& p, const void* q, const void* k,
     int best = 1;
     double best_fill = 0.0;
     for (int s = 1; s <= most; ++s) {
-      const long long n = (long long)ctas * s;
+      const long long n = (long long)ctas * ncb * s;
       const double fill = double(n) / double((n + slots - 1) / slots * slots);
       if (fill > best_fill) {
         best = s;
@@ -894,14 +1383,14 @@ int decode_instance(const DecodePlan& p, const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   }
   const int chunk = decode_chunk(p.Skv, p.splits, Tile::kTile);
-  kernel<<<dim3(ctas, p.splits), kDecThreads, bytes, st>>>(
+  kernel<<<dim3(ctas * ncb, p.splits), kDecThreads, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, ws, p.group, p.rowblocks, p.Skv,
-      chunk, scale);
+      chunk, scale, p.D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const long long total = (long long)p.B * p.Hq * D;
+  const long long total = (long long)p.B * p.Hq * p.D;
   decode_combine_kernel<T><<<unsigned((total + 255) / 256), 256, 0, st>>>(
-      ws, (T*)o, D, GP, p.group, p.rowblocks, p.splits, total);
+      ws, (T*)o, p.D, GP, p.group, p.rowblocks, p.splits, total);
   return int(cudaGetLastError());
 }
 
@@ -939,7 +1428,9 @@ int flash_by_dim(const void* q, const void* k, const void* v, void* o, int B,
     case 384: return launch_flash<384>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
                                        causal, scale, st);
   }
-  return int(cudaErrorInvalidValue);
+  // past 384: the chunked instance (D a multiple of 128)
+  return launch_flash<0>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, st,
+                         D);
 }
 
 template <typename T>
@@ -959,6 +1450,10 @@ int decode_by_dim(const DecodePlan& p, const void* q, const void* k,
                                          splits, resident);
     case 384: return decode_rows<T, 384>(p, q, k, v, o, ws, scale, st,
                                          splits, resident);
+  }
+  if (p.D > 384 && p.D % 128 == 0) {           // the chunked instance
+    return decode_rows<T, 0>(p, q, k, v, o, ws, scale, st, splits,
+                             resident);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -66,6 +66,19 @@
 //   operations a visible pair, against the function's 4 D.  DP = 256:
 //   Q 64 KB, 64-key K tiles of 32 KB and V halves of 16 KB, 3 stages,
 //   209 KB; DP = 384: Q 96 KB, K tiles of 48 KB, 2 stages, 225 KB.
+// - Head dims past 384 (attn_tc_flash_kernel<0, 128>, the chunked
+//   instance; the wrapper zero-pads D to a multiple of 128): the whole Q
+//   no longer fits beside two K stages, so D is a runtime count of
+//   128-column chunks.  Each CTA keeps one 128-column block of O and V,
+//   as at 256 and 384.  A stage of the ring holds one chunk of Q (its
+//   128 rows, 32 KB) and the same chunk of a K tile (16 KB), 3 stages; V
+//   has a ring of its own (2 x 16 KB), 177 KB in all.  S = Q.K^T
+//   accumulates over the chunks: the wgmma k-steps of each chunk add into
+//   the same S registers, and a chunk's stage is released as soon as its
+//   products are done.  Q is re-read (from L2) once a key tile.  The
+//   warpgroups take no turns here: each waits on every chunk of a tile,
+//   and a turn held across those waits would stall the other warpgroup
+//   on a stage they share.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -182,10 +195,10 @@ __device__ __forceinline__ void turn_pass(int wg) {
 // Stage rows row0 .. row0 + ROWS - 1 of COLS columns of one head's
 // (S, ld) slice as 64-column blocks of ROWS swizzled 128-byte rows; rows
 // at or past S and columns at or past D are zero-filled.  Thread t of
-// the producer.  Rows wider than 128 columns are copied in a rolled
-// loop: unrolled, their 16-48 copies' addresses outgrow the kernel's
-// 168 registers (ptxas spilled up to 1 KB).
-template <int COLS, int ROWS>
+// the producer.  Rows wider than 128 columns (or ROLL) are copied in a
+// rolled loop: unrolled, their 16-48 copies' addresses outgrow the
+// kernel's 168 registers (ptxas spilled up to 1 KB).
+template <int COLS, int ROWS, bool ROLL = (COLS > 128)>
 __device__ __forceinline__ void stage_rows(uint32_t dst,
                                            const __nv_bfloat16* src, int row0,
                                            int S, int D, int ld, int t) {
@@ -197,7 +210,7 @@ __device__ __forceinline__ void stage_rows(uint32_t dst,
     cp_async16(dst + (c >> 3) * (ROWS * kSwizzleRow) + swizzled(r, c & 7),
                ok ? src + size_t(gr) * ld + c * 8 : src, ok);
   };
-  if constexpr (COLS <= 128) {
+  if constexpr (!ROLL) {
 #pragma unroll
     for (int j = 0; j < ROWS * kChunks / 128; ++j) copy(j);
   } else {
@@ -474,12 +487,279 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return int(cudaGetLastError());
 }
 
+// The chunked instance (head dims past 384, D a runtime multiple of 128):
+// a stage of the ring holds one 128-column chunk of Q (all 128 rows) and
+// the same chunk of a 64-key K tile; V's tile of the CTA's column block
+// has a ring of its own.
+struct ChunkCfg {
+  static constexpr int kBk = 64, kStages = 3, kVStages = 2;
+  static constexpr int kQBlock = kRows * kSwizzleRow;    // a 64-column block
+  static constexpr int kKVBlock = kBk * kSwizzleRow;
+  static constexpr int kQBytes = 2 * kQBlock;            // 32 KB
+  static constexpr int kKBytes = 2 * kKVBlock;           // 16 KB
+  static constexpr int kVBytes = 2 * kKVBlock;           // 16 KB
+  static constexpr int kStageBytes = kQBytes + kKBytes;
+  static constexpr int kSmem =
+      kStages * kStageBytes + kVStages * kVBytes + 1024;
+  static_assert(kSmem <= 227 * 1024 - 64, "a block's shared memory");
+};
+
+// attn_tc_flash_kernel<0, 128>: the same CTA (b * Hkv + kv head, query
+// block, column block of O), warpgroups, masks, softmax and P.V as the
+// other instances; S(j) is accumulated over the D / 128 chunks of Q and
+// K(j) as they come through the ring.  The warpgroups take no turns:
+// each waits on every chunk of a tile, and a turn held across those waits
+// would stall the other warpgroup on a stage they share.  An explicit
+// specialization, not branches of the template: folded into it, the
+// chunked path spilled 372 bytes and moved the other instances' register
+// allocation (4 more bytes spilled in the 64- and 128-wide ones).
+template <>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_tc_flash_kernel<0, 128>(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
+                             int Sq, int Skv, int D, int causal,
+                             float scale) {
+  using C = ChunkCfg;
+  constexpr int kBk = C::kBk, kStages = C::kStages, kVStages = C::kVStages;
+  constexpr int DV = 128;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t k_full[kStages], empty[kStages], v_full[kVStages],
+      v_empty[kVStages];
+  const uint32_t stages = (smem_u32(smem_raw) + 1023) & ~uint32_t(1023);
+  const uint32_t vring = stages + kStages * C::kStageBytes;
+  const int nc = D / 128;                       // chunks, column blocks
+  const int group = Hq / Hkv;
+  const int cb = blockIdx.x % nc;               // column block of O
+  const int xq = blockIdx.x / nc;
+  const int col0 = cb * DV;
+  const int kvh = blockIdx.y;                   // b * Hkv + kv head
+  const int bh = kvh * group + xq % group;      // b * Hq + q head
+  const int nqb = gridDim.x / nc / group;
+  const int qb = causal ? nqb - 1 - xq / group : xq / group;
+  const int q0 = qb * kRows, offs = Skv - Sq;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  auto tiles = [&](int r0) {
+    const int end = causal ? min(Skv, r0 + 64 + offs) : Skv;
+    return end > 0 ? (end + kBk - 1) / kBk : 0;
+  };
+  const int n_cta = tiles(q0 + 64);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 128);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&v_full[s], 128);
+      mbar_init(&v_empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    // per key tile: chunk c of Q and of K(j) into stage u % kStages (u
+    // counts the chunks), then V(j)'s column block into the V ring
+    const __nv_bfloat16* qh = q + size_t(bh) * Sq * D;
+    const __nv_bfloat16* kh = k + size_t(kvh) * Skv * D;
+    const __nv_bfloat16* vh = v + size_t(kvh) * Skv * D + col0;
+    int u = 0;
+    for (int j = 0; j < n_cta; ++j) {
+      for (int c = 0; c < nc; ++c, ++u) {
+        const int s = u % kStages;
+        mbar_wait(&empty[s], ((u / kStages) & 1) ^ 1);
+        const uint32_t st = stages + s * C::kStageBytes;
+        stage_rows<128, kRows, true>(st, qh + c * 128, q0, Sq, 128, D, t);
+        stage_rows<128, kBk, true>(st + C::kQBytes, kh + c * 128, j * kBk,
+                                   Skv, 128, D, t);
+        cp_async_arrive(&k_full[s]);
+      }
+      const int sv = j % kVStages;
+      mbar_wait(&v_empty[sv], ((j / kVStages) & 1) ^ 1);
+      stage_rows<DV, kBk, true>(vring + sv * C::kVBytes, vh, j * kBk, Skv,
+                                DV, D, t);
+      cp_async_arrive(&v_full[sv]);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  // consumer warpgroup wg: rows r0 .. r0 + 63 (fragment layout as in the
+  // other instances)
+  const int lane = t & 31;
+  const int r0 = q0 + 64 * wg;
+  const int n_mine = tiles(r0);
+  const int row_a = r0 + 16 * (t >> 5) + (lane >> 2), row_b = row_a + 8;
+  const float c = __fmul_rn(scale, kLog2e);
+  float acc[DV / 2];
+  uint32_t p_hi[kBk / 16][4], p_lo[kBk / 16][4];
+  float m_a = kMasked, m_b = kMasked, l_a = 0.f, l_b = 0.f;
+
+  for (int j = 0; j < n_mine; ++j) {
+    // S(j): the k-steps of each chunk add into the same registers; a
+    // chunk's stage is released as soon as its products are done
+    float sc[kBk / 2];
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const int u = j * nc + cc, s = u % kStages;
+      mbar_wait(&k_full[s], (u / kStages) & 1);
+      const uint32_t st = stages + s * C::kStageBytes;
+      const uint32_t qa = st + wg * 64 * kSwizzleRow;
+      const uint32_t ka = st + C::kQBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {          // 16 of the chunk a wgmma
+        mma_qk(sc, desc_sw128(qa + (kk >> 2) * C::kQBlock + (kk & 3) * 32),
+               desc_sw128(ka + (kk >> 2) * C::kKVBlock + (kk & 3) * 32),
+               cc > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // the online softmax step on S(j) -> m, l, alpha, P(j)
+    const int k0 = j * kBk;
+    if (k0 + kBk > Skv || (causal && k0 + kBk - 1 > r0 + offs)) {
+#pragma unroll
+      for (int i = 0; i < kBk / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+        const int row = (i & 2) ? row_b : row_a;
+        if (col >= Skv || (causal && col > row + offs)) sc[i] = kMasked;
+      }
+    }
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int i = 0; i < kBk / 2; ++i) {
+      if (i & 2) {
+        mx_b = fmaxf(mx_b, sc[i]);
+      } else {
+        mx_a = fmaxf(mx_a, sc[i]);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+    }
+    const float alpha_a = ex2(__fmul_rn(__fsub_rn(m_a, mx_a), c));
+    const float alpha_b = ex2(__fmul_rn(__fsub_rn(m_b, mx_b), c));
+    m_a = mx_a;
+    m_b = mx_b;
+    const float mc_a = __fmul_rn(m_a, c), mc_b = __fmul_rn(m_b, c);
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < kBk / 16; ++cc) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * cc + 2 * r;
+        const float mc = (r & 1) ? mc_b : mc_a;
+        const float p0 = ex2(__fmaf_rn(sc[i], c, -mc));
+        const float p1 = ex2(__fmaf_rn(sc[i + 1], c, -mc));
+        if (r & 1) {
+          sum_b = __fadd_rn(sum_b, __fadd_rn(p0, p1));
+        } else {
+          sum_a = __fadd_rn(sum_a, __fadd_rn(p0, p1));
+        }
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[cc][r] = pack(hi);
+        p_lo[cc][r] = pack(__floats2bfloat162_rn(__fsub_rn(p0, hf.x),
+                                                 __fsub_rn(p1, hf.y)));
+      }
+    }
+    l_a = __fmaf_rn(l_a, alpha_a, sum_a);
+    l_b = __fmaf_rn(l_b, alpha_b, sum_b);
+    // O = O alpha + P(j) . V(j)
+    const int sv = j % kVStages;
+    mbar_wait(&v_full[sv], (j / kVStages) & 1);
+    if (j > 0) {
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) {
+        acc[i] = __fmul_rn(acc[i], (i & 2) ? alpha_b : alpha_a);
+      }
+    }
+    fence_acc(acc);
+    wgmma_fence();
+    const uint32_t svb = vring + sv * C::kVBytes;
+#pragma unroll
+    for (int cc = 0; cc < kBk / 16; ++cc) {     // 16 keys a wgmma pair
+      const uint64_t dv = desc_sw128(svb + cc * 16 * kSwizzleRow,
+                                     C::kKVBlock);
+      mma_pv(acc, p_hi[cc], dv, j > 0 || cc > 0);
+      mma_pv(acc, p_lo[cc], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&v_empty[sv]);
+  }
+  // warpgroup 0 may see one tile fewer: it releases that tile's stages
+  for (int j = n_mine; j < n_cta; ++j) {
+    for (int cc = 0; cc < nc; ++cc) {
+      const int u = j * nc + cc;
+      mbar_wait(&k_full[u % kStages], (u / kStages) & 1);
+      if (lane == 0) mbar_arrive(&empty[u % kStages]);
+    }
+    mbar_wait(&v_full[j % kVStages], (j / kVStages) & 1);
+    if (lane == 0) mbar_arrive(&v_empty[j % kVStages]);
+  }
+
+  // epilogue: l summed over the quad; rows that see no key are 0
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l_a = __fadd_rn(l_a, __shfl_xor_sync(0xffffffffu, l_a, x));
+    l_b = __fadd_rn(l_b, __shfl_xor_sync(0xffffffffu, l_b, x));
+  }
+  const float n_a = fmaxf(l_a, kMinNorm), n_b = fmaxf(l_b, kMinNorm);
+  const bool live_a = n_mine > 0 && (!causal || row_a + offs >= 0);
+  const bool live_b = n_mine > 0 && (!causal || row_b + offs >= 0);
+  __nv_bfloat16* oh = o + size_t(bh) * Sq * D;
+#pragma unroll
+  for (int i = 0; i < DV / 2; i += 2) {
+    const int col = col0 + 8 * (i / 4) + 2 * (lane & 3);
+    const bool b = i & 2;
+    const int row = b ? row_b : row_a;
+    if (row >= Sq) continue;
+    const bool live = b ? live_b : live_a;
+    const float n = b ? n_b : n_a;
+    const float x0 = live ? __fdiv_rn(acc[i], n) : 0.f;
+    const float x1 = live ? __fdiv_rn(acc[i + 1], n) : 0.f;
+    *reinterpret_cast<__nv_bfloat162*>(oh + size_t(row) * D + col) =
+        __floats2bfloat162_rn(x0, x1);
+  }
+}
+
+int launch_chunked(const void* q, const void* k, const void* v, void* o,
+                   int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
+                   float scale, cudaStream_t st) {
+  if (D % 128 != 0 || D < 256) return int(cudaErrorInvalidValue);
+  constexpr int kSmem = ChunkCfg::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_tc_flash_kernel<0, 128>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return int(err);
+  }
+  dim3 grid((Sq + kRows - 1) / kRows * (Hq / Hkv) * (D / 128), B * Hkv);
+  attn_tc_flash_kernel<0, 128><<<grid, kThreads, kSmem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Hq, Hkv, Sq, Skv, D, causal,
+      scale);
+  return int(cudaGetLastError());
+}
+
 }  // namespace attntc
 
 extern "C" {
 
 // flash attention on bf16 q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
-// D in {16, 32, 64, 128, 256, 384}; o like q
+// D in {16, 32, 64, 128, 256, 384} or a multiple of 128 past 384; o like q
 int attn_tc_flash(const void* q, const void* k, const void* v, void* o,
                   int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                   float scale, cudaStream_t st) {
@@ -499,7 +779,8 @@ int attn_tc_flash(const void* q, const void* k, const void* v, void* o,
     return attntc::launch<384, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
                                      causal, scale, st);
   }
-  return int(cudaErrorInvalidValue);
+  return attntc::launch_chunked(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+                                scale, st);
 }
 
 }  // extern "C"

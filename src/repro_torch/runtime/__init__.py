@@ -5,10 +5,10 @@ adaptive-IP serving subsystem — multi-tenant budget arbitration,
 shape-bucketed batching, live re-planning.  ``scheduler.py`` adds the
 SLO-aware continuous-batching dispatch loop and ``recovery.py`` the
 plan-preserving restart path on top of ``fault_tolerance.py``'s
-watchdog and straggler hooks (its elastic re-mesh comes with ROADMAP
-queue 1, item 9).  ``faults.py`` (deterministic fault injection) and
-``guards.py`` (output screening + bounded deadline-aware retry) are the
-chaos half.
+watchdog / straggler / elastic-remesh hooks.  ``faults.py``
+(deterministic fault injection) and ``guards.py`` (output screening +
+bounded deadline-aware retry + degraded-mesh survival) are the chaos
+half.
 """
 from repro_torch.runtime.arbiter import BudgetArbiter, TenantShare
 from repro_torch.runtime.batching import Request, ShapeBucketQueue

@@ -1,18 +1,20 @@
-"""Fault-tolerance runtime: watchdog and straggler monitor.
+"""Fault-tolerance runtime: watchdog, straggler monitor, elastic re-mesh.
 
-Replaces ``Watchdog``, ``StragglerEvent`` and ``StragglerMonitor`` of
-``repro/runtime/fault_tolerance.py`` (same thresholds, latches and
-events).  On a multi-host deployment these hooks sit in the per-host
-agent; here they watch one serving process.  The reference's elastic
-re-mesh, ``choose_mesh_shape`` and ``elastic_remesh``, comes with mesh
-sharding (ROADMAP queue 1, item 9); this module does not define them.
+Replaces ``repro/runtime/fault_tolerance.py`` (same thresholds, latches,
+events and mesh shapes).  On a multi-host deployment these hooks sit in
+the per-host agent; here they watch one serving process.
+``elastic_remesh`` builds the serving form of the reference's mesh: a
+1-D mesh is a tuple of ``torch.device``s (one a rank, a card possibly
+repeated for logical devices) with its axis name.  The reference's 2-D
+("data", "model") training grid comes with training (ROADMAP queue 1,
+item 12).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 from repro_torch.obs.trace import log_event
 
@@ -147,3 +149,55 @@ class StragglerMonitor:
             self._suppress -= 1
         self.ewma = (1 - self.alpha) * self.ewma + self.alpha * step_time
         return ev
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-mesh: pick the best (data, model) mesh for surviving devices.
+# Both helpers are expressed over core.shard.degree_ladder — the same
+# divisor chain the arbiter's device-loss path descends (the degraded-
+# mesh wiring in runtime/arbiter.py and runtime/server.py).
+# ---------------------------------------------------------------------------
+def choose_mesh_shape(n_devices: int, *, prefer_model: int = 16,
+                      min_model: int = 1) -> tuple:
+    """Largest (data, model) grid with model | prefer_model, covering as
+    many surviving devices as possible (some may idle — correctness
+    first, utilization second).  The model-degree candidates are exactly
+    ``degree_ladder(prefer_model, survivors=n_devices)`` — a surviving
+    model degree must keep the pre-loss model sharding divisible."""
+    from repro_torch.core.shard import degree_ladder
+    best = (1, 1)
+    for model in degree_ladder(prefer_model,
+                               survivors=min(prefer_model, n_devices)):
+        if model < min_model:
+            continue
+        data = n_devices // model
+        if data * model > best[0] * best[1]:
+            best = (data, model)
+    return best
+
+
+def elastic_remesh(n_devices: int, prefer_model: int = 16, *,
+                   axis: Optional[str] = None, offset: int = 0,
+                   pool: Optional[Sequence] = None):
+    """The serving mesh over surviving devices: ``(devices, axis)``, the
+    1-D mesh named ``axis`` over the contiguous slice ``pool[offset :
+    offset + n_devices]`` — a tenant's granted slice on the (possibly
+    shrunk) pool, what ``AdaptiveServer`` executes a sharded tenant on.
+    ``pool`` is the server's device pool (default: every CUDA card);
+    too few devices raise, and no card is ever stood in for another.
+    ``axis=None`` asks for the reference's 2-D training grid, which comes
+    with training (ROADMAP queue 1, item 12)."""
+    if axis is None:
+        raise NotImplementedError(
+            "the 2-D (data, model) training mesh comes with training "
+            "(ROADMAP queue 1, item 12); pass axis= for a serving mesh")
+    import torch
+    if pool is None:
+        pool = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in pool]
+    if offset < 0 or len(devs) < offset + n_devices:
+        raise ValueError(
+            f"mesh wants devices [{offset}, {offset + n_devices}) but only "
+            f"{len(devs)} exist (pass a device pool for logical devices)")
+    return tuple(devs[offset:offset + n_devices]), axis

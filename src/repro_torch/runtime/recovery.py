@@ -129,7 +129,7 @@ def snapshot_server(server: AdaptiveServer, ckpt_dir: str, step: int, *,
 
 def recover_server(ckpt_dir: str, *, step: Optional[int] = None,
                    calibration=None, wall: Optional[Callable] = None,
-                   device=None,
+                   device=None, devices=None,
                    ) -> Tuple[AdaptiveServer, Optional[SLOScheduler]]:
     """Rebuild (server, scheduler-or-None) from the latest committed
     snapshot so the first post-crash batch re-plans nothing cold.
@@ -140,7 +140,10 @@ def recover_server(ckpt_dir: str, *, step: Optional[int] = None,
     bit-identical (so the first batch's slice budget keys match).
     ``calibration`` must be the same table the snapshot was taken under
     — validated against the snapshotted ``calibration_key``.  The
-    server and its params land on ``device`` (None: ``cuda``).
+    server and its params land on ``device`` (None: ``cuda``); a mesh
+    server (the snapshot's mesh, shrunk if it degraded) runs its ranks
+    on ``devices`` (``AdaptiveServer``'s pool, by default one card a
+    rank).
     """
     params, extra = restore_blind(ckpt_dir, step=step)
     snap_key = extra.get("calibration_key")
@@ -159,7 +162,7 @@ def recover_server(ckpt_dir: str, *, step: Optional[int] = None,
         max_batch=cfg["max_batch"], autotune=cfg["autotune"],
         demand_alpha=cfg["demand_alpha"],
         fuse=cfg["fuse"], calibration=calibration, mesh=mesh,
-        device=device,
+        device=device, devices=devices,
         slo_pressure=cfg.get("slo_pressure", 0.0),
         miss_alpha=cfg.get("miss_alpha", 0.5),
         grant_quantum=cfg.get("grant_quantum", 0.0))
@@ -267,7 +270,7 @@ class RecoveryManager:
 
     def recover(self, *, calibration=None,
                 wall: Optional[Callable] = None,
-                device=None) -> AdaptiveServer:
+                device=None, devices=None) -> AdaptiveServer:
         """Rebuild from the latest snapshot and adopt the replacement
         (``self.server`` / ``self.scheduler`` point at the new
         instances afterwards).  The heartbeat watchdog is re-armed —
@@ -275,7 +278,7 @@ class RecoveryManager:
         death stopped it — so a second worker death fires again."""
         self.server, self.scheduler = recover_server(
             self.ckpt_dir, calibration=calibration, wall=wall,
-            device=device)
+            device=device, devices=devices)
         if self.scheduler is not None:
             self.scheduler.recovery = self
         self._rearm_watchdog()
@@ -287,7 +290,7 @@ class RecoveryManager:
         (``AdaptiveServer.on_device_loss``), and re-arm the watchdog so
         a SECOND failure still fires.  Returns the affected tenants.  On
         one device the server raises ``ValueError``, as the reference's
-        does (mesh mode: ROADMAP queue 1, item 9)."""
+        does."""
         affected = self.server.on_device_loss(device)
         self._rearm_watchdog()
         return affected

@@ -42,11 +42,22 @@ batch's ``deadline_budget_s``, re-planned with the ladder off under
 ``on_nonfinite="retry_f32"``; a batch the guard gives up returns
 ``ok=False`` completions.  A CUDA launch failure or a kernel's refusal
 of its operands is no injected fault: it propagates.  Recovery
-(``runtime/recovery.py``) snapshots and rebuilds the server.  What the
-reference server also has comes with mesh sharding (ROADMAP queue 1,
-item 9): sharded execution, device-loss degradation (``on_device_loss``
-raises on one device, as the reference's does) and spare-plan
-pre-warming.
+(``runtime/recovery.py``) snapshots and rebuilds the server.
+
+Mesh mode (``mesh=`` a ``MeshSpec`` of more than one device): the
+arbiter grants whole-device slices, each batch plans with
+``plan_network(mesh=<the tenant's sub-mesh>)``, and a plan that
+batch-splits every site runs sharded: one Python process drives every
+device (the reference's ``shard_map`` is single-controller too), each
+device runs ``plan.device_plan()`` through ``apply_cnn_frontend`` on its
+block of the batch, and the blocks are concatenated on the server's
+device.  ``devices=`` is the pool the mesh's ranks map onto, one
+``torch.device`` a rank: by default ``cuda:0 .. d-1`` when ``d`` cards
+exist (``d`` CPU entries for ``device="cpu"``), else the reference's
+``ValueError``; on one card the caller asks for logical devices by name
+(``devices=("cuda:0",) * d``).  A device loss shrinks the mesh
+(``on_device_loss``; the degree ladder descends), and
+``prewarm_spares`` plans the post-loss grants ahead of the fault.
 """
 from __future__ import annotations
 
@@ -128,7 +139,8 @@ class AdaptiveServer:
     sweep-chosen ones on the tunable sites of every executed plan.
     ``device=None`` serves on ``cuda`` and raises
     ``CudaUnavailableError`` where there is none; ``device="cpu"`` runs
-    the plain PyTorch versions.
+    the plain PyTorch versions.  ``mesh=`` / ``devices=``: mesh mode, see
+    the module docstring.
     """
 
     def __init__(self, budget: Optional[ResourceBudget] = None, *,
@@ -136,7 +148,7 @@ class AdaptiveServer:
                  max_batch: int = 4, autotune: bool = False,
                  demand_alpha: float = 0.5, fuse: bool = True,
                  calibration=None, device=None,
-                 mesh: Optional[MeshSpec] = None,
+                 mesh: Optional[MeshSpec] = None, devices=None,
                  slo_pressure: float = 0.0, miss_alpha: float = 0.5,
                  grant_quantum: float = 0.0):
         self.device = resolve_device(device)
@@ -160,9 +172,25 @@ class AdaptiveServer:
                                      slo_pressure=slo_pressure,
                                      miss_alpha=miss_alpha,
                                      grant_quantum=grant_quantum)
-        # mesh: one device or None (more raise NotImplementedError in the
-        # arbiter: ROADMAP queue 1, item 9)
-        self.mesh = self.arbiter.mesh        # None: one device
+        # mesh: a MeshSpec with devices > 1 puts the arbiter in mesh
+        # mode — tenants are granted whole-device slices and each batch
+        # is planned with plan_network(mesh=<tenant sub-mesh>), so a
+        # tenant holding several devices may serve *sharded* plans
+        # (executed device by device when the layout is uniform; see
+        # _attempt).  None keeps the fractional single-chip server.
+        self.mesh = self.arbiter.mesh
+        # the device pool the mesh's ranks run on (mesh mode only); a
+        # device loss shrinks the mesh, never this pool
+        self.devices = None
+        if self.mesh is not None:
+            # imported here: shard_exec imports runtime.faults, whose
+            # package imports this module
+            from repro_torch.distributed.shard_exec import mesh_devices
+            self.devices = tuple(mesh_devices(
+                self.mesh.devices, torch.empty(0, device=self.device),
+                devices))
+        # (tenant, device) -> the tenant's params on that device
+        self._replicas: Dict[tuple, Any] = {}
         self.max_batch = max_batch
         self.autotune = autotune
         self.clock = 0.0
@@ -333,6 +361,15 @@ class AdaptiveServer:
         if boom is not None:
             raise boom
 
+    def _tenant_budget(self, tenant: Tenant):
+        if self.mesh is not None:
+            # mesh mode: the tenant holds whole devices — plan against
+            # the FULL per-device budget and let the planner decide how
+            # (whether) to shard across the granted sub-mesh.
+            return (self.arbiter.budget_for(tenant.name),
+                    self.arbiter.mesh_for(tenant.name))
+        return self.budget.scaled(tenant.granted), None
+
     def _attempt(self, tenant: Tenant, xb, *, retry_f32: bool = False):
         """One execution attempt: route injected faults, (re)plan under
         the tenant's *current* slice and run the frontend.  Returns
@@ -342,7 +379,7 @@ class AdaptiveServer:
         fallback)."""
         if INJECTOR.enabled:
             self._route_execute_faults(tenant)
-        slice_budget = self.budget.scaled(tenant.granted)
+        slice_budget, tenant_mesh = self._tenant_budget(tenant)
         ladder = () if retry_f32 else tenant.ladder
         skey = (tenant.name, tuple(xb.shape), str(xb.dtype), ladder)
         specs = self._specs_cache.get(skey)
@@ -354,7 +391,9 @@ class AdaptiveServer:
                 self._specs_cache.pop(next(iter(self._specs_cache)))
             self._specs_cache[skey] = specs
         plan = replan(specs, slice_budget, fuse=self.fuse,
-                      calibration=self.calibration)
+                      calibration=self.calibration, mesh=tenant_mesh)
+        if INJECTOR.enabled and tenant_mesh is not None:
+            INJECTOR.check_devices(*self.arbiter.device_slice(tenant.name))
         tile_overrides = None
         if self.autotune:
             tkey = (specs, slice_budget)
@@ -365,17 +404,23 @@ class AdaptiveServer:
                     self._tile_cache.pop(next(iter(self._tile_cache)))
                 self._tile_cache[tkey] = tile_overrides
         quant_report = {} if (ladder and tenant.measure_quant) else None
+        sharded = self._shardable(plan, xb)
         with (TRACER.span("kernel", "kernel",
                           {"tenant": tenant.name,
-                           "launches": plan.total_launches})
+                           "launches": plan.total_launches,
+                           "sharded": sharded})
               if TRACER.enabled else NOOP_SPAN):
-            y = apply_cnn_frontend(tenant.params, xb, network=plan,
-                                   pool_window=tenant.pool_window,
-                                   activation=tenant.activation,
-                                   ladder=ladder,
-                                   quant_report=quant_report,
-                                   tile_overrides=tile_overrides,
-                                   fuse=self.fuse)
+            if sharded:
+                y = self._run_frontend_sharded(
+                    tenant, xb, plan, tile_overrides=tile_overrides)
+            else:
+                y = apply_cnn_frontend(tenant.params, xb, network=plan,
+                                       pool_window=tenant.pool_window,
+                                       activation=tenant.activation,
+                                       ladder=ladder,
+                                       quant_report=quant_report,
+                                       tile_overrides=tile_overrides,
+                                       fuse=self.fuse)
         if INJECTOR.enabled:
             y = INJECTOR.perturb_output("output", y, tenant.name)
         quant_err = max_rel_error(quant_report) if quant_report else 0.0
@@ -440,13 +485,85 @@ class AdaptiveServer:
                            batch_size=len(batch))
                 for i, r in enumerate(batch)]
 
-    # -- fault survival -------------------------------------------------------
+    @staticmethod
+    def _shardable(plan, xb) -> bool:
+        """True when the plan can run through the sharded frontend path:
+        a mesh plan whose sites are ALL batch-sharded at the mesh degree
+        (a uniform layout needs no mid-chain relays inside the frontend
+        walk), float precision, and a batch that tiles evenly.
+        Mixed/chan/degree-1 layouts fall back to the replicated walk of
+        the same plan — identical math, the mesh then only reshapes the
+        time model."""
+        if plan.mesh is None or plan.mesh.devices <= 1:
+            return False
+        d = plan.mesh.devices
+        sharded = plan.sharded_sites()
+        if len(sharded) != len(plan.sites):
+            return False
+        if any(s.shard_axis != "batch" or s.shard_degree != d
+               or s.lowered for s in plan.sites):
+            return False
+        return xb.shape[0] % d == 0
+
+    def _params_on(self, tenant: Tenant, device: torch.device):
+        """The tenant's params on ``device`` (copied once a device)."""
+        if device.type == self.device.type and (
+                device.type == "cpu"
+                or (device.index or 0) == (self.device.index or 0)):
+            return tenant.params
+        key = (tenant.name, device)
+        params = self._replicas.get(key)
+        if params is None:
+            params = self._replicas[key] = _to_device(tenant.params, device)
+        return params
+
+    def _run_frontend_sharded(self, tenant: Tenant, xb, plan,
+                              *, tile_overrides=None):
+        """The whole frontend over the tenant's device slice: each device
+        runs the per-device plan (``plan.device_plan()``) on its batch
+        block, and the blocks are concatenated on the server's device —
+        bitwise the replicated walk for batch sharding.  The slice comes
+        from ``fault_tolerance.elastic_remesh`` over the server's pool —
+        the same builder the degraded path re-meshes through after a
+        device loss."""
+        from repro_torch.runtime.fault_tolerance import elastic_remesh
+        d = plan.mesh.devices
+        start, _stop = self.arbiter.device_slice(tenant.name)
+        devs, _axis = elastic_remesh(d, axis=plan.mesh.axis, offset=start,
+                                     pool=self.devices)
+        dplan = plan.device_plan()
+        block = xb.shape[0] // d
+        ys = []
+        for r, dev in enumerate(devs):
+            xr = xb[r * block:(r + 1) * block].to(dev)
+            yr = apply_cnn_frontend(self._params_on(tenant, dev), xr,
+                                    network=dplan,
+                                    pool_window=tenant.pool_window,
+                                    activation=tenant.activation,
+                                    tile_overrides=tile_overrides)
+            ys.append(yr.to(self.device))
+        y = torch.cat(ys, dim=0)
+        if INJECTOR.enabled:
+            # injection seam "collective": the gathered result of a
+            # sharded execution (corruption lands after the collective)
+            y = INJECTOR.perturb_output("collective", y, tenant.name)
+        return y
+
+    # -- degraded mesh / fault survival --------------------------------------
     def on_device_loss(self, device: Optional[int] = None) -> list:
-        """Degrade, don't die: the arbiter shrinks the mesh by one device
-        and the affected tenants re-plan.  Mesh mode only (ROADMAP queue
-        1, item 9): on one device the arbiter raises ``ValueError``, as
-        the reference's does, so a guard rejects the batch."""
-        return self.arbiter.on_device_loss(device)
+        """Degrade, don't die: shrink the mesh by one device
+        (``BudgetArbiter.on_device_loss``) and mark the affected tenants
+        — their next batch re-plans at the shrunk shard degree (the
+        degree ladder descends; precision is untouched because every
+        surviving device still plans under the FULL per-device budget).
+        Returns the affected tenant names.  On one device the arbiter
+        raises ``ValueError``, as the reference's does, so a guard
+        rejects the batch."""
+        affected = self.arbiter.on_device_loss(device)
+        self.mesh = self.arbiter.mesh
+        for name in affected:
+            self.tenants[name].telemetry.degradations += 1
+        return affected
 
     def on_budget_shrink(self, fraction: float) -> None:
         """Mid-serving budget shock: the device budget scales to
@@ -458,6 +575,39 @@ class AdaptiveServer:
         self.budget = self.budget.scaled(fraction)
         self.arbiter.budget = self.budget
         log_event("budget.shrunk", fraction=fraction)
+
+    def prewarm_spares(self, losses: int = 1) -> int:
+        """Pre-plan every tenant's graphs against the post-loss device
+        grants (``BudgetArbiter.degraded_grants``), so a real device
+        loss re-plans **zero graphs cold** — the spare plans already sit
+        in the cache under the exact keys the degraded mesh will ask
+        for.  Mesh mode only.  Returns the number of spare plans
+        warmed (cache hits included: warm is warm)."""
+        if self.mesh is None:
+            raise ValueError("prewarm_spares() is mesh-mode only")
+        grants = self.arbiter.degraded_grants(losses)
+        survivors = self.mesh.devices - int(losses)
+        # the post-loss split() may also re-settle by plain largest
+        # remainder (no ladder snap) — warm those grants too
+        resettle = self.arbiter._device_grants(
+            self.arbiter._granted, devices=survivors)
+        warmed = 0
+        for name, tenant in self.tenants.items():
+            degrees = {grants.get(name, 0), resettle.get(name, 0)} - {0}
+            for n_dev in degrees:
+                spare_mesh = dataclasses.replace(self.arbiter.mesh,
+                                                 devices=n_dev)
+                for b in range(1, self.max_batch + 1):
+                    specs = self._specs(
+                        tenant.params, (b,) + tenant.input_shape,
+                        "float32", tenant.pool_window, tenant.activation,
+                        tenant.ladder)
+                    plan_network(specs, self.budget, fuse=self.fuse,
+                                 calibration=self.calibration,
+                                 mesh=spare_mesh if n_dev > 1 else None)
+                    warmed += 1
+        log_event("mesh.spares_prewarmed", losses=losses, plans=warmed)
+        return warmed
 
     # -- observability ------------------------------------------------------
     def shares(self) -> Dict[str, TenantShare]:

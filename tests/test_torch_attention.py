@@ -200,7 +200,9 @@ def _f32_tile_flash(q, k, v, causal):
     row max), alpha = 2^((m - m') log2 e), P = 2^(s log2 e - m' log2 e),
     l = l alpha + sum P; O += P.V in the tile's key splits, each split's
     partial sum rescaled by alpha and the partials added at the end;
-    o = O / max(l, 1e-30); rows that see no key 0."""
+    o = O / max(l, 1e-30); rows that see no key 0.  Past head dim 384
+    (the chunked instance) S accumulates over 128-column chunks of q and
+    k in order, as the kernel's FMA chains run through them."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group, offs = hq // hkv, skv - sq
@@ -222,7 +224,13 @@ def _f32_tile_flash(q, k, v, causal):
                 for k0 in range(0, max(end, 0), bk):
                     kt = kf[bi, h // group, k0:k0 + bk]
                     vt = vf[bi, h // group, k0:k0 + bk]
-                    s = qb @ kt.T
+                    if d > t_flash_mod.HEAD_DIMS[-1]:
+                        s = torch.zeros(qb.shape[0], kt.shape[0])
+                        for c0 in range(0, d, t_flash_mod.COL_BLOCK):
+                            cs = slice(c0, c0 + t_flash_mod.COL_BLOCK)
+                            s = s + qb[:, cs] @ kt[:, cs].T
+                    else:
+                        s = qb @ kt.T
                     if causal and k0 + bk - 1 > q0 + offs:
                         cols = torch.arange(k0, k0 + kt.shape[0])[None, :]
                         s = s.masked_fill(cols > rows + offs, -1e30)
@@ -251,9 +259,12 @@ def _f32_tile_flash(q, k, v, causal):
                                   (2, 4, 4, 97, 97, 16),
                                   (1, 4, 1, 150, 70, 128),
                                   (1, 4, 1, 100, 90, 256),
-                                  (1, 2, 2, 70, 130, 320)],
+                                  (1, 2, 2, 70, 130, 320),
+                                  (1, 4, 1, 100, 90, 400),
+                                  (1, 2, 2, 70, 130, 512)],
                          ids=["gqa512", "dead_rows", "cached16", "d128",
-                              "mha16", "mqa_dead128", "dead256", "d320"])
+                              "mha16", "mqa_dead128", "dead256", "d320",
+                              "dead400", "d512"])
 def test_flash_f32_tile_emulation_holds_the_bound(rng, case, causal):
     """The f32 kernel's arithmetic (``_f32_tile_flash``) stays within
     ``chip_smoke.ATTN_F32_TOL`` of ``flash_attention_plain`` and within
@@ -346,7 +357,7 @@ def _split_kv_decode(q, k, v, splits_asked):
 # stage, a long cache; groups 1, 4 and 8; the three stage widths
 DECODE_SPLIT_CASES = [(1, 1, 32), (17, 4, 32), (17, 8, 64), (257, 8, 32),
                       (257, 4, 128), (4097, 4, 64), (4097, 1, 128),
-                      (4097, 8, 32)]
+                      (4097, 8, 32), (257, 4, 512), (97, 2, 640)]
 
 
 @pytest.mark.parametrize("skv,group,d", DECODE_SPLIT_CASES,
@@ -456,6 +467,12 @@ def test_padded_head_dim_is_the_next_kernel_width():
     for d in range(1, t_flash_mod.HEAD_DIMS[-1] + 1):
         want = min(w for w in t_flash_mod.HEAD_DIMS if w >= d)
         assert t_flash_mod.padded_head_dim(d) == want, d
+    # past the widest instance: the next multiple of COL_BLOCK (the
+    # chunked instances), with no upper limit
+    for d in range(t_flash_mod.HEAD_DIMS[-1] + 1, 2100):
+        want = -(-d // t_flash_mod.COL_BLOCK) * t_flash_mod.COL_BLOCK
+        assert t_flash_mod.padded_head_dim(d) == want, d
+    assert t_flash_mod.padded_head_dim(100_000) == 100_096
     for d in t_flash_mod.HEAD_DIMS:
         q = torch.zeros(1, 2, 3, d)
         got = t_flash_mod.pad_head_dim(q, q, q)
@@ -485,18 +502,49 @@ def test_padded_operands_compute_the_same_function(rng, d):
                                rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("d", [400, 512, 640])
+def test_padded_operands_past_384_compute_the_same_function(rng, d):
+    """The chunked instances' operands (D zero-padded to a multiple of
+    128, the original D's scale, the output sliced back) through the
+    plain versions: the same function within rtol=1e-5, atol=1e-5 (the
+    f32 sums run over 400-640 terms, so a padded product's rounding
+    moves by a few ulps more than at the widths below 384)."""
+    (_, tq), (_, tk), (_, tv) = _qkv(rng, 2, 8, 2, 40, 56, d)
+    qp, kp, vp, d0 = t_flash_mod.pad_head_dim(tq, tk, tv)
+    assert d0 == d and qp.shape[3] == t_flash_mod.padded_head_dim(d)
+    assert qp.shape[3] % t_flash_mod.COL_BLOCK == 0
+    assert torch.equal(qp[..., :d], tq) and not qp[..., d:].any()
+    for causal in (True, False):
+        got = attention_ref(qp, kp, vp, causal=causal, scale=d ** -0.5)
+        assert not got[..., d:].any()
+        np.testing.assert_allclose(
+            _np(got[..., :d]), _np(flash_attention_plain(tq, tk, tv,
+                                                         causal=causal)),
+            rtol=1e-5, atol=1e-5)
+    got = decode_attention_ref(qp[:, :, :1], kp, vp, scale=d ** -0.5)
+    np.testing.assert_allclose(_np(got[..., :d]),
+                               _np(flash_decode_plain(tq[:, :, :1], tk, tv)),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_head_dim_past_the_kernels_is_refused():
-    q = torch.zeros(1, 2, 1, 400)
-    for fn in (lambda: t_flash_mod.padded_head_dim(385),
-               lambda: t_flash_mod.pad_head_dim(q, q, q)):
-        with pytest.raises(ValueError, match="has no CUDA attention kernel "
-                                             r"\(at most 384"):
-            fn()
+    """No head dim is refused any more: past 384 the operands pad to the
+    next multiple of 128 (D 400 to 512) for the chunked instances."""
+    assert t_flash_mod.padded_head_dim(385) == 512
+    q = torch.ones(1, 2, 1, 400)
+    qp, kp, vp, d0 = t_flash_mod.pad_head_dim(q, q, q)
+    assert d0 == 400 and qp.shape[3] == kp.shape[3] == vp.shape[3] == 512
+    assert torch.equal(qp[..., :400], q) and not qp[..., 400:].any()
+    k = torch.ones(1, 2, 3, 400)
+    assert flash_attention(q, k, k).shape == q.shape
+    assert flash_decode(q, k, k).shape == q.shape
 
 
 @pytest.mark.parametrize("d, width", [(129, 256), (144, 256), (192, 256),
                                       (256, 256), (257, 384), (320, 384),
-                                      (384, 384)])
+                                      (384, 384), (385, 512), (400, 512),
+                                      (512, 512), (640, 640),
+                                      (1000, 1024)])
 def test_head_dims_past_128_pad_to_whole_column_blocks(d, width):
     """Past 128 the kernels take whole 128-wide column blocks of O: the
     padded width is the next multiple of ``COL_BLOCK`` among the kernel
@@ -507,11 +555,11 @@ def test_head_dims_past_128_pad_to_whole_column_blocks(d, width):
     qp, kp, vp, d0 = t_flash_mod.pad_head_dim(q, q, q)
     assert d0 == d and qp.shape[3] == width
     assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
-    assert t_flash_mod.f32_tile(width) == ((32, 1) if width == 256
-                                          else (16, 1))
+    assert t_flash_mod.f32_tile(width) == ((16, 1) if width == 384
+                                          else (32, 1))
 
 
-@pytest.mark.parametrize("d", [8, 80, 144, 192, 256, 320])
+@pytest.mark.parametrize("d", [8, 80, 144, 192, 256, 320, 400, 512, 640])
 def test_any_head_dim_matches_reference_kernels(rng, d):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 8, 2, 48, 64, d)
     for causal in (True, False):

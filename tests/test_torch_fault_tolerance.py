@@ -2,9 +2,11 @@
 (``repro_torch.runtime.fault_tolerance``): the single-device cases of
 the reference's ``tests/test_fault_tolerance.py`` (watchdog firing,
 stopping, re-arming; straggler threshold/EWMA flagging, rearm gating,
-event emission), re-run against the port.  The elastic re-mesh cases
-(``choose_mesh_shape``, ``elastic_remesh``) come with mesh sharding
-(ROADMAP queue 1, item 9).  Then parity: one step-time trace flags the
+event emission), re-run against the port, and its elastic re-mesh
+cases: ``choose_mesh_shape`` equal to the reference's for every pool of
+survivors, and ``elastic_remesh``'s serving form (a tuple of devices and
+its axis over a slice of the pool; the 2-D training grid comes with
+ROADMAP queue 1, item 12).  Then parity: one step-time trace flags the
 same steps, EWMAs and hook fires in both packages.
 """
 import time
@@ -12,9 +14,15 @@ import time
 import numpy as np
 import pytest
 
+import torch
+
 from repro.runtime.fault_tolerance import StragglerMonitor as JMonitor
+from repro.runtime.fault_tolerance import choose_mesh_shape as j_choose
+from repro_torch.core.shard import degree_ladder
 from repro_torch.obs import EVENTS
-from repro_torch.runtime.fault_tolerance import StragglerMonitor, Watchdog
+from repro_torch.runtime.fault_tolerance import (StragglerMonitor, Watchdog,
+                                                 choose_mesh_shape,
+                                                 elastic_remesh)
 
 
 def test_watchdog_fires_on_missed_beats():
@@ -210,3 +218,42 @@ def test_straggler_monitor_equals_the_reference(seed, rearm):
         assert t.ewma == j.ewma
     assert t.events and len(t.events) == len(j.events)
     assert t.hook_fires == j.hook_fires and fires["t"] == fires["j"]
+
+
+def test_choose_mesh_shape_prefers_model_divisors():
+    assert choose_mesh_shape(16, prefer_model=16) == (1, 16)
+    assert choose_mesh_shape(12, prefer_model=16) == (3, 4)
+    assert choose_mesh_shape(3, prefer_model=16) == (3, 1)
+
+
+def test_choose_mesh_shape_walks_the_degree_ladder():
+    for n_dev in range(1, 20):
+        data, model = choose_mesh_shape(n_dev, prefer_model=16)
+        assert model in degree_ladder(16)
+        assert data * model <= n_dev
+
+
+def test_choose_mesh_shape_equals_the_reference():
+    for prefer in (1, 2, 3, 4, 6, 8, 12, 16):
+        for n_dev in range(1, 33):
+            for min_model in (1, 2, 4):
+                assert choose_mesh_shape(n_dev, prefer_model=prefer,
+                                         min_model=min_model) == \
+                    j_choose(n_dev, prefer_model=prefer, min_model=min_model)
+
+
+def test_elastic_remesh_axis_mode_builds_a_1d_serving_mesh():
+    pool = ["cpu", "cpu", "cpu"]
+    devs, axis = elastic_remesh(1, axis="batch", offset=0, pool=pool)
+    assert axis == "batch" and devs == (torch.device("cpu"),)
+    devs, _ = elastic_remesh(2, axis="shard", offset=1, pool=pool)
+    assert devs == (torch.device("cpu"),) * 2
+
+
+def test_elastic_remesh_axis_mode_refuses_short_pools():
+    with pytest.raises(ValueError, match="mesh wants devices"):
+        elastic_remesh(64, axis="batch", pool=["cpu"] * 4)
+    with pytest.raises(ValueError, match=r"\[3, 5\)"):
+        elastic_remesh(2, axis="batch", offset=3, pool=["cpu"] * 4)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        elastic_remesh(4)

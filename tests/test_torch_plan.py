@@ -232,8 +232,16 @@ def _cal_fp(cal, compute, hbm):
 def test_unported_planner_paths_raise_named_errors(frontends):
     _, tp = frontends
     specs = t_specs(tp, (1, 16, 16, 3), torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        t_plan.plan_network(specs, mesh=MeshSpec(devices=2))
+    # mesh= past one device (no longer refused): byte-equal to the
+    # reference's mesh plan
+    jp, _ = frontends
+    _clear()
+    want = j_plan.plan_network(j_specs(jp, (2, 16, 16, 3), "float32"),
+                               mesh=j_resources.MeshSpec(devices=2))
+    got = t_plan.plan_network(t_specs(tp, (2, 16, 16, 3), torch.float32),
+                              mesh=MeshSpec(devices=2))
+    assert got.to_json() == want.to_json()
+    assert got.mesh == MeshSpec(devices=2)
     # calibration= plans (no longer refused): byte-equal to the
     # reference's plan under a table fitted on the same samples
     tables = []
@@ -246,7 +254,6 @@ def test_unported_planner_paths_raise_named_errors(frontends):
                 table.record(m, _cal_fp(cal, comp, hbm),
                              1e-4 * (i + 1) * comp + 1e-6 * hbm + 3.0)
         tables.append(table.fit())
-    jp, _ = frontends
     _clear()
     want = j_plan.plan_network(j_specs(jp, (1, 16, 16, 3), "float32"),
                                calibration=tables[0])

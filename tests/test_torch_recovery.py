@@ -5,11 +5,11 @@
 The reference's ``tests/test_recovery.py``, re-run against the port on
 the CPU (``device="cpu"``): blind checkpoint restore, the
 zero-cold-replan restart guarantee, snapshot validation (calibration
-identity, floor drift) and the watchdog-armed ``RecoveryManager``.
-``test_degrade_rearms_the_watchdog`` needs a two-device mesh and comes
-with mesh sharding (ROADMAP queue 1, item 9); here ``degrade`` raises
-the reference's single-device ``ValueError``.  Then, across the
-packages:
+identity, floor drift) and the watchdog-armed ``RecoveryManager``,
+``test_degrade_rearms_the_watchdog`` on a mesh of two CPU logical
+devices (on one device ``degrade`` raises the reference's
+``ValueError``), and a degraded mesh server snapshotted and recovered
+onto its shrunk mesh.  Then, across the packages:
 
 * ``export_plan_cache`` is byte-equal (``json.dumps(..., sort_keys=
   True)``) after the same serving trace;
@@ -273,6 +273,80 @@ def test_degrade_on_one_device_raises_as_the_reference(tmp_path):
     j = JServer(JBudget(vpu_ops_budget=15_000_000))
     with pytest.raises(ValueError, match="mesh-mode only"):
         j.on_device_loss(0)
+
+
+def test_degrade_rearms_the_watchdog(tmp_path):
+    """The heartbeat path's lighter alternative: degrade() shrinks the
+    mesh in place and re-arms, so a second silence still fires."""
+    from repro_torch.core.resources import MeshSpec
+
+    srv = AdaptiveServer(DEVICE, max_batch=2, mesh=MeshSpec(devices=2),
+                         device="cpu")
+    srv.register("a", _frontend(0), (12, 12, 6))
+    srv.arbiter.observe("a", 100.0)
+    srv._apply_shares(srv.arbiter.split())
+    died = []
+    holder = {}
+
+    def on_death():
+        died.append(1)
+        holder["mgr"].watchdog.stop()
+
+    mgr = RecoveryManager(srv, tmp_path, heartbeat_timeout_s=0.05,
+                          on_death=on_death)
+    holder["mgr"] = mgr
+    try:
+        deadline = time.monotonic() + 2.0
+        while not died and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert died == [1]
+        affected = mgr.degrade(1)        # silence treated as device loss
+        assert affected == ["a"]
+        assert srv.mesh.devices == 1
+        assert mgr.watchdog._thread.is_alive()
+        deadline = time.monotonic() + 2.0
+        while len(died) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(died) == 2
+    finally:
+        mgr.stop()
+
+
+def test_degraded_mesh_server_recovers_on_its_shrunk_mesh(tmp_path):
+    """A mesh server that lost a device snapshots its shrunk mesh; the
+    recovered server re-derives its device grants on it, plans with zero
+    cold plans and serves the next wave bitwise as the pre-crash server
+    does."""
+    from repro_torch.core.resources import MeshSpec
+
+    srv = AdaptiveServer(DEVICE, max_batch=2, mesh=MeshSpec(devices=4),
+                         device="cpu")
+    srv.register("a", _frontend(0), (12, 12, 6))
+    rng = np.random.default_rng(4)
+    xs = [rng.normal(size=SHAPE).astype(np.float32) for _ in range(4)]
+    for x in xs[:2]:
+        srv.submit("a", x)
+    assert all(c.ok for c in srv.drain())
+    assert srv.on_device_loss(3) == ["a"]
+    # 3 survivors; the grant snaps down the degree ladder of 4
+    assert srv.mesh.devices == 3 and srv.arbiter.devices_for("a") == 2
+    for x in xs[:2]:
+        srv.submit("a", x)
+    before_wave = srv.drain()
+    snapshot_server(srv, tmp_path, 1)
+    simulate_worker_death()
+    misses = STATS.plan_misses
+    rec, _ = recover_server(tmp_path, device="cpu")
+    assert rec.mesh == srv.mesh
+    # the wave after the loss re-split the 3 survivors: 3 devices, as the
+    # recovered arbiter re-derives them on the snapshot's mesh
+    assert rec.arbiter.devices_for("a") == srv.arbiter.devices_for("a") == 3
+    for x in xs[:2]:
+        rec.submit("a", x)
+    after_wave = rec.drain()
+    assert cold_replans_since(misses) == 0
+    for a, b in zip(after_wave, before_wave):
+        assert torch.equal(a.result, b.result)
 
 
 def test_arbiter_state_round_trips():

@@ -116,8 +116,11 @@ def test_server_named_errors(params):
         srv.submit("t", np.zeros((10, 10, 3), np.float32))
     with pytest.raises(ValueError, match="unknown policy"):
         TServer(policy="fifo", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        TArbiter(mesh=MeshSpec(devices=2))
+    # a mesh of two devices (no longer refused): a mesh-mode arbiter
+    arb = TArbiter(mesh=MeshSpec(devices=2))
+    assert arb.mesh == MeshSpec(devices=2)
+    arb.register("a")
+    assert arb.split()["a"].devices == 2
 
 
 def test_unknown_activation_and_pool_mode_refused_at_spec_time(params):
