@@ -298,6 +298,28 @@ and prints no result):
    bound (bytes, FP32 operations and exponentials at the MUFU rate),
    tokens/s over the trace, prefill and decode-tick times, and a
    ``torch.profiler`` pass over one prefill and one decode tick.
+7. lm families (``lm_families_phase``) — the other LM families at full
+   width, each freed before the next: dbrx cut to ``DBRX_LAYERS`` layers
+   (bf16, MoE on, einsum dispatch) serves ``LM_TRACE``, rwkv6-3b whole
+   serves ``RWKV_TRACE``, through ``serve_requests`` twice (every request
+   completes, the same tokens, no kernel launched); llava cut to
+   ``LLAVA_LAYERS`` layers prefills ``LLAVA_CASE``'s seeded embeddings
+   and decodes seeded embeddings, seamless whole prefills
+   ``SEAMLESS_CASE``'s frames and decoder prompt and decodes greedily,
+   twice each (the same greedy tokens); prefill ms, decode ms a tick
+   beside its weight-read bound, tokens/s and peak memory for each, and
+   a ``torch.profiler`` pass over one decode tick of each (dbrx's top 8
+   device ops, the others' top 3; device busy against the tick's
+   wall); dbrx's first
+   prefill under the scatter dispatch within ``DISPATCH_REL_L2`` of
+   einsum's, both timed (check 4); every architecture's smoke config in
+   f32 on the card against the port on the CPU (``FAMILY_TOL``, prefill
+   and two decode steps, logits and caches; served tokens equal for the
+   token-in ones; jamba with and without MoE, each MoE arch under both
+   dispatch modes; check 2); rwkv, llava and seamless in f32 at full
+   width cut to ``SEQ_FAMILY_LAYERS`` layers, a prefill over S + 1
+   positions against a prefill over S and one decode step
+   (``HANDOFF_REL_L2``, check 3).
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -709,6 +731,34 @@ SEQ_STEPS = 64
 SEQ_TOL = dict(rtol=1e-4, atol=1e-5)
 # check 4: first decode step against a prefill over prompt + token, f32
 HANDOFF_REL_L2 = 1e-4
+
+# "lm families": the other LM families at full width, depth cut where
+# one card cannot hold them (PERF.md section 4).  dbrx (MoE) serves
+# LM_TRACE cut to DBRX_LAYERS layers in bf16; rwkv6 serves RWKV_TRACE
+# whole (its time loop costs about prompt x layers x 4 launches a
+# prefill, so the prompt stays at 512); llava (precomputed embeddings)
+# prefills LLAVA_CASE's seeded embeddings cut to LLAVA_LAYERS layers,
+# then decodes seeded (B, 1, D) embeddings; seamless (encoder-decoder)
+# whole, frames and decoder prompt of SEAMLESS_CASE, then greedy steps.
+DBRX = "dbrx-132b"
+RWKV = "rwkv6-3b"
+LLAVA = "llava-next-34b"
+SEAMLESS = "seamless-m4t-large-v2"
+DBRX_LAYERS = 4
+LLAVA_LAYERS = 8
+RWKV_TRACE = dict(slots=4, requests=8, prompt_len=512, max_new=16,
+                  max_len=544)
+LLAVA_CASE = dict(batch=4, prompt=2048, steps=16)
+SEAMLESS_CASE = dict(batch=4, frames=1024, prompt=16, pad_to=32, steps=16)
+# check 2: smoke configs in f32 on the card against the port on the CPU
+FAMILY_TOL = dict(rtol=1e-4, atol=1e-5)
+# check 3: full width in f32, depth cut, prefill over S + 1 against a
+# prefill over S and one decode step (HANDOFF_REL_L2, same argmax)
+SEQ_FAMILY_LAYERS = 2
+SEQ_FAMILY_LEN = 64
+# check 4: dbrx's first prefill logits, scatter against einsum dispatch
+# (bf16): relative L2 within one bf16 step (2^-7), same argmax
+DISPATCH_REL_L2 = 8e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -5051,24 +5101,25 @@ def jamba_period(**dtypes):
                                **dtypes)
 
 
-def lm_trace(cfg):
+def lm_trace(cfg, spec=LM_TRACE):
     import numpy as np
     from repro_torch.launch.serve import make_requests
-    return make_requests(cfg, LM_TRACE["requests"], LM_TRACE["prompt_len"],
-                         LM_TRACE["max_new"], np.random.default_rng(SEED))
+    return make_requests(cfg, spec["requests"], spec["prompt_len"],
+                         spec["max_new"], np.random.default_rng(SEED))
 
 
-def serve_lm_trace(cfg, params):
-    """Serve the LM trace once with the counters reset just before and
-    read just after: (token lists by request id, counts, stats)."""
+def serve_lm_trace(cfg, params, spec=LM_TRACE):
+    """Serve an LM trace (``spec``: slots, requests, prompt_len, max_new,
+    max_len) once with the counters reset just before and read just
+    after: (token lists by request id, counts, stats)."""
     import torch
     from repro_torch.kernels import cuda
     from repro_torch.launch.serve import serve_requests
     torch.cuda.synchronize()
     cuda.reset_launches()
-    done, stats = serve_requests(cfg, params, lm_trace(cfg),
-                                 slots=LM_TRACE["slots"],
-                                 max_len=LM_TRACE["max_len"], device="cuda")
+    done, stats = serve_requests(cfg, params, lm_trace(cfg, spec),
+                                 slots=spec["slots"],
+                                 max_len=spec["max_len"], device="cuda")
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
     return {r.rid: r.generated for r in done}, counts, stats
@@ -5402,26 +5453,16 @@ def lm_serve_phase(peaks, card, errs):
         f"the timing: {clocks}, after: {clock_line()}")
     del y, h
 
-    def timed(fn, reps):
-        walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t1) * 1e3)
-        return statistics.median(walls)
-
     batch = {"tokens": torch.as_tensor(trace[0].prompt[None, :],
                                        device="cuda")}
-    prefill_ms = timed(lambda: api.prefill_step(
+    prefill_ms = wall_ms(lambda: api.prefill_step(
         cfg, params, batch, pad_to=LM_TRACE["max_len"]), 3)
     slots = LM_TRACE["slots"]
     tick_caches = api.init_decode_caches(cfg, slots, LM_TRACE["max_len"],
                                          device="cuda")
     tick_tokens = torch.ones((slots, 1), dtype=torch.long, device="cuda")
-    decode_ms = timed(lambda: api.decode_step(cfg, params, tick_caches,
-                                              tick_tokens, plen), 5)
+    decode_ms = wall_ms(lambda: api.decode_step(cfg, params, tick_caches,
+                                                tick_tokens, plen), 5)
     rate = stats2["tokens"] / stats2["wall_s"]
     log(f"lm serve times: {rate:.1f} tokens/s over the trace ({stats2['tokens']}"
         f" tokens in {stats2['wall_s']:.3f} s, second serve; first "
@@ -5456,12 +5497,456 @@ def lm_serve_phase(peaks, card, errs):
     return launches, row
 
 
-def _leaves(tree):
+# ---------------------------------------------------------------------------
+# "lm families": MoE, RWKV-6, embedding inputs and the encoder-decoder
+# ---------------------------------------------------------------------------
+def family_config(arch, **replace):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **replace)
+
+
+def smoke_families():
+    """(label, config) for check 2: the 10 architectures' smoke configs
+    in f32 with f32 logits, jamba also without MoE, and each MoE arch
+    under the scatter dispatch too."""
+    import dataclasses
+    from repro_torch.configs import ARCH_NAMES, get_config
+    out = []
+    for arch in ARCH_NAMES:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  logit_dtype="float32")
+        out.append((arch, cfg))
+        if cfg.moe:
+            out.append((f"{arch} scatter", dataclasses.replace(
+                cfg, moe_dispatch="scatter")))
+    out.append((f"{JAMBA} no MoE", dataclasses.replace(
+        get_config(JAMBA, smoke=True), moe=None, logit_dtype="float32")))
+    return out
+
+
+def tree_to(tree, device):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def prefill_inputs(cfg, batch, seq, device, seed=SEED):
+    """``make_inputs`` for a prefill of ``batch`` x ``seq`` (numpy-seeded,
+    the same numbers on every device)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.frontends import make_inputs
+    return make_inputs(cfg, ShapeConfig("smoke", seq, batch, "prefill"),
+                       seed=seed, abstract=False, device=device)
+
+
+def step_input(cfg, logits, rng, device):
+    """The next decode input: the greedy token, or a seeded (B, 1, D)
+    embedding for an ``embed_inputs`` decoder."""
+    import torch
+    if cfg.embed_inputs and cfg.family != "encdec":
+        e = rng.normal(size=(logits.shape[0], 1, cfg.d_model))
+        return torch.from_numpy(e.astype("float32")).to(
+            dtype=cfg.dtype("compute"), device=device)
+    return torch.argmax(logits, dim=-1, keepdim=True).to(device)
+
+
+def close_trees(what, got, want, tol):
+    """Every leaf of ``got`` (on the card) within ``tol`` of ``want`` (on
+    the CPU), key for key; returns the largest abs error."""
+    import torch
+    g, w = dict(_paths(got)), dict(_paths(want))
+    check(list(g) == list(w), f"{what}: keys {list(g)} vs {list(w)}")
+    worst = 0.0
+    for path, t in w.items():
+        torch.testing.assert_close(
+            g[path].cpu(), t, **tol,
+            msg=lambda m: f"{what} {path}, card against CPU: {m}")
+        if t.numel():
+            worst = max(worst, float((g[path].cpu().double()
+                                      - t.double()).abs().max()))
+    return worst
+
+
+def smoke_family_checks(card):
+    """Check 2: each smoke config of ``smoke_families`` on the card equals
+    the port on the CPU (prefill logits and caches, two decode steps),
+    and a token-in arch serves the same tokens through
+    ``serve_requests``; no hand-written kernel is on these paths."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import make_requests, serve_requests
+    from repro_torch.models import api
+    for label, cfg in smoke_families():
+        params = api.init_params(cfg, SEED, device="cpu")
+        on = {"cpu": params, "cuda": tree_to(params, "cuda")}
+        out = {}
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        for dev, p in on.items():
+            rng = np.random.default_rng(SEED)
+            batch = prefill_inputs(cfg, 2, 16, dev)
+            logits, caches, s = api.prefill_step(cfg, p, batch, pad_to=24)
+            steps = [{"logits": logits, "caches": caches}]
+            for i in range(2):   # both devices take the CPU's next input
+                prev = (steps if dev == "cpu" else out["cpu"])[i]["logits"]
+                nxt = step_input(cfg, prev, rng, dev)
+                logits, caches = api.decode_step(cfg, p, caches, nxt, s + i)
+                steps.append({"logits": logits, "caches": caches})
+            out[dev] = steps
+        errs = [close_trees(f"{label} step {i}", g, w, FAMILY_TOL)
+                for i, (g, w) in enumerate(zip(out["cuda"], out["cpu"]))]
+        served = ""
+        if not cfg.embed_inputs:
+            tokens = {}
+            for dev, p in on.items():
+                reqs = make_requests(cfg, 6, 16, 8,
+                                     np.random.default_rng(SEED))
+                done, _ = serve_requests(cfg, p, reqs, slots=3, max_len=40,
+                                         device=dev)
+                tokens[dev] = {r.rid: r.generated for r in done}
+            check(tokens["cuda"] == tokens["cpu"] and len(tokens["cpu"]) == 6,
+                  f"{label}: served tokens on the card differ from the CPU's")
+            served = "; 6 requests served through 3 slots, tokens equal"
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        mamba = "mamba" in cfg.attn_layout
+        check(set(counts) == ({"selective_scan"} if mamba else set()),
+              f"{label}: launched {counts}")
+        log(f"lm families smoke {label}: card == CPU within "
+            f"rtol={FAMILY_TOL['rtol']}, atol={FAMILY_TOL['atol']} (prefill "
+            f"+ 2 decode steps, logits and caches; max abs err "
+            f"{max(errs):.3e}){served}; launched {counts}")
+    torch.cuda.empty_cache()
+
+
+def wall_ms(fn, reps):
+    """Median host wall (ms) of ``fn``, synchronized at both ends."""
+    import torch
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(walls)
+
+
+def weight_read_bytes(cfg, params):
+    """Bytes of weights one decode tick reads: every param tensor but an
+    untied embedding table (a tick gathers B rows of it) and an
+    encoder's (run once, at prefill)."""
+    skip = {"enc_blocks", "enc_norm"} | (set() if cfg.tie_embeddings
+                                         else {"embed"})
+    return sum(nbytes(t) for k, sub in params.items() if k not in skip
+               for t in _leaves(sub))
+
+
+def tick_note(peaks, cfg, params, caches, tick_ms):
+    """The decode tick's bound: weights plus the caches it reads, over
+    the memory rate."""
+    w = weight_read_bytes(cfg, params)
+    c = sum(nbytes(t) for t in _leaves(caches))
+    b_ms = (w + c) / peaks["bytes_per_s"] * 1e3
+    return (f"decode {tick_ms:.2f} ms a tick, weight-read bound "
+            f"{b_ms:.2f} ms ({w / 1e9:.2f} GB of weights + {c / 1e9:.3f} "
+            f"GB of caches at {peaks['bytes_per_s'] / 1e12:.2f} TB/s; "
+            f"{b_ms / tick_ms:.3f} of it)")
+
+
+def served_family(peaks, card, cfg, params, spec, what):
+    """Check 1 and the times for a token-in family: ``spec``'s trace
+    through ``serve_requests`` twice (every request completes, the same
+    tokens, no kernel launched), one prefill and one decode tick timed."""
+    import torch
+    from repro_torch.models import api
+    torch.cuda.reset_peak_memory_stats()
+    tokens, counts, stats = serve_lm_trace(cfg, params, spec)
+    n_req, max_new = spec["requests"], spec["max_new"]
+    check(sorted(tokens) == list(range(n_req)) and all(
+        len(t) == max_new for t in tokens.values()),
+        f"{what}: completions {[(k, len(v)) for k, v in tokens.items()]}")
+    check(counts == {}, f"{what}: launched {counts}")
+    tokens2, _, stats2 = serve_lm_trace(cfg, params, spec)
+    check(tokens2 == tokens, f"{what}: a second serve gave other tokens")
+    prompt = lm_trace(cfg, spec)[0].prompt
+    batch = {"tokens": torch.as_tensor(prompt[None, :], device="cuda")}
+    holder = {}
+
+    def prefill():
+        holder["out"] = api.prefill_step(cfg, params, batch,
+                                         pad_to=spec["max_len"])
+
+    prefill_ms = wall_ms(prefill, 3)
+    plen = holder.pop("out")[2]
+    caches = api.init_decode_caches(cfg, spec["slots"], spec["max_len"],
+                                    device="cuda")
+    tick_tokens = torch.ones((spec["slots"], 1), dtype=torch.long,
+                             device="cuda")
+    tick_ms = wall_ms(lambda: api.decode_step(cfg, params, caches,
+                                              tick_tokens, plen), 5)
+    rate = stats2["tokens"] / stats2["wall_s"]
+    log(f"{what}: {n_req} requests x {max_new} tokens through "
+        f"{spec['slots']} slots (prompt {spec['prompt_len']}, max_len "
+        f"{spec['max_len']}), {stats['decode_ticks']} decode ticks, every "
+        f"request complete, the same tokens twice, no kernel launched; "
+        f"{rate:.1f} tokens/s over the trace ({stats2['tokens']} tokens in "
+        f"{stats2['wall_s']:.3f} s, second serve; first "
+        f"{stats['tokens'] / stats['wall_s']:.1f}), prefill "
+        f"{prefill_ms:.1f} ms a request, "
+        f"{tick_note(peaks, cfg, params, caches, tick_ms)}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"(host clock, synchronized; medians of 3 and 5) on {card}; "
+        f"request 0: {tokens[0]}")
+    profile_tick(cfg, params, caches, tick_tokens, plen,
+                 f"{what.split()[0]} decode tick", tick_ms,
+                 top=8 if cfg.moe else 3)
+
+
+def profile_tick(cfg, params, caches, tick_tokens, tick_pos, what,
+                 wall_tick_ms, top=8):
+    """One decode tick under ``torch.profiler``: device time by op (the
+    ``top`` rows) and the device's busy share of the tick's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.decode_step(cfg, params, caches, tick_tokens, tick_pos)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        if dev > 0 and not ev.key.startswith(("aten::", "Activity")):
+            rows.append((dev, ev.key, ev.count))
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, f"the profiler saw no device time in the {what}")
+    for dev, key, count in sorted(rows, reverse=True)[:top]:
+        log(f"lm families profile {what}: {dev:10.1f} us device "
+            f"x{count:<4d} ({dev / busy:.4f}) {key[:70]}")
+    log(f"lm families profile {what}: device busy {busy:.1f} us in "
+        f"{sum(r[2] for r in rows)} kernels, {busy / 1e3 / wall_tick_ms:.3f}"
+        f" of the tick's unprofiled wall ({wall_tick_ms:.2f} ms)")
+
+
+def dbrx_family(peaks, card):
+    """dbrx cut to ``DBRX_LAYERS`` layers, bf16, MoE on: ``LM_TRACE``
+    twice (check 1), the tick's profile, and both dispatch modes' first
+    prefill (check 4)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models.transformer import moe_num_groups
+    cfg = family_config(DBRX, n_layers=DBRX_LAYERS)
+    check(cfg.moe is not None and cfg.moe_dispatch == "einsum"
+          and cfg.dtype("param") == torch.bfloat16,
+          f"{DBRX} cut: MoE {cfg.moe}, dispatch {cfg.moe_dispatch}, params "
+          f"{cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"lm families: {DBRX} cut to {cfg.n_layers} of 40 layers, MoE "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} capacity "
+        f"{cfg.moe.capacity_factor}, d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}: {n} bf16 params drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    served_family(peaks, card, cfg, params, LM_TRACE, f"{DBRX} serve")
+    prompt = lm_trace(cfg)[0].prompt
+    batch = {"tokens": torch.as_tensor(prompt[None, :], device="cuda")}
+    scatter = dataclasses.replace(cfg, moe_dispatch="scatter")
+    logits, times = {}, {}
+    for name, c in (("einsum", cfg), ("scatter", scatter)):
+        logits[name] = api.prefill_step(c, params, batch)[0].double()
+        times[name] = wall_ms(lambda: api.prefill_step(c, params, batch), 3)
+    d = logits["scatter"] - logits["einsum"]
+    rel = float(d.norm() / logits["einsum"].norm())
+    same = bool(torch.equal(logits["scatter"].argmax(-1),
+                            logits["einsum"].argmax(-1)))
+    check(rel <= DISPATCH_REL_L2 and same,
+          f"{DBRX}: scatter's first prefill logits against einsum's: "
+          f"relative L2 {rel:.3e} (limit {DISPATCH_REL_L2}), same argmax "
+          f"{same}")
+    log(f"{DBRX} dispatch modes at full width (prompt "
+        f"{LM_TRACE['prompt_len']}, {moe_num_groups(LM_TRACE['prompt_len'])}"
+        f" groups): scatter's logits within "
+        f"relative L2 {rel:.3e} <= {DISPATCH_REL_L2} of einsum's (max abs "
+        f"{float(d.abs().max()):.3e}, same argmax); prefill einsum "
+        f"{times['einsum']:.1f} ms, scatter {times['scatter']:.1f} ms "
+        f"(host clock, synchronized; medians of 3) on {card}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def rwkv_family(peaks, card):
+    """rwkv6-3b whole (f32 params, bf16 compute): ``RWKV_TRACE`` twice."""
+    import torch
+    from repro_torch.models import api
+    cfg = family_config(RWKV)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"lm families: {RWKV} whole ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, head size {cfg.rwkv.head_size}): {n} f32 params "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s; the time "
+        f"loop runs {RWKV_TRACE['prompt_len']} steps a layer a prefill")
+    served_family(peaks, card, cfg, params, RWKV_TRACE, f"{RWKV} serve")
+    del params
+    torch.cuda.empty_cache()
+
+
+def embed_family(peaks, card, cfg, inputs, steps, pad_to, what):
+    """Check 1 and the times for an embedding-input family: a prefill on
+    ``inputs`` then ``steps`` decode steps (seeded embeddings for a
+    decoder-only stack, the greedy token for the encoder-decoder), run
+    twice: the same greedy tokens, no kernel launched."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"lm families: {what} ({cfg.n_layers} decoder layers"
+        f"{f', {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
+        f", d_model {cfg.d_model}): {n} {cfg.param_dtype} params drawn on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        rng = np.random.default_rng(SEED + 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, caches, s = api.prefill_step(cfg, params, inputs,
+                                             pad_to=pad_to)
+        out = [logits.argmax(-1)]
+        ticks = []
+        for i in range(steps):
+            nxt = step_input(cfg, logits, rng, "cuda")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            logits, caches = api.decode_step(cfg, params, caches, nxt, s + i)
+            out.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t2) * 1e3)
+        wall = time.perf_counter() - t1
+        return torch.stack(out, 1).cpu(), (caches, logits), ticks, wall, s
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    tokens, _, _, wall1, _ = run()
+    torch.cuda.synchronize()
+    check(cuda.launch_counts() == {}, f"{what}: launched "
+                                      f"{cuda.launch_counts()}")
+    tokens2, (caches, last), ticks, wall, s = run()
+    check(tuple(tokens.shape) == (inputs[next(iter(inputs))].shape[0],
+                                  steps + 1)
+          and torch.equal(tokens, tokens2),
+          f"{what}: the second run's greedy tokens differ")
+    prefill_ms = wall_ms(lambda: api.prefill_step(cfg, params, inputs,
+                                                  pad_to=pad_to), 3)
+    tick_ms = statistics.median(ticks)
+    n_tok = tokens.numel()
+    log(f"{what}: prefill on {', '.join(f'{k} {tuple(v.shape)}' for k, v in inputs.items())}"
+        f" then {steps} decode steps, twice: the same greedy tokens, no "
+        f"kernel launched; {n_tok / wall:.1f} tokens/s ({n_tok} tokens in "
+        f"{wall:.3f} s, second run; first {n_tok / wall1:.1f}), prefill "
+        f"{prefill_ms:.1f} ms, "
+        f"{tick_note(peaks, cfg, params, caches, tick_ms)}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (host clock, "
+        f"synchronized; medians of 3 and {steps}) on {card}; row 0: "
+        f"{tokens[0].tolist()}")
+    # the last step again (its cache row rewritten), profiled
+    profile_tick(cfg, params, caches, step_input(
+        cfg, last, np.random.default_rng(SEED), "cuda"), s + steps - 1,
+        f"{what.split()[0]} decode tick", tick_ms, top=3)
+    del params, caches, last
+    torch.cuda.empty_cache()
+
+
+def family_seq_vs_step(card):
+    """Check 3: rwkv, llava and seamless at full width in f32, cut to
+    ``SEQ_FAMILY_LAYERS`` layers: a prefill over S+1 positions gives the
+    last-position logits of a prefill over S followed by one
+    ``decode_step`` (relative L2 <= ``HANDOFF_REL_L2``, same argmax)."""
+    import torch
+    from repro_torch.models import api
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               logit_dtype="float32")
+    cases = ((RWKV, dict(n_layers=SEQ_FAMILY_LAYERS)),
+             (LLAVA, dict(n_layers=SEQ_FAMILY_LAYERS)),
+             (SEAMLESS, dict(n_layers=SEQ_FAMILY_LAYERS,
+                             enc_layers=SEQ_FAMILY_LAYERS)))
+    for arch, cut in cases:
+        cfg = family_config(arch, **cut, **f32)
+        params = api.init_params(cfg, SEED, device="cuda")
+        batch = prefill_inputs(cfg, 2, SEQ_FAMILY_LEN + 1, "cuda")
+        key = "tokens" if "tokens" in batch else "embeds"
+        full = api.prefill_step(cfg, params, batch)[0].double()
+        head = dict(batch, **{key: batch[key][:, :-1]})
+        _, caches, s = api.prefill_step(cfg, params, head,
+                                        pad_to=SEQ_FAMILY_LEN + 1)
+        step = api.decode_step(cfg, params, caches, batch[key][:, -1:],
+                               s)[0].double()
+        rel = float((step - full).norm() / full.norm())
+        same = bool(torch.equal(step.argmax(-1), full.argmax(-1)))
+        check(rel <= HANDOFF_REL_L2 and same,
+              f"{arch} f32 seq vs step: relative L2 {rel:.3e}, same argmax "
+              f"{same} (limit {HANDOFF_REL_L2})")
+        log(f"lm families seq vs step, {arch} f32 at full width cut to "
+            f"{SEQ_FAMILY_LAYERS} layers: prefill over "
+            f"{SEQ_FAMILY_LEN + 1} positions against {SEQ_FAMILY_LEN} + one "
+            f"decode step, relative L2 {rel:.3e} <= {HANDOFF_REL_L2}, same "
+            f"argmax")
+        del params, caches
+        torch.cuda.empty_cache()
+
+
+def lm_families_phase(peaks, card):
+    """The nineteenth slice's path: MoE (dbrx), RWKV-6, embedding inputs
+    (llava) and the encoder-decoder (seamless) at full width, then checks
+    2 and 3.  Prints the phase's wall time."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dbrx_family(peaks, card)
+    rwkv_family(peaks, card)
+    llava = family_config(LLAVA, n_layers=LLAVA_LAYERS)
+    embed_family(peaks, card, llava,
+                 prefill_inputs(llava, LLAVA_CASE["batch"],
+                                LLAVA_CASE["prompt"], "cuda"),
+                 LLAVA_CASE["steps"],
+                 LLAVA_CASE["prompt"] + LLAVA_CASE["steps"],
+                 f"{LLAVA} cut to {LLAVA_LAYERS} of 60 layers, bf16")
+    seamless = family_config(SEAMLESS)
+    inputs = prefill_inputs(seamless, SEAMLESS_CASE["batch"],
+                            SEAMLESS_CASE["frames"], "cuda")
+    inputs["tokens"] = inputs["tokens"][:, :SEAMLESS_CASE["prompt"]]
+    embed_family(peaks, card, seamless, inputs, SEAMLESS_CASE["steps"],
+                 SEAMLESS_CASE["pad_to"], f"{SEAMLESS} whole")
+    del inputs
+    smoke_family_checks(card)
+    family_seq_vs_step(card)
+    log(f"lm families: phase wall {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+
+
+def _paths(tree, prefix=""):
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}")
     else:
-        yield tree
+        yield prefix, tree
+
+
+def _leaves(tree):
+    return (t for _, t in _paths(tree))
 
 
 def main() -> int:
@@ -5619,6 +6104,7 @@ def main() -> int:
 
     launches["selective_scan"], rows["selective_scan"] = lm_serve_phase(
         peaks, card, errs)
+    lm_families_phase(peaks, card)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "kernel": KERNEL[name],

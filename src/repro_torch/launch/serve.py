@@ -10,9 +10,13 @@ appends in place), decode advances all live slots one token per tick at
 one uniform position, finished slots are immediately refilled from the
 queue (continuous batching).  Greedy sampling; per-slot position
 bookkeeping.  ``serve_requests`` is the loop for a given config and
-params; ``serve(argv)`` is the command-line front end, whose params come
-from a ``torch.Generator`` seeded with ``--seed`` and whose prompts come
-from ``np.random.default_rng(seed)`` as in the reference.
+params, for every token-in architecture (dense, MoE, hybrid, rwkv);
+``serve(argv)`` is the command-line front end, whose params come from a
+``torch.Generator`` seeded with ``--seed`` and whose prompts come from
+``np.random.default_rng(seed)`` as in the reference.  Dead slots decode
+too (and, under MoE, compete for expert capacity), as in the reference;
+the command line refuses an ``embed_inputs`` architecture, as the
+reference's does.
 
 The batched caches are owned by the loop: a slot's prefill cache is
 written into its row in place.

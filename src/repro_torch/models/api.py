@@ -1,24 +1,25 @@
-"""Model API, serving subset (``repro/models/api.py``).
+"""Model API over decoder-only and encoder-decoder stacks, serving
+subset (``repro/models/api.py``).
 
   init_params(cfg, generator, device=)
   prefill_step / decode_step / init_decode_caches
 
-The decoder-only stack serves dense and hybrid configs.  Training
-(``loss_fn``, ``init_train_state``, ``train_step``) and the
-encoder-decoder family are ROADMAP queue 1, item 12 and raise
+Every architecture of ``configs.ARCH_NAMES`` serves: dense, MoE, hybrid
+and ssm through ``transformer``, the encoder-decoder family through
+``encdec``.  Training (``loss_fn``, ``init_train_state``,
+``train_step``) is ROADMAP queue 1, item 12 and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
-from repro_torch.models.transformer import UNPORTED
+from repro_torch.models import encdec, transformer
+
+UNPORTED = "is not ported yet (ROADMAP queue 1, item 12)"
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"the encoder-decoder family {UNPORTED}")
-    return transformer
+    return encdec if cfg.family == "encdec" else transformer
 
 
 def init_params(cfg: ModelConfig, generator=0, *, device=None):

@@ -1,0 +1,196 @@
+"""Encoder-decoder stack (``repro/models/encdec.py``; seamless-m4t's
+backbone).
+
+Encoder: non-causal attention blocks over precomputed frame embeddings
+(the modality frontend is a stub, as in the reference).  Decoder: causal
+self-attention + cross-attention to the encoder output + FFN.
+Cross-attention K/V are computed once at prefill and frozen.  Layer
+params carry a leading layer axis, as the reference's trees do, and the
+layers run in a Python loop.
+
+Serving steps: ``prefill`` (encode, then a teacher-forced decoder pass
+collecting caches) and ``decode_step`` (one decoder token).  The
+training loss is ROADMAP queue 1, item 12.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
+                                       init_embed, init_ffn, init_norm,
+                                       lm_logits)
+from repro_torch.models.frontends import resolve_device
+from repro_torch.models.transformer import _group, _sinusoidal, _stack
+
+
+def _init_enc_block(cfg, gen, prefix, device):
+    return {"ln1": init_norm(cfg, prefix, device),
+            "attn": attn_mod.init_attn(cfg, gen, prefix, device),
+            "ln2": init_norm(cfg, prefix, device),
+            "ffn": init_ffn(cfg, gen, prefix, device=device)}
+
+
+def _init_dec_block(cfg, gen, prefix, device):
+    return {"ln1": init_norm(cfg, prefix, device),
+            "self_attn": attn_mod.init_attn(cfg, gen, prefix, device),
+            "ln_x": init_norm(cfg, prefix, device),
+            "cross_attn": attn_mod.init_attn(cfg, gen, prefix, device),
+            "ln2": init_norm(cfg, prefix, device),
+            "ffn": init_ffn(cfg, gen, prefix, device=device)}
+
+
+def init_params(cfg: ModelConfig, generator=0, *,
+                device=None) -> Dict[str, Any]:
+    """Random params in the reference's tree (see
+    ``transformer.init_params``; carry a reference tree across with
+    ``transformer.params_from_numpy``)."""
+    dev = resolve_device(device)
+    gen = (generator if isinstance(generator, torch.Generator)
+           else torch.Generator(device=dev).manual_seed(int(generator)))
+    params = init_embed(cfg, gen, dev)
+    params["enc_blocks"] = _init_enc_block(cfg, gen, (cfg.enc_layers,), dev)
+    params["dec_blocks"] = _init_dec_block(cfg, gen, (cfg.n_layers,), dev)
+    params["enc_norm"] = init_norm(cfg, (), dev)
+    params["final_norm"] = init_norm(cfg, (), dev)
+    return params
+
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def encode(cfg: ModelConfig, params, embeds):
+    """embeds: (B, S_enc, D) precomputed frame embeddings (stub frontend)."""
+    B, S, _ = embeds.shape
+    x = embeds.to(cfg.dtype("compute"))
+    positions = _positions(B, S, x.device)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(cfg, positions)
+    for g in range(cfg.enc_layers):
+        p = _group(params["enc_blocks"], g)
+        h = apply_norm(cfg, p["ln1"], x)
+        out, _ = attn_mod.attn_block(cfg, p["attn"], h, positions,
+                                     causal=False)
+        x = x + out.to(x.dtype)
+        h2 = apply_norm(cfg, p["ln2"], x)
+        x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+def _cross_attn(cfg: ModelConfig, p, x, enc_out):
+    """Full (non-cached) cross-attention: q from x, k/v from enc_out."""
+    cd = cfg.dtype("compute")
+    B, S, _ = x.shape
+    Se = enc_out.shape[1]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dh->bsh", x.to(cd),
+                     p["wq"].to(cd)).reshape(B, S, Hq, Dh)
+    k = torch.einsum("bsd,dh->bsh", enc_out.to(cd),
+                     p["wk"].to(cd)).reshape(B, Se, Hkv, Dh)
+    v = torch.einsum("bsd,dh->bsh", enc_out.to(cd),
+                     p["wv"].to(cd)).reshape(B, Se, Hkv, Dh)
+    o = attn_mod.full_attention(cfg, q, k, v, causal=False)
+    return attn_mod._merge_heads(cfg, p, o), k, v
+
+
+def decode_full(cfg: ModelConfig, params, enc_out, tokens,
+                collect_cache: bool = False):
+    """Teacher-forced decoder pass. tokens: (B, S_dec)."""
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = _positions(B, S, x.device)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(cfg, positions)
+    caches = []
+    for g in range(cfg.n_layers):
+        p = _group(params["dec_blocks"], g)
+        h = apply_norm(cfg, p["ln1"], x)
+        out, (k, v) = attn_mod.attn_block(cfg, p["self_attn"], h, positions,
+                                          causal=True)
+        x = x + out.to(x.dtype)
+        hx = apply_norm(cfg, p["ln_x"], x)
+        out, ck, cv = _cross_attn(cfg, p["cross_attn"], hx, enc_out)
+        x = x + out.to(x.dtype)
+        h2 = apply_norm(cfg, p["ln2"], x)
+        x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+        if collect_cache:
+            caches.append({"k": k, "v": v, "xk": ck, "xv": cv})
+    x = apply_norm(cfg, params["final_norm"], x)
+    return x, (_stack(caches) if collect_cache else None)
+
+
+def prefill(cfg: ModelConfig, params, batch, *, pad_to=None):
+    """batch: {"embeds": (B, S_enc, D), "tokens": (B, S_dec)}.  Returns
+    (last_logits, caches, next_pos); ``pad_to`` pads the self-attention
+    k/v (not the frozen cross-attention xk/xv) to that length."""
+    enc_out = encode(cfg, params, batch["embeds"])
+    x, caches = decode_full(cfg, params, enc_out, batch["tokens"],
+                            collect_cache=True)
+    logits = lm_logits(cfg, params, x[:, -1:, :])[:, 0]
+    S = batch["tokens"].shape[1]
+    if pad_to and pad_to > S:
+        pad = pad_to - S
+        for key in ("k", "v"):   # (L, B, S, Hkv, Dh)
+            caches[key] = torch.nn.functional.pad(
+                caches[key], (0, 0, 0, 0, 0, pad))
+    return logits, caches, S
+
+
+def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
+    """One decoder token. caches: {'k','v' (L,B,S,Hkv,Dh), 'xk','xv'};
+    the caches passed in are not written."""
+    B = tokens.shape[0]
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(cfg, attn_mod.positions_b1(pos, B, x.device))
+    outs = []
+    for g in range(cfg.n_layers):
+        p = _group(params["dec_blocks"], g)
+        c = _group(caches, g)
+        h = apply_norm(cfg, p["ln1"], x)
+        out, ck, cv = attn_mod.decode_attn(cfg, p["self_attn"], h,
+                                           c["k"], c["v"], pos)
+        x = x + out.to(x.dtype)
+        hx = apply_norm(cfg, p["ln_x"], x)
+        x = x + _cached_cross_attn(cfg, p["cross_attn"], hx, c["xk"],
+                                   c["xv"]).to(x.dtype)
+        h2 = apply_norm(cfg, p["ln2"], x)
+        x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+        outs.append({"k": ck, "v": cv, "xk": c["xk"], "xv": c["xv"]})
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = lm_logits(cfg, params, x)[:, 0]
+    return logits, _stack(outs)
+
+
+def _cached_cross_attn(cfg: ModelConfig, p, x, k, v):
+    """One query token against the frozen cross-attention cache, the
+    softmax in f32."""
+    cd = cfg.dtype("compute")
+    f32 = torch.float32
+    B = x.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = Hq // Hkv
+    q = torch.einsum("bsd,dh->bsh", x.to(cd),
+                     p["wq"].to(cd)).reshape(B, Hkv, g, Dh)
+    qf = q.to(f32) * Dh ** -0.5
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k.to(f32))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", w, v.to(f32))
+    o = o.reshape(B, 1, Hq, Dh).to(x.dtype)
+    return attn_mod._merge_heads(cfg, p, o)
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                       device=None):
+    """Zero caches with a leading layer axis on ``device`` (``None`` =
+    ``cuda``); the cross-attention caches take ``max_len`` frames, as
+    the reference's."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cd = cfg.dtype("compute")
+    return {key: torch.zeros(shape, dtype=cd, device=dev)
+            for key in ("k", "v", "xk", "xv")}

@@ -1,15 +1,25 @@
-"""CNN vision frontend — the adaptive-IP image stem the server runs.
+"""Modality frontends + input spec providers
+(``repro/models/frontends.py``).
 
-Every conv/pool/activation of every block is dispatched through the
-resource-driven planner, and the pooled feature map is flattened to the
-(B, S, d_model) patch-embedding contract.  The LM-side input specs of
-``repro.models.frontends`` are ROADMAP queue 1, item 12.
+The [audio]/[vlm] archs specify the transformer backbone only:
+``input_specs()`` provides precomputed frame/patch embeddings.  The CNN
+vision frontend is the exception — the adaptive-IP image stem the
+server runs: every conv/pool/activation of every block is dispatched
+through the resource-driven planner, and the pooled feature map is
+flattened to the (B, S, d_model) patch-embedding contract.
+``input_specs`` / ``make_inputs`` say what each (arch x shape x
+step-kind) consumes: abstract specs are ``device="meta"`` tensors, and
+concrete inputs are drawn from ``np.random.default_rng(seed)`` in the
+reference's order, so both packages get the same numbers.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.ip import dtype_name
 
 
@@ -28,6 +38,61 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device=\"cpu\" to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig,
+                shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Abstract inputs (``meta`` tensors) for the step implied by
+    ``shape.kind``; token ids are int32, as the reference's."""
+    B, S = shape.global_batch, shape.seq_len
+    cd = cfg.dtype("compute")
+    i32 = torch.int32
+    if shape.kind == "train":
+        if cfg.family == "encdec":
+            return {"embeds": _spec((B, S, cfg.d_model), cd),
+                    "tokens": _spec((B, S), i32),
+                    "labels": _spec((B, S), i32)}
+        if cfg.embed_inputs:
+            return {"embeds": _spec((B, S, cfg.d_model), cd),
+                    "labels": _spec((B, S), i32)}
+        return {"tokens": _spec((B, S), i32), "labels": _spec((B, S), i32)}
+    if shape.kind == "prefill":
+        if cfg.family == "encdec":
+            return {"embeds": _spec((B, S, cfg.d_model), cd),
+                    "tokens": _spec((B, S), i32)}
+        if cfg.embed_inputs:
+            return {"embeds": _spec((B, S, cfg.d_model), cd)}
+        return {"tokens": _spec((B, S), i32)}
+    # decode: one new token against a cache of S (caches built separately)
+    return {"tokens": _spec((B, 1), i32)}
+
+
+def make_inputs(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
+                abstract: bool = True,
+                device=None) -> Dict[str, torch.Tensor]:
+    """``input_specs`` when ``abstract``, else tensors on ``device``
+    (``None`` = ``cuda``) drawn spec by spec from
+    ``np.random.default_rng(seed)``: token ids in [0, vocab), floats
+    N(0, 1) in f32, then cast to the spec's dtype."""
+    specs = input_specs(cfg, shape)
+    if abstract:
+        return specs
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, s in specs.items():
+        if not s.dtype.is_floating_point:
+            a = rng.integers(0, cfg.vocab_size, tuple(s.shape),
+                             dtype=np.int32)
+            out[name] = torch.from_numpy(a).to(dev)
+        else:
+            a = rng.normal(0, 1, tuple(s.shape)).astype(np.float32)
+            out[name] = torch.from_numpy(a).to(dtype=s.dtype, device=dev)
+    return out
 
 
 def init_cnn_frontend(generator=0, *, channels=(3, 16, 32), k: int = 3,

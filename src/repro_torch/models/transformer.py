@@ -1,5 +1,6 @@
-"""Decoder-only stack (``repro/models/transformer.py``): dense and hybrid
-(jamba's attention + mamba) serving.
+"""Decoder-only stack (``repro/models/transformer.py``) covering dense /
+MoE / hybrid (mamba) / ssm (rwkv) serving, with token or
+precomputed-embedding (``embed_inputs``) inputs.
 
 Layers are grouped into a repeating *period* P (1 for homogeneous
 stacks; 8 for jamba's 1-attn:7-mamba; lcm with moe_every for MoE
@@ -12,9 +13,8 @@ Serving steps:
   prefill       — forward returning per-layer caches + last-pos logits
   decode_step   — one token through cached layers
 
-Not ported (ROADMAP queue 1, item 12): the rwkv sub-block, MoE FFNs,
-precomputed-embedding inputs (``embed_inputs``), the encoder-decoder
-family and the training loss; they raise ``NotImplementedError``.
+The training loss is ROADMAP queue 1, item 12 (``models/api.py``
+raises ``NotImplementedError`` for it).
 """
 from __future__ import annotations
 
@@ -27,12 +27,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
                                        init_embed, init_ffn, init_norm,
                                        lm_logits)
 from repro_torch.models.frontends import resolve_device
-
-UNPORTED = "is not ported yet (ROADMAP queue 1, item 12)"
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 # ---------------------------------------------------------------------------
@@ -57,18 +57,12 @@ def period_pattern(cfg: ModelConfig):
     return out
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not serve."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"the encoder-decoder family {UNPORTED}")
-    if cfg.embed_inputs:
-        raise NotImplementedError(f"embed_inputs=True (precomputed "
-                                  f"embeddings) {UNPORTED}")
-    for kind, use_moe in period_pattern(cfg):
-        if kind == "rwkv":
-            raise NotImplementedError(f"the rwkv sub-block {UNPORTED}")
-        if use_moe:
-            raise NotImplementedError(f"MoE FFNs {UNPORTED}")
+def moe_num_groups(n_tokens: int) -> int:
+    if n_tokens >= 16_384:
+        return n_tokens // 1_024
+    if n_tokens >= 16 and n_tokens % 16 == 0:
+        return 16
+    return 1
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -93,14 +87,22 @@ def _stack(trees):
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _init_sub(cfg: ModelConfig, gen, kind: str, prefix, device):
+def _init_sub(cfg: ModelConfig, gen, kind: str, use_moe: bool, prefix,
+              device):
     p: Dict[str, Any] = {"ln1": init_norm(cfg, prefix, device)}
     if kind == "attn":
         p["attn"] = attn_mod.init_attn(cfg, gen, prefix, device)
-    else:
+    elif kind == "mamba":
         p["mamba"] = mamba_mod.init_mamba(cfg, gen, prefix, device)
+    else:  # rwkv
+        p["rwkv_tm"] = rwkv_mod.init_rwkv_tm(cfg, gen, prefix, device)
     p["ln2"] = init_norm(cfg, prefix, device)
-    p["ffn"] = init_ffn(cfg, gen, prefix, device=device)
+    if kind == "rwkv":
+        p["rwkv_cm"] = rwkv_mod.init_rwkv_cm(cfg, gen, prefix, device)
+    elif use_moe:
+        p["moe"] = init_moe(cfg, gen, prefix, device)
+    else:
+        p["ffn"] = init_ffn(cfg, gen, prefix, device=device)
     return p
 
 
@@ -110,15 +112,14 @@ def init_params(cfg: ModelConfig, generator=0, *, device=None) -> Dict[str, Any]
     ``None`` = ``cuda``).  The numbers differ from the reference's
     ``jax.random``: carry a reference tree across with
     ``params_from_numpy``."""
-    check_ported(cfg)
     dev = resolve_device(device)
     gen = (generator if isinstance(generator, torch.Generator)
            else torch.Generator(device=dev).manual_seed(int(generator)))
     n_groups = _n_groups(cfg)
     params = init_embed(cfg, gen, dev)
     params["blocks"] = {
-        f"sub{i}": _init_sub(cfg, gen, kind, (n_groups,), dev)
-        for i, (kind, _) in enumerate(period_pattern(cfg))}
+        f"sub{i}": _init_sub(cfg, gen, kind, use_moe, (n_groups,), dev)
+        for i, (kind, use_moe) in enumerate(period_pattern(cfg))}
     params["final_norm"] = init_norm(cfg, (), dev)
     return params
 
@@ -153,12 +154,16 @@ def _sinusoidal(cfg: ModelConfig, positions):
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch):
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    if cfg.embed_inputs:
+        x = batch["embeds"].to(cfg.dtype("compute"))
+        B, S = x.shape[:2]
+    else:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_tokens(cfg, params, tokens)
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        positions = torch.arange(S, device=x.device).expand(B, S)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(cfg, positions)
     return x, positions
@@ -166,8 +171,7 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
 
 def _apply_sub(cfg: ModelConfig, p, x, positions, kind: str, use_moe: bool,
                collect_cache: bool, causal: bool = True):
-    """One sub-block of a config ``check_ported`` accepts (kind "attn"
-    or "mamba", dense FFN). Returns (x, aux, cache)."""
+    """One sub-block. Returns (x, aux, cache)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["ln1"], x)
     cache = {}
@@ -177,13 +181,34 @@ def _apply_sub(cfg: ModelConfig, p, x, positions, kind: str, use_moe: bool,
         if collect_cache:
             cache = {"k": k.to(cfg.dtype("compute")),
                      "v": v.to(cfg.dtype("compute"))}
-    elif collect_cache:
-        out, cache = mamba_mod.mamba_forward_with_cache(cfg, p["mamba"], h)
-    else:
-        out = mamba_mod.mamba_forward(cfg, p["mamba"], h)
+    elif kind == "mamba":
+        if collect_cache:
+            out, cache = mamba_mod.mamba_forward_with_cache(cfg, p["mamba"],
+                                                            h)
+        else:
+            out = mamba_mod.mamba_forward(cfg, p["mamba"], h)
+    else:  # rwkv: from a zero state; the cache holds the normed last x
+        st = rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.device)
+        out, _, state = rwkv_mod.rwkv_time_mix(cfg, p["rwkv_tm"], h,
+                                               st["tm_x"], st["state"])
+        if collect_cache:
+            cache = {"state": state, "tm_x": h[:, -1, :]}
     x = x + out.to(x.dtype)
     h2 = apply_norm(cfg, p["ln2"], x)
-    x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    if kind == "rwkv":
+        out2, _ = rwkv_mod.rwkv_channel_mix(
+            cfg, p["rwkv_cm"], h2,
+            torch.zeros((x.shape[0], cfg.d_model), dtype=h2.dtype,
+                        device=x.device))
+        if collect_cache:   # keys in the reference's tree (sorted) order
+            cache = {"cm_x": h2[:, -1, :], **cache}
+    elif use_moe:
+        n_tokens = x.shape[0] * x.shape[1]
+        out2, aux = apply_moe(cfg, p["moe"], h2,
+                              num_groups=moe_num_groups(n_tokens))
+    else:
+        out2 = apply_ffn(cfg, p["ffn"], h2)
+    x = x + out2.to(x.dtype)
     return x, aux, cache
 
 
@@ -194,7 +219,6 @@ def _group(tree, g: int):
 def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
             causal: bool = True):
     """Returns (hidden (B,S,D), aux_loss, caches | None)."""
-    check_ported(cfg)
     period = period_pattern(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -223,7 +247,7 @@ def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None):
     """
     x, _, caches = forward(cfg, params, batch, collect_cache=True)
     logits = lm_logits(cfg, params, x[:, -1:, :])[:, 0]
-    S = batch["tokens"].shape[1]
+    S = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[1]
     if pad_to and pad_to > S:
         pad = pad_to - S
 
@@ -240,15 +264,18 @@ def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None):
 
 
 def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
-    """One token step. tokens: (B, 1); pos: scalar or (B,) positions.
+    """One token step. tokens: (B, 1) (or embeds (B, 1, D) for an
+    ``embed_inputs`` config); pos: scalar or (B,) positions.
 
     caches: leading group axis (as produced by prefill or
     ``init_decode_caches``).  Returns (logits (B, V), new_caches); the
     caches passed in are not written."""
-    check_ported(cfg)
     period = period_pattern(cfg)
     B = tokens.shape[0]
-    x = embed_tokens(cfg, params, tokens)
+    if cfg.embed_inputs and tokens.dim() == 3:
+        x = tokens.to(cfg.dtype("compute"))
+    else:
+        x = embed_tokens(cfg, params, tokens)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(cfg, attn_mod.positions_b1(pos, B, x.device))
     outs = []
@@ -256,7 +283,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
         gp = _group(params["blocks"], g)
         gc = _group(caches, g)
         new_cache = {}
-        for i, (kind, _) in enumerate(period):
+        for i, (kind, use_moe) in enumerate(period):
             p = gp[f"sub{i}"]
             c = gc[f"sub{i}"]
             h = apply_norm(cfg, p["ln1"], x)
@@ -264,11 +291,26 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
                 out, ck, cv = attn_mod.decode_attn(cfg, p["attn"], h,
                                                    c["k"], c["v"], pos)
                 nc = {"k": ck, "v": cv}
-            else:
+            elif kind == "mamba":
                 out, nc = mamba_mod.mamba_step(cfg, p["mamba"], h, c)
+            else:  # rwkv
+                out, _, state = rwkv_mod.rwkv_time_mix(
+                    cfg, p["rwkv_tm"], h, c["tm_x"], c["state"])
+                nc = {"state": state, "tm_x": h[:, -1, :]}
             x = x + out.to(x.dtype)
             h2 = apply_norm(cfg, p["ln2"], x)
-            x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+            if kind == "rwkv":
+                out2, _ = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv_cm"], h2,
+                                                    c["cm_x"])
+                nc = {"cm_x": h2[:, -1, :], **nc}
+            elif use_moe:
+                # dead serving slots take part and compete for capacity,
+                # as in the reference
+                out2, _ = apply_moe(cfg, p["moe"], h2,
+                                    num_groups=moe_num_groups(B))
+            else:
+                out2 = apply_ffn(cfg, p["ffn"], h2)
+            x = x + out2.to(x.dtype)
             new_cache[f"sub{i}"] = nc
         outs.append(new_cache)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -280,7 +322,6 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                        device=None):
     """Zero caches with leading group axis on ``device`` (``None`` =
     ``cuda``)."""
-    check_ported(cfg)
     dev = resolve_device(device)
     n_groups = _n_groups(cfg)
     cd = cfg.dtype("compute")
@@ -291,12 +332,20 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,
             shape = (n_groups, batch, max_len, Hkv, Dh)
             return {"k": torch.zeros(shape, dtype=cd, device=dev),
                     "v": torch.zeros(shape, dtype=cd, device=dev)}
-        mc = cfg.mamba
-        return {"conv": torch.zeros((n_groups, batch, mc.d_conv - 1,
-                                     cfg.d_inner), dtype=cd, device=dev),
-                "ssm": torch.zeros((n_groups, batch, cfg.d_inner,
-                                    mc.d_state), dtype=torch.float32,
-                                   device=dev)}
+        if kind == "mamba":
+            mc = cfg.mamba
+            return {"conv": torch.zeros((n_groups, batch, mc.d_conv - 1,
+                                         cfg.d_inner), dtype=cd, device=dev),
+                    "ssm": torch.zeros((n_groups, batch, cfg.d_inner,
+                                        mc.d_state), dtype=torch.float32,
+                                       device=dev)}
+        H, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+        return {"cm_x": torch.zeros((n_groups, batch, cfg.d_model),
+                                    dtype=cd, device=dev),
+                "state": torch.zeros((n_groups, batch, H, hs, hs),
+                                     dtype=torch.float32, device=dev),
+                "tm_x": torch.zeros((n_groups, batch, cfg.d_model),
+                                    dtype=cd, device=dev)}
 
     return {f"sub{i}": one(kind)
             for i, (kind, _) in enumerate(period_pattern(cfg))}
