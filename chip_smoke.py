@@ -153,9 +153,10 @@ and prints no result):
    coefficient >= 0, the fits printed; (b) the reference's premise
    (``benchmarks/run.py::table_calibration``) at full width: each pair
    of feasible arms at batch 4 (11) timed end to end through
-   ``apply_cnn_frontend(network=)`` in ``CAL_WINDOWS`` alternating
-   windows; on every pair the stopwatch decides (one arm's slowest
-   window beats the other's fastest; at least ``CAL_MIN_DECIDED``) the
+   ``apply_cnn_frontend(network=)`` in ``CAL_WINDOWS`` windows, the
+   arms' calls interleaved; on every pair the stopwatch decides (one
+   arm's median below the other's in every window; at least
+   ``CAL_MIN_DECIDED``) the
    calibrated preference equals the measured one, and where it prefers
    unfused the calibrated plan has no fused site; (c) the sites whose
    member or rung the table moves, logged; (d) ``ladder_fused`` served
@@ -320,6 +321,25 @@ and prints no result):
    width cut to ``SEQ_FAMILY_LAYERS`` layers, a prefill over S + 1
    positions against a prefill over S and one decode step
    (``HANDOFF_REL_L2``, check 3).
+8. train (``train_phase``) — training on one card: (a) the selective
+   scan's backward (``selective_scan_bwd``, one launch of
+   ``selective_scan_bwd_kernel`` and its two reductions) bitwise equal to
+   its plain version at ``SCAN_SITE``, ``SCAN_FULL_CASES``,
+   ``SCAN_SMALL_CASES`` and ``SCAN_DS_CASES`` with ``dh`` given and
+   ``None``, at full width within
+   ``BWD_F64_TOL`` of the recurrence's gradient in f64; its time, plain
+   time and bound; (b) every smoke config of ``smoke_families`` takes
+   one ``api.train_step`` on the card and on the CPU (loss, grad_norm
+   and grads within ``FAMILY_TOL``, params within the CPU tests' bar;
+   only jamba launches kernels); (c) llama3.2-1b whole through
+   ``repro_torch.launch.train`` (``TRAIN_LLAMA_ARGS``, one final
+   checkpoint in a temporary directory, removed): losses finite and
+   falling, step ms, tokens/s, save time, peak memory; (d) the main
+   path: ``jamba_period`` in bf16 takes ``TRAIN_JAMBA``'s steps, the
+   counters showing 14 forward and 7 backward scans a step and nothing
+   else, step ms, tokens/s, peak memory and one profiled step; (e) the
+   reference integration test's resume case (exit code 17, "resuming
+   at 17", final loss within ``RESUME_TOL`` of the gold run).
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -330,6 +350,7 @@ IEEE float32, as the port computes).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -413,6 +434,8 @@ REPLACES = {
     "flash_attention (D 512)": "src/repro/kernels/attention/flash.py:77",
     "flash_decode (D 512)": "src/repro/kernels/attention/decode.py:58",
     "selective_scan": "src/repro/kernels/mamba_scan/scan.py:54",
+    # no TPU kernel: the reference takes jax.grad of the lax.scan here
+    "selective_scan_bwd": "src/repro/models/mamba.py:86",
 }
 # The rows of the kernels line that run on the tensor cores: mm_mxu on
 # int8 and bf16 operands ("mm_mxu (int8)", "mm_mxu (bf16)"; its f32 row
@@ -426,7 +449,7 @@ SOURCE = {name: (CSRC_MM_TC if name in TC_ROWS else
                  CSRC_MM if name.startswith("mm_") else
                  CSRC_ATTN_TC if name.startswith("flash_attention") else
                  CSRC_ATTN if name.startswith("flash_") else
-                 CSRC_SCAN if name == "selective_scan" else CSRC)
+                 CSRC_SCAN if name.startswith("selective_scan") else CSRC)
           for name in REPLACES}
 # The CUDA kernel (__global__ function) behind each row of the kernels
 # line, as the row is timed: mm_mxu on f32 runs the CUDA-core kernel,
@@ -461,12 +484,15 @@ KERNEL = {
     "flash_attention (D 512)": "attn_tc_flash_kernel",
     "flash_decode (D 512)": "flash_decode_split_kernel, decode_combine_kernel",
     "selective_scan": "selective_scan_kernel",
+    "selective_scan_bwd": "selective_scan_bwd_kernel, scan_bwd_reduce_bc, "
+                          "scan_bwd_reduce_a",
 }
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
 # as ssm_scan.selective_vmem): no MMA in SASS.
 LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_tiled_kernel",
               "fused_cnn_tiled_kernel", "mm_vpu_kernel",
-              "selective_scan_kernel", "activation_kernel",
+              "selective_scan_kernel", "selective_scan_bwd_kernel",
+              "activation_kernel",
               "activation_lut_kernel", "pool2d_kernel")
 # Kernels of MXU members that run on CUDA cores on this card: the im2col
 # pool (the window pool's body) and f32 flash attention (no IEEE-f32
@@ -693,8 +719,13 @@ CAL_BUDGETS = {"ample": {}, "no_mxu": dict(mxu_available=False),
                "vmem_8MiB": dict(vmem_bytes=8 * 2**20),
                "vpu_500M": dict(vpu_ops_budget=500_000_000)}
 CAL_REPEAT = 5          # timed calls a sample (after one warmup call)
-CAL_WINDOWS = 5         # alternating windows an arm of the premise
-CAL_WINDOW_CALLS = 20   # calls a window (timeit_us's median)
+CAL_WINDOWS = 5         # windows of the premise
+# calls an arm a window, the two arms' calls interleaved one by one: the
+# host's speed drifts by up to 2x for stretches of 100 calls and more, so
+# windows of one arm after the other's compared two host speeds (a run on
+# an H100 decided 5 of the 11 pairs); interleaved, both arms' medians of a
+# window see the same host
+CAL_WINDOW_CALLS = 40
 CAL_MIN_DECIDED = 6     # pairs the stopwatch must decide, of 11
 CAL_MISSCALE = 4.0      # the lying table the drift monitor must flag
 
@@ -759,6 +790,37 @@ SEQ_FAMILY_LEN = 64
 # check 4: dbrx's first prefill logits, scatter against einsum dispatch
 # (bf16): relative L2 within one bf16 step (2^-7), same argmax
 DISPATCH_REL_L2 = 8e-3
+
+
+# "train": training on one card (PERF.md section 4).  (a) the scan's
+# backward against its plain version (bitwise) and, at full width,
+# against the recurrence's gradient in f64: the error's RMS within
+# BWD_F64_TOL["rms"] of each gradient's RMS, its largest element within
+# BWD_F64_TOL["oracle"] times the f32 oracle's (autograd through the
+# oracle's f32 steps, jax.grad's function): an elementwise bar of 1e-4 of
+# the RMS is missed by f32 arithmetic itself at full width (PERF.md
+# section 6); its bound counts per (t, di, s) one exponential and BWD_FP32_OPS FP32
+# operations.  (b) the smoke
+# configs, one step on the card and on the CPU (the optimizer of
+# tests/test_torch_train.py), params within the CPU tests' bar; rwkv's
+# grads against the f64 gradient (RWKV_ERR_FACTOR).  (c) llama3.2-1b
+# whole through launch/train.py; (d) jamba_period, TRAIN_JAMBA; (e) the
+# reference integration test's resume case
+# (tests/test_integration.py:53-72).
+BWD_F64_TOL = dict(rms=1e-4, oracle=1.5)
+BWD_FP32_OPS = 19
+TRAIN_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+RWKV_ERR_FACTOR = 1.5
+TRAIN_LLAMA = "llama3.2-1b"
+TRAIN_LLAMA_STEPS = 8
+TRAIN_LLAMA_ARGS = ("--steps", str(TRAIN_LLAMA_STEPS), "--batch", "4",
+                    "--seq", "1024")
+TRAIN_LLAMA_TOKENS = 4 * 1024
+TRAIN_JAMBA = dict(batch=1, seq=512, steps=3)
+TRAIN_RESUME_ARGS = ("--smoke", "--steps", "24", "--batch", "4", "--seq",
+                     "32", "--ckpt-every", "8")
+TRAIN_FAIL_AT = 18
+RESUME_TOL = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -3136,16 +3198,46 @@ def calibration_sampling(card):
     return nets, specs_of, arms, table
 
 
+def paired_windows(fns, windows, calls):
+    """Each of ``fns`` (name -> a call whose result lies on the card)
+    timed in ``windows`` windows of ``calls`` blocking calls apiece, the
+    arms' calls interleaved one by one (the first arm of a round
+    alternating), after one warmup call each: the arms' medians in us,
+    window by window.  The garbage collector is off inside a window."""
+    import torch
+    names = list(fns)
+    for f in fns.values():
+        f()
+    torch.cuda.synchronize()
+    out = {n: [] for n in names}
+    for _ in range(windows):
+        times = {n: [] for n in names}
+        gc.collect()
+        gc.disable()
+        try:
+            for i in range(calls):
+                for n in (names if i % 2 == 0 else names[::-1]):
+                    t0 = time.perf_counter()
+                    fns[n]()
+                    torch.cuda.synchronize()
+                    times[n].append(time.perf_counter() - t0)
+        finally:
+            gc.enable()
+        for n in names:
+            out[n].append(statistics.median(times[n]) * 1e6)
+    return out
+
+
 def calibration_premise(card, nets, specs_of, arms, table):
     """(b) The reference's premise (benchmarks/run.py::table_calibration)
     at full width: both arms of every (network, budget) pair at the
-    largest batch timed end to end in CAL_WINDOWS alternating windows;
-    the calibrated model must prefer what the stopwatch prefers wherever
-    the stopwatch decides (one arm's slowest window beats the other's
-    fastest).  (c) logs the sites whose member or rung the table moved."""
+    largest batch timed end to end in CAL_WINDOWS windows of paired calls
+    (``paired_windows``); the calibrated model must prefer what the
+    stopwatch prefers wherever the stopwatch decides (one arm's median is
+    below the other's in every window).  (c) logs the sites whose member
+    or rung the table moved."""
     import numpy as np
     import torch
-    from repro_torch.core.calibrate_cost import timeit_us
     from repro_torch.core.plan import plan_network
     from repro_torch.core.resources import ResourceBudget
     from repro_torch.models.frontends import apply_cnn_frontend
@@ -3163,14 +3255,11 @@ def calibration_premise(card, nets, specs_of, arms, table):
                     f"{'x' if fus is None else 'ok'}: not compared")
                 continue
             pairs += 1
-            wins = {"unfused": [], "fused": []}
-            for _ in range(CAL_WINDOWS):
-                for arm, plan in (("unfused", unf), ("fused", fus)):
-                    wins[arm].append(timeit_us(
-                        lambda plan=plan: apply_cnn_frontend(
-                            p, x, network=plan, activation=act,
-                            ladder=ladder),
-                        repeat=CAL_WINDOW_CALLS))
+            wins = paired_windows(
+                {arm: (lambda plan=plan: apply_cnn_frontend(
+                    p, x, network=plan, activation=act, ladder=ladder))
+                 for arm, plan in (("unfused", unf), ("fused", fus))},
+                CAL_WINDOWS, CAL_WINDOW_CALLS)
             cal_unf, cal_fus = (unf.calibrated_cycles(table),
                                 fus.calibrated_cycles(table))
             cal_plan = plan_network(specs_of(net, batch),
@@ -3178,12 +3267,9 @@ def calibration_premise(card, nets, specs_of, arms, table):
                                     calibration=table)
             fused_sites = sum(s.spec.family == "cnn_fused"
                               for s in cal_plan.sites)
-            if max(wins["fused"]) < min(wins["unfused"]):
-                measured = True
-            elif max(wins["unfused"]) < min(wins["fused"]):
-                measured = False
-            else:
-                measured = None
+            faster = [f < u for f, u in zip(wins["fused"], wins["unfused"])]
+            slower = [f > u for f, u in zip(wins["fused"], wins["unfused"])]
+            measured = True if all(faster) else False if all(slower) else None
             calibrated = cal_fus < cal_unf
             modeled = fus.total_cycles < unf.total_cycles
             match = None if measured is None else calibrated == measured
@@ -5937,6 +6023,516 @@ def lm_families_phase(peaks, card):
         f"{card}")
 
 
+# ---------------------------------------------------------------------------
+# "train": training on one card
+# ---------------------------------------------------------------------------
+def scan_grad_data(rng, b, t, di, ds):
+    """``scan_data`` and the gradients fed back: dy (B, T, Di) and dh
+    (B, Di, Ds), N(0, 1), numpy-seeded, on the card."""
+    import numpy as np
+    import torch
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    ops = scan_data(rng, b, t, di, ds)
+    return ops, f(rng.normal(size=(b, t, di))), f(rng.normal(size=(b, di,
+                                                                   ds)))
+
+
+def scan_vjp(ops, dy, dh, dtype):
+    """The recurrence's gradient by autograd through the oracle's steps
+    (``selective_scan_ref``'s) on ``dtype`` operands: in f64 the witness
+    the kernel's gradients are measured against, in f32 the oracle's own
+    (what ``jax.grad`` of the reference's ``lax.scan`` computes)."""
+    import torch
+    leaves = [v.detach().to(dtype, copy=True).requires_grad_(True)
+              for v in ops]
+    x, dt, bp, cp, a = leaves
+    dy = dy.to(dtype)
+    h = torch.zeros((x.shape[0], x.shape[2], a.shape[1]), dtype=dtype,
+                    device=x.device)
+    loss = 0
+    for i in range(x.shape[1]):
+        d = dt[:, i]
+        h = (torch.exp(d[..., None] * a[None]) * h
+             + (d * x[:, i])[..., None] * bp[:, i, None, :])
+        loss = loss + ((h * cp[:, i, None, :]).sum(-1) * dy[:, i]).sum()
+    if dh is not None:
+        loss = loss + (h * dh.to(dtype)).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+def compare_scan_bwd(what, ops, dy, dh, errs, witness=False):
+    """``selective_scan_bwd`` (one launch) bitwise equal to its plain
+    version; with ``witness``, measured
+    against the recurrence's gradient in f64: the error's RMS within
+    ``BWD_F64_TOL["rms"]`` of each gradient's RMS, and its largest
+    element within ``BWD_F64_TOL["oracle"]`` times the f32 oracle's
+    (``scan_vjp`` in f32)."""
+    import torch
+    from repro_torch.kernels.mamba_scan.scan import (
+        selective_scan_bwd, selective_scan_bwd_plain, selective_scan_fwd)
+    _, _, states = selective_scan_fwd(*ops)
+    got = launched_once(lambda: selective_scan_bwd(*ops, states, dy, dh),
+                        "selective_scan_bwd", what)
+    for g, w in zip(got, selective_scan_bwd_plain(*ops, dy, dh)):
+        compare("selective_scan_bwd", g, w, 0, 0, errs, exact=True)
+    notes = ""
+    if witness:
+        exact = scan_vjp(ops, dy, dh, torch.float64)
+        oracle = [g.detach() for g in scan_vjp(ops, dy, dh, torch.float32)]
+        parts = []
+        for name, g, o, w in zip(("dx", "ddt", "dBp", "dCp", "dA"), got,
+                                 oracle, exact):
+            rms = float(w.pow(2).mean().sqrt())
+            e_rms = float((g.double() - w).pow(2).mean().sqrt())
+            e_max = float((g.double() - w).abs().max())
+            o_max = float((o.double() - w).abs().max())
+            check(e_rms <= BWD_F64_TOL["rms"] * rms,
+                  f"selective_scan_bwd {what}, {name}: error RMS {e_rms:.3e}"
+                  f" against the f64 recurrence's gradient, over "
+                  f"{BWD_F64_TOL['rms']:.0e} of its RMS {rms:.3e}")
+            check(e_max <= BWD_F64_TOL["oracle"] * o_max,
+                  f"selective_scan_bwd {what}, {name}: max abs error "
+                  f"{e_max:.3e} against the f64 gradient, the f32 "
+                  f"oracle's {o_max:.3e}")
+            parts.append(f"{name} RMS {rms:.3e}, error RMS "
+                         f"{e_rms / rms:.2e} of it, max {e_max / rms:.2e} "
+                         f"(oracle {o_max / rms:.2e})")
+        del exact, oracle
+        notes = (f"; against the f64 recurrence's gradient: "
+                 f"{'; '.join(parts)}")
+    log(f"selective_scan_bwd {what}, dh "
+        f"{'given' if dh is not None else 'None'}: one launch, bitwise "
+        f"equal to the plain version{notes}")
+    return got
+
+
+def scan_bwd_checks(peaks, card, errs):
+    """(a): the backward kernel against its plain version at the served
+    site, SCAN_FULL_CASES, SCAN_SMALL_CASES and the d_states of
+    SCAN_DS_CASES, with dh given and None; at full width also against
+    the f64 recurrence; then its time, the plain version's and the
+    bound.  Returns its row."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba_scan.scan import (
+        bwd_plan, n_saved, selective_scan_bwd, selective_scan_bwd_plain,
+        selective_scan_fwd)
+    rng = np.random.default_rng(SEED)
+    for case in SCAN_FULL_CASES + SCAN_SMALL_CASES + SCAN_DS_CASES:
+        ops, dy, dh = scan_grad_data(rng, *case)
+        for g in (dh, None):
+            compare_scan_bwd(f"{case} (plan {tuple(bwd_plan(case[3]))})",
+                             ops, dy, g, errs,
+                             witness=case[2] >= 16384 and g is not None)
+        del ops, dy, dh
+        torch.cuda.empty_cache()
+    ops, dy, _ = scan_grad_data(rng, *SCAN_SITE)
+    _, _, states = selective_scan_fwd(*ops)
+    grads = selective_scan_bwd(*ops, states, dy, None)
+    b, t, di, ds = SCAN_SITE
+    n = b * t * di * ds
+    # bytes: the inputs (x, dt, Bp, Cp, A, the saved states, dy) read
+    # once and the gradients written once; operations: per (t, di, s)
+    # one exponential (a_t) and BWD_FP32_OPS FP32 operations (the
+    # chunk's recompute of h, the g update, the terms of dx, ddt, dB,
+    # dC and dA, their sums)
+    n_bytes = nbytes(*ops, states, dy, *grads)
+    t_bytes = bound_ms(peaks, n_bytes, 0)[0]
+    t_fp32 = bound_ms(peaks, 0, BWD_FP32_OPS * n)[0]
+    t_exp = bound_ms(peaks, 0, n, "mufu_per_s")[0]
+    b_ms = max(t_bytes, t_fp32, t_exp)
+    clocks = clock_line()
+    row = dict(ms=time_ms(lambda: selective_scan_bwd(*ops, states, dy, None),
+                          reps=5, warmup=1),
+               plain_ms=time_sync_ms(lambda: selective_scan_bwd_plain(
+                   *ops, dy, None), reps=1),
+               library_ms=None, bound_ms=b_ms,
+               bound_by="bytes" if t_bytes >= max(t_fp32, t_exp)
+               else "operations",
+               shape=f"(B, T, Di, Ds) = {SCAN_SITE} f32, dh None, "
+                     f"{n_saved(t)} saved states a row",
+               library="none (no single PyTorch call computes a selective "
+                       "scan's gradient)")
+    fwd_states_ms = time_ms(lambda: selective_scan_fwd(*ops), reps=5,
+                            warmup=1)
+    log(f"selective_scan_bwd [{row['shape']}]: {row['ms'] * 1e3:.1f} us, "
+        f"plain {row['plain_ms'] * 1e3:.1f} us (one call), library "
+        f"{row['library']}, bound {b_ms * 1e3:.1f} us ({row['bound_by']}; "
+        f"{n_bytes / 1e6:.1f} MB {t_bytes * 1e3:.1f} us, FP32 operations "
+        f"{t_fp32 * 1e3:.1f} us, exponentials {t_exp * 1e3:.1f} us at the "
+        f"MUFU rate); the forward saving its states "
+        f"{fwd_states_ms * 1e3:.1f} us; on {card}; SM clock, max, power, "
+        f"temperature before: {clocks}, after: {clock_line()}")
+    del ops, dy, states, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def state_to(state, device):
+    """A copy of a ``TrainState`` with params and moments on ``device``
+    (the step counter stays on the host)."""
+    from repro_torch.models.api import TrainState
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim.adamw import OptState
+    cp = lambda tree: tree_map(  # noqa: E731
+        lambda t: t.to(device, copy=True), tree)
+    return TrainState(cp(state.params), OptState(
+        cp(state.opt.mu), cp(state.opt.nu), state.opt.step.clone()))
+
+
+def loss_grads(cfg, params, batch):
+    """(loss, grads in ``tree_leaves`` order) of ``api.loss_fn``."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = api.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+class WideTorch:
+    """``torch`` with ``float32`` read as ``float64``, all else
+    delegated."""
+
+    def __init__(self):
+        import torch
+        self._mod, self.float32 = torch, torch.float64
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+
+def f64_grads(cfg, params, batch):
+    """The port's gradient in f64 throughout on the CPU: params and
+    every config dtype in f64, and the model modules' casts to f32 by
+    name (norms, the RWKV recurrence, the loss) widened, as
+    tests/test_torch_train.py takes it, where it equals the reference's
+    f64 gradient within 1e-8 of each leaf's RMS."""
+    import dataclasses
+    import torch
+    from repro_torch.models import blocks, rwkv, transformer
+    wide = dataclasses.replace(cfg, **{f"{k}_dtype": "float64" for k in (
+        "param", "compute", "logit", "attn_score")})
+    mods = (blocks, rwkv, transformer)
+    for m in mods:
+        m.torch = WideTorch()
+    try:
+        return loss_grads(wide, transformer.tree_map(
+            lambda t: t.to("cpu", torch.float64), params),
+            {k: v.cpu() for k, v in batch.items()})[1]
+    finally:
+        for m in mods:
+            m.torch = torch
+
+
+def smoke_train_checks(card):
+    """(b): every smoke config of ``smoke_families`` takes one
+    ``train_step`` on the card and on the CPU from the same state: loss,
+    grad_norm and grads within FAMILY_TOL, params within the CPU tests'
+    bar (TRAIN_PARAM_TOL where the CPU's gradient is settled, 2 lr
+    everywhere); rwkv's grads as tests/test_torch_train.py holds them
+    (each leaf's f32 error against the f64 gradient, ``f64_grads``,
+    within RWKV_ERR_FACTOR of the CPU's); only jamba launches kernels: the
+    scan's forward and backward."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.models import api
+    from repro_torch.models.frontends import make_inputs
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    for label, cfg in smoke_families():
+        state0 = api.init_train_state(cfg, opt, SEED, device="cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            batch = make_inputs(cfg, ShapeConfig("smoke_train", 32, 2,
+                                                 "train"),
+                                seed=SEED, abstract=False, device=dev)
+            state = state_to(state0, dev)
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            loss, grads = loss_grads(cfg, state.params, batch)
+            new, metrics = api.train_step(cfg, opt, state, batch)
+            torch.cuda.synchronize()
+            out[dev] = (loss, grads, new, metrics, cuda.launch_counts())
+        (c_loss, c_g, c_new, c_m, _), (g_loss, g_g, g_new, g_m, counts) = (
+            out["cpu"], out["cuda"])
+        torch.testing.assert_close(g_loss.cpu(), c_loss, **FAMILY_TOL)
+        for k in ("loss", "xent", "aux", "lr") + (
+                () if label == RWKV else ("grad_norm",)):
+            torch.testing.assert_close(
+                g_m[k].cpu(), c_m[k], **FAMILY_TOL,
+                msg=lambda m: f"train {label} {k}, card against CPU: {m}")
+        exact = f64_grads(cfg, state0.params, make_inputs(
+            cfg, ShapeConfig("smoke_train", 32, 2, "train"), seed=SEED,
+            abstract=False, device="cpu")) if label == RWKV else None
+        lr = float(c_m["lr"])
+        worst = ratio = 0.0
+        for i, (gg, cg, gp, cp) in enumerate(zip(
+                g_g, c_g, tree_leaves(g_new.params),
+                tree_leaves(c_new.params))):
+            gg = gg.cpu()
+            if exact is None:
+                torch.testing.assert_close(
+                    gg, cg, **FAMILY_TOL,
+                    msg=lambda m: f"train {label} grad {i}: {m}")
+                atol = FAMILY_TOL["atol"]
+            else:
+                e = exact[i]
+                mine = float((gg.double() - e).abs().max())
+                ref = float((cg.double() - e).abs().max())
+                floor = 1e-4 * float(e.pow(2).mean().sqrt())
+                check(mine <= max(RWKV_ERR_FACTOR * ref, floor),
+                      f"train {label} grad {i}: card error {mine:.3e} "
+                      f"against the f64 gradient, CPU's {ref:.3e}")
+                ratio = max(ratio, mine / ref if ref else 0.0)
+                atol = float((gg - cg).abs().max())
+            worst = max(worst, float((gg - cg).abs().max()))
+            settled = cg.abs() > atol + FAMILY_TOL["rtol"] * cg.abs()
+            gp, cp = gp.cpu().float(), cp.float()
+            torch.testing.assert_close(
+                gp[settled], cp[settled], **TRAIN_PARAM_TOL,
+                msg=lambda m: f"train {label} param {i}: {m}")
+            check(float((gp - cp).abs().max()) <= 2 * lr,
+                  f"train {label} param {i} moved more than 2 lr apart")
+        mamba = "mamba" in cfg.attn_layout
+        check(set(counts) == ({"selective_scan", "selective_scan_bwd"}
+                              if mamba else set()),
+              f"train {label}: launched {counts}")
+        held = (f" (held against the f64 gradient: card error up to "
+                f"{ratio:.4f}x the CPU's)" if exact is not None else "")
+        log(f"train smoke {label}: one train_step, card == CPU (loss "
+            f"{float(g_m['loss']):.6f} vs {float(c_m['loss']):.6f}, "
+            f"grad_norm {float(g_m['grad_norm']):.6f} vs "
+            f"{float(c_m['grad_norm']):.6f}; grads max abs diff "
+            f"{worst:.3e}{held}"
+            f"; params within the bar); launched {counts}")
+    torch.cuda.empty_cache()
+
+
+def run_train(argv):
+    """``repro_torch.launch.train.train(argv)`` with its output captured
+    and echoed: (exit code, losses, step ms list, save seconds, text)."""
+    import contextlib
+    import io
+    from repro_torch.launch.train import train
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            train(list(argv))
+        except SystemExit as e:
+            code = e.code
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    steps = [line for line in text.splitlines()
+             if line.startswith("[train] step")]
+    losses = [float(line.split("loss")[1].split()[0]) for line in steps]
+    step_ms = [float(line.split()[-2]) for line in steps]
+    saves = [float(line.split(" in ")[1].split()[0])
+             for line in text.splitlines()
+             if line.startswith("[train] saved step")]
+    return code, losses, step_ms, (saves[-1] if saves else None), text
+
+
+def llama_train_run(card):
+    """(c): llama3.2-1b whole, at full width, through the trainer: every
+    loss finite, the last below the first, nothing hand-written
+    launched; step ms, tokens/s, the final save and peak memory."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import cuda
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        code, losses, step_ms, save_s, _ = run_train(
+            ("--arch", TRAIN_LLAMA, *TRAIN_LLAMA_ARGS, "--log-every", "1",
+             "--ckpt-dir", ckdir))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        size = ckpt_bytes(ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(code == 0, f"train {TRAIN_LLAMA}: exit code {code}")
+    check(len(losses) == TRAIN_LLAMA_STEPS and all(
+        math.isfinite(v) for v in losses), f"train {TRAIN_LLAMA}: losses "
+                                            f"{losses}")
+    check(losses[-1] < losses[0], f"train {TRAIN_LLAMA}: the loss did not "
+                                  f"fall: {losses}")
+    check(counts == {}, f"train {TRAIN_LLAMA}: launched {counts}")
+    steady = statistics.median(step_ms[1:])
+    tokens = TRAIN_LLAMA_TOKENS
+    log(f"train {TRAIN_LLAMA} whole (f32 params and moments, remat "
+        f"block) through repro_torch.launch.train {' '.join(TRAIN_LLAMA_ARGS)}"
+        f": losses {', '.join(f'{v:.4f}' for v in losses)}; step "
+        f"{step_ms[0]:.1f} ms first, {steady:.1f} ms median of the rest "
+        f"({tokens / steady * 1e3:.1f} tokens/s); final checkpoint "
+        f"{size / 1e9:.2f} GB saved in {save_s:.2f} s; peak "
+        f"{peak / 2**30:.2f} GiB allocated; run wall {wall:.1f} s; "
+        f"nothing hand-written launched; on {card}")
+
+
+def jamba_train_run(card):
+    """(d), the phase's main path: ``jamba_period`` (bf16 params, grads
+    and moments) takes TRAIN_JAMBA["steps"] ``train_step``s with the
+    counters reset just before and read just after: each step launches
+    the scan's forward 14 times (7 layers, then the remat's recompute)
+    and its backward 7 times, nothing else hand-written.  Every loss
+    finite, params move; step ms, tokens/s, peak memory, and one
+    profiled step.  Returns the backward's launches."""
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import cuda
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = jamba_period()
+    n_mamba = sum(kind == "mamba" for kind in cfg.attn_layout)
+    opt = AdamWConfig(warmup_steps=2, total_steps=10,
+                      moment_dtype=cfg.moment_dtype)
+    state = api.init_train_state(cfg, opt, SEED, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    state_bytes = sum(nbytes(t) for t in _leaves(state.params)) * 4
+    b, s, steps = (TRAIN_JAMBA[k] for k in ("batch", "seq", "steps"))
+    data = make_pipeline(cfg.vocab_size, s, b, seed=SEED)
+    probe = state.params["blocks"]["sub1"]["mamba"]["in_proj"]
+    before = probe[0, :4, :4].clone()
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for i in range(steps):
+        batch = {k: v.cuda() for k, v in data[i].items()}
+        t0 = time.perf_counter()
+        state, metrics = api.train_step(cfg, opt, state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"selective_scan": 2 * n_mamba * steps,
+            "selective_scan_bwd": n_mamba * steps}
+    check(counts == want, f"train jamba period: launched {counts}, "
+                          f"expected {want}")
+    check(all(math.isfinite(v) for v in losses),
+          f"train jamba period: losses {losses}")
+    check(not torch.equal(probe[0, :4, :4], before),
+          "train jamba period: the params did not move")
+    steady = statistics.median(walls[1:])
+    log(f"train jamba period ({cfg.name} cut to {cfg.n_layers} layers, "
+        f"MoE off, bf16 params, grads and moments): {n_params} params, "
+        f"{state_bytes / 2**30:.1f} GiB of params, grads and moments; "
+        f"{steps} train_steps at (B, S) = ({b}, {s}): losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; step {walls[0]:.1f} ms "
+        f"first, {steady:.1f} ms median of the rest "
+        f"({b * s / steady * 1e3:.1f} tokens/s); peak "
+        f"{peak / 2**30:.2f} GiB allocated of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
+        f" GiB; launched {counts} ({2 * n_mamba} forward and {n_mamba} "
+        f"backward scans a step); on {card}")
+    batch = {k: v.cuda() for k, v in data[steps].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.train_step(cfg, opt, state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        # "Command Buffer Full" is CUPTI's record of the launch queue
+        # being full, not a kernel
+        if dev > 0 and not ev.key.startswith(("aten::", "Activity",
+                                              "Command Buffer Full")):
+            rows.append((dev, ev.key, ev.count))
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "the profiler saw no device time in the train step")
+    for dev, key, count in sorted(rows, reverse=True)[:10]:
+        log(f"train profile jamba period step: {dev:11.1f} us device "
+            f"x{count:<5d} ({dev / busy:.4f}) {key[:70]}")
+    scans = {k: sum(r[0] for r in rows if k in r[1])
+             for k in ("selective_scan_kernel", "selective_scan_bwd_kernel",
+                       "scan_bwd_reduce")}
+    log(f"train profile jamba period step: device busy {busy / 1e3:.1f} ms "
+        f"in {sum(r[2] for r in rows)} kernels: {busy / 1e3 / wall_ms:.3f} "
+        f"of the {wall_ms:.1f} ms profiled step, {busy / 1e3 / steady:.3f} "
+        f"of the unprofiled median ({steady:.1f} ms); "
+        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in scans.items()))
+    del state, batch, probe
+    torch.cuda.empty_cache()
+    return counts["selective_scan_bwd"]
+
+
+def resume_checks(card):
+    """(e): the reference integration test's resume case on the card: a
+    gold run, a run that fails at TRAIN_FAIL_AT (exit code 17), its
+    relaunch ("resuming at 17"); the final losses within RESUME_TOL."""
+    import shutil
+    import tempfile
+    runs = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    try:
+        base = ("--arch", TRAIN_LLAMA, *TRAIN_RESUME_ARGS)
+        runs["gold"] = run_train(base + ("--ckpt-dir", str(root / "a")))
+        runs["crash"] = run_train(base + ("--ckpt-dir", str(root / "b"),
+                                          "--simulate-failure",
+                                          str(TRAIN_FAIL_AT)))
+        runs["resumed"] = run_train(base + ("--ckpt-dir", str(root / "b")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(runs["gold"][0] == 0 and runs["resumed"][0] == 0,
+          f"resume: exit codes {[r[0] for r in runs.values()]}")
+    check(runs["crash"][0] == 17, f"resume: the failing run exited "
+                                  f"{runs['crash'][0]}, expected 17")
+    check("resuming at 17" in runs["resumed"][4],
+          "resume: the relaunch did not resume at 17")
+    gold, resumed = runs["gold"][1][-1], runs["resumed"][1][-1]
+    check(abs(gold - resumed) < RESUME_TOL,
+          f"resume: final loss {resumed} vs gold {gold}")
+    log(f"train resume ({TRAIN_LLAMA} smoke, {' '.join(TRAIN_RESUME_ARGS)}, "
+        f"failure at {TRAIN_FAIL_AT}): exit code 17, relaunch resumed at "
+        f"17; final loss {resumed!r} vs uninterrupted {gold!r} "
+        f"({'bitwise equal' if gold == resumed else 'not bitwise'}, within "
+        f"{RESUME_TOL}); on {card}")
+
+
+def train_phase(peaks, card, errs):
+    """The twentieth slice's path: (a) the scan's backward kernel, (b)
+    smoke configs card against CPU, (c) llama3.2-1b through the trainer,
+    (d) jamba's period, the main path, (e) resume.  Returns the
+    backward's launches on the main path and its row."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    row = scan_bwd_checks(peaks, card, errs)
+    smoke_train_checks(card)
+    llama_train_run(card)
+    launches = jamba_train_run(card)
+    resume_checks(card)
+    log(f"train: phase wall {time.perf_counter() - t0:.1f} s on {card}")
+    return launches, row
+
+
 def _paths(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -6105,6 +6701,8 @@ def main() -> int:
     launches["selective_scan"], rows["selective_scan"] = lm_serve_phase(
         peaks, card, errs)
     lm_families_phase(peaks, card)
+    launches["selective_scan_bwd"], rows["selective_scan_bwd"] = train_phase(
+        peaks, card, errs)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "kernel": KERNEL[name],

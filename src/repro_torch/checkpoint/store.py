@@ -10,16 +10,18 @@ by the other:
   <dir>/LATEST       committed step pointer — written LAST (atomic rename),
                      so a crash mid-save never corrupts the restore point.
 
-Trees are dicts, lists and tuples of tensors (or arrays, or numbers),
-flattened by this module's own walk in the reference's leaf order: dict
-keys sorted, sequences in order, ``None`` a node without leaves.  A
+Trees are dicts, lists, tuples and named tuples (a ``TrainState``) of
+tensors (or arrays, or numbers), flattened by this module's own walk in
+the reference's leaf order: dict keys sorted, sequences in order,
+``None`` a node without leaves; ``restore`` gives a named tuple back as
+its own type.  A
 leaf is saved from ``t.detach().cpu()``.  bfloat16 has no numpy dtype
 here, so a bf16 leaf is saved as its ``uint16`` bits with ``"dtype":
 "bfloat16"`` in the manifest (the string the reference writes for one)
 and restored bit for bit.  ``restore`` puts each leaf on its target
-tensor's device and dtype; the reference's sharded restore
-(``shardings=``, training state) comes with training (ROADMAP queue 1,
-item 12).
+tensor's device and dtype (a ``meta`` target's on ``device=``); the
+reference's sharded restore (``shardings=``) comes with the training
+mesh (ROADMAP queue 1, item 12.2).
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def _flatten(tree) -> Tuple[list, Any]:
             return {k: walk(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
             items = [walk(v) for v in node]
-            return tuple(items) if isinstance(node, tuple) else items
+            return _rebuild(node, items)
         if node is None:
             return None
         leaves.append(node)
@@ -65,14 +67,21 @@ def _flatten(tree) -> Tuple[list, Any]:
     return leaves, walk(tree)
 
 
+def _rebuild(node, items: list):
+    """``items`` in ``node``'s sequence type (a named tuple's own)."""
+    if isinstance(node, tuple):
+        return type(node)(*items) if hasattr(node, "_fields") else \
+            tuple(items)
+    return items
+
+
 def _unflatten(skeleton, leaf: Callable[[int], Any]):
     if isinstance(skeleton, _LeafRef):
         return leaf(skeleton.i)
     if isinstance(skeleton, dict):
         return {k: _unflatten(v, leaf) for k, v in skeleton.items()}
     if isinstance(skeleton, (list, tuple)):
-        items = [_unflatten(v, leaf) for v in skeleton]
-        return tuple(items) if isinstance(skeleton, tuple) else items
+        return _rebuild(skeleton, [_unflatten(v, leaf) for v in skeleton])
     return skeleton
 
 
@@ -285,11 +294,12 @@ def restore_blind(ckpt_dir: str, *, step: Optional[int] = None
     return _decode_structure(structure, _load), manifest["extra"]
 
 
-def restore(ckpt_dir: str, target_tree, *, step: Optional[int] = None
-            ) -> Tuple[Any, Dict]:
+def restore(ckpt_dir: str, target_tree, *, step: Optional[int] = None,
+            device=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target_tree``: each leaf takes
     its target tensor's dtype and device (an array or number target, its
-    dtype)."""
+    dtype); a ``meta`` target (an abstract tree) puts its leaf on
+    ``device`` (default the CPU)."""
     d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / "manifest.json").read_text())
     leaves, skeleton = _flatten(target_tree)
@@ -302,7 +312,9 @@ def restore(ckpt_dir: str, target_tree, *, step: Optional[int] = None
         assert tuple(arr.shape) == ref_shape, (arr.shape, ref_shape)
         if isinstance(ref, torch.Tensor):
             t = _to_tensor(arr, manifest["leaves"][i]["dtype"])
-            new_leaves.append(t.to(device=ref.device, dtype=ref.dtype))
+            dev = ref.device if ref.device.type != "meta" else \
+                torch.device(device or "cpu")
+            new_leaves.append(t.to(device=dev, dtype=ref.dtype))
         else:
             new_leaves.append(arr.astype(np.asarray(ref).dtype))
     return _unflatten(skeleton, new_leaves.__getitem__), manifest["extra"]

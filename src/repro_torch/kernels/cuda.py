@@ -73,8 +73,10 @@ _SIGNATURES = {
     "attn_decode_plan": (_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I),
                          ctypes.POINTER(ctypes.c_longlong)),
-    "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _P),
+    "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _P),
+    "scan_selective_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 # Launches per kernel since the last reset_launches(): each wrapper adds
@@ -82,7 +84,7 @@ _SIGNATURES = {
 # the wrappers' names: fused_cnn_vpu, fused_cnn_mxu, conv2d_ip1..4,
 # pool2d_window, pool2d_im2col, activation_exact, activation_lut,
 # mm_mxu, mm_vpu, mm_dual_shared, mm_dual_full, flash_attention,
-# flash_decode and selective_scan.
+# flash_decode, selective_scan and selective_scan_bwd.
 LAUNCHES: Dict[str, int] = {}
 
 _LIB = None

@@ -22,6 +22,15 @@ operation in the kernel's order, so the two agree bitwise.
 ``block_di`` is the reference's VMEM block hint (``bdi = min(block_di,
 Di)``): validated, priced by ``footprint``, it does not shape the
 launch, so results never depend on it.
+
+The backward (``selective_scan_bwd``; no TPU kernel: the reference
+takes ``jax.grad`` of its ``lax.scan``) runs ``selective_scan_bwd_kernel``
+on the plan of ``bwd_plan``: the forward, asked by ``SelectiveScan``,
+also saves h every ``BWD_CHUNK`` steps; the backward recomputes each
+chunk from its saved state, then walks it backwards with the state's
+gradient in a register, its sums in a fixed order (no atomics).
+``selective_scan_bwd_plain`` takes every operation in its order, so the
+two agree bitwise.
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ MAX_CHUNK = 32             # steps a staged chunk
 # threads an SM the plan aims for (16 warps) before it splits a
 # channel's states over more lanes
 TARGET_THREADS_PER_SM = 512
+BWD_THREADS = 256          # threads a CTA of the backward
+BWD_CHUNK = 16             # steps between the states the forward saves
 
 
 class ScanPlan(NamedTuple):
@@ -129,12 +140,7 @@ def scan_tree_sum(p: torch.Tensor, passes: int) -> torch.Tensor:
     return y
 
 
-def selective_scan_plain(x: torch.Tensor, dt: torch.Tensor, bp: torch.Tensor,
-                         cp: torch.Tensor, a: torch.Tensor):
-    """The kernel's function in plain PyTorch, in its order: the
-    oracle's recurrence step by step (``selective_scan_ref``) on A, Bp
-    and Cp padded with zero states to a power of two, y summed by
-    ``scan_tree_sum``; the padding's final states are dropped."""
+def _plain_scan(x, dt, bp, cp, a, keep: bool):
     _check(x, dt, bp, cp, a)
     b, t, di = x.shape
     ds = a.shape[1]
@@ -145,13 +151,68 @@ def selective_scan_plain(x: torch.Tensor, dt: torch.Tensor, bp: torch.Tensor,
     bp, cp, a = (torch.nn.functional.pad(v, pad) for v in (bp, cp, a))
     h = torch.zeros((b, di, p2), dtype=f32, device=x.device)
     y = torch.empty((b, t, di), dtype=f32, device=x.device)
+    kept = []
     for i in range(t):
         dt_t = dt[:, i]
         d_a = torch.exp(dt_t[..., None] * a[None])
         d_bx = (dt_t * x[:, i])[..., None] * bp[:, i, None, :]
         h = d_a * h + d_bx
         y[:, i] = scan_tree_sum(h * cp[:, i, None, :], passes)
-    return y, h[..., :ds].contiguous()
+        if keep and (i + 1) % BWD_CHUNK == 0 and i + 1 < t:
+            kept.append(h[..., :ds])
+    h = h[..., :ds].contiguous()
+    if not keep:
+        return y, h
+    states = (torch.stack(kept, 1) if kept else
+              torch.empty((b, 0, di, ds), dtype=f32, device=x.device))
+    return y, h, states
+
+
+def selective_scan_plain(x: torch.Tensor, dt: torch.Tensor, bp: torch.Tensor,
+                         cp: torch.Tensor, a: torch.Tensor):
+    """The kernel's function in plain PyTorch, in its order: the
+    oracle's recurrence step by step (``selective_scan_ref``) on A, Bp
+    and Cp padded with zero states to a power of two, y summed by
+    ``scan_tree_sum``; the padding's final states are dropped."""
+    return _plain_scan(x, dt, bp, cp, a, keep=False)
+
+
+def _cast(x, dt, bp, cp, a):
+    """The operands as contiguous f32, on one CUDA device."""
+    ops = [v.to(torch.float32).contiguous() for v in (x, dt, bp, cp, a)]
+    for name, v in zip(("x", "dt", "Bp", "Cp", "A"), ops):
+        cuda.require(v, name)
+        if v.device != x.device:
+            raise ValueError(f"x and {name} lie on {x.device} and "
+                             f"{v.device}")
+    return ops
+
+
+def n_saved(t: int) -> int:
+    """States the forward saves for the backward, a batch row: h after
+    steps ``BWD_CHUNK - 1``, ``2 * BWD_CHUNK - 1``, .. short of the
+    last."""
+    return max(0, -(-t // BWD_CHUNK) - 1)
+
+
+def _forward(x, dt, bp, cp, a, save: bool):
+    """The kernel's forward on CUDA operands: (y, h, states | None)."""
+    b, t, di = x.shape
+    ds = a.shape[1]
+    ops = _cast(x, dt, bp, cp, a)
+    dev = x.device
+    y = torch.empty((b, t, di), dtype=torch.float32, device=dev)
+    h = torch.empty((b, di, ds), dtype=torch.float32, device=dev)
+    states = (torch.empty((b, n_saved(t), di, ds), dtype=torch.float32,
+                          device=dev) if save else None)
+    if h.numel() == 0:
+        return y, h, states
+    plan = lane_plan(b, di, ds, cuda.sm_count(dev))
+    cuda.launch("selective_scan", "scan_selective", dev,
+                *(v.data_ptr() for v in ops), y.data_ptr(), h.data_ptr(),
+                states.data_ptr() if save and states.numel() else None,
+                b, t, di, ds, BWD_CHUNK, *plan)
+    return y, h, states
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bp: torch.Tensor,
@@ -159,28 +220,222 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bp: torch.Tensor,
                    block_di: int = 256):
     """x/dt: (B,T,Di); bp/cp: (B,T,Ds); a: (Di,Ds) -> (y (B,T,Di), h
     (B,Di,Ds)), both f32; inputs are cast to f32.  CUDA tensors launch
-    the kernel once; CPU tensors run ``selective_scan_plain``."""
+    the kernel once; CPU tensors run ``selective_scan_plain``.  Where an
+    operand needs a gradient (grad mode on), the call runs through
+    ``SelectiveScan`` (the same forward, which then also keeps its
+    states for ``selective_scan_bwd``)."""
     _check(x, dt, bp, cp, a)
     check_block("block_di", block_di)
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (x, dt, bp, cp, a)):
+        return SelectiveScan.apply(*(v.to(torch.float32)
+                                     for v in (x, dt, bp, cp, a)))
     if not x.is_cuda:
         return selective_scan_plain(x, dt, bp, cp, a)
+    return _forward(x, dt, bp, cp, a, save=False)[:2]
+
+
+def selective_scan_fwd(x, dt, bp, cp, a):
+    """``selective_scan`` that also returns the states its backward
+    restarts from: (y, h, states (B, ``n_saved(T)``, Di, Ds)).  CUDA
+    tensors launch the forward kernel once (counted as
+    ``selective_scan``); CPU tensors run the plain version."""
+    _check(x, dt, bp, cp, a)
+    if not x.is_cuda:
+        return _plain_scan(x, dt, bp, cp, a, keep=True)
+    return _forward(x, dt, bp, cp, a, save=True)
+
+
+# ---------------------------------------------------------------------------
+# The backward
+# ---------------------------------------------------------------------------
+def _check_grads(x, a, dy, dh) -> None:
+    want = tuple(x.shape)
+    if tuple(dy.shape) != want:
+        raise ValueError(f"dy must be (B, T, Di) = {want}; got "
+                         f"{tuple(dy.shape)}")
+    want = (x.shape[0], x.shape[2], a.shape[1])
+    if dh is not None and tuple(dh.shape) != want:
+        raise ValueError(f"dh must be (B, Di, Ds) = {want}; got "
+                         f"{tuple(dh.shape)}")
+
+
+class BwdPlan(NamedTuple):
+    """How ``selective_scan_bwd_kernel`` cuts a backward: ``sp`` lanes
+    a channel, one state each (Ds padded to a power of two P, ``sp =
+    min(P, 32)``), ``passes = P / sp`` passes over the sequence (lane j
+    of pass q the state j * passes + q, the forward's cut, so the sums
+    over states are ``scan_tree_sum``'s), CTAs of ``ch = 256 / sp``
+    channels of one batch row, chunks of ``ck`` steps between saved
+    states."""
+    sp: int
+    passes: int
+    ch: int
+    ck: int
+
+
+def bwd_plan(ds: int) -> BwdPlan:
+    if ds < 1:
+        raise ValueError(f"bwd_plan takes Ds >= 1, got {ds}")
+    p = 1 << (ds - 1).bit_length()
+    sp = min(p, WARP)
+    return BwdPlan(sp, p // sp, BWD_THREADS // sp, BWD_CHUNK)
+
+
+def halving_tree(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` by a halving tree (j + n/2 onto j, then halve n),
+    the axis zero-padded to a power of two: ``scan_tree_sum`` in one
+    pass, the kernel's order for the sums it splits across channels and
+    CTAs."""
+    p = p.movedim(dim, -1)
+    n = p.shape[-1]
+    p2 = 1 << max(n - 1, 0).bit_length()
+    return scan_tree_sum(torch.nn.functional.pad(p, (0, p2 - n)), 1)
+
+
+def _channel_partials(v: torch.Tensor, plan: BwdPlan) -> torch.Tensor:
+    """(B, Di, P) terms -> (B, NB, P): each CTA's halving tree over its
+    ``ch`` channels (Di zero-padded to NB * ch)."""
+    b, di, p = v.shape
+    nb = -(-di // plan.ch)
+    v = torch.nn.functional.pad(v, (0, 0, 0, nb * plan.ch - di))
+    return halving_tree(v.reshape(b, nb, plan.ch, p), 2)
+
+
+def selective_scan_bwd_plain(x, dt, bp, cp, a, dy, dh=None):
+    """The backward's function in plain PyTorch, in the kernel's order:
+    the forward's recurrence (zero-padded states) keeping every h, then
+    a walk backwards with g in the order of ``selective_scan_bwd_kernel``;
+    the sums over states by ``scan_tree_sum``, over channels by
+    ``_channel_partials`` then a halving tree over the CTAs, dA a sum
+    over t as walked, then over b in order.  Returns (dx, ddt, dBp, dCp,
+    dA), f32; ``dh=None`` is a zero final-state gradient."""
+    _check(x, dt, bp, cp, a)
+    _check_grads(x, a, dy, dh)
     b, t, di = x.shape
     ds = a.shape[1]
-    ops = [v.to(torch.float32).contiguous() for v in (x, dt, bp, cp, a)]
-    for name, v in zip(("x", "dt", "Bp", "Cp", "A"), ops):
-        cuda.require(v, name)
-        if v.device != x.device:
-            raise ValueError(f"x and {name} lie on {x.device} and "
-                             f"{v.device}")
-    y = torch.empty((b, t, di), dtype=torch.float32, device=x.device)
-    h = torch.empty((b, di, ds), dtype=torch.float32, device=x.device)
-    if h.numel() == 0:
+    f32 = torch.float32
+    plan = bwd_plan(ds)
+    p2 = plan.sp * plan.passes
+    pad = (0, p2 - ds)
+    x, dt, dy = (v.to(f32) for v in (x, dt, dy))
+    bp, cp, a = (torch.nn.functional.pad(v.to(f32), pad)
+                 for v in (bp, cp, a))
+    dev = x.device
+    hs = []
+    h = torch.zeros((b, di, p2), dtype=f32, device=dev)
+    for i in range(t):
+        dt_i = dt[:, i]
+        h = (torch.exp(dt_i[..., None] * a[None]) * h
+             + (dt_i * x[:, i])[..., None] * bp[:, i, None, :])
+        hs.append(h)
+    g = (torch.zeros((b, di, p2), dtype=f32, device=dev) if dh is None
+         else torch.nn.functional.pad(dh.to(f32), pad))
+    anext = torch.ones((), dtype=f32, device=dev)
+    dacc = torch.zeros((b, di, p2), dtype=f32, device=dev)
+    dx = torch.empty((b, t, di), dtype=f32, device=dev)
+    ddt = torch.empty((b, t, di), dtype=f32, device=dev)
+    nb = -(-di // plan.ch)
+    wb = torch.empty((b, t, nb, p2), dtype=f32, device=dev)
+    wc = torch.empty((b, t, nb, p2), dtype=f32, device=dev)
+    zero = torch.zeros((b, di, p2), dtype=f32, device=dev)
+    for i in reversed(range(t)):
+        dt_i, x_i, dy_i = dt[:, i], x[:, i], dy[:, i]
+        hprev = hs[i - 1] if i > 0 else zero
+        at = torch.exp(dt_i[..., None] * a[None])
+        g = dy_i[..., None] * cp[:, i, None, :] + anext * g
+        qa = (g * hprev) * at
+        dacc = dacc + qa * dt_i[..., None]
+        anext = at
+        wc[:, i] = _channel_partials(hs[i] * dy_i[..., None], plan)
+        wb[:, i] = _channel_partials(g * (dt_i * x_i)[..., None], plan)
+        sgb = scan_tree_sum(g * bp[:, i, None, :], plan.passes)
+        sq = scan_tree_sum(qa * a[None], plan.passes)
+        dx[:, i] = dt_i * sgb
+        ddt[:, i] = x_i * sgb + sq
+    dbp = halving_tree(wb, 2)[..., :ds].contiguous()
+    dcp = halving_tree(wc, 2)[..., :ds].contiguous()
+    da = dacc[0]
+    for r in range(1, b):
+        da = da + dacc[r]
+    return dx, ddt, dbp, dcp, da[:, :ds].contiguous()
+
+
+def selective_scan_bwd(x, dt, bp, cp, a, states, dy, dh=None):
+    """The scan's gradient: (dx, ddt, dBp, dCp, dA), f32, from the
+    forward's operands, its saved ``states`` (``selective_scan_fwd``),
+    the output gradient ``dy`` (B, T, Di) and the final-state gradient
+    ``dh`` (B, Di, Ds; ``None`` = zero).  CUDA tensors launch
+    ``selective_scan_bwd_kernel`` and its two reductions once (counted
+    as ``selective_scan_bwd``); CPU tensors run
+    ``selective_scan_bwd_plain`` (which recomputes the states)."""
+    _check(x, dt, bp, cp, a)
+    if not x.is_cuda:
+        return selective_scan_bwd_plain(x, dt, bp, cp, a, dy, dh)
+    b, t, di = x.shape
+    ds = a.shape[1]
+    _check_grads(x, a, dy, dh)
+    ops = _cast(x, dt, bp, cp, a)
+    dev = x.device
+    dy = dy.to(torch.float32).contiguous()
+    cuda.require(dy, "dy")
+    if dh is not None:
+        dh = dh.to(torch.float32).contiguous()
+        cuda.require(dh, "dh")
+    for name, v in (("dy", dy), ("dh", dh), ("states", states)):
+        if v is not None and v.device != dev:
+            raise ValueError(f"x and {name} lie on {dev} and {v.device}")
+    if tuple(states.shape) != (b, n_saved(t), di, ds):
+        raise ValueError(f"states must be (B, n_saved(T), Di, Ds) = "
+                         f"{(b, n_saved(t), di, ds)}; got "
+                         f"{tuple(states.shape)}")
+    states = states.contiguous()
+    cuda.require(states, "states", (torch.float32,))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, t, di), **f32)
+    ddt = torch.empty((b, t, di), **f32)
+    dbp = torch.empty((b, t, ds), **f32)
+    dcp = torch.empty((b, t, ds), **f32)
+    da = torch.empty((di, ds), **f32)
+    if t == 0:
+        return dx, ddt, dbp, dcp, da.zero_()
+    plan = bwd_plan(ds)
+    nb = -(-di // plan.ch)
+    wb = torch.empty((b, t, nb, ds), **f32)
+    wc = torch.empty((b, t, nb, ds), **f32)
+    wa = torch.empty((b, di, ds), **f32)
+    cuda.launch("selective_scan_bwd", "scan_selective_bwd", dev,
+                *(v.data_ptr() for v in ops),
+                states.data_ptr() if states.numel() else None,
+                dy.data_ptr(),
+                dh.data_ptr() if dh is not None else None,
+                *(v.data_ptr() for v in (dx, ddt, dbp, dcp, da, wb, wc, wa)),
+                b, t, di, ds, plan.sp, plan.passes, plan.ck)
+    return dx, ddt, dbp, dcp, da
+
+
+class SelectiveScan(torch.autograd.Function):
+    """``selective_scan`` with its gradient: the forward keeps the
+    operands and the states it saved; the backward is
+    ``selective_scan_bwd`` (the kernel on CUDA tensors, the plain
+    version on CPU tensors).  A gradient of y or h left undefined is
+    zero (``dh=None`` reaches the kernel as a null pointer).  Under
+    ``torch.utils.checkpoint`` the forward runs again in the recompute,
+    and launches again."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bp, cp, a):
+        ctx.set_materialize_grads(False)
+        y, h, states = selective_scan_fwd(x, dt, bp, cp, a)
+        ctx.save_for_backward(x, dt, bp, cp, a, states)
         return y, h
-    plan = lane_plan(b, di, ds, cuda.sm_count(x.device))
-    cuda.launch("selective_scan", "scan_selective", x.device,
-                *(v.data_ptr() for v in ops), y.data_ptr(), h.data_ptr(),
-                b, t, di, ds, *plan)
-    return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, bp, cp, a, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, dtype=torch.float32)
+        return selective_scan_bwd(x, dt, bp, cp, a, states, dy, dh)
 
 
 def footprint(b, t, di, ds, *, block_di: int = 256) -> Footprint:

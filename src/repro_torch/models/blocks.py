@@ -5,8 +5,8 @@ LM blocks are plain functions over params dicts laid out as the
 reference's trees: ``init_*`` draws from a ``torch.Generator`` (N(0, 1)
 times the reference's scale, in f32, then cast to the param dtype) and
 ``apply`` functions are pure.  Layer-stacked params carry a leading
-group axis (see transformer.py).  The training loss is ROADMAP queue 1,
-item 12.
+group axis (see transformer.py).  ``softmax_xent`` is the training
+loss.
 
 CNN block — conv -> pool -> activation, planned as one NetworkPlan: the
 three sites share ONE ResourceBudget partitioned across them (the paper's
@@ -35,7 +35,10 @@ def normal(gen: torch.Generator, shape, scale: float, dtype,
            device) -> torch.Tensor:
     """N(0, 1) * ``scale`` drawn in f32 on ``gen``'s device, cast to
     ``dtype`` on ``device`` (the reference's ``normal(k, shape) * scale``
-    then ``astype``)."""
+    then ``astype``).  On the ``meta`` device nothing is drawn: an
+    abstract tensor of the shape and dtype (``gen`` may be ``None``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     w = torch.randn(tuple(shape), generator=gen, device=gen.device) * scale
     return w.to(dtype=dtype, device=device)
 
@@ -129,6 +132,20 @@ def lm_logits(cfg: ModelConfig, p, x):
     cd = cfg.dtype("compute")
     w = (p["embed"].T if cfg.tie_embeddings else p["lm_head"]).to(cd)
     return torch.einsum("...d,dv->...v", x.to(cd), w).to(cfg.dtype("logit"))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def softmax_xent(logits, labels, *, z_loss: float = 1e-4):
+    """Token-mean cross entropy (f32 accumulation) + z-loss regularizer."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,13 @@ Encoder: non-causal attention blocks over precomputed frame embeddings
 self-attention + cross-attention to the encoder output + FFN.
 Cross-attention K/V are computed once at prefill and frozen.  Layer
 params carry a leading layer axis, as the reference's trees do, and the
-layers run in a Python loop.
+layers run in a Python loop, each rematerialized under ``cfg.remat``
+when a gradient is taken (``transformer.remat_group``), as the
+reference's ``jax.checkpoint`` bodies.
 
 Serving steps: ``prefill`` (encode, then a teacher-forced decoder pass
-collecting caches) and ``decode_step`` (one decoder token).  The
-training loss is ROADMAP queue 1, item 12.
+collecting caches) and ``decode_step`` (one decoder token).  Training:
+``loss_fn`` (cross entropy; the aux loss is zero).
 """
 from __future__ import annotations
 
@@ -22,9 +24,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
                                        init_embed, init_ffn, init_norm,
-                                       lm_logits)
+                                       lm_logits, softmax_xent)
 from repro_torch.models.frontends import resolve_device
-from repro_torch.models.transformer import _group, _sinusoidal, _stack
+from repro_torch.models.transformer import (_group, _sinusoidal, _stack,
+                                            _unbind_groups, make_generator,
+                                            remat_group)
 
 
 def _init_enc_block(cfg, gen, prefix, device):
@@ -49,8 +53,7 @@ def init_params(cfg: ModelConfig, generator=0, *,
     ``transformer.init_params``; carry a reference tree across with
     ``transformer.params_from_numpy``)."""
     dev = resolve_device(device)
-    gen = (generator if isinstance(generator, torch.Generator)
-           else torch.Generator(device=dev).manual_seed(int(generator)))
+    gen = make_generator(generator, dev)
     params = init_embed(cfg, gen, dev)
     params["enc_blocks"] = _init_enc_block(cfg, gen, (cfg.enc_layers,), dev)
     params["dec_blocks"] = _init_dec_block(cfg, gen, (cfg.n_layers,), dev)
@@ -70,14 +73,17 @@ def encode(cfg: ModelConfig, params, embeds):
     positions = _positions(B, S, x.device)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(cfg, positions)
-    for g in range(cfg.enc_layers):
-        p = _group(params["enc_blocks"], g)
+
+    def body(p, x):
         h = apply_norm(cfg, p["ln1"], x)
         out, _ = attn_mod.attn_block(cfg, p["attn"], h, positions,
                                      causal=False)
         x = x + out.to(x.dtype)
         h2 = apply_norm(cfg, p["ln2"], x)
-        x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+        return x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+
+    for p in _unbind_groups(params["enc_blocks"], cfg.enc_layers):
+        x = remat_group(cfg, body, p, x)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -105,9 +111,8 @@ def decode_full(cfg: ModelConfig, params, enc_out, tokens,
     positions = _positions(B, S, x.device)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(cfg, positions)
-    caches = []
-    for g in range(cfg.n_layers):
-        p = _group(params["dec_blocks"], g)
+
+    def body(p, x):
         h = apply_norm(cfg, p["ln1"], x)
         out, (k, v) = attn_mod.attn_block(cfg, p["self_attn"], h, positions,
                                           causal=True)
@@ -117,10 +122,32 @@ def decode_full(cfg: ModelConfig, params, enc_out, tokens,
         x = x + out.to(x.dtype)
         h2 = apply_norm(cfg, p["ln2"], x)
         x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+        return x, {"k": k, "v": v, "xk": ck, "xv": cv}
+
+    caches = []
+    for p in _unbind_groups(params["dec_blocks"], cfg.n_layers):
         if collect_cache:
-            caches.append({"k": k, "v": v, "xk": ck, "xv": cv})
+            x, cache = body(p, x)
+            caches.append(cache)
+        else:
+            x = remat_group(cfg, lambda p, x: body(p, x)[0], p, x)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, (_stack(caches) if collect_cache else None)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    enc_out = encode(cfg, params, batch["embeds"])
+    x, _ = decode_full(cfg, params, enc_out, batch["tokens"])
+    logits = lm_logits(cfg, params, x)
+    loss = softmax_xent(logits, batch["labels"])
+    return loss, {"xent": loss,
+                  "aux": torch.zeros((), dtype=torch.float32,
+                                     device=loss.device)}
+
+
+def init_params_abstract(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params tree as ``meta`` tensors."""
+    return init_params(cfg, device="meta")
 
 
 def prefill(cfg: ModelConfig, params, batch, *, pad_to=None):

@@ -6,8 +6,11 @@ member, ``kernels/mamba_scan/scan.py::selective_scan``: on the card one
 launch of the hand-written kernel per layer, where the reference runs a
 ``lax.scan`` whose step is, token for token, the family oracle's.  The
 D skip term and the ``silu(z)`` gate are applied outside, as in the
-reference.  The decode step (one token, one elementwise update of the
-cached state) stays plain PyTorch, as it is plain jnp in the reference.
+reference.  When a gradient is taken the scan runs through
+``SelectiveScan``: the same forward kernel, and the backward kernel
+where the reference's ``jax.grad`` differentiates its ``lax.scan``.
+The decode step (one token, one elementwise update of the cached state)
+stays plain PyTorch, as it is plain jnp in the reference.
 
 Decode carries (conv_state, ssm_state) — O(1) in sequence length.
 """

@@ -5,16 +5,17 @@ precomputed-embedding (``embed_inputs``) inputs.
 Layers are grouped into a repeating *period* P (1 for homogeneous
 stacks; 8 for jamba's 1-attn:7-mamba; lcm with moe_every for MoE
 alternation) and params carry a leading group axis of n_layers/P, as
-the reference's trees do.  The groups run in a Python loop: the
-reference's ``lax.scan`` and remat change no served result.
+the reference's trees do.  The groups run in a Python loop over one
+``unbind`` of the stacked params (its backward stacks the groups'
+gradients once): the reference's ``lax.scan`` changes no result.
+Under ``cfg.remat`` a group is rematerialized when a gradient is
+taken, as the reference's ``jax.checkpoint`` (``remat_group``); remat
+changes no result either.
 
-Serving steps:
   forward       — hidden states (+ per-layer caches)
+  loss_fn       — softmax cross entropy + 0.01 * MoE aux (training)
   prefill       — forward returning per-layer caches + last-pos logits
   decode_step   — one token through cached layers
-
-The training loss is ROADMAP queue 1, item 12 (``models/api.py``
-raises ``NotImplementedError`` for it).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
                                        init_embed, init_ffn, init_norm,
-                                       lm_logits)
+                                       lm_logits, softmax_xent)
 from repro_torch.models.frontends import resolve_device
 from repro_torch.models.moe import apply_moe, init_moe
 
@@ -106,15 +107,22 @@ def _init_sub(cfg: ModelConfig, gen, kind: str, use_moe: bool, prefix,
     return p
 
 
+def make_generator(generator, dev: torch.device):
+    """``generator`` itself, or a ``torch.Generator`` on ``dev`` seeded
+    with it; ``None`` on the ``meta`` device (nothing is drawn)."""
+    if isinstance(generator, torch.Generator) or dev.type == "meta":
+        return generator if isinstance(generator, torch.Generator) else None
+    return torch.Generator(device=dev).manual_seed(int(generator))
+
+
 def init_params(cfg: ModelConfig, generator=0, *, device=None) -> Dict[str, Any]:
     """Random params in the reference's tree, drawn tensor by tensor from
     ``generator`` (a ``torch.Generator`` or a seed for one on ``device``;
-    ``None`` = ``cuda``).  The numbers differ from the reference's
-    ``jax.random``: carry a reference tree across with
-    ``params_from_numpy``."""
+    ``None`` = ``cuda``; ``"meta"``: shapes and dtypes only).  The
+    numbers differ from the reference's ``jax.random``: carry a
+    reference tree across with ``params_from_numpy``."""
     dev = resolve_device(device)
-    gen = (generator if isinstance(generator, torch.Generator)
-           else torch.Generator(device=dev).manual_seed(int(generator)))
+    gen = make_generator(generator, dev)
     n_groups = _n_groups(cfg)
     params = init_embed(cfg, gen, dev)
     params["blocks"] = {
@@ -122,6 +130,12 @@ def init_params(cfg: ModelConfig, generator=0, *, device=None) -> Dict[str, Any]
         for i, (kind, use_moe) in enumerate(period_pattern(cfg))}
     params["final_norm"] = init_norm(cfg, (), dev)
     return params
+
+
+def init_params_abstract(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params tree as ``meta`` tensors (the reference's
+    ``eval_shape``): no memory, any size."""
+    return init_params(cfg, device="meta")
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
@@ -139,6 +153,56 @@ def params_from_numpy(tree, device=None):
     package's, key for key, on ``device`` (``None`` = ``cuda``)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
+
+
+def train_state_from_numpy(state, device=None):
+    """The reference's ``TrainState`` (params, ``OptState(mu, nu,
+    step)``; numpy or array-like leaves) as this package's
+    ``api.TrainState``: params and moments on ``device`` (``None`` =
+    ``cuda``), the step a 0-d int32 CPU tensor."""
+    from repro_torch.models.api import TrainState
+    from repro_torch.optim.adamw import OptState
+    params, opt = state
+    mu, nu, step = opt
+    return TrainState(params_from_numpy(params, device),
+                      OptState(params_from_numpy(mu, device),
+                               params_from_numpy(nu, device),
+                               torch.tensor(int(np.asarray(step)),
+                                            dtype=torch.int32)))
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The selective policy of ``remat="block_dots"`` (the reference's
+    ``dots_with_no_batch_dims_saveable``): keep the outputs of products
+    without batch dimensions (``mm``, ``addmm``, and ``bmm`` over one
+    batch, as ``einsum`` lowers a projection), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_group(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, rematerialized in the backward under ``cfg.remat``
+    when a gradient is being taken: ``"block"`` keeps nothing of the
+    group (``torch.utils.checkpoint``, non-reentrant), ``"block_dots"``
+    keeps the outputs ``_dots_saveable`` names; ``"none"`` (or no grad
+    mode) runs it plainly."""
+    if cfg.remat not in ("block", "block_dots") or \
+            not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils import checkpoint as ckpt
+    if cfg.remat == "block":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return ckpt.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+            _dots_saveable))
 
 
 # ---------------------------------------------------------------------------
@@ -216,24 +280,48 @@ def _group(tree, g: int):
     return tree_map(lambda t: t[g], tree)
 
 
+def _unbind_groups(blocks, n: int):
+    """The stacked params as ``n`` per-group trees (views)."""
+    if isinstance(blocks, dict):
+        per = {k: _unbind_groups(v, n) for k, v in blocks.items()}
+        return [{k: per[k][g] for k in blocks} for g in range(n)]
+    return blocks.unbind(0)
+
+
 def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
             causal: bool = True):
     """Returns (hidden (B,S,D), aux_loss, caches | None)."""
     period = period_pattern(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    cache_list = []
-    for g in range(_n_groups(cfg)):
-        gp = _group(params["blocks"], g)
+
+    def group_body(gp, x, aux):
         caches = {}
         for i, (kind, use_moe) in enumerate(period):
             x, a, cache = _apply_sub(cfg, gp[f"sub{i}"], x, positions, kind,
                                      use_moe, collect_cache, causal)
             aux = aux + a
             caches[f"sub{i}"] = cache
-        cache_list.append(caches)
+        return x, aux, caches
+
+    cache_list = []
+    for gp in _unbind_groups(params["blocks"], _n_groups(cfg)):
+        if collect_cache:
+            x, aux, caches = group_body(gp, x, aux)
+            cache_list.append(caches)
+        else:
+            x, aux = remat_group(
+                cfg, lambda gp, x, aux: group_body(gp, x, aux)[:2], gp, x,
+                aux)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, aux, (_stack(cache_list) if collect_cache else None)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    x, aux, _ = forward(cfg, params, batch)
+    logits = lm_logits(cfg, params, x)
+    loss = softmax_xent(logits, batch["labels"])
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ the per-host agent; here they watch one serving process.
 ``elastic_remesh`` builds the serving form of the reference's mesh: a
 1-D mesh is a tuple of ``torch.device``s (one a rank, a card possibly
 repeated for logical devices) with its axis name.  The reference's 2-D
-("data", "model") training grid comes with training (ROADMAP queue 1,
-item 12).
+("data", "model") training grid is the training mesh (ROADMAP queue 1,
+item 12.2); training on one device does not need it.
 """
 from __future__ import annotations
 
@@ -186,11 +186,12 @@ def elastic_remesh(n_devices: int, prefer_model: int = 16, *,
     ``pool`` is the server's device pool (default: every CUDA card);
     too few devices raise, and no card is ever stood in for another.
     ``axis=None`` asks for the reference's 2-D training grid, which comes
-    with training (ROADMAP queue 1, item 12)."""
+    with the training mesh (ROADMAP queue 1, item 12.2)."""
     if axis is None:
         raise NotImplementedError(
-            "the 2-D (data, model) training mesh comes with training "
-            "(ROADMAP queue 1, item 12); pass axis= for a serving mesh")
+            "the 2-D (data, model) training mesh comes with the training "
+            "mesh (ROADMAP queue 1, item 12.2); pass axis= for a serving "
+            "mesh")
     import torch
     if pool is None:
         pool = [torch.device("cuda", i)

@@ -47,7 +47,7 @@ from repro_torch.models.frontends import CudaUnavailableError
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16_LOGITS = dict(rtol=8e-3, atol=1e-5)
 DTYPES = ("param", "compute", "moment", "logit", "attn_score")
-UNPORTED = "ROADMAP queue 1, item 12"
+UNPORTED = "ROADMAP queue 1, item 12.2"
 # the served smoke configs, all ten architectures: jamba with and
 # without MoE (hybrid), the dense ones — llama, chatglm3 (half RoPE), olmo
 # (non-parametric LayerNorm, tied embeddings), starcoder2 (LayerNorm and
@@ -617,25 +617,45 @@ def test_prefill_then_step_equals_a_longer_prefill(served):
     ("llava-next-34b", {}),                       # precomputed embeddings
 ])
 def test_unported_configs_raise_named_errors(arch, replace):
-    """These archs serve now; what still raises on them is training."""
+    """These archs serve and, since training on one device was ported,
+    train: one ``train_step`` on the CPU gives finite metrics.  What
+    still raises on them is the 2-D training mesh (item 12.2)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import elastic_remesh
     cfg = dataclasses.replace(t_configs.get_config(arch, smoke=True),
                               **replace)
     params = t_api.init_params(cfg, 0, device="cpu")
     assert t_api.init_decode_caches(cfg, 1, 8, device="cpu")
-    for call in (lambda: t_api.loss_fn(cfg, params, {}),
-                 lambda: t_api.init_train_state(cfg, None),
-                 lambda: t_api.train_step(cfg, None, None, {})):
-        with pytest.raises(NotImplementedError, match=UNPORTED):
-            call()
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    state = t_api.init_train_state(cfg, opt, 0, device="cpu")
+    batch = t_front.make_inputs(cfg, t_base.ShapeConfig("t", 8, 1, "train"),
+                                abstract=False, device="cpu")
+    loss, _ = t_api.loss_fn(cfg, params, batch)
+    _, metrics = t_api.train_step(cfg, opt, state, batch)
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(v) for v in metrics.values())
+    with pytest.raises(NotImplementedError, match=UNPORTED):
+        elastic_remesh(4)
 
 
 def test_training_raises_named_errors():
+    """Training on one device is ported; its named errors: a batch
+    without labels, optimizer moments that do not match the params, and
+    the 2-D training mesh (ROADMAP queue 1, item 12.2)."""
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.fault_tolerance import elastic_remesh
     _, tc = _both("llama3.2-1b")
-    for call in (lambda: t_api.loss_fn(tc, {}, {}),
-                 lambda: t_api.init_train_state(tc, None),
-                 lambda: t_api.train_step(tc, None, None, {})):
-        with pytest.raises(NotImplementedError, match=UNPORTED):
-            call()
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    state = t_api.init_train_state(tc, opt, 0, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(KeyError, match="labels"):
+        t_api.loss_fn(tc, state.params, {"tokens": tokens})
+    bad = state._replace(opt=init_opt_state(opt, {"w": torch.zeros(2)}))
+    with pytest.raises(ValueError, match="leaves"):
+        t_api.train_step(tc, opt, bad, {"tokens": tokens,
+                                        "labels": tokens})
+    with pytest.raises(NotImplementedError, match=UNPORTED):
+        elastic_remesh(4)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

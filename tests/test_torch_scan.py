@@ -13,6 +13,7 @@ y sum over Ds in another order.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -262,3 +263,150 @@ def test_planning_an_ssm_site_raises_the_reference_message():
         t_plan.select_ip("ssm_scan", TSpec.make("s", "ssm_scan", shapes))
     assert str(got.value) == str(want.value)
     assert "has no site adapter registered" in str(got.value)
+
+
+# ---------------------------------------------------------------------------
+# The backward (SelectiveScan, selective_scan_bwd, its plain version)
+# ---------------------------------------------------------------------------
+# (B, T, Di, Ds): the reference test's CASES, and d_state 1, 5, 32 and
+# 300 (padded to 512: sixteen passes of 32 lanes), T no multiple of the
+# backward's chunk of 16 steps
+BWD_CASES = [(1, 8, 16, 4), (2, 16, 32, 8), (2, 12, 24, 4), (1, 8, 16, 1),
+             (2, 40, 33, 5), (1, 30, 70, 32), (1, 9, 40, 300),
+             (2, 45, 100, 16)]
+# against jax.grad of the oracle: the same f32 recurrence, its sums in
+# another order; errors are at most 3e-6 of each gradient's RMS
+BWD_RTOL = 1e-5
+BWD_ATOL_RMS = 1e-5
+
+
+def _grads_of_reference(ops, dy, dh):
+    def loss(*o):
+        y, h = j_ref(*o)
+        out = jnp.sum(y * dy)
+        return out + jnp.sum(h * dh) if dh is not None else out
+    return [np.asarray(g) for g in jax.grad(loss, argnums=range(5))(
+        *(jnp.asarray(a) for a in ops))]
+
+
+def _close_rms(got, want, rtol, atol_rms, what):
+    rms = float(np.sqrt(np.mean(np.square(want.astype(np.float64)))))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_rms * rms,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("with_dh", [True, False], ids=["dh", "no_dh"])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_backward_plain_matches_jax_grad_of_the_oracle(case, with_dh):
+    rng = np.random.default_rng(sum(case))
+    ops = _data(rng, *case)
+    b, t, di, ds = case
+    dy = rng.normal(size=(b, t, di)).astype(np.float32)
+    dh = rng.normal(size=(b, di, ds)).astype(np.float32) if with_dh else None
+    want = _grads_of_reference(ops, dy, dh)
+    got = t_scan.selective_scan_bwd_plain(
+        *(torch.from_numpy(a) for a in ops), torch.from_numpy(dy),
+        None if dh is None else torch.from_numpy(dh))
+    for name, g, w in zip(("dx", "ddt", "dBp", "dCp", "dA"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        _close_rms(g.numpy(), w, BWD_RTOL, BWD_ATOL_RMS, name)
+    # the CPU wrapper is the plain version, whatever states it is given
+    cuda.reset_launches()
+    again = t_scan.selective_scan_bwd(
+        *(torch.from_numpy(a) for a in ops), None, torch.from_numpy(dy),
+        None if dh is None else torch.from_numpy(dh))
+    assert cuda.launch_counts() == {}
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:4] + BWD_CASES[6:7],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_function_grads_match_autograd_through_the_plain_version(case):
+    """``selective_scan`` with operands that need a gradient runs
+    ``SelectiveScan``; its grads equal autograd's through
+    ``selective_scan_plain`` (the same f32 math; sums in another order)
+    for a loss of y alone (``dh`` undefined) and of y and h."""
+    rng = np.random.default_rng(7)
+    ops = _data(rng, *case)
+    wy = torch.from_numpy(rng.normal(size=case[:3]).astype(np.float32))
+    for use_h in (False, True):
+        grads = []
+        for fn in (selective_scan, selective_scan_plain):
+            leaves = [torch.from_numpy(a).requires_grad_(True) for a in ops]
+            y, h = fn(*leaves)
+            loss = (y * wy).sum() + ((h * h).sum() if use_h else 0)
+            grads.append(torch.autograd.grad(loss, leaves))
+        for g, w in zip(*grads):
+            _close_rms(g.numpy(), w.numpy(), BWD_RTOL, BWD_ATOL_RMS, "")
+
+
+def test_function_runs_under_checkpoint():
+    """Under ``torch.utils.checkpoint`` the forward runs again in the
+    recompute; the grads are those of a plain run bitwise."""
+    from torch.utils.checkpoint import checkpoint
+    ops = [torch.from_numpy(a) for a in
+           _data(np.random.default_rng(8), 2, 20, 24, 8)]
+
+    def grads(remat):
+        leaves = [o.clone().requires_grad_(True) for o in ops]
+        fn = (lambda *o: selective_scan(*o)[0].square().sum())
+        loss = (checkpoint(fn, *leaves, use_reentrant=False) if remat
+                else fn(*leaves))
+        return torch.autograd.grad(loss, leaves)
+    assert all(torch.equal(a, b) for a, b in zip(grads(True), grads(False)))
+
+
+def test_forward_states_are_the_recurrences_at_chunk_ends():
+    ops = [torch.from_numpy(a) for a in
+           _data(np.random.default_rng(9), 2, 50, 16, 5)]
+    y, h, states = t_scan.selective_scan_fwd(*ops)
+    want_y, want_h = selective_scan_plain(*ops)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    ck = t_scan.BWD_CHUNK
+    assert tuple(states.shape) == (2, t_scan.n_saved(50), 16, 5) == \
+        (2, 3, 16, 5)
+    for k in range(states.shape[1]):
+        _, hk = selective_scan_plain(*(o[:, :(k + 1) * ck] if o.dim() == 3
+                                       else o for o in ops))
+        assert torch.equal(states[:, k], hk)
+    assert [t_scan.n_saved(t) for t in (0, 1, 16, 17, 32, 33)] == \
+        [0, 0, 0, 1, 1, 2]
+
+
+@pytest.mark.parametrize("ds", [1, 2, 5, 16, 32, 33, 300])
+def test_backward_plan_covers_the_states(ds):
+    plan = t_scan.bwd_plan(ds)
+    p2 = 1 << (ds - 1).bit_length()
+    assert plan.sp * plan.passes == p2 and plan.sp == min(p2, 32)
+    assert plan.ch * plan.sp == t_scan.BWD_THREADS
+    assert plan.ck == t_scan.BWD_CHUNK
+
+
+def test_halving_tree_is_the_kernels_order():
+    """``halving_tree`` pairs j with j + n/2 over the axis zero-padded to
+    a power of two, as the kernel's shuffles and shared-memory trees
+    do."""
+    v = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(3, 11)).astype(np.float32))
+    p = list(torch.nn.functional.pad(v, (0, 5)).unbind(-1))
+    while len(p) > 1:
+        half = len(p) // 2
+        p = [a + b for a, b in zip(p[:half], p[half:])]
+    assert torch.equal(t_scan.halving_tree(v, 1), p[0])
+    assert torch.equal(t_scan.halving_tree(v.T, 0), p[0])
+    np.testing.assert_allclose(t_scan.halving_tree(v, 1).numpy(),
+                               v.sum(1).numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_backward_bad_operands_raise_named_errors():
+    x, dt, bp, cp, a = (torch.from_numpy(v) for v in
+                        _data(np.random.default_rng(11), 1, 4, 8, 4))
+    dy = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match=r"dy must be \(B, T, Di\)"):
+        t_scan.selective_scan_bwd_plain(x, dt, bp, cp, a, dy[:, :3])
+    with pytest.raises(ValueError, match=r"dh must be \(B, Di, Ds\)"):
+        t_scan.selective_scan_bwd(x, dt, bp, cp, a, None, dy,
+                                  torch.zeros(1, 8, 3))
+    with pytest.raises(ValueError, match="bwd_plan takes Ds >= 1"):
+        t_scan.bwd_plan(0)
