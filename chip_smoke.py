@@ -321,17 +321,21 @@ and prints no result):
    width cut to ``SEQ_FAMILY_LAYERS`` layers, a prefill over S + 1
    positions against a prefill over S and one decode step
    (``HANDOFF_REL_L2``, check 3).
-8. train (``train_phase``) — training on one card: (a) the selective
+8. train (``train_phase``) — training on one card: (a) the forward
+   that saves states (``selective_scan_fwd``: y and h, which training
+   returns) bitwise equal to its plain version and to serving's
+   ``selective_scan`` at the cases below, and the selective
    scan's backward (``selective_scan_bwd``, one launch of
    ``selective_scan_bwd_kernel`` and its two reductions) bitwise equal to
-   its plain version at ``SCAN_SITE``, ``SCAN_FULL_CASES``,
-   ``SCAN_SMALL_CASES`` and ``SCAN_DS_CASES`` with ``dh`` given and
-   ``None``, at full width within
-   ``BWD_F64_TOL`` of the recurrence's gradient in f64; its time, plain
-   time and bound; (b) every smoke config of ``smoke_families`` takes
-   one ``api.train_step`` on the card and on the CPU (loss, grad_norm
-   and grads within ``FAMILY_TOL``, params within the CPU tests' bar;
-   only jamba launches kernels); (c) llama3.2-1b whole through
+   its plain version and to a second launch on the same operands at
+   ``SCAN_SITE``, ``SCAN_FULL_CASES``, ``SCAN_SMALL_CASES`` and
+   ``SCAN_DS_CASES`` with ``dh`` given and ``None``, at full width
+   within ``BWD_F64_TOL`` of the recurrence's gradient in f64; its time,
+   plain time and bound at ``SCAN_BWD_TIMED``, beside the forward's with
+   and without saving states; (b) every smoke config of
+   ``smoke_families`` takes one ``api.train_step`` on the card and on
+   the CPU (loss, grad_norm and grads within ``FAMILY_TOL``, params
+   within the CPU tests' bar; only jamba launches kernels); (c) llama3.2-1b whole through
    ``repro_torch.launch.train`` (``TRAIN_LLAMA_ARGS``, one final
    checkpoint in a temporary directory, removed): losses finite and
    falling, step ms, tokens/s, save time, peak memory; (d) the main
@@ -484,16 +488,17 @@ KERNEL = {
     "flash_attention (D 512)": "attn_tc_flash_kernel",
     "flash_decode (D 512)": "flash_decode_split_kernel, decode_combine_kernel",
     "selective_scan": "selective_scan_kernel",
-    "selective_scan_bwd": "selective_scan_bwd_kernel, scan_bwd_reduce_bc, "
-                          "scan_bwd_reduce_a",
+    "selective_scan_bwd": "selective_scan_bwd_kernel, "
+                          "scan_bwd_reduce_bc_kernel, "
+                          "scan_bwd_reduce_a_kernel",
 }
 # Kernels of logic-only members (mxu_available=False, or uses_mxu=False
 # as ssm_scan.selective_vmem): no MMA in SASS.
 LOGIC_ONLY = ("conv2d_vpu_tiled_kernel", "conv2d_ip3_tiled_kernel",
               "fused_cnn_tiled_kernel", "mm_vpu_kernel",
               "selective_scan_kernel", "selective_scan_bwd_kernel",
-              "activation_kernel",
-              "activation_lut_kernel", "pool2d_kernel")
+              "scan_bwd_reduce_bc_kernel", "scan_bwd_reduce_a_kernel",
+              "activation_kernel", "activation_lut_kernel", "pool2d_kernel")
 # Kernels of MXU members that run on CUDA cores on this card: the im2col
 # pool (the window pool's body) and f32 flash attention (no IEEE-f32
 # MMA; TF32 would miss ATTN_F32_TOL).  No MMA in SASS either.
@@ -745,6 +750,9 @@ SCAN_SITE = (1, 2048, 16384, 16)
 # own operands atol is 1e-4 of each output's RMS (compare_scan)
 SCAN_TOL = dict(rtol=1e-5, atol=1e-6)
 SCAN_FULL_CASES = ((1, 2048, 16384, 16), (4, 512, 16384, 16))
+# the backward's timed shapes: the served site and train_jamba's (one
+# Mamba layer of a (1, 512) step)
+SCAN_BWD_TIMED = (SCAN_SITE, (1, 512, 16384, 16))
 # (B, T, Di, Ds): the reference test's CASES; a T that is no multiple
 # of the kernel's chunk of 32 steps and a Di that is no multiple of its
 # channels per CTA (256 / Ds), at each Ds the kernel takes
@@ -6060,21 +6068,46 @@ def scan_vjp(ops, dy, dh, dtype):
     return torch.autograd.grad(loss, leaves)
 
 
-def compare_scan_bwd(what, ops, dy, dh, errs, witness=False):
+def compare_saving_forward(what, ops, errs):
+    """``selective_scan_fwd`` (the forward's instance that saves states,
+    whose y and h training's ``SelectiveScan`` returns) bitwise equal to
+    the plain version and to serving's ``selective_scan``.  Returns its
+    saved states."""
+    import torch
+    from repro_torch.kernels.mamba_scan.scan import (
+        selective_scan, selective_scan_fwd, selective_scan_plain)
+    y, h, states = selective_scan_fwd(*ops)
+    for g, w in zip((y, h), selective_scan_plain(*ops)):
+        compare("selective_scan", g, w, 0, 0, errs, exact=True)
+    check(all(torch.equal(g, w) for g, w in zip((y, h),
+                                                selective_scan(*ops))),
+          f"selective_scan_fwd {what}: y or h differs from serving's "
+          f"forward")
+    log(f"selective_scan_fwd {what}: y and h bitwise equal to the plain "
+        f"version and to serving's forward")
+    return states
+
+
+def compare_scan_bwd(what, ops, states, dy, dh, errs, witness=False):
     """``selective_scan_bwd`` (one launch) bitwise equal to its plain
-    version; with ``witness``, measured
+    version, on the ``states`` of a forward checked by
+    ``compare_saving_forward``; with ``witness``, measured
     against the recurrence's gradient in f64: the error's RMS within
     ``BWD_F64_TOL["rms"]`` of each gradient's RMS, and its largest
     element within ``BWD_F64_TOL["oracle"]`` times the f32 oracle's
     (``scan_vjp`` in f32)."""
     import torch
     from repro_torch.kernels.mamba_scan.scan import (
-        selective_scan_bwd, selective_scan_bwd_plain, selective_scan_fwd)
-    _, _, states = selective_scan_fwd(*ops)
+        selective_scan_bwd, selective_scan_bwd_plain)
     got = launched_once(lambda: selective_scan_bwd(*ops, states, dy, dh),
                         "selective_scan_bwd", what)
     for g, w in zip(got, selective_scan_bwd_plain(*ops, dy, dh)):
         compare("selective_scan_bwd", g, w, 0, 0, errs, exact=True)
+    again = selective_scan_bwd(*ops, states, dy, dh)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"selective_scan_bwd {what}: two launches on the same operands "
+          f"differ")
+    del again
     notes = ""
     if witness:
         exact = scan_vjp(ops, dy, dh, torch.float64)
@@ -6102,70 +6135,91 @@ def compare_scan_bwd(what, ops, dy, dh, errs, witness=False):
                  f"{'; '.join(parts)}")
     log(f"selective_scan_bwd {what}, dh "
         f"{'given' if dh is not None else 'None'}: one launch, bitwise "
-        f"equal to the plain version{notes}")
+        f"equal to the plain version and to a second launch{notes}")
     return got
 
 
 def scan_bwd_checks(peaks, card, errs):
-    """(a): the backward kernel against its plain version at the served
-    site, SCAN_FULL_CASES, SCAN_SMALL_CASES and the d_states of
-    SCAN_DS_CASES, with dh given and None; at full width also against
-    the f64 recurrence; then its time, the plain version's and the
-    bound.  Returns its row."""
+    """(a): the forward that saves states (y and h) and the backward
+    kernel against their plain versions at the served site,
+    SCAN_FULL_CASES, SCAN_SMALL_CASES and the d_states of SCAN_DS_CASES,
+    the backward with dh given and None; at full width also against
+    the f64 recurrence; then at each SCAN_BWD_TIMED shape its time, the
+    plain version's and the bound, beside the forward's with and
+    without saving states and their bounds.  Returns the served site's
+    row."""
     import numpy as np
     import torch
     from repro_torch.kernels.mamba_scan.scan import (
-        bwd_plan, n_saved, selective_scan_bwd, selective_scan_bwd_plain,
-        selective_scan_fwd)
+        bwd_plan, n_saved, selective_scan, selective_scan_bwd,
+        selective_scan_bwd_plain, selective_scan_fwd)
     rng = np.random.default_rng(SEED)
     for case in SCAN_FULL_CASES + SCAN_SMALL_CASES + SCAN_DS_CASES:
         ops, dy, dh = scan_grad_data(rng, *case)
+        states = compare_saving_forward(f"{case}", ops, errs)
         for g in (dh, None):
             compare_scan_bwd(f"{case} (plan {tuple(bwd_plan(case[3]))})",
-                             ops, dy, g, errs,
+                             ops, states, dy, g, errs,
                              witness=case[2] >= 16384 and g is not None)
-        del ops, dy, dh
+        del ops, dy, dh, states
         torch.cuda.empty_cache()
-    ops, dy, _ = scan_grad_data(rng, *SCAN_SITE)
-    _, _, states = selective_scan_fwd(*ops)
-    grads = selective_scan_bwd(*ops, states, dy, None)
-    b, t, di, ds = SCAN_SITE
-    n = b * t * di * ds
-    # bytes: the inputs (x, dt, Bp, Cp, A, the saved states, dy) read
-    # once and the gradients written once; operations: per (t, di, s)
-    # one exponential (a_t) and BWD_FP32_OPS FP32 operations (the
-    # chunk's recompute of h, the g update, the terms of dx, ddt, dB,
-    # dC and dA, their sums)
-    n_bytes = nbytes(*ops, states, dy, *grads)
-    t_bytes = bound_ms(peaks, n_bytes, 0)[0]
-    t_fp32 = bound_ms(peaks, 0, BWD_FP32_OPS * n)[0]
-    t_exp = bound_ms(peaks, 0, n, "mufu_per_s")[0]
-    b_ms = max(t_bytes, t_fp32, t_exp)
-    clocks = clock_line()
-    row = dict(ms=time_ms(lambda: selective_scan_bwd(*ops, states, dy, None),
-                          reps=5, warmup=1),
-               plain_ms=time_sync_ms(lambda: selective_scan_bwd_plain(
-                   *ops, dy, None), reps=1),
-               library_ms=None, bound_ms=b_ms,
-               bound_by="bytes" if t_bytes >= max(t_fp32, t_exp)
-               else "operations",
-               shape=f"(B, T, Di, Ds) = {SCAN_SITE} f32, dh None, "
-                     f"{n_saved(t)} saved states a row",
-               library="none (no single PyTorch call computes a selective "
-                       "scan's gradient)")
-    fwd_states_ms = time_ms(lambda: selective_scan_fwd(*ops), reps=5,
-                            warmup=1)
-    log(f"selective_scan_bwd [{row['shape']}]: {row['ms'] * 1e3:.1f} us, "
-        f"plain {row['plain_ms'] * 1e3:.1f} us (one call), library "
-        f"{row['library']}, bound {b_ms * 1e3:.1f} us ({row['bound_by']}; "
-        f"{n_bytes / 1e6:.1f} MB {t_bytes * 1e3:.1f} us, FP32 operations "
-        f"{t_fp32 * 1e3:.1f} us, exponentials {t_exp * 1e3:.1f} us at the "
-        f"MUFU rate); the forward saving its states "
-        f"{fwd_states_ms * 1e3:.1f} us; on {card}; SM clock, max, power, "
-        f"temperature before: {clocks}, after: {clock_line()}")
-    del ops, dy, states, grads
-    torch.cuda.empty_cache()
-    return row
+    rows = {}
+    for shape in SCAN_BWD_TIMED:
+        ops, dy, _ = scan_grad_data(rng, *shape)
+        states = compare_saving_forward(f"{shape}", ops, errs)
+        grads = selective_scan_bwd(*ops, states, dy, None)
+        y, h = selective_scan(*ops)
+        b, t, di, ds = shape
+        n = b * t * di * ds
+        # the backward's bytes: the inputs (x, dt, Bp, Cp, A, the saved
+        # states, dy) read once and the gradients written once;
+        # operations: per (t, di, s) one exponential (a_t) and
+        # BWD_FP32_OPS FP32 operations (the chunk's recompute of h, the g
+        # update, the terms of dx, ddt, dB, dC and dA, their sums).  The
+        # forward's: x, dt, Bp, Cp, A read, y and h (and the states)
+        # written; per (t, di, s) one exponential and 6 FP32 operations.
+        bounds = {}
+        for name, n_bytes, fp32 in (
+                ("bwd", nbytes(*ops, states, dy, *grads), BWD_FP32_OPS),
+                ("fwd", nbytes(*ops, y, h), 6),
+                ("fwd_save", nbytes(*ops, y, h, states), 6)):
+            parts = (bound_ms(peaks, n_bytes, 0)[0],
+                     bound_ms(peaks, 0, fp32 * n)[0],
+                     bound_ms(peaks, 0, n, "mufu_per_s")[0])
+            bounds[name] = (max(parts), n_bytes, *parts)
+        clocks = clock_line()
+        row = dict(ms=time_ms(lambda: selective_scan_bwd(*ops, states, dy,
+                                                         None), reps=10,
+                              warmup=2),
+                   plain_ms=time_sync_ms(lambda: selective_scan_bwd_plain(
+                       *ops, dy, None), reps=1),
+                   library_ms=None, bound_ms=bounds["bwd"][0],
+                   bound_by="bytes" if bounds["bwd"][2] >= max(
+                       bounds["bwd"][3:]) else "operations",
+                   shape=f"(B, T, Di, Ds) = {shape} f32, dh None, "
+                         f"{n_saved(t)} saved states a row",
+                   library="none (no single PyTorch call computes a "
+                           "selective scan's gradient)")
+        fwd_ms = time_ms(lambda: selective_scan(*ops), reps=10)
+        save_ms = time_ms(lambda: selective_scan_fwd(*ops), reps=10)
+        _, n_bytes, t_bytes, t_fp32, t_exp = bounds["bwd"]
+        log(f"selective_scan_bwd [{row['shape']}]: {row['ms'] * 1e3:.1f} "
+            f"us, plain {row['plain_ms'] * 1e3:.1f} us (one call), library "
+            f"{row['library']}, bound {row['bound_ms'] * 1e3:.1f} us "
+            f"({row['bound_by']}; {n_bytes / 1e6:.1f} MB "
+            f"{t_bytes * 1e3:.1f} us, FP32 operations {t_fp32 * 1e3:.1f} "
+            f"us, exponentials {t_exp * 1e3:.1f} us at the MUFU rate), "
+            f"{row['ms'] / row['bound_ms']:.2f}x it; the forward "
+            f"{fwd_ms * 1e3:.1f} us (bound {bounds['fwd'][0] * 1e3:.1f} "
+            f"us), saving its states {save_ms * 1e3:.1f} us (bound "
+            f"{bounds['fwd_save'][0] * 1e3:.1f} us, "
+            f"{bounds['fwd_save'][1] / 1e6:.1f} MB): "
+            f"{save_ms / fwd_ms:.3f}x; on {card}; SM clock, max, power, "
+            f"temperature before: {clocks}, after: {clock_line()}")
+        rows[shape] = row
+        del ops, dy, states, grads, y, h
+        torch.cuda.empty_cache()
+    return rows[SCAN_SITE]
 
 
 def state_to(state, device):

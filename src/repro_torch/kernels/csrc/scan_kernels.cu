@@ -7,7 +7,7 @@
 // (B, T, Ds), A (Di, Ds); outputs y (B, T, Di) and the final state h
 // (B, Di, Ds); the backward's below its kernel.
 //
-// selective_scan_kernel<S>
+// selective_scan_kernel<S, SAVE>
 //   replaces src/repro/kernels/mamba_scan/scan.py::selective_scan
 //   For every (b, di, s), from h = 0 over t = 0 .. T-1:
 //     h = exp(dt[b,t,di] * A[di,s]) * h + (dt[b,t,di] * x[b,t,di]) * Bp[b,t,s]
@@ -46,6 +46,12 @@
 //   (the pass's states) are staged by 4-byte cp.async into one of two
 //   buffers while the other chunk computes: one barrier when a chunk has
 //   landed, one when it has been consumed.
+//   Saving states for the backward (SAVE, `states` non-null:
+//   SelectiveScan's forward), tc divides ck, so a saved h is the state
+//   after a chunk's last step: each thread puts its S values into shared
+//   memory after the chunk's steps, and the CTA then stores the (ch, Ds)
+//   block along di and s, coalesced.  Serving (SAVE false, no states)
+//   runs without that code.
 //   At the served site the plan is S = 4, L = 4, ch = 64: 65536 threads
 //   in 256 CTAs (16 warps on most SMs), 2.3 KB of shared memory a step.
 //   The exponential is expf (not __expf), and with -fmad=false every
@@ -54,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "tc_device.cuh"
 
@@ -81,14 +88,18 @@ struct Plan {
 };
 
 // Shared floats of a plan: dt and x interleaved (two buffers of tc x ch
-// pairs), Bp, Cp (two of tc x L*S) and, with L > 1, the lanes' sums
-// (tc x L x ch).
-__host__ __device__ __forceinline__ int smem_floats(const Plan& p, int S) {
+// pairs), Bp, Cp (two of tc x L*S), with L > 1 the lanes' sums (tc x L x
+// ch) and, when the forward saves states, one saved state of the CTA's
+// channels (ch rows of L*S + 1: the odd stride spreads a warp's 32
+// channels over the banks).
+__host__ __device__ __forceinline__ int smem_floats(const Plan& p, int S,
+                                                    bool save) {
   const int ls = p.lanes * S;
-  return p.tc * (4 * p.ch + 4 * ls + (p.lanes > 1 ? p.lanes * p.ch : 0));
+  return p.tc * (4 * p.ch + 4 * ls + (p.lanes > 1 ? p.lanes * p.ch : 0)) +
+         (save ? p.ch * (ls + 1) : 0);
 }
 
-template <int S>
+template <int S, bool SAVE>
 __global__ void __launch_bounds__(kMaxThreads)
 selective_scan_kernel(const float* __restrict__ x,
                       const float* __restrict__ dt,
@@ -104,6 +115,7 @@ selective_scan_kernel(const float* __restrict__ x,
   float* bs = smem + 4 * tc * ch;                  // [2][tc][ls]
   float* cs = bs + 2 * tc * ls;                    // [2][tc][ls]
   float* ps = cs + 2 * tc * ls;                    // [tc][L][ch]
+  float* sv = ps + (L > 1 ? tc * L * ch : 0);      // [ch][ls + 1] saved h
   const int tid = threadIdx.x, nthreads = ch * L;
   // thread tid is lane l of channel c; e = tid + k * nthreads walks a
   // [rows][ch] tile as rows l, l + L, ... of column c, and a [rows][ls]
@@ -118,8 +130,9 @@ selective_scan_kernel(const float* __restrict__ x,
   const long long row0 = (long long)blockIdx.y * T;   // b * T
   const int nchunks = (T + tc - 1) / tc;
   // the states saved for the backward: h after steps ck - 1, 2 ck - 1,
-  // .. short of the last, ns a batch row
-  const int ns = states != nullptr ? (T + ck - 1) / ck - 1 : 0;
+  // .. short of the last, ns a batch row; tc divides ck, so each ends a
+  // chunk, is kept in sv and stored after the chunk, coalesced
+  const int ns = SAVE ? (T + ck - 1) / ck - 1 : 0;
 
   for (int pass = 0; pass < Q; ++pass) {
     // state of the thread's k-th register (>= Ds: a zero pad)
@@ -157,6 +170,9 @@ selective_scan_kernel(const float* __restrict__ x,
         tc::cp_async_wait<0>();
       }
       __syncthreads();                     // chunk j has landed
+      // tc divides ck, so a saved state falls on a chunk's last step
+      const bool saving =
+          SAVE && ns > 0 && (t0 + rows) % ck == 0 && t0 + rows < T;
       const float2* dxr = dxs + buf * tc * ch + c;
       const float* br = bs + buf * tc * ls + l * S;
       const float* cr = cs + buf * tc * ls + l * S;
@@ -190,16 +206,6 @@ selective_scan_kernel(const float* __restrict__ x,
           h[k] = __fadd_rn(__fmul_rn(d_a, h[k]), __fmul_rn(dx, bv[k]));
           p[k] = __fmul_rn(h[k], cv[k]);
         }
-        const int tn = t0 + r + 1;         // steps done
-        if (ns > 0 && live && tn % ck == 0 && tn < T) {
-          float* sp = states +
-                      (((long long)blockIdx.y * ns + tn / ck - 1) * Di + di) *
-                          Ds;
-#pragma unroll
-          for (int k = 0; k < S; ++k) {
-            if (state(k) < Ds) sp[state(k)] = h[k];
-          }
-        }
 #pragma unroll
         for (int n = S / 2; n > 0; n /= 2) {
 #pragma unroll
@@ -214,7 +220,34 @@ selective_scan_kernel(const float* __restrict__ x,
           pr[r * L * ch] = p[0];
         }
       }
+      if (saving) {
+#pragma unroll
+        for (int k = 0; k < S; ++k) sv[c * (ls + 1) + k * L + l] = h[k];
+      }
       __syncthreads();                     // chunk j has been consumed
+      if (saving) {
+        // the chunk's saved state: (b, (t0 + rows) / ck - 1, di0 .., pass's
+        // states), along di and s in the order of memory; ls is a power
+        // of two, and where the CTA's rows are one contiguous block of
+        // whole 16-byte vectors (one pass, Ds = ls, a multiple of 4) a
+        // thread stores 16 bytes
+        float* sp = states +
+                    (((long long)blockIdx.y * ns + (t0 + rows) / ck - 1) * Di +
+                     di0) * Ds;
+        const int lsh = __ffs(ls) - 1, rows_c = min(ch, Di - di0);
+        if (Q == 1 && ls == Ds && Ds % 4 == 0) {
+          for (int e = 4 * tid; e < rows_c * ls; e += 4 * nthreads) {
+            const float* v = sv + (e >> lsh) * (ls + 1) + (e & (ls - 1));
+            *reinterpret_cast<float4*>(sp + e) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          }
+        } else {
+          for (int e = tid; e < rows_c * ls; e += nthreads) {
+            const int cc = e >> lsh, jj = e & (ls - 1), s = jj * Q + pass;
+            if (s < Ds) sp[(long long)cc * Ds + s] = sv[cc * (ls + 1) + jj];
+          }
+        }
+      }
       if (L > 1 && live) {
         // the lanes' tree: rows l, l + L, ... of channel c
         for (int r = l; r < rows; r += L) {
@@ -245,7 +278,7 @@ selective_scan_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// selective_scan_bwd_kernel<SP>
+// selective_scan_bwd_kernel<S, L>
 //   replaces no TPU kernel: the reference differentiates its lax.scan
 //   (src/repro/models/mamba.py:86) with jax.grad; this is that gradient.
 //   With a_t = exp(dt_t A), for every (b, di, s), walking t backwards:
@@ -254,41 +287,137 @@ selective_scan_kernel(const float* __restrict__ x,
 //     dx_t = dt_t sum_s g_t B_t
 //     ddt_t = x_t sum_s g_t B_t + sum_s (g_t h_{t-1}) a_t A
 //     dA = sum_b sum_t (g_t h_{t-1}) a_t dt_t
-//   Mapping (kernels/mamba_scan/scan.py::bwd_plan): a thread owns one
-//   state of one channel; SP = min(P, 32) lanes a channel (P the next
-//   power of two of Ds), lane j of pass q the state j * Q + q (Q = P / SP
-//   passes over the sequence, the forward's cut); a CTA of 256 threads
-//   holds 256 / SP
-//   channels of one batch row (blockIdx.y).  g stays in a register for
-//   the whole walk, as the forward keeps h.  h_{t-1} comes from the
-//   states the forward saved every kBwdChunk steps: a chunk is first
-//   recomputed forwards from its saved state (the forward's operations,
-//   so the same values) into kBwdChunk registers, then walked
-//   backwards.  No a_t is ever inverted.
-//   Sums, all in a fixed order (no atomics, so a step is reproducible):
-//   over a pass's states a halving tree by warp shuffles (j + n/2 onto
-//   j), the passes' sums in order (the forward's y order); over the CTA's channels a halving
-//   tree in shared memory, one partial a CTA into wb / wc, then
-//   scan_bwd_reduce_bc's halving tree over the CTAs (zero-padded to a
-//   power of two); dA a sum over t in the walk's order, then
-//   scan_bwd_reduce_a's sum over b in order.  -fmad=false: every
-//   product and sum is rounded on its own, in selective_scan_bwd_plain's
-//   order, so the two agree bitwise.
-//   Bound: x, dt, dy read and dx, ddt written (5 B T Di floats), the
-//   saved states, two exponentials per (t, di, s) (the recompute's and
-//   the walk's) at the multi-function units' rate.  Logic-only: no MMA.
+//   Bound at (1, 2048, 16384, 16) on an H100 SXM: the bytes (x, dt, dy
+//   read, dx, ddt written, the saved states: 807 MB, 241 us); per
+//   (t, di, s) one exponential (128 us at the MUFU rate) and about 19
+//   FP32 operations (152 us).  With the staging, the trees and the
+//   exponential's own instructions the kernel issues about 34
+//   instructions per (t, di, s), so issue, not bytes, bounds it: 0.6 ms
+//   at the full issue rate.  A chunk's h and a_t take most of 255
+//   registers a thread, so an SM holds 8 warps, which issue at about
+//   half that rate (1.2 ms on an H100 at 700 W: PERF.md row 16); shared
+//   memory carries about 0.2 wavefronts per (t, di, s) beside it.
+//   ptxas (-v, sm_90a) spills little: stores and loads of 8 bytes each
+//   for <4, 4> (the served site), <4, 2>; 20 for <4, 8>, 4 for <4, 1>,
+//   none for <2, 1>, <1, 1>.  The chunk's h and a_t stay in registers.
+//   Design:
+//   - Mapping (kernels/mamba_scan/scan.py::bwd_plan): a thread owns S
+//     (at most kBwdMaxStates) states of one channel, L lanes a channel,
+//     lane l's k-th the pass state j = k L + l (state s = j Q + q, Q
+//     passes over the sequence past 32 states: the forward's cut); a CTA
+//     of kBwdThreads threads holds CH = kBwdThreads / L channels of one
+//     batch row (blockIdx.y), thread c L + l.
+//   - h_{t-1} comes from the states the forward saved every kBwdChunk
+//     steps: each chunk is recomputed forwards from its saved state (the
+//     forward's operations, so the same bits) into registers, h and a_t
+//     both kept (K S floats each), then walked backwards with those a_t:
+//     one exponential per (t, di, s), no a_t inverted.  g stays in a
+//     register for the whole walk, as the forward keeps h.
+//   - Staging: a chunk's dt, x, dy (the CTA's channels), Bp, Cp (the
+//     pass's states, in the lanes' order) and its saved state go into
+//     shared memory by cp.async (16 bytes a copy where the operands are
+//     aligned, else 4), the next chunk's while this one computes (two
+//     buffers); the recompute and the walk read shared memory only, and
+//     each global byte is read once a pass.  A chunk of all K steps runs
+//     without the steps' guards (one block to schedule).
+//   - Sums over a pass's states (dx, ddt): a halving tree over a
+//     thread's S registers; each lane stores its sum, and after the
+//     chunk the lanes' halving tree (l + L/2 onto l) runs with dx and
+//     ddt's stores (scan_tree_sum's order, j + n/2 onto j; no shuffle);
+//     the passes' sums in order through dx and ddt.
+//   - Sums over channels (dB, dC): the walk stores each term into shared
+//     memory ([K] rows of CH x PQ, a warp's stores contiguous); after the
+//     chunk, one barrier, then a thread takes S (t, s) columns and runs
+//     the halving tree over the CTA's CH channels in registers (htree,
+//     16-byte loads) and stores
+//     the CTA's partial (B, nb, T, Ds); scan_bwd_reduce_bc_kernel sums the nb
+//     partials by a halving tree, reading each once, coalesced.  dA: a
+//     sum over t as walked, then scan_bwd_reduce_a_kernel's sum over b in
+//     order.  Two barriers a chunk.
+//   At the served site the plan is S = 4, L = 4, CH = 32: 512 CTAs of
+//   128 threads, two an SM (102 KB of shared memory each).  No atomics,
+//   so a step is reproducible; -fmad=false and __f*_rn: every product
+//   and sum is rounded on its own, in selective_scan_bwd_plain's order,
+//   so the two agree bitwise.  Logic-only: no MMA.
 // ---------------------------------------------------------------------------
-constexpr int kBwdThreads = 256;        // threads a CTA
+constexpr int kBwdThreads = 128;        // threads a CTA
 constexpr int kBwdChunk = 16;           // steps between saved states
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBwdMaxStates = 4;        // states a thread
+constexpr int kBwdMaxLanes = 8;         // lanes a channel
+constexpr int kReduceRows = 256;        // rows a reduction CTA trees in shared
+constexpr int kReduceSpan = 64;         // partials a row sums in registers
 
-// Shared floats of the backward: the dB and dC terms of a chunk,
-// [kBwdChunk][channels][SP] each (channels * SP = kBwdThreads).
-__host__ __device__ __forceinline__ int bwd_smem_floats(int ck) {
-  return 2 * ck * kBwdThreads;
+// The backward's shared memory in floats, for ch channels and pq states
+// a pass: two staged chunks (dt, x, dy [K][ch]; Bp, Cp [K][pq] in the
+// lanes' order; the chunk's saved state [ch][pq]), the dB and dC terms
+// ([K] rows of ch x pq, padded so that a warp's column reads fall in
+// distinct banks) and each lane's sums over its states ([K][threads]
+// twice).
+__host__ __device__ __forceinline__ int bwd_stage_floats(int ch, int pq) {
+  return 3 * kBwdChunk * ch + 2 * kBwdChunk * pq + ch * pq;
+}
+__host__ __device__ __forceinline__ int bwd_term_row(int ch, int pq) {
+  return ch * pq + pq % 32;
+}
+__host__ __device__ __forceinline__ int bwd_smem_floats(int ch, int pq) {
+  return 2 * bwd_stage_floats(ch, pq) + 2 * kBwdChunk * bwd_term_row(ch, pq) +
+         2 * kBwdChunk * kBwdThreads;
 }
 
-template <int SP>
+// N consecutive shared floats into registers and back, 16 bytes at a
+// time where N allows
+template <int N>
+__device__ __forceinline__ void lds(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + k);
+      v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = p[k];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void sts(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 4) {
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+    }
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = v[k];
+  }
+}
+
+// The halving tree (j + N/2 onto j) over the N vectors of S floats at
+// p, p + stride, .., p + (N - 1) stride, elementwise: its last sum adds
+// the trees over the even and the odd vectors, so it recurses on those
+// (no array indexed at run time, nothing in local memory).
+template <int N, int S>
+__device__ __forceinline__ void htree(float (&out)[S], const float* p,
+                                      int stride) {
+  if constexpr (N == 1) {
+    lds(out, p);
+  } else {
+    float ev[S], od[S];
+    htree<N / 2>(ev, p, 2 * stride);
+    htree<N / 2>(od, p + stride, 2 * stride);
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[k] = __fadd_rn(ev[k], od[k]);
+  }
+}
+
+template <int S, int L>
 __global__ void __launch_bounds__(kBwdThreads)
 selective_scan_bwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ dt,
@@ -301,136 +430,324 @@ selective_scan_bwd_kernel(const float* __restrict__ x,
                           float* __restrict__ dx, float* __restrict__ ddt,
                           float* __restrict__ wb, float* __restrict__ wc,
                           float* __restrict__ wa, int T, int Di, int Ds,
-                          int passes) {
-  constexpr int CH = kBwdThreads / SP;
-  constexpr int K = kBwdChunk;
+                          int passes, int vec) {
+  constexpr int CH = kBwdThreads / L, PQ = S * L, K = kBwdChunk;
+  constexpr int STAGE = 3 * K * CH + 2 * K * PQ + CH * PQ;
+  constexpr int ROW = CH * PQ + PQ % 32;
   extern __shared__ __align__(16) float smem[];
-  float* tb = smem;                      // [K][CH][SP] dB terms
-  float* tcs = smem + K * kBwdThreads;   // [K][CH][SP] dC terms
-  const int tid = threadIdx.x, j = tid % SP, c = tid / SP;
-  const int di = blockIdx.x * CH + c, b = blockIdx.y, nb = gridDim.x;
+  float* tb = smem + 2 * STAGE;          // [K][ROW] dB terms
+  float* tcs = tb + K * ROW;             // [K][ROW] dC terms
+  float* osg = tcs + K * ROW;            // [K][CH][L] lanes' sum_s g Bp
+  float* osq = osg + K * kBwdThreads;    // and of (g h_{t-1}) a_t A
+  const int tid = threadIdx.x, c = tid / L, l = tid % L;
+  const int di0 = blockIdx.x * CH, di = di0 + c, b = blockIdx.y;
   const bool live = di < Di;
   const long long row0 = (long long)b * T;
+  const long long part0 = ((long long)b * gridDim.x + blockIdx.x) * T;
   const int nck = (T + K - 1) / K, ns = nck - 1;
+  // where a pass's state j is staged: lane j % L's register j / L
+  auto slot = [](int j) { return (j % L) * S + j / L; };
+  // vec: x, dt, dy 16-byte aligned and Di a multiple of 4; the saved
+  // states then come in 16-byte copies too where a pass is all of Ds
+  const bool vec_h = vec && passes == 1 && PQ == Ds && PQ % 4 == 0;
 
   for (int q = 0; q < passes; ++q) {
-    const int s = j * passes + q;
-    const bool sv = s < Ds, on = live && sv;
-    const float av = on ? a[(long long)di * Ds + s] : 0.f;
-    float g = on && dh != nullptr
-                  ? dh[((long long)b * Di + di) * Ds + s] : 0.f;
-    float anext = 1.f, dacc = 0.f;
-    for (int k = nck - 1; k >= 0; --k) {
-      const int t0 = k * K, rows = min(K, T - t0);
-      const float h0 =
-          on && k > 0 ? states[(((long long)b * ns + k - 1) * Di + di) * Ds + s]
-                      : 0.f;
-      float hb[K];
-      float h = h0;
+    float av[S], g[S], anext[S], dacc[S];
 #pragma unroll
-      for (int r = 0; r < K; ++r) {        // the chunk forwards
-        if (r < rows) {
-          const long long gi = (row0 + t0 + r) * Di + di;
-          const float d = live ? dt[gi] : 0.f, xv = live ? x[gi] : 0.f;
-          const float bv = sv ? bp[(row0 + t0 + r) * Ds + s] : 0.f;
-          const float d_a = expf(__fmul_rn(d, av));
-          h = __fadd_rn(__fmul_rn(d_a, h), __fmul_rn(__fmul_rn(d, xv), bv));
-          hb[r] = h;
-        }
-      }
-#pragma unroll
-      for (int r = K - 1; r >= 0; --r) {   // and backwards
-        if (r < rows) {                    // rows is uniform: all lanes
-          const long long gi = (row0 + t0 + r) * Di + di;
-          const long long si = (row0 + t0 + r) * Ds + s;
-          const float d = live ? dt[gi] : 0.f, xv = live ? x[gi] : 0.f;
-          const float dyv = live ? dy[gi] : 0.f;
-          const float bv = sv ? bp[si] : 0.f, cv = sv ? cp[si] : 0.f;
-          const float hprev = r > 0 ? hb[r > 0 ? r - 1 : 0] : h0;
-          const float at = expf(__fmul_rn(d, av));
-          g = __fadd_rn(__fmul_rn(dyv, cv), __fmul_rn(anext, g));
-          const float qa = __fmul_rn(__fmul_rn(g, hprev), at);
-          dacc = __fadd_rn(dacc, __fmul_rn(qa, d));
-          anext = at;
-          const int e = (r * CH + c) * SP + j;
-          tcs[e] = on ? __fmul_rn(hb[r], dyv) : 0.f;
-          tb[e] = on ? __fmul_rn(g, __fmul_rn(d, xv)) : 0.f;
-          float sgb = __fmul_rn(g, bv), sq = __fmul_rn(qa, av);
-#pragma unroll
-          for (int o = SP / 2; o > 0; o /= 2) {
-            sgb = __fadd_rn(sgb, __shfl_xor_sync(kFull, sgb, o));
-            sq = __fadd_rn(sq, __shfl_xor_sync(kFull, sq, o));
-          }
-          if (j == 0 && live) {
-            if (q > 0) {                   // the earlier passes' sums
-              sgb = __fadd_rn(dx[gi], sgb);
-              sq = __fadd_rn(ddt[gi], sq);
-            }
-            if (q == passes - 1) {
-              dx[gi] = __fmul_rn(d, sgb);
-              ddt[gi] = __fadd_rn(__fmul_rn(xv, sgb), sq);
-            } else {
-              dx[gi] = sgb;
-              ddt[gi] = sq;
-            }
-          }
-        }
-      }
-      __syncthreads();                     // the chunk's terms are in
-      for (int n = CH / 2; n > 0; n /= 2) {
-        for (int e = tid; e < rows * n * SP; e += kBwdThreads) {
-          const int r = e / (n * SP), cc = (e / SP) % n, jj = e % SP;
-          const int o = (r * CH + cc) * SP + jj;
-          tb[o] = __fadd_rn(tb[o], tb[o + n * SP]);
-          tcs[o] = __fadd_rn(tcs[o], tcs[o + n * SP]);
-        }
-        __syncthreads();
-      }
-      for (int e = tid; e < rows * SP; e += kBwdThreads) {
-        const int r = e / SP, jj = e % SP, ss = jj * passes + q;
-        if (ss < Ds) {
-          const long long o =
-              ((row0 + t0 + r) * nb + blockIdx.x) * Ds + ss;
-          wb[o] = tb[r * kBwdThreads + jj];
-          wc[o] = tcs[r * kBwdThreads + jj];
-        }
-      }
-      __syncthreads();                     // the buffers are free again
+    for (int k = 0; k < S; ++k) {
+      const int s = (k * L + l) * passes + q;
+      const bool on = live && s < Ds;
+      av[k] = on ? a[(long long)di * Ds + s] : 0.f;
+      g[k] = on && dh != nullptr ? dh[((long long)b * Di + di) * Ds + s]
+                                 : 0.f;
+      anext[k] = 1.f;
+      dacc[k] = 0.f;
     }
-    if (on) wa[((long long)b * Di + di) * Ds + s] = dacc;
+    // chunk k's operands into buffer `buf`; h before the chunk is the
+    // state saved after step k K - 1, zero before the first
+    auto stage = [&](int k, int buf) {
+      float* sd = smem + buf * STAGE;
+      float* sx = sd + K * CH;
+      float* sy = sx + K * CH;
+      float* sb = sy + K * CH;
+      float* sc = sb + K * PQ;
+      float* sh = sc + K * PQ;
+      const int t0 = k * K, rows = min(K, T - t0);
+      if (vec) {                           // 16 bytes a copy
+        for (int e = tid; e < rows * CH / 4; e += kBwdThreads) {
+          const int r = e / (CH / 4), cc = 4 * (e % (CH / 4));
+          const bool ok = di0 + cc < Di;
+          const long long gi = ok ? (row0 + t0 + r) * Di + di0 + cc : 0;
+          tc::cp_async16(tc::smem_u32(sd + 4 * e), dt + gi, ok);
+          tc::cp_async16(tc::smem_u32(sx + 4 * e), x + gi, ok);
+          tc::cp_async16(tc::smem_u32(sy + 4 * e), dy + gi, ok);
+        }
+      } else {
+        for (int e = tid; e < rows * CH; e += kBwdThreads) {
+          const int r = e / CH, cc = e % CH;
+          const bool ok = di0 + cc < Di;
+          const long long gi = ok ? (row0 + t0 + r) * Di + di0 + cc : 0;
+          cp_async4(sd + e, dt + gi, ok);
+          cp_async4(sx + e, x + gi, ok);
+          cp_async4(sy + e, dy + gi, ok);
+        }
+      }
+      for (int e = tid; e < rows * PQ; e += kBwdThreads) {
+        const int r = e / PQ, j = e % PQ, s = j * passes + q;
+        const bool ok = s < Ds;
+        const long long gi = ok ? (row0 + t0 + r) * Ds + s : 0;
+        cp_async4(sb + r * PQ + slot(j), bp + gi, ok);
+        cp_async4(sc + r * PQ + slot(j), cp + gi, ok);
+      }
+      // the saved state in the order of memory, [CH][PQ]
+      const long long hbase =
+          k > 0 ? (((long long)b * ns + k - 1) * Di + di0) * Ds : 0;
+      if (k == 0) {
+        for (int e = tid; e < CH * PQ; e += kBwdThreads) sh[e] = 0.f;
+      } else if (vec_h) {                  // one pass, Ds = PQ: contiguous
+        for (int e = tid; e < CH * PQ / 4; e += kBwdThreads) {
+          const bool ok = di0 + 4 * e / PQ < Di;
+          tc::cp_async16(tc::smem_u32(sh + 4 * e),
+                         states + (ok ? hbase + 4 * e : 0), ok);
+        }
+      } else {
+        for (int e = tid; e < CH * PQ; e += kBwdThreads) {
+          const int cc = e / PQ, s = (e % PQ) * passes + q;
+          const bool ok = di0 + cc < Di && s < Ds;
+          cp_async4(sh + e, states + (ok ? hbase + (long long)cc * Ds + s : 0),
+                    ok);
+        }
+      }
+      tc::cp_async_commit();
+    };
+    stage(nck - 1, (nck - 1) & 1);
+    for (int k = nck - 1; k >= 0; --k) {
+      const int buf = k & 1, t0 = k * K, rows = min(K, T - t0);
+      tc::cp_async_wait<0>();
+      __syncthreads();     // chunk k has landed, chunk k + 1's buffers are free
+      if (k > 0) stage(k - 1, buf ^ 1);
+      const float* sd = smem + buf * STAGE;
+      const float* sx = sd + K * CH;
+      const float* sy = sx + K * CH;
+      const float* sb = sy + K * CH;
+      const float* sc = sb + K * PQ;
+      const float* sh = sc + K * PQ;
+      // the chunk's recompute and walk; FULL (rows == K: every chunk but
+      // a ragged last one) drops the steps' guards, so that each loop is
+      // one block the compiler schedules across steps
+      auto chunk = [&](auto full) {
+        constexpr bool FULL = decltype(full)::value;
+        float h0[S], hb[K][S], ab[K][S];
+#pragma unroll
+        for (int kk = 0; kk < S; ++kk) h0[kk] = sh[c * PQ + kk * L + l];
+#pragma unroll
+        for (int r = 0; r < K; ++r) {      // the chunk forwards
+          if (FULL || r < rows) {          // rows is uniform: all lanes
+            const float d = sd[r * CH + c];
+            const float dxv = __fmul_rn(d, sx[r * CH + c]);
+            float bv[S];
+            lds(bv, sb + r * PQ + l * S);
+#pragma unroll
+            for (int kk = 0; kk < S; ++kk) {
+              const float hp = r > 0 ? hb[r > 0 ? r - 1 : 0][kk] : h0[kk];
+              const float at = expf(__fmul_rn(d, av[kk]));
+              hb[r][kk] =
+                  __fadd_rn(__fmul_rn(at, hp), __fmul_rn(dxv, bv[kk]));
+              ab[r][kk] = at;
+            }
+          }
+        }
+        // step r's operands, loaded a step ahead of use: the loads of
+        // step r - 1 are issued before step r's shared stores, which the
+        // compiler would not move them across
+        float nd, nx, ny, nbv[S], ncv[S];
+        auto fetch = [&](int r) {
+          nd = sd[r * CH + c];
+          nx = sx[r * CH + c];
+          ny = sy[r * CH + c];
+          lds(nbv, sb + r * PQ + l * S);
+          lds(ncv, sc + r * PQ + l * S);
+        };
+        fetch(FULL ? K - 1 : rows - 1);
+#pragma unroll
+        for (int r = K - 1; r >= 0; --r) { // and backwards
+          if (FULL || r < rows) {
+            const float d = nd, xv = nx, dyv = ny, dxv = __fmul_rn(d, xv);
+            float bv[S], cv[S], sgb[S], sq[S], tbv[S], tcv[S];
+#pragma unroll
+            for (int kk = 0; kk < S; ++kk) {
+              bv[kk] = nbv[kk];
+              cv[kk] = ncv[kk];
+            }
+            if (r > 0) fetch(r > 0 ? r - 1 : 0);
+#pragma unroll
+            for (int kk = 0; kk < S; ++kk) {
+              const float hp = r > 0 ? hb[r > 0 ? r - 1 : 0][kk] : h0[kk];
+              const float at = ab[r][kk];
+              g[kk] = __fadd_rn(__fmul_rn(dyv, cv[kk]),
+                                __fmul_rn(anext[kk], g[kk]));
+              const float qa = __fmul_rn(__fmul_rn(g[kk], hp), at);
+              dacc[kk] = __fadd_rn(dacc[kk], __fmul_rn(qa, d));
+              anext[kk] = at;
+              tcv[kk] = __fmul_rn(hb[r][kk], dyv);
+              tbv[kk] = __fmul_rn(g[kk], dxv);
+              sgb[kk] = __fmul_rn(g[kk], bv[kk]);
+              sq[kk] = __fmul_rn(qa, av[kk]);
+            }
+            sts(tb + r * ROW + tid * S, tbv);
+            sts(tcs + r * ROW + tid * S, tcv);
+#pragma unroll
+            for (int n = S / 2; n > 0; n /= 2) {
+#pragma unroll
+              for (int kk = 0; kk < n; ++kk) {
+                sgb[kk] = __fadd_rn(sgb[kk], sgb[kk + n]);
+                sq[kk] = __fadd_rn(sq[kk], sq[kk + n]);
+              }
+            }
+            // each lane's sum; the lanes' tree runs after the chunk
+            osg[r * kBwdThreads + tid] = sgb[0];
+            osq[r * kBwdThreads + tid] = sq[0];
+          }
+        }
+      };
+      if (rows == K) {
+        chunk(std::true_type{});
+      } else {
+        chunk(std::false_type{});
+      }
+      __syncthreads();                     // the chunk's terms and sums are in
+      // the CTA's dB and dC partials: a thread takes S columns (t, the
+      // states of lane ll) and trees the CTA's channels, 16 bytes a load
+      for (int e = tid; e < 2 * rows * L; e += kBwdThreads) {
+        const bool is_c = e >= rows * L;
+        const int f = is_c ? e - rows * L : e, r = f / L, ll = f % L;
+        float v[S];
+        htree<CH>(v, (is_c ? tcs : tb) + r * ROW + ll * S, PQ);
+        float* w = (is_c ? wc : wb) + (part0 + t0 + r) * Ds;
+#pragma unroll
+        for (int kk = 0; kk < S; ++kk) {
+          const int s = (kk * L + ll) * passes + q;
+          if (s < Ds) w[s] = v[kk];
+        }
+      }
+      // dx and ddt, along di; a later pass adds onto the earlier ones'
+      for (int e = tid; e < rows * CH; e += kBwdThreads) {
+        const int cc = e % CH;
+        if (di0 + cc < Di) {
+          const long long gi = (row0 + t0 + e / CH) * Di + di0 + cc;
+          // the lanes' halving tree (l + L/2 onto l)
+          float sg, sqv;
+          {
+            float vg[L], vq[L];
+            lds(vg, osg + e * L);
+            lds(vq, osq + e * L);
+#pragma unroll
+            for (int n = L / 2; n > 0; n /= 2) {
+#pragma unroll
+              for (int ll = 0; ll < n; ++ll) {
+                vg[ll] = __fadd_rn(vg[ll], vg[ll + n]);
+                vq[ll] = __fadd_rn(vq[ll], vq[ll + n]);
+              }
+            }
+            sg = vg[0];
+            sqv = vq[0];
+          }
+          if (q > 0) {
+            sg = __fadd_rn(dx[gi], sg);
+            sqv = __fadd_rn(ddt[gi], sqv);
+          }
+          if (q == passes - 1) {
+            dx[gi] = __fmul_rn(sd[e], sg);
+            ddt[gi] = __fadd_rn(__fmul_rn(sx[e], sg), sqv);
+          } else {
+            dx[gi] = sg;
+            ddt[gi] = sqv;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < S; ++kk) {
+      const int s = (kk * L + l) * passes + q;
+      if (live && s < Ds) wa[((long long)b * Di + di) * Ds + s] = dacc[kk];
+    }
+    __syncthreads();                       // the buffers are free again
   }
 }
 
-// dB and dC: each thread sums one (b, t, s) column of nb CTA partials,
-// strided by Ds, by a halving tree in place (j + n/2 onto j, the columns
-// zero-padded to a power of two: a missing partner is skipped).
-__global__ void scan_bwd_reduce_bc(float* __restrict__ wb,
-                                   float* __restrict__ wc,
-                                   float* __restrict__ dbp,
-                                   float* __restrict__ dcp, long long rows,
-                                   int nb, int Ds) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long half = rows * Ds;
-  if (e >= 2 * half) return;
-  const bool is_c = e >= half;
-  if (is_c) e -= half;
-  const long long row = e / Ds;
-  float* col = (is_c ? wc : wb) + row * nb * Ds + e % Ds;
-  int np2 = 1;
-  while (np2 < nb) np2 *= 2;
-  for (int n = np2 / 2; n > 0; n /= 2) {
-    for (int k = 0; k < n && k + n < nb; ++k) {
-      col[(long long)k * Ds] =
-          __fadd_rn(col[(long long)k * Ds], col[(long long)(k + n) * Ds]);
-    }
+// The halving tree over w[j stride], w[(j + step) stride], .., N of
+// them (zero past nb), recursing on the even and the odd ones as htree.
+template <int N>
+__device__ __forceinline__ float strided_tree(const float* w, int j,
+                                              int step, int nb,
+                                              long long stride, bool ok) {
+  if constexpr (N == 1) {
+    return ok && j < nb ? w[(long long)j * stride] : 0.f;
+  } else {
+    return __fadd_rn(strided_tree<N / 2>(w, j, 2 * step, nb, stride, ok),
+                     strided_tree<N / 2>(w, j + step, 2 * step, nb, stride,
+                                         ok));
   }
-  (is_c ? dcp : dbp)[e] = col[0];
+}
+
+// Rows j = grp, grp + 8, .. < rows of a reduction CTA's tile, each the
+// strided_tree of its span partials; unrolled, so that a thread keeps
+// several rows' loads in flight.
+template <int SPAN>
+__device__ __forceinline__ void tree_rows(float (*sm)[32], const float* w,
+                                          int grp, int col, int rows, int nb,
+                                          long long cols, bool ok) {
+#pragma unroll 4
+  for (int j = grp; j < rows; j += 8) {
+    sm[j][col] = strided_tree<SPAN>(w, j, rows, nb, cols, ok);
+  }
+}
+
+// dB and dC (blockIdx.z): the nb CTA partials (B, nb, T, Ds) of each
+// (b, t, s) column summed by a halving tree (j + n/2 onto j, zero-padded
+// to np2, a power of two).  A CTA takes 32 columns: its 8 warps first
+// sum the span = np2 / rows partials j, j + rows, .. of each row j <
+// rows = min(np2, kReduceRows) in registers (the tree's first levels,
+// each partial read once, 128 bytes a warp), then the last log2(rows)
+// levels run in shared memory.
+__global__ void __launch_bounds__(256)
+scan_bwd_reduce_bc_kernel(const float* __restrict__ wb,
+                          const float* __restrict__ wc,
+                          float* __restrict__ dbp, float* __restrict__ dcp,
+                          int nb, int np2, long long cols) {
+  __shared__ float sm[kReduceRows][32];
+  const int col = threadIdx.x % 32, grp = threadIdx.x / 32;
+  const long long e = (long long)blockIdx.x * 32 + col;
+  const bool ok = e < cols;
+  const float* w =
+      (blockIdx.z ? wc : wb) + (long long)blockIdx.y * nb * cols + (ok ? e : 0);
+  const int rows = min(np2, kReduceRows);
+  switch (np2 / rows) {
+    case 1: tree_rows<1>(sm, w, grp, col, rows, nb, cols, ok); break;
+    case 2: tree_rows<2>(sm, w, grp, col, rows, nb, cols, ok); break;
+    case 4: tree_rows<4>(sm, w, grp, col, rows, nb, cols, ok); break;
+    case 8: tree_rows<8>(sm, w, grp, col, rows, nb, cols, ok); break;
+    case 16: tree_rows<16>(sm, w, grp, col, rows, nb, cols, ok); break;
+    case 32: tree_rows<32>(sm, w, grp, col, rows, nb, cols, ok); break;
+    case 64: tree_rows<64>(sm, w, grp, col, rows, nb, cols, ok); break;
+  }
+  __syncthreads();
+  for (int n = rows / 2; n > 0; n /= 2) {
+    for (int i = threadIdx.x; i < n * 32; i += 256) {
+      sm[i / 32][i % 32] =
+          __fadd_rn(sm[i / 32][i % 32], sm[i / 32 + n][i % 32]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 32 && ok) {
+    (blockIdx.z ? dcp : dbp)[(long long)blockIdx.y * cols + e] = sm[0][col];
+  }
 }
 
 // dA: the batch rows' sums in order.
-__global__ void scan_bwd_reduce_a(const float* __restrict__ wa,
-                                  float* __restrict__ da, int B,
-                                  long long n) {
+__global__ void scan_bwd_reduce_a_kernel(const float* __restrict__ wa,
+                                         float* __restrict__ da, int B,
+                                         long long n) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float v = wa[e];
@@ -442,13 +759,15 @@ __global__ void scan_bwd_reduce_a(const float* __restrict__ wa,
 
 extern "C" {
 
-// One launch of selective_scan_kernel<S> on the plan (S, lanes, passes,
+// One launch of selective_scan_kernel<S, SAVE> on the plan (S, lanes, passes,
 // ch, tc) of lane_plan; refuses a plan that is not the tree's (S, lanes
 // and passes powers of two whose product is the next power of two of
 // Ds, at most kMaxLanes lanes, passes only over 128 states a pass) or
 // does not fit a CTA.  With `states` non-null it also writes h after
 // every ck-th step short of the last (B, ceil(T / ck) - 1, Di, Ds): what
-// scan_selective_bwd restarts from.
+// scan_selective_bwd restarts from; tc must then divide ck
+// (lane_plan(save=True)), so each saved state ends a chunk and is stored
+// after it, along di and s.
 int scan_selective(const void* x, const void* dt, const void* bp,
                    const void* cp, const void* a, void* y, void* h,
                    void* states, int B, int T, int Di, int Ds, int ck,
@@ -463,12 +782,12 @@ int scan_selective(const void* x, const void* dt, const void* bp,
       lanes > kMaxLanes || !pow2(passes) || ch < 1 || tc < 1 ||
       (long long)S * lanes * passes != p2 ||
       passes != (p2 > 128 ? p2 / 128 : 1) || ch * lanes > kMaxThreads ||
-      (long long)smem_floats(pl, S) * 4 > kSmemBytes ||
-      (states != nullptr && ck < 1)) {
+      (long long)smem_floats(pl, S, states != nullptr) * 4 > kSmemBytes ||
+      (states != nullptr && (ck < 1 || ck % tc != 0))) {
     return int(cudaErrorInvalidValue);
   }
   const dim3 grid((Di + ch - 1) / ch, B);
-  const size_t bytes = size_t(smem_floats(pl, S)) * 4;
+  const size_t bytes = size_t(smem_floats(pl, S, states != nullptr)) * 4;
   cudaStream_t st = cudaStream_t(stream);
   auto run = [&](auto kernel) {
     kernel<<<grid, ch * lanes, bytes, st>>>(
@@ -477,66 +796,86 @@ int scan_selective(const void* x, const void* dt, const void* bp,
         (float*)states, T, Di, Ds, ck, pl);
     return int(cudaGetLastError());
   };
+  const bool save = states != nullptr;
   switch (S) {
-    case 1: return run(selective_scan_kernel<1>);
-    case 2: return run(selective_scan_kernel<2>);
-    case 4: return run(selective_scan_kernel<4>);
-    case 8: return run(selective_scan_kernel<8>);
-    case 16: return run(selective_scan_kernel<16>);
+    case 1: return save ? run(selective_scan_kernel<1, true>)
+                        : run(selective_scan_kernel<1, false>);
+    case 2: return save ? run(selective_scan_kernel<2, true>)
+                        : run(selective_scan_kernel<2, false>);
+    case 4: return save ? run(selective_scan_kernel<4, true>)
+                        : run(selective_scan_kernel<4, false>);
+    case 8: return save ? run(selective_scan_kernel<8, true>)
+                        : run(selective_scan_kernel<8, false>);
+    case 16: return save ? run(selective_scan_kernel<16, true>)
+                         : run(selective_scan_kernel<16, false>);
   }
   return int(cudaErrorInvalidValue);
 }
 
-// One backward of the scan: selective_scan_bwd_kernel<SP> on the plan of
-// kernels/mamba_scan/scan.py::bwd_plan (SP lanes a channel, `passes`
-// passes, 256 / SP channels a CTA, chunks of kBwdChunk steps), then the
-// two reductions; `dh` may be null (a zero final-state gradient).
-// Workspace: wb and wc (B, T, ceil(Di / ch), Ds), wa (B, Di, Ds).
+// One backward of the scan: selective_scan_bwd_kernel<S, L> on the plan
+// of kernels/mamba_scan/scan.py::bwd_plan (S states a thread, `lanes`
+// lanes a channel, `passes` passes, ch = kBwdThreads / lanes channels a
+// CTA, chunks of kBwdChunk steps), then the two reductions; `dh` may be
+// null (a zero final-state gradient).  Refuses any other plan, and a
+// Di whose CTA count exceeds what scan_bwd_reduce_bc_kernel trees.
+// Workspace: wb and wc (B, ceil(Di / ch), T, Ds), wa (B, Di, Ds).
 int scan_selective_bwd(const void* x, const void* dt, const void* bp,
                        const void* cp, const void* a, const void* states,
                        const void* dy, const void* dh, void* dx, void* ddt,
                        void* dbp, void* dcp, void* da, void* wb, void* wc,
-                       void* wa, int B, int T, int Di, int Ds, int SP,
-                       int passes, int ck, void* stream) {
+                       void* wa, int B, int T, int Di, int Ds, int S,
+                       int lanes, int passes, int ch, int ck, void* stream) {
   using namespace scan;
   long long p2 = 1;
   while (p2 < Ds) p2 *= 2;
-  if (B < 1 || T < 1 || Di < 1 || Ds < 1 || ck != kBwdChunk ||
-      SP != (p2 < 32 ? p2 : 32) || (long long)SP * passes != p2 ||
+  const long long want_s = p2 < kBwdMaxStates ? p2 : kBwdMaxStates;
+  const long long want_l =
+      p2 / want_s < kBwdMaxLanes ? p2 / want_s : kBwdMaxLanes;
+  const int nb = ch > 0 && Di > 0 ? (Di + ch - 1) / ch : 0;
+  long long np2 = 1;
+  while (np2 < nb) np2 *= 2;
+  if (B < 1 || T < 1 || Di < 1 || Ds < 1 || ck != kBwdChunk || S != want_s ||
+      lanes != want_l || (long long)S * lanes * passes != p2 ||
+      ch * lanes != kBwdThreads || B > 65535 ||
+      np2 > (long long)kReduceRows * kReduceSpan ||
       (T > ck && states == nullptr)) {
     return int(cudaErrorInvalidValue);
   }
-  const int ch = kBwdThreads / SP;
-  const int nb = (Di + ch - 1) / ch;
   const dim3 grid(nb, B);
-  const size_t bytes = size_t(bwd_smem_floats(ck)) * 4;
+  const int bytes = bwd_smem_floats(ch, S * lanes) * 4;
+  auto a16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const int vec = a16(x) && a16(dt) && a16(dy) && a16(states) && Di % 4 == 0;
   cudaStream_t st = cudaStream_t(stream);
   auto run = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return int(e);
     kernel<<<grid, kBwdThreads, bytes, st>>>(
         (const float*)x, (const float*)dt, (const float*)bp,
         (const float*)cp, (const float*)a, (const float*)states,
         (const float*)dy, (const float*)dh, (float*)dx, (float*)ddt,
-        (float*)wb, (float*)wc, (float*)wa, T, Di, Ds, passes);
+        (float*)wb, (float*)wc, (float*)wa, T, Di, Ds, passes, vec);
     return int(cudaGetLastError());
   };
   int err = int(cudaErrorInvalidValue);
-  switch (SP) {
-    case 1: err = run(selective_scan_bwd_kernel<1>); break;
-    case 2: err = run(selective_scan_bwd_kernel<2>); break;
-    case 4: err = run(selective_scan_bwd_kernel<4>); break;
-    case 8: err = run(selective_scan_bwd_kernel<8>); break;
-    case 16: err = run(selective_scan_bwd_kernel<16>); break;
-    case 32: err = run(selective_scan_bwd_kernel<32>); break;
+  switch (S * 16 + lanes) {
+    case 1 * 16 + 1: err = run(selective_scan_bwd_kernel<1, 1>); break;
+    case 2 * 16 + 1: err = run(selective_scan_bwd_kernel<2, 1>); break;
+    case 4 * 16 + 1: err = run(selective_scan_bwd_kernel<4, 1>); break;
+    case 4 * 16 + 2: err = run(selective_scan_bwd_kernel<4, 2>); break;
+    case 4 * 16 + 4: err = run(selective_scan_bwd_kernel<4, 4>); break;
+    case 4 * 16 + 8: err = run(selective_scan_bwd_kernel<4, 8>); break;
   }
   if (err != 0) return err;
-  const long long cols = 2LL * B * T * Ds;
-  scan_bwd_reduce_bc<<<(unsigned)((cols + 255) / 256), 256, 0, st>>>(
-      (float*)wb, (float*)wc, (float*)dbp, (float*)dcp, (long long)B * T,
-      nb, Ds);
+  const long long cols = (long long)T * Ds;
+  const dim3 tiles((unsigned)((cols + 31) / 32), B, 2);
+  scan_bwd_reduce_bc_kernel<<<tiles, 256, 0, st>>>(
+      (const float*)wb, (const float*)wc, (float*)dbp, (float*)dcp, nb,
+      (int)np2, cols);
   err = int(cudaGetLastError());
   if (err != 0) return err;
   const long long n = (long long)Di * Ds;
-  scan_bwd_reduce_a<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+  scan_bwd_reduce_a_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
       (const float*)wa, (float*)da, B, n);
   return int(cudaGetLastError());
 }

@@ -76,7 +76,8 @@ _SIGNATURES = {
     "scan_selective": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P),
     "scan_selective_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
 }
 
 # Launches per kernel since the last reset_launches(): each wrapper adds

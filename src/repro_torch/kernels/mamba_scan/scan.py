@@ -8,7 +8,7 @@ stream in and y streams out: device-memory traffic O(T·(Di + Ds))
 where the ``lax.scan`` twin round-trips the (Di x Ds) state every step.
 It is the Conv1-style logic-only end of the library: no MXU.
 
-The kernel (``selective_scan_kernel<S>`` in ``csrc/scan_kernels.cu``)
+The kernel (``selective_scan_kernel<S, SAVE>`` in ``csrc/scan_kernels.cu``)
 computes the same function for any d_state on the plan of
 ``lane_plan``: a thread owns S states of one channel (b, di) in
 registers, L lanes a channel, and, past 128 states, several passes
@@ -26,11 +26,14 @@ launch, so results never depend on it.
 The backward (``selective_scan_bwd``; no TPU kernel: the reference
 takes ``jax.grad`` of its ``lax.scan``) runs ``selective_scan_bwd_kernel``
 on the plan of ``bwd_plan``: the forward, asked by ``SelectiveScan``,
-also saves h every ``BWD_CHUNK`` steps; the backward recomputes each
-chunk from its saved state, then walks it backwards with the state's
-gradient in a register, its sums in a fixed order (no atomics).
-``selective_scan_bwd_plain`` takes every operation in its order, so the
-two agree bitwise.
+also saves h every ``BWD_CHUNK`` steps; the backward stages each chunk
+in shared memory, recomputes it from its saved state keeping h and
+``exp(dt·A)`` in registers, then walks it backwards with the state's
+gradient in a register.  Its sums run in a fixed order (no atomics):
+over states as the forward's y, over a CTA's channels by a halving tree
+in registers after each chunk, over the CTAs by ``scan_bwd_reduce_bc_kernel``'s
+halving tree.  ``selective_scan_bwd_plain`` takes every operation in its
+order, so the two agree bitwise.
 """
 from __future__ import annotations
 
@@ -53,8 +56,14 @@ MAX_CHUNK = 32             # steps a staged chunk
 # threads an SM the plan aims for (16 warps) before it splits a
 # channel's states over more lanes
 TARGET_THREADS_PER_SM = 512
-BWD_THREADS = 256          # threads a CTA of the backward
+BWD_THREADS = 128          # threads a CTA of the backward
 BWD_CHUNK = 16             # steps between the states the forward saves
+BWD_STATES = 4             # states a thread of the backward
+BWD_SMEM_BYTES = 227 * 1024   # shared memory a CTA of the backward may ask
+# scan_bwd_reduce_bc_kernel trees at most REDUCE_ROWS x REDUCE_SPAN CTA
+# partials (their count padded to a power of two) a column
+REDUCE_ROWS = 256
+REDUCE_SPAN = 64
 
 
 class ScanPlan(NamedTuple):
@@ -70,13 +79,15 @@ class ScanPlan(NamedTuple):
     ch: int
     tc: int
 
-    def smem_bytes(self) -> int:
+    def smem_bytes(self, save: bool = False) -> int:
         """The kernel's shared memory (``smem_floats`` of
         ``csrc/scan_kernels.cu``): x and dt, two buffers of tc x ch; Bp
-        and Cp, two of tc x lanes*states; the lanes' partials."""
+        and Cp, two of tc x lanes*states; the lanes' partials; saving
+        states, one saved state of ch rows of lanes*states + 1."""
         ls = self.lanes * self.states
         parts = self.lanes * self.ch if self.lanes > 1 else 0
-        return 4 * self.tc * (4 * self.ch + 4 * ls + parts)
+        saved = self.ch * (ls + 1) if save else 0
+        return 4 * (self.tc * (4 * self.ch + 4 * ls + parts) + saved)
 
 
 def tree_shape(ds: int):
@@ -86,14 +97,19 @@ def tree_shape(ds: int):
     return p, max(1, p // PASS_STATES)
 
 
-def lane_plan(b: int, di: int, ds: int, sms: int) -> ScanPlan:
+def lane_plan(b: int, di: int, ds: int, sms: int,
+              save: bool = False) -> ScanPlan:
     """The launch plan for (B, Di, Ds) on a card of ``sms`` SMs
     (``cuda.sm_count``): a pass's P / Q states (see ``tree_shape``) go
     16 (or all, if fewer) to a thread; then, while the card would hold
     fewer than ``TARGET_THREADS_PER_SM`` threads an SM (B * Di * lanes
     in all), a thread takes half as many (not below 4) on twice the
     lanes (at most 8).  Every Ds >= 1 gets a plan; the
-    y sum's order does not depend on it."""
+    y sum's order does not depend on it.  With ``save`` (the forward
+    that saves states for the backward) a chunk is the largest power of
+    two of steps that fits, at most ``BWD_CHUNK`` (so it divides
+    ``BWD_CHUNK`` and every saved state ends a chunk), and shared memory
+    also holds one saved state."""
     if min(b, di, ds) < 1:
         raise ValueError(f"lane_plan takes B, Di, Ds >= 1, got "
                          f"{(b, di, ds)}")
@@ -106,7 +122,12 @@ def lane_plan(b: int, di: int, ds: int, sms: int) -> ScanPlan:
     ch = min(WARP * (MAX_LANES // lanes), -(-di // WARP) * WARP)
     plan = ScanPlan(s, lanes, q, ch, 1)
     per_step = plan.smem_bytes()
-    return plan._replace(tc=max(1, min(MAX_CHUNK, SMEM_BYTES // per_step)))
+    if not save:
+        return plan._replace(tc=max(1, min(MAX_CHUNK,
+                                           SMEM_BYTES // per_step)))
+    room = SMEM_BYTES - (plan.smem_bytes(save=True) - per_step)
+    tc = max(1, min(BWD_CHUNK, room // per_step))
+    return plan._replace(tc=1 << (tc.bit_length() - 1))
 
 
 def _check(x, dt, bp, cp, a) -> None:
@@ -207,7 +228,7 @@ def _forward(x, dt, bp, cp, a, save: bool):
                           device=dev) if save else None)
     if h.numel() == 0:
         return y, h, states
-    plan = lane_plan(b, di, ds, cuda.sm_count(dev))
+    plan = lane_plan(b, di, ds, cuda.sm_count(dev), save=save)
     cuda.launch("selective_scan", "scan_selective", dev,
                 *(v.data_ptr() for v in ops), y.data_ptr(), h.data_ptr(),
                 states.data_ptr() if save and states.numel() else None,
@@ -261,25 +282,63 @@ def _check_grads(x, a, dy, dh) -> None:
 
 
 class BwdPlan(NamedTuple):
-    """How ``selective_scan_bwd_kernel`` cuts a backward: ``sp`` lanes
-    a channel, one state each (Ds padded to a power of two P, ``sp =
-    min(P, 32)``), ``passes = P / sp`` passes over the sequence (lane j
-    of pass q the state j * passes + q, the forward's cut, so the sums
-    over states are ``scan_tree_sum``'s), CTAs of ``ch = 256 / sp``
-    channels of one batch row, chunks of ``ck`` steps between saved
-    states."""
-    sp: int
+    """How ``selective_scan_bwd_kernel`` cuts a backward: each thread
+    owns ``states`` states of a channel (``min(P, BWD_STATES)``, Ds
+    padded to a power of two P), ``lanes`` lanes a channel (the rest of
+    P, at most 8), ``passes = P / (states * lanes)`` passes over the
+    sequence; lane l's k-th state of pass q is (k * lanes + l) * passes
+    + q, the forward's cut, so the sums over states are
+    ``scan_tree_sum``'s.  CTAs of ``ch = BWD_THREADS / lanes`` channels
+    of one batch row, chunks of ``ck`` steps between saved states."""
+    states: int
+    lanes: int
     passes: int
     ch: int
     ck: int
+
+    def smem_bytes(self) -> int:
+        """The kernel's shared memory (``bwd_smem_floats`` of
+        ``csrc/scan_kernels.cu``): two staged chunks (dt, x, dy; Bp, Cp;
+        the saved state), the dB and dC terms of a chunk (rows padded by
+        ``pq % 32``) and each lane's two sums over its states."""
+        pq = self.states * self.lanes
+        stage = 3 * self.ck * self.ch + 2 * self.ck * pq + self.ch * pq
+        row = self.ch * pq + pq % 32
+        threads = self.ch * self.lanes
+        return 4 * (2 * stage + 2 * self.ck * row + 2 * self.ck * threads)
 
 
 def bwd_plan(ds: int) -> BwdPlan:
     if ds < 1:
         raise ValueError(f"bwd_plan takes Ds >= 1, got {ds}")
     p = 1 << (ds - 1).bit_length()
-    sp = min(p, WARP)
-    return BwdPlan(sp, p // sp, BWD_THREADS // sp, BWD_CHUNK)
+    s = min(p, BWD_STATES)
+    lanes = min(p // s, MAX_LANES)
+    return BwdPlan(s, lanes, p // (s * lanes), BWD_THREADS // lanes,
+                   BWD_CHUNK)
+
+
+def bwd_grid(b: int, di: int, ds: int):
+    """(``bwd_plan(ds)``, NB CTAs a batch row) of a backward over (B, Di,
+    Ds), or a ``ValueError`` where the kernels cannot take it:
+    ``scan_bwd_reduce_bc_kernel`` sums at most REDUCE_ROWS x
+    REDUCE_SPAN partials a column (at most that many times ``ch``
+    channels), the grid's second axis holds at most 65535 batch rows,
+    and a CTA asks for at most ``BWD_SMEM_BYTES`` of shared memory."""
+    plan = bwd_plan(ds)
+    nb = -(-di // plan.ch)
+    if nb > REDUCE_ROWS * REDUCE_SPAN:
+        raise ValueError(f"selective_scan_bwd takes at most "
+                         f"{REDUCE_ROWS * REDUCE_SPAN * plan.ch} channels "
+                         f"at d_state {ds}, got Di = {di}")
+    if b > 65535:
+        raise ValueError(f"selective_scan_bwd takes at most 65535 batch "
+                         f"rows, got {b}")
+    if plan.smem_bytes() > BWD_SMEM_BYTES:
+        raise ValueError(f"selective_scan_bwd's plan {tuple(plan)} asks "
+                         f"for {plan.smem_bytes()} bytes of shared memory "
+                         f"a CTA, over {BWD_SMEM_BYTES}")
+    return plan, nb
 
 
 def halving_tree(p: torch.Tensor, dim: int) -> torch.Tensor:
@@ -295,7 +354,8 @@ def halving_tree(p: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _channel_partials(v: torch.Tensor, plan: BwdPlan) -> torch.Tensor:
     """(B, Di, P) terms -> (B, NB, P): each CTA's halving tree over its
-    ``ch`` channels (Di zero-padded to NB * ch)."""
+    ``ch`` channels (Di zero-padded to NB * ch), the kernel's
+    ``htree``."""
     b, di, p = v.shape
     nb = -(-di // plan.ch)
     v = torch.nn.functional.pad(v, (0, 0, 0, nb * plan.ch - di))
@@ -307,8 +367,9 @@ def selective_scan_bwd_plain(x, dt, bp, cp, a, dy, dh=None):
     the forward's recurrence (zero-padded states) keeping every h, then
     a walk backwards with g in the order of ``selective_scan_bwd_kernel``;
     the sums over states by ``scan_tree_sum``, over channels by
-    ``_channel_partials`` then a halving tree over the CTAs, dA a sum
-    over t as walked, then over b in order.  Returns (dx, ddt, dBp, dCp,
+    ``_channel_partials`` then a halving tree over the CTAs (what
+    ``scan_bwd_reduce_bc_kernel`` computes), dA a sum over t as walked, then
+    over b in order.  Returns (dx, ddt, dBp, dCp,
     dA), f32; ``dh=None`` is a zero final-state gradient."""
     _check(x, dt, bp, cp, a)
     _check_grads(x, a, dy, dh)
@@ -316,7 +377,7 @@ def selective_scan_bwd_plain(x, dt, bp, cp, a, dy, dh=None):
     ds = a.shape[1]
     f32 = torch.float32
     plan = bwd_plan(ds)
-    p2 = plan.sp * plan.passes
+    p2 = plan.states * plan.lanes * plan.passes
     pad = (0, p2 - ds)
     x, dt, dy = (v.to(f32) for v in (x, dt, dy))
     bp, cp, a = (torch.nn.functional.pad(v.to(f32), pad)
@@ -335,9 +396,11 @@ def selective_scan_bwd_plain(x, dt, bp, cp, a, dy, dh=None):
     dacc = torch.zeros((b, di, p2), dtype=f32, device=dev)
     dx = torch.empty((b, t, di), dtype=f32, device=dev)
     ddt = torch.empty((b, t, di), dtype=f32, device=dev)
+    # the dB terms, step-major; the channel sums run once after the walk
+    # (each step's slice summed as the kernel's CTAs sum it)
+    tbs = torch.empty((t, b, di, p2), dtype=f32, device=dev)
     nb = -(-di // plan.ch)
-    wb = torch.empty((b, t, nb, p2), dtype=f32, device=dev)
-    wc = torch.empty((b, t, nb, p2), dtype=f32, device=dev)
+    dxv = dt * x
     zero = torch.zeros((b, di, p2), dtype=f32, device=dev)
     for i in reversed(range(t)):
         dt_i, x_i, dy_i = dt[:, i], x[:, i], dy[:, i]
@@ -347,14 +410,23 @@ def selective_scan_bwd_plain(x, dt, bp, cp, a, dy, dh=None):
         qa = (g * hprev) * at
         dacc = dacc + qa * dt_i[..., None]
         anext = at
-        wc[:, i] = _channel_partials(hs[i] * dy_i[..., None], plan)
-        wb[:, i] = _channel_partials(g * (dt_i * x_i)[..., None], plan)
+        torch.mul(g, dxv[:, i, :, None], out=tbs[i])
         sgb = scan_tree_sum(g * bp[:, i, None, :], plan.passes)
         sq = scan_tree_sum(qa * a[None], plan.passes)
         dx[:, i] = dt_i * sgb
         ddt[:, i] = x_i * sgb + sq
-    dbp = halving_tree(wb, 2)[..., :ds].contiguous()
-    dcp = halving_tree(wc, 2)[..., :ds].contiguous()
+    hs = torch.stack(hs) if hs else tbs
+    tcs = hs * dy.transpose(0, 1)[..., None]
+    del hs
+
+    def channel_sums(terms):
+        """(T, B, Di, P) terms -> (B, T, Ds): per CTA, then over CTAs."""
+        parts = _channel_partials(terms.reshape(t * b, di, p2), plan)
+        return halving_tree(parts.reshape(t, b, nb, p2), 2).transpose(
+            0, 1)[..., :ds].contiguous()
+    dbp = channel_sums(tbs)
+    del tbs
+    dcp = channel_sums(tcs)
     da = dacc[0]
     for r in range(1, b):
         da = da + dacc[r]
@@ -399,10 +471,9 @@ def selective_scan_bwd(x, dt, bp, cp, a, states, dy, dh=None):
     da = torch.empty((di, ds), **f32)
     if t == 0:
         return dx, ddt, dbp, dcp, da.zero_()
-    plan = bwd_plan(ds)
-    nb = -(-di // plan.ch)
-    wb = torch.empty((b, t, nb, ds), **f32)
-    wc = torch.empty((b, t, nb, ds), **f32)
+    plan, nb = bwd_grid(b, di, ds)
+    wb = torch.empty((b, nb, t, ds), **f32)
+    wc = torch.empty((b, nb, t, ds), **f32)
     wa = torch.empty((b, di, ds), **f32)
     cuda.launch("selective_scan_bwd", "scan_selective_bwd", dev,
                 *(v.data_ptr() for v in ops),
@@ -410,7 +481,8 @@ def selective_scan_bwd(x, dt, bp, cp, a, states, dy, dh=None):
                 dy.data_ptr(),
                 dh.data_ptr() if dh is not None else None,
                 *(v.data_ptr() for v in (dx, ddt, dbp, dcp, da, wb, wc, wa)),
-                b, t, di, ds, plan.sp, plan.passes, plan.ck)
+                b, t, di, ds, plan.states, plan.lanes, plan.passes, plan.ch,
+                plan.ck)
     return dx, ddt, dbp, dcp, da
 
 

@@ -167,6 +167,16 @@ def test_lane_plan(b, di, ds, sms):
         assert threads >= sms * t_scan.TARGET_THREADS_PER_SM
     if (b, di, ds) == (1, 16384, 16):
         assert tuple(plan) == (4, 4, 1, 64, 21)
+    # the forward that saves states: the same cut, chunks that divide
+    # BWD_CHUNK (every saved state ends a chunk), and the saved state's
+    # buffer fits beside them
+    saving = t_scan.lane_plan(b, di, ds, sms, save=True)
+    assert saving[:4] == plan[:4]
+    assert 1 <= saving.tc <= min(plan.tc, t_scan.BWD_CHUNK)
+    assert t_scan.BWD_CHUNK % saving.tc == 0
+    assert saving.smem_bytes(save=True) <= t_scan.SMEM_BYTES
+    if (b, di, ds) == (1, 16384, 16):
+        assert saving.tc == 16
     # the kernel's order on the plan: lane l's register k holds product
     # (k * lanes + l) * passes + q; a halving tree over the registers,
     # then over the lanes, then the passes in order
@@ -376,11 +386,22 @@ def test_forward_states_are_the_recurrences_at_chunk_ends():
 
 @pytest.mark.parametrize("ds", [1, 2, 5, 16, 32, 33, 300])
 def test_backward_plan_covers_the_states(ds):
+    """A thread's states, the lanes and the passes cover Ds padded to a
+    power of two; a pass holds min(P, 32) states (one pass up to 32
+    states, as scan_tree_sum's passes for the sums over states); a CTA
+    is BWD_THREADS threads and its shared memory fits the card."""
     plan = t_scan.bwd_plan(ds)
     p2 = 1 << (ds - 1).bit_length()
-    assert plan.sp * plan.passes == p2 and plan.sp == min(p2, 32)
-    assert plan.ch * plan.sp == t_scan.BWD_THREADS
+    assert plan.states == min(p2, t_scan.BWD_STATES)
+    assert plan.lanes == min(p2 // plan.states, t_scan.MAX_LANES)
+    assert plan.states * plan.lanes * plan.passes == p2
+    assert plan.states * plan.lanes == min(p2, 32)
+    assert plan.ch * plan.lanes == t_scan.BWD_THREADS
     assert plan.ck == t_scan.BWD_CHUNK
+    assert plan.smem_bytes() <= t_scan.BWD_SMEM_BYTES
+    if ds == 16:
+        assert tuple(plan) == (4, 4, 1, 32, 16)
+        assert 2 * plan.smem_bytes() <= t_scan.BWD_SMEM_BYTES
 
 
 def test_halving_tree_is_the_kernels_order():
@@ -399,6 +420,62 @@ def test_halving_tree_is_the_kernels_order():
                                v.sum(1).numpy(), rtol=1e-5, atol=1e-6)
 
 
+def _halving(vals):
+    """The halving tree over a list (j + n/2 onto j), zero-padded to a
+    power of two, level by level."""
+    vals = list(vals)
+    n = 1 << max(len(vals) - 1, 0).bit_length()
+    vals += [torch.zeros_like(vals[0])] * (n - len(vals))
+    while len(vals) > 1:
+        half = len(vals) // 2
+        vals = [a + b for a, b in zip(vals[:half], vals[half:])]
+    return vals[0]
+
+
+def _even_odd(vals):
+    """The kernels' recursion for the same tree (``htree``,
+    ``strided_tree`` in ``csrc/scan_kernels.cu``): the tree over the
+    even elements plus the tree over the odd ones."""
+    if len(vals) == 1:
+        return vals[0]
+    return _even_odd(vals[0::2]) + _even_odd(vals[1::2])
+
+
+@pytest.mark.parametrize("b,di,ds", [(1, 100, 16), (2, 70, 5), (1, 2000, 4),
+                                     (3, 40, 300), (1, 4200, 300)],
+                         ids=lambda c: str(c))
+def test_cross_channel_and_cross_cta_sums_are_the_kernels_order(b, di, ds):
+    """The dB / dC sums over channels as the kernels cut them: each CTA's
+    ``htree`` over its ch channels (Di zero-padded to nb * ch), then
+    ``scan_bwd_reduce_bc_kernel`` over the nb partials (zero-padded to
+    np2, a power of two; rows = min(np2, 256): each row j first sums j,
+    j + rows, .. by ``strided_tree``, then the rows' halving tree level
+    by level in shared memory) equal ``_channel_partials`` and
+    ``halving_tree`` bitwise, and the level-by-level tree."""
+    plan = t_scan.bwd_plan(ds)
+    ch = plan.ch
+    terms = torch.from_numpy(np.random.default_rng(di).normal(
+        size=(b, di, 3)).astype(np.float32))
+    want = t_scan.halving_tree(t_scan._channel_partials(terms, plan), 1)
+    nb = -(-di // ch)
+    padded = torch.nn.functional.pad(terms, (0, 0, 0, nb * ch - di))
+    parts = [_even_odd([padded[:, cta * ch + c] for c in range(ch)])
+             for cta in range(nb)]
+    np2 = 1 << max(nb - 1, 0).bit_length()
+    rows = min(np2, t_scan.REDUCE_ROWS)
+    assert np2 // rows <= t_scan.REDUCE_SPAN
+    zero = torch.zeros_like(parts[0])
+    row_sums = [_even_odd([parts[j + i * rows] if j + i * rows < nb
+                           else zero for i in range(np2 // rows)])
+                for j in range(rows)]
+    assert torch.equal(_halving(row_sums), want)
+    assert torch.equal(_halving([_halving(
+        [padded[:, cta * ch + c] for c in range(ch)])
+        for cta in range(nb)]), want)
+    np.testing.assert_allclose(want.numpy(), terms.sum(1).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_backward_bad_operands_raise_named_errors():
     x, dt, bp, cp, a = (torch.from_numpy(v) for v in
                         _data(np.random.default_rng(11), 1, 4, 8, 4))
@@ -410,3 +487,12 @@ def test_backward_bad_operands_raise_named_errors():
                                   torch.zeros(1, 8, 3))
     with pytest.raises(ValueError, match="bwd_plan takes Ds >= 1"):
         t_scan.bwd_plan(0)
+    ch = t_scan.bwd_plan(16).ch
+    most = t_scan.REDUCE_ROWS * t_scan.REDUCE_SPAN * ch
+    assert t_scan.bwd_grid(1, most, 16)[1] == t_scan.REDUCE_ROWS * \
+        t_scan.REDUCE_SPAN
+    with pytest.raises(ValueError, match=f"at most {most} channels at "
+                                         f"d_state 16, got Di = {most + 1}"):
+        t_scan.bwd_grid(1, most + 1, 16)
+    with pytest.raises(ValueError, match="at most 65535 batch rows"):
+        t_scan.bwd_grid(65536, 8, 4)
