@@ -344,6 +344,24 @@ and prints no result):
    else, step ms, tokens/s, peak memory and one profiled step; (e) the
    reference integration test's resume case (exit code 17, "resuming
    at 17", final loss within ``RESUME_TOL`` of the gold run).
+9. train mesh (``train_mesh_phase``) — training on a ("data", "model")
+   mesh of logical devices of the one card (``logical(n)``): (a)
+   llama3.2-1b whole through ``launch/train.py::build`` with (c)'s
+   optimizer, data and seed: a (1, 2) mesh's first step bitwise the
+   single-device step (params, moments, metrics), three single-device
+   steps (a fourth profiled), three (4, 2) steps with losses within
+   ``METRIC_TOL`` of them (step ms, peak memory, one profiled step); (d)
+   that state saved, restored under ``elastic_remesh(6,
+   prefer_model=2)``'s (3, 2) mesh bitwise (save and restore seconds),
+   one (3, 2) step; an (8, 1) step with ``fsdp=True`` (its 4 rows run
+   whole: bitwise the single-device first step); (e) train's run (c),
+   through the (1, 1) mesh, has the single-device steps' losses; (b)
+   every config of ``smoke_families`` takes one (4, 2) step at (8, 32)
+   on the card and on the CPU (``FAMILY_TOL``; jamba launches the scan's
+   forward and backward on each data rank's rows, nothing else
+   launches); (c) ``gpipe_forward`` over 4 logical stages of 4 llama
+   blocks in bf16, 8 microbatches of (1, 1024), bitwise the 16 blocks
+   in sequence, both timed.
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -829,6 +847,11 @@ TRAIN_RESUME_ARGS = ("--smoke", "--steps", "24", "--batch", "4", "--seq",
                      "32", "--ckpt-every", "8")
 TRAIN_FAIL_AT = 18
 RESUME_TOL = 2e-2
+# "train mesh": the loss bar of tests/test_torch_train.py, the (4, 1024)
+# batch of train_llama, and GPipe's 4 stages of 4 llama blocks
+METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
+MESH_TRAIN = dict(batch=4, seq=1024, steps=3)
+GPIPE = dict(stages=4, micro=8, seq=1024)
 
 
 class SmokeFailure(RuntimeError):
@@ -6379,9 +6402,10 @@ def run_train(argv):
     from repro_torch.launch.train import train
     buf = io.StringIO()
     code = 0
+    returned = None
     with contextlib.redirect_stdout(buf):
         try:
-            train(list(argv))
+            returned = train(list(argv))
         except SystemExit as e:
             code = e.code
     text = buf.getvalue()
@@ -6389,7 +6413,10 @@ def run_train(argv):
         log(f"  {line}")
     steps = [line for line in text.splitlines()
              if line.startswith("[train] step")]
-    losses = [float(line.split("loss")[1].split()[0]) for line in steps]
+    # the losses ``train`` returns, unrounded; the printed ones of a run
+    # that exited
+    losses = returned if returned is not None else [
+        float(line.split("loss")[1].split()[0]) for line in steps]
     step_ms = [float(line.split()[-2]) for line in steps]
     saves = [float(line.split(" in ")[1].split()[0])
              for line in text.splitlines()
@@ -6398,9 +6425,11 @@ def run_train(argv):
 
 
 def llama_train_run(card):
-    """(c): llama3.2-1b whole, at full width, through the trainer: every
-    loss finite, the last below the first, nothing hand-written
-    launched; step ms, tokens/s, the final save and peak memory."""
+    """(c): llama3.2-1b whole, at full width, through the trainer (a
+    (1, 1) mesh on the card): every loss finite, the last below the
+    first, nothing hand-written launched; step ms, tokens/s, the final
+    save and peak memory.  Returns the losses ("train mesh" (e) holds
+    them to the single-device step's)."""
     import math
     import shutil
     import tempfile
@@ -6440,6 +6469,7 @@ def llama_train_run(card):
         f"{size / 1e9:.2f} GB saved in {save_s:.2f} s; peak "
         f"{peak / 2**30:.2f} GiB allocated; run wall {wall:.1f} s; "
         f"nothing hand-written launched; on {card}")
+    return losses
 
 
 def jamba_train_run(card):
@@ -6452,7 +6482,6 @@ def jamba_train_run(card):
     profiled step.  Returns the backward's launches."""
     import math
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import make_pipeline
     from repro_torch.kernels import cuda
     from repro_torch.models import api
@@ -6503,23 +6532,8 @@ def jamba_train_run(card):
         f" GiB; launched {counts} ({2 * n_mamba} forward and {n_mamba} "
         f"backward scans a step); on {card}")
     batch = {k: v.cuda() for k, v in data[steps].items()}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        api.train_step(cfg, opt, state, batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        # "Command Buffer Full" is CUPTI's record of the launch queue
-        # being full, not a kernel
-        if dev > 0 and not ev.key.startswith(("aten::", "Activity",
-                                              "Command Buffer Full")):
-            rows.append((dev, ev.key, ev.count))
-    busy = sum(r[0] for r in rows)
+    rows, busy, wall_ms = device_profile(
+        lambda: api.train_step(cfg, opt, state, batch))
     check(busy > 0, "the profiler saw no device time in the train step")
     for dev, key, count in sorted(rows, reverse=True)[:10]:
         log(f"train profile jamba period step: {dev:11.1f} us device "
@@ -6535,6 +6549,31 @@ def jamba_train_run(card):
     del state, batch, probe
     torch.cuda.empty_cache()
     return counts["selective_scan_bwd"]
+
+
+def device_profile(fn):
+    """One call of ``fn`` under ``torch.profiler``, the card synchronized
+    around it: (rows (device us, name, count) of the kernels and copies,
+    their device us in all, the call's wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        # "Command Buffer Full" is CUPTI's record of the launch queue
+        # being full, not a kernel
+        if dev > 0 and not ev.key.startswith(("aten::", "Activity",
+                                              "Command Buffer Full")):
+            rows.append((dev, ev.key, ev.count))
+    return rows, sum(r[0] for r in rows), wall_ms
 
 
 def resume_checks(card):
@@ -6574,17 +6613,348 @@ def train_phase(peaks, card, errs):
     """The twentieth slice's path: (a) the scan's backward kernel, (b)
     smoke configs card against CPU, (c) llama3.2-1b through the trainer,
     (d) jamba's period, the main path, (e) resume.  Returns the
-    backward's launches on the main path and its row."""
+    backward's launches on the main path, its row and (c)'s losses."""
     import torch
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     row = scan_bwd_checks(peaks, card, errs)
     smoke_train_checks(card)
-    llama_train_run(card)
+    losses = llama_train_run(card)
     launches = jamba_train_run(card)
     resume_checks(card)
     log(f"train: phase wall {time.perf_counter() - t0:.1f} s on {card}")
-    return launches, row
+    return launches, row, losses
+
+
+# ---------------------------------------------------------------------------
+# "train mesh": training on a ("data", "model") mesh of logical devices
+# ---------------------------------------------------------------------------
+def logical(n):
+    """``n`` logical devices on the one card."""
+    import torch
+    return [torch.device("cuda", 0)] * n
+
+
+def cuda_sync_ms(fn):
+    """(result, wall ms) of ``fn()``, the card synchronized around it."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_equals(placed, whole) -> bool:
+    """Every leaf of a sharded tree gathered equals ``whole``'s, bitwise
+    (``whole``: a tree of tensors, or another sharded tree)."""
+    import torch
+    from repro_torch.distributed.sharding import ShardedTensor
+    from repro_torch.optim.adamw import tree_leaves
+    for a, b in zip(tree_leaves(placed), tree_leaves(whole)):
+        b = b.full() if isinstance(b, ShardedTensor) else b
+        a = a.full(b.device)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            return False
+    return True
+
+
+def mesh_llama_checks(card, trainer_losses):
+    """(a) llama3.2-1b whole through ``launch/train.py::build``, the
+    trainer's optimizer, data and seed: a (1, 2) mesh's first step
+    bitwise the single-device step; three single-device steps, then
+    three (4, 2) steps from the same initial state, losses within
+    METRIC_TOL; (d) the (4, 2) state saved, restored under
+    ``elastic_remesh(6, prefer_model=2)``'s (3, 2) mesh bitwise, one
+    step there; an (8, 1) step with ``fsdp=True`` (4 rows do not divide
+    8: the batch runs whole, so bitwise the single-device first step);
+    (e) the trainer's first losses (the "train" phase's run (c), a
+    (1, 1) mesh) equal the single-device steps'.  Step ms, peak memory,
+    save and restore seconds."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  state_pspecs, to_shardings)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.runtime.fault_tolerance import elastic_remesh
+    cfg = get_config(TRAIN_LLAMA)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=max(TRAIN_LLAMA_STEPS // 20, 2),
+                      total_steps=TRAIN_LLAMA_STEPS,
+                      moment_dtype=cfg.moment_dtype)
+    data = make_pipeline(cfg.vocab_size, MESH_TRAIN["seq"],
+                         MESH_TRAIN["batch"], seed=SEED)
+    policy = ShardingPolicy(fsdp=cfg.fsdp)
+    steps = MESH_TRAIN["steps"]
+    gib = 2 ** 30
+
+    # (1, 2): the first step bitwise the single-device step
+    make_state, step_fn, _ = build(cfg, opt, make_host_mesh(
+        1, 2, devices=logical(2)), policy)
+    st12 = make_state(SEED)
+    (st12, m12), ms12 = cuda_sync_ms(lambda: step_fn(st12, data[0]))
+    single = api.init_train_state(cfg, opt, SEED, device="cuda")
+    losses, single_ms = [], []
+    for i in range(steps):
+        batch = {k: v.cuda() for k, v in data[i].items()}
+        (single, m), ms = cuda_sync_ms(
+            lambda: api.train_step(cfg, opt, single, batch))
+        losses.append(float(m["loss"]))
+        single_ms.append(ms)
+        if i == 0:
+            first_m = {k: v.clone() for k, v in m.items()}
+            check(all(torch.equal(m12[k], v) for k, v in m.items()),
+                  f"train mesh (1, 2): metrics {m12} differ from the "
+                  f"single-device step's {m}")
+            check(sharded_equals(st12, single),
+                  "train mesh (1, 2): the state after one step differs "
+                  "from the single-device step's")
+            del st12
+    batch = {k: v.cuda() for k, v in data[steps].items()}
+    single_rows, single_busy, single_wall = device_profile(
+        lambda: api.train_step(cfg, opt, single, batch))
+    del single, batch
+    torch.cuda.empty_cache()
+    log(f"train mesh {TRAIN_LLAMA} (1, 2) on 2 logical devices: the first "
+        f"step ({ms12:.1f} ms) bitwise the single-device step (params, "
+        f"mu, nu and every metric); single-device losses "
+        f"{', '.join(repr(v) for v in losses)}, step ms "
+        f"{', '.join(f'{v:.1f}' for v in single_ms)}; a profiled fourth "
+        f"step: device busy {single_busy / 1e3:.1f} ms in "
+        f"{sum(r[2] for r in single_rows)} kernels and copies, "
+        f"{single_busy / 1e3 / single_wall:.3f} of {single_wall:.1f} ms; "
+        f"on {card}")
+    check(trainer_losses[:steps] == losses,
+          f"train mesh (e): the trainer's losses {trainer_losses[:steps]} "
+          f"(a (1, 1) mesh) differ from the single-device steps' {losses}")
+    log(f"train mesh (e): the trainer's first {steps} losses (through the "
+        f"(1, 1) mesh) equal the single-device steps' bitwise; on {card}")
+
+    # (4, 2): three steps from the same initial state
+    mesh42 = make_host_mesh(4, 2, devices=logical(8))
+    make_state, step_fn, _ = build(cfg, opt, mesh42, policy)
+    st42 = make_state(SEED)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / gib
+    torch.cuda.reset_peak_memory_stats()
+    got, mesh_ms = [], []
+    for i in range(steps):
+        (st42, m), ms = cuda_sync_ms(lambda: step_fn(st42, data[i]))
+        got.append(float(m["loss"]))
+        mesh_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated() / gib
+    check(all(math.isfinite(v) for v in got), f"train mesh (4, 2): {got}")
+    for a, b in zip(got, losses):
+        check(abs(a - b) <= METRIC_TOL["atol"] + METRIC_TOL["rtol"] * abs(b),
+              f"train mesh (4, 2): losses {got} against single-device "
+              f"{losses} beyond {METRIC_TOL}")
+    log(f"train mesh {TRAIN_LLAMA} (4, 2) on 8 logical devices: losses "
+        f"{', '.join(repr(v) for v in got)} within {METRIC_TOL} of the "
+        f"single-device steps'; step ms {', '.join(f'{v:.1f}' for v in mesh_ms)}"
+        f" against single-device {', '.join(f'{v:.1f}' for v in single_ms)}"
+        f" ({statistics.median(mesh_ms[1:]) / statistics.median(single_ms[1:]):.3f}x"
+        f" on the later steps); sharded state {state_gib:.2f} GiB "
+        f"allocated, step peak {peak:.2f} GiB; on {card}")
+    rows, busy, wall = device_profile(lambda: step_fn(st42, data[steps]))
+    check(busy > 0, "the profiler saw no device time in the (4, 2) step")
+    for dev, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"train mesh profile (4, 2) step: {dev:11.1f} us device "
+            f"x{count:<5d} ({dev / busy:.4f}) {key[:70]}")
+    log(f"train mesh profile (4, 2) step: device busy {busy / 1e3:.1f} ms "
+        f"in {sum(r[2] for r in rows)} kernels and copies, "
+        f"{busy / 1e3 / wall:.3f} of the {wall:.1f} ms profiled step")
+
+    # (d) save under (4, 2) (steps + 1 steps taken), restore under the
+    # survivors' (3, 2)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        _, save_ms = cuda_sync_ms(lambda: store.save(
+            ckdir, steps, st42, extra={"next_step": steps + 2}))
+        mesh32 = elastic_remesh(6, prefer_model=2, pool=logical(8))
+        check(mesh32.devices.shape == (3, 2),
+              f"train mesh (d): elastic_remesh(6) gave {mesh32}")
+        target = api.init_train_state_abstract(cfg, opt)
+        (st32, extra), restore_ms = cuda_sync_ms(lambda: store.restore(
+            ckdir, target, shardings=to_shardings(
+                mesh32, state_pspecs(cfg, mesh32, target, policy))))
+        size = ckpt_bytes(ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(extra == {"next_step": steps + 2},
+          f"train mesh (d): extra {extra}")
+    check(sharded_equals(st32, st42), "train mesh (d): the (3, 2) restore "
+                                      "differs from the saved (4, 2) state")
+    del st42
+    torch.cuda.empty_cache()
+    _, step_fn, _ = build(cfg, opt, mesh32, policy)
+    (st32, m), ms32 = cuda_sync_ms(lambda: step_fn(st32,
+                                                  data[steps + 1]))
+    check(math.isfinite(float(m["loss"])), f"train mesh (d): {m}")
+    log(f"train mesh (d): the (4, 2) state ({size / 1e9:.2f} GB) saved in "
+        f"{save_ms / 1e3:.2f} s, restored under elastic_remesh(6, "
+        f"prefer_model=2)'s (3, 2) mesh in {restore_ms / 1e3:.2f} s, every "
+        f"leaf bitwise, next_step kept; one (3, 2) step {ms32:.1f} ms, loss "
+        f"{float(m['loss'])!r}; on {card}")
+    del st32
+    torch.cuda.empty_cache()
+
+    # (8, 1) with fsdp: the batch's 4 rows do not divide 8 and run whole
+    make_state, step_fn, sshard = build(cfg, opt, make_host_mesh(
+        8, 1, devices=logical(8)), ShardingPolicy(fsdp=True))
+    split = sum(1 for sh in tree_leaves(sshard.params)
+                if "data" in str(sh.spec))
+    st81 = make_state(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    (st81, m), ms81 = cuda_sync_ms(lambda: step_fn(st81, data[0]))
+    peak81 = torch.cuda.max_memory_allocated() / gib
+    check(all(torch.equal(m[k], v) for k, v in first_m.items()),
+          f"train mesh (8, 1) fsdp: metrics {m} differ from the "
+          f"single-device first step's {first_m}")
+    log(f"train mesh {TRAIN_LLAMA} (8, 1) fsdp=True: {split} param leaves "
+        f"split over data; one step {ms81:.1f} ms (the 4 rows run whole: "
+        f"metrics bitwise the single-device first step's), peak "
+        f"{peak81:.2f} GiB; on {card}")
+    del st81
+    torch.cuda.empty_cache()
+
+
+def mesh_smoke_checks(card):
+    """(b) every smoke config of ``smoke_families`` takes one (4, 2) step
+    at (8, 32) on 8 logical devices of the card and of the CPU from the
+    same state: metrics within FAMILY_TOL (grad_norm but for rwkv, as
+    the "train" phase), params within 2 lr; only jamba launches kernels,
+    the scan's forward and backward on each of the 4 data ranks' rows."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import shard_train
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  device_put, state_pspecs,
+                                                  to_shardings)
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.frontends import make_inputs
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    shape = ShapeConfig("mesh_train", 32, 8, "train")
+    for label, cfg in smoke_families():
+        state0 = api.init_train_state(cfg, opt, SEED, device="cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            mesh = make_host_mesh(4, 2, devices=[dev] * 8)
+            placed = device_put(state0, to_shardings(mesh, state_pspecs(
+                cfg, mesh, state0, ShardingPolicy())))
+            batch = make_inputs(cfg, shape, seed=SEED, abstract=False,
+                                device="cpu")
+            split = shard_train.row_split(cfg, mesh, batch)
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            new, metrics = shard_train.train_step(cfg, opt, placed, batch)
+            torch.cuda.synchronize()
+            out[dev] = (new, metrics, cuda.launch_counts(), split)
+        (c_new, c_m, _, split), (g_new, g_m, counts, _) = (out["cpu"],
+                                                          out["cuda"])
+        for k in ("loss", "xent", "aux", "lr") + (
+                () if label == RWKV else ("grad_norm",)):
+            torch.testing.assert_close(
+                g_m[k].cpu(), c_m[k], **FAMILY_TOL,
+                msg=lambda m: f"train mesh {label} {k}, card against CPU: "
+                              f"{m}")
+        lr = float(c_m["lr"])
+        worst = 0.0
+        for i, (gp, cp) in enumerate(zip(tree_leaves(g_new.params),
+                                         tree_leaves(c_new.params))):
+            d = float((gp.full("cpu").float() - cp.full().float()).abs()
+                      .max())
+            worst = max(worst, d)
+            check(d <= 2 * lr, f"train mesh {label} param {i} moved "
+                               f"{d} apart, more than 2 lr")
+        mamba = "mamba" in cfg.attn_layout
+        check(set(counts) == ({"selective_scan", "selective_scan_bwd"}
+                              if mamba else set())
+              and all(n % split[0] == 0 for n in counts.values()),
+              f"train mesh {label}: launched {counts}")
+        log(f"train mesh smoke {label} (4, 2), (B, S) = (8, 32): rows over "
+            f"{split[0]} data ranks (MoE groups a rank {split[1]}); card == "
+            f"CPU (loss {float(g_m['loss']):.6f} vs {float(c_m['loss']):.6f}"
+            f", grad_norm {float(g_m['grad_norm']):.6f} vs "
+            f"{float(c_m['grad_norm']):.6f}; params within {worst:.3e}); "
+            f"launched {counts}")
+    torch.cuda.empty_cache()
+
+
+def gpipe_checks(card):
+    """(c) ``gpipe_forward`` over 4 logical stages on the card, each 4 of
+    llama3.2-1b's blocks at full width in bf16, 8 microbatches of
+    (1, 1024): the outputs bitwise the 16 blocks applied in sequence,
+    microbatch by microbatch; wall ms of both."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import gpipe_forward
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import (apply_groups, init_params,
+                                                tree_map)
+    n_stages, n_micro, seq = (GPIPE[k] for k in ("stages", "micro", "seq"))
+    cfg = dataclasses.replace(get_config(TRAIN_LLAMA), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    blocks = init_params(cfg, SEED, device="cuda")["blocks"]
+    per = cfg.n_layers // n_stages
+    stacked = tree_map(lambda t: t.reshape(n_stages, per, *t.shape[1:]),
+                       blocks)
+    positions = torch.arange(seq, device="cuda")[None]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((n_micro, 1, seq, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def stage(p, h):
+        return apply_groups(cfg, p, h, positions)[0]
+
+    def sequential():
+        outs = []
+        for m in range(n_micro):
+            h = x[m]
+            for r in range(n_stages):
+                h = stage(tree_map(lambda t: t[r], stacked), h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    pipe = gpipe_forward(stage, Mesh(logical(n_stages), ("pipe",)))
+    with torch.no_grad():
+        want, seq_ms = cuda_sync_ms(sequential)
+        got, pipe_ms = cuda_sync_ms(lambda: pipe(stacked, x))
+        _, seq_ms2 = cuda_sync_ms(sequential)
+        _, pipe_ms2 = cuda_sync_ms(lambda: pipe(stacked, x))
+    check(got.shape == want.shape and torch.equal(got, want),
+          "train mesh (c): gpipe_forward differs from the blocks in "
+          "sequence")
+    log(f"train mesh (c): gpipe_forward over {n_stages} logical stages of "
+        f"{per} {TRAIN_LLAMA} blocks (bf16, full width), {n_micro} "
+        f"microbatches of (1, {seq}): bitwise the {cfg.n_layers} blocks in "
+        f"sequence; wall {pipe_ms:.1f}, {pipe_ms2:.1f} ms pipelined against "
+        f"{seq_ms:.1f}, {seq_ms2:.1f} ms in sequence; on {card}")
+    del blocks, stacked, x, got, want
+    torch.cuda.empty_cache()
+
+
+def train_mesh_phase(card, trainer_losses):
+    """Training on a ("data", "model") mesh of logical devices of the one
+    card: (a), (d), (e) ``mesh_llama_checks``; (b) ``mesh_smoke_checks``;
+    (c) ``gpipe_checks``."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_llama_checks(card, trainer_losses)
+    mesh_smoke_checks(card)
+    gpipe_checks(card)
+    log(f"train mesh: phase wall {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def _paths(tree, prefix=""):
@@ -6755,8 +7125,9 @@ def main() -> int:
     launches["selective_scan"], rows["selective_scan"] = lm_serve_phase(
         peaks, card, errs)
     lm_families_phase(peaks, card)
-    launches["selective_scan_bwd"], rows["selective_scan_bwd"] = train_phase(
-        peaks, card, errs)
+    launches["selective_scan_bwd"], rows["selective_scan_bwd"], losses = \
+        train_phase(peaks, card, errs)
+    train_mesh_phase(card, losses)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "kernel": KERNEL[name],

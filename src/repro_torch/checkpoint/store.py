@@ -18,10 +18,14 @@ its own type.  A
 leaf is saved from ``t.detach().cpu()``.  bfloat16 has no numpy dtype
 here, so a bf16 leaf is saved as its ``uint16`` bits with ``"dtype":
 "bfloat16"`` in the manifest (the string the reference writes for one)
-and restored bit for bit.  ``restore`` puts each leaf on its target
-tensor's device and dtype (a ``meta`` target's on ``device=``); the
-reference's sharded restore (``shardings=``) comes with the training
-mesh (ROADMAP queue 1, item 12.2).
+and restored bit for bit.  A sharded leaf (a ``ShardedTensor`` of
+``distributed/sharding.py``) is gathered and saved whole, in the same
+format, so either package reads the result whatever mesh wrote it.
+``restore`` puts each leaf on its target tensor's device and dtype (a
+``meta`` target's on ``device=``), or, with ``shardings=`` (a matching
+tree of ``NamedSharding``s, whose mesh may differ from the one the
+checkpoint was written under: the elastic restart), places its blocks
+on their devices.
 """
 from __future__ import annotations
 
@@ -141,6 +145,9 @@ def _decode_structure(spec, load: Callable[[int], Any]):
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as the array written to its ``.npy`` and the manifest's
     dtype string: bf16 as its ``uint16`` bits."""
+    from repro_torch.distributed.sharding import ShardedTensor
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -236,8 +243,10 @@ class AsyncCheckpointer:
     def save(self, step: int, tree, extra: Optional[Dict] = None):
         # Copy to the host *now*: the caller may update the tensors in
         # place before the worker writes them.
+        from repro_torch.distributed.sharding import ShardedTensor
         leaves, skeleton = _flatten(tree)
-        host = [x.detach().to("cpu", copy=True)
+        host = [x.full("cpu", copy=True) if isinstance(x, ShardedTensor)
+                else x.detach().to("cpu", copy=True)
                 if isinstance(x, torch.Tensor) else np.array(x)
                 for x in leaves]
         host_tree = _unflatten(skeleton, host.__getitem__)
@@ -295,26 +304,42 @@ def restore_blind(ckpt_dir: str, *, step: Optional[int] = None
 
 
 def restore(ckpt_dir: str, target_tree, *, step: Optional[int] = None,
-            device=None) -> Tuple[Any, Dict]:
+            device=None, shardings=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target_tree``: each leaf takes
     its target tensor's dtype and device (an array or number target, its
     dtype); a ``meta`` target (an abstract tree) puts its leaf on
-    ``device`` (default the CPU)."""
+    ``device`` (default the CPU).  ``shardings``: a matching tree of
+    ``NamedSharding``s — each leaf is loaded whole on the host, takes its
+    target's dtype and is placed under its sharding
+    (``sharding.place``), a ``ShardedTensor`` whose blocks sit on their
+    mesh devices."""
+    from repro_torch.distributed.sharding import NamedSharding, place
     d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / "manifest.json").read_text())
     leaves, skeleton = _flatten(target_tree)
     assert manifest["n_leaves"] == len(leaves), \
         f"checkpoint has {manifest['n_leaves']} leaves, target {len(leaves)}"
+    if shardings is None:
+        shards = [None] * len(leaves)
+    else:
+        shards, _ = _flatten(shardings)
+        if len(shards) != len(leaves) or not all(
+                isinstance(s, NamedSharding) for s in shards):
+            raise ValueError(f"shardings needs one NamedSharding a leaf: "
+                             f"{len(shards)} for {len(leaves)} leaves")
     new_leaves = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, shd) in enumerate(zip(leaves, shards)):
         arr = np.load(d / f"arr_{i:05d}.npy")
         ref_shape = tuple(ref.shape) if hasattr(ref, "shape") else ()
         assert tuple(arr.shape) == ref_shape, (arr.shape, ref_shape)
-        if isinstance(ref, torch.Tensor):
-            t = _to_tensor(arr, manifest["leaves"][i]["dtype"])
+        if not isinstance(ref, torch.Tensor):
+            new_leaves.append(arr.astype(np.asarray(ref).dtype))
+            continue
+        t = _to_tensor(arr, manifest["leaves"][i]["dtype"])
+        if shd is not None:
+            new_leaves.append(place(t.to(ref.dtype), shd, may_alias=True))
+        else:
             dev = ref.device if ref.device.type != "meta" else \
                 torch.device(device or "cpu")
             new_leaves.append(t.to(device=dev, dtype=ref.dtype))
-        else:
-            new_leaves.append(arr.astype(np.asarray(ref).dtype))
     return _unflatten(skeleton, new_leaves.__getitem__), manifest["extra"]

@@ -1,20 +1,21 @@
-"""Fault-tolerant trainer on one device
-(``repro/launch/train.py``).
+"""Fault-tolerant trainer (``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir "$(mktemp -d)"
 
-Wires together the substrate layers the reference's trainer does, on
-one device (``--device``, default ``cuda``): the deterministic
+Wires together the substrate layers the reference's trainer does:
+sharded state on a ("data", "model") mesh (``make_host_mesh`` over the
+cards of ``--device``, default every CUDA card; ``cpu`` for the plain
+versions), placed under ``state_pspecs`` and stepped by
+``distributed/shard_train.py`` (on one device the mesh is (1, 1) and
+the step is the single-device step, bit for bit), the deterministic
 resumable data pipeline, async checkpointing with atomic commit,
-watchdog + straggler monitoring and restore-on-start.  The state is
-updated in place each step (``api.train_step``).  ``--simulate-failure
-N`` raises at step N and exits with code 17, to exercise the restart
-path end to end.  Without ``--ckpt-dir`` the run checkpoints into a new
-temporary directory, so it never resumes another run's state.  The
-reference's mesh (``make_host_mesh``,
-``state_pspecs``, the sharded restore) is the training mesh, ROADMAP
-queue 1, item 12.2: here the state lives whole on one device.
+watchdog + straggler monitoring and restore-on-start (elastic: restores
+onto whatever mesh the devices support).  The state is updated in place
+each step.  ``--simulate-failure N`` raises at step N and exits with
+code 17, to exercise the restart path end to end.  Without
+``--ckpt-dir`` the run checkpoints into a new temporary directory, so it
+never resumes another run's state.
 """
 from __future__ import annotations
 
@@ -29,6 +30,10 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import make_pipeline
+from repro_torch.distributed import shard_train
+from repro_torch.distributed.sharding import (ShardingPolicy, device_put,
+                                              state_pspecs, to_shardings)
+from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
 from repro_torch.models import api
 from repro_torch.models.frontends import resolve_device
 from repro_torch.optim.adamw import AdamWConfig
@@ -37,6 +42,37 @@ from repro_torch.runtime.fault_tolerance import StragglerMonitor, Watchdog
 
 class SimulatedFailure(RuntimeError):
     pass
+
+
+def build(cfg, opt_cfg, mesh, policy):
+    """(make_state, step_fn, sshard): ``make_state(seed)`` initializes
+    the state on the mesh's first device and places it under ``sshard``
+    (the state's ``NamedSharding`` tree); ``step_fn(state, batch)`` is
+    the sharded step."""
+    state_abs = api.init_train_state_abstract(cfg, opt_cfg)
+    sspec = state_pspecs(cfg, mesh, state_abs, policy)
+    sshard = to_shardings(mesh, sspec)
+    first = mesh.devices.flat[0]
+
+    def make_state(seed):
+        return device_put(api.init_train_state(cfg, opt_cfg, seed,
+                                               device=first),
+                          sshard, may_alias=True)
+
+    def step_fn(state, batch):
+        return shard_train.train_step(cfg, opt_cfg, state, batch)
+
+    return make_state, step_fn, sshard
+
+
+def device_pool(device) -> list:
+    """The devices of ``--device``: every CUDA card for ``cuda``, else
+    the one device named."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -61,13 +97,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="override width (e.g. to reach ~100M params)")
     ap.add_argument("--n-layers", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (the card) or cpu (the plain versions)")
+                    help="cuda (every card, one data rank each), cuda:N "
+                         "(that card) or cpu (the plain versions)")
     return ap
 
 
 def train(argv=None):
     args = _parser().parse_args(argv)
-    dev = resolve_device(args.device)
+    pool = device_pool(args.device)
     if args.ckpt_dir is None:
         args.ckpt_dir = tempfile.mkdtemp(prefix="repro_ckpt_")
 
@@ -85,8 +122,13 @@ def train(argv=None):
                           total_steps=args.steps,
                           moment_dtype=cfg.moment_dtype)
 
+    mesh = make_host_mesh(data=len(pool), model=1, devices=pool)
+    policy = ShardingPolicy(fsdp=cfg.fsdp)
     print(f"[train] arch={cfg.name} params={cfg.param_count():,} "
-          f"device={dev} ckpt={args.ckpt_dir}", flush=True)
+          f"mesh={mesh_axis_sizes(mesh)} device={pool[0]} "
+          f"ckpt={args.ckpt_dir}", flush=True)
+
+    make_state, step_fn, sshard = build(cfg, opt_cfg, mesh, policy)
 
     # ---- restore or init -------------------------------------------------
     start_step = 0
@@ -94,12 +136,12 @@ def train(argv=None):
     if latest is not None:
         state, extra = store.restore(
             args.ckpt_dir, api.init_train_state_abstract(cfg, opt_cfg),
-            device=dev)
+            shardings=sshard)
         start_step = int(extra.get("next_step", latest))
         print(f"[train] restored step {latest} -> resuming at {start_step}",
               flush=True)
     else:
-        state = api.init_train_state(cfg, opt_cfg, args.seed, device=dev)
+        state = make_state(args.seed)
 
     data = make_pipeline(cfg.vocab_size, args.seq, args.batch,
                          seed=args.seed, n_shards=args.data_shards)
@@ -119,11 +161,11 @@ def train(argv=None):
             if step == args.simulate_failure:
                 raise SimulatedFailure(f"injected failure at step {step}")
             t0 = time.time()
-            batch = {k: v.to(dev) for k, v in data[step].items()}
-            state, metrics = api.train_step(cfg, opt_cfg, state, batch)
+            state, metrics = step_fn(state, data[step])
             loss = float(metrics["loss"])
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            for dev in set(mesh.devices.flat):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             dt = time.time() - t0
             dog.beat()
             monitor.record(step, dt)

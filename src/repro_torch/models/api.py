@@ -43,8 +43,12 @@ def init_params_abstract(cfg: ModelConfig):
     return _mod(cfg).init_params_abstract(cfg)
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
-    return _mod(cfg).loss_fn(cfg, params, batch)
+def loss_fn(cfg: ModelConfig, params, batch, *, moe_groups=None):
+    """``moe_groups``: the MoE capacity groups of the batch's tokens,
+    where a mesh's data rank runs a share of a larger batch."""
+    if moe_groups is None:
+        return _mod(cfg).loss_fn(cfg, params, batch)
+    return transformer.loss_fn(cfg, params, batch, moe_groups=moe_groups)
 
 
 class TrainState(NamedTuple):

@@ -43,7 +43,9 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, shape_prefix=(),
         "dt_proj": normal(gen, pre + (dtr, di), dtr ** -0.5, pd, device),
         # softplus(-4.6) ~ 0.01
         "dt_bias": torch.full(pre + (di,), -4.6, dtype=pd, device=device),
-        "A_log": a_log.expand(pre + (di, ds)).to(dtype=pd, device=device),
+        # its own storage: AdamW writes the update in place
+        "A_log": a_log.expand(pre + (di, ds)).to(
+            dtype=pd, device=device).contiguous(),
         "D": torch.ones(pre + (di,), dtype=pd, device=device),
         "out_proj": normal(gen, pre + (di, D), di ** -0.5, pd, device),
     }

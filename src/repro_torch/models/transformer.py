@@ -234,8 +234,11 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
 
 
 def _apply_sub(cfg: ModelConfig, p, x, positions, kind: str, use_moe: bool,
-               collect_cache: bool, causal: bool = True):
-    """One sub-block. Returns (x, aux, cache)."""
+               collect_cache: bool, causal: bool = True,
+               moe_groups: Optional[int] = None):
+    """One sub-block. Returns (x, aux, cache).  ``moe_groups``: the MoE
+    capacity groups of these tokens (default ``moe_num_groups`` of their
+    count)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["ln1"], x)
     cache = {}
@@ -268,8 +271,8 @@ def _apply_sub(cfg: ModelConfig, p, x, positions, kind: str, use_moe: bool,
             cache = {"cm_x": h2[:, -1, :], **cache}
     elif use_moe:
         n_tokens = x.shape[0] * x.shape[1]
-        out2, aux = apply_moe(cfg, p["moe"], h2,
-                              num_groups=moe_num_groups(n_tokens))
+        out2, aux = apply_moe(cfg, p["moe"], h2, num_groups=(
+            moe_num_groups(n_tokens) if moe_groups is None else moe_groups))
     else:
         out2 = apply_ffn(cfg, p["ffn"], h2)
     x = x + out2.to(x.dtype)
@@ -289,8 +292,11 @@ def _unbind_groups(blocks, n: int):
 
 
 def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
-            causal: bool = True):
-    """Returns (hidden (B,S,D), aux_loss, caches | None)."""
+            causal: bool = True, moe_groups: Optional[int] = None):
+    """Returns (hidden (B,S,D), aux_loss, caches | None).  ``moe_groups``
+    overrides the MoE capacity groups of the batch's tokens: a data
+    rank of a mesh runs its rows with its share of the whole batch's
+    groups (``distributed/shard_train.py``)."""
     period = period_pattern(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -299,7 +305,8 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
         caches = {}
         for i, (kind, use_moe) in enumerate(period):
             x, a, cache = _apply_sub(cfg, gp[f"sub{i}"], x, positions, kind,
-                                     use_moe, collect_cache, causal)
+                                     use_moe, collect_cache, causal,
+                                     moe_groups)
             aux = aux + a
             caches[f"sub{i}"] = cache
         return x, aux, caches
@@ -317,8 +324,26 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
     return x, aux, (_stack(cache_list) if collect_cache else None)
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
-    x, aux, _ = forward(cfg, params, batch)
+def apply_groups(cfg: ModelConfig, blocks, x, positions):
+    """``blocks`` (params with a leading group axis of any length) applied
+    group by group to hidden states ``x``: ``forward``'s stack between
+    the embedding and the final norm, as one pipeline stage runs it.
+    Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    leaf = blocks
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    for gp in _unbind_groups(blocks, leaf.shape[0]):
+        for i, (kind, use_moe) in enumerate(period_pattern(cfg)):
+            x, a, _ = _apply_sub(cfg, gp[f"sub{i}"], x, positions, kind,
+                                 use_moe, False)
+            aux = aux + a
+    return x, aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *,
+            moe_groups: Optional[int] = None):
+    x, aux, _ = forward(cfg, params, batch, moe_groups=moe_groups)
     logits = lm_logits(cfg, params, x)
     loss = softmax_xent(logits, batch["labels"])
     return loss + 0.01 * aux, {"xent": loss, "aux": aux}

@@ -152,7 +152,12 @@ def clip_by_global_norm(tree, max_norm) -> Tuple[Any, torch.Tensor]:
 
 
 def _update(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2) -> None:
-    """One leaf's update, written into p, m and v."""
+    """One leaf's update, written into p, m and v (contiguous: a
+    reshape of any other layout is a copy, and the update would be
+    lost)."""
+    if not (p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
+        raise ValueError("AdamW updates params and moments in place: each "
+                         "must be a contiguous tensor")
     b1, b2 = _f32(cfg.b1), _f32(cfg.b2)
     c1, c2 = _f32(1 - cfg.b1), _f32(1 - cfg.b2)
     eps, wd = _f32(cfg.eps), _f32(cfg.weight_decay)

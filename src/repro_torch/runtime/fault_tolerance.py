@@ -3,11 +3,10 @@
 Replaces ``repro/runtime/fault_tolerance.py`` (same thresholds, latches,
 events and mesh shapes).  On a multi-host deployment these hooks sit in
 the per-host agent; here they watch one serving process.
-``elastic_remesh`` builds the serving form of the reference's mesh: a
-1-D mesh is a tuple of ``torch.device``s (one a rank, a card possibly
-repeated for logical devices) with its axis name.  The reference's 2-D
-("data", "model") training grid is the training mesh (ROADMAP queue 1,
-item 12.2); training on one device does not need it.
+``elastic_remesh`` builds both forms of the reference's mesh: the 2-D
+("data", "model") training grid, a ``launch.mesh.Mesh``, and the
+serving form, a 1-D mesh given as a tuple of ``torch.device``s (one a
+rank, a card possibly repeated for logical devices) with its axis name.
 """
 from __future__ import annotations
 
@@ -179,24 +178,33 @@ def choose_mesh_shape(n_devices: int, *, prefer_model: int = 16,
 def elastic_remesh(n_devices: int, prefer_model: int = 16, *,
                    axis: Optional[str] = None, offset: int = 0,
                    pool: Optional[Sequence] = None):
-    """The serving mesh over surviving devices: ``(devices, axis)``, the
-    1-D mesh named ``axis`` over the contiguous slice ``pool[offset :
-    offset + n_devices]`` — a tenant's granted slice on the (possibly
-    shrunk) pool, what ``AdaptiveServer`` executes a sharded tenant on.
-    ``pool`` is the server's device pool (default: every CUDA card);
-    too few devices raise, and no card is ever stood in for another.
-    ``axis=None`` asks for the reference's 2-D training grid, which comes
-    with the training mesh (ROADMAP queue 1, item 12.2)."""
-    if axis is None:
-        raise NotImplementedError(
-            "the 2-D (data, model) training mesh comes with the training "
-            "mesh (ROADMAP queue 1, item 12.2); pass axis= for a serving "
-            "mesh")
+    """A mesh over surviving devices.  ``pool`` is the device pool
+    (default: every CUDA card; a card may be named more than once for
+    logical devices); too few devices raise, and no card is ever stood
+    in for another.
+
+    Default (``axis=None``): the training-style 2-D ("data", "model")
+    grid over the first devices of ``pool``, shaped by
+    ``choose_mesh_shape`` — a ``launch.mesh.Mesh``.
+
+    ``axis=`` (serving mode — what ``AdaptiveServer`` executes degraded
+    tenants through): ``(devices, axis)``, the 1-D mesh named ``axis``
+    over the contiguous slice ``pool[offset : offset + n_devices]`` — a
+    tenant's granted slice on the (possibly shrunk) pool."""
     import torch
     if pool is None:
         pool = [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     devs = [torch.device(d) for d in pool]
+    if axis is None:
+        from repro_torch.launch.mesh import Mesh
+        data, model = choose_mesh_shape(n_devices, prefer_model=prefer_model)
+        if len(devs) < data * model:
+            raise ValueError(
+                f"mesh wants {data} x {model} devices but only {len(devs)} "
+                f"exist (pass a device pool for logical devices)")
+        grid = [devs[d * model:(d + 1) * model] for d in range(data)]
+        return Mesh(grid, ("data", "model"))
     if offset < 0 or len(devs) < offset + n_devices:
         raise ValueError(
             f"mesh wants devices [{offset}, {offset + n_devices}) but only "

@@ -4,12 +4,21 @@ the reference's ``tests/test_fault_tolerance.py`` (watchdog firing,
 stopping, re-arming; straggler threshold/EWMA flagging, rearm gating,
 event emission), re-run against the port, and its elastic re-mesh
 cases: ``choose_mesh_shape`` equal to the reference's for every pool of
-survivors, and ``elastic_remesh``'s serving form (a tuple of devices and
-its axis over a slice of the pool; the 2-D training grid comes with
-ROADMAP queue 1, item 12).  Then parity: one step-time trace flags the
-same steps, EWMAs and hook fires in both packages.
+survivors, ``elastic_remesh``'s serving form (a tuple of devices and
+its axis over a slice of the pool) and its 2-D ("data", "model")
+training grid (shapes equal to the reference's ``elastic_remesh`` in a
+16-device subprocess; a state saved under (4, 2) restored under the
+(3, 2) survivors' mesh bitwise, from the port's checkpoint and from one
+the reference wrote of its 4x2-sharded state).  Then parity: one
+step-time trace flags the same steps, EWMAs and hook fires in both
+packages.
 """
+import json
+import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,8 +27,19 @@ import torch
 
 from repro.runtime.fault_tolerance import StragglerMonitor as JMonitor
 from repro.runtime.fault_tolerance import choose_mesh_shape as j_choose
+from repro_torch import configs as t_configs
+from repro_torch.checkpoint import store
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.shard import degree_ladder
+from repro_torch.distributed import shard_train
+from repro_torch.distributed.sharding import (ShardedTensor, ShardingPolicy,
+                                              device_put, state_pspecs,
+                                              to_shardings)
+from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.models import api as t_api
+from repro_torch.models.frontends import make_inputs
 from repro_torch.obs import EVENTS
+from repro_torch.optim.adamw import AdamWConfig, tree_leaves
 from repro_torch.runtime.fault_tolerance import (StragglerMonitor, Watchdog,
                                                  choose_mesh_shape,
                                                  elastic_remesh)
@@ -255,5 +275,138 @@ def test_elastic_remesh_axis_mode_refuses_short_pools():
         elastic_remesh(64, axis="batch", pool=["cpu"] * 4)
     with pytest.raises(ValueError, match=r"\[3, 5\)"):
         elastic_remesh(2, axis="batch", offset=3, pool=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        elastic_remesh(4)
+    mesh = elastic_remesh(4, pool=["cpu"] * 4)
+    assert mesh.axis_names == ("data", "model")
+    assert mesh.devices.shape == j_choose(4)
+
+
+# ---------------------------------------------------------------------------
+# The 2-D training grid and the elastic restore
+# ---------------------------------------------------------------------------
+REPO = Path(__file__).resolve().parent.parent
+PREFER = (1, 2, 4, 16)
+
+_REFERENCE_SHAPES = """
+import json
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=16"
+from repro.runtime.fault_tolerance import elastic_remesh
+print("SHAPES" + json.dumps({f"{n}|{p}": list(elastic_remesh(
+    n, prefer_model=p).devices.shape) for n in range(1, 17)
+    for p in %r}))
+""" % (PREFER,)
+
+_REFERENCE_SAVE = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+from repro.checkpoint import store
+from repro.configs import get_config
+from repro.distributed.sharding import (ShardingPolicy, state_pspecs,
+                                        to_shardings)
+from repro.models import api
+from repro.optim.adamw import AdamWConfig
+cfg = get_config("olmo-1b", smoke=True)
+state = api.init_train_state(cfg, AdamWConfig(), jax.random.PRNGKey(0))
+mesh = jax.make_mesh((4, 2), ("data", "model"))
+st = jax.device_put(state, to_shardings(
+    mesh, state_pspecs(cfg, mesh, state, ShardingPolicy())))
+assert len(st.params["embed"].sharding.device_set) == 8
+store.save(sys.argv[1], 3, st, extra={"next_step": 4})
+"""
+
+
+def _reference(code, *args):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run([sys.executable, "-c", code, *args],
+                         capture_output=True, text=True, timeout=420, env=env)
+    assert run.returncode == 0, f"STDOUT:\n{run.stdout}\nSTDERR:\n{run.stderr}"
+    return run.stdout
+
+
+@pytest.fixture(scope="module")
+def reference_shapes():
+    out = _reference(_REFERENCE_SHAPES)
+    line = [ln for ln in out.splitlines() if ln.startswith("SHAPES")][-1]
+    return json.loads(line[len("SHAPES"):])
+
+
+@pytest.mark.parametrize("prefer", PREFER)
+def test_elastic_remesh_grid_equals_the_references(reference_shapes, prefer):
+    pool = [f"cuda:{i}" for i in range(16)]   # named, never touched
+    for n in range(1, 17):
+        mesh = elastic_remesh(n, prefer_model=prefer, pool=pool)
+        assert isinstance(mesh, Mesh) and mesh.axis_names == ("data",
+                                                              "model")
+        assert list(mesh.devices.shape) == reference_shapes[f"{n}|{prefer}"]
+        size = mesh.devices.size
+        assert [str(d) for d in mesh.devices.flat] == pool[:size]
+
+
+def test_elastic_remesh_grid_refuses_short_pools():
+    with pytest.raises(ValueError, match="only 2 exist"):
+        elastic_remesh(4, pool=["cpu"] * 2)
+
+
+def _olmo():
+    cfg = t_configs.get_config("olmo-1b", smoke=True)
+    return cfg, AdamWConfig()
+
+
+def _place(cfg, mesh, state):
+    return device_put(state, to_shardings(
+        mesh, state_pspecs(cfg, mesh, state, ShardingPolicy())))
+
+
+def _restore_on_survivors(cfg, opt, ckpt):
+    mesh = elastic_remesh(6, prefer_model=2, pool=["cpu"] * 8)
+    assert mesh.devices.shape == (3, 2) and mesh.devices.size == 6
+    target = t_api.init_train_state_abstract(cfg, opt)
+    got, extra = store.restore(ckpt, target, shardings=to_shardings(
+        mesh, state_pspecs(cfg, mesh, target, ShardingPolicy())))
+    for leaf in tree_leaves(got):
+        assert isinstance(leaf, ShardedTensor)
+        assert leaf.sharding.mesh is mesh
+    return mesh, got, extra
+
+
+def test_elastic_restore_reshards_4x2_onto_3x2(tmp_path):
+    """Save under a 4x2 mesh, restore under the 3x2 mesh of 6 survivors:
+    every leaf bitwise, ``next_step`` kept; the restored state steps."""
+    cfg, opt = _olmo()
+    state = t_api.init_train_state(cfg, opt, 0, device="cpu")
+    st1 = _place(cfg, make_host_mesh(4, 2, devices=["cpu"] * 8), state)
+    store.save(str(tmp_path), 3, st1, extra={"next_step": 4})
+    mesh, got, extra = _restore_on_survivors(cfg, opt, str(tmp_path))
+    assert extra["next_step"] == 4
+    for a, b in zip(tree_leaves(st1), tree_leaves(got)):
+        assert a.dtype == b.dtype and torch.equal(a.full(), b.full())
+    batch = make_inputs(cfg, ShapeConfig("t", 16, 6, "train"),
+                        abstract=False, device="cpu")
+    _, metrics = shard_train.train_step(
+        cfg, AdamWConfig(warmup_steps=2, total_steps=4), got, batch)
+    assert torch.isfinite(metrics["loss"])
+    assert int(got.opt.step.full()) == 1
+
+
+def test_a_reference_sharded_checkpoint_restores_into_port_shardings(
+        tmp_path):
+    """The reference saves its 4x2-sharded state; the port restores it
+    into the (3, 2) survivors' shardings, bitwise."""
+    import jax
+    from repro.configs import get_config as j_get_config
+    from repro.models import api as j_api
+    from repro.optim.adamw import AdamWConfig as JAdamW
+    _reference(_REFERENCE_SAVE, str(tmp_path))
+    cfg, opt = _olmo()
+    _, got, extra = _restore_on_survivors(cfg, opt, str(tmp_path))
+    assert extra == {"next_step": 4}
+    want = j_api.init_train_state(j_get_config("olmo-1b", smoke=True),
+                                  JAdamW(), jax.random.PRNGKey(0))
+    want = jax.tree.leaves(jax.tree.map(np.asarray, want))
+    got = tree_leaves(got)
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        assert g.dtype == getattr(torch, str(w.dtype))
+        np.testing.assert_array_equal(g.full().numpy(), w)

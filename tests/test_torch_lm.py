@@ -33,6 +33,8 @@ from repro.models import blocks as j_blocks
 from repro.models import frontends as j_front
 from repro.models import mamba as j_mamba
 from repro.models import transformer as j_tr
+from repro.runtime.fault_tolerance import (
+    choose_mesh_shape as j_choose_mesh_shape)
 from repro_torch import configs as t_configs
 from repro_torch.configs import base as t_base
 from repro_torch.launch import serve as t_serve
@@ -47,7 +49,6 @@ from repro_torch.models.frontends import CudaUnavailableError
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16_LOGITS = dict(rtol=8e-3, atol=1e-5)
 DTYPES = ("param", "compute", "moment", "logit", "attn_score")
-UNPORTED = "ROADMAP queue 1, item 12.2"
 # the served smoke configs, all ten architectures: jamba with and
 # without MoE (hybrid), the dense ones — llama, chatglm3 (half RoPE), olmo
 # (non-parametric LayerNorm, tied embeddings), starcoder2 (LayerNorm and
@@ -616,10 +617,10 @@ def test_prefill_then_step_equals_a_longer_prefill(served):
     ("seamless-m4t-large-v2", {}),                # encoder-decoder
     ("llava-next-34b", {}),                       # precomputed embeddings
 ])
-def test_unported_configs_raise_named_errors(arch, replace):
-    """These archs serve and, since training on one device was ported,
-    train: one ``train_step`` on the CPU gives finite metrics.  What
-    still raises on them is the 2-D training mesh (item 12.2)."""
+def test_family_configs_train_and_remesh(arch, replace):
+    """These archs serve and train: one ``train_step`` on the CPU gives
+    finite metrics, and the 2-D training mesh of the survivors'
+    ``elastic_remesh`` has the reference's shape."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.fault_tolerance import elastic_remesh
     cfg = dataclasses.replace(t_configs.get_config(arch, smoke=True),
@@ -634,14 +635,14 @@ def test_unported_configs_raise_named_errors(arch, replace):
     _, metrics = t_api.train_step(cfg, opt, state, batch)
     assert torch.isfinite(loss) and all(
         torch.isfinite(v) for v in metrics.values())
-    with pytest.raises(NotImplementedError, match=UNPORTED):
-        elastic_remesh(4)
+    assert elastic_remesh(4, pool=["cpu"] * 4).devices.shape == \
+        j_choose_mesh_shape(4)
 
 
 def test_training_raises_named_errors():
-    """Training on one device is ported; its named errors: a batch
-    without labels, optimizer moments that do not match the params, and
-    the 2-D training mesh (ROADMAP queue 1, item 12.2)."""
+    """Training's named errors: a batch without labels and optimizer
+    moments that do not match the params; the 2-D training mesh is
+    built (the reference's shape)."""
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.runtime.fault_tolerance import elastic_remesh
     _, tc = _both("llama3.2-1b")
@@ -654,8 +655,9 @@ def test_training_raises_named_errors():
     with pytest.raises(ValueError, match="leaves"):
         t_api.train_step(tc, opt, bad, {"tokens": tokens,
                                         "labels": tokens})
-    with pytest.raises(NotImplementedError, match=UNPORTED):
-        elastic_remesh(4)
+    mesh = elastic_remesh(4, pool=["cpu"] * 4)
+    assert mesh.axis_names == ("data", "model")
+    assert mesh.devices.shape == j_choose_mesh_shape(4)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
