@@ -363,6 +363,25 @@ and prints no result):
    blocks in bf16, 8 microbatches of (1, 1024), bitwise the 16 blocks
    in sequence, both timed.
 
+10. dryrun and examples (``dryrun_examples_phases``) — "dryrun" (a):
+   ``DRYRUN_CELLS`` through ``python -m repro_torch.launch.dryrun`` on
+   meta at full production size (olmo-1b train_4k single calibrated,
+   jamba decode_32k single, grok-1-314b train_4k multi), one process a
+   cell started together on the CPU, while "examples" runs: every
+   ``examples_torch/*.py`` with its defaults on the card,
+   ``EXAMPLES_AT_ONCE`` at a time (exit 0, its own checks, wall
+   seconds); then (a)'s records (``ok``, ``DRYRUN_STATIC``, olmo's
+   extrapolated FLOPs and collective bytes equal to the full count,
+   static and temp GiB a device against 80 GiB, the roofline at the
+   H100's rates); (b) ``GROUND_CASES``: the dry-run's counters
+   (``dryrun.count_step``) around one sharded train step on a (2, 2)
+   mesh, on meta and on logical devices of the card, FLOPs, bytes,
+   collective bytes and kernels equal rank by rank (jamba launches the
+   scan on the card through its count hook), the card's peak memory
+   against the record's, the synchronized step against
+   ``bound_time_s``; (c) ``launch/report.py`` renders (a)-(b)'s records
+   (in ``experiments/dryrun_torch_smoke``) with no ``ERROR`` row.
+
 Output: the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 convolutions in the library
@@ -825,8 +844,8 @@ DISPATCH_REL_L2 = 8e-3
 # BWD_F64_TOL["oracle"] times the f32 oracle's (autograd through the
 # oracle's f32 steps, jax.grad's function): an elementwise bar of 1e-4 of
 # the RMS is missed by f32 arithmetic itself at full width (PERF.md
-# section 6); its bound counts per (t, di, s) one exponential and BWD_FP32_OPS FP32
-# operations.  (b) the smoke
+# section 6); its bound counts per (t, di, s) one exponential and
+# scan.BWD_FP32_OPS FP32 operations.  (b) the smoke
 # configs, one step on the card and on the CPU (the optimizer of
 # tests/test_torch_train.py), params within the CPU tests' bar; rwkv's
 # grads against the f64 gradient (RWKV_ERR_FACTOR).  (c) llama3.2-1b
@@ -834,7 +853,6 @@ DISPATCH_REL_L2 = 8e-3
 # reference integration test's resume case
 # (tests/test_integration.py:53-72).
 BWD_F64_TOL = dict(rms=1e-4, oracle=1.5)
-BWD_FP32_OPS = 19
 TRAIN_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 RWKV_ERR_FACTOR = 1.5
 TRAIN_LLAMA = "llama3.2-1b"
@@ -852,6 +870,28 @@ RESUME_TOL = 2e-2
 METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
 MESH_TRAIN = dict(batch=4, seq=1024, steps=3)
 GPIPE = dict(stages=4, micro=8, seq=1024)
+
+# "dryrun" (PERF.md sections 2-3): (a) the production dry-run's cells on
+# meta at full size, each a `python -m repro_torch.launch.dryrun` process
+# (all three at once, beside the "examples" phase); the static bytes a
+# device are the values tests/test_torch_dryrun.py holds to the
+# reference's.  (b) the same counters around the same step on meta and
+# on logical devices of the card: llama3.2-1b at full width cut to
+# GROUND_LAYERS layers, train (8, 512), and jamba's smoke config at
+# (8, 64), both on a (2, 2) mesh; FLOPs, bytes and collective bytes equal
+# rank by rank.  (c) launch/report.py renders (a)-(b)'s records.
+DRYRUN_CELLS = (("olmo-1b", "train_4k", "single", True),
+                ("jamba-1.5-large-398b", "decode_32k", "single", False),
+                ("grok-1-314b", "train_4k", "multi", False))
+DRYRUN_STATIC = {"olmo-1b": 882573316.0,
+                 "jamba-1.5-large-398b": 3775279104.0,
+                 "grok-1-314b": 3855716356.0}
+DRYRUN_TIMEOUT_S = 600
+GROUND_LAYERS = 2
+GROUND_CASES = (("llama3.2-1b", False, 8, 512), ("jamba-1.5-large-398b",
+                                                 True, 8, 64))
+EXAMPLES_AT_ONCE = 2
+EXAMPLE_TIMEOUT_S = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -6173,6 +6213,7 @@ def scan_bwd_checks(peaks, card, errs):
     row."""
     import numpy as np
     import torch
+    from repro_torch.kernels.mamba_scan import scan
     from repro_torch.kernels.mamba_scan.scan import (
         bwd_plan, n_saved, selective_scan, selective_scan_bwd,
         selective_scan_bwd_plain, selective_scan_fwd)
@@ -6197,15 +6238,15 @@ def scan_bwd_checks(peaks, card, errs):
         # the backward's bytes: the inputs (x, dt, Bp, Cp, A, the saved
         # states, dy) read once and the gradients written once;
         # operations: per (t, di, s) one exponential (a_t) and
-        # BWD_FP32_OPS FP32 operations (the chunk's recompute of h, the g
+        # scan.BWD_FP32_OPS FP32 operations (the chunk's recompute of h, the g
         # update, the terms of dx, ddt, dB, dC and dA, their sums).  The
         # forward's: x, dt, Bp, Cp, A read, y and h (and the states)
         # written; per (t, di, s) one exponential and 6 FP32 operations.
         bounds = {}
         for name, n_bytes, fp32 in (
-                ("bwd", nbytes(*ops, states, dy, *grads), BWD_FP32_OPS),
-                ("fwd", nbytes(*ops, y, h), 6),
-                ("fwd_save", nbytes(*ops, y, h, states), 6)):
+                ("bwd", nbytes(*ops, states, dy, *grads), scan.BWD_FP32_OPS),
+                ("fwd", nbytes(*ops, y, h), scan.FWD_FP32_OPS),
+                ("fwd_save", nbytes(*ops, y, h, states), scan.FWD_FP32_OPS)):
             parts = (bound_ms(peaks, n_bytes, 0)[0],
                      bound_ms(peaks, 0, fp32 * n)[0],
                      bound_ms(peaks, 0, n, "mufu_per_s")[0])
@@ -6957,6 +6998,285 @@ def train_mesh_phase(card, trainer_losses):
     log(f"train mesh: phase wall {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# ---------------------------------------------------------------------------
+# "dryrun" and "examples"
+# ---------------------------------------------------------------------------
+def start_dryrun_cells(out_dir):
+    """(a): one ``python -m repro_torch.launch.dryrun`` process a cell of
+    ``DRYRUN_CELLS``, all started together (CPU only: meta tensors)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for arch, shape, mesh, calibrate in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out_dir),
+               "--force"] + ([] if calibrate else ["--no-calibrate"])
+        procs.append((arch, subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryrun_cells(procs, out_dir, t0):
+    """Wait for (a)'s processes and check their records: ``ok``, the
+    pinned static bytes, olmo's calibration; print trace s, static and
+    temp GiB a device against the card's 80 GiB and the roofline at the
+    H100's rates."""
+    from repro_torch.launch.analysis import H100_HBM_BYTES
+    for arch, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=max(
+                1, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for _, other in procs:
+                other.kill()
+                other.communicate()
+            raise SmokeFailure(f"dryrun (a): {arch} past "
+                               f"{DRYRUN_TIMEOUT_S} s")
+        for line in out.strip().splitlines():
+            log(f"  {line}")
+        check(proc.returncode == 0, f"dryrun (a): {arch} exited "
+                                    f"{proc.returncode}")
+    recs = {}
+    for arch, shape, mesh, calibrate in DRYRUN_CELLS:
+        rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json")
+                         .read_text())
+        recs[arch] = rec
+        check(rec["status"] == "ok", f"dryrun (a): {rec['cell']} "
+                                     f"{rec['status']}: {rec.get('error')}")
+        check(rec["static_bytes_per_device"] == DRYRUN_STATIC[arch],
+              f"dryrun (a): {rec['cell']} static "
+              f"{rec['static_bytes_per_device']!r} != "
+              f"{DRYRUN_STATIC[arch]!r}")
+        m, ro = rec["memory"], rec["roofline"]
+        total = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+        cal = rec["calibration"]
+        note = ""
+        if calibrate:
+            check(cal["n_groups"] is not None and
+                  "bytes_extrapolated_minus_full" in cal,
+                  f"dryrun (a): {rec['cell']} was not calibrated")
+            note = (f"; calibrated over {cal['n_groups']} groups: FLOPs "
+                    f"and collective bytes extrapolated == full, bytes "
+                    f"{cal['bytes_extrapolated_minus_full']:+.0f} "
+                    f"({cal['bytes_extrapolated_minus_full'] / rec['step']['bytes_accessed']:.2e})")
+        log(f"dryrun (a) {rec['cell']}: trace {rec['trace_s']} s; a "
+            f"device static {m['argument_size_in_bytes'] / 2**30:.2f} GiB + "
+            f"temp {m['temp_size_in_bytes'] / 2**30:.2f} GiB = "
+            f"{total / 2**30:.2f} GiB against {H100_HBM_BYTES / 2**30:.0f} "
+            f"GiB ({'fits' if total <= H100_HBM_BYTES else 'does not fit'}"
+            f"; busiest device {rec['busiest_device']['coords']}); "
+            f"t_compute {ro['t_compute_s']:.4g} s, t_memory "
+            f"{ro['t_memory_s']:.4g} s, t_collective "
+            f"{ro['t_collective_s']:.4g} s, dominant {ro['dominant']}, "
+            f"fraction {ro['roofline_fraction']:.4g} (H100 SXM rates){note}")
+    return recs
+
+
+def _ground_case(arch, smoke, batch, seq, dev):
+    """(fn, placed args, mesh, static) of a (2, 2) sharded train step on
+    ``dev`` (``meta``: abstract; else seeded values on the card)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  state_pspecs, to_shardings)
+    from repro_torch.distributed.shard_train import train_step
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.frontends import input_specs, make_inputs
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_config(arch, smoke=smoke)
+    if not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=GROUND_LAYERS)
+    opt = AdamWConfig(moment_dtype=cfg.moment_dtype)
+    shape = ShapeConfig(f"train_{batch}x{seq}", seq, batch, "train")
+    mesh = make_host_mesh(2, 2, devices=[dev] * 4)
+    if dev.type == "meta":
+        state, data = (api.init_train_state_abstract(cfg, opt),
+                       input_specs(cfg, shape))
+    else:
+        state = api.init_train_state(cfg, opt, SEED, device=dev)
+        data = make_inputs(cfg, shape, seed=SEED, abstract=False, device=dev)
+    policy = ShardingPolicy(fsdp=cfg.fsdp)
+    spec = state_pspecs(cfg, mesh, state, policy)
+    placed = dryrun.place((state, data), (to_shardings(mesh, spec), None),
+                          mesh)
+    del state
+    static = dryrun._sharded_bytes(api.init_train_state_abstract(cfg, opt),
+                                   spec, mesh)
+    return (cfg, shape, mesh, policy, static,
+            lambda s, b: train_step(cfg, opt, s, b), placed)
+
+
+def ground_truth_checks(card, out_dir):
+    """(b): the counters around the same sharded step on meta and on the
+    card's logical devices: FLOPs, bytes and collective bytes equal rank
+    by rank; the card's peak memory against the record's, its
+    synchronized step time against the bound."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dryrun
+    for arch, smoke, batch, seq in GROUND_CASES:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg, shape, mesh, policy, static, fn, placed = _ground_case(
+            arch, smoke, batch, seq, torch.device("meta"))
+        meta = dryrun.count_step(fn, *placed)
+        m_meta = dryrun.summarize(meta, mesh, static,
+                                  time.perf_counter() - t0)
+        del placed
+        cfg, shape, mesh, policy, static, fn, placed = _ground_case(
+            arch, smoke, batch, seq, torch.device("cuda", 0))
+        fn(*placed)                                   # warm
+        _, step_ms = cuda_sync_ms(lambda: fn(*placed))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        card_counts = dryrun.count_step(fn, *placed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launched = cuda.launch_counts()
+        m_card = dryrun.summarize(card_counts, mesh, static, step_ms / 1e3)
+        ranks = sorted(set(meta.counter.ranks) | set(card_counts.counter.ranks)
+                       | {e.rank for e in meta.counter.events},
+                       key=lambda r: (r is None, r))
+        for r in ranks:
+            a, b = meta.summary(r), card_counts.summary(r)
+            if (a["bytes_accessed"], a["flops"]) != (b["bytes_accessed"],
+                                                      b["flops"]):
+                ops_a = meta.counter.ranks[r].by_op
+                ops_b = card_counts.counter.ranks[r].by_op
+                for op in sorted(set(ops_a) | set(ops_b)):
+                    if ops_a[op] != ops_b[op]:
+                        log(f"  dryrun (b) {arch} rank {r} {op}: meta "
+                            f"{ops_a[op]!r}, card {ops_b[op]!r}")
+            for key in ("flops", "bytes_accessed", "kernels"):
+                check(a[key] == b[key], f"dryrun (b) {arch} rank {r}: "
+                      f"{key} meta {a[key]!r} != card {b[key]!r}")
+            check(a["collectives"] == b["collectives"],
+                  f"dryrun (b) {arch} rank {r}: collectives meta "
+                  f"{a['collectives']} != card {b['collectives']}")
+        if arch.startswith("jamba"):
+            check(launched.get("selective_scan", 0) > 0
+                  and launched.get("selective_scan_bwd", 0) > 0,
+                  f"dryrun (b) {arch}: launches {launched}")
+        else:
+            check(not launched, f"dryrun (b) {arch}: launches {launched}")
+        records = []
+        for tag, m in (("meta", m_meta), ("card", m_card)):
+            rec = {"cell": f"{cfg.name}__{shape.name}__logical2x2__{tag}",
+                   "arch": cfg.name, "shape": shape.name,
+                   "mesh": "logical2x2", "tag": "baseline"}
+            dryrun.ok_record(rec, cfg, shape, mesh, policy, m,
+                             dryrun.totals(m), {"n_groups": None})
+            (out_dir / f"{rec['cell']}.json").write_text(json.dumps(rec))
+            records.append(rec)
+        ro = records[0]["roofline"]
+        sum_bound = sum(meta.rank_bound_s(r) for r in ranks)
+        est = before + m_meta["memory"]["peak_all_devices_bytes"]
+        log(f"dryrun (b) {cfg.name} {shape.name} on (2, 2) logical devices: "
+            f"FLOPs {m_meta['flops']:.6g}, bytes "
+            f"{m_meta['bytes_accessed']:.6g}, collective bytes "
+            f"{m_meta['collectives']['total']:.6g} on the busiest device, "
+            f"meta == card on all {len(ranks)} ranks; kernels "
+            f"{m_card['kernels']} (launched {launched}); card peak "
+            f"{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB before the "
+            f"step) against the record's {est / 2**30:.3f} GiB (state on "
+            f"the card + every logical device's peak; a device: argument "
+            f"{static / 2**30:.3f} + temp "
+            f"{m_meta['memory']['temp_size_in_bytes'] / 2**30:.3f} GiB); "
+            f"step {step_ms:.1f} ms synchronized against bound_time_s "
+            f"{ro['bound_time_s'] * 1e3:.3f} ms (busiest device, "
+            f"{ro['dominant']}) and {sum_bound * 1e3:.3f} ms for every "
+            f"logical device's work on the one card; on {card}")
+        del placed, meta, card_counts
+        torch.cuda.empty_cache()
+
+
+def report_check(out_dir):
+    """(c): ``launch/report.py`` renders (a)-(b)'s records."""
+    import contextlib
+    import io
+    from repro_torch.launch import report
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report.main(["--dir", str(out_dir)])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    check("ERROR" not in text, "dryrun (c): the report has an ERROR row")
+    check(text.count("| ok |") >= len(DRYRUN_CELLS) + 2 * len(GROUND_CASES),
+          "dryrun (c): the report is missing records")
+
+
+def run_examples(card):
+    """Every ``examples_torch/*.py`` as a subprocess with its defaults
+    (on the card), ``EXAMPLES_AT_ONCE`` at a time: exit 0 and its own
+    checks; wall seconds printed."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    paths = sorted((ROOT / "examples_torch").glob("*.py"))
+    check(len(paths) == 10, f"examples: {len(paths)} files, want 10")
+    pending = list(paths)
+    running = []
+    failed = []
+    while pending or running:
+        while pending and len(running) < EXAMPLES_AT_ONCE:
+            path = pending.pop(0)
+            running.append((path, time.perf_counter(), subprocess.Popen(
+                [sys.executable, str(path)], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        path, t0, proc = running.pop(0)
+        try:
+            out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _, _, other in running + [(path, t0, proc)]:
+                other.kill()
+                other.communicate()
+            raise SmokeFailure(f"examples: {path.name} past "
+                               f"{EXAMPLE_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        tail = out.strip().splitlines()[-3:]
+        if proc.returncode != 0:
+            failed.append(path.name)
+            for line in out.strip().splitlines()[-40:]:
+                log(f"  {line}")
+        log(f"examples: {path.name} exit {proc.returncode} in {wall:.1f} s "
+            f"(wall, {EXAMPLES_AT_ONCE} at a time) on {card}; last lines: "
+            f"{' | '.join(tail)}")
+    check(not failed, f"examples: {failed} failed")
+
+
+def dryrun_examples_phases(card):
+    """"dryrun" (a) starts in the background (CPU only), "examples" runs
+    meanwhile on the card, then "dryrun" (a)'s checks, (b) and (c)."""
+    t0 = time.perf_counter()
+    out_dir = ROOT / "experiments" / "dryrun_torch_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.json"):
+        old.unlink()
+    procs = start_dryrun_cells(out_dir)
+    try:
+        run_examples(card)
+        log(f"examples: phase wall {time.perf_counter() - t0:.1f} s")
+        finish_dryrun_cells(procs, out_dir, t0)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"dryrun (a): {time.perf_counter() - t0:.1f} s since the start")
+    t1 = time.perf_counter()
+    ground_truth_checks(card, out_dir)
+    report_check(out_dir)
+    log(f"dryrun: (b)-(c) wall {time.perf_counter() - t1:.1f} s; both "
+        f"phases {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def _paths(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -7128,6 +7448,7 @@ def main() -> int:
     launches["selective_scan_bwd"], rows["selective_scan_bwd"], losses = \
         train_phase(peaks, card, errs)
     train_mesh_phase(card, losses)
+    dryrun_examples_phases(card)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "kernel": KERNEL[name],

@@ -25,12 +25,120 @@ collective moves a CUDA tensor to the CPU to compute.
   tuples of tensors) all-reduced leaf by leaf in buckets of the
   reference's greedy balance (largest leaves first, each into the
   lightest bucket).
+
+Counting (``launch/dryrun.py``).  Under ``counting(counter)`` every move
+the single controller makes between logical ranks is recorded as a
+``CollectiveEvent`` on the rank that receives it, by logical rank and
+not by ``torch.device`` (logical devices of one card, or ``meta``
+devices, share one device and copy nothing).  The kinds, in the
+reference's names:
+
+* ``sharding.gather`` / ``ShardedTensor.full(rank=)`` of a leaf held in
+  g > 1 distinct blocks: an all-gather (result the whole leaf, group g);
+  a leaf the rank holds whole moves nothing;
+* ``all_gather`` here: an all-gather (result the concatenation, group
+  the ranks); ``psum``, ``ring_all_reduce`` and ``bucketed_psum``'s
+  leaves: an all-reduce of each rank's part (operand = result; the
+  ring's hops are its schedule, not separate events);
+* ``distributed/shard_train.py``: a data rank's gradients to the first
+  rank, and each updated block's slice of the summed gradient back to
+  its holder, point to point: collective-permutes.
+
+``on_rank(i)`` names the logical rank the work inside it runs on, so a
+counter can attribute ops to devices; ``rank_work`` runs one rank's
+share of a step (a data rank's pass, a block's update) through the
+counter, which may answer work of a shape it has seen with that work's
+counts and outputs (the dry-run on ``meta`` tensors does, and says so).
+Without an active counter these cost a check.
 """
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+import contextlib
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
+
+
+class CollectiveEvent(NamedTuple):
+    """One move: ``kind`` (the reference's collective names),
+    ``result_bytes`` (the receiving rank's result), ``group`` (ranks
+    taking part) and ``rank`` (the logical rank that receives; None
+    outside ``on_rank``)."""
+    kind: str
+    result_bytes: int
+    group: int
+    rank: Optional[int]
+
+
+class CollectiveCounter:
+    """Records the moves between logical ranks while ``counting``.
+    ``rank_work`` runs a rank's share of the step as given; a subclass
+    may reuse the outputs of earlier work of the same ``key``."""
+
+    def __init__(self):
+        self.events: List[CollectiveEvent] = []
+
+    def record(self, event: CollectiveEvent) -> None:
+        self.events.append(event)
+
+    def rank_work(self, key, rank: int, fn: Callable[[], Any]):
+        return fn()
+
+
+_COUNTER: List[CollectiveCounter] = []
+_RANKS: List[int] = []
+
+
+@contextlib.contextmanager
+def counting(counter: CollectiveCounter):
+    """Record the moves made inside into ``counter`` (one counter at a
+    time)."""
+    if _COUNTER:
+        raise RuntimeError("a collective counter is already active")
+    _COUNTER.append(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTER.pop()
+
+
+@contextlib.contextmanager
+def on_rank(rank: int):
+    """The work inside runs on logical rank ``rank`` (a mesh position
+    in ``mesh.devices.flat`` order)."""
+    _RANKS.append(int(rank))
+    try:
+        yield
+    finally:
+        _RANKS.pop()
+
+
+def current_rank() -> Optional[int]:
+    return _RANKS[-1] if _RANKS else None
+
+
+def record(kind: str, result_bytes: int, group: int,
+           rank: Optional[int] = None) -> None:
+    """Record one move on ``rank`` (default: the current rank) if a
+    counter is active."""
+    if _COUNTER:
+        _COUNTER[0].record(CollectiveEvent(
+            kind, int(result_bytes), int(group),
+            current_rank() if rank is None else int(rank)))
+
+
+def rank_work(key, rank: int, fn: Callable[[], Any]):
+    """``fn()``, one rank's share of a step, on logical rank ``rank``;
+    an active counter may answer a ``key`` it has seen with that work's
+    outputs."""
+    with on_rank(rank):
+        if _COUNTER:
+            return _COUNTER[0].rank_work(key, rank, fn)
+        return fn()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _check(parts: Sequence[torch.Tensor], what: str) -> None:
@@ -49,14 +157,19 @@ def all_gather(blocks: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
     rank's device (``lax.all_gather(..., tiled=True)``)."""
     if not blocks:
         raise ValueError("all_gather needs one block per rank, got none")
-    return [torch.cat([b.to(mine.device) for b in blocks], dim=dim)
-            for mine in blocks]
+    out = [torch.cat([b.to(mine.device) for b in blocks], dim=dim)
+           for mine in blocks]
+    for r, o in enumerate(out):
+        record("all-gather", _nbytes(o), len(blocks), r)
+    return out
 
 
 def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The sum of the ranks' tensors in rank order, bitwise the same on
     every rank's device."""
     _check(parts, "psum")
+    for r, p in enumerate(parts):
+        record("all-reduce", _nbytes(p), len(parts), r)
     dev = parts[0].device
     total = parts[0]
     for p in parts[1:]:
@@ -74,6 +187,8 @@ def ring_all_reduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     reference's."""
     _check(parts, "ring_all_reduce")
     n = len(parts)
+    for r, p in enumerate(parts):
+        record("all-reduce", _nbytes(p), n, r)
     if n == 1:
         return [parts[0].clone()]
     shape = parts[0].shape

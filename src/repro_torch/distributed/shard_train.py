@@ -36,14 +36,27 @@ So a mesh whose data degree is 1 computes bitwise the single-device
 step.  The model axis splits storage and the optimizer's work; the
 forward does not split its products over it (no column- and
 row-parallel compute).
+
+Under ``collectives.counting`` the step names the logical rank each
+part runs on (``collectives.on_rank``: a data rank's pass on its
+position, the sums, the norm and the clip on the first rank's, each
+block's update on its first holder's) and records its moves: the
+params' gathers (all-gathers), each rank's gradients to the first rank
+and each block's gradient slice back to its holder (collective-permutes
+of what moves between two positions).  A rank's pass (its gather,
+forward and backward) and each block's update run through
+``collectives.rank_work``; nothing of that changes what the step
+computes.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import (ShardedTensor, batch_pspecs,
                                               gather)
 from repro_torch.launch.mesh import dp_axes
@@ -53,12 +66,20 @@ from repro_torch.optim.adamw import (AdamWConfig, _clip_scale, _f32, _update,
                                      global_norm, lr_at, tree_leaves)
 
 
-def forward_devices(mesh) -> List[torch.device]:
-    """The data ranks' devices in rank order (the dp axes, the first
-    major), each at coordinate 0 of the other axes."""
+def forward_ranks(mesh) -> List[int]:
+    """The data ranks' mesh positions (``mesh.devices.flat`` order) in
+    rank order (the dp axes, the first major), each at coordinate 0 of
+    the other axes."""
     dpx = dp_axes(mesh)
     at = tuple(slice(None) if a in dpx else 0 for a in mesh.axis_names)
-    return list(mesh.devices[at].reshape(-1))
+    flat = np.arange(mesh.size).reshape(mesh.devices.shape)
+    return [int(i) for i in flat[at].reshape(-1)]
+
+
+def forward_devices(mesh) -> List[torch.device]:
+    """The data ranks' devices in rank order (``forward_ranks``'
+    positions)."""
+    return [mesh.devices.flat[i] for i in forward_ranks(mesh)]
 
 
 def row_split(cfg: ModelConfig, mesh, batch) -> Tuple[int, Optional[int]]:
@@ -101,6 +122,7 @@ def loss_and_grads(cfg: ModelConfig, mesh, params, batch
     """(loss, {"xent", "aux"}, grads) of the whole batch: the grads are
     whole, in ``tree_leaves`` order, on the first data rank's device."""
     devs = forward_devices(mesh)
+    ranks = forward_ranks(mesh)
     n, groups = row_split(cfg, mesh, batch)
     home = devs[0]
     kw = {} if groups is None else {"moe_groups": groups}
@@ -108,37 +130,54 @@ def loss_and_grads(cfg: ModelConfig, mesh, params, batch
     losses, parts = [], []
     for r in range(n):
         dev = devs[r]
-        rows = {k: v.narrow(0, r * (v.shape[0] // n),
-                            v.shape[0] // n).to(dev)
-                for k, v in batch.items()}
-        local = gather(params, dev)
-        leaves = tree_leaves(local)
-        with torch.enable_grad():
-            for p in leaves:
-                p.requires_grad_(True)
-            try:
-                loss, metrics = api.loss_fn(cfg, local, rows, **kw)
-                grads = list(torch.autograd.grad(loss, leaves,
-                                                 allow_unused=True))
-            finally:
-                for p in leaves:
-                    p.requires_grad_(False)
-        del local
-        for i, (p, g) in enumerate(zip(leaves, grads)):
-            g = (torch.zeros_like(p) if g is None else g).to(home)
-            grads[i] = None
-            if r == 0:
-                total.append(g)
-            else:
-                total[i] = total[i] + g
+        with collectives.on_rank(ranks[r]):
+            rows = {k: v.narrow(0, r * (v.shape[0] // n),
+                                v.shape[0] // n).to(dev)
+                    for k, v in batch.items()}
+        key = ("pass", tuple((k, tuple(v.shape), v.dtype)
+                             for k, v in rows.items()), groups)
+        loss, metrics, leaves, grads = collectives.rank_work(
+            key, ranks[r],
+            lambda: _rank_grads(cfg, params, dev, ranks[r], rows, kw))
+        with collectives.on_rank(ranks[0]):
+            for i, (p, g) in enumerate(zip(leaves, grads)):
+                g = (torch.zeros_like(p) if g is None else g).to(home)
+                if r:
+                    collectives.record("collective-permute",
+                                       g.numel() * g.element_size(), 2)
+                grads[i] = None
+                if r == 0:
+                    total.append(g)
+                else:
+                    total[i] = total[i] + g
         del leaves, grads
         losses.append(loss.detach().to(home))
         parts.append({k: v.detach().to(home) for k, v in metrics.items()})
     if n > 1:
-        for i in range(len(total)):
-            total[i] = total[i] / n
+        with collectives.on_rank(ranks[0]):
+            for i in range(len(total)):
+                total[i] = total[i] / n
     return (_rank_mean(losses),
             {k: _rank_mean([p[k] for p in parts]) for k in parts[0]}, total)
+
+
+def _rank_grads(cfg: ModelConfig, params, dev, rank: int, rows, kw):
+    """One data rank's pass: the params gathered whole on ``dev``, then
+    (loss, metrics, the gathered leaves and their grads, both in
+    ``tree_leaves`` order, a grad None where unused)."""
+    local = gather(params, dev, rank=rank)
+    leaves = tree_leaves(local)
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = api.loss_fn(cfg, local, rows, **kw)
+            grads = list(torch.autograd.grad(loss, leaves,
+                                             allow_unused=True))
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+    return loss, metrics, leaves, grads
 
 
 def apply_updates(cfg: AdamWConfig, state, grads: List[torch.Tensor]):
@@ -152,7 +191,8 @@ def apply_updates(cfg: AdamWConfig, state, grads: List[torch.Tensor]):
         raise ValueError(f"params, grads, mu and nu have "
                          f"{[len(params), len(grads), len(mu), len(nu)]} "
                          f"leaves")
-    with torch.no_grad():
+    home = forward_ranks(state.opt.step.sharding.mesh)[0]
+    with torch.no_grad(), collectives.on_rank(home):
         norm = global_norm(grads)
         scale = _clip_scale(norm, cfg.grad_clip)
         step = int(state.opt.step.shards[0]) + 1
@@ -167,8 +207,17 @@ def apply_updates(cfg: AdamWConfig, state, grads: List[torch.Tensor]):
                                  "placed under one spec a leaf")
             for sl, pb, i in p.blocks():
                 dev = pb.device
-                _update(cfg, pb, g[sl].to(dev), m.shards[i], v.shards[i],
-                        scale.to(dev), lr, bc1, bc2)
+                gb = g[sl]
+                if i != home:
+                    collectives.record("collective-permute",
+                                       gb.numel() * gb.element_size(), 2, i)
+                key = ("update",) + tuple(
+                    (tuple(t.shape), t.dtype, t.is_contiguous())
+                    for t in (pb, gb, m.shards[i], v.shards[i]))
+                collectives.rank_work(
+                    key, i, lambda: _update(cfg, pb, gb.to(dev), m.shards[i],
+                                            v.shards[i], scale.to(dev), lr,
+                                            bc1, bc2))
         for _, t, _ in state.opt.step.blocks():
             t.fill_(step)
     return state, {"grad_norm": norm,

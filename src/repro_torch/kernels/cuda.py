@@ -13,9 +13,17 @@ Every op wrapper of the package calls ``launch(...)`` only for CUDA
 tensors; ``launch`` raises on a non-zero ``cudaError_t`` (a refused
 launch never runs, and a later ``synchronize`` would not report it) and
 counts the launch in ``LAUNCHES``.
+
+A launch through ``ctypes`` is invisible to PyTorch's dispatch, so a
+wrapper on a step that ``launch/dryrun.py`` counts reports its kernel's
+work itself: ``kernel_work(counter, flops, nbytes, device)`` around the
+kernel (or its plain version, or its shapes on ``meta``) tells every
+registered ``WorkSink`` the operations and the bytes read once and
+written once, and the same call counts the same on every device.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -94,6 +102,46 @@ _LOCK = threading.Lock()
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+class WorkSink:
+    """Receives the work of kernels run between ``kernel_begin`` and
+    ``kernel_end`` (``launch/dryrun.py``'s step counter)."""
+
+    def kernel_begin(self, counter: str, flops: float, nbytes: float,
+                     device: torch.device) -> None:
+        raise NotImplementedError
+
+    def kernel_end(self, counter: str) -> None:
+        raise NotImplementedError
+
+
+_SINKS: list = []
+
+
+@contextlib.contextmanager
+def work_sink(sink: WorkSink):
+    """Register ``sink`` for the kernels run inside."""
+    _SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _SINKS.remove(sink)
+
+
+@contextlib.contextmanager
+def kernel_work(counter: str, flops: float, nbytes: float,
+                device: torch.device):
+    """The kernel ``counter`` runs inside, doing ``flops`` operations
+    and reading and writing ``nbytes`` (each input once, each output
+    once) on ``device``."""
+    for sink in _SINKS:
+        sink.kernel_begin(counter, flops, nbytes, device)
+    try:
+        yield
+    finally:
+        for sink in _SINKS:
+            sink.kernel_end(counter)
 
 
 def launch_counts() -> Dict[str, int]:

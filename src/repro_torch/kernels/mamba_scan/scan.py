@@ -34,6 +34,16 @@ over states as the forward's y, over a CTA's channels by a halving tree
 in registers after each chunk, over the CTAs by ``scan_bwd_reduce_bc_kernel``'s
 halving tree.  ``selective_scan_bwd_plain`` takes every operation in its
 order, so the two agree bitwise.
+
+Each wrapper runs its kernel on CUDA tensors, its plain version on CPU
+tensors, and on ``meta`` tensors (``launch/dryrun.py``'s traced steps)
+returns outputs of the right shapes and dtypes without looping: shape
+propagation, not a fallback.  Any other device raises.  On every branch
+the kernel's work goes to ``cuda.kernel_work``: the bytes read once and
+written once and the FP32 operations of its bound (``fwd_work``,
+``bwd_work``; the exponentials are not FLOPs), so a call counts the same
+on the card as on ``meta``; the operand casts around the kernel are
+ordinary ops.
 """
 from __future__ import annotations
 
@@ -64,6 +74,12 @@ BWD_SMEM_BYTES = 227 * 1024   # shared memory a CTA of the backward may ask
 # partials (their count padded to a power of two) a column
 REDUCE_ROWS = 256
 REDUCE_SPAN = 64
+# FP32 operations a (t, di, s) of the forward (dt·x once a step aside:
+# dt·A, the h update's two products and sum, the y product and its sum)
+# and of the backward (the chunk's recompute of h, the g update, the
+# terms of dx, ddt, dB, dC and dA and their sums); one exponential each
+FWD_FP32_OPS = 6
+BWD_FP32_OPS = 19
 
 
 class ScanPlan(NamedTuple):
@@ -198,11 +214,23 @@ def selective_scan_plain(x: torch.Tensor, dt: torch.Tensor, bp: torch.Tensor,
     return _plain_scan(x, dt, bp, cp, a, keep=False)
 
 
+def _device(x) -> torch.device:
+    """``x``'s device, where a wrapper runs (cuda: the kernel, cpu: the
+    plain version, meta: shapes); another raises."""
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"selective_scan runs on cuda (the kernel), cpu "
+                         f"(its plain version) or meta (shapes); got "
+                         f"{x.device}")
+    return x.device
+
+
 def _cast(x, dt, bp, cp, a):
-    """The operands as contiguous f32, on one CUDA device."""
+    """The operands as contiguous f32, on one device (CUDA tensors
+    checked for the kernel)."""
     ops = [v.to(torch.float32).contiguous() for v in (x, dt, bp, cp, a)]
     for name, v in zip(("x", "dt", "Bp", "Cp", "A"), ops):
-        cuda.require(v, name)
+        if v.is_cuda:
+            cuda.require(v, name)
         if v.device != x.device:
             raise ValueError(f"x and {name} lie on {x.device} and "
                              f"{v.device}")
@@ -216,23 +244,52 @@ def n_saved(t: int) -> int:
     return max(0, -(-t // BWD_CHUNK) - 1)
 
 
+def fwd_work(b: int, t: int, di: int, ds: int, save: bool):
+    """(FP32 operations, bytes) of a forward over (B, T, Di, Ds): x,
+    dt, Bp, Cp and A read once, y and h (and the saved states) written
+    once, all f32."""
+    n = b * t * di * ds
+    nbytes = 4 * (2 * b * t * di + 2 * b * t * ds + di * ds
+                  + b * t * di + b * di * ds
+                  + (b * n_saved(t) * di * ds if save else 0))
+    return FWD_FP32_OPS * n, nbytes
+
+
+def bwd_work(b: int, t: int, di: int, ds: int, dh: bool):
+    """(FP32 operations, bytes) of a backward: the forward's operands,
+    the saved states, dy (and dh) read once, dx, ddt, dBp, dCp and dA
+    written once, all f32."""
+    n = b * t * di * ds
+    read = (2 * b * t * di + 2 * b * t * ds + di * ds
+            + b * n_saved(t) * di * ds + b * t * di
+            + (b * di * ds if dh else 0))
+    written = 2 * b * t * di + 2 * b * t * ds + di * ds
+    return BWD_FP32_OPS * n, 4 * (read + written)
+
+
 def _forward(x, dt, bp, cp, a, save: bool):
-    """The kernel's forward on CUDA operands: (y, h, states | None)."""
+    """The forward on ``x``'s device: (y, h, states | None) — the
+    kernel on CUDA, the plain version on the CPU, shapes on meta."""
     b, t, di = x.shape
     ds = a.shape[1]
+    dev = _device(x)
     ops = _cast(x, dt, bp, cp, a)
-    dev = x.device
-    y = torch.empty((b, t, di), dtype=torch.float32, device=dev)
-    h = torch.empty((b, di, ds), dtype=torch.float32, device=dev)
-    states = (torch.empty((b, n_saved(t), di, ds), dtype=torch.float32,
-                          device=dev) if save else None)
-    if h.numel() == 0:
-        return y, h, states
-    plan = lane_plan(b, di, ds, cuda.sm_count(dev), save=save)
-    cuda.launch("selective_scan", "scan_selective", dev,
-                *(v.data_ptr() for v in ops), y.data_ptr(), h.data_ptr(),
-                states.data_ptr() if save and states.numel() else None,
-                b, t, di, ds, BWD_CHUNK, *plan)
+    with cuda.kernel_work("selective_scan", *fwd_work(b, t, di, ds, save),
+                          dev):
+        if dev.type == "cpu":
+            out = _plain_scan(*ops, keep=save)
+            return out if save else (*out, None)
+        y = torch.empty((b, t, di), dtype=torch.float32, device=dev)
+        h = torch.empty((b, di, ds), dtype=torch.float32, device=dev)
+        states = (torch.empty((b, n_saved(t), di, ds), dtype=torch.float32,
+                              device=dev) if save else None)
+        if h.numel() == 0 or dev.type == "meta":
+            return y, h, states
+        plan = lane_plan(b, di, ds, cuda.sm_count(dev), save=save)
+        cuda.launch("selective_scan", "scan_selective", dev,
+                    *(v.data_ptr() for v in ops), y.data_ptr(), h.data_ptr(),
+                    states.data_ptr() if save and states.numel() else None,
+                    b, t, di, ds, BWD_CHUNK, *plan)
     return y, h, states
 
 
@@ -241,18 +298,17 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bp: torch.Tensor,
                    block_di: int = 256):
     """x/dt: (B,T,Di); bp/cp: (B,T,Ds); a: (Di,Ds) -> (y (B,T,Di), h
     (B,Di,Ds)), both f32; inputs are cast to f32.  CUDA tensors launch
-    the kernel once; CPU tensors run ``selective_scan_plain``.  Where an
-    operand needs a gradient (grad mode on), the call runs through
-    ``SelectiveScan`` (the same forward, which then also keeps its
-    states for ``selective_scan_bwd``)."""
+    the kernel once; CPU tensors run ``selective_scan_plain``; meta
+    tensors give the outputs' shapes.  Where an operand needs a gradient
+    (grad mode on), the call runs through ``SelectiveScan`` (the same
+    forward, which then also keeps its states for
+    ``selective_scan_bwd``)."""
     _check(x, dt, bp, cp, a)
     check_block("block_di", block_di)
     if torch.is_grad_enabled() and any(
             v.requires_grad for v in (x, dt, bp, cp, a)):
         return SelectiveScan.apply(*(v.to(torch.float32)
                                      for v in (x, dt, bp, cp, a)))
-    if not x.is_cuda:
-        return selective_scan_plain(x, dt, bp, cp, a)
     return _forward(x, dt, bp, cp, a, save=False)[:2]
 
 
@@ -260,10 +316,9 @@ def selective_scan_fwd(x, dt, bp, cp, a):
     """``selective_scan`` that also returns the states its backward
     restarts from: (y, h, states (B, ``n_saved(T)``, Di, Ds)).  CUDA
     tensors launch the forward kernel once (counted as
-    ``selective_scan``); CPU tensors run the plain version."""
+    ``selective_scan``); CPU tensors run the plain version; meta
+    tensors give the shapes."""
     _check(x, dt, bp, cp, a)
-    if not x.is_cuda:
-        return _plain_scan(x, dt, bp, cp, a, keep=True)
     return _forward(x, dt, bp, cp, a, save=True)
 
 
@@ -440,20 +495,21 @@ def selective_scan_bwd(x, dt, bp, cp, a, states, dy, dh=None):
     ``dh`` (B, Di, Ds; ``None`` = zero).  CUDA tensors launch
     ``selective_scan_bwd_kernel`` and its two reductions once (counted
     as ``selective_scan_bwd``); CPU tensors run
-    ``selective_scan_bwd_plain`` (which recomputes the states)."""
+    ``selective_scan_bwd_plain`` (which recomputes the states); meta
+    tensors give the shapes."""
     _check(x, dt, bp, cp, a)
-    if not x.is_cuda:
-        return selective_scan_bwd_plain(x, dt, bp, cp, a, dy, dh)
     b, t, di = x.shape
     ds = a.shape[1]
+    dev = _device(x)
+    work = bwd_work(b, t, di, ds, dh is not None)
     _check_grads(x, a, dy, dh)
     ops = _cast(x, dt, bp, cp, a)
-    dev = x.device
     dy = dy.to(torch.float32).contiguous()
-    cuda.require(dy, "dy")
     if dh is not None:
         dh = dh.to(torch.float32).contiguous()
-        cuda.require(dh, "dh")
+    if dev.type == "cpu":
+        with cuda.kernel_work("selective_scan_bwd", *work, dev):
+            return selective_scan_bwd_plain(*ops, dy, dh)
     for name, v in (("dy", dy), ("dh", dh), ("states", states)):
         if v is not None and v.device != dev:
             raise ValueError(f"x and {name} lie on {dev} and {v.device}")
@@ -462,27 +518,36 @@ def selective_scan_bwd(x, dt, bp, cp, a, states, dy, dh=None):
                          f"{(b, n_saved(t), di, ds)}; got "
                          f"{tuple(states.shape)}")
     states = states.contiguous()
-    cuda.require(states, "states", (torch.float32,))
+    if dev.type == "cuda":
+        cuda.require(dy, "dy")
+        if dh is not None:
+            cuda.require(dh, "dh")
+        cuda.require(states, "states", (torch.float32,))
+    elif states.dtype != torch.float32:
+        raise TypeError(f"states dtype {states.dtype} is not float32")
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((b, t, di), **f32)
-    ddt = torch.empty((b, t, di), **f32)
-    dbp = torch.empty((b, t, ds), **f32)
-    dcp = torch.empty((b, t, ds), **f32)
-    da = torch.empty((di, ds), **f32)
-    if t == 0:
-        return dx, ddt, dbp, dcp, da.zero_()
-    plan, nb = bwd_grid(b, di, ds)
-    wb = torch.empty((b, nb, t, ds), **f32)
-    wc = torch.empty((b, nb, t, ds), **f32)
-    wa = torch.empty((b, di, ds), **f32)
-    cuda.launch("selective_scan_bwd", "scan_selective_bwd", dev,
-                *(v.data_ptr() for v in ops),
-                states.data_ptr() if states.numel() else None,
-                dy.data_ptr(),
-                dh.data_ptr() if dh is not None else None,
-                *(v.data_ptr() for v in (dx, ddt, dbp, dcp, da, wb, wc, wa)),
-                b, t, di, ds, plan.states, plan.lanes, plan.passes, plan.ch,
-                plan.ck)
+    with cuda.kernel_work("selective_scan_bwd", *work, dev):
+        dx = torch.empty((b, t, di), **f32)
+        ddt = torch.empty((b, t, di), **f32)
+        dbp = torch.empty((b, t, ds), **f32)
+        dcp = torch.empty((b, t, ds), **f32)
+        da = torch.empty((di, ds), **f32)
+        if t == 0:
+            return dx, ddt, dbp, dcp, da.zero_()
+        plan, nb = bwd_grid(b, di, ds)
+        wb = torch.empty((b, nb, t, ds), **f32)
+        wc = torch.empty((b, nb, t, ds), **f32)
+        wa = torch.empty((b, di, ds), **f32)
+        if dev.type == "cuda":
+            cuda.launch("selective_scan_bwd", "scan_selective_bwd", dev,
+                        *(v.data_ptr() for v in ops),
+                        states.data_ptr() if states.numel() else None,
+                        dy.data_ptr(),
+                        dh.data_ptr() if dh is not None else None,
+                        *(v.data_ptr() for v in (dx, ddt, dbp, dcp, da, wb,
+                                                 wc, wa)),
+                        b, t, di, ds, plan.states, plan.lanes, plan.passes,
+                        plan.ch, plan.ck)
     return dx, ddt, dbp, dcp, da
 
 

@@ -49,6 +49,14 @@ def _expert_ffn(cfg: ModelConfig, p, x):
     return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(cd))
 
 
+def _one_hot(idx, n: int, dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n).to(dtype)`` for ``idx`` in [0, n), as one
+    compare against ``arange(n)``: the same ops on every device
+    (``F.one_hot`` checks its indices on the host on the CPU and scatters
+    on a card), so a step counts alike on ``meta`` and on the card."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _top_k_gating(logits, k: int):
     """Iterative top-1 x k (GShard): returns per-slot (index, prob).
 
@@ -63,8 +71,8 @@ def _top_k_gating(logits, k: int):
         gate = torch.gather(masked, -1, idx[..., None])[..., 0]
         idxs.append(idx)
         gates.append(gate)
-        masked = masked * (1.0 - F.one_hot(idx, probs.shape[-1]).to(
-            probs.dtype))
+        masked = masked * (1.0 - _one_hot(idx, probs.shape[-1],
+                                          probs.dtype))
     idx = torch.stack(idxs, dim=-1)          # (G, N, k)
     gate = torch.stack(gates, dim=-1)        # (G, N, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -93,12 +101,12 @@ def apply_moe(cfg: ModelConfig, p, x, *, num_groups: int = 1
     idx, gate, probs = _top_k_gating(logits, K)                 # (G,N,k)
 
     # Aux load-balance loss (Switch): E * sum(frac_tokens * frac_prob).
-    me = F.one_hot(idx[..., 0], E).to(torch.float32).mean(dim=1)
+    me = _one_hot(idx[..., 0], E, torch.float32).mean(dim=1)
     ce = probs.mean(dim=1)
     aux = E * (me * ce).sum(-1).mean()
 
     # Capacity assignment: position of each (token, slot) within its expert.
-    onehot = F.one_hot(idx, E).to(torch.float32)                # (G,N,k,E)
+    onehot = _one_hot(idx, E, torch.float32)                    # (G,N,k,E)
     flat = onehot.reshape(G, Ng * K, E)
     pos = torch.cumsum(flat, dim=1) - flat                      # (G,N*k,E)
     pos = (pos * flat).sum(-1).reshape(G, Ng, K).to(torch.int64)
@@ -117,9 +125,9 @@ def apply_moe(cfg: ModelConfig, p, x, *, num_groups: int = 1
         back = expert_out[gi, idx, pos_c]                       # (G,N,k,D)
         out = torch.einsum("gnkd,gnk->gnd", back, gate.to(cd))
     else:
-        # jax.nn.one_hot gives zeros past `cap`; F.one_hot refuses, so
-        # one-hot the clamped position and mask the dropped pairs
-        pos_oh = F.one_hot(pos_c, cap).to(cd) * keep[..., None]  # (G,N,k,C)
+        # jax.nn.one_hot gives zeros past `cap`: one-hot the clamped
+        # position and mask the dropped pairs
+        pos_oh = _one_hot(pos_c, cap, cd) * keep[..., None]      # (G,N,k,C)
         oh = onehot.to(cd)
         disp = torch.einsum("gnke,gnkc->gnec", oh, pos_oh)
         expert_in = torch.einsum("gnec,gnd->gecd", disp, xg.to(cd))

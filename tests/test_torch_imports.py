@@ -1,6 +1,7 @@
 """Import discipline of the PyTorch port: no module of ``repro_torch``
-(nor ``chip_smoke.py``) pulls in ``jax`` or the reference package
-``repro``, and importing builds nothing."""
+(nor ``chip_smoke.py``, nor an example of ``examples_torch/``) pulls in
+``jax`` or the reference package ``repro``, and importing builds
+nothing."""
 import ast
 import os
 import pathlib
@@ -42,7 +43,8 @@ def test_every_module_imports_without_jax_or_reference():
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "examples_torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_reference(path):
     """Static check, so a lazily imported module cannot slip through."""
