@@ -33,23 +33,52 @@ not by ``torch.device`` (logical devices of one card, or ``meta``
 devices, share one device and copy nothing).  The kinds, in the
 reference's names:
 
-* ``sharding.gather`` / ``ShardedTensor.full(rank=)`` of a leaf held in
-  g > 1 distinct blocks: an all-gather (result the whole leaf, group g);
-  a leaf the rank holds whole moves nothing;
+* ``tensor_parallel.take_region`` of a region held in g > 1 distinct
+  blocks: an all-gather (result the region, group g); a region that no
+  position of the rank's model coordinate holds: a collective-permute;
+  a block the rank holds moves nothing;
 * ``all_gather`` here: an all-gather (result the concatenation, group
   the ranks); ``psum``, ``ring_all_reduce`` and ``bucketed_psum``'s
   leaves: an all-reduce of each rank's part (operand = result; the
   ring's hops are its schedule, not separate events);
-* ``distributed/shard_train.py``: a data rank's gradients to the first
-  rank, and each updated block's slice of the summed gradient back to
-  its holder, point to point: collective-permutes.
+* ``distributed/shard_train.py``: each gradient piece to its block's
+  holder, each block's square sum to the first rank, and each updated
+  block's slice of its summed gradient to the block, point to point:
+  collective-permutes.
 
 ``on_rank(i)`` names the logical rank the work inside it runs on, so a
-counter can attribute ops to devices; ``rank_work`` runs one rank's
-share of a step (a data rank's pass, a block's update) through the
-counter, which may answer work of a shape it has seen with that work's
-counts and outputs (the dry-run on ``meta`` tensors does, and says so).
+counter can attribute ops to devices; ``rank_work`` runs one share of a
+step (a data rank's pass over its model ranks, a block's update) and
+``sections`` one split sublayer's model ranks through the counter,
+which may answer work of a shape it has seen with that work's counts
+and outputs (the dry-run on ``meta`` tensors does, and says so).
 Without an active counter these cost a check.
+
+The model group (Megatron tensor parallelism, ``tensor_parallel.py``).
+The model ranks of one data rank share a replicated residual stream,
+kept on the first model rank's device; a split sublayer runs its part
+on each model rank.  Three ``autograd.Function``s join them, each
+recording all-reduces of group = the model degree on every rank:
+
+* ``model_sum(parts, ranks)`` — the row-parallel output: the ranks'
+  parts summed in rank order onto the first one's device (forward
+  all-reduce); its backward hands each rank the gradient (the sum is
+  replicated: nothing moves).
+* ``replicate(x, ranks, devices)`` — the column-parallel input: ``x``
+  on every rank's device (replicated: nothing moves); its backward sums
+  the ranks' gradients in rank order (backward all-reduce).
+* ``model_max(parts, ranks)`` — the elementwise max of the ranks'
+  parts (the vocabulary-parallel softmax's shift), no gradient.
+
+``enter(rank, ...)`` / ``leave(rank, ...)`` bracket one rank's section
+of a split sublayer.  Forward they are the identity; backward, ``leave``
+names the rank the section's backward runs on and ``enter`` ends it, so
+the backward's ops are counted on the rank whose forward made them.
+This holds where one thread runs the backward in creation order,
+latest first (the CPU, ``meta`` and one card's logical devices): a
+section's nodes are created after its ``enter`` and before its
+``leave``, and a section takes every differentiable input through
+``enter``, so its backward runs whole between the two.
 """
 from __future__ import annotations
 
@@ -72,8 +101,9 @@ class CollectiveEvent(NamedTuple):
 
 class CollectiveCounter:
     """Records the moves between logical ranks while ``counting``.
-    ``rank_work`` runs a rank's share of the step as given; a subclass
-    may reuse the outputs of earlier work of the same ``key``."""
+    ``rank_work`` runs a rank's share of the step and ``sections`` a
+    split sublayer's model ranks as given; a subclass may answer work
+    from earlier work of the same shape."""
 
     def __init__(self):
         self.events: List[CollectiveEvent] = []
@@ -81,8 +111,12 @@ class CollectiveCounter:
     def record(self, event: CollectiveEvent) -> None:
         self.events.append(event)
 
-    def rank_work(self, key, rank: int, fn: Callable[[], Any]):
+    def rank_work(self, key, ranks: List[int], fn: Callable[[], Any]):
         return fn()
+
+    def sections(self, ranks: List[int], section: Callable, inputs: list
+                 ) -> list:
+        return [section(m, xs) for m, xs in enumerate(inputs)]
 
 
 _COUNTER: List[CollectiveCounter] = []
@@ -102,19 +136,25 @@ def counting(counter: CollectiveCounter):
         _COUNTER.pop()
 
 
+class _Backward(int):
+    """A rank ``leave`` names for a section's backward (``enter`` takes
+    it off)."""
+
+
 @contextlib.contextmanager
 def on_rank(rank: int):
     """The work inside runs on logical rank ``rank`` (a mesh position
     in ``mesh.devices.flat`` order)."""
+    depth = len(_RANKS)
     _RANKS.append(int(rank))
     try:
         yield
     finally:
-        _RANKS.pop()
+        del _RANKS[depth:]
 
 
 def current_rank() -> Optional[int]:
-    return _RANKS[-1] if _RANKS else None
+    return int(_RANKS[-1]) if _RANKS else None
 
 
 def record(kind: str, result_bytes: int, group: int,
@@ -127,14 +167,28 @@ def record(kind: str, result_bytes: int, group: int,
             current_rank() if rank is None else int(rank)))
 
 
-def rank_work(key, rank: int, fn: Callable[[], Any]):
-    """``fn()``, one rank's share of a step, on logical rank ``rank``;
-    an active counter may answer a ``key`` it has seen with that work's
-    outputs."""
+def rank_work(key, rank: int, fn: Callable[[], Any],
+              ranks: Optional[Sequence[int]] = None):
+    """``fn()``, one share of a step, on logical rank ``rank`` (and
+    ``ranks``, every rank it runs on, ``rank`` among them; default
+    ``[rank]``); an active counter may answer a ``key`` it has seen
+    with that work's outputs, its ranks mapped position by position."""
+    ranks = [int(rank)] if ranks is None else [int(r) for r in ranks]
     with on_rank(rank):
         if _COUNTER:
-            return _COUNTER[0].rank_work(key, rank, fn)
+            return _COUNTER[0].rank_work(key, ranks, fn)
         return fn()
+
+
+def sections(ranks: Sequence[int], section: Callable, inputs: list) -> list:
+    """``section(m, inputs[m])`` for each model rank ``m`` of a split
+    sublayer, in rank order: one output tuple a rank.  An active counter
+    may answer a rank's section from another rank's of the same shapes
+    (the dry-run on ``meta`` does, and says so)."""
+    if _COUNTER:
+        return _COUNTER[0].sections([int(r) for r in ranks], section,
+                                    inputs)
+    return [section(m, xs) for m, xs in enumerate(inputs)]
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -178,6 +232,149 @@ def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         total = total.clone()
     return [total if r == 0 else total.to(p.device, copy=True)
             for r, p in enumerate(parts)]
+
+
+# ---------------------------------------------------------------------------
+# The model group (tensor parallelism)
+# ---------------------------------------------------------------------------
+def _record_group(kind: str, parts: Sequence[torch.Tensor],
+                  ranks: Sequence[int]) -> None:
+    for p, r in zip(parts, ranks):
+        record(kind, _nbytes(p), len(ranks), r)
+
+
+def _rank_order_sum(parts: Sequence[torch.Tensor], rank: int):
+    with on_rank(rank):
+        dev = parts[0].device
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(dev)
+        return total.clone() if len(parts) == 1 else total
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ranks, *parts):
+        _check(parts, "model_sum")
+        ctx.devices = [p.device for p in parts]
+        _record_group("all-reduce", parts, ranks)
+        return _rank_order_sum(parts, ranks[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None,) + tuple(grad.to(d) for d in ctx.devices)
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ranks, devices, x):
+        ctx.ranks = ranks
+        return tuple(x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _record_group("all-reduce", grads, ctx.ranks)
+        return None, None, _rank_order_sum(grads, ctx.ranks[0])
+
+
+class _ModelMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ranks, *parts):
+        _check(parts, "model_max")
+        _record_group("all-reduce", parts, ranks)
+        with on_rank(ranks[0]):
+            dev = parts[0].device
+            out = parts[0].clone()
+            for p in parts[1:]:
+                out = torch.maximum(out, p.to(dev))
+        ctx.mark_non_differentiable(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError("model_max has no gradient")
+
+
+def model_sum(parts: Sequence[torch.Tensor],
+              ranks: Sequence[int]) -> torch.Tensor:
+    """The model ranks' parts summed in rank order on the first part's
+    device (the all-reduce after a row-parallel product; its value is
+    every rank's)."""
+    return _ModelSum.apply(tuple(int(r) for r in ranks), *parts)
+
+
+def replicate(x: torch.Tensor, ranks: Sequence[int],
+              devices: Sequence) -> List[torch.Tensor]:
+    """``x``, replicated over the model ranks, on each rank's device
+    (the column-parallel input); the backward sums the ranks' gradients
+    in rank order (an all-reduce)."""
+    return list(_Replicate.apply(tuple(int(r) for r in ranks),
+                                 tuple(torch.device(d) for d in devices),
+                                 x))
+
+
+def model_max(parts: Sequence[torch.Tensor],
+              ranks: Sequence[int]) -> torch.Tensor:
+    """The elementwise max of the model ranks' parts, in rank order, on
+    the first part's device (an all-reduce; no gradient)."""
+    return _ModelMax.apply(tuple(int(r) for r in ranks),
+                           *[p.detach() for p in parts])
+
+
+def _differentiable(t) -> bool:
+    return isinstance(t, torch.Tensor) and (t.is_floating_point()
+                                            or t.is_complex())
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rank, *xs):
+        ctx.rank = rank
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if _RANKS and isinstance(_RANKS[-1], _Backward) and \
+                int(_RANKS[-1]) == ctx.rank:
+            _RANKS.pop()
+        return (None,) + grads
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rank, *xs):
+        ctx.rank = rank
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _RANKS.append(_Backward(ctx.rank))
+        return (None,) + grads
+
+
+def _through(fn, rank: int, xs: Sequence) -> list:
+    xs = list(xs)
+    idx = [i for i, x in enumerate(xs) if _differentiable(x)]
+    if idx:
+        out = fn.apply(int(rank), *[xs[i] for i in idx])
+        for i, o in zip(idx, out):
+            xs[i] = o
+    return xs
+
+
+def enter(rank: int, *xs) -> list:
+    """The start of rank ``rank``'s section of a split sublayer: ``xs``
+    as they are (floating tensors as views), their backward the
+    section's end."""
+    return _through(_Enter, rank, xs)
+
+
+def leave(rank: int, *xs) -> list:
+    """The end of rank ``rank``'s section: ``xs`` as they are; their
+    backward runs on ``rank`` until the section's ``enter``."""
+    return _through(_Leave, rank, xs)
 
 
 def ring_all_reduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:

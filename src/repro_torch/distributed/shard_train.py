@@ -3,7 +3,8 @@
 controller.  The counterpart of the reference's
 ``jax.jit(api.train_step, in_shardings=(state, batch))``, beside
 serving's ``shard_exec.py``; its semantics are the single-device
-step's (``models/api.py::train_step``):
+step's (``models/api.py::train_step``) with GSPMD's split of the
+compute over "model":
 
 * The state lives as ``ShardedTensor`` blocks under ``state_pspecs``
   (``distributed/sharding.py::device_put``); the mesh is the one its
@@ -15,38 +16,49 @@ step's (``models/api.py::train_step``):
   the groups are contiguous runs of tokens, so where they divide, each
   rank runs its rows with its share of them (``moe_groups=``) and
   capacity and dropped tokens are those of the whole batch.
-* Each data rank runs forward and backward on its rows on its device
-  (the rank's device at model coordinate 0).  The params are gathered
-  whole on that device for the rank's pass, ZeRO-3 style, and dropped
-  after it; a leaf held whole there is used in place, with no copy.
-* The ranks' gradients are summed in rank order into one buffer on the
-  first rank's device (``collectives.psum``'s order:
-  ``((g0 + g1) + g2) ...``), divided by the number of ranks (each
-  rank's loss is a mean over equally many tokens, so the mean of the
-  ranks' losses is the whole batch's), and the loss and its parts are
-  the ranks' mean in the same order.
-* The global grad norm for clipping is computed once over the whole
-  gradients, in the single-device step's leaf order
-  (``optim/adamw.py::global_norm``).
+* Each data rank runs forward and backward of its rows over its model
+  ranks (``tensor_parallel``): the residual stream on its first model
+  rank's device, each sublayer that ``param_spec`` splits over "model"
+  (attention, the dense FFN, Mamba, the vocabulary) on every model rank
+  with that rank's block only, the outputs summed in rank order
+  (Megatron's column-parallel in, row-parallel out, as GSPMD runs the
+  reference's specs).  A model rank's blocks are gathered over "data"
+  where FSDP split them (ZeRO-3, whole-tree, for the pass) and dropped
+  after it; the other sublayers (MoE experts, RWKV, cross-attention)
+  run whole on the first model rank, their leaves gathered there.
+* A leaf's gradient is kept by model block (its block along "model",
+  whole along the data axes): summed over the data ranks in data-rank
+  order on the block's holder (the first data rank's position at that
+  model coordinate), divided by the number of ranks (each rank's loss
+  is a mean over equally many tokens), and the loss and its parts are
+  the ranks' mean in the same order.  No buffer holds the whole
+  gradient on one device.
+* The global grad norm for clipping keeps the single-device step's leaf
+  order (``optim/adamw.py::global_norm``), a leaf's square sum taken
+  over its model blocks in block order.
 * Each block of params and moments is updated once, on its device,
-  with its slice of the gradient (``adamw._update``, elementwise: a
-  block's update is bitwise the whole leaf's).
+  with its slice of its model block's gradient (``adamw._update``,
+  elementwise: a block's update is bitwise the whole leaf's).
 
-So a mesh whose data degree is 1 computes bitwise the single-device
-step.  The model axis splits storage and the optimizer's work; the
-forward does not split its products over it (no column- and
-row-parallel compute).
+With a model degree of 1 a leaf is one block and the step is the
+unsplit one: a data degree of 1 then computes bitwise the single-device
+step.  With a model degree above 1 the row-parallel sums change the
+order of additions, as GSPMD's do in the reference: the step holds the
+single-device step within ``tests/test_torch_train.py``'s bars, and
+bitwise the same split run on one device (``tensor_parallel.
+local_split``).
 
 Under ``collectives.counting`` the step names the logical rank each
-part runs on (``collectives.on_rank``: a data rank's pass on its
-position, the sums, the norm and the clip on the first rank's, each
-block's update on its first holder's) and records its moves: the
-params' gathers (all-gathers), each rank's gradients to the first rank
-and each block's gradient slice back to its holder (collective-permutes
-of what moves between two positions).  A rank's pass (its gather,
-forward and backward) and each block's update run through
-``collectives.rank_work``; nothing of that changes what the step
-computes.
+part runs on (``collectives.on_rank``; a split sublayer's backward on
+the rank whose forward made it, ``collectives.enter``/``leave``) and
+records its moves: the gathers over "data" (all-gathers), the model
+group's sums (all-reduces of group = the model degree, forward and
+backward), Mamba's ``in_proj`` columns and each gradient piece that
+another position holds (collective-permutes), each block's square sum
+to the first rank, and each block's gradient slice to its holder.  A
+data rank's pass (its gathers, forward and backward over its model
+ranks) and each block's update run through ``collectives.rank_work``;
+nothing of that changes what the step computes.
 """
 from __future__ import annotations
 
@@ -57,13 +69,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (ShardedTensor, batch_pspecs,
-                                              gather)
-from repro_torch.launch.mesh import dp_axes
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import ShardedTensor, batch_pspecs
+from repro_torch.launch.mesh import dp_axes, mesh_axis_sizes
 from repro_torch.models import api
 from repro_torch.models.transformer import moe_num_groups
-from repro_torch.optim.adamw import (AdamWConfig, _clip_scale, _f32, _update,
-                                     global_norm, lr_at, tree_leaves)
+from repro_torch.optim.adamw import (AdamWConfig, _clip_scale, _f32,
+                                     _square_sum, _update, lr_at,
+                                     tree_leaves)
 
 
 def forward_ranks(mesh) -> List[int]:
@@ -118,15 +131,18 @@ def _rank_mean(values: List[torch.Tensor]) -> torch.Tensor:
 
 def loss_and_grads(cfg: ModelConfig, mesh, params, batch
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
-                              List[torch.Tensor]]:
-    """(loss, {"xent", "aux"}, grads) of the whole batch: the grads are
-    whole, in ``tree_leaves`` order, on the first data rank's device."""
+                              List[List[torch.Tensor]]]:
+    """(loss, {"xent", "aux"}, grads) of the whole batch: ``grads[i][j]``
+    is leaf i's (``tree_leaves`` order) model block j
+    (``tensor_parallel.model_blocks``) on its holder."""
     devs = forward_devices(mesh)
     ranks = forward_ranks(mesh)
     n, groups = row_split(cfg, mesh, batch)
     home = devs[0]
     kw = {} if groups is None else {"moe_groups": groups}
-    total: List[torch.Tensor] = []
+    plans = tp.plan_leaves(cfg, mesh, params)
+    dtypes = [leaf.dtype for leaf in tree_leaves(params)]
+    acc: list = []
     losses, parts = [], []
     for r in range(n):
         dev = devs[r]
@@ -136,65 +152,80 @@ def loss_and_grads(cfg: ModelConfig, mesh, params, batch
                     for k, v in batch.items()}
         key = ("pass", tuple((k, tuple(v.shape), v.dtype)
                              for k, v in rows.items()), groups)
-        loss, metrics, leaves, grads = collectives.rank_work(
+        loss, metrics, grads = collectives.rank_work(
             key, ranks[r],
-            lambda: _rank_grads(cfg, params, dev, ranks[r], rows, kw))
-        with collectives.on_rank(ranks[0]):
-            for i, (p, g) in enumerate(zip(leaves, grads)):
-                g = (torch.zeros_like(p) if g is None else g).to(home)
-                if r:
-                    collectives.record("collective-permute",
-                                       g.numel() * g.element_size(), 2)
-                grads[i] = None
-                if r == 0:
-                    total.append(g)
-                else:
-                    total[i] = total[i] + g
-        del leaves, grads
+            lambda: _rank_grads(cfg, params, mesh, r, plans, rows, kw),
+            ranks=tp.model_group(mesh, r).ranks)
+        tp.block_grads(plans, mesh, r, grads, acc, dtypes)
+        del grads
         losses.append(loss.detach().to(home))
         parts.append({k: v.detach().to(home) for k, v in metrics.items()})
     if n > 1:
-        with collectives.on_rank(ranks[0]):
-            for i in range(len(total)):
-                total[i] = total[i] / n
+        pos = tp.model_positions(mesh)
+        for blocks in acc:
+            for j, g in enumerate(blocks):
+                with collectives.on_rank(pos[0][j]):
+                    blocks[j] = g / n
     return (_rank_mean(losses),
-            {k: _rank_mean([p[k] for p in parts]) for k in parts[0]}, total)
+            {k: _rank_mean([p[k] for p in parts]) for k in parts[0]}, acc)
 
 
-def _rank_grads(cfg: ModelConfig, params, dev, rank: int, rows, kw):
-    """One data rank's pass: the params gathered whole on ``dev``, then
-    (loss, metrics, the gathered leaves and their grads, both in
-    ``tree_leaves`` order, a grad None where unused)."""
-    local = gather(params, dev, rank=rank)
-    leaves = tree_leaves(local)
+def _rank_grads(cfg: ModelConfig, params, mesh, r: int, plans, rows, kw):
+    """Data rank ``r``'s pass over its model ranks: (loss, metrics,
+    grads), ``grads[i][m]`` the gradient of model rank m's tensor of
+    leaf i (None where it holds none or it is unused)."""
+    tree, leaves = tp.rank_params(cfg, params, mesh, r, plans)
+    flat = [(i, m, x) for i, per in enumerate(leaves)
+            for m, x in enumerate(per) if x is not None]
     with torch.enable_grad():
-        for p in leaves:
-            p.requires_grad_(True)
+        for _, _, x in flat:
+            x.requires_grad_(True)
         try:
-            loss, metrics = api.loss_fn(cfg, local, rows, **kw)
-            grads = list(torch.autograd.grad(loss, leaves,
-                                             allow_unused=True))
+            loss, metrics = api.loss_fn(cfg, tree, rows, **kw)
+            got = torch.autograd.grad(loss, [x for _, _, x in flat],
+                                      allow_unused=True)
         finally:
-            for p in leaves:
-                p.requires_grad_(False)
-    return loss, metrics, leaves, grads
+            for _, _, x in flat:
+                x.requires_grad_(False)
+    grads = [[None] * len(plans[0].pieces) for _ in plans]
+    for (i, m, _), g in zip(flat, got):
+        grads[i][m] = g
+    del tree, leaves
+    return loss, metrics, grads
 
 
-def apply_updates(cfg: AdamWConfig, state, grads: List[torch.Tensor]):
-    """Clip ``grads`` (whole, ``tree_leaves`` order) by their global norm
-    and take one AdamW step on the sharded ``state``, each block once on
-    its device: (state, {"grad_norm", "lr"}), ``state`` updated in
-    place."""
+def apply_updates(cfg: AdamWConfig, state, grads: List[List[torch.Tensor]]):
+    """Clip ``grads`` (``loss_and_grads``': by leaf, by model block) by
+    their global norm and take one AdamW step on the sharded ``state``,
+    each block once on its device: (state, {"grad_norm", "lr"}),
+    ``state`` updated in place."""
     params, mu, nu = (tree_leaves(t) for t in (state.params, state.opt.mu,
                                                 state.opt.nu))
     if not len(params) == len(mu) == len(nu) == len(grads):
         raise ValueError(f"params, grads, mu and nu have "
                          f"{[len(params), len(grads), len(mu), len(nu)]} "
                          f"leaves")
-    home = forward_ranks(state.opt.step.sharding.mesh)[0]
-    with torch.no_grad(), collectives.on_rank(home):
-        norm = global_norm(grads)
-        scale = _clip_scale(norm, cfg.grad_clip)
+    mesh = state.opt.step.sharding.mesh
+    tpd = mesh_axis_sizes(mesh).get("model", 1)
+    pos = tp.model_positions(mesh)
+    home = pos[0][0]
+    with torch.no_grad():
+        with collectives.on_rank(home):
+            norm = torch.zeros((), dtype=torch.float32,
+                               device=mesh.devices.flat[home])
+        for blocks in grads:
+            for j, g in enumerate(blocks):
+                at = pos[0][j]
+                with collectives.on_rank(at):
+                    sq = _square_sum(g)
+                if at != home:
+                    collectives.record("collective-permute",
+                                       sq.element_size(), 2, home)
+                with collectives.on_rank(home):
+                    norm = norm + sq.to(norm.device)
+        with collectives.on_rank(home):
+            norm = torch.sqrt(norm)
+            scale = _clip_scale(norm, cfg.grad_clip)
         step = int(state.opt.step.shards[0]) + 1
         lr = lr_at(cfg, step)
         bc1 = _f32(1) - _f32(cfg.b1) ** _f32(step)
@@ -205,12 +236,19 @@ def apply_updates(cfg: AdamWConfig, state, grads: List[torch.Tensor]):
                     and p.index == m.index == v.index):
                 raise ValueError("params and moments must be ShardedTensors "
                                  "placed under one spec a leaf")
+            regions = tp.model_blocks(tuple(p.shape), p.sharding.spec, tpd)
             for sl, pb, i in p.blocks():
-                dev = pb.device
-                gb = g[sl]
-                if i != home:
+                j = next(j for j, reg in enumerate(regions)
+                         if all(reg[d].start <= s.start and
+                                s.stop <= reg[d].stop
+                                for d, s in enumerate(sl)))
+                holder = pos[0][j]
+                gb = g[j][tuple(slice(s.start - r.start, s.stop - r.start)
+                                for s, r in zip(sl, regions[j]))]
+                if i != holder:
                     collectives.record("collective-permute",
                                        gb.numel() * gb.element_size(), 2, i)
+                dev = pb.device
                 key = ("update",) + tuple(
                     (tuple(t.shape), t.dtype, t.is_contiguous())
                     for t in (pb, gb, m.shards[i], v.shards[i]))
@@ -223,6 +261,19 @@ def apply_updates(cfg: AdamWConfig, state, grads: List[torch.Tensor]):
     return state, {"grad_norm": norm,
                    "lr": torch.tensor(lr, dtype=torch.float32,
                                       device=norm.device)}
+
+
+def whole_grads(params, grads: List[List[torch.Tensor]], device="cpu"
+                ) -> List[torch.Tensor]:
+    """``loss_and_grads``' gradients whole on ``device``, in
+    ``tree_leaves`` order: each leaf's model blocks concatenated along
+    its "model" dimension."""
+    out = []
+    for p, blocks in zip(tree_leaves(params), grads):
+        dim = next((d for d, e in enumerate(p.sharding.spec)
+                    if e == "model"), 0)
+        out.append(torch.cat([b.to(device) for b in blocks], dim=dim))
+    return out
 
 
 def train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, state, batch):

@@ -36,13 +36,12 @@ storage.  ``ShardedTensor.full(device)`` gathers a leaf back whole,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import collectives
 from repro_torch.launch.mesh import dp_axes, mesh_axis_sizes
 
 
@@ -445,22 +444,14 @@ class ShardedTensor:
                 out.append((sl, t, i))
         return out
 
-    def full(self, device=None, *, copy: bool = False,
-             rank: Optional[int] = None) -> torch.Tensor:
+    def full(self, device=None, *, copy: bool = False) -> torch.Tensor:
         """The whole leaf on ``device`` (default: the first mesh
         device's).  A leaf held whole on ``device`` comes back as that
-        storage itself unless ``copy``.  ``rank``: the mesh position
-        (``mesh.devices.flat`` order) that gathers it, for
-        ``collectives.counting``: a leaf held in g > 1 distinct blocks
-        is an all-gather of group g on that rank."""
+        storage itself unless ``copy``.  (A step's gathers, which
+        ``collectives.counting`` records, go through
+        ``tensor_parallel.take_region``.)"""
         dev = torch.device(device) if device is not None else \
             self.shards[0].device
-        if rank is not None:
-            groups = len({_key(sl) for sl in self.index})
-            if groups > 1:
-                collectives.record(
-                    "all-gather", self.shape.numel() * self.dtype.itemsize,
-                    groups, rank)
         by_block: Dict[tuple, torch.Tensor] = {}
         for sl, t in zip(self.index, self.shards):
             k = _key(sl)
@@ -511,11 +502,10 @@ def device_put(tree, shardings, *, may_alias: bool = False):
                     shardings)
 
 
-def gather(tree, device=None, *, rank: Optional[int] = None):
+def gather(tree, device=None):
     """Every ``ShardedTensor`` of ``tree`` whole on ``device`` (default:
-    its first mesh device's), other leaves as they are; ``rank`` as
-    ``ShardedTensor.full``'s."""
-    return tree_map(lambda x: x.full(device, rank=rank)
+    its first mesh device's), other leaves as they are."""
+    return tree_map(lambda x: x.full(device)
                     if isinstance(x, ShardedTensor) else x, tree)
 
 

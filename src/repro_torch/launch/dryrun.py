@@ -17,27 +17,35 @@ Which step.  Train cells trace ``distributed/shard_train.py``'s
 ``train_step`` on the state placed under ``state_pspecs``.  Prefill and
 decode cells trace ``api.prefill_step`` / ``api.decode_step`` the way
 ``shard_train.loss_and_grads`` runs a data rank: the rank's rows by
-``row_split`` and ``batch_pspecs`` (decode: its rows of the caches under
-``cache_pspecs``, each block of them gathered from its holders), the
-params gathered whole on the rank's device, and rows that do not divide
-running whole once (each rank's MoE groups are those of its own
-tokens).  These are the port's single-controller semantics, not
-GSPMD's: the model axis splits storage, not compute (ROADMAP item 39),
-so only the model-coordinate-0 device of each data rank runs the model,
-and the first data rank's device also sums every rank's gradients.
+``row_split`` and ``batch_pspecs`` over its model ranks
+(``tensor_parallel.rank_params``: each split sublayer on every model
+rank's block, the rest whole on the first), decode on its rows of the
+caches under ``cache_pspecs`` (a ``Split`` of the model ranks' blocks
+where a split sublayer's cache splits over "model", else gathered
+whole), and rows that do not divide running whole once (each rank's
+MoE groups are those of its own tokens).  Every model rank of a data
+rank runs its share; the first also runs the residual stream, and the
+first data rank's positions hold and sum the gradients.
 
 Per-device figures are the busiest device's: the device whose own
 FLOPs, bytes and collective bytes give the longest bound time at the
 H100's rates; the record names it (``busiest_device``).  Work of the
 same shape and role is traced once (``meta`` only;
 ``collectives.rank_work``): data ranks whose rows have the same shapes
-get the first rank's pass (its gather, forward and backward) — its
-counts, its collective events re-recorded on their own rank, and
-outputs of the same shapes — and blocks of the same shape get the first
-one's AdamW update counts.  The first rank and its blocks come first,
-so the busiest device's work and memory are traced; the collective
-bytes are kept per rank (``collective_bytes_by_rank``) and every
-gradient move runs.
+get the first rank's pass (its gathers, forward and backward over its
+model ranks) — its counts, its collective events re-recorded on their
+own ranks, and outputs of the same shapes — and blocks of the same
+shape get the first one's AdamW update counts.  Within a pass, the
+model ranks of a split sublayer between its first and its last get the
+first model rank's section (``StepCounter.sections``): its forward and
+backward counts, its outputs' shapes and gradients of its inputs'
+shapes.  The last rank is traced, because under remat its recompute
+stops before its final product where the others recompute whole; so
+every rank's counts are those of tracing it (held by
+``tests/test_torch_dryrun.py``), though a replayed rank's memory is not
+traced.  The first ranks come first, so the busiest device's work and
+memory are traced; the collective bytes are kept per rank
+(``collective_bytes_by_rank``) and every gradient move runs.
 
 What each field is in the port:
 
@@ -91,12 +99,13 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.configs import (ARCH_NAMES, SHAPES, get_config,
                                  shape_applicable)
 from repro_torch.distributed import collectives
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import (NamedSharding, P,
                                               ShardedTensor, ShardingPolicy,
                                               cache_pspecs, device_put,
-                                              gather, params_pspecs,
-                                              state_pspecs, to_shardings,
-                                              tree_map)
+                                              params_pspecs, state_pspecs,
+                                              to_shardings,
+                                              tree_map_with_path)
 from repro_torch.distributed.shard_train import (forward_devices,
                                                  forward_ranks, row_split,
                                                  train_step)
@@ -190,6 +199,7 @@ class StepCounter(TorchDispatchMode, collectives.CollectiveCounter,
         TorchDispatchMode.__init__(self)
         collectives.CollectiveCounter.__init__(self)
         self.reuse_passes = reuse_passes
+        self.replayed: set = set()
         self.ranks: Dict[Optional[int], _RankCounts] = \
             collections.defaultdict(_RankCounts)
         self._live: Dict[int, tuple] = {}
@@ -282,31 +292,177 @@ class StepCounter(TorchDispatchMode, collectives.CollectiveCounter,
     def kernel_end(self, counter) -> None:
         self._depth -= 1
 
+    # -- replayed model ranks (collectives.CollectiveCounter) ------------
+    @contextlib.contextmanager
+    def _quiet(self):
+        """Ops inside are not counted (their allocations are tracked)."""
+        self._depth += 1
+        try:
+            yield
+        finally:
+            self._depth -= 1
+
+    def sections(self, ranks: List[int], section, inputs) -> list:
+        """A split sublayer's model ranks: with ``reuse_passes`` on
+        ``meta``, the first and the last rank's sections traced and each
+        rank between them replayed from the first's (``_Replay``): its
+        forward counts and outputs' layouts, its backward counts, and
+        gradients of its inputs' layouts."""
+        tensors = [x for xs in inputs for x in xs
+                   if isinstance(x, torch.Tensor)]
+        if not self.reuse_passes or len(ranks) < 3 or \
+                not all(x.is_meta for x in tensors):
+            return super().sections(ranks, section, inputs)
+        probe = _SectionProbe(self, ranks[0])
+        self.replayed.update(ranks[1:-1])
+        outs = [probe.trace(section, inputs[0])]
+        for m in range(1, len(ranks) - 1):
+            outs.append(_Replay.apply(probe, ranks[m], *[
+                x for x in inputs[m] if _differentiable(x)]))
+        outs.append(section(len(ranks) - 1, inputs[-1]))
+        return outs
+
     # -- reused work (collectives.CollectiveCounter) ---------------------
-    def rank_work(self, key, rank: int, fn):
+    def rank_work(self, key, ranks: List[int], fn):
         if not self.reuse_passes:
             return fn()
         if key in self._passes:
-            spec, delta, events = self._passes[key]
-            self.ranks[rank].add(delta)
-            self.events.extend(e._replace(rank=rank) for e in events)
-            self.reused_ranks.add(rank)
+            spec, deltas, events = self._passes[key]
+            if len(deltas) != len(ranks):
+                raise RuntimeError("reused work on another number of ranks")
+            for rank, delta in zip(ranks, deltas):
+                self.ranks[rank].add(delta)
+            self.events.extend(e._replace(rank=ranks[i]) for i, e in events)
+            self.reused_ranks.update(ranks)
             self._depth += 1
             try:
                 return _materialize(spec)
             finally:
                 self._depth -= 1
-        before = self.ranks[rank].copy()
+        before = [self.ranks[r].copy() for r in ranks]
         n_events = len(self.events)
         out = fn()
-        delta = self.ranks[rank].copy()
-        delta.add(before, -1)
+        deltas = []
+        for r, b in zip(ranks, before):
+            delta = self.ranks[r].copy()
+            delta.add(b, -1)
+            deltas.append(delta)
         events = self.events[n_events:]
-        if any(e.rank != rank for e in events):
+        if any(e.rank not in ranks for e in events):
             raise RuntimeError("reused work moved data for another rank")
-        self._passes[key] = (_spec_of(out), delta, events)
-        self.traced_ranks.add(rank)
+        self._passes[key] = (_spec_of(out), deltas,
+                             [(ranks.index(e.rank), e) for e in events])
+        self.traced_ranks.update(r for r in ranks if r not in self.replayed)
         return out
+
+
+def _differentiable(t) -> bool:
+    return isinstance(t, torch.Tensor) and (t.is_floating_point()
+                                            or t.is_complex())
+
+
+def _layout(t: Optional[torch.Tensor]):
+    return None if t is None else (tuple(t.shape), t.stride(), t.dtype)
+
+
+class _SectionProbe:
+    """The first model rank's section, measured to replay on the ranks
+    between the first and the last (``StepCounter.sections``): its
+    forward counts and outputs' layouts, and its backward counts (from
+    its outputs' gradients to its inputs'), added to each replayed rank
+    that took part in the forward (``ranks``)."""
+
+    def __init__(self, counter: StepCounter, rank: int):
+        self.counter, self.rank, self.ranks = counter, rank, []
+
+    def counts(self) -> _RankCounts:
+        return self.counter.ranks[self.rank].copy()
+
+    def quiet_empty(self, layouts, rank: int) -> tuple:
+        with self.counter._quiet(), collectives.on_rank(rank):
+            return tuple(None if s is None else torch.empty_strided(
+                s[0], s[1], dtype=s[2], device="meta") for s in layouts)
+
+    def trace(self, section, xs) -> tuple:
+        idx = [i for i, x in enumerate(xs) if _differentiable(x)]
+        xs = list(xs)
+        with self.counter._quiet():
+            for i, x in zip(idx, _ProbeIn.apply(self, *[xs[i] for i in idx])):
+                xs[i] = x
+        before = self.counts()
+        outs = section(0, xs)
+        self.fwd = self.counts()
+        self.fwd.add(before, -1)
+        self.layouts = [_layout(o) for o in outs]
+        live = [o for o in outs if o is not None]
+        with self.counter._quiet():
+            got = iter(_ProbeOut.apply(self, *live))
+        return tuple(None if o is None else next(got) for o in outs)
+
+    def begin(self) -> None:
+        self.before = self.counts()
+
+    def end(self) -> None:
+        delta = self.counts()
+        delta.add(self.before, -1)
+        for r in self.ranks:
+            self.counter.ranks[r].add(delta)
+
+
+class _ProbeIn(torch.autograd.Function):
+    """The first rank's section's inputs; backward its section's end."""
+
+    @staticmethod
+    def forward(ctx, probe, *xs):
+        ctx.probe = probe
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.probe.end()
+        return (None,) + grads
+
+
+class _ProbeOut(torch.autograd.Function):
+    """The first rank's section's outputs; backward its section's
+    start."""
+
+    @staticmethod
+    def forward(ctx, probe, *xs):
+        ctx.probe = probe
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.probe.begin()
+        return (None,) + grads
+
+
+class _Replay(torch.autograd.Function):
+    """A model rank's section replayed from the first one's: its
+    outputs' layouts and its forward counts; backward, gradients of its
+    inputs' layouts (its counts come with the first rank's section's
+    backward, ``_SectionProbe.end``).  It saves an input, so a remat's
+    recompute runs it again as it runs a section between the first and
+    the last."""
+
+    @staticmethod
+    def forward(ctx, probe, rank, *xs):
+        ctx.probe, ctx.rank = probe, rank
+        ctx.set_materialize_grads(False)
+        ctx.layouts = [_layout(x) for x in xs]
+        probe.ranks.append(rank)
+        probe.counter.ranks[rank].add(probe.fwd)
+        if xs:
+            ctx.save_for_backward(xs[0])
+        return probe.quiet_empty(probe.layouts, rank)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors
+        return (None, None) + ctx.probe.quiet_empty(ctx.layouts, ctx.rank)
 
 
 def _spec_of(tree):
@@ -497,10 +653,12 @@ def _rows(st: ShardedTensor, dim: int, r: int, n: int, device, rank: int):
 def serve_step(cfg, mesh, kind: str, params, batch, caches=None, pos=0):
     """A prefill or decode step on ``mesh`` as ``shard_train`` runs a data
     rank's pass: each rank's rows of the batch (and of the caches) on
-    its device, the params gathered whole there.  Returns one output per
+    its model ranks, each split sublayer on every model rank's block
+    (``tensor_parallel.rank_params``).  Returns one output per data
     rank that ran."""
     devs, ranks = forward_devices(mesh), forward_ranks(mesh)
     n, _ = row_split(cfg, mesh, batch)
+    plans = tp.plan_leaves(cfg, mesh, params)
     outs = []
     for r in range(n):
         dev = devs[r]
@@ -510,19 +668,54 @@ def serve_step(cfg, mesh, kind: str, params, batch, caches=None, pos=0):
                     for k, v in batch.items()}
         key = (kind, tuple((k, tuple(v.shape)) for k, v in rows.items()))
         outs.append(collectives.rank_work(
-            key, ranks[r], lambda: _serve_rank(cfg, kind, params, caches,
-                                               rows, pos, r, n, dev,
-                                               ranks[r])))
+            key, ranks[r], lambda: _serve_rank(cfg, kind, params, plans,
+                                               caches, rows, pos, r, n,
+                                               mesh),
+            ranks=tp.model_group(mesh, r).ranks))
     return outs
 
 
-def _serve_rank(cfg, kind, params, caches, rows, pos, r, n, dev, rank):
-    local = gather(params, dev, rank=rank)
+def _serve_rank(cfg, kind, params, plans, caches, rows, pos, r, n, mesh):
+    local, _ = tp.rank_params(cfg, params, mesh, r, plans)
     if kind == "prefill":
         return api.prefill_step(cfg, local, rows)[:2]
-    local_c = tree_map(lambda st: _rows(st, 1, r, n, dev, rank), caches)
+    local_c = _rank_caches(caches, mesh, r, n)
     x = rows["embeds"] if "embeds" in rows else rows["tokens"]
     return api.decode_step(cfg, local, local_c, x, pos)
+
+
+def _rank_caches(caches, mesh, r: int, n: int):
+    """Data rank ``r``'s rows of the decode caches: a ``Split`` of the
+    model ranks' blocks where ``cache_pspecs`` splits a split
+    sublayer's cache over "model" (attention k/v by kv head, Mamba's
+    channels), else the rows whole on the data rank's device (a cache
+    sharded by sequence over "model" is gathered as the unsplit step
+    gathers it)."""
+    group = tp.model_group(mesh, r)
+    columns = [set(row[m] for row in tp.model_positions(mesh))
+               for m in range(group.tp)]
+
+    def one(path, st):
+        name = path.rsplit("/", 1)[-1]
+        spec = tuple(st.sharding.spec)
+        split = group.tp > 1 and (
+            (name in ("k", "v") and spec[3] == "model")
+            or (name in ("conv", "ssm") and "model" in spec))
+        if not split:
+            return _rows(st, 1, r, n, group.devices[0], group.ranks[0])
+        size = st.shape[1] // n
+        parts = []
+        for m, blk in enumerate(tp.model_blocks(tuple(st.shape), spec,
+                                                group.tp)):
+            region = list(blk)
+            region[1] = slice(r * size, (r + 1) * size)
+            with collectives.on_rank(group.ranks[m]):
+                parts.append(tp.take_region(st, tuple(region),
+                                            group.devices[m],
+                                            group.ranks[m], columns[m]))
+        return tp.Split(group, parts)
+
+    return tree_map_with_path(one, caches)
 
 
 def build_cell(cfg, shape_name: str, mesh, policy=ShardingPolicy()):
@@ -603,7 +796,7 @@ def summarize(counts: StepCounts, mesh, static: float,
                 "peak_all_devices_bytes": int(c.peak_all)},
         busiest_device={"index": int(rank), "coords": {
             a: int(x) for a, x in zip(mesh.axis_names, coords)}},
-        reused_ranks=len(c.reused_ranks - c.traced_ranks),
+        reused_ranks=len((c.reused_ranks | c.replayed) - c.traced_ranks),
         collective_bytes_by_rank=counts.collective_bytes_by_rank())
     return m
 

@@ -6,9 +6,10 @@
 Reads the port's records (``launch/dryrun.py``: ``trace_s``, ``step``)
 and the reference's alike (``compile_s``, ``scan_graph``).  Times are at
 the NVIDIA H100 SXM's rates (``launch/analysis.py``); the diagnoses
-speak of the port's step: eager score chunks, the ZeRO-3 gather of the
-params on each data rank's device, and a model axis that splits storage
-but not compute (ROADMAP item 39).
+speak of the port's step: eager score chunks, the whole-tree ZeRO-3
+gather of a data rank's blocks (ROADMAP item 43), and the sublayers the
+model axis does not split yet — MoE experts, RWKV, sequence-sharded
+decode caches (items 40-42) — which run whole on the first model rank.
 """
 from __future__ import annotations
 
@@ -115,25 +116,25 @@ def diagnose(r) -> str:
     if dom == "memory":
         ratio = ro["hbm_bytes"] / max(ro["min_hbm_bytes"], 1)
         if r["shape"].startswith("decode") or r["shape"].startswith("long"):
-            return (f"{ratio:.0f}x min traffic: whole params gathered and "
-                    "read on one device a data rank, decode caches copied; "
-                    "fix: split compute on the model axis (item 39)")
+            return (f"{ratio:.0f}x min traffic: unsplit sublayers' params "
+                    "gathered and read on the first model rank, decode "
+                    "caches copied; fix: items 40-42")
         return (f"{ratio:.0f}x min traffic: eager score chunks, remat "
                 "recompute and the ZeRO-3 gather's copies; fix: a flash "
-                "kernel on the train path + split compute (item 39)")
+                "kernel on the train path + per-layer gathers (item 43)")
     if dom == "collective":
-        return ("move bound: every rank's whole gradients go to the first "
-                "rank, params gathered whole; fix: reduce-scatter + split "
-                "compute (item 39)")
-    return ("compute-bound on one device a data rank: the model axis "
-            "runs no product (item 39)")
+        return ("move bound: each data rank's gradient blocks go to their "
+                "holders point to point; fix: reduce-scatter")
+    return ("compute-bound on the first model rank: the unsplit sublayers "
+            "(MoE, RWKV) run there whole (items 41-42)")
 
 
 def perf_table(d: Path):
     """§Perf: baseline vs variants for the three hillclimb cells, plus
     the deployed memory model (attention scores kept on chip, every op
-    output crossing device memory once, the model axis splitting
-    compute), which the port's eager step is not."""
+    output crossing device memory once, the model axis splitting every
+    sublayer's compute), which the port's eager step is not: it
+    materializes score chunks and runs MoE and RWKV whole."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.analysis import deployed_traffic
     cells = [("olmo-1b", "train_4k"),

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.blocks import apply_rope, normal, rope_freqs
 
 NEG_INF = -1e30
@@ -40,9 +42,12 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator, shape_prefix=(),
 
 
 def _qkv(cfg: ModelConfig, p, x, positions):
+    """q, k, v of the heads ``p`` holds (all of them, or a model rank's:
+    the head counts are read from ``wq``/``wk``)."""
     cd = cfg.dtype("compute")
     B, S, _ = x.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    Hq, Hkv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     x = x.to(cd)
     q = torch.einsum("bsd,dh->bsh", x, p["wq"].to(cd)).reshape(B, S, Hq, Dh)
     k = torch.einsum("bsd,dh->bsh", x, p["wk"].to(cd)).reshape(B, S, Hkv, Dh)
@@ -57,7 +62,7 @@ def _qkv(cfg: ModelConfig, p, x, positions):
 def _merge_heads(cfg: ModelConfig, p, o):
     B, S = o.shape[:2]
     cd = cfg.dtype("compute")
-    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    o = o.reshape(B, S, o.shape[2] * o.shape[3])
     return torch.einsum("bsh,hd->bsd", o.to(cd), p["wo"].to(cd))
 
 
@@ -184,9 +189,15 @@ def decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     """One-token step. x: (B, 1, D); cache: (B, S, Hkv, Dh);
     pos: scalar or (B,) per-slot positions (continuous batching).
     Returns (out, new cache_k, new cache_v); the caches passed in are
-    not written."""
+    not written.  ``p`` a ``tensor_parallel.Split``: each model rank
+    its heads, on its kv heads' block of the caches (a ``Split``, or
+    whole caches: each rank reads its kv heads, and the new rows go
+    back whole)."""
+    if isinstance(p, tp.Split):
+        return _split_decode_attn(cfg, p, x, cache_k, cache_v, pos)
     B = x.shape[0]
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    Hq, Hkv = p["wq"].shape[-1] // Dh, cache_k.shape[2]
     g = Hq // Hkv
     dev = x.device
     pos_b1 = positions_b1(pos, B, dev)
@@ -209,8 +220,60 @@ def decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     return _merge_heads(cfg, p, o), ck, cv
 
 
+def _split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
+    g = p.group
+    whole = not isinstance(cache_k, tp.Split)
+
+    def rank(m, q, xm, ck, cv):
+        return decode_attn(cfg, q, xm, ck, cv, pos)
+
+    if whole:
+        heads = [tp.kv_heads(cfg, g.tp, m) for m in range(g.tp)]
+        ks = [cache_k[:, :, a:b].to(d) for (a, b), d in zip(heads,
+                                                             g.devices)]
+        vs = [cache_v[:, :, a:b].to(d) for (a, b), d in zip(heads,
+                                                             g.devices)]
+    else:
+        ks, vs = cache_k.parts, cache_v.parts
+    outs = tp.run(g, p.parts, rank, x, ks, vs)
+    out = tp.reduce(g, [o[0] for o in outs])
+    if not whole:
+        return (out, tp.Split(g, [o[1] for o in outs]),
+                tp.Split(g, [o[2] for o in outs]))
+    # the new rows back whole: each kv head from the first rank that has it
+    B = x.shape[0]
+    pos_b1 = positions_b1(pos, B, x.device)
+    rows = torch.arange(B, device=x.device)
+    new = []
+    for c, i in ((cache_k, 1), (cache_v, 2)):
+        got, upto = [], 0
+        for m, (a, b) in enumerate(heads):
+            if b > upto:
+                at = outs[m][i][:, :, upto - a:b - a].to(x.device)
+                got.append(at[rows, pos_b1[:, 0]])
+                upto = b
+        row = torch.cat(got, dim=1)
+        collectives.record("all-gather", row.numel() * row.element_size(),
+                           g.tp, g.ranks[0])
+        new.append(c.index_put((rows, pos_b1[:, 0]), row.to(c.dtype)))
+    return out, new[0], new[1]
+
+
 def attn_block(cfg: ModelConfig, p, x, positions, *, causal=True):
-    """Full attention sub-block for train/prefill: returns (out, (k, v))."""
+    """Full attention sub-block for train/prefill: returns (out, (k, v)).
+    ``p`` a ``tensor_parallel.Split``: each model rank its heads,
+    (k, v) ``Split``s of the ranks' kv heads."""
+    if isinstance(p, tp.Split):
+        outs = tp.run(p.group, p.parts, lambda m, q, xm: _attn_rank(
+            cfg, q, xm, positions.to(xm.device), causal), x)
+        return (tp.reduce(p.group, [o[0] for o in outs]),
+                (tp.Split(p.group, [o[1] for o in outs]),
+                 tp.Split(p.group, [o[2] for o in outs])))
     q, k, v = _qkv(cfg, p, x, positions)
     o = full_attention(cfg, q, k, v, causal=causal)
     return _merge_heads(cfg, p, o), (k, v)
+
+
+def _attn_rank(cfg, p, x, positions, causal):
+    out, (k, v) = attn_block(cfg, p, x, positions, causal=causal)
+    return out, k, v

@@ -20,6 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ip import SiteSpec, dtype_name, is_integer_dtype
+from repro_torch.distributed import collectives
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.activation.ref import KINDS
 from repro_torch.kernels.pool2d.ref import (MODES, check_pool_geometry,
                                             pool2d_out_shape)
@@ -98,6 +100,13 @@ def gelu(x):
 
 
 def apply_ffn(cfg: ModelConfig, p, x):
+    """The FFN; ``p`` a ``tensor_parallel.Split``: column-parallel
+    ``w_gate``/``w_up``/``w_in``, row-parallel ``w_down`` on each model
+    rank, the ranks' outputs summed."""
+    if isinstance(p, tp.Split):
+        outs = tp.run(p.group, p.parts,
+                      lambda m, q, xm: apply_ffn(cfg, q, xm), x)
+        return tp.reduce(p.group, [o[0] for o in outs])
     cd = cfg.dtype("compute")
     x = x.to(cd)
     if cfg.activation in ("swiglu", "geglu"):
@@ -125,12 +134,41 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator, device="cpu"):
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens):
-    return p["embed"][tokens.long()].to(cfg.dtype("compute"))
+    """Rows of ``p["embed"]``; split by rows over the model ranks, each
+    rank looks up its vocabulary range, writes zeros elsewhere, and the
+    ranks' rows are summed (one nonzero term: exact)."""
+    e = p["embed"]
+    if isinstance(e, tp.Split):
+        return tp.reduce(e.group, [o[0] for o in tp.run(
+            e.group, e.parts, lambda m, blk: _embed_rows(cfg, blk, tokens,
+                                                         m))])
+    return e[tokens.long()].to(cfg.dtype("compute"))
+
+
+def _embed_rows(cfg: ModelConfig, blk, tokens, m: int):
+    v = blk.shape[0]
+    t = tokens.to(blk.device).long() - m * v
+    inside = (t >= 0) & (t < v)
+    rows = blk[t.clamp(0, v - 1)]
+    return torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device)
+                       ).to(cfg.dtype("compute"))
 
 
 def lm_logits(cfg: ModelConfig, p, x):
+    """The logits; with the head split over the model ranks (columns of
+    ``lm_head`` or rows of the tied ``embed``), a
+    ``tensor_parallel.VocabShards`` of each rank's columns
+    (``tensor_parallel.gathered`` makes them whole)."""
     cd = cfg.dtype("compute")
-    w = (p["embed"].T if cfg.tie_embeddings else p["lm_head"]).to(cd)
+    w = p["embed"] if cfg.tie_embeddings else p["lm_head"]
+    if isinstance(w, tp.Split):
+        outs = tp.run(w.group, w.parts, lambda m, blk, xm: torch.einsum(
+            "...d,dv->...v", xm.to(cd), (blk.T if cfg.tie_embeddings
+                                         else blk).to(cd)
+        ).to(cfg.dtype("logit")), x)
+        return tp.VocabShards(w.group, [o[0] for o in outs])
+    w = (w.T if cfg.tie_embeddings else w).to(cd)
     return torch.einsum("...d,dv->...v", x.to(cd), w).to(cfg.dtype("logit"))
 
 
@@ -138,11 +176,43 @@ def lm_logits(cfg: ModelConfig, p, x):
 # Loss
 # ---------------------------------------------------------------------------
 def softmax_xent(logits, labels, *, z_loss: float = 1e-4):
-    """Token-mean cross entropy (f32 accumulation) + z-loss regularizer."""
+    """Token-mean cross entropy (f32 accumulation) + z-loss regularizer.
+    ``logits`` a ``tensor_parallel.VocabShards``: vocabulary-parallel,
+    the max, the sum of exponentials and the target's logit each
+    reduced over the model ranks in rank order."""
+    if isinstance(logits, tp.VocabShards):
+        return _split_xent(logits, labels, z_loss)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
+
+
+def _split_xent(logits, labels, z_loss: float):
+    g = logits.group
+    f32 = torch.float32
+    maxes = []
+    for rank, part in zip(g.ranks, logits.parts):
+        with collectives.on_rank(rank):
+            maxes.append(part.detach().to(f32).amax(dim=-1))
+    top = collectives.model_max(maxes, g.ranks)
+
+    def local(m, _, part):
+        lf = part.to(f32)
+        v = lf.shape[-1]
+        se = torch.exp(lf - top.to(lf.device)[..., None]).sum(dim=-1)
+        t = labels.to(lf.device).long() - m * v
+        inside = (t >= 0) & (t < v)
+        ll = torch.gather(lf, -1, t.clamp(0, v - 1)[..., None])[..., 0]
+        return se, torch.where(inside, ll, torch.zeros((), dtype=f32,
+                                                       device=lf.device))
+
+    outs = tp.run(g, None, local, list(logits.parts))
+    lse = torch.log(tp.reduce(g, [o[0] for o in outs])) + top
+    loss = torch.mean(lse - tp.reduce(g, [o[1] for o in outs]))
     if z_loss:
         loss = loss + z_loss * torch.mean(torch.square(lse))
     return loss

@@ -21,6 +21,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
                                        init_embed, init_ffn, init_norm,
@@ -28,7 +29,7 @@ from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
 from repro_torch.models.frontends import resolve_device
 from repro_torch.models.transformer import (_group, _sinusoidal, _stack,
                                             _unbind_groups, make_generator,
-                                            remat_group)
+                                            remat_group, stream_rank)
 
 
 def _init_enc_block(cfg, gen, prefix, device):
@@ -75,12 +76,13 @@ def encode(cfg: ModelConfig, params, embeds):
         x = x + _sinusoidal(cfg, positions)
 
     def body(p, x):
-        h = apply_norm(cfg, p["ln1"], x)
-        out, _ = attn_mod.attn_block(cfg, p["attn"], h, positions,
-                                     causal=False)
-        x = x + out.to(x.dtype)
-        h2 = apply_norm(cfg, p["ln2"], x)
-        return x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+        with stream_rank(p):
+            h = apply_norm(cfg, p["ln1"], x)
+            out, _ = attn_mod.attn_block(cfg, p["attn"], h, positions,
+                                         causal=False)
+            x = x + out.to(x.dtype)
+            h2 = apply_norm(cfg, p["ln2"], x)
+            return x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
 
     for p in _unbind_groups(params["enc_blocks"], cfg.enc_layers):
         x = remat_group(cfg, body, p, x)
@@ -113,16 +115,17 @@ def decode_full(cfg: ModelConfig, params, enc_out, tokens,
         x = x + _sinusoidal(cfg, positions)
 
     def body(p, x):
-        h = apply_norm(cfg, p["ln1"], x)
-        out, (k, v) = attn_mod.attn_block(cfg, p["self_attn"], h, positions,
-                                          causal=True)
-        x = x + out.to(x.dtype)
-        hx = apply_norm(cfg, p["ln_x"], x)
-        out, ck, cv = _cross_attn(cfg, p["cross_attn"], hx, enc_out)
-        x = x + out.to(x.dtype)
-        h2 = apply_norm(cfg, p["ln2"], x)
-        x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
-        return x, {"k": k, "v": v, "xk": ck, "xv": cv}
+        with stream_rank(p):
+            h = apply_norm(cfg, p["ln1"], x)
+            out, (k, v) = attn_mod.attn_block(cfg, p["self_attn"], h,
+                                              positions, causal=True)
+            x = x + out.to(x.dtype)
+            hx = apply_norm(cfg, p["ln_x"], x)
+            out, ck, cv = _cross_attn(cfg, p["cross_attn"], hx, enc_out)
+            x = x + out.to(x.dtype)
+            h2 = apply_norm(cfg, p["ln2"], x)
+            x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+            return x, {"k": k, "v": v, "xk": ck, "xv": cv}
 
     caches = []
     for p in _unbind_groups(params["dec_blocks"], cfg.n_layers):
@@ -157,13 +160,13 @@ def prefill(cfg: ModelConfig, params, batch, *, pad_to=None):
     enc_out = encode(cfg, params, batch["embeds"])
     x, caches = decode_full(cfg, params, enc_out, batch["tokens"],
                             collect_cache=True)
-    logits = lm_logits(cfg, params, x[:, -1:, :])[:, 0]
+    logits = tp.gathered(lm_logits(cfg, params, x[:, -1:, :]))[:, 0]
     S = batch["tokens"].shape[1]
     if pad_to and pad_to > S:
         pad = pad_to - S
         for key in ("k", "v"):   # (L, B, S, Hkv, Dh)
-            caches[key] = torch.nn.functional.pad(
-                caches[key], (0, 0, 0, 0, 0, pad))
+            caches[key] = tp.smap(lambda t: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, pad)), caches[key])
     return logits, caches, S
 
 
@@ -189,7 +192,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
         x = x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
         outs.append({"k": ck, "v": cv, "xk": c["xk"], "xv": c["xv"]})
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = lm_logits(cfg, params, x)[:, 0]
+    logits = tp.gathered(lm_logits(cfg, params, x))[:, 0]
     return logits, _stack(outs)
 
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.mamba_scan.scan import selective_scan
 from repro_torch.models.blocks import normal
 
@@ -51,13 +52,21 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, shape_prefix=(),
     }
 
 
-def _ssm_inputs(cfg: ModelConfig, p, x1):
-    """x1: (..., di) post-conv activations -> (dt, B, C) selective params."""
+def _xdb(cfg: ModelConfig, p, x1):
+    """x1 (..., di) through ``x_proj``: (dt_rank + 2 d_state) columns (a
+    model rank's part of them from its di rows)."""
+    cd = cfg.dtype("compute")
+    return torch.einsum("...i,ij->...j", x1.to(cd), p["x_proj"].to(cd))
+
+
+def _ssm_inputs(cfg: ModelConfig, p, x1, xdb=None):
+    """x1: (..., di) post-conv activations -> (dt, B, C) selective params
+    (``xdb``: ``_xdb``'s sum over the model ranks, where split)."""
     mc = cfg.mamba
     ds, dtr = mc.d_state, cfg.dt_rank
     cd = cfg.dtype("compute")
     f32 = torch.float32
-    xdb = torch.einsum("...i,ij->...j", x1.to(cd), p["x_proj"].to(cd))
+    xdb = _xdb(cfg, p, x1) if xdb is None else xdb
     dt, Bp, Cp = torch.split(xdb, [dtr, ds, ds], dim=-1)
     dt = F.softplus(
         torch.einsum("...r,ri->...i", dt, p["dt_proj"].to(cd)).to(f32)
@@ -79,8 +88,8 @@ def _in_conv(cfg: ModelConfig, p, x):
     return x1_raw, z, F.silu(x1)
 
 
-def _operands(cfg: ModelConfig, p, x1):
-    dt, Bp, Cp = _ssm_inputs(cfg, p, x1)
+def _operands(cfg: ModelConfig, p, x1, xdb=None):
+    dt, Bp, Cp = _ssm_inputs(cfg, p, x1, xdb)
     A = -torch.exp(p["A_log"].to(torch.float32))            # (di, ds)
     return x1.to(torch.float32), dt, Bp, Cp, A
 
@@ -92,15 +101,44 @@ def scan_operands(cfg: ModelConfig, p, x):
     return _operands(cfg, p, _in_conv(cfg, p, x)[2])
 
 
-def _mamba_core(cfg: ModelConfig, p, x):
+def _mamba_out(cfg: ModelConfig, p, x1, z, xdb=None):
+    """The scan and the gated out-projection: (out, h_final)."""
     cd = cfg.dtype("compute")
-    x1_raw, z, x1 = _in_conv(cfg, p, x)
-    x1f, dt, Bp, Cp, A = _operands(cfg, p, x1)
+    x1f, dt, Bp, Cp, A = _operands(cfg, p, x1, xdb)
     ys, h_final = selective_scan(x1f, dt, Bp, Cp, A)
     y = ys + x1f * p["D"].to(torch.float32)
     y = y.to(cd) * F.silu(z)
     out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(cd))
+    return out, h_final
+
+
+def _mamba_core(cfg: ModelConfig, p, x):
+    """(out, x1_raw, h_final).  ``p`` a ``tensor_parallel.Split``: each
+    model rank its ``d_inner`` channels — ``x_proj``'s product summed
+    over the ranks, the scan on the rank's (B, S, di/tp, ds) operands,
+    ``out_proj`` row-parallel and the outputs summed; x1_raw and
+    h_final ``Split``s of the ranks' channels."""
+    if isinstance(p, tp.Split):
+        return _split_mamba_core(cfg, p, x)
+    x1_raw, z, x1 = _in_conv(cfg, p, x)
+    out, h_final = _mamba_out(cfg, p, x1, z)
     return out, x1_raw, h_final
+
+
+def _split_mamba_core(cfg: ModelConfig, p, x):
+    g = p.group
+
+    def first(m, q, xm):
+        x1_raw, z, x1 = _in_conv(cfg, q, xm)
+        return _xdb(cfg, q, x1), x1, z, x1_raw
+
+    ins = tp.run(g, p.parts, first, x)
+    xdb = tp.reduce(g, [o[0] for o in ins])
+    outs = tp.run(g, p.parts, lambda m, q, xdb_m, x1, z: _mamba_out(
+        cfg, q, x1, z, xdb_m), xdb, [o[1] for o in ins], [o[2] for o in ins])
+    return (tp.reduce(g, [o[0] for o in outs]),
+            tp.Split(g, [o[3] for o in ins]),
+            tp.Split(g, [o[1] for o in outs]))
 
 
 def mamba_forward(cfg: ModelConfig, p, x) -> torch.Tensor:
@@ -112,7 +150,7 @@ def mamba_forward_with_cache(cfg: ModelConfig, p, x):
     """Forward + decode cache (conv tail of raw in-proj acts, final h)."""
     mc = cfg.mamba
     out, x1_raw, h_final = _mamba_core(cfg, p, x)
-    tail = x1_raw[:, x.shape[1] - (mc.d_conv - 1):, :]
+    tail = tp.smap(lambda t: t[:, x.shape[1] - (mc.d_conv - 1):, :], x1_raw)
     return out, {"conv": tail, "ssm": h_final}
 
 
@@ -128,24 +166,51 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=None, device="cpu"):
                                dtype=torch.float32, device=device)}
 
 
-def mamba_step(cfg: ModelConfig, p, x, cache) -> Tuple[torch.Tensor, dict]:
-    """x: (B, 1, D); cache {'conv': (B, d_conv-1, di), 'ssm': (B, di, ds)}."""
+def _step_in(cfg: ModelConfig, p, x, conv):
+    """(x1, z, new conv window) of one token."""
     mc = cfg.mamba
     cd = cfg.dtype("compute")
-    f32 = torch.float32
     xz = torch.einsum("bsd,de->bse", x.to(cd), p["in_proj"].to(cd))
     x1, z = torch.chunk(xz[:, 0], 2, dim=-1)                 # (B, di)
-    window = torch.cat([cache["conv"], x1[:, None, :]], dim=1)
-    new_conv = window[:, 1:, :]
+    window = torch.cat([conv, x1[:, None, :]], dim=1)
     x1 = sum(window[:, i, :] * p["conv_w"][i].to(cd)
              for i in range(mc.d_conv)) + p["conv_b"].to(cd)
-    x1 = F.silu(x1)
-    dt, Bp, Cp = _ssm_inputs(cfg, p, x1)
+    return F.silu(x1), z, window[:, 1:, :]
+
+
+def mamba_step(cfg: ModelConfig, p, x, cache) -> Tuple[torch.Tensor, dict]:
+    """x: (B, 1, D); cache {'conv': (B, d_conv-1, di), 'ssm': (B, di, ds)}.
+    ``p`` a ``tensor_parallel.Split``: the cache's leaves ``Split``s of
+    the ranks' channels, each rank steps its own."""
+    if isinstance(p, tp.Split):
+        g = p.group
+
+        def first(m, q, xm, conv):
+            x1, z, new_conv = _step_in(cfg, q, xm, conv)
+            return _xdb(cfg, q, x1), x1, z, new_conv
+
+        ins = tp.run(g, p.parts, first, x, cache["conv"].parts)
+        xdb = tp.reduce(g, [o[0] for o in ins])
+        outs = tp.run(g, p.parts, lambda m, q, xdb_m, x1, z, h: _step_out(
+            cfg, q, x1, z, h, xdb_m), xdb, [o[1] for o in ins],
+            [o[2] for o in ins], cache["ssm"].parts)
+        return tp.reduce(g, [o[0] for o in outs]), {
+            "conv": tp.Split(g, [o[3] for o in ins]),
+            "ssm": tp.Split(g, [o[1] for o in outs])}
+    x1, z, new_conv = _step_in(cfg, p, x, cache["conv"])
+    out, h = _step_out(cfg, p, x1, z, cache["ssm"])
+    return out, {"conv": new_conv, "ssm": h}
+
+
+def _step_out(cfg: ModelConfig, p, x1, z, ssm, xdb=None):
+    cd = cfg.dtype("compute")
+    f32 = torch.float32
+    dt, Bp, Cp = _ssm_inputs(cfg, p, x1, xdb)
     A = -torch.exp(p["A_log"].to(f32))
     dA = torch.exp(dt[..., None] * A[None])
     dBx = (dt * x1.to(f32))[..., None] * Bp[:, None, :]
-    h = dA * cache["ssm"] + dBx
+    h = dA * ssm + dBx
     y = (h * Cp[:, None, :]).sum(dim=-1) + x1.to(f32) * p["D"].to(f32)
     y = y.to(cd) * F.silu(z)
     out = torch.einsum("bi,id->bd", y, p["out_proj"].to(cd))[:, None, :]
-    return out, {"conv": new_conv, "ssm": h}
+    return out, h

@@ -19,6 +19,7 @@ changes no result either.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -75,9 +78,14 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 
 def tree_map(fn, *trees):
-    """Map ``fn`` over the leaves of nested dicts of one structure."""
+    """Map ``fn`` over the leaves of nested dicts of one structure (a
+    ``tensor_parallel.Split`` part by part)."""
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], tp.Split):
+        return tp.Split(trees[0].group, [
+            tree_map(fn, *(t.parts[m] for t in trees))
+            for m in range(trees[0].group.tp)])
     return fn(*trees)
 
 
@@ -246,8 +254,9 @@ def _apply_sub(cfg: ModelConfig, p, x, positions, kind: str, use_moe: bool,
         out, (k, v) = attn_mod.attn_block(cfg, p["attn"], h, positions,
                                           causal=causal)
         if collect_cache:
-            cache = {"k": k.to(cfg.dtype("compute")),
-                     "v": v.to(cfg.dtype("compute"))}
+            cd = cfg.dtype("compute")
+            cache = {"k": tp.smap(lambda t: t.to(cd), k),
+                     "v": tp.smap(lambda t: t.to(cd), v)}
     elif kind == "mamba":
         if collect_cache:
             out, cache = mamba_mod.mamba_forward_with_cache(cfg, p["mamba"],
@@ -288,7 +297,24 @@ def _unbind_groups(blocks, n: int):
     if isinstance(blocks, dict):
         per = {k: _unbind_groups(v, n) for k, v in blocks.items()}
         return [{k: per[k][g] for k in blocks} for g in range(n)]
+    if isinstance(blocks, tp.Split):
+        # on each model rank (the backward's stack of the groups'
+        # gradients is that rank's work)
+        keys = sorted(blocks.parts[0])
+        per = tp.run(blocks.group, blocks.parts, lambda m, part: tuple(
+            t for k in keys for t in part[k].unbind(0)))
+        return [tp.Split(blocks.group, [
+            {k: views[i * n + g] for i, k in enumerate(keys)}
+            for views in per]) for g in range(n)]
     return blocks.unbind(0)
+
+
+def stream_rank(params):
+    """Where the stream's work runs: the first model rank of the
+    params' ``ModelGroup`` (``on_rank``), or no change unsplit."""
+    group = tp.group_of(params)
+    return (contextlib.nullcontext() if group is None
+            else collectives.on_rank(group.ranks[0]))
 
 
 def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
@@ -303,12 +329,13 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
 
     def group_body(gp, x, aux):
         caches = {}
-        for i, (kind, use_moe) in enumerate(period):
-            x, a, cache = _apply_sub(cfg, gp[f"sub{i}"], x, positions, kind,
-                                     use_moe, collect_cache, causal,
-                                     moe_groups)
-            aux = aux + a
-            caches[f"sub{i}"] = cache
+        with stream_rank(gp):
+            for i, (kind, use_moe) in enumerate(period):
+                x, a, cache = _apply_sub(cfg, gp[f"sub{i}"], x, positions,
+                                         kind, use_moe, collect_cache,
+                                         causal, moe_groups)
+                aux = aux + a
+                caches[f"sub{i}"] = cache
         return x, aux, caches
 
     cache_list = []
@@ -359,7 +386,7 @@ def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None):
     decode can append in place.
     """
     x, _, caches = forward(cfg, params, batch, collect_cache=True)
-    logits = lm_logits(cfg, params, x[:, -1:, :])[:, 0]
+    logits = tp.gathered(lm_logits(cfg, params, x[:, -1:, :]))[:, 0]
     S = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[1]
     if pad_to and pad_to > S:
         pad = pad_to - S
@@ -368,8 +395,8 @@ def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None):
             out = dict(c)
             for key in ("k", "v"):
                 if key in c:   # (G, B, S, Hkv, Dh)
-                    out[key] = torch.nn.functional.pad(
-                        c[key], (0, 0, 0, 0, 0, pad))
+                    out[key] = tp.smap(lambda t: torch.nn.functional.pad(
+                        t, (0, 0, 0, 0, 0, pad)), c[key])
             return out
 
         caches = {name: pad_kv(c) for name, c in caches.items()}
@@ -427,7 +454,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
             new_cache[f"sub{i}"] = nc
         outs.append(new_cache)
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = lm_logits(cfg, params, x)[:, 0]
+    logits = tp.gathered(lm_logits(cfg, params, x))[:, 0]
     return logits, _stack(outs)
 
 

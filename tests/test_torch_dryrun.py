@@ -303,37 +303,52 @@ def test_extrapolated_equals_full_on_a_tiny_config(monkeypatch):
     assert dr.calibration_check(full, ext) is None
     assert (ext["flops"], ext["collectives"]) == (full["flops"],
                                                   full["collectives"])
-    # bytes are linear from two groups on (one group's row blocks are
-    # contiguous: AdamW copies none of them), so 2 and 3 groups
-    # extrapolate exactly
+    # each model block's gradient is updated whole, so AdamW copies no
+    # slice of it: bytes are linear from one group on (2 and 3 groups
+    # extrapolate exactly too)
     m3 = dr.totals(dr._measure(dataclasses.replace(c2, n_layers=3),
                                "train_4k", mesh, pol))
     assert dr._extrapolate(m2, m3, groups - 1) == full
-    assert ext["bytes_accessed"] > full["bytes_accessed"]
+    assert ext["bytes_accessed"] == full["bytes_accessed"]
 
 
 def test_collective_bytes_equal_a_hand_count_on_a_2x2_mesh():
-    """(data 2, model 2): each data rank gathers every leaf split over
-    "model" (operand: one of its 2 blocks); the second rank's gradients
-    go whole to the first; each block at model coordinate 1 gets its
-    slice of the summed gradient back."""
+    """(data 2, model 2): every leaf of the tiny config's attention, FFN
+    and vocabulary splits over "model", so no rank gathers a param.
+    Each model rank all-reduces its (B/dp, S, D) f32 activations: the
+    embedding's, the attention's and the FFN's outputs forward, the
+    attention's, the FFN's and the head's inputs' gradients backward,
+    and the loss's max, sum of exponentials and target logit ((B/dp, S)
+    f32).  The second data rank's gradient blocks go to their holders
+    (the first data rank's positions, model blocks of the split leaves
+    to coordinate 1, the rest to 0); each block's square sum at
+    coordinate 1 goes to the first rank."""
     cfg = _tiny(2)
+    B, S = 4, 16
     mesh = make_host_mesh(2, 2, devices=["meta"] * 4)
-    fn, placed = _train_on(cfg, mesh, 4, 16, "meta")
+    fn, placed = _train_on(cfg, mesh, B, S, "meta")
     counts = dr.count_step(fn, *placed)
     params = api.init_params_abstract(cfg)
-    split = whole = 0
+    split = whole = n_split = 0
     for leaf, spec in zip(tree_leaves(params), tree_leaves(tree_map_with_path(
             lambda p, x: param_spec(cfg, mesh, p, tuple(x.shape)), params))):
         n = leaf.numel() * leaf.dtype.itemsize
-        whole += n
         if any(e is not None for e in spec):
             split += n
+            n_split += 1
+        else:
+            whole += n
+    act = B // 2 * S * cfg.d_model * 4
+    reduced = cfg.n_layers * 4 * act + 2 * act + 3 * (B // 2 * S * 4)
     by_rank = counts.collective_bytes_by_rank()
-    assert by_rank == {"0": split / 2 + whole, "1": split / 2,
-                       "2": split / 2}
-    ev = [(e.kind, e.rank) for e in counts.counter.events]
-    assert ev.count(("collective-permute", 0)) == len(tree_leaves(params))
+    assert by_rank == {"0": reduced + split / 2 + whole + 4 * n_split,
+                       "1": reduced + split / 2, "2": reduced,
+                       "3": reduced}
+    ev = [(e.kind, e.rank, e.group) for e in counts.counter.events]
+    assert {k for k, _, _ in ev} == {"all-reduce", "collective-permute"}
+    assert all(g == 2 for k, _, g in ev if k == "all-reduce")
+    assert ev.count(("collective-permute", 0, 2)) == \
+        len(tree_leaves(params)) + n_split
 
 
 @pytest.mark.parametrize("arch", ("llama3.2-1b", "jamba-1.5-large-398b"))
@@ -357,20 +372,31 @@ def test_meta_counts_equal_a_cpu_mesh(arch):
             "selective_scan": 4, "selective_scan_bwd": 2}
 
 
-def test_reused_work_counts_as_traced_work():
-    """Reusing a data rank's pass and the blocks' updates (``meta``)
-    gives every rank the counts of tracing each."""
-    cfg = _tiny(2)
-    mesh = make_host_mesh(4, 2, devices=["meta"] * 8)
+@pytest.mark.parametrize("shape,remat", [((4, 2), "none"),
+                                         ((2, 4), "none"),
+                                         ((2, 4), "block")])
+def test_reused_work_counts_as_traced_work(shape, remat):
+    """Reusing a data rank's pass and the blocks' updates, and replaying
+    the model ranks between a split sublayer's first and last (tp 4;
+    under remat too, where the last rank's recompute stops before its
+    final product), on ``meta``, gives every rank the counts of tracing
+    each."""
+    cfg = _tiny(2, remat=remat)
+    dp, tpd = shape
+    mesh = make_host_mesh(dp, tpd, devices=["meta"] * (dp * tpd))
     got = {}
     for reuse in (False, True):
         fn, placed = _train_on(cfg, mesh, 8, 16, "meta")
         got[reuse] = dr.count_step(fn, *placed, reuse_passes=reuse)
     assert got[True].counter.reused_ranks
-    for r in range(8):
+    # data rank 1's whole pass is data rank 0's, its sections with it
+    assert got[True].counter.replayed == (set() if tpd < 3 else {1, 2})
+    for r in range(dp * tpd):
         a, b = got[False].summary(r), got[True].summary(r)
-        assert (a["flops"], a["bytes_accessed"], a["collectives"]) == \
-            (b["flops"], b["bytes_accessed"], b["collectives"]), r
+        assert (a["flops"], a["bytes_accessed"], a["collectives"],
+                a["aten_ops"], a["kernels"]) == \
+            (b["flops"], b["bytes_accessed"], b["collectives"],
+             b["aten_ops"], b["kernels"]), r
     assert got[False].counter.peak[0] == got[True].counter.peak[0]
     cpu_mesh = make_host_mesh(1, 2, devices=["cpu"] * 2)
     fn, placed = _train_on(cfg, cpu_mesh, 2, 16, "cpu")

@@ -2,9 +2,16 @@
 trainer's ``build``) on logical CPU devices, against the single-device
 step.
 
-* A mesh whose data degree is 1 ((1, 2)) gives bitwise the port's
-  single-device ``api.train_step``: params, both moments and every
-  metric, every architecture of ``test_torch_train.TRAINED``.
+* A mesh whose data degree is 1 ((1, 2)) splits each attention, FFN,
+  Mamba and vocabulary sublayer over its two model ranks
+  (``distributed/tensor_parallel.py``), whose row-parallel sums change
+  the order of additions as GSPMD's do in the reference: its step
+  holds the port's single-device ``api.train_step`` within the bars
+  below (metrics, the gathered grads, params), every architecture of
+  ``test_torch_train.TRAINED``, and its loss and gradients equal
+  bitwise the same split run directly on one device
+  (``tensor_parallel.local_split``); so do those of (2, 2) and (4, 2)
+  steps, the data ranks' sums taken in the same order.
 * A (4, 2) step, and an (8, 1) step with ``fsdp=True``, against the
   reference's jitted single-device step within ``test_torch_train``'s
   bars (metrics ``METRIC_TOL``; the gathered grads ``GRAD_RTOL`` and
@@ -19,7 +26,8 @@ step.
   ``repro/models/blocks.py:91`` (``jnp.take`` of a model-sharded
   embedding).
 * A batch that does not divide dp, and MoE groups that do not divide
-  it, run whole, once: bitwise the single-device step.
+  it, run whole, once: on (8, 1) with ``fsdp=True`` (a model degree of
+  1) bitwise the single-device step, on (4, 2) within the bars.
 * The trainer's CLI (``--device cpu``, a (1, 1) mesh) gives the losses
   of the single-device loop it ran before the mesh.
 """
@@ -35,10 +43,11 @@ from repro.models.frontends import make_inputs as j_make_inputs
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import make_pipeline
-from repro_torch.distributed import shard_train
+from repro_torch.distributed import shard_train, tensor_parallel
 from repro_torch.distributed.sharding import (P, ShardedTensor,
                                               ShardingPolicy, device_put,
-                                              state_pspecs, to_shardings)
+                                              params_pspecs, state_pspecs,
+                                              to_shardings)
 from repro_torch.launch import train as t_train
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import api as t_api
@@ -46,7 +55,7 @@ from repro_torch.models import transformer as t_tr
 from repro_torch.models.frontends import make_inputs
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves
 from test_torch_train import (GRAD_RTOL, METRIC_TOL, PARAM_TOL, TOPT,
-                              TRAINED, _both, _grad_atol, _np,
+                              TRAINED, _both, _grad_atol, _np, _port_grads,
                               _reference_step)
 
 MESH_SHAPE = JShape("mesh_train", 32, 8, "train")
@@ -81,19 +90,104 @@ def _port_batch(tc, batch, seq):
                        abstract=False, device="cpu")
 
 
+def _split_run(tc, params, batch, tp, dp=1):
+    """Loss and model-block gradients of the split step of a (dp, tp)
+    mesh run directly on one device: each data rank's rows through
+    ``local_split``'s tree and ``api.loss_fn``, the gradients taken to
+    their blocks in data-rank order and divided by dp, the losses'
+    mean."""
+    mesh = _mesh(dp, tp)
+    placed = device_put(params, to_shardings(
+        mesh, params_pspecs(tc, mesh, params)))
+    plans = tensor_parallel.plan_leaves(tc, mesh, placed)
+    tree, leaves = tensor_parallel.local_split(tc, params, tp, "cpu")
+    flat = [(i, m, x) for i, per in enumerate(leaves)
+            for m, x in enumerate(per) if x is not None]
+    for _, _, x in flat:
+        x.requires_grad_(True)
+    acc, total = [], None
+    for r in range(dp):
+        n = batch["labels"].shape[0] // dp
+        rows = {k: v.narrow(0, r * n, n) for k, v in batch.items()}
+        loss, _ = t_api.loss_fn(tc, tree, rows)
+        got = torch.autograd.grad(loss, [x for _, _, x in flat],
+                                  allow_unused=True)
+        grads = [[None] * tp for _ in leaves]
+        for (i, m, _), g in zip(flat, got):
+            grads[i][m] = g
+        tensor_parallel.block_grads(plans, mesh, r, grads, acc,
+                                    [x.dtype for x in tree_leaves(params)])
+        total = loss.detach() if total is None else total + loss.detach()
+    for _, _, x in flat:
+        x.requires_grad_(False)
+    if dp > 1:
+        total = total / dp
+        acc = [[g / dp for g in blocks] for blocks in acc]
+    return total, acc
+
+
 @pytest.mark.parametrize("name", list(TRAINED))
 def test_data_degree_one_is_bitwise_the_single_device_step(name):
+    """(1, 2): within the bars of the port's single-device step (the
+    model ranks' row-parallel sums reorder additions), and bitwise the
+    same split run on one device."""
     _, tc = _both(name, logit_dtype="float32")
     state = t_api.init_train_state(tc, TOPT, 0, device="cpu")
     batch = _port_batch(tc, 4, 16)
-    placed = _place(tc, _mesh(1, 2), state)
+    mesh = _mesh(1, 2)
+    placed = _place(tc, mesh, state)
+    loss, _, grads = shard_train.loss_and_grads(tc, mesh, placed.params,
+                                                batch)
+    want_loss, want_grads = _split_run(tc, state.params, batch, 2)
+    assert torch.equal(loss, want_loss)
+    for got, want in zip(grads, want_grads):
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    whole = shard_train.whole_grads(placed.params, grads)
     new, metrics = shard_train.train_step(tc, TOPT, placed, batch)
+    single_grads = _port_grads(tc, state, batch)
     want, want_m = t_api.train_step(tc, TOPT, state, batch)
     assert set(metrics) == set(want_m)
     for k, v in want_m.items():
-        assert torch.equal(metrics[k], v), k
-    for got, w in zip(_whole(new), tree_leaves(want)):
-        assert got.dtype == w.dtype and torch.equal(got, w)
+        np.testing.assert_allclose(float(metrics[k]), float(v), err_msg=k,
+                                   **METRIC_TOL)
+    lr = float(want_m["lr"])
+    for i, (tg, wg, got, w) in enumerate(zip(
+            whole, single_grads, _whole(new.params),
+            tree_leaves(want.params))):
+        wg = wg.numpy()
+        atol = _grad_atol(wg)
+        np.testing.assert_allclose(tg.numpy(), wg, rtol=GRAD_RTOL,
+                                   atol=atol, err_msg=f"grad {i}")
+        settled = np.abs(wg) > atol + GRAD_RTOL * np.abs(wg)
+        got, w = got.float().numpy(), w.float().numpy()
+        np.testing.assert_allclose(got[settled], w[settled],
+                                   err_msg=f"param {i}", **PARAM_TOL)
+        assert got.dtype == w.dtype and \
+            np.abs(got - w).max(initial=0) <= 2 * lr, i
+
+
+@pytest.mark.parametrize("name,shape", [("llama", (2, 2)),
+                                        ("llama", (4, 2)),
+                                        ("chatglm", (4, 2)),
+                                        ("jamba_no_moe", (2, 2))])
+def test_mesh_step_is_bitwise_the_split_run_on_one_device(name, shape):
+    """A (dp, tp) step's loss and every model block's gradient equal the
+    same split run directly on one device, the data ranks' sums in the
+    same order (``_split_run``)."""
+    _, tc = _both(name, logit_dtype="float32")
+    state = t_api.init_train_state(tc, TOPT, 0, device="cpu")
+    batch = _port_batch(tc, 8, 16)
+    mesh = _mesh(*shape)
+    loss, _, grads = shard_train.loss_and_grads(
+        tc, mesh, _place(tc, mesh, state).params, batch)
+    assert shard_train.row_split(tc, mesh, batch) == (shape[0], None)
+    want_loss, want_grads = _split_run(tc, state.params, batch, shape[1],
+                                       shape[0])
+    assert torch.equal(loss, want_loss)
+    for got, want in zip(grads, want_grads):
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.fixture(scope="module")
@@ -148,6 +242,7 @@ def test_mesh_step_matches_the_references_single_device_step(
         # 256 tokens: 16 groups over the whole batch, 4 a rank of 64 tokens
         assert groups and set(groups) == {(64, 4)}, groups
     lr = float(jm["lr"])
+    grads = shard_train.whole_grads(placed.params, grads)
     for (path, wg), tg, wp, tp in zip(
             jax.tree_util.tree_flatten_with_path(jg)[0], grads,
             jax.tree.leaves(want.params), _whole(new.params)):
@@ -175,31 +270,55 @@ def _count_loss_fns(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("name,batch,seq", [
-    ("llama", 6, 16),        # 6 rows do not split over 4 data ranks
-    ("dbrx", 4, 6),          # 24 tokens: one MoE group, not 4
-    ("grok", 8, 2),          # 16 tokens: 16 groups of 1, 4 a rank
+@pytest.mark.parametrize("name,batch,seq,shape", [
+    ("llama", 6, 16, (4, 2)),        # 6 rows do not split over 4 data ranks
+    ("dbrx", 4, 6, (4, 2)),          # 24 tokens: one MoE group, not 4
+    ("grok", 8, 2, (4, 2)),          # 16 tokens: 16 groups of 1, 4 a rank
+    ("llama", 6, 16, (8, 1)),        # the same rows, a model degree of 1
+    ("dbrx", 4, 6, (8, 1)),
 ])
 def test_rows_or_groups_that_do_not_divide_run_whole(name, batch, seq,
-                                                     monkeypatch):
+                                                     shape, monkeypatch):
     _, tc = _both(name, logit_dtype="float32")
     state = t_api.init_train_state(tc, TOPT, 1, device="cpu")
     tbatch = _port_batch(tc, batch, seq)
-    mesh = _mesh(4, 2)
-    placed = _place(tc, mesh, state)
+    mesh = _mesh(*shape)
+    dp, tp = shape
+    placed = _place(tc, mesh, state, fsdp=tp == 1)
     calls = _count_loss_fns(monkeypatch)
     new, metrics = shard_train.train_step(tc, TOPT, placed, tbatch)
-    split = (batch % 4 == 0 and (tc.moe is None or
-                                 t_tr.moe_num_groups(batch * seq) % 4 == 0))
-    assert shard_train.row_split(tc, mesh, tbatch)[0] == (4 if split else 1)
-    assert len(calls) == (4 if split else 1)
+    split = (batch % dp == 0 and (tc.moe is None or
+                                  t_tr.moe_num_groups(batch * seq) % dp == 0))
+    assert shard_train.row_split(tc, mesh, tbatch)[0] == (dp if split
+                                                          else 1)
+    assert len(calls) == (dp if split else 1)
     monkeypatch.undo()
+    if split or tp > 1:     # before the single step updates ``state``
+        _, _, grads = shard_train.loss_and_grads(
+            tc, mesh, _place(tc, mesh, state, fsdp=tp == 1).params, tbatch)
+        grads = shard_train.whole_grads(placed.params, grads)
+        single_grads = _port_grads(tc, state, tbatch)
     want, want_m = t_api.train_step(tc, TOPT, state, tbatch)
     if split:
         assert calls == [{"moe_groups": 4}] * 4
+    if split or tp > 1:
+        # the bars of test_mesh_step_matches_the_references_single_device_step
         for k, v in want_m.items():
             np.testing.assert_allclose(float(metrics[k]), float(v),
                                        err_msg=k, **METRIC_TOL)
+        lr = float(want_m["lr"])
+        for i, (tg, wg, got, w) in enumerate(zip(
+                grads, single_grads, _whole(new.params),
+                tree_leaves(want.params))):
+            wg = wg.numpy()
+            atol = _grad_atol(wg)
+            np.testing.assert_allclose(tg.numpy(), wg, rtol=GRAD_RTOL,
+                                       atol=atol, err_msg=f"grad {i}")
+            settled = np.abs(wg) > atol + GRAD_RTOL * np.abs(wg)
+            got, w = got.float().numpy(), w.float().numpy()
+            np.testing.assert_allclose(got[settled], w[settled],
+                                       err_msg=f"param {i}", **PARAM_TOL)
+            assert np.abs(got - w).max(initial=0) <= 2 * lr, i
         return
     for k, v in want_m.items():
         assert torch.equal(metrics[k], v), k
