@@ -369,9 +369,14 @@ and prints no result):
    every config of ``smoke_families`` takes one (4, 2) step at (8, 32)
    on the card and on the CPU (``FAMILY_TOL``; jamba launches the scan's
    forward and backward on each (data, model) rank, on its data rank's
-   rows and its d_inner / 2 channels, nothing else launches); (c) ``gpipe_forward`` over 4 logical stages of 4 llama
-   blocks in bf16, 8 microbatches of (1, 1024), bitwise the 16 blocks
-   in sequence, both timed.
+   rows and its d_inner / 2 channels, nothing else launches; the MoE
+   configs' 4 experts split by expert, 2 a model rank), and
+   ``MESH_HIDDEN``, grok-1-314b smoke on (1, 8), whose 4 experts do not
+   divide 8, splits each expert's hidden columns (16 of 128 a rank), on
+   the card and on the CPU within ``FAMILY_TOL``, with no param
+   all-gathered over "model"; (c) ``gpipe_forward`` over 4 logical
+   stages of 4 llama blocks in bf16, 8 microbatches of (1, 1024),
+   bitwise the 16 blocks in sequence, both timed.
 
 10. dryrun and examples (``dryrun_examples_phases``) — "dryrun" (a):
    ``DRYRUN_CELLS`` through ``python -m repro_torch.launch.dryrun`` on
@@ -387,9 +392,15 @@ and prints no result):
    (``dryrun.count_step``) around one sharded train step on a (2, 2)
    mesh, on meta and on logical devices of the card, FLOPs, bytes,
    collective bytes and kernels equal rank by rank (jamba launches the
-   scan on each of the 4 ranks through its count hook), the card's peak memory
+   scan on each of the 4 ranks through its count hook, and splits its
+   MoE by expert), the card's peak memory
    against the record's, the synchronized step against
-   ``bound_time_s``; (c) ``launch/report.py`` renders (a)-(b)'s records
+   ``bound_time_s``; and ``GROUND_DECODE``, jamba smoke's serving
+   decode step on (2, 4), whose 2 kv heads do not divide 4, so each
+   model rank holds and attends over its sequence block of the cache:
+   counts equal on meta and on the card rank by rank, the logits within
+   ``FAMILY_TOL`` of the unsplit ``decode_step`` on the card, the cache
+   never gathered; (c) ``launch/report.py`` renders (a)-(b)'s records
    (in ``experiments/dryrun_torch_smoke``) with no ``ERROR`` row.
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
@@ -898,6 +909,9 @@ MESH_BF16_NORM_RTOL = 1e-3
 MESH_SPREAD_SEEDS = (0, 1, 2, 3, 4, 5)
 MESH_FAULTS = ("drop", "kv_swap")
 MESH_TRAIN = dict(batch=4, seq=1024, steps=3)
+# (b) the expert-hidden split: grok smoke's 4 experts on a model degree
+# of 8 (d_ff 128: 16 hidden columns a rank), at (batch, seq)
+MESH_HIDDEN = ("grok-1-314b", (1, 8), 8, 32)
 GPIPE = dict(stages=4, micro=8, seq=1024)
 
 # "dryrun" (PERF.md sections 2-3): (a) the production dry-run's cells on
@@ -907,8 +921,10 @@ GPIPE = dict(stages=4, micro=8, seq=1024)
 # reference's.  (b) the same counters around the same step on meta and
 # on logical devices of the card: llama3.2-1b at full width cut to
 # GROUND_LAYERS layers, train (8, 512), and jamba's smoke config at
-# (8, 64), both on a (2, 2) mesh; FLOPs, bytes and collective bytes equal
-# rank by rank.  (c) launch/report.py renders (a)-(b)'s records.
+# (8, 64), both on a (2, 2) mesh, and jamba's smoke decode step on (2, 4)
+# (its attention cache split by sequence over "model"); FLOPs, bytes and
+# collective bytes equal rank by rank.  (c) launch/report.py renders
+# (a)-(b)'s records.
 DRYRUN_CELLS = (("olmo-1b", "train_4k", "single", True),
                 ("jamba-1.5-large-398b", "decode_32k", "single", False),
                 ("grok-1-314b", "train_4k", "multi", False))
@@ -919,6 +935,9 @@ DRYRUN_TIMEOUT_S = 600
 GROUND_LAYERS = 2
 GROUND_CASES = (("llama3.2-1b", False, 8, 512), ("jamba-1.5-large-398b",
                                                  True, 8, 64))
+# (b) a serving decode step on a cache split by sequence over "model":
+# (arch (smoke), (data, model), batch, cache length, position)
+GROUND_DECODE = ("jamba-1.5-large-398b", (2, 4), 16, 64, 37)
 EXAMPLES_AT_ONCE = 2
 EXAMPLE_TIMEOUT_S = 300
 
@@ -7396,6 +7415,83 @@ def mesh_smoke_checks(card):
     torch.cuda.empty_cache()
 
 
+def mesh_hidden_check(card):
+    """(b) ``MESH_HIDDEN``: grok smoke on (1, 8), whose 4 experts do not
+    divide 8, takes one step on 8 logical devices of the card and of the
+    CPU from the same state: each model rank computes with its 16 of
+    each expert's 128 hidden columns (``tensor_parallel.plan_leaves``),
+    no param is all-gathered (over "model" or "data"), metrics within
+    FAMILY_TOL, params within 2 lr."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives, shard_train
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  device_put, state_pspecs,
+                                                  to_shardings)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.frontends import make_inputs
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    arch, (dp, tpd), batch, seq = MESH_HIDDEN
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              logit_dtype="float32")
+    check(cfg.moe.n_experts % tpd != 0 and cfg.d_ff % tpd == 0,
+          f"train mesh hidden: {arch} smoke on {tpd} model ranks is no "
+          f"expert-hidden split")
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    state0 = api.init_train_state(cfg, opt, SEED, device="cpu")
+    data = make_inputs(cfg, ShapeConfig("mesh_hidden", seq, batch, "train"),
+                       seed=SEED, abstract=False, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = make_host_mesh(dp, tpd, devices=[dev] * (dp * tpd))
+        placed = device_put(state0, to_shardings(mesh, state_pspecs(
+            cfg, mesh, state0, ShardingPolicy())))
+        experts = [p for p in tp.plan_leaves(cfg, mesh, placed.params)
+                   if "/moe/experts/" in p.path]
+        check(experts and all(
+            p.node is not None and len(p.blocks) == tpd
+            and p.blocks[0][p.dim].stop == cfg.d_ff // tpd
+            for p in experts),
+            f"train mesh hidden: the experts do not split by hidden "
+            f"column: {[(p.path, p.node, p.dim) for p in experts]}")
+        counter = collectives.CollectiveCounter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collectives.counting(counter):
+            new, metrics = shard_train.train_step(cfg, opt, placed, data)
+        torch.cuda.synchronize()
+        out[dev] = (new, metrics, counter.events,
+                    (time.perf_counter() - t0) * 1e3)
+    (c_new, c_m, _, _), (g_new, g_m, events, ms) = out["cpu"], out["cuda"]
+    for k in ("loss", "xent", "aux", "lr", "grad_norm"):
+        torch.testing.assert_close(
+            g_m[k].cpu(), c_m[k], **FAMILY_TOL,
+            msg=lambda m: f"train mesh hidden {k}, card against CPU: {m}")
+    lr = float(c_m["lr"])
+    worst = 0.0
+    for i, (gp, cp) in enumerate(zip(tree_leaves(g_new.params),
+                                     tree_leaves(c_new.params))):
+        d = float((gp.full("cpu").float() - cp.full().float()).abs().max())
+        worst = max(worst, d)
+        check(d <= 2 * lr, f"train mesh hidden param {i} moved {d} apart, "
+                           f"more than 2 lr")
+    gathers = [e for e in events if e.kind == "all-gather"]
+    check(not gathers, f"train mesh hidden: {len(gathers)} params "
+                       f"all-gathered")
+    log(f"train mesh (b) {arch} smoke on {(dp, tpd)}, (B, S) = ({batch}, "
+        f"{seq}): {cfg.moe.n_experts} experts split by hidden column "
+        f"({cfg.d_ff // tpd} of {cfg.d_ff} a rank), no param all-gathered; "
+        f"card == CPU (loss {float(g_m['loss']):.6f} vs "
+        f"{float(c_m['loss']):.6f}, grad_norm {float(g_m['grad_norm']):.6f}"
+        f" vs {float(c_m['grad_norm']):.6f}; params within {worst:.3e}); "
+        f"step {ms:.1f} ms wall on {card}")
+    torch.cuda.empty_cache()
+
+
 def gpipe_checks(card):
     """(c) ``gpipe_forward`` over 4 logical stages on the card, each 4 of
     llama3.2-1b's blocks at full width in bf16, 8 microbatches of
@@ -7452,13 +7548,14 @@ def gpipe_checks(card):
 
 def train_mesh_phase(card, trainer_losses):
     """Training on a ("data", "model") mesh of logical devices of the one
-    card: (a), (d), (e) ``mesh_llama_checks``; (b) ``mesh_smoke_checks``;
-    (c) ``gpipe_checks``."""
+    card: (a), (d), (e) ``mesh_llama_checks``; (b) ``mesh_smoke_checks``
+    and ``mesh_hidden_check``; (c) ``gpipe_checks``."""
     import torch
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     mesh_llama_checks(card, trainer_losses)
     mesh_smoke_checks(card)
+    mesh_hidden_check(card)
     gpipe_checks(card)
     log(f"train mesh: phase wall {time.perf_counter() - t0:.1f} s on {card}")
 
@@ -7665,6 +7762,124 @@ def ground_truth_checks(card, out_dir):
         torch.cuda.empty_cache()
 
 
+def _ground_decode(dev):
+    """``GROUND_DECODE``'s serving decode step on ``dev`` (``meta``:
+    abstract; else seeded params, caches and tokens on the card): (cfg,
+    shape, mesh, policy, static, fn, placed args, whole args)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  cache_pspecs,
+                                                  params_pspecs,
+                                                  to_shardings)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.transformer import init_params, tree_map
+    arch, (dp, tpd), batch, seq, pos = GROUND_DECODE
+    # f32 logits: a bf16 one moves by a bf16 step under reordered sums
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              logit_dtype="float32")
+    shape = ShapeConfig(f"decode_{batch}x{seq}", seq, batch, "decode")
+    mesh = make_host_mesh(dp, tpd, devices=[dev] * (dp * tpd))
+    caches = api.init_decode_caches(cfg, batch, seq, device=dev)
+    if dev.type == "meta":
+        params = api.init_params_abstract(cfg)
+        tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    else:
+        params = init_params(cfg, SEED, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        caches = tree_map(lambda t: torch.randn(
+            t.shape, generator=gen, device=dev).to(t.dtype), caches)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, 1),
+                               generator=gen, device=dev,
+                               dtype=torch.int64).to(torch.int32)
+    policy = ShardingPolicy()
+    pspec = params_pspecs(cfg, mesh, params, policy)
+    cspec = cache_pspecs(cfg, mesh, caches, policy)
+    check(tuple(cspec["sub0"]["k"])[2] == "model",
+          f"dryrun (b) decode: {arch} smoke's cache is not split by "
+          f"sequence on {(dp, tpd)}: {cspec['sub0']['k']}")
+    placed = dryrun.place((params, caches, {"tokens": tokens}), (
+        to_shardings(mesh, pspec), to_shardings(mesh, cspec), None), mesh)
+    static = (dryrun._sharded_bytes(params, pspec, mesh)
+              + dryrun._sharded_bytes(caches, cspec, mesh))
+    return (cfg, shape, mesh, policy, static,
+            lambda p, c, b: dryrun.serve_step(cfg, mesh, "decode", p, b,
+                                              caches=c, pos=pos),
+            placed, (params, caches, tokens))
+
+
+def ground_decode_check(card, out_dir):
+    """(b) ``GROUND_DECODE``: the counters around jamba smoke's decode
+    step on (2, 4), its attention cache split by sequence over the model
+    ranks, on meta and on the card: FLOPs, bytes and collective bytes
+    equal rank by rank; the data ranks' logits within FAMILY_TOL of the
+    unsplit ``decode_step`` on the card; each model rank's cache block
+    stays where it lies (no all-gather as large as a block)."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    arch, (dp, tpd), batch, seq, pos = GROUND_DECODE
+    t0 = time.perf_counter()
+    cfg, shape, mesh, policy, static, fn, placed, _ = _ground_decode(
+        torch.device("meta"))
+    meta = dryrun.count_step(fn, *placed)
+    m_meta = dryrun.summarize(meta, mesh, static, time.perf_counter() - t0)
+    del placed
+    cfg, shape, mesh, policy, static, fn, placed, whole = _ground_decode(
+        torch.device("cuda", 0))
+    with torch.no_grad():
+        fn(*placed)                                   # warm
+        _, step_ms = cuda_sync_ms(lambda: fn(*placed))
+        card_counts = dryrun.count_step(fn, *placed)
+        want, _ = api.decode_step(cfg, *whole, pos)
+    torch.cuda.synchronize()
+    m_card = dryrun.summarize(card_counts, mesh, static, step_ms / 1e3)
+    for r in range(dp * tpd):
+        a, b = meta.summary(r), card_counts.summary(r)
+        for key in ("flops", "bytes_accessed", "collectives"):
+            check(a[key] == b[key], f"dryrun (b) decode rank {r}: {key} "
+                  f"meta {a[key]!r} != card {b[key]!r}")
+    outs = card_counts.outputs
+    got = torch.cat([o[0] for o in outs])
+    torch.testing.assert_close(
+        got, want, **FAMILY_TOL,
+        msg=lambda m: f"dryrun (b) decode: split logits against the "
+                      f"unsplit step: {m}")
+    k = outs[0][1]["sub0"]["k"]
+    check(isinstance(k, tp.SeqSplit) and len(k.parts) == tpd,
+          f"dryrun (b) decode: the new cache is {k!r}")
+    block = k.parts[0].numel() * k.parts[0].element_size()
+    gathers = [e.result_bytes for e in card_counts.counter.events
+               if e.kind == "all-gather"]
+    check(max(gathers) < block, f"dryrun (b) decode: an all-gather of "
+                                f"{max(gathers)} bytes, a block {block}")
+    coll = m_meta["collectives"]
+    rec = {"cell": f"{cfg.name}__{shape.name}__logical2x4__meta",
+           "arch": cfg.name, "shape": shape.name, "mesh": "logical2x4",
+           "tag": "baseline"}
+    dryrun.ok_record(rec, cfg, shape, mesh, policy, m_meta,
+                     dryrun.totals(m_meta), {"n_groups": None})
+    (out_dir / f"{rec['cell']}.json").write_text(json.dumps(rec))
+    log(f"dryrun (b) {cfg.name} {shape.name} decode at position {pos} on "
+        f"{(dp, tpd)} logical devices (cache split by sequence, "
+        f"{seq // tpd} positions a model rank): FLOPs "
+        f"{m_meta['flops']:.6g}, bytes {m_meta['bytes_accessed']:.6g}, "
+        f"collective bytes {coll['total']:.6g} (all-to-all "
+        f"{coll['all-to-all']:.6g}) on the busiest device, meta == card on "
+        f"all {dp * tpd} ranks; logits within FAMILY_TOL of the unsplit "
+        f"step (max abs err {float((got - want).abs().max()):.3e}); "
+        f"largest all-gather {max(gathers)} bytes against a block's "
+        f"{block}; step {step_ms:.1f} ms synchronized against "
+        f"bound_time_s {rec['roofline']['bound_time_s'] * 1e3:.4f} ms; "
+        f"on {card}")
+    del placed, meta, card_counts, whole
+    torch.cuda.empty_cache()
+
+
 def report_check(out_dir):
     """(c): ``launch/report.py`` renders (a)-(b)'s records."""
     import contextlib
@@ -7741,6 +7956,7 @@ def dryrun_examples_phases(card):
     log(f"dryrun (a): {time.perf_counter() - t0:.1f} s since the start")
     t1 = time.perf_counter()
     ground_truth_checks(card, out_dir)
+    ground_decode_check(card, out_dir)
     report_check(out_dir)
     log(f"dryrun: (b)-(c) wall {time.perf_counter() - t1:.1f} s; both "
         f"phases {time.perf_counter() - t0:.1f} s on {card}")

@@ -11,7 +11,9 @@ cards, and no copy at all where two logical devices share one card.  No
 collective moves a CUDA tensor to the CPU to compute.
 
 * ``all_gather(blocks, dim)`` — the tiled all-gather: every rank gets
-  the blocks concatenated along ``dim`` in rank order.
+  the blocks concatenated along ``dim`` in rank order;
+  ``all_to_all(parts, dim, ranks)`` — rank m gets block m of every
+  rank's part.
 * ``psum(parts)`` — the all-reduce, summed in rank order
   ((p0 + p1) + p2 ...) once and copied to every rank, so every rank
   holds bitwise the same sum.
@@ -38,7 +40,8 @@ reference's names:
   position of the rank's model coordinate holds: a collective-permute;
   a block the rank holds moves nothing;
 * ``all_gather`` here: an all-gather (result the concatenation, group
-  the ranks); ``psum``, ``ring_all_reduce`` and ``bucketed_psum``'s
+  the ranks); ``all_to_all``: an all-to-all (result the stacked
+  blocks); ``psum``, ``ring_all_reduce`` and ``bucketed_psum``'s
   leaves: an all-reduce of each rank's part (operand = result; the
   ring's hops are its schedule, not separate events);
 * ``distributed/shard_train.py``: each gradient piece to its block's
@@ -206,15 +209,36 @@ def _check(parts: Sequence[torch.Tensor], what: str) -> None:
                 f"{tuple(shape)} {parts[0].dtype}")
 
 
-def all_gather(blocks: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
+def all_gather(blocks: Sequence[torch.Tensor], dim: int,
+               ranks: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
     """The blocks concatenated along ``dim`` in rank order, on every
-    rank's device (``lax.all_gather(..., tiled=True)``)."""
+    rank's device (``lax.all_gather(..., tiled=True)``); ``ranks`` the
+    blocks' logical ranks (default their positions), each result made
+    on its rank."""
     if not blocks:
         raise ValueError("all_gather needs one block per rank, got none")
-    out = [torch.cat([b.to(mine.device) for b in blocks], dim=dim)
-           for mine in blocks]
-    for r, o in enumerate(out):
-        record("all-gather", _nbytes(o), len(blocks), r)
+    ranks = range(len(blocks)) if ranks is None else ranks
+    out = []
+    for rank, mine in zip(ranks, blocks):
+        with on_rank(rank):
+            o = torch.cat([b.to(mine.device) for b in blocks], dim=dim)
+        record("all-gather", _nbytes(o), len(blocks), rank)
+        out.append(o)
+    return out
+
+
+def all_to_all(parts: Sequence[torch.Tensor], dim: int,
+               ranks: Sequence[int]) -> List[torch.Tensor]:
+    """Each rank's part cut into one block a rank along ``dim``: rank m
+    gets block m of every rank's part, stacked in rank order along a new
+    first dim, on its device (``ranks`` the parts' logical ranks)."""
+    out = []
+    for m, (rank, mine) in enumerate(zip(ranks, parts)):
+        with on_rank(rank):
+            o = torch.stack([p.chunk(len(parts), dim=dim)[m].to(mine.device)
+                             for p in parts])
+        record("all-to-all", _nbytes(o), len(parts), rank)
+        out.append(o)
     return out
 
 
@@ -356,7 +380,8 @@ class _Leave(torch.autograd.Function):
 
 def _through(fn, rank: int, xs: Sequence) -> list:
     xs = list(xs)
-    idx = [i for i, x in enumerate(xs) if _differentiable(x)]
+    idx = [i for i, x in enumerate(xs) if _differentiable(x)
+           and x.requires_grad]
     if idx:
         out = fn.apply(int(rank), *[xs[i] for i in idx])
         for i, o in zip(idx, out):
@@ -366,8 +391,10 @@ def _through(fn, rank: int, xs: Sequence) -> list:
 
 def enter(rank: int, *xs) -> list:
     """The start of rank ``rank``'s section of a split sublayer: ``xs``
-    as they are (floating tensors as views), their backward the
-    section's end."""
+    as they are (those that require a gradient as views), their backward
+    the section's end.  A tensor that needs none stays out: an
+    ``autograd.Function``'s outputs all require a gradient when one
+    input does, and a backward would then run for it."""
     return _through(_Enter, rank, xs)
 
 

@@ -22,10 +22,11 @@ compute over "model":
   (attention, the dense FFN, Mamba, the vocabulary) on every model rank
   with that rank's block only, the outputs summed in rank order
   (Megatron's column-parallel in, row-parallel out, as GSPMD runs the
-  reference's specs).  A model rank's blocks are gathered over "data"
-  where FSDP split them (ZeRO-3, whole-tree, for the pass) and dropped
-  after it; the other sublayers (MoE experts, RWKV, cross-attention)
-  run whole on the first model rank, their leaves gathered there.
+  reference's specs); so do the MoE experts, by expert or by hidden
+  column.  A model rank's blocks are gathered over "data" where FSDP
+  split them (ZeRO-3, whole-tree, for the pass) and dropped after it;
+  the other sublayers (RWKV, cross-attention) run whole on the first
+  model rank, their leaves gathered there.
 * A leaf's gradient is kept by model block (its block along "model",
   whole along the data axes): summed over the data ranks in data-rank
   order on the block's holder (the first data rank's position at that

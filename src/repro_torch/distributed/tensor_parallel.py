@@ -23,13 +23,24 @@ outputs (``collectives.model_sum``).  The split sublayers:
   contiguous column blocks (with tp = 2 rank 0 holds all of x1 and none
   of z), so a rank's x1 and z columns [r di/tp, (r+1) di/tp) are moved
   to it (collective-permutes);
+* the MoE experts (``moe/experts``): by expert where the experts
+  divide ``tp`` (expert parallelism: a rank's ``E / tp`` experts of
+  every leaf), else by each expert's hidden columns where ``d_ff``
+  divides (``w_gate``/``w_up``/``w_in`` columns, ``w_down`` rows).  The
+  router is replicated and the routing runs once, on the stream's
+  device (``moe.apply_moe``);
 * the vocabulary: ``embed`` split by rows (each rank looks up its range
   and writes zeros elsewhere), ``lm_head`` (or the tied ``embed``) by
   columns, and the loss vocabulary-parallel (``blocks.softmax_xent``).
 
-Everything else — norms, the MoE experts, RWKV's mixes, the
+Everything else — norms, the router, RWKV's mixes, the
 encoder-decoder's cross-attention — runs whole on the first model rank,
-its leaves gathered there as the unsplit step gathers them.
+its leaves gathered there as the unsplit step gathers them.  A decode
+cache that ``cache_pspecs`` splits by sequence over "model" (the kv
+heads do not divide ``tp``) is a ``SeqSplit``: each rank attends over
+its block where it lies (``attention._seq_split_decode_attn``), and
+``collectives.all_gather`` / ``all_to_all`` move q, the new rows and
+the softmax partials between the ranks.
 
 ``rank_params(cfg, params, mesh, d)`` gives data rank ``d``'s compute
 tree: the params' tree with a ``Split`` (one subtree a model rank, on
@@ -84,17 +95,30 @@ class Split:
         self.group = group
         self.parts = list(parts)
 
+    def like(self, parts: Sequence) -> "Split":
+        """``parts`` split as this value is (its class and group)."""
+        return type(self)(self.group, parts)
+
     def __getitem__(self, key) -> "Split":
-        return Split(self.group, [p[key] for p in self.parts])
+        return self.like([p[key] for p in self.parts])
 
     def __repr__(self) -> str:
-        return f"Split(tp={self.group.tp}, ranks={self.group.ranks})"
+        return (f"{type(self).__name__}(tp={self.group.tp}, "
+                f"ranks={self.group.ranks})")
+
+
+class SeqSplit(Split):
+    """A decode cache (G, B, S, Hkv, Dh) split by sequence over a
+    ``ModelGroup``: ``parts[m]`` holds positions [m S/tp, (m+1) S/tp)
+    of every kv head (``cache_pspecs``' layout where the kv heads do not
+    divide the model degree)."""
+    __slots__ = ()
 
 
 def smap(fn, x):
     """``fn`` over a ``Split``'s parts (a ``Split`` back), or ``fn(x)``."""
     if isinstance(x, Split):
-        return Split(x.group, [fn(p) for p in x.parts])
+        return x.like([fn(p) for p in x.parts])
     return fn(x)
 
 
@@ -286,6 +310,9 @@ def _split_node(cfg: ModelConfig, path: str, specs: Dict[str, Any]):
             else None
     if key == "mamba":
         return parent if _model_dim(specs[f"{parent}/in_proj"]) is not None \
+            else None
+    if key == "experts" and len(parts) > 2 and parts[-3] == "moe":
+        return parent if _model_dim(specs[f"{parent}/w_down"]) is not None \
             else None
     return None
 
@@ -528,8 +555,7 @@ def local_split(cfg: ModelConfig, params, tp: int, device):
     return rank_params(cfg, placed, mesh, 0)
 
 
-__all__ = ["LeafPlan", "ModelGroup", "Split", "VocabShards", "block_grads",
-           "gathered", "group_of", "kv_heads", "local_split", "model_blocks",
-           "model_group", "model_positions", "plan_leaves", "q_heads",
-           "rank_params", "reduce", "run", "smap",
-           "take_region"]
+__all__ = ["LeafPlan", "ModelGroup", "SeqSplit", "Split", "VocabShards",
+           "block_grads", "gathered", "group_of", "kv_heads", "local_split",
+           "model_blocks", "model_group", "model_positions", "plan_leaves",
+           "q_heads", "rank_params", "reduce", "run", "smap", "take_region"]

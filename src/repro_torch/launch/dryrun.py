@@ -18,10 +18,12 @@ Which step.  Train cells trace ``distributed/shard_train.py``'s
 decode cells trace ``api.prefill_step`` / ``api.decode_step`` the way
 ``shard_train.loss_and_grads`` runs a data rank: the rank's rows by
 ``row_split`` and ``batch_pspecs`` over its model ranks
-(``tensor_parallel.rank_params``: each split sublayer on every model
-rank's block, the rest whole on the first), decode on its rows of the
-caches under ``cache_pspecs`` (a ``Split`` of the model ranks' blocks
-where a split sublayer's cache splits over "model", else gathered
+(``tensor_parallel.rank_params``: each split sublayer, the MoE
+experts among them, on every model rank's block, the rest whole on the
+first), decode on its rows of the caches under ``cache_pspecs`` (a
+``Split`` of the model ranks' blocks where a split sublayer's cache
+splits over "model" by kv head or channel, a ``SeqSplit`` where an
+attention cache splits by sequence over "model" alone, else gathered
 whole), and rows that do not divide running whole once (each rank's
 MoE groups are those of its own tokens).  Every model rank of a data
 rank runs its share; the first also runs the residual stream, and the
@@ -357,8 +359,9 @@ class StepCounter(TorchDispatchMode, collectives.CollectiveCounter,
 
 
 def _differentiable(t) -> bool:
-    return isinstance(t, torch.Tensor) and (t.is_floating_point()
-                                            or t.is_complex())
+    """A section's input that takes a gradient (as ``collectives.enter``
+    takes its inputs)."""
+    return isinstance(t, torch.Tensor) and t.requires_grad
 
 
 def _layout(t: Optional[torch.Tensor]):
@@ -657,7 +660,7 @@ def serve_step(cfg, mesh, kind: str, params, batch, caches=None, pos=0):
     (``tensor_parallel.rank_params``).  Returns one output per data
     rank that ran."""
     devs, ranks = forward_devices(mesh), forward_ranks(mesh)
-    n, _ = row_split(cfg, mesh, batch)
+    n, groups = row_split(cfg, mesh, batch)
     plans = tp.plan_leaves(cfg, mesh, params)
     outs = []
     for r in range(n):
@@ -670,38 +673,46 @@ def serve_step(cfg, mesh, kind: str, params, batch, caches=None, pos=0):
         outs.append(collectives.rank_work(
             key, ranks[r], lambda: _serve_rank(cfg, kind, params, plans,
                                                caches, rows, pos, r, n,
-                                               mesh),
+                                               mesh, groups),
             ranks=tp.model_group(mesh, r).ranks))
     return outs
 
 
-def _serve_rank(cfg, kind, params, plans, caches, rows, pos, r, n, mesh):
+def _serve_rank(cfg, kind, params, plans, caches, rows, pos, r, n, mesh,
+                groups):
+    """Data rank ``r``'s step on its rows, with its share of the whole
+    batch's MoE capacity groups (``row_split``)."""
     local, _ = tp.rank_params(cfg, params, mesh, r, plans)
     if kind == "prefill":
-        return api.prefill_step(cfg, local, rows)[:2]
-    local_c = _rank_caches(caches, mesh, r, n)
+        return api.prefill_step(cfg, local, rows, moe_groups=groups)[:2]
+    local_c = _rank_caches(cfg, caches, mesh, r, n)
     x = rows["embeds"] if "embeds" in rows else rows["tokens"]
-    return api.decode_step(cfg, local, local_c, x, pos)
+    return api.decode_step(cfg, local, local_c, x, pos, moe_groups=groups)
 
 
-def _rank_caches(caches, mesh, r: int, n: int):
+def _rank_caches(cfg, caches, mesh, r: int, n: int):
     """Data rank ``r``'s rows of the decode caches: a ``Split`` of the
     model ranks' blocks where ``cache_pspecs`` splits a split
     sublayer's cache over "model" (attention k/v by kv head, Mamba's
-    channels), else the rows whole on the data rank's device (a cache
-    sharded by sequence over "model" is gathered as the unsplit step
-    gathers it)."""
+    channels), a ``SeqSplit`` of their sequence blocks where it splits
+    a split attention's k/v by sequence over "model" alone (each rank
+    attends over its block: ``attention._seq_split_decode_attn``), else
+    the rows whole on the data rank's device (a sequence also sharded
+    over "data" is gathered as the unsplit step gathers it)."""
     group = tp.model_group(mesh, r)
     columns = [set(row[m] for row in tp.model_positions(mesh))
                for m in range(group.tp)]
+    attn_split = group.tp > 1 and cfg.n_heads % group.tp == 0
 
     def one(path, st):
         name = path.rsplit("/", 1)[-1]
         spec = tuple(st.sharding.spec)
-        split = group.tp > 1 and (
-            (name in ("k", "v") and spec[3] == "model")
-            or (name in ("conv", "ssm") and "model" in spec))
-        if not split:
+        kind = tp.Split
+        if name in ("k", "v") and spec[2] == "model" and attn_split:
+            kind = tp.SeqSplit
+        elif not (group.tp > 1 and (
+                (name in ("k", "v") and spec[3] == "model")
+                or (name in ("conv", "ssm") and "model" in spec))):
             return _rows(st, 1, r, n, group.devices[0], group.ranks[0])
         size = st.shape[1] // n
         parts = []
@@ -713,7 +724,7 @@ def _rank_caches(caches, mesh, r: int, n: int):
                 parts.append(tp.take_region(st, tuple(region),
                                             group.devices[m],
                                             group.ranks[m], columns[m]))
-        return tp.Split(group, parts)
+        return kind(group, parts)
 
     return tree_map_with_path(one, caches)
 

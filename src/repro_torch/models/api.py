@@ -95,12 +95,18 @@ def train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, state: TrainState,
     return TrainState(params, opt), metrics
 
 
-def prefill_step(cfg: ModelConfig, params, batch, *, pad_to=None):
-    return _mod(cfg).prefill(cfg, params, batch, pad_to=pad_to)
+def prefill_step(cfg: ModelConfig, params, batch, *, pad_to=None,
+                 moe_groups=None):
+    """``moe_groups``: the MoE capacity groups of these rows (a data
+    rank's share of the whole batch's; ``transformer.forward``)."""
+    kw = {} if moe_groups is None else {"moe_groups": moe_groups}
+    return _mod(cfg).prefill(cfg, params, batch, pad_to=pad_to, **kw)
 
 
-def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
-    return _mod(cfg).decode_step(cfg, params, caches, tokens, pos)
+def decode_step(cfg: ModelConfig, params, caches, tokens, pos, *,
+                moe_groups=None):
+    kw = {} if moe_groups is None else {"moe_groups": moe_groups}
+    return _mod(cfg).decode_step(cfg, params, caches, tokens, pos, **kw)
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -192,8 +192,11 @@ def decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     not written.  ``p`` a ``tensor_parallel.Split``: each model rank
     its heads, on its kv heads' block of the caches (a ``Split``, or
     whole caches: each rank reads its kv heads, and the new rows go
-    back whole)."""
+    back whole), or on its sequence block of every kv head (a
+    ``SeqSplit``: ``_seq_split_decode_attn``)."""
     if isinstance(p, tp.Split):
+        if isinstance(cache_k, tp.SeqSplit):
+            return _seq_split_decode_attn(cfg, p, x, cache_k, cache_v, pos)
         return _split_decode_attn(cfg, p, x, cache_k, cache_v, pos)
     B = x.shape[0]
     Dh = cfg.head_dim
@@ -257,6 +260,87 @@ def _split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
                            g.tp, g.ranks[0])
         new.append(c.index_put((rows, pos_b1[:, 0]), row.to(c.dtype)))
     return out, new[0], new[1]
+
+
+def _seq_split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
+    """Flash-decode over a cache split by sequence (``SeqSplit``): each
+    model rank computes its query heads' q and its kv heads' new rows;
+    the new rows (every kv head, from the first rank that has it) and q
+    (every query head) are gathered to every rank; each rank writes the
+    rows whose position falls in its block and computes, for every query
+    head over its block under the position mask, the (max, sum, out)
+    partials of the mergeable softmax; an all-to-all hands each rank its
+    heads' partials, merged in rank order, into its rows of ``wo``, and
+    the ranks' outputs are summed as ``_split_decode_attn``'s.  The
+    cache never moves, and every rank does the same work whatever the
+    positions."""
+    g = p.group
+    B, Dh = x.shape[0], cfg.head_dim
+    pos_b1 = positions_b1(pos, B, x.device)
+
+    def project(m, q_p, xm, pm):
+        q, k, v = _qkv(cfg, q_p, xm, positions=pm)
+        return q[:, 0], k[:, 0], v[:, 0]
+
+    proj = tp.run(g, p.parts, project, x, pos_b1)
+    # each kv head from the first rank that has it (none from the rest)
+    own, upto = [], 0
+    for m in range(g.tp):
+        a, b = tp.kv_heads(cfg, g.tp, m)
+        own.append(slice(max(upto, a) - a, max(b, upto) - a))
+        upto = max(upto, b)
+    new_k, new_v = (collectives.all_gather(
+        [o[i][:, sl] for o, sl in zip(proj, own)], 1, g.ranks)
+        for i in (1, 2))
+    q_all = collectives.all_gather([o[0] for o in proj], 1, g.ranks)
+
+    def block(m, _, pm, ck, cv, q, nk, nv):
+        n = ck.shape[1]
+        dev = ck.device
+        rows = torch.arange(B, device=dev)
+        local = pm[:, 0] - m * n
+        inside = ((local >= 0) & (local < n))[:, None, None]
+        at = torch.clamp(local, 0, n - 1)
+        ck = ck.index_put((rows, at), torch.where(
+            inside, nk.to(ck.dtype), ck[rows, at]))
+        cv = cv.index_put((rows, at), torch.where(
+            inside, nv.to(cv.dtype), cv[rows, at]))
+        Hkv = ck.shape[2]
+        sd = cfg.dtype("attn_score")
+        qf = (q.to(sd).reshape(B, Hkv, -1, Dh)
+              * _scalar(Dh ** -0.5, sd, dev))
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, ck.to(sd))
+        valid = (m * n + torch.arange(n, device=dev)[None, None, None, :]
+                 <= pm[:, 0][:, None, None, None])
+        s = torch.where(valid, s, _scalar(NEG_INF, sd, dev)).to(
+            torch.float32)
+        mx = s.amax(dim=-1)
+        w = torch.exp(s - mx[..., None])
+        o = _dot_f32("bhgk,bkhd->bhgd", w.to(sd), cv.to(sd))
+        return (ck, cv, mx.reshape(B, -1), w.sum(dim=-1).reshape(B, -1),
+                o.reshape(B, -1, Dh))
+
+    outs = tp.run(g, None, block, pos_b1, list(cache_k.parts),
+                  list(cache_v.parts), q_all, new_k, new_v)
+    mx, l, o = (collectives.all_to_all([r[i] for r in outs], 1, g.ranks)
+                for i in (2, 3, 4))
+
+    def merge(m, q_p, mx, l, o):
+        top = mx[0]
+        for r in range(1, g.tp):
+            top = torch.maximum(top, mx[r])
+        scale = torch.exp(mx - top)               # (tp, B, Hq/tp)
+        den, num = l[0] * scale[0], o[0] * scale[0][..., None]
+        for r in range(1, g.tp):
+            den = den + l[r] * scale[r]
+            num = num + o[r] * scale[r][..., None]
+        out = (num / den[..., None]).reshape(B, 1, -1, Dh).to(x.dtype)
+        return _merge_heads(cfg, q_p, out)
+
+    merged = tp.run(g, p.parts, merge, mx, l, o)
+    return (tp.reduce(g, [r[0] for r in merged]),
+            cache_k.like([r[0] for r in outs]),
+            cache_v.like([r[1] for r in outs]))
 
 
 def attn_block(cfg: ModelConfig, p, x, positions, *, causal=True):

@@ -11,15 +11,31 @@ reaches this module.  Two dispatch modes, as ``cfg.moe_dispatch``:
                     back: no E*C one-hot traffic.
 
 The aux load-balancing loss is GShard/Switch's.
+
+On a mesh (``distributed/tensor_parallel.py``) the experts are a
+``Split`` over the model ranks, as the reference's ``param_spec`` lays
+them out: by expert where the experts divide the model degree (expert
+parallelism), else by each expert's hidden columns (the dense FFN's
+column/row split, per expert).  The routing (logits, top-k gating,
+capacity positions, the aux loss) runs once on the stream's device and
+is handed to every rank, so the aux loss and the router's gradient are
+counted once and a pair is dropped on every rank or on none; each rank
+dispatches to its experts (or to every expert, with its hidden
+columns), and the ranks' combined outputs are summed in rank order.  A
+rank's work does not depend on the routing: it dispatches through its
+experts' columns of the one-hot (``"einsum"``), or scatters every pair
+with those of other ranks' experts masked to zeros (``"scatter"``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.blocks import gelu, init_ffn, normal
 
 
@@ -79,14 +95,11 @@ def _top_k_gating(logits, k: int):
     return idx, gate, probs
 
 
-def apply_moe(cfg: ModelConfig, p, x, *, num_groups: int = 1
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss).
-
-    Capacity is computed per group; a (token, slot) pair past its
-    expert's capacity is dropped (its gate zeroed).  Positions within an
-    expert count token-major, slot-minor over the group, as the
-    reference's cumsum does."""
+def _route(cfg: ModelConfig, router, x, num_groups: int):
+    """The routing, replicated over the model ranks and computed once on
+    the stream's device: (xg (G, N, D), idx (G, N, k), gate (G, N, k),
+    with dropped pairs' gates zeroed, keep, pos_c, onehot (G, N, k, E),
+    cap, aux)."""
     mc = cfg.moe
     E, K = mc.n_experts, mc.top_k
     B, S, D = x.shape
@@ -97,7 +110,7 @@ def apply_moe(cfg: ModelConfig, p, x, *, num_groups: int = 1
     xg = x.reshape(G, Ng, D)
     cd = cfg.dtype("compute")
 
-    logits = torch.einsum("gnd,de->gne", xg.to(cd), p["router"].to(cd))
+    logits = torch.einsum("gnd,de->gne", xg.to(cd), router.to(cd))
     idx, gate, probs = _top_k_gating(logits, K)                 # (G,N,k)
 
     # Aux load-balance loss (Switch): E * sum(frac_tokens * frac_prob).
@@ -113,25 +126,86 @@ def apply_moe(cfg: ModelConfig, p, x, *, num_groups: int = 1
     keep = pos < cap
     gate = gate * keep
     pos_c = torch.clamp(pos, max=cap - 1)                       # (G,N,k)
+    return xg, idx, gate, keep, pos_c, onehot, cap, aux
 
+
+def _scatter_experts(cfg: ModelConfig, experts, m: int, xg, idx, gate,
+                     keep, pos_c, *, cap: int):
+    """``"scatter"`` dispatch to the experts that ``experts`` holds (all
+    of them, or model rank ``m``'s n: [m n, (m + 1) n)), their FFN and
+    the combine: (G, N, D).  A pair routed elsewhere adds zeros at a
+    clamped slot and its gate is zeroed, so every rank does the same
+    work whatever the routing."""
+    cd = cfg.dtype("compute")
+    G, _, D = xg.shape
+    n = experts["w_down"].shape[0]
+    gi = torch.arange(G, device=xg.device)[:, None, None]      # (G,1,1)
+    if n != cfg.moe.n_experts:
+        local = idx - m * n
+        mine = (local >= 0) & (local < n)
+        idx = torch.clamp(local, 0, n - 1)
+        keep = keep & mine
+        gate = gate * mine
+    # a dropped pair adds zeros at slot cap - 1; kept pairs own their
+    # slots, so the accumulation order changes no sum
+    contrib = (xg[:, :, None, :] * keep[..., None]).to(cd)
+    expert_in = torch.zeros((G, n, cap, D), dtype=cd, device=xg.device)
+    expert_in.index_put_((gi, idx, pos_c), contrib, accumulate=True)
+    expert_out = _expert_ffn(cfg, experts, expert_in)           # (G,n,C,D)
+    back = expert_out[gi, idx, pos_c]                           # (G,N,k,D)
+    return torch.einsum("gnkd,gnk->gnd", back, gate.to(cd))
+
+
+def _einsum_experts(cfg: ModelConfig, experts, m: int, xg, onehot,
+                    pos_oh, gate):
+    """``"einsum"`` dispatch to the experts that ``experts`` holds (all
+    of them, or model rank ``m``'s n): their columns of the one-hot,
+    their FFN and the combine: (G, N, D)."""
+    cd = cfg.dtype("compute")
+    n = experts["w_down"].shape[0]
+    if n != cfg.moe.n_experts:
+        onehot = onehot[..., m * n:(m + 1) * n]
+    oh = onehot.to(cd)
+    disp = torch.einsum("gnke,gnkc->gnec", oh, pos_oh)
+    expert_in = torch.einsum("gnec,gnd->gecd", disp, xg.to(cd))
+    expert_out = _expert_ffn(cfg, experts, expert_in)           # (G,n,C,D)
+    comb = torch.einsum("gnke,gnkc,gnk->gnec", oh, pos_oh, gate.to(cd))
+    return torch.einsum("gnec,gecd->gnd", comb, expert_out)
+
+
+def apply_moe(cfg: ModelConfig, p, x, *, num_groups: int = 1
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss).
+
+    Capacity is computed per group; a (token, slot) pair past its
+    expert's capacity is dropped (its gate zeroed).  Positions within an
+    expert count token-major, slot-minor over the group, as the
+    reference's cumsum does.
+
+    ``p["experts"]`` a ``tensor_parallel.Split``: the routing runs once
+    on the stream's device and is handed to every model rank (the
+    column-parallel input); each rank dispatches to the experts it holds
+    (expert parallelism: ``E / tp`` of them) or to every expert with its
+    ``F / tp`` hidden columns (the expert-hidden split), and the ranks'
+    combined outputs are summed in rank order."""
+    B, S, D = x.shape
+    cd = cfg.dtype("compute")
+    xg, idx, gate, keep, pos_c, onehot, cap, aux = _route(
+        cfg, p["router"], x, num_groups)
+    experts = p["experts"]
     if cfg.moe_dispatch == "scatter":
-        # a dropped pair adds zeros at slot cap - 1; kept pairs own their
-        # slots, so the accumulation order changes no sum
-        gi = torch.arange(G, device=x.device)[:, None, None]   # (G,1,1)
-        contrib = (xg[:, :, None, :] * keep[..., None]).to(cd)
-        expert_in = torch.zeros((G, E, cap, D), dtype=cd, device=x.device)
-        expert_in.index_put_((gi, idx, pos_c), contrib, accumulate=True)
-        expert_out = _expert_ffn(cfg, p["experts"], expert_in)  # (G,E,C,D)
-        back = expert_out[gi, idx, pos_c]                       # (G,N,k,D)
-        out = torch.einsum("gnkd,gnk->gnd", back, gate.to(cd))
+        body = functools.partial(_scatter_experts, cfg, cap=cap)
+        args = (xg, idx, gate, keep, pos_c)
     else:
         # jax.nn.one_hot gives zeros past `cap`: one-hot the clamped
         # position and mask the dropped pairs
         pos_oh = _one_hot(pos_c, cap, cd) * keep[..., None]      # (G,N,k,C)
-        oh = onehot.to(cd)
-        disp = torch.einsum("gnke,gnkc->gnec", oh, pos_oh)
-        expert_in = torch.einsum("gnec,gnd->gecd", disp, xg.to(cd))
-        expert_out = _expert_ffn(cfg, p["experts"], expert_in)  # (G,E,C,D)
-        comb = torch.einsum("gnke,gnkc,gnk->gnec", oh, pos_oh, gate.to(cd))
-        out = torch.einsum("gnec,gecd->gnd", comb, expert_out)
+        body = functools.partial(_einsum_experts, cfg)
+        args = (xg, onehot, pos_oh, gate)
+    if isinstance(experts, tp.Split):
+        out = tp.reduce(experts.group, [o[0] for o in tp.run(
+            experts.group, experts.parts,
+            lambda m, part, *a: body(part, m, *a), *args)])
+    else:
+        out = body(experts, 0, *args)
     return out.reshape(B, S, D).to(x.dtype), aux.to(torch.float32)

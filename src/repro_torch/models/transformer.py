@@ -83,7 +83,7 @@ def tree_map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     if isinstance(trees[0], tp.Split):
-        return tp.Split(trees[0].group, [
+        return trees[0].like([
             tree_map(fn, *(t.parts[m] for t in trees))
             for m in range(trees[0].group.tp)])
     return fn(*trees)
@@ -379,13 +379,15 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
 # ---------------------------------------------------------------------------
 # Serving steps
 # ---------------------------------------------------------------------------
-def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None):
+def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None,
+            moe_groups: Optional[int] = None):
     """Run the prompt; return (last_logits, caches, next_pos).
 
     ``pad_to``: allocate attention KV caches at this length (>= S) so
-    decode can append in place.
+    decode can append in place.  ``moe_groups`` as ``forward``'s.
     """
-    x, _, caches = forward(cfg, params, batch, collect_cache=True)
+    x, _, caches = forward(cfg, params, batch, collect_cache=True,
+                           moe_groups=moe_groups)
     logits = tp.gathered(lm_logits(cfg, params, x[:, -1:, :]))[:, 0]
     S = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[1]
     if pad_to and pad_to > S:
@@ -403,13 +405,16 @@ def prefill(cfg: ModelConfig, params, batch, *, pad_to: Optional[int] = None):
     return logits, caches, S
 
 
-def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
+def decode_step(cfg: ModelConfig, params, caches, tokens, pos, *,
+                moe_groups: Optional[int] = None):
     """One token step. tokens: (B, 1) (or embeds (B, 1, D) for an
     ``embed_inputs`` config); pos: scalar or (B,) positions.
 
     caches: leading group axis (as produced by prefill or
     ``init_decode_caches``).  Returns (logits (B, V), new_caches); the
-    caches passed in are not written."""
+    caches passed in are not written.  ``moe_groups``: the MoE capacity
+    groups of these rows (default ``moe_num_groups(B)``; a data rank
+    runs its share of the whole batch's)."""
     period = period_pattern(cfg)
     B = tokens.shape[0]
     if cfg.embed_inputs and tokens.dim() == 3:
@@ -446,8 +451,9 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
             elif use_moe:
                 # dead serving slots take part and compete for capacity,
                 # as in the reference
-                out2, _ = apply_moe(cfg, p["moe"], h2,
-                                    num_groups=moe_num_groups(B))
+                out2, _ = apply_moe(cfg, p["moe"], h2, num_groups=(
+                    moe_num_groups(B) if moe_groups is None
+                    else moe_groups))
             else:
                 out2 = apply_ffn(cfg, p["ffn"], h2)
             x = x + out2.to(x.dtype)

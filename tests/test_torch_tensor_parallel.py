@@ -15,13 +15,17 @@ rank order, as GSPMD runs the reference's specs.
   ``GRAD_ATOL_RMS`` of each leaf's RMS (``test_torch_train``'s).
 * The whole sharded step on (1, 2), (2, 2) and (4, 2) for llama,
   chatglm and jamba smoke against the reference's jitted single-device
-  ``train_step`` within ``test_torch_train``'s bars; its collectives:
-  no param all-gathered over "model" but MoE experts (which stay
-  whole), all-gathers over "data" only under FSDP, every all-reduce of
-  group tp.
+  ``train_step`` within ``test_torch_train``'s bars
+  (``check_split_step``, which ``test_torch_expert_parallel`` runs for
+  grok's expert-parallel and expert-hidden steps too); its
+  collectives: no param all-gathered over "model" (jamba's MoE experts
+  split by expert), all-gathers over "data" only under FSDP, every
+  all-reduce of group tp; each model rank computes with its own block
+  of every leaf split over "model".
 * Prefill and decode split over the model ranks against the unsplit
-  port (caches split by kv head, or whole as a sequence-sharded cache is
-  gathered).
+  port (caches split by kv head, or whole as a cache sharded by
+  sequence over "data" too is gathered; a cache split by sequence over
+  "model" alone: ``test_torch_expert_parallel``).
 * The dry-run's counts: on a (1, 2) llama smoke step every FLOP is a
   split product's, so each model rank counts exactly half of the
   unsplit step's FLOPs.
@@ -318,8 +322,19 @@ def reference_steps():
 @pytest.mark.parametrize("name,shape", STEP_CASES)
 def test_split_step_matches_the_references_single_device_step(
         name, shape, reference_steps):
+    check_split_step(name, shape, reference_steps(name))
+
+
+def check_split_step(name, shape, reference):
+    """The (dp, tp) step of ``name`` against the reference's jitted
+    single-device step (``reference``: its batch, initial state, new
+    state, metrics and grads) within ``test_torch_train``'s bars; no
+    param is all-gathered over "model" (nor over "data": no FSDP here),
+    every all-reduce has group tp, and each model rank computes with
+    its own block of every leaf that ``param_spec`` splits over
+    "model"."""
     _, tc = _both(name, logit_dtype="float32")
-    batch, (state0, want, jm, jg) = reference_steps(name)
+    batch, (state0, want, jm, jg) = reference
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     mesh = _mesh(*shape)
     state = t_tr.train_state_from_numpy(state0, "cpu")
@@ -349,20 +364,21 @@ def test_split_step_matches_the_references_single_device_step(
         np.testing.assert_allclose(tp_[settled], wp[settled],
                                    err_msg=f"param {where}", **PARAM_TOL)
         assert np.abs(tp_ - wp).max(initial=0) <= 2 * lr, where
-    # no leaf that "model" splits is gathered: the only all-gathers are
-    # the MoE experts', which stay whole on the first model rank
-    moe_split = [leaf for leaf, spec in zip(
-        tree_leaves(state.params),
-        tree_leaves(params_pspecs(tc, mesh, state.params)))
-        if "model" in tuple(spec) and leaf.dim() >= 3
-        and leaf.shape[-3] == getattr(tc.moe, "n_experts", -1)]
     ev = counts.counter.events
-    gathers = [e for e in ev if e.kind == "all-gather"]
-    n = shard_train.row_split(tc, mesh, tbatch)[0]
-    assert sorted(e.result_bytes for e in gathers) == sorted(
-        [leaf.numel() * leaf.element_size() for leaf in moe_split] * n)
+    assert not [e for e in ev if e.kind == "all-gather"]
     assert all(e.group == shape[1] for e in ev if e.kind == "all-reduce")
     assert any(e.kind == "all-reduce" for e in ev)
+    plans = tensor_parallel.plan_leaves(tc, mesh, placed.params)
+    _, leaves = tensor_parallel.rank_params(tc, placed.params, mesh, 0,
+                                            plans)
+    for plan, per, whole in zip(plans, leaves, [
+            x.full("cpu") for x in tree_leaves(new.params)]):
+        if "/moe/experts/" in plan.path:
+            assert plan.node is not None, plan.path
+        if plan.node is not None and len(plan.blocks) > 1 and all(
+                pc == [b] for pc, b in zip(plan.pieces, plan.blocks)):
+            for m, t in enumerate(per):
+                assert torch.equal(t, whole[plan.blocks[m]]), plan.path
 
 
 def test_fsdp_gathers_over_data_only():
@@ -413,8 +429,8 @@ def test_split_step_runs_the_scan_on_every_model_rank():
 def test_split_prefill_and_decode_match_the_unsplit_port(name, tp):
     """Prefill (caches of the ranks' kv heads and channels), then four
     decode steps on those caches, and on llama's also whole caches (as
-    a cache sharded by sequence over "model" is gathered): logits and
-    caches within ``MODEL_TOL`` of the unsplit port's."""
+    a cache sharded by sequence over "data" and "model" is gathered):
+    logits and caches within ``MODEL_TOL`` of the unsplit port's."""
     _, tc, _, params = _params(name)
     tree, _ = tensor_parallel.local_split(tc, params, tp, "cpu")
     tokens = torch.from_numpy(np.random.default_rng(6).integers(
