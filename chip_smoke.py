@@ -370,18 +370,24 @@ and prints no result):
    on the card and on the CPU (``FAMILY_TOL``; jamba launches the scan's
    forward and backward on each (data, model) rank, on its data rank's
    rows and its d_inner / 2 channels, nothing else launches; the MoE
-   configs' 4 experts split by expert, 2 a model rank), and
-   ``MESH_HIDDEN``, grok-1-314b smoke on (1, 8), whose 4 experts do not
-   divide 8, splits each expert's hidden columns (16 of 128 a rank), on
-   the card and on the CPU within ``FAMILY_TOL``, with no param
-   all-gathered over "model"; (c) ``gpipe_forward`` over 4 logical
+   configs' 4 experts split by expert, 2 a model rank; rwkv's mixes and
+   seamless's cross-attention split too), and ``MESH_HIDDEN``,
+   grok-1-314b smoke on (1, 8), whose 4 experts do not divide 8, splits
+   each expert's hidden columns (16 of 128 a rank), on the card and on
+   the CPU within ``FAMILY_TOL``, with no param all-gathered over
+   "model"; ``MESH_RWKV``, rwkv6-3b smoke on (1, 8), whose 4 heads do
+   not divide 8 (ranks 1, 3, 5, 7 own one head, each taking the half
+   head another rank stores: collective-permutes of exactly those
+   bytes, nothing all-gathered), loss and xent within ``FAMILY_TOL``,
+   params within 2 lr; (c) ``gpipe_forward`` over 4 logical
    stages of 4 llama blocks in bf16, 8 microbatches of (1, 1024),
    bitwise the 16 blocks in sequence, both timed.
 
 10. dryrun and examples (``dryrun_examples_phases``) — "dryrun" (a):
    ``DRYRUN_CELLS`` through ``python -m repro_torch.launch.dryrun`` on
    meta at full production size (olmo-1b train_4k single calibrated,
-   jamba decode_32k single, grok-1-314b train_4k multi), one process a
+   jamba decode_32k single, grok-1-314b train_4k multi, rwkv6-3b and
+   seamless-m4t-large-v2 decode_32k single), one process a
    cell started together on the CPU, while "examples" runs: every
    ``examples_torch/*.py`` with its defaults on the card,
    ``EXAMPLES_AT_ONCE`` at a time (exit 0, its own checks, wall
@@ -395,12 +401,14 @@ and prints no result):
    scan on each of the 4 ranks through its count hook, and splits its
    MoE by expert), the card's peak memory
    against the record's, the synchronized step against
-   ``bound_time_s``; and ``GROUND_DECODE``, jamba smoke's serving
-   decode step on (2, 4), whose 2 kv heads do not divide 4, so each
-   model rank holds and attends over its sequence block of the cache:
+   ``bound_time_s``; and ``GROUND_DECODES``, three smoke configs'
+   serving decode steps of 16 rows on (2, 4): jamba's, whose 2 kv heads
+   do not divide 4, so each model rank holds and attends over its
+   sequence block of the cache; seamless's, its frozen cross-attention
+   cache split by kv head; rwkv's, its heads split and its state whole:
    counts equal on meta and on the card rank by rank, the logits within
-   ``FAMILY_TOL`` of the unsplit ``decode_step`` on the card, the cache
-   never gathered; (c) ``launch/report.py`` renders (a)-(b)'s records
+   ``FAMILY_TOL`` of the unsplit ``decode_step`` on the card, a split
+   cache never gathered; (c) ``launch/report.py`` renders (a)-(b)'s records
    (in ``experiments/dryrun_torch_smoke``) with no ``ERROR`` row.
 
 Output: the ``{"kernels": [...]}`` JSON line, the card's
@@ -912,6 +920,10 @@ MESH_TRAIN = dict(batch=4, seq=1024, steps=3)
 # (b) the expert-hidden split: grok smoke's 4 experts on a model degree
 # of 8 (d_ff 128: 16 hidden columns a rank), at (batch, seq)
 MESH_HIDDEN = ("grok-1-314b", (1, 8), 8, 32)
+# (b) RWKV's heads on a model degree they do not divide: rwkv6-3b smoke's
+# 4 heads of 16 on (1, 8) (a stored block is half a head; ranks 1, 3, 5,
+# 7 own one head each), at (batch, seq)
+MESH_RWKV = ("rwkv6-3b", (1, 8), 8, 32)
 GPIPE = dict(stages=4, micro=8, seq=1024)
 
 # "dryrun" (PERF.md sections 2-3): (a) the production dry-run's cells on
@@ -927,17 +939,28 @@ GPIPE = dict(stages=4, micro=8, seq=1024)
 # (a)-(b)'s records.
 DRYRUN_CELLS = (("olmo-1b", "train_4k", "single", True),
                 ("jamba-1.5-large-398b", "decode_32k", "single", False),
-                ("grok-1-314b", "train_4k", "multi", False))
+                ("grok-1-314b", "train_4k", "multi", False),
+                ("rwkv6-3b", "decode_32k", "single", False),
+                ("seamless-m4t-large-v2", "decode_32k", "single", False))
 DRYRUN_STATIC = {"olmo-1b": 882573316.0,
                  "jamba-1.5-large-398b": 3775279104.0,
-                 "grok-1-314b": 3855716356.0}
+                 "grok-1-314b": 3855716356.0,
+                 "rwkv6-3b": 1768509440.0,
+                 "seamless-m4t-large-v2": 5597888512.0}
 DRYRUN_TIMEOUT_S = 600
 GROUND_LAYERS = 2
 GROUND_CASES = (("llama3.2-1b", False, 8, 512), ("jamba-1.5-large-398b",
                                                  True, 8, 64))
-# (b) a serving decode step on a cache split by sequence over "model":
-# (arch (smoke), (data, model), batch, cache length, position)
-GROUND_DECODE = ("jamba-1.5-large-398b", (2, 4), 16, 64, 37)
+# (b) serving decode steps on (2, 4): (arch (smoke), (data, model),
+# batch, cache length, position, the cache that is checked and its
+# layout): jamba's attention cache split by sequence over "model" (2 kv
+# heads), seamless's frozen cross-attention cache by kv head, rwkv's
+# state whole (replicated over "model", its heads run split)
+GROUND_DECODES = (("jamba-1.5-large-398b", (2, 4), 16, 64, 37, "sub0/k",
+                   "sequence"),
+                  ("seamless-m4t-large-v2", (2, 4), 16, 64, 37, "xk",
+                   "kv head"),
+                  ("rwkv6-3b", (2, 4), 16, 64, 37, "sub0/state", "whole"))
 EXAMPLES_AT_ONCE = 2
 EXAMPLE_TIMEOUT_S = 300
 
@@ -7343,13 +7366,16 @@ class ScanWork:
 def mesh_smoke_checks(card):
     """(b) every smoke config of ``smoke_families`` takes one (4, 2) step
     at (8, 32) on 8 logical devices of the card and of the CPU from the
-    same state: metrics within FAMILY_TOL (grad_norm but for rwkv, as
-    the "train" phase), params within 2 lr; only jamba launches kernels,
+    same state (RWKV's mixes and the encoder-decoder's cross-attention
+    split over the model ranks too): metrics within FAMILY_TOL
+    (grad_norm but for rwkv, as the "train" phase), params within 2 lr;
+    only jamba launches kernels,
     the scan's forward and backward on each (data, model) rank: its
     data rank's rows, its d_inner / 2 channels (``ScanWork``)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import shard_train
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.distributed.sharding import (ShardingPolicy,
                                                   device_put, state_pspecs,
                                                   to_shardings)
@@ -7370,6 +7396,13 @@ def mesh_smoke_checks(card):
             batch = make_inputs(cfg, shape, seed=SEED, abstract=False,
                                 device="cpu")
             split = shard_train.row_split(cfg, mesh, batch)
+            nodes = {p.node.rsplit("/", 1)[-1] for p in tp.plan_leaves(
+                cfg, mesh, placed.params) if p.node is not None}
+            want = ({"rwkv_tm", "rwkv_cm"} if "rwkv" in cfg.attn_layout
+                    else set()) | ({"cross_attn"} if cfg.family == "encdec"
+                                   else set())
+            check(want <= nodes, f"train mesh {label}: {want - nodes} run "
+                                 f"whole on the first model rank")
             torch.cuda.synchronize()
             cuda.reset_launches()
             sink = ScanWork()
@@ -7415,6 +7448,68 @@ def mesh_smoke_checks(card):
     torch.cuda.empty_cache()
 
 
+def _mesh_case_steps(case):
+    """One step of a (arch smoke, (data, model), batch, seq) case on its
+    mesh of logical devices of the card and of the CPU from the same
+    state: {"cpu"|"cuda": (cfg, mesh, placed state before the step, new
+    state, metrics, collective events of the step, step ms wall)}."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives, shard_train
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  device_put, state_pspecs,
+                                                  to_shardings)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.frontends import make_inputs
+    from repro_torch.optim.adamw import AdamWConfig
+    arch, (dp, tpd), batch, seq = case
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              logit_dtype="float32")
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    state0 = api.init_train_state(cfg, opt, SEED, device="cpu")
+    data = make_inputs(cfg, ShapeConfig("mesh_case", seq, batch, "train"),
+                       seed=SEED, abstract=False, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = make_host_mesh(dp, tpd, devices=[dev] * (dp * tpd))
+        placed = device_put(state0, to_shardings(mesh, state_pspecs(
+            cfg, mesh, state0, ShardingPolicy())))
+        counter = collectives.CollectiveCounter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collectives.counting(counter):
+            new, metrics = shard_train.train_step(cfg, opt, placed, data)
+        torch.cuda.synchronize()
+        out[dev] = (cfg, mesh, new, metrics, counter.events,
+                    (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _mesh_case_close(label, out, keys):
+    """Card against CPU: ``keys`` of the metrics within FAMILY_TOL,
+    every param within 2 lr; the largest param difference."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    (_, _, c_new, c_m, _, _), (_, _, g_new, g_m, _, _) = (out["cpu"],
+                                                          out["cuda"])
+    for k in keys:
+        torch.testing.assert_close(
+            g_m[k].cpu(), c_m[k], **FAMILY_TOL,
+            msg=lambda m: f"train mesh {label} {k}, card against CPU: {m}")
+    lr = float(c_m["lr"])
+    worst = 0.0
+    for i, (gp, cp) in enumerate(zip(tree_leaves(g_new.params),
+                                     tree_leaves(c_new.params))):
+        d = float((gp.full("cpu").float() - cp.full().float()).abs().max())
+        worst = max(worst, d)
+        check(d <= 2 * lr, f"train mesh {label} param {i} moved {d} apart, "
+                           f"more than 2 lr")
+    return worst
+
+
 def mesh_hidden_check(card):
     """(b) ``MESH_HIDDEN``: grok smoke on (1, 8), whose 4 experts do not
     divide 8, takes one step on 8 logical devices of the card and of the
@@ -7422,35 +7517,18 @@ def mesh_hidden_check(card):
     each expert's 128 hidden columns (``tensor_parallel.plan_leaves``),
     no param is all-gathered (over "model" or "data"), metrics within
     FAMILY_TOL, params within 2 lr."""
-    import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.distributed import collectives, shard_train
     from repro_torch.distributed import tensor_parallel as tp
-    from repro_torch.distributed.sharding import (ShardingPolicy,
-                                                  device_put, state_pspecs,
-                                                  to_shardings)
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import api
-    from repro_torch.models.frontends import make_inputs
-    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
     arch, (dp, tpd), batch, seq = MESH_HIDDEN
-    cfg = dataclasses.replace(get_config(arch, smoke=True),
-                              logit_dtype="float32")
+    cfg = get_config(arch, smoke=True)
     check(cfg.moe.n_experts % tpd != 0 and cfg.d_ff % tpd == 0,
           f"train mesh hidden: {arch} smoke on {tpd} model ranks is no "
           f"expert-hidden split")
-    opt = AdamWConfig(warmup_steps=2, total_steps=10)
-    state0 = api.init_train_state(cfg, opt, SEED, device="cpu")
-    data = make_inputs(cfg, ShapeConfig("mesh_hidden", seq, batch, "train"),
-                       seed=SEED, abstract=False, device="cpu")
-    out = {}
-    for dev in ("cpu", "cuda"):
-        mesh = make_host_mesh(dp, tpd, devices=[dev] * (dp * tpd))
-        placed = device_put(state0, to_shardings(mesh, state_pspecs(
-            cfg, mesh, state0, ShardingPolicy())))
-        experts = [p for p in tp.plan_leaves(cfg, mesh, placed.params)
+    out = _mesh_case_steps(MESH_HIDDEN)
+    for dev in out:
+        cfg, mesh, new = out[dev][:3]
+        experts = [p for p in tp.plan_leaves(cfg, mesh, new.params)
                    if "/moe/experts/" in p.path]
         check(experts and all(
             p.node is not None and len(p.blocks) == tpd
@@ -7458,27 +7536,10 @@ def mesh_hidden_check(card):
             for p in experts),
             f"train mesh hidden: the experts do not split by hidden "
             f"column: {[(p.path, p.node, p.dim) for p in experts]}")
-        counter = collectives.CollectiveCounter()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with collectives.counting(counter):
-            new, metrics = shard_train.train_step(cfg, opt, placed, data)
-        torch.cuda.synchronize()
-        out[dev] = (new, metrics, counter.events,
-                    (time.perf_counter() - t0) * 1e3)
-    (c_new, c_m, _, _), (g_new, g_m, events, ms) = out["cpu"], out["cuda"]
-    for k in ("loss", "xent", "aux", "lr", "grad_norm"):
-        torch.testing.assert_close(
-            g_m[k].cpu(), c_m[k], **FAMILY_TOL,
-            msg=lambda m: f"train mesh hidden {k}, card against CPU: {m}")
-    lr = float(c_m["lr"])
-    worst = 0.0
-    for i, (gp, cp) in enumerate(zip(tree_leaves(g_new.params),
-                                     tree_leaves(c_new.params))):
-        d = float((gp.full("cpu").float() - cp.full().float()).abs().max())
-        worst = max(worst, d)
-        check(d <= 2 * lr, f"train mesh hidden param {i} moved {d} apart, "
-                           f"more than 2 lr")
+    worst = _mesh_case_close("hidden", out, ("loss", "xent", "aux", "lr",
+                                             "grad_norm"))
+    _, _, _, g_m, events, ms = out["cuda"]
+    c_m = out["cpu"][3]
     gathers = [e for e in events if e.kind == "all-gather"]
     check(not gathers, f"train mesh hidden: {len(gathers)} params "
                        f"all-gathered")
@@ -7486,6 +7547,56 @@ def mesh_hidden_check(card):
         f"{seq}): {cfg.moe.n_experts} experts split by hidden column "
         f"({cfg.d_ff // tpd} of {cfg.d_ff} a rank), no param all-gathered; "
         f"card == CPU (loss {float(g_m['loss']):.6f} vs "
+        f"{float(c_m['loss']):.6f}, grad_norm {float(g_m['grad_norm']):.6f}"
+        f" vs {float(c_m['grad_norm']):.6f}; params within {worst:.3e}); "
+        f"step {ms:.1f} ms wall on {card}")
+    torch.cuda.empty_cache()
+
+
+def mesh_rwkv_check(card):
+    """(b) ``MESH_RWKV``: rwkv6-3b smoke on (1, 8), whose 4 heads do not
+    divide 8, takes one step on 8 logical devices of the card and of the
+    CPU from the same state: ranks 1, 3, 5, 7 own one head each, each
+    takes the half head's columns another rank stores (collective-
+    permutes of exactly those bytes, nothing all-gathered); loss and
+    xent within FAMILY_TOL (grad_norm excepted, as the "train" phase
+    excepts rwkv's), params within 2 lr."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import tensor_parallel as tp
+    arch, (dp, tpd), batch, seq = MESH_RWKV
+    out = _mesh_case_steps(MESH_RWKV)
+    cfg, mesh, new, g_m, events, ms = out["cuda"]
+    H, hs, D = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size, \
+        cfg.d_model
+    check(H % tpd != 0 and D % tpd == 0,
+          f"train mesh rwkv: {H} heads on {tpd} model ranks divide")
+    owners = tp.head_owners(cfg, tpd)
+    counter = collectives.CollectiveCounter()
+    with collectives.counting(counter):
+        tp.rank_params(cfg, new.params, mesh, 0)
+    lack = 0
+    for m in range(tpd):
+        a, b = tp.rwkv_heads(cfg, tpd, m)
+        own = max(0, min(b * hs, (m + 1) * D // tpd) - max(a * hs,
+                                                            m * D // tpd))
+        lack += ((b - a) * hs - own) * D * cfg.n_layers * 4 * 5
+    moved = [e for e in counter.events]
+    check(moved and all(e.kind == "collective-permute" for e in moved)
+          and sum(e.result_bytes for e in moved) == lack,
+          f"train mesh rwkv: a pass's params moved "
+          f"{sorted({(e.kind, e.result_bytes) for e in moved})}, want "
+          f"collective-permutes of {lack} bytes")
+    gathers = [e for e in events if e.kind == "all-gather"]
+    check(not gathers, f"train mesh rwkv: {len(gathers)} all-gathers in "
+                       f"the step")
+    worst = _mesh_case_close("rwkv", out, ("loss", "xent", "aux", "lr"))
+    c_m = out["cpu"][3]
+    log(f"train mesh (b) {arch} smoke on {(dp, tpd)}, (B, S) = ({batch}, "
+        f"{seq}): {H} heads of {hs} on {tpd} model ranks (owners {owners}, "
+        f"{D // tpd} columns a stored block), the params' moves "
+        f"collective-permutes of {lack} bytes, nothing all-gathered; card "
+        f"== CPU (loss {float(g_m['loss']):.6f} vs "
         f"{float(c_m['loss']):.6f}, grad_norm {float(g_m['grad_norm']):.6f}"
         f" vs {float(c_m['grad_norm']):.6f}; params within {worst:.3e}); "
         f"step {ms:.1f} ms wall on {card}")
@@ -7556,6 +7667,7 @@ def train_mesh_phase(card, trainer_losses):
     mesh_llama_checks(card, trainer_losses)
     mesh_smoke_checks(card)
     mesh_hidden_check(card)
+    mesh_rwkv_check(card)
     gpipe_checks(card)
     log(f"train mesh: phase wall {time.perf_counter() - t0:.1f} s on {card}")
 
@@ -7762,10 +7874,17 @@ def ground_truth_checks(card, out_dir):
         torch.cuda.empty_cache()
 
 
-def _ground_decode(dev):
-    """``GROUND_DECODE``'s serving decode step on ``dev`` (``meta``:
-    abstract; else seeded params, caches and tokens on the card): (cfg,
-    shape, mesh, policy, static, fn, placed args, whole args)."""
+def _cache_at(caches, path):
+    for key in path.split("/"):
+        caches = caches[key]
+    return caches
+
+
+def _ground_decode(case, dev):
+    """A ``GROUND_DECODES`` case's serving decode step on ``dev``
+    (``meta``: abstract; else seeded params, caches and tokens on the
+    card): (cfg, shape, mesh, policy, static, fn, placed args, whole
+    args)."""
     import dataclasses
     import torch
     from repro_torch.configs import ShapeConfig, get_config
@@ -7776,8 +7895,8 @@ def _ground_decode(dev):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import api
-    from repro_torch.models.transformer import init_params, tree_map
-    arch, (dp, tpd), batch, seq, pos = GROUND_DECODE
+    from repro_torch.models.transformer import tree_map
+    arch, (dp, tpd), batch, seq, pos, path, layout = case
     # f32 logits: a bf16 one moves by a bf16 step under reordered sums
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               logit_dtype="float32")
@@ -7788,7 +7907,7 @@ def _ground_decode(dev):
         params = api.init_params_abstract(cfg)
         tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
     else:
-        params = init_params(cfg, SEED, device=dev)
+        params = api.init_params(cfg, SEED, device=dev)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         caches = tree_map(lambda t: torch.randn(
             t.shape, generator=gen, device=dev).to(t.dtype), caches)
@@ -7798,9 +7917,13 @@ def _ground_decode(dev):
     policy = ShardingPolicy()
     pspec = params_pspecs(cfg, mesh, params, policy)
     cspec = cache_pspecs(cfg, mesh, caches, policy)
-    check(tuple(cspec["sub0"]["k"])[2] == "model",
-          f"dryrun (b) decode: {arch} smoke's cache is not split by "
-          f"sequence on {(dp, tpd)}: {cspec['sub0']['k']}")
+    spec = tuple(_cache_at(cspec, path))
+    want = {"sequence": (2, "model"), "kv head": (3, "model"),
+            "whole": (None, None)}[layout]
+    check((want[0] is None and "model" not in spec)
+          or (want[0] is not None and spec[want[0]] == want[1]),
+          f"dryrun (b) decode: {arch} smoke's {path} is not laid out by "
+          f"{layout} on {(dp, tpd)}: {spec}")
     placed = dryrun.place((params, caches, {"tokens": tokens}), (
         to_shardings(mesh, pspec), to_shardings(mesh, cspec), None), mesh)
     static = (dryrun._sharded_bytes(params, pspec, mesh)
@@ -7811,26 +7934,27 @@ def _ground_decode(dev):
             placed, (params, caches, tokens))
 
 
-def ground_decode_check(card, out_dir):
-    """(b) ``GROUND_DECODE``: the counters around jamba smoke's decode
-    step on (2, 4), its attention cache split by sequence over the model
-    ranks, on meta and on the card: FLOPs, bytes and collective bytes
-    equal rank by rank; the data ranks' logits within FAMILY_TOL of the
-    unsplit ``decode_step`` on the card; each model rank's cache block
-    stays where it lies (no all-gather as large as a block)."""
+def ground_decode_check(card, out_dir, case):
+    """(b) a ``GROUND_DECODES`` case: the counters around a smoke
+    config's decode step on (2, 4), on meta and on the card: FLOPs,
+    bytes and collective bytes equal rank by rank; the data ranks'
+    logits within FAMILY_TOL of the unsplit ``decode_step`` on the card;
+    the checked cache in its layout (a ``SeqSplit`` of sequence blocks,
+    a ``Split`` of kv heads, or whole), no all-gather as large as a
+    model rank's block of it."""
     import torch
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import dryrun
     from repro_torch.models import api
-    arch, (dp, tpd), batch, seq, pos = GROUND_DECODE
+    arch, (dp, tpd), batch, seq, pos, path, layout = case
     t0 = time.perf_counter()
     cfg, shape, mesh, policy, static, fn, placed, _ = _ground_decode(
-        torch.device("meta"))
+        case, torch.device("meta"))
     meta = dryrun.count_step(fn, *placed)
     m_meta = dryrun.summarize(meta, mesh, static, time.perf_counter() - t0)
     del placed
     cfg, shape, mesh, policy, static, fn, placed, whole = _ground_decode(
-        torch.device("cuda", 0))
+        case, torch.device("cuda", 0))
     with torch.no_grad():
         fn(*placed)                                   # warm
         _, step_ms = cuda_sync_ms(lambda: fn(*placed))
@@ -7841,22 +7965,26 @@ def ground_decode_check(card, out_dir):
     for r in range(dp * tpd):
         a, b = meta.summary(r), card_counts.summary(r)
         for key in ("flops", "bytes_accessed", "collectives"):
-            check(a[key] == b[key], f"dryrun (b) decode rank {r}: {key} "
-                  f"meta {a[key]!r} != card {b[key]!r}")
+            check(a[key] == b[key], f"dryrun (b) {arch} decode rank {r}: "
+                  f"{key} meta {a[key]!r} != card {b[key]!r}")
     outs = card_counts.outputs
     got = torch.cat([o[0] for o in outs])
     torch.testing.assert_close(
         got, want, **FAMILY_TOL,
-        msg=lambda m: f"dryrun (b) decode: split logits against the "
-                      f"unsplit step: {m}")
-    k = outs[0][1]["sub0"]["k"]
-    check(isinstance(k, tp.SeqSplit) and len(k.parts) == tpd,
-          f"dryrun (b) decode: the new cache is {k!r}")
-    block = k.parts[0].numel() * k.parts[0].element_size()
+        msg=lambda m: f"dryrun (b) {arch} decode: split logits against "
+                      f"the unsplit step: {m}")
+    c = _cache_at(outs[0][1], path)
+    kind = {"sequence": tp.SeqSplit, "kv head": tp.Split,
+            "whole": torch.Tensor}[layout]
+    check(type(c) is kind or (layout == "whole" and isinstance(c, kind)),
+          f"dryrun (b) {arch} decode: the new {path} is {c!r}")
+    blk = c.parts[0] if isinstance(c, tp.Split) else c
+    block = blk.numel() * blk.element_size()
     gathers = [e.result_bytes for e in card_counts.counter.events
                if e.kind == "all-gather"]
-    check(max(gathers) < block, f"dryrun (b) decode: an all-gather of "
-                                f"{max(gathers)} bytes, a block {block}")
+    check(layout == "whole" or max(gathers) < block,
+          f"dryrun (b) {arch} decode: an all-gather of {max(gathers)} "
+          f"bytes, a block of {path} {block}")
     coll = m_meta["collectives"]
     rec = {"cell": f"{cfg.name}__{shape.name}__logical2x4__meta",
            "arch": cfg.name, "shape": shape.name, "mesh": "logical2x4",
@@ -7865,17 +7993,16 @@ def ground_decode_check(card, out_dir):
                      dryrun.totals(m_meta), {"n_groups": None})
     (out_dir / f"{rec['cell']}.json").write_text(json.dumps(rec))
     log(f"dryrun (b) {cfg.name} {shape.name} decode at position {pos} on "
-        f"{(dp, tpd)} logical devices (cache split by sequence, "
-        f"{seq // tpd} positions a model rank): FLOPs "
-        f"{m_meta['flops']:.6g}, bytes {m_meta['bytes_accessed']:.6g}, "
-        f"collective bytes {coll['total']:.6g} (all-to-all "
-        f"{coll['all-to-all']:.6g}) on the busiest device, meta == card on "
-        f"all {dp * tpd} ranks; logits within FAMILY_TOL of the unsplit "
-        f"step (max abs err {float((got - want).abs().max()):.3e}); "
-        f"largest all-gather {max(gathers)} bytes against a block's "
-        f"{block}; step {step_ms:.1f} ms synchronized against "
-        f"bound_time_s {rec['roofline']['bound_time_s'] * 1e3:.4f} ms; "
-        f"on {card}")
+        f"{(dp, tpd)} logical devices ({path} by {layout}: "
+        f"{type(c).__name__}): FLOPs {m_meta['flops']:.6g}, bytes "
+        f"{m_meta['bytes_accessed']:.6g}, collective bytes "
+        f"{coll['total']:.6g} (all-to-all {coll['all-to-all']:.6g}, "
+        f"all-gather {coll['all-gather']:.6g}) on the busiest device, meta "
+        f"== card on all {dp * tpd} ranks; logits within FAMILY_TOL of the "
+        f"unsplit step (max abs err {float((got - want).abs().max()):.3e});"
+        f" largest all-gather {max(gathers)} bytes, {path} {block} bytes "
+        f"a rank; step {step_ms:.1f} ms synchronized against bound_time_s "
+        f"{rec['roofline']['bound_time_s'] * 1e3:.4f} ms; on {card}")
     del placed, meta, card_counts, whole
     torch.cuda.empty_cache()
 
@@ -7892,7 +8019,8 @@ def report_check(out_dir):
     for line in text.splitlines():
         log(f"  {line}")
     check("ERROR" not in text, "dryrun (c): the report has an ERROR row")
-    check(text.count("| ok |") >= len(DRYRUN_CELLS) + 2 * len(GROUND_CASES),
+    check(text.count("| ok |") >= (len(DRYRUN_CELLS) + 2 * len(GROUND_CASES)
+                                   + len(GROUND_DECODES)),
           "dryrun (c): the report is missing records")
 
 
@@ -7956,7 +8084,8 @@ def dryrun_examples_phases(card):
     log(f"dryrun (a): {time.perf_counter() - t0:.1f} s since the start")
     t1 = time.perf_counter()
     ground_truth_checks(card, out_dir)
-    ground_decode_check(card, out_dir)
+    for case in GROUND_DECODES:
+        ground_decode_check(card, out_dir, case)
     report_check(out_dir)
     log(f"dryrun: (b)-(c) wall {time.perf_counter() - t1:.1f} s; both "
         f"phases {time.perf_counter() - t0:.1f} s on {card}")

@@ -19,14 +19,14 @@ compute over "model":
 * Each data rank runs forward and backward of its rows over its model
   ranks (``tensor_parallel``): the residual stream on its first model
   rank's device, each sublayer that ``param_spec`` splits over "model"
-  (attention, the dense FFN, Mamba, the vocabulary) on every model rank
-  with that rank's block only, the outputs summed in rank order
-  (Megatron's column-parallel in, row-parallel out, as GSPMD runs the
-  reference's specs); so do the MoE experts, by expert or by hidden
-  column.  A model rank's blocks are gathered over "data" where FSDP
-  split them (ZeRO-3, whole-tree, for the pass) and dropped after it;
-  the other sublayers (RWKV, cross-attention) run whole on the first
-  model rank, their leaves gathered there.
+  (attention and cross-attention, the dense FFN, Mamba, RWKV's mixes,
+  the vocabulary) on every model rank with that rank's block (RWKV: its
+  whole heads) only, the outputs summed in rank order (Megatron's
+  column-parallel in, row-parallel out, as GSPMD runs the reference's
+  specs); so do the MoE experts, by expert or by hidden column.  A model
+  rank's blocks are gathered over "data" where FSDP split them (ZeRO-3,
+  whole-tree, for the pass) and dropped after it; the rest (norms, the
+  router) runs on the first model rank.
 * A leaf's gradient is kept by model block (its block along "model",
   whole along the data axes): summed over the data ranks in data-rank
   order on the block's holder (the first data rank's position at that

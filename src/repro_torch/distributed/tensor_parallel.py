@@ -11,11 +11,11 @@ first one's device (the data rank's device); each sublayer that
 rank's block only, and its output is the rank-order sum of the ranks'
 outputs (``collectives.model_sum``).  The split sublayers:
 
-* attention (``attn``, the encoder-decoder's ``self_attn``) when the
-  query heads divide ``tp``: each rank its heads' columns of ``wq``,
-  ``wk``, ``wv`` and rows of ``wo``.  Where the kv heads do not divide
-  ``tp`` (``wk``/``wv`` replicated) a rank takes the kv heads its query
-  heads use (``kv_heads``);
+* attention (``attn``, the encoder-decoder's ``self_attn`` and
+  ``cross_attn``) when the query heads divide ``tp``: each rank its
+  heads' columns of ``wq``, ``wk``, ``wv`` and rows of ``wo``.  Where
+  the kv heads do not divide ``tp`` (``wk``/``wv`` replicated) a rank
+  takes the kv heads its query heads use (``kv_heads``);
 * the dense FFN (``ffn``) when ``d_ff`` divides: ``w_gate``/``w_up``/
   ``w_in`` columns, ``w_down`` rows;
 * Mamba (``mamba``) when ``d_inner`` divides: a rank's ``d_inner``
@@ -29,18 +29,35 @@ outputs (``collectives.model_sum``).  The split sublayers:
   divides (``w_gate``/``w_up``/``w_in`` columns, ``w_down`` rows).  The
   router is replicated and the routing runs once, on the stream's
   device (``moe.apply_moe``);
+* RWKV's time-mix (``rwkv_tm``) when ``D`` divides ``tp`` (``param_spec``
+  splits ``w_r``/``w_k``/``w_v``/``w_g`` by columns and ``w_o`` by
+  rows): each rank runs whole heads, rank m the heads [m H / tp,
+  (m + 1) H / tp) (``rwkv_heads``; floors), their columns of every
+  product, of ``w_lora_b`` and ``w0``, their rows of ``u`` and ``w_o``.
+  Where the heads divide ``tp`` these are the rank's stored blocks;
+  elsewhere (rwkv6-3b's 40 heads on 16: 2 and 3 a rank) a rank's heads
+  straddle at most two stored blocks, and it takes one region a block,
+  so only the columns it lacks move (collective-permutes), and a rank
+  that owns no head (``tp`` > H) computes nothing of it.  The token
+  shift's mixes and ``w_lora_a`` stay whole on the first rank (the
+  stream's);
+* RWKV's channel-mix (``rwkv_cm``) when ``d_ff`` divides: ``w_k``
+  columns, ``w_v`` rows (its mixes and the replicated ``w_r`` gate are
+  the stream's);
 * the vocabulary: ``embed`` split by rows (each rank looks up its range
   and writes zeros elsewhere), ``lm_head`` (or the tied ``embed``) by
   columns, and the loss vocabulary-parallel (``blocks.softmax_xent``).
 
-Everything else — norms, the router, RWKV's mixes, the
-encoder-decoder's cross-attention — runs whole on the first model rank,
-its leaves gathered there as the unsplit step gathers them.  A decode
-cache that ``cache_pspecs`` splits by sequence over "model" (the kv
-heads do not divide ``tp``) is a ``SeqSplit``: each rank attends over
-its block where it lies (``attention._seq_split_decode_attn``), and
-``collectives.all_gather`` / ``all_to_all`` move q, the new rows and
-the softmax partials between the ranks.
+Everything else — norms, the router — runs whole on the first model
+rank, its leaves gathered there as the unsplit step gathers them.  A
+decode cache that ``cache_pspecs`` splits by sequence over "model" (the
+kv heads do not divide ``tp``; the frozen cross-attention cache too) is
+a ``SeqSplit``: each rank attends over its block where it lies
+(``attention._seq_split_decode_attn``, ``encdec.
+_seq_split_cross_attn``), and ``collectives.all_gather`` /
+``all_to_all`` move q, the new rows and the softmax partials between
+the ranks.  RWKV's state, replicated over "model", is read by each head
+owner from its own replica, and the new state's heads are gathered.
 
 ``rank_params(cfg, params, mesh, d)`` gives data rank ``d``'s compute
 tree: the params' tree with a ``Split`` (one subtree a model rank, on
@@ -69,7 +86,12 @@ from repro_torch.distributed.sharding import (ShardedTensor, ShardingPolicy,
 from repro_torch.launch.mesh import dp_axes, mesh_axis_sizes
 
 # sublayer dicts that split over "model" when their spec splits
-ATTN_KEYS = ("attn", "self_attn")
+ATTN_KEYS = ("attn", "self_attn", "cross_attn")
+# the RWKV leaves the stream's device holds whole (the token shift's
+# mixes, the decay LoRA's first product, the channel-mix's gate)
+RWKV_STREAM = {"rwkv_tm": ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g",
+                           "w_lora_a"),
+               "rwkv_cm": ("mix_k", "mix_r", "w_r")}
 
 
 class ModelGroup(NamedTuple):
@@ -116,9 +138,14 @@ class SeqSplit(Split):
 
 
 def smap(fn, x):
-    """``fn`` over a ``Split``'s parts (a ``Split`` back), or ``fn(x)``."""
+    """``fn`` over a ``Split``'s parts, each on its model rank
+    (``collectives.on_rank``; a ``Split`` back), or ``fn(x)``."""
     if isinstance(x, Split):
-        return x.like([fn(p) for p in x.parts])
+        parts = []
+        for rank, p in zip(x.group.ranks, x.parts):
+            with collectives.on_rank(rank):
+                parts.append(fn(p))
+        return x.like(parts)
     return fn(x)
 
 
@@ -230,6 +257,21 @@ def kv_heads(cfg: ModelConfig, tp: int, m: int) -> Tuple[int, int]:
     return k0, k1
 
 
+def rwkv_heads(cfg: ModelConfig, tp: int, m: int) -> Tuple[int, int]:
+    """Model rank ``m``'s RWKV heads [lo, hi) = [floor(m H / tp),
+    floor((m + 1) H / tp)): whole heads, its stored block's where the
+    heads divide ``tp``; none where ``tp`` exceeds them and the floors
+    meet."""
+    H = cfg.d_model // cfg.rwkv.head_size
+    return m * H // tp, (m + 1) * H // tp
+
+
+def head_owners(cfg: ModelConfig, tp: int) -> List[int]:
+    """The model ranks that own at least one RWKV head."""
+    return [m for m in range(tp) if rwkv_heads(cfg, tp, m)[1]
+            > rwkv_heads(cfg, tp, m)[0]]
+
+
 # ---------------------------------------------------------------------------
 # The compute blocks of a data rank
 # ---------------------------------------------------------------------------
@@ -314,6 +356,10 @@ def _split_node(cfg: ModelConfig, path: str, specs: Dict[str, Any]):
     if key == "experts" and len(parts) > 2 and parts[-3] == "moe":
         return parent if _model_dim(specs[f"{parent}/w_down"]) is not None \
             else None
+    if key in RWKV_STREAM:
+        lead = "w_r" if key == "rwkv_tm" else "w_k"
+        return parent if _model_dim(specs[f"{parent}/{lead}"]) is not None \
+            else None
     return None
 
 
@@ -354,8 +400,13 @@ def plan_leaves(cfg: ModelConfig, mesh, params,
         node = _split_node(cfg, path, specs) if tp > 1 else None
         name = path.rsplit("/", 1)[-1]
         dim = md if md is not None else len(shape) - 1
-        if node is None:
+        kind = node.rsplit("/", 1)[-1] if node else None
+        if kind == "rwkv_tm" and name == "u":
+            dim = len(shape) - 2
+        if node is None or name in RWKV_STREAM.get(kind, ()):
             pieces = [[_whole(shape)]] + [None] * (tp - 1)
+        elif kind == "rwkv_tm":
+            pieces = _rwkv_pieces(cfg, shape, dim, name, blocks, tp)
         elif node.endswith("mamba") and name == "in_proj":
             di, n = cfg.d_inner, cfg.d_inner // tp
             pieces = [[_along(shape, dim, m * n, (m + 1) * n),
@@ -372,6 +423,27 @@ def plan_leaves(cfg: ModelConfig, mesh, params,
         out.append(LeafPlan(path, shape, node, dim, pieces, blocks))
     if len(out) != len(tree_leaves(params)):
         raise RuntimeError("the plan's walk and tree_leaves disagree")
+    return out
+
+
+def _rwkv_pieces(cfg: ModelConfig, shape, dim: int, name: str, blocks,
+                 tp: int):
+    """A time-mix leaf's regions for each model rank: its heads' columns
+    (rows of ``w_o``, rows of ``u``), one region a stored block they
+    overlap, so that ``take_region`` moves only the columns a rank's
+    heads lack (a collective-permute) and none where the heads divide
+    ``tp``; None for a rank that owns no head."""
+    unit = 1 if name == "u" else cfg.rwkv.head_size
+    out = []
+    for m in range(tp):
+        a, b = rwkv_heads(cfg, tp, m)
+        lo, hi = a * unit, b * unit
+        if lo == hi:
+            out.append(None)
+            continue
+        out.append([_along(shape, dim, max(lo, blk[dim].start),
+                           min(hi, blk[dim].stop)) for blk in blocks
+                    if blk[dim].start < hi and lo < blk[dim].stop])
     return out
 
 
@@ -556,6 +628,7 @@ def local_split(cfg: ModelConfig, params, tp: int, device):
 
 
 __all__ = ["LeafPlan", "ModelGroup", "SeqSplit", "Split", "VocabShards",
-           "block_grads", "gathered", "group_of", "kv_heads", "local_split",
-           "model_blocks", "model_group", "model_positions", "plan_leaves",
-           "q_heads", "rank_params", "reduce", "run", "smap", "take_region"]
+           "block_grads", "gathered", "group_of", "head_owners", "kv_heads",
+           "local_split", "model_blocks", "model_group", "model_positions",
+           "plan_leaves", "q_heads", "rank_params", "reduce", "run",
+           "rwkv_heads", "smap", "take_region"]

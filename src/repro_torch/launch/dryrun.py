@@ -37,16 +37,18 @@ same shape and role is traced once (``meta`` only;
 get the first rank's pass (its gathers, forward and backward over its
 model ranks) — its counts, its collective events re-recorded on their
 own ranks, and outputs of the same shapes — and blocks of the same
-shape get the first one's AdamW update counts.  Within a pass, the
-model ranks of a split sublayer between its first and its last get the
-first model rank's section (``StepCounter.sections``): its forward and
-backward counts, its outputs' shapes and gradients of its inputs'
-shapes.  The last rank is traced, because under remat its recompute
-stops before its final product where the others recompute whole; so
-every rank's counts are those of tracing it (held by
-``tests/test_torch_dryrun.py``), though a replayed rank's memory is not
-traced.  The first ranks come first, so the busiest device's work and
-memory are traced; the collective bytes are kept per rank
+shape get the first one's AdamW update counts.  Within a pass, a
+model rank of a split sublayer before its last gets the section of the
+first rank whose inputs have its layouts (``StepCounter.sections``):
+its forward and backward counts, its outputs' shapes and gradients of
+its inputs' shapes; the first rank of each layout is traced (RWKV's
+heads on 16 ranks are 2 and 3 a rank: two traced sections).  The last
+rank is traced, because under remat its recompute stops before its
+final product where the others recompute whole; so every rank's counts
+are those of tracing it (held by ``tests/test_torch_dryrun.py`` and
+``tests/test_torch_rwkv_parallel.py``), though a replayed rank's memory
+is not traced.  The first ranks come first, so the busiest device's
+work and memory are traced; the collective bytes are kept per rank
 (``collective_bytes_by_rank``) and every gradient move runs.
 
 What each field is in the port:
@@ -306,19 +308,29 @@ class StepCounter(TorchDispatchMode, collectives.CollectiveCounter,
 
     def sections(self, ranks: List[int], section, inputs) -> list:
         """A split sublayer's model ranks: with ``reuse_passes`` on
-        ``meta``, the first and the last rank's sections traced and each
-        rank between them replayed from the first's (``_Replay``): its
-        forward counts and outputs' layouts, its backward counts, and
-        gradients of its inputs' layouts."""
+        ``meta``, the last rank's section traced, and each rank before
+        it traced if it is the first of its inputs' layouts (a rank's
+        heads or experts may differ in number: RWKV's 2 and 3 heads a
+        rank at 40 heads on 16) or else replayed from that first one's
+        (``_Replay``): its forward counts and outputs' layouts, its
+        backward counts, and gradients of its inputs' layouts."""
         tensors = [x for xs in inputs for x in xs
                    if isinstance(x, torch.Tensor)]
         if not self.reuse_passes or len(ranks) < 3 or \
                 not all(x.is_meta for x in tensors):
             return super().sections(ranks, section, inputs)
-        probe = _SectionProbe(self, ranks[0])
-        self.replayed.update(ranks[1:-1])
-        outs = [probe.trace(section, inputs[0])]
-        for m in range(1, len(ranks) - 1):
+        probes: Dict[tuple, _SectionProbe] = {}
+        outs = []
+        for m in range(len(ranks) - 1):
+            key = tuple((_layout(x), x.requires_grad)
+                        if isinstance(x, torch.Tensor) else type(x)
+                        for x in inputs[m])
+            probe = probes.get(key)
+            if probe is None:
+                probes[key] = _SectionProbe(self, ranks[m])
+                outs.append(probes[key].trace(section, m, inputs[m]))
+                continue
+            self.replayed.add(ranks[m])
             outs.append(_Replay.apply(probe, ranks[m], *[
                 x for x in inputs[m] if _differentiable(x)]))
         outs.append(section(len(ranks) - 1, inputs[-1]))
@@ -369,8 +381,9 @@ def _layout(t: Optional[torch.Tensor]):
 
 
 class _SectionProbe:
-    """The first model rank's section, measured to replay on the ranks
-    between the first and the last (``StepCounter.sections``): its
+    """The section of the first model rank of its inputs' layouts,
+    measured to replay on the later ranks of those layouts but the last
+    (``StepCounter.sections``): its
     forward counts and outputs' layouts, and its backward counts (from
     its outputs' gradients to its inputs'), added to each replayed rank
     that took part in the forward (``ranks``)."""
@@ -386,14 +399,14 @@ class _SectionProbe:
             return tuple(None if s is None else torch.empty_strided(
                 s[0], s[1], dtype=s[2], device="meta") for s in layouts)
 
-    def trace(self, section, xs) -> tuple:
+    def trace(self, section, m: int, xs) -> tuple:
         idx = [i for i, x in enumerate(xs) if _differentiable(x)]
         xs = list(xs)
         with self.counter._quiet():
             for i, x in zip(idx, _ProbeIn.apply(self, *[xs[i] for i in idx])):
                 xs[i] = x
         before = self.counts()
-        outs = section(0, xs)
+        outs = section(m, xs)
         self.fwd = self.counts()
         self.fwd.add(before, -1)
         self.layouts = [_layout(o) for o in outs]
@@ -690,15 +703,23 @@ def _serve_rank(cfg, kind, params, plans, caches, rows, pos, r, n, mesh,
     return api.decode_step(cfg, local, local_c, x, pos, moe_groups=groups)
 
 
+# the attention caches: self-attention's k/v, cross-attention's frozen
+# xk/xv (``cache_pspecs`` lays both out alike)
+KV_CACHES = ("k", "v", "xk", "xv")
+
+
 def _rank_caches(cfg, caches, mesh, r: int, n: int):
     """Data rank ``r``'s rows of the decode caches: a ``Split`` of the
     model ranks' blocks where ``cache_pspecs`` splits a split
-    sublayer's cache over "model" (attention k/v by kv head, Mamba's
-    channels), a ``SeqSplit`` of their sequence blocks where it splits
-    a split attention's k/v by sequence over "model" alone (each rank
-    attends over its block: ``attention._seq_split_decode_attn``), else
-    the rows whole on the data rank's device (a sequence also sharded
-    over "data" is gathered as the unsplit step gathers it)."""
+    sublayer's cache over "model" (attention k/v and cross-attention
+    xk/xv by kv head, Mamba's channels), a ``SeqSplit`` of their
+    sequence blocks where it splits a split attention's k/v or xk/xv by
+    sequence over "model" alone (each rank attends over its block:
+    ``attention._seq_split_decode_attn``, ``encdec.
+    _seq_split_cross_attn``), else the rows whole on the data rank's
+    device (a sequence also sharded over "data" is gathered as the
+    unsplit step gathers it; RWKV's state, replicated over "model", is
+    read by each head owner from its own replica)."""
     group = tp.model_group(mesh, r)
     columns = [set(row[m] for row in tp.model_positions(mesh))
                for m in range(group.tp)]
@@ -708,10 +729,10 @@ def _rank_caches(cfg, caches, mesh, r: int, n: int):
         name = path.rsplit("/", 1)[-1]
         spec = tuple(st.sharding.spec)
         kind = tp.Split
-        if name in ("k", "v") and spec[2] == "model" and attn_split:
+        if name in KV_CACHES and spec[2] == "model" and attn_split:
             kind = tp.SeqSplit
         elif not (group.tp > 1 and (
-                (name in ("k", "v") and spec[3] == "model")
+                (name in KV_CACHES and spec[3] == "model")
                 or (name in ("conv", "ssm") and "model" in spec))):
             return _rows(st, 1, r, n, group.devices[0], group.ranks[0])
         size = st.shape[1] // n

@@ -314,16 +314,38 @@ def _seq_split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
                  <= pm[:, 0][:, None, None, None])
         s = torch.where(valid, s, _scalar(NEG_INF, sd, dev)).to(
             torch.float32)
-        mx = s.amax(dim=-1)
-        w = torch.exp(s - mx[..., None])
-        o = _dot_f32("bhgk,bkhd->bhgd", w.to(sd), cv.to(sd))
-        return (ck, cv, mx.reshape(B, -1), w.sum(dim=-1).reshape(B, -1),
-                o.reshape(B, -1, Dh))
+        return (ck, cv) + softmax_partials(cfg, s, cv, sd)
 
     outs = tp.run(g, None, block, pos_b1, list(cache_k.parts),
                   list(cache_v.parts), q_all, new_k, new_v)
+    return (merge_partials(cfg, p, x, outs),
+            cache_k.like([r[0] for r in outs]),
+            cache_v.like([r[1] for r in outs]))
+
+
+def softmax_partials(cfg: ModelConfig, s, v, sd):
+    """A block's (max, sum, out) partials of the mergeable softmax: ``s``
+    the f32 scores (B, Hkv, g, n) of every query head over the block's
+    ``n`` positions, ``v`` its values (B, n, Hkv, Dh), ``sd`` the dtype
+    the weights meet ``v`` in.  (B, Hq), (B, Hq), (B, Hq, Dh)."""
+    B = s.shape[0]
+    mx = s.amax(dim=-1)
+    w = torch.exp(s - mx[..., None])
+    o = _dot_f32("bhgk,bkhd->bhgd", w.to(sd), v.to(sd))
+    return (mx.reshape(B, -1), w.sum(dim=-1).reshape(B, -1),
+            o.reshape(B, -1, cfg.head_dim))
+
+
+def merge_partials(cfg: ModelConfig, p, x, outs):
+    """The attention's output from each model rank's ``softmax_partials``
+    over its sequence block (the last three entries of ``outs[m]``): an
+    all-to-all hands each rank its query heads' partials, merged in rank
+    order into its rows of ``wo`` (``p`` a ``Split``), and the ranks'
+    products are summed."""
+    g = p.group
+    B, Dh = x.shape[0], cfg.head_dim
     mx, l, o = (collectives.all_to_all([r[i] for r in outs], 1, g.ranks)
-                for i in (2, 3, 4))
+                for i in (-3, -2, -1))
 
     def merge(m, q_p, mx, l, o):
         top = mx[0]
@@ -338,9 +360,7 @@ def _seq_split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
         return _merge_heads(cfg, q_p, out)
 
     merged = tp.run(g, p.parts, merge, mx, l, o)
-    return (tp.reduce(g, [r[0] for r in merged]),
-            cache_k.like([r[0] for r in outs]),
-            cache_v.like([r[1] for r in outs]))
+    return tp.reduce(g, [r[0] for r in merged])
 
 
 def attn_block(cfg: ModelConfig, p, x, positions, *, causal=True):

@@ -21,6 +21,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import (apply_ffn, apply_norm, embed_tokens,
@@ -90,11 +91,22 @@ def encode(cfg: ModelConfig, params, embeds):
 
 
 def _cross_attn(cfg: ModelConfig, p, x, enc_out):
-    """Full (non-cached) cross-attention: q from x, k/v from enc_out."""
+    """Full (non-cached) cross-attention: q from x, k/v from enc_out.
+    ``p`` a ``tensor_parallel.Split``: each model rank its query heads'
+    q and its kv heads' k/v (``x`` and ``enc_out`` replicated), its rows
+    of ``wo``, the ranks' outputs summed in rank order; k/v come back as
+    ``Split``s of the ranks' kv heads."""
+    if isinstance(p, tp.Split):
+        outs = tp.run(p.group, p.parts, lambda m, q, xm, em: _cross_attn(
+            cfg, q, xm, em), x, enc_out)
+        return (tp.reduce(p.group, [o[0] for o in outs]),
+                tp.Split(p.group, [o[1] for o in outs]),
+                tp.Split(p.group, [o[2] for o in outs]))
     cd = cfg.dtype("compute")
     B, S, _ = x.shape
     Se = enc_out.shape[1]
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    Hq, Hkv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     q = torch.einsum("bsd,dh->bsh", x.to(cd),
                      p["wq"].to(cd)).reshape(B, S, Hq, Dh)
     k = torch.einsum("bsd,dh->bsh", enc_out.to(cd),
@@ -198,20 +210,67 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
 
 def _cached_cross_attn(cfg: ModelConfig, p, x, k, v):
     """One query token against the frozen cross-attention cache, the
-    softmax in f32."""
-    cd = cfg.dtype("compute")
-    f32 = torch.float32
-    B = x.shape[0]
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = Hq // Hkv
-    q = torch.einsum("bsd,dh->bsh", x.to(cd),
-                     p["wq"].to(cd)).reshape(B, Hkv, g, Dh)
-    qf = q.to(f32) * Dh ** -0.5
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, k.to(f32))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", w, v.to(f32))
-    o = o.reshape(B, 1, Hq, Dh).to(x.dtype)
+    softmax in f32.  ``p`` a ``tensor_parallel.Split``: each model rank
+    its query heads against its kv heads' block of the cache (a
+    ``Split``, or a whole cache: each rank reads its kv heads), its rows
+    of ``wo``, the ranks' outputs summed; or, over a cache split by
+    sequence (a ``SeqSplit``), every query head against each rank's
+    block where it lies, the softmax partials merged
+    (``attention.merge_partials``)."""
+    if isinstance(p, tp.Split):
+        if isinstance(k, tp.SeqSplit):
+            return _seq_split_cross_attn(cfg, p, x, k, v)
+        g = p.group
+        if not isinstance(k, tp.Split):
+            heads = [tp.kv_heads(cfg, g.tp, m) for m in range(g.tp)]
+            k = [k[:, :, a:b].to(d) for (a, b), d in zip(heads, g.devices)]
+            v = [v[:, :, a:b].to(d) for (a, b), d in zip(heads, g.devices)]
+        else:
+            k, v = k.parts, v.parts
+        return tp.reduce(g, [o[0] for o in tp.run(
+            g, p.parts, lambda m, q, xm, km, vm: _cached_cross_attn(
+                cfg, q, xm, km, vm), x, k, v)])
+    q = _cross_q(cfg, p, x)
+    w = torch.softmax(torch.einsum("bhgd,bkhd->bhgk", _scaled(
+        cfg, q, k.shape[2]), k.to(torch.float32)), dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", w, v.to(torch.float32))
+    o = o.reshape(x.shape[0], 1, -1, cfg.head_dim).to(x.dtype)
     return attn_mod._merge_heads(cfg, p, o)
+
+
+def _cross_q(cfg: ModelConfig, p, x):
+    """(B, Hq, Dh): the query heads ``p`` holds of one token."""
+    cd = cfg.dtype("compute")
+    return torch.einsum("bsd,dh->bsh", x.to(cd), p["wq"].to(cd)).reshape(
+        x.shape[0], -1, cfg.head_dim)
+
+
+def _scaled(cfg: ModelConfig, q, n_kv: int):
+    """q (B, Hq, Dh) in f32, scaled, grouped (B, Hkv, Hq / Hkv, Dh)."""
+    Dh = cfg.head_dim
+    return (q.to(torch.float32) * Dh ** -0.5).reshape(q.shape[0], n_kv,
+                                                       -1, Dh)
+
+
+def _seq_split_cross_attn(cfg: ModelConfig, p, x, k, v):
+    """Cross-attention over a frozen cache split by sequence: each rank
+    computes its query heads' q, q is gathered to every rank, each rank
+    takes the (max, sum, out) partials of every query head over its
+    block (every position valid, nothing written), and
+    ``attention.merge_partials`` merges them into each rank's heads and
+    sums the ranks' ``wo`` products."""
+    g = p.group
+    q = collectives.all_gather([o[0] for o in tp.run(
+        g, p.parts, lambda m, q_p, xm: _cross_q(cfg, q_p, xm), x)], 1,
+        g.ranks)
+
+    def block(m, _, km, vm, qm):
+        s = torch.einsum("bhgd,bkhd->bhgk", _scaled(cfg, qm, km.shape[2]),
+                         km.to(torch.float32))
+        return attn_mod.softmax_partials(cfg, s, vm, torch.float32)
+
+    return attn_mod.merge_partials(cfg, p, x, tp.run(
+        g, None, block, list(k.parts), list(v.parts), q))
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,

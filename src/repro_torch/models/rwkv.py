@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.blocks import normal
 
 
@@ -78,25 +80,60 @@ def _mixer(p, x, xs):
     return mix
 
 
-def _decay(cfg: ModelConfig, p, xw):
-    lw = torch.einsum("bsd,dr->bsr", xw, p["w_lora_a"].to(xw.dtype))
-    lw = torch.einsum("bsr,rd->bsd", torch.tanh(lw),
-                      p["w_lora_b"].to(xw.dtype))
+def _lora(p, xw):
+    """tanh(xw @ w_lora_a): the decay LoRA's first product (the
+    stream's, replicated over the model ranks)."""
+    return torch.tanh(torch.einsum("bsd,dr->bsr", xw,
+                                   p["w_lora_a"].to(xw.dtype)))
+
+
+def _decay_of(p, lw):
+    """The (0, 1) decay of the channels ``p`` holds, from the LoRA's
+    first product ``lw``."""
+    lw = torch.einsum("bsr,rd->bsd", lw, p["w_lora_b"].to(lw.dtype))
     return torch.exp(-torch.exp(p["w0"].to(torch.float32)
                                 + lw.to(torch.float32)))
+
+
+def _decay(cfg: ModelConfig, p, xw):
+    return _decay_of(p, _lora(p, xw))
 
 
 def rwkv_time_mix(cfg: ModelConfig, p, x, prev_x, state):
     """x: (B,S,D); prev_x: (B,D); state: (B,H,hs,hs) f32.
 
-    Returns (out, last_x, new_state); ``state`` is not written."""
-    H, hs = _heads(cfg)
+    Returns (out, last_x, new_state); ``state`` is not written.  ``p`` a
+    ``tensor_parallel.Split``: the token shift, the five mixes and the
+    decay LoRA's first product run once on the stream's device and
+    reach the model ranks that own heads (``tensor_parallel.
+    rwkv_heads``) as replicated arguments; each owner runs its heads
+    (their columns of every product and of the decay, their rows of
+    ``u`` and ``w_o``, the recurrence from their heads of ``state``, the
+    group norm and the gate), and the owners' outputs are summed in rank
+    order.  The new state is then a ``Split`` of the owners' heads
+    (``whole_state`` gathers it)."""
+    if isinstance(p, tp.Split):
+        return _split_time_mix(cfg, p, x, prev_x, state)
+    xr, xk, xv, xw, xg = _mixes(p, x, prev_x)
+    out, state = _heads_mix(cfg, p, xr, xk, xv, xg,
+                            _lora(p, xw.to(cfg.dtype("compute"))), state)
+    return out, x[:, -1, :], state
+
+
+def _mixes(p, x, prev_x):
+    mix = _mixer(p, x, _shift(x, prev_x))
+    return (mix("mix_r"), mix("mix_k"), mix("mix_v"), mix("mix_w"),
+            mix("mix_g"))
+
+
+def _heads_mix(cfg: ModelConfig, p, xr, xk, xv, xg, lw, state):
+    """The time-mix of the heads ``p`` holds (all of them, or a model
+    rank's: the count is read from ``u``) after the token shift:
+    (out, those heads' new state)."""
+    H, hs = p["u"].shape[0], cfg.rwkv.head_size
     cd = cfg.dtype("compute")
     f32 = torch.float32
-    B, S, D = x.shape
-    mix = _mixer(p, x, _shift(x, prev_x))
-    xr, xk, xv, xw, xg = (mix("mix_r"), mix("mix_k"), mix("mix_v"),
-                          mix("mix_w"), mix("mix_g"))
+    B, S, _ = xr.shape
 
     def proj(t, w):
         return torch.einsum("bsd,de->bse", t.to(cd),
@@ -104,7 +141,7 @@ def rwkv_time_mix(cfg: ModelConfig, p, x, prev_x, state):
 
     r, k, v = proj(xr, "w_r"), proj(xk, "w_k"), proj(xv, "w_v")
     g = torch.einsum("bsd,de->bse", xg.to(cd), p["w_g"].to(cd))
-    w = _decay(cfg, p, xw.to(cd)).reshape(B, S, H, hs)    # (0,1) decay
+    w = _decay_of(p, lw).reshape(B, S, H, hs)              # (0,1) decay
     u = p["u"].to(f32)[None, :, :, None]                   # (1,H,hs,1)
     # (S, B, H, hs[, 1]) views a step at a time; each step is the
     # reference's: y = r . (u * kv + s), s = w * s + kv (four launches)
@@ -122,21 +159,74 @@ def rwkv_time_mix(cfg: ModelConfig, p, x, prev_x, state):
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 1e-5)
-    y = y.reshape(B, S, D).to(cd) * F.silu(g)
-    out = torch.einsum("bsd,de->bse", y, p["w_o"].to(cd))
-    return out, x[:, -1, :], state
+    y = y.reshape(B, S, H * hs).to(cd) * F.silu(g)
+    return torch.einsum("bsd,de->bse", y, p["w_o"].to(cd)), state
+
+
+def _split_time_mix(cfg: ModelConfig, p, x, prev_x, state):
+    g = p.group
+    xr, xk, xv, xw, xg = _mixes(p.parts[0], x, prev_x)
+    lw = _lora(p.parts[0], xw.to(cfg.dtype("compute")))
+    owners = tp.head_owners(cfg, g.tp)
+    sub = tp.ModelGroup(tuple(g.ranks[m] for m in owners),
+                        tuple(g.devices[m] for m in owners))
+    # each owner reads its heads of the state from its own replica
+    states = []
+    for m, dev in zip(owners, sub.devices):
+        a, b = tp.rwkv_heads(cfg, g.tp, m)
+        states.append(state[:, a:b].to(dev))
+    outs = tp.run(sub, [_ranks_own(p.parts[m], "rwkv_tm") for m in owners],
+                  lambda m, q, *a: _heads_mix(cfg, q, *a),
+                  xr, xk, xv, xg, lw, states)
+    return (tp.reduce(sub, [o[0] for o in outs]), x[:, -1, :],
+            tp.Split(sub, [o[1] for o in outs]))
+
+
+def _ranks_own(part, kind: str):
+    """A model rank's leaves of an RWKV sublayer, without the stream's
+    (``tensor_parallel.RWKV_STREAM``)."""
+    return {k: v for k, v in part.items()
+            if k not in tp.RWKV_STREAM[kind]}
+
+
+def whole_state(state):
+    """The time-mix's new state whole on the stream's device: a
+    ``Split`` of the owners' heads concatenated in head order (an
+    all-gather there), any other value as it is."""
+    if not isinstance(state, tp.Split):
+        return state
+    g = state.group
+    with collectives.on_rank(g.ranks[0]):
+        out = torch.cat([s.to(g.devices[0]) for s in state.parts], dim=1)
+    collectives.record("all-gather", out.numel() * out.element_size(),
+                       g.tp, g.ranks[0])
+    return out
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p, x, prev_x):
+    """``p`` a ``tensor_parallel.Split``: ``w_k`` by columns and ``w_v``
+    by rows on each model rank, the ranks' products summed in rank
+    order; the mixes and the replicated ``w_r`` gate run once on the
+    stream's device."""
     cd = cfg.dtype("compute")
-    mix = _mixer(p, x, _shift(x, prev_x))
+    stream = p.parts[0] if isinstance(p, tp.Split) else p
+    mix = _mixer(stream, x, _shift(x, prev_x))
     xk, xr = mix("mix_k"), mix("mix_r")
+    if isinstance(p, tp.Split):
+        kv = tp.reduce(p.group, [o[0] for o in tp.run(
+            p.group, [_ranks_own(q, "rwkv_cm") for q in p.parts],
+            lambda m, q, xm: _key_value(cd, q, xm), xk)])
+    else:
+        kv = _key_value(cd, p, xk)
+    r = torch.sigmoid(torch.einsum("bsd,de->bse", xr.to(cd),
+                                   stream["w_r"].to(cd)))
+    return r * kv, x[:, -1, :]
+
+
+def _key_value(cd, p, xk):
     k = torch.square(F.relu(
         torch.einsum("bsd,df->bsf", xk.to(cd), p["w_k"].to(cd))))
-    kv = torch.einsum("bsf,fd->bsd", k, p["w_v"].to(cd))
-    r = torch.sigmoid(torch.einsum("bsd,de->bse", xr.to(cd),
-                                   p["w_r"].to(cd)))
-    return r * kv, x[:, -1, :]
+    return torch.einsum("bsf,fd->bsd", k, p["w_v"].to(cd))
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device="cpu"):

@@ -79,13 +79,19 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 def tree_map(fn, *trees):
     """Map ``fn`` over the leaves of nested dicts of one structure (a
-    ``tensor_parallel.Split`` part by part)."""
+    ``tensor_parallel.Split`` part by part, each on its model rank; a
+    model rank's None, a leaf it holds none of, stays None)."""
+    if trees[0] is None:
+        return None
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     if isinstance(trees[0], tp.Split):
-        return trees[0].like([
-            tree_map(fn, *(t.parts[m] for t in trees))
-            for m in range(trees[0].group.tp)])
+        g = trees[0].group
+        parts = []
+        for m, rank in enumerate(g.ranks):
+            with collectives.on_rank(rank):
+                parts.append(tree_map(fn, *(t.parts[m] for t in trees)))
+        return trees[0].like(parts)
     return fn(*trees)
 
 
@@ -268,7 +274,8 @@ def _apply_sub(cfg: ModelConfig, p, x, positions, kind: str, use_moe: bool,
         out, _, state = rwkv_mod.rwkv_time_mix(cfg, p["rwkv_tm"], h,
                                                st["tm_x"], st["state"])
         if collect_cache:
-            cache = {"state": state, "tm_x": h[:, -1, :]}
+            cache = {"state": rwkv_mod.whole_state(state),
+                     "tm_x": h[:, -1, :]}
     x = x + out.to(x.dtype)
     h2 = apply_norm(cfg, p["ln2"], x)
     if kind == "rwkv":
@@ -302,7 +309,8 @@ def _unbind_groups(blocks, n: int):
         # gradients is that rank's work)
         keys = sorted(blocks.parts[0])
         per = tp.run(blocks.group, blocks.parts, lambda m, part: tuple(
-            t for k in keys for t in part[k].unbind(0)))
+            t for k in keys for t in (
+                (None,) * n if part[k] is None else part[k].unbind(0))))
         return [tp.Split(blocks.group, [
             {k: views[i * n + g] for i, k in enumerate(keys)}
             for views in per]) for g in range(n)]
@@ -441,7 +449,8 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos, *,
             else:  # rwkv
                 out, _, state = rwkv_mod.rwkv_time_mix(
                     cfg, p["rwkv_tm"], h, c["tm_x"], c["state"])
-                nc = {"state": state, "tm_x": h[:, -1, :]}
+                nc = {"state": rwkv_mod.whole_state(state),
+                      "tm_x": h[:, -1, :]}
             x = x + out.to(x.dtype)
             h2 = apply_norm(cfg, p["ln2"], x)
             if kind == "rwkv":
