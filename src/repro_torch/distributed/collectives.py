@@ -13,7 +13,7 @@ collective moves a CUDA tensor to the CPU to compute.
 * ``all_gather(blocks, dim)`` — the tiled all-gather: every rank gets
   the blocks concatenated along ``dim`` in rank order;
   ``all_to_all(parts, dim, ranks)`` — rank m gets block m of every
-  rank's part.
+  rank's part (or of every part of other ranks, ``devices=``).
 * ``psum(parts)`` — the all-reduce, summed in rank order
   ((p0 + p1) + p2 ...) once and copied to every rank, so every rank
   holds bitwise the same sum.
@@ -44,10 +44,17 @@ reference's names:
   blocks); ``psum``, ``ring_all_reduce`` and ``bucketed_psum``'s
   leaves: an all-reduce of each rank's part (operand = result; the
   ring's hops are its schedule, not separate events);
+* ``tensor_parallel.ZeroPass.land``: a layer group's gradient cut onto
+  the FSDP blocks it was gathered from, a reduce-scatter recorded on the
+  gathering rank (result its own block's part, group the blocks);
+* ``tensor_parallel.spread`` (q and new rows to the holders of a
+  sequence-split cache) and ``attention.merge_partials``' partials to
+  the stream's rank: collective-permutes;
 * ``distributed/shard_train.py``: each gradient piece to its block's
-  holder, each block's square sum to the first rank, and each updated
-  block's slice of its summed gradient to the block, point to point:
-  collective-permutes.
+  holder, each block's square sum to the first rank, each piece of a
+  landed gradient's ``adamw.BLOCK`` run to the norm's holder, and each
+  updated block's slice of its summed gradient to the block, point to
+  point: collective-permutes.
 
 ``on_rank(i)`` names the logical rank the work inside it runs on, so a
 counter can attribute ops to devices; ``rank_work`` runs one share of a
@@ -228,14 +235,19 @@ def all_gather(blocks: Sequence[torch.Tensor], dim: int,
 
 
 def all_to_all(parts: Sequence[torch.Tensor], dim: int,
-               ranks: Sequence[int]) -> List[torch.Tensor]:
-    """Each rank's part cut into one block a rank along ``dim``: rank m
-    gets block m of every rank's part, stacked in rank order along a new
-    first dim, on its device (``ranks`` the parts' logical ranks)."""
+               ranks: Sequence[int], devices: Optional[Sequence] = None
+               ) -> List[torch.Tensor]:
+    """Each part cut into one block a receiving rank along ``dim``:
+    receiver m gets block m of every part, stacked in the parts' order
+    along a new first dim, on its device.  The receivers are ``ranks``
+    on ``devices``; without ``devices`` they are the parts' own ranks
+    (``ranks``, one a part) and devices."""
+    if devices is None:
+        devices = [p.device for p in parts]
     out = []
-    for m, (rank, mine) in enumerate(zip(ranks, parts)):
+    for m, (rank, dev) in enumerate(zip(ranks, devices)):
         with on_rank(rank):
-            o = torch.stack([p.chunk(len(parts), dim=dim)[m].to(mine.device)
+            o = torch.stack([p.chunk(len(ranks), dim=dim)[m].to(dev)
                              for p in parts])
         record("all-to-all", _nbytes(o), len(parts), rank)
         out.append(o)

@@ -52,27 +52,37 @@ Everything else — norms, the router — runs whole on the first model
 rank, its leaves gathered there as the unsplit step gathers them.  A
 decode cache that ``cache_pspecs`` splits by sequence over "model" (the
 kv heads do not divide ``tp``; the frozen cross-attention cache too) is
-a ``SeqSplit``: each rank attends over its block where it lies
-(``attention._seq_split_decode_attn``, ``encdec.
-_seq_split_cross_attn``), and ``collectives.all_gather`` /
-``all_to_all`` move q, the new rows and the softmax partials between
-the ranks.  RWKV's state, replicated over "model", is read by each head
-owner from its own replica, and the new state's heads are gathered.
+a ``SeqSplit`` over the ranks that hold its blocks — the data rank's
+model ranks, or every (data, model) rank where the sequence is also
+sharded over the data axes (a batch of 1) — and stays where it lies,
+whether or not the attention splits: each holder attends over its
+block (``attention._seq_split_decode_attn``, ``encdec.
+_seq_split_cross_attn``); ``collectives.all_gather`` and ``spread``
+move q and the new rows to the holders, and the softmax partials come
+back to the heads' ranks (an all-to-all), merged in block order.
+RWKV's state, replicated over "model", is read by each head owner from
+its own replica, and the new state's heads are gathered.
 
 ``rank_params(cfg, params, mesh, d)`` gives data rank ``d``'s compute
 tree: the params' tree with a ``Split`` (one subtree a model rank, on
 that rank's device) at each split sublayer and the vocabulary leaves,
 and whole leaves elsewhere.  It gathers over "data" only what FSDP
 split (an all-gather on the receiving rank) and moves a block another
-model coordinate holds (a collective-permute).  ``block_grads`` takes
-the pass's gradients back to each leaf's *model blocks* — the leaf's
-blocks along "model", whole along the data axes — on the block's
-holder, the first data rank's position at that model coordinate.  With
-``tp`` = 1 a leaf is one block on the first data rank's position: the
-unsplit step's gradients, bitwise.
+model coordinate holds (a collective-permute).  A layer-stack leaf
+that FSDP splits is not gathered there: the tree holds a ``Deferred``
+gather of it, which ``gather_group`` runs for one layer group inside
+the group's (rematerialized) body, and whose backward lands the
+group's gradient on the FSDP blocks (``ZeroPass``, ``ShardGrads``: a
+reduce-scatter).  ``block_grads`` takes the pass's other gradients back
+to each leaf's *model blocks* — the leaf's blocks along "model", whole
+along the data axes — on the block's holder, the first data rank's
+position at that model coordinate.  With ``tp`` = 1 a leaf is one
+block on the first data rank's position: the unsplit step's gradients,
+bitwise.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -87,6 +97,8 @@ from repro_torch.launch.mesh import dp_axes, mesh_axis_sizes
 
 # sublayer dicts that split over "model" when their spec splits
 ATTN_KEYS = ("attn", "self_attn", "cross_attn")
+# the layer stacks: leaves with a leading group (or layer) axis
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
 # the RWKV leaves the stream's device holds whole (the token shift's
 # mixes, the decay LoRA's first product, the channel-mix's gate)
 RWKV_STREAM = {"rwkv_tm": ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g",
@@ -130,10 +142,13 @@ class Split:
 
 
 class SeqSplit(Split):
-    """A decode cache (G, B, S, Hkv, Dh) split by sequence over a
-    ``ModelGroup``: ``parts[m]`` holds positions [m S/tp, (m+1) S/tp)
-    of every kv head (``cache_pspecs``' layout where the kv heads do not
-    divide the model degree)."""
+    """A decode cache (G, B, S, Hkv, Dh) split by sequence over the ranks
+    that hold its blocks, in sequence order: ``parts[b]`` holds
+    positions [b S/n, (b+1) S/n) of every kv head (``cache_pspecs``'
+    layout where the kv heads do not divide the model degree).  Its
+    ``group`` is a data rank's ``ModelGroup`` where the sequence is
+    sharded over "model", or every (data, model) rank, data-major, where
+    it is sharded over both."""
     __slots__ = ()
 
 
@@ -212,6 +227,25 @@ def reduce(group: ModelGroup, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The row-parallel outputs summed in rank order onto the stream's
     device (``collectives.model_sum``)."""
     return collectives.model_sum(parts, group.ranks)
+
+
+def spread(values: Sequence[torch.Tensor], src: Sequence[int],
+           dst: ModelGroup) -> List[torch.Tensor]:
+    """``values[j]`` (on rank ``src[j]``) on every rank of ``dst``: a rank
+    of ``src`` keeps its own, any other rank b gets the value of
+    ``src[b % len(src)]`` (its model coordinate where ``dst`` runs over
+    (data, model) in that order), a collective-permute."""
+    out = []
+    for b, (rank, dev) in enumerate(zip(dst.ranks, dst.devices)):
+        if rank in src:
+            out.append(values[list(src).index(rank)])
+            continue
+        v = values[b % len(src)]
+        with collectives.on_rank(rank):
+            out.append(v.to(dev, copy=True))
+        collectives.record("collective-permute",
+                           v.numel() * v.element_size(), 2, rank)
+    return out
 
 
 @dataclasses.dataclass
@@ -307,13 +341,17 @@ class LeafPlan:
     concatenated along ``dim`` (None: the rank holds nothing of it);
     ``blocks`` the leaf's model blocks (one where it is not split over
     "model") and ``node`` the tree path its ``Split`` sits at (None:
-    whole on the first model rank)."""
+    whole on the first model rank).  ``per_group``: a leaf of a layer
+    stack that FSDP splits over the data axes, gathered a layer group
+    at a time (``Deferred``) and its gradient landed on its blocks
+    (``ShardGrads``)."""
     path: str
     shape: Tuple[int, ...]
     node: Optional[str]
     dim: int
     pieces: List[Optional[List[Tuple[slice, ...]]]]
     blocks: List[Tuple[slice, ...]]
+    per_group: bool = False
 
 
 def _whole(shape) -> Tuple[slice, ...]:
@@ -382,6 +420,7 @@ def plan_leaves(cfg: ModelConfig, mesh, params,
     from repro_torch.distributed.sharding import tree_map_with_path
     from repro_torch.optim.adamw import tree_leaves
     tp = mesh_axis_sizes(mesh).get("model", 1)
+    dpx = dp_axes(mesh)
     paths: List[Tuple[str, tuple]] = []
     specs: Dict[str, Any] = {}
 
@@ -420,7 +459,11 @@ def plan_leaves(cfg: ModelConfig, mesh, params,
                 pieces.append([_along(shape, dim, k0 * dh, k1 * dh)])
         else:
             pieces = [[b] for b in blocks]
-        out.append(LeafPlan(path, shape, node, dim, pieces, blocks))
+        per_group = path.split("/", 1)[0] in STACKS and any(
+            a in dpx for e in spec for a in (e if isinstance(e, tuple)
+                                             else (e,)))
+        out.append(LeafPlan(path, shape, node, dim, pieces, blocks,
+                            per_group))
     if len(out) != len(tree_leaves(params)):
         raise RuntimeError("the plan's walk and tree_leaves disagree")
     return out
@@ -470,15 +513,18 @@ def _nbytes(region, dtype) -> int:
 
 
 def take_region(st: ShardedTensor, region, device, pos: int,
-                column) -> torch.Tensor:
+                column, near: Optional[Sequence[int]] = None
+                ) -> torch.Tensor:
     """``region`` of the leaf on ``device`` for mesh position ``pos``:
     a view of the block there where it is that block, else assembled
     from the blocks (an all-gather where they are several; a
     collective-permute where no position of ``column``, the rank's model
-    coordinate, holds them)."""
+    coordinate, holds them).  ``near``: the positions whose blocks may
+    overlap it (default all)."""
     by_key: Dict[tuple, torch.Tensor] = {}
     held: Dict[tuple, List[int]] = {}
-    for i, (sl, t) in enumerate(zip(st.index, st.shards)):
+    for i in range(len(st.index)) if near is None else near:
+        sl, t = st.index[i], st.shards[i]
         ov = _overlap(sl, region)
         if ov is None:
             continue
@@ -497,13 +543,38 @@ def take_region(st: ShardedTensor, region, device, pos: int,
         if tuple(slice(a, b) for a, b in k) == tuple(region) and \
                 t.device == torch.device(device):
             return t.view_as(t)
-    shape = [s.stop - s.start for s in region]
-    out = torch.empty(shape, dtype=st.dtype, device=device)
+    pieces = []
     for k, t in by_key.items():
         sl = tuple(slice(a, b) for a, b in k)
         ov = _overlap(sl, region)
-        out[_shift(ov, region)].copy_(t[_shift(ov, sl)].to(device))
+        pieces.append((ov, t[_shift(ov, sl)].to(device)))
+    dim = _tiling_dim(region, [ov for ov, _ in pieces])
+    if dim is not None:     # one concatenation (FSDP's blocks along a dim)
+        pieces.sort(key=lambda p: p[0][dim].start)
+        return torch.cat([v for _, v in pieces], dim=dim)
+    out = torch.empty([s.stop - s.start for s in region], dtype=st.dtype,
+                      device=device)
+    for ov, v in pieces:
+        out[_shift(ov, region)].copy_(v)
     return out
+
+
+def _tiling_dim(region, ovs) -> Optional[int]:
+    """The dim along which the overlaps ``ovs`` tile ``region`` (each
+    whole in every other dim, together covering it), or None."""
+    for d in range(len(region)):
+        if all(ov[:d] == region[:d] and ov[d + 1:] == region[d + 1:]
+               for ov in ovs):
+            spans = sorted((ov[d].start, ov[d].stop) for ov in ovs)
+            at = region[d].start
+            for a, b in spans:
+                if a != at:
+                    break
+                at = b
+            else:
+                if at == region[d].stop:
+                    return d
+    return None
 
 
 def _compute_leaf(st, plan: LeafPlan, m: int, device, pos: int, column):
@@ -511,13 +582,187 @@ def _compute_leaf(st, plan: LeafPlan, m: int, device, pos: int, column):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=plan.dim)
 
 
+def _at_group(region, g: int) -> Tuple[slice, ...]:
+    return (slice(g, g + 1),) + tuple(region[1:])
+
+
+class ZeroPass:
+    """One data rank's pass under ZeRO-3: ``token``, a 0-d tensor that
+    every deferred gather takes as its input, so that the backward
+    reaches each gather, and the ``ShardGrads`` (by leaf index) that the
+    gathers' backward adds each group's gradient into as it leaves the
+    group (``land``): the model ranks' pieces of a block's group slice
+    summed in rank order onto zeros, as ``block_grads`` sums them (a
+    single piece that covers the slice itself), then added in."""
+
+    def __init__(self, device, plans: List[LeafPlan],
+                 shards: Dict[int, "ShardGrads"]):
+        self.token = torch.empty((), device=device, requires_grad=True)
+        self.plans, self.shards = plans, shards
+        self.held: Dict[tuple, list] = {}
+        self.expected: Dict[tuple, int] = {}
+
+    def _expected(self, i: int, k: int) -> int:
+        """The (model rank, region) pieces that block k of leaf i gets."""
+        if (i, k) not in self.expected:
+            sl = self.shards[i].index[k]
+            self.expected[i, k] = sum(
+                _overlap(r, sl) is not None
+                for regions in self.plans[i].pieces if regions
+                for r in regions)
+        return self.expected[i, k]
+
+    def land(self, d: "Deferred", regions, grad: torch.Tensor) -> None:
+        """The gradient of ``d``'s gathered group (``regions``
+        concatenated along ``d.dim``) cut into the pieces each block
+        holds and added there on the holder's device: the reduce-scatter
+        over the data axes, recorded once on the gathering rank (its
+        result the part its own block holds)."""
+        grad = grad.unsqueeze(0)
+        sg = self.shards[d.leaf]
+        own = d.st.index[d.rank]
+        held, mine, off = set(), 0, 0
+        for r in regions:
+            for k in d.near_blocks:
+                sl = sg.index[k]
+                ov = _overlap(sl, r)
+                if ov is None:
+                    continue
+                held.add(k)
+                if sl == own:
+                    mine += _nbytes(ov, d.st.dtype)
+                src = list(_shift(ov, r))
+                src[d.dim] = slice(src[d.dim].start + off,
+                                   src[d.dim].stop + off)
+                piece = grad[tuple(src)]
+                target = _overlap(sl, _at_group(_whole(sg.shape), d.g))
+                key = (d.leaf, k, d.g)
+                with collectives.on_rank(sg.holders[k]):
+                    if self._expected(d.leaf, k) == 1 and ov == target:
+                        sg.add(k, d.g, piece.to(sg.devices[k]))
+                        continue
+                    self.held.setdefault(key, []).append(
+                        [d.m, ov, piece.to(sg.devices[k], copy=True)])
+                if len(self.held[key]) == self._expected(d.leaf, k):
+                    self._combine(key)
+            off += r[d.dim].stop - r[d.dim].start
+        if len(held) > 1:
+            collectives.record("reduce-scatter", mine, len(held), d.rank)
+
+    def _combine(self, key) -> None:
+        i, k, g = key
+        sg = self.shards[i]
+        target = _overlap(sg.index[k], _at_group(_whole(sg.shape), g))
+        with collectives.on_rank(sg.holders[k]):
+            c = torch.zeros([s.stop - s.start for s in target],
+                            dtype=sg.dtype, device=sg.devices[k])
+            for _, ov, piece in sorted(self.held.pop(key),
+                                       key=lambda p: p[0]):
+                c[_shift(ov, target)].add_(piece)
+            sg.add(k, g, c)
+
+    def flush(self) -> None:
+        """Add what a model rank that left a group unused did not
+        complete."""
+        for key in sorted(self.held):
+            self._combine(key)
+
+
+class _GatherGroup(torch.autograd.Function):
+    """A deferred leaf's group gathered; backward, its gradient landed on
+    the blocks (``ZeroPass.land``), nothing for the token."""
+
+    @staticmethod
+    def forward(ctx, d, regions, token):
+        ctx.d, ctx.regions = d, regions
+        return d._assemble(regions)
+
+    @staticmethod
+    def backward(ctx, grad):
+        d, regions = ctx.d, ctx.regions
+        ctx.d = ctx.regions = None
+        d.zero.land(d, regions, grad)
+        return None, None, None
+
+
+class Deferred:
+    """Model rank ``m``'s tensor of a layer-stack leaf that FSDP splits
+    over the data axes, not yet gathered: ``d[g]`` (or ``unbind``) names
+    group g's slice, and ``gather_group`` assembles it on the rank's
+    device from the blocks (``take_region``: an all-gather over the data
+    axes, a collective-permute where the rank's model coordinate holds
+    none of it) when the group runs.  Under a ``ZeroPass`` with grad
+    enabled the gather is differentiable: its backward lands the group's
+    gradient on the blocks (``ZeroPass.land``)."""
+    __slots__ = ("st", "regions", "dim", "device", "rank", "column", "zero",
+                 "leaf", "m", "g", "near", "near_blocks")
+
+    def __init__(self, st: ShardedTensor, regions, dim: int, device,
+                 rank: int, column, zero: Optional[ZeroPass], leaf: int,
+                 m: int):
+        self.st, self.regions, self.dim = st, regions, dim
+        self.device, self.rank, self.column = device, rank, column
+        self.zero, self.leaf, self.m, self.g = zero, leaf, m, None
+
+        def near(index):
+            return [i for i, sl in enumerate(index)
+                    if any(_overlap(sl, r) is not None for r in regions)]
+        # the positions, and the distinct blocks, that hold any of it
+        self.near = near(st.index)
+        self.near_blocks = near([sl for sl, _, _ in st.blocks()])
+
+    def __getitem__(self, g: int) -> "Deferred":
+        if self.g is not None:
+            raise TypeError("a deferred group is indexed once")
+        out = copy.copy(self)
+        out.g = int(g)
+        return out
+
+    def unbind(self, dim: int = 0) -> List["Deferred"]:
+        if dim != 0:
+            raise ValueError("a deferred leaf unbinds its group axis only")
+        return [self[g] for g in range(self.regions[0][0].stop)]
+
+    def _assemble(self, regions) -> torch.Tensor:
+        parts = [take_region(self.st, r, self.device, self.rank,
+                             self.column, self.near) for r in regions]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=self.dim)
+        return out[0]
+
+    def gather(self) -> torch.Tensor:
+        if self.g is None:
+            raise TypeError("gather a group of a deferred leaf (d[g])")
+        regions = [_at_group(r, self.g) for r in self.regions]
+        with collectives.on_rank(self.rank):
+            if self.zero is not None and torch.is_grad_enabled():
+                return _GatherGroup.apply(self, regions, self.zero.token)
+            return self._assemble(regions)
+
+
+def gather_group(tree):
+    """A layer group's params with each ``Deferred`` leaf gathered (on
+    its model rank): run inside the function ``transformer.remat_group``
+    wraps, so that a rematerialized group drops its gathered blocks
+    after the forward and gathers them again in the recompute."""
+    if isinstance(tree, Deferred):
+        return tree.gather()
+    if isinstance(tree, dict):
+        return {k: gather_group(v) for k, v in tree.items()}
+    if isinstance(tree, Split):
+        return tree.like([gather_group(p) for p in tree.parts])
+    return tree
+
+
 def rank_params(cfg: ModelConfig, params, mesh, d: int,
                 plans: Optional[List[LeafPlan]] = None,
-                policy: ShardingPolicy = ShardingPolicy()):
+                policy: ShardingPolicy = ShardingPolicy(),
+                zero: Optional[ZeroPass] = None):
     """Data rank ``d``'s compute tree of ``params`` (``ShardedTensor``
     leaves under ``params_pspecs``) and its leaves: ``(tree, leaves)``,
     ``leaves[i][m]`` the tensor model rank m computes with for leaf i
-    (``tree_leaves`` order; None where the rank holds none of it)."""
+    (``tree_leaves`` order; None where the rank holds none of it), or,
+    for a ``per_group`` leaf, its ``Deferred`` gather (its gradient
+    lands through ``zero``, if given)."""
     from repro_torch.distributed.sharding import tree_map_with_path
     plans = plan_leaves(cfg, mesh, params, policy) if plans is None else \
         plans
@@ -536,6 +781,11 @@ def rank_params(cfg: ModelConfig, params, mesh, d: int,
         for m in range(group.tp):
             if plan.pieces[m] is None:
                 per.append(None)
+                continue
+            if plan.per_group:
+                per.append(Deferred(st, plan.pieces[m], plan.dim,
+                                    group.devices[m], group.ranks[m],
+                                    columns[m], zero, len(leaves), m))
                 continue
             with collectives.on_rank(group.ranks[m]):
                 per.append(_compute_leaf(st, plan, m, group.devices[m],
@@ -572,11 +822,15 @@ def block_grads(plans: List[LeafPlan], mesh, d: int,
     leaf i's model block j on its holder (the first data rank's position
     at coordinate j): ``acc[i][j] + g`` in data-rank order, ``g`` itself
     for the first.  A piece from another position is a
-    collective-permute received by the holder."""
+    collective-permute received by the holder.  A ``per_group`` leaf's
+    gradient lands on its blocks instead (``ZeroPass``): its entry is
+    left None here."""
     pos = model_positions(mesh)
     for i, plan in enumerate(plans):
         if d == 0:
-            acc.append([None] * len(plan.blocks))
+            acc.append(None if plan.per_group else [None] * len(plan.blocks))
+        if plan.per_group:
+            continue
         for j, region in enumerate(plan.blocks):
             holder = pos[0][j] if len(plan.blocks) > 1 else pos[0][0]
             dev = mesh.devices.flat[holder]
@@ -614,6 +868,109 @@ def _contribution(plan, region, grads, row, holder, dev, dtype):
     return out
 
 
+def _flat_boxes(shape, a: int, b: int) -> List[Tuple[int, Tuple[slice, ...]]]:
+    """Boxes covering the flat range [a, b) of ``shape`` (row-major), each
+    contiguous in that order: ``(offset from a, box)``."""
+    if a >= b:
+        return []
+    if len(shape) == 1:
+        return [(0, (slice(a, b),))]
+    inner = int(np.prod(shape[1:]))
+    full = tuple(slice(0, s) for s in shape[1:])
+    (i0, r0), (i1, r1) = divmod(a, inner), divmod(b, inner)
+
+    def row(i, lo, hi, at):
+        return [(at + o, (slice(i, i + 1),) + box)
+                for o, box in _flat_boxes(shape[1:], lo, hi)]
+
+    if i0 == i1:
+        return row(i0, r0, r1, 0)
+    out, at = [], 0
+    if r0:
+        out, at, i0 = row(i0, r0, inner, 0), inner - r0, i0 + 1
+    if i1 > i0:
+        out.append((at, (slice(i0, i1),) + full))
+        at += (i1 - i0) * inner
+    return out + (row(i1, 0, r1, at) if r1 else [])
+
+
+class ShardGrads:
+    """A ``per_group`` leaf's gradient on its FSDP blocks:
+    ``tensors[k]`` the gradient of the params' k-th block
+    (``ShardedTensor.blocks()`` order: ``index[k]`` on mesh position
+    ``holders[k]``), on that block's device: zeros that each data rank's
+    pass adds its landed groups into, in data-rank order (``ZeroPass``;
+    every pass does the same work, so a dry-run may replay one from
+    another).  Against ``block_grads``' first-rank copy this can only
+    turn a -0.0 into +0.0."""
+
+    def __init__(self, st: ShardedTensor):
+        blocks = st.blocks()
+        self.shape, self.dtype = tuple(st.shape), st.dtype
+        self.index = [sl for sl, _, _ in blocks]
+        self.holders = [i for _, _, i in blocks]
+        self.devices = [t.device for _, t, _ in blocks]
+        self.tensors = []
+        for sl, i, dev in zip(self.index, self.holders, self.devices):
+            with collectives.on_rank(i):
+                self.tensors.append(torch.zeros(
+                    [s.stop - s.start for s in sl], dtype=self.dtype,
+                    device=dev))
+
+    def add(self, k: int, g: int, c: torch.Tensor) -> None:
+        """Add ``c``, group g's slice of block k, in place."""
+        at = g - self.index[k][0].start
+        self.tensors[k][at:at + 1].add_(c)
+
+    def finish(self, n: int) -> None:
+        """The data ranks' mean (``n`` > 1), on each block's holder."""
+        if n > 1:
+            for k, t in enumerate(self.tensors):
+                with collectives.on_rank(self.holders[k]):
+                    t.div_(n)
+
+    def square_sum(self, region, rank: int, device) -> torch.Tensor:
+        """``optim.adamw._square_sum`` of the gradient's ``region`` (a
+        model block), as the whole block gives it: each flat run of
+        ``adamw.BLOCK`` elements assembled on ``device`` (rank
+        ``rank``; a piece another position holds is a
+        collective-permute) and square-summed, in order."""
+        from repro_torch.optim.adamw import BLOCK, _square_sum
+        shape = [s.stop - s.start for s in region]
+        numel = int(np.prod(shape))
+        near = [k for k, sl in enumerate(self.index)
+                if _overlap(sl, region) is not None]
+        total = None
+        for a in range(0, numel, BLOCK):
+            b = min(a + BLOCK, numel)
+            chunk = torch.empty(b - a, dtype=self.dtype, device=device)
+            for at, box in _flat_boxes(shape, a, b):
+                box = tuple(slice(r.start + x.start, r.start + x.stop)
+                            for r, x in zip(region, box))
+                dims = [s.stop - s.start for s in box]
+                out = chunk[at:at + int(np.prod(dims))].view(dims)
+                for k in near:
+                    sl = self.index[k]
+                    ov = _overlap(sl, box)
+                    if ov is None:
+                        continue
+                    if self.holders[k] != rank:
+                        collectives.record("collective-permute",
+                                           _nbytes(ov, self.dtype), 2, rank)
+                    out[_shift(ov, box)].copy_(
+                        self.tensors[k][_shift(ov, sl)].to(device))
+            s = _square_sum(chunk)
+            total = s if total is None else total + s
+        return total if total is not None else _square_sum(
+            torch.zeros(0, dtype=self.dtype, device=device))
+
+    def whole(self, device) -> torch.Tensor:
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for sl, t in zip(self.index, self.tensors):
+            out[sl] = t.to(device)
+        return out
+
+
 def local_split(cfg: ModelConfig, params, tp: int, device):
     """``params`` (whole tensors) split for ``tp`` model ranks that all
     run on ``device``: data rank 0's compute tree of a (1, tp) mesh of
@@ -627,8 +984,9 @@ def local_split(cfg: ModelConfig, params, tp: int, device):
     return rank_params(cfg, placed, mesh, 0)
 
 
-__all__ = ["LeafPlan", "ModelGroup", "SeqSplit", "Split", "VocabShards",
-           "block_grads", "gathered", "group_of", "head_owners", "kv_heads",
+__all__ = ["Deferred", "LeafPlan", "ModelGroup", "SeqSplit", "ShardGrads",
+           "Split", "VocabShards", "ZeroPass", "block_grads", "gather_group",
+           "gathered", "group_of", "head_owners", "kv_heads",
            "local_split", "model_blocks", "model_group", "model_positions",
            "plan_leaves", "q_heads", "rank_params", "reduce", "run",
-           "rwkv_heads", "smap", "take_region"]
+           "rwkv_heads", "smap", "spread", "take_region"]

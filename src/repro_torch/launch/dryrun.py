@@ -20,14 +20,18 @@ decode cells trace ``api.prefill_step`` / ``api.decode_step`` the way
 ``row_split`` and ``batch_pspecs`` over its model ranks
 (``tensor_parallel.rank_params``: each split sublayer, the MoE
 experts among them, on every model rank's block, the rest whole on the
-first), decode on its rows of the caches under ``cache_pspecs`` (a
+first; a layer-stack leaf that FSDP splits gathered a layer group at a
+time), decode on its rows of the caches under ``cache_pspecs`` (a
 ``Split`` of the model ranks' blocks where a split sublayer's cache
-splits over "model" by kv head or channel, a ``SeqSplit`` where an
-attention cache splits by sequence over "model" alone, else gathered
-whole), and rows that do not divide running whole once (each rank's
-MoE groups are those of its own tokens).  Every model rank of a data
-rank runs its share; the first also runs the residual stream, and the
-first data rank's positions hold and sum the gradients.
+splits over "model" by kv head or channel, a ``SeqSplit`` of its
+sequence blocks, each where it lies, where an attention cache splits
+by sequence over "model", and over "data" too, split attention or not;
+else the rows whole), and rows that do not divide running whole once
+(each rank's MoE groups are those of its own tokens).  Every model rank
+of a data rank runs its share; the first also runs the residual
+stream; the first data rank's positions hold and sum the gradients,
+but a layer-stack leaf that FSDP splits gets its gradient on its FSDP
+blocks' own positions.
 
 Per-device figures are the busiest device's: the device whose own
 FLOPs, bytes and collective bytes give the longest bound time at the
@@ -66,9 +70,10 @@ What each field is in the port:
 * ``memory``: ``argument_size_in_bytes`` the static bytes a device,
   ``output_size_in_bytes`` the busiest device's outputs allocated by the
   step, ``temp_size_in_bytes`` the peak of its live bytes allocated in
-  the step (outputs included while alive; the ZeRO-3 gather counts
-  here), tracked per storage; ``peak_all_devices_bytes`` the same over
-  every device (what one card holding every logical device would see).
+  the step (outputs included while alive; the ZeRO-3 gathers of the
+  layer group that runs count here), tracked per storage;
+  ``peak_all_devices_bytes`` the same over every device (what one card
+  holding every logical device would see).
 * ``collectives``: the bytes the single controller moves between
   logical ranks, by kind (``distributed/collectives.py`` gives each
   move's kind), under the reference's operand convention
@@ -111,8 +116,8 @@ from repro_torch.distributed.sharding import (NamedSharding, P,
                                               to_shardings,
                                               tree_map_with_path)
 from repro_torch.distributed.shard_train import (forward_devices,
-                                                 forward_ranks, row_split,
-                                                 train_step)
+                                                 forward_ranks, pass_ranks,
+                                                 row_split, train_step)
 from repro_torch.kernels import cuda
 from repro_torch.launch.analysis import (H100_HBM_BW,
                                          H100_NVLINK_BW_PER_LINK,
@@ -687,7 +692,7 @@ def serve_step(cfg, mesh, kind: str, params, batch, caches=None, pos=0):
             key, ranks[r], lambda: _serve_rank(cfg, kind, params, plans,
                                                caches, rows, pos, r, n,
                                                mesh, groups),
-            ranks=tp.model_group(mesh, r).ranks))
+            ranks=pass_ranks(mesh, r, n == 1 and len(devs) > 1)))
     return outs
 
 
@@ -712,26 +717,28 @@ def _rank_caches(cfg, caches, mesh, r: int, n: int):
     """Data rank ``r``'s rows of the decode caches: a ``Split`` of the
     model ranks' blocks where ``cache_pspecs`` splits a split
     sublayer's cache over "model" (attention k/v and cross-attention
-    xk/xv by kv head, Mamba's channels), a ``SeqSplit`` of their
-    sequence blocks where it splits a split attention's k/v or xk/xv by
-    sequence over "model" alone (each rank attends over its block:
-    ``attention._seq_split_decode_attn``, ``encdec.
-    _seq_split_cross_attn``), else the rows whole on the data rank's
-    device (a sequence also sharded over "data" is gathered as the
-    unsplit step gathers it; RWKV's state, replicated over "model", is
-    read by each head owner from its own replica)."""
+    xk/xv by kv head, Mamba's channels); a ``SeqSplit`` of the sequence
+    blocks where it splits an attention's k/v or xk/xv by sequence over
+    "model", whether or not the attention splits, each block left on
+    the rank that holds it: the data rank's model ranks, or, where the
+    sequence is sharded over the data axes too (a batch that does not
+    divide them), every (data, model) rank (``_seq_blocks``; each
+    holder attends over its block, ``attention._seq_split_decode_attn``,
+    ``encdec._seq_split_cross_attn``); else the rows whole on the data
+    rank's device (RWKV's state, replicated over "model", is read by
+    each head owner from its own replica)."""
     group = tp.model_group(mesh, r)
     columns = [set(row[m] for row in tp.model_positions(mesh))
                for m in range(group.tp)]
-    attn_split = group.tp > 1 and cfg.n_heads % group.tp == 0
 
     def one(path, st):
         name = path.rsplit("/", 1)[-1]
         spec = tuple(st.sharding.spec)
-        kind = tp.Split
-        if name in KV_CACHES and spec[2] == "model" and attn_split:
-            kind = tp.SeqSplit
-        elif not (group.tp > 1 and (
+        seq = spec[2] if name in KV_CACHES else None
+        if group.tp > 1 and "model" in (seq if isinstance(seq, tuple)
+                                         else (seq,)):
+            return _seq_blocks(st, mesh, group, r, n)
+        if not (group.tp > 1 and (
                 (name in KV_CACHES and spec[3] == "model")
                 or (name in ("conv", "ssm") and "model" in spec))):
             return _rows(st, 1, r, n, group.devices[0], group.ranks[0])
@@ -745,9 +752,34 @@ def _rank_caches(cfg, caches, mesh, r: int, n: int):
                 parts.append(tp.take_region(st, tuple(region),
                                             group.devices[m],
                                             group.ranks[m], columns[m]))
-        return kind(group, parts)
+        return tp.Split(group, parts)
 
     return tree_map_with_path(one, caches)
+
+
+def _seq_blocks(st: ShardedTensor, mesh, group, r: int, n: int):
+    """Data rank ``r``'s rows of a k/v cache sharded by sequence, as a
+    ``SeqSplit`` of its sequence blocks in order, each on the rank that
+    holds it (one of ``group``'s where one does): nothing moves."""
+    size = st.shape[1] // n
+    rows = slice(r * size, (r + 1) * size)
+    mine = set(group.ranks)
+    by_seq: Dict[tuple, int] = {}
+    for i, sl in enumerate(st.index):
+        if sl[1].start < rows.stop and rows.start < sl[1].stop:
+            k = (sl[2].start, sl[2].stop)
+            if k not in by_seq or (i in mine and by_seq[k] not in mine):
+                by_seq[k] = i
+    holders = [by_seq[k] for k in sorted(by_seq)]
+    owners = tp.ModelGroup(tuple(holders),
+                           tuple(mesh.devices.flat[i] for i in holders))
+    parts = []
+    for i, dev in zip(owners.ranks, owners.devices):
+        region = list(st.index[i])
+        region[1] = rows
+        with collectives.on_rank(i):
+            parts.append(tp.take_region(st, tuple(region), dev, i, {i}))
+    return tp.SeqSplit(owners, parts)
 
 
 def build_cell(cfg, shape_name: str, mesh, policy=ShardingPolicy()):

@@ -193,10 +193,11 @@ def decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     its heads, on its kv heads' block of the caches (a ``Split``, or
     whole caches: each rank reads its kv heads, and the new rows go
     back whole), or on its sequence block of every kv head (a
-    ``SeqSplit``: ``_seq_split_decode_attn``)."""
+    ``SeqSplit``: ``_seq_split_decode_attn``, whether or not ``p`` is
+    split)."""
+    if isinstance(cache_k, tp.SeqSplit):
+        return _seq_split_decode_attn(cfg, p, x, cache_k, cache_v, pos)
     if isinstance(p, tp.Split):
-        if isinstance(cache_k, tp.SeqSplit):
-            return _seq_split_decode_attn(cfg, p, x, cache_k, cache_v, pos)
         return _split_decode_attn(cfg, p, x, cache_k, cache_v, pos)
     B = x.shape[0]
     Dh = cfg.head_dim
@@ -263,18 +264,22 @@ def _split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
 
 
 def _seq_split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
-    """Flash-decode over a cache split by sequence (``SeqSplit``): each
-    model rank computes its query heads' q and its kv heads' new rows;
-    the new rows (every kv head, from the first rank that has it) and q
-    (every query head) are gathered to every rank; each rank writes the
-    rows whose position falls in its block and computes, for every query
-    head over its block under the position mask, the (max, sum, out)
-    partials of the mergeable softmax; an all-to-all hands each rank its
-    heads' partials, merged in rank order, into its rows of ``wo``, and
-    the ranks' outputs are summed as ``_split_decode_attn``'s.  The
-    cache never moves, and every rank does the same work whatever the
-    positions."""
-    g = p.group
+    """Flash-decode over a cache split by sequence (``SeqSplit``, over
+    the ranks that hold its blocks: a data rank's model ranks, or every
+    (data, model) rank where the sequence is sharded over both axes).
+    With ``p`` a ``Split`` each model rank computes its query heads' q
+    and its kv heads' new rows, and the new rows (every kv head, from
+    the first rank that has it) and q (every query head) are gathered
+    to every model rank; with ``p`` whole (its heads do not divide the
+    model degree) the stream's rank computes them.  Each holder of a
+    block not among those gets them from the rank of its model
+    coordinate (``tensor_parallel.spread``), writes the rows whose
+    position falls in its block and computes, for every query head over
+    its block under the position mask, the (max, sum, out) partials of
+    the mergeable softmax, which ``merge_partials`` merges in block
+    order.  The cache never moves, and every holder does the same work
+    whatever the positions."""
+    c = cache_k.group
     B, Dh = x.shape[0], cfg.head_dim
     pos_b1 = positions_b1(pos, B, x.device)
 
@@ -282,17 +287,25 @@ def _seq_split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
         q, k, v = _qkv(cfg, q_p, xm, positions=pm)
         return q[:, 0], k[:, 0], v[:, 0]
 
-    proj = tp.run(g, p.parts, project, x, pos_b1)
-    # each kv head from the first rank that has it (none from the rest)
-    own, upto = [], 0
-    for m in range(g.tp):
-        a, b = tp.kv_heads(cfg, g.tp, m)
-        own.append(slice(max(upto, a) - a, max(b, upto) - a))
-        upto = max(upto, b)
-    new_k, new_v = (collectives.all_gather(
-        [o[i][:, sl] for o, sl in zip(proj, own)], 1, g.ranks)
-        for i in (1, 2))
-    q_all = collectives.all_gather([o[0] for o in proj], 1, g.ranks)
+    if isinstance(p, tp.Split):
+        g = p.group
+        proj = tp.run(g, p.parts, project, x, pos_b1)
+        # each kv head from the first rank that has it (none from the rest)
+        own, upto = [], 0
+        for m in range(g.tp):
+            a, b = tp.kv_heads(cfg, g.tp, m)
+            own.append(slice(max(upto, a) - a, max(b, upto) - a))
+            upto = max(upto, b)
+        new_k, new_v = (collectives.all_gather(
+            [o[i][:, sl] for o, sl in zip(proj, own)], 1, g.ranks)
+            for i in (1, 2))
+        q_all = collectives.all_gather([o[0] for o in proj], 1, g.ranks)
+        src = g.ranks
+    else:
+        q_all, new_k, new_v = ([t] for t in project(0, p, x, pos_b1))
+        src = (collectives.current_rank(),)
+    q_all, new_k, new_v = (tp.spread(t, src, c)
+                           for t in (q_all, new_k, new_v))
 
     def block(m, _, pm, ck, cv, q, nk, nv):
         n = ck.shape[1]
@@ -316,9 +329,9 @@ def _seq_split_decode_attn(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
             torch.float32)
         return (ck, cv) + softmax_partials(cfg, s, cv, sd)
 
-    outs = tp.run(g, None, block, pos_b1, list(cache_k.parts),
+    outs = tp.run(c, None, block, pos_b1, list(cache_k.parts),
                   list(cache_v.parts), q_all, new_k, new_v)
-    return (merge_partials(cfg, p, x, outs),
+    return (merge_partials(cfg, p, x, outs, c.ranks),
             cache_k.like([r[0] for r in outs]),
             cache_v.like([r[1] for r in outs]))
 
@@ -336,28 +349,46 @@ def softmax_partials(cfg: ModelConfig, s, v, sd):
             o.reshape(B, -1, cfg.head_dim))
 
 
-def merge_partials(cfg: ModelConfig, p, x, outs):
-    """The attention's output from each model rank's ``softmax_partials``
-    over its sequence block (the last three entries of ``outs[m]``): an
-    all-to-all hands each rank its query heads' partials, merged in rank
-    order into its rows of ``wo`` (``p`` a ``Split``), and the ranks'
-    products are summed."""
+def _merged(mx, l, o, dtype):
+    """Stacked partials (n, B, H), (n, B, H), (n, B, H, Dh) of ``n``
+    blocks merged in block order: (B, 1, H, Dh)."""
+    top = mx[0]
+    for r in range(1, mx.shape[0]):
+        top = torch.maximum(top, mx[r])
+    scale = torch.exp(mx - top)                   # (n, B, H)
+    den, num = l[0] * scale[0], o[0] * scale[0][..., None]
+    for r in range(1, mx.shape[0]):
+        den = den + l[r] * scale[r]
+        num = num + o[r] * scale[r][..., None]
+    B, Dh = o.shape[1], o.shape[-1]
+    return (num / den[..., None]).reshape(B, 1, -1, Dh).to(dtype)
+
+
+def merge_partials(cfg: ModelConfig, p, x, outs, ranks):
+    """The attention's output from the ``softmax_partials`` of each
+    block (the last three entries of ``outs[b]``; ``ranks`` their
+    holders), merged in block order.  With
+    ``p`` a ``Split`` each model rank gets its query heads' partials of
+    every block (an all-to-all) and merges them into its rows of ``wo``,
+    and the ranks' products are summed; with ``p`` whole every block's
+    partials go to the stream's rank (collective-permutes), which merges
+    them and applies ``wo``."""
+    if not isinstance(p, tp.Split):
+        rank = collectives.current_rank()
+        for r, held in zip(ranks, outs):
+            if r != rank:
+                collectives.record("collective-permute", sum(
+                    t.numel() * t.element_size() for t in held[-3:]), 2,
+                    rank)
+        mx, l, o = (torch.stack([r[i].to(x.device) for r in outs])
+                    for i in (-3, -2, -1))
+        return _merge_heads(cfg, p, _merged(mx, l, o, x.dtype))
     g = p.group
-    B, Dh = x.shape[0], cfg.head_dim
-    mx, l, o = (collectives.all_to_all([r[i] for r in outs], 1, g.ranks)
-                for i in (-3, -2, -1))
+    mx, l, o = (collectives.all_to_all([r[i] for r in outs], 1, g.ranks,
+                                       g.devices) for i in (-3, -2, -1))
 
     def merge(m, q_p, mx, l, o):
-        top = mx[0]
-        for r in range(1, g.tp):
-            top = torch.maximum(top, mx[r])
-        scale = torch.exp(mx - top)               # (tp, B, Hq/tp)
-        den, num = l[0] * scale[0], o[0] * scale[0][..., None]
-        for r in range(1, g.tp):
-            den = den + l[r] * scale[r]
-            num = num + o[r] * scale[r][..., None]
-        out = (num / den[..., None]).reshape(B, 1, -1, Dh).to(x.dtype)
-        return _merge_heads(cfg, q_p, out)
+        return _merge_heads(cfg, q_p, _merged(mx, l, o, x.dtype))
 
     merged = tp.run(g, p.parts, merge, mx, l, o)
     return tp.reduce(g, [r[0] for r in merged])

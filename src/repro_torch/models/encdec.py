@@ -77,6 +77,7 @@ def encode(cfg: ModelConfig, params, embeds):
         x = x + _sinusoidal(cfg, positions)
 
     def body(p, x):
+        p = tp.gather_group(p)
         with stream_rank(p):
             h = apply_norm(cfg, p["ln1"], x)
             out, _ = attn_mod.attn_block(cfg, p["attn"], h, positions,
@@ -127,6 +128,7 @@ def decode_full(cfg: ModelConfig, params, enc_out, tokens,
         x = x + _sinusoidal(cfg, positions)
 
     def body(p, x):
+        p = tp.gather_group(p)
         with stream_rank(p):
             h = apply_norm(cfg, p["ln1"], x)
             out, (k, v) = attn_mod.attn_block(cfg, p["self_attn"], h,
@@ -191,7 +193,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
         x = x + _sinusoidal(cfg, attn_mod.positions_b1(pos, B, x.device))
     outs = []
     for g in range(cfg.n_layers):
-        p = _group(params["dec_blocks"], g)
+        p = tp.gather_group(_group(params["dec_blocks"], g))
         c = _group(caches, g)
         h = apply_norm(cfg, p["ln1"], x)
         out, ck, cv = attn_mod.decode_attn(cfg, p["self_attn"], h,
@@ -216,10 +218,10 @@ def _cached_cross_attn(cfg: ModelConfig, p, x, k, v):
     of ``wo``, the ranks' outputs summed; or, over a cache split by
     sequence (a ``SeqSplit``), every query head against each rank's
     block where it lies, the softmax partials merged
-    (``attention.merge_partials``)."""
+    (``attention.merge_partials``), ``p`` split or whole."""
+    if isinstance(k, tp.SeqSplit):
+        return _seq_split_cross_attn(cfg, p, x, k, v)
     if isinstance(p, tp.Split):
-        if isinstance(k, tp.SeqSplit):
-            return _seq_split_cross_attn(cfg, p, x, k, v)
         g = p.group
         if not isinstance(k, tp.Split):
             heads = [tp.kv_heads(cfg, g.tp, m) for m in range(g.tp)]
@@ -253,16 +255,23 @@ def _scaled(cfg: ModelConfig, q, n_kv: int):
 
 
 def _seq_split_cross_attn(cfg: ModelConfig, p, x, k, v):
-    """Cross-attention over a frozen cache split by sequence: each rank
-    computes its query heads' q, q is gathered to every rank, each rank
-    takes the (max, sum, out) partials of every query head over its
-    block (every position valid, nothing written), and
-    ``attention.merge_partials`` merges them into each rank's heads and
-    sums the ranks' ``wo`` products."""
-    g = p.group
-    q = collectives.all_gather([o[0] for o in tp.run(
-        g, p.parts, lambda m, q_p, xm: _cross_q(cfg, q_p, xm), x)], 1,
-        g.ranks)
+    """Cross-attention over a frozen cache split by sequence: each model
+    rank computes its query heads' q and q is gathered to every model
+    rank (``p`` a ``Split``), or the stream's rank computes all of it
+    (``p`` whole); each holder of a block gets q from the rank of its
+    model coordinate (``tensor_parallel.spread``) and takes the (max,
+    sum, out) partials of every query head over its block (every
+    position valid, nothing written), which ``attention.merge_partials``
+    merges in block order."""
+    c = k.group
+    if isinstance(p, tp.Split):
+        g = p.group
+        q = collectives.all_gather([o[0] for o in tp.run(
+            g, p.parts, lambda m, q_p, xm: _cross_q(cfg, q_p, xm), x)], 1,
+            g.ranks)
+        src = g.ranks
+    else:
+        q, src = [_cross_q(cfg, p, x)], (collectives.current_rank(),)
 
     def block(m, _, km, vm, qm):
         s = torch.einsum("bhgd,bkhd->bhgk", _scaled(cfg, qm, km.shape[2]),
@@ -270,7 +279,8 @@ def _seq_split_cross_attn(cfg: ModelConfig, p, x, k, v):
         return attn_mod.softmax_partials(cfg, s, vm, torch.float32)
 
     return attn_mod.merge_partials(cfg, p, x, tp.run(
-        g, None, block, list(k.parts), list(v.parts), q))
+        c, None, block, list(k.parts), list(v.parts), tp.spread(q, src, c)),
+        c.ranks)
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -300,7 +300,9 @@ def _group(tree, g: int):
 
 
 def _unbind_groups(blocks, n: int):
-    """The stacked params as ``n`` per-group trees (views)."""
+    """The stacked params as ``n`` per-group trees (views; a
+    ``tensor_parallel.Deferred`` leaf as its groups, not yet gathered:
+    ``tensor_parallel.gather_group`` gathers a group where it runs)."""
     if isinstance(blocks, dict):
         per = {k: _unbind_groups(v, n) for k, v in blocks.items()}
         return [{k: per[k][g] for k in blocks} for g in range(n)]
@@ -308,12 +310,19 @@ def _unbind_groups(blocks, n: int):
         # on each model rank (the backward's stack of the groups'
         # gradients is that rank's work)
         keys = sorted(blocks.parts[0])
-        per = tp.run(blocks.group, blocks.parts, lambda m, part: tuple(
-            t for k in keys for t in (
-                (None,) * n if part[k] is None else part[k].unbind(0))))
-        return [tp.Split(blocks.group, [
-            {k: views[i * n + g] for i, k in enumerate(keys)}
-            for views in per]) for g in range(n)]
+        lazy = {k for k in keys if any(isinstance(p[k], tp.Deferred)
+                                       for p in blocks.parts)}
+        eager = [k for k in keys if k not in lazy]
+        per = tp.run(blocks.group, [{k: p[k] for k in eager}
+                                    for p in blocks.parts],
+                     lambda m, part: tuple(t for k in eager for t in (
+                         (None,) * n if part[k] is None
+                         else part[k].unbind(0)))) if eager else \
+            [()] * blocks.group.tp
+        return [tp.Split(blocks.group, [dict(
+            {k: views[i * n + g] for i, k in enumerate(eager)},
+            **{k: None if p[k] is None else p[k][g] for k in lazy})
+            for views, p in zip(per, blocks.parts)]) for g in range(n)]
     return blocks.unbind(0)
 
 
@@ -336,6 +345,7 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache: bool = False,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def group_body(gp, x, aux):
+        gp = tp.gather_group(gp)
         caches = {}
         with stream_rank(gp):
             for i, (kind, use_moe) in enumerate(period):
@@ -433,7 +443,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos, *,
         x = x + _sinusoidal(cfg, attn_mod.positions_b1(pos, B, x.device))
     outs = []
     for g in range(_n_groups(cfg)):
-        gp = _group(params["blocks"], g)
+        gp = tp.gather_group(_group(params["blocks"], g))
         gc = _group(caches, g)
         new_cache = {}
         for i, (kind, use_moe) in enumerate(period):

@@ -492,4 +492,4 @@ def test_chip_smoke_pins_the_reference_static_bytes(ref):
         sys.path.remove(str(REPO))
     for arch, shape, mesh, _ in chip_smoke.DRYRUN_CELLS:
         want = ref["cells"][f"{arch}|{shape}|{mesh == 'multi'}"]
-        assert chip_smoke.DRYRUN_STATIC[arch] == want["static"]
+        assert chip_smoke.DRYRUN_STATIC[arch, shape] == want["static"]
